@@ -2,6 +2,7 @@
 """On-card smoke of the PyTorch/H100 port (``src/repro_torch``).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --tile-sweep [--out sweep.json]
 
 Needs one CUDA card and the CUDA toolkit.  It imports only the port, never
 JAX nor the JAX package, and runs five phases, each printing its own
@@ -26,6 +27,12 @@ line(s); any failure exits non-zero:
 5. summary — a JSON line of the kernels, the ``nvidia-smi`` name and
    power limit, and the result line.
 
+``--tile-sweep`` runs only the device and build phases, then times the
+hand kernel in bf16 with each of the 24 tiles of ``build.SWEEP_TILES``
+(a second library holds those not compiled for the main path) at every
+main-path shape and prints, per shape, the tile ``runtime.hopper_tiles``
+picks and the fastest one (``--out`` writes all times as JSON).
+
 Tolerances: integer results are bit-exact (wrapping int32, as XLA);
 float32 results within the kernel registry's atol 1e-3; bf16 results
 within ``2^-7 * |ref| + 1e-3``, one bf16 rounding step of the output
@@ -36,7 +43,6 @@ there).
 
 from __future__ import annotations
 
-import itertools
 import json
 import re
 import subprocess
@@ -62,17 +68,21 @@ ARCH = "qwen1.5-0.5b"
 SLOTS, MAX_SEQ, REQUESTS, MAX_NEW = 4, 128, 8, 8
 
 #: the serving GEMMs of the main path (prefill of a 12-token prompt and a
-#: 4-lane decode step), as (site, kind, shape, B column-major)
+#: 4-lane decode step), as (site, kind, shape, B column-major, launches
+#: in one decode step of the 24-layer model)
 MAIN_SHAPES = (
-    ("attn.q/k/v/out, prefill", "mm", (12, 1024, 1024), False),
-    ("mlp.gate/up, prefill", "mm", (12, 2816, 1024), False),
-    ("mlp.down, prefill", "mm", (12, 1024, 2816), False),
-    ("lm_head, decode", "mm", (4, 151936, 1024), True),
-    ("attn.q/k/v/out, decode", "mm", (4, 1024, 1024), False),
-    ("attn.decode_scores", "bmm", (64, 1, 128, 64), False),
-    ("attn.decode_values", "bmm", (64, 1, 64, 128), False),
-    ("attn.scores, prefill", "bmm", (16, 12, 12, 64), False),
-    ("attn.values, prefill", "bmm", (16, 12, 64, 12), False),
+    ("attn.q/k/v/out, prefill", "mm", (12, 1024, 1024), False, 0),
+    ("mlp.gate/up, prefill", "mm", (12, 2816, 1024), False, 0),
+    ("mlp.down, prefill", "mm", (12, 1024, 2816), False, 0),
+    ("lm_head, prefill", "mm", (1, 151936, 1024), True, 0),
+    ("attn.q/k/v/out, decode", "mm", (4, 1024, 1024), False, 96),
+    ("mlp.gate/up, decode", "mm", (4, 2816, 1024), False, 48),
+    ("mlp.down, decode", "mm", (4, 1024, 2816), False, 24),
+    ("lm_head, decode", "mm", (4, 151936, 1024), True, 1),
+    ("attn.decode_scores", "bmm", (64, 1, 128, 64), False, 24),
+    ("attn.decode_values", "bmm", (64, 1, 64, 128), False, 24),
+    ("attn.scores, prefill", "bmm", (16, 12, 12, 64), False, 0),
+    ("attn.values, prefill", "bmm", (16, 12, 64, 12), False, 0),
 )
 RAGGED_SHAPES = (("mm", (61, 126, 37)), ("mm", (1, 300, 77)),
                  ("bmm", (3, 61, 126, 37)), ("bmm", (5, 7, 33, 130)))
@@ -127,14 +137,14 @@ def operands(torch, gen, kind, shape, dtype, col_major):
     return a, b
 
 
-def kernel_call(kind, shape, dtype, out_dtype=None):
+def kernel_call(kind, shape, dtype, col_major, out_dtype=None):
     """The hand kernel at the tile the planner picks for this shape."""
     from repro_torch.kernels import bmm, planned, runtime, widesa_mm
 
     plan = planned.plan_for(kind, shape, planned.dtype_name(dtype))
     if plan is None:
         fail(f"no feasible plan for {kind}{shape} {dtype}")
-    tiles = runtime.hopper_tiles(plan).tile
+    tiles = runtime.hopper_tiles(plan, b_col_major=col_major).tile
     fn = widesa_mm.matmul if kind == "mm" else bmm.bmm
     return (lambda a, b: fn(a, b, tiles=tiles, out_dtype=out_dtype)), tiles
 
@@ -160,14 +170,14 @@ def parity(torch) -> None:
     gen = torch.Generator(device="cuda").manual_seed(1)
     dtypes = (torch.float32, torch.bfloat16, torch.int8, torch.int16,
               torch.int32)
-    cases = [(kind, shape, col) for _, kind, shape, col in MAIN_SHAPES]
+    cases = [(kind, shape, col) for _, kind, shape, col, _ in MAIN_SHAPES]
     cases += [(kind, shape, False) for kind, shape in RAGGED_SHAPES]
     cases += [("mm", (61, 126, 37), True)]
     n = 0
     for dtype in dtypes:
         for kind, shape, col in cases:
             a, b = operands(torch, gen, kind, shape, dtype, col)
-            fn, tiles = kernel_call(kind, shape, dtype)
+            fn, tiles = kernel_call(kind, shape, dtype, col)
             plain = ref.mm if kind == "mm" else ref.bmm
             out, want = fn(a, b), plain(a, b)
             torch.cuda.synchronize()
@@ -179,8 +189,7 @@ def parity(torch) -> None:
     # ragged mm (column-major B) and a ragged bmm
     from repro_torch.kernels import bmm, build, widesa_mm
 
-    for tiles in itertools.product(build.COMPILED_BM, build.COMPILED_BN,
-                                   build.COMPILED_BK):
+    for tiles in build.COMPILED_TILES:
         for dtype in dtypes:
             for kind, shape, col in (("mm", (61, 126, 37), True),
                                      ("bmm", (3, 61, 126, 37), False)):
@@ -195,11 +204,12 @@ def parity(torch) -> None:
                          f"{err}")
                 n += 1
     # attention scores: bf16 operands, the fp32 accumulator flushed as is
-    for _, kind, shape, _ in MAIN_SHAPES:
+    for _, kind, shape, *_ in MAIN_SHAPES:
         if kind != "bmm":
             continue
         a, b = operands(torch, gen, kind, shape, torch.bfloat16, False)
-        fn, tiles = kernel_call(kind, shape, torch.bfloat16, torch.float32)
+        fn, tiles = kernel_call(kind, shape, torch.bfloat16, False,
+                                torch.float32)
         out, want = fn(a, b), ref.bmm(a, b, torch.float32)
         torch.cuda.synchronize()
         err, ok = max_error(torch, out, want, torch.float32)
@@ -248,10 +258,10 @@ def timings(torch) -> dict:
 
     gen = torch.Generator(device="cuda").manual_seed(2)
     rows = {}
-    for site, kind, shape, col in MAIN_SHAPES:
+    for site, kind, shape, col, _ in MAIN_SHAPES:
         out_dtype = torch.float32 if "scores" in site else None
         a, b = operands(torch, gen, kind, shape, torch.bfloat16, col)
-        fn, tiles = kernel_call(kind, shape, torch.bfloat16, out_dtype)
+        fn, tiles = kernel_call(kind, shape, torch.bfloat16, col, out_dtype)
         plain = ref.mm if kind == "mm" else ref.bmm
         lib = torch.matmul if kind == "mm" else torch.bmm
         out, want = fn(a, b), plain(a, b, out_dtype)
@@ -273,6 +283,40 @@ def timings(torch) -> dict:
               f"torch.{lib.__name__} {row['library_ms']:.4f} ms, bound "
               f"{row['bound_ms']:.4f} ms ({row['bound_by']})", flush=True)
         del a, b, out, want
+    # the GEMM share of one decode step, from the per-shape times
+    step = {key: sum(n * rows[(kind, shape)][key]
+                     for _, kind, shape, _, n in MAIN_SHAPES)
+            for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    print(f"time: the {sum(s[-1] for s in MAIN_SHAPES)} GEMMs of a 4-lane "
+          f"decode step, summed from the lines above: kernel "
+          f"{step['ms']:.4f} ms, plain {step['plain_ms']:.4f} ms, library "
+          f"{step['library_ms']:.4f} ms, bound {step['bound_ms']:.4f} ms",
+          flush=True)
+    return rows
+
+
+def tile_sweep(torch) -> list[dict]:
+    """Every sweep tile at every main-path shape, bf16."""
+    from repro_torch.kernels import bmm, build, planned, runtime, widesa_mm
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    tiles = build.SWEEP_TILES
+    rows = []
+    for site, kind, shape, col, _ in MAIN_SHAPES:
+        a, b = operands(torch, gen, kind, shape, torch.bfloat16, col)
+        fn = widesa_mm.matmul if kind == "mm" else bmm.bmm
+        times = {t: time_ms(torch, lambda t=t: fn(a, b, tiles=t))
+                 for t in tiles}
+        picked = runtime.hopper_tiles(
+            planned.plan_for(kind, shape, "bfloat16"), b_col_major=col).tile
+        best = min(times, key=times.get)
+        rows.append(dict(site=site, kind=kind, shape=shape, picked=picked,
+                         best=best, times={str(t): ms
+                                           for t, ms in times.items()}))
+        print(f"sweep {kind}{shape} [{site}]: picked {picked} "
+              f"{times[picked]:.4f} ms, fastest {best} {times[best]:.4f} ms",
+              flush=True)
+        del a, b
     return rows
 
 
@@ -412,8 +456,18 @@ def profile_decode(torch, eng) -> None:
 # main
 # ---------------------------------------------------------------------------
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import torch
+
+    ap = argparse.ArgumentParser(description="On-card smoke of the port.")
+    ap.add_argument("--tile-sweep", action="store_true",
+                    help="only time every sweep tile at the main-path "
+                         "shapes")
+    ap.add_argument("--out", help="with --tile-sweep: write the times here "
+                                  "as JSON")
+    args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke runs only on the card",
@@ -441,6 +495,15 @@ def main() -> int:
           f"{max(regs, default=0)} registers a thread, "
           f"{sum(int(x) for x in spills)} bytes of spill stores)", flush=True)
 
+    if args.tile_sweep:
+        t0 = time.perf_counter()
+        build.library(sweep=True)
+        print(f"build: sweep library ({len(build.SWEEP_TILES)} tiles) ready "
+              f"in {time.perf_counter() - t0:.1f} s", flush=True)
+        rows = tile_sweep(torch)
+        if args.out:
+            Path(args.out).write_text(json.dumps(rows, indent=1))
+        return 0
     parity(torch)
     rows = timings(torch)
     print("kernels: widesa_mm (B1, widesa_mm.py mm_kernel -> cuda), bmm "

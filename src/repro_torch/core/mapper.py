@@ -256,8 +256,8 @@ def best_plan(rec: UniformRecurrence, target: Target = Target(),
     ``("pallas", "modelled")`` — the port runs a ``pallas`` stamp on its
     hand-written Hopper kernel.
 
-    ``policy`` is a ``core.autotune.PlanPolicy`` (or None == modelled);
-    only the modelled mode exists in the port so far.  Fused chains and
+    ``policy`` is a ``core.autotune.PlanPolicy`` (or None); its only
+    mode in the port is modelled.  Fused chains and
     hierarchical targets (the reference's ``fusion``/``hierarchy``
     planners) are not ported yet and raise ``NotImplementedError``.
     """
@@ -267,10 +267,6 @@ def best_plan(rec: UniformRecurrence, target: Target = Target(),
     if getattr(target, "outer_shape", None) is not None:
         raise NotImplementedError(
             "hierarchical targets are not planned by the port yet")
-    if policy is not None and policy.mode != "modelled":
-        raise NotImplementedError(
-            f"PlanPolicy(mode={policy.mode!r}) needs a crossover table "
-            "measured on this device; the port plans modelled only")
     # top_k=1: a cache hit copies one plan, not the default five
     plans = map_recurrence(rec, target, top_k=1)
     if not plans:

@@ -34,6 +34,6 @@ def bmm(a: torch.Tensor, b: torch.Tensor, *, tiles: tuple[int, int, int],
         build.call("widesa_bmm_launch", a.data_ptr(), b.data_ptr(),
                    out.data_ptr(), z, m, n, k, col_major,
                    build.DTYPE_CODES[a.dtype], build.DTYPE_CODES[out_dtype],
-                   *tiles)
+                   tiles=tuple(tiles))
     launches += 1
     return out

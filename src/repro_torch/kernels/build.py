@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import itertools
 import os
 import shutil
 import subprocess
@@ -49,11 +50,21 @@ COMPILED_DTYPES = frozenset({
     (torch.int32, torch.int32),
 })
 
-#: the compiled tile extents (``WIDESA_TILE`` in csrc/widesa_mm.cu): any
-#: (BM, BN, BK) drawn from these three tuples is a compiled tile
-COMPILED_BM = (1, 4, 16, 64)
-COMPILED_BN = (32, 64, 128)
-COMPILED_BK = (8, 32)
+#: the compiled (BM, BN, BK) tiles (``launch_dtype`` in csrc/widesa_mm.cu):
+#: for each row count BM, the narrowest BN that still gives a block of
+#: 128 threads, with a K slice of 8 (for a column-major B) or 32
+COMPILED_TILES = (
+    (1, 128, 8), (1, 128, 32),
+    (4, 32, 8), (4, 32, 32),
+    (16, 32, 8), (16, 32, 32),
+    (64, 32, 8), (64, 32, 32),
+)
+COMPILED_BM = tuple(sorted({t[0] for t in COMPILED_TILES}))
+
+#: the tiles ``chip_smoke.py --tile-sweep`` times: every (BM, BN, BK) of
+#: these extents.  A launch at one outside COMPILED_TILES loads a second
+#: library, built with ``-DWIDESA_SWEEP_TILES`` on first use.
+SWEEP_TILES = tuple(itertools.product((1, 4, 16, 64), (32, 64, 128), (8, 32)))
 
 _ENTRY_ARGS = {
     "widesa_mm_launch": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9
@@ -62,7 +73,7 @@ _ENTRY_ARGS = {
     + [ctypes.c_void_p],
 }
 
-_LIB: ctypes.CDLL | None = None
+_LIBS: dict[bool, ctypes.CDLL] = {}
 
 #: what the last compile printed (register and shared-memory use per
 #: kernel, from ``-Xptxas -v``) and how long it took, in seconds
@@ -80,11 +91,13 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
-def library_path() -> Path:
-    """Build the shared library if this source has not been built yet."""
+def library_path(sweep: bool = False) -> Path:
+    """Build the shared library (with every SWEEP_TILES tile when
+    ``sweep``) if this source has not been built yet."""
     global build_log, build_seconds
+    flags = NVCC_FLAGS + (("-DWIDESA_SWEEP_TILES",) if sweep else ())
     digest = hashlib.sha1(
-        SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+        SOURCE.read_bytes() + " ".join(flags).encode()).hexdigest()[:12]
     out = BUILD_DIR / f"libwidesa_mm-{digest}.so"
     if out.exists():
         return out
@@ -92,7 +105,7 @@ def library_path() -> Path:
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     t0 = time.perf_counter()
     proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+        [_nvcc(), *flags, "-o", str(tmp), str(SOURCE)],
         capture_output=True, text=True)
     build_seconds = time.perf_counter() - t0
     build_log = proc.stdout + proc.stderr
@@ -102,27 +115,26 @@ def library_path() -> Path:
     return out
 
 
-def library() -> ctypes.CDLL:
+def library(sweep: bool = False) -> ctypes.CDLL:
     """The loaded kernel library, built at first use."""
-    global _LIB
-    if _LIB is None:
-        lib = ctypes.CDLL(str(library_path()))
+    if sweep not in _LIBS:
+        lib = ctypes.CDLL(str(library_path(sweep)))
         for name, argtypes in _ENTRY_ARGS.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
         lib.widesa_error_string.argtypes = [ctypes.c_int]
         lib.widesa_error_string.restype = ctypes.c_char_p
-        _LIB = lib
-    return _LIB
+        _LIBS[sweep] = lib
+    return _LIBS[sweep]
 
 
-def call(entry: str, *args) -> None:
-    """Launch one kernel entry point on the current stream; raise if the
-    launch was refused."""
-    lib = library()
+def call(entry: str, *args, tiles: tuple[int, int, int]) -> None:
+    """Launch one kernel entry point at ``tiles`` on the current stream;
+    raise if the launch was refused."""
+    lib = library(sweep=tiles not in COMPILED_TILES)
     stream = torch.cuda.current_stream().cuda_stream
-    err = getattr(lib, entry)(*args, stream)
+    err = getattr(lib, entry)(*args, *tiles, stream)
     if err != 0:
         raise RuntimeError(
             f"{entry} failed: CUDA error {err} "

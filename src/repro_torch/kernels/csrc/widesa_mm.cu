@@ -15,7 +15,7 @@
 // flushes once to the output dtype.  The block masks the ragged edges of
 // every dimension itself, so the wrapper makes no padding copies (the
 // reference's ops.matmul / ops.bmm pad operands to the plan tiles).  The
-// plan's tiles pick one of the compiled (BM, BN, BK) shapes
+// plan's row tile and B's layout pick one of the compiled (BM, BN, BK) shapes
 // (repro_torch/kernels/runtime.py: hopper_tiles); the grid's x dimension walks
 // the M tiles, so blocks that share a B tile run next to each other and
 // share it through L2.
@@ -184,8 +184,11 @@ int launch_tile(const Args& x) {
   return (int)cudaGetLastError();
 }
 
-// The compiled tiles: BM in {1, 4, 16, 64}, BN in {32, 64, 128}, BK in {8, 32}
-// (kept equal to HOPPER_BM / HOPPER_BN / HOPPER_BK in runtime.py).
+// The compiled tiles: for each BM, the narrowest BN that still gives a block
+// of 128 threads, with BK = 8 or 32 (kept equal to COMPILED_TILES in
+// repro_torch/kernels/build.py).  With WIDESA_SWEEP_TILES, every BM x BN x BK
+// of {1, 4, 16, 64} x {32, 64, 128} x {8, 32} instead (SWEEP_TILES), for
+// timing the tile choice.
 #define WIDESA_TILE(BM_, BN_, BK_) \
   if (bm == BM_ && bn == BN_ && bk == BK_) return launch_tile<TIn, TOut, BM_, BN_, BK_>(x);
 #define WIDESA_BK(BM_, BN_) WIDESA_TILE(BM_, BN_, 8) WIDESA_TILE(BM_, BN_, 32)
@@ -193,10 +196,17 @@ int launch_tile(const Args& x) {
 
 template <typename TIn, typename TOut>
 int launch_dtype(int bm, int bn, int bk, const Args& x) {
+#ifdef WIDESA_SWEEP_TILES
   WIDESA_BN(1)
   WIDESA_BN(4)
   WIDESA_BN(16)
   WIDESA_BN(64)
+#else
+  WIDESA_BK(1, 128)
+  WIDESA_BK(4, 32)
+  WIDESA_BK(16, 32)
+  WIDESA_BK(64, 32)
+#endif
   return (int)cudaErrorInvalidValue;
 }
 

@@ -13,7 +13,10 @@ decision with the same reason at every call site:
   * mismatched or unsupported operand dtypes -> ``"dtype:AxB"``;
   * shapes the mapper has no feasible plan for -> ``"infeasible"``.
 
-A fallback runs the plain PyTorch version in ``ref.py``.  The port's
+A fallback runs the plain PyTorch version in ``ref.py`` for tensors on
+the CPU.  Off the CPU only the explicit ``"disabled"`` switch runs it: a
+card tensor whose call has no plan (``dtype:…``, ``infeasible``) raises,
+so the serving path never leaves the hand kernels unseen.  The port's
 default policy is ``PlanPolicy(mode="modelled")``: the reference's
 committed crossover table holds winners timed for its own backends.
 
@@ -257,6 +260,16 @@ def _decide(kind: str, shape: tuple[int, ...], a_dtype, b_dtype):
     return plan, None
 
 
+def _fallback_allowed(t: torch.Tensor, site: str, shape, reason: str):
+    """Raise unless the plain version may run this unplanned call: any
+    reason on the CPU, only ``"disabled"`` on the card."""
+    if t.device.type != "cpu" and reason != "disabled":
+        raise RuntimeError(
+            f"{site}: no hand-kernel plan for {tuple(shape)} ({reason}) on "
+            f"{t.device}; the port runs the plain version there only under "
+            "configure(enabled=False)")
+
+
 def _operand(t: torch.Tensor) -> torch.Tensor:
     """A kernel operand: row-major, or (for B) the transpose of a
     row-major tensor; anything else is made contiguous."""
@@ -272,7 +285,8 @@ def planned_dense(x: torch.Tensor, w: torch.Tensor, *,
     ``x``: [..., K] (leading dims collapse to the mm M extent); ``w``:
     [K, N], row-major or the transpose of a row-major [N, K] (the tied
     lm_head).  Returns [..., N]: the input dtype for floats, int32 for
-    integers, on the planned and the fallback path alike.
+    integers, on the planned and the fallback path alike.  Raises for a
+    card tensor without a plan (see the module docstring).
     """
     lead = x.shape[:-1]
     k, n = x.shape[-1], w.shape[-1]
@@ -281,6 +295,7 @@ def planned_dense(x: torch.Tensor, w: torch.Tensor, *,
     plan, reason = _decide("mm", (m, n, k), x.dtype, w.dtype)
     _record(site, (m, n, k), plan=plan, reason=reason)
     if plan is None:
+        _fallback_allowed(x, site, (m, n, k), reason)
         out = ref.mm(x2, w)
     else:
         out = execute_plan(plan, x2, _operand(w))
@@ -308,6 +323,7 @@ def planned_bmm(a: torch.Tensor, b: torch.Tensor, *, site: str = "bmm",
     plan, reason = _decide("bmm", (nb, m, n, k), a.dtype, b.dtype)
     _record(site, (nb, m, n, k), plan=plan, reason=reason)
     if plan is None:
+        _fallback_allowed(a, site, (nb, m, n, k), reason)
         out = ref.bmm(a3, b3, out_dtype)
     else:
         out = execute_plan(plan, a3, b3, out_dtype=out_dtype)

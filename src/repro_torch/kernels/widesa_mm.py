@@ -23,7 +23,8 @@ def check_operands(a, b, tiles, out_dtype, *, batched: bool):
 
     A must be contiguous; B is contiguous or the transpose of a
     contiguous tensor (read column-major, as the tied lm_head reads the
-    embedding table); ``tiles`` must be a compiled ``(BM, BN, BK)``.
+    embedding table); ``tiles`` must be a compiled ``(BM, BN, BK)``, or
+    one of the tiles the sweep times (``build.SWEEP_TILES``).
     """
     nd = 3 if batched else 2
     if a.dim() != nd or b.dim() != nd:
@@ -40,9 +41,7 @@ def check_operands(a, b, tiles, out_dtype, *, batched: bool):
     out_dtype = out_dtype or runtime.out_dtype(a.dtype)
     if (a.dtype, out_dtype) not in build.COMPILED_DTYPES:
         raise TypeError(f"no kernel for {a.dtype} -> {out_dtype}")
-    bm, bn, bk = tiles
-    if (bm not in build.COMPILED_BM or bn not in build.COMPILED_BN
-            or bk not in build.COMPILED_BK):
+    if tuple(tiles) not in build.COMPILED_TILES + build.SWEEP_TILES:
         raise ValueError(f"tile {tiles} is not compiled")
     if not a.is_contiguous():
         raise ValueError("A must be contiguous")
@@ -53,7 +52,7 @@ def check_operands(a, b, tiles, out_dtype, *, batched: bool):
     else:
         raise ValueError("B must be contiguous or a transposed contiguous "
                          "tensor")
-    n = b.shape[-1]
+    n, bn = b.shape[-1], tiles[1]
     if math.ceil(n / bn) > 65535 or (batched and a.shape[0] > 65535):
         raise ValueError(f"grid too large for N={n}, tile {tiles}")
     return out_dtype, col_major
@@ -77,6 +76,6 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, tiles: tuple[int, int, int],
         build.call("widesa_mm_launch", a.data_ptr(), b.data_ptr(),
                    out.data_ptr(), m, n, k, col_major,
                    build.DTYPE_CODES[a.dtype], build.DTYPE_CODES[out_dtype],
-                   *tiles)
+                   tiles=tuple(tiles))
     launches += 1
     return out

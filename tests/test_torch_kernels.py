@@ -14,6 +14,7 @@ serving shape.  The kernels themselves run only on the card
 """
 
 import dataclasses
+import re
 
 import numpy as np
 import pytest
@@ -135,12 +136,6 @@ MOTIVATION = (
 )
 
 
-def _legal(tile):
-    bm, bn, bk = tile
-    return (bm in build.COMPILED_BM and bn in build.COMPILED_BN
-            and bk in build.COMPILED_BK)
-
-
 @pytest.mark.parametrize("kind,shape,block", MOTIVATION,
                          ids=[f"{k}{s}" for k, s, _ in MOTIVATION])
 def test_hopper_tiles_on_serving_shapes(kind, shape, block):
@@ -148,31 +143,55 @@ def test_hopper_tiles_on_serving_shapes(kind, shape, block):
                      PLANNED_TARGET)
     assert plan.feasible and plan.backend == "pallas"
     assert plan.partition.block == block
-    tiles = runtime.hopper_tiles(plan)
-    assert tiles.plan == (block["i"], block["j"], block["k"])
-    assert _legal(tiles.tile)
-    # each compiled tile covers its plan tile where a compiled one can
-    for want, got, compiled in zip(
-            tiles.plan, tiles.tile,
-            (build.COMPILED_BM, build.COMPILED_BN, build.COMPILED_BK)):
-        assert got >= want or got == max(compiled)
+    for col_major in (False, True):
+        tiles = runtime.hopper_tiles(plan, b_col_major=col_major)
+        assert tiles.plan == (block["i"], block["j"], block["k"])
+        assert tiles.tile in build.COMPILED_TILES
+        bm, bn, bk = tiles.tile
+        # the row tile covers the plan's; every block has 128 threads;
+        # the K slice follows B's layout
+        assert bm >= block["i"] or bm == max(build.COMPILED_BM)
+        assert bm * bn >= 128
+        assert bk == (8 if col_major else 32)
 
 
-@pytest.mark.parametrize("block,tile", [
-    ({"i": 3, "j": 12, "k": 6}, (4, 32, 8)),
-    ({"b": 64, "i": 1, "j": 8, "k": 128}, (1, 32, 32)),
-    ({"i": 12, "j": 128, "k": 512}, (16, 128, 32)),
-    ({"i": 200, "j": 1000, "k": 7}, (64, 128, 8)),
-])
-def test_hopper_tiles_adapts_odd_blocks(block, tile):
+def _plan_with_block(block):
     kind = "bmm" if "b" in block else "mm"
     shape = (64, 1, 64, 128) if kind == "bmm" else (12, 1024, 1024)
     plan = best_plan(registry.get(kind).builder(*shape, "bfloat16"),
                      PLANNED_TARGET)
-    plan = dataclasses.replace(
+    return dataclasses.replace(
         plan, partition=dataclasses.replace(plan.partition, block=block))
-    tiles = runtime.hopper_tiles(plan)
-    assert tiles.tile == tile and _legal(tiles.tile)
+
+
+@pytest.mark.parametrize("block,tile", [
+    ({"i": 3, "j": 12, "k": 6}, (4, 32, 32)),
+    ({"b": 64, "i": 1, "j": 8, "k": 128}, (1, 128, 32)),
+    ({"i": 12, "j": 128, "k": 512}, (16, 32, 32)),
+    ({"i": 200, "j": 1000, "k": 7}, (64, 32, 32)),
+])
+def test_hopper_tiles_adapts_odd_blocks(block, tile):
+    tiles = runtime.hopper_tiles(_plan_with_block(block))
+    assert tiles.tile == tile and tiles.tile in build.COMPILED_TILES
+
+
+@pytest.mark.parametrize("block,tile", [
+    ({"i": 4, "j": 32, "k": 512}, (4, 32, 8)),
+    ({"i": 1, "j": 32, "k": 512}, (1, 128, 8)),
+])
+def test_hopper_tiles_column_major_b_takes_the_short_k_slice(block, tile):
+    tiles = runtime.hopper_tiles(_plan_with_block(block), b_col_major=True)
+    assert tiles.tile == tile
+
+
+def test_compiled_tiles_match_the_cuda_source():
+    """build.COMPILED_TILES lists exactly the tiles launch_dtype compiles."""
+    src = build.SOURCE.read_text()
+    body = src[src.index("int launch_dtype"):src.index("int launch(")]
+    body = body[body.index("#else"):]
+    pairs = re.findall(r"WIDESA_BK\((\d+), (\d+)\)", body)
+    compiled = {(int(m), int(n), k) for m, n in pairs for k in (8, 32)}
+    assert compiled == set(build.COMPILED_TILES)
 
 
 def test_xla_stamp_runs_the_plain_version():

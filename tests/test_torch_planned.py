@@ -143,3 +143,36 @@ def test_planned_dense_reads_a_transposed_weight_without_copy():
     out = tp.planned_dense(x, table.t(), site="t.tied")
     torch.testing.assert_close(out, x @ table.t())
     assert tp.planned_report()["t.tied"]["planned"] == 1
+
+
+@pytest.mark.parametrize("fn,shapes,dtypes", [
+    ("dense", ((8, 16), (16, 8)), (torch.float32, torch.int8)),
+    ("dense", ((8, 16), (16, 8)), (torch.float16, torch.float16)),
+    ("dense", ((1, 1), (1, 1)), (torch.float32, torch.float32)),
+    ("bmm", ((0, 3, 4), (0, 4, 5)), (torch.float32, torch.float32)),
+], ids=["mixed", "unsupported", "infeasible-mm", "infeasible-bmm"])
+def test_unplanned_calls_off_the_cpu_raise(fn, shapes, dtypes):
+    """Tensors off the CPU never reach the plain version unless planning
+    is disabled; meta tensors stand in for card tensors here."""
+    tp.reset_configuration()
+    a, b = (torch.empty(s, dtype=d, device="meta")
+            for s, d in zip(shapes, dtypes))
+    f = tp.planned_dense if fn == "dense" else tp.planned_bmm
+    with pytest.raises(RuntimeError, match="no hand-kernel plan"):
+        f(a, b, site="t.offcpu")
+    if dtypes[0] == dtypes[1]:
+        with tp.override(enabled=False):
+            assert f(a, b, site="t.offcpu").shape[-1] == shapes[1][-1]
+
+
+@pytest.mark.gpu
+def test_unplanned_card_call_raises_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand kernels run only there")
+    tp.reset_configuration()
+    x = torch.ones((1, 1), device="cuda")
+    with pytest.raises(RuntimeError, match="infeasible"):
+        tp.planned_dense(x, x, site="t.card")
+    with tp.override(enabled=False):
+        torch.testing.assert_close(tp.planned_dense(x, x, site="t.card"),
+                                   x)

@@ -7,6 +7,8 @@ modelled policy: the same feasibility, the same kernel blocks and the
 same plan description.
 """
 
+import dataclasses
+
 import pytest
 
 pytest.importorskip("torch")
@@ -77,13 +79,25 @@ def test_targets_are_identical():
     assert PLANNED_TARGET.name == JAX_TARGET.name
 
 
+@dataclasses.dataclass(frozen=True)
+class _HierarchicalTarget(Target):
+    """A target with an outer mesh, which the port does not plan yet."""
+
+    outer_shape: tuple = (2, 2)
+
+
 def test_unported_policies_and_plan_kinds_raise():
-    with pytest.raises(ValueError):
-        autotune.PlanPolicy(mode="fastest")
+    for mode in ("fastest", "cached", "measured"):
+        with pytest.raises(ValueError, match="modelled"):
+            autotune.PlanPolicy(mode=mode)
+    hier = _HierarchicalTarget(name="h", mesh_shape=(1, 8))
     rec = registry.get("mm").builder(8, 8, 8, "float32")
-    with pytest.raises(NotImplementedError):
-        best_plan(rec, PLANNED_TARGET,
-                  policy=autotune.PlanPolicy(mode="cached"))
+    with pytest.raises(NotImplementedError, match="hierarchical"):
+        best_plan(rec, hier)
+    # resolve() passes the refusal on: it is not an infeasible shape
+    with pytest.raises(NotImplementedError, match="hierarchical"):
+        autotune.resolve(autotune.PlanRequest(
+            "mm", (8, 8, 8), "float32", hier))
     assert autotune.counters() == {"hits": 0, "misses": 0,
                                    "measure_calls": 0, "table_errors": 0}
     assert autotune.resolve(autotune.PlanRequest(
