@@ -5,40 +5,63 @@
     python3 chip_smoke.py --tile-sweep [--out sweep.json]
 
 Needs one CUDA card and the CUDA toolkit.  It imports only the port, never
-JAX nor the JAX package, and runs five phases, each printing its own
+JAX nor the JAX package, and runs six phases, each printing its own
 line(s); any failure exits non-zero:
 
 1. device — the card's name and power limit, torch and CUDA versions;
-2. build  — compiles the port's CUDA kernels from ``src/`` (set-up time);
+2. build  — compiles the port's two CUDA sources from ``src/`` (one
+   ``nvcc`` each, started together; set-up time);
 3. kernels — every hand-written kernel against its plain PyTorch version
-   on the card, in all five dtypes, at every serving shape and at ragged
-   ones, and with every compiled tile; then timed beside its plain
-   version, ``torch.matmul`` / ``torch.bmm`` (yardsticks only) and its
-   memory/compute bound;
+   on the card: the mm/bmm GEMM in all five dtypes at every serving shape,
+   at ragged ones and with every compiled tile; FIR and conv2d in every
+   dtype they take, at the whisper-base frontend shapes and at ragged
+   ones, with the tile the runtime picks and every compiled tile; the
+   fft2d composition over the GEMM against ``torch.fft.fft2``.  Then each
+   is timed beside its plain version, one PyTorch call computing the same
+   function (``torch.matmul``/``torch.bmm``, ``F.conv1d``, ``F.conv2d``,
+   ``torch.fft.fft2``: yardsticks only) and its memory/compute bound, at
+   the main-path shapes and, for FIR and conv2d, at the registry's
+   bandwidth-sized bench shapes; FIR, conv2d, the fft2d composition and
+   their library calls also get their device time from ``torch.profiler``
+   (the launch overhead left out);
 4. serve  — full-width qwen1.5-0.5b (bf16, 24 layers, vocab 151936,
    random weights from a ``torch.Generator`` seeded with 0) on the slot
    engine: 4 slots, max_seq 128, 8 requests of 4-16 prompt tokens and 8
    new tokens each.  Checks every request's budget, that every planned
-   site planned and never fell back, that both kernels launched during
-   the drain, and that each prompt's prefill logits match a second,
+   site planned and never fell back, that both GEMM kernels launched
+   during the drain, and that each prompt's prefill logits match a second,
    explicit prefill through the plain versions.  One 4-lane decode step
    is then timed on the host clock and traced with ``torch.profiler`` for
    the card's busy time and the hand kernels' share of it;
-5. summary — a JSON line of the kernels, the ``nvidia-smi`` name and
+5. stream — full-width whisper-base (bf16, 6+6 layers, d 512, vocab
+   51865, random weights seeded with 0) on the slot engine: 4 slots,
+   max_seq 128, 8 streamed int16 audio requests of 1-8 chunks and 8 new
+   tokens each, every chunk through the planned frontend (FIR and conv2d
+   kernels, the fft2d chain's ``xla`` stamp) and the incremental encoder.
+   Checks every budget, that every site planned with no fallback
+   (``frontend.*`` and ``mlp.pair`` included), that the GEMM, FIR and
+   conv2d kernels launched during the drain, and that one request's
+   features and stream-prefill logits match a run through the plain
+   versions;
+6. summary — a JSON line of the kernels, the ``nvidia-smi`` name and
    power limit, and the result line.
 
-``--tile-sweep`` runs only the device and build phases, then times the
-hand kernel in bf16 with each of the 24 tiles of ``build.SWEEP_TILES``
+Every wrapper's launch count is set to 0 just before each serving drain
+and read just after; the comparison and timing launches of phase 3 do not
+count.  ``--tile-sweep`` runs only the device and build phases, then
+times the GEMM in bf16 with each of the 24 tiles of ``build.SWEEP_TILES``
 (a second library holds those not compiled for the main path) at every
 main-path shape and prints, per shape, the tile ``runtime.hopper_tiles``
 picks and the fastest one (``--out`` writes all times as JSON).
 
 Tolerances: integer results are bit-exact (wrapping int32, as XLA);
-float32 results within the kernel registry's atol 1e-3; bf16 results
-within ``2^-7 * |ref| + 1e-3``, one bf16 rounding step of the output
-(8-bit significand) on top of fp32 sums taken in another order.  The
-prefill logits of the whole bf16 model are held to ``LOGIT_ATOL`` (see
-there).
+float32 results within the kernel registry's atol 1e-3 (1.0 for the
+fft2d composition, the registry's fft2d_stage atol: fp32 sums of 515
+terms of magnitude ~100); bf16 results within ``2^-7 * |ref| + 1e-3``,
+one bf16 rounding step of the output (8-bit significand) on top of fp32
+sums taken in another order.  The logits of the whole bf16 models are
+held to ``LOGIT_ATOL`` (see there); the int16 frontend features are
+exact.
 """
 
 from __future__ import annotations
@@ -54,17 +77,22 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 #: peak rates of one H100 SXM (NVIDIA data sheet, dense): HBM bytes/s
-#: and bf16 / fp32 operations per second
+#: and bf16 / fp32 operations per second.  FIR and conv2d run on the CUDA
+#: cores in every dtype, and the data sheet gives no integer rate for
+#: them, so their operations count at the fp32 rate (a bound that is low
+#: for integers; the bytes bound them at every shape timed here anyway)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
 
-#: prefill logits of the 24-layer bf16 model, hand kernels vs the plain
-#: versions: every GEMM output rounds to bf16 (2^-8 relative) and the two
-#: paths sum in different orders, so roundings flip between them and the
-#: flips propagate through 24 residual layers; logits are O(1) here
+#: prefill logits of the bf16 models (24 layers of qwen, 6+6 of whisper),
+#: hand kernels vs the plain versions: every GEMM output rounds to bf16
+#: (2^-8 relative) and the two paths sum in different orders, so roundings
+#: flip between them and the flips propagate through the residual layers;
+#: logits are O(1) here
 LOGIT_ATOL = 0.25
 
 ARCH = "qwen1.5-0.5b"
+STREAM_ARCH = "whisper-base"
 SLOTS, MAX_SEQ, REQUESTS, MAX_NEW = 4, 128, 8, 8
 
 #: the serving GEMMs of the main path (prefill of a 12-token prompt and a
@@ -88,19 +116,53 @@ RAGGED_SHAPES = (("mm", (61, 126, 37)), ("mm", (1, 300, 77)),
                  ("bmm", (3, 61, 126, 37)), ("bmm", (5, 7, 33, 130)))
 
 #: the kernel row of each ported TPU kernel: its main-path shape for the
-#: timing columns, and what it replaces
+#: timing columns, what it replaces and where its source is
+SOURCE = "src/repro_torch/kernels/csrc/widesa_mm.cu"
+SP_SOURCE = "src/repro_torch/kernels/csrc/widesa_sp.cu"
 KERNELS = {
     "widesa_mm": dict(kind="mm", shape=(4, 151936, 1024), col_major=True,
-                      replaces="src/repro/kernels/widesa_mm.py:31"),
+                      replaces="src/repro/kernels/widesa_mm.py:31",
+                      source=SOURCE),
     "bmm": dict(kind="bmm", shape=(64, 1, 128, 64), col_major=False,
-                replaces="src/repro/kernels/bmm.py:24"),
+                replaces="src/repro/kernels/bmm.py:24", source=SOURCE),
+    "fir": dict(replaces="src/repro/kernels/fir.py:25", source=SP_SOURCE),
+    "conv2d": dict(replaces="src/repro/kernels/conv2d.py:32",
+                   source=SP_SOURCE),
+    # no CUDA of its own: six launches of the GEMM above
+    "fft2d": dict(replaces="src/repro/kernels/fft2d.py:34",
+                  source="src/repro_torch/kernels/fft2d.py"),
 }
-SOURCE = "src/repro_torch/kernels/csrc/widesa_mm.cu"
+
+#: the frontend shapes of whisper-base (FrontendConfig(d_model=512): a
+#: 12 x 515 tile of 6180 samples, 15 taps, a 5 x 4 filter, int16), ragged
+#: shapes, and the registry's bandwidth-sized bench shapes (float32)
+SP_MAIN = {"fir": (6180, 15), "conv2d": (8, 512, 5, 4)}
+SP_RAGGED = {"fir": ((1000, 7), (70001, 15)),
+             "conv2d": ((37, 70, 3, 5), (130, 333, 4, 4))}
+SP_BENCH = {"fir": (1048576, 15), "conv2d": (10240, 10240, 4, 4)}
+FFT_MAIN = (12, 515)
 
 
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", flush=True)
     raise SystemExit(1)
+
+
+def wrappers() -> dict:
+    """Each kernel's wrapper module, which holds its launch count."""
+    from repro_torch.kernels import bmm, conv2d, fft2d, fir, widesa_mm
+
+    return {"widesa_mm": widesa_mm, "bmm": bmm, "fir": fir,
+            "conv2d": conv2d, "fft2d": fft2d}
+
+
+def reset_counts() -> None:
+    for mod in wrappers().values():
+        mod.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: mod.launches for name, mod in wrappers().items()}
 
 
 def nvidia_smi() -> str:
@@ -236,6 +298,38 @@ def time_ms(torch, fn, reps=50, warmup=5) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def device_ms(torch, fn, kernel=None, reps=10):
+    """Device time per call of ``fn`` from ``torch.profiler``: of the CUDA
+    kernels whose name holds ``kernel``, or of every device event when
+    ``kernel`` is None; None if the profiler recorded none.  Unlike
+    ``time_ms`` this leaves out the host's launch overhead, which back-to-
+    back launches of a short kernel measure instead of the kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(evt, "self_device_time_total", 0.0)
+             for evt in prof.key_averages()
+             if kernel is None or kernel in evt.key)
+    return us / reps / 1e3 if us else None
+
+
+def fmt_ms(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
+def least_ms(moved, ops, dtype_name):
+    """The larger of ``moved`` bytes at the HBM rate and ``ops``
+    operations at the peak rate of ``dtype_name``, with what bounds it."""
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[dtype_name] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def bound_ms(kind, shape, in_bytes, out_bytes, dtype_name):
     """Least time for the work: each input read once and the output
     written once at the HBM rate, or the multiply-adds at the peak rate
@@ -245,10 +339,7 @@ def bound_ms(kind, shape, in_bytes, out_bytes, dtype_name):
     else:
         z, m, n, k = shape
     moved = z * ((m * k + k * n) * in_bytes + m * n * out_bytes)
-    ops = 2 * z * m * n * k
-    t_bytes = moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS_PER_S[dtype_name] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return least_ms(moved, 2 * z * m * n * k, dtype_name)
 
 
 def timings(torch) -> dict:
@@ -321,6 +412,189 @@ def tile_sweep(torch) -> list[dict]:
 
 
 # ---------------------------------------------------------------------------
+# FIR, conv2d and the fft2d composition
+# ---------------------------------------------------------------------------
+
+def sp_operands(torch, gen, name, args, dtype):
+    """FIR (x [n + t - 1], h [t]) or conv2d (img [h+p-1, w+q-1],
+    filt [p, q]) operands for the recurrence extents ``args``."""
+    if name == "fir":
+        n, t = args
+        shapes = ((n + t - 1,), (t,))
+    else:
+        h, w, p, q = args
+        shapes = ((h + p - 1, w + q - 1), (p, q))
+    return [draw(torch, gen, s, dtype) for s in shapes]
+
+
+def sp_kernel(name, args, dtype):
+    """The FIR or conv2d wrapper at the tile the runtime picks from the
+    planner's plan for this shape: (call, plain version, HopperTiles)."""
+    from repro_torch.kernels import conv2d, fir, planned, ref, runtime
+
+    plan = planned.plan_for(name, args, planned.dtype_name(dtype))
+    if plan is None:
+        fail(f"no feasible plan for {name}{args} {dtype}")
+    if name == "fir":
+        tiles = runtime.fir_tile(plan, args[0])
+        return (lambda a, b: fir.fir(a, b, tiles=tiles.tile)), ref.fir, tiles
+    tiles = runtime.conv2d_tile(plan, args[0], args[1])
+    return ((lambda a, b: conv2d.conv2d(a, b, tiles=tiles.tile)),
+            ref.conv2d, tiles)
+
+
+def fft_kernel():
+    """The fft2d composition at the GEMM tile of the fft2d_stage plan."""
+    from repro_torch.kernels import fft2d, planned, runtime
+
+    plan = planned.plan_for("fft2d_stage", FFT_MAIN, "float32")
+    if plan is None:
+        fail(f"no feasible plan for fft2d_stage{FFT_MAIN}")
+    tiles = runtime.hopper_tiles(plan).tile
+    return (lambda re_, im_, three_mult=True: fft2d.fft2d(
+        re_, im_, tiles=tiles, three_mult=three_mult)), tiles
+
+
+def sp_parity(torch) -> None:
+    """FIR and conv2d against their plain versions in every dtype they
+    take, at the frontend and ragged shapes, with every compiled tile
+    (the picked one among them); the fft2d composition against
+    ``ref.fft2d``."""
+    from repro_torch.kernels import build, conv2d, fir, ref
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    dtypes = (torch.float32, torch.int8, torch.int16, torch.int32)
+    n = 0
+    for name, fn, plain, tiles in (
+            ("fir", fir.fir, ref.fir, [(t,) for t in build.FIR_TILES]),
+            ("conv2d", conv2d.conv2d, ref.conv2d, build.CONV2D_TILES)):
+        for args in (SP_MAIN[name], *SP_RAGGED[name]):
+            for dtype in dtypes:
+                a, b = sp_operands(torch, gen, name, args, dtype)
+                want = plain(a, b)
+                picked = sp_kernel(name, args, dtype)[2].tile
+                if picked not in tiles:
+                    fail(f"{name}{args}: picked tile {picked} not compiled")
+                for tile in tiles:
+                    out = fn(a, b, tiles=tile)
+                    torch.cuda.synchronize()
+                    err, ok = max_error(torch, out, want, dtype)
+                    if not ok:
+                        fail(f"{name}{args} {dtype} tile {tile}: max |err| "
+                             f"{err}")
+                    n += 1
+    call, tiles = fft_kernel()
+    re_, im_ = (torch.randn(FFT_MAIN, generator=gen, device="cuda")
+                for _ in range(2))
+    want = ref.fft2d(re_, im_)
+    for three_mult in (True, False):
+        got = call(re_, im_, three_mult)
+        torch.cuda.synchronize()
+        err = max((g - w).abs().max().item() for g, w in zip(got, want))
+        if err > 1.0:
+            fail(f"fft2d{FFT_MAIN} composition (three_mult={three_mult}) "
+                 f"tile {tiles}: max |err| {err} > 1.0")
+        n += 1
+    print(f"kernels: FIR/conv2d parity ok in {n} cases (4 dtypes x "
+          f"frontend and ragged shapes x every compiled tile; integers "
+          f"bit-exact, fp32 <= 1e-3; fft2d composition <= 1.0)", flush=True)
+
+
+def sp_bound_ms(name, args, in_bytes, out_bytes):
+    """Least time for one FIR or conv2d call (see ``least_ms``)."""
+    if name == "fir":
+        n, t = args
+        moved = (n + 2 * t - 1) * in_bytes + n * out_bytes
+        ops = 2 * n * t
+    else:
+        h, w, p, q = args
+        moved = ((h + p - 1) * (w + q - 1) + p * q) * in_bytes \
+            + h * w * out_bytes
+        ops = 2 * h * w * p * q
+    return least_ms(moved, ops, "float32")
+
+
+def sp_timings(torch) -> dict:
+    """FIR and conv2d at the main-path shape and dtype (the whisper-base
+    frontend, int16) and at the registry's bench shape (float32), and the
+    fft2d composition at the frontend tile: kernel, plain version, one
+    PyTorch call and bound.  The library call takes float32 copies of
+    integer inputs (``F.conv1d``/``F.conv2d`` take no integers on the
+    card), with TF32 off."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    library = {
+        "fir": lambda a, b: F.conv1d(a[None, None], b[None, None]),
+        "conv2d": lambda a, b: F.conv2d(a[None, None], b[None, None]),
+    }
+    rows = {}
+    for name in ("fir", "conv2d"):
+        for where, args, dtype, reps in (
+                ("main", SP_MAIN[name], torch.int16, 50),
+                ("bench", SP_BENCH[name], torch.float32, 10)):
+            a, b = sp_operands(torch, gen, name, args, dtype)
+            fn, plain, tiles = sp_kernel(name, args, dtype)
+            af, bf = a.float(), b.float()
+            out, want = fn(a, b), plain(a, b)
+            err, _ = max_error(torch, out, want, dtype)
+            row = dict(
+                tiles=tiles, max_abs_err=err,
+                ms=time_ms(torch, lambda: fn(a, b), reps),
+                plain_ms=time_ms(torch, lambda: plain(a, b), reps),
+                library_ms=time_ms(torch, lambda: library[name](af, bf),
+                                   reps),
+            )
+            row["bound_ms"], row["bound_by"] = sp_bound_ms(
+                name, args, a.element_size(), out.element_size())
+            rows[(name, where)] = row
+            lib = f"F.{name if name == 'conv2d' else 'conv1d'}"
+            print(f"time {name}{args} {str(dtype).removeprefix('torch.')} "
+                  f"[{where}] plan block {tiles.plan} -> tile {tiles.tile}: "
+                  f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} "
+                  f"ms, {lib} {row['library_ms']:.4f} ms, bound "
+                  f"{row['bound_ms']:.4f} ms ({row['bound_by']}); device "
+                  f"time (profiler): kernel "
+                  f"{fmt_ms(device_ms(torch, lambda: fn(a, b), name + '_kernel'))}"
+                  f", {lib} "
+                  f"{fmt_ms(device_ms(torch, lambda: library[name](af, bf)))}",
+                  flush=True)
+            del a, b, af, bf, out, want
+    call, tiles = fft_kernel()
+    re_, im_ = (torch.randn(FFT_MAIN, generator=gen, device="cuda")
+                for _ in range(2))
+    got, want = call(re_, im_), ref.fft2d(re_, im_)
+
+    def fft_lib(x_re, x_im):
+        return torch.fft.fft2(torch.complex(x_re, x_im))
+
+    r, c = FFT_MAIN
+    row = dict(
+        tiles=tiles,
+        max_abs_err=max((g - w).abs().max().item()
+                        for g, w in zip(got, want)),
+        ms=time_ms(torch, lambda: call(re_, im_)),
+        plain_ms=time_ms(torch, lambda: ref.fft2d(re_, im_)),
+        library_ms=time_ms(torch, lambda: fft_lib(re_, im_)),
+    )
+    # two float32 planes in and out; the composition's six real GEMMs
+    row["bound_ms"], row["bound_by"] = least_ms(
+        4 * r * c * 4, 3 * 2 * (r * r * c + r * c * c), "float32")
+    rows[("fft2d", "main")] = row
+    print(f"time fft2d{FFT_MAIN} float32 [composition, 6 mm launches at "
+          f"tile {tiles}]: {row['ms']:.4f} ms, plain (torch.fft.fft2) "
+          f"{row['plain_ms']:.4f} ms, torch.fft.fft2 "
+          f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+          f"({row['bound_by']}); device time (profiler): composition "
+          f"{fmt_ms(device_ms(torch, lambda: call(re_, im_)))}, "
+          f"torch.fft.fft2 {fmt_ms(device_ms(torch, lambda: fft_lib(re_, im_)))}",
+          flush=True)
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # serve
 # ---------------------------------------------------------------------------
 
@@ -328,7 +602,7 @@ def serve(torch, device_name: str) -> dict:
     import numpy as np
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels import bmm, planned, widesa_mm
+    from repro_torch.kernels import planned
     from repro_torch.serve import make_engine
 
     cfg = get_config(ARCH)
@@ -351,13 +625,12 @@ def serve(torch, device_name: str) -> dict:
 
     # the main path: counts start at 0 here and are read right after
     planned.planned_report_clear()
-    widesa_mm.launches = 0
-    bmm.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     done = eng.run_until_drained()
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = {"widesa_mm": widesa_mm.launches, "bmm": bmm.launches}
+    launches = read_counts()
     report = planned.planned_report()
 
     if len(done) != REQUESTS or any(len(r.output) != MAX_NEW for r in done):
@@ -368,7 +641,7 @@ def serve(torch, device_name: str) -> dict:
            if st["planned"] == 0 or st["fallback"] != 0}
     if bad or not report:
         fail(f"planned sites that fell back or never planned: {bad}")
-    if min(launches.values()) == 0:
+    if min(launches["widesa_mm"], launches["bmm"]) == 0:
         fail(f"a kernel was not launched on the main path: {launches}")
     tokens = sum(len(r.output) for r in done)
     print(f"serve: {len(done)} requests / {tokens} tokens in {dt:.3f} s = "
@@ -453,6 +726,119 @@ def profile_decode(torch, eng) -> None:
 
 
 # ---------------------------------------------------------------------------
+# stream
+# ---------------------------------------------------------------------------
+
+def stream_serve(torch, device_name: str) -> dict:
+    """Phase 5: whisper-base serving streamed audio (module docstring)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import planned, runtime
+    from repro_torch.models import encdec
+    from repro_torch.models.transformer import cache_dtype_of
+    from repro_torch.serve import make_engine, synth_samples
+
+    cfg = get_config(STREAM_ARCH)
+    eng = make_engine(cfg, kind="slot", max_slots=SLOTS, max_seq=MAX_SEQ,
+                      device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.perf_counter()
+    params = eng.api.init(gen)
+    eng.load(params)
+    torch.cuda.synchronize()
+    fc = eng.frontend.cfg
+    print(f"stream: {STREAM_ARCH} at full width ({cfg.n_enc_layers}+"
+          f"{cfg.n_layers} layers, d {cfg.d_model}, vocab {cfg.vocab}, "
+          f"{cfg.dtype}) loaded in {time.perf_counter() - t0:.1f} s; "
+          f"frontend {fc.dtype} chunks of {fc.chunk_samples} samples "
+          f"({fc.rows}x{fc.cols} tile) -> {fc.frames_per_chunk} frames",
+          flush=True)
+
+    streams = [synth_samples(fc, 1 + i % 8, seed=i) for i in range(REQUESTS)]
+    for samples in streams:
+        eng.submit_audio_stream(samples, max_new_tokens=MAX_NEW)
+
+    # the streaming path: counts start at 0 here and are read right after
+    planned.planned_report_clear()
+    reset_counts()
+    t0 = time.perf_counter()
+    done = eng.run_until_drained()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_counts()
+    report = planned.planned_report()
+
+    if len(done) != REQUESTS or any(len(r.output) != MAX_NEW for r in done):
+        fail(f"stream requests did not finish with their budget: "
+             f"{[(r.rid, len(r.output)) for r in done]}")
+    if any(r.fed != len(r.chunks) for r in done):
+        fail(f"chunks left unfed: {[(r.rid, r.fed, len(r.chunks)) for r in done]}")
+    bad = {s: (st["planned"], st["fallback"], st["reasons"])
+           for s, st in report.items()
+           if st["planned"] == 0 or st["fallback"] != 0}
+    if bad or not report:
+        fail(f"stream sites that fell back or never planned: {bad}")
+    stamps = {"frontend.fir": "pallas", "frontend.conv2d": "pallas",
+              "frontend.fft2d": "xla", "mlp.pair": "xla"}
+    for site, backend in stamps.items():
+        if site not in report or set(report[site]["backends"]) != {backend}:
+            fail(f"{site} did not run its {backend} plan: "
+                 f"{report.get(site)}")
+    chunks = sum(r.fed for r in done)
+    if min(launches[k] for k in ("widesa_mm", "bmm", "fir", "conv2d")) == 0:
+        fail(f"a kernel was not launched on the streaming path: {launches}")
+    if launches["fir"] != chunks or launches["conv2d"] != chunks:
+        fail(f"{chunks} chunks fed but fir/conv2d launched "
+             f"{launches['fir']}/{launches['conv2d']} times")
+    tokens = sum(len(r.output) for r in done)
+    tiles = {k: (t.plan, t.tile) for k, t in runtime.last_tiles.items()
+             if k in ("fir", "conv2d")}
+    print(f"stream: {len(done)} requests / {tokens} tokens / {chunks} audio "
+          f"chunks in {dt:.3f} s = {tokens / dt:.1f} tok/s on {device_name}; "
+          f"launches {launches} (fir and conv2d: one each per chunk); plan "
+          f"block -> compiled tile {tiles}; {len(report)} sites all planned: "
+          f"{sorted(report)}", flush=True)
+
+    # one request's features and stream-prefill logits through the
+    # kernels vs an explicit run through the plain versions
+    rid = REQUESTS - 1
+    req = {r.rid: r for r in done}[rid]
+    samples, c = streams[rid], fc.frames_per_chunk
+    tokens = torch.zeros((1, 1), dtype=torch.int32, device="cuda")
+    cache_dtype = cache_dtype_of(cfg)
+
+    def prefill(feats):
+        return encdec.prefill_streaming(params, cfg, feats[None], tokens,
+                                        MAX_SEQ, c, cache_dtype)[0]
+
+    with torch.no_grad():
+        feats = eng.frontend.offline_features(samples)
+        logits = prefill(feats)
+        first = prefill(feats[:c])
+        with planned.override(enabled=False):
+            want_feats = eng.frontend.offline_features(samples)
+            want = prefill(want_feats)
+    if not torch.equal(feats, want_feats):
+        fail(f"request {rid}: frontend features differ from the plain "
+             f"versions by {(feats - want_feats).abs().max().item()}")
+    if logits.shape != (1, cfg.vocab) or not torch.isfinite(logits).all():
+        fail(f"request {rid}: bad stream-prefill logits {logits.shape}")
+    err = (logits.float() - want.float()).abs().max().item()
+    scale = want.float().abs().max().item()
+    if err > LOGIT_ATOL:
+        fail(f"request {rid}: stream-prefill logits differ by {err} > "
+             f"{LOGIT_ATOL} from the plain versions")
+    if req.output[0] != int(torch.argmax(first[0])):
+        fail(f"request {rid}: engine's first token is not the argmax of the "
+             "stream prefill over its first chunk")
+    print(f"stream: request {rid} ({len(req.chunks)} chunks): features "
+          f"{tuple(feats.shape)} equal the plain versions bitwise (int16 "
+          f"frontend); stream-prefill logits max |diff| {err:.4f} <= "
+          f"{LOGIT_ATOL} (max |logit| {scale:.3f}); first token matches",
+          flush=True)
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -485,19 +871,21 @@ def main(argv=None) -> int:
           f"torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
 
     t0 = time.perf_counter()
-    path = build.library_path()
-    build.library()
+    paths = build.build()
+    for lib in paths:
+        build.library(lib)
     regs = [int(r) for r in re.findall(r"Used (\d+) registers",
                                        build.build_log)]
     spills = re.findall(r"(\d+) bytes spill stores", build.build_log)
-    print(f"build: {path.name} ready in {time.perf_counter() - t0:.1f} s "
-          f"(nvcc {build.build_seconds:.1f} s; {len(regs)} kernels, at most "
-          f"{max(regs, default=0)} registers a thread, "
+    print(f"build: {', '.join(p.name for p in paths.values())} ready in "
+          f"{time.perf_counter() - t0:.1f} s (nvcc {build.build_seconds:.1f} "
+          f"s on the wall clock, one process per source; {len(regs)} "
+          f"kernels, at most {max(regs, default=0)} registers a thread, "
           f"{sum(int(x) for x in spills)} bytes of spill stores)", flush=True)
 
     if args.tile_sweep:
         t0 = time.perf_counter()
-        build.library(sweep=True)
+        build.library("widesa_mm", sweep=True)
         print(f"build: sweep library ({len(build.SWEEP_TILES)} tiles) ready "
               f"in {time.perf_counter() - t0:.1f} s", flush=True)
         rows = tile_sweep(torch)
@@ -505,19 +893,28 @@ def main(argv=None) -> int:
             Path(args.out).write_text(json.dumps(rows, indent=1))
         return 0
     parity(torch)
+    sp_parity(torch)
     rows = timings(torch)
+    rows.update(sp_timings(torch))
     print("kernels: widesa_mm (B1, widesa_mm.py mm_kernel -> cuda), bmm "
-          "(B2, bmm.py bmm_kernel -> cuda); both in " + SOURCE, flush=True)
+          "(B2, bmm.py bmm_kernel -> cuda) in " + SOURCE + "; fir (B3, "
+          "fir.py fir_kernel -> cuda), conv2d (B5, conv2d.py conv_kernel -> "
+          "cuda) in " + SP_SOURCE + "; fft2d (B4, fft2d.py _cmul_mm -> six "
+          "widesa_mm launches)", flush=True)
     torch.cuda.empty_cache()
 
     launches = serve(torch, name)
+    torch.cuda.empty_cache()
+    stream_launches = stream_serve(torch, name)
 
     summary = []
     for kname, k in KERNELS.items():
-        row = rows[(k["kind"], k["shape"])]
+        row = rows[(k["kind"], k["shape"])] if "kind" in k \
+            else rows[(kname, "main")]
         summary.append({
-            "name": kname, "route": "cuda", "source": SOURCE,
-            "replaces": k["replaces"], "launches": launches[kname],
+            "name": kname, "route": "cuda", "source": k["source"],
+            "replaces": k["replaces"],
+            "launches": launches[kname] + stream_launches[kname],
             "max_abs_err": row["max_abs_err"],
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],

@@ -2,12 +2,15 @@
 
 ``params_from_jax(np_tree, cfg, device)`` takes the reference model's
 parameter tree with every leaf already converted to a numpy array (the
-dense layers stacked along a leading L axis under ``dense_layers``) and
-returns the port's dict, one entry of ``layers`` per layer.  bfloat16
-leaves (numpy's ``bfloat16`` extension dtype) keep their bits.
+layers stacked along a leading L axis: ``dense_layers`` for the dense
+family, ``enc_layers``/``dec_layers`` for encdec) and returns the port's
+dict, one entry per layer in ``layers`` (dense) or in
+``enc_layers``/``dec_layers`` (encdec).  bfloat16 leaves (numpy's
+``bfloat16`` extension dtype) keep their bits.
 
 ``init_params(cfg, generator, device)`` draws full-width weights on the
-device from a seeded ``torch.Generator`` (``models/transformer.py``).
+device from a seeded ``torch.Generator`` (``models/transformer.py`` for
+dense, ``models/encdec.py`` for encdec).
 """
 
 from __future__ import annotations
@@ -15,7 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .models.transformer import init_params
+from .models import encdec, transformer
 
 __all__ = ["init_params", "params_from_jax"]
 
@@ -35,11 +38,27 @@ def _tree(node, device, index=None):
     return _tensor(a if index is None else a[index], device)
 
 
+def init_params(cfg, generator, device="cuda") -> dict:
+    """Seeded full-width random weights for ``cfg``'s family."""
+    if cfg.family == "encdec":
+        return encdec.init_params(cfg, generator, device)
+    return transformer.init_params(cfg, generator, device)
+
+
 def params_from_jax(np_tree: dict, cfg, device="cuda") -> dict:
+    if cfg.family == "encdec":
+        return {
+            "enc_layers": [_tree(np_tree["enc_layers"], device, i)
+                           for i in range(cfg.n_enc_layers)],
+            "dec_layers": [_tree(np_tree["dec_layers"], device, i)
+                           for i in range(cfg.n_layers)],
+            **{k: _tree(np_tree[k], device)
+               for k in ("embed", "pos_dec", "ln_enc", "ln_f")},
+        }
     if cfg.family != "dense":
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported; the port runs dense "
-            "decoders")
+            "decoders and encdec")
     stacked = np_tree["dense_layers"]
     p = {
         "embed": _tensor(np_tree["embed"], device),

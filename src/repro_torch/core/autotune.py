@@ -39,7 +39,10 @@ class PlanPolicy:
 @dataclasses.dataclass(frozen=True)
 class PlanRequest:
     """One shape-keyed planning request: ``kind`` names a registered
-    KernelSpec, ``shape`` holds that spec's builder arguments."""
+    KernelSpec, ``shape`` holds that spec's builder arguments.  A fused
+    chain is requested as ``kind="producer+consumer"`` with ``shape`` a
+    tuple of per-stage builder-argument tuples; it resolves to a
+    ``FusedPlan`` (or None when the chain is illegal)."""
 
     kind: str
     shape: tuple
@@ -63,12 +66,26 @@ def resolve(req: PlanRequest) -> ExecutionPlan | None:
     """Best *feasible* plan for a request, or None (the caller falls
     back).  Memoized per request; the None outcome of an infeasible shape
     is cached too, so it never re-runs the mapper search.  A plan kind the
-    port has not ported (``NotImplementedError`` from ``best_plan``)
-    raises rather than reading as infeasible."""
-    if any(d <= 0 for d in req.shape):
+    port has not ported (``NotImplementedError`` from ``best_plan``, e.g.
+    a hierarchical target, for chains too) raises rather than reading as
+    infeasible."""
+    if any(d <= 0 for d in _flat_dims(req.shape)):
         return None
-    from repro_torch.kernels import registry  # late: kernels import core
     from .mapper import best_plan
+
+    if "+" in req.kind:  # fused chain request (core/fusion.py)
+        from . import fusion
+
+        try:
+            chain = fusion.chain_from_request(
+                req.kind, req.shape, req.dtype)
+            plan = best_plan(chain, req.target, policy=req.policy)
+        except NotImplementedError:
+            raise
+        except (fusion.FusionError, RuntimeError, TypeError):
+            return None
+        return plan if plan.feasible else None
+    from repro_torch.kernels import registry  # late: kernels import core
 
     try:
         rec = registry.get(req.kind).builder(*req.shape, req.dtype)
@@ -81,3 +98,12 @@ def resolve(req: PlanRequest) -> ExecutionPlan | None:
     except RuntimeError:
         return None
     return plan if plan.feasible else None
+
+
+def _flat_dims(shape):
+    """Flatten a (possibly chain-nested) request shape for validation."""
+    for d in shape:
+        if isinstance(d, (tuple, list)):
+            yield from d
+        else:
+            yield d

@@ -257,16 +257,20 @@ def best_plan(rec: UniformRecurrence, target: Target = Target(),
     hand-written Hopper kernel.
 
     ``policy`` is a ``core.autotune.PlanPolicy`` (or None); its only
-    mode in the port is modelled.  Fused chains and
-    hierarchical targets (the reference's ``fusion``/``hierarchy``
-    planners) are not ported yet and raise ``NotImplementedError``.
+    mode in the port is modelled.  ``rec`` may also be a
+    ``fusion.RecurrenceChain``: the chain runs the fusion legality pass
+    (``fusion.fuse``, raising ``FusionError`` on an illegal chain) and
+    returns a ``FusedPlan``.  Hierarchical targets (the reference's
+    ``hierarchy`` planner) are not ported yet and raise
+    ``NotImplementedError``.
     """
-    if hasattr(rec, "stages"):
-        raise NotImplementedError(
-            "fused recurrence chains are not planned by the port yet")
+    from . import fusion  # late: fusion imports this module
+
     if getattr(target, "outer_shape", None) is not None:
         raise NotImplementedError(
             "hierarchical targets are not planned by the port yet")
+    if isinstance(rec, fusion.RecurrenceChain):
+        return fusion.fuse(rec, target)
     # top_k=1: a cache hit copies one plan, not the default five
     plans = map_recurrence(rec, target, top_k=1)
     if not plans:

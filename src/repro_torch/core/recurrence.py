@@ -4,12 +4,15 @@
 A *uniform recurrence* is a perfectly nested loop over a hyper-rectangular
 iteration domain in which every dependence is a constant distance vector.
 The mapping pipeline (spacetime -> partition -> plio -> mapper) consumes
-this IR; the port builds two recurrences from it:
+this IR; the port builds five recurrences from it:
 
     MM       C[i,j]   += A[i,k] * B[k,j]
     BMM      C[b,i,j] += A[b,i,k] * B[b,k,j]     (the model-stack shape)
+    CONV2D   O[h,w]   += I[h+p, w+q] * F[p,q]    (the audio feature stage)
+    FIR      y[n]     += x[n+t] * h[t]           (the audio filter bank)
+    FFT2D    Y[i,j]   += W[i,k] * X[k,j]         (one DFT stage, complex)
 
-The dataclasses and the two builders are copied field for field, so a plan
+The dataclasses and the builders are copied field for field, so a plan
 made here equals the reference planner's plan for the same request.
 """
 
@@ -168,6 +171,68 @@ def batched_matmul(
         ),
         reduction_loops=frozenset({"k"}),
         ops_per_point=2,
+        dtype=dtype,
+    )
+    r.validate()
+    return r
+
+
+def conv2d(h: int, w: int, p: int, q: int, dtype: str = "float32") -> UniformRecurrence:
+    """O[hh,ww] += I[hh+pp, ww+qq] * F[pp,qq]  (paper's [h,w,p,q] sizes)."""
+    r = UniformRecurrence(
+        name="conv2d",
+        loops=("h", "w", "p", "q"),
+        extents=(h, w, p, q),
+        accesses=(
+            Access("I", (("h", 0), ("w", 0)), "read"),  # base point; window
+            Access("F", (("p", 0), ("q", 0)), "read"),  # offsets handled in
+            Access("O", (("h", 0), ("w", 0)), "accum"),  # deps via p/q reuse
+        ),
+        reduction_loops=frozenset({"p", "q"}),
+        ops_per_point=2,
+        dtype=dtype,
+    )
+    r.validate()
+    return r
+
+
+def fir(n: int, taps: int, dtype: str = "float32") -> UniformRecurrence:
+    """y[nn] += x[nn+t] * h[t].  Complex taps: 1 cMAC = 8 real ops."""
+    r = UniformRecurrence(
+        name="fir",
+        loops=("n", "t"),
+        extents=(n, taps),
+        accesses=(
+            Access("x", (("n", 0),), "read"),
+            Access("h", (("t", 0),), "read"),
+            Access("y", (("n", 0),), "accum"),
+        ),
+        reduction_loops=frozenset({"t"}),
+        ops_per_point=8 if dtype.startswith("c") else 2,
+        dtype=dtype,
+    )
+    r.validate()
+    return r
+
+
+def fft2d_stage(rows: int, cols: int, dtype: str = "cfloat") -> UniformRecurrence:
+    """One DFT stage of the four-step 2D FFT as an MM recurrence.
+
+    Four-step FFT of an R x C grid:  Y = W_R @ X ; Y *= T ; Z = Y @ W_C
+    Each stage is a (complex) matmul held as two real planes, so
+    ops_per_point = 8 real ops (4 mul + 4 add per complex MAC).
+    """
+    r = UniformRecurrence(
+        name="fft2d_stage",
+        loops=("i", "j", "k"),
+        extents=(rows, cols, rows),
+        accesses=(
+            Access("W", (("i", 0), ("k", 0)), "read"),
+            Access("X", (("k", 0), ("j", 0)), "read"),
+            Access("Y", (("i", 0), ("j", 0)), "accum"),
+        ),
+        reduction_loops=frozenset({"k"}),
+        ops_per_point=8,
         dtype=dtype,
     )
     r.validate()

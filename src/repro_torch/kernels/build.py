@@ -1,12 +1,15 @@
 """Build and bind the port's CUDA kernels (nvcc -> shared library -> ctypes).
 
-The sources live in ``csrc/``; the first call on a machine compiles them
-with ``nvcc`` for Hopper (``sm_90a``) into ``build/repro_torch_kernels/``
-under the repository root and loads the library with ``ctypes``.  The
-library's file name carries a hash of the source and the flags, so an
-edited source builds anew and an unchanged one loads what is there.  The
-kernels take plain pointers and a stream, and return a ``cudaError_t``:
-``call`` raises on anything but success.
+The sources live in ``csrc/``: ``widesa_mm.cu`` (the mm/bmm GEMM) and
+``widesa_sp.cu`` (the FIR and conv2d signal-processing kernels).  Each
+source is its own shared library; the first call on a machine compiles
+every source that is not built yet with ``nvcc`` for Hopper (``sm_90a``),
+one ``nvcc`` process per source, all started together, into
+``build/repro_torch_kernels/`` under the repository root, and loads the
+libraries with ``ctypes``.  A library's file name carries a hash of its
+source and the flags, so an edited source builds anew and an unchanged
+one loads what is there.  The kernels take plain pointers and a stream,
+and return a ``cudaError_t``: ``call`` raises on anything but success.
 
 Nothing here runs at import time, so the CPU-only tests import the
 wrappers freely.
@@ -25,7 +28,12 @@ from pathlib import Path
 
 import torch
 
-SOURCE = Path(__file__).with_name("csrc") / "widesa_mm.cu"
+CSRC = Path(__file__).with_name("csrc")
+#: the GEMM source (mm/bmm) and the signal-processing source (fir/conv2d)
+SOURCE = CSRC / "widesa_mm.cu"
+SP_SOURCE = CSRC / "widesa_sp.cu"
+#: library name -> source
+SOURCES = {"widesa_mm": SOURCE, "widesa_sp": SP_SOURCE}
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -33,7 +41,7 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 
-#: dtype codes of the C entry points (``enum DType`` in csrc/widesa_mm.cu)
+#: dtype codes of the C entry points (``enum DType`` in both csrc sources)
 DTYPE_CODES = {
     torch.float32: 0, torch.bfloat16: 1,
     torch.int8: 2, torch.int16: 3, torch.int32: 4,
@@ -66,17 +74,39 @@ COMPILED_BM = tuple(sorted({t[0] for t in COMPILED_TILES}))
 #: library, built with ``-DWIDESA_SWEEP_TILES`` on first use.
 SWEEP_TILES = tuple(itertools.product((1, 4, 16, 64), (32, 64, 128), (8, 32)))
 
-_ENTRY_ARGS = {
-    "widesa_mm_launch": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9
-    + [ctypes.c_void_p],
-    "widesa_bmm_launch": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 10
-    + [ctypes.c_void_p],
+#: compiled FIR output tiles (``BN``, outputs a block computes: 256
+#: threads x 1 or 4 outputs) and conv2d output tiles (``BH``, ``BW``: 256
+#: threads as 4 rows x 64 columns, 1 or 4 rows a thread); kept equal to
+#: ``launch_fir``/``launch_conv2d`` in csrc/widesa_sp.cu
+FIR_TILES = (256, 1024)
+CONV2D_TILES = ((4, 64), (16, 64))
+
+#: (input, output) dtype pairs of the FIR and conv2d kernels
+SP_DTYPES = frozenset({
+    (torch.float32, torch.float32),
+    (torch.int8, torch.int32),
+    (torch.int16, torch.int32),
+    (torch.int32, torch.int32),
+})
+
+#: entry point -> (library, argument types): pointers, then the ints of
+#: the shape, dtype codes and tile, then the stream
+_ENTRIES = {
+    "widesa_mm_launch": ("widesa_mm", [ctypes.c_void_p] * 3
+                         + [ctypes.c_int] * 9 + [ctypes.c_void_p]),
+    "widesa_bmm_launch": ("widesa_mm", [ctypes.c_void_p] * 3
+                          + [ctypes.c_int] * 10 + [ctypes.c_void_p]),
+    "widesa_fir_launch": ("widesa_sp", [ctypes.c_void_p] * 3
+                          + [ctypes.c_int] * 5 + [ctypes.c_void_p]),
+    "widesa_conv2d_launch": ("widesa_sp", [ctypes.c_void_p] * 3
+                             + [ctypes.c_int] * 8 + [ctypes.c_void_p]),
 }
 
-_LIBS: dict[bool, ctypes.CDLL] = {}
+_LIBS: dict[tuple[str, bool], ctypes.CDLL] = {}
 
-#: what the last compile printed (register and shared-memory use per
-#: kernel, from ``-Xptxas -v``) and how long it took, in seconds
+#: what the last build printed (register and shared-memory use per
+#: kernel, from ``-Xptxas -v``) and how long it took on the wall clock,
+#: in seconds (the sources compile in parallel)
 build_log = ""
 build_seconds = 0.0
 
@@ -91,48 +121,71 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
-def library_path(sweep: bool = False) -> Path:
-    """Build the shared library (with every SWEEP_TILES tile when
-    ``sweep``) if this source has not been built yet."""
-    global build_log, build_seconds
-    flags = NVCC_FLAGS + (("-DWIDESA_SWEEP_TILES",) if sweep else ())
+def _flags(sweep: bool) -> tuple[str, ...]:
+    return NVCC_FLAGS + (("-DWIDESA_SWEEP_TILES",) if sweep else ())
+
+
+def _target(name: str, sweep: bool) -> Path:
     digest = hashlib.sha1(
-        SOURCE.read_bytes() + " ".join(flags).encode()).hexdigest()[:12]
-    out = BUILD_DIR / f"libwidesa_mm-{digest}.so"
-    if out.exists():
+        SOURCES[name].read_bytes() + " ".join(_flags(sweep)).encode()
+    ).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}{'-sweep' if sweep else ''}-{digest}.so"
+
+
+def build(names=tuple(SOURCES), sweep: bool = False) -> dict[str, Path]:
+    """Build the libraries ``names`` (the mm one with every SWEEP_TILES
+    tile when ``sweep``) that are not built yet, one ``nvcc`` each, all
+    running at once; return each library's path."""
+    global build_log, build_seconds
+    out = {name: _target(name, sweep) for name in names}
+    todo = {name: path for name, path in out.items() if not path.exists()}
+    if not todo:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *flags, "-o", str(tmp), str(SOURCE)],
-        capture_output=True, text=True)
+    procs = {}
+    for name, path in todo.items():
+        tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+        procs[name] = (tmp, subprocess.Popen(
+            [_nvcc(), *_flags(sweep), "-o", str(tmp), str(SOURCES[name])],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs, failed = [], []
+    for name, (tmp, proc) in procs.items():
+        text, _ = proc.communicate()
+        logs.append(f"== {SOURCES[name].name}\n{text}")
+        if proc.returncode != 0:
+            failed.append(SOURCES[name].name)
+        else:
+            os.replace(tmp, todo[name])
     build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {SOURCE.name}:\n{build_log}")
-    os.replace(tmp, out)
+    build_log = "".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed on {failed}:\n{build_log}")
     return out
 
 
-def library(sweep: bool = False) -> ctypes.CDLL:
-    """The loaded kernel library, built at first use."""
-    if sweep not in _LIBS:
-        lib = ctypes.CDLL(str(library_path(sweep)))
-        for name, argtypes in _ENTRY_ARGS.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+def library(name: str, sweep: bool = False) -> ctypes.CDLL:
+    """The loaded library ``name``, built at first use."""
+    if (name, sweep) not in _LIBS:
+        lib = ctypes.CDLL(str(build((name,), sweep)[name]))
+        for entry, (owner, argtypes) in _ENTRIES.items():
+            if owner == name:
+                fn = getattr(lib, entry)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
         lib.widesa_error_string.argtypes = [ctypes.c_int]
         lib.widesa_error_string.restype = ctypes.c_char_p
-        _LIBS[sweep] = lib
-    return _LIBS[sweep]
+        _LIBS[(name, sweep)] = lib
+    return _LIBS[(name, sweep)]
 
 
-def call(entry: str, *args, tiles: tuple[int, int, int]) -> None:
+def call(entry: str, *args, tiles: tuple[int, ...]) -> None:
     """Launch one kernel entry point at ``tiles`` on the current stream;
-    raise if the launch was refused."""
-    lib = library(sweep=tiles not in COMPILED_TILES)
+    raise if the launch was refused.  An mm tile outside COMPILED_TILES
+    loads the sweep library."""
+    name = _ENTRIES[entry][0]
+    lib = library(name, sweep=name == "widesa_mm"
+                  and tuple(tiles) not in COMPILED_TILES)
     stream = torch.cuda.current_stream().cuda_stream
     err = getattr(lib, entry)(*args, *tiles, stream)
     if err != 0:

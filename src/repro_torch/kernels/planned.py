@@ -1,11 +1,19 @@
-"""Planned-execution facade: model GEMMs routed through the mapper.
+"""Planned-execution facade: model GEMMs and the audio frontend routed
+through the mapper.
 
-The port of ``repro.kernels.planned`` for the serving path.
+The port of ``repro.kernels.planned`` for the serving paths.
 ``planned_dense(x, w)`` and ``planned_bmm(a, b)`` normalize call-site
 shapes onto the registered ``mm``/``bmm`` recurrences, resolve one
 ``PlanRequest`` per shape through the copied planner, and run the plan
 (``runtime.execute_plan``: the hand-written Hopper kernel for the
-mapper's ``pallas`` stamp).  The target, the supported dtypes and the
+mapper's ``pallas`` stamp).  ``planned_fir``/``planned_conv2d`` do the
+same for the frontend's filter bank and feature extractor.
+``planned_fft2d`` and ``planned_mlp_pair`` resolve a two-stage chain
+(``fft2d_stage+fft2d_stage``, ``mm+mm``) to a ``FusedPlan`` whose
+backend is the reference's default ``xla``: they run the plain versions
+(``torch.fft.fft2``; ``torch.matmul`` in fp32 with the bias and gelu
+between), which is the plan's own stamp, not a fallback.  These are
+inference-only surfaces (no backward).  The target, the supported dtypes and the
 fallback rules are the reference's, so both packages make the same
 decision with the same reason at every call site:
 
@@ -119,13 +127,23 @@ def planned_enabled() -> bool:
 # plan lookup
 # ---------------------------------------------------------------------------
 
+def _norm_dim(d):
+    """int, or a tuple of ints for one stage of a chain request."""
+    if isinstance(d, (tuple, list)):
+        return tuple(int(x) for x in d)
+    return int(d)
+
+
 def plan_request(kind: str, shape, dtype: str,
                  target: Target | None = None,
                  policy: PlanPolicy | None = None) -> PlanRequest:
+    """The one way a facade surface describes a plan lookup.  A ``+`` in
+    ``kind`` names a fused chain (``mm+mm``); its shape is then a tuple
+    of per-stage extent tuples."""
     cfg = current_config()
     return PlanRequest(
         kind=kind,
-        shape=tuple(int(d) for d in shape),
+        shape=tuple(_norm_dim(d) for d in shape),
         dtype=str(dtype),
         target=target or cfg.target or PLANNED_TARGET,
         policy=policy or cfg.policy,
@@ -328,3 +346,152 @@ def planned_bmm(a: torch.Tensor, b: torch.Tensor, *, site: str = "bmm",
     else:
         out = execute_plan(plan, a3, b3, out_dtype=out_dtype)
     return out.reshape(*batch, m, n)
+
+
+# -- fused MLP pair (mm+mm chain) -------------------------------------------
+
+#: Interstage activations the fused pair supports — matched to the
+#: ``bias_*`` forms in ``core.fusion.INTERSTAGE_OPS`` (gelu is the tanh
+#: form, ``jax.nn.gelu``'s default).
+_ACT_FNS = {"relu": torch.relu, "silu": torch.nn.functional.silu,
+            "gelu": lambda t: torch.nn.functional.gelu(t, approximate="tanh")}
+
+
+def _pair_shape(m, k, ff, n):
+    """Nested mm+mm chain extents for x[m,k] @ wu[k,ff] -> @ wd[ff,n]."""
+    return ((m, ff, k), (m, n, ff))
+
+
+def _decide_pair(m, k, ff, n, dtypes, act: str):
+    """(FusedPlan, fallback_reason) for one up->down projection pair."""
+    if not planned_enabled():
+        return None, "disabled"
+    if act not in _ACT_FNS:
+        return None, f"act:{act}"
+    names = sorted({dtype_name(d) for d in dtypes})
+    if len(names) != 1 or names[0] not in SUPPORTED_DTYPES:
+        return None, "dtype:" + "x".join(names)
+    shape = _pair_shape(m, k, ff, n)
+    _OBSERVED.add(("mm+mm", shape, names[0]))
+    plan = resolve(plan_request("mm+mm", shape, names[0]))
+    if plan is None:
+        return None, "infeasible"
+    return plan, None
+
+
+def _execute_pair(plan, act: str, x, wu, bu, wd):
+    from repro_torch.core import fusion  # late: fusion pulls the registry
+
+    # the resolver fuses the bare chain; the boundary op is a call-site
+    # property, stamped here (operand layout follows: x, wu, bias, wd)
+    plan = dataclasses.replace(plan, interstage=("bias_" + act,))
+    return fusion.lower_fused(plan)(x, wu, bu, wd)
+
+
+def planned_mlp_pair(x: torch.Tensor, wu: torch.Tensor, bu: torch.Tensor,
+                     wd: torch.Tensor, *, act: str = "gelu",
+                     site: str = "mlp.pair") -> torch.Tensor:
+    """The transformer up -> bias+activation -> down projection pair,
+    planned as one ``mm+mm`` chain.
+
+    ``x``: [..., K]; ``wu``: [K, FF]; ``bu``: [FF]; ``wd``: [FF, N].  A
+    chain that fuses runs ``fusion.lower_fused`` at the plan's backend;
+    one that does not runs the unfused semantics through the planned
+    GEMMs: ``planned_dense(x, wu, site="mlp.up")`` + bias + activation,
+    then ``planned_dense(..., wd, site="mlp.down")``.
+    """
+    lead = x.shape[:-1]
+    k = x.shape[-1]
+    ff, n = wu.shape[-1], wd.shape[-1]
+    m = int(math.prod(lead)) if lead else 1
+    plan, reason = _decide_pair(
+        m, k, ff, n, (x.dtype, wu.dtype, bu.dtype, wd.dtype), act)
+    _record(site, _pair_shape(m, k, ff, n), plan=plan, reason=reason)
+    if plan is None:
+        act_fn = _ACT_FNS.get(act, _ACT_FNS["gelu"])
+        h = act_fn(planned_dense(x, wu, site="mlp.up") + bu)
+        return planned_dense(h, wd, site="mlp.down")
+    out = _execute_pair(plan, act, x.reshape(m, k), wu, bu, wd)
+    return out.reshape(*lead, n)
+
+
+# -- signal-processing frontend (fir / fused fft2d chain / conv2d) ----------
+#
+# The streaming audio frontend (serve/frontend.py) runs its filter bank,
+# FFT tiles and feature extractor through these — the same
+# resolve(plan_request(...)) path as the model GEMMs, with per-site report
+# rows.  Inference-only surfaces.
+
+def planned_fir(x: torch.Tensor, h: torch.Tensor, *,
+                site: str = "frontend.fir") -> torch.Tensor:
+    """1-D FIR filter bank ``y[n] = sum_t x[n+t] * h[t]`` routed through
+    the mapper.
+
+    ``x``: [N]; ``h``: [T]; returns [N-T+1] in the kernel's accumulator
+    dtype (int32 for integer inputs, float32 for float32) — identical to
+    ``ref.fir``, so planned and fallback paths agree.
+    """
+    n_out = int(x.shape[-1]) - int(h.shape[-1]) + 1
+    taps = int(h.shape[-1])
+    plan, reason = _decide("fir", (n_out, taps), x.dtype, h.dtype)
+    _record(site, (n_out, taps), plan=plan, reason=reason)
+    if plan is None:
+        _fallback_allowed(x, site, (n_out, taps), reason)
+        return ref.fir(x, h)
+    return execute_plan(plan, x.contiguous(), h.contiguous())
+
+
+def planned_conv2d(img: torch.Tensor, filt: torch.Tensor, *,
+                   site: str = "frontend.conv2d") -> torch.Tensor:
+    """VALID 2-D cross-correlation routed through the mapper.
+
+    ``img``: [H, W]; ``filt``: [P, Q]; returns [H-P+1, W-Q+1] in the
+    accumulator dtype (int32 for integer inputs, float32 for float32).
+    """
+    p, q = (int(d) for d in filt.shape)
+    oh = int(img.shape[0]) - p + 1
+    ow = int(img.shape[1]) - q + 1
+    plan, reason = _decide("conv2d", (oh, ow, p, q), img.dtype, filt.dtype)
+    _record(site, (oh, ow, p, q), plan=plan, reason=reason)
+    if plan is None:
+        _fallback_allowed(img, site, (oh, ow, p, q), reason)
+        return ref.conv2d(img, filt)
+    return execute_plan(plan, img.contiguous(), filt.contiguous())
+
+
+def _decide_fft2d(rows: int, cols: int, dtypes):
+    """(FusedPlan, fallback_reason) for one fft2d stage1->stage2 chain."""
+    if not planned_enabled():
+        return None, "disabled"
+    names = sorted({dtype_name(d) for d in dtypes})
+    if names != ["float32"]:
+        return None, "dtype:" + "x".join(names)
+    shape = ((rows, cols), (rows, cols))
+    _OBSERVED.add(("fft2d_stage+fft2d_stage", shape, "float32"))
+    plan = resolve(plan_request("fft2d_stage+fft2d_stage", shape, "float32"))
+    if plan is None:
+        return None, "infeasible"
+    return plan, None
+
+
+def planned_fft2d(x_re: torch.Tensor, x_im: torch.Tensor, *,
+                  site: str = "frontend.fft2d"):
+    """Whole 2-D FFT of one [rows, cols] tile, planned as the fused
+    ``fft2d_stage+fft2d_stage`` chain.
+
+    ``x_re``/``x_im``: float32 [rows, cols] planes; returns the
+    ``(real, imag)`` float32 pair, as ``ref.fft2d``.  The chain's plan is
+    stamped ``xla`` (the reference's default), so this runs
+    ``torch.fft.fft2``; a ``pallas`` stamp would run the composition over
+    the mm kernel (``kernels/fft2d.py``).
+    """
+    from repro_torch.core import fusion  # late: fusion pulls the registry
+
+    rows, cols = (int(d) for d in x_re.shape)
+    shape = ((rows, cols), (rows, cols))
+    plan, reason = _decide_fft2d(rows, cols, (x_re.dtype, x_im.dtype))
+    _record(site, shape, plan=plan, reason=reason)
+    if plan is None:
+        _fallback_allowed(x_re, site, shape, reason)
+        return ref.fft2d(x_re, x_im)
+    return fusion.lower_fused(plan)(x_re, x_im)

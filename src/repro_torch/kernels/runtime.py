@@ -3,12 +3,16 @@
 ``execute_plan(plan, *tensors)`` looks up the recurrence's ``KernelSpec``
 and runs it: a plan stamped ``pallas`` (the mapper's choice) runs the
 hand-written Hopper kernel, a plan stamped ``xla`` runs the plain
-PyTorch version.
+PyTorch version.  ``last_tiles`` records, per recurrence, the plan's
+block beside the compiled tile the last hand-kernel launch used.
 
 The plan's tiles were sized by the planner for a TPU (128-lane MXU, 16 MiB
-of VMEM) and fall back to divisors that are not powers of two (3, 6, 12),
-with the whole batch as one block.  ``hopper_tiles`` adapts them to the
-compiled kernel tiles (``build.COMPILED_TILES``):
+of VMEM) and fall back to divisors that are not powers of two (3, 6, 12,
+103), with the whole batch as one block.  The ``*_tile`` functions adapt
+them to the compiled kernel tiles.
+
+mm, bmm and the fft2d stages (``hopper_tiles``, tiles
+``build.COMPILED_TILES``):
 
 * BM is the smallest compiled row count that covers the plan's row tile
   (the largest where none does; the kernel masks ragged edges, so any
@@ -25,10 +29,16 @@ compiled kernel tiles (``build.COMPILED_TILES``):
   of the two for each layout on an H100.
 
 PERF.md has the times behind both choices (``chip_smoke.py`` and its
-``--tile-sweep``).
+``--tile-sweep``).  The batch block is not a kernel tile: the kernel
+gives every batch entry its own grid slice.
 
-The batch block is not a kernel tile: the kernel gives every batch entry
-its own grid slice.
+fir and conv2d (``fir_tile``, ``conv2d_tile``): the plan's output block
+({n: 103} or {h: 8, w: 64} on the audio frontend) is a TPU tile; the
+kernels are compiled for a 256-thread block computing 1 or 4 outputs a
+thread.  The larger tile is taken when it still gives every one of the
+card's 132 SMs a block, the smaller one otherwise (the frontend's
+chunks are a few thousand outputs: 25 and 16 blocks with the small
+tiles, 7 and 8 with the large).
 
 ``acc_dtype``/``out_dtype`` are the reference's accumulator ladder:
 integer inputs accumulate and land in int32, floats accumulate in fp32
@@ -58,19 +68,27 @@ def out_dtype(dtype: torch.dtype) -> torch.dtype:
     return dtype if dtype.is_floating_point else torch.int32
 
 
+#: streaming multiprocessors of an H100 SXM
+SMS = 132
+
+
 @dataclasses.dataclass(frozen=True)
 class HopperTiles:
-    """A plan's ``(bm, bn, bk)`` tiles and the compiled kernel tile that
+    """A plan's kernel-scope tiles and the compiled kernel tile that
     executes them."""
 
-    plan: tuple[int, int, int]
-    tile: tuple[int, int, int]
+    plan: tuple[int, ...]
+    tile: tuple[int, ...]
+
+
+#: recurrence name -> the tiles of its last hand-kernel launch
+last_tiles: dict[str, HopperTiles] = {}
 
 
 def hopper_tiles(plan: "ExecutionPlan", *,
                  b_col_major: bool = False) -> HopperTiles:
-    """Map the plan's kernel-scope tiles onto a compiled Hopper tile (see
-    the module docstring); ``b_col_major`` is B's layout."""
+    """Map an mm-family plan's kernel-scope tiles onto a compiled Hopper
+    tile (see the module docstring); ``b_col_major`` is B's layout."""
     from . import registry
 
     kw = registry.get(plan.recurrence.name).block_kwargs(plan)
@@ -80,6 +98,29 @@ def hopper_tiles(plan: "ExecutionPlan", *,
     bk = 8 if b_col_major else 32
     tile = next(t for t in build.COMPILED_TILES if t[0] == bm and t[2] == bk)
     return HopperTiles(plan=want, tile=tile)
+
+
+def fir_tile(plan: "ExecutionPlan", n_out: int) -> HopperTiles:
+    """The compiled FIR tile for ``n_out`` outputs: the larger BN while it
+    leaves a block for every SM (module docstring)."""
+    from . import registry
+
+    small, large = build.FIR_TILES
+    bn = large if -(-n_out // large) >= SMS else small
+    return HopperTiles(
+        plan=(registry.get("fir").block_kwargs(plan)["bn"],), tile=(bn,))
+
+
+def conv2d_tile(plan: "ExecutionPlan", oh: int, ow: int) -> HopperTiles:
+    """The compiled conv2d tile for an ``oh`` x ``ow`` output: the taller
+    one while it leaves a block for every SM (module docstring)."""
+    from . import registry
+
+    kw = registry.get("conv2d").block_kwargs(plan)
+    small, large = build.CONV2D_TILES
+    blocks = -(-oh // large[0]) * -(-ow // large[1])
+    return HopperTiles(plan=(kw["bh"], kw["bw"]),
+                       tile=large if blocks >= SMS else small)
 
 
 def execute_plan(plan: "ExecutionPlan", *tensors, out_dtype=None):
@@ -97,5 +138,7 @@ def execute_plan(plan: "ExecutionPlan", *tensors, out_dtype=None):
     if plan.backend != "pallas":
         raise NotImplementedError(
             f"backend {plan.backend!r} has no lowering in the port")
-    tiles = hopper_tiles(plan, b_col_major=not tensors[1].is_contiguous())
+    tiles = spec.tiles(plan, *tensors)
+    if tensors[0].device.type != "cpu":
+        last_tiles[spec.name] = tiles
     return spec.hopper(*tensors, tiles=tiles.tile, out_dtype=out_dtype)

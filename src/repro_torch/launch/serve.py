@@ -2,10 +2,16 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \
         --requests 8 --max-new 8 [--full] [--device cuda]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-base \
+        --stream-audio [--full] [--device cpu]
 
 ``--full`` serves the published full-width configuration instead of the
 reduced smoke one; weights are drawn from a ``torch.Generator`` seeded
-with 0 on ``--device``.  The slot engine is the only one ported so far.
+with 0 on ``--device``.  ``--stream-audio`` (encdec archs) submits
+synthesized int16 audio streams of ``1 + i % (enc_frames //
+frames_per_chunk)`` chunks for request ``i`` through the planned
+frontend chunk by chunk, and checks after the drain that the frontend's
+planned stages ran.  The slot engine is the only one ported so far.
 """
 
 from __future__ import annotations
@@ -28,11 +34,14 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--full", action="store_true",
                     help="full-width config instead of the smoke config")
+    ap.add_argument("--stream-audio", action="store_true",
+                    help="submit synthesized audio streams through the "
+                         "planned frontend (encdec archs only)")
     args = ap.parse_args(argv)
 
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.kernels import planned
-    from repro_torch.serve import make_engine
+    from repro_torch.serve import make_engine, synth_samples
 
     cfg = (get_config if args.full else get_smoke_config)(args.arch)
     eng = make_engine(cfg, kind=args.engine, max_slots=args.slots,
@@ -40,8 +49,20 @@ def main(argv=None):
     gen = torch.Generator(device=args.device).manual_seed(0)
     eng.load(eng.api.init(gen))
 
+    if args.stream_audio and eng.frontend is None:
+        raise SystemExit(
+            f"--stream-audio needs an encdec arch; {args.arch} has no "
+            "audio frontend")
+
     rng = np.random.default_rng(0)
-    for _ in range(args.requests):
+    for i in range(args.requests):
+        if args.stream_audio:
+            n_chunks = 1 + i % (cfg.enc_frames
+                                // eng.frontend.cfg.frames_per_chunk)
+            eng.submit_audio_stream(
+                synth_samples(eng.frontend.cfg, n_chunks, seed=i),
+                max_new_tokens=args.max_new)
+            continue
         plen = int(rng.integers(4, 16))
         eng.submit_text(rng.integers(0, cfg.vocab, plen),
                         max_new_tokens=args.max_new)
@@ -59,6 +80,13 @@ def main(argv=None):
     for site, st in rows.items():
         mix = ",".join(f"{b}={n}" for b, n in sorted(st["backends"].items()))
         print(f"  {site}: {st['planned']}/{st['fallback']}  [{mix or '-'}]")
+    if args.stream_audio:
+        front = sorted(s for s, st in rows.items()
+                       if s.startswith("frontend.") and st["planned"])
+        if not front:
+            raise SystemExit("audio streaming executed no planned frontend "
+                             "stages")
+        print(f"planned frontend stages: {front}")
     if planned.planned_enabled() and not any(
             st["planned"] for st in rows.values()):
         raise SystemExit("serving executed no planned GEMMs")

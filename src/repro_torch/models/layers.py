@@ -1,10 +1,12 @@
-"""Transformer layers of the dense family: norms, rotary, GQA attention,
-GLU MLP (the port of ``repro.models.layers``).
+"""Transformer layers of the dense and encdec families: norms, rotary, GQA
+attention with the streaming masks, GLU and two-matrix MLPs (the port of
+``repro.models.layers``).
 
 Plain functions on tensors and parameter dicts.  Every projection goes
 through ``planned_dense`` and the attention score / value contractions
 through ``planned_bmm``, so each GEMM of the model runs on a mapper plan —
-on the card, the hand-written Hopper kernel.  Layouts follow the
+on the card, the hand-written Hopper kernel; the non-GLU MLP runs as the
+planned ``mm+mm`` chain (``planned_mlp_pair``, stamped ``xla``).  Layouts follow the
 reference: activations [B, S, d], heads [B, S, H, hd], caches
 [B, S, Hkv, hd].
 """
@@ -16,7 +18,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.planned import planned_bmm, planned_dense
+from repro_torch.kernels.planned import (planned_bmm, planned_dense,
+                                        planned_mlp_pair)
 
 #: the direct attention path materializes [B, H, Sq, Skv] scores; the
 #: reference switches to blockwise (flash-style) attention above this
@@ -121,8 +124,16 @@ def _gqa_values(w, v, site):
     return out.reshape(b, hkv, group, sq, hd).permute(0, 3, 1, 2, 4)
 
 
-def sdpa(q, k, v, *, causal: bool):
-    """q: [B,Sq,Hq,hd]; k/v: [B,Skv,Hkv,hd] (GQA broadcast)."""
+def sdpa(q, k, v, *, causal: bool, kv_len=None, chunk=None):
+    """q: [B,Sq,Hq,hd]; k/v: [B,Skv,Hkv,hd] (GQA broadcast).
+
+    ``kv_len`` ([B] int32, optional) masks key rows at positions
+    ``>= kv_len[b]`` — the streaming cross-attention contract: the
+    unwritten tail of a partially filled encoder K/V cache contributes
+    exact zeros (a full cache with ``kv_len == Skv`` equals no mask).
+    ``chunk`` (int, optional) adds a block-causal mask: query position
+    ``qp`` sees key position ``kp`` iff ``qp // chunk >= kp // chunk``.
+    """
     b, sq, hq, hd = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     if max(sq, skv) > BLOCKWISE_SEQ_THRESHOLD:
@@ -132,10 +143,16 @@ def sdpa(q, k, v, *, causal: bool):
     group = hq // hkv
     qg = q.reshape(b, sq, hkv, group, hd)
     logits = _gqa_scores(qg, k, "attn.scores") / math.sqrt(hd)
+    qpos = torch.arange(sq, device=q.device)[:, None]
+    kpos = torch.arange(skv, device=q.device)[None, :]
     if causal:
-        qpos = torch.arange(sq, device=q.device)[:, None]
-        kpos = torch.arange(skv, device=q.device)[None, :]
         logits = torch.where(qpos >= kpos, logits, -1e30)
+    if chunk is not None:
+        logits = torch.where((qpos // chunk) >= (kpos // chunk), logits,
+                             -1e30)
+    if kv_len is not None:
+        vmask = kpos < kv_len.to(q.device)[:, None]  # [B, Skv]
+        logits = torch.where(vmask[:, None, None, None], logits, -1e30)
     w = torch.softmax(logits, dim=-1).to(v.dtype)
     out = _gqa_values(w, v, "attn.values")
     return out.reshape(b, sq, hq, hd)
@@ -186,14 +203,18 @@ def apply_attention_decode(p, cfg, x, cache_k, cache_v, pos):
 
 
 # ---------------------------------------------------------------------------
-# GLU MLP
+# MLP
 # ---------------------------------------------------------------------------
 
 def apply_mlp(p, cfg, x):
+    act_name = "silu" if cfg.act == "silu" else "gelu"
     if not cfg.mlp_glu:
-        raise NotImplementedError(
-            "the non-GLU MLP runs the fused mm+mm pair, not ported yet")
-    if cfg.act == "silu":
+        # up -> bias+act -> down is the registry's mm+mm chain; the output
+        # bias stays outside the chain
+        out = planned_mlp_pair(x, p["wu"], p["bu"], p["wd"], act=act_name,
+                               site="mlp.pair")
+        return out + p["bd"]
+    if act_name == "silu":
         act = F.silu
     else:  # jax.nn.gelu's default is the tanh approximation
         def act(t):

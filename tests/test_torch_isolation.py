@@ -44,8 +44,11 @@ def test_port_and_chip_smoke_import_without_jax():
     result = json.loads(out.stdout.strip().splitlines()[-1])
     assert result["leaked"] == []
     assert {"repro_torch.kernels.planned", "repro_torch.serve.engine",
-            "repro_torch.launch.serve", "repro_torch.convert"} <= set(
-        result["modules"])
+            "repro_torch.launch.serve", "repro_torch.convert",
+            "repro_torch.kernels.fir", "repro_torch.kernels.conv2d",
+            "repro_torch.kernels.fft2d", "repro_torch.core.fusion",
+            "repro_torch.models.encdec", "repro_torch.serve.frontend",
+            "repro_torch.configs.whisper_base"} <= set(result["modules"])
 
 
 def _imported_roots(path: Path) -> set[str]:

@@ -100,5 +100,10 @@ def test_unported_policies_and_plan_kinds_raise():
             "mm", (8, 8, 8), "float32", hier))
     assert autotune.counters() == {"hits": 0, "misses": 0,
                                    "measure_calls": 0, "table_errors": 0}
+    # fused chains keep refusing hierarchical targets too
+    with pytest.raises(NotImplementedError, match="hierarchical"):
+        autotune.resolve(autotune.PlanRequest(
+            "mm+mm", ((8, 8, 8), (8, 8, 8)), "float32", hier))
+    # a kind the port has not registered yet reads as "no plan"
     assert autotune.resolve(autotune.PlanRequest(
-        "fir", (64, 4), "float32", PLANNED_TARGET)) is None
+        "jacobi2d", (64, 64), "float32", PLANNED_TARGET)) is None
