@@ -23,16 +23,19 @@ line(s); any failure exits non-zero:
    the main-path shapes and, for FIR and conv2d, at the registry's
    bandwidth-sized bench shapes; FIR, conv2d, the fft2d composition and
    their library calls also get their device time from ``torch.profiler``
-   (the launch overhead left out);
+   (the launch overhead left out), FIR and conv2d with every compiled
+   tile;
 4. serve  — full-width qwen1.5-0.5b (bf16, 24 layers, vocab 151936,
    random weights from a ``torch.Generator`` seeded with 0) on the slot
    engine: 4 slots, max_seq 128, 8 requests of 4-16 prompt tokens and 8
    new tokens each.  Checks every request's budget, that every planned
    site planned and never fell back, that both GEMM kernels launched
-   during the drain, and that each prompt's prefill logits match a second,
-   explicit prefill through the plain versions.  One 4-lane decode step
-   is then timed on the host clock and traced with ``torch.profiler`` for
-   the card's busy time and the hand kernels' share of it;
+   during the drain, that every GEMM shape the drain gave a site matches
+   the plain version (``drain_parity``), and that each prompt's prefill
+   logits match a second, explicit prefill through the plain versions.
+   One 4-lane decode step
+   is then timed on the host clock and traced with ``torch.profiler``
+   for the card's busy time and the hand kernels' share of it;
 5. stream — full-width whisper-base (bf16, 6+6 layers, d 512, vocab
    51865, random weights seeded with 0) on the slot engine: 4 slots,
    max_seq 128, 8 streamed int16 audio requests of 1-8 chunks and 8 new
@@ -40,19 +43,25 @@ line(s); any failure exits non-zero:
    kernels, the fft2d chain's ``xla`` stamp) and the incremental encoder.
    Checks every budget, that every site planned with no fallback
    (``frontend.*`` and ``mlp.pair`` included), that the GEMM, FIR and
-   conv2d kernels launched during the drain, and that one request's
-   features and stream-prefill logits match a run through the plain
-   versions;
+   conv2d kernels launched during the drain, that every GEMM shape the
+   drain gave a site matches the plain version (the d 512 projections,
+   the lm_head over 51865 columns, the encoder chunk attention, the
+   cross-attention over the 1500-row encoder cache), and that one
+   request's features and stream-prefill logits match a run through the
+   plain versions;
 6. summary — a JSON line of the kernels, the ``nvidia-smi`` name and
    power limit, and the result line.
 
 Every wrapper's launch count is set to 0 just before each serving drain
-and read just after; the comparison and timing launches of phase 3 do not
-count.  ``--tile-sweep`` runs only the device and build phases, then
-times the GEMM in bf16 with each of the 24 tiles of ``build.SWEEP_TILES``
-(a second library holds those not compiled for the main path) at every
-main-path shape and prints, per shape, the tile ``runtime.hopper_tiles``
-picks and the fastest one (``--out`` writes all times as JSON).
+and read just after; the kernels line gives each path's counts apart
+(``"launches": {"qwen": n, "whisper_stream": m}``).  The comparison and
+timing launches of phase 3 and of ``drain_parity`` do not count.
+
+``--tile-sweep`` runs only the device and build phases, then times the
+GEMM in bf16 with each of the 24 tiles of ``build.SWEEP_TILES`` (a second
+library holds those not compiled for the main path) at every main-path
+shape and prints, per shape, the tile ``runtime.hopper_tiles`` picks and
+the fastest one (``--out`` writes all times as JSON).
 
 Tolerances: integer results are bit-exact (wrapping int32, as XLA);
 float32 results within the kernel registry's atol 1e-3 (1.0 for the
@@ -66,7 +75,9 @@ exact.
 
 from __future__ import annotations
 
+import ast
 import json
+import math
 import re
 import subprocess
 import sys
@@ -95,9 +106,10 @@ ARCH = "qwen1.5-0.5b"
 STREAM_ARCH = "whisper-base"
 SLOTS, MAX_SEQ, REQUESTS, MAX_NEW = 4, 128, 8, 8
 
-#: the serving GEMMs of the main path (prefill of a 12-token prompt and a
-#: 4-lane decode step), as (site, kind, shape, B column-major, launches
-#: in one decode step of the 24-layer model)
+#: the serving GEMMs of the qwen path timed in phase 3 (prefill of a
+#: 12-token prompt and a 4-lane decode step), as (site, kind, shape, B
+#: column-major, launches in one decode step of the 24-layer model); the
+#: shapes each drain really gives are checked after it (``drain_parity``)
 MAIN_SHAPES = (
     ("attn.q/k/v/out, prefill", "mm", (12, 1024, 1024), False, 0),
     ("mlp.gate/up, prefill", "mm", (12, 2816, 1024), False, 0),
@@ -284,6 +296,47 @@ def parity(torch) -> None:
           f"fp32 <= 1e-3, bf16 <= 2^-7|ref| + 1e-3", flush=True)
 
 
+#: report sites whose shapes are not one GEMM: the frontend's FIR, conv2d
+#: and fft2d chain (held in phase 3) and the MLP pair's ``xla`` stamp
+NON_GEMM_SITES = ("frontend.", "mlp.pair")
+
+
+def drain_parity(torch, report, path: str) -> None:
+    """Every GEMM shape a serving drain gave a site (``planned_report``),
+    through the hand kernel at the tile the planner picks against the
+    plain version, in bf16 (the serving dtype): the lm_head reads its B
+    column-major, as the tied head does; the score sites flush to fp32.
+    Run after the drain's counts are read, so these launches count for
+    no path."""
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    cases = sorted({(site, ast.literal_eval(key))
+                    for site, st in report.items()
+                    if not site.startswith(NON_GEMM_SITES)
+                    for key in st["shapes"]})
+    worst = 0.0
+    for site, shape in cases:
+        kind = "mm" if len(shape) == 3 else "bmm"
+        col = site == "lm_head"
+        out_dtype = torch.float32 if "scores" in site else None
+        a, b = operands(torch, gen, kind, shape, torch.bfloat16, col)
+        fn, tiles = kernel_call(kind, shape, torch.bfloat16, col, out_dtype)
+        plain = ref.mm if kind == "mm" else ref.bmm
+        out, want = fn(a, b), plain(a, b, out_dtype)
+        torch.cuda.synchronize()
+        err, ok = max_error(torch, out, want, out.dtype)
+        if not ok:
+            fail(f"{path}: {site} {kind}{shape} bf16 tile {tiles}: max "
+                 f"|err| {err}")
+        worst = max(worst, err)
+        del a, b, out, want
+    print(f"{path}: the {len(cases)} GEMM (site, shape) pairs of the drain "
+          f"match the plain versions in bf16 at the planned tiles (bf16 "
+          f"<= 2^-7|ref| + 1e-3, fp32 scores <= 1e-3; max |err| "
+          f"{worst:.4g}): {sorted({s for s, _ in cases})}", flush=True)
+
+
 def time_ms(torch, fn, reps=50, warmup=5) -> float:
     for _ in range(warmup):
         fn()
@@ -451,8 +504,7 @@ def fft_kernel():
     if plan is None:
         fail(f"no feasible plan for fft2d_stage{FFT_MAIN}")
     tiles = runtime.hopper_tiles(plan).tile
-    return (lambda re_, im_, three_mult=True: fft2d.fft2d(
-        re_, im_, tiles=tiles, three_mult=three_mult)), tiles
+    return (lambda re_, im_: fft2d.fft2d(re_, im_, tiles=tiles)), tiles
 
 
 def sp_parity(torch) -> None:
@@ -486,15 +538,13 @@ def sp_parity(torch) -> None:
     call, tiles = fft_kernel()
     re_, im_ = (torch.randn(FFT_MAIN, generator=gen, device="cuda")
                 for _ in range(2))
-    want = ref.fft2d(re_, im_)
-    for three_mult in (True, False):
-        got = call(re_, im_, three_mult)
-        torch.cuda.synchronize()
-        err = max((g - w).abs().max().item() for g, w in zip(got, want))
-        if err > 1.0:
-            fail(f"fft2d{FFT_MAIN} composition (three_mult={three_mult}) "
-                 f"tile {tiles}: max |err| {err} > 1.0")
-        n += 1
+    got, want = call(re_, im_), ref.fft2d(re_, im_)
+    torch.cuda.synchronize()
+    err = max((g - w).abs().max().item() for g, w in zip(got, want))
+    if err > 1.0:
+        fail(f"fft2d{FFT_MAIN} composition tile {tiles}: max |err| {err} "
+             "> 1.0")
+    n += 1
     print(f"kernels: FIR/conv2d parity ok in {n} cases (4 dtypes x "
           f"frontend and ragged shapes x every compiled tile; integers "
           f"bit-exact, fp32 <= 1e-3; fft2d composition <= 1.0)", flush=True)
@@ -523,9 +573,12 @@ def sp_timings(torch) -> dict:
     card), with TF32 off."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import build, conv2d, fir, ref
 
     gen = torch.Generator(device="cuda").manual_seed(5)
+    kernel_fn = {"fir": fir.fir, "conv2d": conv2d.conv2d}
+    compiled = {"fir": [(t,) for t in build.FIR_TILES],
+                "conv2d": list(build.CONV2D_TILES)}
     library = {
         "fir": lambda a, b: F.conv1d(a[None, None], b[None, None]),
         "conv2d": lambda a, b: F.conv2d(a[None, None], b[None, None]),
@@ -551,6 +604,9 @@ def sp_timings(torch) -> dict:
                 name, args, a.element_size(), out.element_size())
             rows[(name, where)] = row
             lib = f"F.{name if name == 'conv2d' else 'conv1d'}"
+            per_tile = ", ".join(
+                f"{t} {fmt_ms(device_ms(torch, lambda t=t: kernel_fn[name](a, b, tiles=t), name + '_kernel'))}"
+                for t in compiled[name])
             print(f"time {name}{args} {str(dtype).removeprefix('torch.')} "
                   f"[{where}] plan block {tiles.plan} -> tile {tiles.tile}: "
                   f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} "
@@ -559,7 +615,8 @@ def sp_timings(torch) -> dict:
                   f"time (profiler): kernel "
                   f"{fmt_ms(device_ms(torch, lambda: fn(a, b), name + '_kernel'))}"
                   f", {lib} "
-                  f"{fmt_ms(device_ms(torch, lambda: library[name](af, bf)))}",
+                  f"{fmt_ms(device_ms(torch, lambda: library[name](af, bf)))}"
+                  f"; kernel device time by compiled tile: {per_tile}",
                   flush=True)
             del a, b, af, bf, out, want
     call, tiles = fft_kernel()
@@ -579,9 +636,12 @@ def sp_timings(torch) -> dict:
         plain_ms=time_ms(torch, lambda: ref.fft2d(re_, im_)),
         library_ms=time_ms(torch, lambda: fft_lib(re_, im_)),
     )
-    # two float32 planes in and out; the composition's six real GEMMs
+    # the function's least work, not the composition's: two float32
+    # planes in and two out, and an FFT's 5 N log2 N operations over the
+    # N = r * c complex points
+    n = r * c
     row["bound_ms"], row["bound_by"] = least_ms(
-        4 * r * c * 4, 3 * 2 * (r * r * c + r * c * c), "float32")
+        4 * n * 4, 5 * n * math.log2(n), "float32")
     rows[("fft2d", "main")] = row
     print(f"time fft2d{FFT_MAIN} float32 [composition, 6 mm launches at "
           f"tile {tiles}]: {row['ms']:.4f} ms, plain (torch.fft.fft2) "
@@ -647,6 +707,7 @@ def serve(torch, device_name: str) -> dict:
     print(f"serve: {len(done)} requests / {tokens} tokens in {dt:.3f} s = "
           f"{tokens / dt:.1f} tok/s on {device_name}; launches {launches}; "
           f"{len(report)} sites all planned: {sorted(report)}", flush=True)
+    drain_parity(torch, report, "serve")
 
     # prefill logits through the kernels vs an explicit plain-version run
     worst = scale = 0.0
@@ -797,6 +858,7 @@ def stream_serve(torch, device_name: str) -> dict:
           f"launches {launches} (fir and conv2d: one each per chunk); plan "
           f"block -> compiled tile {tiles}; {len(report)} sites all planned: "
           f"{sorted(report)}", flush=True)
+    drain_parity(torch, report, "stream")
 
     # one request's features and stream-prefill logits through the
     # kernels vs an explicit run through the plain versions
@@ -914,7 +976,8 @@ def main(argv=None) -> int:
         summary.append({
             "name": kname, "route": "cuda", "source": k["source"],
             "replaces": k["replaces"],
-            "launches": launches[kname] + stream_launches[kname],
+            "launches": {"qwen": launches[kname],
+                         "whisper_stream": stream_launches[kname]},
             "max_abs_err": row["max_abs_err"],
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],

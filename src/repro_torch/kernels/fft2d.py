@@ -36,23 +36,17 @@ def _dft_planes(n: int, device: torch.device):
     return tuple(torch.from_numpy(m).to(device) for m in dft_matrix(n))
 
 
-def _cmul_mm(ar, ai, br, bi, *, tiles, three_mult: bool):
-    """Complex matmul (A @ B) via real mm kernel calls."""
+def _cmul_mm(ar, ai, br, bi, *, tiles):
+    """Complex matmul (A @ B) via three real mm kernel calls."""
     dot = functools.partial(widesa_mm.matmul, tiles=tiles)
-    if three_mult:
-        k1 = dot(ar + ai, br)
-        k2 = dot(ar, bi - br)
-        k3 = dot(ai, br + bi)
-        return k1 - k3, k1 + k2
-    rr = dot(ar, br)
-    ii = dot(ai, bi)
-    ri = dot(ar, bi)
-    ir = dot(ai, br)
-    return rr - ii, ri + ir
+    k1 = dot(ar + ai, br)
+    k2 = dot(ar, bi - br)
+    k3 = dot(ai, br + bi)
+    return k1 - k3, k1 + k2
 
 
 def fft2d(x_re: torch.Tensor, x_im: torch.Tensor, *,
-          tiles: tuple[int, int, int], three_mult: bool = True,
+          tiles: tuple[int, int, int],
           out_dtype=None) -> tuple[torch.Tensor, torch.Tensor]:
     """2-D DFT of a float32 (R, C) complex grid held as two real planes;
     ``tiles`` is the compiled mm tile both stages launch with."""
@@ -66,11 +60,9 @@ def fft2d(x_re: torch.Tensor, x_im: torch.Tensor, *,
     fc_re, fc_im = _dft_planes(c, x_re.device)
     x_re, x_im = x_re.contiguous(), x_im.contiguous()
     # stage 1: rows — Y = F_R @ X
-    y_re, y_im = _cmul_mm(fr_re, fr_im, x_re, x_im, tiles=tiles,
-                          three_mult=three_mult)
+    y_re, y_im = _cmul_mm(fr_re, fr_im, x_re, x_im, tiles=tiles)
     # stage 2: cols — Z = Y @ F_C
-    z_re, z_im = _cmul_mm(y_re, y_im, fc_re, fc_im, tiles=tiles,
-                          three_mult=three_mult)
+    z_re, z_im = _cmul_mm(y_re, y_im, fc_re, fc_im, tiles=tiles)
     if x_re.device.type != "cpu":
         launches += 1
     return z_re, z_im

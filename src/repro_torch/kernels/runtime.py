@@ -38,7 +38,9 @@ kernels are compiled for a 256-thread block computing 1 or 4 outputs a
 thread.  The larger tile is taken when it still gives every one of the
 card's 132 SMs a block, the smaller one otherwise (the frontend's
 chunks are a few thousand outputs: 25 and 16 blocks with the small
-tiles, 7 and 8 with the large).
+tiles, 7 and 8 with the large).  On an H100 this picks the faster tile
+at both the frontend and the bench shapes (PERF.md, from
+``chip_smoke.py``).
 
 ``acc_dtype``/``out_dtype`` are the reference's accumulator ladder:
 integer inputs accumulate and land in int32, floats accumulate in fp32
