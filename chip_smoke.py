@@ -5,11 +5,11 @@
     python3 chip_smoke.py --tile-sweep [--out sweep.json]
 
 Needs one CUDA card and the CUDA toolkit.  It imports only the port, never
-JAX nor the JAX package, and runs six phases, each printing its own
+JAX nor the JAX package, and runs seven phases, each printing its own
 line(s); any failure exits non-zero:
 
 1. device — the card's name and power limit, torch and CUDA versions;
-2. build  — compiles the port's two CUDA sources from ``src/`` (one
+2. build  — compiles the port's three CUDA sources from ``src/`` (one
    ``nvcc`` each, started together; set-up time);
 3. kernels — every hand-written kernel against its plain PyTorch version
    on the card: the mm/bmm GEMM in all five dtypes at every serving shape,
@@ -49,13 +49,29 @@ line(s); any failure exits non-zero:
    cross-attention over the 1500-row encoder cache), and that one
    request's features and stream-prefill logits match a run through the
    plain versions;
-6. summary — a JSON line of the kernels, the ``nvidia-smi`` name and
+6. recurrences — the WideSA mapper -> kernel pipeline,
+   ``repro_torch.launch.recurrences.run`` (the entry point's function):
+   the Table II compiler report, quickstart's 1024^3 MM, and every
+   registered recurrence planned on one chip and run through
+   ``lower_plan(plan, "pallas")`` against its plain version, the stencils
+   and mttkrp at their paper-scale bench sizes in every parity dtype.
+   Checks that the star-stencil (B6) and MTTKRP (B7) kernels launched.
+   Then holds B6 (5-point, 9-point, and the multi-sweep form on its
+   int32 state) and B7 against their plain versions at the bench sizes
+   and at ragged ones, in float32, int8, int16 and int32, checks that
+   the float32 bound rejects a TF32 control (the plain MTTKRP with TF32
+   GEMMs on), and times them beside their plain versions, one
+   PyTorch call (``F.conv2d`` with the star as a zero-padded filter,
+   ``torch.einsum``; yardsticks only) and their bounds, with
+   ``torch.profiler`` device time;
+7. summary — a JSON line of the kernels, the ``nvidia-smi`` name and
    power limit, and the result line.
 
 Every wrapper's launch count is set to 0 just before each serving drain
-and read just after; the kernels line gives each path's counts apart
-(``"launches": {"qwen": n, "whisper_stream": m}``).  The comparison and
-timing launches of phase 3 and of ``drain_parity`` do not count.
+and before the recurrence pipeline, and read just after; the kernels
+line gives each path's counts apart (``"launches": {"qwen": n,
+"whisper_stream": m, "recurrences": k}``).  The comparison and timing
+launches of phases 3 and 6 and of ``drain_parity`` do not count.
 
 ``--tile-sweep`` runs only the device and build phases, then times the
 GEMM in bf16 with each of the 24 tiles of ``build.SWEEP_TILES`` (a second
@@ -70,7 +86,11 @@ terms of magnitude ~100); bf16 results within ``2^-7 * |ref| + 1e-3``,
 one bf16 rounding step of the output (8-bit significand) on top of fp32
 sums taken in another order.  The logits of the whole bf16 models are
 held to ``LOGIT_ATOL`` (see there); the int16 frontend features are
-exact.
+exact.  The stencils' and mttkrp's float32 results are held to
+``recurrences.float_bound``: the registry's atol 1e-3 plus ``8 sqrt(n)
+2^-24`` times the root of the sum of each output's squared terms (n
+terms an output, zero-mean operands), since at the bench sizes mttkrp
+sums 65536 products of magnitude ~1 and |M| reaches the hundreds.
 """
 
 from __future__ import annotations
@@ -93,7 +113,7 @@ sys.path.insert(0, str(ROOT / "src"))
 #: them, so their operations count at the fp32 rate (a bound that is low
 #: for integers; the bytes bound them at every shape timed here anyway)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
 
 #: prefill logits of the bf16 models (24 layers of qwen, 6+6 of whisper),
 #: hand kernels vs the plain versions: every GEMM output rounds to bf16
@@ -131,6 +151,7 @@ RAGGED_SHAPES = (("mm", (61, 126, 37)), ("mm", (1, 300, 77)),
 #: timing columns, what it replaces and where its source is
 SOURCE = "src/repro_torch/kernels/csrc/widesa_mm.cu"
 SP_SOURCE = "src/repro_torch/kernels/csrc/widesa_sp.cu"
+HPC_SOURCE = "src/repro_torch/kernels/csrc/widesa_hpc.cu"
 KERNELS = {
     "widesa_mm": dict(kind="mm", shape=(4, 151936, 1024), col_major=True,
                       replaces="src/repro/kernels/widesa_mm.py:31",
@@ -143,6 +164,11 @@ KERNELS = {
     # no CUDA of its own: six launches of the GEMM above
     "fft2d": dict(replaces="src/repro/kernels/fft2d.py:34",
                   source="src/repro_torch/kernels/fft2d.py"),
+    # one kernel for jacobi2d, jacobi2d_9pt and each sweep of jacobi2d_ms
+    "jacobi2d": dict(replaces="src/repro/kernels/jacobi2d.py:31",
+                     source=HPC_SOURCE),
+    "mttkrp": dict(replaces="src/repro/kernels/mttkrp.py:29",
+                   source=HPC_SOURCE),
 }
 
 #: the frontend shapes of whisper-base (FrontendConfig(d_model=512): a
@@ -162,10 +188,12 @@ def fail(msg: str) -> None:
 
 def wrappers() -> dict:
     """Each kernel's wrapper module, which holds its launch count."""
-    from repro_torch.kernels import bmm, conv2d, fft2d, fir, widesa_mm
+    from repro_torch.kernels import (bmm, conv2d, fft2d, fir, jacobi2d,
+                                     mttkrp, widesa_mm)
 
     return {"widesa_mm": widesa_mm, "bmm": bmm, "fir": fir,
-            "conv2d": conv2d, "fft2d": fft2d}
+            "conv2d": conv2d, "fft2d": fft2d, "jacobi2d": jacobi2d,
+            "mttkrp": mttkrp}
 
 
 def reset_counts() -> None:
@@ -351,10 +379,13 @@ def time_ms(torch, fn, reps=50, warmup=5) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def device_ms(torch, fn, kernel=None, reps=10):
-    """Device time per call of ``fn`` from ``torch.profiler``: of the CUDA
-    kernels whose name holds ``kernel``, or of every device event when
-    ``kernel`` is None; None if the profiler recorded none.  Unlike
+def device_ms(torch, fn, kernel=None, reps=10, launches=1):
+    """Device time per call of ``fn`` from ``torch.profiler`` over ``reps``
+    calls; None if the profiler recorded nothing.  With ``kernel``: the
+    mean time of the CUDA kernel records whose name holds ``kernel``,
+    times ``launches`` (those kernels a call), since the profiler can drop
+    device records and each record it keeps is one launch's time.
+    Without: every device event of the trace, over ``reps``.  Unlike
     ``time_ms`` this leaves out the host's launch overhead, which back-to-
     back launches of a short kernel measure instead of the kernel."""
     from torch.profiler import ProfilerActivity, profile
@@ -365,10 +396,14 @@ def device_ms(torch, fn, kernel=None, reps=10):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(getattr(evt, "self_device_time_total", 0.0)
-             for evt in prof.key_averages()
-             if kernel is None or kernel in evt.key)
-    return us / reps / 1e3 if us else None
+    evts = [evt for evt in prof.key_averages()
+            if kernel is None or kernel in evt.key]
+    us = sum(getattr(evt, "self_device_time_total", 0.0) for evt in evts)
+    if not us:
+        return None
+    if kernel is None:
+        return us / reps / 1e3
+    return us / sum(evt.count for evt in evts) * launches / 1e3
 
 
 def fmt_ms(ms) -> str:
@@ -901,6 +936,229 @@ def stream_serve(torch, device_name: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# recurrences: the mapper -> kernel pipeline, B6 and B7
+# ---------------------------------------------------------------------------
+
+#: B6 and B7 at the registry's bench sizes and at ragged ones (outputs not
+#: multiples of any compiled tile), as builder arguments
+HPC_BENCH = {"jacobi2d": (10238, 10238), "jacobi2d_9pt": (10236, 10236),
+             "jacobi2d_ms": (4094, 4094, 8), "mttkrp": (4096, 400, 256, 256)}
+HPC_RAGGED = {"jacobi2d": (61, 59), "jacobi2d_9pt": (61, 59),
+              "jacobi2d_ms": (61, 59, 3), "mttkrp": (37, 45, 7, 5)}
+#: the shapes and dtypes timed, the first of each kernel its kernels-line row
+HPC_TIMED = (("jacobi2d", "float32"), ("jacobi2d", "int8"),
+             ("jacobi2d_9pt", "float32"), ("jacobi2d_ms", "float32"),
+             ("mttkrp", "float32"), ("mttkrp", "int8"))
+
+
+def hpc_call(name, args, dtype):
+    """The B6 / B7 wrapper at the tile the runtime maps the single-chip
+    plan onto: (call, spec, recurrence, HopperTiles)."""
+    from repro_torch.core import Target, best_plan
+    from repro_torch.kernels import jacobi2d, mttkrp, registry
+
+    spec = registry.get(name)
+    rec = spec.builder(*args, dtype)
+    plan = best_plan(rec, Target(name="single_chip", mesh_shape=(1, 1)))
+    fn = mttkrp.mttkrp if name == "mttkrp" else getattr(jacobi2d, name)
+    return fn, spec, rec, plan
+
+
+def hpc_parity(torch) -> None:
+    """B6 and B7 against their plain versions at the bench and ragged
+    sizes, in every dtype they take (the multi-sweep form on its int32
+    state too), at the compiled tile the runtime maps the plan onto; then
+    a TF32 control, which ``recurrences.compare`` must reject."""
+    from repro_torch.kernels import build, registry
+    from repro_torch.launch import recurrences
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    n, worst = 0, {}
+    for name in HPC_BENCH:
+        compiled = build.MTTKRP_TILE if name == "mttkrp" \
+            else build.STENCIL_TILE
+        for args in (HPC_RAGGED[name], HPC_BENCH[name]):
+            for dtype in ("float32", "int8", "int16", "int32"):
+                fn, spec, rec, plan = hpc_call(name, args, dtype)
+                ops = registry.operands(rec, gen, "cuda")
+                tile = spec.tiles(plan, *ops).tile
+                if tile != compiled:
+                    fail(f"{name}{args}: tile {tile} is not the compiled "
+                         f"{compiled}")
+                want = spec.ref(*ops)
+                out = fn(*ops, tiles=tile)
+                torch.cuda.synchronize()
+                err, ok = recurrences.compare(spec, rec, ops, out, want)
+                if not ok:
+                    fail(f"{name}{args} {dtype}: max |err| {err} outside "
+                         "tolerance")
+                worst[(name, dtype)] = max(worst.get((name, dtype), 0.0),
+                                           err)
+                n += 1
+                del ops, want, out
+                torch.cuda.empty_cache()
+    floats = {k[0]: f"{v:.4g}" for k, v in worst.items() if k[1] == "float32"}
+    print(f"recurrences: B6/B7 parity ok in {n} cases (4 specs x bench and "
+          f"ragged sizes x 4 dtypes; integers bit-exact; float32 max |err| "
+          f"{floats} within recurrences.float_bound)", flush=True)
+    tf32_control(torch, gen)
+
+
+def tf32_control(torch, gen) -> None:
+    """The float32 bound must catch a precision loss at MTTKRP's bench
+    size: the plain version with TF32 GEMMs (10-bit significands) held
+    against the fp32 plain version fails ``recurrences.compare``."""
+    from repro_torch.kernels import registry
+    from repro_torch.launch import recurrences
+
+    _, spec, rec, _ = hpc_call("mttkrp", HPC_BENCH["mttkrp"], "float32")
+    ops = registry.operands(rec, gen, "cuda")
+    want = spec.ref(*ops)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        control = spec.ref(*ops)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    err, ok = recurrences.compare(spec, rec, ops, control, want)
+    bound = recurrences.float_bound(spec, rec, ops)
+    print(f"recurrences: TF32 control of mttkrp{HPC_BENCH['mttkrp']} "
+          f"float32: max |err| {err:.4g} against float_bound "
+          f"{bound.min().item():.4g}-{bound.max().item():.4g} "
+          f"({'ok' if ok else 'not ok'}: the bound "
+          f"{'MISSES' if ok else 'catches'} a TF32 rounding)", flush=True)
+    if ok:
+        fail("recurrences.float_bound accepts the TF32 control")
+    del ops, want, control, bound
+    torch.cuda.empty_cache()
+
+
+def hpc_bound_ms(name, rec, in_bytes, out_bytes, rate="float32"):
+    """Least time for one call (``least_ms``): each operand read once and
+    the result written once, or the folded operations at the peak rate
+    of ``rate`` (the fp32 CUDA-core rate unless asked otherwise).  For
+    jacobi2d_ms that is the whole function (grid in, result out, 2 S T
+    operations an output); mttkrp counts 2 I J K L operations (one
+    multiply-add per (i, j, k, l) once B C is folded), not the IR's
+    ops_per_point = 3."""
+    e = {loop: rec.extent(loop) for loop in rec.loops}
+    if name == "mttkrp":
+        moved = (e["i"] * e["k"] * e["l"] + (e["k"] + e["l"]) * e["j"]) \
+            * in_bytes + e["i"] * e["j"] * out_bytes
+        return least_ms(moved, 2 * e["i"] * e["j"] * e["k"] * e["l"], rate)
+    pad = 4 if name == "jacobi2d_9pt" else 2
+    sweeps = e.get("t", 1)
+    moved = ((e["i"] + pad) * (e["j"] + pad) + sweeps * e["s"]) * in_bytes \
+        + e["i"] * e["j"] * out_bytes
+    return least_ms(moved, 2 * e["s"] * sweeps * e["i"] * e["j"], rate)
+
+
+def hpc_library(torch, name, ops):
+    """One PyTorch call computing the same function on float32 copies, TF32
+    off (yardstick only), or None: ``F.conv2d`` with the star as a
+    zero-padded (2r+1)^2 filter, ``torch.einsum`` for mttkrp; the
+    multi-sweep stencil has no one call."""
+    import torch.nn.functional as F
+
+    from repro_torch.core.recurrence import (JACOBI2D_9PT_OFFSETS,
+                                             JACOBI2D_OFFSETS)
+
+    if name == "mttkrp":
+        x, b, c = (o.float() for o in ops)
+        return lambda: torch.einsum("ikl,kj,lj->ij", x, b, c)
+    if name == "jacobi2d_ms":
+        return None
+    offsets = JACOBI2D_9PT_OFFSETS if name == "jacobi2d_9pt" \
+        else JACOBI2D_OFFSETS
+    size = max(max(pt) for pt in offsets) + 1
+    grid, weights = ops[0].float()[None, None], ops[1].float()
+    filt = torch.zeros((1, 1, size, size), device="cuda")
+    for s, (di, dj) in enumerate(offsets):
+        filt[0, 0, di, dj] = weights[s]
+    return lambda: F.conv2d(grid, filt)
+
+
+def hpc_timings(torch) -> dict:
+    """B6 and B7 at the bench sizes (``HPC_TIMED``): kernel (CUDA events
+    and ``torch.profiler`` device time), plain version, library call and
+    bound (for int8 mttkrp also at the int8 tensor-core rate)."""
+    from repro_torch.kernels import registry
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    rows = {}
+    for name, dtype in HPC_TIMED:
+        fn, spec, rec, plan = hpc_call(name, HPC_BENCH[name], dtype)
+        ops = registry.operands(rec, gen, "cuda")
+        tiles = spec.tiles(plan, *ops)
+        reps = 5 if name == "mttkrp" else 10
+        out = fn(*ops, tiles=tiles.tile)
+        want = spec.ref(*ops)
+        err = (out.double() - want.double()).abs().max().item()
+        lib = hpc_library(torch, name, ops)
+        kname = "mttkrp_kernel" if name == "mttkrp" else "star_kernel"
+        per_call = rec.extent("t") if name == "jacobi2d_ms" else 1
+        row = dict(
+            tiles=tiles, max_abs_err=err,
+            ms=time_ms(torch, lambda: fn(*ops, tiles=tiles.tile), reps, 2),
+            plain_ms=time_ms(torch, lambda: spec.ref(*ops), reps, 2),
+            library_ms=None if lib is None else time_ms(torch, lib, reps, 2),
+            device_ms=device_ms(torch, lambda: fn(*ops, tiles=tiles.tile),
+                                kname, reps, per_call),
+            library_device_ms=None if lib is None
+            else device_ms(torch, lib, None, reps),
+        )
+        row["bound_ms"], row["bound_by"] = hpc_bound_ms(
+            name, rec, ops[0].element_size(), out.element_size())
+        rows[(name, dtype)] = row
+        extra = ""
+        if name == "jacobi2d_ms":
+            sweeps = rec.extent("t")
+            floor = sweeps * hpc_bound_ms(
+                "jacobi2d", registry.get("jacobi2d").builder(
+                    rec.extent("i"), rec.extent("j"), dtype), 4, 4)[0]
+            extra = (f"; {sweeps} launches a call, floor of {sweeps} "
+                     f"separate passes {floor:.4f} ms")
+        if name == "mttkrp" and dtype == "int8":
+            tc_ms, tc_by = hpc_bound_ms(name, rec, 1, 4, rate="int8")
+            extra = f"; int8 tensor-core bound {tc_ms:.4f} ms ({tc_by})"
+        rate = ", fp32 CUDA-core rate" \
+            if row["bound_by"] == "operations" else ""
+        library = ("none (no one call)" if lib is None else
+                   f"{row['library_ms']:.4f} ms (device "
+                   f"{fmt_ms(row['library_device_ms'])})")
+        print(f"time {name}{HPC_BENCH[name]} {dtype} plan block "
+              f"{tiles.plan} -> tile {tiles.tile}: kernel {row['ms']:.4f} "
+              f"ms (kernel device time {fmt_ms(row['device_ms'])}), plain "
+              f"{row['plain_ms']:.4f} ms, library {library}, bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']}{rate}){extra}; "
+              f"max |err| {err:.4g}", flush=True)
+        del ops, out, want, lib
+        torch.cuda.empty_cache()
+    return rows
+
+
+def recurrences_phase(torch) -> tuple[dict, dict]:
+    """Phase 6 (module docstring): the launches of the pipeline run, and
+    the B6 / B7 time rows."""
+    from repro_torch.launch import recurrences
+
+    # the recurrence path: counts start at 0 here and are read right after
+    reset_counts()
+    t0 = time.perf_counter()
+    rows = recurrences.run("cuda", "bench")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_counts()
+    if min(launches.values()) == 0:
+        fail(f"a kernel was not launched on the recurrence path: {launches}")
+    print(f"recurrences: {len(rows)} cases through lower_plan(plan, "
+          f"'pallas') within tolerance in {dt:.1f} s; launches {launches}",
+          flush=True)
+    torch.cuda.empty_cache()
+    hpc_parity(torch)
+    return launches, hpc_timings(torch)
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -962,12 +1220,18 @@ def main(argv=None) -> int:
           "(B2, bmm.py bmm_kernel -> cuda) in " + SOURCE + "; fir (B3, "
           "fir.py fir_kernel -> cuda), conv2d (B5, conv2d.py conv_kernel -> "
           "cuda) in " + SP_SOURCE + "; fft2d (B4, fft2d.py _cmul_mm -> six "
-          "widesa_mm launches)", flush=True)
+          "widesa_mm launches); jacobi2d (B6, jacobi2d.py jacobi_kernel -> "
+          "cuda), mttkrp (B7, mttkrp.py mttkrp_kernel -> cuda) in "
+          + HPC_SOURCE, flush=True)
     torch.cuda.empty_cache()
 
     launches = serve(torch, name)
     torch.cuda.empty_cache()
     stream_launches = stream_serve(torch, name)
+    torch.cuda.empty_cache()
+    rec_launches, hpc_rows = recurrences_phase(torch)
+    rows.update({(kname, "main"): hpc_rows[(kname, "float32")]
+                 for kname in ("jacobi2d", "mttkrp")})
 
     summary = []
     for kname, k in KERNELS.items():
@@ -977,7 +1241,8 @@ def main(argv=None) -> int:
             "name": kname, "route": "cuda", "source": k["source"],
             "replaces": k["replaces"],
             "launches": {"qwen": launches[kname],
-                         "whisper_stream": stream_launches[kname]},
+                         "whisper_stream": stream_launches[kname],
+                         "recurrences": rec_launches[kname]},
             "max_abs_err": row["max_abs_err"],
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],

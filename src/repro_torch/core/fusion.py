@@ -1,5 +1,5 @@
-"""Cross-recurrence fusion — the port's copy of the parts of
-``repro.core.fusion`` that the two serving chains run.
+"""Cross-recurrence fusion — the port's copy of ``repro.core.fusion`` for
+one card.
 
   * ``RecurrenceChain`` — an ordered producer->consumer tuple of
     registered ``UniformRecurrence``s; stage ``i+1``'s leading operand(s)
@@ -13,12 +13,13 @@
     (each stage's plan through ``runtime.execute_plan``, i.e. the hand
     kernels on the card).
 
-The port plans the two chains the serving path emits: the non-GLU MLP
-pair ``mm+mm`` (the ``cannon`` family) and the 2-D FFT
-``fft2d_stage+fft2d_stage`` (the ``fft`` family).  The reference's
-``halo`` family (conv2d and stencil chains) and its one-shard_map
-``fused_systolic`` schedules are not ported: a halo chain is refused as
-``family`` and the backend raises ``NotImplementedError``.
+Three chain families, as in the reference: the non-GLU MLP pair
+``mm+mm`` (``cannon``), the 2-D FFT ``fft2d_stage+fft2d_stage``
+(``fft``), and ``halo`` chains of conv2d and the single-sweep stencils
+(``conv2d -> jacobi2d``, ``jacobi2d <-> jacobi2d_9pt``), whose consumer
+reads the producer's output as its padded grid.  The reference's
+one-shard_map ``fused_systolic`` schedules are multi-device work
+(ROADMAP A12): that backend raises ``NotImplementedError``.
 
 ``FusedPlan.backend`` defaults to ``"xla"``, as in the reference: the
 modelled policy never restamps it, so both serving chains run their
@@ -38,7 +39,7 @@ import torch.nn.functional as F
 
 from .mapper import ExecutionPlan, Target, best_plan as _stage_best_plan
 from .partition import DTYPE_BYTES
-from .recurrence import UniformRecurrence
+from .recurrence import UniformRecurrence, halo_radius
 
 #: Interstage elementwise ops a boundary may apply to the intermediate (the
 #: MLP pair needs ``bias_silu``/``bias_gelu``).  A ``bias``-prefixed op
@@ -46,12 +47,15 @@ from .recurrence import UniformRecurrence
 INTERSTAGE_OPS = (None, "relu", "silu", "gelu",
                   "bias", "bias_relu", "bias_silu", "bias_gelu")
 
+_STENCIL_NAMES = frozenset({"jacobi2d", "jacobi2d_9pt"})
+_HALO_NAMES = _STENCIL_NAMES | {"conv2d"}
+
 
 class FusionError(ValueError):
     """A chain failed the fusion legality pass.  ``reason`` is a stable
     machine-checkable tag: unregistered | length | flow | unfusable-pair
     | dtype-mismatch | shape-mismatch | family | mesh-mismatch |
-    infeasible | interstage."""
+    halo-exceeds-shard | infeasible | interstage."""
 
     def __init__(self, reason: str, message: str):
         super().__init__(f"[{reason}] {message}")
@@ -85,7 +89,7 @@ class FusedPlan:
     chain: RecurrenceChain
     stage_plans: tuple[ExecutionPlan, ...]
     target: Target
-    family: str                        # "cannon" | "fft"
+    family: str                        # "halo" | "cannon" | "fft"
     interstage: tuple[str | None, ...]  # one op per stage boundary
     systolic_ok: bool                  # target mesh carries the fused ring
     predicted_bytes_saved: int         # HBM bytes the fusion removes
@@ -117,6 +121,13 @@ class FusedPlan:
 def _io_shape(rec: UniformRecurrence) -> tuple[tuple[int, ...],
                                                tuple[int, ...]]:
     """(input-operand shape, output shape) of one stage, from the IR."""
+    if rec.name == "conv2d":
+        h, w, p, q = (rec.extent(l) for l in ("h", "w", "p", "q"))
+        return (h + p - 1, w + q - 1), (h, w)
+    if rec.name in _STENCIL_NAMES:
+        r = halo_radius(rec, ("i", "j"))
+        h, w = rec.extent("i"), rec.extent("j")
+        return (h + 2 * r, w + 2 * r), (h, w)
     if rec.name == "mm":
         m, n, k = (rec.extent(l) for l in ("i", "j", "k"))
         return (m, k), (m, n)
@@ -124,29 +135,64 @@ def _io_shape(rec: UniformRecurrence) -> tuple[tuple[int, ...],
         r, c = rec.extent("i"), rec.extent("j")
         return (r, c), (r, c)
     raise FusionError(
-        "family", f"no fused shape algebra for recurrence {rec.name!r} in "
-        "the port")
+        "family", f"no fused shape algebra for recurrence {rec.name!r}")
 
 
 def chain_family(ch: RecurrenceChain) -> str:
     names = [s.name for s in ch.stages]
+    if all(n in _HALO_NAMES for n in names):
+        return "halo"
     if all(n == "mm" for n in names):
         return "cannon"
     if all(n == "fft2d_stage" for n in names):
         return "fft"
     raise FusionError(
         "family",
-        f"chain {'+'.join(names)} is not a cannon (mm) or fft "
-        "(fft2d_stage) chain; the halo family is not ported")
+        f"chain {'+'.join(names)} mixes fusion families (halo: "
+        f"{sorted(_HALO_NAMES)}; cannon: mm; fft: fft2d_stage)")
+
+
+def halo_shrink(ch: RecurrenceChain) -> tuple[int, int]:
+    """Total (rows, cols) a halo chain consumes beyond its final output:
+    each conv2d stage its (p - 1, q - 1), each stencil stage twice its
+    star's radius (``halo_radius``, from the IR accesses)."""
+    s_h = s_w = 0
+    for rec in ch.stages:
+        if rec.name == "conv2d":
+            s_h += rec.extent("p") - 1
+            s_w += rec.extent("q") - 1
+        else:
+            r = halo_radius(rec, ("i", "j"))
+            s_h += 2 * r
+            s_w += 2 * r
+    return s_h, s_w
 
 
 def _check_mesh(ch: RecurrenceChain, family: str,
                 mesh_shape: tuple[int, ...]) -> bool:
-    """Mesh-level legality for the cannon / fft families.  Raises
-    FusionError when the fused ring cannot run on this mesh; returns
-    whether the ring is available (a degenerate 1-wide axis still permits
-    the single-launch composition, just not the ring)."""
+    """Mesh-level legality, as the reference's.  Raises FusionError when
+    the fused schedule cannot run on this mesh at all; returns whether
+    the one-shard_map schedule would be available (a degenerate 1-wide
+    axis still permits the composition for the cannon / fft families,
+    just not the ring)."""
     n0, n1 = (mesh_shape + (1, 1))[:2]
+    if family == "halo":
+        out_h, out_w = _io_shape(ch.stages[-1])[1]
+        if out_h % n0 or out_w % n1:
+            raise FusionError(
+                "mesh-mismatch",
+                f"fused output {out_h}x{out_w} does not shard over the "
+                f"{n0}x{n1} mesh (both extents must divide the axis "
+                "widths)")
+        s_h, s_w = halo_shrink(ch)
+        bh, bw = out_h // n0, out_w // n1
+        if (n0 > 1 and s_h > bh) or (n1 > 1 and s_w > bw):
+            raise FusionError(
+                "halo-exceeds-shard",
+                f"deep halo {s_h}x{s_w} exceeds the {bh}x{bw} shard — a "
+                "one-hop exchange can only import the adjacent shard; "
+                "use fewer chips or a larger grid")
+        return True
     if n0 != n1:
         if n0 > 1 and n1 > 1:
             raise FusionError(
@@ -407,6 +453,7 @@ def lower_fused(plan: FusedPlan, backend: str | None = None) -> Callable:
             runtime.execute_plan, plan.stage_plans[i]))
     if backend in ("fused_systolic", "systolic"):
         raise NotImplementedError(
-            "the one-shard_map fused_systolic schedules are not ported; "
-            "the port runs the xla/pallas compositions")
+            "the one-shard_map fused_systolic schedules are multi-device "
+            "work the port has not done yet (ROADMAP A12); the port runs "
+            "the xla/pallas compositions")
     raise ValueError(f"unknown fused backend {backend!r}")

@@ -65,6 +65,24 @@ class Target:
         return int(math.prod(self.mesh_shape))
 
 
+#: the VCK5000's AI Engine array (8 x 50 cores), the paper's own target:
+#: the Table II compiler report plans on it
+AIE_TARGET = Target(
+    name="vck5000_aie",
+    mesh_shape=(8, 50),
+    mesh_axes=("row", "col"),
+    rc=6,
+    ports_per_col=2,
+    peak_macs=128,     # 128 int8 MACs/cycle/AIE (paper §II-A1)
+    freq_ghz=1.25,
+    local_bytes=128 * 1024,       # 4 x 32 KB neighbouring banks (§II-A1)
+    pl_buffer_bytes=32 * 2**20,   # PL BRAM/URAM staging
+    edge_gbps=1520.0,             # PLIO aggregate (paper Table I)
+    dram_gbps=100.0,              # PL-DRAM boundary (paper Table I)
+    packing="aie",
+)
+
+
 @dataclasses.dataclass(frozen=True)
 class ExecutionPlan:
     """Everything the kernel runtime needs, plus the model-predicted
@@ -137,6 +155,31 @@ def _predict_tops(
     else:
         mem_tops = float("inf")
     return min(comp_tops, mem_tops)
+
+
+def predict_bounds(
+    rec: UniformRecurrence, p: Partition, target: Target
+) -> dict[str, float]:
+    """All three throughput bounds in TOPS of the target's model: pure
+    compute, array-level (PLIO-fed — what the paper's Table III
+    measures), and end-to-end (operands cross the DRAM boundary at least
+    once)."""
+    ladder = part.PACKING_TPU if target.packing == "tpu" else PACKING
+    packing = ladder.get(rec.dtype, 1.0)
+    comp = (
+        target.n_pes * target.peak_macs * packing * 2 * target.freq_ghz / 1e3
+    ) * p.utilization
+    array_level = _predict_tops(rec, p, target)
+    total_bytes = _total_operand_bytes(rec)
+    end_to_end = array_level
+    if total_bytes > target.pl_buffer_bytes:
+        dram_b_per_op = total_bytes / max(rec.total_ops, 1)
+        end_to_end = min(end_to_end, (target.dram_gbps / dram_b_per_op) / 1e3)
+    return {
+        "compute": comp,
+        "array_level": array_level,
+        "end_to_end": end_to_end,
+    }
 
 
 def map_recurrence(

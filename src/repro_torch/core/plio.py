@@ -1,5 +1,6 @@
 """Mapped graph + routing-aware PLIO assignment (paper §III-C, Algorithm 1)
-— the port's copy of the parts of ``repro.core.plio`` the mapper runs.
+— the port's copy of the parts of ``repro.core.plio`` the mapper and the
+recurrence pipeline run.
 
 The paper builds a *mapped graph* whose nodes are AIE cores (one per point of
 the 2-D space-loop array) and I/O ports, with edges derived from the three
@@ -217,6 +218,18 @@ def congestion(
     return west, east
 
 
+def is_feasible(
+    graph: MappedGraph,
+    assignment: dict[str, int],
+    rc_west: int,
+    rc_east: int,
+) -> bool:
+    """Whether an assignment keeps both directions' congestion within
+    the routing capacities."""
+    west, east = congestion(graph, assignment)
+    return max(west) <= rc_west and max(east) <= rc_east
+
+
 # ---------------------------------------------------------------------------
 # Algorithm 1 — Routing-Aware PLIO Assignment (faithful implementation)
 # ---------------------------------------------------------------------------
@@ -266,6 +279,13 @@ def _find_nearest(free: dict[int, int], target: int) -> int | None:
         if bestd is None or d < bestd or (d == bestd and c < best):
             best, bestd = c, d
     return best
+
+
+def naive_assignment(graph: MappedGraph) -> dict[str, int]:
+    """Baseline the paper implicitly compares against: pack PLIOs left to
+    right in port order (what a solver does with no routing awareness)."""
+    cols = graph.array_shape[1]
+    return {p.name: i % cols for i, p in enumerate(graph.ports)}
 
 
 # ---------------------------------------------------------------------------

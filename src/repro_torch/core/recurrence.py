@@ -1,16 +1,23 @@
 """Uniform-recurrence IR (paper §II-B) — the port's copy of the parts of
-``repro.core.recurrence`` that the serving path plans.
+``repro.core.recurrence``.
 
 A *uniform recurrence* is a perfectly nested loop over a hyper-rectangular
 iteration domain in which every dependence is a constant distance vector.
 The mapping pipeline (spacetime -> partition -> plio -> mapper) consumes
-this IR; the port builds five recurrences from it:
+this IR; the port builds every recurrence of the reference from it:
 
     MM       C[i,j]   += A[i,k] * B[k,j]
     BMM      C[b,i,j] += A[b,i,k] * B[b,k,j]     (the model-stack shape)
     CONV2D   O[h,w]   += I[h+p, w+q] * F[p,q]    (the audio feature stage)
     FIR      y[n]     += x[n+t] * h[t]           (the audio filter bank)
     FFT2D    Y[i,j]   += W[i,k] * X[k,j]         (one DFT stage, complex)
+    Jacobi2D O[i,j]   += G[i+di_s, j+dj_s] * w[s] (5-point stencil sweep,
+                         its radius-2 9-point star, and the multi-sweep
+                         form whose sweep loop t carries a flow dependence)
+    MTTKRP   M[i,j]   += X[i,k,l] * B[k,j] * C[l,j] (tensor decomposition)
+
+The stencil builders carry their star in the IR: one read access per star
+point, whose signed offsets give the halo width (``halo_radius``).
 
 The dataclasses and the builders are copied field for field, so a plan
 made here equals the reference planner's plan for the same request.
@@ -237,3 +244,220 @@ def fft2d_stage(rows: int, cols: int, dtype: str = "cfloat") -> UniformRecurrenc
     )
     r.validate()
     return r
+
+
+#: 5-point star offsets of the Jacobi2D stencil, indexed by the reduction
+#: loop s; (di, dj) into the padded input grid (centre at (1, 1)).
+JACOBI2D_OFFSETS = ((1, 1), (0, 1), (2, 1), (1, 0), (1, 2))
+
+#: 9-point radius-2 star (centre, N1, N2, S1, S2, W1, W2, E1, E2), indexed
+#: by the reduction loop s; (di, dj) into the padded grid (centre (2, 2)).
+JACOBI2D_9PT_OFFSETS = (
+    (2, 2),
+    (1, 2), (0, 2), (3, 2), (4, 2),
+    (2, 1), (2, 0), (2, 3), (2, 4),
+)
+
+
+def _star_accesses(
+    array: str, offsets: tuple[tuple[int, int], ...], pad: int
+) -> tuple[Access, ...]:
+    """One read access per star point, signed offsets relative to the
+    centre — the IR carries the stencil geometry the halo machinery
+    consumes (``stencil_star``/``halo_radius``)."""
+    return tuple(
+        Access(array, (("i", di - pad), ("j", dj - pad)), "read")
+        for di, dj in offsets
+    )
+
+
+def stencil_star(rec: UniformRecurrence) -> tuple[tuple[int, ...], ...] | None:
+    """The recurrence's star: ordered signed per-point offsets, recovered
+    from the access functions.
+
+    A stencil shows up in the IR as one array read at several constant
+    offsets (one access per star point, in reduction-loop order).  Returns
+    the ``(offset per index dim, ...)`` tuple per point for the first such
+    array, or None when no array is read at more than one offset (mm,
+    conv2d's base-point window, ...).
+    """
+    by_array: dict[str, list[Access]] = {}
+    for acc in rec.accesses:
+        if acc.kind == "read":
+            by_array.setdefault(acc.array, []).append(acc)
+    for accs in by_array.values():
+        if len(accs) > 1:
+            return tuple(
+                tuple(off for _, off in acc.index) for acc in accs
+            )
+    return None
+
+
+def halo_radius(rec: UniformRecurrence, loops: Sequence[str]) -> int:
+    """Width of the halo per space axis: the largest |offset| any read
+    access applies to one of ``loops`` — radius 1 for the 5-point star, 2
+    for the 9-point radius-2 star, from the IR access functions alone."""
+    radius = 0
+    for acc in rec.accesses:
+        if acc.kind != "read":
+            continue
+        for loop, off in acc.index:
+            if loop in loops:
+                radius = max(radius, abs(off))
+    return radius
+
+
+def jacobi2d(h: int, w: int, dtype: str = "float32") -> UniformRecurrence:
+    """O[i,j] += G[i+di_s, j+dj_s] * w[s] — one weighted 5-point Jacobi
+    sweep over the interior of an (h+2, w+2) grid.
+
+    The star is flattened into the reduction loop s (like conv2d's (p, q)
+    window).  ``h``/``w`` are the *output* (interior) extents.  The IR
+    carries one G access per star point (signed offsets, reduction order),
+    so the halo width comes from the access functions (``halo_radius`` = 1
+    here).
+    """
+    r = UniformRecurrence(
+        name="jacobi2d",
+        loops=("i", "j", "s"),
+        extents=(h, w, len(JACOBI2D_OFFSETS)),
+        accesses=(
+            *_star_accesses("G", JACOBI2D_OFFSETS, pad=1),
+            Access("W", (("s", 0),), "read"),
+            Access("O", (("i", 0), ("j", 0)), "accum"),
+        ),
+        reduction_loops=frozenset({"s"}),
+        ops_per_point=2,
+        dtype=dtype,
+    )
+    r.validate()
+    return r
+
+
+def jacobi2d_9pt(h: int, w: int, dtype: str = "float32") -> UniformRecurrence:
+    """O[i,j] += G[i+di_s, j+dj_s] * w[s] — one weighted 9-point *radius-2*
+    star sweep over the interior of an (h+4, w+4) grid.
+
+    The higher-order stencil class (star radius > 1): its distance-2 read
+    dependences on the space loops are legal under the width-k refinement
+    (``spacetime.candidate_space_loops``).  ``halo_radius`` recovers the 2
+    from the access functions.
+    """
+    r = UniformRecurrence(
+        name="jacobi2d_9pt",
+        loops=("i", "j", "s"),
+        extents=(h, w, len(JACOBI2D_9PT_OFFSETS)),
+        accesses=(
+            *_star_accesses("G", JACOBI2D_9PT_OFFSETS, pad=2),
+            Access("W", (("s", 0),), "read"),
+            Access("O", (("i", 0), ("j", 0)), "accum"),
+        ),
+        reduction_loops=frozenset({"s"}),
+        ops_per_point=2,
+        dtype=dtype,
+    )
+    r.validate()
+    return r
+
+
+def jacobi2d_multisweep(
+    h: int, w: int, sweeps: int, dtype: str = "float32"
+) -> UniformRecurrence:
+    """Time-iterated Jacobi: ``sweeps`` weighted 5-point sweeps over the
+    interior of an (h+2, w+2) grid with a fixed (Dirichlet) boundary ring.
+
+    The sweep loop ``t`` carries a *flow* dependence: sweep ``t`` consumes
+    the interior sweep ``t-1`` produced (``O`` is indexed by (i, j) but not
+    ``t``, and ``t`` is not a reduction loop, so ``dependences()`` derives
+    ``O: flow, distance (t, 1)``), so the mapper keeps ``t`` temporal
+    (``spacetime.candidate_space_loops``) and the kernel runtime runs it
+    as a host loop of single-sweep launches.
+
+    Weights are per-sweep, ``W[t, s]``: every lowering recovers the sweep
+    count from the weights operand's leading extent, so the (grid, weights)
+    arity-2 operand contract is shared with single-sweep ``jacobi2d``.
+    State promotes to the accumulator dtype (int -> int32) after the first
+    sweep; all backends share that ladder, keeping int parity bit-exact.
+    """
+    r = UniformRecurrence(
+        name="jacobi2d_ms",
+        loops=("t", "i", "j", "s"),
+        extents=(sweeps, h, w, len(JACOBI2D_OFFSETS)),
+        accesses=(
+            *_star_accesses("G", JACOBI2D_OFFSETS, pad=1),
+            Access("W", (("t", 0), ("s", 0)), "read"),
+            Access("O", (("i", 0), ("j", 0)), "accum"),
+        ),
+        reduction_loops=frozenset({"s"}),
+        ops_per_point=2,
+        dtype=dtype,
+    )
+    r.validate()
+    return r
+
+
+def mttkrp(
+    i: int, j: int, k: int, l: int, dtype: str = "float32"  # noqa: E741
+) -> UniformRecurrence:
+    """M[i,j] += X[i,k,l] * B[k,j] * C[l,j] — matricized tensor times
+    Khatri-Rao product (mode-1), the HPC tensor-decomposition hot loop.
+
+    3 ops per point (two multiplies + one accumulate); two reduction
+    loops (k, l) contract the order-3 tensor against both factor
+    matrices.
+    """
+    r = UniformRecurrence(
+        name="mttkrp",
+        loops=("i", "j", "k", "l"),
+        extents=(i, j, k, l),
+        accesses=(
+            Access("X", (("i", 0), ("k", 0), ("l", 0)), "read"),
+            Access("B", (("k", 0), ("j", 0)), "read"),
+            Access("C", (("l", 0), ("j", 0)), "read"),
+            Access("M", (("i", 0), ("j", 0)), "accum"),
+        ),
+        reduction_loops=frozenset({"k", "l"}),
+        ops_per_point=3,
+        dtype=dtype,
+    )
+    r.validate()
+    return r
+
+
+PAPER_BENCHMARKS = {
+    # Table II of the paper: benchmark -> (builder, problem sizes, dtypes)
+    "mm": (
+        matmul,
+        {
+            "float32": (8192, 8192, 8192),
+            "int8": (10240, 10240, 10240),
+            "int16": (9600, 9600, 9600),
+            "int32": (8192, 8192, 8192),
+        },
+    ),
+    "conv2d": (
+        conv2d,
+        {
+            "float32": (10240, 10240, 4, 4),
+            "int8": (10240, 10240, 8, 8),
+            "int16": (10240, 10240, 4, 4),
+            "int32": (10240, 10240, 4, 4),
+        },
+    ),
+    "fft2d": (
+        fft2d_stage,
+        {
+            "cfloat": (8192, 8192),
+            "cint16": (8192, 8192),
+        },
+    ),
+    "fir": (
+        fir,
+        {
+            "float32": (1048576, 15),
+            "int8": (1048576, 15),
+            "int16": (1048576, 15),
+            "cfloat": (1048576, 15),
+        },
+    ),
+}

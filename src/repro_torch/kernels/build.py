@@ -1,7 +1,8 @@
 """Build and bind the port's CUDA kernels (nvcc -> shared library -> ctypes).
 
-The sources live in ``csrc/``: ``widesa_mm.cu`` (the mm/bmm GEMM) and
-``widesa_sp.cu`` (the FIR and conv2d signal-processing kernels).  Each
+The sources live in ``csrc/``: ``widesa_mm.cu`` (the mm/bmm GEMM),
+``widesa_sp.cu`` (the FIR and conv2d signal-processing kernels) and
+``widesa_hpc.cu`` (the star stencil and MTTKRP kernels).  Each
 source is its own shared library; the first call on a machine compiles
 every source that is not built yet with ``nvcc`` for Hopper (``sm_90a``),
 one ``nvcc`` process per source, all started together, into
@@ -29,11 +30,14 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).with_name("csrc")
-#: the GEMM source (mm/bmm) and the signal-processing source (fir/conv2d)
+#: the GEMM source (mm/bmm), the signal-processing source (fir/conv2d) and
+#: the HPC source (the star stencils and mttkrp)
 SOURCE = CSRC / "widesa_mm.cu"
 SP_SOURCE = CSRC / "widesa_sp.cu"
+HPC_SOURCE = CSRC / "widesa_hpc.cu"
 #: library name -> source
-SOURCES = {"widesa_mm": SOURCE, "widesa_sp": SP_SOURCE}
+SOURCES = {"widesa_mm": SOURCE, "widesa_sp": SP_SOURCE,
+           "widesa_hpc": HPC_SOURCE}
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -81,13 +85,23 @@ SWEEP_TILES = tuple(itertools.product((1, 4, 16, 64), (32, 64, 128), (8, 32)))
 FIR_TILES = (256, 1024)
 CONV2D_TILES = ((4, 64), (16, 64))
 
-#: (input, output) dtype pairs of the FIR and conv2d kernels
-SP_DTYPES = frozenset({
+#: (input, output) dtype pairs of the FIR and conv2d kernels, and of the
+#: star stencil and MTTKRP kernels (the int32 grid is jacobi2d_ms's state)
+SP_DTYPES = HPC_DTYPES = frozenset({
     (torch.float32, torch.float32),
     (torch.int8, torch.int32),
     (torch.int16, torch.int32),
     (torch.int32, torch.int32),
 })
+
+#: the compiled star-stencil output tile (``BH``, ``BW``: 256 threads as 8
+#: rows x 32 columns, each 4 rows of 4 columns), for star radii 1 and 2,
+#: and the MTTKRP output tile (``BI``, ``BJ``: 256 threads as 16 x 16, each
+#: 4 rows of 4 columns); kept equal to ``launch_star`` and
+#: ``launch_mttkrp`` in csrc/widesa_hpc.cu
+STENCIL_TILE = (32, 128)
+STENCIL_RADII = (1, 2)
+MTTKRP_TILE = (64, 64)
 
 #: entry point -> (library, argument types): pointers, then the ints of
 #: the shape, dtype codes and tile, then the stream
@@ -99,6 +113,12 @@ _ENTRIES = {
     "widesa_fir_launch": ("widesa_sp", [ctypes.c_void_p] * 3
                           + [ctypes.c_int] * 5 + [ctypes.c_void_p]),
     "widesa_conv2d_launch": ("widesa_sp", [ctypes.c_void_p] * 3
+                             + [ctypes.c_int] * 8 + [ctypes.c_void_p]),
+    # the star's (di, dj) pairs come as a host int array
+    "widesa_star_launch": ("widesa_hpc", [ctypes.c_void_p] * 3
+                           + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+                           + [ctypes.c_int] * 4 + [ctypes.c_void_p]),
+    "widesa_mttkrp_launch": ("widesa_hpc", [ctypes.c_void_p] * 4
                              + [ctypes.c_int] * 8 + [ctypes.c_void_p]),
 }
 

@@ -42,6 +42,15 @@ tiles, 7 and 8 with the large).  On an H100 this picks the faster tile
 at both the frontend and the bench shapes (PERF.md, from
 ``chip_smoke.py``).
 
+The star stencils and mttkrp (``stencil_tile``, ``mttkrp_tile``): the
+reference planner's single-chip plans are TPU tiles again ({i: 2, j: 2},
+{i: 12, j: 12}, {i: 89, j: 89} for the three stencils at their bench
+sizes, ``bj = 8`` for mttkrp).  Each kernel is compiled for one tile, a
+256-thread block of 4 x 4 outputs a thread (``build.STENCIL_TILE``,
+``build.MTTKRP_TILE``), which every plan maps onto: the path runs them
+at the bench sizes only, where it was the faster of two tiles on an
+H100 (PERF.md).
+
 ``acc_dtype``/``out_dtype`` are the reference's accumulator ladder:
 integer inputs accumulate and land in int32, floats accumulate in fp32
 and land in the input dtype.
@@ -123,6 +132,23 @@ def conv2d_tile(plan: "ExecutionPlan", oh: int, ow: int) -> HopperTiles:
     blocks = -(-oh // large[0]) * -(-ow // large[1])
     return HopperTiles(plan=(kw["bh"], kw["bw"]),
                        tile=large if blocks >= SMS else small)
+
+
+def stencil_tile(plan: "ExecutionPlan") -> HopperTiles:
+    """A star-stencil plan's tile beside the compiled one."""
+    from . import registry
+
+    kw = registry.get(plan.recurrence.name).block_kwargs(plan)
+    return HopperTiles(plan=(kw["bh"], kw["bw"]), tile=build.STENCIL_TILE)
+
+
+def mttkrp_tile(plan: "ExecutionPlan") -> HopperTiles:
+    """An mttkrp plan's tile beside the compiled one."""
+    from . import registry
+
+    kw = registry.get("mttkrp").block_kwargs(plan)
+    return HopperTiles(plan=(kw["bi"], kw["bj"], kw["bk"], kw["bl"]),
+                       tile=build.MTTKRP_TILE)
 
 
 def execute_plan(plan: "ExecutionPlan", *tensors, out_dtype=None):

@@ -1,5 +1,5 @@
-"""The port's FIR, conv2d and fft2d kernels against their plain versions on
-the card.
+"""The port's FIR, conv2d, fft2d, star-stencil and MTTKRP kernels against
+their plain versions on the card.
 
 Every test here is ``gpu``-marked and skips without a CUDA card.  The file
 imports only the port (no JAX), so it runs on a machine with a card and
@@ -8,16 +8,19 @@ PyTorch alone:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 Integers are bit-exact (int32 wraparound); float32 within the registry's
-atol 1e-3 (FIR, conv2d: sums of at most 20 products in another order) and
-1.0 (the fft2d composition: sums of 515 terms of magnitude ~100).
+atol 1e-3 (FIR, conv2d, the stencils: sums of at most 20 products in
+another order; MTTKRP here: sums of at most 35 products of three N(0, 1)
+draws) and 1.0 (the fft2d composition: sums of 515 terms of magnitude
+~100).
 """
 
 import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels import (build, conv2d, fft2d, fir, planned,  # noqa: E402
-                                 ref, runtime)
+from repro_torch.kernels import (build, conv2d, fft2d, fir,  # noqa: E402
+                                 jacobi2d, mttkrp, planned, ref, registry,
+                                 runtime)
 
 #: whisper-base's frontend shapes and ragged ones, as builder arguments
 SHAPES = {"fir": ((6180, 15), (1000, 7)),
@@ -91,3 +94,86 @@ def test_fft2d_composition_on_the_card(gen):
     tiles = runtime.hopper_tiles(plan).tile
     for g, w in zip(fft2d.fft2d(re_, im_, tiles=tiles), ref.fft2d(re_, im_)):
         torch.testing.assert_close(g, w, rtol=0, atol=1.0)
+
+
+#: ragged stencil grids (outputs not multiples of the tiles) per star, and
+#: ragged MTTKRP extents (I, J, K, L)
+STENCIL_GRIDS = ((63, 61), (40, 300))
+MTTKRP_SHAPES = ((37, 45, 7, 5), (130, 70, 3, 11))
+
+
+def _draw(shape, dtype, gen):
+    if dtype.is_floating_point:
+        return torch.randn(shape, generator=gen, device="cuda")
+    info = torch.iinfo(dtype)
+    return torch.randint(info.min, info.max, shape, generator=gen,
+                         device="cuda", dtype=torch.int64).to(dtype)
+
+
+def _same(got, want):
+    if want.dtype.is_floating_point:
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-3)
+    else:
+        assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["jacobi2d", "jacobi2d_9pt", "jacobi2d_ms"])
+def test_star_stencils_match_plain_versions_on_the_card(name, gen):
+    """Full-range integers wrap; jacobi2d_ms runs 3 sweeps on the promoted
+    int32 state, and an int32 grid takes int8 weights as a halo chain's
+    consumer does."""
+    fn, plain = getattr(jacobi2d, name), getattr(ref, name)
+    n_points = 9 if name == "jacobi2d_9pt" else 5
+    before = jacobi2d.launches
+    launched = 0
+    for shape in STENCIL_GRIDS:
+        for dtype in DTYPES:
+            grid = _draw(shape, dtype, gen)
+            weights = _draw((3, n_points) if name == "jacobi2d_ms"
+                            else (n_points,), dtype, gen)
+            _same(fn(grid, weights, tiles=build.STENCIL_TILE),
+                  plain(grid, weights))
+            launched += 3 if name == "jacobi2d_ms" else 1
+        grid = _draw(shape, torch.int32, gen)
+        weights = _draw((n_points,), torch.int8, gen)
+        if name != "jacobi2d_ms":
+            _same(fn(grid, weights, tiles=build.STENCIL_TILE),
+                  plain(grid, weights))
+            launched += 1
+    torch.cuda.synchronize()
+    assert jacobi2d.launches - before == launched
+
+
+@pytest.mark.gpu
+def test_mttkrp_matches_plain_version_on_the_card(gen):
+    before = mttkrp.launches
+    for shape in MTTKRP_SHAPES:
+        ni, nj, nk, nl = shape
+        for dtype in DTYPES:
+            x, b, c = (_draw(s, dtype, gen)
+                       for s in ((ni, nk, nl), (nk, nj), (nl, nj)))
+            _same(mttkrp.mttkrp(x, b, c, tiles=build.MTTKRP_TILE),
+                  ref.mttkrp(x, b, c))
+    torch.cuda.synchronize()
+    assert mttkrp.launches - before == len(MTTKRP_SHAPES) * len(DTYPES)
+
+
+@pytest.mark.gpu
+def test_execute_plan_runs_the_new_kernels_on_the_card(gen):
+    """The pipeline's path: a single-chip plan through ``lower_plan``
+    launches the hand kernel at the tile ``runtime`` maps the plan onto."""
+    from repro_torch.core import Target, best_plan, lower_plan
+
+    chip = Target(name="single_chip", mesh_shape=(1, 1))
+    for name in ("jacobi2d", "jacobi2d_9pt", "jacobi2d_ms", "mttkrp"):
+        spec = registry.get(name)
+        rec = spec.builder(*spec.smoke_args, "int16")
+        ops = registry.operands(rec, gen, "cuda")
+        mod = mttkrp if name == "mttkrp" else jacobi2d
+        before = mod.launches
+        _same(lower_plan(best_plan(rec, chip), "pallas")(*ops),
+              spec.ref(*ops))
+        assert mod.launches > before
+        assert runtime.last_tiles[name].tile == (
+            build.MTTKRP_TILE if name == "mttkrp" else build.STENCIL_TILE)

@@ -48,7 +48,9 @@ def test_port_and_chip_smoke_import_without_jax():
             "repro_torch.kernels.fir", "repro_torch.kernels.conv2d",
             "repro_torch.kernels.fft2d", "repro_torch.core.fusion",
             "repro_torch.models.encdec", "repro_torch.serve.frontend",
-            "repro_torch.configs.whisper_base"} <= set(result["modules"])
+            "repro_torch.configs.whisper_base", "repro_torch.core.codegen",
+            "repro_torch.kernels.jacobi2d", "repro_torch.kernels.mttkrp",
+            "repro_torch.launch.recurrences"} <= set(result["modules"])
 
 
 def _imported_roots(path: Path) -> set[str]:

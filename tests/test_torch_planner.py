@@ -104,6 +104,6 @@ def test_unported_policies_and_plan_kinds_raise():
     with pytest.raises(NotImplementedError, match="hierarchical"):
         autotune.resolve(autotune.PlanRequest(
             "mm+mm", ((8, 8, 8), (8, 8, 8)), "float32", hier))
-    # a kind the port has not registered yet reads as "no plan"
+    # a kind neither package registers reads as "no plan"
     assert autotune.resolve(autotune.PlanRequest(
-        "jacobi2d", (64, 64), "float32", PLANNED_TARGET)) is None
+        "spmv", (64, 64), "float32", PLANNED_TARGET)) is None
