@@ -12,17 +12,29 @@ line(s); any failure exits non-zero:
 2. build  — compiles the port's three CUDA sources from ``src/`` (one
    ``nvcc`` each, started together; set-up time);
 3. kernels — every hand-written kernel against its plain PyTorch version
-   on the card: the mm/bmm GEMM in all five dtypes at every serving shape,
-   at ragged ones and with every compiled tile; FIR and conv2d in every
-   dtype they take, at the whisper-base frontend shapes and at ragged
-   ones, with the tile the runtime picks and every compiled tile; the
-   fft2d composition over the GEMM against ``torch.fft.fft2``.  Then each
-   is timed beside its plain version, one PyTorch call computing the same
-   function (``torch.matmul``/``torch.bmm``, ``F.conv1d``, ``F.conv2d``,
+   on the card: the mm/bmm GEMMs in all five dtypes at every serving
+   shape and at ragged ones on the kernel the runtime picks (the skinny
+   kernel for A of at most 16 rows, the tiled one above), the skinny
+   kernel at every M up to 16 with both B layouts and K split unevenly
+   over a cluster, a misaligned B (routed to the tiled kernel where its
+   rows do not allow 4-byte copies), every compiled tile of the tiled
+   kernel, the bf16 -> fp32 bmm, and two runs of split-K float products
+   bitwise equal; FIR and conv2d in every dtype they take, at the
+   whisper-base frontend shapes and at ragged ones, with the tile the
+   runtime picks and every compiled tile; the fft2d composition over the
+   GEMM against ``torch.fft.fft2``.  Then each is timed beside its plain
+   version, one PyTorch call computing the same function
+   (``torch.matmul``/``torch.bmm``, ``F.conv1d``, ``F.conv2d``,
    ``torch.fft.fft2``: yardsticks only) and its memory/compute bound, at
    the main-path shapes and, for FIR and conv2d, at the registry's
-   bandwidth-sized bench shapes; FIR, conv2d, the fft2d composition and
-   their library calls also get their device time from ``torch.profiler``
+   bandwidth-sized bench shapes.  The GEMMs (every qwen serving shape and
+   whisper-base's lm_head) get ``torch.profiler`` device time of the
+   skinny kernel, of the tiled kernel at the tile the plan maps to and of
+   the library call, the weight GEMMs over a rotation of distinct B operands
+   of ``COLD_BYTES`` so that B comes from HBM as in a decode step, and
+   the host time of a wrapper call and of a planned-facade call (with a
+   ``cProfile`` breakdown at one shape); FIR, conv2d, the fft2d
+   composition and their library calls also get their device time
    (the launch overhead left out), FIR and conv2d with every compiled
    tile;
 4. serve  — full-width qwen1.5-0.5b (bf16, 24 layers, vocab 151936,
@@ -30,12 +42,14 @@ line(s); any failure exits non-zero:
    engine: 4 slots, max_seq 128, 8 requests of 4-16 prompt tokens and 8
    new tokens each.  Checks every request's budget, that every planned
    site planned and never fell back, that both GEMM kernels launched
-   during the drain, that every GEMM shape the drain gave a site matches
-   the plain version (``drain_parity``), and that each prompt's prefill
-   logits match a second, explicit prefill through the plain versions.
-   One 4-lane decode step
-   is then timed on the host clock and traced with ``torch.profiler``
-   for the card's busy time and the hand kernels' share of it;
+   during the drain, that the GEMMs ran on the kernel the runtime must
+   pick for each shape (``check_routes``: the skinny kernel, but for the
+   scores of odd-length prompts), that every GEMM shape the drain gave a
+   site matches the plain version (``drain_parity``), and that each
+   prompt's prefill logits match a second, explicit prefill through the
+   plain versions.  One 4-lane decode step is then timed on the host
+   clock and traced with ``torch.profiler`` for the card's busy time and
+   the share of each GEMM kernel;
 5. stream — full-width whisper-base (bf16, 6+6 layers, d 512, vocab
    51865, random weights seeded with 0) on the slot engine: 4 slots,
    max_seq 128, 8 streamed int16 audio requests of 1-8 chunks and 8 new
@@ -70,14 +84,18 @@ line(s); any failure exits non-zero:
 Every wrapper's launch count is set to 0 just before each serving drain
 and before the recurrence pipeline, and read just after; the kernels
 line gives each path's counts apart (``"launches": {"qwen": n,
-"whisper_stream": m, "recurrences": k}``).  The comparison and timing
-launches of phases 3 and 6 and of ``drain_parity`` do not count.
+"whisper_stream": m, "recurrences": k}``), and for the two GEMM wrappers
+the same launches by kernel (``"launches_by_kernel"``: skinny / tiled)
+beside their device times and host time a call.  The comparison and
+timing launches of phases 3 and 6 and of ``drain_parity`` do not count.
 
 ``--tile-sweep`` runs only the device and build phases, then times the
-GEMM in bf16 with each of the 24 tiles of ``build.SWEEP_TILES`` (a second
-library holds those not compiled for the main path) at every main-path
-shape and prints, per shape, the tile ``runtime.hopper_tiles`` picks and
-the fastest one (``--out`` writes all times as JSON).
+tiled GEMM in bf16 with each of the 24 tiles of ``build.SWEEP_TILES`` (a
+second library holds those not compiled for the main path) and the
+skinny GEMM with every split of K, at every main-path shape, and prints,
+per shape, the tile ``runtime.hopper_tiles`` picks, the skinny
+configuration ``runtime.gemm_tile`` picks and the fastest of each
+(``--out`` writes all times as JSON).
 
 Tolerances: integer results are bit-exact (wrapping int32, as XLA);
 float32 results within the kernel registry's atol 1e-3 (1.0 for the
@@ -96,6 +114,7 @@ sums 65536 products of magnitude ~1 and |M| reaches the hundreds.
 from __future__ import annotations
 
 import ast
+import itertools
 import json
 import math
 import re
@@ -144,8 +163,19 @@ MAIN_SHAPES = (
     ("attn.scores, prefill", "bmm", (16, 12, 12, 64), False, 0),
     ("attn.values, prefill", "bmm", (16, 12, 64, 12), False, 0),
 )
+#: the GEMMs timed: MAIN_SHAPES and whisper-base's tied lm_head over its
+#: 51865-word vocabulary (a 4-lane decode step), B column-major
+TIMED_SHAPES = MAIN_SHAPES + (
+    ("lm_head, whisper-base decode", "mm", (4, 51865, 512), True, 0),)
 RAGGED_SHAPES = (("mm", (61, 126, 37)), ("mm", (1, 300, 77)),
                  ("bmm", (3, 61, 126, 37)), ("bmm", (5, 7, 33, 130)))
+#: the skinny kernel at every row count up to 16: N, and a K that no split
+#: divides (B above 1 MiB in every dtype, so the runtime splits K over 8
+#: blocks of a cluster)
+SKINNY_NK = (96, 11004)
+#: bytes of distinct B operands a weight GEMM is timed over, so that each
+#: launch reads its B from HBM as a decode step does (the L2 holds 50 MB)
+COLD_BYTES = 80 * 2**20
 
 #: the kernel row of each ported TPU kernel: its main-path shape for the
 #: timing columns, what it replaces and where its source is
@@ -199,10 +229,52 @@ def wrappers() -> dict:
 def reset_counts() -> None:
     for mod in wrappers().values():
         mod.launches = 0
+        for variant in getattr(mod, "variants", {}):
+            mod.variants[variant] = 0
 
 
 def read_counts() -> dict:
     return {name: mod.launches for name, mod in wrappers().items()}
+
+
+def read_variants() -> dict:
+    """The GEMM wrappers' launches by kernel (skinny / tiled)."""
+    return {name: dict(mod.variants) for name, mod in wrappers().items()
+            if hasattr(mod, "variants")}
+
+
+def check_routes(path: str, report: dict, variants: dict) -> str:
+    """Hold a serving drain's GEMM launches by kernel to what the runtime
+    must pick for the shapes the drain gave each site (bf16 operands, the
+    lm_head's B column-major): the skinny kernel, except where B's rows do
+    not allow 4-byte copies (an odd number of bf16 elements: the prefill
+    scores of an odd-length prompt, whose B is K^T with one row of
+    `prompt length` keys per head dimension) or A has more than 16 rows.
+    Fail on any other tiled launch; return the explanation of those that
+    must be tiled."""
+    from repro_torch.kernels import runtime
+
+    want = {"widesa_mm": 0, "bmm": 0}
+    why = []
+    for site, st in report.items():
+        if site.startswith(NON_GEMM_SITES):
+            continue
+        for key, count in st["shapes"].items():
+            shape = ast.literal_eval(key)
+            kind = "widesa_mm" if len(shape) == 3 else "bmm"
+            m, n, k = shape[-3:]
+            # the tied lm_head's B, and a single column, read column-major
+            inner = k if site == "lm_head" or n == 1 else n
+            if m > runtime.SKINNY_ROWS or runtime.copy_bytes(0, 2 * inner) < 4:
+                want[kind] += count
+                why.append(f"{site} {shape} x{count}")
+    got = {name: variants[name]["tiled"] for name in want}
+    if got != want:
+        fail(f"{path}: tiled-kernel launches {got}, the shapes call for "
+             f"{want} ({why})")
+    return (f"tiled launches {sum(got.values())}, each for B rows of an odd "
+            f"number of bf16 elements or A above 16 rows: {why}" if why
+            else "no tiled launch")
 
 
 def nvidia_smi() -> str:
@@ -239,16 +311,56 @@ def operands(torch, gen, kind, shape, dtype, col_major):
     return a, b
 
 
-def kernel_call(kind, shape, dtype, col_major, out_dtype=None):
-    """The hand kernel at the tile the planner picks for this shape."""
-    from repro_torch.kernels import bmm, planned, runtime, widesa_mm
+def gemm_fn(kind):
+    from repro_torch.kernels import bmm, widesa_mm
+
+    return widesa_mm.matmul if kind == "mm" else bmm.bmm
+
+
+def gemm_plan(kind, shape, dtype):
+    from repro_torch.kernels import planned
 
     plan = planned.plan_for(kind, shape, planned.dtype_name(dtype))
     if plan is None:
         fail(f"no feasible plan for {kind}{shape} {dtype}")
-    tiles = runtime.hopper_tiles(plan, b_col_major=col_major).tile
-    fn = widesa_mm.matmul if kind == "mm" else bmm.bmm
-    return (lambda a, b: fn(a, b, tiles=tiles, out_dtype=out_dtype)), tiles
+    return plan
+
+
+def kernel_call(kind, shape, dtype, a, b, out_dtype=None):
+    """The hand kernel on the configuration the serving path picks for
+    these operands (the registry's ``tiles``: ``runtime.gemm_tiles``):
+    (call, HopperTiles)."""
+    from repro_torch.kernels import registry
+
+    tiles = registry.get(kind).tiles(gemm_plan(kind, shape, dtype), a, b)
+    fn = gemm_fn(kind)
+    return (lambda x, y: fn(x, y, tiles=tiles.tile, out_dtype=out_dtype)), \
+        tiles
+
+
+def tiled_call(kind, shape, dtype, col_major, out_dtype=None):
+    """The tiled kernel at the tile the plan maps onto
+    (``runtime.hopper_tiles``), as the serving GEMMs ran before the
+    skinny kernel: (call, tile)."""
+    from repro_torch.kernels import runtime
+
+    tile = runtime.hopper_tiles(gemm_plan(kind, shape, dtype),
+                                b_col_major=col_major).tile
+    fn = gemm_fn(kind)
+    return (lambda x, y: fn(x, y, tiles=tile, out_dtype=out_dtype)), tile
+
+
+def describe(tile, kind=None, shape=None) -> str:
+    """A GEMM launch configuration in words (with its grid for a shape)."""
+    from repro_torch.kernels import runtime
+
+    if not isinstance(tile, runtime.SkinnyTile):
+        return f"tiled {tuple(tile)}"
+    text = f"skinny split {tile.split} x {tile.kblk}"
+    if shape is not None:
+        n, z = (shape[1], 1) if kind == "mm" else (shape[2], shape[0])
+        text += f" ({tile.blocks(n, z)} blocks)"
+    return text
 
 
 def max_error(torch, out, want, dtype) -> tuple[float, bool]:
@@ -265,32 +377,76 @@ def max_error(torch, out, want, dtype) -> tuple[float, bool]:
     return err, bool((diff <= bound).all())
 
 
+GEMM_DTYPES = ("float32", "bfloat16", "int8", "int16", "int32")
+
+
 def parity(torch) -> None:
-    """Every kernel against its plain version, all dtypes and shapes."""
-    from repro_torch.kernels import ref
+    """The GEMM kernels against their plain versions, all five dtypes: the
+    serving and ragged shapes on the configuration the runtime picks; the
+    skinny kernel at every M up to 16, both B layouts, K split unevenly;
+    a misaligned B, which must take the tiled kernel; every compiled tile
+    of the tiled kernel; the bf16 -> fp32 bmm; two runs of split-K float
+    products bitwise equal."""
+    from collections import Counter
+
+    from repro_torch.kernels import bmm, build, ref, runtime, widesa_mm
 
     gen = torch.Generator(device="cuda").manual_seed(1)
-    dtypes = (torch.float32, torch.bfloat16, torch.int8, torch.int16,
-              torch.int32)
-    cases = [(kind, shape, col) for _, kind, shape, col, _ in MAIN_SHAPES]
+    dtypes = [getattr(torch, d) for d in GEMM_DTYPES]
+    n, routes = 0, Counter()
+
+    def check(what, out, want, dtype):
+        nonlocal n
+        torch.cuda.synchronize()
+        err, ok = max_error(torch, out, want, dtype)
+        if not ok:
+            fail(f"{what}: max |err| {err}")
+        n += 1
+
+    cases = [(kind, shape, col) for _, kind, shape, col, _ in TIMED_SHAPES]
     cases += [(kind, shape, False) for kind, shape in RAGGED_SHAPES]
     cases += [("mm", (61, 126, 37), True)]
-    n = 0
     for dtype in dtypes:
         for kind, shape, col in cases:
             a, b = operands(torch, gen, kind, shape, dtype, col)
-            fn, tiles = kernel_call(kind, shape, dtype, col)
+            fn, tiles = kernel_call(kind, shape, dtype, a, b)
             plain = ref.mm if kind == "mm" else ref.bmm
-            out, want = fn(a, b), plain(a, b)
-            torch.cuda.synchronize()
-            err, ok = max_error(torch, out, want, dtype)
-            if not ok:
-                fail(f"{kind}{shape} {dtype} tile {tiles}: max |err| {err}")
-            n += 1
-    # every compiled tile, including those no serving plan picks, on a
-    # ragged mm (column-major B) and a ragged bmm
-    from repro_torch.kernels import bmm, build, widesa_mm
-
+            check(f"{kind}{shape} {dtype} {describe(tiles.tile)}", fn(a, b),
+                  plain(a, b), dtype)
+            routes[describe(tiles.tile).split()[0]] += 1
+            del a, b
+    # the skinny kernel at M = 1..16 and both layouts, K split unevenly
+    sn, sk = SKINNY_NK
+    for dtype in dtypes:
+        for m in range(1, 17):
+            for col in (False, True):
+                a, b = operands(torch, gen, "mm", (m, sn, sk), dtype, col)
+                tile = runtime.gemm_tile(a, b, (16, 32, 32))
+                if not isinstance(tile, runtime.SkinnyTile) or \
+                        sk % tile.split == 0:
+                    fail(f"mm({m},{sn},{sk}) {dtype}: {tile} is not an "
+                         f"uneven skinny split")
+                check(f"mm({m},{sn},{sk}) {dtype} col_major={col} "
+                      f"{describe(tile)}", widesa_mm.matmul(a, b, tiles=tile),
+                      ref.mm(a, b), dtype)
+    # a B one element off its 16-byte boundary takes the tiled kernel
+    for dtype in dtypes:
+        a = draw(torch, gen, (4, 64), dtype)
+        b = draw(torch, gen, (64 * 130 + 1,), dtype)[1:].view(64, 130)
+        tile = runtime.gemm_tile(a, b, (4, 32, 32))
+        want_tiled = runtime.b_copy_bytes(b) < 4
+        before = dict(widesa_mm.variants)
+        check(f"misaligned mm(4,130,64) {dtype} {describe(tile)}",
+              widesa_mm.matmul(a, b, tiles=tile), ref.mm(a, b), dtype)
+        went = "tiled" if widesa_mm.variants["tiled"] > before["tiled"] \
+            else "skinny"
+        if went != ("tiled" if want_tiled else "skinny"):
+            fail(f"misaligned mm {dtype} (B copies of "
+                 f"{runtime.b_copy_bytes(b)} bytes) ran {went}")
+        routes[f"misaligned {str(dtype).removeprefix('torch.')} -> {went}"] \
+            += 1
+    # every compiled tile of the tiled kernel, including those no plan
+    # picks, on a ragged mm (column-major B) and a ragged bmm
     for tiles in build.COMPILED_TILES:
         for dtype in dtypes:
             for kind, shape, col in (("mm", (61, 126, 37), True),
@@ -298,30 +454,40 @@ def parity(torch) -> None:
                 a, b = operands(torch, gen, kind, shape, dtype, col)
                 fn, plain = ((widesa_mm.matmul, ref.mm) if kind == "mm"
                              else (bmm.bmm, ref.bmm))
-                out, want = fn(a, b, tiles=tiles), plain(a, b)
-                torch.cuda.synchronize()
-                err, ok = max_error(torch, out, want, dtype)
-                if not ok:
-                    fail(f"{kind}{shape} {dtype} tile {tiles}: max |err| "
-                         f"{err}")
-                n += 1
+                check(f"{kind}{shape} {dtype} tile {tiles}",
+                      fn(a, b, tiles=tiles), plain(a, b), dtype)
     # attention scores: bf16 operands, the fp32 accumulator flushed as is
     for _, kind, shape, *_ in MAIN_SHAPES:
         if kind != "bmm":
             continue
         a, b = operands(torch, gen, kind, shape, torch.bfloat16, False)
-        fn, tiles = kernel_call(kind, shape, torch.bfloat16, False,
+        fn, tiles = kernel_call(kind, shape, torch.bfloat16, a, b,
                                 torch.float32)
-        out, want = fn(a, b), ref.bmm(a, b, torch.float32)
-        torch.cuda.synchronize()
-        err, ok = max_error(torch, out, want, torch.float32)
-        if not ok:
-            fail(f"bmm{shape} bf16->fp32 tile {tiles}: max |err| {err}")
-        n += 1
-    print(f"kernels: parity ok in {n} cases (5 dtypes x {len(cases)} "
-          f"serving/ragged shapes, 5 dtypes x every compiled tile x 2 "
-          f"ragged shapes, bf16->fp32 bmm): integers bit-exact, "
-          f"fp32 <= 1e-3, bf16 <= 2^-7|ref| + 1e-3", flush=True)
+        check(f"bmm{shape} bf16->fp32 {describe(tiles.tile)}", fn(a, b),
+              ref.bmm(a, b, torch.float32), torch.float32)
+    # the cluster adds partial tiles in a fixed order: the same bits twice
+    same = []
+    for kind, shape in (("mm", (4, 1024, 2816)), ("mm", (12, 1024, 1024)),
+                        ("bmm", (32, 1, 64, 1500))):
+        for dtype in (torch.bfloat16, torch.float32):
+            a, b = operands(torch, gen, kind, shape, dtype, False)
+            fn, tiles = kernel_call(kind, shape, dtype, a, b)
+            if tiles.tile.split < 2:
+                fail(f"{kind}{shape} {dtype}: no split ({tiles.tile})")
+            first, again = fn(a, b), fn(a, b)
+            torch.cuda.synchronize()
+            if not torch.equal(first, again):
+                fail(f"{kind}{shape} {dtype} {describe(tiles.tile)}: two "
+                     f"runs differ")
+            same.append(f"{kind}{shape} {str(dtype).removeprefix('torch.')} "
+                        f"split {tiles.tile.split}")
+    print(f"kernels: GEMM parity ok in {n} cases (5 dtypes x "
+          f"{len(cases)} serving/ragged shapes on the runtime's pick, "
+          f"skinny at M = 1..16 x 2 layouts at (N, K) = {SKINNY_NK}, a "
+          f"misaligned B, every compiled tile x 2 ragged shapes, bf16->fp32 "
+          f"bmm): integers bit-exact, fp32 <= 1e-3, bf16 <= 2^-7|ref| + "
+          f"1e-3; routes {dict(routes)}; bitwise equal on two runs: "
+          f"{same}", flush=True)
 
 
 #: report sites whose shapes are not one GEMM: the frontend's FIR, conv2d
@@ -331,11 +497,13 @@ NON_GEMM_SITES = ("frontend.", "mlp.pair")
 
 def drain_parity(torch, report, path: str) -> None:
     """Every GEMM shape a serving drain gave a site (``planned_report``),
-    through the hand kernel at the tile the planner picks against the
-    plain version, in bf16 (the serving dtype): the lm_head reads its B
-    column-major, as the tied head does; the score sites flush to fp32.
+    through the hand kernel on the configuration the runtime picks against
+    the plain version, in bf16 (the serving dtype): the lm_head reads its
+    B column-major, as the tied head does; the score sites flush to fp32.
     Run after the drain's counts are read, so these launches count for
     no path."""
+    from collections import Counter
+
     from repro_torch.kernels import ref
 
     gen = torch.Generator(device="cuda").manual_seed(6)
@@ -343,26 +511,28 @@ def drain_parity(torch, report, path: str) -> None:
                     for site, st in report.items()
                     if not site.startswith(NON_GEMM_SITES)
                     for key in st["shapes"]})
-    worst = 0.0
+    worst, routes = 0.0, Counter()
     for site, shape in cases:
         kind = "mm" if len(shape) == 3 else "bmm"
         col = site == "lm_head"
         out_dtype = torch.float32 if "scores" in site else None
         a, b = operands(torch, gen, kind, shape, torch.bfloat16, col)
-        fn, tiles = kernel_call(kind, shape, torch.bfloat16, col, out_dtype)
+        fn, tiles = kernel_call(kind, shape, torch.bfloat16, a, b, out_dtype)
         plain = ref.mm if kind == "mm" else ref.bmm
         out, want = fn(a, b), plain(a, b, out_dtype)
         torch.cuda.synchronize()
         err, ok = max_error(torch, out, want, out.dtype)
         if not ok:
-            fail(f"{path}: {site} {kind}{shape} bf16 tile {tiles}: max "
-                 f"|err| {err}")
+            fail(f"{path}: {site} {kind}{shape} bf16 {describe(tiles.tile)}: "
+                 f"max |err| {err}")
         worst = max(worst, err)
+        routes[describe(tiles.tile).split()[0]] += 1
         del a, b, out, want
     print(f"{path}: the {len(cases)} GEMM (site, shape) pairs of the drain "
-          f"match the plain versions in bf16 at the planned tiles (bf16 "
-          f"<= 2^-7|ref| + 1e-3, fp32 scores <= 1e-3; max |err| "
-          f"{worst:.4g}): {sorted({s for s, _ in cases})}", flush=True)
+          f"match the plain versions in bf16 on the runtime's configuration "
+          f"({dict(routes)}; bf16 <= 2^-7|ref| + 1e-3, fp32 scores <= 1e-3; "
+          f"max |err| {worst:.4g}): {sorted({s for s, _ in cases})}",
+          flush=True)
 
 
 def time_ms(torch, fn, reps=50, warmup=5) -> float:
@@ -381,10 +551,11 @@ def time_ms(torch, fn, reps=50, warmup=5) -> float:
 
 def device_ms(torch, fn, kernel=None, reps=10, launches=1):
     """Device time per call of ``fn`` from ``torch.profiler`` over ``reps``
-    calls; None if the profiler recorded nothing.  With ``kernel``: the
+    calls; None if two traces recorded nothing.  With ``kernel``: the
     mean time of the CUDA kernel records whose name holds ``kernel``,
     times ``launches`` (those kernels a call), since the profiler can drop
-    device records and each record it keeps is one launch's time.
+    device records (all of a short kernel's, now and then: hence the
+    second trace) and each record it keeps is one launch's time.
     Without: every device event of the trace, over ``reps``.  Unlike
     ``time_ms`` this leaves out the host's launch overhead, which back-to-
     back launches of a short kernel measure instead of the kernel."""
@@ -392,14 +563,17 @@ def device_ms(torch, fn, kernel=None, reps=10, launches=1):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    evts = [evt for evt in prof.key_averages()
-            if kernel is None or kernel in evt.key]
-    us = sum(getattr(evt, "self_device_time_total", 0.0) for evt in evts)
-    if not us:
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        evts = [evt for evt in prof.key_averages()
+                if kernel is None or kernel in evt.key]
+        us = sum(getattr(evt, "self_device_time_total", 0.0) for evt in evts)
+        if us:
+            break
+    else:
         return None
     if kernel is None:
         return us / reps / 1e3
@@ -430,70 +604,191 @@ def bound_ms(kind, shape, in_bytes, out_bytes, dtype_name):
     return least_ms(moved, 2 * z * m * n * k, dtype_name)
 
 
+def host_us(torch, fn, calls=200) -> float:
+    """Host time of one call of ``fn`` in microseconds: ``calls`` back-to-
+    back calls on the host clock, with no synchronisation between them
+    (what the Python side costs a launch while the card runs behind)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / calls * 1e6
+
+
+def host_profile(torch, label, fn, calls=500, top=8) -> None:
+    """Where the host time of ``fn`` goes: ``cProfile`` over ``calls``
+    back-to-back calls, the ``top`` functions by their own time."""
+    import cProfile
+    import pstats
+
+    fn()
+    torch.cuda.synchronize()
+    prof = cProfile.Profile()
+    prof.enable()
+    for _ in range(calls):
+        fn()
+    prof.disable()
+    torch.cuda.synchronize()
+    stats = pstats.Stats(prof)
+    rows = sorted(stats.stats.items(), key=lambda kv: -kv[1][2])[:top]
+    total = sum(v[2] for v in stats.stats.values()) / calls * 1e6
+    parts = ", ".join(f"{name}:{line} {v[2] / calls * 1e6:.1f}"
+                      for (path, line, name), v in rows)
+    print(f"host profile of {label} (cProfile, {calls} calls, us a call, "
+          f"profiler overhead included): total {total:.1f}; by own time: "
+          f"{parts}", flush=True)
+
+
+def rotation(torch, gen, kind, shape, col, dtype):
+    """A, and distinct B operands totalling at least ``COLD_BYTES`` (two at
+    least) for an mm, so that no launch finds its B in the L2; one B for a
+    bmm."""
+    a, b = operands(torch, gen, kind, shape, dtype, col)
+    bs = [b]
+    if kind == "mm":
+        copies = max(2, math.ceil(COLD_BYTES / (b.numel() * b.element_size())))
+        bs += [operands(torch, gen, kind, shape, dtype, col)[1]
+               for _ in range(copies - 1)]
+    return a, bs
+
+
+def cycling(fn, a, bs):
+    """``fn(a, b)`` over the B operands ``bs`` in turn."""
+    turn = itertools.cycle(bs)
+    return lambda: fn(a, next(turn))
+
+
 def timings(torch) -> dict:
-    """Kernel, plain version, library call and bound at the main-path
-    shapes, in bf16 (the serving dtype; scores flush to fp32)."""
-    from repro_torch.kernels import ref
+    """The GEMMs at the timed shapes in bf16 (the serving dtype; scores
+    flush to fp32): the skinny kernel on the runtime's configuration, the
+    tiled kernel at its tile, ``torch.matmul``/``torch.bmm`` and
+    the bound, with ``torch.profiler`` device time (the mm rows over
+    distinct B operands totalling ``COLD_BYTES``, read cold from HBM),
+    CUDA-event times of back-to-back calls (the host's launch rate where
+    it is slower than the card), and the host time of a wrapper call and
+    of a planned-facade call."""
+    from repro_torch.kernels import planned, ref
 
     gen = torch.Generator(device="cuda").manual_seed(2)
     rows = {}
-    for site, kind, shape, col, _ in MAIN_SHAPES:
+    for site, kind, shape, col, _ in TIMED_SHAPES:
         out_dtype = torch.float32 if "scores" in site else None
-        a, b = operands(torch, gen, kind, shape, torch.bfloat16, col)
-        fn, tiles = kernel_call(kind, shape, torch.bfloat16, col, out_dtype)
+        a, bs = rotation(torch, gen, kind, shape, col, torch.bfloat16)
+        b = bs[0]
+        fn, tiles = kernel_call(kind, shape, torch.bfloat16, a, b, out_dtype)
+        tiled, tile = tiled_call(kind, shape, torch.bfloat16, col, out_dtype)
         plain = ref.mm if kind == "mm" else ref.bmm
         lib = torch.matmul if kind == "mm" else torch.bmm
+
+        def library(x, y):
+            # torch.bmm's out_dtype is the same fp32 flush of bf16 inputs
+            return lib(x, y) if out_dtype is None else lib(x, y, out_dtype)
+
+        def facade(x, y):
+            if kind == "mm":
+                return planned.planned_dense(x, y, site="timing")
+            return planned.planned_bmm(x, y, site="timing",
+                                       out_dtype=out_dtype)
+
         out, want = fn(a, b), plain(a, b, out_dtype)
         err, _ = max_error(torch, out, want, out.dtype)
+        reps = max(10, len(bs))
         row = dict(
-            tiles=tiles,
-            ms=time_ms(torch, lambda: fn(a, b)),
+            tiles=tiles, tiled_tile=tile, max_abs_err=err,
+            cold=len(bs) > 1,
+            device_ms=device_ms(torch, cycling(fn, a, bs), "skinny_kernel",
+                                reps),
+            tiled_device_ms=device_ms(torch, cycling(tiled, a, bs),
+                                      "gemm_kernel", reps),
+            library_device_ms=device_ms(torch, cycling(library, a, bs),
+                                        None, reps),
+            ms=time_ms(torch, cycling(fn, a, bs)),
             plain_ms=time_ms(torch, lambda: plain(a, b, out_dtype)),
-            # torch.bmm's out_dtype is the same fp32 flush of bf16 inputs
-            library_ms=time_ms(torch, lambda: lib(a, b) if out_dtype is None
-                               else lib(a, b, out_dtype)),
-            max_abs_err=err,
+            library_ms=time_ms(torch, cycling(library, a, bs)),
+            host_us=host_us(torch, cycling(fn, a, bs)),
+            facade_us=host_us(torch, cycling(facade, a, bs)),
         )
         row["bound_ms"], row["bound_by"] = bound_ms(
             kind, shape, 2, out.element_size(), "bfloat16")
         rows[(kind, shape)] = row
-        print(f"time {kind}{shape} bf16 [{site}] tile={tiles}: kernel "
-              f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
-              f"torch.{lib.__name__} {row['library_ms']:.4f} ms, bound "
-              f"{row['bound_ms']:.4f} ms ({row['bound_by']})", flush=True)
-        del a, b, out, want
-    # the GEMM share of one decode step, from the per-shape times
-    step = {key: sum(n * rows[(kind, shape)][key]
+        lib_name = f"torch.{lib.__name__}"
+        held = (f"{len(bs)} B operands of "
+                f"{b.numel() * b.element_size() / 2**20:.1f} MiB, cold"
+                if row["cold"] else "one B, warm")
+        print(f"time {kind}{shape} bf16 [{site}] "
+              f"{describe(tiles.tile, kind, shape)}: device ({held}) "
+              f"skinny {fmt_ms(row['device_ms'])}, tiled {tile} "
+              f"{fmt_ms(row['tiled_device_ms'])}, {lib_name} "
+              f"{fmt_ms(row['library_device_ms'])}, bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']}); CUDA events: "
+              f"skinny {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+              f"{lib_name} {row['library_ms']:.4f} ms; host per call: "
+              f"wrapper {row['host_us']:.1f} us, planned facade "
+              f"{row['facade_us']:.1f} us", flush=True)
+        if (kind, shape) == ("mm", (4, 1024, 1024)):
+            host_profile(torch, f"the mm wrapper at {shape}",
+                         cycling(fn, a, bs))
+            host_profile(torch, f"planned_dense at {shape}",
+                         cycling(facade, a, bs))
+        del a, b, bs, out, want
+    # the GEMM share of one decode step, from the per-shape device times
+    step = {key: sum(n * (rows[(kind, shape)][key] or 0.0)
                      for _, kind, shape, _, n in MAIN_SHAPES)
-            for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+            for key in ("device_ms", "tiled_device_ms", "library_device_ms",
+                        "bound_ms")}
     print(f"time: the {sum(s[-1] for s in MAIN_SHAPES)} GEMMs of a 4-lane "
-          f"decode step, summed from the lines above: kernel "
-          f"{step['ms']:.4f} ms, plain {step['plain_ms']:.4f} ms, library "
-          f"{step['library_ms']:.4f} ms, bound {step['bound_ms']:.4f} ms",
-          flush=True)
+          f"qwen decode step, summed from the device times above: skinny "
+          f"{step['device_ms']:.4f} ms, tiled "
+          f"{step['tiled_device_ms']:.4f} ms, library "
+          f"{step['library_device_ms']:.4f} ms, bound "
+          f"{step['bound_ms']:.4f} ms", flush=True)
+    slower = [f"{kind}{shape}" for (kind, shape), row in rows.items()
+              if None not in (row["device_ms"], row["tiled_device_ms"])
+              and row["device_ms"] > row["tiled_device_ms"]]
+    print(f"time: shapes where the skinny kernel's device time is above the "
+          f"tiled kernel's: {slower or 'none'}", flush=True)
     return rows
 
 
 def tile_sweep(torch) -> list[dict]:
-    """Every sweep tile at every main-path shape, bf16."""
-    from repro_torch.kernels import bmm, build, planned, runtime, widesa_mm
+    """Every sweep tile of the tiled kernel, and every split of the skinny
+    kernel, at every main-path shape, bf16 (profiler device time for the
+    skinny kernel, CUDA events for the tiled one)."""
+    from repro_torch.kernels import build, runtime
 
     gen = torch.Generator(device="cuda").manual_seed(3)
     tiles = build.SWEEP_TILES
     rows = []
     for site, kind, shape, col, _ in MAIN_SHAPES:
         a, b = operands(torch, gen, kind, shape, torch.bfloat16, col)
-        fn = widesa_mm.matmul if kind == "mm" else bmm.bmm
+        fn = gemm_fn(kind)
         times = {t: time_ms(torch, lambda t=t: fn(a, b, tiles=t))
                  for t in tiles}
-        picked = runtime.hopper_tiles(
-            planned.plan_for(kind, shape, "bfloat16"), b_col_major=col).tile
+        picked = runtime.hopper_tiles(gemm_plan(kind, shape, torch.bfloat16),
+                                      b_col_major=col).tile
         best = min(times, key=times.get)
+        m, k = a.shape[-2:]
+        bk = runtime.skinny_bk(torch.bfloat16)
+        stages = -(-k // bk)
+        splits = {}
+        for split in range(1, min(8, stages) + 1):
+            kblk = -(-stages // split) * bk
+            tile = runtime.SkinnyTile(split=-(-k // kblk), kblk=kblk)
+            if tile.split == split:
+                splits[split] = device_ms(
+                    torch, lambda t=tile: fn(a, b, tiles=t), "skinny_kernel")
+        chosen = runtime.gemm_tile(a, b, picked)
         rows.append(dict(site=site, kind=kind, shape=shape, picked=picked,
                          best=best, times={str(t): ms
-                                           for t, ms in times.items()}))
-        print(f"sweep {kind}{shape} [{site}]: picked {picked} "
-              f"{times[picked]:.4f} ms, fastest {best} {times[best]:.4f} ms",
+                                           for t, ms in times.items()},
+                         skinny=str(chosen), splits=splits))
+        print(f"sweep {kind}{shape} [{site}]: tiled picked {picked} "
+              f"{times[picked]:.4f} ms, fastest {best} {times[best]:.4f} ms "
+              f"(events); skinny {describe(chosen, kind, shape)}, device ms by "
+              f"split {({s: round(v, 4) if v else v for s, v in splits.items()})}",
               flush=True)
         del a, b
     return rows
@@ -532,7 +827,9 @@ def sp_kernel(name, args, dtype):
 
 
 def fft_kernel():
-    """The fft2d composition at the GEMM tile of the fft2d_stage plan."""
+    """The fft2d composition, each product on the configuration the
+    runtime picks for it, with the fft2d_stage plan's tiled tile where the
+    skinny kernel does not apply."""
     from repro_torch.kernels import fft2d, planned, runtime
 
     plan = planned.plan_for("fft2d_stage", FFT_MAIN, "float32")
@@ -608,7 +905,7 @@ def sp_timings(torch) -> dict:
     card), with TF32 off."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels import build, conv2d, fir, ref
+    from repro_torch.kernels import build, conv2d, fir, ref, widesa_mm
 
     gen = torch.Generator(device="cuda").manual_seed(5)
     kernel_fn = {"fir": fir.fir, "conv2d": conv2d.conv2d}
@@ -657,7 +954,9 @@ def sp_timings(torch) -> dict:
     call, tiles = fft_kernel()
     re_, im_ = (torch.randn(FFT_MAIN, generator=gen, device="cuda")
                 for _ in range(2))
+    before = dict(widesa_mm.variants)
     got, want = call(re_, im_), ref.fft2d(re_, im_)
+    routes = {v: widesa_mm.variants[v] - before[v] for v in before}
 
     def fft_lib(x_re, x_im):
         return torch.fft.fft2(torch.complex(x_re, x_im))
@@ -678,13 +977,16 @@ def sp_timings(torch) -> dict:
     row["bound_ms"], row["bound_by"] = least_ms(
         4 * n * 4, 5 * n * math.log2(n), "float32")
     rows[("fft2d", "main")] = row
-    print(f"time fft2d{FFT_MAIN} float32 [composition, 6 mm launches at "
-          f"tile {tiles}]: {row['ms']:.4f} ms, plain (torch.fft.fft2) "
-          f"{row['plain_ms']:.4f} ms, torch.fft.fft2 "
+    gemms = device_ms(torch, lambda: call(re_, im_), "skinny_kernel",
+                      launches=routes["skinny"])
+    print(f"time fft2d{FFT_MAIN} float32 [composition, 6 mm launches by "
+          f"kernel {routes}, tiled fallback {tiles}]: {row['ms']:.4f} ms, "
+          f"plain (torch.fft.fft2) {row['plain_ms']:.4f} ms, torch.fft.fft2 "
           f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
           f"({row['bound_by']}); device time (profiler): composition "
-          f"{fmt_ms(device_ms(torch, lambda: call(re_, im_)))}, "
-          f"torch.fft.fft2 {fmt_ms(device_ms(torch, lambda: fft_lib(re_, im_)))}",
+          f"{fmt_ms(device_ms(torch, lambda: call(re_, im_)))} (its skinny "
+          f"GEMMs {fmt_ms(gemms)}), torch.fft.fft2 "
+          f"{fmt_ms(device_ms(torch, lambda: fft_lib(re_, im_)))}",
           flush=True)
     return rows
 
@@ -726,11 +1028,13 @@ def serve(torch, device_name: str) -> dict:
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = read_counts()
+    variants = read_variants()
     report = planned.planned_report()
 
     if len(done) != REQUESTS or any(len(r.output) != MAX_NEW for r in done):
         fail(f"requests did not finish with their budget: "
              f"{[(r.rid, len(r.output)) for r in done]}")
+
     bad = {s: (st["planned"], st["fallback"], st["reasons"])
            for s, st in report.items()
            if st["planned"] == 0 or st["fallback"] != 0}
@@ -739,9 +1043,11 @@ def serve(torch, device_name: str) -> dict:
     if min(launches["widesa_mm"], launches["bmm"]) == 0:
         fail(f"a kernel was not launched on the main path: {launches}")
     tokens = sum(len(r.output) for r in done)
+    routes = check_routes("serve", report, variants)
     print(f"serve: {len(done)} requests / {tokens} tokens in {dt:.3f} s = "
           f"{tokens / dt:.1f} tok/s on {device_name}; launches {launches}; "
-          f"{len(report)} sites all planned: {sorted(report)}", flush=True)
+          f"GEMM launches by kernel {variants} ({routes}); {len(report)} "
+          f"sites all planned: {sorted(report)}", flush=True)
     drain_parity(torch, report, "serve")
 
     # prefill logits through the kernels vs an explicit plain-version run
@@ -770,15 +1076,20 @@ def serve(torch, device_name: str) -> dict:
           f"plain versions, max |diff| {worst:.4f} <= {LOGIT_ATOL} (max "
           f"|logit| {scale:.3f})", flush=True)
     profile_decode(torch, eng)
-    return launches
+    return launches, variants
+
+
+#: device time of the hand GEMM kernels in one 4-lane qwen decode step
+#: when all of them ran on the tiled kernel (NVIDIA H100 80GB HBM3,
+#: 700 W; PERF.md), printed beside the step's time by kernel
+TILED_STEP_GEMM_MS = 22.82
 
 
 def profile_decode(torch, eng) -> None:
     """Host time of one 4-lane decode step, and the card's busy time in it
-    by kernel family (``torch.profiler``; device events only)."""
+    by kernel (``torch.profiler``; device events only): the skinny and the
+    tiled GEMM kernels apart, and everything else."""
     from torch.profiler import ProfilerActivity, profile
-
-    from repro_torch.kernels import bmm, widesa_mm
 
     cache = eng.api.init_cache(SLOTS, MAX_SEQ)
     tokens = torch.zeros((SLOTS, 1), dtype=torch.int32, device="cuda")
@@ -794,31 +1105,31 @@ def profile_decode(torch, eng) -> None:
         t0 = time.perf_counter()
         step()
         walls.append((time.perf_counter() - t0) * 1e3)
-    widesa_mm.launches = bmm.launches = 0
+    reset_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         step()
-    per_step = (f"launches widesa_mm {widesa_mm.launches}, "
-                f"bmm {bmm.launches}")
-    hand = other = 0.0
+    per_step = f"GEMM launches by kernel {read_variants()}"
+    us = {"skinny_kernel": 0.0, "gemm_kernel": 0.0, "other": 0.0}
     for evt in prof.key_averages():
-        us = getattr(evt, "self_device_time_total", 0.0)
-        if "gemm_kernel" in evt.key:
-            hand += us
-        else:
-            other += us
+        name = next((k for k in us if k in evt.key), "other")
+        us[name] += getattr(evt, "self_device_time_total", 0.0)
     wall = sorted(walls)[len(walls) // 2]
-    if hand + other == 0:
+    busy = sum(us.values()) / 1e3
+    if busy == 0:
         print(f"profile: decode step {wall:.2f} ms on the host clock "
               f"(median of 5), {per_step}; device busy time not measured "
               "(the profiler recorded no device events)", flush=True)
         return
-    busy = (hand + other) / 1e3
+    hand = (us["skinny_kernel"] + us["gemm_kernel"]) / 1e3
     print(f"profile: decode step {wall:.2f} ms on the host clock (median "
           f"of 5), {per_step}; device busy {busy:.2f} ms in the traced "
-          f"step: hand kernels {hand / 1e3:.2f} ms, other kernels "
-          f"{other / 1e3:.2f} ms; device idle "
-          f"{max(0.0, 1 - busy / wall):.0%} of the step", flush=True)
+          f"step: hand GEMM kernels {hand:.3f} ms (skinny "
+          f"{us['skinny_kernel'] / 1e3:.3f} ms, tiled "
+          f"{us['gemm_kernel'] / 1e3:.3f} ms; {TILED_STEP_GEMM_MS} ms when "
+          f"all ran tiled), other kernels {us['other'] / 1e3:.2f} ms; "
+          f"device idle {max(0.0, 1 - busy / wall):.0%} of the step",
+          flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -861,11 +1172,13 @@ def stream_serve(torch, device_name: str) -> dict:
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = read_counts()
+    variants = read_variants()
     report = planned.planned_report()
 
     if len(done) != REQUESTS or any(len(r.output) != MAX_NEW for r in done):
         fail(f"stream requests did not finish with their budget: "
              f"{[(r.rid, len(r.output)) for r in done]}")
+    routes = check_routes("stream", report, variants)
     if any(r.fed != len(r.chunks) for r in done):
         fail(f"chunks left unfed: {[(r.rid, r.fed, len(r.chunks)) for r in done]}")
     bad = {s: (st["planned"], st["fallback"], st["reasons"])
@@ -890,7 +1203,8 @@ def stream_serve(torch, device_name: str) -> dict:
              if k in ("fir", "conv2d")}
     print(f"stream: {len(done)} requests / {tokens} tokens / {chunks} audio "
           f"chunks in {dt:.3f} s = {tokens / dt:.1f} tok/s on {device_name}; "
-          f"launches {launches} (fir and conv2d: one each per chunk); plan "
+          f"launches {launches} (fir and conv2d: one each per chunk), GEMM "
+          f"launches by kernel {variants} ({routes}); plan "
           f"block -> compiled tile {tiles}; {len(report)} sites all planned: "
           f"{sorted(report)}", flush=True)
     drain_parity(torch, report, "stream")
@@ -932,7 +1246,7 @@ def stream_serve(torch, device_name: str) -> dict:
           f"frontend); stream-prefill logits max |diff| {err:.4f} <= "
           f"{LOGIT_ATOL} (max |logit| {scale:.3f}); first token matches",
           flush=True)
-    return launches
+    return launches, variants
 
 
 # ---------------------------------------------------------------------------
@@ -1136,9 +1450,9 @@ def hpc_timings(torch) -> dict:
     return rows
 
 
-def recurrences_phase(torch) -> tuple[dict, dict]:
-    """Phase 6 (module docstring): the launches of the pipeline run, and
-    the B6 / B7 time rows."""
+def recurrences_phase(torch) -> tuple[dict, dict, dict]:
+    """Phase 6 (module docstring): the launches of the pipeline run (all
+    and the GEMMs' by kernel), and the B6 / B7 time rows."""
     from repro_torch.launch import recurrences
 
     # the recurrence path: counts start at 0 here and are read right after
@@ -1148,14 +1462,16 @@ def recurrences_phase(torch) -> tuple[dict, dict]:
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = read_counts()
+    variants = read_variants()
     if min(launches.values()) == 0:
         fail(f"a kernel was not launched on the recurrence path: {launches}")
     print(f"recurrences: {len(rows)} cases through lower_plan(plan, "
-          f"'pallas') within tolerance in {dt:.1f} s; launches {launches}",
-          flush=True)
+          f"'pallas') within tolerance in {dt:.1f} s; launches {launches}; "
+          f"GEMM launches by kernel {variants} (the skinny kernel for at "
+          f"most 16 rows of A, the tiled one above)", flush=True)
     torch.cuda.empty_cache()
     hpc_parity(torch)
-    return launches, hpc_timings(torch)
+    return launches, variants, hpc_timings(torch)
 
 
 # ---------------------------------------------------------------------------
@@ -1217,19 +1533,20 @@ def main(argv=None) -> int:
     rows = timings(torch)
     rows.update(sp_timings(torch))
     print("kernels: widesa_mm (B1, widesa_mm.py mm_kernel -> cuda), bmm "
-          "(B2, bmm.py bmm_kernel -> cuda) in " + SOURCE + "; fir (B3, "
-          "fir.py fir_kernel -> cuda), conv2d (B5, conv2d.py conv_kernel -> "
-          "cuda) in " + SP_SOURCE + "; fft2d (B4, fft2d.py _cmul_mm -> six "
-          "widesa_mm launches); jacobi2d (B6, jacobi2d.py jacobi_kernel -> "
-          "cuda), mttkrp (B7, mttkrp.py mttkrp_kernel -> cuda) in "
-          + HPC_SOURCE, flush=True)
+          "(B2, bmm.py bmm_kernel -> cuda) in " + SOURCE + " (skinny_kernel "
+          "for M <= 16, gemm_kernel tiled above); fir (B3, fir.py fir_kernel "
+          "-> cuda), conv2d (B5, conv2d.py conv_kernel -> cuda) in "
+          + SP_SOURCE + "; fft2d (B4, fft2d.py _cmul_mm -> six widesa_mm "
+          "launches); jacobi2d (B6, jacobi2d.py jacobi_kernel -> cuda), "
+          "mttkrp (B7, mttkrp.py mttkrp_kernel -> cuda) in " + HPC_SOURCE,
+          flush=True)
     torch.cuda.empty_cache()
 
-    launches = serve(torch, name)
+    launches, variants = serve(torch, name)
     torch.cuda.empty_cache()
-    stream_launches = stream_serve(torch, name)
+    stream_launches, stream_variants = stream_serve(torch, name)
     torch.cuda.empty_cache()
-    rec_launches, hpc_rows = recurrences_phase(torch)
+    rec_launches, rec_variants, hpc_rows = recurrences_phase(torch)
     rows.update({(kname, "main"): hpc_rows[(kname, "float32")]
                  for kname in ("jacobi2d", "mttkrp")})
 
@@ -1237,7 +1554,7 @@ def main(argv=None) -> int:
     for kname, k in KERNELS.items():
         row = rows[(k["kind"], k["shape"])] if "kind" in k \
             else rows[(kname, "main")]
-        summary.append({
+        entry = {
             "name": kname, "route": "cuda", "source": k["source"],
             "replaces": k["replaces"],
             "launches": {"qwen": launches[kname],
@@ -1247,7 +1564,18 @@ def main(argv=None) -> int:
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
-        })
+        }
+        if kname in variants:
+            # the GEMMs: launches by kernel per path, device times (the
+            # tiled kernel's beside), host time of a wrapper call
+            entry["launches_by_kernel"] = {
+                "qwen": variants[kname],
+                "whisper_stream": stream_variants[kname],
+                "recurrences": rec_variants[kname]}
+            entry.update({key: row[key] for key in (
+                "device_ms", "tiled_device_ms", "library_device_ms",
+                "host_us", "facade_us")})
+        summary.append(entry)
     print(json.dumps({"kernels": summary}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,39 +1,38 @@
-"""``C[z] = A[z] @ B[z]`` on the hand-written Hopper GEMM.
+"""``C[z] = A[z] @ B[z]`` on the hand-written Hopper GEMMs.
 
-The port of ``repro.kernels.bmm`` (``bmm_kernel``): the same kernel as
+The port of ``repro.kernels.bmm`` (``bmm_kernel``): the same kernels as
 ``widesa_mm`` (``csrc/widesa_mm.cu``), launched with one grid slice per
-batch entry.  ``out_dtype`` flushes the fp32 accumulator at another dtype
-(attention scores take fp32 from bf16 operands without upcasting them).
-A CPU tensor runs the plain version in ``ref.py``; ``launches`` counts
-kernel launches.
+batch entry; ``tiles`` names the kernel as there.  ``out_dtype`` flushes
+the fp32 accumulator at another dtype (attention scores take fp32 from
+bf16 operands without upcasting them).  A CPU tensor runs the plain
+version in ``ref.py``; ``launches`` counts kernel launches, ``variants``
+the same launches by kernel.
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import build, ref
-from .widesa_mm import check_operands
+from . import ref
+from .widesa_mm import check_operands, launch
 
 launches = 0
+#: launches by kernel: ``skinny`` (M <= 16) and ``tiled``
+variants = {"skinny": 0, "tiled": 0}
 
 
-def bmm(a: torch.Tensor, b: torch.Tensor, *, tiles: tuple[int, int, int],
+def bmm(a: torch.Tensor, b: torch.Tensor, *, tiles,
         out_dtype: torch.dtype | None = None) -> torch.Tensor:
-    """``a[z,m,k] @ b[z,k,n]`` with the compiled tile ``tiles``."""
+    """``a[z,m,k] @ b[z,k,n]`` on the kernel ``tiles`` names."""
     global launches
     if a.device.type == "cpu" and b.device.type == "cpu":
         return ref.bmm(a, b, out_dtype)
-    out_dtype, col_major = check_operands(a, b, tiles, out_dtype,
-                                          batched=True)
-    (z, m, k), n = a.shape, b.shape[2]
-    out = torch.empty((z, m, n), dtype=out_dtype, device=a.device)
+    out_dtype, col_major, b_copy = check_operands(a, b, tiles, out_dtype,
+                                                  batched=True)
+    out = torch.empty((*a.shape[:2], b.shape[2]), dtype=out_dtype,
+                      device=a.device)
     if out.numel() == 0:
         return out
-    with torch.cuda.device(a.device):
-        build.call("widesa_bmm_launch", a.data_ptr(), b.data_ptr(),
-                   out.data_ptr(), z, m, n, k, col_major,
-                   build.DTYPE_CODES[a.dtype], build.DTYPE_CODES[out_dtype],
-                   tiles=tuple(tiles))
+    variants[launch(a, b, out, tiles, col_major, b_copy, batched=True)] += 1
     launches += 1
     return out

@@ -1,6 +1,7 @@
 """Build and bind the port's CUDA kernels (nvcc -> shared library -> ctypes).
 
-The sources live in ``csrc/``: ``widesa_mm.cu`` (the mm/bmm GEMM),
+The sources live in ``csrc/``: ``widesa_mm.cu`` (the mm/bmm GEMMs:
+the skinny kernel and the tiled one),
 ``widesa_sp.cu`` (the FIR and conv2d signal-processing kernels) and
 ``widesa_hpc.cu`` (the star stencil and MTTKRP kernels).  Each
 source is its own shared library; the first call on a machine compiles
@@ -77,6 +78,10 @@ COMPILED_BM = tuple(sorted({t[0] for t in COMPILED_TILES}))
 #: these extents.  A launch at one outside COMPILED_TILES loads a second
 #: library, built with ``-DWIDESA_SWEEP_TILES`` on first use.
 SWEEP_TILES = tuple(itertools.product((1, 4, 16, 64), (32, 64, 128), (8, 32)))
+#: every tile a tiled-kernel launch may name
+MM_TILES = frozenset(COMPILED_TILES + SWEEP_TILES)
+#: the tiled kernel's entry points, whose tile picks the library
+_TILED_ENTRIES = ("widesa_mm_launch", "widesa_bmm_launch")
 
 #: compiled FIR output tiles (``BN``, outputs a block computes: 256
 #: threads x 1 or 4 outputs) and conv2d output tiles (``BH``, ``BW``: 256
@@ -110,6 +115,10 @@ _ENTRIES = {
                          + [ctypes.c_int] * 9 + [ctypes.c_void_p]),
     "widesa_bmm_launch": ("widesa_mm", [ctypes.c_void_p] * 3
                           + [ctypes.c_int] * 10 + [ctypes.c_void_p]),
+    # the skinny kernel (mm and bmm): batch, shape, layout, dtypes, split,
+    # K range per block, B's copy width, A's vector flag
+    "widesa_skinny_launch": ("widesa_mm", [ctypes.c_void_p] * 3
+                             + [ctypes.c_int] * 11 + [ctypes.c_void_p]),
     "widesa_fir_launch": ("widesa_sp", [ctypes.c_void_p] * 3
                           + [ctypes.c_int] * 5 + [ctypes.c_void_p]),
     "widesa_conv2d_launch": ("widesa_sp", [ctypes.c_void_p] * 3
@@ -123,6 +132,8 @@ _ENTRIES = {
 }
 
 _LIBS: dict[tuple[str, bool], ctypes.CDLL] = {}
+#: (entry, sweep) -> the bound C function, looked up once
+_FNS: dict[tuple[str, bool], ctypes._CFuncPtr] = {}
 
 #: what the last build printed (register and shared-memory use per
 #: kernel, from ``-Xptxas -v``) and how long it took on the wall clock,
@@ -199,16 +210,31 @@ def library(name: str, sweep: bool = False) -> ctypes.CDLL:
     return _LIBS[(name, sweep)]
 
 
-def call(entry: str, *args, tiles: tuple[int, ...]) -> None:
-    """Launch one kernel entry point at ``tiles`` on the current stream;
-    raise if the launch was refused.  An mm tile outside COMPILED_TILES
-    loads the sweep library."""
-    name = _ENTRIES[entry][0]
-    lib = library(name, sweep=name == "widesa_mm"
-                  and tuple(tiles) not in COMPILED_TILES)
-    stream = torch.cuda.current_stream().cuda_stream
-    err = getattr(lib, entry)(*args, *tiles, stream)
+#: the current stream's handle, read without building a
+#: ``torch.cuda.Stream`` object on every launch (PyTorch builds without
+#: it take the public call)
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def current_stream() -> int:
+    """The handle of the current CUDA stream of the current device."""
+    if _RAW_STREAM is None:
+        return torch.cuda.current_stream().cuda_stream
+    return _RAW_STREAM(torch.cuda.current_device())
+
+
+def call(entry: str, *args, tiles: tuple[int, ...] = ()) -> None:
+    """Launch one kernel entry point with ``args`` and ``tiles`` on the
+    current stream; raise if the launch was refused.  A tiled-GEMM tile
+    outside COMPILED_TILES loads the sweep library."""
+    sweep = entry in _TILED_ENTRIES and tiles not in COMPILED_TILES
+    fn = _FNS.get((entry, sweep))
+    if fn is None:
+        fn = _FNS[(entry, sweep)] = getattr(
+            library(_ENTRIES[entry][0], sweep), entry)
+    err = fn(*args, *tiles, current_stream())
     if err != 0:
+        lib = library(_ENTRIES[entry][0], sweep)
         raise RuntimeError(
             f"{entry} failed: CUDA error {err} "
             f"({lib.widesa_error_string(err).decode()})")

@@ -5,9 +5,9 @@ no ``pallas_call`` of its own: ``X2 = F_R @ X @ F_C`` with each complex
 product lowered to three real products (``k1 = Br(Ar+Ai)``,
 ``k2 = Ar(Bi-Br)``, ``k3 = Ai(Br+Bi)``; ``Re = k1 - k3``,
 ``Im = k1 + k2``), each one ``widesa_mm.matmul`` launch: six launches of
-the fp32 IEEE GEMM per transform, no new CUDA.  A CPU tensor runs the
-same composition over the plain ``ref.mm``.  ``launches`` counts
-compositions run on the card.
+the fp32 IEEE GEMMs per transform (the skinny kernel for up to 16 rows),
+no new CUDA.  A CPU tensor runs the same composition over the plain
+``ref.mm``.  ``launches`` counts compositions run on the card.
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ import functools
 import numpy as np
 import torch
 
-from . import widesa_mm
+from . import runtime, widesa_mm
 
 launches = 0
 
@@ -37,8 +37,12 @@ def _dft_planes(n: int, device: torch.device):
 
 
 def _cmul_mm(ar, ai, br, bi, *, tiles):
-    """Complex matmul (A @ B) via three real mm kernel calls."""
-    dot = functools.partial(widesa_mm.matmul, tiles=tiles)
+    """Complex matmul (A @ B) via three real mm kernel calls, each on the
+    configuration ``runtime.gemm_tile`` gives its operands (``tiles``: the
+    tiled kernel's tile where the skinny one does not apply)."""
+    def dot(x, y):
+        return widesa_mm.matmul(x, y, tiles=runtime.gemm_tile(x, y, tiles))
+
     k1 = dot(ar + ai, br)
     k2 = dot(ar, bi - br)
     k3 = dot(ai, br + bi)
@@ -49,7 +53,8 @@ def fft2d(x_re: torch.Tensor, x_im: torch.Tensor, *,
           tiles: tuple[int, int, int],
           out_dtype=None) -> tuple[torch.Tensor, torch.Tensor]:
     """2-D DFT of a float32 (R, C) complex grid held as two real planes;
-    ``tiles`` is the compiled mm tile both stages launch with."""
+    ``tiles`` is the tiled kernel's tile for the products the skinny
+    kernel does not take (``_cmul_mm``)."""
     global launches
     del out_dtype  # the planes are float32, as the reference's
     if x_re.dtype != torch.float32 or x_im.dtype != torch.float32:

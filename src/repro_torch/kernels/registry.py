@@ -123,16 +123,12 @@ def _mm_blocks(plan: "ExecutionPlan") -> dict:
     }
 
 
-def _gemm_tiles(plan: "ExecutionPlan", a, b) -> "runtime.HopperTiles":
-    return runtime.hopper_tiles(plan, b_col_major=not b.is_contiguous())
-
-
 register(KernelSpec(
     name="mm",
     arity=2,
     grid_loops=("i", "j", "k"),
     block_kwargs=_mm_blocks,
-    tiles=_gemm_tiles,
+    tiles=runtime.gemm_tiles,
     hopper=_mm.matmul,
     ref=ref.mm,
     builder=ir.matmul,
@@ -147,7 +143,7 @@ register(KernelSpec(
     arity=2,
     grid_loops=("b", "i", "j", "k"),
     block_kwargs=_mm_blocks,
-    tiles=_gemm_tiles,
+    tiles=runtime.gemm_tiles,
     hopper=_bmm.bmm,
     ref=ref.bmm,
     builder=ir.batched_matmul,
@@ -161,7 +157,8 @@ register(KernelSpec(
     arity=2,
     grid_loops=("i", "j", "k"),
     block_kwargs=_mm_blocks,
-    # both DFT stages launch the mm kernel with row-major operands
+    # both DFT stages launch the mm kernels with row-major operands: each
+    # product its own configuration, with this tiled tile as the fallback
     tiles=lambda plan, re, im: runtime.hopper_tiles(plan),
     hopper=_fft2d.fft2d,
     ref=ref.fft2d,

@@ -1,14 +1,18 @@
-"""``C[m,n] = A[m,k] @ B[k,n]`` on the hand-written Hopper GEMM.
+"""``C[m,n] = A[m,k] @ B[k,n]`` on the hand-written Hopper GEMMs.
 
-The port of ``repro.kernels.widesa_mm`` (``mm_kernel``): the kernel itself
-is ``csrc/widesa_mm.cu``, shared with ``bmm`` (mm is its batch = 1
-launch).  ``matmul`` checks its operands, allocates the output and
-launches on the current stream; a CPU tensor runs the plain version in
-``ref.py`` instead.  ``launches`` counts kernel launches.
+The port of ``repro.kernels.widesa_mm`` (``mm_kernel``): the kernels
+themselves are in ``csrc/widesa_mm.cu``, shared with ``bmm`` (mm is their
+batch = 1 launch).  ``matmul`` checks its operands, allocates the output
+and launches on the current stream the kernel its ``tiles`` name: a
+``runtime.SkinnyTile`` runs the skinny kernel (A of at most 16 rows), a
+``(BM, BN, BK)`` tuple the tiled one.  A CPU tensor runs the plain version
+in ``ref.py`` instead.  ``launches`` counts kernel launches, ``variants``
+the same launches by kernel.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -16,15 +20,21 @@ import torch
 from . import build, ref, runtime
 
 launches = 0
+#: launches by kernel: ``skinny`` (M <= 16) and ``tiled``
+variants = {"skinny": 0, "tiled": 0}
 
 
 def check_operands(a, b, tiles, out_dtype, *, batched: bool):
-    """Validate a CUDA launch and return ``(out_dtype, b_col_major)``.
+    """Validate a CUDA launch and return ``(out_dtype, b_col_major,
+    b_copy)``: B's layout (``runtime.b_col_major``) and the bytes a copy
+    of its rows may take (``runtime.copy_bytes``).
 
     A must be contiguous; B is contiguous or the transpose of a
     contiguous tensor (read column-major, as the tied lm_head reads the
-    embedding table); ``tiles`` must be a compiled ``(BM, BN, BK)``, or
-    one of the tiles the sweep times (``build.SWEEP_TILES``).
+    embedding table).  ``tiles`` is a ``runtime.SkinnyTile`` that fits the
+    shape (``runtime.check_skinny``) with B's rows aligned to 4 bytes or
+    more, or a compiled ``(BM, BN, BK)`` of the tiled kernel (or one of the
+    tiles its sweep times, ``build.SWEEP_TILES``).
     """
     nd = 3 if batched else 2
     if a.dim() != nd or b.dim() != nd:
@@ -41,41 +51,71 @@ def check_operands(a, b, tiles, out_dtype, *, batched: bool):
     out_dtype = out_dtype or runtime.out_dtype(a.dtype)
     if (a.dtype, out_dtype) not in build.COMPILED_DTYPES:
         raise TypeError(f"no kernel for {a.dtype} -> {out_dtype}")
-    if tuple(tiles) not in build.COMPILED_TILES + build.SWEEP_TILES:
-        raise ValueError(f"tile {tiles} is not compiled")
     if not a.is_contiguous():
         raise ValueError("A must be contiguous")
-    if b.is_contiguous():
-        col_major = 0
-    elif b.transpose(-1, -2).is_contiguous():
-        col_major = 1
-    else:
+    col_major = runtime.b_col_major(b)
+    if col_major is None:
         raise ValueError("B must be contiguous or a transposed contiguous "
                          "tensor")
-    n, bn = b.shape[-1], tiles[1]
-    if math.ceil(n / bn) > 65535 or (batched and a.shape[0] > 65535):
-        raise ValueError(f"grid too large for N={n}, tile {tiles}")
-    return out_dtype, col_major
+    if batched and a.shape[0] > 65535:
+        raise ValueError(f"batch {a.shape[0]} exceeds the grid")
+    inner = b.shape[-2] if col_major else b.shape[-1]
+    b_copy = runtime.copy_bytes(b.data_ptr(), inner * b.element_size())
+    if isinstance(tiles, runtime.SkinnyTile):
+        runtime.check_skinny(tiles, a.shape[-2], a.shape[-1], a.dtype)
+        if b_copy < 4:
+            raise ValueError("B's rows are not 4-byte aligned: the skinny "
+                             "kernel cannot copy them (launch the tiled one)")
+    elif tuple(tiles) not in build.MM_TILES:
+        raise ValueError(f"tile {tiles} is not compiled")
+    elif math.ceil(b.shape[-1] / tiles[1]) > 65535:
+        raise ValueError(f"grid too large for N={b.shape[-1]}, tile {tiles}")
+    return out_dtype, col_major, b_copy
 
 
-def matmul(a: torch.Tensor, b: torch.Tensor, *, tiles: tuple[int, int, int],
+def launch(a, b, out, tiles, col_major: int, b_copy: int,
+           batched: bool) -> str:
+    """Launch ``out = a @ b`` (operands checked by ``check_operands``) on
+    the kernel ``tiles`` names, on the current stream of ``a``'s card;
+    return that kernel's name (a key of ``variants``)."""
+    m, k = a.shape[-2:]
+    n = b.shape[-1]
+    batch = a.shape[0] if batched else 1
+    codes = build.DTYPE_CODES[a.dtype], build.DTYPE_CODES[out.dtype]
+    ptrs = a.data_ptr(), b.data_ptr(), out.data_ptr()
+    guard = (contextlib.nullcontext()
+             if a.device.index == torch.cuda.current_device()
+             else torch.cuda.device(a.device))
+    with guard:
+        if isinstance(tiles, runtime.SkinnyTile):
+            a_vec = ptrs[0] % 16 == 0 and k * a.element_size() % 16 == 0
+            build.call("widesa_skinny_launch", *ptrs, batch, m, n, k,
+                       col_major, *codes, tiles.split, tiles.kblk, b_copy,
+                       int(a_vec))
+            return "skinny"
+        if batched:
+            build.call("widesa_bmm_launch", *ptrs, batch, m, n, k,
+                       col_major, *codes, tiles=tuple(tiles))
+        else:
+            build.call("widesa_mm_launch", *ptrs, m, n, k, col_major, *codes,
+                       tiles=tuple(tiles))
+    return "tiled"
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor, *, tiles,
            out_dtype: torch.dtype | None = None) -> torch.Tensor:
-    """``a[m,k] @ b[k,n]`` with the compiled tile ``tiles`` (from
-    ``runtime.hopper_tiles``); floats give the input dtype (or
+    """``a[m,k] @ b[k,n]`` on the kernel ``tiles`` names (from
+    ``runtime.gemm_tile``); floats give the input dtype (or
     ``out_dtype``), integers give int32."""
     global launches
     if a.device.type == "cpu" and b.device.type == "cpu":
         return ref.mm(a, b, out_dtype)
-    out_dtype, col_major = check_operands(a, b, tiles, out_dtype,
-                                          batched=False)
-    (m, k), n = a.shape, b.shape[1]
-    out = torch.empty((m, n), dtype=out_dtype, device=a.device)
+    out_dtype, col_major, b_copy = check_operands(a, b, tiles, out_dtype,
+                                                  batched=False)
+    out = torch.empty((a.shape[0], b.shape[1]), dtype=out_dtype,
+                      device=a.device)
     if out.numel() == 0:
         return out
-    with torch.cuda.device(a.device):
-        build.call("widesa_mm_launch", a.data_ptr(), b.data_ptr(),
-                   out.data_ptr(), m, n, k, col_major,
-                   build.DTYPE_CODES[a.dtype], build.DTYPE_CODES[out_dtype],
-                   tiles=tuple(tiles))
+    variants[launch(a, b, out, tiles, col_major, b_copy, batched=False)] += 1
     launches += 1
     return out

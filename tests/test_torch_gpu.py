@@ -1,5 +1,5 @@
-"""The port's FIR, conv2d, fft2d, star-stencil and MTTKRP kernels against
-their plain versions on the card.
+"""The port's GEMM (the skinny kernel), FIR, conv2d, fft2d, star-stencil
+and MTTKRP kernels against their plain versions on the card.
 
 Every test here is ``gpu``-marked and skips without a CUDA card.  The file
 imports only the port (no JAX), so it runs on a machine with a card and
@@ -10,17 +10,19 @@ PyTorch alone:
 Integers are bit-exact (int32 wraparound); float32 within the registry's
 atol 1e-3 (FIR, conv2d, the stencils: sums of at most 20 products in
 another order; MTTKRP here: sums of at most 35 products of three N(0, 1)
-draws) and 1.0 (the fft2d composition: sums of 515 terms of magnitude
-~100).
+draws; the GEMMs: sums of at most 11004 products of N(0, 1) draws,
+whose rounding error is ~1e-4) and 1.0 (the fft2d composition: sums of 515
+terms of magnitude ~100); bf16 results within one bf16 rounding step of
+the output, ``2^-7 |ref|``, plus 1e-3.
 """
 
 import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels import (build, conv2d, fft2d, fir,  # noqa: E402
-                                 jacobi2d, mttkrp, planned, ref, registry,
-                                 runtime)
+from repro_torch.kernels import (bmm, build, conv2d, fft2d,  # noqa: E402
+                                 fir, jacobi2d, mttkrp, planned, ref,
+                                 registry, runtime, widesa_mm)
 
 #: whisper-base's frontend shapes and ragged ones, as builder arguments
 SHAPES = {"fir": ((6180, 15), (1000, 7)),
@@ -177,3 +179,109 @@ def test_execute_plan_runs_the_new_kernels_on_the_card(gen):
         assert mod.launches > before
         assert runtime.last_tiles[name].tile == (
             build.MTTKRP_TILE if name == "mttkrp" else build.STENCIL_TILE)
+
+
+#: the skinny GEMM at M = 1, 4, 12 and 16 over (N, K): K split over 8
+#: blocks of a cluster at N = 96 (B above 1 MiB in every dtype; 11004 is
+#: no multiple of 8), and a K below one stage's depth; each with a
+#: row-major and a column-major B.  N and K keep B's rows 4-byte aligned
+#: in every dtype
+SKINNY_ROWS = (1, 4, 12, 16)
+SKINNY_NK = ((96, 11004), (200, 76))
+GEMM_DTYPES = (torch.float32, torch.bfloat16, torch.int8, torch.int16,
+               torch.int32)
+
+
+def _same_gemm(got, want):
+    if want.dtype == torch.bfloat16:
+        torch.testing.assert_close(got.float(), want.float(),
+                                   rtol=2.0 ** -7, atol=1e-3)
+    else:
+        _same(got, want)
+
+
+def _gemm_draw(shape, dtype, gen):
+    """``_draw`` in any GEMM dtype (bf16 rounded from float32 draws)."""
+    return _draw(shape, dtype, gen).to(dtype)
+
+
+def _mm_operands(m, n, k, dtype, col_major, gen, batch=None):
+    lead = () if batch is None else (batch,)
+    a = _gemm_draw((*lead, m, k), dtype, gen)
+    b = (_gemm_draw((*lead, n, k), dtype, gen).transpose(-1, -2)
+         if col_major else _gemm_draw((*lead, k, n), dtype, gen))
+    return a, b
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", GEMM_DTYPES, ids=str)
+def test_skinny_kernel_matches_plain_versions_on_the_card(dtype, gen):
+    """mm at M = 1, 4, 12, 16, both B layouts and ragged K, on the
+    configuration the runtime picks (the skinny kernel every time, K
+    split unevenly over 8 blocks at N = 96)."""
+    before = widesa_mm.variants["skinny"]
+    cases = 0
+    for m in SKINNY_ROWS:
+        for n, k in SKINNY_NK:
+            for col_major in (False, True):
+                a, b = _mm_operands(m, n, k, dtype, col_major, gen)
+                tile = runtime.gemm_tile(a, b, (16, 32, 32))
+                assert isinstance(tile, runtime.SkinnyTile)
+                assert n != 96 or (tile.split == 8 and k % 8 != 0)
+                _same_gemm(widesa_mm.matmul(a, b, tiles=tile), ref.mm(a, b))
+                cases += 1
+    torch.cuda.synchronize()
+    assert widesa_mm.variants["skinny"] - before == cases
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", GEMM_DTYPES, ids=str)
+def test_skinny_bmm_matches_plain_versions_on_the_card(dtype, gen):
+    """bmm on the skinny kernel, with bf16 also flushed to fp32 (the
+    attention scores)."""
+    before = bmm.variants["skinny"]
+    flushes = (None, torch.float32) if dtype == torch.bfloat16 else (None,)
+    for m, n, k in ((1, 128, 64), (12, 64, 300)):
+        for out_dtype in flushes:
+            a, b = _mm_operands(m, n, k, dtype, False, gen, batch=7)
+            tile = runtime.gemm_tile(a, b, (16, 32, 32))
+            assert isinstance(tile, runtime.SkinnyTile)
+            _same_gemm(bmm.bmm(a, b, tiles=tile, out_dtype=out_dtype),
+                       ref.bmm(a, b, out_dtype))
+    torch.cuda.synchronize()
+    assert bmm.variants["skinny"] - before == 2 * len(flushes)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16), ids=str)
+def test_skinny_split_k_is_bitwise_deterministic_on_the_card(dtype, gen):
+    """The cluster adds its partial tiles in a fixed order: two runs of a
+    split-K float product give the same bits."""
+    a, b = _mm_operands(4, 1024, 2816, dtype, False, gen)
+    tile = runtime.gemm_tile(a, b, (4, 32, 32))
+    assert tile.split > 1
+    first = widesa_mm.matmul(a, b, tiles=tile)
+    again = widesa_mm.matmul(a, b, tiles=tile)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+    _same_gemm(first, ref.mm(a, b))
+
+
+@pytest.mark.gpu
+def test_misaligned_operands_run_the_tiled_kernel_on_the_card(gen):
+    """A B one element off its 16-byte boundary (2-byte aligned rows) is
+    not a skinny operand: the runtime gives the tiled tile, and the launch
+    counts as tiled."""
+    a = _gemm_draw((4, 64), torch.bfloat16, gen)
+    b = _gemm_draw((64 * 130 + 1,), torch.bfloat16, gen)[1:].view(64, 130)
+    assert b.dtype == torch.bfloat16 and b.data_ptr() % 4 == 2
+    tile = runtime.gemm_tile(a, b, (4, 32, 32))
+    assert tile == (4, 32, 32)
+    before = dict(widesa_mm.variants)
+    _same_gemm(widesa_mm.matmul(a, b, tiles=tile), ref.mm(a, b))
+    torch.cuda.synchronize()
+    assert widesa_mm.variants["tiled"] == before["tiled"] + 1
+    assert widesa_mm.variants["skinny"] == before["skinny"]
+    with pytest.raises(ValueError, match="4-byte"):
+        widesa_mm.matmul(a, b, tiles=runtime.skinny_tile(
+            4, 130, 64, 1, torch.bfloat16))

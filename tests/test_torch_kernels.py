@@ -8,9 +8,11 @@ Integers are bit-exact; float32 is within the registry's atol; bf16 is
 within one bf16 rounding step of the output (``2^-7·|ref|``) plus the
 float atol, since both sides round fp32 sums taken in different orders.
 
-The plan-tile -> Hopper-tile adapter is checked on every full-width
-serving shape.  The kernels themselves run only on the card
-(``gpu``-marked test, skipped here).
+The runtime's choice of kernel is checked on every full-width serving
+shape: the skinny kernel (at most 16 rows of A) with its K split, the
+tiled kernel's tile beside it (the plan-tile -> tile adapter), and the
+operands that must take the tiled kernel.  The kernels themselves run
+only on the card (``gpu``-marked tests, skipped here).
 """
 
 import dataclasses
@@ -185,13 +187,162 @@ def test_hopper_tiles_column_major_b_takes_the_short_k_slice(block, tile):
 
 
 def test_compiled_tiles_match_the_cuda_source():
-    """build.COMPILED_TILES lists exactly the tiles launch_dtype compiles."""
+    """build.COMPILED_TILES lists exactly the tiles launch_dtype compiles
+    for the tiled kernel, and runtime's SKINNY_* constants are the skinny
+    kernel's kSkinny* ones."""
     src = build.SOURCE.read_text()
     body = src[src.index("int launch_dtype"):src.index("int launch(")]
     body = body[body.index("#else"):]
     pairs = re.findall(r"WIDESA_BK\((\d+), (\d+)\)", body)
     compiled = {(int(m), int(n), k) for m, n in pairs for k in (8, 32)}
     assert compiled == set(build.COMPILED_TILES)
+    consts = dict(re.findall(r"constexpr int kSkinny(\w+) = (\d+);", src))
+    assert {"Rows": runtime.SKINNY_ROWS, "BN": runtime.SKINNY_BN,
+            "RunBytes": runtime.SKINNY_RUN_BYTES,
+            "MaxCluster": runtime.SKINNY_MAX_CLUSTER} == {
+        name: int(consts[name])
+        for name in ("Rows", "BN", "RunBytes", "MaxCluster")}
+
+
+#: every GEMM shape of the two serving paths at full width, as (kind,
+#: shape, B column-major): qwen1.5-0.5b's prefill of a 12-token prompt
+#: and 4-lane decode step; whisper-base's 4-lane decode (the tied lm_head,
+#: cross-attention over the 1500-frame encoder cache) and its 8-frame
+#: encoder chunk (projections, MLP, attention over the cache)
+SERVING = (
+    ("mm", (12, 1024, 1024), False), ("mm", (12, 2816, 1024), False),
+    ("mm", (12, 1024, 2816), False), ("mm", (1, 151936, 1024), True),
+    ("mm", (4, 1024, 1024), False), ("mm", (4, 2816, 1024), False),
+    ("mm", (4, 1024, 2816), False), ("mm", (4, 151936, 1024), True),
+    ("bmm", (64, 1, 128, 64), False), ("bmm", (64, 1, 64, 128), False),
+    ("bmm", (16, 12, 12, 64), False), ("bmm", (16, 12, 64, 12), False),
+    ("mm", (4, 51865, 512), True), ("mm", (4, 512, 512), False),
+    ("bmm", (32, 1, 1500, 64), False), ("bmm", (32, 1, 64, 1500), False),
+    ("mm", (8, 512, 512), False), ("mm", (8, 2048, 512), False),
+    ("mm", (8, 512, 2048), False),
+    ("bmm", (8, 8, 1500, 64), False), ("bmm", (8, 8, 64, 1500), False),
+)
+
+
+def _meta_operands(kind, shape, col_major, dtype=torch.bfloat16):
+    """Operands of a GEMM shape on the meta device (no memory; pointers
+    read 0, so aligned)."""
+    if kind == "mm":
+        (m, n, k), lead = shape, ()
+    else:
+        (z, m, n, k), lead = shape, (shape[0],)
+    a = torch.empty((*lead, m, k), dtype=dtype, device="meta")
+    b = (torch.empty((*lead, n, k), dtype=dtype, device="meta")
+         .transpose(-1, -2) if col_major
+         else torch.empty((*lead, k, n), dtype=dtype, device="meta"))
+    return a, b
+
+
+@pytest.mark.parametrize("kind,shape,col_major", SERVING,
+                         ids=[f"{k}{s}" for k, s, _ in SERVING])
+def test_runtime_picks_the_skinny_kernel_on_serving_shapes(kind, shape,
+                                                           col_major):
+    """Every serving GEMM has at most 16 rows and B rows that allow
+    4-byte copies: the runtime's pick (through the registry, as
+    ``execute_plan`` asks) is the skinny kernel, a launch it takes."""
+    a, b = _meta_operands(kind, shape, col_major)
+    plan = best_plan(registry.get(kind).builder(*shape, "bfloat16"),
+                     PLANNED_TARGET)
+    tiles = registry.get(kind).tiles(plan, a, b)
+    assert isinstance(tiles.tile, runtime.SkinnyTile)
+    assert tiles.plan == runtime.hopper_tiles(plan).plan
+    runtime.check_skinny(tiles.tile, a.shape[-2], a.shape[-1], a.dtype)
+    assert runtime.b_copy_bytes(b) >= 4
+
+
+DECODE = [c for c in SERVING if c[1][-3] <= 4]
+
+
+@pytest.mark.parametrize("kind,shape,col_major", DECODE,
+                         ids=[f"{k}{s}" for k, s, _ in DECODE])
+def test_decode_shapes_above_one_mib_fill_the_card(kind, shape, col_major):
+    """A decode GEMM whose B exceeds 1 MiB launches a block for every one
+    of the card's 132 SMs (K split over a cluster where the column tiles
+    alone are too few)."""
+    a, b = _meta_operands(kind, shape, col_major)
+    tile = runtime.gemm_tile(a, b, (4, 32, 32))
+    n, batch = b.shape[-1], (a.shape[0] if kind == "bmm" else 1)
+    if b.numel() * b.element_size() > 2**20:
+        assert tile.blocks(n, batch) >= runtime.SMS
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int8, torch.int16, torch.int32],
+                         ids=str)
+def test_skinny_splits_stay_in_one_portable_cluster(dtype):
+    """Over M = 1..16 and a spread of N and K: the split is 1..8 (the
+    portable cluster size the source launches), every block of a cluster
+    gets a non-empty K range of whole stages, and A's stage fits."""
+    bk = runtime.skinny_bk(dtype)
+    for m in range(1, 17):
+        for n in (1, 31, 96, 1024, 151936):
+            for k in (1, 7, 64, 77, 1000, 1004, 2816, 20000):
+                tile = runtime.skinny_tile(m, n, k, 1, dtype)
+                if tile is None:
+                    assert m * -(-k // 8) * dtype.itemsize > \
+                        runtime.SKINNY_A_BYTES
+                    continue
+                assert 1 <= tile.split <= runtime.SKINNY_MAX_CLUSTER
+                assert tile.kblk % bk == 0
+                assert (tile.split - 1) * tile.kblk < k <= \
+                    tile.split * tile.kblk
+                runtime.check_skinny(tile, m, k, dtype)
+    assert runtime.skinny_tile(17, 1024, 1024, 1, dtype) is None
+
+
+def test_misaligned_or_odd_operands_take_the_tiled_kernel():
+    """B rows the skinny kernel cannot copy 4 bytes at a time (a storage
+    offset of one 2-byte element, an odd row of bf16, an int8 row of 130)
+    and A of more than 16 rows take the tiled tile; rows aligned to 8
+    bytes (whisper's 1500-key score rows) and a single column stay on the
+    skinny kernel."""
+    tiled = (4, 32, 32)
+    a = torch.zeros((4, 64), dtype=torch.bfloat16)
+    flat = torch.zeros(64 * 130 + 8, dtype=torch.bfloat16)
+    offset = flat[1:1 + 64 * 130].view(64, 130)
+    assert runtime.gemm_tile(a, flat[:64 * 130].view(64, 130), tiled) != \
+        tiled
+    assert runtime.gemm_tile(a, offset, tiled) == tiled
+    assert runtime.gemm_tile(
+        a, torch.zeros((64, 131), dtype=torch.bfloat16), tiled) == tiled
+    odd_k = torch.zeros((96, 63), dtype=torch.bfloat16).t()
+    assert runtime.gemm_tile(torch.zeros((4, 63), dtype=torch.bfloat16),
+                             odd_k, tiled) == tiled
+    assert runtime.gemm_tile(
+        torch.zeros((4, 64), dtype=torch.int8),
+        torch.zeros((64, 130), dtype=torch.int8), tiled) == tiled
+    assert runtime.gemm_tile(
+        torch.zeros((17, 64), dtype=torch.bfloat16),
+        torch.zeros((64, 128), dtype=torch.bfloat16), tiled) == tiled
+    scores = torch.zeros((64, 1500), dtype=torch.bfloat16)
+    assert runtime.b_copy_bytes(scores) == 8
+    assert isinstance(runtime.gemm_tile(a, scores, tiled),
+                      runtime.SkinnyTile)
+    # a single column of keys (one-token scores) is read column-major: its
+    # 64 elements lie in one 128-byte run
+    column = torch.zeros((64, 1), dtype=torch.bfloat16)
+    assert runtime.b_col_major(column) == 1
+    assert runtime.b_copy_bytes(column) == 16
+    assert isinstance(runtime.gemm_tile(a, column, tiled),
+                      runtime.SkinnyTile)
+
+
+def test_check_skinny_refuses_launches_the_kernel_cannot_take():
+    good = runtime.skinny_tile(4, 1024, 1000, 1, torch.bfloat16)
+    runtime.check_skinny(good, 4, 1000, torch.bfloat16)
+    for tile, m, k in (
+            (good, 17, 1000),                               # too many rows
+            (runtime.SkinnyTile(9, 128), 4, 1100),          # cluster of 9
+            (runtime.SkinnyTile(2, 100), 4, 200),           # partial stage
+            (runtime.SkinnyTile(8, 128), 4, 500),           # empty ranks
+            (runtime.SkinnyTile(1, 512), 4, 1000)):         # K left over
+        with pytest.raises(ValueError, match="skinny"):
+            runtime.check_skinny(tile, m, k, torch.bfloat16)
 
 
 def test_xla_stamp_runs_the_plain_version():
@@ -210,15 +361,22 @@ def test_wrappers_raise_off_the_cpu_instead_of_falling_back():
         widesa_mm.matmul(a, b, tiles=(4, 32, 8))
     with pytest.raises(ValueError, match="CUDA"):
         bmm.bmm(a[None], b[None], tiles=(4, 32, 8))
+    with pytest.raises(ValueError, match="CUDA"):
+        widesa_mm.matmul(a, b, tiles=runtime.gemm_tile(a, b, (4, 32, 8)))
 
 
 def test_cpu_wrappers_run_the_plain_version_and_count_no_launch():
-    before = (widesa_mm.launches, bmm.launches)
+    before = (widesa_mm.launches, bmm.launches, dict(widesa_mm.variants),
+              dict(bmm.variants))
     a, b = torch.randn(3, 5, 7), torch.randn(3, 7, 2)
     torch.testing.assert_close(bmm.bmm(a, b, tiles=(4, 32, 8)), a @ b)
     torch.testing.assert_close(
         widesa_mm.matmul(a[0], b[0], tiles=(4, 32, 8)), a[0] @ b[0])
-    assert (widesa_mm.launches, bmm.launches) == before
+    skinny = runtime.gemm_tile(a[0], b[0], (4, 32, 8))
+    torch.testing.assert_close(
+        widesa_mm.matmul(a[0], b[0], tiles=skinny), a[0] @ b[0])
+    assert (widesa_mm.launches, bmm.launches, widesa_mm.variants,
+            bmm.variants) == before
 
 
 @pytest.mark.gpu
