@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --tile-sweep [--out sweep.json]
+    python3 chip_smoke.py --mttkrp-sweep [--out sweep.json]
 
 Needs one CUDA card and the CUDA toolkit.  It imports only the port, never
 JAX nor the JAX package, and runs seven phases, each printing its own
@@ -69,15 +70,20 @@ line(s); any failure exits non-zero:
    registered recurrence planned on one chip and run through
    ``lower_plan(plan, "pallas")`` against its plain version, the stencils
    and mttkrp at their paper-scale bench sizes in every parity dtype.
-   Checks that the star-stencil (B6) and MTTKRP (B7) kernels launched.
-   Then holds B6 (5-point, 9-point, and the multi-sweep form on its
-   int32 state) and B7 against their plain versions at the bench sizes
-   and at ragged ones, in float32, int8, int16 and int32, checks that
-   the float32 bound rejects a TF32 control (the plain MTTKRP with TF32
-   GEMMs on), and times them beside their plain versions, one
-   PyTorch call (``F.conv2d`` with the star as a zero-padded filter,
-   ``torch.einsum``; yardsticks only) and their bounds, with
-   ``torch.profiler`` device time;
+   Checks that the star-stencil (B6) and MTTKRP (B7) kernels launched,
+   every mttkrp case on the kernel its dtype and shape call for (float32
+   and int8 on the tensor cores, int16 on the CUDA cores) with each launch
+   counted under it.  Then holds B6 (5-point, 9-point, and the multi-sweep
+   form on its int32 state) and B7 against their plain versions at the
+   bench sizes and at ragged ones, in float32, int8, int16 and int32, on
+   the kernel the runtime routes each to, checks that the float32 bound
+   rejects a TF32 control (the plain MTTKRP with TF32 GEMMs on), and
+   times them beside their plain versions, one PyTorch call
+   (``F.conv2d`` with the star as a zero-padded filter, ``torch.einsum``;
+   yardsticks only) and their bounds, with ``torch.profiler`` device
+   time; the tensor-core MTTKRP rows also time the CUDA-core kernel on
+   the same operands and give the bound at the tensor-core rate beside
+   the fp32 CUDA-core one;
 7. summary — a JSON line of the kernels, the ``nvidia-smi`` name and
    power limit, and the result line.
 
@@ -86,7 +92,9 @@ and before the recurrence pipeline, and read just after; the kernels
 line gives each path's counts apart (``"launches": {"qwen": n,
 "whisper_stream": m, "recurrences": k}``), and for the two GEMM wrappers
 the same launches by kernel (``"launches_by_kernel"``: skinny / tiled)
-beside their device times and host time a call.  The comparison and
+beside their device times and host time a call, and for mttkrp its
+launches by kernel (tensor_core / cuda_core) beside the device times of
+both kernels.  The comparison and
 timing launches of phases 3 and 6 and of ``drain_parity`` do not count.
 
 ``--tile-sweep`` runs only the device and build phases, then times the
@@ -95,7 +103,11 @@ second library holds those not compiled for the main path) and the
 skinny GEMM with every split of K, at every main-path shape, and prints,
 per shape, the tile ``runtime.hopper_tiles`` picks, the skinny
 configuration ``runtime.gemm_tile`` picks and the fastest of each
-(``--out`` writes all times as JSON).
+(``--out`` writes all times as JSON).  ``--mttkrp-sweep`` builds only the
+HPC source, then holds the tensor-core MTTKRP at the bench size in
+float32 and int8 with every split of K (1 to 8) to the plain version and
+prints each split's device time beside the CUDA-core kernel's and
+``torch.einsum``'s.
 
 Tolerances: integer results are bit-exact (wrapping int32, as XLA);
 float32 results within the kernel registry's atol 1e-3 (1.0 for the
@@ -127,12 +139,14 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 #: peak rates of one H100 SXM (NVIDIA data sheet, dense): HBM bytes/s
-#: and bf16 / fp32 operations per second.  FIR and conv2d run on the CUDA
-#: cores in every dtype, and the data sheet gives no integer rate for
-#: them, so their operations count at the fp32 rate (a bound that is low
-#: for integers; the bytes bound them at every shape timed here anyway)
+#: and bf16 / fp32 (CUDA cores) / TF32 and int8 (tensor cores) operations
+#: per second.  FIR and conv2d run on the CUDA cores in every dtype, and
+#: the data sheet gives no integer rate for them, so their operations
+#: count at the fp32 rate (a bound that is low for integers; the bytes
+#: bound them at every shape timed here anyway)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
+PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12,
+                  "tfloat32": 495e12}
 
 #: prefill logits of the bf16 models (24 layers of qwen, 6+6 of whisper),
 #: hand kernels vs the plain versions: every GEMM output rounds to bf16
@@ -1262,7 +1276,27 @@ HPC_RAGGED = {"jacobi2d": (61, 59), "jacobi2d_9pt": (61, 59),
 #: the shapes and dtypes timed, the first of each kernel its kernels-line row
 HPC_TIMED = (("jacobi2d", "float32"), ("jacobi2d", "int8"),
              ("jacobi2d_9pt", "float32"), ("jacobi2d_ms", "float32"),
-             ("mttkrp", "float32"), ("mttkrp", "int8"))
+             ("mttkrp", "float32"), ("mttkrp", "int8"), ("mttkrp", "int16"))
+#: the profiler's name of each MTTKRP kernel (``mttkrp.variants`` keys)
+MTTKRP_KERNELS = {"tensor_core": "mttkrp_tc_kernel",
+                  "cuda_core": "mttkrp_kernel"}
+
+
+def mttkrp_variant(tile) -> str:
+    """The MTTKRP kernel a tile launches (a key of ``mttkrp.variants``)."""
+    from repro_torch.kernels import runtime
+
+    return "tensor_core" if isinstance(tile, runtime.MttkrpTile) \
+        else "cuda_core"
+
+
+def mttkrp_expected(args, dtype) -> str:
+    """The kernel MTTKRP must run on at ``args`` in ``dtype``: the tensor
+    cores for float32, and for int8 whose rows of X and B allow 4-byte
+    copies."""
+    nj, nl = args[1], args[3]
+    return "tensor_core" if dtype == "float32" or (
+        dtype == "int8" and nj % 4 == 0 and nl % 4 == 0) else "cuda_core"
 
 
 def hpc_call(name, args, dtype):
@@ -1287,18 +1321,22 @@ def hpc_parity(torch) -> None:
     from repro_torch.launch import recurrences
 
     gen = torch.Generator(device="cuda").manual_seed(7)
-    n, worst = 0, {}
+    n, worst, routes = 0, {}, {}
     for name in HPC_BENCH:
-        compiled = build.MTTKRP_TILE if name == "mttkrp" \
-            else build.STENCIL_TILE
         for args in (HPC_RAGGED[name], HPC_BENCH[name]):
             for dtype in ("float32", "int8", "int16", "int32"):
                 fn, spec, rec, plan = hpc_call(name, args, dtype)
                 ops = registry.operands(rec, gen, "cuda")
                 tile = spec.tiles(plan, *ops).tile
-                if tile != compiled:
+                if name == "mttkrp":
+                    kernel = mttkrp_variant(tile)
+                    if kernel != mttkrp_expected(args, dtype):
+                        fail(f"mttkrp{args} {dtype}: routed to {kernel} "
+                             f"({tile})")
+                    routes[(args, dtype)] = kernel
+                elif tile != build.STENCIL_TILE:
                     fail(f"{name}{args}: tile {tile} is not the compiled "
-                         f"{compiled}")
+                         f"{build.STENCIL_TILE}")
                 want = spec.ref(*ops)
                 out = fn(*ops, tiles=tile)
                 torch.cuda.synchronize()
@@ -1312,9 +1350,12 @@ def hpc_parity(torch) -> None:
                 del ops, want, out
                 torch.cuda.empty_cache()
     floats = {k[0]: f"{v:.4g}" for k, v in worst.items() if k[1] == "float32"}
+    routed = {f"{args} {dtype}": kernel
+              for (args, dtype), kernel in routes.items()}
     print(f"recurrences: B6/B7 parity ok in {n} cases (4 specs x bench and "
           f"ragged sizes x 4 dtypes; integers bit-exact; float32 max |err| "
-          f"{floats} within recurrences.float_bound)", flush=True)
+          f"{floats} within recurrences.float_bound); mttkrp kernels "
+          f"{routed}", flush=True)
     tf32_control(torch, gen)
 
 
@@ -1346,19 +1387,21 @@ def tf32_control(torch, gen) -> None:
     torch.cuda.empty_cache()
 
 
-def hpc_bound_ms(name, rec, in_bytes, out_bytes, rate="float32"):
+def hpc_bound_ms(name, rec, in_bytes, out_bytes, rate="float32",
+                 passes=1):
     """Least time for one call (``least_ms``): each operand read once and
     the result written once, or the folded operations at the peak rate
-    of ``rate`` (the fp32 CUDA-core rate unless asked otherwise).  For
-    jacobi2d_ms that is the whole function (grid in, result out, 2 S T
-    operations an output); mttkrp counts 2 I J K L operations (one
-    multiply-add per (i, j, k, l) once B C is folded), not the IR's
-    ops_per_point = 3."""
+    of ``rate`` (the fp32 CUDA-core rate unless asked otherwise), each
+    done ``passes`` times (3 for 3xTF32).  For jacobi2d_ms that is the
+    whole function (grid in, result out, 2 S T operations an output);
+    mttkrp counts 2 I J K L operations (one multiply-add per (i, j, k, l)
+    once B C is folded), not the IR's ops_per_point = 3."""
     e = {loop: rec.extent(loop) for loop in rec.loops}
     if name == "mttkrp":
         moved = (e["i"] * e["k"] * e["l"] + (e["k"] + e["l"]) * e["j"]) \
             * in_bytes + e["i"] * e["j"] * out_bytes
-        return least_ms(moved, 2 * e["i"] * e["j"] * e["k"] * e["l"], rate)
+        ops = 2 * e["i"] * e["j"] * e["k"] * e["l"] * passes
+        return least_ms(moved, ops, rate)
     pad = 4 if name == "jacobi2d_9pt" else 2
     sweeps = e.get("t", 1)
     moved = ((e["i"] + pad) * (e["j"] + pad) + sweeps * e["s"]) * in_bytes \
@@ -1394,8 +1437,11 @@ def hpc_library(torch, name, ops):
 def hpc_timings(torch) -> dict:
     """B6 and B7 at the bench sizes (``HPC_TIMED``): kernel (CUDA events
     and ``torch.profiler`` device time), plain version, library call and
-    bound (for int8 mttkrp also at the int8 tensor-core rate)."""
-    from repro_torch.kernels import registry
+    bound.  MTTKRP rows on the tensor cores also give the CUDA-core
+    kernel's device time on the same operands, and their bound at the
+    tensor-core rate (3xTF32: three TF32 products a product) beside the
+    fp32 CUDA-core one."""
+    from repro_torch.kernels import build, registry
 
     gen = torch.Generator(device="cuda").manual_seed(8)
     rows = {}
@@ -1408,7 +1454,8 @@ def hpc_timings(torch) -> dict:
         want = spec.ref(*ops)
         err = (out.double() - want.double()).abs().max().item()
         lib = hpc_library(torch, name, ops)
-        kname = "mttkrp_kernel" if name == "mttkrp" else "star_kernel"
+        kname = MTTKRP_KERNELS[mttkrp_variant(tiles.tile)] \
+            if name == "mttkrp" else "star_kernel"
         per_call = rec.extent("t") if name == "jacobi2d_ms" else 1
         row = dict(
             tiles=tiles, max_abs_err=err,
@@ -1422,8 +1469,27 @@ def hpc_timings(torch) -> dict:
         )
         row["bound_ms"], row["bound_by"] = hpc_bound_ms(
             name, rec, ops[0].element_size(), out.element_size())
-        rows[(name, dtype)] = row
+        rate = ", fp32 CUDA-core rate" \
+            if row["bound_by"] == "operations" else ""
         extra = ""
+        if name == "mttkrp" and mttkrp_variant(tiles.tile) == "tensor_core":
+            row["cuda_core_device_ms"] = device_ms(
+                torch, lambda: fn(*ops, tiles=build.MTTKRP_TILE),
+                MTTKRP_KERNELS["cuda_core"], reps)
+            tc_rate, passes = ("tfloat32", 3) if dtype == "float32" \
+                else ("int8", 1)
+            tc_ms, tc_by = hpc_bound_ms(
+                name, rec, ops[0].element_size(), out.element_size(),
+                rate=tc_rate, passes=passes)
+            # the kernels line's bound: the tensor-core rate its work runs at
+            row["cuda_core_bound_ms"] = row["bound_ms"]
+            row["bound_ms"], row["bound_by"] = tc_ms, tc_by
+            rate = (f", {'3xTF32' if passes == 3 else 'int8'} tensor-core "
+                    f"rate" if tc_by == "operations" else "")
+            extra = (f"; fp32 CUDA-core bound "
+                     f"{row['cuda_core_bound_ms']:.4f} ms; CUDA-core kernel "
+                     f"device time {fmt_ms(row['cuda_core_device_ms'])}")
+        rows[(name, dtype)] = row
         if name == "jacobi2d_ms":
             sweeps = rec.extent("t")
             floor = sweeps * hpc_bound_ms(
@@ -1431,11 +1497,6 @@ def hpc_timings(torch) -> dict:
                     rec.extent("i"), rec.extent("j"), dtype), 4, 4)[0]
             extra = (f"; {sweeps} launches a call, floor of {sweeps} "
                      f"separate passes {floor:.4f} ms")
-        if name == "mttkrp" and dtype == "int8":
-            tc_ms, tc_by = hpc_bound_ms(name, rec, 1, 4, rate="int8")
-            extra = f"; int8 tensor-core bound {tc_ms:.4f} ms ({tc_by})"
-        rate = ", fp32 CUDA-core rate" \
-            if row["bound_by"] == "operations" else ""
         library = ("none (no one call)" if lib is None else
                    f"{row['library_ms']:.4f} ms (device "
                    f"{fmt_ms(row['library_device_ms'])})")
@@ -1446,6 +1507,48 @@ def hpc_timings(torch) -> dict:
               f"{row['bound_ms']:.4f} ms ({row['bound_by']}{rate}){extra}; "
               f"max |err| {err:.4g}", flush=True)
         del ops, out, want, lib
+        torch.cuda.empty_cache()
+    return rows
+
+
+def mttkrp_sweep(torch) -> list[dict]:
+    """The tensor-core MTTKRP at the bench size in float32 and int8 with
+    every split of K over a cluster (1 to 8), each held to the plain
+    version, beside the CUDA-core kernel and ``torch.einsum`` (profiler
+    device time)."""
+    from repro_torch.kernels import build, mttkrp, registry, runtime
+    from repro_torch.launch import recurrences
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    args = HPC_BENCH["mttkrp"]
+    rows = []
+    for dtype in ("float32", "int8"):
+        _, spec, rec, plan = hpc_call("mttkrp", args, dtype)
+        ops = registry.operands(rec, gen, "cuda")
+        want = spec.ref(*ops)
+        picked = spec.tiles(plan, *ops).tile
+        splits = {}
+        for split in range(1, runtime.MTTKRP_TC_MAX_CLUSTER + 1):
+            tile = runtime.MttkrpTile(split=split, copy=picked.copy)
+            err, ok = recurrences.compare(
+                spec, rec, ops, mttkrp.mttkrp(*ops, tiles=tile), want)
+            if not ok:
+                fail(f"mttkrp{args} {dtype} split {split}: max |err| {err}")
+            splits[split] = device_ms(
+                torch, lambda t=tile: mttkrp.mttkrp(*ops, tiles=t),
+                MTTKRP_KERNELS["tensor_core"], 5)
+        cuda_core = device_ms(
+            torch, lambda: mttkrp.mttkrp(*ops, tiles=build.MTTKRP_TILE),
+            MTTKRP_KERNELS["cuda_core"], 3)
+        library = device_ms(torch, hpc_library(torch, "mttkrp", ops), None, 3)
+        rows.append(dict(dtype=dtype, picked=str(picked), splits=splits,
+                         cuda_core=cuda_core, library=library))
+        print(f"sweep mttkrp{args} {dtype}: picked {picked}; tensor-core "
+              f"device ms by split "
+              f"{({k: round(v, 4) if v else v for k, v in splits.items()})}; "
+              f"CUDA-core kernel {fmt_ms(cuda_core)}; torch.einsum "
+              f"{fmt_ms(library)}", flush=True)
+        del ops, want
         torch.cuda.empty_cache()
     return rows
 
@@ -1465,13 +1568,37 @@ def recurrences_phase(torch) -> tuple[dict, dict, dict]:
     variants = read_variants()
     if min(launches.values()) == 0:
         fail(f"a kernel was not launched on the recurrence path: {launches}")
+    # every mttkrp case on the kernel its dtype and shape call for, and
+    # each of its launches counted under that kernel
+    cases = {}
+    for row in rows:
+        if row["name"] != "mttkrp":
+            continue
+        kernel = mttkrp_variant(row["tiles"].tile)
+        if kernel != mttkrp_expected(row["args"], row["dtype"]):
+            fail(f"recurrences: mttkrp {row['dtype']} ran on {kernel}")
+        cases[row["dtype"]] = kernel
+    by_kernel = variants["mttkrp"]
+    if sum(by_kernel.values()) != launches["mttkrp"] or any(
+            by_kernel[k] == 0 for k in set(cases.values())):
+        fail(f"recurrences: mttkrp launches {launches['mttkrp']} by kernel "
+             f"{by_kernel} do not match its cases {cases}")
     print(f"recurrences: {len(rows)} cases through lower_plan(plan, "
           f"'pallas') within tolerance in {dt:.1f} s; launches {launches}; "
-          f"GEMM launches by kernel {variants} (the skinny kernel for at "
-          f"most 16 rows of A, the tiled one above)", flush=True)
+          f"launches by kernel {variants} (GEMMs: the skinny kernel for at "
+          f"most 16 rows of A, the tiled one above; mttkrp cases {cases})",
+          flush=True)
     torch.cuda.empty_cache()
     hpc_parity(torch)
-    return launches, variants, hpc_timings(torch)
+    hpc_rows = hpc_timings(torch)
+    faster = {dtype: hpc_rows[("mttkrp", dtype)]["device_ms"]
+              < hpc_rows[("mttkrp", dtype)]["library_device_ms"]
+              for dtype in ("float32", "int8")
+              if None not in (hpc_rows[("mttkrp", dtype)]["device_ms"],
+                              hpc_rows[("mttkrp", dtype)]["library_device_ms"])}
+    print(f"recurrences: mttkrp device time below torch.einsum's: {faster}",
+          flush=True)
+    return launches, variants, hpc_rows
 
 
 # ---------------------------------------------------------------------------
@@ -1487,8 +1614,11 @@ def main(argv=None) -> int:
     ap.add_argument("--tile-sweep", action="store_true",
                     help="only time every sweep tile at the main-path "
                          "shapes")
-    ap.add_argument("--out", help="with --tile-sweep: write the times here "
-                                  "as JSON")
+    ap.add_argument("--mttkrp-sweep", action="store_true",
+                    help="only time the tensor-core MTTKRP with every split "
+                         "of K at the bench size")
+    ap.add_argument("--out", help="with --tile-sweep or --mttkrp-sweep: "
+                                  "write the times here as JSON")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -1507,7 +1637,8 @@ def main(argv=None) -> int:
           f"torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
 
     t0 = time.perf_counter()
-    paths = build.build()
+    paths = build.build(("widesa_hpc",) if args.mttkrp_sweep
+                        else tuple(build.SOURCES))
     for lib in paths:
         build.library(lib)
     regs = [int(r) for r in re.findall(r"Used (\d+) registers",
@@ -1519,6 +1650,11 @@ def main(argv=None) -> int:
           f"kernels, at most {max(regs, default=0)} registers a thread, "
           f"{sum(int(x) for x in spills)} bytes of spill stores)", flush=True)
 
+    if args.mttkrp_sweep:
+        rows = mttkrp_sweep(torch)
+        if args.out:
+            Path(args.out).write_text(json.dumps(rows, indent=1))
+        return 0
     if args.tile_sweep:
         t0 = time.perf_counter()
         build.library("widesa_mm", sweep=True)
@@ -1566,15 +1702,19 @@ def main(argv=None) -> int:
             "library_ms": row["library_ms"],
         }
         if kname in variants:
-            # the GEMMs: launches by kernel per path, device times (the
-            # tiled kernel's beside), host time of a wrapper call
+            # launches by kernel per path, and device times: the GEMMs'
+            # (the tiled kernel's beside) with the host time of a wrapper
+            # call, mttkrp's (the CUDA-core kernel's beside)
             entry["launches_by_kernel"] = {
                 "qwen": variants[kname],
                 "whisper_stream": stream_variants[kname],
                 "recurrences": rec_variants[kname]}
-            entry.update({key: row[key] for key in (
-                "device_ms", "tiled_device_ms", "library_device_ms",
-                "host_us", "facade_us")})
+            keys = (("device_ms", "cuda_core_device_ms",
+                     "library_device_ms", "cuda_core_bound_ms")
+                    if kname == "mttkrp" else
+                    ("device_ms", "tiled_device_ms", "library_device_ms",
+                     "host_us", "facade_us"))
+            entry.update({key: row[key] for key in keys})
         summary.append(entry)
     print(json.dumps({"kernels": summary}))
     print(smi)

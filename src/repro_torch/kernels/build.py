@@ -3,7 +3,7 @@
 The sources live in ``csrc/``: ``widesa_mm.cu`` (the mm/bmm GEMMs:
 the skinny kernel and the tiled one),
 ``widesa_sp.cu`` (the FIR and conv2d signal-processing kernels) and
-``widesa_hpc.cu`` (the star stencil and MTTKRP kernels).  Each
+``widesa_hpc.cu`` (the star stencil and the two MTTKRP kernels).  Each
 source is its own shared library; the first call on a machine compiles
 every source that is not built yet with ``nvcc`` for Hopper (``sm_90a``),
 one ``nvcc`` process per source, all started together, into
@@ -101,9 +101,10 @@ SP_DTYPES = HPC_DTYPES = frozenset({
 
 #: the compiled star-stencil output tile (``BH``, ``BW``: 256 threads as 8
 #: rows x 32 columns, each 4 rows of 4 columns), for star radii 1 and 2,
-#: and the MTTKRP output tile (``BI``, ``BJ``: 256 threads as 16 x 16, each
-#: 4 rows of 4 columns); kept equal to ``launch_star`` and
-#: ``launch_mttkrp`` in csrc/widesa_hpc.cu
+#: and the CUDA-core MTTKRP kernel's output tile (``BI``, ``BJ``: 256
+#: threads as 16 x 16, each 4 rows of 4 columns); kept equal to
+#: ``launch_star`` and ``launch_mttkrp`` in csrc/widesa_hpc.cu.  The
+#: tensor-core MTTKRP kernel's geometry is ``runtime.MTTKRP_TC_*``.
 STENCIL_TILE = (32, 128)
 STENCIL_RADII = (1, 2)
 MTTKRP_TILE = (64, 64)
@@ -129,6 +130,9 @@ _ENTRIES = {
                            + [ctypes.c_int] * 4 + [ctypes.c_void_p]),
     "widesa_mttkrp_launch": ("widesa_hpc", [ctypes.c_void_p] * 4
                              + [ctypes.c_int] * 8 + [ctypes.c_void_p]),
+    # the tensor-core MTTKRP: shape, dtypes, split, X's copy width
+    "widesa_mttkrp_tc_launch": ("widesa_hpc", [ctypes.c_void_p] * 4
+                                + [ctypes.c_int] * 8 + [ctypes.c_void_p]),
 }
 
 _LIBS: dict[tuple[str, bool], ctypes.CDLL] = {}

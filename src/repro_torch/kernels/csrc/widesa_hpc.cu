@@ -1,17 +1,24 @@
 // Hand-written Hopper (sm_90a) kernels for the WideSA HPC recurrences: the
 // weighted star stencils (jacobi2d, jacobi2d_9pt and each sweep of
-// jacobi2d_ms) and MTTKRP.
+// jacobi2d_ms) and MTTKRP, the latter as two kernels: mttkrp_tc_kernel on
+// the tensor cores (float32 as 3xTF32, int8) and mttkrp_kernel on the CUDA
+// cores (int16, int32, and int8 rows that allow no 4-byte copies).
 //
 // Arithmetic, as in csrc/widesa_mm.cu and csrc/widesa_sp.cu.  Float32
-// inputs accumulate in fp32 (fused multiply-add).  Integer inputs (int8,
-// int16, int32) sign-extend to 32 bits and accumulate in *unsigned* 32-bit
-// arithmetic, so products and sums wrap modulo 2^32 with defined behaviour:
-// arithmetic modulo 2^32 is a ring, so any order of summation is bit-exact
-// with XLA's int32 einsum.  Integer inputs give int32 output, float32 gives
-// float32 (repro_torch/kernels/runtime.py: out_dtype).
+// inputs accumulate in fp32 (fused multiply-add on the CUDA cores; three
+// TF32 products a product, fp32 accumulation, on the tensor cores).  Integer
+// inputs (int8, int16, int32) sign-extend to 32 bits and accumulate in
+// *unsigned* 32-bit arithmetic, so products and sums wrap modulo 2^32 with
+// defined behaviour: arithmetic modulo 2^32 is a ring, so any order of
+// summation is bit-exact with XLA's int32 einsum (the int8 tensor-core
+// products are exact in s32).  Integer inputs give int32 output, float32
+// gives float32 (repro_torch/kernels/runtime.py: out_dtype).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -301,6 +308,496 @@ int launch_mttkrp(int bi, int bj, const void* x, const void* b, const void* c, v
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// MTTKRP on the tensor cores: M[i, j] = sum_{k, l} X[i, k, l] * B[k, j] *
+// C[l, j] for float32 (3xTF32) and int8 operands (mttkrp_tc_kernel).
+//
+// Replaces src/repro/kernels/mttkrp.py mttkrp_kernel (pallas_call at :94)
+// for float32 and int8 operands; int16, int32 and int8 rows of X that are
+// not 4-byte aligned (L % 4 != 0) keep mttkrp_kernel above.
+// repro_torch/kernels/runtime.py (mttkrp_tile) picks the kernel from the
+// dtype and the shape before the launch.
+//
+// What bounds it on an H100: operations.  2 I J K L of them (2.147e11 at
+// 4096 x 400 x 256 x 256) against X's I K L elements read once (1.07 GB in
+// float32, 0.32 ms at 3.35 TB/s; 0.27 GB in int8, 0.08 ms).  In float32 each
+// product is three TF32 products on the tensor cores (3 x 2.147e11 at 495
+// TFLOP/s: 1.30 ms; IEEE FMA on the CUDA cores would take 3.2 ms at the
+// least), in int8 one int8 product (0.11 ms at 1979 TOP/s).
+//
+// The design.
+//   * The two-step form, fused.  For each k the block computes T_k =
+//     X[i-tile, k, :] @ C[:, j-tile] on the tensor cores, then adds B[k, j]
+//     T_k[i, j] to its accumulators in registers, each column scaled by its
+//     B value.  X's rows along l are contiguous, so X is a row-major A
+//     operand; C's tile is the same for every k, so the block stages it once
+//     and keeps it in shared memory for its lifetime.  No Khatri-Rao operand
+//     is built; nothing but M is written to device memory.
+//   * wgmma.  Each warpgroup (4 warps) owns 64 rows of the tile and runs
+//     wgmma.m64n80: A (X) from registers, loaded from the ring by the warps
+//     themselves, B (C's tile) from shared memory, where the block stores it
+//     transposed as the K-major core matrices (8 columns x 16 bytes of l)
+//     that a descriptor without swizzle names.
+//   * Arithmetic.  int8 runs m64n80k32 s8 x s8 -> s32, exact: |T_k| <= L 2^14
+//     < 2^31 (the launcher keeps L < 2^17); the scale-and-add wraps in
+//     unsigned 32-bit arithmetic, so M is bit-exact with the int32 reference
+//     at every shape.  float32 runs m64n80k8 on TF32 operands with fp32
+//     accumulation as hi*hi + hi*lo + lo*hi, the small terms first: each
+//     operand x is split as hi = rna_tf32(x) (tf32_rna below, the rounding
+//     of cvt.rna.tf32.f32 in two integer operations) and lo = x - hi, exact
+//     in fp32, which the tensor cores read truncated to TF32; a product keeps
+//     about 2^-21 |x c| of error.  C's tile is held as hi and lo, X is split
+//     in registers.
+//   * X streams through a 3-stage ring of cp.async copies: a stage holds
+//     128 bytes of l (32 float32 or 128 int8 values) of each of the tile's
+//     128 rows at one k, copied 16 bytes at a time where X's rows allow it
+//     (4 otherwise), neighbouring threads on neighbouring runs, with zero
+//     fill past I and past L.  A product consumes 32 bytes of l; the A
+//     fragments' k slots are permuted so that a thread's two values of a
+//     row are adjacent (one 8-byte shared load, rows padded by 32 bytes
+//     against bank conflicts), and C's tile is stored in the same order.
+//     Each product's A registers stay untouched until its wgmma group has
+//     completed: two register sets alternate, one group in flight.  B's row
+//     k comes with k's first stage, by cp.async into one of 4 slots, so the
+//     scale at k's end waits on no load (in int8 a k is only 2 stages).
+//   * Tile and grid.  A block of 2 warpgroups owns a 128 x 80 output tile;
+//     BJ = 80 divides J = 400, and the 5 column tiles of a row tile are
+//     consecutive blocks, which share X through L2.  One block fills an SM
+//     (C's tile is 160 KB of shared memory in float32, T_k and the
+//     accumulators 80 registers a thread), so the 160 tiles at 4096 x 400
+//     would be 1.2 waves of 132: K is split over the blocks of a
+//     thread-block cluster (8 there; runtime.mttkrp_split), and the cluster
+//     adds its partial tiles through distributed shared memory in rank
+//     order, so the bits repeat from run to run.
+//
+// What holds it back on an H100 (chip_smoke.py --mttkrp-sweep; PERF.md): in
+// float32 the three products a product, and in both dtypes X's five reads
+// through L2, one a column tile.
+// ---------------------------------------------------------------------------
+namespace cg = cooperative_groups;
+
+constexpr int kTcThreads = 256;                       // 2 warpgroups
+constexpr int kTcRows = 128;                          // BI: 64 rows a warpgroup
+constexpr int kTcCols = 80;                           // BJ: the wgmma's N
+constexpr int kTcChunk = 128;                         // bytes of l a ring stage holds
+constexpr int kTcStep = 32;                           // bytes of l one product consumes
+constexpr int kTcPad = 32;                            // bytes padding an X row of a stage
+constexpr int kTcPitch = kTcChunk + kTcPad;           // 160
+constexpr int kTcStages = 3;
+constexpr int kTcStageBytes = kTcRows * kTcPitch;     // 20480
+constexpr int kTcBSlots = 4;                          // rows of B the block holds, k by k
+constexpr int kTcMaxCluster = 8;                      // the portable cluster size
+constexpr int kTcMaxSmem = 232448;
+static_assert(kTcRows * kTcCols * 4 <= kTcStages * kTcStageBytes,
+              "the partial tile reuses the ring");
+
+// Bytes of C's tile in shared memory: 80 columns of L rounded up to whole
+// stages, twice (hi and lo) in float32 (runtime.mttkrp_smem counts the same,
+// with the ring and B's slots).
+__host__ __device__ constexpr long long tc_cbytes(long long row_bytes, bool f32) {
+  return (f32 ? 2 : 1) * kTcCols * ((row_bytes + kTcChunk - 1) / kTcChunk * kTcChunk);
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// One asynchronous copy of BYTES (16 or 4) into shared memory; nothing is
+// read and zeros are written when !valid.
+template <int BYTES>
+__device__ __forceinline__ void cp_async(unsigned dst, const void* src, bool valid) {
+  const int n = valid ? BYTES : 0;
+  if constexpr (BYTES == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(n)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst), "l"(src),
+                 "n"(BYTES), "r"(n)
+                 : "memory");
+  }
+}
+
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ uint2 lds64(const unsigned char* p) {
+  return *reinterpret_cast<const uint2*>(p);
+}
+
+// The TF32 value nearest to the float32 with these bits, ties away from zero
+// (cvt.rna.tf32.f32 for every finite value whose rounding stays finite): add
+// half a unit of TF32's last place to the magnitude, clear the 13 bits below.
+__device__ __forceinline__ uint32_t tf32_rna(uint32_t bits) {
+  return (bits + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo: hi the TF32 value nearest x, lo = x - hi exactly (at most
+// 2^-11 |x|).  A .tf32 operand's low 13 bits are ignored by the tensor
+// cores, so lo enters its product truncated to TF32, within 2^-21 |x|.
+__device__ __forceinline__ void split_tf32(uint32_t x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = __float_as_uint(__uint_as_float(x) - __uint_as_float(hi));
+}
+
+// The descriptor of a K-major shared-memory operand without swizzle: core
+// matrices of 8 rows x 16 bytes, `lbo` bytes apart along K and `sbo` bytes
+// apart along the rows.
+__device__ __forceinline__ uint64_t smem_desc(unsigned addr, unsigned lbo, unsigned sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving reads or writes of registers that a wgmma
+// in flight reads or writes across this point.
+template <typename T, int N>
+__device__ __forceinline__ void fence_regs(T (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    if constexpr (std::is_same<T, float>::value)
+      asm volatile("" : "+f"(r[i])::"memory");
+    else
+      asm volatile("" : "+r"(r[i])::"memory");
+  }
+}
+
+// D (64 x 80, 40 values a thread) += A (64 x 8 TF32, this warp's 16 rows in
+// registers) * B (8 x 80 TF32 at desc), or D = A * B when !accumulate.
+__device__ __forceinline__ void wgmma_tf32(float (&d)[40], const uint32_t (&a)[4], uint64_t desc,
+                                           int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39}, "
+      "{%40, %41, %42, %43}, %44, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
+}
+
+// The same for int8: A 64 x 32, B 32 x 80, s32 sums.
+__device__ __forceinline__ void wgmma_s8(int (&d)[40], const uint32_t (&a)[4], uint64_t desc,
+                                         int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39}, "
+      "{%40, %41, %42, %43}, %44, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
+}
+
+// Grid: (row tiles x column tiles x split), clusters of `split` blocks along
+// x; block x reduces k in [rank * kblk, (rank + 1) * kblk) of tile x / split,
+// the column tiles of a row tile consecutive.  CP is the copy width of X.
+template <typename TIn, typename TOut, int CP>
+__global__ void __launch_bounds__(kTcThreads, 1)
+mttkrp_tc_kernel(const TIn* __restrict__ x, const TIn* __restrict__ b, const TIn* __restrict__ c,
+                 TOut* __restrict__ m, int ni, int nj, int nk, int nl, int split, int kblk) {
+  constexpr bool kF32 = std::is_same<TIn, float>::value;
+  using Acc = typename Elem<TIn>::Acc;                             // float, or uint32_t
+  using Part = typename std::conditional<kF32, float, int>::type;  // T_k's sums
+  constexpr int kSize = (int)sizeof(TIn);
+  constexpr int kSegs = kTcChunk / CP;                             // copies a row of a stage
+  static_assert(kTcRows * kSegs % kTcThreads == 0, "a stage does not split over the block");
+  extern __shared__ __align__(16) unsigned char smem[];
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int rank = blockIdx.x % split;
+  const int tile = blockIdx.x / split;
+  const int ncols = (nj + kTcCols - 1) / kTcCols;
+  const int i0 = tile / ncols * kTcRows;
+  const int j0 = tile % ncols * kTcCols;
+  const int kbeg = rank * kblk;
+  const int kend = min(nk, kbeg + kblk);
+  const int row_bytes = nl * kSize;
+  const int nchunks = (row_bytes + kTcChunk - 1) / kTcChunk;
+  const int nstages = (kend - kbeg) * nchunks;
+  // C's tile: columns j of lbytes bytes of l, as core matrices (8 columns x 16
+  // bytes) running along l, sbo bytes a group of 8 columns; hi, then lo
+  const int lbytes = nchunks * kTcChunk;
+  const int sbo = lbytes * 8;
+  const int cbytes = kTcCols * lbytes;
+
+  unsigned char* ct = smem;
+  unsigned char* ring = smem + (kF32 ? 2 : 1) * cbytes;
+  // B[k, j0 .. j0 + 79], slot (k - kbeg) % kTcBSlots, for the scale at k's end
+  TIn* bs = reinterpret_cast<TIn*>(ring + kTcStages * kTcStageBytes);
+  const unsigned ring_addr = smem_addr(ring);
+  const unsigned char* xb = reinterpret_cast<const unsigned char*>(x);
+
+  // stage s: X[i0 .. i0 + 127, k, chunk bytes] with k = kbeg + s / nchunks;
+  // the first stage of a k also brings B's row k, 4 bytes a copy (the
+  // launcher checks that B's rows are 4-byte aligned)
+  auto load_stage = [&](int s) {
+    const int k = kbeg + s / nchunks;
+    const int off = s % nchunks * kTcChunk;
+    const unsigned slot = ring_addr + s % kTcStages * kTcStageBytes;
+#pragma unroll
+    for (int p = 0; p < kTcRows * kSegs / kTcThreads; ++p) {
+      const int q = tid + p * kTcThreads;
+      const int r = q / kSegs, seg = q % kSegs;
+      const int gi = i0 + r, byte = off + seg * CP;
+      const bool ok = gi < ni && byte < row_bytes;
+      const unsigned char* src = ok ? xb + ((size_t)gi * nk + k) * row_bytes + byte : xb;
+      cp_async<CP>(slot + r * kTcPitch + seg * CP, src, ok);
+    }
+    constexpr int kPer = 4 / kSize;  // B values a copy
+    if (off == 0 && tid < kTcCols / kPer) {
+      const int gj = j0 + tid * kPer;
+      const int n = max(0, min(kPer, nj - gj)) * kSize;  // bytes past J land as zeros
+      const TIn* src = n > 0 ? b + (size_t)k * nj + gj : b;
+      const unsigned dst = smem_addr(bs + (k - kbeg) % kTcBSlots * kTcCols + tid * kPer);
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src), "r"(n)
+                   : "memory");
+    }
+  };
+
+#pragma unroll
+  for (int s = 0; s < kTcStages - 1; ++s) {
+    if (s < nstages) load_stage(s);
+    cp_commit();
+  }
+  // C's tile while the first stages are in flight: reads along j, zeros past
+  // L and past J; byte w of each 8-byte run of a product's 32 bytes of l goes
+  // to k slot byte 4 (run) + w, or 16 + 4 (run) + w - 4, as in the A
+  // fragments; eight loads in flight a thread
+  {
+    constexpr int kBatch = 8;
+    const int lpad = lbytes / kSize;
+    for (int e0 = tid; e0 < lpad * kTcCols; e0 += kTcThreads * kBatch) {
+      TIn v[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int e = e0 + u * kTcThreads;
+        const int l = e / kTcCols, gj = j0 + e - l * kTcCols;
+        v[u] = l < nl && gj < nj ? c[(size_t)l * nj + gj] : TIn(0);
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int e = e0 + u * kTcThreads;
+        const int l = e / kTcCols, j = e - l * kTcCols;
+        if (l >= lpad) continue;
+        const int byte = l * kSize, w = byte & 7, run = (byte >> 3) & 3;
+        const int slot = (byte & ~31) | (w < 4 ? 4 * run + w : 16 + 4 * run + w - 4);
+        const int off = (j >> 3) * sbo + (slot >> 4) * 128 + (j & 7) * 16 + (slot & 15);
+        if constexpr (kF32) {
+          uint32_t hi, lo;
+          split_tf32(__float_as_uint(v[u]), hi, lo);
+          *reinterpret_cast<uint32_t*>(ct + off) = hi;
+          *reinterpret_cast<uint32_t*>(ct + cbytes + off) = lo;
+        } else {
+          ct[off] = static_cast<unsigned char>(v[u]);
+        }
+      }
+    }
+  }
+  // C's tile is read by wgmma (the async proxy): order these stores before it
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+
+  Part part[40];  // T_k: 64 x 80 a warpgroup
+  Acc acc[40];
+#pragma unroll
+  for (int e = 0; e < 40; ++e) {
+    part[e] = Part(0);
+    acc[e] = Acc(0);
+  }
+  // this thread's rows (g, g + 8 of its warp's 16) and columns (2 t, 2 t + 1
+  // of each 8): value 4 n + e is row g + 8 (e / 2), column 8 n + 2 t + e % 2
+  const int row = (warp >> 2) * 64 + (warp & 3) * 16 + g;
+  const int a_off = row * kTcPitch + 8 * t;
+  const int col = j0 + 2 * t;
+  const uint64_t desc_hi = smem_desc(smem_addr(ct), 128, sbo);
+  const uint64_t desc_lo = smem_desc(smem_addr(ct + cbytes), 128, sbo);
+
+  uint32_t ah[2][4], al[2][4];  // two register sets, one wgmma group in flight
+  int k = kbeg, chunk = 0;
+  for (int s = 0; s < nstages; ++s) {
+    cp_wait<kTcStages - 2>();
+    __syncthreads();
+    if (s + kTcStages - 1 < nstages) load_stage(s + kTcStages - 1);
+    cp_commit();
+    const unsigned char* xs = ring + s % kTcStages * kTcStageBytes + a_off;
+    // products with any l < L in them (the rest of the stage is zeros)
+    const int steps = min(kTcChunk / kTcStep, (row_bytes - chunk * kTcChunk + kTcStep - 1) / kTcStep);
+#pragma unroll
+    for (int st = 0; st < kTcChunk / kTcStep; ++st) {
+      if (st >= steps) break;
+      const int set = st & 1;
+      // a0 a2 / a1 a3: rows g / g + 8, bytes 8 t .. 8 t + 7 of the 32
+      const uint2 lo = lds64(xs + st * kTcStep);
+      const uint2 hi = lds64(xs + 8 * kTcPitch + st * kTcStep);
+      // two core matrices of C's tile along l a product
+      const uint64_t adv = (uint64_t)((chunk * kTcChunk + st * kTcStep) * 8 >> 4);
+      const int accumulate = chunk == 0 && st == 0 ? 0 : 1;
+      if constexpr (kF32) {
+        const uint32_t a[4] = {lo.x, hi.x, lo.y, hi.y};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) split_tf32(a[e], ah[set][e], al[set][e]);
+        fence_regs(al[set]);
+      } else {
+        ah[set][0] = lo.x;
+        ah[set][1] = hi.x;
+        ah[set][2] = lo.y;
+        ah[set][3] = hi.y;
+      }
+      // the A registers are written before the fence, as wgmma requires
+      fence_regs(ah[set]);
+      wgmma_fence();
+      if constexpr (kF32) {
+        wgmma_tf32(part, al[set], desc_hi + adv, accumulate);
+        wgmma_tf32(part, ah[set], desc_lo + adv, 1);
+        wgmma_tf32(part, ah[set], desc_hi + adv, 1);
+      } else {
+        wgmma_s8(part, ah[set], desc_hi + adv, accumulate);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();  // the other set's group is done: its registers are free
+      fence_regs(ah[set ^ 1]);
+      if constexpr (kF32) fence_regs(al[set ^ 1]);
+    }
+    if (++chunk == nchunks) {  // T_k is whole: acc += B[k, j] T_k[i, j]
+      wgmma_wait<0>();
+      fence_regs(part);
+      // B's row k arrived with k's first stage; its slot is written again
+      // (for k + 4) only after a barrier that follows this read
+      const TIn* bk = bs + (k - kbeg) % kTcBSlots * kTcCols + 2 * t;
+#pragma unroll
+      for (int n = 0; n < 10; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const Acc bkj = Elem<TIn>::load(bk + 8 * n + (e & 1));
+          if constexpr (kF32)
+            acc[4 * n + e] = fmaf(part[4 * n + e], bkj, acc[4 * n + e]);
+          else
+            acc[4 * n + e] += (uint32_t)part[4 * n + e] * bkj;
+        }
+      chunk = 0;
+      ++k;
+    }
+  }
+  cp_wait<0>();
+
+  if (split == 1) {
+#pragma unroll
+    for (int n = 0; n < 10; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int gi = i0 + row + (e >> 1) * 8, gj = col + 8 * n + (e & 1);
+        if (gi < ni && gj < nj) m[(size_t)gi * nj + gj] = Flush<Acc, TOut>::cast(acc[4 * n + e]);
+      }
+    return;
+  }
+
+  // a split: this block's partial tile, in the ring once every warp is done
+  // with it, then the cluster's partial tiles, each output summed over the
+  // ranks in order; the ranks share the outputs out between them
+  __syncthreads();
+  Acc* tile_sum = reinterpret_cast<Acc*>(ring);
+#pragma unroll
+  for (int n = 0; n < 10; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      tile_sum[(row + (e >> 1) * 8) * kTcCols + 8 * n + 2 * t + (e & 1)] = acc[4 * n + e];
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  for (int e = tid + rank * kTcThreads; e < kTcRows * kTcCols; e += kTcThreads * split) {
+    const int r = e / kTcCols, cc = e - r * kTcCols;
+    const int gi = i0 + r, gj = j0 + cc;
+    if (gi >= ni || gj >= nj) continue;
+    Acc sum = *cluster.map_shared_rank(tile_sum + e, 0);
+    for (int q = 1; q < split; ++q) sum += *cluster.map_shared_rank(tile_sum + e, q);
+    m[(size_t)gi * nj + gj] = Flush<Acc, TOut>::cast(sum);
+  }
+  cluster.sync();  // keep every partial tile alive until all are read
+}
+
+// The tensor-core MTTKRP: K split over `split` blocks of a cluster, X copied
+// `copy` bytes at a time (16 or 4).
+template <typename TIn, typename TOut, int CP>
+int launch_mttkrp_tc_cp(const void* x, const void* b, const void* c, void* m, int ni, int nj,
+                        int nk, int nl, int split, cudaStream_t stream) {
+  auto kernel = mttkrp_tc_kernel<TIn, TOut, CP>;
+  constexpr bool f32 = std::is_same<TIn, float>::value;
+  const long long row_bytes = (long long)nl * (long long)sizeof(TIn);
+  if (ni < 1 || nj < 1 || nk < 1 || nl < 1 || split < 1 || split > kTcMaxCluster || split > nk ||
+      row_bytes % CP != 0 || reinterpret_cast<uintptr_t>(x) % CP != 0 ||
+      (long long)nj * sizeof(TIn) % 4 != 0 || reinterpret_cast<uintptr_t>(b) % 4 != 0 ||
+      (long long)nk * nl >= 0x7fffffffLL || (!f32 && nl >= (1 << 17)))
+    return (int)cudaErrorInvalidValue;
+  const int kblk = (nk + split - 1) / split;
+  if ((long long)(split - 1) * kblk >= nk) return (int)cudaErrorInvalidValue;  // an empty rank
+  const long long smem = tc_cbytes(row_bytes, f32) + (long long)kTcStages * kTcStageBytes +
+                         kTcBSlots * kTcCols * (long long)sizeof(TIn);
+  const long long tiles =
+      (long long)((ni + kTcRows - 1) / kTcRows) * ((nj + kTcCols - 1) / kTcCols);
+  if (smem > kTcMaxSmem || tiles * split > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const cudaError_t allowed =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (allowed != cudaSuccess) return (int)allowed;
+
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(tiles * split), 1, 1);
+  cfg.blockDim = dim3(kTcThreads, 1, 1);
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = (unsigned)split;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = 1;
+  cfg.attrs = cluster;
+  cfg.numAttrs = split > 1 ? 1 : 0;
+  const cudaError_t err =
+      cudaLaunchKernelEx(&cfg, kernel, static_cast<const TIn*>(x), static_cast<const TIn*>(b),
+                         static_cast<const TIn*>(c), static_cast<TOut*>(m), ni, nj, nk, nl,
+                         split, kblk);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+template <typename TIn, typename TOut>
+int launch_mttkrp_tc(int copy, const void* x, const void* b, const void* c, void* m, int ni,
+                     int nj, int nk, int nl, int split, cudaStream_t stream) {
+  if (copy == 16)
+    return launch_mttkrp_tc_cp<TIn, TOut, 16>(x, b, c, m, ni, nj, nk, nl, split, stream);
+  if (copy == 4)
+    return launch_mttkrp_tc_cp<TIn, TOut, 4>(x, b, c, m, ni, nj, nk, nl, split, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
@@ -347,6 +844,21 @@ int widesa_mttkrp_launch(const void* x, const void* b, const void* c, void* m, i
     return launch_mttkrp<int16_t, int32_t>(bi, bj, x, b, c, m, ni, nj, nk, nl, s);
   if (in_dtype == I32 && out_dtype == I32)
     return launch_mttkrp<int32_t, int32_t>(bi, bj, x, b, c, m, ni, nj, nk, nl, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// M[i, j] = sum_{k,l} X[i, k, l] B[k, j] C[l, j] on the tensor cores
+// (float32 -> float32 as 3xTF32, int8 -> int32): K split over `split` blocks
+// of a cluster, X copied `copy` bytes at a time (16 or 4).  Returns a
+// cudaError_t.
+int widesa_mttkrp_tc_launch(const void* x, const void* b, const void* c, void* m, int ni,
+                            int nj, int nk, int nl, int in_dtype, int out_dtype, int split,
+                            int copy, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (in_dtype == F32 && out_dtype == F32)
+    return launch_mttkrp_tc<float, float>(copy, x, b, c, m, ni, nj, nk, nl, split, s);
+  if (in_dtype == I8 && out_dtype == I32)
+    return launch_mttkrp_tc<int8_t, int32_t>(copy, x, b, c, m, ni, nj, nk, nl, split, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,12 +1,18 @@
 """``M[i,j] = sum_{k,l} X[i,k,l] B[k,j] C[l,j]`` (MTTKRP) on the
-hand-written Hopper kernel.
+hand-written Hopper kernels.
 
-The port of ``repro.kernels.mttkrp`` (``mttkrp_kernel``): the kernel is
-``csrc/widesa_hpc.cu`` (``mttkrp_kernel``), a GEMM of ``X.reshape(I,
-K*L)`` with the Khatri-Rao operand it builds in shared memory.
-``mttkrp`` checks its operands, allocates the output and launches on the
-current stream; a CPU tensor runs the plain version in ``ref.py``
-instead.  ``launches`` counts kernel launches.
+The port of ``repro.kernels.mttkrp`` (``mttkrp_kernel``).  Two kernels of
+``csrc/widesa_hpc.cu`` serve it: ``mttkrp_tc_kernel`` on the tensor cores
+(float32 as 3xTF32, int8; the two-step form ``sum_k B[k] * (X[:, k, :] @
+C)`` with C's tile held in shared memory) and ``mttkrp_kernel`` on the
+CUDA cores (int16, int32, and int8 rows that allow no 4-byte copies; a
+GEMM of ``X.reshape(I, K*L)`` with the Khatri-Rao operand it builds in
+shared memory).  ``mttkrp`` checks its operands, allocates the output and
+launches on the current stream the kernel its ``tiles`` name: a
+``runtime.MttkrpTile`` (from ``runtime.mttkrp_tile``) runs the
+tensor-core kernel, ``build.MTTKRP_TILE`` the CUDA-core one.  A CPU
+tensor runs the plain version in ``ref.py`` instead.  ``launches`` counts
+kernel launches, ``variants`` the same launches by kernel.
 """
 
 from __future__ import annotations
@@ -16,14 +22,16 @@ import torch
 from . import build, ref, runtime
 
 launches = 0
+#: launches by kernel: ``tensor_core`` and ``cuda_core``
+variants = {"tensor_core": 0, "cuda_core": 0}
 
 
 def mttkrp(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor, *,
-           tiles: tuple[int, int],
-           out_dtype: torch.dtype | None = None) -> torch.Tensor:
-    """``x`` [I, K, L], ``b`` [K, J], ``c`` [L, J] -> [I, J] with the
-    compiled output tile ``tiles = (BI, BJ)`` (``build.MTTKRP_TILE``);
-    float32 gives float32, integers give int32."""
+           tiles, out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """``x`` [I, K, L], ``b`` [K, J], ``c`` [L, J] -> [I, J] on the kernel
+    ``tiles`` names: a ``runtime.MttkrpTile`` that ``runtime.mttkrp_route``
+    allows for these operands, or the CUDA-core tile
+    ``build.MTTKRP_TILE``; float32 gives float32, integers give int32."""
     global launches
     if all(t.device.type == "cpu" for t in (x, b, c)):
         return ref.mttkrp(x, b, c, out_dtype)
@@ -45,19 +53,37 @@ def mttkrp(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor, *,
     out_dtype = out_dtype or runtime.out_dtype(x.dtype)
     if (x.dtype, out_dtype) not in build.HPC_DTYPES:
         raise TypeError(f"no MTTKRP kernel for {x.dtype} -> {out_dtype}")
-    if tuple(tiles) != build.MTTKRP_TILE:
-        raise ValueError(f"MTTKRP tile {tiles} is not compiled")
-    if min(ni, nj, nk, nl) < 1 or nk * nl >= 2**31 or nj >= 2**31 \
-            or -(-ni // tiles[0]) > 65535:
+    if min(ni, nj, nk, nl) < 1 or nk * nl >= 2**31 or nj >= 2**31:
         raise ValueError(f"MTTKRP of {tuple(x.shape)} x {nj} is outside the "
-                         "kernel's range")
+                         "kernels' range")
     if not all(t.is_contiguous() for t in (x, b, c)):
         raise ValueError("MTTKRP operands must be contiguous")
+    shape = (ni, nj, nk, nl)
+    if isinstance(tiles, runtime.MttkrpTile):
+        allowed = runtime.mttkrp_route(shape, x.dtype, x.data_ptr(),
+                                       b.data_ptr())
+        if allowed is None or tiles.copy not in (4, allowed.copy) \
+                or not 1 <= tiles.split <= min(runtime.MTTKRP_TC_MAX_CLUSTER,
+                                               nk) \
+                or (tiles.split - 1) * -(-nk // tiles.split) >= nk:
+            raise ValueError(f"{tiles} is not a tensor-core MTTKRP launch "
+                             f"for {tuple(x.shape)} x {nj} {x.dtype} (the "
+                             f"runtime allows {allowed})")
+        entry, args, variant = ("widesa_mttkrp_tc_launch",
+                                (tiles.split, tiles.copy), "tensor_core")
+    elif tuple(tiles) == build.MTTKRP_TILE:
+        if -(-ni // tiles[0]) > 65535:
+            raise ValueError(f"{ni} rows exceed the CUDA-core MTTKRP's grid")
+        entry, args, variant = ("widesa_mttkrp_launch", tuple(tiles),
+                                "cuda_core")
+    else:
+        raise ValueError(f"MTTKRP tile {tiles} is not compiled")
     out = torch.empty((ni, nj), dtype=out_dtype, device=x.device)
     with torch.cuda.device(x.device):
-        build.call("widesa_mttkrp_launch", x.data_ptr(), b.data_ptr(),
-                   c.data_ptr(), out.data_ptr(), ni, nj, nk, nl,
+        build.call(entry, x.data_ptr(), b.data_ptr(), c.data_ptr(),
+                   out.data_ptr(), ni, nj, nk, nl,
                    build.DTYPE_CODES[x.dtype], build.DTYPE_CODES[out_dtype],
-                   tiles=tuple(tiles))
+                   *args)
+    variants[variant] += 1
     launches += 1
     return out

@@ -333,7 +333,7 @@ register(KernelSpec(
     arity=3,
     grid_loops=("i", "j", "k", "l"),
     block_kwargs=_mttkrp_blocks,
-    tiles=lambda plan, x, b, c: runtime.mttkrp_tile(plan),
+    tiles=lambda plan, x, b, c: runtime.mttkrp_tile(plan, x, b),
     hopper=_mttkrp.mttkrp,
     ref=ref.mttkrp,
     builder=ir.mttkrp,

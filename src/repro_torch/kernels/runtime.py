@@ -50,14 +50,35 @@ tiles, 7 and 8 with the large).  On an H100 this picks the faster tile
 at both the frontend and the bench shapes (PERF.md, from
 ``chip_smoke.py``).
 
-The star stencils and mttkrp (``stencil_tile``, ``mttkrp_tile``): the
-reference planner's single-chip plans are TPU tiles again ({i: 2, j: 2},
-{i: 12, j: 12}, {i: 89, j: 89} for the three stencils at their bench
-sizes, ``bj = 8`` for mttkrp).  Each kernel is compiled for one tile, a
-256-thread block of 4 x 4 outputs a thread (``build.STENCIL_TILE``,
-``build.MTTKRP_TILE``), which every plan maps onto: the path runs them
-at the bench sizes only, where it was the faster of two tiles on an
-H100 (PERF.md).
+The star stencils (``stencil_tile``): the reference planner's
+single-chip plans are TPU tiles again ({i: 2, j: 2}, {i: 12, j: 12},
+{i: 89, j: 89} for the three stencils at their bench sizes).  The kernel
+is compiled for one tile, a 256-thread block of 4 x 4 outputs a thread
+(``build.STENCIL_TILE``), which every plan maps onto: the path runs them
+at the bench sizes only, where it was the faster of two tiles on an H100
+(PERF.md).
+
+mttkrp runs one of two kernels of ``csrc/widesa_hpc.cu`` (``mttkrp_tile``,
+``mttkrp_route``), chosen from the dtype and the shape, not from the plan
+(``bj = 8`` at the bench size, a TPU tile):
+
+* The tensor-core kernel takes float32 (3xTF32) and int8 where X's rows
+  allow copies of 4 bytes or more (L % 4 == 0 in int8), the block's
+  B's rows allow copies of 4 bytes (J % 4 == 0 in int8), C's tile fits
+  in shared memory next to the ring (``mttkrp_smem``: float32 up to L =
+  256, int8 up to L = 2048).  Its output tile is fixed
+  (``MTTKRP_TC_TILE``, 128 x 80); the configuration is an
+  ``MttkrpTile``: X's copy width (16 bytes where rows and pointer allow
+  it, else 4) and the split of K over the blocks of a cluster
+  (``mttkrp_split``): 8, the portable maximum, where every rank keeps 16
+  k or more, else the largest power of two that does.  One block fills
+  an SM, so the 160 tiles of the bench size alone are 1.2 waves of 132;
+  split 8 makes 1280 blocks.  On an H100 it was the fastest of the
+  splits 1 to 8 in float32 and within 7 % of the fastest (2) in int8,
+  and clusters of 3, 5, 6 and 7 were slower than their neighbours
+  (``chip_smoke.py --mttkrp-sweep``; PERF.md).
+* The CUDA-core kernel (``build.MTTKRP_TILE``) takes the rest: int16,
+  int32, and what the tensor-core kernel refuses.
 
 ``acc_dtype``/``out_dtype`` are the reference's accumulator ladder:
 integer inputs accumulate and land in int32, floats accumulate in fp32
@@ -279,13 +300,88 @@ def stencil_tile(plan: "ExecutionPlan") -> HopperTiles:
     return HopperTiles(plan=(kw["bh"], kw["bw"]), tile=build.STENCIL_TILE)
 
 
-def mttkrp_tile(plan: "ExecutionPlan") -> HopperTiles:
-    """An mttkrp plan's tile beside the compiled one."""
+#: the tensor-core MTTKRP kernel's geometry (``kTc*`` in
+#: csrc/widesa_hpc.cu): its output tile (BI, BJ), the bytes of l a ring
+#: stage holds, its stages, the rows of B it holds, the bytes padding a row
+#: of X in a stage, the largest cluster (the portable size) and the shared
+#: memory a block may use
+MTTKRP_TC_TILE = (128, 80)
+MTTKRP_TC_CHUNK = 128
+MTTKRP_TC_STAGES = 3
+MTTKRP_TC_B_SLOTS = 4
+MTTKRP_TC_PAD = 32
+MTTKRP_TC_MAX_CLUSTER = 8
+MTTKRP_TC_MAX_SMEM = 232448
+#: the input dtypes it takes
+MTTKRP_TC_DTYPES = (torch.float32, torch.int8)
+#: k a rank of a split reduces at the least
+MTTKRP_MIN_RANK_K = 16
+
+
+@dataclasses.dataclass(frozen=True)
+class MttkrpTile:
+    """A tensor-core MTTKRP launch: K split over ``split`` blocks of a
+    cluster, X copied ``copy`` bytes at a time (16 or 4)."""
+
+    split: int
+    copy: int
+
+
+def mttkrp_smem(nl: int, dtype: torch.dtype) -> int:
+    """Shared memory of a tensor-core MTTKRP block: C's tile (80 columns
+    of L rounded up to whole stages; twice, hi and lo, in float32) and the
+    ring of X (rows padded by ``MTTKRP_TC_PAD``)."""
+    row = -(-nl * dtype.itemsize // MTTKRP_TC_CHUNK) * MTTKRP_TC_CHUNK
+    halves = 2 if dtype == torch.float32 else 1
+    return (halves * MTTKRP_TC_TILE[1] * row
+            + MTTKRP_TC_STAGES * MTTKRP_TC_TILE[0]
+            * (MTTKRP_TC_CHUNK + MTTKRP_TC_PAD)
+            + MTTKRP_TC_B_SLOTS * MTTKRP_TC_TILE[1] * dtype.itemsize)
+
+
+def mttkrp_split(nk: int) -> int:
+    """The split of K: the largest power of two up to the portable
+    cluster size (8) that leaves every rank ``MTTKRP_MIN_RANK_K`` k or
+    more (module docstring)."""
+    split = MTTKRP_TC_MAX_CLUSTER
+    while split > 1 and -(-nk // split) < MTTKRP_MIN_RANK_K:
+        split //= 2
+    return split
+
+
+def mttkrp_route(shape: tuple[int, int, int, int], dtype: torch.dtype,
+                 x_ptr: int = 0, b_ptr: int = 0) -> MttkrpTile | None:
+    """The tensor-core kernel's configuration for X of ``shape`` = (I, J,
+    K, L) in ``dtype`` at address ``x_ptr`` and B at ``b_ptr``, or None
+    where it does not apply and the CUDA-core kernel runs (module
+    docstring)."""
+    ni, nj, nk, nl = shape
+    if dtype not in MTTKRP_TC_DTYPES or min(shape) < 1:
+        return None
+    width = copy_bytes(x_ptr, nl * dtype.itemsize)
+    if width < 4 or copy_bytes(b_ptr, nj * dtype.itemsize) < 4 \
+            or nk * nl >= 2**31 \
+            or mttkrp_smem(nl, dtype) > MTTKRP_TC_MAX_SMEM:
+        return None
+    return MttkrpTile(split=mttkrp_split(nk), copy=16 if width == 16 else 4)
+
+
+def mttkrp_tile(plan: "ExecutionPlan", x: torch.Tensor | None = None,
+                b: torch.Tensor | None = None) -> HopperTiles:
+    """An mttkrp plan's tile beside the configuration that launches it
+    (``mttkrp_route``, else the CUDA-core kernel's ``build.MTTKRP_TILE``),
+    from the plan's extents and dtype, and X's and B's addresses where
+    given."""
     from . import registry
 
     kw = registry.get("mttkrp").block_kwargs(plan)
+    rec = plan.recurrence
+    shape = tuple(rec.extent(loop) for loop in ("i", "j", "k", "l"))
+    dtype = getattr(torch, rec.dtype) if x is None else x.dtype
+    route = mttkrp_route(shape, dtype, 0 if x is None else x.data_ptr(),
+                         0 if b is None else b.data_ptr())
     return HopperTiles(plan=(kw["bi"], kw["bj"], kw["bk"], kw["bl"]),
-                       tile=build.MTTKRP_TILE)
+                       tile=route or build.MTTKRP_TILE)
 
 
 def execute_plan(plan: "ExecutionPlan", *tensors, out_dtype=None):

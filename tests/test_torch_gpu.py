@@ -9,9 +9,10 @@ PyTorch alone:
 
 Integers are bit-exact (int32 wraparound); float32 within the registry's
 atol 1e-3 (FIR, conv2d, the stencils: sums of at most 20 products in
-another order; MTTKRP here: sums of at most 35 products of three N(0, 1)
-draws; the GEMMs: sums of at most 11004 products of N(0, 1) draws,
-whose rounding error is ~1e-4) and 1.0 (the fft2d composition: sums of 515
+another order; MTTKRP: sums of at most 4096 products of three N(0, 1)
+draws, in fp32 or as 3xTF32 on the tensor cores; the GEMMs: sums of at
+most 11004 products of N(0, 1) draws; the rounding error of either is
+~1e-4) and 1.0 (the fft2d composition: sums of 515
 terms of magnitude ~100); bf16 results within one bf16 rounding step of
 the output, ``2^-7 |ref|``, plus 1e-3.
 """
@@ -159,6 +160,72 @@ def test_mttkrp_matches_plain_version_on_the_card(gen):
                   ref.mttkrp(x, b, c))
     torch.cuda.synchronize()
     assert mttkrp.launches - before == len(MTTKRP_SHAPES) * len(DTYPES)
+
+
+#: MTTKRP shapes (I, J, K, L) that reach both kernels: L % 4 != 0 or J %
+#: 4 != 0 (int8 on the CUDA cores, float32 X copied 4 bytes at a time),
+#: rows of 16-byte runs, whole and ragged output tiles, K whole and split
+#: over clusters of 2, 4 and 8 blocks (8 unevenly)
+MTTKRP_ROUTED = ((37, 45, 7, 5), (64, 90, 20, 32), (300, 172, 9, 64),
+                 (32, 48, 64, 64), (257, 164, 40, 36), (130, 92, 130, 12))
+
+
+def _mttkrp_operands(shape, dtype, gen):
+    ni, nj, nk, nl = shape
+    return [_draw(s, dtype, gen) for s in ((ni, nk, nl), (nk, nj), (nl, nj))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_mttkrp_runs_the_kernel_it_is_routed_to_on_the_card(dtype, gen):
+    """Each shape on the kernel ``runtime.mttkrp_route`` picks: float32,
+    and int8 whose rows of X and B allow 4-byte copies, on the tensor
+    cores, the rest
+    on the CUDA cores; ``mttkrp.variants`` counts every launch under its
+    kernel, and a float product split over a cluster repeats its bits."""
+    want = {"tensor_core": 0, "cuda_core": 0}
+    before = dict(mttkrp.variants)
+    for shape in MTTKRP_ROUTED:
+        x, b, c = _mttkrp_operands(shape, dtype, gen)
+        route = runtime.mttkrp_route(shape, dtype, x.data_ptr(),
+                                     b.data_ptr())
+        on_tc = dtype == torch.float32 or (
+            dtype == torch.int8 and shape[1] % 4 == 0 and shape[3] % 4 == 0)
+        assert isinstance(route, runtime.MttkrpTile) == on_tc
+        got = mttkrp.mttkrp(x, b, c, tiles=route or build.MTTKRP_TILE)
+        _same(got, ref.mttkrp(x, b, c))
+        want["tensor_core" if on_tc else "cuda_core"] += 1
+        if on_tc and route.split > 1:
+            assert torch.equal(got, mttkrp.mttkrp(x, b, c, tiles=route))
+            want["tensor_core"] += 1
+    torch.cuda.synchronize()
+    assert {k: mttkrp.variants[k] - before[k] for k in want} == want
+
+
+@pytest.mark.gpu
+def test_misaligned_mttkrp_operands_take_narrower_routes_on_the_card(gen):
+    """X one element past a 16-byte boundary: float32 rows are copied 4
+    bytes at a time, int8 rows (1-byte aligned) go to the CUDA cores, and
+    a launch wider than the rows allow raises."""
+    shape = (70, 92, 6, 32)
+    ni, nj, nk, nl = shape
+    for dtype in (torch.float32, torch.int8):
+        x = _draw((ni * nk * nl + 1,), dtype, gen)[1:].view(ni, nk, nl)
+        b, c = _draw((nk, nj), dtype, gen), _draw((nl, nj), dtype, gen)
+        route = runtime.mttkrp_route(shape, dtype, x.data_ptr(),
+                                     b.data_ptr())
+        if dtype == torch.float32:
+            assert route.copy == 4
+        else:
+            assert route is None
+        before = dict(mttkrp.variants)
+        _same(mttkrp.mttkrp(x, b, c, tiles=route or build.MTTKRP_TILE),
+              ref.mttkrp(x, b, c))
+        torch.cuda.synchronize()
+        kernel = "cuda_core" if route is None else "tensor_core"
+        assert mttkrp.variants[kernel] == before[kernel] + 1
+        with pytest.raises(ValueError, match="not a tensor-core"):
+            mttkrp.mttkrp(x, b, c, tiles=runtime.MttkrpTile(1, 16))
 
 
 @pytest.mark.gpu

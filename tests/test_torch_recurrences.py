@@ -96,11 +96,13 @@ def test_plans_match_reference(name, dtype, args, target):
 
 def test_single_chip_plans_are_the_tpu_tiles():
     """The tiles the reference planner picks at the bench sizes, and the
-    compiled Hopper tiles the runtime maps them onto."""
+    compiled Hopper tiles the runtime maps them onto (float32 mttkrp: the
+    tensor-core kernel, K split over clusters of 8 blocks)."""
     want = {"jacobi2d": ((2, 2), (32, 128)),
             "jacobi2d_9pt": ((12, 12), (32, 128)),
             "jacobi2d_ms": ((89, 89), (32, 128)),
-            "mttkrp": ((128, 8, 64, 128), (64, 64))}
+            "mttkrp": ((128, 8, 64, 128),
+                       runtime.MttkrpTile(split=8, copy=16))}
     for name, (plan_tile, tile) in want.items():
         spec = registry.get(name)
         dtype, args = spec.bench_cases[0]
