@@ -4,9 +4,10 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --tile-sweep [--out sweep.json]
     python3 chip_smoke.py --mttkrp-sweep [--out sweep.json]
+    python3 chip_smoke.py --tc-sweep [--out sweep.json]
 
 Needs one CUDA card and the CUDA toolkit.  It imports only the port, never
-JAX nor the JAX package, and runs seven phases, each printing its own
+JAX nor the JAX package, and runs eight phases, each printing its own
 line(s); any failure exits non-zero:
 
 1. device — the card's name and power limit, torch and CUDA versions;
@@ -15,7 +16,12 @@ line(s); any failure exits non-zero:
 3. kernels — every hand-written kernel against its plain PyTorch version
    on the card: the mm/bmm GEMMs in all five dtypes at every serving
    shape and at ragged ones on the kernel the runtime picks (the skinny
-   kernel for A of at most 16 rows, the tiled one above), the skinny
+   kernel for A of at most 16 rows, the tensor-core one above in bf16 and
+   float32, the tiled one for the rest), the tensor-core kernel at every
+   qwen prefill GEMM of 17, 64, 127 and 512 tokens, quickstart's float32
+   1024^3 and ragged shapes in bf16 -> bf16, bf16 -> fp32 and float32
+   with both B layouts (and a one-TF32 control that float32's atol must
+   reject), the skinny
    kernel at every M up to 16 with both B layouts and K split unevenly
    over a cluster, a misaligned B (routed to the tiled kernel where its
    rows do not allow 4-byte copies), every compiled tile of the tiled
@@ -34,7 +40,9 @@ line(s); any failure exits non-zero:
    the library call, the weight GEMMs over a rotation of distinct B operands
    of ``COLD_BYTES`` so that B comes from HBM as in a decode step, and
    the host time of a wrapper call and of a planned-facade call (with a
-   ``cProfile`` breakdown at one shape); FIR, conv2d, the fft2d
+   ``cProfile`` breakdown at one shape); the prefill GEMMs of a 512-token
+   prompt and quickstart's float32 1024^3 the same for the tensor-core
+   kernel, the tiled kernel and the library call; FIR, conv2d, the fft2d
    composition and their library calls also get their device time
    (the launch overhead left out), FIR and conv2d with every compiled
    tile;
@@ -51,7 +59,13 @@ line(s); any failure exits non-zero:
    plain versions.  One 4-lane decode step is then timed on the host
    clock and traced with ``torch.profiler`` for the card's busy time and
    the share of each GEMM kernel;
-5. stream — full-width whisper-base (bf16, 6+6 layers, d 512, vocab
+5. prefill — the same model on the slot engine with max_seq 640 serving
+   4 prompts of 64, 127, 256 and 512 tokens, 8 new tokens each: the
+   serve phase's checks (budgets, every site planned, ``check_routes``:
+   every prefill GEMM above 16 rows on the tensor-core kernel,
+   ``drain_parity``, prefill logits against the plain versions), then
+   one prefill of 512 tokens timed on the host clock and traced;
+6. stream — full-width whisper-base (bf16, 6+6 layers, d 512, vocab
    51865, random weights seeded with 0) on the slot engine: 4 slots,
    max_seq 128, 8 streamed int16 audio requests of 1-8 chunks and 8 new
    tokens each, every chunk through the planned frontend (FIR and conv2d
@@ -64,7 +78,7 @@ line(s); any failure exits non-zero:
    cross-attention over the 1500-row encoder cache), and that one
    request's features and stream-prefill logits match a run through the
    plain versions;
-6. recurrences — the WideSA mapper -> kernel pipeline,
+7. recurrences — the WideSA mapper -> kernel pipeline,
    ``repro_torch.launch.recurrences.run`` (the entry point's function):
    the Table II compiler report, quickstart's 1024^3 MM, and every
    registered recurrence planned on one chip and run through
@@ -73,7 +87,8 @@ line(s); any failure exits non-zero:
    Checks that the star-stencil (B6) and MTTKRP (B7) kernels launched,
    every mttkrp case on the kernel its dtype and shape call for (float32
    and int8 on the tensor cores, int16 on the CUDA cores) with each launch
-   counted under it.  Then holds B6 (5-point, 9-point, and the multi-sweep
+   counted under it, and every float32 mm / bmm above 16 rows on the
+   tensor-core GEMM.  Then holds B6 (5-point, 9-point, and the multi-sweep
    form on its int32 state) and B7 against their plain versions at the
    bench sizes and at ragged ones, in float32, int8, int16 and int32, on
    the kernel the runtime routes each to, checks that the float32 bound
@@ -84,15 +99,17 @@ line(s); any failure exits non-zero:
    time; the tensor-core MTTKRP rows also time the CUDA-core kernel on
    the same operands and give the bound at the tensor-core rate beside
    the fp32 CUDA-core one;
-7. summary — a JSON line of the kernels, the ``nvidia-smi`` name and
+8. summary — a JSON line of the kernels, the ``nvidia-smi`` name and
    power limit, and the result line.
 
 Every wrapper's launch count is set to 0 just before each serving drain
 and before the recurrence pipeline, and read just after; the kernels
 line gives each path's counts apart (``"launches": {"qwen": n,
-"whisper_stream": m, "recurrences": k}``), and for the two GEMM wrappers
-the same launches by kernel (``"launches_by_kernel"``: skinny / tiled)
-beside their device times and host time a call, and for mttkrp its
+"qwen_prefill": p, "whisper_stream": m, "recurrences": k}``), and for the
+two GEMM wrappers the same launches by kernel (``"launches_by_kernel"``:
+skinny / wgmma / tiled) beside their device times and host time a call
+(and under ``"wgmma"`` the tensor-core kernel's at its 512-token prefill
+shape beside the tiled kernel's and the library's), and for mttkrp its
 launches by kernel (tensor_core / cuda_core) beside the device times of
 both kernels.  The comparison and
 timing launches of phases 3 and 6 and of ``drain_parity`` do not count.
@@ -107,10 +124,16 @@ configuration ``runtime.gemm_tile`` picks and the fastest of each
 HPC source, then holds the tensor-core MTTKRP at the bench size in
 float32 and int8 with every split of K (1 to 8) to the plain version and
 prints each split's device time beside the CUDA-core kernel's and
-``torch.einsum``'s.
+``torch.einsum``'s.  ``--tc-sweep`` builds only the GEMM source, then
+holds the tensor-core GEMM at the qwen prefill shapes of 512, 127 and 64
+tokens (bf16) and at quickstart's float32 1024^3 to the plain version with
+every compiled tile, split of K (1-4) and ring of 2 or 4 stages, and prints
+each one's device time beside the runtime's pick and ``torch.matmul`` /
+``torch.bmm``'s.
 
 Tolerances: integer results are bit-exact (wrapping int32, as XLA);
-float32 results within the kernel registry's atol 1e-3 (1.0 for the
+float32 results within the kernel registry's atol 1e-3 (sums of up to
+2816 products, 3xTF32 on the tensor-core GEMM; 1.0 for the
 fft2d composition, the registry's fft2d_stage atol: fp32 sums of 515
 terms of magnitude ~100); bf16 results within ``2^-7 * |ref| + 1e-3``,
 one bf16 rounding step of the output (8-bit significand) on top of fp32
@@ -172,15 +195,40 @@ MAIN_SHAPES = (
     ("mlp.gate/up, decode", "mm", (4, 2816, 1024), False, 48),
     ("mlp.down, decode", "mm", (4, 1024, 2816), False, 24),
     ("lm_head, decode", "mm", (4, 151936, 1024), True, 1),
-    ("attn.decode_scores", "bmm", (64, 1, 128, 64), False, 24),
+    ("attn.decode_scores", "bmm", (64, 1, 128, 64), True, 24),
     ("attn.decode_values", "bmm", (64, 1, 64, 128), False, 24),
-    ("attn.scores, prefill", "bmm", (16, 12, 12, 64), False, 0),
+    ("attn.scores, prefill", "bmm", (16, 12, 12, 64), True, 0),
     ("attn.values, prefill", "bmm", (16, 12, 64, 12), False, 0),
 )
-#: the GEMMs timed: MAIN_SHAPES and whisper-base's tied lm_head over its
-#: 51865-word vocabulary (a 4-lane decode step), B column-major
+#: the GEMMs timed: MAIN_SHAPES, whisper-base's tied lm_head over its
+#: 51865-word vocabulary (a 4-lane decode step), B column-major, and the
+#: decode scores with K^T materialized row-major (the layout before the
+#: scores read K column-major), for the comparison
 TIMED_SHAPES = MAIN_SHAPES + (
-    ("lm_head, whisper-base decode", "mm", (4, 51865, 512), True, 0),)
+    ("lm_head, whisper-base decode", "mm", (4, 51865, 512), True, 0),
+    ("attn.decode_scores, K^T row-major", "bmm", (64, 1, 128, 64), False,
+     0))
+#: qwen1.5-0.5b's prefill GEMMs of a P-token prompt (A of P rows: the
+#: tensor-core kernel), as (site, kind, shape, B column-major, launches in
+#: one prefill of the 24-layer model)
+def prefill_shapes(p):
+    return (("attn.q/k/v/out", "mm", (p, 1024, 1024), False, 96),
+            ("mlp.gate/up", "mm", (p, 2816, 1024), False, 48),
+            ("mlp.down", "mm", (p, 1024, 2816), False, 24),
+            ("attn.scores", "bmm", (16, p, p, 64), True, 24),
+            ("attn.values", "bmm", (16, p, 64, p), False, 24))
+
+
+#: prompt lengths of the tensor-core parity cases, the prefill timed, and
+#: the prompts the prefill phase serves
+TC_PROMPTS = (17, 64, 127, 512)
+TC_TIMED_PROMPT = 512
+PREFILL_PROMPTS = (64, 127, 256, 512)
+PREFILL_MAX_SEQ = 640
+#: quickstart's float32 MM, and ragged shapes (M and N no multiple of any
+#: tile, K rows whole 16-byte units) for the tensor-core kernel
+QUICKSTART = ("mm", (1024, 1024, 1024))
+TC_RAGGED = (("mm", (100, 200, 136)), ("bmm", (3, 61, 72, 64)))
 RAGGED_SHAPES = (("mm", (61, 126, 37)), ("mm", (1, 300, 77)),
                  ("bmm", (3, 61, 126, 37)), ("bmm", (5, 7, 33, 130)))
 #: the skinny kernel at every row count up to 16: N, and a K that no split
@@ -200,7 +248,7 @@ KERNELS = {
     "widesa_mm": dict(kind="mm", shape=(4, 151936, 1024), col_major=True,
                       replaces="src/repro/kernels/widesa_mm.py:31",
                       source=SOURCE),
-    "bmm": dict(kind="bmm", shape=(64, 1, 128, 64), col_major=False,
+    "bmm": dict(kind="bmm", shape=(64, 1, 128, 64), col_major=True,
                 replaces="src/repro/kernels/bmm.py:24", source=SOURCE),
     "fir": dict(replaces="src/repro/kernels/fir.py:25", source=SP_SOURCE),
     "conv2d": dict(replaces="src/repro/kernels/conv2d.py:32",
@@ -214,6 +262,11 @@ KERNELS = {
     "mttkrp": dict(replaces="src/repro/kernels/mttkrp.py:29",
                    source=HPC_SOURCE),
 }
+
+#: the tensor-core kernel's row in the kernels line: the P = 512 prefill
+#: shape of each GEMM wrapper
+WGMMA_SHAPES = {"widesa_mm": ("mm", (512, 1024, 1024), False),
+                "bmm": ("bmm", (16, 512, 512, 64), True)}
 
 #: the frontend shapes of whisper-base (FrontendConfig(d_model=512): a
 #: 12 x 515 tile of 6180 samples, 15 taps, a 5 x 4 filter, int16), ragged
@@ -257,18 +310,55 @@ def read_variants() -> dict:
             if hasattr(mod, "variants")}
 
 
-def check_routes(path: str, report: dict, variants: dict) -> str:
-    """Hold a serving drain's GEMM launches by kernel to what the runtime
-    must pick for the shapes the drain gave each site (bf16 operands, the
-    lm_head's B column-major): the skinny kernel, except where B's rows do
-    not allow 4-byte copies (an odd number of bf16 elements: the prefill
-    scores of an odd-length prompt, whose B is K^T with one row of
-    `prompt length` keys per head dimension) or A has more than 16 rows.
-    Fail on any other tiled launch; return the explanation of those that
-    must be tiled."""
+def col_major_site(site: str, shape) -> bool:
+    """Whether a serving site reads B column-major: the tied lm_head (the
+    embedding table), the attention scores (K^T as the transpose of K's
+    rows) and a single column."""
+    return site == "lm_head" or "scores" in site or shape[-2] == 1
+
+
+def padded_site(site: str) -> bool:
+    """Whether a serving site's A comes in rows padded to whole 16-byte
+    units: the prompt's attention values (the softmax weights)."""
+    return site == "attn.values"
+
+
+def padded(torch, a):
+    """``a`` in rows padded to whole 16-byte units, as the attention layer
+    hands the values bmm its softmax weights (a view of the first K
+    columns)."""
+    k, unit = a.shape[-1], 16 // a.element_size()
+    rows = torch.empty((*a.shape[:-1], -(-k // unit) * unit), dtype=a.dtype,
+                       device=a.device)[..., :k]
+    rows.copy_(a)
+    return rows
+
+
+def serving_kernel(site: str, shape) -> str:
+    """The kernel the runtime must pick for a serving GEMM (bf16, fresh
+    16-byte aligned operands, A contiguous or, for the values, in padded
+    rows): the skinny kernel for at most 16 rows of A where B's rows allow
+    4-byte copies, the tensor-core kernel for more rows where TMA can
+    address A's and B's rows (whole 16-byte units), else the tiled
+    kernel."""
     from repro_torch.kernels import runtime
 
-    want = {"widesa_mm": 0, "bmm": 0}
+    m, n, k = shape[-3:]
+    inner = k if col_major_site(site, shape) else n
+    if m <= runtime.SKINNY_ROWS:
+        return "skinny" if runtime.copy_bytes(0, 2 * inner) >= 4 else "tiled"
+    whole = (padded_site(site) or runtime.copy_bytes(0, 2 * k) == 16) and \
+        runtime.copy_bytes(0, 2 * inner) == 16
+    return "wgmma" if whole else "tiled"
+
+
+def check_routes(path: str, report: dict, variants: dict) -> str:
+    """Hold a serving drain's GEMM launches by kernel to what the runtime
+    must pick for the shapes the drain gave each site (``serving_kernel``;
+    the scores read K column-major and the values their weights in padded
+    rows, so both take 16-byte units at any prompt length).  Fail on any
+    other launch count; return the explanation of any tiled launch."""
+    want = {"widesa_mm": {}, "bmm": {}}
     why = []
     for site, st in report.items():
         if site.startswith(NON_GEMM_SITES):
@@ -276,18 +366,17 @@ def check_routes(path: str, report: dict, variants: dict) -> str:
         for key, count in st["shapes"].items():
             shape = ast.literal_eval(key)
             kind = "widesa_mm" if len(shape) == 3 else "bmm"
-            m, n, k = shape[-3:]
-            # the tied lm_head's B, and a single column, read column-major
-            inner = k if site == "lm_head" or n == 1 else n
-            if m > runtime.SKINNY_ROWS or runtime.copy_bytes(0, 2 * inner) < 4:
-                want[kind] += count
+            kernel = serving_kernel(site, shape)
+            want[kind][kernel] = want[kind].get(kernel, 0) + count
+            if kernel == "tiled":
                 why.append(f"{site} {shape} x{count}")
-    got = {name: variants[name]["tiled"] for name in want}
+    got = {name: {v: n for v, n in variants[name].items() if n}
+           for name in want}
     if got != want:
-        fail(f"{path}: tiled-kernel launches {got}, the shapes call for "
-             f"{want} ({why})")
-    return (f"tiled launches {sum(got.values())}, each for B rows of an odd "
-            f"number of bf16 elements or A above 16 rows: {why}" if why
+        fail(f"{path}: GEMM launches by kernel {got}, the shapes call for "
+             f"{want} (tiled: {why})")
+    return (f"tiled launches {sum(g.get('tiled', 0) for g in got.values())}"
+            f", each for rows neither other kernel takes: {why}" if why
             else "no tiled launch")
 
 
@@ -313,15 +402,12 @@ def draw(torch, gen, shape, dtype, device="cuda"):
 
 
 def operands(torch, gen, kind, shape, dtype, col_major):
-    if kind == "mm":
-        m, n, k = shape
-        a = draw(torch, gen, (m, k), dtype)
-        b = (draw(torch, gen, (n, k), dtype).t() if col_major
-             else draw(torch, gen, (k, n), dtype))
-    else:
-        z, m, n, k = shape
-        a = draw(torch, gen, (z, m, k), dtype)
-        b = draw(torch, gen, (z, k, n), dtype)
+    """A row-major, and B row-major or (``col_major``) the transpose of a
+    row-major [.., N, K] tensor."""
+    (m, n, k), lead = shape[-3:], shape[:-3]
+    a = draw(torch, gen, (*lead, m, k), dtype)
+    b = (draw(torch, gen, (*lead, n, k), dtype).transpose(-1, -2)
+         if col_major else draw(torch, gen, (*lead, k, n), dtype))
     return a, b
 
 
@@ -368,6 +454,13 @@ def describe(tile, kind=None, shape=None) -> str:
     """A GEMM launch configuration in words (with its grid for a shape)."""
     from repro_torch.kernels import runtime
 
+    if isinstance(tile, runtime.TcTile):
+        text = (f"wgmma {tile.bm}x{tile.bn} split {tile.split} stages "
+                f"{tile.stages}")
+        if shape is not None:
+            (m, n), z = shape[-3:-1], (shape[0] if kind == "bmm" else 1)
+            text += f" ({tile.blocks(m, n, z)} blocks)"
+        return text
     if not isinstance(tile, runtime.SkinnyTile):
         return f"tiled {tuple(tile)}"
     text = f"skinny split {tile.split} x {tile.kblk}"
@@ -504,6 +597,187 @@ def parity(torch) -> None:
           f"{same}", flush=True)
 
 
+#: the (input, output) dtypes of the tensor-core kernel: bf16 to bf16, bf16
+#: to fp32 (the attention scores), float32 (3xTF32)
+TC_DTYPES = (("bfloat16", None), ("bfloat16", "float32"),
+             ("float32", None))
+
+
+def tc_cases():
+    """(kind, shape, A in padded rows) of the tensor-core parity cases:
+    every prefill GEMM of a prompt of ``TC_PROMPTS`` tokens (the values'
+    A padded, as the attention layer pads it), quickstart's 1024^3, the
+    ragged shapes."""
+    cases = [(kind, shape, padded_site(site)) for p in TC_PROMPTS
+             for site, kind, shape, _, _ in prefill_shapes(p)]
+    return cases + [(*QUICKSTART, False),
+                    *((kind, shape, False) for kind, shape in TC_RAGGED)]
+
+
+def tc_parity(torch) -> None:
+    """The tensor-core kernel against its plain version (``tc_cases``) in
+    bf16 -> bf16, bf16 -> fp32 and float32, each B layout, on the
+    configuration the runtime picks: ``wgmma`` wherever TMA can address the
+    operands (else the tiled kernel), every launch counted there; two runs
+    of split-K products bitwise equal; a one-TF32 control (the plain
+    version with TF32 GEMMs) must fail float32's atol at quickstart's
+    1024^3."""
+    from collections import Counter
+
+    from repro_torch.kernels import bmm, ref, runtime, widesa_mm
+
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    n, routes, worst = 0, Counter(), {}
+    for kind, shape, pad in tc_cases():
+        for in_name, out_name in TC_DTYPES:
+            dtype = getattr(torch, in_name)
+            out_dtype = out_name and getattr(torch, out_name)
+            for col in (False, True):
+                a, b = operands(torch, gen, kind, shape, dtype, col)
+                if pad:
+                    a = padded(torch, a)
+                fn, tiles = kernel_call(kind, shape, dtype, a, b, out_dtype)
+                tma = runtime.tma_operand(a, runtime.a_pitch(a)) and \
+                    runtime.tma_operand(b, shape[-1] if col else shape[-2])
+                want_kernel = "wgmma" if tma else "tiled"
+                mod = widesa_mm if kind == "mm" else bmm
+                before = dict(mod.variants)
+                out = fn(a, b)
+                plain = ref.mm if kind == "mm" else ref.bmm
+                want = plain(a, b, out_dtype)
+                torch.cuda.synchronize()
+                went = [v for v in mod.variants
+                        if mod.variants[v] != before[v]]
+                label = (f"{kind}{shape} {in_name}->{out_name or in_name} "
+                         f"col_major={col}{' A padded' if pad else ''} "
+                         f"{describe(tiles.tile, kind, shape)}")
+                if went != [want_kernel]:
+                    fail(f"{label}: ran {went}, the operands call for "
+                         f"{want_kernel}")
+                err, ok = max_error(torch, out, want, out.dtype)
+                if not ok:
+                    fail(f"{label}: max |err| {err}")
+                key = f"{in_name}->{out_name or in_name}"
+                worst[key] = max(worst.get(key, 0.0), err)
+                routes[want_kernel] += 1
+                n += 1
+                del a, b, out, want
+    same = []
+    for kind, shape in (("mm", (512, 1024, 1024)), ("bmm", (16, 512, 64, 512)),
+                        QUICKSTART):
+        for dtype in (torch.bfloat16, torch.float32):
+            a, b = operands(torch, gen, kind, shape, dtype, False)
+            fn, tiles = kernel_call(kind, shape, dtype, a, b)
+            if not isinstance(tiles.tile, runtime.TcTile):
+                fail(f"{kind}{shape} {dtype}: not on the tensor-core kernel")
+            first, again = fn(a, b), fn(a, b)
+            torch.cuda.synchronize()
+            if not torch.equal(first, again):
+                fail(f"{kind}{shape} {dtype} {describe(tiles.tile)}: two runs "
+                     "differ")
+            same.append(f"{kind}{shape} {str(dtype).removeprefix('torch.')} "
+                        f"split {tiles.tile.split}")
+    # one TF32 product: the plain version with TF32 GEMMs must fail
+    a, b = operands(torch, gen, *QUICKSTART, torch.float32, False)
+    want = ref.mm(a, b)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        control = ref.mm(a, b)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    err, ok = max_error(torch, control, want, torch.float32)
+    if ok:
+        fail(f"the one-TF32 control of {QUICKSTART} passes float32's atol "
+             f"1e-3 (max |err| {err})")
+    print(f"kernels: tensor-core GEMM parity ok in {n} cases (qwen prefill "
+          f"GEMMs at P = {TC_PROMPTS} with the values' A in padded rows, "
+          f"quickstart's {QUICKSTART[1]}, ragged {TC_RAGGED}; x "
+          f"{len(TC_DTYPES)} dtype pairs x 2 B layouts): "
+          f"launches by kernel {dict(routes)} (tiled: rows TMA cannot "
+          f"address); max |err| by dtype {({k: f'{v:.4g}' for k, v in worst.items()})} "
+          f"(fp32 <= 1e-3, bf16 <= 2^-7|ref| + 1e-3); bitwise equal on two "
+          f"runs: {same}; one-TF32 control max |err| {err:.4g} > 1e-3 "
+          f"(rejected)", flush=True)
+
+
+def tc_timings(torch) -> dict:
+    """The tensor-core kernel at the prefill shapes of a
+    ``TC_TIMED_PROMPT``-token prompt (bf16; the scores flush to fp32) and
+    at quickstart's float32 1024^3: ``torch.profiler`` device time of the
+    kernel on the runtime's configuration, of the tiled kernel at the
+    tile the plan maps to and of ``torch.matmul``/``torch.bmm``, beside
+    the bound (bf16 at 989 TFLOP/s, float32 at 495/3 TFLOP/s: three TF32
+    products a product) and the host time of a wrapper call.  The weight
+    GEMMs read B over a rotation of ``COLD_BYTES``."""
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    rows = {}
+    timed = [(site, kind, shape, col, n, "bfloat16")
+             for site, kind, shape, col, n in prefill_shapes(TC_TIMED_PROMPT)]
+    timed.append(("quickstart", *QUICKSTART, False, 0, "float32"))
+    for site, kind, shape, col, _, dname in timed:
+        dtype = getattr(torch, dname)
+        out_dtype = torch.float32 if "scores" in site else None
+        a, bs = rotation(torch, gen, kind, shape, col, dtype)
+        b = bs[0]
+        fn, tiles = kernel_call(kind, shape, dtype, a, b, out_dtype)
+        tiled, tile = tiled_call(kind, shape, dtype, col, out_dtype)
+        lib = torch.matmul if kind == "mm" else torch.bmm
+
+        def library(x, y):
+            return lib(x, y) if out_dtype is None else lib(x, y, out_dtype)
+
+        out = fn(a, b)
+        plain = ref.mm if kind == "mm" else ref.bmm
+        err, _ = max_error(torch, out, plain(a, b, out_dtype), out.dtype)
+        reps = max(10, len(bs))
+        row = dict(
+            tiles=tiles, tiled_tile=tile, max_abs_err=err,
+            device_ms=device_ms(torch, cycling(fn, a, bs), "gemm_tc_kernel",
+                                reps),
+            tiled_device_ms=device_ms(torch, cycling(tiled, a, bs),
+                                      "gemm_kernel", reps),
+            library_device_ms=device_ms(torch, cycling(library, a, bs), None,
+                                        reps),
+            plain_ms=time_ms(torch, lambda: plain(a, b, out_dtype)),
+            host_us=host_us(torch, cycling(fn, a, bs)),
+        )
+        if dname == "float32":  # three TF32 products a product
+            m, n, k = shape
+            row["bound_ms"], row["bound_by"] = least_ms(
+                (m * k + k * n + m * n) * 4, 3 * 2 * m * n * k, "tfloat32")
+        else:
+            row["bound_ms"], row["bound_by"] = bound_ms(
+                kind, shape, 2, out.element_size(), "bfloat16")
+        rows[(kind, shape, col)] = row
+        lib_name = f"torch.{lib.__name__}"
+        print(f"time {kind}{shape} {dname}{'->fp32' if out_dtype else ''} "
+              f"[{site}] {describe(tiles.tile, kind, shape)}"
+              f"{', B column-major' if col else ''}: device (profiler; "
+              f"{len(bs)} B operand(s)) wgmma {fmt_ms(row['device_ms'])}, "
+              f"tiled {tile} {fmt_ms(row['tiled_device_ms'])}, {lib_name} "
+              f"{fmt_ms(row['library_device_ms'])}, bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']}"
+              f"{', 3xTF32' if dname == 'float32' else ''}); plain "
+              f"{row['plain_ms']:.4f} ms (CUDA events); host per wrapper "
+              f"call {row['host_us']:.1f} us; max |err| {err:.4g}",
+              flush=True)
+        del a, b, bs, out
+    per = {key: sum(n * (rows[(kind, shape, col)][key] or 0.0)
+                    for _, kind, shape, col, n in
+                    prefill_shapes(TC_TIMED_PROMPT))
+           for key in ("device_ms", "tiled_device_ms", "library_device_ms",
+                       "bound_ms")}
+    print(f"time: the {sum(s[-1] for s in prefill_shapes(TC_TIMED_PROMPT))} "
+          f"GEMMs above 16 rows of a {TC_TIMED_PROMPT}-token qwen prefill, "
+          f"summed from the device times above: wgmma "
+          f"{per['device_ms']:.4f} ms, tiled {per['tiled_device_ms']:.4f} ms, "
+          f"library {per['library_device_ms']:.4f} ms, bound "
+          f"{per['bound_ms']:.4f} ms", flush=True)
+    return rows
+
+
 #: report sites whose shapes are not one GEMM: the frontend's FIR, conv2d
 #: and fft2d chain (held in phase 3) and the MLP pair's ``xla`` stamp
 NON_GEMM_SITES = ("frontend.", "mlp.pair")
@@ -512,8 +786,9 @@ NON_GEMM_SITES = ("frontend.", "mlp.pair")
 def drain_parity(torch, report, path: str) -> None:
     """Every GEMM shape a serving drain gave a site (``planned_report``),
     through the hand kernel on the configuration the runtime picks against
-    the plain version, in bf16 (the serving dtype): the lm_head reads its
-    B column-major, as the tied head does; the score sites flush to fp32.
+    the plain version, in bf16 (the serving dtype), in the drain's
+    layouts: the lm_head and the scores read B column-major, the values
+    their A in padded rows; the score sites flush to fp32.
     Run after the drain's counts are read, so these launches count for
     no path."""
     from collections import Counter
@@ -528,9 +803,11 @@ def drain_parity(torch, report, path: str) -> None:
     worst, routes = 0.0, Counter()
     for site, shape in cases:
         kind = "mm" if len(shape) == 3 else "bmm"
-        col = site == "lm_head"
+        col = col_major_site(site, shape)
         out_dtype = torch.float32 if "scores" in site else None
         a, b = operands(torch, gen, kind, shape, torch.bfloat16, col)
+        if padded_site(site):
+            a = padded(torch, a)
         fn, tiles = kernel_call(kind, shape, torch.bfloat16, a, b, out_dtype)
         plain = ref.mm if kind == "mm" else ref.bmm
         out, want = fn(a, b), plain(a, b, out_dtype)
@@ -727,13 +1004,13 @@ def timings(torch) -> dict:
         )
         row["bound_ms"], row["bound_by"] = bound_ms(
             kind, shape, 2, out.element_size(), "bfloat16")
-        rows[(kind, shape)] = row
+        rows[(kind, shape, col)] = row
         lib_name = f"torch.{lib.__name__}"
         held = (f"{len(bs)} B operands of "
                 f"{b.numel() * b.element_size() / 2**20:.1f} MiB, cold"
                 if row["cold"] else "one B, warm")
         print(f"time {kind}{shape} bf16 [{site}] "
-              f"{describe(tiles.tile, kind, shape)}: device ({held}) "
+              f"{describe(tiles.tile, kind, shape)}{', B column-major' if col else ''}: device ({held}) "
               f"skinny {fmt_ms(row['device_ms'])}, tiled {tile} "
               f"{fmt_ms(row['tiled_device_ms'])}, {lib_name} "
               f"{fmt_ms(row['library_device_ms'])}, bound "
@@ -749,8 +1026,8 @@ def timings(torch) -> dict:
                          cycling(facade, a, bs))
         del a, b, bs, out, want
     # the GEMM share of one decode step, from the per-shape device times
-    step = {key: sum(n * (rows[(kind, shape)][key] or 0.0)
-                     for _, kind, shape, _, n in MAIN_SHAPES)
+    step = {key: sum(n * (rows[(kind, shape, col)][key] or 0.0)
+                     for _, kind, shape, col, n in MAIN_SHAPES)
             for key in ("device_ms", "tiled_device_ms", "library_device_ms",
                         "bound_ms")}
     print(f"time: the {sum(s[-1] for s in MAIN_SHAPES)} GEMMs of a 4-lane "
@@ -759,7 +1036,7 @@ def timings(torch) -> dict:
           f"{step['tiled_device_ms']:.4f} ms, library "
           f"{step['library_device_ms']:.4f} ms, bound "
           f"{step['bound_ms']:.4f} ms", flush=True)
-    slower = [f"{kind}{shape}" for (kind, shape), row in rows.items()
+    slower = [f"{kind}{shape}" for (kind, shape, _), row in rows.items()
               if None not in (row["device_ms"], row["tiled_device_ms"])
               and row["device_ms"] > row["tiled_device_ms"]]
     print(f"time: shapes where the skinny kernel's device time is above the "
@@ -1124,26 +1401,162 @@ def profile_decode(torch, eng) -> None:
                              ProfilerActivity.CUDA]) as prof:
         step()
     per_step = f"GEMM launches by kernel {read_variants()}"
-    us = {"skinny_kernel": 0.0, "gemm_kernel": 0.0, "other": 0.0}
-    for evt in prof.key_averages():
-        name = next((k for k in us if k in evt.key), "other")
-        us[name] += getattr(evt, "self_device_time_total", 0.0)
+    ms = device_by_kernel(prof)
     wall = sorted(walls)[len(walls) // 2]
-    busy = sum(us.values()) / 1e3
+    busy = sum(ms.values())
     if busy == 0:
         print(f"profile: decode step {wall:.2f} ms on the host clock "
               f"(median of 5), {per_step}; device busy time not measured "
               "(the profiler recorded no device events)", flush=True)
         return
-    hand = (us["skinny_kernel"] + us["gemm_kernel"]) / 1e3
+    hand = sum(ms[k] for k in GEMM_KERNELS)
     print(f"profile: decode step {wall:.2f} ms on the host clock (median "
           f"of 5), {per_step}; device busy {busy:.2f} ms in the traced "
           f"step: hand GEMM kernels {hand:.3f} ms (skinny "
-          f"{us['skinny_kernel'] / 1e3:.3f} ms, tiled "
-          f"{us['gemm_kernel'] / 1e3:.3f} ms; {TILED_STEP_GEMM_MS} ms when "
-          f"all ran tiled), other kernels {us['other'] / 1e3:.2f} ms; "
-          f"device idle {max(0.0, 1 - busy / wall):.0%} of the step",
-          flush=True)
+          f"{ms['skinny']:.3f} ms, wgmma {ms['wgmma']:.3f} ms, tiled "
+          f"{ms['tiled']:.3f} ms; {TILED_STEP_GEMM_MS} ms when all ran "
+          f"tiled), other kernels {ms['other']:.2f} ms; device idle "
+          f"{max(0.0, 1 - busy / wall):.0%} of the step", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# prefill
+# ---------------------------------------------------------------------------
+
+#: the profiler's name of each GEMM kernel (``variants`` keys)
+GEMM_KERNELS = {"skinny": "skinny_kernel", "wgmma": "gemm_tc_kernel",
+                "tiled": "gemm_kernel"}
+
+
+def device_by_kernel(prof) -> dict:
+    """Device time (ms) of a ``torch.profiler`` trace by GEMM kernel, and
+    of everything else under ``other``."""
+    us = dict.fromkeys([*GEMM_KERNELS, "other"], 0.0)
+    for evt in prof.key_averages():
+        name = next((v for v, k in GEMM_KERNELS.items() if k in evt.key),
+                    "other")
+        us[name] += getattr(evt, "self_device_time_total", 0.0)
+    return {k: v / 1e3 for k, v in us.items()}
+
+
+def prefill_phase(torch, device_name: str) -> tuple[dict, dict]:
+    """Full-width qwen1.5-0.5b on the slot engine (4 slots, max_seq
+    ``PREFILL_MAX_SEQ``) serving prompts of ``PREFILL_PROMPTS`` tokens, 8
+    new tokens each: every prefill GEMM above 16 rows on the tensor-core
+    kernel (``check_routes``), then the drain's GEMM shapes against the
+    plain versions, each prompt's prefill logits against the plain
+    versions, and one prefill of the longest prompt timed and traced."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import planned
+    from repro_torch.serve import make_engine
+
+    cfg = get_config(ARCH)
+    eng = make_engine(cfg, kind="slot", max_slots=SLOTS,
+                      max_seq=PREFILL_MAX_SEQ, device="cuda")
+    params = eng.api.init(torch.Generator(device="cuda").manual_seed(0))
+    eng.load(params)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab, p) for p in PREFILL_PROMPTS]
+    for p in prompts:
+        eng.submit_text(p, max_new_tokens=MAX_NEW)
+
+    # the prefill path: counts start at 0 here and are read right after
+    planned.planned_report_clear()
+    reset_counts()
+    t0 = time.perf_counter()
+    done = eng.run_until_drained()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_counts()
+    variants = read_variants()
+    report = planned.planned_report()
+
+    if len(done) != len(prompts) or any(len(r.output) != MAX_NEW
+                                        for r in done):
+        fail(f"prefill requests did not finish with their budget: "
+             f"{[(r.rid, len(r.output)) for r in done]}")
+    bad = {s: (st["planned"], st["fallback"], st["reasons"])
+           for s, st in report.items()
+           if st["planned"] == 0 or st["fallback"] != 0}
+    if bad or not report:
+        fail(f"prefill sites that fell back or never planned: {bad}")
+    if min(variants["widesa_mm"]["wgmma"], variants["bmm"]["wgmma"]) == 0:
+        fail(f"the tensor-core kernel was not launched on the prefill path: "
+             f"{variants}")
+    routes = check_routes("prefill", report, variants)
+    tokens = sum(len(r.output) for r in done)
+    print(f"prefill: {ARCH} full width, prompts of {PREFILL_PROMPTS} tokens "
+          f"(max_seq {PREFILL_MAX_SEQ}): {len(done)} requests / {tokens} "
+          f"tokens in {dt:.3f} s on {device_name}; launches {launches}; GEMM "
+          f"launches by kernel {variants} ({routes}); {len(report)} sites all "
+          f"planned", flush=True)
+    drain_parity(torch, report, "prefill")
+
+    worst = 0.0
+    by_rid = {r.rid: r for r in done}
+    with torch.no_grad():
+        for rid, p in enumerate(prompts):
+            tok = torch.as_tensor(p[None], device="cuda")
+            logits, _ = eng.api.prefill(params, {"tokens": tok},
+                                        PREFILL_MAX_SEQ)
+            with planned.override(enabled=False):
+                want, _ = eng.api.prefill(params, {"tokens": tok},
+                                          PREFILL_MAX_SEQ)
+            if logits.shape != (1, cfg.vocab) or not torch.isfinite(
+                    logits).all():
+                fail(f"prefill request {rid}: bad logits {logits.shape}")
+            err = (logits.float() - want.float()).abs().max().item()
+            worst = max(worst, err)
+            if err > LOGIT_ATOL:
+                fail(f"prefill request {rid} ({len(p)} tokens): logits differ "
+                     f"by {err} > {LOGIT_ATOL} from the plain versions")
+            if by_rid[rid].output[0] != int(torch.argmax(logits[0])):
+                fail(f"prefill request {rid}: engine's first token is not the "
+                     "argmax of its prefill logits")
+    print(f"prefill: logits of the {len(prompts)} prompts match the plain "
+          f"versions, max |diff| {worst:.4f} <= {LOGIT_ATOL}; first tokens "
+          f"match", flush=True)
+    profile_prefill(torch, eng, prompts[-1])
+    return launches, variants
+
+
+def profile_prefill(torch, eng, prompt) -> None:
+    """Host time of one prefill of ``prompt`` (median of 5), and the card's
+    busy time in it by GEMM kernel (``torch.profiler``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    tok = torch.as_tensor(prompt[None], device="cuda")
+
+    def run():
+        with torch.no_grad():
+            eng.api.prefill(eng.params, {"tokens": tok}, PREFILL_MAX_SEQ)
+        torch.cuda.synchronize()
+
+    run()
+    walls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        run()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    reset_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+    wall = sorted(walls)[len(walls) // 2]
+    ms = device_by_kernel(prof)
+    busy = sum(ms.values())
+    gemm = ", ".join(f"{k} {ms[k]:.3f} ms" for k in GEMM_KERNELS)
+    print(f"profile: prefill of {len(prompt)} tokens {wall:.2f} ms on the "
+          f"host clock (median of 5), GEMM launches by kernel "
+          f"{read_variants()}; device busy {busy:.3f} ms in the traced "
+          f"prefill: GEMM kernels {gemm}, other kernels {ms['other']:.3f} ms; "
+          f"device idle {max(0.0, 1 - busy / wall):.0%} of the prefill"
+          if busy else
+          f"profile: prefill of {len(prompt)} tokens {wall:.2f} ms on the "
+          f"host clock (median of 5); device busy time not measured (the "
+          f"profiler recorded no device events)", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1276,7 +1689,8 @@ HPC_RAGGED = {"jacobi2d": (61, 59), "jacobi2d_9pt": (61, 59),
 #: the shapes and dtypes timed, the first of each kernel its kernels-line row
 HPC_TIMED = (("jacobi2d", "float32"), ("jacobi2d", "int8"),
              ("jacobi2d_9pt", "float32"), ("jacobi2d_ms", "float32"),
-             ("mttkrp", "float32"), ("mttkrp", "int8"), ("mttkrp", "int16"))
+             ("mttkrp", "float32"), ("mttkrp", "int8"), ("mttkrp", "int16"),
+             ("mttkrp", "int32"))
 #: the profiler's name of each MTTKRP kernel (``mttkrp.variants`` keys)
 MTTKRP_KERNELS = {"tensor_core": "mttkrp_tc_kernel",
                   "cuda_core": "mttkrp_kernel"}
@@ -1553,6 +1967,73 @@ def mttkrp_sweep(torch) -> list[dict]:
     return rows
 
 
+#: the prompt lengths ``--tc-sweep`` times
+TC_SWEEP_PROMPTS = (512, 127, 64)
+
+
+def tc_sweep(torch) -> list[dict]:
+    """The tensor-core GEMM at every prefill shape of ``TC_SWEEP_PROMPTS``
+    tokens (bf16; the scores flush to fp32, read K column-major; the
+    values' A in padded rows) and quickstart's float32 1024^3, with every
+    compiled tile of the dtype, split of K over 1-4 blocks (each rank a
+    k-tile) and ring of 2 or 4 stages, each held to the plain version;
+    profiler device time beside the runtime's pick and the library call
+    (weight GEMMs over a rotation of ``COLD_BYTES``)."""
+    from repro_torch.kernels import ref, runtime
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    cases = [(site, kind, shape, col, "bfloat16")
+             for p in TC_SWEEP_PROMPTS
+             for site, kind, shape, col, _ in prefill_shapes(p)]
+    cases.append(("quickstart", *QUICKSTART, False, "float32"))
+    rows = []
+    for site, kind, shape, col, dname in cases:
+        dtype = getattr(torch, dname)
+        out_dtype = torch.float32 if "scores" in site else None
+        a, bs = rotation(torch, gen, kind, shape, col, dtype)
+        if padded_site(site):
+            a = padded(torch, a)
+        fn, plain = gemm_fn(kind), ref.mm if kind == "mm" else ref.bmm
+        want = plain(a, bs[0], out_dtype)
+        picked = runtime.gemm_tile(a, bs[0], (64, 32, 32))
+        ktiles = -(-shape[-1] * dtype.itemsize // runtime.TC_ROW_BYTES)
+        times = {}
+        for bm, bn in runtime.TC_TILES[dtype]:
+            for split in range(1, runtime.TC_MAX_SPLIT + 1):
+                if (split - 1) * -(-ktiles // split) >= ktiles:
+                    continue
+                for stages in (2, runtime.TC_MAX_STAGES):
+                    tile = runtime.TcTile(bm, bn, stages, split)
+                    err, ok = max_error(torch, fn(a, bs[0], tiles=tile,
+                                                  out_dtype=out_dtype),
+                                        want, want.dtype)
+                    if not ok:
+                        fail(f"{kind}{shape} {dname} {tile}: max |err| {err}")
+                    times[tile] = device_ms(
+                        torch, cycling(lambda x, y, t=tile: fn(
+                            x, y, tiles=t, out_dtype=out_dtype), a, bs),
+                        "gemm_tc_kernel", max(10, len(bs)))
+        lib = torch.matmul if kind == "mm" else torch.bmm
+        library = device_ms(torch, cycling(
+            lambda x, y: lib(x, y) if out_dtype is None
+            else lib(x, y, out_dtype), a, bs), None, max(10, len(bs)))
+        best = min((t for t in times if times[t]), key=times.get)
+        rows.append(dict(site=site, kind=kind, shape=shape, dtype=dname,
+                         picked=str(picked), best=str(best),
+                         times={str(t): ms for t, ms in times.items()},
+                         library=library))
+        by = ", ".join(f"{t.bm}x{t.bn}/{t.split}/{t.stages} "
+                       f"{fmt_ms(ms).removesuffix(' ms')}"
+                       for t, ms in times.items())
+        print(f"sweep {kind}{shape} {dname} [{site}]: picked "
+              f"{describe(picked, kind, shape)} {fmt_ms(times.get(picked))}, "
+              f"fastest {describe(best, kind, shape)} {fmt_ms(times[best])}, "
+              f"library {fmt_ms(library)}; device ms by tile/split/stages: "
+              f"{by}", flush=True)
+        del a, bs, want
+    return rows
+
+
 def recurrences_phase(torch) -> tuple[dict, dict, dict]:
     """Phase 6 (module docstring): the launches of the pipeline run (all
     and the GEMMs' by kernel), and the B6 / B7 time rows."""
@@ -1583,10 +2064,23 @@ def recurrences_phase(torch) -> tuple[dict, dict, dict]:
             by_kernel[k] == 0 for k in set(cases.values())):
         fail(f"recurrences: mttkrp launches {launches['mttkrp']} by kernel "
              f"{by_kernel} do not match its cases {cases}")
+    # every float32 mm / bmm above 16 rows on the tensor-core kernel
+    from repro_torch.kernels import runtime
+    floats = [row for row in rows if row["name"] in ("mm", "bmm")
+              and row["dtype"] == "float32"
+              and row["args"][-3] > runtime.SKINNY_ROWS]
+    off = [(row["name"], row["args"], row["tiles"].tile) for row in floats
+           if not isinstance(row["tiles"].tile, runtime.TcTile)]
+    if off or not floats or 0 in (variants["widesa_mm"]["wgmma"],
+                                  variants["bmm"]["wgmma"]):
+        fail(f"recurrences: float32 GEMMs above 16 rows off the tensor-core "
+             f"kernel: {off} (launches by kernel {variants})")
     print(f"recurrences: {len(rows)} cases through lower_plan(plan, "
           f"'pallas') within tolerance in {dt:.1f} s; launches {launches}; "
           f"launches by kernel {variants} (GEMMs: the skinny kernel for at "
-          f"most 16 rows of A, the tiled one above; mttkrp cases {cases})",
+          f"most 16 rows of A, the tensor-core one above in float32 "
+          f"({len(floats)} cases: {[(r['name'], r['args']) for r in floats]}) "
+          f"and bf16, the tiled one for the integers; mttkrp cases {cases})",
           flush=True)
     torch.cuda.empty_cache()
     hpc_parity(torch)
@@ -1617,8 +2111,11 @@ def main(argv=None) -> int:
     ap.add_argument("--mttkrp-sweep", action="store_true",
                     help="only time the tensor-core MTTKRP with every split "
                          "of K at the bench size")
-    ap.add_argument("--out", help="with --tile-sweep or --mttkrp-sweep: "
-                                  "write the times here as JSON")
+    ap.add_argument("--tc-sweep", action="store_true",
+                    help="only time the tensor-core GEMM with every tile, "
+                         "split and ring depth at the prefill shapes")
+    ap.add_argument("--out", help="with a sweep: write the times here as "
+                                  "JSON")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -1638,6 +2135,7 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     paths = build.build(("widesa_hpc",) if args.mttkrp_sweep
+                        else ("widesa_mm",) if args.tc_sweep
                         else tuple(build.SOURCES))
     for lib in paths:
         build.library(lib)
@@ -1650,8 +2148,8 @@ def main(argv=None) -> int:
           f"kernels, at most {max(regs, default=0)} registers a thread, "
           f"{sum(int(x) for x in spills)} bytes of spill stores)", flush=True)
 
-    if args.mttkrp_sweep:
-        rows = mttkrp_sweep(torch)
+    if args.mttkrp_sweep or args.tc_sweep:
+        rows = mttkrp_sweep(torch) if args.mttkrp_sweep else tc_sweep(torch)
         if args.out:
             Path(args.out).write_text(json.dumps(rows, indent=1))
         return 0
@@ -1665,12 +2163,15 @@ def main(argv=None) -> int:
             Path(args.out).write_text(json.dumps(rows, indent=1))
         return 0
     parity(torch)
+    tc_parity(torch)
     sp_parity(torch)
     rows = timings(torch)
+    tc_rows = tc_timings(torch)
     rows.update(sp_timings(torch))
     print("kernels: widesa_mm (B1, widesa_mm.py mm_kernel -> cuda), bmm "
           "(B2, bmm.py bmm_kernel -> cuda) in " + SOURCE + " (skinny_kernel "
-          "for M <= 16, gemm_kernel tiled above); fir (B3, fir.py fir_kernel "
+          "for M <= 16, gemm_tc_kernel on wgmma above in bf16 and float32, "
+          "gemm_kernel tiled for the rest); fir (B3, fir.py fir_kernel "
           "-> cuda), conv2d (B5, conv2d.py conv_kernel -> cuda) in "
           + SP_SOURCE + "; fft2d (B4, fft2d.py _cmul_mm -> six widesa_mm "
           "launches); jacobi2d (B6, jacobi2d.py jacobi_kernel -> cuda), "
@@ -1680,6 +2181,8 @@ def main(argv=None) -> int:
 
     launches, variants = serve(torch, name)
     torch.cuda.empty_cache()
+    prefill_launches, prefill_variants = prefill_phase(torch, name)
+    torch.cuda.empty_cache()
     stream_launches, stream_variants = stream_serve(torch, name)
     torch.cuda.empty_cache()
     rec_launches, rec_variants, hpc_rows = recurrences_phase(torch)
@@ -1688,12 +2191,13 @@ def main(argv=None) -> int:
 
     summary = []
     for kname, k in KERNELS.items():
-        row = rows[(k["kind"], k["shape"])] if "kind" in k \
+        row = rows[(k["kind"], k["shape"], k["col_major"])] if "kind" in k \
             else rows[(kname, "main")]
         entry = {
             "name": kname, "route": "cuda", "source": k["source"],
             "replaces": k["replaces"],
             "launches": {"qwen": launches[kname],
+                         "qwen_prefill": prefill_launches[kname],
                          "whisper_stream": stream_launches[kname],
                          "recurrences": rec_launches[kname]},
             "max_abs_err": row["max_abs_err"],
@@ -1707,6 +2211,7 @@ def main(argv=None) -> int:
             # call, mttkrp's (the CUDA-core kernel's beside)
             entry["launches_by_kernel"] = {
                 "qwen": variants[kname],
+                "qwen_prefill": prefill_variants[kname],
                 "whisper_stream": stream_variants[kname],
                 "recurrences": rec_variants[kname]}
             keys = (("device_ms", "cuda_core_device_ms",
@@ -1715,6 +2220,16 @@ def main(argv=None) -> int:
                     ("device_ms", "tiled_device_ms", "library_device_ms",
                      "host_us", "facade_us"))
             entry.update({key: row[key] for key in keys})
+        if kname in WGMMA_SHAPES:
+            # the tensor-core kernel at its prefill shape, the tiled
+            # kernel and the library call beside it
+            kind, shape, col = WGMMA_SHAPES[kname]
+            tc = tc_rows[(kind, shape, col)]
+            entry["wgmma"] = {"shape": f"{kind}{shape}",
+                              **{key: tc[key] for key in (
+                                  "device_ms", "tiled_device_ms",
+                                  "library_device_ms", "plain_ms",
+                                  "bound_ms", "host_us")}}
         summary.append(entry)
     print(json.dumps({"kernels": summary}))
     print(smi)

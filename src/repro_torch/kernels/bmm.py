@@ -17,8 +17,9 @@ from . import ref
 from .widesa_mm import check_operands, launch
 
 launches = 0
-#: launches by kernel: ``skinny`` (M <= 16) and ``tiled``
-variants = {"skinny": 0, "tiled": 0}
+#: launches by kernel: ``skinny`` (M <= 16), ``wgmma`` (the tensor-core
+#: kernel) and ``tiled``
+variants = {"skinny": 0, "wgmma": 0, "tiled": 0}
 
 
 def bmm(a: torch.Tensor, b: torch.Tensor, *, tiles,
@@ -27,12 +28,12 @@ def bmm(a: torch.Tensor, b: torch.Tensor, *, tiles,
     global launches
     if a.device.type == "cpu" and b.device.type == "cpu":
         return ref.bmm(a, b, out_dtype)
-    out_dtype, col_major, b_copy = check_operands(a, b, tiles, out_dtype,
-                                                  batched=True)
+    out_dtype, *layout = check_operands(a, b, tiles, out_dtype,
+                                        batched=True)
     out = torch.empty((*a.shape[:2], b.shape[2]), dtype=out_dtype,
                       device=a.device)
     if out.numel() == 0:
         return out
-    variants[launch(a, b, out, tiles, col_major, b_copy, batched=True)] += 1
+    variants[launch(a, b, out, tiles, *layout, batched=True)] += 1
     launches += 1
     return out

@@ -1,7 +1,7 @@
 """Build and bind the port's CUDA kernels (nvcc -> shared library -> ctypes).
 
 The sources live in ``csrc/``: ``widesa_mm.cu`` (the mm/bmm GEMMs:
-the skinny kernel and the tiled one),
+the skinny kernel, the tensor-core one and the tiled one),
 ``widesa_sp.cu`` (the FIR and conv2d signal-processing kernels) and
 ``widesa_hpc.cu`` (the star stencil and the two MTTKRP kernels).  Each
 source is its own shared library; the first call on a machine compiles
@@ -112,14 +112,18 @@ MTTKRP_TILE = (64, 64)
 #: entry point -> (library, argument types): pointers, then the ints of
 #: the shape, dtype codes and tile, then the stream
 _ENTRIES = {
+    # the GEMMs: (batch,) shape, A's row pitch, B's layout, dtypes, then
+    # the tiled kernel's tile; the skinny kernel's split, K range per block,
+    # B's copy width and A's vector flag; the tensor-core kernel's output
+    # tile, ring stages and split of K
     "widesa_mm_launch": ("widesa_mm", [ctypes.c_void_p] * 3
-                         + [ctypes.c_int] * 9 + [ctypes.c_void_p]),
+                         + [ctypes.c_int] * 10 + [ctypes.c_void_p]),
     "widesa_bmm_launch": ("widesa_mm", [ctypes.c_void_p] * 3
-                          + [ctypes.c_int] * 10 + [ctypes.c_void_p]),
-    # the skinny kernel (mm and bmm): batch, shape, layout, dtypes, split,
-    # K range per block, B's copy width, A's vector flag
+                          + [ctypes.c_int] * 11 + [ctypes.c_void_p]),
     "widesa_skinny_launch": ("widesa_mm", [ctypes.c_void_p] * 3
-                             + [ctypes.c_int] * 11 + [ctypes.c_void_p]),
+                             + [ctypes.c_int] * 12 + [ctypes.c_void_p]),
+    "widesa_tc_launch": ("widesa_mm", [ctypes.c_void_p] * 3
+                         + [ctypes.c_int] * 12 + [ctypes.c_void_p]),
     "widesa_fir_launch": ("widesa_sp", [ctypes.c_void_p] * 3
                           + [ctypes.c_int] * 5 + [ctypes.c_void_p]),
     "widesa_conv2d_launch": ("widesa_sp", [ctypes.c_void_p] * 3

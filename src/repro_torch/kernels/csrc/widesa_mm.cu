@@ -4,23 +4,27 @@
 //   * src/repro/kernels/widesa_mm.py:92  mm_kernel   (C[m,n] = A[m,k] @ B[k,n])
 //   * src/repro/kernels/bmm.py:74        bmm_kernel  (C[b]   = A[b]   @ B[b])
 // Both become one family with a batch grid dimension; mm is the batch = 1
-// launch.  Two kernels serve it: skinny_kernel for A of at most 16 rows (every
-// GEMM of the serving paths), gemm_kernel (tiled) for everything else and for
-// operands the skinny kernel cannot take (rows of B not 4-byte aligned).
+// launch.  Three kernels serve it: skinny_kernel for A of at most 16 rows
+// (every decode GEMM, short prompts), gemm_tc_kernel for A of more rows in
+// bf16 and float32 (prefill of real prompt lengths, the recurrence path's
+// float GEMMs), and gemm_kernel (tiled) for everything else: integers above
+// 16 rows, and operands the other two cannot take (rows of B not 4-byte
+// aligned for the skinny kernel; bases or rows that TMA cannot address for
+// gemm_tc_kernel).
 //
 // Translation.  On the TPU the grid (b, i, j, k) runs in order on one core
 // and the k dimension ("arbitrary") carries an fp32/int32 accumulator in VMEM
 // scratch between grid steps.  Here blocks run in parallel in no order, so
 // the k loop moves inside the block (or, split, into a cluster of blocks that
 // reduce in a fixed order), accumulates in registers (fp32 for float inputs,
-// 32-bit for integers) and flushes once to the output dtype.  Both kernels
+// 32-bit for integers) and flushes once to the output dtype.  The kernels
 // mask the ragged edges of every dimension themselves, so the wrapper makes
 // no padding copies (the reference's ops.matmul / ops.bmm pad operands to the
 // plan tiles).
 //
-// What bounds it on an H100.  Every serving GEMM has M <= 16 (a decode batch,
-// a prompt of at most 16 tokens, an 8-frame audio chunk, one GQA query row),
-// so each is bound by the bytes of B: 2 FLOP per element of B against the
+// skinny_kernel: M <= 16.  Every decode GEMM has M <= 16 (a decode batch, an
+// 8-frame audio chunk, one GQA query row), as has the prefill of a prompt of
+// at most 16 tokens, so each is bound by the bytes of B: 2 FLOP per element of B against the
 // card's ~295 bf16 FLOP per byte.  The tied lm_head alone reads 151936 x 1024
 // x 2 B = 311 MB, 93 us at 3.35 TB/s.  skinny_kernel serves that bound:
 //
@@ -53,9 +57,70 @@
 //     quarter of each stage's K, and the four quarters are added by warp
 //     shuffles in a fixed order.
 //
+// gemm_tc_kernel: A of more than 16 rows.  A prompt of P tokens makes 9
+// GEMMs a layer of qwen1.5-0.5b with M = P (q/k/v/o [P,1024]x[1024,1024],
+// gate/up [P,1024]x[1024,2816], down [P,2816]x[2816,1024], the scores and the
+// values, 16 heads of [P,64]x[64,P] and [P,P]x[P,64]).  At P = 512 a weight
+// GEMM does 1.1-3.0 GFLOP over 4-10 MB: 1.1-3.0 us at 989 TFLOP/s bf16 and
+// 1.25-2.9 us at 3.35 TB/s, so both bounds are near, and only the tensor
+// cores fed from shared memory at the rate wgmma reads it come close (the
+// CUDA cores' fp32 FMA peak is 15x lower).  What holds these shapes back on
+// an H100 is the grid: 128 x 128 output tiles give 32-88 blocks for 132 SMs,
+// and a block then pulls 0.4-1.4 MB of tiles through its own SM's L2 port,
+// which takes longer than its products.  The design:
+//   * wgmma.  Two consumer warpgroups each own 64 rows of a 128 x BN tile
+//     and run m64nBNk16 with fp32 accumulators, both operands from shared
+//     memory: A K-major, B K-major when it is the transpose of a row-major
+//     tensor (the tied lm_head, the attention scores' keys) and MN-major
+//     (the "transposed" descriptor, which 16-bit types allow) when it is
+//     row-major (weights, the attention values).
+//   * TMA.  One producer warp keeps a ring of up to 4 stages filled with
+//     cp.async.bulk.tensor copies, each stage one 128-byte row of K (64 bf16)
+//     for every row of A's and B's tiles, completing on an mbarrier; the
+//     consumers release a stage through a second mbarrier once the products
+//     that read it are done (one wgmma group stays in flight).  The tensor
+//     maps are 3-D (the batch is the grid's z) with the 128-byte swizzle the
+//     descriptors name, and TMA zero-fills past M, N and K, so ragged edges
+//     need no padding copies.  The maps are encoded on the host at each
+//     launch (cuTensorMapEncodeTiled, looked up at run time through the
+//     runtime's entry-point query, so the library links the CUDA runtime
+//     alone).
+//   * The grid.  runtime.tc_tile takes BN = 64 but for wide N (gate/up) and
+//     splits K over the blocks of a cluster (at most 4) while the grid stays
+//     within one block an SM: more blocks, each with fewer bytes to pull.
+//     Each block leaves its fp32 partial tile in shared memory (the ring,
+//     once consumed); each rank sums its share of the rows over the cluster
+//     in rank order through distributed shared memory (the same bits on
+//     every run) and stores them 16 bytes at a time.  Unsplit, the same
+//     staging makes the stores coalesced (the fp32 attention scores are
+//     bound by them).
+//   * float32 as 3xTF32, as the tensor-core MTTKRP (widesa_hpc.cu): lo*hi +
+//     hi*lo + hi*hi, the small terms first, fp32 accumulation: each stage's
+//     products go to a fresh accumulator that is added to the sums on the
+//     CUDA cores (round to nearest) once the stage is done: the tensor
+//     cores' additions to a large accumulator lose more than fp32 rounding
+//     (one accumulator over the 384 products of K = 1024, sums near 100,
+//     erred 1.0e-3 on an H100, a fresh one a stage 2.6e-4; bf16 with a
+//     float32 output does the same).  TF32 wgmma reads only
+//     K-major operands from shared memory, and a row-major B is MN-major, so
+//     the kernel computes C^T = B^T A^T: B's tile is the register operand
+//     (the warps load it in fragment order from the swizzled stage and split
+//     each value as hi = rna_tf32(x), lo = x - hi), A's tile the
+//     shared-memory operand, K-major in both layouts of B.  The tensor cores
+//     read A's tile itself as trunc_tf32(x); the consumers write lo = x -
+//     trunc_tf32(x) (exact) beside it once a stage.  A product keeps about
+//     2^-19 |a b| of error (2^-20 from lo of A read truncated, 2^-21 each
+//     from lo of B read truncated and from the dropped lo*lo), against 2^-11
+//     for one TF32 product, which the registry's atol 1e-3 rejects at K =
+//     1024.  Each warpgroup owns 64 columns of C (BN = 128) and BM = 64 or
+//     128 rows (m64nBMk8).
+// Operands TMA cannot address (a base not 16-byte aligned, rows that are not
+// whole 16-byte units) and the integer dtypes stay on gemm_kernel.
+//
 // gemm_kernel is the first, simple tiled kernel: scalar loads staged through
-// shared memory, no tensor cores.  It stays for M > 16 (quickstart's 1024^3,
-// the registry's smoke sizes) and for operands the skinny kernel refuses.
+// shared memory, no tensor cores.  It stays for integers above 16 rows (the
+// registry's smoke sizes), for operands neither other kernel takes, and as
+// the tile sweep's subject.
 //
 // Arithmetic.  Float inputs accumulate in fp32 (full IEEE FMA on the CUDA
 // cores; fp32 accumulation on the tensor cores for bf16); bf16 operands widen
@@ -65,11 +130,15 @@
 // modulo 2^32 with defined behaviour, which is bit-exact with XLA's int32
 // wraparound in any order.
 //
-// Layouts.  A is row-major [batch, M, K]; C is row-major [batch, M, N]; B is
-// row-major [batch, K, N] or, with b_col_major, the transpose of a row-major
-// [batch, N, K] (the tied lm_head reads the embedding table as its B).
+// Layouts.  A is row-major [batch, M, K] with rows lda >= K elements apart
+// (the attention values' softmax weights come in rows padded to whole
+// 16-byte units, so that TMA addresses them at any key count); C is
+// row-major [batch, M, N]; B is row-major [batch, K, N] or, with
+// b_col_major, the transpose of a row-major [batch, N, K] (the tied lm_head
+// reads the embedding table as its B, the attention scores read K so).
 
 #include <cooperative_groups.h>
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -128,7 +197,7 @@ template <int BM, int BN> struct Geometry {
 template <typename TIn, typename TOut, int BM, int BN, int BK>
 __global__ void __launch_bounds__(Geometry<BM, BN>::kThreads)
 gemm_kernel(const TIn* __restrict__ a, const TIn* __restrict__ b,
-            TOut* __restrict__ c, int m, int n, int k, int b_col_major) {
+            TOut* __restrict__ c, int m, int n, int k, int lda, int b_col_major) {
   using Acc = typename Elem<TIn>::Acc;
   using G = Geometry<BM, BN>;
   constexpr int NT = G::kThreads, TM = G::TM, TN = G::TN;
@@ -142,7 +211,7 @@ gemm_kernel(const TIn* __restrict__ a, const TIn* __restrict__ b,
   const int row0 = blockIdx.x * BM;
   const int col0 = blockIdx.y * BN;
   const size_t z = blockIdx.z;
-  a += z * (size_t)m * k;
+  a += z * (size_t)m * lda;
   b += z * (size_t)k * n;
   c += z * (size_t)m * n;
 
@@ -157,7 +226,7 @@ gemm_kernel(const TIn* __restrict__ a, const TIn* __restrict__ b,
     for (int e = tid; e < BM * BK; e += NT) {
       const int r = e / BK, kk = e % BK;
       const int gr = row0 + r, gk = k0 + kk;
-      As[kk][r] = (gr < m && gk < k) ? Elem<TIn>::load(a + (size_t)gr * k + gk) : Acc(0);
+      As[kk][r] = (gr < m && gk < k) ? Elem<TIn>::load(a + (size_t)gr * lda + gk) : Acc(0);
     }
     // B slice [BK, BN]: consecutive threads follow the unit-stride dimension
     if (b_col_major) {
@@ -205,7 +274,7 @@ struct Args {
   const void* a;
   const void* b;
   void* c;
-  int batch, m, n, k, b_col_major;
+  int batch, m, n, k, lda, b_col_major;
   cudaStream_t stream;
 };
 
@@ -214,7 +283,7 @@ int launch_tile(const Args& x) {
   const dim3 grid((x.m + BM - 1) / BM, (x.n + BN - 1) / BN, x.batch);
   gemm_kernel<TIn, TOut, BM, BN, BK><<<grid, Geometry<BM, BN>::kThreads, 0, x.stream>>>(
       static_cast<const TIn*>(x.a), static_cast<const TIn*>(x.b), static_cast<TOut*>(x.c),
-      x.m, x.n, x.k, x.b_col_major);
+      x.m, x.n, x.k, x.lda, x.b_col_major);
   return (int)cudaGetLastError();
 }
 
@@ -245,6 +314,7 @@ int launch_dtype(int bm, int bn, int bk, const Args& x) {
 }
 
 int launch(int in_dtype, int out_dtype, int bm, int bn, int bk, const Args& x) {
+  if (x.lda < x.k) return (int)cudaErrorInvalidValue;
   if (in_dtype == F32 && out_dtype == F32) return launch_dtype<float, float>(bm, bn, bk, x);
   if (in_dtype == BF16 && out_dtype == BF16)
     return launch_dtype<__nv_bfloat16, __nv_bfloat16>(bm, bn, bk, x);
@@ -404,7 +474,8 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0, uint32_t a1
 template <typename TIn, typename TOut>
 __global__ void __launch_bounds__(kSkinnyThreads)
 skinny_kernel(const TIn* __restrict__ a, const TIn* __restrict__ b, TOut* __restrict__ c, int m,
-              int n, int k, int b_col_major, int split, int kblk, int b_gran, int a_vec) {
+              int n, int k, int lda, int b_col_major, int split, int kblk, int b_gran,
+              int a_vec) {
   using S = Skinny<TIn>;
   using Acc = typename Elem<TIn>::Acc;
   constexpr bool kMma = S::kMma;
@@ -414,7 +485,7 @@ skinny_kernel(const TIn* __restrict__ a, const TIn* __restrict__ b, TOut* __rest
   const int rank = blockIdx.x % split;
   const int col0 = (blockIdx.x / split) * kSkinnyBN;
   const size_t z = blockIdx.z;
-  a += z * (size_t)m * k;
+  a += z * (size_t)m * lda;
   b += z * (size_t)k * n;
   c += z * (size_t)m * n;
   const int k0 = rank * kblk;
@@ -437,7 +508,7 @@ skinny_kernel(const TIn* __restrict__ a, const TIn* __restrict__ b, TOut* __rest
     for (int j = tid * S::E; j < ka; j += kSkinnyThreads * S::E) {
       const bool ok = k0 + j < k;
       for (int r = 0; r < m; ++r)
-        cp_async<16>(smem_addr(as + r * pitch_a + j), ok ? a + (size_t)r * k + k0 + j : a, ok);
+        cp_async<16>(smem_addr(as + r * pitch_a + j), ok ? a + (size_t)r * lda + k0 + j : a, ok);
     }
   }
 #pragma unroll
@@ -457,7 +528,7 @@ skinny_kernel(const TIn* __restrict__ a, const TIn* __restrict__ b, TOut* __rest
         TIn v[kBatch];
 #pragma unroll
         for (int u = 0; u < kBatch; ++u)
-          v[u] = ok && r0 + u < m ? a[(size_t)(r0 + u) * k + k0 + j] : zero_of<TIn>();
+          v[u] = ok && r0 + u < m ? a[(size_t)(r0 + u) * lda + k0 + j] : zero_of<TIn>();
 #pragma unroll
         for (int u = 0; u < kBatch; ++u)
           if (r0 + u < m) as[(r0 + u) * pitch_a + j] = v[u];
@@ -586,7 +657,7 @@ struct SkinnyArgs {
   const void* a;
   const void* b;
   void* c;
-  int batch, m, n, k, b_col_major, split, kblk, b_gran, a_vec;
+  int batch, m, n, k, lda, b_col_major, split, kblk, b_gran, a_vec;
   cudaStream_t stream;
 };
 
@@ -596,7 +667,7 @@ int launch_skinny_typed(const SkinnyArgs& x) {
   using Acc = typename Elem<TIn>::Acc;
   auto kernel = skinny_kernel<TIn, TOut>;
   if (x.m < 1 || x.m > kSkinnyRows || x.split < 1 || x.split > kSkinnyMaxCluster ||
-      x.kblk < S::BK || x.kblk % S::BK != 0 || (long long)x.split * x.kblk < x.k ||
+      x.lda < x.k || x.kblk < S::BK || x.kblk % S::BK != 0 || (long long)x.split * x.kblk < x.k ||
       (long long)(x.split - 1) * x.kblk >= x.k ||
       (x.b_gran != 16 && x.b_gran != 8 && x.b_gran != 4))
     return (int)cudaErrorInvalidValue;
@@ -627,7 +698,8 @@ int launch_skinny_typed(const SkinnyArgs& x) {
   cfg.numAttrs = x.split > 1 ? 1 : 0;
   const cudaError_t err = cudaLaunchKernelEx(
       &cfg, kernel, static_cast<const TIn*>(x.a), static_cast<const TIn*>(x.b),
-      static_cast<TOut*>(x.c), x.m, x.n, x.k, x.b_col_major, x.split, x.kblk, x.b_gran, x.a_vec);
+      static_cast<TOut*>(x.c), x.m, x.n, x.k, x.lda, x.b_col_major, x.split, x.kblk, x.b_gran,
+      x.a_vec);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -643,23 +715,614 @@ int launch_skinny(int in_dtype, int out_dtype, const SkinnyArgs& x) {
   return (int)cudaErrorInvalidValue;
 }
 
+
+// ---------------------------------------------------------------------------
+// gemm_tc_kernel: M > 16 in bf16 and float32 on wgmma, operands by TMA (see
+// the note at the top)
+// ---------------------------------------------------------------------------
+
+// kept equal to the TC_* constants of repro_torch/kernels/runtime.py
+constexpr int kTcConsumers = 256;                    // two consumer warpgroups
+constexpr int kTcThreads = kTcConsumers + 32;        // and one producer warp
+constexpr int kTcRowBytes = 128;                     // bytes of K a stage holds: one swizzle row
+constexpr int kTcMaxStages = 4;                      // depth of the ring at most
+constexpr int kTcMaxCluster = 8;                     // the portable cluster size
+constexpr int kTcMaxSmem = 232448;
+constexpr int kTcAlign = 1024;                       // a 128-byte swizzle pattern repeats each 1 KB
+
+// Geometry of a BM x BN output tile.  bf16: each consumer warpgroup owns 64
+// rows of C (BM = 128) and runs m64nBNk16.  float32 runs the transposed
+// product C^T = B^T A^T: each warpgroup owns 64 columns of C (BN = 128),
+// B's tile is its register operand and A's tile its shared-memory operand,
+// m64nBMk8 on TF32 (TF32 wgmma reads only K-major operands from shared
+// memory, and A's rows are K-major in either layout of B).
+template <typename TIn, int BM, int BN> struct Tc {
+  static constexpr bool kF32 = std::is_same<TIn, float>::value;
+  static constexpr int kElems = kTcRowBytes / (int)sizeof(TIn);  // K a stage: 64 bf16, 32 fp32
+  static constexpr int kABytes = BM * kTcRowBytes;
+  static constexpr int kBBytes = BN * kTcRowBytes;
+  // a stage: A's tile, B's tile and (float32) the low parts of A's tile
+  static constexpr int kStageBytes = kABytes + kBBytes + (kF32 ? kABytes : 0);
+  static constexpr int kTxBytes = kABytes + kBBytes;  // what TMA brings a stage
+  static constexpr int kAcc = (kF32 ? BM : BN) / 2;   // accumulators a thread
+  static constexpr int kPartBytes = BM * (BN + 4) * 4;  // the fp32 partial tile, padded rows
+  static_assert(kF32 ? BN == 128 && (BM == 64 || BM == 128) : BM == 128 && (BN == 64 || BN == 128),
+                "not a compiled tile");
+  static_assert(kStageBytes % kTcAlign == 0 && kABytes % kTcAlign == 0 && kBBytes % kTcAlign == 0,
+                "tiles must keep the 1 KB alignment of the swizzle");
+};
+
+// Shared memory of a block: the ring (or the partial tile, which reuses it,
+// if larger), the 1 KB the swizzle's alignment may cost, the barriers.
+__host__ __device__ constexpr size_t tc_smem(int stage_bytes, int stages, int part_bytes) {
+  return (size_t)(stage_bytes * stages > part_bytes ? stage_bytes * stages : part_bytes) +
+         kTcAlign + 2 * kTcMaxStages * sizeof(uint64_t);
+}
+
+// The descriptor of a shared-memory operand in the 128-byte swizzled layout
+// TMA writes (rows of 128 bytes, 16-byte chunks XORed with the row mod 8):
+// `lbo` bytes between 64-element column blocks of an MN-major operand
+// (ignored for a K-major one), `sbo` bytes between groups of 8 rows.
+__device__ __forceinline__ uint64_t sw128_desc(unsigned addr, unsigned lbo, unsigned sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving reads or writes of registers that a wgmma in
+// flight reads or writes across this point.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+__device__ __forceinline__ void mbar_init(unsigned bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(unsigned bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(unsigned bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ bool mbar_try_wait(unsigned bar, int parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n"
+      "}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+// Wait for the phase of `parity` to complete.  A phase that has not
+// completed after ~2^32 cycles (over 2 s; a stage takes microseconds) is a
+// fault of the kernel: trap, so that the launch fails instead of hanging.
+__device__ __forceinline__ void mbar_wait(unsigned bar, int parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const long long start = clock64();
+  while (!mbar_try_wait(bar, parity))
+    if (clock64() - start > (1ll << 32)) __trap();
+}
+
+// One TMA copy of the box at coordinates (x, y, z) of `map` into shared
+// memory at `dst`, completing on the barrier `bar`; out-of-bounds elements
+// land as zeros.
+__device__ __forceinline__ void tma_load(unsigned dst, const CUtensorMap* map, unsigned bar, int x,
+                                         int y, int z) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(x), "r"(y), "r"(z)
+      : "memory");
+}
+
+// D (64 x 64 fp32, 32 values a thread) += A (64 x 16 bf16 at desc a) * B (16 x 64 bf16
+// at desc b), B MN-major when TRANS_B; D = A * B when !accumulate.
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_bf16(float (&d)[32], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, %35;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate), "n"(TRANS_B));
+}
+
+// D (64 x 128 fp32, 64 values a thread) += A (64 x 16 bf16 at desc a) * B (16 x 128 bf16
+// at desc b), B MN-major when TRANS_B; D = A * B when !accumulate.
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_bf16(float (&d)[64], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, %67;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate), "n"(TRANS_B));
+}
+
+// D (64 x 64 fp32, 32 values a thread) += A (64 x 8 TF32, this warp's 16 rows in
+// registers) * B (8 x 64 TF32, K-major at desc b); D = A * B when !accumulate.
+__device__ __forceinline__ void wgmma_tf32(float (&d)[32], const uint32_t (&a)[4], uint64_t b,
+                                           int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// D (64 x 128 fp32, 64 values a thread) += A (64 x 8 TF32, this warp's 16 rows in
+// registers) * B (8 x 128 TF32, K-major at desc b); D = A * B when !accumulate.
+__device__ __forceinline__ void wgmma_tf32(float (&d)[64], const uint32_t (&a)[4], uint64_t b,
+                                           int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// The TF32 value nearest to the float32 with these bits, ties away from zero
+// (cvt.rna.tf32.f32 for every finite value whose rounding stays finite): add
+// half a unit of TF32's last place to the magnitude, clear the 13 bits below.
+__device__ __forceinline__ uint32_t tf32_rna(uint32_t bits) { return (bits + 0x1000u) & 0xffffe000u; }
+
+// Grid: (row tiles x split, column tiles, batch), clusters of `split`
+// blocks along x: block x reduces k-tiles [rank * ktper, (rank + 1) * ktper)
+// of row tile x / split (a k-tile is one 128-byte row of K).  Warps 0-7 are
+// the two consumer warpgroups, warp 8 the producer: its first lane keeps
+// the ring of `stages` stages filled by TMA, each stage one k-tile of every
+// row of A's tile and of B's tile.  BCOL: B is the transpose of a row-major
+// [N, K] tensor (K-major), else row-major [K, N] (MN-major).
+template <typename TIn, typename TOut, int BM, int BN, int BCOL>
+__global__ void __launch_bounds__(kTcThreads, 1)
+gemm_tc_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
+               TOut* __restrict__ c, int m, int n, int k, int stages, int split, int ktper) {
+  using G = Tc<TIn, BM, BN>;
+  constexpr int E = G::kElems;
+  extern __shared__ unsigned char smem_raw[];
+  const unsigned raw = smem_addr(smem_raw);
+  const unsigned base = (raw + kTcAlign - 1) & ~(unsigned)(kTcAlign - 1);
+  unsigned char* smem = smem_raw + (base - raw);
+  const int ring = max(stages * G::kStageBytes, G::kPartBytes);  // the partial tile reuses it
+  const unsigned full = base + ring;  // kTcMaxStages barriers each
+  const unsigned empty = full + kTcMaxStages * 8;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int rank = blockIdx.x % split;
+  const int m0 = blockIdx.x / split * BM, n0 = blockIdx.y * BN, z = blockIdx.z;
+  const int kt0 = rank * ktper;
+  const int nkt = max(0, min((k + E - 1) / E, kt0 + ktper) - kt0);  // this rank's k-tiles
+
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full + 8 * s, 1);                   // the producer's arrival, and TMA's bytes
+      mbar_init(empty + 8 * s, kTcConsumers / 32);  // one arrival a consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // the block's partial tile, fp32 [BM][BN + 4] (rows 16-byte aligned)
+  float* part_tile = reinterpret_cast<float*>(smem);
+  constexpr int kPitch = BN + 4;
+
+  if (warp == kTcConsumers / 32) {  // the producer
+    if (lane == 0) {
+      for (int i = 0; i < nkt; ++i) {
+        const int s = i % stages, kx = (kt0 + i) * E;
+        if (i >= stages) mbar_wait(empty + 8 * s, (i / stages - 1) & 1);
+        const unsigned a_s = base + s * G::kStageBytes, b_s = a_s + G::kABytes;
+        mbar_expect_tx(full + 8 * s, G::kTxBytes);
+        tma_load(a_s, &ta, full + 8 * s, kx, m0, z);
+        if (BCOL) {
+          tma_load(b_s, &tb, full + 8 * s, kx, n0, z);
+        } else {  // boxes of E columns x E rows of K, one after another
+#pragma unroll
+          for (int j = 0; j < BN / E; ++j)
+            tma_load(b_s + j * E * kTcRowBytes, &tb, full + 8 * s, n0 + j * E, kx, z);
+        }
+      }
+    }
+    __syncwarp();
+  } else {
+    const int wg = tid >> 7, wq = warp & 3, g = lane >> 2, t = lane & 3;
+    // acc: the sums; part: one stage's products, where they are added to the
+    // sums in fp32 after each stage (every float32 output; see the note at
+    // the top)
+    float acc[G::kAcc], part[G::kAcc];
+#pragma unroll
+    for (int i = 0; i < G::kAcc; ++i) acc[i] = 0.f;
+
+    if constexpr (!G::kF32) {
+      constexpr bool kPromote = std::is_same<TOut, float>::value;
+      for (int i = 0; i < nkt; ++i) {
+        const int s = i % stages;
+        mbar_wait(full + 8 * s, (i / stages) & 1);
+        const unsigned a_s = base + s * G::kStageBytes + wg * 64 * kTcRowBytes;
+        const unsigned b_s = base + s * G::kStageBytes + G::kABytes;
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < E / 16; ++kk) {  // 16 of K a product: 32 bytes along a row of A
+          const uint64_t da = sw128_desc(a_s + kk * 32, 16, 1024);
+          const uint64_t db =
+              BCOL ? sw128_desc(b_s + kk * 32, 16, 1024)
+                   : sw128_desc(b_s + kk * 16 * kTcRowBytes, E * kTcRowBytes, 1024);
+          if constexpr (kPromote)
+            wgmma_bf16<BCOL ? 0 : 1>(part, da, db, kk > 0);
+          else
+            wgmma_bf16<BCOL ? 0 : 1>(acc, da, db, 1);
+        }
+        wgmma_commit();
+        if constexpr (kPromote) {
+          wgmma_wait<0>();
+          fence_regs(part);
+#pragma unroll
+          for (int q = 0; q < G::kAcc; ++q) acc[q] += part[q];
+          if (lane == 0) mbar_arrive(empty + 8 * s);
+        } else {
+          wgmma_wait<1>();  // the previous stage's products are done: release it
+          if (i > 0 && lane == 0) mbar_arrive(empty + 8 * ((i - 1) % stages));
+        }
+      }
+      wgmma_wait<0>();
+      fence_regs(acc);
+    } else {
+      // this thread's rows of B^T (columns of C): nrow and nrow + 8
+      const int nrow = wg * 64 + wq * 16 + g;
+      for (int i = 0; i < nkt; ++i) {
+        const int s = i % stages;
+        mbar_wait(full + 8 * s, (i / stages) & 1);
+        unsigned char* st = smem + s * G::kStageBytes;
+        const unsigned a_s = base + s * G::kStageBytes;
+        const unsigned lo_s = a_s + G::kABytes + G::kBBytes;
+        // the low parts of A's tile, x - trunc_tf32(x) (exact), elementwise
+        // in its swizzled layout; the tensor cores read A itself as
+        // trunc_tf32(x)
+        {
+          const float4* src = reinterpret_cast<const float4*>(st);
+          float4* dst = reinterpret_cast<float4*>(st + G::kABytes + G::kBBytes);
+#pragma unroll
+          for (int q = tid; q < G::kABytes / 16; q += kTcConsumers) {
+            float4 v = src[q];
+            v.x -= __uint_as_float(__float_as_uint(v.x) & 0xffffe000u);
+            v.y -= __uint_as_float(__float_as_uint(v.y) & 0xffffe000u);
+            v.z -= __uint_as_float(__float_as_uint(v.z) & 0xffffe000u);
+            v.w -= __uint_as_float(__float_as_uint(v.w) & 0xffffe000u);
+            dst[q] = v;
+          }
+        }
+        // B^T fragments, split hi = rna_tf32(x), lo = x - hi: a0 (row g, k
+        // t), a1 (row g + 8, k t), a2 (row g, k t + 4), a3 (row g + 8, k t + 4)
+        uint32_t bh[E / 8][4], bl[E / 8][4];
+        const unsigned char* bs = st + G::kABytes;
+#pragma unroll
+        for (int kk = 0; kk < E / 8; ++kk)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int kl = 8 * kk + t + (e >> 1) * 4, nl = nrow + (e & 1) * 8;
+            int off;
+            if (BCOL) {  // row nl of 128 bytes, K along it
+              off = nl * kTcRowBytes + ((((kl * 4) >> 4) ^ (nl & 7)) << 4) + ((kl * 4) & 15);
+            } else {  // boxes of 32 columns x 32 rows of K, N along a row
+              const int byte = (nl & 31) * 4;
+              off = (nl >> 5) * E * kTcRowBytes + kl * kTcRowBytes +
+                    (((byte >> 4) ^ (kl & 7)) << 4) + (byte & 15);
+            }
+            const uint32_t x = *reinterpret_cast<const uint32_t*>(bs + off);
+            bh[kk][e] = tf32_rna(x);
+            bl[kk][e] = __float_as_uint(__uint_as_float(x) - __uint_as_float(bh[kk][e]));
+          }
+        // A's low parts are read by wgmma (the async proxy) once both
+        // warpgroups have written them
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        asm volatile("bar.sync 1, %0;\n" ::"n"(kTcConsumers) : "memory");
+#pragma unroll
+        for (int kk = 0; kk < E / 8; ++kk) {
+          fence_regs(bh[kk]);
+          fence_regs(bl[kk]);
+        }
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < E / 8; ++kk) {  // 8 of K a product: 32 bytes along a row of A
+          const uint64_t dh = sw128_desc(a_s + kk * 32, 16, 1024);
+          const uint64_t dl = sw128_desc(lo_s + kk * 32, 16, 1024);
+          wgmma_tf32(part, bl[kk], dh, kk > 0);  // the small terms first
+          wgmma_tf32(part, bh[kk], dl, 1);
+          wgmma_tf32(part, bh[kk], dh, 1);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(part);
+#pragma unroll
+        for (int q = 0; q < G::kAcc; ++q) acc[q] += part[q];
+#pragma unroll
+        for (int kk = 0; kk < E / 8; ++kk) {
+          fence_regs(bh[kk]);
+          fence_regs(bl[kk]);
+        }
+        if (lane == 0) mbar_arrive(empty + 8 * s);
+      }
+    }
+
+    // the partial tile into shared memory once both warpgroups are done with
+    // the ring: value 4 j + e of the bf16 products is row 16 wq + g + 8 (e /
+    // 2) of the warpgroup's 64, column 8 j + 2 t + e % 2; of the float32
+    // products (C^T) column nrow + 8 (e / 2), row 8 j + 2 t + e % 2
+    asm volatile("bar.sync 1, %0;\n" ::"n"(kTcConsumers) : "memory");
+#pragma unroll
+    for (int j = 0; j < G::kAcc / 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        int r, col;
+        if constexpr (G::kF32) {
+          r = 8 * j + 2 * t + (e & 1);
+          col = wg * 64 + wq * 16 + g + (e >> 1) * 8;
+        } else {
+          r = wg * 64 + wq * 16 + g + (e >> 1) * 8;
+          col = 8 * j + 2 * t + (e & 1);
+        }
+        part_tile[r * kPitch + col] = acc[4 * j + e];
+      }
+  }
+
+  // every partial tile of the cluster is written; each rank sums its share
+  // of the rows over the ranks in rank order (the same bits on every run)
+  // and stores them 16 bytes of fp32 (8 of bf16) at a time where the row
+  // allows
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  if (split > 1)
+    cluster.sync();
+  else
+    __syncthreads();
+  if (tid < kTcConsumers) {
+    constexpr int kChunks = BN / 4;  // 4 columns a chunk
+    constexpr int kRowsAPass = kTcConsumers / kChunks;
+    const int c4 = tid % kChunks, col = n0 + 4 * c4;
+    const bool vec = n % 4 == 0;  // rows start 16 (fp32) or 8 (bf16) bytes aligned
+    TOut* cz = c + (size_t)z * m * n;
+    for (int r = rank + tid / kChunks * split; r < BM; r += kRowsAPass * split) {
+      const int gr = m0 + r;
+      if (gr >= m) break;
+      if (col >= n) continue;
+      const float* own = part_tile + r * kPitch + 4 * c4;
+      float4 sum = *reinterpret_cast<const float4*>(split > 1 ? cluster.map_shared_rank(own, 0)
+                                                              : own);
+      for (int q = 1; q < split; ++q) {
+        const float4 v = *reinterpret_cast<const float4*>(cluster.map_shared_rank(own, q));
+        sum.x += v.x;
+        sum.y += v.y;
+        sum.z += v.z;
+        sum.w += v.w;
+      }
+      TOut* dst = cz + (size_t)gr * n + col;
+      if (vec && col + 4 <= n) {
+        if constexpr (std::is_same<TOut, float>::value) {
+          *reinterpret_cast<float4*>(dst) = sum;
+        } else {
+          __nv_bfloat162 lo = __floats2bfloat162_rn(sum.x, sum.y);
+          __nv_bfloat162 hi = __floats2bfloat162_rn(sum.z, sum.w);
+          uint2 packed;
+          packed.x = *reinterpret_cast<uint32_t*>(&lo);
+          packed.y = *reinterpret_cast<uint32_t*>(&hi);
+          *reinterpret_cast<uint2*>(dst) = packed;
+        }
+      } else {
+        const float vals[4] = {sum.x, sum.y, sum.z, sum.w};
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          if (col + u < n) dst[u] = Flush<float, TOut>::cast(vals[u]);
+      }
+    }
+  }
+  if (split > 1) cluster.sync();  // keep every partial tile alive until all are read
+}
+
+// cuTensorMapEncodeTiled, looked up at first use through the runtime's
+// entry-point query, so that the library links the CUDA runtime alone
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled tensor_map_encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
+            cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A [batch, outer, inner] tensor of `size`-byte elements whose rows are
+// `pitch` elements apart (batch entries outer rows apart) as a TMA map with
+// boxes of box_inner x box_outer x 1 in the 128-byte swizzle.
+bool encode_map(CUtensorMap* map, bool f32, const void* ptr, long long inner, long long outer,
+                long long batch, long long pitch, int size, int box_inner, int box_outer) {
+  const EncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)inner, (cuuint64_t)outer, (cuuint64_t)batch};
+  const cuuint64_t strides[2] = {(cuuint64_t)(pitch * size), (cuuint64_t)(pitch * outer * size)};
+  const cuuint32_t box[3] = {(cuuint32_t)box_inner, (cuuint32_t)box_outer, 1};
+  const cuuint32_t steps[3] = {1, 1, 1};
+  return encode(map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                const_cast<void*>(ptr), dims, strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+struct TcArgs {
+  const void* a;
+  const void* b;
+  void* c;
+  int batch, m, n, k, lda, b_col_major, stages, split;
+  cudaStream_t stream;
+};
+
+template <typename TIn, typename TOut, int BM, int BN, int BCOL>
+int launch_tc_typed(const TcArgs& x) {
+  using G = Tc<TIn, BM, BN>;
+  constexpr int E = G::kElems;
+  constexpr int size = (int)sizeof(TIn);
+  auto kernel = gemm_tc_kernel<TIn, TOut, BM, BN, BCOL>;
+  // TMA: 16-byte aligned bases and rows of whole 16-byte units; every rank
+  // of a split reduces at least one k-tile
+  const long long b_inner = BCOL ? x.k : x.n;
+  const int ktiles = (x.k + E - 1) / E;
+  const int ktper = (ktiles + x.split - 1) / max(x.split, 1);
+  if (x.batch < 1 || x.batch > 65535 || x.m < 1 || x.n < 1 || x.k < 1 || x.stages < 2 ||
+      x.stages > kTcMaxStages || x.split < 1 || x.split > kTcMaxCluster ||
+      (long long)(x.split - 1) * ktper >= ktiles || reinterpret_cast<uintptr_t>(x.a) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(x.b) % 16 != 0 || reinterpret_cast<uintptr_t>(x.c) % 16 != 0 ||
+      x.lda < x.k || (long long)x.lda * size % 16 != 0 || b_inner * size % 16 != 0 || (x.n + BN - 1) / BN > 65535)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = tc_smem(G::kStageBytes, x.stages, G::kPartBytes);
+  const long long xblocks = (long long)((x.m + BM - 1) / BM) * x.split;
+  if (smem > (size_t)kTcMaxSmem || xblocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  CUtensorMap ta, tb;
+  if (!encode_map(&ta, G::kF32, x.a, x.k, x.m, x.batch, x.lda, size, E, BM) ||
+      !(BCOL ? encode_map(&tb, G::kF32, x.b, x.k, x.n, x.batch, x.k, size, E, BN)
+             : encode_map(&tb, G::kF32, x.b, x.n, x.k, x.batch, x.n, size, E, E)))
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t allowed =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (allowed != cudaSuccess) return (int)allowed;
+
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)xblocks, (unsigned)((x.n + BN - 1) / BN), (unsigned)x.batch);
+  cfg.blockDim = dim3(kTcThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = x.stream;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = (unsigned)x.split;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = 1;
+  cfg.attrs = cluster;
+  cfg.numAttrs = x.split > 1 ? 1 : 0;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, ta, tb, static_cast<TOut*>(x.c), x.m,
+                                             x.n, x.k, x.stages, x.split, ktper);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+template <typename TIn, typename TOut, int BM, int BN>
+int launch_tc_layout(const TcArgs& x) {
+  return x.b_col_major ? launch_tc_typed<TIn, TOut, BM, BN, 1>(x)
+                       : launch_tc_typed<TIn, TOut, BM, BN, 0>(x);
+}
+
+// The compiled tiles (kept equal to TC_TILES in repro_torch/kernels/runtime.py).
+template <typename TOut>
+int launch_tc_bf16(int bm, int bn, const TcArgs& x) {
+  if (bm == 128 && bn == 64) return launch_tc_layout<__nv_bfloat16, TOut, 128, 64>(x);
+  if (bm == 128 && bn == 128) return launch_tc_layout<__nv_bfloat16, TOut, 128, 128>(x);
+  return (int)cudaErrorInvalidValue;
+}
+
+int launch_tc_f32(int bm, int bn, const TcArgs& x) {
+  if (bm == 64 && bn == 128) return launch_tc_layout<float, float, 64, 128>(x);
+  if (bm == 128 && bn == 128) return launch_tc_layout<float, float, 128, 128>(x);
+  return (int)cudaErrorInvalidValue;
+}
+
+int launch_tc(int in_dtype, int out_dtype, int bm, int bn, const TcArgs& x) {
+  if (in_dtype == BF16 && out_dtype == BF16) return launch_tc_bf16<__nv_bfloat16>(bm, bn, x);
+  if (in_dtype == BF16 && out_dtype == F32) return launch_tc_bf16<float>(bm, bn, x);
+  if (in_dtype == F32 && out_dtype == F32) return launch_tc_f32(bm, bn, x);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
 
-// C[m, n] = A[m, k] @ B[k, n] (the mm recurrence).  Returns a cudaError_t.
-int widesa_mm_launch(const void* a, const void* b, void* c, int m, int n, int k,
+// C[m, n] = A[m, k] @ B[k, n] (the mm recurrence); A's rows are lda elements
+// apart in every entry point.  Returns a cudaError_t.
+int widesa_mm_launch(const void* a, const void* b, void* c, int m, int n, int k, int lda,
                      int b_col_major, int in_dtype, int out_dtype, int bm, int bn, int bk,
                      void* stream) {
-  const Args x{a, b, c, 1, m, n, k, b_col_major, static_cast<cudaStream_t>(stream)};
+  const Args x{a, b, c, 1, m, n, k, lda, b_col_major, static_cast<cudaStream_t>(stream)};
   return launch(in_dtype, out_dtype, bm, bn, bk, x);
 }
 
 // C[z] = A[z] @ B[z] for z < batch (the bmm recurrence).  Returns a cudaError_t.
 int widesa_bmm_launch(const void* a, const void* b, void* c, int batch, int m, int n, int k,
-                      int b_col_major, int in_dtype, int out_dtype, int bm, int bn, int bk,
-                      void* stream) {
-  const Args x{a, b, c, batch, m, n, k, b_col_major, static_cast<cudaStream_t>(stream)};
+                      int lda, int b_col_major, int in_dtype, int out_dtype, int bm, int bn,
+                      int bk, void* stream) {
+  const Args x{a, b, c, batch, m, n, k, lda, b_col_major, static_cast<cudaStream_t>(stream)};
   return launch(in_dtype, out_dtype, bm, bn, bk, x);
 }
 
@@ -668,11 +1331,24 @@ int widesa_bmm_launch(const void* a, const void* b, void* c, int batch, int m, i
 // in runs of b_gran bytes (16, 8 or 4); A by cp.async when a_vec.  Returns a
 // cudaError_t.
 int widesa_skinny_launch(const void* a, const void* b, void* c, int batch, int m, int n, int k,
-                         int b_col_major, int in_dtype, int out_dtype, int split, int kblk,
-                         int b_gran, int a_vec, void* stream) {
-  const SkinnyArgs x{a, b, c, batch, m, n, k, b_col_major, split, kblk, b_gran, a_vec,
-                     static_cast<cudaStream_t>(stream)};
+                         int lda, int b_col_major, int in_dtype, int out_dtype, int split,
+                         int kblk, int b_gran, int a_vec, void* stream) {
+  const SkinnyArgs x{a,     b,    c,      batch, m,     n,
+                     k,     lda,  b_col_major, split, kblk, b_gran,
+                     a_vec, static_cast<cudaStream_t>(stream)};
   return launch_skinny(in_dtype, out_dtype, x);
+}
+
+// C[z] = A[z] @ B[z] for z < batch on gemm_tc_kernel (bf16 -> bf16 or fp32,
+// float32 as 3xTF32; mm is batch = 1): a bm x bn output tile, a ring of
+// `stages` stages, K split over `split` blocks of a cluster.  A's and B's bases must be 16-byte aligned and their rows
+// whole 16-byte units.  Returns a cudaError_t.
+int widesa_tc_launch(const void* a, const void* b, void* c, int batch, int m, int n, int k,
+                     int lda, int b_col_major, int in_dtype, int out_dtype, int bm, int bn,
+                     int stages, int split, void* stream) {
+  const TcArgs x{a,   b,           c,      batch, m, n, k,
+                 lda, b_col_major, stages, split, static_cast<cudaStream_t>(stream)};
+  return launch_tc(in_dtype, out_dtype, bm, bn, x);
 }
 
 const char* widesa_error_string(int code) {

@@ -44,7 +44,7 @@ import torch
 from repro_torch.core.autotune import PlanPolicy, PlanRequest, resolve
 from repro_torch.core.mapper import ExecutionPlan, Target
 
-from . import ref
+from . import ref, runtime
 from .runtime import execute_plan
 
 #: Single-chip execution target for facade call sites (the reference's
@@ -336,7 +336,9 @@ def planned_bmm(a: torch.Tensor, b: torch.Tensor, *, site: str = "bmm",
     nb = int(math.prod(batch)) if batch else 1
     m, k = a.shape[-2:]
     n = b.shape[-1]
-    a3 = a.reshape(nb, m, k).contiguous()
+    a3 = a.reshape(nb, m, k)
+    if runtime.a_pitch(a3) is None:  # padded rows stay as they are
+        a3 = a3.contiguous()
     b3 = _operand(b.reshape(nb, k, n))
     plan, reason = _decide("bmm", (nb, m, n, k), a.dtype, b.dtype)
     _record(site, (nb, m, n, k), plan=plan, reason=reason)

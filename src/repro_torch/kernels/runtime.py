@@ -11,7 +11,7 @@ of VMEM) and fall back to divisors that are not powers of two (3, 6, 12,
 103), with the whole batch as one block.  The ``*_tile`` functions adapt
 them to the compiled kernel tiles.
 
-mm, bmm and the fft2d stages run one of two kernels of
+mm, bmm and the fft2d stages run one of three kernels of
 ``csrc/widesa_mm.cu`` (``gemm_tiles``, ``gemm_tile``):
 
 * The skinny kernel takes every product whose A has at most 16 rows
@@ -25,9 +25,23 @@ mm, bmm and the fft2d stages run one of two kernels of
   each block stages in shared memory allow (``SKINNY_SPLIT_BYTES``,
   ``SKINNY_TARGET_BLOCKS``).  B's layout and alignment decide the copy width
   (``b_copy_bytes``): rows of B must allow copies of at least 4 bytes.
+* The tensor-core kernel takes A of more than 16 rows in bf16 (to bf16
+  or fp32) and float32 (3xTF32) where TMA can address both operands
+  (``tma_operand``: a 16-byte aligned base, rows of whole 16-byte units;
+  A contiguous or in padded rows, ``a_pitch``; B contiguous or the
+  transpose of a contiguous tensor).
+  Its configuration is a ``TcTile`` (``tc_tile``) from the shape and the
+  dtype: bf16 runs a 128-row tile 128 columns wide from N =
+  ``TC_WIDE_N`` up, 64 below; float32 a tile 128 columns wide and 64 or
+  128 rows tall.  Where the output tiles leave SMs idle, K is split over
+  the blocks of a cluster (at most ``TC_MAX_SPLIT``, each rank at least
+  ``TC_MIN_RANK_KTILES`` k-tiles of 128 bytes of K) as far as the grid
+  stays within one block an SM; a ring of ``TC_MAX_STAGES`` stages where a
+  rank has that many k-tiles, else as many as it has (2 at the least).
 * The tiled kernel (``hopper_tiles``, tiles ``build.COMPILED_TILES``)
-  takes A of more rows and any B whose rows are not 4-byte aligned (a
-  storage offset, or an odd row of 2-byte elements).  BM is the smallest
+  takes the rest: integers above 16 rows, operands TMA cannot address,
+  and B rows the skinny kernel cannot copy (not 4-byte aligned: a storage
+  offset, or an odd row of 2-byte elements).  BM is the smallest
   compiled row count that covers the plan's row tile (the largest where
   none does; the kernel masks ragged edges, so any compiled tile is a
   legal launch).  BN is not the plan's column tile: each BM is compiled
@@ -241,6 +255,21 @@ def b_col_major(b: torch.Tensor) -> int | None:
     return 0 if b.is_contiguous() else None
 
 
+def a_pitch(a: torch.Tensor) -> int | None:
+    """The row pitch, in elements, at which the GEMM kernels read A: K for
+    a contiguous A, the row stride of one whose rows are padded (unit
+    stride along K, rows evenly pitched, batch entries M rows apart), None
+    for any other layout."""
+    if a.is_contiguous():
+        return a.shape[-1]
+    m, k = a.shape[-2:]
+    pitch = a.stride(-2)
+    if a.stride(-1) != 1 or pitch < k or (
+            a.dim() == 3 and a.shape[0] > 1 and a.stride(0) != m * pitch):
+        return None
+    return pitch
+
+
 def b_copy_bytes(b: torch.Tensor) -> int:
     """``copy_bytes`` of B: its rows run along N when it is read
     row-major, along K when column-major (``b_col_major``)."""
@@ -248,13 +277,130 @@ def b_copy_bytes(b: torch.Tensor) -> int:
     return copy_bytes(b.data_ptr(), inner * b.element_size())
 
 
-def gemm_tile(a: torch.Tensor, b: torch.Tensor, tiled: tuple[int, ...]):
-    """The launch configuration of ``a @ b`` (2-D, or batched 3-D): the
-    skinny kernel's ``SkinnyTile`` for at most 16 rows of A when B's rows
-    allow copies of 4 bytes or more, else the tiled kernel's tile
-    ``tiled``."""
+#: the tensor-core kernel's geometry (``kTc*`` in csrc/widesa_mm.cu): its
+#: threads (two consumer warpgroups and a producer warp), the bytes of K a
+#: ring stage holds (one 128-byte swizzle row: 64 bf16, 32 float32), the
+#: deepest ring (4 stages, which ran well ahead of 2 at the prefill
+#: shapes on an H100: ``chip_smoke.py --tc-sweep``, PERF.md), the largest
+#: cluster and the shared memory a block may use
+TC_THREADS = 288
+TC_ROW_BYTES = 128
+TC_MAX_STAGES = 4
+TC_MAX_CLUSTER = 8
+TC_MAX_SMEM = 232448
+#: the compiled output tiles (BM, BN) by input dtype (``launch_tc_*``)
+TC_TILES = {torch.bfloat16: ((128, 64), (128, 128)),
+            torch.float32: ((64, 128), (128, 128))}
+#: bf16 takes the 128-column tile from this N up (qwen's gate/up, N =
+#: 2816), the 64-column one below (q/k/v/o, down, the scores and values);
+#: K is split over at most this many blocks, only while the grid stays
+#: within one block an SM and every rank keeps this many k-tiles: the
+#: fastest choices at the prefill shapes of 64-512 tokens on an H100
+#: (``chip_smoke.py --tc-sweep``, PERF.md)
+TC_WIDE_N = 2048
+TC_MAX_SPLIT = 4
+TC_MIN_RANK_KTILES = 4
+
+
+@dataclasses.dataclass(frozen=True)
+class TcTile:
+    """A tensor-core GEMM launch: a ``bm`` x ``bn`` output tile, a ring of
+    ``stages`` stages of one k-tile (128 bytes of K), K split over
+    ``split`` blocks of a cluster."""
+
+    bm: int
+    bn: int
+    stages: int
+    split: int = 1
+
+    def blocks(self, m: int, n: int, batch: int = 1) -> int:
+        """Blocks of the grid for an M x N output and ``batch`` products."""
+        return -(-m // self.bm) * -(-n // self.bn) * batch * self.split
+
+    def smem(self, dtype: torch.dtype) -> int:
+        """Shared memory a block takes (``tc_smem`` in the source): the
+        ring, each stage A's and B's tiles (and, in float32, A's low
+        parts), or the fp32 partial tile with rows padded by 4 values if
+        that is larger; the 1 KB the swizzle's alignment may cost; the
+        barriers."""
+        rows = self.bm + self.bn + (self.bm if dtype == torch.float32 else 0)
+        ring = self.stages * rows * TC_ROW_BYTES
+        return max(ring, self.bm * (self.bn + 4) * 4) + 1024 \
+            + 2 * TC_MAX_STAGES * 8
+
+
+def tc_tile(m: int, n: int, k: int, dtype: torch.dtype,
+            batch: int = 1) -> TcTile | None:
+    """The tensor-core kernel's configuration for ``batch`` products of
+    [m, k] @ [k, n] in ``dtype``, or None for a dtype it does not take
+    (module docstring)."""
+    if dtype not in TC_TILES or min(m, n, k, batch) < 1:
+        return None
+    if dtype == torch.bfloat16:
+        bm, bn = 128, 128 if n >= TC_WIDE_N else 64
+    else:
+        bm, bn = 64 if m <= 64 else 128, 128
+    ktiles = -(-k * dtype.itemsize // TC_ROW_BYTES)
+    tiles = -(-m // bm) * -(-n // bn) * batch
+    split = max(1, min(TC_MAX_SPLIT, ktiles // TC_MIN_RANK_KTILES,
+                       SMS // tiles))
+    split = -(-ktiles // -(-ktiles // split))  # no rank without a k-tile
+    stages = min(TC_MAX_STAGES, max(2, -(-ktiles // split)))
+    return TcTile(bm=bm, bn=bn, stages=stages, split=split)
+
+
+def tma_operand(t: torch.Tensor, inner: int) -> bool:
+    """Whether TMA can address an operand at ``t.data_ptr()`` whose rows
+    hold ``inner`` elements: a 16-byte aligned base and rows of whole
+    16-byte units."""
+    return copy_bytes(t.data_ptr(), inner * t.element_size()) == 16
+
+
+def tc_route(a: torch.Tensor, b: torch.Tensor) -> TcTile | None:
+    """``tc_tile`` for ``a @ b`` where the tensor-core kernel takes the
+    operands (a dtype it has, A and B in layouts the GEMMs read, both
+    addressable by TMA at A's row pitch), else None."""
+    layout, pitch = b_col_major(b), a_pitch(a)
     m, k = a.shape[-2:]
-    if m > SKINNY_ROWS or b_copy_bytes(b) < 4:
+    n = b.shape[-1]
+    if a.dtype not in TC_TILES or b.dtype != a.dtype or layout is None \
+            or pitch is None or not tma_operand(a, pitch) \
+            or not tma_operand(b, k if layout else n):
+        return None
+    return tc_tile(m, n, k, a.dtype, a.shape[0] if a.dim() == 3 else 1)
+
+
+def check_tc(tile: TcTile, a: torch.Tensor, b: torch.Tensor) -> None:
+    """Raise unless ``tile`` is a launch the tensor-core kernel takes for
+    these operands (``check_operands`` has checked shapes, dtypes and
+    layouts)."""
+    layout = b_col_major(b)
+    k, n = a.shape[-1], b.shape[-1]
+    ktiles = -(-k * a.element_size() // TC_ROW_BYTES)
+    if (tile.bm, tile.bn) not in TC_TILES.get(a.dtype, ()) \
+            or not 2 <= tile.stages <= TC_MAX_STAGES \
+            or not 1 <= tile.split <= TC_MAX_CLUSTER \
+            or (tile.split - 1) * -(-ktiles // tile.split) >= ktiles \
+            or tile.smem(a.dtype) > TC_MAX_SMEM:
+        raise ValueError(f"{tile} is not a tensor-core launch for {a.dtype} "
+                         f"at K={k}")
+    if not (tma_operand(a, a_pitch(a))
+            and tma_operand(b, k if layout else n)):
+        raise ValueError("TMA cannot address these operands (bases must be "
+                         "16-byte aligned and rows whole 16-byte units): "
+                         "launch the tiled kernel")
+
+
+def gemm_tile(a: torch.Tensor, b: torch.Tensor, tiled: tuple[int, ...]):
+    """The launch configuration of ``a @ b`` (2-D, or batched 3-D): for at
+    most 16 rows of A, the skinny kernel's ``SkinnyTile`` when B's rows
+    allow copies of 4 bytes or more; for more rows, the tensor-core
+    kernel's ``TcTile`` where it takes the operands (``tc_route``); else
+    the tiled kernel's tile ``tiled``."""
+    m, k = a.shape[-2:]
+    if m > SKINNY_ROWS:
+        return tc_route(a, b) or tiled
+    if b_copy_bytes(b) < 4:
         return tiled
     batch = a.shape[0] if a.dim() == 3 else 1
     return skinny_tile(m, b.shape[-1], k, batch, a.dtype) or tiled

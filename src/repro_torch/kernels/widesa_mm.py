@@ -5,6 +5,7 @@ themselves are in ``csrc/widesa_mm.cu``, shared with ``bmm`` (mm is their
 batch = 1 launch).  ``matmul`` checks its operands, allocates the output
 and launches on the current stream the kernel its ``tiles`` name: a
 ``runtime.SkinnyTile`` runs the skinny kernel (A of at most 16 rows), a
+``runtime.TcTile`` the tensor-core one (more rows, bf16 or float32), a
 ``(BM, BN, BK)`` tuple the tiled one.  A CPU tensor runs the plain version
 in ``ref.py`` instead.  ``launches`` counts kernel launches, ``variants``
 the same launches by kernel.
@@ -20,21 +21,25 @@ import torch
 from . import build, ref, runtime
 
 launches = 0
-#: launches by kernel: ``skinny`` (M <= 16) and ``tiled``
-variants = {"skinny": 0, "tiled": 0}
+#: launches by kernel: ``skinny`` (M <= 16), ``wgmma`` (the tensor-core
+#: kernel) and ``tiled``
+variants = {"skinny": 0, "wgmma": 0, "tiled": 0}
 
 
 def check_operands(a, b, tiles, out_dtype, *, batched: bool):
-    """Validate a CUDA launch and return ``(out_dtype, b_col_major,
-    b_copy)``: B's layout (``runtime.b_col_major``) and the bytes a copy
-    of its rows may take (``runtime.copy_bytes``).
+    """Validate a CUDA launch and return ``(out_dtype, lda, b_col_major,
+    b_copy)``: A's row pitch (``runtime.a_pitch``), B's layout
+    (``runtime.b_col_major``) and the bytes a copy of its rows may take
+    (``runtime.copy_bytes``).
 
-    A must be contiguous; B is contiguous or the transpose of a
+    A is contiguous or in padded rows; B is contiguous or the transpose of a
     contiguous tensor (read column-major, as the tied lm_head reads the
     embedding table).  ``tiles`` is a ``runtime.SkinnyTile`` that fits the
     shape (``runtime.check_skinny``) with B's rows aligned to 4 bytes or
-    more, or a compiled ``(BM, BN, BK)`` of the tiled kernel (or one of the
-    tiles its sweep times, ``build.SWEEP_TILES``).
+    more, a ``runtime.TcTile`` the tensor-core kernel takes for these
+    operands (``runtime.check_tc``), or a compiled ``(BM, BN, BK)`` of the
+    tiled kernel (or one of the tiles its sweep times,
+    ``build.SWEEP_TILES``).
     """
     nd = 3 if batched else 2
     if a.dim() != nd or b.dim() != nd:
@@ -51,8 +56,9 @@ def check_operands(a, b, tiles, out_dtype, *, batched: bool):
     out_dtype = out_dtype or runtime.out_dtype(a.dtype)
     if (a.dtype, out_dtype) not in build.COMPILED_DTYPES:
         raise TypeError(f"no kernel for {a.dtype} -> {out_dtype}")
-    if not a.is_contiguous():
-        raise ValueError("A must be contiguous")
+    lda = runtime.a_pitch(a)
+    if lda is None:
+        raise ValueError("A must be contiguous or in evenly padded rows")
     col_major = runtime.b_col_major(b)
     if col_major is None:
         raise ValueError("B must be contiguous or a transposed contiguous "
@@ -66,14 +72,16 @@ def check_operands(a, b, tiles, out_dtype, *, batched: bool):
         if b_copy < 4:
             raise ValueError("B's rows are not 4-byte aligned: the skinny "
                              "kernel cannot copy them (launch the tiled one)")
+    elif isinstance(tiles, runtime.TcTile):
+        runtime.check_tc(tiles, a, b)
     elif tuple(tiles) not in build.MM_TILES:
         raise ValueError(f"tile {tiles} is not compiled")
     elif math.ceil(b.shape[-1] / tiles[1]) > 65535:
         raise ValueError(f"grid too large for N={b.shape[-1]}, tile {tiles}")
-    return out_dtype, col_major, b_copy
+    return out_dtype, lda, col_major, b_copy
 
 
-def launch(a, b, out, tiles, col_major: int, b_copy: int,
+def launch(a, b, out, tiles, lda: int, col_major: int, b_copy: int,
            batched: bool) -> str:
     """Launch ``out = a @ b`` (operands checked by ``check_operands``) on
     the kernel ``tiles`` names, on the current stream of ``a``'s card;
@@ -88,17 +96,26 @@ def launch(a, b, out, tiles, col_major: int, b_copy: int,
              else torch.cuda.device(a.device))
     with guard:
         if isinstance(tiles, runtime.SkinnyTile):
-            a_vec = ptrs[0] % 16 == 0 and k * a.element_size() % 16 == 0
-            build.call("widesa_skinny_launch", *ptrs, batch, m, n, k,
+            # 16-byte copies of A only where no run straddles K (a padded
+            # row's tail is not zeros)
+            size = a.element_size()
+            a_vec = ptrs[0] % 16 == 0 and lda * size % 16 == 0 \
+                and k * size % 16 == 0
+            build.call("widesa_skinny_launch", *ptrs, batch, m, n, k, lda,
                        col_major, *codes, tiles.split, tiles.kblk, b_copy,
                        int(a_vec))
             return "skinny"
+        if isinstance(tiles, runtime.TcTile):
+            build.call("widesa_tc_launch", *ptrs, batch, m, n, k, lda,
+                       col_major, *codes, tiles.bm, tiles.bn, tiles.stages,
+                       tiles.split)
+            return "wgmma"
         if batched:
-            build.call("widesa_bmm_launch", *ptrs, batch, m, n, k,
+            build.call("widesa_bmm_launch", *ptrs, batch, m, n, k, lda,
                        col_major, *codes, tiles=tuple(tiles))
         else:
-            build.call("widesa_mm_launch", *ptrs, m, n, k, col_major, *codes,
-                       tiles=tuple(tiles))
+            build.call("widesa_mm_launch", *ptrs, m, n, k, lda, col_major,
+                       *codes, tiles=tuple(tiles))
     return "tiled"
 
 
@@ -110,12 +127,12 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, tiles,
     global launches
     if a.device.type == "cpu" and b.device.type == "cpu":
         return ref.mm(a, b, out_dtype)
-    out_dtype, col_major, b_copy = check_operands(a, b, tiles, out_dtype,
-                                                  batched=False)
+    out_dtype, *layout = check_operands(a, b, tiles, out_dtype,
+                                        batched=False)
     out = torch.empty((a.shape[0], b.shape[1]), dtype=out_dtype,
                       device=a.device)
     if out.numel() == 0:
         return out
-    variants[launch(a, b, out, tiles, col_major, b_copy, batched=False)] += 1
+    variants[launch(a, b, out, tiles, *layout, batched=False)] += 1
     launches += 1
     return out

@@ -104,11 +104,14 @@ def _qkv(p, cfg, x, positions):
 def _gqa_scores(qg, k, site):
     """Scores [B, Hkv, G, Sq, Skv] in fp32 as a planned bmm: the operands
     stay in the compute dtype and the kernel flushes its fp32
-    accumulator.  qg: [B,Sq,Hkv,G,hd]; k: [B,Skv,Hkv,hd]."""
+    accumulator.  qg: [B,Sq,Hkv,G,hd]; k: [B,Skv,Hkv,hd].  B = K^T is
+    the column-major view of a [B*Hkv, Skv, hd] copy of K: one key a row
+    of hd values (128 bytes at hd 64), which the kernels copy in 16-byte
+    units whatever Skv is."""
     b, sq, hkv, group, hd = qg.shape
     skv = k.shape[1]
     qb = qg.permute(0, 2, 3, 1, 4).reshape(b * hkv, group * sq, hd)
-    kb = k.permute(0, 2, 3, 1).reshape(b * hkv, hd, skv)
+    kb = k.transpose(1, 2).contiguous().view(b * hkv, skv, hd).transpose(1, 2)
     s = planned_bmm(qb, kb, site=site, out_dtype=torch.float32)
     return s.reshape(b, hkv, group, sq, skv)
 
@@ -153,9 +156,24 @@ def sdpa(q, k, v, *, causal: bool, kv_len=None, chunk=None):
     if kv_len is not None:
         vmask = kpos < kv_len.to(q.device)[:, None]  # [B, Skv]
         logits = torch.where(vmask[:, None, None, None], logits, -1e30)
-    w = torch.softmax(logits, dim=-1).to(v.dtype)
+    w = _padded_rows(torch.softmax(logits, dim=-1), v.dtype)
     out = _gqa_values(w, v, "attn.values")
     return out.reshape(b, sq, hq, hd)
+
+
+def _padded_rows(x, dtype):
+    """``x`` cast to ``dtype`` in rows padded to whole 16-byte units (a
+    view of their first ``x.shape[-1]`` columns): the values bmm reads the
+    softmax weights as its A, which the GEMM kernels then copy by TMA at
+    any key count."""
+    n = x.shape[-1]
+    unit = 16 // dtype.itemsize
+    if n % unit == 0:
+        return x.to(dtype)
+    rows = torch.empty((*x.shape[:-1], -(-n // unit) * unit), dtype=dtype,
+                       device=x.device)[..., :n]
+    rows.copy_(x)
+    return rows
 
 
 def apply_attention(p, cfg, x, positions):

@@ -117,6 +117,133 @@ def test_every_site_plans_the_reference_plans(runs):
         assert st["last_plan"] == ref["last_plan"], site
 
 
+@pytest.fixture(scope="module", params=[17, 33], ids=["P17", "P33"])
+def odd_prompt(request):
+    """Reference and port prefill of one odd-length prompt of more than 16
+    tokens (qwen1.5-0.5b at SMOKE, bf16 cache) and 3 greedy decode steps,
+    each side feeding its own argmax, plus both facades' reports."""
+    p = request.param
+    cfg = jax_smoke(ARCH)
+    jparams = JT.init_params(jax.random.PRNGKey(2), cfg)
+    tparams = params_from_jax(jax.tree.map(np.asarray, jparams),
+                              get_smoke_config(ARCH), "cpu")
+    tokens = np.random.default_rng(p).integers(0, cfg.vocab, (1, p)).astype(
+        np.int32)
+    max_seq = p + 8
+    jax_run, port_run = {"logits": [], "tokens": []}, {"logits": [],
+                                                        "tokens": []}
+    jp.planned_report_clear()
+    with jp.override(policy=JaxPolicy(mode="modelled")):
+        lg, jc = JT.prefill(jparams, cfg, jnp.asarray(tokens), max_seq,
+                            cache_dtype=jnp.bfloat16)
+        for _ in range(4):
+            jax_run["logits"].append(np.asarray(lg))
+            nt = np.argmax(np.asarray(lg), axis=-1).astype(np.int32)[:, None]
+            jax_run["tokens"].append(int(nt[0, 0]))
+            lg, jc = JT.decode_step(jparams, cfg, jc, jnp.asarray(nt))
+    jax_run["report"] = jp.planned_report()
+    tp.reset_configuration()
+    tp.planned_report_clear()
+    with torch.no_grad():
+        cfg_t = get_smoke_config(ARCH)
+        lg, tc = TT.prefill(tparams, cfg_t, torch.from_numpy(tokens), max_seq,
+                            cache_dtype=torch.bfloat16)
+        for _ in range(4):
+            port_run["logits"].append(lg.numpy().copy())
+            nt = torch.argmax(lg, dim=-1).to(torch.int32)[:, None]
+            port_run["tokens"].append(int(nt[0, 0]))
+            lg, tc = TT.decode_step(tparams, cfg_t, tc, nt)
+    port_run["report"] = tp.planned_report()
+    return jax_run, port_run
+
+
+def test_odd_prompt_prefill_logits_and_greedy_tokens_match_reference(
+        odd_prompt):
+    """The scores of an odd-length prompt read K column-major (its rows of
+    the head dimension), the values A in rows of an odd key count: the
+    prefill and each greedy decode step stay within ``TOL`` of the
+    reference, and the greedy tokens are the same."""
+    want, got = odd_prompt
+    for g, w in zip(got["logits"], want["logits"]):
+        np.testing.assert_allclose(g, w, **TOL)
+    assert got["tokens"] == want["tokens"]
+
+
+def test_odd_prompt_sites_plan_the_reference_plans(odd_prompt):
+    """Every site plans the reference's shapes with the reference's plans
+    and neither falls back (the reference counts a jitted call once per
+    trace, the port every call, so the counts are not compared)."""
+    want, got = odd_prompt
+    assert set(got["report"]) == set(want["report"])
+    for site, st in got["report"].items():
+        ref = want["report"][site]
+        assert st["fallback"] == ref["fallback"] == 0, site
+        assert st["reasons"] == ref["reasons"], site
+        assert set(st["shapes"]) == set(ref["shapes"]), site
+        assert st["last_plan"] == ref["last_plan"], site
+
+
+@pytest.mark.parametrize("batch,skv", [(1, 17), (1, 12), (2, 33)])
+def test_scores_read_k_column_major(monkeypatch, batch, skv):
+    """The scores bmm gets B = K^T as the transpose of a contiguous
+    [B*Hkv, Skv, hd] tensor (one key a row of hd values) at any batch and
+    key count, so its rows are whole 16-byte units for the GEMM kernels;
+    the scores equal an explicit einsum."""
+    from repro_torch.kernels import runtime
+    from repro_torch.models import layers
+
+    seen = []
+    real = layers.planned_bmm
+
+    def spy(a, b, **kw):
+        seen.append(b)
+        return real(a, b, **kw)
+
+    monkeypatch.setattr(layers, "planned_bmm", spy)
+    gen = torch.Generator().manual_seed(batch * skv)
+    qg = torch.randn((batch, 5, 4, 2, 64), generator=gen)
+    k = torch.randn((batch, skv, 4, 64), generator=gen)
+    s = layers._gqa_scores(qg, k, "attn.scores")
+    (kb,) = seen
+    assert kb.shape == (batch * 4, 64, skv)
+    assert runtime.b_col_major(kb) == 1 and kb.transpose(1, 2).is_contiguous()
+    assert runtime.b_copy_bytes(kb) == 16
+    want = torch.einsum("bqhgd,bkhd->bhgqk", qg, k)
+    torch.testing.assert_close(s, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("skv", [17, 24, 33])
+def test_values_read_softmax_weights_in_padded_rows(monkeypatch, skv):
+    """The values bmm gets the softmax weights as an A whose rows are
+    padded to whole 16-byte units (a view of the first Skv columns, rows
+    evenly pitched), so TMA addresses them at any key count; the output
+    equals the attention computed directly."""
+    from repro_torch.kernels import runtime
+    from repro_torch.models import layers
+
+    seen = []
+    real = layers.planned_bmm
+
+    def spy(a, b, **kw):
+        seen.append(a)
+        return real(a, b, **kw)
+
+    monkeypatch.setattr(layers, "planned_bmm", spy)
+    gen = torch.Generator().manual_seed(skv)
+    q, k, v = (torch.randn((1, skv, 4, 64), generator=gen).to(torch.bfloat16)
+               for _ in range(3))
+    out = layers.sdpa(q, k, v, causal=True)
+    a = seen[-1]
+    pitch = runtime.a_pitch(a)
+    assert pitch == -(-skv // 8) * 8 and runtime.tma_operand(a, pitch)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / 8.0
+    s = s.masked_fill(torch.ones(skv, skv).triu(1).bool(), -1e30)
+    want = torch.einsum("bhqk,bkhd->bqhd",
+                        torch.softmax(s, -1).to(torch.bfloat16).float(),
+                        v.float())
+    torch.testing.assert_close(out.float(), want, rtol=2.0 ** -7, atol=1e-3)
+
+
 def test_bf16_leaves_keep_their_bits():
     cfg = dataclasses.replace(jax_smoke(ARCH), dtype="bfloat16")
     jparams = JT.init_params(jax.random.PRNGKey(1), cfg)

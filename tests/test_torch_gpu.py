@@ -1,25 +1,34 @@
-"""The port's GEMM (the skinny kernel), FIR, conv2d, fft2d, star-stencil
-and MTTKRP kernels against their plain versions on the card.
+"""The port's GEMM (the skinny and tensor-core kernels), FIR, conv2d,
+fft2d, star-stencil and MTTKRP kernels against their plain versions on the
+card.
 
 Every test here is ``gpu``-marked and skips without a CUDA card.  The file
 imports only the port (no JAX), so it runs on a machine with a card and
-PyTorch alone:
+PyTorch alone; like ``chip_smoke.py`` it puts the repository's ``src/`` on
+the import path itself, so either start line works from the root:
 
+    python -m pytest -q -m gpu tests/test_torch_gpu.py
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 Integers are bit-exact (int32 wraparound); float32 within the registry's
 atol 1e-3 (FIR, conv2d, the stencils: sums of at most 20 products in
 another order; MTTKRP: sums of at most 4096 products of three N(0, 1)
 draws, in fp32 or as 3xTF32 on the tensor cores; the GEMMs: sums of at
-most 11004 products of N(0, 1) draws; the rounding error of either is
-~1e-4) and 1.0 (the fft2d composition: sums of 515
+most 11004 products of N(0, 1) draws, 3xTF32 on the tensor-core kernel
+at up to 1024; the rounding error of either is ~1e-4) and 1.0 (the fft2d composition: sums of 515
 terms of magnitude ~100); bf16 results within one bf16 rounding step of
 the output, ``2^-7 |ref|``, plus 1e-3.
 """
 
+import sys
+from pathlib import Path
+
 import pytest
 
 torch = pytest.importorskip("torch")
+SRC = str(Path(__file__).resolve().parents[1] / "src")
+if SRC not in sys.path:
+    sys.path.insert(0, SRC)
 
 from repro_torch.kernels import (bmm, build, conv2d, fft2d,  # noqa: E402
                                  fir, jacobi2d, mttkrp, planned, ref,
@@ -352,3 +361,134 @@ def test_misaligned_operands_run_the_tiled_kernel_on_the_card(gen):
     with pytest.raises(ValueError, match="4-byte"):
         widesa_mm.matmul(a, b, tiles=runtime.skinny_tile(
             4, 130, 64, 1, torch.bfloat16))
+
+
+#: the tensor-core GEMM at M = 17, 64, 127 and 512 (more than 16 rows):
+#: qwen's q/k/v/o prefill (N = K = 1024), and a ragged N and K whose rows
+#: stay whole 16-byte units in bf16 and float32; bmm batched over 3, N of
+#: the head dimension and a ragged one
+TC_ROWS = (17, 64, 127, 512)
+TC_NK = ((1024, 1024), (200, 136))
+TC_BMM_NK = ((64, 64), (72, 200))
+#: (input, output) dtypes: bf16 to bf16, bf16 to fp32 (the attention
+#: scores), float32 (3xTF32)
+TC_FLOATS = ((torch.bfloat16, None), (torch.bfloat16, torch.float32),
+             (torch.float32, None))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,out_dtype", TC_FLOATS,
+                         ids=["bf16", "bf16-fp32", "fp32"])
+def test_tc_kernel_matches_plain_versions_on_the_card(dtype, out_dtype, gen):
+    """mm and bmm at M = 17..512, both B layouts, whole and ragged tiles,
+    on the configuration the runtime picks (the tensor-core kernel every
+    time); ``variants`` counts each launch under ``wgmma``; a second run
+    gives the same bits."""
+    before = {"mm": dict(widesa_mm.variants), "bmm": dict(bmm.variants)}
+    want = {"mm": 0, "bmm": 0}
+    for m in TC_ROWS:
+        for col_major in (False, True):
+            for kind, nks, batch in (("mm", TC_NK, None),
+                                     ("bmm", TC_BMM_NK, 3)):
+                fn, plain = ((widesa_mm.matmul, ref.mm) if kind == "mm"
+                             else (bmm.bmm, ref.bmm))
+                for n, k in nks:
+                    a, b = _mm_operands(m, n, k, dtype, col_major, gen, batch)
+                    tile = runtime.gemm_tile(a, b, (64, 32, 32))
+                    assert isinstance(tile, runtime.TcTile)
+                    got = fn(a, b, tiles=tile, out_dtype=out_dtype)
+                    _same_gemm(got, plain(a, b, out_dtype))
+                    assert torch.equal(
+                        got, fn(a, b, tiles=tile, out_dtype=out_dtype))
+                    want[kind] += 2
+    torch.cuda.synchronize()
+    for kind, mod in (("mm", widesa_mm), ("bmm", bmm)):
+        moved = {v: mod.variants[v] - before[kind][v] for v in mod.variants}
+        assert moved == {"skinny": 0, "wgmma": want[kind], "tiled": 0}
+
+
+#: every compiled tensor-core tile, by input dtype
+TC_COMPILED = [(dtype, tile) for dtype, tiles in runtime.TC_TILES.items()
+               for tile in tiles]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tile", TC_COMPILED,
+                         ids=[f"{d}-{t}" for d, t in TC_COMPILED])
+def test_every_tc_tile_matches_the_plain_version_on_the_card(dtype, tile,
+                                                             gen):
+    """Each compiled tile of its dtype, with 2 and 4 ring stages and K
+    whole or split over clusters of 2, 3 and 8 (every rank at least one
+    k-tile), on a ragged mm and bmm, both B layouts; a split repeats its
+    bits."""
+    for stages in (2, runtime.TC_MAX_STAGES):
+        for split in (1, 2, 3, 8):
+            tc = runtime.TcTile(bm=tile[0], bn=tile[1], stages=stages,
+                                split=split)
+            for col_major in (False, True):
+                a, b = _mm_operands(100, 200, 1000, dtype, col_major, gen)
+                got = widesa_mm.matmul(a, b, tiles=tc)
+                _same_gemm(got, ref.mm(a, b))
+                assert torch.equal(got, widesa_mm.matmul(a, b, tiles=tc))
+                a, b = _mm_operands(61, 72, 1000, dtype, col_major, gen,
+                                    batch=3)
+                _same_gemm(bmm.bmm(a, b, tiles=tc), ref.bmm(a, b))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_operands_tma_cannot_address_run_the_tiled_kernel_on_the_card(gen):
+    """Above 16 rows: a B one element off its 16-byte boundary, rows of an
+    odd number of bf16 elements and integer operands take the tiled tile,
+    and a tensor-core launch on the misaligned B raises."""
+    cases = []
+    a = _gemm_draw((64, 64), torch.bfloat16, gen)
+    cases.append((a, _gemm_draw((64 * 130 + 1,), torch.bfloat16,
+                                gen)[1:].view(64, 130)))
+    cases.append((_gemm_draw((64, 63), torch.bfloat16, gen),
+                  _gemm_draw((63, 128), torch.bfloat16, gen)))
+    cases.append((_gemm_draw((64, 64), torch.int8, gen),
+                  _gemm_draw((64, 128), torch.int8, gen)))
+    for a, b in cases:
+        tile = runtime.gemm_tile(a, b, (64, 32, 32))
+        assert tile == (64, 32, 32)
+        before = dict(widesa_mm.variants)
+        _same_gemm(widesa_mm.matmul(a, b, tiles=tile), ref.mm(a, b))
+        torch.cuda.synchronize()
+        assert widesa_mm.variants["tiled"] == before["tiled"] + 1
+        assert widesa_mm.variants["wgmma"] == before["wgmma"]
+    a, b = cases[0]
+    with pytest.raises(ValueError, match="TMA"):
+        widesa_mm.matmul(a, b, tiles=runtime.tc_tile(64, 130, 64,
+                                                     torch.bfloat16))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", GEMM_DTYPES, ids=str)
+def test_padded_a_rows_match_plain_versions_on_the_card(dtype, gen):
+    """A in rows padded to whole 16-byte units (the attention values'
+    softmax weights at an odd key count, K = 127): the skinny kernel at 12
+    rows; at 127 rows the tensor-core kernel in bf16 and float32, the
+    tiled one for the integers; mm and bmm, each launch counted as
+    routed."""
+    k, unit = 127, 16 // dtype.itemsize
+    for m in (12, 127):
+        rows = _gemm_draw((3, m, -(-k // unit) * unit), dtype, gen)
+        if dtype.is_floating_point:  # padding no kernel may read
+            rows[..., k:] = float("nan")
+        a = rows[..., :k]
+        b = _gemm_draw((3, k, 64), dtype, gen)
+        for fn, plain, x, y in ((bmm.bmm, ref.bmm, a, b),
+                                (widesa_mm.matmul, ref.mm, a[1], b[1])):
+            assert runtime.a_pitch(x) == -(-k // unit) * unit
+            tile = runtime.gemm_tile(x, y, (64, 32, 32))
+            kernel = ("skinny" if m <= 16 else
+                      "wgmma" if dtype.is_floating_point else "tiled")
+            assert isinstance(tile, {"skinny": runtime.SkinnyTile,
+                                     "wgmma": runtime.TcTile,
+                                     "tiled": tuple}[kernel])
+            mod = bmm if fn is bmm.bmm else widesa_mm
+            before = mod.variants[kernel]
+            _same_gemm(fn(x, y, tiles=tile), plain(x, y))
+            assert mod.variants[kernel] == before + 1
+    torch.cuda.synchronize()

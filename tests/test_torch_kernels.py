@@ -11,8 +11,13 @@ float atol, since both sides round fp32 sums taken in different orders.
 The runtime's choice of kernel is checked on every full-width serving
 shape: the skinny kernel (at most 16 rows of A) with its K split, the
 tiled kernel's tile beside it (the plan-tile -> tile adapter), and the
-operands that must take the tiled kernel.  The kernels themselves run
-only on the card (``gpu``-marked tests, skipped here).
+operands that must take the tiled kernel; on every qwen prefill shape of
+17-512 tokens, quickstart's 1024^3 and the registry's smoke shapes: the
+tensor-core kernel for bf16 and float32 operands TMA can address, the
+tiled kernel for integers and the rest.  The tensor-core kernel's float32
+arithmetic (3xTF32) is emulated in torch against the JAX package's
+matmul.  The kernels themselves run only on the card (``gpu``-marked
+tests, skipped here).
 """
 
 import dataclasses
@@ -188,8 +193,9 @@ def test_hopper_tiles_column_major_b_takes_the_short_k_slice(block, tile):
 
 def test_compiled_tiles_match_the_cuda_source():
     """build.COMPILED_TILES lists exactly the tiles launch_dtype compiles
-    for the tiled kernel, and runtime's SKINNY_* constants are the skinny
-    kernel's kSkinny* ones."""
+    for the tiled kernel, runtime's SKINNY_* constants are the skinny
+    kernel's kSkinny* ones, and its TC_* constants and TC_TILES the
+    tensor-core kernel's kTc* ones and compiled tiles."""
     src = build.SOURCE.read_text()
     body = src[src.index("int launch_dtype"):src.index("int launch(")]
     body = body[body.index("#else"):]
@@ -202,6 +208,23 @@ def test_compiled_tiles_match_the_cuda_source():
             "MaxCluster": runtime.SKINNY_MAX_CLUSTER} == {
         name: int(consts[name])
         for name in ("Rows", "BN", "RunBytes", "MaxCluster")}
+    tc = {name: int(v) for name, v in
+          re.findall(r"constexpr int kTc(\w+) = (\d+);", src)}
+    assert {"Consumers": runtime.TC_THREADS - 32,
+            "RowBytes": runtime.TC_ROW_BYTES,
+            "MaxStages": runtime.TC_MAX_STAGES,
+            "MaxCluster": runtime.TC_MAX_CLUSTER,
+            "MaxSmem": runtime.TC_MAX_SMEM} == {
+        name: tc[name] for name in ("Consumers", "RowBytes", "MaxStages",
+                                    "MaxCluster", "MaxSmem")}
+    assert "kTcThreads = kTcConsumers + 32;" in src
+    for fn, dtype in (("int launch_tc_bf16", torch.bfloat16),
+                      ("int launch_tc_f32", torch.float32)):
+        body = src[src.index(fn):]
+        body = body[:body.index("\n}\n")]
+        tiles = re.findall(r"bm == (\d+) && bn == (\d+)", body)
+        assert {(int(m), int(n)) for m, n in tiles} == \
+            set(runtime.TC_TILES[dtype])
 
 
 #: every GEMM shape of the two serving paths at full width, as (kind,
@@ -224,14 +247,18 @@ SERVING = (
 )
 
 
-def _meta_operands(kind, shape, col_major, dtype=torch.bfloat16):
+def _meta_operands(kind, shape, col_major, dtype=torch.bfloat16,
+                   padded=False):
     """Operands of a GEMM shape on the meta device (no memory; pointers
-    read 0, so aligned)."""
+    read 0, so aligned); ``padded``: A in rows padded to whole 16-byte
+    units, as the attention layer hands the values bmm its weights."""
     if kind == "mm":
         (m, n, k), lead = shape, ()
     else:
         (z, m, n, k), lead = shape, (shape[0],)
-    a = torch.empty((*lead, m, k), dtype=dtype, device="meta")
+    unit = 16 // dtype.itemsize
+    a = torch.empty((*lead, m, -(-k // unit) * unit if padded else k),
+                    dtype=dtype, device="meta")[..., :k]
     b = (torch.empty((*lead, n, k), dtype=dtype, device="meta")
          .transpose(-1, -2) if col_major
          else torch.empty((*lead, k, n), dtype=dtype, device="meta"))
@@ -298,9 +325,11 @@ def test_skinny_splits_stay_in_one_portable_cluster(dtype):
 def test_misaligned_or_odd_operands_take_the_tiled_kernel():
     """B rows the skinny kernel cannot copy 4 bytes at a time (a storage
     offset of one 2-byte element, an odd row of bf16, an int8 row of 130)
-    and A of more than 16 rows take the tiled tile; rows aligned to 8
-    bytes (whisper's 1500-key score rows) and a single column stay on the
-    skinny kernel."""
+    take the tiled tile; rows aligned to 8 bytes (whisper's 1500-key score
+    rows) and a single column stay on the skinny kernel.  A of more than
+    16 rows takes the tensor-core kernel in bf16 where TMA can address
+    both operands, the tiled tile where it cannot (B one element off its
+    16-byte boundary, rows of 63 or 130 bf16 elements) and in int8."""
     tiled = (4, 32, 32)
     a = torch.zeros((4, 64), dtype=torch.bfloat16)
     flat = torch.zeros(64 * 130 + 8, dtype=torch.bfloat16)
@@ -318,7 +347,16 @@ def test_misaligned_or_odd_operands_take_the_tiled_kernel():
         torch.zeros((64, 130), dtype=torch.int8), tiled) == tiled
     assert runtime.gemm_tile(
         torch.zeros((17, 64), dtype=torch.bfloat16),
-        torch.zeros((64, 128), dtype=torch.bfloat16), tiled) == tiled
+        torch.zeros((64, 128), dtype=torch.bfloat16), tiled) == \
+        runtime.TcTile(bm=128, bn=64, stages=2, split=1)
+    rows17 = torch.zeros((17, 64), dtype=torch.bfloat16)
+    for b in (offset, torch.zeros((64, 130), dtype=torch.bfloat16)):
+        assert runtime.gemm_tile(rows17, b, tiled) == tiled
+    assert runtime.gemm_tile(torch.zeros((17, 63), dtype=torch.bfloat16),
+                             odd_k, tiled) == tiled
+    assert runtime.gemm_tile(
+        torch.zeros((17, 64), dtype=torch.int8),
+        torch.zeros((64, 128), dtype=torch.int8), tiled) == tiled
     scores = torch.zeros((64, 1500), dtype=torch.bfloat16)
     assert runtime.b_copy_bytes(scores) == 8
     assert isinstance(runtime.gemm_tile(a, scores, tiled),
@@ -330,6 +368,225 @@ def test_misaligned_or_odd_operands_take_the_tiled_kernel():
     assert runtime.b_copy_bytes(column) == 16
     assert isinstance(runtime.gemm_tile(a, column, tiled),
                       runtime.SkinnyTile)
+
+
+def _route(kind, shape, col_major, dtype, padded=False):
+    """The runtime's configuration (through the registry, as
+    ``execute_plan`` asks) for a GEMM shape on meta operands (A in padded
+    rows where ``padded``)."""
+    a, b = _meta_operands(kind, shape, col_major, dtype, padded)
+    plan = best_plan(registry.get(kind).builder(*shape, planned_name(dtype)),
+                     PLANNED_TARGET)
+    return registry.get(kind).tiles(plan, a, b).tile
+
+
+def planned_name(dtype):
+    return str(dtype).removeprefix("torch.")
+
+
+#: qwen1.5-0.5b's prefill GEMMs of a P-token prompt: (kind, shape, B
+#: column-major, A in padded rows); the scores read K column-major, the
+#: lm_head the tied embedding table, the values their softmax weights in
+#: padded rows
+def _prefill(p):
+    return (("mm", (p, 1024, 1024), False, False),
+            ("mm", (p, 2816, 1024), False, False),
+            ("mm", (p, 1024, 2816), False, False),
+            ("mm", (1, 151936, 1024), True, False),
+            ("bmm", (16, p, p, 64), True, False),
+            ("bmm", (16, p, 64, p), False, True))
+
+
+PREFILL = [(p, *case) for p in (17, 64, 127, 512) for case in _prefill(p)]
+
+
+@pytest.mark.parametrize("p,kind,shape,col_major,padded", PREFILL,
+                         ids=[f"P{c[0]}-{c[1]}{c[2]}" for c in PREFILL])
+def test_prefill_gemms_take_the_tensor_core_kernel(p, kind, shape,
+                                                   col_major, padded):
+    """Every GEMM of a qwen prefill with more than 16 rows of A takes the
+    tensor-core kernel, at odd prompt lengths too; the lm_head (one row)
+    stays on the skinny kernel.  The values bmm of an odd length takes it
+    only because its A comes in padded rows: contiguous, its rows of P
+    bf16 elements are no whole 16-byte units (the tiled kernel)."""
+    tile = _route(kind, shape, col_major, torch.bfloat16, padded)
+    m, k = shape[-3], shape[-1]
+    if m <= runtime.SKINNY_ROWS:
+        assert isinstance(tile, runtime.SkinnyTile)
+        return
+    assert isinstance(tile, runtime.TcTile)
+    _holds_the_tc_rule(tile, shape, torch.bfloat16)
+    if padded and k % 8:
+        assert _route(kind, shape, col_major, torch.bfloat16) in \
+            build.COMPILED_TILES
+
+
+def test_a_pitch_reads_contiguous_and_padded_rows_only():
+    """A's row pitch: K when contiguous, the row stride of rows padded
+    evenly (batch entries M rows apart), None for a transpose, a column
+    stride or batch entries out of step."""
+    a = torch.zeros((3, 5, 24))
+    assert runtime.a_pitch(a) == 24
+    assert runtime.a_pitch(a[..., :17]) == 24
+    assert runtime.a_pitch(a.transpose(1, 2)) is None
+    assert runtime.a_pitch(a[..., ::2]) is None
+    assert runtime.a_pitch(a[:, :4, :17]) is None
+    assert runtime.a_pitch(a[0, :, :17]) == 24
+
+
+def _holds_the_tc_rule(tile, shape, dtype):
+    """The tensor-core configuration rule (``runtime.tc_tile``): bf16 tiles
+    of 128 rows, 128 columns wide from N = ``TC_WIDE_N`` up and 64 below;
+    float32 tiles of 128 columns, 64 rows tall up to M = 64 and 128
+    above; K split over at most ``TC_MAX_SPLIT`` blocks, each with a
+    k-tile and at least ``TC_MIN_RANK_KTILES`` of them, the split grid
+    within one block an SM; the deepest ring a rank's k-tiles fill (2 at
+    the least)."""
+    m, n, k = shape[-3:]
+    batch = shape[0] if len(shape) == 4 else 1
+    if dtype == torch.bfloat16:
+        assert (tile.bm, tile.bn) == (
+            128, 128 if n >= runtime.TC_WIDE_N else 64)
+    else:
+        assert (tile.bm, tile.bn) == (64 if m <= 64 else 128, 128)
+    ktiles = -(-k * dtype.itemsize // runtime.TC_ROW_BYTES)
+    ktper = -(-ktiles // tile.split)
+    assert 1 <= tile.split <= runtime.TC_MAX_SPLIT
+    assert (tile.split - 1) * ktper < ktiles
+    assert tile.split == 1 or (tile.blocks(m, n, batch) <= runtime.SMS
+                               and ktper >= runtime.TC_MIN_RANK_KTILES)
+    assert tile.stages == min(runtime.TC_MAX_STAGES, max(2, ktper))
+    assert tile.smem(dtype) <= runtime.TC_MAX_SMEM
+
+
+#: the recurrence path's GEMMs above 16 rows: quickstart's 1024^3 and the
+#: registry's smoke shapes of mm, bmm and the fft2d stages (64 x 64 DFT
+#: planes times 64 x 64 data)
+RECURRENCE = (("mm", (1024, 1024, 1024)), ("mm", (256, 256, 256)),
+              ("bmm", (4, 128, 128, 64)), ("mm", (64, 64, 64)))
+
+
+@pytest.mark.parametrize("kind,shape", RECURRENCE,
+                         ids=[f"{k}{s}" for k, s in RECURRENCE])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8,
+                                   torch.int16, torch.int32], ids=str)
+def test_recurrence_gemms_route_by_dtype(kind, shape, dtype):
+    """bf16 and float32 take the tensor-core kernel, the integers the
+    tiled kernel."""
+    tile = _route(kind, shape, False, dtype)
+    if dtype in (torch.float32, torch.bfloat16):
+        assert isinstance(tile, runtime.TcTile)
+        _holds_the_tc_rule(tile, shape, dtype)
+    else:
+        assert tile in build.COMPILED_TILES
+
+
+def test_tc_split_fills_the_card_within_one_wave():
+    """At qwen's q/k/v/o prefill of 512 tokens the 64 column tiles split K
+    over 2 blocks (128 blocks); at 127 tokens the 16 tiles over 4; the
+    gate/up's 88 wide tiles do not split; quickstart's float32 1024^3 (64
+    tiles) splits over 2; a K of fewer than 8 k-tiles never splits."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    assert runtime.tc_tile(512, 1024, 1024, bf16) == runtime.TcTile(
+        bm=128, bn=64, stages=4, split=2)
+    assert runtime.tc_tile(127, 1024, 1024, bf16).split == 4
+    assert runtime.tc_tile(512, 2816, 1024, bf16) == runtime.TcTile(
+        bm=128, bn=128, stages=4, split=1)
+    assert runtime.tc_tile(1024, 1024, 1024, f32) == runtime.TcTile(
+        bm=128, bn=128, stages=4, split=2)
+    # the scores' K of 64 is one k-tile: no split, a ring of 2; the
+    # values' K of 127 two k-tiles, too few to split
+    assert runtime.tc_tile(512, 512, 64, bf16, 16) == runtime.TcTile(
+        bm=128, bn=64, stages=2, split=1)
+    assert runtime.tc_tile(127, 64, 127, bf16, 16) == runtime.TcTile(
+        bm=128, bn=64, stages=2, split=1)
+
+
+def test_tc_operands_need_aligned_bases_and_16_byte_rows():
+    """TMA addresses an operand whose base is 16-byte aligned and whose
+    rows are whole 16-byte units: float32 rows of a multiple of 4
+    elements, bf16 of 8; a base one element off, or A not contiguous,
+    takes the tiled tile; a launch the kernel cannot take raises."""
+    tiled = (64, 32, 32)
+    for dtype, unit in ((torch.float32, 4), (torch.bfloat16, 8)):
+        for k in (unit * 9, unit * 9 + unit // 2):
+            a = torch.zeros((40, k), dtype=dtype)
+            b = torch.zeros((k, 24), dtype=dtype)
+            whole = k % unit == 0
+            assert isinstance(runtime.gemm_tile(a, b, tiled),
+                              runtime.TcTile) == whole
+            assert isinstance(runtime.gemm_tile(a, b.t().contiguous().t(),
+                                                tiled), runtime.TcTile) == \
+                whole
+        flat = torch.zeros(40 * 64 + 1, dtype=dtype)
+        a = flat[1:].view(40, 64)
+        b = torch.zeros((64, 32), dtype=dtype)
+        assert runtime.gemm_tile(a, b, tiled) == tiled
+        assert runtime.gemm_tile(torch.zeros((64, 40), dtype=dtype).t(), b,
+                                 tiled) == tiled
+        with pytest.raises(ValueError, match="TMA"):
+            runtime.check_tc(runtime.tc_tile(40, 32, 64, dtype), a, b)
+    good = torch.zeros((40, 64)), torch.zeros((64, 32))
+    for tile in (runtime.TcTile(128, 64, 4),      # a bf16 tile in float32
+                 runtime.TcTile(64, 128, 1),      # one stage
+                 runtime.TcTile(64, 128, 5),      # past the deepest ring
+                 runtime.TcTile(64, 128, 2, 9),   # past the cluster
+                 runtime.TcTile(64, 128, 2, 3)):  # K = 64 is 2 k-tiles
+        with pytest.raises(ValueError, match="tensor-core"):
+            runtime.check_tc(tile, *good)
+    runtime.check_tc(runtime.TcTile(64, 128, 2, 2), *good)
+    runtime.check_tc(runtime.tc_tile(40, 32, 64, torch.float32), *good)
+
+
+def test_tc_tiles_fit_in_shared_memory():
+    for dtype, tiles in runtime.TC_TILES.items():
+        for bm, bn in tiles:
+            tile = runtime.TcTile(bm, bn, runtime.TC_MAX_STAGES)
+            assert tile.smem(dtype) <= runtime.TC_MAX_SMEM
+            assert tile.blocks(512, 1024) == -(-512 // bm) * -(-1024 // bn)
+
+
+def _truncated(t):
+    """``t`` with its significand cut to TF32's 10 bits, as the tensor
+    cores read a .tf32 operand."""
+    return (t.view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _emulate_3xtf32(a, b, passes=3):
+    """The tensor-core kernel's float32 arithmetic: A's tile read by the
+    tensor cores as trunc_tf32(a) with lo = a - trunc_tf32(a) beside it,
+    B split hi = rna_tf32(b), lo = b - hi; each lo read truncated; lo*hi +
+    hi*lo + hi*hi with fp32 sums (``passes`` = 1: one product of the
+    operands rounded to TF32)."""
+    from test_torch_recurrences import _tf32
+
+    if passes == 1:
+        return _tf32(a) @ _tf32(b)
+    ah, bh = _truncated(a), _tf32(b)
+    al, bl = _truncated(a - ah), _truncated(b - bh)
+    return (ah @ bl + al @ bh) + ah @ bh
+
+
+@pytest.mark.parametrize("shape", [(256, 256, 256), (64, 1024, 1024)],
+                         ids=str)
+def test_3xtf32_emulation_is_within_atol_and_one_tf32_is_not(shape):
+    """Against the JAX package's ``repro.kernels.ref.matmul`` on the same
+    N(0, 1) operands: 3xTF32 within the registry's atol 1e-3 (at K = 1024
+    as close as two fp32 sums in different orders, ~1e-4), one TF32
+    product outside it and over 10x further off."""
+    from repro.kernels import ref as jax_ref
+
+    m, n, k = shape
+    rng = np.random.default_rng(7)
+    a = rng.standard_normal((m, k)).astype(np.float32)
+    b = rng.standard_normal((k, n)).astype(np.float32)
+    want = np.asarray(jax_ref.matmul(jnp.asarray(a), jnp.asarray(b)))
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    atol = registry.get("mm").atol
+    err3 = np.abs(_emulate_3xtf32(ta, tb).numpy() - want).max()
+    err1 = np.abs(_emulate_3xtf32(ta, tb, passes=1).numpy() - want).max()
+    assert err3 <= atol
+    assert err1 > atol and err1 > 10 * err3
 
 
 def test_check_skinny_refuses_launches_the_kernel_cannot_take():
@@ -363,6 +620,9 @@ def test_wrappers_raise_off_the_cpu_instead_of_falling_back():
         bmm.bmm(a[None], b[None], tiles=(4, 32, 8))
     with pytest.raises(ValueError, match="CUDA"):
         widesa_mm.matmul(a, b, tiles=runtime.gemm_tile(a, b, (4, 32, 8)))
+    with pytest.raises(ValueError, match="CUDA"):
+        bmm.bmm(a[None], b[None], tiles=runtime.tc_tile(4, 3, 8,
+                                                        torch.float32))
 
 
 def test_cpu_wrappers_run_the_plain_version_and_count_no_launch():
@@ -375,6 +635,8 @@ def test_cpu_wrappers_run_the_plain_version_and_count_no_launch():
     skinny = runtime.gemm_tile(a[0], b[0], (4, 32, 8))
     torch.testing.assert_close(
         widesa_mm.matmul(a[0], b[0], tiles=skinny), a[0] @ b[0])
+    tc = runtime.tc_tile(5, 2, 7, torch.float32)
+    torch.testing.assert_close(bmm.bmm(a, b, tiles=tc), a @ b)
     assert (widesa_mm.launches, bmm.launches, widesa_mm.variants,
             bmm.variants) == before
 
