@@ -5,6 +5,7 @@
     python3 chip_smoke.py --tile-sweep [--out sweep.json]
     python3 chip_smoke.py --mttkrp-sweep [--out sweep.json]
     python3 chip_smoke.py --tc-sweep [--out sweep.json]
+    python3 chip_smoke.py --fft-sweep [--out sweep.json]
 
 Needs one CUDA card and the CUDA toolkit.  It imports only the port, never
 JAX nor the JAX package, and runs eight phases, each printing its own
@@ -28,8 +29,10 @@ line(s); any failure exits non-zero:
    kernel, the bf16 -> fp32 bmm, and two runs of split-K float products
    bitwise equal; FIR and conv2d in every dtype they take, at the
    whisper-base frontend shapes and at ragged ones, with the tile the
-   runtime picks and every compiled tile; the fft2d composition over the
-   GEMM against ``torch.fft.fft2``.  Then each is timed beside its plain
+   runtime picks and every compiled tile; the fused fft2d kernel at
+   ``FFT_SHAPES`` (two runs bitwise equal) and the composition over the
+   GEMMs at the frontend tile against ``torch.fft.fft2``.  Then each is
+   timed beside its plain
    version, one PyTorch call computing the same function
    (``torch.matmul``/``torch.bmm``, ``F.conv1d``, ``F.conv2d``,
    ``torch.fft.fft2``: yardsticks only) and its memory/compute bound, at
@@ -42,10 +45,11 @@ line(s); any failure exits non-zero:
    the host time of a wrapper call and of a planned-facade call (with a
    ``cProfile`` breakdown at one shape); the prefill GEMMs of a 512-token
    prompt and quickstart's float32 1024^3 the same for the tensor-core
-   kernel, the tiled kernel and the library call; FIR, conv2d, the fft2d
-   composition and their library calls also get their device time
-   (the launch overhead left out), FIR and conv2d with every compiled
-   tile;
+   kernel, the tiled kernel and the library call; FIR, conv2d, the fused
+   fft2d kernel (the composition's device time beside it, at the
+   frontend tile and the pipeline's 64 x 64 grid) and their library
+   calls also get their device time (the launch overhead left out), FIR
+   and conv2d with every compiled tile;
 4. serve  — full-width qwen1.5-0.5b (bf16, 24 layers, vocab 151936,
    random weights from a ``torch.Generator`` seeded with 0) on the slot
    engine: 4 slots, max_seq 128, 8 requests of 4-16 prompt tokens and 8
@@ -85,10 +89,11 @@ line(s); any failure exits non-zero:
    ``lower_plan(plan, "pallas")`` against its plain version, the stencils
    and mttkrp at their paper-scale bench sizes in every parity dtype.
    Checks that the star-stencil (B6) and MTTKRP (B7) kernels launched,
-   every mttkrp case on the kernel its dtype and shape call for (float32
-   and int8 on the tensor cores, int16 on the CUDA cores) with each launch
-   counted under it, and every float32 mm / bmm above 16 rows on the
-   tensor-core GEMM.  Then holds B6 (5-point, 9-point, and the multi-sweep
+   every mttkrp case on the kernel its dtype and shape call for (every
+   bench case on the tensor cores, int16 and int32 as int8 limbs) with
+   each launch counted under it, the fft2d_stage case on the fused
+   kernel, and every float32 mm / bmm above 16 rows on the tensor-core
+   GEMM.  Then holds B6 (5-point, 9-point, and the multi-sweep
    form on its int32 state) and B7 against their plain versions at the
    bench sizes and at ragged ones, in float32, int8, int16 and int32, on
    the kernel the runtime routes each to, checks that the float32 bound
@@ -122,19 +127,22 @@ per shape, the tile ``runtime.hopper_tiles`` picks, the skinny
 configuration ``runtime.gemm_tile`` picks and the fastest of each
 (``--out`` writes all times as JSON).  ``--mttkrp-sweep`` builds only the
 HPC source, then holds the tensor-core MTTKRP at the bench size in
-float32 and int8 with every split of K (1 to 8) to the plain version and
-prints each split's device time beside the CUDA-core kernel's and
+float32, int8, int16 and int32 with every split of K (1 to 8) to the
+plain version and prints each split's device time beside the CUDA-core kernel's and
 ``torch.einsum``'s.  ``--tc-sweep`` builds only the GEMM source, then
 holds the tensor-core GEMM at the qwen prefill shapes of 512, 127 and 64
 tokens (bf16) and at quickstart's float32 1024^3 to the plain version with
 every compiled tile, split of K (1-4) and ring of 2 or 4 stages, and prints
 each one's device time beside the runtime's pick and ``torch.matmul`` /
-``torch.bmm``'s.
+``torch.bmm``'s.  ``--fft-sweep`` builds the GEMM and signal-processing
+sources, then holds the fused fft2d kernel at 12 x 515, 16 x 1024 and
+64 x 64 with every split of K it takes to ``ref.fft2d`` and prints each
+one's device time beside the composition's and ``torch.fft.fft2``'s.
 
 Tolerances: integer results are bit-exact (wrapping int32, as XLA);
 float32 results within the kernel registry's atol 1e-3 (sums of up to
 2816 products, 3xTF32 on the tensor-core GEMM; 1.0 for the
-fft2d composition, the registry's fft2d_stage atol: fp32 sums of 515
+fft2d, the registry's fft2d_stage atol: fp32 sums of 515
 terms of magnitude ~100); bf16 results within ``2^-7 * |ref| + 1e-3``,
 one bf16 rounding step of the output (8-bit significand) on top of fp32
 sums taken in another order.  The logits of the whole bf16 models are
@@ -253,9 +261,10 @@ KERNELS = {
     "fir": dict(replaces="src/repro/kernels/fir.py:25", source=SP_SOURCE),
     "conv2d": dict(replaces="src/repro/kernels/conv2d.py:32",
                    source=SP_SOURCE),
-    # no CUDA of its own: six launches of the GEMM above
+    # the fused kernel (the composition over the GEMMs above for taller
+    # grids)
     "fft2d": dict(replaces="src/repro/kernels/fft2d.py:34",
-                  source="src/repro_torch/kernels/fft2d.py"),
+                  source=SP_SOURCE),
     # one kernel for jacobi2d, jacobi2d_9pt and each sweep of jacobi2d_ms
     "jacobi2d": dict(replaces="src/repro/kernels/jacobi2d.py:31",
                      source=HPC_SOURCE),
@@ -276,6 +285,12 @@ SP_RAGGED = {"fir": ((1000, 7), (70001, 15)),
              "conv2d": ((37, 70, 3, 5), (130, 333, 4, 4))}
 SP_BENCH = {"fir": (1048576, 15), "conv2d": (10240, 10240, 4, 4)}
 FFT_MAIN = (12, 515)
+#: the fused fft2d kernel's parity shapes: the frontend's, a wider one, a
+#: single row, ragged ones (C no multiple of 4 or of the 32-column tile),
+#: and the recurrence pipeline's fft2d_stage smoke grid (64 rows: the
+#: kernel's largest), the two timed
+FFT_PIPELINE = (64, 64)
+FFT_SHAPES = (FFT_MAIN, (16, 1024), (1, 7), (12, 67), (7, 130), FFT_PIPELINE)
 
 
 def fail(msg: str) -> None:
@@ -305,7 +320,9 @@ def read_counts() -> dict:
 
 
 def read_variants() -> dict:
-    """The GEMM wrappers' launches by kernel (skinny / tiled)."""
+    """The wrappers' launches by kernel: the GEMMs' (skinny / wgmma /
+    tiled), mttkrp's (tensor_core / cuda_core), fft2d's (fused /
+    composition)."""
     return {name: dict(mod.variants) for name, mod in wrappers().items()
             if hasattr(mod, "variants")}
 
@@ -1086,7 +1103,7 @@ def tile_sweep(torch) -> list[dict]:
 
 
 # ---------------------------------------------------------------------------
-# FIR, conv2d and the fft2d composition
+# FIR, conv2d and fft2d
 # ---------------------------------------------------------------------------
 
 def sp_operands(torch, gen, name, args, dtype):
@@ -1117,24 +1134,30 @@ def sp_kernel(name, args, dtype):
             ref.conv2d, tiles)
 
 
-def fft_kernel():
-    """The fft2d composition, each product on the configuration the
-    runtime picks for it, with the fft2d_stage plan's tiled tile where the
-    skinny kernel does not apply."""
-    from repro_torch.kernels import fft2d, planned, runtime
+def fft_kernel(shape=FFT_MAIN):
+    """The fft2d wrapper on the form the runtime routes an fft2d_stage
+    plan of ``shape`` to (the fused kernel up to 64 rows), and the
+    composition over the GEMMs on the plan's tiled tile: (fused call,
+    composition call, the routed tile)."""
+    import torch
 
-    plan = planned.plan_for("fft2d_stage", FFT_MAIN, "float32")
+    from repro_torch.kernels import fft2d, planned, registry, runtime
+
+    plan = planned.plan_for("fft2d_stage", shape, "float32")
     if plan is None:
-        fail(f"no feasible plan for fft2d_stage{FFT_MAIN}")
-    tiles = runtime.hopper_tiles(plan).tile
-    return (lambda re_, im_: fft2d.fft2d(re_, im_, tiles=tiles)), tiles
+        fail(f"no feasible plan for fft2d_stage{shape}")
+    x = torch.empty(shape, device="cuda")
+    tile = registry.get("fft2d_stage").tiles(plan, x, x).tile
+    tiled = runtime.hopper_tiles(plan).tile
+    return ((lambda re_, im_: fft2d.fft2d(re_, im_, tiles=tile)),
+            (lambda re_, im_: fft2d.fft2d(re_, im_, tiles=tiled)), tile)
 
 
 def sp_parity(torch) -> None:
     """FIR and conv2d against their plain versions in every dtype they
     take, at the frontend and ragged shapes, with every compiled tile
-    (the picked one among them); the fft2d composition against
-    ``ref.fft2d``."""
+    (the picked one among them); the fused fft2d kernel at ``FFT_SHAPES``
+    and the composition at the frontend tile against ``ref.fft2d``."""
     from repro_torch.kernels import build, conv2d, fir, ref
 
     gen = torch.Generator(device="cuda").manual_seed(4)
@@ -1158,19 +1181,37 @@ def sp_parity(torch) -> None:
                         fail(f"{name}{args} {dtype} tile {tile}: max |err| "
                              f"{err}")
                     n += 1
-    call, tiles = fft_kernel()
-    re_, im_ = (torch.randn(FFT_MAIN, generator=gen, device="cuda")
-                for _ in range(2))
-    got, want = call(re_, im_), ref.fft2d(re_, im_)
-    torch.cuda.synchronize()
-    err = max((g - w).abs().max().item() for g, w in zip(got, want))
-    if err > 1.0:
-        fail(f"fft2d{FFT_MAIN} composition tile {tiles}: max |err| {err} "
-             "> 1.0")
-    n += 1
-    print(f"kernels: FIR/conv2d parity ok in {n} cases (4 dtypes x "
-          f"frontend and ragged shapes x every compiled tile; integers "
-          f"bit-exact, fp32 <= 1e-3; fft2d composition <= 1.0)", flush=True)
+    from repro_torch.kernels import runtime
+
+    worst = 0.0
+    for shape in FFT_SHAPES:
+        fused, composition, tile = fft_kernel(shape)
+        if not isinstance(tile, runtime.Fft2dTile):
+            fail(f"fft2d{shape} routed to the composition ({tile})")
+        re_, im_ = (torch.randn(shape, generator=gen, device="cuda")
+                    for _ in range(2))
+        want = ref.fft2d(re_, im_)
+        calls = [("fused", fused)]
+        if shape == FFT_MAIN:
+            calls.append(("composition", composition))
+        for form, call in calls:
+            got = call(re_, im_)
+            torch.cuda.synchronize()
+            err = max((g - w).abs().max().item() for g, w in zip(got, want))
+            if err > 1.0:
+                fail(f"fft2d{shape} {form}: max |err| {err} > 1.0")
+            if form == "fused":
+                worst = max(worst, err)
+                again = call(re_, im_)
+                if not all(torch.equal(g, a) for g, a in zip(got, again)):
+                    fail(f"fft2d{shape} fused {tile}: two runs differ")
+            n += 1
+    print(f"kernels: FIR/conv2d/fft2d parity ok in {n} cases (FIR and "
+          f"conv2d: 4 dtypes x frontend and ragged shapes x every compiled "
+          f"tile; integers bit-exact, fp32 <= 1e-3; fft2d: the fused kernel "
+          f"at {list(FFT_SHAPES)} and the composition at {FFT_MAIN}, <= "
+          f"1.0, the fused kernel's max |err| {worst:.4g}, two runs "
+          f"bitwise equal)", flush=True)
 
 
 def sp_bound_ms(name, args, in_bytes, out_bytes):
@@ -1189,11 +1230,12 @@ def sp_bound_ms(name, args, in_bytes, out_bytes):
 
 def sp_timings(torch) -> dict:
     """FIR and conv2d at the main-path shape and dtype (the whisper-base
-    frontend, int16) and at the registry's bench shape (float32), and the
-    fft2d composition at the frontend tile: kernel, plain version, one
-    PyTorch call and bound.  The library call takes float32 copies of
-    integer inputs (``F.conv1d``/``F.conv2d`` take no integers on the
-    card), with TF32 off."""
+    frontend, int16) and at the registry's bench shape (float32), and
+    fft2d at the frontend tile and the pipeline's smoke grid (the fused
+    kernel, with the composition's device time beside it): kernel, plain
+    version, one PyTorch call and bound.  The library call takes float32
+    copies of integer inputs (``F.conv1d``/``F.conv2d`` take no integers
+    on the card), with TF32 off."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import build, conv2d, fir, ref, widesa_mm
@@ -1242,43 +1284,57 @@ def sp_timings(torch) -> dict:
                   f"; kernel device time by compiled tile: {per_tile}",
                   flush=True)
             del a, b, af, bf, out, want
-    call, tiles = fft_kernel()
-    re_, im_ = (torch.randn(FFT_MAIN, generator=gen, device="cuda")
-                for _ in range(2))
-    before = dict(widesa_mm.variants)
-    got, want = call(re_, im_), ref.fft2d(re_, im_)
-    routes = {v: widesa_mm.variants[v] - before[v] for v in before}
-
     def fft_lib(x_re, x_im):
         return torch.fft.fft2(torch.complex(x_re, x_im))
 
-    r, c = FFT_MAIN
-    row = dict(
-        tiles=tiles,
-        max_abs_err=max((g - w).abs().max().item()
-                        for g, w in zip(got, want)),
-        ms=time_ms(torch, lambda: call(re_, im_)),
-        plain_ms=time_ms(torch, lambda: ref.fft2d(re_, im_)),
-        library_ms=time_ms(torch, lambda: fft_lib(re_, im_)),
-    )
-    # the function's least work, not the composition's: two float32
-    # planes in and two out, and an FFT's 5 N log2 N operations over the
-    # N = r * c complex points
-    n = r * c
-    row["bound_ms"], row["bound_by"] = least_ms(
-        4 * n * 4, 5 * n * math.log2(n), "float32")
-    rows[("fft2d", "main")] = row
-    gemms = device_ms(torch, lambda: call(re_, im_), "skinny_kernel",
-                      launches=routes["skinny"])
-    print(f"time fft2d{FFT_MAIN} float32 [composition, 6 mm launches by "
-          f"kernel {routes}, tiled fallback {tiles}]: {row['ms']:.4f} ms, "
-          f"plain (torch.fft.fft2) {row['plain_ms']:.4f} ms, torch.fft.fft2 "
-          f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-          f"({row['bound_by']}); device time (profiler): composition "
-          f"{fmt_ms(device_ms(torch, lambda: call(re_, im_)))} (its skinny "
-          f"GEMMs {fmt_ms(gemms)}), torch.fft.fft2 "
-          f"{fmt_ms(device_ms(torch, lambda: fft_lib(re_, im_)))}",
-          flush=True)
+    for shape in (FFT_MAIN, FFT_PIPELINE):
+        fused, composition, tile = fft_kernel(shape)
+        re_, im_ = (torch.randn(shape, generator=gen, device="cuda")
+                    for _ in range(2))
+        before = dict(widesa_mm.variants)
+        composition(re_, im_)
+        routes = {v: widesa_mm.variants[v] - before[v] for v in before}
+        got, want = fused(re_, im_), ref.fft2d(re_, im_)
+        r, c = shape
+        n = r * c
+        row = dict(
+            tiles=tile,
+            max_abs_err=max((g - w).abs().max().item()
+                            for g, w in zip(got, want)),
+            ms=time_ms(torch, lambda: fused(re_, im_)),
+            plain_ms=time_ms(torch, lambda: ref.fft2d(re_, im_)),
+            library_ms=time_ms(torch, lambda: fft_lib(re_, im_)),
+            device_ms=device_ms(torch, lambda: fused(re_, im_),
+                                "fft2d_kernel", 20),
+            composition_device_ms=device_ms(
+                torch, lambda: composition(re_, im_)),
+            library_device_ms=device_ms(torch, lambda: fft_lib(re_, im_),
+                                        None, 20),
+        )
+        # the function's least work: two float32 planes in and two out,
+        # and an FFT's 5 N log2 N operations over the N = r * c points
+        row["bound_ms"], row["bound_by"] = least_ms(
+            4 * n * 4, 5 * n * math.log2(n), "float32")
+        # the DFT form's (the kernel's design target): F_R's and F_C's
+        # planes read once besides X and Z, and its 3 (r c^2 + r^2 c)
+        # multiply-adds on the CUDA cores
+        row["dft_bound_ms"], _ = least_ms(
+            (2 * c * c + 2 * r * r + 4 * n) * 4,
+            2 * 3 * (r * c * c + r * r * c), "float32")
+        if shape == FFT_MAIN:
+            rows[("fft2d", "main")] = row
+        print(f"time fft2d{shape} float32 [fused kernel, {tile}]: "
+              f"{row['ms']:.4f} ms (device {fmt_ms(row['device_ms'])}), "
+              f"the composition (6 mm launches by kernel {routes} and its "
+              f"elementwise kernels) device "
+              f"{fmt_ms(row['composition_device_ms'])}, torch.fft.fft2 "
+              f"{row['library_ms']:.4f} ms (device "
+              f"{fmt_ms(row['library_device_ms'])}), plain (torch.fft.fft2) "
+              f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.7f} ms "
+              f"({row['bound_by']}, FFT form) and {row['dft_bound_ms']:.5f} "
+              f"ms (bytes, the DFT form); max |err| {row['max_abs_err']:.4g}",
+              flush=True)
+        del re_, im_, got, want
     return rows
 
 
@@ -1691,6 +1747,9 @@ HPC_TIMED = (("jacobi2d", "float32"), ("jacobi2d", "int8"),
              ("jacobi2d_9pt", "float32"), ("jacobi2d_ms", "float32"),
              ("mttkrp", "float32"), ("mttkrp", "int8"), ("mttkrp", "int16"),
              ("mttkrp", "int32"))
+#: int8 products a product of the tensor-core MTTKRP: the limb pairs p,
+#: q with p + q < 4
+LIMB_PRODUCTS = {"int8": 1, "int16": 4, "int32": 10}
 #: the profiler's name of each MTTKRP kernel (``mttkrp.variants`` keys)
 MTTKRP_KERNELS = {"tensor_core": "mttkrp_tc_kernel",
                   "cuda_core": "mttkrp_kernel"}
@@ -1706,11 +1765,19 @@ def mttkrp_variant(tile) -> str:
 
 def mttkrp_expected(args, dtype) -> str:
     """The kernel MTTKRP must run on at ``args`` in ``dtype``: the tensor
-    cores for float32, and for int8 whose rows of X and B allow 4-byte
-    copies."""
+    cores where the rows of X and B allow 4-byte copies (every float32 and
+    int32 shape; int8 with J and L multiples of 4; int16 with J and L
+    even) and C's tile fits in shared memory, else the CUDA cores."""
+    import torch
+
+    from repro_torch.kernels import runtime
+
     nj, nl = args[1], args[3]
-    return "tensor_core" if dtype == "float32" or (
-        dtype == "int8" and nj % 4 == 0 and nl % 4 == 0) else "cuda_core"
+    unit = {"float32": 1, "int32": 1, "int16": 2, "int8": 4}[dtype]
+    fits = runtime.mttkrp_smem(nl, getattr(torch, dtype)) \
+        <= runtime.MTTKRP_TC_MAX_SMEM
+    return "tensor_core" if fits and nj % unit == 0 and nl % unit == 0 \
+        else "cuda_core"
 
 
 def hpc_call(name, args, dtype):
@@ -1853,8 +1920,8 @@ def hpc_timings(torch) -> dict:
     and ``torch.profiler`` device time), plain version, library call and
     bound.  MTTKRP rows on the tensor cores also give the CUDA-core
     kernel's device time on the same operands, and their bound at the
-    tensor-core rate (3xTF32: three TF32 products a product) beside the
-    fp32 CUDA-core one."""
+    tensor-core rate (3xTF32: three TF32 products a product; int16 and
+    int32: 4 and 10 int8 limb products) beside the fp32 CUDA-core one."""
     from repro_torch.kernels import build, registry
 
     gen = torch.Generator(device="cuda").manual_seed(8)
@@ -1890,16 +1957,19 @@ def hpc_timings(torch) -> dict:
             row["cuda_core_device_ms"] = device_ms(
                 torch, lambda: fn(*ops, tiles=build.MTTKRP_TILE),
                 MTTKRP_KERNELS["cuda_core"], reps)
+            # 3xTF32: three TF32 products a product; the integers one int8
+            # product a pair of limbs (1, 4 and 10 in int8, int16, int32)
             tc_rate, passes = ("tfloat32", 3) if dtype == "float32" \
-                else ("int8", 1)
+                else ("int8", LIMB_PRODUCTS[dtype])
             tc_ms, tc_by = hpc_bound_ms(
                 name, rec, ops[0].element_size(), out.element_size(),
                 rate=tc_rate, passes=passes)
             # the kernels line's bound: the tensor-core rate its work runs at
             row["cuda_core_bound_ms"] = row["bound_ms"]
             row["bound_ms"], row["bound_by"] = tc_ms, tc_by
-            rate = (f", {'3xTF32' if passes == 3 else 'int8'} tensor-core "
-                    f"rate" if tc_by == "operations" else "")
+            rate = (f", {'3xTF32' if dtype == 'float32' else 'int8'} "
+                    f"tensor-core rate, {passes} product(s) a product"
+                    if tc_by == "operations" else "")
             extra = (f"; fp32 CUDA-core bound "
                      f"{row['cuda_core_bound_ms']:.4f} ms; CUDA-core kernel "
                      f"device time {fmt_ms(row['cuda_core_device_ms'])}")
@@ -1925,18 +1995,71 @@ def hpc_timings(torch) -> dict:
     return rows
 
 
+#: the integer GEMMs above 16 rows the recurrence pipeline runs on the
+#: tiled kernel: the registry's mm and bmm smoke shapes
+INT_GEMMS = (("mm", (256, 256, 256)), ("bmm", (4, 128, 128, 64)))
+
+
+def int_gemm_timings(torch) -> None:
+    """The integer GEMMs of ``INT_GEMMS`` in int8, int16 and int32 on the
+    kernel the runtime routes them to (the tiled kernel), held bitwise to
+    the plain version: profiler device time beside the bound (the int8
+    tensor-core rate for int8, the fp32 CUDA-core rate for the wider
+    integers, which no tensor-core instruction takes whole), the plain
+    version and, where PyTorch has one call for it on the card,
+    ``torch._int_mm`` (int8 mm; none for bmm, int16 or int32)."""
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    for kind, shape in INT_GEMMS:
+        plain = ref.mm if kind == "mm" else ref.bmm
+        for dtype in (torch.int8, torch.int16, torch.int32):
+            a, b = operands(torch, gen, kind, shape, dtype, False)
+            call, tiles = kernel_call(kind, shape, dtype, a, b)
+            kernel = describe(tiles.tile).split()[0]
+            if kernel != "tiled":
+                fail(f"{kind}{shape} {dtype}: routed to {kernel}")
+            want = plain(a, b)
+            if not torch.equal(call(a, b), want):
+                fail(f"{kind}{shape} {dtype}: the tiled kernel is not "
+                     "bit-exact")
+            lib, lib_text = None, "none on the card"
+            if kind == "mm" and dtype == torch.int8:
+                # a yardstick only: a PyTorch build without it is noted
+                try:
+                    same = torch.equal(torch._int_mm(a, b), want)
+                except RuntimeError as err:
+                    same, lib_text = None, f"torch._int_mm refused ({err})"
+                if same is False:
+                    fail(f"{kind}{shape} int8: torch._int_mm differs")
+                if same:
+                    lib = device_ms(torch, lambda: torch._int_mm(a, b), None)
+                    lib_text = f"torch._int_mm device {fmt_ms(lib)}"
+            bound, by = bound_ms(kind, shape, a.element_size(), 4,
+                                 "int8" if dtype == torch.int8
+                                 else "float32")
+            name = str(dtype).removeprefix("torch.")
+            print(f"time {kind}{shape} {name} -> int32 [tiled {tiles.tile}, "
+                  f"the recurrence pipeline]: device "
+                  f"{fmt_ms(device_ms(torch, lambda: call(a, b), 'gemm_kernel'))}"
+                  f", bound {bound:.5f} ms ({by}), plain "
+                  f"{time_ms(torch, lambda: plain(a, b), 10):.4f} ms, library "
+                  f"{lib_text}", flush=True)
+            del a, b, want
+
+
 def mttkrp_sweep(torch) -> list[dict]:
-    """The tensor-core MTTKRP at the bench size in float32 and int8 with
-    every split of K over a cluster (1 to 8), each held to the plain
-    version, beside the CUDA-core kernel and ``torch.einsum`` (profiler
-    device time)."""
+    """The tensor-core MTTKRP at the bench size in float32, int8, int16
+    and int32 with every split of K over a cluster (1 to 8), each held to
+    the plain version, beside the CUDA-core kernel and ``torch.einsum``
+    (profiler device time)."""
     from repro_torch.kernels import build, mttkrp, registry, runtime
     from repro_torch.launch import recurrences
 
     gen = torch.Generator(device="cuda").manual_seed(9)
     args = HPC_BENCH["mttkrp"]
     rows = []
-    for dtype in ("float32", "int8"):
+    for dtype in ("float32", "int8", "int16", "int32"):
         _, spec, rec, plan = hpc_call("mttkrp", args, dtype)
         ops = registry.operands(rec, gen, "cuda")
         want = spec.ref(*ops)
@@ -1964,6 +2087,44 @@ def mttkrp_sweep(torch) -> list[dict]:
               f"{fmt_ms(library)}", flush=True)
         del ops, want
         torch.cuda.empty_cache()
+    return rows
+
+
+def fft_sweep(torch) -> list[dict]:
+    """The fused fft2d kernel at ``FFT_SHAPES``' frontend, wide and
+    pipeline grids with every split of K it takes (1-8), each held to
+    ``ref.fft2d``, beside the composition and ``torch.fft.fft2`` (profiler
+    device time)."""
+    from repro_torch.kernels import fft2d, ref, runtime
+
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    rows = []
+    for shape in (FFT_MAIN, (16, 1024), FFT_PIPELINE):
+        _, composition, picked = fft_kernel(shape)
+        re_, im_ = (torch.randn(shape, generator=gen, device="cuda")
+                    for _ in range(2))
+        want = ref.fft2d(re_, im_)
+        splits = {}
+        for split in range(1, runtime.FFT2D_MAX_CLUSTER + 1):
+            if not runtime.fft2d_allows(*shape, split):
+                continue
+            tile = runtime.Fft2dTile(split)
+            got = fft2d.fft2d(re_, im_, tiles=tile)
+            err = max((g - w).abs().max().item() for g, w in zip(got, want))
+            if err > 1.0:
+                fail(f"fft2d{shape} split {split}: max |err| {err}")
+            splits[split] = device_ms(
+                torch, lambda t=tile: fft2d.fft2d(re_, im_, tiles=t),
+                "fft2d_kernel", 20)
+        comp = device_ms(torch, lambda: composition(re_, im_))
+        library = device_ms(
+            torch, lambda: torch.fft.fft2(torch.complex(re_, im_)), None, 20)
+        rows.append(dict(shape=shape, picked=str(picked), splits=splits,
+                         composition=comp, library=library))
+        print(f"sweep fft2d{shape}: picked {picked}; fused device ms by split "
+              f"{ {k: round(v, 4) if v else v for k, v in splits.items()} }; "
+              f"composition {fmt_ms(comp)}; torch.fft.fft2 {fmt_ms(library)}",
+              flush=True)
     return rows
 
 
@@ -2064,8 +2225,18 @@ def recurrences_phase(torch) -> tuple[dict, dict, dict]:
             by_kernel[k] == 0 for k in set(cases.values())):
         fail(f"recurrences: mttkrp launches {launches['mttkrp']} by kernel "
              f"{by_kernel} do not match its cases {cases}")
-    # every float32 mm / bmm above 16 rows on the tensor-core kernel
+    # the fft2d_stage case (64 x 64) on the fused kernel, and each of its
+    # launches counted there
     from repro_torch.kernels import runtime
+    ffts = [row for row in rows if row["name"] == "fft2d_stage"]
+    if not ffts or any(not isinstance(row["tiles"].tile, runtime.Fft2dTile)
+                       for row in ffts) \
+            or variants["fft2d"] != {"fused": launches["fft2d"],
+                                     "composition": 0}:
+        fail(f"recurrences: fft2d off the fused kernel: "
+             f"{[(r['args'], r['tiles'].tile) for r in ffts]}, launches "
+             f"by form {variants['fft2d']}")
+    # every float32 mm / bmm above 16 rows on the tensor-core kernel
     floats = [row for row in rows if row["name"] in ("mm", "bmm")
               and row["dtype"] == "float32"
               and row["args"][-3] > runtime.SKINNY_ROWS]
@@ -2080,17 +2251,24 @@ def recurrences_phase(torch) -> tuple[dict, dict, dict]:
           f"launches by kernel {variants} (GEMMs: the skinny kernel for at "
           f"most 16 rows of A, the tensor-core one above in float32 "
           f"({len(floats)} cases: {[(r['name'], r['args']) for r in floats]}) "
-          f"and bf16, the tiled one for the integers; mttkrp cases {cases})",
+          f"and bf16, the tiled one for the integers; mttkrp cases {cases}; "
+          f"fft2d {[(r['args'], str(r['tiles'].tile)) for r in ffts]})",
           flush=True)
     torch.cuda.empty_cache()
     hpc_parity(torch)
     hpc_rows = hpc_timings(torch)
-    faster = {dtype: hpc_rows[("mttkrp", dtype)]["device_ms"]
-              < hpc_rows[("mttkrp", dtype)]["library_device_ms"]
-              for dtype in ("float32", "int8")
-              if None not in (hpc_rows[("mttkrp", dtype)]["device_ms"],
-                              hpc_rows[("mttkrp", dtype)]["library_device_ms"])}
-    print(f"recurrences: mttkrp device time below torch.einsum's: {faster}",
+    int_gemm_timings(torch)
+    def below(dtype, other):
+        row = hpc_rows[("mttkrp", dtype)]
+        if None in (row["device_ms"], row.get(other)):
+            return "not measured"
+        return row["device_ms"] < row[other]
+
+    dtypes = ("float32", "int8", "int16", "int32")
+    print(f"recurrences: mttkrp device time below torch.einsum's: "
+          f"{ {d: below(d, 'library_device_ms') for d in dtypes} }; below "
+          f"the CUDA-core kernel's: "
+          f"{ {d: below(d, 'cuda_core_device_ms') for d in dtypes} }",
           flush=True)
     return launches, variants, hpc_rows
 
@@ -2098,6 +2276,41 @@ def recurrences_phase(torch) -> tuple[dict, dict, dict]:
 # ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
+
+#: element types of the mangled template arguments of the kernels the
+#: build line lists one by one
+MANGLED_TYPES = {"f": "float32", "a": "int8", "s": "int16", "i": "int32"}
+
+
+def kernel_resources(log: str) -> list[str]:
+    """Registers and spill stores of each instantiation of the fused fft2d
+    kernel and of the tensor-core MTTKRP kernel, from ``ptxas -v``'s
+    lines in the build log."""
+    found, name = [], None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            name = entry.group(1)
+            continue
+        spill = re.search(r"(\d+) bytes spill stores", line)
+        regs = re.search(r"Used (\d+) registers", line)
+        if name and spill:
+            found.append([name, None, int(spill.group(1))])
+        elif name and regs and found and found[-1][0] == name:
+            found[-1][1] = int(regs.group(1))
+    out = []
+    for mangled, regs, spill in found:
+        tc = re.search(r"mttkrp_tc_kernelI(\w)\wLi(\d+)E", mangled)
+        if tc:
+            label = (f"mttkrp_tc_kernel<{MANGLED_TYPES[tc.group(1)]}, copy "
+                     f"{tc.group(2)}>")
+        elif "fft2d_kernel" in mangled:
+            label = "fft2d_kernel"
+        else:
+            continue
+        out.append(f"{label} {regs} registers, {spill} B spill")
+    return out
+
 
 def main(argv=None) -> int:
     import argparse
@@ -2111,6 +2324,9 @@ def main(argv=None) -> int:
     ap.add_argument("--mttkrp-sweep", action="store_true",
                     help="only time the tensor-core MTTKRP with every split "
                          "of K at the bench size")
+    ap.add_argument("--fft-sweep", action="store_true",
+                    help="only time the fused fft2d kernel with every split "
+                         "of K at the frontend and pipeline grids")
     ap.add_argument("--tc-sweep", action="store_true",
                     help="only time the tensor-core GEMM with every tile, "
                          "split and ring depth at the prefill shapes")
@@ -2136,6 +2352,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     paths = build.build(("widesa_hpc",) if args.mttkrp_sweep
                         else ("widesa_mm",) if args.tc_sweep
+                        else ("widesa_mm", "widesa_sp") if args.fft_sweep
                         else tuple(build.SOURCES))
     for lib in paths:
         build.library(lib)
@@ -2146,10 +2363,12 @@ def main(argv=None) -> int:
           f"{time.perf_counter() - t0:.1f} s (nvcc {build.build_seconds:.1f} "
           f"s on the wall clock, one process per source; {len(regs)} "
           f"kernels, at most {max(regs, default=0)} registers a thread, "
-          f"{sum(int(x) for x in spills)} bytes of spill stores)", flush=True)
+          f"{sum(int(x) for x in spills)} bytes of spill stores; "
+          f"{'; '.join(kernel_resources(build.build_log))})", flush=True)
 
-    if args.mttkrp_sweep or args.tc_sweep:
-        rows = mttkrp_sweep(torch) if args.mttkrp_sweep else tc_sweep(torch)
+    if args.mttkrp_sweep or args.tc_sweep or args.fft_sweep:
+        rows = (mttkrp_sweep(torch) if args.mttkrp_sweep
+                else tc_sweep(torch) if args.tc_sweep else fft_sweep(torch))
         if args.out:
             Path(args.out).write_text(json.dumps(rows, indent=1))
         return 0
@@ -2173,9 +2392,13 @@ def main(argv=None) -> int:
           "for M <= 16, gemm_tc_kernel on wgmma above in bf16 and float32, "
           "gemm_kernel tiled for the rest); fir (B3, fir.py fir_kernel "
           "-> cuda), conv2d (B5, conv2d.py conv_kernel -> cuda) in "
-          + SP_SOURCE + "; fft2d (B4, fft2d.py _cmul_mm -> six widesa_mm "
-          "launches); jacobi2d (B6, jacobi2d.py jacobi_kernel -> cuda), "
-          "mttkrp (B7, mttkrp.py mttkrp_kernel -> cuda) in " + HPC_SOURCE,
+          + SP_SOURCE + "; fft2d (B4, fft2d.py fft2d/_cmul_mm -> cuda, "
+          "fft2d_kernel in " + SP_SOURCE + " up to 64 rows, the composition "
+          "over the GEMMs above); jacobi2d (B6, jacobi2d.py jacobi_kernel -> "
+          "cuda), mttkrp (B7, mttkrp.py mttkrp_kernel -> cuda: "
+          "mttkrp_tc_kernel on wgmma, float32 as 3xTF32, int8, int16 and "
+          "int32 as int8 limbs; mttkrp_kernel on the CUDA cores for the "
+          "rest) in " + HPC_SOURCE,
           flush=True)
     torch.cuda.empty_cache()
 
@@ -2208,17 +2431,19 @@ def main(argv=None) -> int:
         if kname in variants:
             # launches by kernel per path, and device times: the GEMMs'
             # (the tiled kernel's beside) with the host time of a wrapper
-            # call, mttkrp's (the CUDA-core kernel's beside)
+            # call, mttkrp's (the CUDA-core kernel's beside), fft2d's (the
+            # composition's beside)
             entry["launches_by_kernel"] = {
                 "qwen": variants[kname],
                 "qwen_prefill": prefill_variants[kname],
                 "whisper_stream": stream_variants[kname],
                 "recurrences": rec_variants[kname]}
-            keys = (("device_ms", "cuda_core_device_ms",
-                     "library_device_ms", "cuda_core_bound_ms")
-                    if kname == "mttkrp" else
-                    ("device_ms", "tiled_device_ms", "library_device_ms",
-                     "host_us", "facade_us"))
+            keys = {"mttkrp": ("device_ms", "cuda_core_device_ms",
+                               "library_device_ms", "cuda_core_bound_ms"),
+                    "fft2d": ("device_ms", "composition_device_ms",
+                              "library_device_ms", "dft_bound_ms")}.get(
+                kname, ("device_ms", "tiled_device_ms", "library_device_ms",
+                        "host_us", "facade_us"))
             entry.update({key: row[key] for key in keys})
         if kname in WGMMA_SHAPES:
             # the tensor-core kernel at its prefill shape, the tiled

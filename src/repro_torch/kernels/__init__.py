@@ -1,7 +1,7 @@
 """The port's kernels: hand-written Hopper CUDA for the mm and bmm
-recurrences (``csrc/widesa_mm.cu``), for fir and conv2d
-(``csrc/widesa_sp.cu``) and for the star stencils and mttkrp
-(``csrc/widesa_hpc.cu``), the fft2d composition over the mm kernel,
+recurrences (``csrc/widesa_mm.cu``), for fir, conv2d and fft2d
+(``csrc/widesa_sp.cu``; fft2d above 64 rows as a composition over the
+mm kernel) and for the star stencils and mttkrp (``csrc/widesa_hpc.cu``),
 their plain PyTorch versions (``ref.py``), the plan-driven runtime and
 the planned facade."""
 

@@ -2,7 +2,8 @@
 
 The sources live in ``csrc/``: ``widesa_mm.cu`` (the mm/bmm GEMMs:
 the skinny kernel, the tensor-core one and the tiled one),
-``widesa_sp.cu`` (the FIR and conv2d signal-processing kernels) and
+``widesa_sp.cu`` (the FIR, conv2d and fused fft2d signal-processing
+kernels) and
 ``widesa_hpc.cu`` (the star stencil and the two MTTKRP kernels).  Each
 source is its own shared library; the first call on a machine compiles
 every source that is not built yet with ``nvcc`` for Hopper (``sm_90a``),
@@ -31,7 +32,7 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).with_name("csrc")
-#: the GEMM source (mm/bmm), the signal-processing source (fir/conv2d) and
+#: the GEMM source (mm/bmm), the signal-processing source (fir/conv2d/fft2d) and
 #: the HPC source (the star stencils and mttkrp)
 SOURCE = CSRC / "widesa_mm.cu"
 SP_SOURCE = CSRC / "widesa_sp.cu"
@@ -128,6 +129,9 @@ _ENTRIES = {
                           + [ctypes.c_int] * 5 + [ctypes.c_void_p]),
     "widesa_conv2d_launch": ("widesa_sp", [ctypes.c_void_p] * 3
                              + [ctypes.c_int] * 8 + [ctypes.c_void_p]),
+    # the fused fft2d: X's planes, F_R's, F_C's, Z's; R, C and the split
+    "widesa_fft2d_launch": ("widesa_sp", [ctypes.c_void_p] * 8
+                            + [ctypes.c_int] * 3 + [ctypes.c_void_p]),
     # the star's (di, dj) pairs come as a host int array
     "widesa_star_launch": ("widesa_hpc", [ctypes.c_void_p] * 3
                            + [ctypes.c_int] * 5 + [ctypes.c_void_p]

@@ -310,11 +310,12 @@ int launch_mttkrp(int bi, int bj, const void* x, const void* b, const void* c, v
 
 // ---------------------------------------------------------------------------
 // MTTKRP on the tensor cores: M[i, j] = sum_{k, l} X[i, k, l] * B[k, j] *
-// C[l, j] for float32 (3xTF32) and int8 operands (mttkrp_tc_kernel).
+// C[l, j] for float32 (3xTF32) and integer operands (int8, and int16 / int32
+// as int8 limbs) (mttkrp_tc_kernel).
 //
-// Replaces src/repro/kernels/mttkrp.py mttkrp_kernel (pallas_call at :94)
-// for float32 and int8 operands; int16, int32 and int8 rows of X that are
-// not 4-byte aligned (L % 4 != 0) keep mttkrp_kernel above.
+// Replaces src/repro/kernels/mttkrp.py mttkrp_kernel (pallas_call at :94);
+// rows of X or B that allow no 4-byte copies (int8 L % 4 != 0, int16 L odd)
+// and C tiles past the shared memory keep mttkrp_kernel above.
 // repro_torch/kernels/runtime.py (mttkrp_tile) picks the kernel from the
 // dtype and the shape before the launch.
 //
@@ -323,7 +324,9 @@ int launch_mttkrp(int bi, int bj, const void* x, const void* b, const void* c, v
 // float32, 0.32 ms at 3.35 TB/s; 0.27 GB in int8, 0.08 ms).  In float32 each
 // product is three TF32 products on the tensor cores (3 x 2.147e11 at 495
 // TFLOP/s: 1.30 ms; IEEE FMA on the CUDA cores would take 3.2 ms at the
-// least), in int8 one int8 product (0.11 ms at 1979 TOP/s).
+// least), in int8 one int8 product (0.11 ms at 1979 TOP/s), in int16 four
+// and in int32 ten (0.43 and 1.09 ms; X's 0.54 and 1.07 GB read once: 0.16
+// and 0.32 ms).
 //
 // The design.
 //   * The two-step form, fused.  For each k the block computes T_k =
@@ -348,6 +351,24 @@ int launch_mttkrp(int bi, int bj, const void* x, const void* b, const void* c, v
 //     in fp32, which the tensor cores read truncated to TF32; a product keeps
 //     about 2^-21 |x c| of error.  C's tile is held as hi and lo, X is split
 //     in registers.
+//   * int16 and int32 as int8 limbs.  x = sum_p 2^(8p) x_p with the top limb
+//     signed (.s8) and the lower ones unsigned (.u8): 2 limbs in int16, 4 in
+//     int32.  T_k = sum_{p+q<4} 2^(8(p+q)) X_p C_q modulo 2^32: 4 products in
+//     int16 (shifts 0, 8, 8, 16) and 10 in int32 (each pair with p + q >= 4
+//     vanishes modulo 2^32), each a wgmma m64n80k32 with the .s8/.u8 types
+//     its limbs need.  The products of one shift share one accumulator set,
+//     folded into T_k in wrapping uint32 (int16: 3 sets, folded once T_k is
+//     whole; int32 below); the scale-and-add then runs with B whole, as in
+//     int8, so M is bit-exact.  A set's s32 sum stays inside int32 at every L the
+//     launcher admits (L < 2^15 in int16, 2^13 in int32: at most 4 terms of
+//     255^2 an l), so nothing depends on how wgmma overflows.  The warps cut
+//     the limbs out of the ring's values with byte permutes (prmt): a thread's
+//     8 values of a row for one product sit in one 16- or 32-byte run.  C's
+//     tile is staged once as one plane a limb, each laid out as int8's.
+//     int32 runs its four shift groups one after another into two sets in
+//     turn, each folded into T_k as it completes, so every product of a
+//     step is done before the next step's limbs are cut: a set a shift (160
+//     registers besides M's 40) spilled and measured slower (PERF.md).
 //   * X streams through a 3-stage ring of cp.async copies: a stage holds
 //     128 bytes of l (32 float32 or 128 int8 values) of each of the tile's
 //     128 rows at one k, copied 16 bytes at a time where X's rows allow it
@@ -371,8 +392,9 @@ int launch_mttkrp(int bi, int bj, const void* x, const void* b, const void* c, v
 //     order, so the bits repeat from run to run.
 //
 // What holds it back on an H100 (chip_smoke.py --mttkrp-sweep; PERF.md): in
-// float32 the three products a product, and in both dtypes X's five reads
-// through L2, one a column tile.
+// float32 the three products a product, in int16 and int32 the limb
+// products, and in every dtype X's five reads through L2, one a column
+// tile.
 // ---------------------------------------------------------------------------
 namespace cg = cooperative_groups;
 
@@ -380,7 +402,7 @@ constexpr int kTcThreads = 256;                       // 2 warpgroups
 constexpr int kTcRows = 128;                          // BI: 64 rows a warpgroup
 constexpr int kTcCols = 80;                           // BJ: the wgmma's N
 constexpr int kTcChunk = 128;                         // bytes of l a ring stage holds
-constexpr int kTcStep = 32;                           // bytes of l one product consumes
+constexpr int kTcStep = 32;                           // bytes of l a float32 or int8 product consumes
 constexpr int kTcPad = 32;                            // bytes padding an X row of a stage
 constexpr int kTcPitch = kTcChunk + kTcPad;           // 160
 constexpr int kTcStages = 3;
@@ -392,8 +414,9 @@ static_assert(kTcRows * kTcCols * 4 <= kTcStages * kTcStageBytes,
               "the partial tile reuses the ring");
 
 // Bytes of C's tile in shared memory: 80 columns of L rounded up to whole
-// stages, twice (hi and lo) in float32 (runtime.mttkrp_smem counts the same,
-// with the ring and B's slots).
+// stages, as two float32 planes (hi and lo) or, for an integer, one plane of
+// bytes a limb, which together hold as many bytes as the values
+// (runtime.mttkrp_smem counts the same, with the ring and B's slots).
 __host__ __device__ constexpr long long tc_cbytes(long long row_bytes, bool f32) {
   return (f32 ? 2 : 1) * kTcCols * ((row_bytes + kTcChunk - 1) / kTcChunk * kTcChunk);
 }
@@ -497,25 +520,137 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[40], const uint32_t (&a)[4
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
 }
 
-// The same for int8: A 64 x 32, B 32 x 80, s32 sums.
-__device__ __forceinline__ void wgmma_s8(int (&d)[40], const uint32_t (&a)[4], uint64_t desc,
+// The same for int8 operands: A 64 x 32, B 32 x 80, s32 sums; A and B each
+// signed (.s8) or unsigned (.u8) bytes, as SA and SB say.
+#define WIDESA_WGMMA_I8(TYPES)                                                                   \
+  asm volatile(                                                                                  \
+      "{\n"                                                                                      \
+      ".reg .pred p;\n"                                                                          \
+      "setp.ne.b32 p, %45, 0;\n"                                                                 \
+      "wgmma.mma_async.sync.aligned.m64n80k32.s32." TYPES " "                                    \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "   \
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "    \
+      "%36, %37, %38, %39}, "                                                                    \
+      "{%40, %41, %42, %43}, %44, p;\n"                                                          \
+      "}\n"                                                                                      \
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),      \
+        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), \
+        "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),           \
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]),           \
+        "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),           \
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]),           \
+        "+r"(d[38]), "+r"(d[39])                                                                 \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate))
+
+template <bool SA, bool SB>
+__device__ __forceinline__ void wgmma_i8(int (&d)[40], const uint32_t (&a)[4], uint64_t desc,
                                          int accumulate) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %45, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n80k32.s32.s8.s8 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39}, "
-      "{%40, %41, %42, %43}, %44, p;\n"
-      "}\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
-        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
-        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
-        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
-        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
-        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
-        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
+  if constexpr (SA && SB)
+    WIDESA_WGMMA_I8("s8.s8");
+  else if constexpr (SA)
+    WIDESA_WGMMA_I8("s8.u8");
+  else if constexpr (SB)
+    WIDESA_WGMMA_I8("u8.s8");
+  else
+    WIDESA_WGMMA_I8("u8.u8");
+}
+#undef WIDESA_WGMMA_I8
+
+__device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b, uint32_t sel) {
+  uint32_t r;
+  asm("prmt.b32 %0, %1, %2, %3;\n" : "=r"(r) : "r"(a), "r"(b), "r"(sel));
+  return r;
+}
+
+// Register e of a thread's A fragment for one product, in each limb (module
+// note): v holds the fragment's 4 values (row g + 8 (e & 1), l = 8 t + 4 (e
+// >> 1) .. + 3 of the product's 32), kSize bytes each; limb p's register e
+// is a[4 p + e], byte p of each value.
+template <int kSize>
+__device__ __forceinline__ void cut_limbs(const uint32_t (&v)[kSize], uint32_t (&a)[4 * kSize],
+                                          int e) {
+  if constexpr (kSize == 1) {
+    a[e] = v[0];
+  } else if constexpr (kSize == 2) {
+    a[e] = prmt(v[0], v[1], 0x6420);      // low bytes
+    a[4 + e] = prmt(v[0], v[1], 0x7531);  // high bytes
+  } else {
+    // a 4 x 4 byte transpose: limb p gets byte p of each of the 4 values
+    const uint32_t x = prmt(v[0], v[1], 0x5140), y = prmt(v[0], v[1], 0x7362);
+    const uint32_t z = prmt(v[2], v[3], 0x5140), w = prmt(v[2], v[3], 0x7362);
+    a[e] = prmt(x, z, 0x5410);
+    a[4 + e] = prmt(x, z, 0x7632);
+    a[8 + e] = prmt(y, w, 0x5410);
+    a[12 + e] = prmt(y, w, 0x7632);
+  }
+}
+
+// N 32-bit words from shared memory in one load (N = 1, 2 or 4).
+template <int N>
+__device__ __forceinline__ void lds_words(const unsigned char* p, uint32_t (&v)[N]) {
+  if constexpr (N == 1) {
+    v[0] = *reinterpret_cast<const uint32_t*>(p);
+  } else if constexpr (N == 2) {
+    const uint2 w = *reinterpret_cast<const uint2*>(p);
+    v[0] = w.x;
+    v[1] = w.y;
+  } else {
+    const uint4 w = *reinterpret_cast<const uint4*>(p);
+    v[0] = w.x;
+    v[1] = w.y;
+    v[2] = w.z;
+    v[3] = w.w;
+  }
+}
+
+// One product of limb P of X (A) by limb Q of C's tile (the plane at desc),
+// into the accumulator set of its shift P + Q; the top limb (LIMBS - 1) is
+// signed.  The first product of a set in T_k's first step starts it afresh.
+template <int LIMBS, int P, int Q>
+__device__ __forceinline__ void limb_product(int (&part)[LIMBS == 1 ? 1 : (LIMBS == 2 ? 3 : 4)][40],
+                                             const uint32_t (&a)[4 * LIMBS], uint64_t desc,
+                                             unsigned plane_units, int accumulate) {
+  if constexpr (P + Q < 4) {
+    constexpr int kFirst = P + Q > LIMBS - 1 ? P + Q - (LIMBS - 1) : 0;  // the set's first P
+    const uint32_t ap[4] = {a[4 * P], a[4 * P + 1], a[4 * P + 2], a[4 * P + 3]};
+    wgmma_i8<P == LIMBS - 1, Q == LIMBS - 1>(part[P + Q], ap, desc + (uint64_t)Q * plane_units,
+                                             P == kFirst ? accumulate : 1);
+  }
+}
+
+template <int LIMBS, int P = 0, int Q = 0>
+__device__ __forceinline__ void limb_products(
+    int (&part)[LIMBS == 1 ? 1 : (LIMBS == 2 ? 3 : 4)][40], const uint32_t (&a)[4 * LIMBS],
+    uint64_t desc, unsigned plane_units, int accumulate) {
+  if constexpr (P < LIMBS) {
+    limb_product<LIMBS, P, Q>(part, a, desc, plane_units, accumulate);
+    if constexpr (Q + 1 < LIMBS)
+      limb_products<LIMBS, P, Q + 1>(part, a, desc, plane_units, accumulate);
+    else
+      limb_products<LIMBS, P + 1, 0>(part, a, desc, plane_units, accumulate);
+  }
+}
+
+// The products of one shift G (limbs P and G - P) into the accumulator set
+// d, started afresh: int32's groups run one after another (module note).
+template <int LIMBS, int G, int P = 0>
+__device__ __forceinline__ void limb_group(int (&d)[40], const uint32_t (&a)[4 * LIMBS],
+                                           uint64_t desc, unsigned plane_units) {
+  if constexpr (P < LIMBS && P <= G) {
+    if constexpr (G - P < LIMBS) {
+      constexpr int kFirst = G > LIMBS - 1 ? G - (LIMBS - 1) : 0;
+      const uint32_t ap[4] = {a[4 * P], a[4 * P + 1], a[4 * P + 2], a[4 * P + 3]};
+      wgmma_i8<P == LIMBS - 1, G - P == LIMBS - 1>(d, ap, desc + (uint64_t)(G - P) * plane_units,
+                                                   P == kFirst ? 0 : 1);
+    }
+    limb_group<LIMBS, G, P + 1>(d, a, desc, plane_units);
+  }
+}
+
+// t += d << shift, modulo 2^32.
+__device__ __forceinline__ void fold_set(uint32_t (&t)[40], const int (&d)[40], int shift) {
+#pragma unroll
+  for (int e = 0; e < 40; ++e) t[e] += (uint32_t)d[e] << shift;
 }
 
 // Grid: (row tiles x column tiles x split), clusters of `split` blocks along
@@ -527,8 +662,16 @@ mttkrp_tc_kernel(const TIn* __restrict__ x, const TIn* __restrict__ b, const TIn
                  TOut* __restrict__ m, int ni, int nj, int nk, int nl, int split, int kblk) {
   constexpr bool kF32 = std::is_same<TIn, float>::value;
   using Acc = typename Elem<TIn>::Acc;                             // float, or uint32_t
-  using Part = typename std::conditional<kF32, float, int>::type;  // T_k's sums
   constexpr int kSize = (int)sizeof(TIn);
+  constexpr int kLimbs = kF32 ? 1 : kSize;                         // int8 limbs of a value
+  constexpr int kPlanes = kF32 ? 2 : kLimbs;                       // of C's tile: hi, lo / a limb
+  // int32 runs its four shift groups one after another into two sets in
+  // turn, each folded into T_k as it completes; int16 keeps a set a shift
+  constexpr bool kFoldEach = kLimbs == 4;
+  constexpr int kSets = kF32 || kLimbs == 1 ? 1 : (kLimbs == 2 ? 3 : 2);  // of T_k's sums
+  constexpr int kStep = kF32 ? kTcStep : kTcStep * kSize;          // bytes of l a product
+  constexpr int kARegs = kF32 ? 4 : 4 * kLimbs;                    // A registers a product
+  constexpr int kASets = kFoldEach ? 1 : 2;                        // A register sets in turn
   constexpr int kSegs = kTcChunk / CP;                             // copies a row of a stage
   static_assert(kTcRows * kSegs % kTcThreads == 0, "a stage does not split over the block");
   extern __shared__ __align__(16) unsigned char smem[];
@@ -545,14 +688,16 @@ mttkrp_tc_kernel(const TIn* __restrict__ x, const TIn* __restrict__ b, const TIn
   const int row_bytes = nl * kSize;
   const int nchunks = (row_bytes + kTcChunk - 1) / kTcChunk;
   const int nstages = (kend - kbeg) * nchunks;
-  // C's tile: columns j of lbytes bytes of l, as core matrices (8 columns x 16
-  // bytes) running along l, sbo bytes a group of 8 columns; hi, then lo
-  const int lbytes = nchunks * kTcChunk;
+  // C's tile: columns j of lbytes bytes (l values past L are zeros) a plane,
+  // as core matrices (8 columns x 16 bytes) running along l, sbo bytes a
+  // group of 8 columns; float32 as hi, then lo, an integer a plane a limb
+  const int lvals = nchunks * kTcChunk / kSize;
+  const int lbytes = kF32 ? lvals * 4 : lvals;
   const int sbo = lbytes * 8;
   const int cbytes = kTcCols * lbytes;
 
   unsigned char* ct = smem;
-  unsigned char* ring = smem + (kF32 ? 2 : 1) * cbytes;
+  unsigned char* ring = smem + kPlanes * cbytes;
   // B[k, j0 .. j0 + 79], slot (k - kbeg) % kTcBSlots, for the scale at k's end
   TIn* bs = reinterpret_cast<TIn*>(ring + kTcStages * kTcStageBytes);
   const unsigned ring_addr = smem_addr(ring);
@@ -591,13 +736,12 @@ mttkrp_tc_kernel(const TIn* __restrict__ x, const TIn* __restrict__ b, const TIn
     cp_commit();
   }
   // C's tile while the first stages are in flight: reads along j, zeros past
-  // L and past J; byte w of each 8-byte run of a product's 32 bytes of l goes
-  // to k slot byte 4 (run) + w, or 16 + 4 (run) + w - 4, as in the A
-  // fragments; eight loads in flight a thread
+  // L and past J; byte w of each 8-byte run of a product's 32 bytes of a
+  // plane goes to k slot byte 4 (run) + w, or 16 + 4 (run) + w - 4, as in the
+  // A fragments; eight loads in flight a thread
   {
     constexpr int kBatch = 8;
-    const int lpad = lbytes / kSize;
-    for (int e0 = tid; e0 < lpad * kTcCols; e0 += kTcThreads * kBatch) {
+    for (int e0 = tid; e0 < lvals * kTcCols; e0 += kTcThreads * kBatch) {
       TIn v[kBatch];
 #pragma unroll
       for (int u = 0; u < kBatch; ++u) {
@@ -609,8 +753,8 @@ mttkrp_tc_kernel(const TIn* __restrict__ x, const TIn* __restrict__ b, const TIn
       for (int u = 0; u < kBatch; ++u) {
         const int e = e0 + u * kTcThreads;
         const int l = e / kTcCols, j = e - l * kTcCols;
-        if (l >= lpad) continue;
-        const int byte = l * kSize, w = byte & 7, run = (byte >> 3) & 3;
+        if (l >= lvals) continue;
+        const int byte = kF32 ? l * 4 : l, w = byte & 7, run = (byte >> 3) & 3;
         const int slot = (byte & ~31) | (w < 4 ? 4 * run + w : 16 + 4 * run + w - 4);
         const int off = (j >> 3) * sbo + (slot >> 4) * 128 + (j & 7) * 16 + (slot & 15);
         if constexpr (kF32) {
@@ -619,7 +763,9 @@ mttkrp_tc_kernel(const TIn* __restrict__ x, const TIn* __restrict__ b, const TIn
           *reinterpret_cast<uint32_t*>(ct + off) = hi;
           *reinterpret_cast<uint32_t*>(ct + cbytes + off) = lo;
         } else {
-          ct[off] = static_cast<unsigned char>(v[u]);
+#pragma unroll
+          for (int q = 0; q < kLimbs; ++q)
+            ct[q * cbytes + off] = static_cast<unsigned char>((uint32_t)v[u] >> (8 * q));
         }
       }
     }
@@ -627,22 +773,25 @@ mttkrp_tc_kernel(const TIn* __restrict__ x, const TIn* __restrict__ b, const TIn
   // C's tile is read by wgmma (the async proxy): order these stores before it
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 
-  Part part[40];  // T_k: 64 x 80 a warpgroup
+  using Part = typename std::conditional<kF32, float, int>::type;  // T_k's sums
+  Part part[kSets][40];  // T_k: 64 x 80 a warpgroup, a set a shift of the limbs
+  uint32_t tk_sum[kFoldEach ? 40 : 1] = {};  // int32: T_k folded as its groups complete
   Acc acc[40];
 #pragma unroll
   for (int e = 0; e < 40; ++e) {
-    part[e] = Part(0);
+#pragma unroll
+    for (int q = 0; q < kSets; ++q) part[q][e] = Part(0);
     acc[e] = Acc(0);
   }
   // this thread's rows (g, g + 8 of its warp's 16) and columns (2 t, 2 t + 1
   // of each 8): value 4 n + e is row g + 8 (e / 2), column 8 n + 2 t + e % 2
   const int row = (warp >> 2) * 64 + (warp & 3) * 16 + g;
-  const int a_off = row * kTcPitch + 8 * t;
+  const int a_off = row * kTcPitch + (kStep / 4) * t;  // 8 values of a product's 32
   const int col = j0 + 2 * t;
-  const uint64_t desc_hi = smem_desc(smem_addr(ct), 128, sbo);
-  const uint64_t desc_lo = smem_desc(smem_addr(ct + cbytes), 128, sbo);
+  const uint64_t desc_c = smem_desc(smem_addr(ct), 128, sbo);
+  const unsigned plane_units = (unsigned)cbytes >> 4;  // a plane, in descriptor units
 
-  uint32_t ah[2][4], al[2][4];  // two register sets, one wgmma group in flight
+  uint32_t ah[kASets][kARegs], al[kASets][4];  // with two sets, one wgmma group in flight
   int k = kbeg, chunk = 0;
   for (int s = 0; s < nstages; ++s) {
     cp_wait<kTcStages - 2>();
@@ -651,46 +800,87 @@ mttkrp_tc_kernel(const TIn* __restrict__ x, const TIn* __restrict__ b, const TIn
     cp_commit();
     const unsigned char* xs = ring + s % kTcStages * kTcStageBytes + a_off;
     // products with any l < L in them (the rest of the stage is zeros)
-    const int steps = min(kTcChunk / kTcStep, (row_bytes - chunk * kTcChunk + kTcStep - 1) / kTcStep);
+    const int steps = min(kTcChunk / kStep, (row_bytes - chunk * kTcChunk + kStep - 1) / kStep);
 #pragma unroll
-    for (int st = 0; st < kTcChunk / kTcStep; ++st) {
+    for (int st = 0; st < kTcChunk / kStep; ++st) {
       if (st >= steps) break;
-      const int set = st & 1;
-      // a0 a2 / a1 a3: rows g / g + 8, bytes 8 t .. 8 t + 7 of the 32
-      const uint2 lo = lds64(xs + st * kTcStep);
-      const uint2 hi = lds64(xs + 8 * kTcPitch + st * kTcStep);
+      const int set = kASets == 1 ? 0 : st & 1;
       // two core matrices of C's tile along l a product
-      const uint64_t adv = (uint64_t)((chunk * kTcChunk + st * kTcStep) * 8 >> 4);
+      const int kb = (chunk * kTcChunk + st * kStep) / (kF32 ? 1 : kSize);
+      const uint64_t adv = (uint64_t)(kb * 8 >> 4);
       const int accumulate = chunk == 0 && st == 0 ? 0 : 1;
       if constexpr (kF32) {
+        // a0 a2 / a1 a3: rows g / g + 8, bytes 8 t .. 8 t + 7 of the 32
+        const uint2 lo = lds64(xs + st * kStep);
+        const uint2 hi = lds64(xs + 8 * kTcPitch + st * kStep);
         const uint32_t a[4] = {lo.x, hi.x, lo.y, hi.y};
 #pragma unroll
         for (int e = 0; e < 4; ++e) split_tf32(a[e], ah[set][e], al[set][e]);
         fence_regs(al[set]);
       } else {
-        ah[set][0] = lo.x;
-        ah[set][1] = hi.x;
-        ah[set][2] = lo.y;
-        ah[set][3] = hi.y;
+        // register e: the 4 values of row g + 8 (e & 1) at l 4 (e >> 1) of
+        // this thread's 8
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          uint32_t v[kSize];
+          lds_words<kSize>(xs + (e & 1) * 8 * kTcPitch + st * kStep + (e >> 1) * 4 * kSize, v);
+          cut_limbs<kSize>(v, ah[set], e);
+        }
       }
       // the A registers are written before the fence, as wgmma requires
       fence_regs(ah[set]);
       wgmma_fence();
       if constexpr (kF32) {
-        wgmma_tf32(part, al[set], desc_hi + adv, accumulate);
-        wgmma_tf32(part, ah[set], desc_lo + adv, 1);
-        wgmma_tf32(part, ah[set], desc_hi + adv, 1);
-      } else {
-        wgmma_s8(part, ah[set], desc_hi + adv, accumulate);
+        const uint32_t(&hi)[4] = ah[set];
+        wgmma_tf32(part[0], al[set], desc_c + adv, accumulate);
+        wgmma_tf32(part[0], hi, desc_c + plane_units + adv, 1);
+        wgmma_tf32(part[0], hi, desc_c + adv, 1);
+      } else if constexpr (!kFoldEach) {
+        limb_products<kLimbs>(part, ah[set], desc_c + adv, plane_units, accumulate);
       }
-      wgmma_commit();
-      wgmma_wait<1>();  // the other set's group is done: its registers are free
-      fence_regs(ah[set ^ 1]);
-      if constexpr (kF32) fence_regs(al[set ^ 1]);
+      if constexpr (kFoldEach) {
+        // shift 0 into one set, 8 into the other; each set is folded as its
+        // group completes and takes the next group but one, the last wait
+        // leaving no group in flight before the next A registers are written
+        int(&s0)[40] = part[0];
+        int(&s1)[40] = part[1];
+        const uint64_t desc = desc_c + adv;
+        limb_group<kLimbs, 0>(s0, ah[0], desc, plane_units);
+        wgmma_commit();
+        limb_group<kLimbs, 1>(s1, ah[0], desc, plane_units);
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_regs(s0);
+        fold_set(tk_sum, s0, 0);
+        wgmma_fence();
+        limb_group<kLimbs, 2>(s0, ah[0], desc, plane_units);
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_regs(s1);
+        fold_set(tk_sum, s1, 8);
+        wgmma_fence();
+        limb_group<kLimbs, 3>(s1, ah[0], desc, plane_units);
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_regs(s0);
+        fold_set(tk_sum, s0, 16);
+        wgmma_wait<0>();
+        fence_regs(s1);
+        fold_set(tk_sum, s1, 24);
+        fence_regs(ah[0]);
+      } else {
+        wgmma_commit();
+      }
+      if constexpr (kASets == 2) {
+        wgmma_wait<1>();  // the other set's group is done: its registers are free
+        fence_regs(ah[set ^ 1]);
+        if constexpr (kF32) fence_regs(al[set ^ 1]);
+      }
     }
     if (++chunk == nchunks) {  // T_k is whole: acc += B[k, j] T_k[i, j]
       wgmma_wait<0>();
-      fence_regs(part);
+#pragma unroll
+      for (int q = 0; q < kSets; ++q) fence_regs(part[q]);
       // B's row k arrived with k's first stage; its slot is written again
       // (for k + 4) only after a barrier that follows this read
       const TIn* bk = bs + (k - kbeg) % kTcBSlots * kTcCols + 2 * t;
@@ -699,10 +889,21 @@ mttkrp_tc_kernel(const TIn* __restrict__ x, const TIn* __restrict__ b, const TIn
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const Acc bkj = Elem<TIn>::load(bk + 8 * n + (e & 1));
-          if constexpr (kF32)
-            acc[4 * n + e] = fmaf(part[4 * n + e], bkj, acc[4 * n + e]);
-          else
-            acc[4 * n + e] += (uint32_t)part[4 * n + e] * bkj;
+          if constexpr (kF32) {
+            acc[4 * n + e] = fmaf(part[0][4 * n + e], bkj, acc[4 * n + e]);
+          } else {
+            // T_k modulo 2^32 from its sets, each at its shift
+            uint32_t tk;
+            if constexpr (kFoldEach) {
+              tk = tk_sum[4 * n + e];
+              tk_sum[4 * n + e] = 0;
+            } else {
+              tk = (uint32_t)part[0][4 * n + e];
+#pragma unroll
+              for (int q = 1; q < kSets; ++q) tk += (uint32_t)part[q][4 * n + e] << (8 * q);
+            }
+            acc[4 * n + e] += tk * bkj;
+          }
         }
       chunk = 0;
       ++k;
@@ -744,6 +945,16 @@ mttkrp_tc_kernel(const TIn* __restrict__ x, const TIn* __restrict__ b, const TIn
   cluster.sync();  // keep every partial tile alive until all are read
 }
 
+// The L below which every s32 sum of T_k stays inside int32: |T_k| < L 2^14
+// in int8; a set of limb products adds at most 2 (int16) or 4 (int32) terms
+// of at most 255^2 an l.  float32 has no such limit.
+template <typename TIn>
+constexpr int tc_max_l() {
+  return std::is_same<TIn, float>::value ? 0x7fffffff
+                                         : (sizeof(TIn) == 1 ? 1 << 17
+                                                             : (sizeof(TIn) == 2 ? 1 << 15 : 1 << 13));
+}
+
 // The tensor-core MTTKRP: K split over `split` blocks of a cluster, X copied
 // `copy` bytes at a time (16 or 4).
 template <typename TIn, typename TOut, int CP>
@@ -755,7 +966,7 @@ int launch_mttkrp_tc_cp(const void* x, const void* b, const void* c, void* m, in
   if (ni < 1 || nj < 1 || nk < 1 || nl < 1 || split < 1 || split > kTcMaxCluster || split > nk ||
       row_bytes % CP != 0 || reinterpret_cast<uintptr_t>(x) % CP != 0 ||
       (long long)nj * sizeof(TIn) % 4 != 0 || reinterpret_cast<uintptr_t>(b) % 4 != 0 ||
-      (long long)nk * nl >= 0x7fffffffLL || (!f32 && nl >= (1 << 17)))
+      (long long)nk * nl >= 0x7fffffffLL || nl >= tc_max_l<TIn>())
     return (int)cudaErrorInvalidValue;
   const int kblk = (nk + split - 1) / split;
   if ((long long)(split - 1) * kblk >= nk) return (int)cudaErrorInvalidValue;  // an empty rank
@@ -848,7 +1059,8 @@ int widesa_mttkrp_launch(const void* x, const void* b, const void* c, void* m, i
 }
 
 // M[i, j] = sum_{k,l} X[i, k, l] B[k, j] C[l, j] on the tensor cores
-// (float32 -> float32 as 3xTF32, int8 -> int32): K split over `split` blocks
+// (float32 -> float32 as 3xTF32; int8, int16 and int32 -> int32, the wider
+// integers as int8 limbs): K split over `split` blocks
 // of a cluster, X copied `copy` bytes at a time (16 or 4).  Returns a
 // cudaError_t.
 int widesa_mttkrp_tc_launch(const void* x, const void* b, const void* c, void* m, int ni,
@@ -859,6 +1071,10 @@ int widesa_mttkrp_tc_launch(const void* x, const void* b, const void* c, void* m
     return launch_mttkrp_tc<float, float>(copy, x, b, c, m, ni, nj, nk, nl, split, s);
   if (in_dtype == I8 && out_dtype == I32)
     return launch_mttkrp_tc<int8_t, int32_t>(copy, x, b, c, m, ni, nj, nk, nl, split, s);
+  if (in_dtype == I16 && out_dtype == I32)
+    return launch_mttkrp_tc<int16_t, int32_t>(copy, x, b, c, m, ni, nj, nk, nl, split, s);
+  if (in_dtype == I32 && out_dtype == I32)
+    return launch_mttkrp_tc<int32_t, int32_t>(copy, x, b, c, m, ni, nj, nk, nl, split, s);
   return (int)cudaErrorInvalidValue;
 }
 

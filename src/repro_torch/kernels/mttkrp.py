@@ -3,11 +3,12 @@ hand-written Hopper kernels.
 
 The port of ``repro.kernels.mttkrp`` (``mttkrp_kernel``).  Two kernels of
 ``csrc/widesa_hpc.cu`` serve it: ``mttkrp_tc_kernel`` on the tensor cores
-(float32 as 3xTF32, int8; the two-step form ``sum_k B[k] * (X[:, k, :] @
-C)`` with C's tile held in shared memory) and ``mttkrp_kernel`` on the
-CUDA cores (int16, int32, and int8 rows that allow no 4-byte copies; a
-GEMM of ``X.reshape(I, K*L)`` with the Khatri-Rao operand it builds in
-shared memory).  ``mttkrp`` checks its operands, allocates the output and
+(float32 as 3xTF32, int8, and int16 / int32 as int8 limbs, bit-exact; the
+two-step form ``sum_k B[k] * (X[:, k, :] @ C)`` with C's tile held in
+shared memory) and ``mttkrp_kernel`` on the CUDA cores (rows of X or B
+that allow no 4-byte copies, C tiles past the shared memory; a GEMM of
+``X.reshape(I, K*L)`` with the Khatri-Rao operand it builds in shared
+memory).  ``mttkrp`` checks its operands, allocates the output and
 launches on the current stream the kernel its ``tiles`` name: a
 ``runtime.MttkrpTile`` (from ``runtime.mttkrp_tile``) runs the
 tensor-core kernel, ``build.MTTKRP_TILE`` the CUDA-core one.  A CPU

@@ -484,8 +484,8 @@ def planned_fft2d(x_re: torch.Tensor, x_im: torch.Tensor, *,
     ``x_re``/``x_im``: float32 [rows, cols] planes; returns the
     ``(real, imag)`` float32 pair, as ``ref.fft2d``.  The chain's plan is
     stamped ``xla`` (the reference's default), so this runs
-    ``torch.fft.fft2``; a ``pallas`` stamp would run the composition over
-    the mm kernel (``kernels/fft2d.py``).
+    ``torch.fft.fft2``; a ``pallas`` stamp would run the fused fft2d
+    kernel (``kernels/fft2d.py``).
     """
     from repro_torch.core import fusion  # late: fusion pulls the registry
 

@@ -7,9 +7,10 @@ star stencils ``jacobi2d``, ``jacobi2d_9pt`` and ``jacobi2d_ms``, and
 ``mttkrp``.  Each spec declares its operand arity and shapes, the grid
 loops of the reference kernel, how a plan's partition becomes tile
 kwargs, how those map onto a compiled Hopper tile (``tiles``), two
-lowerings — ``hopper`` (the hand-written CUDA kernel, or for
-``fft2d_stage`` a composition over the mm kernel) and ``ref`` (the plain
-PyTorch version) — and the chain metadata the fusion pass reads
+lowerings — ``hopper`` (the hand-written CUDA kernel; for
+``fft2d_stage`` the fused kernel, or above 64 rows a composition over
+the mm kernel) and ``ref`` (the plain PyTorch version) — and the chain
+metadata the fusion pass reads
 (``fusable_with``, ``n_outputs``).  ``parity_dtypes``, ``atol`` and the
 smoke / bench sizes are the reference's, so one table drives both
 packages' tests.  ``operands`` draws a recurrence's operands from a
@@ -157,9 +158,10 @@ register(KernelSpec(
     arity=2,
     grid_loops=("i", "j", "k"),
     block_kwargs=_mm_blocks,
-    # both DFT stages launch the mm kernels with row-major operands: each
-    # product its own configuration, with this tiled tile as the fallback
-    tiles=lambda plan, re, im: runtime.hopper_tiles(plan),
+    # the fused kernel where the runtime routes the grid to it, else the
+    # composition over the mm kernels with the plan's tiled tile as the
+    # fallback of its products
+    tiles=runtime.fft2d_tile,
     hopper=_fft2d.fft2d,
     ref=ref.fft2d,
     builder=ir.fft2d_stage,

@@ -11,7 +11,7 @@ of VMEM) and fall back to divisors that are not powers of two (3, 6, 12,
 103), with the whole batch as one block.  The ``*_tile`` functions adapt
 them to the compiled kernel tiles.
 
-mm, bmm and the fft2d stages run one of three kernels of
+mm, bmm and the fft2d composition's products run one of three kernels of
 ``csrc/widesa_mm.cu`` (``gemm_tiles``, ``gemm_tile``):
 
 * The skinny kernel takes every product whose A has at most 16 rows
@@ -76,11 +76,12 @@ mttkrp runs one of two kernels of ``csrc/widesa_hpc.cu`` (``mttkrp_tile``,
 ``mttkrp_route``), chosen from the dtype and the shape, not from the plan
 (``bj = 8`` at the bench size, a TPU tile):
 
-* The tensor-core kernel takes float32 (3xTF32) and int8 where X's rows
-  allow copies of 4 bytes or more (L % 4 == 0 in int8), the block's
-  B's rows allow copies of 4 bytes (J % 4 == 0 in int8), C's tile fits
-  in shared memory next to the ring (``mttkrp_smem``: float32 up to L =
-  256, int8 up to L = 2048).  Its output tile is fixed
+* The tensor-core kernel takes float32 (3xTF32), int8, and int16 and
+  int32 as int8 limbs, where X's rows allow copies of 4 bytes or more
+  (L % 4 == 0 in int8, L even in int16), B's rows allow copies of 4
+  bytes (J % 4 == 0 in int8, J even in int16), C's tile fits in shared
+  memory next to the ring (``mttkrp_smem``: float32 up to L = 256, int8
+  up to L = 2048, int16 up to 1024, int32 up to 512).  Its output tile is fixed
   (``MTTKRP_TC_TILE``, 128 x 80); the configuration is an
   ``MttkrpTile``: X's copy width (16 bytes where rows and pointer allow
   it, else 4) and the split of K over the blocks of a cluster
@@ -91,8 +92,20 @@ mttkrp runs one of two kernels of ``csrc/widesa_hpc.cu`` (``mttkrp_tile``,
   splits 1 to 8 in float32 and within 7 % of the fastest (2) in int8,
   and clusters of 3, 5, 6 and 7 were slower than their neighbours
   (``chip_smoke.py --mttkrp-sweep``; PERF.md).
-* The CUDA-core kernel (``build.MTTKRP_TILE``) takes the rest: int16,
-  int32, and what the tensor-core kernel refuses.
+* The CUDA-core kernel (``build.MTTKRP_TILE``) takes what the
+  tensor-core kernel refuses.
+
+fft2d (``fft2d_tile``, ``fft2d_route``) runs one of two forms, chosen from
+the shape: the fused kernel of ``csrc/widesa_sp.cu`` (one launch, both DFT
+stages, an ``Fft2dTile``) for grids of at most ``FFT2D_MAX_ROWS`` rows
+whose passes fit in shared memory, else the composition of six GEMMs
+(``gemm_tile`` for each product, the plan's tiled tile where neither the
+skinny nor the tensor-core kernel applies).  At the largest grid it takes,
+the recurrence pipeline's 64 x 64, the fused kernel ran in 0.0059 ms on
+an H100 against the composition's 0.0385 (``chip_smoke.py --fft-sweep``;
+PERF.md).  It splits K (the columns of the grid) over the blocks of a
+cluster, as far as the grid stays within ``FFT2D_MAX_BLOCKS`` blocks
+(``fft2d_split``).
 
 ``acc_dtype``/``out_dtype`` are the reference's accumulator ladder:
 integer inputs accumulate and land in int32, floats accumulate in fp32
@@ -458,8 +471,8 @@ MTTKRP_TC_B_SLOTS = 4
 MTTKRP_TC_PAD = 32
 MTTKRP_TC_MAX_CLUSTER = 8
 MTTKRP_TC_MAX_SMEM = 232448
-#: the input dtypes it takes
-MTTKRP_TC_DTYPES = (torch.float32, torch.int8)
+#: the input dtypes it takes (int16 and int32 as int8 limbs)
+MTTKRP_TC_DTYPES = (torch.float32, torch.int8, torch.int16, torch.int32)
 #: k a rank of a split reduces at the least
 MTTKRP_MIN_RANK_K = 16
 
@@ -475,11 +488,15 @@ class MttkrpTile:
 
 def mttkrp_smem(nl: int, dtype: torch.dtype) -> int:
     """Shared memory of a tensor-core MTTKRP block: C's tile (80 columns
-    of L rounded up to whole stages; twice, hi and lo, in float32) and the
-    ring of X (rows padded by ``MTTKRP_TC_PAD``)."""
+    of L rounded up to whole stages, as planes: hi and lo in float32, one
+    of bytes a limb of an integer) and the ring of X (rows padded by
+    ``MTTKRP_TC_PAD``)."""
     row = -(-nl * dtype.itemsize // MTTKRP_TC_CHUNK) * MTTKRP_TC_CHUNK
-    halves = 2 if dtype == torch.float32 else 1
-    return (halves * MTTKRP_TC_TILE[1] * row
+    if dtype == torch.float32:
+        planes, plane_row = 2, row
+    else:
+        planes, plane_row = dtype.itemsize, row // dtype.itemsize
+    return (planes * MTTKRP_TC_TILE[1] * plane_row
             + MTTKRP_TC_STAGES * MTTKRP_TC_TILE[0]
             * (MTTKRP_TC_CHUNK + MTTKRP_TC_PAD)
             + MTTKRP_TC_B_SLOTS * MTTKRP_TC_TILE[1] * dtype.itemsize)
@@ -528,6 +545,87 @@ def mttkrp_tile(plan: "ExecutionPlan", x: torch.Tensor | None = None,
                          0 if b is None else b.data_ptr())
     return HopperTiles(plan=(kw["bi"], kw["bj"], kw["bk"], kw["bl"]),
                        tile=route or build.MTTKRP_TILE)
+
+
+#: the fused fft2d kernel's geometry (``kFft*`` in csrc/widesa_sp.cu): its
+#: output tile (rows, columns), its warps' k groups, the k a pass stages,
+#: the rows of X a pass holds at most, the largest cluster and the shared
+#: memory a block may use
+FFT2D_TILE = (16, 32)
+FFT2D_K_GROUPS = 8
+FFT2D_CHUNK = 128
+FFT2D_MAX_ROWS = 64
+FFT2D_MAX_CLUSTER = 8
+FFT2D_MAX_SMEM = 232448
+#: k a rank of a split reduces at the least, and the blocks a split may
+#: fill: on an H100 at 12 x 515 (17 column tiles) clusters of 6 (102
+#: blocks) ran in 0.0064 ms, of 5 in 0.0068, of 7 (119) in 0.0077 and of 8
+#: (136) in 0.0073 (``chip_smoke.py --fft-sweep``, profiler device time;
+#: PERF.md)
+FFT2D_MIN_RANK_K = 8
+FFT2D_MAX_BLOCKS = 104
+
+
+@dataclasses.dataclass(frozen=True)
+class Fft2dTile:
+    """A fused fft2d launch: K split over ``split`` blocks of a cluster."""
+
+    split: int
+
+
+def fft2d_smem(nr: int, kc: int) -> int:
+    """Shared memory of a fused fft2d block for R = ``nr`` and passes of
+    ``kc`` k (a multiple of 4): F_C's rows and X's columns of a pass, F_R's
+    tile rows and Y's pass with its sums, or, after the passes, the sums of
+    the 8 warps (each a k group) over the tile, whichever is larger; then
+    the partial tiles a split's ranks send the block."""
+    rows, cols = FFT2D_TILE
+    passes = 2 * kc * cols + 2 * nr * kc + 2 * nr * rows + 3 * kc * rows
+    return 4 * (max(passes, FFT2D_K_GROUPS * 2 * rows * cols)
+                + 2 * rows * cols + FFT2D_MAX_CLUSTER)
+
+
+def fft2d_split(nr: int, nc: int) -> int:
+    """The split of K (the grid's C columns): the largest cluster, up to
+    the portable 8, that keeps the grid within ``FFT2D_MAX_BLOCKS`` blocks
+    and every rank at ``FFT2D_MIN_RANK_K`` k or more; 1 where none does."""
+    rows, cols = FFT2D_TILE
+    tiles = -(-nr // rows) * -(-nc // cols)
+    for split in range(FFT2D_MAX_CLUSTER, 1, -1):
+        if tiles * split <= FFT2D_MAX_BLOCKS \
+                and -(-nc // split) >= FFT2D_MIN_RANK_K:
+            return split
+    return 1
+
+
+def fft2d_allows(nr: int, nc: int, split: int) -> bool:
+    """Whether the fused kernel takes an ``nr`` x ``nc`` grid with K split
+    over ``split`` blocks: at most ``FFT2D_MAX_ROWS`` rows, no rank
+    without k, passes that fit in shared memory."""
+    if not 1 <= nr <= FFT2D_MAX_ROWS or nc < 1 \
+            or not 1 <= split <= min(FFT2D_MAX_CLUSTER, nc):
+        return False
+    kblk = -(-nc // split)
+    kc = -(-min(kblk, FFT2D_CHUNK) // 4) * 4
+    return (split - 1) * kblk < nc and fft2d_smem(nr, kc) <= FFT2D_MAX_SMEM
+
+
+def fft2d_route(nr: int, nc: int) -> Fft2dTile | None:
+    """The fused kernel's configuration for an ``nr`` x ``nc`` grid, or
+    None where the composition runs (module docstring)."""
+    split = fft2d_split(nr, nc)
+    return Fft2dTile(split=split) if fft2d_allows(nr, nc, split) else None
+
+
+def fft2d_tile(plan: "ExecutionPlan", x_re: torch.Tensor,
+               x_im: torch.Tensor) -> HopperTiles:
+    """An fft2d_stage plan's tiles beside the form that runs the grid
+    ``x_re + i x_im``: the fused kernel's ``Fft2dTile`` (``fft2d_route``),
+    else the tiled tile the composition falls back to
+    (``hopper_tiles``)."""
+    tiles = hopper_tiles(plan)
+    return HopperTiles(plan=tiles.plan,
+                       tile=fft2d_route(*x_re.shape) or tiles.tile)
 
 
 def execute_plan(plan: "ExecutionPlan", *tensors, out_dtype=None):

@@ -48,7 +48,7 @@ the absolute terms instead would be ``sqrt(n)`` times looser: at the
 bench sizes mttkrp sums 65536 products of three N(0, 1) draws, where
 ``sqrt(sum t^2)`` is ~256 and the bound ~0.03, below the ~0.1 rms error
 of operands rounded to TF32.  The registry's atol (1e-3, meant for smoke
-sizes) alone is below fp32's resolution there.  The fft2d composition's
+sizes) alone is below fp32's resolution there.  fft2d's
 two planes keep the registry's atol 1.0 alone.
 """
 

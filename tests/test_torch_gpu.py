@@ -15,9 +15,10 @@ atol 1e-3 (FIR, conv2d, the stencils: sums of at most 20 products in
 another order; MTTKRP: sums of at most 4096 products of three N(0, 1)
 draws, in fp32 or as 3xTF32 on the tensor cores; the GEMMs: sums of at
 most 11004 products of N(0, 1) draws, 3xTF32 on the tensor-core kernel
-at up to 1024; the rounding error of either is ~1e-4) and 1.0 (the fft2d composition: sums of 515
-terms of magnitude ~100); bf16 results within one bf16 rounding step of
-the output, ``2^-7 |ref|``, plus 1e-3.
+at up to 1024; the rounding error of either is ~1e-4) and 1.0 (fft2d,
+the fused kernel and the composition: sums of up to 1024 terms of
+magnitude ~100); bf16 results within one bf16 rounding step of the
+output, ``2^-7 |ref|``, plus 1e-3.
 """
 
 import sys
@@ -108,6 +109,61 @@ def test_fft2d_composition_on_the_card(gen):
         torch.testing.assert_close(g, w, rtol=0, atol=1.0)
 
 
+#: the fused fft2d kernel's shapes: whisper-base's frontend tile, a wider
+#: one, one row, ragged ones (C no multiple of 4 or of the 32-column
+#: tile), the pipeline's smoke grid (the kernel's 64 rows)
+FFT_SHAPES = ((12, 515), (16, 1024), (1, 7), (12, 67), (7, 130), (64, 64))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", FFT_SHAPES, ids=str)
+def test_fused_fft2d_matches_plain_version_on_the_card(shape, gen):
+    """One launch of the fused kernel on the route the runtime picks,
+    within the registry's atol of ``ref.fft2d``; K split over a cluster
+    repeats its bits."""
+    re_, im_ = (torch.randn(shape, generator=gen, device="cuda")
+                for _ in range(2))
+    tile = runtime.fft2d_route(*shape)
+    assert isinstance(tile, runtime.Fft2dTile)
+    before = dict(fft2d.variants)
+    got = fft2d.fft2d(re_, im_, tiles=tile)
+    for g, w in zip(got, ref.fft2d(re_, im_)):
+        torch.testing.assert_close(g, w, rtol=0, atol=1.0)
+    again = fft2d.fft2d(re_, im_, tiles=tile)
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+    torch.cuda.synchronize()
+    assert fft2d.variants["fused"] - before["fused"] == 2
+    assert fft2d.variants["composition"] == before["composition"]
+
+
+@pytest.mark.gpu
+def test_fft2d_route_by_rows_on_the_card(gen):
+    """The registry's tiles: the fused kernel at the pipeline's 64 x 64
+    grid, the composition at 96 rows; each launch counted under its form,
+    and a fused launch the kernel does not take raises."""
+    from repro_torch.core import Target, best_plan, lower_plan
+
+    chip = Target(name="single_chip", mesh_shape=(1, 1))
+    spec = registry.get("fft2d_stage")
+    for shape, form in (((64, 64), "fused"), ((96, 64), "composition")):
+        rec = spec.builder(*shape, "float32")
+        ops = registry.operands(rec, gen, "cuda")
+        before = dict(fft2d.variants)
+        got = lower_plan(best_plan(rec, chip), "pallas")(*ops)
+        for g, w in zip(got, spec.ref(*ops)):
+            torch.testing.assert_close(g, w, rtol=0, atol=1.0)
+        torch.cuda.synchronize()
+        assert {k: fft2d.variants[k] - before[k] for k in before} == {
+            "fused": form == "fused", "composition": form == "composition"}
+        assert isinstance(runtime.last_tiles["fft2d_stage"].tile,
+                          runtime.Fft2dTile) == (form == "fused")
+    re_, im_ = (torch.randn((12, 515), generator=gen, device="cuda")
+                for _ in range(2))
+    for split in (0, 9):  # no cluster, and past the portable 8
+        with pytest.raises(ValueError, match="not a fused fft2d launch"):
+            fft2d.fft2d(re_, im_, tiles=runtime.Fft2dTile(split=split))
+
+
 #: ragged stencil grids (outputs not multiples of the tiles) per star, and
 #: ragged MTTKRP extents (I, J, K, L)
 STENCIL_GRIDS = ((63, 61), (40, 300))
@@ -187,19 +243,19 @@ def _mttkrp_operands(shape, dtype, gen):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
 def test_mttkrp_runs_the_kernel_it_is_routed_to_on_the_card(dtype, gen):
-    """Each shape on the kernel ``runtime.mttkrp_route`` picks: float32,
-    and int8 whose rows of X and B allow 4-byte copies, on the tensor
-    cores, the rest
-    on the CUDA cores; ``mttkrp.variants`` counts every launch under its
-    kernel, and a float product split over a cluster repeats its bits."""
+    """Each shape on the kernel ``runtime.mttkrp_route`` picks: float32
+    and int32, int8 whose rows of X and B allow 4-byte copies and int16
+    whose J and L are even on the tensor cores, the rest on the CUDA
+    cores; ``mttkrp.variants`` counts every launch under its kernel, and
+    a product split over a cluster repeats its bits."""
     want = {"tensor_core": 0, "cuda_core": 0}
     before = dict(mttkrp.variants)
     for shape in MTTKRP_ROUTED:
         x, b, c = _mttkrp_operands(shape, dtype, gen)
         route = runtime.mttkrp_route(shape, dtype, x.data_ptr(),
                                      b.data_ptr())
-        on_tc = dtype == torch.float32 or (
-            dtype == torch.int8 and shape[1] % 4 == 0 and shape[3] % 4 == 0)
+        unit = {torch.int8: 4, torch.int16: 2}.get(dtype, 1)
+        on_tc = shape[1] % unit == 0 and shape[3] % unit == 0
         assert isinstance(route, runtime.MttkrpTile) == on_tc
         got = mttkrp.mttkrp(x, b, c, tiles=route or build.MTTKRP_TILE)
         _same(got, ref.mttkrp(x, b, c))
@@ -237,6 +293,48 @@ def test_misaligned_mttkrp_operands_take_narrower_routes_on_the_card(gen):
             mttkrp.mttkrp(x, b, c, tiles=runtime.MttkrpTile(1, 16))
 
 
+#: int16 / int32 MTTKRP on the tensor cores: the bench size, ragged ones
+#: (int16 needs even J and L: its nearest ragged shape) and the largest L
+#: whose C tile fits (int16 1024, int32 512), where the extreme operands
+#: make each shift's s32 sum of limb products as large as it can be
+WIDE_SHAPES = {torch.int16: ((4096, 400, 256, 256), (37, 46, 7, 6),
+                             (130, 160, 16, 1024)),
+               torch.int32: ((4096, 400, 256, 256), (37, 45, 7, 5),
+                             (130, 160, 16, 512))}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", (torch.int16, torch.int32), ids=str)
+def test_wide_integer_mttkrp_is_bit_exact_on_the_tensor_cores(dtype, gen):
+    """int16 and int32 as int8 limbs on ``mttkrp_tc_kernel``, bitwise equal
+    to the plain version at full-range operands and at extreme ones (all
+    min, all max, the two mixed), whose exact sums overflow int32."""
+    info = torch.iinfo(dtype)
+    before = mttkrp.variants["tensor_core"]
+    launched = 0
+    for shape in WIDE_SHAPES[dtype]:
+        ni, nj, nk, nl = shape
+        shapes = ((ni, nk, nl), (nk, nj), (nl, nj))
+        fills = [[_draw(s, dtype, gen) for s in shapes]]
+        if shape != WIDE_SHAPES[dtype][0]:
+            for v in (info.min, info.max):
+                fills.append([torch.full(s, v, dtype=dtype, device="cuda")
+                              for s in shapes])
+            fills.append([torch.where(torch.rand(s, generator=gen,
+                                                 device="cuda") < 0.5,
+                                      info.min, info.max).to(dtype)
+                          for s in shapes])
+        for x, b, c in fills:
+            route = runtime.mttkrp_route(shape, dtype, x.data_ptr(),
+                                         b.data_ptr())
+            assert isinstance(route, runtime.MttkrpTile)
+            assert torch.equal(mttkrp.mttkrp(x, b, c, tiles=route),
+                               ref.mttkrp(x, b, c))
+            launched += 1
+    torch.cuda.synchronize()
+    assert mttkrp.variants["tensor_core"] - before == launched
+
+
 @pytest.mark.gpu
 def test_execute_plan_runs_the_new_kernels_on_the_card(gen):
     """The pipeline's path: a single-chip plan through ``lower_plan``
@@ -253,8 +351,11 @@ def test_execute_plan_runs_the_new_kernels_on_the_card(gen):
         _same(lower_plan(best_plan(rec, chip), "pallas")(*ops),
               spec.ref(*ops))
         assert mod.launches > before
-        assert runtime.last_tiles[name].tile == (
-            build.MTTKRP_TILE if name == "mttkrp" else build.STENCIL_TILE)
+        if name == "mttkrp":  # int16 rows of 8 elements: the tensor cores
+            assert isinstance(runtime.last_tiles[name].tile,
+                              runtime.MttkrpTile)
+        else:
+            assert runtime.last_tiles[name].tile == build.STENCIL_TILE
 
 
 #: the skinny GEMM at M = 1, 4, 12 and 16 over (N, K): K split over 8

@@ -1,12 +1,12 @@
 """The tensor-core MTTKRP kernel's route and arithmetic, on the CPU.
 
 * ``runtime.mttkrp_route`` / ``mttkrp_tile`` (their constants are the
-  CUDA source's): float32 and int8 go to the tensor-core kernel
+  CUDA source's): every dtype goes to the tensor-core kernel
   (``runtime.MttkrpTile``) at the bench, smoke and (32, 48, 64, 64)
-  shapes; int16, int32, int8 rows of X or B that allow no 4-byte copies
-  (L % 4 != 0 or J % 4 != 0, or one byte off) and a C tile past the
-  shared memory go to the
-  CUDA-core kernel (``build.MTTKRP_TILE``).  K is split over 8 blocks of
+  shapes (int16 and int32 as int8 limbs); rows of X or B that allow no
+  4-byte copies (int8 L % 4 != 0 or J % 4 != 0, int16 L or J odd, or an
+  operand off its boundary) and a C tile past the shared memory go to
+  the CUDA-core kernel (``build.MTTKRP_TILE``).  K is split over 8 blocks of
   a cluster where every rank keeps 16 k, else over the largest power of
   two that does.
 * The kernel's float32 arithmetic, emulated in torch: for each k, T_k =
@@ -19,7 +19,12 @@
   does not.
 * The kernel's integer arithmetic (exact T_k, then acc += B[k] * T_k
   wrapping modulo 2^32) equals the reference's int32 einsum bitwise on
-  int8 operands whose int32 sums wrap.
+  int8 operands whose int32 sums wrap.  For int16 and int32 the same
+  with T_k from int8 limbs (top limb signed, the others unsigned): the
+  limb products grouped by shift into one s32 sum each (int32 a step of
+  32 l at a time), every sum inside int32, then folded modulo 2^32;
+  bitwise equal to the reference at full-range and extreme operands whose
+  exact sums overflow int32.
 
 The kernels themselves run only on the card: ``tests/test_torch_gpu.py``.
 """
@@ -46,21 +51,44 @@ TC_SHAPES = ((4096, 400, 256, 256), (128, 64, 16, 8), (32, 48, 64, 64))
 @pytest.mark.parametrize("shape", TC_SHAPES, ids=str)
 @pytest.mark.parametrize("dtype", ("float32", "int8", "int16", "int32"))
 def test_route_by_dtype_and_shape(shape, dtype):
-    """float32 and int8 on the tensor cores (16-byte copies where a row of
-    X is a whole number of them), int16 and int32 on the CUDA cores; the
+    """Every dtype on the tensor cores (int16 and int32 as int8 limbs;
+    16-byte copies where a row of X is a whole number of them); the
     plan's route is the same."""
     dt = getattr(torch, dtype)
     route = runtime.mttkrp_route(shape, dt)
-    if dtype in ("float32", "int8"):
-        row = shape[3] * dt.itemsize
-        assert route == runtime.MttkrpTile(
-            split=runtime.mttkrp_split(shape[2]),
-            copy=16 if row % 16 == 0 else 4)
-    else:
-        assert route is None
+    row = shape[3] * dt.itemsize
+    assert route == runtime.MttkrpTile(
+        split=runtime.mttkrp_split(shape[2]),
+        copy=16 if row % 16 == 0 else 4)
     plan = best_plan(registry.get("mttkrp").builder(*shape, dtype),
                      SINGLE_CHIP)
     assert runtime.mttkrp_tile(plan).tile == (route or build.MTTKRP_TILE)
+
+
+@pytest.mark.parametrize("dtype,shape,x_ptr,b_ptr,want", [
+    ("int16", (37, 45, 7, 5), 0, 0, None),     # odd L: rows of 10 bytes
+    ("int16", (37, 46, 7, 6), 0, 0, 4),        # rows of 12 bytes
+    ("int16", (16, 9, 4, 32), 0, 0, None),     # odd J: B's rows of 18 bytes
+    ("int16", (16, 8, 4, 32), 2, 0, None),     # X two bytes off
+    ("int16", (16, 8, 4, 32), 4, 0, 4),
+    ("int16", (16, 8, 4, 32), 0, 2, None),     # B two bytes off
+    ("int16", (64, 80, 4, 1024), 0, 0, 16),    # C's tile 160 KB: fits
+    ("int16", (64, 80, 4, 1026), 0, 0, None),  # past the shared memory
+    ("int32", (37, 45, 7, 5), 0, 0, 4),        # any L, any J
+    ("int32", (16, 9, 4, 32), 0, 0, 16),
+    ("int32", (64, 80, 4, 512), 0, 0, 16),
+    ("int32", (64, 80, 4, 513), 0, 0, None),
+], ids=str)
+def test_wider_integers_route_by_alignment_and_fit(dtype, shape, x_ptr,
+                                                   b_ptr, want):
+    """int16 and int32 take the tensor cores where X's and B's rows allow
+    4-byte copies and C's limb planes fit beside the ring, else the CUDA
+    cores."""
+    dt = getattr(torch, dtype)
+    route = runtime.mttkrp_route(shape, dt, x_ptr, b_ptr)
+    assert (route and route.copy) == want
+    fits = runtime.mttkrp_smem(shape[3], dt) <= runtime.MTTKRP_TC_MAX_SMEM
+    assert fits or route is None
 
 
 def test_runtime_geometry_matches_the_cuda_source():
@@ -202,3 +230,88 @@ def test_two_step_int8_wraps_like_the_reference(low, high):
     exact = np.einsum("ikl,kj,lj->ij", *(a.astype(np.int64) for a in arrays))
     if low > 0 or high < 0:
         assert (np.abs(exact) >= 2**31).all()
+
+
+def _limbs(t, n):
+    """``t``'s n int8 limbs, low first: unsigned bytes, the top one
+    signed (``t = sum_p 2^(8p) t_p``)."""
+    t = t.to(torch.int64)
+    return [(t >> (8 * p)) & 0xFF for p in range(n - 1)] + [t >> (8 * (n - 1))]
+
+
+def _emulate_limbs(x, b, c):
+    """The tensor-core kernel's int16 / int32 arithmetic: for each k the
+    limb products X_p C_q with p + q < 4, each an exact int8 product,
+    summed by shift p + q into one s32 sum each (asserted inside int32)
+    and folded into T_k modulo 2^32 (int16 over all of l; int32 a step of
+    32 l at a time, as the kernel folds each group as it completes), then
+    acc += B[k] * T_k modulo 2^32."""
+    n = x.element_size()
+    xl, cl = _limbs(x, n), _limbs(c, n)
+    acc = torch.zeros((x.shape[0], b.shape[1]), dtype=torch.int64)
+    b = b.to(torch.int64)
+    nl = x.shape[2]
+    step = 32 if n == 4 else nl
+    for k in range(x.shape[1]):
+        t = torch.zeros_like(acc)
+        for l0 in range(0, nl, step):
+            ls = slice(l0, l0 + step)
+            for shift in range(min(2 * n - 1, 4)):
+                sums = sum(xl[p][:, k, ls] @ cl[shift - p][ls]
+                           for p in range(n) if 0 <= shift - p < n)
+                assert (sums.abs() < 2**31).all()
+                t = (t + (sums << (8 * shift))) & 0xFFFFFFFF
+        acc = (acc + b[k] * t) & 0xFFFFFFFF
+    return torch.where(acc >= 2**31, acc - 2**32, acc).to(torch.int32)
+
+
+def _wide_operands(shape, dtype, fill, seed):
+    ni, nj, nk, nl = shape
+    info = np.iinfo(dtype)
+    rng = np.random.default_rng(seed)
+    out = []
+    for s in ((ni, nk, nl), (nk, nj), (nl, nj)):
+        if fill == "full":
+            out.append(rng.integers(info.min, info.max, s, endpoint=True,
+                                    dtype=np.int64).astype(dtype))
+        elif fill == "mixed":
+            out.append(rng.choice(np.array([info.min, info.max], dtype),
+                                  size=s))
+        else:
+            out.append(np.full(s, getattr(info, fill), dtype))
+    return out
+
+
+@pytest.mark.parametrize("fill", ["full", "min", "max", "mixed"])
+@pytest.mark.parametrize("dtype", ["int16", "int32"])
+def test_limb_products_wrap_like_the_reference(dtype, fill):
+    """int16 / int32 operands at full range and at their extremes (all
+    -32768 or 32767; all -2^31 or 2^31 - 1; the two mixed), whose exact
+    sums overflow int32: the limb form equals the reference's int32
+    einsum bitwise."""
+    shape = (16, 24, 8, 64)
+    arrays = _wide_operands(shape, np.dtype(dtype), fill, seed=8)
+    want = np.asarray(jax_ref.mttkrp(*(jnp.asarray(a) for a in arrays)))
+    got = _emulate_limbs(*(torch.from_numpy(a) for a in arrays))
+    np.testing.assert_array_equal(got.numpy(), want)
+    exact = np.einsum("ikl,kj,lj->ij", *(a.astype(object) for a in arrays))
+    assert (np.abs(exact.astype(float)) >= 2**31).any()
+
+
+@pytest.mark.parametrize("dtype", ["int16", "int32"])
+def test_limb_sums_stay_inside_int32_at_every_l_that_fits(dtype):
+    """The largest L the shared memory admits (1024 in int16, 512 in
+    int32): no shift's s32 sum of limb products can leave int32, whatever
+    the operands, so the kernel never depends on how wgmma overflows."""
+    dt = getattr(torch, dtype)
+    n = dt.itemsize
+    nl = max(l for l in range(4, 4096, 2)
+             if runtime.mttkrp_smem(l, dt) <= runtime.MTTKRP_TC_MAX_SMEM)
+    assert nl == {2: 1024, 4: 512}[n]
+    top = 128  # |signed top limb| <= 128, unsigned limbs <= 255
+    worst = max(sum((top if p == n - 1 else 255) * (top if s - p == n - 1
+                                                    else 255)
+                    for p in range(n) if 0 <= s - p < n)
+                for s in range(min(2 * n - 1, 4)))
+    assert worst * nl < 2**31
+
