@@ -17,12 +17,12 @@ line(s); any failure exits non-zero:
 3. kernels — every hand-written kernel against its plain PyTorch version
    on the card: the mm/bmm GEMMs in all five dtypes at every serving
    shape and at ragged ones on the kernel the runtime picks (the skinny
-   kernel for A of at most 16 rows, the tensor-core one above in bf16 and
-   float32, the tiled one for the rest), the tensor-core kernel at every
-   qwen prefill GEMM of 17, 64, 127 and 512 tokens, quickstart's float32
-   1024^3 and ragged shapes in bf16 -> bf16, bf16 -> fp32 and float32
-   with both B layouts (and a one-TF32 control that float32's atol must
-   reject), the skinny
+   kernel for A of at most 16 rows, the tensor-core ones above, the tiled
+   one for operands TMA cannot address), the tensor-core kernels at every
+   qwen prefill GEMM of 17, 64, 127 and 512 tokens, quickstart's 1024^3
+   and ragged shapes in bf16 -> bf16, bf16 -> fp32, float32 and int8,
+   int16 and int32 -> int32 with both B layouts (and a one-TF32 control
+   that float32's atol must reject), the skinny
    kernel at every M up to 16 with both B layouts and K split unevenly
    over a cluster, a misaligned B (routed to the tiled kernel where its
    rows do not allow 4-byte copies), every compiled tile of the tiled
@@ -87,13 +87,16 @@ line(s); any failure exits non-zero:
    the Table II compiler report, quickstart's 1024^3 MM, and every
    registered recurrence planned on one chip and run through
    ``lower_plan(plan, "pallas")`` against its plain version, the stencils
-   and mttkrp at their paper-scale bench sizes in every parity dtype.
+   and mttkrp at their paper-scale bench sizes in every parity dtype, mm
+   and bmm at the paper's MM/BMM table (float32 8192^3, int8 10240^3,
+   int16 9600^3, int32 8192^3; 64 x 4096^3 in float32, int8 and int16).
    Checks that the star-stencil (B6) and MTTKRP (B7) kernels launched,
    every mttkrp case on the kernel its dtype and shape call for (every
    bench case on the tensor cores, int16 and int32 as int8 limbs) with
    each launch counted under it, the fft2d_stage case on the fused
-   kernel, and every float32 mm / bmm above 16 rows on the tensor-core
-   GEMM.  Then holds B6 (5-point, 9-point, and the multi-sweep
+   kernel, and every mm / bmm case (all above 16 rows) on the tensor-core
+   kernels, float32 and integers, with every launch of the two GEMM
+   wrappers counted under ``wgmma``.  Then holds B6 (5-point, 9-point, and the multi-sweep
    form on its int32 state) and B7 against their plain versions at the
    bench sizes and at ragged ones, in float32, int8, int16 and int32, on
    the kernel the runtime routes each to, checks that the float32 bound
@@ -103,7 +106,12 @@ line(s); any failure exits non-zero:
    yardsticks only) and their bounds, with ``torch.profiler`` device
    time; the tensor-core MTTKRP rows also time the CUDA-core kernel on
    the same operands and give the bound at the tensor-core rate beside
-   the fp32 CUDA-core one;
+   the fp32 CUDA-core one.  Last, the integer GEMMs above 16 rows at the
+   pipeline's smoke shapes and the paper's table (``int_gemm_timings``:
+   ``gemm_tc_int_kernel`` and its limb pre-pass bitwise against the plain
+   version and beside the tiled kernel they replace, ``torch._int_mm``
+   for int8 mm, the bound at the int8 rate x 1, 4 or 10 limb products)
+   and the paper's float32 MM and BMM on ``gemm_tc_kernel``;
 8. summary — a JSON line of the kernels, the ``nvidia-smi`` name and
    power limit, and the result line.
 
@@ -114,7 +122,10 @@ line gives each path's counts apart (``"launches": {"qwen": n,
 two GEMM wrappers the same launches by kernel (``"launches_by_kernel"``:
 skinny / wgmma / tiled) beside their device times and host time a call
 (and under ``"wgmma"`` the tensor-core kernel's at its 512-token prefill
-shape beside the tiled kernel's and the library's), and for mttkrp its
+shape beside the tiled kernel's and the library's; under ``"wgmma_int"``
+the integer one's, ``gemm_tc_int_kernel`` with its limb pre-pass, at the
+paper's int8 shape beside the tiled kernel's and ``torch._int_mm``'s;
+both count as ``wgmma``), and for mttkrp its
 launches by kernel (tensor_core / cuda_core) beside the device times of
 both kernels.  The comparison and
 timing launches of phases 3 and 6 and of ``drain_parity`` do not count.
@@ -614,10 +625,12 @@ def parity(torch) -> None:
           f"{same}", flush=True)
 
 
-#: the (input, output) dtypes of the tensor-core kernel: bf16 to bf16, bf16
-#: to fp32 (the attention scores), float32 (3xTF32)
+#: the (input, output) dtypes of the tensor-core kernels: bf16 to bf16, bf16
+#: to fp32 (the attention scores), float32 (3xTF32); int8, int16 and int32
+#: to int32 (as int8 limbs)
 TC_DTYPES = (("bfloat16", None), ("bfloat16", "float32"),
-             ("float32", None))
+             ("float32", None), ("int8", None), ("int16", None),
+             ("int32", None))
 
 
 def tc_cases():
@@ -632,13 +645,13 @@ def tc_cases():
 
 
 def tc_parity(torch) -> None:
-    """The tensor-core kernel against its plain version (``tc_cases``) in
-    bf16 -> bf16, bf16 -> fp32 and float32, each B layout, on the
-    configuration the runtime picks: ``wgmma`` wherever TMA can address the
-    operands (else the tiled kernel), every launch counted there; two runs
-    of split-K products bitwise equal; a one-TF32 control (the plain
-    version with TF32 GEMMs) must fail float32's atol at quickstart's
-    1024^3."""
+    """The tensor-core kernels against their plain version (``tc_cases``)
+    in bf16 -> bf16, bf16 -> fp32, float32 and the three integer dtypes,
+    each B layout, on the configuration the runtime picks: ``wgmma``
+    wherever TMA can address the operands (else the tiled kernel), every
+    launch counted there; two runs of split-K products bitwise equal; a
+    one-TF32 control (the plain version with TF32 GEMMs) must fail
+    float32's atol at quickstart's 1024^3."""
     from collections import Counter
 
     from repro_torch.kernels import bmm, ref, runtime, widesa_mm
@@ -682,7 +695,8 @@ def tc_parity(torch) -> None:
     same = []
     for kind, shape in (("mm", (512, 1024, 1024)), ("bmm", (16, 512, 64, 512)),
                         QUICKSTART):
-        for dtype in (torch.bfloat16, torch.float32):
+        for dtype in (torch.bfloat16, torch.float32, torch.int8, torch.int16,
+                      torch.int32):
             a, b = operands(torch, gen, kind, shape, dtype, False)
             fn, tiles = kernel_call(kind, shape, dtype, a, b)
             if not isinstance(tiles.tile, runtime.TcTile):
@@ -712,7 +726,8 @@ def tc_parity(torch) -> None:
           f"{len(TC_DTYPES)} dtype pairs x 2 B layouts): "
           f"launches by kernel {dict(routes)} (tiled: rows TMA cannot "
           f"address); max |err| by dtype {({k: f'{v:.4g}' for k, v in worst.items()})} "
-          f"(fp32 <= 1e-3, bf16 <= 2^-7|ref| + 1e-3); bitwise equal on two "
+          f"(fp32 <= 1e-3, bf16 <= 2^-7|ref| + 1e-3, integers exact); "
+          f"bitwise equal on two "
           f"runs: {same}; one-TF32 control max |err| {err:.4g} > 1e-3 "
           f"(rejected)", flush=True)
 
@@ -1995,57 +2010,186 @@ def hpc_timings(torch) -> dict:
     return rows
 
 
-#: the integer GEMMs above 16 rows the recurrence pipeline runs on the
-#: tiled kernel: the registry's mm and bmm smoke shapes
+#: the integer GEMMs above 16 rows the recurrence pipeline runs: the
+#: registry's mm and bmm smoke shapes (in int8, int16 and int32) and the
+#: paper's MM/BMM table (the registry's integer bench cases: mm int8
+#: 10240^3, int16 9600^3, int32 8192^3; bmm int8 and int16 64 x 4096^3)
 INT_GEMMS = (("mm", (256, 256, 256)), ("bmm", (4, 128, 128, 64)))
 
 
-def int_gemm_timings(torch) -> None:
-    """The integer GEMMs of ``INT_GEMMS`` in int8, int16 and int32 on the
-    kernel the runtime routes them to (the tiled kernel), held bitwise to
-    the plain version: profiler device time beside the bound (the int8
-    tensor-core rate for int8, the fp32 CUDA-core rate for the wider
-    integers, which no tensor-core instruction takes whole), the plain
-    version and, where PyTorch has one call for it on the card,
-    ``torch._int_mm`` (int8 mm; none for bmm, int16 or int32)."""
+def paper_cases(floats: bool):
+    """(kind, shape, dtype name) of the registry's mm and bmm bench cases,
+    the float32 or the integer ones."""
+    from repro_torch.kernels import registry
+
+    return [(kind, args, dtype) for kind in ("mm", "bmm")
+            for dtype, args in registry.get(kind).bench_cases
+            if (dtype == "float32") == floats]
+
+
+def plain_equal(torch, kind, a, b, *outs) -> bool:
+    """Whether every one of ``outs`` equals the plain version of ``a @ b``
+    bitwise; a bmm batch entry by batch entry (so that the exact-integer
+    temporaries stay those of one entry)."""
     from repro_torch.kernels import ref
 
+    if kind == "mm":
+        want = ref.mm(a, b)
+        return all(torch.equal(out, want) for out in outs)
+    for z in range(a.shape[0]):
+        want = ref.mm(a[z], b[z])
+        if not all(torch.equal(out[z], want) for out in outs):
+            return False
+    return True
+
+
+def int_gemm_timings(torch) -> dict:
+    """The integer GEMMs above 16 rows (``INT_GEMMS`` in int8, int16 and
+    int32, and the paper's table, ``paper_cases``) on the kernel the
+    runtime routes them to, which must be the tensor-core one, held
+    bitwise to the plain version (a bmm batch entry by batch entry), as is
+    the tiled kernel's result: ``torch.profiler`` device time of
+    ``gemm_tc_int_kernel`` and of its limb-plane pre-pass
+    (``limb_planes_kernel``, one launch for both operands), the achieved
+    TOP/s, the bound (the int8
+    tensor-core rate x 1, 4 or 10 limb products, or the bytes), the tiled
+    kernel it replaces on the same operands (profiler device time at the
+    smoke shapes, CUDA events around one call at the paper's), the plain
+    version and, for int8 mm, ``torch._int_mm`` on B as given (row-major)
+    and on a column-major copy (the layout cuBLAS's int8 kernels take),
+    beside the new route on that copy.  Returns the rows by (kind, shape,
+    dtype name)."""
+    from repro_torch.kernels import runtime
+
     gen = torch.Generator(device="cuda").manual_seed(13)
-    for kind, shape in INT_GEMMS:
-        plain = ref.mm if kind == "mm" else ref.bmm
-        for dtype in (torch.int8, torch.int16, torch.int32):
-            a, b = operands(torch, gen, kind, shape, dtype, False)
-            call, tiles = kernel_call(kind, shape, dtype, a, b)
-            kernel = describe(tiles.tile).split()[0]
-            if kernel != "tiled":
-                fail(f"{kind}{shape} {dtype}: routed to {kernel}")
-            want = plain(a, b)
-            if not torch.equal(call(a, b), want):
-                fail(f"{kind}{shape} {dtype}: the tiled kernel is not "
-                     "bit-exact")
-            lib, lib_text = None, "none on the card"
-            if kind == "mm" and dtype == torch.int8:
-                # a yardstick only: a PyTorch build without it is noted
-                try:
-                    same = torch.equal(torch._int_mm(a, b), want)
-                except RuntimeError as err:
-                    same, lib_text = None, f"torch._int_mm refused ({err})"
-                if same is False:
-                    fail(f"{kind}{shape} int8: torch._int_mm differs")
-                if same:
-                    lib = device_ms(torch, lambda: torch._int_mm(a, b), None)
-                    lib_text = f"torch._int_mm device {fmt_ms(lib)}"
-            bound, by = bound_ms(kind, shape, a.element_size(), 4,
-                                 "int8" if dtype == torch.int8
-                                 else "float32")
-            name = str(dtype).removeprefix("torch.")
-            print(f"time {kind}{shape} {name} -> int32 [tiled {tiles.tile}, "
-                  f"the recurrence pipeline]: device "
-                  f"{fmt_ms(device_ms(torch, lambda: call(a, b), 'gemm_kernel'))}"
-                  f", bound {bound:.5f} ms ({by}), plain "
-                  f"{time_ms(torch, lambda: plain(a, b), 10):.4f} ms, library "
-                  f"{lib_text}", flush=True)
-            del a, b, want
+    cases = [(kind, shape, name, False) for kind, shape in INT_GEMMS
+             for name in ("int8", "int16", "int32")]
+    cases += [(*case, True) for case in paper_cases(floats=False)]
+    rows = {}
+    for kind, shape, name, paper in cases:
+        dtype = getattr(torch, name)
+        a, b = operands(torch, gen, kind, shape, dtype, False)
+        call, tiles = kernel_call(kind, shape, dtype, a, b)
+        if not isinstance(tiles.tile, runtime.TcTile):
+            fail(f"{kind}{shape} {name}: routed to {describe(tiles.tile)}, "
+                 "not the tensor-core kernel")
+        tiled, tile = tiled_call(kind, shape, dtype, False)
+        out, slow = call(a, b), tiled(a, b)
+        t0 = time.perf_counter()
+        same = plain_equal(torch, kind, a, b, out, slow)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        if not same:
+            fail(f"{kind}{shape} {name}: the tensor-core or the tiled kernel "
+                 "is not bit-exact")
+        del slow
+        reps = 3 if paper else 10
+        (m, n, k), z = shape[-3:], (shape[0] if kind == "bmm" else 1)
+        gemm = device_ms(torch, lambda: call(a, b), "gemm_tc_int_kernel", reps)
+        pre = device_ms(torch, lambda: call(a, b), "limb_planes_kernel", reps)
+        device = None if None in (gemm, pre) else gemm + pre
+        tiled_ms = time_ms(torch, lambda: tiled(a, b), 1, 1) if paper else \
+            device_ms(torch, lambda: tiled(a, b), "gemm_kernel", reps)
+        ops = 2 * z * m * n * k
+        moved = z * ((m * k + k * n) * dtype.itemsize + m * n * 4)
+        bound, by = least_ms(moved, ops * LIMB_PRODUCTS[name], "int8")
+        row = dict(tiles=tiles, device_ms=device, gemm_ms=gemm, prepass_ms=pre,
+                   tops=None if device is None else ops / device / 1e9,
+                   bound_ms=bound, bound_by=by, tiled_ms=tiled_ms,
+                   tiled_timer="events, one call" if paper else "device",
+                   plain_ms=plain_ms, library_ms=None, max_abs_err=0.0)
+        lib_text = "none on the card" + ("" if kind == "mm" else
+                                         " (torch._int_mm is 2-D)")
+        if kind == "mm" and dtype == torch.int8:
+            col = b.t().contiguous().t()
+            got = torch._int_mm(a, b), torch._int_mm(a, col), call(a, col)
+            if not plain_equal(torch, kind, a, b, *got):
+                fail(f"{kind}{shape} int8: torch._int_mm or the column-major "
+                     "route differs")
+            del got
+            row["library_ms"] = device_ms(torch, lambda: torch._int_mm(a, b),
+                                          None, reps)
+            row["library_col_ms"] = device_ms(
+                torch, lambda: torch._int_mm(a, col), None, reps)
+            row["col_ms"] = device_ms(torch, lambda: call(a, col),
+                                      "gemm_tc_int_kernel", reps)
+            lib_text = (f"torch._int_mm device {fmt_ms(row['library_ms'])} "
+                        f"(B row-major), {fmt_ms(row['library_col_ms'])} (B "
+                        f"column-major; the new route on that B, no pre-pass: "
+                        f"{fmt_ms(row['col_ms'])})")
+            del col
+        rows[(kind, shape, name)] = row
+        tops = "not measured" if row["tops"] is None else \
+            f"{row['tops']:.0f} TOP/s"
+        print(f"time {kind}{shape} {name} -> int32 ["
+              f"{describe(tiles.tile, kind, shape)}, "
+              f"{'the paper table' if paper else 'the pipeline smoke'}]: "
+              f"device {fmt_ms(device)} (gemm_tc_int_kernel {fmt_ms(gemm)} + "
+              f"limb_planes_kernel {fmt_ms(pre)}), {tops}, bound "
+              f"{bound:.5f} ms ({by}; int8 tensor-core rate x "
+              f"{LIMB_PRODUCTS[name]} product(s)); tiled {tile} "
+              f"{fmt_ms(tiled_ms)} ({row['tiled_timer']}); library {lib_text}; "
+              f"plain {plain_ms:.1f} ms (host clock); bit-exact, both kernels",
+              flush=True)
+        del a, b, out
+        torch.cuda.empty_cache()
+    below = {f"{k}{s} {d}": r["device_ms"] is not None
+             and r["device_ms"] < r["tiled_ms"] for (k, s, d), r in rows.items()}
+    slower = [key for key, ok in below.items() if not ok]
+    print(f"time: the tensor-core route below the tiled kernel at "
+          f"{len(below) - len(slower)} of {len(below)} integer shapes; not "
+          f"at {slower or 'none'} (at the smoke shapes the route's two "
+          f"launches, pre-pass and GEMM, each take microseconds of fixed "
+          f"device time, against the tiled kernel's one launch)", flush=True)
+    # the paper's table is what the route is for: it must win there
+    paper_slower = [key for key in slower if key in {
+        f"{k}{s} {d}" for k, s, d in paper_cases(floats=False)}]
+    if paper_slower:
+        fail(f"integer GEMMs on the tensor cores not faster than the tiled "
+             f"kernel they replace at the paper's shapes: {paper_slower}")
+    return rows
+
+
+def float_paper_timings(torch) -> dict:
+    """The paper's float32 MM and BMM (mm 8192^3, bmm 64 x 4096^3) on the
+    tensor-core kernel (3xTF32), held to ``recurrences.held`` (the
+    float bound; a bmm batch entry by batch entry): profiler device time
+    beside the bound (three TF32 products a product) and
+    ``torch.matmul`` / ``torch.bmm`` (fp32, TF32 off)."""
+    from repro_torch.kernels import registry, runtime
+    from repro_torch.launch import recurrences
+
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    rows = {}
+    for kind, shape, name in paper_cases(floats=True):
+        a, b = operands(torch, gen, kind, shape, torch.float32, False)
+        call, tiles = kernel_call(kind, shape, torch.float32, a, b)
+        if not isinstance(tiles.tile, runtime.TcTile):
+            fail(f"{kind}{shape} float32: not on the tensor-core kernel")
+        spec = registry.get(kind)
+        err, ok = recurrences.held(spec, spec.builder(*shape, name), (a, b),
+                                   call(a, b))
+        if not ok:
+            fail(f"{kind}{shape} float32: max |err| {err} outside "
+                 "recurrences.float_bound")
+        lib = torch.matmul if kind == "mm" else torch.bmm
+        (m, n, k), z = shape[-3:], (shape[0] if kind == "bmm" else 1)
+        bound, by = least_ms(z * (m * k + k * n + m * n) * 4,
+                             3 * 2 * z * m * n * k, "tfloat32")
+        row = dict(tiles=tiles, max_abs_err=err, bound_ms=bound, bound_by=by,
+                   device_ms=device_ms(torch, lambda: call(a, b),
+                                       "gemm_tc_kernel", 3),
+                   library_ms=device_ms(torch, lambda: lib(a, b), None, 3))
+        rows[(kind, shape)] = row
+        print(f"time {kind}{shape} float32 [{describe(tiles.tile, kind, shape)}"
+              f", the paper table, 3xTF32]: device "
+              f"{fmt_ms(row['device_ms'])}, bound {bound:.4f} ms ({by}); "
+              f"torch.{lib.__name__} device {fmt_ms(row['library_ms'])}; "
+              f"max |err| {err:.4g} within recurrences.float_bound",
+              flush=True)
+        del a, b
+        torch.cuda.empty_cache()
+    return rows
 
 
 def mttkrp_sweep(torch) -> list[dict]:
@@ -2195,9 +2339,10 @@ def tc_sweep(torch) -> list[dict]:
     return rows
 
 
-def recurrences_phase(torch) -> tuple[dict, dict, dict]:
-    """Phase 6 (module docstring): the launches of the pipeline run (all
-    and the GEMMs' by kernel), and the B6 / B7 time rows."""
+def recurrences_phase(torch) -> tuple[dict, dict, dict, dict]:
+    """Phase 7 (module docstring): the launches of the pipeline run (all
+    and the GEMMs' by kernel), the B6 / B7 time rows and the GEMM rows of
+    the paper's MM/BMM table."""
     from repro_torch.launch import recurrences
 
     # the recurrence path: counts start at 0 here and are read right after
@@ -2236,28 +2381,36 @@ def recurrences_phase(torch) -> tuple[dict, dict, dict]:
         fail(f"recurrences: fft2d off the fused kernel: "
              f"{[(r['args'], r['tiles'].tile) for r in ffts]}, launches "
              f"by form {variants['fft2d']}")
-    # every float32 mm / bmm above 16 rows on the tensor-core kernel
-    floats = [row for row in rows if row["name"] in ("mm", "bmm")
-              and row["dtype"] == "float32"
-              and row["args"][-3] > runtime.SKINNY_ROWS]
-    off = [(row["name"], row["args"], row["tiles"].tile) for row in floats
-           if not isinstance(row["tiles"].tile, runtime.TcTile)]
-    if off or not floats or 0 in (variants["widesa_mm"]["wgmma"],
-                                  variants["bmm"]["wgmma"]):
-        fail(f"recurrences: float32 GEMMs above 16 rows off the tensor-core "
-             f"kernel: {off} (launches by kernel {variants})")
+    # every mm / bmm (all above 16 rows: quickstart's, the smoke and the
+    # paper's, float32 and the integers) on a tensor-core kernel, and each
+    # launch of the two GEMM wrappers counted there
+    gemms = [row for row in rows if row["name"] in ("mm", "bmm")]
+    off = [(row["name"], row["dtype"], row["args"], row["tiles"].tile)
+           for row in gemms
+           if row["args"][-3] <= runtime.SKINNY_ROWS
+           or not isinstance(row["tiles"].tile, runtime.TcTile)]
+    kinds = {"widesa_mm": "mm", "bmm": "bmm"}
+    miscounted = {name: variants[name] for name in kinds
+                  if variants[name]["wgmma"] != launches[name]
+                  or not any(r["name"] == kinds[name] for r in gemms)}
+    if off or miscounted:
+        fail(f"recurrences: GEMMs above 16 rows off the tensor-core kernels: "
+             f"{off}; launches by kernel {miscounted} against {launches}")
+    ints = sorted({(r["name"], r["dtype"], r["args"]) for r in gemms
+                   if r["dtype"].startswith("int")})
     print(f"recurrences: {len(rows)} cases through lower_plan(plan, "
           f"'pallas') within tolerance in {dt:.1f} s; launches {launches}; "
-          f"launches by kernel {variants} (GEMMs: the skinny kernel for at "
-          f"most 16 rows of A, the tensor-core one above in float32 "
-          f"({len(floats)} cases: {[(r['name'], r['args']) for r in floats]}) "
-          f"and bf16, the tiled one for the integers; mttkrp cases {cases}; "
-          f"fft2d {[(r['args'], str(r['tiles'].tile)) for r in ffts]})",
+          f"launches by kernel {variants} (GEMMs: every one of the "
+          f"{len(gemms)} mm / bmm cases above 16 rows on the tensor cores, "
+          f"gemm_tc_kernel in float32, gemm_tc_int_kernel in the integers "
+          f"({len(ints)} cases: {ints}), no tiled launch; mttkrp cases "
+          f"{cases}; fft2d {[(r['args'], str(r['tiles'].tile)) for r in ffts]})",
           flush=True)
     torch.cuda.empty_cache()
     hpc_parity(torch)
     hpc_rows = hpc_timings(torch)
-    int_gemm_timings(torch)
+    gemm_rows = int_gemm_timings(torch)
+    gemm_rows.update(float_paper_timings(torch))
     def below(dtype, other):
         row = hpc_rows[("mttkrp", dtype)]
         if None in (row["device_ms"], row.get(other)):
@@ -2270,7 +2423,7 @@ def recurrences_phase(torch) -> tuple[dict, dict, dict]:
           f"the CUDA-core kernel's: "
           f"{ {d: below(d, 'cuda_core_device_ms') for d in dtypes} }",
           flush=True)
-    return launches, variants, hpc_rows
+    return launches, variants, hpc_rows, gemm_rows
 
 
 # ---------------------------------------------------------------------------
@@ -2284,8 +2437,9 @@ MANGLED_TYPES = {"f": "float32", "a": "int8", "s": "int16", "i": "int32"}
 
 def kernel_resources(log: str) -> list[str]:
     """Registers and spill stores of each instantiation of the fused fft2d
-    kernel and of the tensor-core MTTKRP kernel, from ``ptxas -v``'s
-    lines in the build log."""
+    kernel, of the tensor-core MTTKRP kernel and of the integer
+    tensor-core GEMM and its limb pre-pass, from ``ptxas -v``'s lines in
+    the build log."""
     found, name = [], None
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '(\S+)'", line)
@@ -2306,6 +2460,12 @@ def kernel_resources(log: str) -> list[str]:
                      f"{tc.group(2)}>")
         elif "fft2d_kernel" in mangled:
             label = "fft2d_kernel"
+        elif gemm := re.search(r"gemm_tc_int_kernelILi(\d)ELi(\d+)ELi(\d+)E",
+                               mangled):
+            label = (f"gemm_tc_int_kernel<{gemm.group(1)} limb(s), "
+                     f"{gemm.group(2)}x{gemm.group(3)}>")
+        elif limb := re.search(r"limb_planes_kernelI(\w)E", mangled):
+            label = f"limb_planes_kernel<{MANGLED_TYPES[limb.group(1)]}>"
         else:
             continue
         out.append(f"{label} {regs} registers, {spill} B spill")
@@ -2390,7 +2550,9 @@ def main(argv=None) -> int:
     print("kernels: widesa_mm (B1, widesa_mm.py mm_kernel -> cuda), bmm "
           "(B2, bmm.py bmm_kernel -> cuda) in " + SOURCE + " (skinny_kernel "
           "for M <= 16, gemm_tc_kernel on wgmma above in bf16 and float32, "
-          "gemm_kernel tiled for the rest); fir (B3, fir.py fir_kernel "
+          "gemm_tc_int_kernel on wgmma above in int8, int16 and int32 after "
+          "limb_planes_kernel, both counted as wgmma; gemm_kernel tiled for "
+          "the rest); fir (B3, fir.py fir_kernel "
           "-> cuda), conv2d (B5, conv2d.py conv_kernel -> cuda) in "
           + SP_SOURCE + "; fft2d (B4, fft2d.py fft2d/_cmul_mm -> cuda, "
           "fft2d_kernel in " + SP_SOURCE + " up to 64 rows, the composition "
@@ -2408,7 +2570,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     stream_launches, stream_variants = stream_serve(torch, name)
     torch.cuda.empty_cache()
-    rec_launches, rec_variants, hpc_rows = recurrences_phase(torch)
+    rec_launches, rec_variants, hpc_rows, gemm_rows = \
+        recurrences_phase(torch)
     rows.update({(kname, "main"): hpc_rows[(kname, "float32")]
                  for kname in ("jacobi2d", "mttkrp")})
 
@@ -2447,7 +2610,9 @@ def main(argv=None) -> int:
             entry.update({key: row[key] for key in keys})
         if kname in WGMMA_SHAPES:
             # the tensor-core kernel at its prefill shape, the tiled
-            # kernel and the library call beside it
+            # kernel and the library call beside it; the integer one at
+            # the paper's int8 shape (gemm_tc_int_kernel with its limb
+            # pre-pass), the tiled kernel and torch._int_mm beside it
             kind, shape, col = WGMMA_SHAPES[kname]
             tc = tc_rows[(kind, shape, col)]
             entry["wgmma"] = {"shape": f"{kind}{shape}",
@@ -2455,6 +2620,16 @@ def main(argv=None) -> int:
                                   "device_ms", "tiled_device_ms",
                                   "library_device_ms", "plain_ms",
                                   "bound_ms", "host_us")}}
+            case = next(c for c in paper_cases(floats=False)
+                        if c[0] == WGMMA_SHAPES[kname][0])
+            tc = gemm_rows[case]
+            entry["wgmma_int"] = {"shape": f"{case[0]}{case[1]} {case[2]}",
+                                  "kernel": "gemm_tc_int_kernel",
+                                  **{key: tc.get(key) for key in (
+                                      "device_ms", "gemm_ms", "prepass_ms",
+                                      "tops", "tiled_ms", "library_ms",
+                                      "library_col_ms", "col_ms", "plain_ms",
+                                      "bound_ms")}}
         summary.append(entry)
     print(json.dumps({"kernels": summary}))
     print(smi)

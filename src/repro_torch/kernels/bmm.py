@@ -18,7 +18,7 @@ from .widesa_mm import check_operands, launch
 
 launches = 0
 #: launches by kernel: ``skinny`` (M <= 16), ``wgmma`` (the tensor-core
-#: kernel) and ``tiled``
+#: kernels, floats and integers) and ``tiled``
 variants = {"skinny": 0, "wgmma": 0, "tiled": 0}
 
 

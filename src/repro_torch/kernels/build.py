@@ -1,7 +1,8 @@
 """Build and bind the port's CUDA kernels (nvcc -> shared library -> ctypes).
 
 The sources live in ``csrc/``: ``widesa_mm.cu`` (the mm/bmm GEMMs:
-the skinny kernel, the tensor-core one and the tiled one),
+the skinny kernel, the tensor-core ones for floats and integers, and the
+tiled one),
 ``widesa_sp.cu`` (the FIR, conv2d and fused fft2d signal-processing
 kernels) and
 ``widesa_hpc.cu`` (the star stencil and the two MTTKRP kernels).  Each
@@ -125,6 +126,10 @@ _ENTRIES = {
                              + [ctypes.c_int] * 12 + [ctypes.c_void_p]),
     "widesa_tc_launch": ("widesa_mm", [ctypes.c_void_p] * 3
                          + [ctypes.c_int] * 12 + [ctypes.c_void_p]),
+    # the integer tensor-core GEMM: A, B, C and the limb planes' scratch,
+    # then the shape, B's layout, the input dtype and the configuration
+    "widesa_tc_int_launch": ("widesa_mm", [ctypes.c_void_p] * 5
+                             + [ctypes.c_int] * 11 + [ctypes.c_void_p]),
     "widesa_fir_launch": ("widesa_sp", [ctypes.c_void_p] * 3
                           + [ctypes.c_int] * 5 + [ctypes.c_void_p]),
     "widesa_conv2d_launch": ("widesa_sp", [ctypes.c_void_p] * 3

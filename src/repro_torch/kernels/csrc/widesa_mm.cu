@@ -4,13 +4,14 @@
 //   * src/repro/kernels/widesa_mm.py:92  mm_kernel   (C[m,n] = A[m,k] @ B[k,n])
 //   * src/repro/kernels/bmm.py:74        bmm_kernel  (C[b]   = A[b]   @ B[b])
 // Both become one family with a batch grid dimension; mm is the batch = 1
-// launch.  Three kernels serve it: skinny_kernel for A of at most 16 rows
+// launch.  Four kernels serve it: skinny_kernel for A of at most 16 rows
 // (every decode GEMM, short prompts), gemm_tc_kernel for A of more rows in
 // bf16 and float32 (prefill of real prompt lengths, the recurrence path's
-// float GEMMs), and gemm_kernel (tiled) for everything else: integers above
-// 16 rows, and operands the other two cannot take (rows of B not 4-byte
-// aligned for the skinny kernel; bases or rows that TMA cannot address for
-// gemm_tc_kernel).
+// float GEMMs), gemm_tc_int_kernel for A of more rows in int8, int16 and
+// int32 (the recurrence path's integer GEMMs, the paper's MM/BMM table), and
+// gemm_kernel (tiled) for operands the others cannot take (rows of B not
+// 4-byte aligned for the skinny kernel; bases or rows that TMA cannot address
+// for the tensor-core kernels; a K longer than the integer sets admit).
 //
 // Translation.  On the TPU the grid (b, i, j, k) runs in order on one core
 // and the k dimension ("arbitrary") carries an fp32/int32 accumulator in VMEM
@@ -114,13 +115,51 @@
 //     for one TF32 product, which the registry's atol 1e-3 rejects at K =
 //     1024.  Each warpgroup owns 64 columns of C (BN = 128) and BM = 64 or
 //     128 rows (m64nBMk8).
+//
+// gemm_tc_int_kernel: A of more than 16 rows in int8, int16 and int32, the
+// paper's MM/BMM table (mm 10240^3 int8, 9600^3 int16, 8192^3 int32; bmm 64
+// x 4096^3).  Operations bound it: 2 M N K int8 products at 1979 TOP/s
+// (10240^3: 1.09 ms), and int16 and int32 are 4 and 10 of them.  The design:
+//   * Limbs.  A value is sum_p 2^(8p) x_p over 1, 2 or 4 int8 limbs, the top
+//     one signed (.s8) and the others unsigned (.u8), as in the tensor-core
+//     MTTKRP (widesa_hpc.cu); C = sum_{p+q<=3} 2^(8(p+q)) A_p B_q modulo
+//     2^32 (a pair of shift 32 or more vanishes): 1, 4 and 10 wgmma products
+//     of m64nBNk32 .s32 with the .s8/.u8 types of their limbs, the products
+//     of one shift into one s32 accumulator set (1, 3 and 4 sets), folded
+//     into uint32 once the block's K is done.  The launcher admits only a K
+//     a rank at which no set can leave int32 (kTc*MaxRankK), so no result
+//     depends on how wgmma overflows, and the split's partial tiles are
+//     added in uint32, where wrapping is exact in any order.
+//   * Operands.  8-bit wgmma reads only K-major operands from shared memory,
+//     and TMA cannot cut a byte out of a wider value, so a pre-pass kernel
+//     (limb_planes_kernel, one launch for both operands, on the same
+//     stream; its device time is part of the GEMM's) writes each operand
+//     that is not an int8 K-major one as K-major byte rows: each 128-byte
+//     k-tile of a row holds 128 / limbs values of K as one plane of bytes a
+//     limb.  An int8 A and an int8 column-major B (the tied lm_head layout)
+//     are read as they are; a row-major int8 B is transposed (one pass, 2 N
+//     K bytes against the M N K products).  This was taken over a
+//     transposed product with B's tile as the register operand (float32's
+//     route) because the pre-pass also serves the limbs, leaves both
+//     operands to TMA and wgmma from shared memory, and costs a few percent
+//     of the products' time at the paper's shapes (its launch costs more
+//     than that at the pipeline's smoke shapes; PERF.md).
+//   * The rest is gemm_tc_kernel's: a producer warp keeps a 4-stage TMA ring
+//     full (k-tiles of 128 bytes, 128-byte swizzle, zero fill past M, N and
+//     K), two consumer warpgroups of 64 rows, K split over a cluster whose
+//     partial tiles meet in shared memory; unsplit, the consumers store C
+//     from registers.  Tiles: 128 x 64 or 128 x 256 in int8 (one set: 32 or
+//     128 registers a thread), 128 x 64 in int16 and int32 (3 and 4 sets: 96
+//     and 128; int16 at 128 x 128, 192 registers of sets, spilled).  The
+//     grid walks its tiles in groups of 16 row tiles, down a group's rows
+//     before its next column, so that a wave of blocks reuses A through the
+//     L2 (10240^2 int8 is twice the L2).
 // Operands TMA cannot address (a base not 16-byte aligned, rows that are not
-// whole 16-byte units) and the integer dtypes stay on gemm_kernel.
+// whole 16-byte units) stay on gemm_kernel.
 //
 // gemm_kernel is the first, simple tiled kernel: scalar loads staged through
-// shared memory, no tensor cores.  It stays for integers above 16 rows (the
-// registry's smoke sizes), for operands neither other kernel takes, and as
-// the tile sweep's subject.
+// shared memory, no tensor cores.  It stays for operands no other kernel
+// takes and as the tile sweep's subject.
 //
 // Arithmetic.  Float inputs accumulate in fp32 (full IEEE FMA on the CUDA
 // cores; fp32 accumulation on the tensor cores for bf16); bf16 operands widen
@@ -934,6 +973,95 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[64], const uint32_t (&a)[4
 // half a unit of TF32's last place to the magnitude, clear the 13 bits below.
 __device__ __forceinline__ uint32_t tf32_rna(uint32_t bits) { return (bits + 0x1000u) & 0xffffe000u; }
 
+// Four adjacent outputs of C at dst (only the first `left` where fewer
+// remain, or where the row is not 16-byte aligned: !vec), from fp32 sums
+// (float32, or bf16 rounded to nearest even) or wrapping 32-bit ones (int32).
+__device__ __forceinline__ void store4(float* dst, float4 v, bool vec, int left) {
+  if (vec && left >= 4) {
+    *reinterpret_cast<float4*>(dst) = v;
+    return;
+  }
+  const float vals[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int u = 0; u < 4; ++u)
+    if (u < left) dst[u] = vals[u];
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* dst, float4 v, bool vec, int left) {
+  if (vec && left >= 4) {
+    __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+    __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+    uint2 packed;
+    packed.x = *reinterpret_cast<uint32_t*>(&lo);
+    packed.y = *reinterpret_cast<uint32_t*>(&hi);
+    *reinterpret_cast<uint2*>(dst) = packed;
+    return;
+  }
+  const float vals[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int u = 0; u < 4; ++u)
+    if (u < left) dst[u] = __float2bfloat16_rn(vals[u]);
+}
+__device__ __forceinline__ void store4(int32_t* dst, uint4 v, bool vec, int left) {
+  if (vec && left >= 4) {
+    *reinterpret_cast<uint4*>(dst) = v;
+    return;
+  }
+  const uint32_t vals[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int u = 0; u < 4; ++u)
+    if (u < left) dst[u] = (int32_t)vals[u];
+}
+
+__device__ __forceinline__ void add4(float4& s, const float4& v) {
+  s.x += v.x;
+  s.y += v.y;
+  s.z += v.z;
+  s.w += v.w;
+}
+__device__ __forceinline__ void add4(uint4& s, const uint4& v) {  // modulo 2^32
+  s.x += v.x;
+  s.y += v.y;
+  s.z += v.z;
+  s.w += v.w;
+}
+
+// The end of a tensor-core block once its partial tile (TPart [BM][BN + 4]:
+// fp32 sums, or uint32 sums modulo 2^32) is in shared memory: each rank of
+// the cluster sums its share of the rows over the ranks in rank order (the
+// same bits on every run; the integers' uint32 sums wrap exactly in any
+// order) and stores them 16 bytes of fp32 or int32 (8 of bf16) at a time
+// where the row allows.
+template <int BM, int BN, typename TPart, typename TOut>
+__device__ __forceinline__ void tc_store(const TPart* part_tile, TOut* c, int m, int n, int m0,
+                                         int n0, int z, int rank, int split, int tid) {
+  using V = typename std::conditional<std::is_same<TPart, float>::value, float4, uint4>::type;
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  if (split > 1)
+    cluster.sync();
+  else
+    __syncthreads();
+  if (tid < kTcConsumers) {
+    constexpr int kPitch = BN + 4;
+    constexpr int kChunks = BN / 4;  // 4 columns a chunk
+    constexpr int kRowsAPass = kTcConsumers / kChunks;
+    const int c4 = tid % kChunks, col = n0 + 4 * c4;
+    const bool vec = n % 4 == 0;  // rows start 16 (fp32, int32) or 8 (bf16) bytes aligned
+    TOut* cz = c + (size_t)z * m * n;
+    for (int r = rank + tid / kChunks * split; r < BM; r += kRowsAPass * split) {
+      const int gr = m0 + r;
+      if (gr >= m) break;
+      if (col >= n) continue;
+      const TPart* own = part_tile + r * kPitch + 4 * c4;
+      V sum = *reinterpret_cast<const V*>(split > 1 ? cluster.map_shared_rank(own, 0) : own);
+      for (int q = 1; q < split; ++q)
+        add4(sum, *reinterpret_cast<const V*>(cluster.map_shared_rank(own, q)));
+      store4(cz + (size_t)gr * n + col, sum, vec, n - col);
+    }
+  }
+  if (split > 1) cluster.sync();  // keep every partial tile alive until all are read
+}
+
 // Grid: (row tiles x split, column tiles, batch), clusters of `split`
 // blocks along x: block x reduces k-tiles [rank * ktper, (rank + 1) * ktper)
 // of row tile x / split (a k-tile is one 128-byte row of K).  Warps 0-7 are
@@ -1133,57 +1261,364 @@ gemm_tc_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ C
       }
   }
 
-  // every partial tile of the cluster is written; each rank sums its share
-  // of the rows over the ranks in rank order (the same bits on every run)
-  // and stores them 16 bytes of fp32 (8 of bf16) at a time where the row
-  // allows
-  namespace cg = cooperative_groups;
-  cg::cluster_group cluster = cg::this_cluster();
-  if (split > 1)
-    cluster.sync();
-  else
-    __syncthreads();
-  if (tid < kTcConsumers) {
-    constexpr int kChunks = BN / 4;  // 4 columns a chunk
-    constexpr int kRowsAPass = kTcConsumers / kChunks;
-    const int c4 = tid % kChunks, col = n0 + 4 * c4;
-    const bool vec = n % 4 == 0;  // rows start 16 (fp32) or 8 (bf16) bytes aligned
-    TOut* cz = c + (size_t)z * m * n;
-    for (int r = rank + tid / kChunks * split; r < BM; r += kRowsAPass * split) {
-      const int gr = m0 + r;
-      if (gr >= m) break;
-      if (col >= n) continue;
-      const float* own = part_tile + r * kPitch + 4 * c4;
-      float4 sum = *reinterpret_cast<const float4*>(split > 1 ? cluster.map_shared_rank(own, 0)
-                                                              : own);
-      for (int q = 1; q < split; ++q) {
-        const float4 v = *reinterpret_cast<const float4*>(cluster.map_shared_rank(own, q));
-        sum.x += v.x;
-        sum.y += v.y;
-        sum.z += v.z;
-        sum.w += v.w;
-      }
-      TOut* dst = cz + (size_t)gr * n + col;
-      if (vec && col + 4 <= n) {
-        if constexpr (std::is_same<TOut, float>::value) {
-          *reinterpret_cast<float4*>(dst) = sum;
-        } else {
-          __nv_bfloat162 lo = __floats2bfloat162_rn(sum.x, sum.y);
-          __nv_bfloat162 hi = __floats2bfloat162_rn(sum.z, sum.w);
-          uint2 packed;
-          packed.x = *reinterpret_cast<uint32_t*>(&lo);
-          packed.y = *reinterpret_cast<uint32_t*>(&hi);
-          *reinterpret_cast<uint2*>(dst) = packed;
-        }
-      } else {
-        const float vals[4] = {sum.x, sum.y, sum.z, sum.w};
+  tc_store<BM, BN>(part_tile, c, m, n, m0, n0, z, rank, split, tid);
+}
+
+// ---------------------------------------------------------------------------
+// gemm_tc_int_kernel: M > 16 in int8, int16 and int32 on wgmma as int8 limbs,
+// operands by TMA from K-major byte planes (see the note at the top)
+// ---------------------------------------------------------------------------
+
+// The most K a rank of a split reduces, by limbs a value (kept equal to
+// TC_INT_MAX_RANK_K in repro_torch/kernels/runtime.py): an element of K adds
+// at most 2^14 to int8's one s32 set (-128 x -128), 2 x 255 x 128 = 65280 to
+// int16's shift-8 set (two .u8 x .s8 products) and 2 x 255^2 + 2 x 255 x 128
+// = 195330 to int32's shift-24 set, so no set can leave int32 up to
+// (2^31 - 1) / that many k, and no result depends on how wgmma overflows.
+constexpr int kTcI8MaxRankK = 131071;
+constexpr int kTcI16MaxRankK = 32896;
+constexpr int kTcI32MaxRankK = 10994;
+constexpr int kTcIntGroup = 16;  // row tiles of a group of the grid's raster
+constexpr int kLimbRows = 32;    // rows of a plane a limb_planes_kernel block writes
+
+// One operand's limb planes for gemm_tc_int_kernel: dst is [batch][rows]
+// [units x 128] bytes, and the 128 bytes of unit u of a row hold its values
+// of K from kE u to kE u + kE - 1 (kE = 128 / sizeof(T)) as one plane of kE
+// bytes a limb: byte p of value j (the limb of weight 2^(8p), unsigned but
+// for the top one, read as signed) at p kE + j; values past K are zeros.
+// The source is K-major (element (z, r, kk) at src[(z rows + r) pitch +
+// kk]: A, or a column-major B) or, when trans, row-major [K, rows] (a
+// row-major B), 16-byte aligned with rows of whole 16-byte units (the
+// launcher checks).
+struct LimbJob {
+  const void* src;
+  unsigned char* dst;
+  int rows, pitch, trans;
+  int blocks;  // of the grid's y: ceil(rows / kLimbRows), 0 for no job
+};
+
+// A block of 256 threads moves one unit of 32 rows (4 KB): one 16-byte load
+// a thread (along K, or along the rows for TRANS), the values staged row by
+// row in shared memory, then each row's 128 bytes written plane by plane, 16
+// bytes a thread.
+constexpr int kLimbPitch = kTcRowBytes + 16;  // a staged row, padded against bank conflicts
+
+template <typename T, bool TRANS>
+__device__ __forceinline__ void limb_tile(unsigned char* tile, const T* src, unsigned char* dst,
+                                          int rows, int pitch, int k, int units, int yblock) {
+  constexpr int S = (int)sizeof(T), E = kTcRowBytes / S, V = 16 / S;  // V values a load
+  constexpr int kPitch = kLimbPitch;
+  const int u = blockIdx.x, r0 = yblock * kLimbRows, tid = threadIdx.x;
+  const size_t z = blockIdx.z;
+  // this thread's V values: along K from (r, j), or along the rows for TRANS
+  const int r = TRANS ? tid % (kLimbRows / V) * V : tid / (E / V);
+  const int j = TRANS ? tid / (kLimbRows / V) : tid % (E / V) * V;
+  const int gr = r0 + r, gk = u * E + j;
+  union {
+    uint4 w;
+    T x[V];
+  } in;
+  in.w = make_uint4(0u, 0u, 0u, 0u);
+  if (gr < rows && gk < k)
+    in.w = *reinterpret_cast<const uint4*>(TRANS ? src + (z * k + gk) * rows + gr
+                                                 : src + (z * rows + gr) * pitch + gk);
+  if (TRANS) {
 #pragma unroll
-        for (int u = 0; u < 4; ++u)
-          if (col + u < n) dst[u] = Flush<float, TOut>::cast(vals[u]);
+    for (int i = 0; i < V; ++i) *reinterpret_cast<T*>(tile + (r + i) * kPitch + j * S) = in.x[i];
+  } else {
+#pragma unroll
+    for (int i = 0; i < V; ++i)  // a padded row's tail past K is not zeros
+      if (gk + i >= k) in.x[i] = T(0);
+    *reinterpret_cast<uint4*>(tile + r * kPitch + j * S) = in.w;
+  }
+  __syncthreads();
+  const int row = tid >> 3, q16 = tid & 7;  // 16 bytes of one plane of a row
+  if (r0 + row >= rows) return;
+  const int p = 16 * q16 / E, j0 = 16 * q16 % E;
+  const unsigned char* vals = tile + row * kPitch + j0 * S + p;
+  uint32_t w[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    uint32_t word = 0;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) word |= (uint32_t)vals[(4 * q + i) * S] << (8 * i);
+    w[q] = word;
+  }
+  *reinterpret_cast<uint4*>(dst + ((z * rows + r0 + row) * units + u) * kTcRowBytes +
+                            16 * q16) = make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// The limb planes of A and of B in one launch: grid (units, a.blocks +
+// b.blocks, batch), A's row blocks first.  Bytes bound it: each operand
+// read once and its planes written once.
+template <typename T>
+__global__ void __launch_bounds__(256)
+limb_planes_kernel(LimbJob a, LimbJob b, int k, int units) {
+  __shared__ __align__(16) unsigned char tile[kLimbRows * kLimbPitch];
+  const int y = blockIdx.y;
+  if (y < a.blocks)  // A is K-major
+    limb_tile<T, false>(tile, static_cast<const T*>(a.src), a.dst, a.rows, a.pitch, k, units, y);
+  else if (b.trans)
+    limb_tile<T, true>(tile, static_cast<const T*>(b.src), b.dst, b.rows, b.pitch, k, units,
+                       y - a.blocks);
+  else
+    limb_tile<T, false>(tile, static_cast<const T*>(b.src), b.dst, b.rows, b.pitch, k, units,
+                        y - a.blocks);
+}
+
+// Geometry of an integer output tile: LIMBS int8 limbs a value (int8 1,
+// int16 2, int32 4).  A k-tile, one 128-byte row of a plane operand, holds
+// kE = 128 / LIMBS values of K (128 int8, 64 int16, 32 int32), limb p's
+// bytes at [p kE, (p + 1) kE).  Each consumer warpgroup owns 64 rows of C
+// (BM = 128) and keeps one s32 accumulator set (64 x BN) for each shift 8 (p
+// + q) of the limb products: 1 in int8, 3 in int16, 4 in int32.
+template <int LIMBS, int BM, int BN> struct TcInt {
+  static constexpr int kE = kTcRowBytes / LIMBS;
+  static constexpr int kABytes = BM * kTcRowBytes;
+  static constexpr int kBBytes = BN * kTcRowBytes;
+  static constexpr int kStageBytes = kABytes + kBBytes;  // what TMA brings a stage
+  static constexpr int kSets = LIMBS == 1 ? 1 : (LIMBS == 2 ? 3 : 4);
+  static constexpr int kAcc = BN / 2;                    // accumulators a thread a set
+  static constexpr int kPartBytes = BM * (BN + 4) * 4;   // the uint32 partial tile, padded rows
+  static_assert(BM == 128 && (BN == 64 || (LIMBS == 1 && BN == 256)), "not a compiled tile");
+  static_assert(kStageBytes % kTcAlign == 0 && kABytes % kTcAlign == 0,
+                "tiles must keep the 1 KB alignment of the swizzle");
+};
+
+// D (64 x N s32, N / 2 values a thread) += A (64 x 32 bytes at desc a) * B
+// (32 x N bytes at desc b), both K-major in shared memory; TYPES names each
+// operand's bytes signed (s8) or unsigned (u8).
+#define WIDESA_WGMMA_S8_N64(TYPES)                                                    \
+  asm volatile(                                                                       \
+      "{\n"                                                                           \
+      ".reg .pred p;\n"                                                                \
+      "setp.ne.b32 p, %34, 0;\n"                                                     \
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32." TYPES " "                          \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "  \
+      "%32, %33, p;\n"                                                             \
+      "}\n"                                                                           \
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),  \
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),  \
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),  \
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])  \
+      : "l"(a), "l"(b), "r"(1))
+
+#define WIDESA_WGMMA_S8_N128(TYPES)                                                    \
+  asm volatile(                                                                       \
+      "{\n"                                                                           \
+      ".reg .pred p;\n"                                                                \
+      "setp.ne.b32 p, %66, 0;\n"                                                     \
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32." TYPES " "                          \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "  \
+      "%64, %65, p;\n"                                                             \
+      "}\n"                                                                           \
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),  \
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),  \
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),  \
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),  \
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),  \
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),  \
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),  \
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])  \
+      : "l"(a), "l"(b), "r"(1))
+
+#define WIDESA_WGMMA_S8_N256(TYPES)                                                    \
+  asm volatile(                                                                       \
+      "{\n"                                                                           \
+      ".reg .pred p;\n"                                                                \
+      "setp.ne.b32 p, %130, 0;\n"                                                     \
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32." TYPES " "                          \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "  \
+      "%128, %129, p;\n"                                                             \
+      "}\n"                                                                           \
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),  \
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),  \
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),  \
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),  \
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),  \
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),  \
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),  \
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]),  \
+        "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),  \
+        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),  \
+        "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]),  \
+        "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]),  \
+        "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]), "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]),  \
+        "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]), "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]),  \
+        "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),  \
+        "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])  \
+      : "l"(a), "l"(b), "r"(1))
+
+
+template <bool SA, bool SB>
+__device__ __forceinline__ void wgmma_s8(uint32_t (&d)[32], uint64_t a, uint64_t b) {
+  if constexpr (SA && SB)
+    WIDESA_WGMMA_S8_N64("s8.s8");
+  else if constexpr (SA)
+    WIDESA_WGMMA_S8_N64("s8.u8");
+  else if constexpr (SB)
+    WIDESA_WGMMA_S8_N64("u8.s8");
+  else
+    WIDESA_WGMMA_S8_N64("u8.u8");
+}
+template <bool SA, bool SB>
+__device__ __forceinline__ void wgmma_s8(uint32_t (&d)[64], uint64_t a, uint64_t b) {
+  if constexpr (SA && SB)
+    WIDESA_WGMMA_S8_N128("s8.s8");
+  else if constexpr (SA)
+    WIDESA_WGMMA_S8_N128("s8.u8");
+  else if constexpr (SB)
+    WIDESA_WGMMA_S8_N128("u8.s8");
+  else
+    WIDESA_WGMMA_S8_N128("u8.u8");
+}
+template <bool SA, bool SB>
+__device__ __forceinline__ void wgmma_s8(uint32_t (&d)[128], uint64_t a, uint64_t b) {
+  static_assert(SA && SB, "only int8 runs 256 columns");
+  WIDESA_WGMMA_S8_N256("s8.s8");
+}
+#undef WIDESA_WGMMA_S8_N64
+#undef WIDESA_WGMMA_S8_N128
+#undef WIDESA_WGMMA_S8_N256
+
+// The limb products of one 32-byte step of K: limb P of A's tile (desc a) by
+// limb Q of B's (desc b) for every P + Q <= 3 (a product of shift 2^32 or
+// more vanishes modulo 2^32: 4 products in int16, 10 in int32), each into the
+// set of its shift P + Q, the top limb (LIMBS - 1) signed.  Limb p's plane
+// lies p kE bytes along the k-tile's row: kE / 16 descriptor units.
+template <int LIMBS, int P, int Q, int S, int N>
+__device__ __forceinline__ void limb_products(uint32_t (&acc)[S][N], uint64_t a, uint64_t b) {
+  if constexpr (P < LIMBS) {
+    if constexpr (P + Q < 4) {
+      constexpr uint64_t kPlane = kTcRowBytes / LIMBS / 16;
+      wgmma_s8<P == LIMBS - 1, Q == LIMBS - 1>(acc[P + Q], a + P * kPlane, b + Q * kPlane);
+    }
+    if constexpr (Q + 1 < LIMBS)
+      limb_products<LIMBS, P, Q + 1>(acc, a, b);
+    else
+      limb_products<LIMBS, P + 1, 0>(acc, a, b);
+  }
+}
+
+// Grid: (output tiles x split, 1, batch), clusters of `split` blocks along
+// x: block x reduces k-tiles [rank ktper, (rank + 1) ktper) of output tile x
+// / split.  The tiles run in groups of kTcIntGroup row tiles, down the rows
+// of a group before its next column, so that a wave of 132 blocks reads a
+// band of A and a few columns of B, which stay in the L2, instead of all of A
+// (10240^2 int8 is twice the L2) once a column tile.  Warps 0-7 are the two
+// consumer warpgroups, warp 8 the producer: its first lane keeps the ring of
+// `stages` stages filled by TMA, each stage one k-tile of the 128 rows of A's
+// tile and the BN rows of B^T's, both K-major byte rows.
+template <int LIMBS, int BM, int BN>
+__global__ void __launch_bounds__(kTcThreads, 1)
+gemm_tc_int_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
+                   int32_t* __restrict__ c, int m, int n, int k, int stages, int split,
+                   int ktper) {
+  using G = TcInt<LIMBS, BM, BN>;
+  constexpr int E = G::kE;
+  extern __shared__ unsigned char smem_raw[];
+  const unsigned raw = smem_addr(smem_raw);
+  const unsigned base = (raw + kTcAlign - 1) & ~(unsigned)(kTcAlign - 1);
+  unsigned char* smem = smem_raw + (base - raw);
+  const int ring = max(stages * G::kStageBytes, G::kPartBytes);  // the partial tile reuses it
+  const unsigned full = base + ring;  // kTcMaxStages barriers each
+  const unsigned empty = full + kTcMaxStages * 8;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int rank = blockIdx.x % split, tile = blockIdx.x / split;
+  const int nt = (n + BN - 1) / BN;
+  const int first = tile / (kTcIntGroup * nt) * kTcIntGroup;  // the group's first row tile
+  const int rows = min((m + BM - 1) / BM - first, kTcIntGroup);
+  const int t = tile % (kTcIntGroup * nt);
+  const int m0 = (first + t % rows) * BM, n0 = t / rows * BN, z = blockIdx.z;
+  const int kt0 = rank * ktper;
+  const int nkt = max(0, min((k + E - 1) / E, kt0 + ktper) - kt0);  // this rank's k-tiles
+
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full + 8 * s, 1);                   // the producer's arrival, and TMA's bytes
+      mbar_init(empty + 8 * s, kTcConsumers / 32);  // one arrival a consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // the block's partial tile of a split, uint32 [BM][BN + 4] (rows 16-byte
+  // aligned)
+  uint32_t* part_tile = reinterpret_cast<uint32_t*>(smem);
+  constexpr int kPitch = BN + 4;
+
+  if (warp == kTcConsumers / 32) {  // the producer
+    if (lane == 0) {
+      for (int i = 0; i < nkt; ++i) {
+        const int s = i % stages, kx = (kt0 + i) * kTcRowBytes;
+        if (i >= stages) mbar_wait(empty + 8 * s, (i / stages - 1) & 1);
+        const unsigned a_s = base + s * G::kStageBytes;
+        mbar_expect_tx(full + 8 * s, G::kStageBytes);
+        tma_load(a_s, &ta, full + 8 * s, kx, m0, z);
+        tma_load(a_s + G::kABytes, &tb, full + 8 * s, kx, n0, z);
       }
     }
+    __syncwarp();
+  } else {
+    const int wg = tid >> 7, wq = warp & 3, g = lane >> 2, t4 = lane & 3;
+    uint32_t acc[G::kSets][G::kAcc];  // a set a shift, each an exact s32 sum
+#pragma unroll
+    for (int q = 0; q < G::kSets; ++q)
+#pragma unroll
+      for (int e = 0; e < G::kAcc; ++e) acc[q][e] = 0u;
+    for (int i = 0; i < nkt; ++i) {
+      const int s = i % stages;
+      mbar_wait(full + 8 * s, (i / stages) & 1);
+      const unsigned a_s = base + s * G::kStageBytes + wg * 64 * kTcRowBytes;
+      const unsigned b_s = base + s * G::kStageBytes + G::kABytes;
+      wgmma_fence();
+#pragma unroll
+      for (int h = 0; h < E / 32; ++h)  // 32 bytes of each limb's plane a product
+        limb_products<LIMBS, 0, 0>(acc, sw128_desc(a_s + 32 * h, 16, 1024),
+                                   sw128_desc(b_s + 32 * h, 16, 1024));
+      wgmma_commit();
+      wgmma_wait<1>();  // the previous stage's products are done: release it
+      if (i > 0 && lane == 0) mbar_arrive(empty + 8 * ((i - 1) % stages));
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int q = 0; q < G::kSets; ++q) fence_regs(acc[q]);
+
+    // the sets folded modulo 2^32 (set q has weight 2^(8q)): value 4 j + e
+    // is row 16 wq + g + 8 (e / 2) of the warpgroup's 64, column 8 j + 2 t4
+    // + e % 2.  Unsplit, straight to C, two adjacent columns a store (each
+    // warp's store fills whole 32-byte sectors of 8 rows); split, into the
+    // partial tile once both warpgroups are done with the ring.
+    const int row0 = wg * 64 + wq * 16 + g;
+    if (split > 1) asm volatile("bar.sync 1, %0;\n" ::"n"(kTcConsumers) : "memory");
+    int32_t* cz = c + (size_t)z * m * n;
+#pragma unroll
+    for (int j = 0; j < G::kAcc / 4; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        uint32_t sum[2] = {0u, 0u};
+#pragma unroll
+        for (int q = 0; q < G::kSets; ++q) {
+          sum[0] += acc[q][4 * j + 2 * h] << (8 * q);
+          sum[1] += acc[q][4 * j + 2 * h + 1] << (8 * q);
+        }
+        const int r = row0 + 8 * h, col = 8 * j + 2 * t4;
+        if (split > 1) {
+          part_tile[r * kPitch + col] = sum[0];
+          part_tile[r * kPitch + col + 1] = sum[1];
+        } else if (m0 + r < m && n0 + col < n) {
+          int32_t* dst = cz + (size_t)(m0 + r) * n + n0 + col;
+          if (n % 2 == 0) {  // n0 + col is even: 8-byte aligned
+            *reinterpret_cast<int2*>(dst) = make_int2((int32_t)sum[0], (int32_t)sum[1]);
+          } else {
+            dst[0] = (int32_t)sum[0];
+            if (n0 + col + 1 < n) dst[1] = (int32_t)sum[1];
+          }
+        }
+      }
   }
-  if (split > 1) cluster.sync();  // keep every partial tile alive until all are read
+  if (split > 1) tc_store<BM, BN>(part_tile, c, m, n, m0, n0, z, rank, split, tid);
 }
 
 // cuTensorMapEncodeTiled, looked up at first use through the runtime's
@@ -1206,19 +1641,19 @@ EncodeTiled tensor_map_encoder() {
   return fn;
 }
 
-// A [batch, outer, inner] tensor of `size`-byte elements whose rows are
-// `pitch` elements apart (batch entries outer rows apart) as a TMA map with
-// boxes of box_inner x box_outer x 1 in the 128-byte swizzle.
-bool encode_map(CUtensorMap* map, bool f32, const void* ptr, long long inner, long long outer,
-                long long batch, long long pitch, int size, int box_inner, int box_outer) {
+// A [batch, outer, inner] tensor of `size`-byte elements of `type` whose
+// rows are `pitch` elements apart (batch entries outer rows apart) as a TMA
+// map with boxes of box_inner x box_outer x 1 in the 128-byte swizzle.
+bool encode_map(CUtensorMap* map, CUtensorMapDataType type, const void* ptr, long long inner,
+                long long outer, long long batch, long long pitch, int size, int box_inner,
+                int box_outer) {
   const EncodeTiled encode = tensor_map_encoder();
   if (encode == nullptr) return false;
   const cuuint64_t dims[3] = {(cuuint64_t)inner, (cuuint64_t)outer, (cuuint64_t)batch};
   const cuuint64_t strides[2] = {(cuuint64_t)(pitch * size), (cuuint64_t)(pitch * outer * size)};
   const cuuint32_t box[3] = {(cuuint32_t)box_inner, (cuuint32_t)box_outer, 1};
   const cuuint32_t steps[3] = {1, 1, 1};
-  return encode(map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                const_cast<void*>(ptr), dims, strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
+  return encode(map, type, 3, const_cast<void*>(ptr), dims, strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
                 CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -1251,10 +1686,12 @@ int launch_tc_typed(const TcArgs& x) {
   const size_t smem = tc_smem(G::kStageBytes, x.stages, G::kPartBytes);
   const long long xblocks = (long long)((x.m + BM - 1) / BM) * x.split;
   if (smem > (size_t)kTcMaxSmem || xblocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const CUtensorMapDataType type =
+      G::kF32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   CUtensorMap ta, tb;
-  if (!encode_map(&ta, G::kF32, x.a, x.k, x.m, x.batch, x.lda, size, E, BM) ||
-      !(BCOL ? encode_map(&tb, G::kF32, x.b, x.k, x.n, x.batch, x.k, size, E, BN)
-             : encode_map(&tb, G::kF32, x.b, x.n, x.k, x.batch, x.n, size, E, E)))
+  if (!encode_map(&ta, type, x.a, x.k, x.m, x.batch, x.lda, size, E, BM) ||
+      !(BCOL ? encode_map(&tb, type, x.b, x.k, x.n, x.batch, x.k, size, E, BN)
+             : encode_map(&tb, type, x.b, x.n, x.k, x.batch, x.n, size, E, E)))
     return (int)cudaErrorInvalidValue;
   const cudaError_t allowed =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -1305,6 +1742,99 @@ int launch_tc(int in_dtype, int out_dtype, int bm, int bn, const TcArgs& x) {
   return (int)cudaErrorInvalidValue;
 }
 
+struct TcIntArgs {
+  const void* a;
+  const void* b;
+  void* c;
+  // [batch, rows, ktiles x 128] bytes each, null where the launch reads the
+  // operand itself (an int8 A; an int8 column-major B)
+  void* a_planes;
+  void* b_planes;
+  int batch, m, n, k, lda, b_col_major, stages, split;
+  cudaStream_t stream;
+};
+
+// The integer GEMM: the limb planes the tiles read (none for an int8 A or a
+// column-major int8 B, whose rows TMA reads as they are), then
+// gemm_tc_int_kernel, on one stream.
+template <typename T, int BM, int BN>
+int launch_tc_int_typed(const TcIntArgs& x) {
+  constexpr int L = (int)sizeof(T);
+  using G = TcInt<L, BM, BN>;
+  constexpr int E = G::kE;
+  constexpr int kMaxRankK = L == 1 ? kTcI8MaxRankK : L == 2 ? kTcI16MaxRankK : kTcI32MaxRankK;
+  const int ktiles = (x.k + E - 1) / E;
+  const int ktper = (ktiles + x.split - 1) / max(x.split, 1);
+  auto kernel = gemm_tc_int_kernel<L, BM, BN>;
+  const bool a_direct = L == 1, b_direct = L == 1 && x.b_col_major;
+  const void* a = a_direct ? x.a : x.a_planes;
+  const void* b = b_direct ? x.b : x.b_planes;
+  const long long tiles = (long long)((x.m + BM - 1) / BM) * ((x.n + BN - 1) / BN);
+  const long long plane = (long long)ktiles * kTcRowBytes;  // bytes a row of a plane
+  // TMA: 16-byte aligned bases and rows of whole 16-byte units; every rank
+  // of a split reduces at least one k-tile and at most kMaxRankK of K
+  if (x.batch < 1 || x.batch > 65535 || x.m < 1 || x.n < 1 || x.k < 1 || x.stages < 2 ||
+      x.stages > kTcMaxStages || x.split < 1 || x.split > kTcMaxCluster ||
+      (long long)(x.split - 1) * ktper >= ktiles || (long long)ktper * E > kMaxRankK ||
+      x.lda < x.k || a == nullptr || b == nullptr || reinterpret_cast<uintptr_t>(a) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(b) % 16 != 0 || reinterpret_cast<uintptr_t>(x.c) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(x.a) % 16 != 0 || reinterpret_cast<uintptr_t>(x.b) % 16 != 0 ||
+      (long long)x.lda * L % 16 != 0 || (long long)(x.b_col_major ? x.k : x.n) * L % 16 != 0 ||
+      (x.m + kLimbRows - 1) / kLimbRows > 65535 || (x.n + kLimbRows - 1) / kLimbRows > 65535 ||
+      tiles * x.split > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = tc_smem(G::kStageBytes, x.stages, G::kPartBytes);
+  if (smem > (size_t)kTcMaxSmem) return (int)cudaErrorInvalidValue;
+  CUtensorMap ta, tb;
+  if (!encode_map(&ta, CU_TENSOR_MAP_DATA_TYPE_UINT8, a, a_direct ? x.k : plane, x.m, x.batch,
+                  a_direct ? x.lda : plane, 1, kTcRowBytes, BM) ||
+      !encode_map(&tb, CU_TENSOR_MAP_DATA_TYPE_UINT8, b, b_direct ? x.k : plane, x.n, x.batch,
+                  b_direct ? x.k : plane, 1, kTcRowBytes, BN))
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t allowed =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (allowed != cudaSuccess) return (int)allowed;
+
+  if (!a_direct || !b_direct) {
+    const LimbJob ja{x.a, static_cast<unsigned char*>(x.a_planes), x.m, x.lda, 0,
+                     a_direct ? 0 : (x.m + kLimbRows - 1) / kLimbRows};
+    const LimbJob jb{x.b, static_cast<unsigned char*>(x.b_planes), x.n,
+                     x.b_col_major ? x.k : x.n, !x.b_col_major,
+                     b_direct ? 0 : (x.n + kLimbRows - 1) / kLimbRows};
+    const dim3 grid((unsigned)ktiles, (unsigned)(ja.blocks + jb.blocks), (unsigned)x.batch);
+    limb_planes_kernel<T><<<grid, 256, 0, x.stream>>>(ja, jb, x.k, ktiles);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(tiles * x.split), 1, (unsigned)x.batch);
+  cfg.blockDim = dim3(kTcThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = x.stream;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = (unsigned)x.split;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = 1;
+  cfg.attrs = cluster;
+  cfg.numAttrs = x.split > 1 ? 1 : 0;
+  const cudaError_t launched = cudaLaunchKernelEx(&cfg, kernel, ta, tb, static_cast<int32_t*>(x.c),
+                                                  x.m, x.n, x.k, x.stages, x.split, ktper);
+  if (launched != cudaSuccess) return (int)launched;
+  return (int)cudaGetLastError();
+}
+
+// The compiled integer tiles (kept equal to TC_TILES in
+// repro_torch/kernels/runtime.py).
+int launch_tc_int(int in_dtype, int bm, int bn, const TcIntArgs& x) {
+  if (in_dtype == I8 && bm == 128 && bn == 64) return launch_tc_int_typed<int8_t, 128, 64>(x);
+  if (in_dtype == I8 && bm == 128 && bn == 256) return launch_tc_int_typed<int8_t, 128, 256>(x);
+  if (in_dtype == I16 && bm == 128 && bn == 64) return launch_tc_int_typed<int16_t, 128, 64>(x);
+  if (in_dtype == I32 && bm == 128 && bn == 64) return launch_tc_int_typed<int32_t, 128, 64>(x);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
@@ -1349,6 +1879,22 @@ int widesa_tc_launch(const void* a, const void* b, void* c, int batch, int m, in
   const TcArgs x{a,   b,           c,      batch, m, n, k,
                  lda, b_col_major, stages, split, static_cast<cudaStream_t>(stream)};
   return launch_tc(in_dtype, out_dtype, bm, bn, x);
+}
+
+// C[z] = A[z] @ B[z] for z < batch in int8, int16 or int32 -> int32 on
+// gemm_tc_int_kernel (mm is batch = 1): a bm x bn output tile, a ring of
+// `stages` stages, K split over `split` blocks of a cluster; a_planes and
+// b_planes are the [batch, rows, ktiles x 128]-byte scratch of the limb
+// planes (ktiles = ceil(k x size / 128)), null where the launch reads the
+// operand itself (an int8 A; an int8 column-major B).  Returns a
+// cudaError_t.
+int widesa_tc_int_launch(const void* a, const void* b, void* c, void* a_planes, void* b_planes,
+                         int batch, int m, int n, int k, int lda, int b_col_major, int in_dtype,
+                         int bm, int bn, int stages, int split, void* stream) {
+  const TcIntArgs x{a,   b,   c,           a_planes, b_planes, batch,
+                    m,   n,   k,           lda,      b_col_major, stages,
+                    split, static_cast<cudaStream_t>(stream)};
+  return launch_tc_int(in_dtype, bm, bn, x);
 }
 
 const char* widesa_error_string(int code) {

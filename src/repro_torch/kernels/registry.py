@@ -137,6 +137,12 @@ register(KernelSpec(
                               (r.extent("k"), r.extent("j"))),
     fusable_with=("mm",),
     smoke_args=(256, 256, 256),
+    bench_cases=(
+        ("float32", (8192, 8192, 8192)),
+        ("int8", (10240, 10240, 10240)),
+        ("int16", (9600, 9600, 9600)),
+        ("int32", (8192, 8192, 8192)),
+    ),
 ))
 
 register(KernelSpec(
@@ -151,6 +157,11 @@ register(KernelSpec(
     operand_shapes=lambda r: ((r.extent("b"), r.extent("i"), r.extent("k")),
                               (r.extent("b"), r.extent("k"), r.extent("j"))),
     smoke_args=(4, 128, 128, 64),
+    bench_cases=(
+        ("float32", (64, 4096, 4096, 4096)),
+        ("int8", (64, 4096, 4096, 4096)),
+        ("int16", (64, 4096, 4096, 4096)),
+    ),
 ))
 
 register(KernelSpec(

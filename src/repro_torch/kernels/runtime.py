@@ -11,7 +11,7 @@ of VMEM) and fall back to divisors that are not powers of two (3, 6, 12,
 103), with the whole batch as one block.  The ``*_tile`` functions adapt
 them to the compiled kernel tiles.
 
-mm, bmm and the fft2d composition's products run one of three kernels of
+mm, bmm and the fft2d composition's products run one of four kernels of
 ``csrc/widesa_mm.cu`` (``gemm_tiles``, ``gemm_tile``):
 
 * The skinny kernel takes every product whose A has at most 16 rows
@@ -25,26 +25,36 @@ mm, bmm and the fft2d composition's products run one of three kernels of
   each block stages in shared memory allow (``SKINNY_SPLIT_BYTES``,
   ``SKINNY_TARGET_BLOCKS``).  B's layout and alignment decide the copy width
   (``b_copy_bytes``): rows of B must allow copies of at least 4 bytes.
-* The tensor-core kernel takes A of more than 16 rows in bf16 (to bf16
-  or fp32) and float32 (3xTF32) where TMA can address both operands
-  (``tma_operand``: a 16-byte aligned base, rows of whole 16-byte units;
-  A contiguous or in padded rows, ``a_pitch``; B contiguous or the
+* The tensor-core kernels take A of more than 16 rows in bf16 (to bf16
+  or fp32), float32 (3xTF32), int8, int16 and int32 (as int8 limbs; to
+  int32) where TMA can address both operands (``tma_operand``: a 16-byte
+  aligned base, rows of whole 16-byte units, so a contiguous integer A
+  needs K % 16 == 0 in int8, K % 8 in int16, K % 4 in int32; A
+  contiguous or in padded rows, ``a_pitch``; B contiguous or the
   transpose of a contiguous tensor).
-  Its configuration is a ``TcTile`` (``tc_tile``) from the shape and the
-  dtype: bf16 runs a 128-row tile 128 columns wide from N =
+  Their configuration is a ``TcTile`` (``tc_tile``) from the shape and
+  the dtype: bf16 runs a 128-row tile 128 columns wide from N =
   ``TC_WIDE_N`` up, 64 below; float32 a tile 128 columns wide and 64 or
-  128 rows tall.  Where the output tiles leave SMs idle, K is split over
-  the blocks of a cluster (at most ``TC_MAX_SPLIT``, each rank at least
-  ``TC_MIN_RANK_KTILES`` k-tiles of 128 bytes of K) as far as the grid
-  stays within one block an SM; a ring of ``TC_MAX_STAGES`` stages where a
-  rank has that many k-tiles, else as many as it has (2 at the least).
+  128 rows tall; int8 a 128-row tile 256 columns wide from N =
+  ``TC_WIDE_N`` up, 64 below; int16 and int32 a 128 x 64 tile (their 3
+  and 4 accumulator sets).  Where the output tiles leave SMs idle, K is
+  split over the blocks of a cluster (at most ``TC_MAX_SPLIT``, each rank
+  at least ``TC_MIN_RANK_KTILES`` k-tiles of 128 bytes of K) as far as
+  the grid stays within one block an SM; an integer rank reduces at most
+  ``TC_INT_MAX_RANK_K`` of K, where the split grows to the portable
+  cluster's 8 if it must (no s32 accumulator set can then leave int32).
+  A ring of ``TC_MAX_STAGES`` stages where a rank has that many k-tiles,
+  else as many as it has (2 at the least).  An integer launch reads its
+  operands by TMA as int8 limb planes that a pre-pass writes to scratch
+  (``widesa_mm.limb_planes``), but for an int8 K-major operand, read as it
+  is.
 * The tiled kernel (``hopper_tiles``, tiles ``build.COMPILED_TILES``)
-  takes the rest: integers above 16 rows, operands TMA cannot address,
-  and B rows the skinny kernel cannot copy (not 4-byte aligned: a storage
-  offset, or an odd row of 2-byte elements).  BM is the smallest
-  compiled row count that covers the plan's row tile (the largest where
-  none does; the kernel masks ragged edges, so any compiled tile is a
-  legal launch).  BN is not the plan's column tile: each BM is compiled
+  takes the rest: operands TMA cannot address, an integer K past 8 ranks'
+  ``TC_INT_MAX_RANK_K``, and B rows the skinny kernel cannot copy (not
+  4-byte aligned: a storage offset, or an odd row of 2-byte elements).
+  BM is the smallest compiled row count that covers the plan's row tile
+  (the largest where none does; the kernel masks ragged edges, so any
+  compiled tile is a legal launch).  BN is not the plan's column tile: each BM is compiled
   with the narrowest BN that still fills a block of 128 threads.  BK
   follows B's layout, not the plan's reduction tile: 32 for a row-major
   B, 8 for a column-major one (the tied lm_head).
@@ -303,10 +313,21 @@ TC_MAX_CLUSTER = 8
 TC_MAX_SMEM = 232448
 #: the compiled output tiles (BM, BN) by input dtype (``launch_tc_*``)
 TC_TILES = {torch.bfloat16: ((128, 64), (128, 128)),
-            torch.float32: ((64, 128), (128, 128))}
-#: bf16 takes the 128-column tile from this N up (qwen's gate/up, N =
-#: 2816), the 64-column one below (q/k/v/o, down, the scores and values);
-#: K is split over at most this many blocks, only while the grid stays
+            torch.float32: ((64, 128), (128, 128)),
+            torch.int8: ((128, 64), (128, 256)),
+            torch.int16: ((128, 64),),
+            torch.int32: ((128, 64),)}
+#: the most K a rank of a split reduces in each integer dtype
+#: (``kTc*MaxRankK`` in the source): (2^31 - 1) over the most one element
+#: of K adds to an s32 accumulator set of limb products (int8: 128 x 128;
+#: int16: 2 x 255 x 128, its shift-8 set; int32: 2 x 255^2 + 2 x 255 x 128,
+#: its shift-24 set), so no set leaves int32
+TC_INT_MAX_RANK_K = {torch.int8: 131071, torch.int16: 32896,
+                     torch.int32: 10994}
+#: bf16 and int8 take their wide tile from this N up (qwen's gate/up, N =
+#: 2816; the paper's MM/BMM), the narrow one below (q/k/v/o, down, the
+#: scores and values, the pipeline's smoke shapes); K is split over at
+#: most this many blocks, only while the grid stays
 #: within one block an SM and every rank keeps this many k-tiles: the
 #: fastest choices at the prefill shapes of 64-512 tokens on an H100
 #: (``chip_smoke.py --tc-sweep``, PERF.md)
@@ -342,21 +363,37 @@ class TcTile:
             + 2 * TC_MAX_STAGES * 8
 
 
+def tc_rank_k(k: int, dtype: torch.dtype, split: int) -> int:
+    """Elements of K the ranks of a split reduce at most: whole k-tiles of
+    128 bytes."""
+    ktiles = -(-k * dtype.itemsize // TC_ROW_BYTES)
+    return -(-ktiles // split) * (TC_ROW_BYTES // dtype.itemsize)
+
+
 def tc_tile(m: int, n: int, k: int, dtype: torch.dtype,
             batch: int = 1) -> TcTile | None:
-    """The tensor-core kernel's configuration for ``batch`` products of
-    [m, k] @ [k, n] in ``dtype``, or None for a dtype it does not take
-    (module docstring)."""
+    """The tensor-core kernels' configuration for ``batch`` products of
+    [m, k] @ [k, n] in ``dtype``, or None for a dtype they do not take or
+    an integer K that 8 ranks cannot hold (module docstring)."""
     if dtype not in TC_TILES or min(m, n, k, batch) < 1:
         return None
-    if dtype == torch.bfloat16:
-        bm, bn = 128, 128 if n >= TC_WIDE_N else 64
-    else:
+    if dtype == torch.float32:
         bm, bn = 64 if m <= 64 else 128, 128
+    elif dtype in (torch.bfloat16, torch.int8):
+        wide, narrow = TC_TILES[dtype][1][1], TC_TILES[dtype][0][1]
+        bm, bn = 128, wide if n >= TC_WIDE_N else narrow
+    else:
+        bm, bn = TC_TILES[dtype][0]
     ktiles = -(-k * dtype.itemsize // TC_ROW_BYTES)
     tiles = -(-m // bm) * -(-n // bn) * batch
     split = max(1, min(TC_MAX_SPLIT, ktiles // TC_MIN_RANK_KTILES,
                        SMS // tiles))
+    if dtype in TC_INT_MAX_RANK_K:
+        while split <= TC_MAX_CLUSTER \
+                and tc_rank_k(k, dtype, split) > TC_INT_MAX_RANK_K[dtype]:
+            split += 1
+        if split > TC_MAX_CLUSTER:
+            return None
     split = -(-ktiles // -(-ktiles // split))  # no rank without a k-tile
     stages = min(TC_MAX_STAGES, max(2, -(-ktiles // split)))
     return TcTile(bm=bm, bn=bn, stages=stages, split=split)
@@ -370,7 +407,7 @@ def tma_operand(t: torch.Tensor, inner: int) -> bool:
 
 
 def tc_route(a: torch.Tensor, b: torch.Tensor) -> TcTile | None:
-    """``tc_tile`` for ``a @ b`` where the tensor-core kernel takes the
+    """``tc_tile`` for ``a @ b`` where a tensor-core kernel takes the
     operands (a dtype it has, A and B in layouts the GEMMs read, both
     addressable by TMA at A's row pitch), else None."""
     layout, pitch = b_col_major(b), a_pitch(a)
@@ -384,9 +421,10 @@ def tc_route(a: torch.Tensor, b: torch.Tensor) -> TcTile | None:
 
 
 def check_tc(tile: TcTile, a: torch.Tensor, b: torch.Tensor) -> None:
-    """Raise unless ``tile`` is a launch the tensor-core kernel takes for
+    """Raise unless ``tile`` is a launch the tensor-core kernels take for
     these operands (``check_operands`` has checked shapes, dtypes and
-    layouts)."""
+    layouts): a compiled tile of the dtype, a legal ring and split, an
+    integer rank's K within ``TC_INT_MAX_RANK_K``."""
     layout = b_col_major(b)
     k, n = a.shape[-1], b.shape[-1]
     ktiles = -(-k * a.element_size() // TC_ROW_BYTES)
@@ -394,6 +432,8 @@ def check_tc(tile: TcTile, a: torch.Tensor, b: torch.Tensor) -> None:
             or not 2 <= tile.stages <= TC_MAX_STAGES \
             or not 1 <= tile.split <= TC_MAX_CLUSTER \
             or (tile.split - 1) * -(-ktiles // tile.split) >= ktiles \
+            or (a.dtype in TC_INT_MAX_RANK_K and tc_rank_k(
+                k, a.dtype, tile.split) > TC_INT_MAX_RANK_K[a.dtype]) \
             or tile.smem(a.dtype) > TC_MAX_SMEM:
         raise ValueError(f"{tile} is not a tensor-core launch for {a.dtype} "
                          f"at K={k}")
@@ -408,7 +448,7 @@ def gemm_tile(a: torch.Tensor, b: torch.Tensor, tiled: tuple[int, ...]):
     """The launch configuration of ``a @ b`` (2-D, or batched 3-D): for at
     most 16 rows of A, the skinny kernel's ``SkinnyTile`` when B's rows
     allow copies of 4 bytes or more; for more rows, the tensor-core
-    kernel's ``TcTile`` where it takes the operands (``tc_route``); else
+    kernels' ``TcTile`` where they take the operands (``tc_route``); else
     the tiled kernel's tile ``tiled``."""
     m, k = a.shape[-2:]
     if m > SKINNY_ROWS:

@@ -5,7 +5,9 @@ themselves are in ``csrc/widesa_mm.cu``, shared with ``bmm`` (mm is their
 batch = 1 launch).  ``matmul`` checks its operands, allocates the output
 and launches on the current stream the kernel its ``tiles`` name: a
 ``runtime.SkinnyTile`` runs the skinny kernel (A of at most 16 rows), a
-``runtime.TcTile`` the tensor-core one (more rows, bf16 or float32), a
+``runtime.TcTile`` a tensor-core one (more rows: ``gemm_tc_kernel`` in
+bf16 and float32, ``gemm_tc_int_kernel`` in the integers, after the limb
+planes it reads are written to scratch by ``limb_planes_kernel``), a
 ``(BM, BN, BK)`` tuple the tiled one.  A CPU tensor runs the plain version
 in ``ref.py`` instead.  ``launches`` counts kernel launches, ``variants``
 the same launches by kernel.
@@ -22,7 +24,7 @@ from . import build, ref, runtime
 
 launches = 0
 #: launches by kernel: ``skinny`` (M <= 16), ``wgmma`` (the tensor-core
-#: kernel) and ``tiled``
+#: kernels, floats and integers) and ``tiled``
 variants = {"skinny": 0, "wgmma": 0, "tiled": 0}
 
 
@@ -36,7 +38,7 @@ def check_operands(a, b, tiles, out_dtype, *, batched: bool):
     contiguous tensor (read column-major, as the tied lm_head reads the
     embedding table).  ``tiles`` is a ``runtime.SkinnyTile`` that fits the
     shape (``runtime.check_skinny``) with B's rows aligned to 4 bytes or
-    more, a ``runtime.TcTile`` the tensor-core kernel takes for these
+    more, a ``runtime.TcTile`` a tensor-core kernel takes for these
     operands (``runtime.check_tc``), or a compiled ``(BM, BN, BK)`` of the
     tiled kernel (or one of the tiles its sweep times,
     ``build.SWEEP_TILES``).
@@ -81,6 +83,23 @@ def check_operands(a, b, tiles, out_dtype, *, batched: bool):
     return out_dtype, lda, col_major, b_copy
 
 
+def limb_planes(a, batch: int, m: int, n: int, k: int, col_major: int):
+    """Scratch for the integer tensor-core GEMM's K-major byte planes of A
+    and of B (``limb_planes_kernel``): [batch, rows, k-tiles x 128] bytes
+    each, or None where the kernel reads the operand itself (an int8 A; an
+    int8 B that is column-major)."""
+    row = -(-k * a.element_size() // runtime.TC_ROW_BYTES) \
+        * runtime.TC_ROW_BYTES
+    wide = a.element_size() > 1
+
+    def scratch(rows):
+        return torch.empty((batch, rows, row), dtype=torch.uint8,
+                           device=a.device)
+
+    return (scratch(m) if wide else None,
+            scratch(n) if wide or not col_major else None)
+
+
 def launch(a, b, out, tiles, lda: int, col_major: int, b_copy: int,
            batched: bool) -> str:
     """Launch ``out = a @ b`` (operands checked by ``check_operands``) on
@@ -105,9 +124,17 @@ def launch(a, b, out, tiles, lda: int, col_major: int, b_copy: int,
                        col_major, *codes, tiles.split, tiles.kblk, b_copy,
                        int(a_vec))
             return "skinny"
-        if isinstance(tiles, runtime.TcTile):
+        if isinstance(tiles, runtime.TcTile) and a.is_floating_point():
             build.call("widesa_tc_launch", *ptrs, batch, m, n, k, lda,
                        col_major, *codes, tiles.bm, tiles.bn, tiles.stages,
+                       tiles.split)
+            return "wgmma"
+        if isinstance(tiles, runtime.TcTile):
+            planes = limb_planes(a, batch, m, n, k, col_major)
+            build.call("widesa_tc_int_launch", *ptrs,
+                       *(p.data_ptr() if p is not None else None
+                         for p in planes), batch, m, n, k, lda, col_major,
+                       codes[0], tiles.bm, tiles.bn, tiles.stages,
                        tiles.split)
             return "wgmma"
         if batched:

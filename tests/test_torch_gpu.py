@@ -508,9 +508,10 @@ def test_tc_kernel_matches_plain_versions_on_the_card(dtype, out_dtype, gen):
         assert moved == {"skinny": 0, "wgmma": want[kind], "tiled": 0}
 
 
-#: every compiled tensor-core tile, by input dtype
+#: every compiled tensor-core tile of the float dtypes (the integer ones:
+#: test_every_integer_tc_tile_matches_the_plain_version_on_the_card)
 TC_COMPILED = [(dtype, tile) for dtype, tiles in runtime.TC_TILES.items()
-               for tile in tiles]
+               if dtype.is_floating_point for tile in tiles]
 
 
 @pytest.mark.gpu
@@ -540,16 +541,16 @@ def test_every_tc_tile_matches_the_plain_version_on_the_card(dtype, tile,
 @pytest.mark.gpu
 def test_operands_tma_cannot_address_run_the_tiled_kernel_on_the_card(gen):
     """Above 16 rows: a B one element off its 16-byte boundary, rows of an
-    odd number of bf16 elements and integer operands take the tiled tile,
-    and a tensor-core launch on the misaligned B raises."""
+    odd number of bf16 elements and int8 rows of 72 bytes take the tiled
+    tile, and a tensor-core launch on the misaligned B raises."""
     cases = []
     a = _gemm_draw((64, 64), torch.bfloat16, gen)
     cases.append((a, _gemm_draw((64 * 130 + 1,), torch.bfloat16,
                                 gen)[1:].view(64, 130)))
     cases.append((_gemm_draw((64, 63), torch.bfloat16, gen),
                   _gemm_draw((63, 128), torch.bfloat16, gen)))
-    cases.append((_gemm_draw((64, 64), torch.int8, gen),
-                  _gemm_draw((64, 128), torch.int8, gen)))
+    cases.append((_gemm_draw((64, 72), torch.int8, gen),
+                  _gemm_draw((72, 128), torch.int8, gen)))
     for a, b in cases:
         tile = runtime.gemm_tile(a, b, (64, 32, 32))
         assert tile == (64, 32, 32)
@@ -569,22 +570,22 @@ def test_operands_tma_cannot_address_run_the_tiled_kernel_on_the_card(gen):
 def test_padded_a_rows_match_plain_versions_on_the_card(dtype, gen):
     """A in rows padded to whole 16-byte units (the attention values'
     softmax weights at an odd key count, K = 127): the skinny kernel at 12
-    rows; at 127 rows the tensor-core kernel in bf16 and float32, the
-    tiled one for the integers; mm and bmm, each launch counted as
-    routed."""
+    rows; at 127 rows the tensor-core kernels in every dtype (TMA reads
+    the padded rows and zero-fills past K; the integers' limb pre-pass
+    zeroes the padding); mm and bmm, each launch counted as routed."""
     k, unit = 127, 16 // dtype.itemsize
     for m in (12, 127):
         rows = _gemm_draw((3, m, -(-k // unit) * unit), dtype, gen)
-        if dtype.is_floating_point:  # padding no kernel may read
-            rows[..., k:] = float("nan")
+        # padding no kernel may read
+        rows[..., k:] = float("nan") if dtype.is_floating_point else \
+            torch.iinfo(dtype).max
         a = rows[..., :k]
         b = _gemm_draw((3, k, 64), dtype, gen)
         for fn, plain, x, y in ((bmm.bmm, ref.bmm, a, b),
                                 (widesa_mm.matmul, ref.mm, a[1], b[1])):
             assert runtime.a_pitch(x) == -(-k // unit) * unit
             tile = runtime.gemm_tile(x, y, (64, 32, 32))
-            kernel = ("skinny" if m <= 16 else
-                      "wgmma" if dtype.is_floating_point else "tiled")
+            kernel = "skinny" if m <= 16 else "wgmma"
             assert isinstance(tile, {"skinny": runtime.SkinnyTile,
                                      "wgmma": runtime.TcTile,
                                      "tiled": tuple}[kernel])
@@ -592,4 +593,149 @@ def test_padded_a_rows_match_plain_versions_on_the_card(dtype, gen):
             before = mod.variants[kernel]
             _same_gemm(fn(x, y, tiles=tile), plain(x, y))
             assert mod.variants[kernel] == before + 1
+    torch.cuda.synchronize()
+
+
+#: the integer tensor-core GEMM (gemm_tc_int_kernel): its dtypes, and for
+#: each the K of a k-tile (128 bytes) and a row unit (16 bytes)
+INT_DTYPES = (torch.int8, torch.int16, torch.int32)
+
+
+def _int_draw(shape, dtype, gen, fill="full"):
+    """Integers at full range, at one extreme, or at both mixed."""
+    info = torch.iinfo(dtype)
+    if fill == "full":
+        return _draw(shape, dtype, gen)
+    if fill == "mixed":
+        bits = torch.randint(0, 2, shape, generator=gen, device="cuda")
+        return torch.where(bits == 1, info.max, info.min).to(dtype)
+    return torch.full(shape, getattr(info, fill), dtype=dtype, device="cuda")
+
+
+def _int_operands(m, n, k, dtype, col_major, gen, batch=None, fill="full"):
+    lead = () if batch is None else (batch,)
+    a = _int_draw((*lead, m, k), dtype, gen, fill)
+    b = (_int_draw((*lead, n, k), dtype, gen, fill).transpose(-1, -2)
+         if col_major else _int_draw((*lead, k, n), dtype, gen, fill))
+    return a, b
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", INT_DTYPES, ids=str)
+def test_integer_tc_gemm_matches_plain_versions_on_the_card(dtype, gen):
+    """mm and bmm on the integer tensor-core route at ragged shapes (M and
+    N no multiple of the tile, K one k-tile plus a remainder of whole
+    16-byte units, and five k-tiles plus one) and at the registry's smoke
+    shapes, both B layouts: bitwise equal to the plain version, each
+    launch counted under ``wgmma``, a second run the same bits."""
+    e, unit = 128 // dtype.itemsize, 16 // dtype.itemsize
+    before = {"mm": dict(widesa_mm.variants), "bmm": dict(bmm.variants)}
+    launched = {"mm": 0, "bmm": 0}
+    for col_major in (False, True):
+        for kind, (m, n, k), batch in (
+                ("mm", (200, 208, e + 3 * unit), None),
+                ("mm", (200, 208, 5 * e + 3 * unit), None),
+                ("mm", (256, 256, 256), None),
+                ("mm", (17, 144, 2 * e + unit), None),
+                ("bmm", (100, 96, e + unit), 3),
+                ("bmm", (100, 96, 5 * e + unit), 3),
+                ("bmm", (128, 128, 64), 4)):
+            fn, plain = ((widesa_mm.matmul, ref.mm) if kind == "mm"
+                         else (bmm.bmm, ref.bmm))
+            a, b = _int_operands(m, n, k, dtype, col_major, gen, batch)
+            tile = runtime.gemm_tile(a, b, (64, 32, 32))
+            assert isinstance(tile, runtime.TcTile), (kind, m, n, k)
+            got = fn(a, b, tiles=tile)
+            _same(got, plain(a, b))
+            assert torch.equal(got, fn(a, b, tiles=tile))
+            launched[kind] += 2
+    torch.cuda.synchronize()
+    for kind, mod in (("mm", widesa_mm), ("bmm", bmm)):
+        moved = {v: mod.variants[v] - before[kind][v] for v in mod.variants}
+        assert moved == {"skinny": 0, "wgmma": launched[kind], "tiled": 0}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fill", ["min", "max", "mixed"])
+@pytest.mark.parametrize("dtype", INT_DTYPES, ids=str)
+def test_integer_tc_gemm_at_the_largest_admitted_k_on_the_card(dtype, fill,
+                                                                gen):
+    """Extreme operands (all at the dtype's minimum or maximum, or both
+    mixed) at the largest K a rank may reduce (``TC_INT_MAX_RANK_K`` in
+    whole k-tiles), unsplit: the s32 sets come as close to int32's edge
+    as operands can bring them, and the result stays bit-exact; one
+    k-tile more splits K over 2 ranks and stays bit-exact too."""
+    e = 128 // dtype.itemsize
+    most = runtime.TC_INT_MAX_RANK_K[dtype] // e * e
+    bn = runtime.TC_TILES[dtype][0][1]
+    for k, tile in ((most, runtime.TcTile(128, bn, 4, 1)),
+                    (most + e, runtime.TcTile(128, bn, 4, 2))):
+        a, b = _int_operands(130, 144, k, dtype, False, gen, fill=fill)
+        runtime.check_tc(tile, a, b)
+        _same(widesa_mm.matmul(a, b, tiles=tile), ref.mm(a, b))
+    with pytest.raises(ValueError, match="tensor-core"):
+        widesa_mm.matmul(a, b, tiles=runtime.TcTile(128, bn, 4, 1))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", INT_DTYPES, ids=str)
+def test_integer_tc_split_k_is_bitwise_deterministic_on_the_card(dtype, gen):
+    """K of 15 k-tiles split over clusters of 2, 3 and 8 (every rank at
+    least one k-tile), both B layouts: the ranks' uint32 partial tiles add
+    to the plain version's bits, the same on two runs; the runtime's own
+    split at a tall K the same."""
+    e = 128 // dtype.itemsize
+    bn = runtime.TC_TILES[dtype][0][1]
+    for split in (2, 3, 8):
+        for col_major in (False, True):
+            a, b = _int_operands(150, 160, 14 * e + 16 // dtype.itemsize,
+                                 dtype, col_major, gen)
+            tile = runtime.TcTile(128, bn, 4, split)
+            first = widesa_mm.matmul(a, b, tiles=tile)
+            again = widesa_mm.matmul(a, b, tiles=tile)
+            torch.cuda.synchronize()
+            assert torch.equal(first, again)
+            _same(first, ref.mm(a, b))
+    a, b = _int_operands(256, 512, 8192, dtype, False, gen)
+    tile = runtime.gemm_tile(a, b, (64, 32, 32))
+    assert tile.split == runtime.TC_MAX_SPLIT
+    assert torch.equal(widesa_mm.matmul(a, b, tiles=tile),
+                       widesa_mm.matmul(a, b, tiles=tile))
+
+
+@pytest.mark.gpu
+def test_int8_bmm_of_half_a_k_tile_on_the_card(gen):
+    """bmm with K = 64, half an int8 128-byte k-tile: TMA zero-fills the
+    rest of A's rows and of B^T's (the pre-pass's planes of a row-major B;
+    a column-major B read as it is), on both int8 tiles; the wider dtypes
+    (whole k-tiles) on the runtime's pick: bitwise."""
+    for dtype in INT_DTYPES:
+        for col_major in (False, True):
+            a, b = _int_operands(70, 48, 64, dtype, col_major, gen, batch=5)
+            tiles = [runtime.gemm_tile(a, b, (64, 32, 32))]
+            if dtype == torch.int8:
+                tiles.append(runtime.TcTile(128, 256, 2, 1))
+            for tile in tiles:
+                assert isinstance(tile, runtime.TcTile)
+                _same(bmm.bmm(a, b, tiles=tile), ref.bmm(a, b))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tile", [
+    (dtype, tile) for dtype in INT_DTYPES for tile in runtime.TC_TILES[dtype]],
+    ids=str)
+def test_every_integer_tc_tile_matches_the_plain_version_on_the_card(
+        dtype, tile, gen):
+    """Each compiled integer tile with 2 and 4 ring stages on a ragged mm
+    and bmm, both B layouts."""
+    k = 1000 // (16 // dtype.itemsize) * (16 // dtype.itemsize)
+    for stages in (2, runtime.TC_MAX_STAGES):
+        tc = runtime.TcTile(bm=tile[0], bn=tile[1], stages=stages)
+        for col_major in (False, True):
+            a, b = _int_operands(100, 272, k, dtype, col_major, gen)
+            _same(widesa_mm.matmul(a, b, tiles=tc), ref.mm(a, b))
+            a, b = _int_operands(61, 80, k, dtype, col_major, gen, batch=3)
+            _same(bmm.bmm(a, b, tiles=tc), ref.bmm(a, b))
     torch.cuda.synchronize()

@@ -12,9 +12,9 @@ The runtime's choice of kernel is checked on every full-width serving
 shape: the skinny kernel (at most 16 rows of A) with its K split, the
 tiled kernel's tile beside it (the plan-tile -> tile adapter), and the
 operands that must take the tiled kernel; on every qwen prefill shape of
-17-512 tokens, quickstart's 1024^3 and the registry's smoke shapes: the
-tensor-core kernel for bf16 and float32 operands TMA can address, the
-tiled kernel for integers and the rest.  The tensor-core kernel's float32
+17-512 tokens, quickstart's 1024^3, the registry's smoke shapes and the
+paper's MM/BMM table: the tensor-core kernels for bf16, float32 and
+integer operands TMA can address, the tiled kernel for the rest.  The tensor-core kernel's float32
 arithmetic (3xTF32) is emulated in torch against the JAX package's
 matmul.  The kernels themselves run only on the card (``gpu``-marked
 tests, skipped here).
@@ -219,9 +219,16 @@ def test_compiled_tiles_match_the_cuda_source():
                                     "MaxCluster", "MaxSmem")}
     assert "kTcThreads = kTcConsumers + 32;" in src
     for fn, dtype in (("int launch_tc_bf16", torch.bfloat16),
-                      ("int launch_tc_f32", torch.float32)):
+                      ("int launch_tc_f32", torch.float32),
+                      ("int launch_tc_int(", torch.int8),
+                      ("int launch_tc_int(", torch.int16),
+                      ("int launch_tc_int(", torch.int32)):
         body = src[src.index(fn):]
         body = body[:body.index("\n}\n")]
+        if dtype in runtime.TC_INT_MAX_RANK_K:  # one dispatch for the three
+            code = {1: "I8", 2: "I16", 4: "I32"}[dtype.itemsize]
+            body = "\n".join(line for line in body.splitlines()
+                             if f"in_dtype == {code} " in line)
         tiles = re.findall(r"bm == (\d+) && bn == (\d+)", body)
         assert {(int(m), int(n)) for m, n in tiles} == \
             set(runtime.TC_TILES[dtype])
@@ -327,9 +334,10 @@ def test_misaligned_or_odd_operands_take_the_tiled_kernel():
     offset of one 2-byte element, an odd row of bf16, an int8 row of 130)
     take the tiled tile; rows aligned to 8 bytes (whisper's 1500-key score
     rows) and a single column stay on the skinny kernel.  A of more than
-    16 rows takes the tensor-core kernel in bf16 where TMA can address
-    both operands, the tiled tile where it cannot (B one element off its
-    16-byte boundary, rows of 63 or 130 bf16 elements) and in int8."""
+    16 rows takes the tensor-core kernel in bf16 and int8 where TMA can
+    address both operands, the tiled tile where it cannot (B one element
+    off its 16-byte boundary, rows of 63 or 130 bf16 elements, int8 rows
+    of 72 bytes)."""
     tiled = (4, 32, 32)
     a = torch.zeros((4, 64), dtype=torch.bfloat16)
     flat = torch.zeros(64 * 130 + 8, dtype=torch.bfloat16)
@@ -356,7 +364,11 @@ def test_misaligned_or_odd_operands_take_the_tiled_kernel():
                              odd_k, tiled) == tiled
     assert runtime.gemm_tile(
         torch.zeros((17, 64), dtype=torch.int8),
-        torch.zeros((64, 128), dtype=torch.int8), tiled) == tiled
+        torch.zeros((64, 128), dtype=torch.int8), tiled) == \
+        runtime.TcTile(bm=128, bn=64, stages=2, split=1)
+    assert runtime.gemm_tile(
+        torch.zeros((17, 72), dtype=torch.int8),
+        torch.zeros((72, 128), dtype=torch.int8), tiled) == tiled
     scores = torch.zeros((64, 1500), dtype=torch.bfloat16)
     assert runtime.b_copy_bytes(scores) == 8
     assert isinstance(runtime.gemm_tile(a, scores, tiled),
@@ -438,17 +450,27 @@ def _holds_the_tc_rule(tile, shape, dtype):
     """The tensor-core configuration rule (``runtime.tc_tile``): bf16 tiles
     of 128 rows, 128 columns wide from N = ``TC_WIDE_N`` up and 64 below;
     float32 tiles of 128 columns, 64 rows tall up to M = 64 and 128
-    above; K split over at most ``TC_MAX_SPLIT`` blocks, each with a
-    k-tile and at least ``TC_MIN_RANK_KTILES`` of them, the split grid
-    within one block an SM; the deepest ring a rank's k-tiles fill (2 at
-    the least)."""
+    above; int8 tiles of 128 rows, 256 columns wide from N =
+    ``TC_WIDE_N`` up and 64 below; int16 and int32 128 x 64; K split
+    over at most ``TC_MAX_SPLIT`` blocks, each with a k-tile and at least
+    ``TC_MIN_RANK_KTILES`` of them, the split grid within one block an SM,
+    an integer rank's K within ``TC_INT_MAX_RANK_K``; the deepest ring a
+    rank's k-tiles fill (2 at the least)."""
     m, n, k = shape[-3:]
     batch = shape[0] if len(shape) == 4 else 1
     if dtype == torch.bfloat16:
         assert (tile.bm, tile.bn) == (
             128, 128 if n >= runtime.TC_WIDE_N else 64)
-    else:
+    elif dtype == torch.int8:
+        assert (tile.bm, tile.bn) == (
+            128, 256 if n >= runtime.TC_WIDE_N else 64)
+    elif dtype == torch.float32:
         assert (tile.bm, tile.bn) == (64 if m <= 64 else 128, 128)
+    else:
+        assert (tile.bm, tile.bn) == (128, 64)
+    if dtype in runtime.TC_INT_MAX_RANK_K:
+        assert runtime.tc_rank_k(k, dtype, tile.split) <= \
+            runtime.TC_INT_MAX_RANK_K[dtype]
     ktiles = -(-k * dtype.itemsize // runtime.TC_ROW_BYTES)
     ktper = -(-ktiles // tile.split)
     assert 1 <= tile.split <= runtime.TC_MAX_SPLIT
@@ -459,11 +481,14 @@ def _holds_the_tc_rule(tile, shape, dtype):
     assert tile.smem(dtype) <= runtime.TC_MAX_SMEM
 
 
-#: the recurrence path's GEMMs above 16 rows: quickstart's 1024^3 and the
+#: the recurrence path's GEMMs above 16 rows: quickstart's 1024^3, the
 #: registry's smoke shapes of mm, bmm and the fft2d stages (64 x 64 DFT
-#: planes times 64 x 64 data)
+#: planes times 64 x 64 data), and the paper's MM/BMM table (the
+#: registry's bench shapes of mm and bmm)
 RECURRENCE = (("mm", (1024, 1024, 1024)), ("mm", (256, 256, 256)),
-              ("bmm", (4, 128, 128, 64)), ("mm", (64, 64, 64)))
+              ("bmm", (4, 128, 128, 64)), ("mm", (64, 64, 64)),
+              ("mm", (8192, 8192, 8192)), ("mm", (10240, 10240, 10240)),
+              ("mm", (9600, 9600, 9600)), ("bmm", (64, 4096, 4096, 4096)))
 
 
 @pytest.mark.parametrize("kind,shape", RECURRENCE,
@@ -471,14 +496,11 @@ RECURRENCE = (("mm", (1024, 1024, 1024)), ("mm", (256, 256, 256)),
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8,
                                    torch.int16, torch.int32], ids=str)
 def test_recurrence_gemms_route_by_dtype(kind, shape, dtype):
-    """bf16 and float32 take the tensor-core kernel, the integers the
-    tiled kernel."""
+    """Every dtype takes the tensor-core kernels (the integers as int8
+    limbs): TMA addresses the operands of every one of these shapes."""
     tile = _route(kind, shape, False, dtype)
-    if dtype in (torch.float32, torch.bfloat16):
-        assert isinstance(tile, runtime.TcTile)
-        _holds_the_tc_rule(tile, shape, dtype)
-    else:
-        assert tile in build.COMPILED_TILES
+    assert isinstance(tile, runtime.TcTile)
+    _holds_the_tc_rule(tile, shape, dtype)
 
 
 def test_tc_split_fills_the_card_within_one_wave():
