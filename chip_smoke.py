@@ -6,6 +6,7 @@
     python3 chip_smoke.py --mttkrp-sweep [--out sweep.json]
     python3 chip_smoke.py --tc-sweep [--out sweep.json]
     python3 chip_smoke.py --fft-sweep [--out sweep.json]
+    python3 chip_smoke.py --conv2d-sweep [--src OTHER/src] [--out sweep.json]
 
 Needs one CUDA card and the CUDA toolkit.  It imports only the port, never
 JAX nor the JAX package, and runs eight phases, each printing its own
@@ -28,8 +29,10 @@ line(s); any failure exits non-zero:
    rows do not allow 4-byte copies), every compiled tile of the tiled
    kernel, the bf16 -> fp32 bmm, and two runs of split-K float products
    bitwise equal; FIR and conv2d in every dtype they take, at the
-   whisper-base frontend shapes and at ragged ones, with the tile the
-   runtime picks and every compiled tile; the fused fft2d kernel at
+   whisper-base frontend shapes and at ragged ones, FIR with every
+   compiled tile, conv2d on the compiled window the runtime picks (4 x 4,
+   8 x 8, 5 x 4) and on the generic instantiation (which alone takes 1 x
+   1, 3 x 5, 12 x 7 and 32 x 32); the fused fft2d kernel at
    ``FFT_SHAPES`` (two runs bitwise equal) and the composition over the
    GEMMs at the frontend tile against ``torch.fft.fft2``.  Then each is
    timed beside its plain
@@ -37,7 +40,9 @@ line(s); any failure exits non-zero:
    (``torch.matmul``/``torch.bmm``, ``F.conv1d``, ``F.conv2d``,
    ``torch.fft.fft2``: yardsticks only) and its memory/compute bound, at
    the main-path shapes and, for FIR and conv2d, at the registry's
-   bandwidth-sized bench shapes.  The GEMMs (every qwen serving shape and
+   bandwidth-sized bench shapes (conv2d: all four, the paper's conv2d
+   table: 10240^2 outputs, float32, int16 and int32 by 4 x 4, int8 by 8 x
+   8).  The GEMMs (every qwen serving shape and
    whisper-base's lm_head) get ``torch.profiler`` device time of the
    skinny kernel, of the tiled kernel at the tile the plan maps to and of
    the library call, the weight GEMMs over a rotation of distinct B operands
@@ -49,7 +54,7 @@ line(s); any failure exits non-zero:
    fft2d kernel (the composition's device time beside it, at the
    frontend tile and the pipeline's 64 x 64 grid) and their library
    calls also get their device time (the launch overhead left out), FIR
-   and conv2d with every compiled tile;
+   with every compiled tile, conv2d on its window and the generic one;
 4. serve  — full-width qwen1.5-0.5b (bf16, 24 layers, vocab 151936,
    random weights from a ``torch.Generator`` seeded with 0) on the slot
    engine: 4 slots, max_seq 128, 8 requests of 4-16 prompt tokens and 8
@@ -89,8 +94,12 @@ line(s); any failure exits non-zero:
    ``lower_plan(plan, "pallas")`` against its plain version, the stencils
    and mttkrp at their paper-scale bench sizes in every parity dtype, mm
    and bmm at the paper's MM/BMM table (float32 8192^3, int8 10240^3,
-   int16 9600^3, int32 8192^3; 64 x 4096^3 in float32, int8 and int16).
-   Checks that the star-stencil (B6) and MTTKRP (B7) kernels launched,
+   int16 9600^3, int32 8192^3; 64 x 4096^3 in float32, int8 and int16),
+   conv2d at the paper's conv2d table.  Checks that every star and conv2d
+   case ran the launch the runtime chose for it (star_kernel for one
+   sweep, sweeps_kernel in ceil(T / T_b) launches of T_b >= 2 for
+   jacobi2d_ms, conv2d on its compiled window), each launch counted under
+   its variant, that the star-stencil (B6) and MTTKRP (B7) kernels launched,
    every mttkrp case on the kernel its dtype and shape call for (every
    bench case on the tensor cores, int16 and int32 as int8 limbs) with
    each launch counted under it, the fft2d_stage case on the fused
@@ -99,14 +108,18 @@ line(s); any failure exits non-zero:
    wrappers counted under ``wgmma``.  Then holds B6 (5-point, 9-point, and the multi-sweep
    form on its int32 state) and B7 against their plain versions at the
    bench sizes and at ragged ones, in float32, int8, int16 and int32, on
-   the kernel the runtime routes each to, checks that the float32 bound
+   the kernel the runtime routes each to (the fused jacobi2d_ms in
+   ceil(T / T_b) launches, and in float32 bitwise equal to one launch a
+   sweep), checks that the float32 bound
    rejects a TF32 control (the plain MTTKRP with TF32 GEMMs on), and
    times them beside their plain versions, one PyTorch call
    (``F.conv2d`` with the star as a zero-padded filter, ``torch.einsum``;
    yardsticks only) and their bounds, with ``torch.profiler`` device
    time; the tensor-core MTTKRP rows also time the CUDA-core kernel on
    the same operands and give the bound at the tensor-core rate beside
-   the fp32 CUDA-core one.  Last, the integer GEMMs above 16 rows at the
+   the fp32 CUDA-core one, and the jacobi2d_ms rows the host time of a
+   synchronized call, its launches, the 8-pass floor and the device time
+   with each T_b of 1, 2, 4 and 8.  Last, the integer GEMMs above 16 rows at the
    pipeline's smoke shapes and the paper's table (``int_gemm_timings``:
    ``gemm_tc_int_kernel`` and its limb pre-pass bitwise against the plain
    version and beside the tiled kernel they replace, ``torch._int_mm``
@@ -125,9 +138,12 @@ skinny / wgmma / tiled) beside their device times and host time a call
 shape beside the tiled kernel's and the library's; under ``"wgmma_int"``
 the integer one's, ``gemm_tc_int_kernel`` with its limb pre-pass, at the
 paper's int8 shape beside the tiled kernel's and ``torch._int_mm``'s;
-both count as ``wgmma``), and for mttkrp its
+both count as ``wgmma``), for mttkrp its
 launches by kernel (tensor_core / cuda_core) beside the device times of
-both kernels.  The comparison and
+both kernels, for conv2d its launches by window (4x4 / 8x8 / 5x4 /
+generic) beside the paper's conv2d table, and for the stars theirs by
+kernel (star5 / star9 on star_kernel, sweeps on sweeps_kernel) beside
+the other timed stars and jacobi2d_ms's call.  The comparison and
 timing launches of phases 3 and 6 and of ``drain_parity`` do not count.
 
 ``--tile-sweep`` runs only the device and build phases, then times the
@@ -149,6 +165,12 @@ each one's device time beside the runtime's pick and ``torch.matmul`` /
 sources, then holds the fused fft2d kernel at 12 x 515, 16 x 1024 and
 64 x 64 with every split of K it takes to ``ref.fft2d`` and prints each
 one's device time beside the composition's and ``torch.fft.fft2``'s.
+``--conv2d-sweep`` builds the signal-processing source, then holds conv2d
+over 10240^2 outputs with filters from 3 x 3 to 32 x 32 (``CONV2D_SWEEP``)
+to ``ref.conv2d`` and prints the device time of the runtime's launch and
+of the generic window beside ``F.conv2d``'s; with ``--src`` it imports the
+port from another checkout's ``src/`` instead, to time an earlier kernel
+in the same run.
 
 Tolerances: integer results are bit-exact (wrapping int32, as XLA);
 float32 results within the kernel registry's atol 1e-3 (sums of up to
@@ -276,7 +298,8 @@ KERNELS = {
     # grids)
     "fft2d": dict(replaces="src/repro/kernels/fft2d.py:34",
                   source=SP_SOURCE),
-    # one kernel for jacobi2d, jacobi2d_9pt and each sweep of jacobi2d_ms
+    # star_kernel for jacobi2d and jacobi2d_9pt, sweeps_kernel for
+    # jacobi2d_ms
     "jacobi2d": dict(replaces="src/repro/kernels/jacobi2d.py:31",
                      source=HPC_SOURCE),
     "mttkrp": dict(replaces="src/repro/kernels/mttkrp.py:29",
@@ -290,10 +313,14 @@ WGMMA_SHAPES = {"widesa_mm": ("mm", (512, 1024, 1024), False),
 
 #: the frontend shapes of whisper-base (FrontendConfig(d_model=512): a
 #: 12 x 515 tile of 6180 samples, 15 taps, a 5 x 4 filter, int16), ragged
-#: shapes, and the registry's bandwidth-sized bench shapes (float32)
+#: shapes (conv2d: each compiled window, and filters of the generic
+#: instantiation), and the registry's bandwidth-sized bench shapes
+#: (float32; conv2d: every bench case, the paper's conv2d table)
 SP_MAIN = {"fir": (6180, 15), "conv2d": (8, 512, 5, 4)}
 SP_RAGGED = {"fir": ((1000, 7), (70001, 15)),
-             "conv2d": ((37, 70, 3, 5), (130, 333, 4, 4))}
+             "conv2d": ((37, 70, 3, 5), (130, 333, 4, 4), (61, 600, 8, 8),
+                        (3, 1, 5, 4), (70, 45, 1, 1), (40, 33, 32, 32),
+                        (50, 100, 12, 7))}
 SP_BENCH = {"fir": (1048576, 15), "conv2d": (10240, 10240, 4, 4)}
 FFT_MAIN = (12, 515)
 #: the fused fft2d kernel's parity shapes: the frontend's, a wider one, a
@@ -1173,21 +1200,31 @@ def sp_parity(torch) -> None:
     take, at the frontend and ragged shapes, with every compiled tile
     (the picked one among them); the fused fft2d kernel at ``FFT_SHAPES``
     and the composition at the frontend tile against ``ref.fft2d``."""
-    from repro_torch.kernels import build, conv2d, fir, ref
+    from repro_torch.kernels import build, conv2d, fir, ref, runtime
 
     gen = torch.Generator(device="cuda").manual_seed(4)
     dtypes = (torch.float32, torch.int8, torch.int16, torch.int32)
     n = 0
-    for name, fn, plain, tiles in (
-            ("fir", fir.fir, ref.fir, [(t,) for t in build.FIR_TILES]),
-            ("conv2d", conv2d.conv2d, ref.conv2d, build.CONV2D_TILES)):
+    for name, fn, plain in (("fir", fir.fir, ref.fir),
+                            ("conv2d", conv2d.conv2d, ref.conv2d)):
         for args in (SP_MAIN[name], *SP_RAGGED[name]):
             for dtype in dtypes:
                 a, b = sp_operands(torch, gen, name, args, dtype)
                 want = plain(a, b)
                 picked = sp_kernel(name, args, dtype)[2].tile
-                if picked not in tiles:
-                    fail(f"{name}{args}: picked tile {picked} not compiled")
+                if name == "fir":
+                    tiles = [(t,) for t in build.FIR_TILES]
+                    if picked not in tiles:
+                        fail(f"fir{args}: picked tile {picked} not compiled")
+                else:
+                    # the window the runtime picks, and the generic
+                    # instantiation on the same operands
+                    if picked.window != runtime.conv2d_window(*args[2:]):
+                        fail(f"conv2d{args}: picked {picked}")
+                    generic = runtime.conv2d_config(
+                        *args[2:], *args[:2], window=build.CONV2D_GENERIC)
+                    tiles = [picked] if picked == generic \
+                        else [picked, generic]
                 for tile in tiles:
                     out = fn(a, b, tiles=tile)
                     torch.cuda.synchronize()
@@ -1221,16 +1258,22 @@ def sp_parity(torch) -> None:
                 if not all(torch.equal(g, a) for g, a in zip(got, again)):
                     fail(f"fft2d{shape} fused {tile}: two runs differ")
             n += 1
-    print(f"kernels: FIR/conv2d/fft2d parity ok in {n} cases (FIR and "
-          f"conv2d: 4 dtypes x frontend and ragged shapes x every compiled "
-          f"tile; integers bit-exact, fp32 <= 1e-3; fft2d: the fused kernel "
+    print(f"kernels: FIR/conv2d/fft2d parity ok in {n} cases (FIR: 4 "
+          f"dtypes x frontend and ragged shapes x every compiled tile; "
+          f"conv2d: 4 dtypes x the frontend's 5 x 4 and ragged shapes on "
+          f"every compiled window (4 x 4, 8 x 8, 5 x 4; int8 on __dp4a) and "
+          f"the generic instantiation (1 x 1, 3 x 5, 12 x 7, 32 x 32, and beside "
+          f"each compiled case); integers bit-exact (full-range operands), "
+          f"fp32 <= 1e-3; fft2d: the fused kernel "
           f"at {list(FFT_SHAPES)} and the composition at {FFT_MAIN}, <= "
           f"1.0, the fused kernel's max |err| {worst:.4g}, two runs "
           f"bitwise equal)", flush=True)
 
 
-def sp_bound_ms(name, args, in_bytes, out_bytes):
-    """Least time for one FIR or conv2d call (see ``least_ms``)."""
+def sp_bound_ms(name, args, in_bytes, out_bytes, dtype):
+    """Least time for one FIR or conv2d call (see ``least_ms``): the
+    operations at the card's int8 rate for int8 operands, else at the fp32
+    CUDA-core rate."""
     if name == "fir":
         n, t = args
         moved = (n + 2 * t - 1) * in_bytes + n * out_bytes
@@ -1240,65 +1283,94 @@ def sp_bound_ms(name, args, in_bytes, out_bytes):
         moved = ((h + p - 1) * (w + q - 1) + p * q) * in_bytes \
             + h * w * out_bytes
         ops = 2 * h * w * p * q
-    return least_ms(moved, ops, "float32")
+    return least_ms(moved, ops,
+                    "int8" if dtype == "torch.int8" else "float32")
 
 
 def sp_timings(torch) -> dict:
     """FIR and conv2d at the main-path shape and dtype (the whisper-base
-    frontend, int16) and at the registry's bench shape (float32), and
+    frontend, int16), FIR at the registry's bench shape (float32) and
+    conv2d at each of its bench cases (the paper's conv2d table), and
     fft2d at the frontend tile and the pipeline's smoke grid (the fused
     kernel, with the composition's device time beside it): kernel, plain
     version, one PyTorch call and bound.  The library call takes float32
     copies of integer inputs (``F.conv1d``/``F.conv2d`` take no integers
-    on the card), with TF32 off."""
+    on the card), with TF32 off.  FIR's device time is given with each
+    compiled tile, conv2d's on the window the runtime picks and on the
+    generic instantiation."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels import build, conv2d, fir, ref, widesa_mm
+    from repro_torch.kernels import (build, conv2d, fir, ref, registry,
+                                     runtime, widesa_mm)
 
     gen = torch.Generator(device="cuda").manual_seed(5)
-    kernel_fn = {"fir": fir.fir, "conv2d": conv2d.conv2d}
-    compiled = {"fir": [(t,) for t in build.FIR_TILES],
-                "conv2d": list(build.CONV2D_TILES)}
     library = {
         "fir": lambda a, b: F.conv1d(a[None, None], b[None, None]),
         "conv2d": lambda a, b: F.conv2d(a[None, None], b[None, None]),
     }
+    cases = [("fir", "main", SP_MAIN["fir"], torch.int16, 50),
+             ("fir", "bench", SP_BENCH["fir"], torch.float32, 10),
+             ("conv2d", "main", SP_MAIN["conv2d"], torch.int16, 50)]
+    cases += [("conv2d", f"bench {dtype}", args, getattr(torch, dtype), 10)
+              for dtype, args in registry.get("conv2d").bench_cases]
     rows = {}
-    for name in ("fir", "conv2d"):
-        for where, args, dtype, reps in (
-                ("main", SP_MAIN[name], torch.int16, 50),
-                ("bench", SP_BENCH[name], torch.float32, 10)):
-            a, b = sp_operands(torch, gen, name, args, dtype)
-            fn, plain, tiles = sp_kernel(name, args, dtype)
-            af, bf = a.float(), b.float()
-            out, want = fn(a, b), plain(a, b)
-            err, _ = max_error(torch, out, want, dtype)
-            row = dict(
-                tiles=tiles, max_abs_err=err,
-                ms=time_ms(torch, lambda: fn(a, b), reps),
-                plain_ms=time_ms(torch, lambda: plain(a, b), reps),
-                library_ms=time_ms(torch, lambda: library[name](af, bf),
-                                   reps),
-            )
-            row["bound_ms"], row["bound_by"] = sp_bound_ms(
-                name, args, a.element_size(), out.element_size())
-            rows[(name, where)] = row
-            lib = f"F.{name if name == 'conv2d' else 'conv1d'}"
-            per_tile = ", ".join(
-                f"{t} {fmt_ms(device_ms(torch, lambda t=t: kernel_fn[name](a, b, tiles=t), name + '_kernel'))}"
-                for t in compiled[name])
-            print(f"time {name}{args} {str(dtype).removeprefix('torch.')} "
-                  f"[{where}] plan block {tiles.plan} -> tile {tiles.tile}: "
-                  f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} "
-                  f"ms, {lib} {row['library_ms']:.4f} ms, bound "
-                  f"{row['bound_ms']:.4f} ms ({row['bound_by']}); device "
-                  f"time (profiler): kernel "
-                  f"{fmt_ms(device_ms(torch, lambda: fn(a, b), name + '_kernel'))}"
-                  f", {lib} "
-                  f"{fmt_ms(device_ms(torch, lambda: library[name](af, bf)))}"
-                  f"; kernel device time by compiled tile: {per_tile}",
-                  flush=True)
-            del a, b, af, bf, out, want
+    for name, where, args, dtype, reps in cases:
+        a, b = sp_operands(torch, gen, name, args, dtype)
+        fn, plain, tiles = sp_kernel(name, args, dtype)
+        af, bf = a.float(), b.float()
+        out, want = fn(a, b), plain(a, b)
+        err, ok = max_error(torch, out, want, dtype)
+        if not ok:
+            fail(f"{name}{args} {dtype}: max |err| {err}")
+        row = dict(
+            tiles=tiles, max_abs_err=err,
+            ms=time_ms(torch, lambda: fn(a, b), reps),
+            plain_ms=time_ms(torch, lambda: plain(a, b),
+                             3 if where != "main" else reps, 1),
+            library_ms=time_ms(torch, lambda: library[name](af, bf), reps),
+            device_ms=device_ms(torch, lambda: fn(a, b), name + "_kernel"),
+            library_device_ms=device_ms(
+                torch, lambda: library[name](af, bf)),
+        )
+        row["bound_ms"], row["bound_by"] = sp_bound_ms(
+            name, args, a.element_size(), out.element_size(), str(dtype))
+        copy = ""
+        if name == "conv2d" and where != "main":
+            # the card's own copy of the same bytes: the output's window of
+            # the input, converted to the output's dtype (PyTorch's copy_)
+            view = a[:out.shape[0], :out.shape[1]]
+            row["copy_device_ms"] = device_ms(torch, lambda: out.copy_(view))
+            copy = (f", a copy_ of the same bytes "
+                    f"{fmt_ms(row['copy_device_ms'])}")
+        if name == "fir":
+            by = "compiled tile"
+            others = {t: device_ms(torch, lambda t=t: fir.fir(a, b, tiles=t),
+                                   "fir_kernel")
+                      for t in [(t,) for t in build.FIR_TILES]}
+        else:
+            by = "window"
+            generic = runtime.conv2d_config(*args[2:], *args[:2],
+                                            window=build.CONV2D_GENERIC)
+            others = {tiles.tile.window: row["device_ms"]}
+            if generic != tiles.tile:
+                row["generic_device_ms"] = device_ms(
+                    torch, lambda: conv2d.conv2d(a, b, tiles=generic),
+                    "conv2d_kernel")
+                others["generic"] = row["generic_device_ms"]
+        rows[(name, where)] = row
+        lib = f"F.{name if name == 'conv2d' else 'conv1d'}"
+        per = ", ".join(f"{k} {fmt_ms(v)}" for k, v in others.items())
+        print(f"time {name}{args} {str(dtype).removeprefix('torch.')} "
+              f"[{where}] plan block {tiles.plan} -> {tiles.tile}: kernel "
+              f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, {lib} "
+              f"{row['library_ms']:.4f} ms{' (float32 copies)' if not dtype.is_floating_point else ''}, "
+              f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}); device "
+              f"time (profiler): kernel {fmt_ms(row['device_ms'])}, {lib} "
+              f"{fmt_ms(row['library_device_ms'])}{copy}; kernel device "
+              f"time by {by}: {per}; max |err| {err:.4g}", flush=True)
+        del a, b, af, bf, out, want
+        torch.cuda.empty_cache()
+
     def fft_lib(x_re, x_im):
         return torch.fft.fft2(torch.complex(x_re, x_im))
 
@@ -1696,6 +1768,10 @@ def stream_serve(torch, device_name: str) -> dict:
     if launches["fir"] != chunks or launches["conv2d"] != chunks:
         fail(f"{chunks} chunks fed but fir/conv2d launched "
              f"{launches['fir']}/{launches['conv2d']} times")
+    # the frontend's 5 x 4 filter on its compiled window
+    if {k: v for k, v in variants["conv2d"].items() if v} != {"5x4": chunks}:
+        fail(f"stream: conv2d launches by window {variants['conv2d']}, the "
+             f"frontend's 5 x 4 filter calls for {{'5x4': {chunks}}}")
     tokens = sum(len(r.output) for r in done)
     tiles = {k: (t.plan, t.tile) for k, t in runtime.last_tiles.items()
              if k in ("fir", "conv2d")}
@@ -1759,7 +1835,8 @@ HPC_RAGGED = {"jacobi2d": (61, 59), "jacobi2d_9pt": (61, 59),
               "jacobi2d_ms": (61, 59, 3), "mttkrp": (37, 45, 7, 5)}
 #: the shapes and dtypes timed, the first of each kernel its kernels-line row
 HPC_TIMED = (("jacobi2d", "float32"), ("jacobi2d", "int8"),
-             ("jacobi2d_9pt", "float32"), ("jacobi2d_ms", "float32"),
+             ("jacobi2d", "int16"), ("jacobi2d_9pt", "float32"),
+             ("jacobi2d_ms", "float32"),
              ("mttkrp", "float32"), ("mttkrp", "int8"), ("mttkrp", "int16"),
              ("mttkrp", "int32"))
 #: int8 products a product of the tensor-core MTTKRP: the limb pairs p,
@@ -1811,13 +1888,15 @@ def hpc_call(name, args, dtype):
 def hpc_parity(torch) -> None:
     """B6 and B7 against their plain versions at the bench and ragged
     sizes, in every dtype they take (the multi-sweep form on its int32
-    state too), at the compiled tile the runtime maps the plan onto; then
-    a TF32 control, which ``recurrences.compare`` must reject."""
-    from repro_torch.kernels import build, registry
+    state too), on the launch the runtime maps the plan onto; the
+    multi-sweep form in ceil(T / T_b) launches and, in float32, bitwise
+    equal to one launch a sweep (T_b = 1); then a TF32 control, which
+    ``recurrences.compare`` must reject."""
+    from repro_torch.kernels import jacobi2d, registry, runtime
     from repro_torch.launch import recurrences
 
     gen = torch.Generator(device="cuda").manual_seed(7)
-    n, worst, routes = 0, {}, {}
+    n, worst, routes, fused = 0, {}, {}, {}
     for name in HPC_BENCH:
         for args in (HPC_RAGGED[name], HPC_BENCH[name]):
             for dtype in ("float32", "int8", "int16", "int32"):
@@ -1830,16 +1909,30 @@ def hpc_parity(torch) -> None:
                         fail(f"mttkrp{args} {dtype}: routed to {kernel} "
                              f"({tile})")
                     routes[(args, dtype)] = kernel
-                elif tile != build.STENCIL_TILE:
-                    fail(f"{name}{args}: tile {tile} is not the compiled "
-                         f"{build.STENCIL_TILE}")
+                elif not isinstance(tile, runtime.SweepTile
+                                    if name == "jacobi2d_ms"
+                                    else runtime.StarTile):
+                    fail(f"{name}{args}: launch {tile}")
                 want = spec.ref(*ops)
+                before = jacobi2d.launches
                 out = fn(*ops, tiles=tile)
                 torch.cuda.synchronize()
                 err, ok = recurrences.compare(spec, rec, ops, out, want)
                 if not ok:
                     fail(f"{name}{args} {dtype}: max |err| {err} outside "
                          "tolerance")
+                if name == "jacobi2d_ms":
+                    t = rec.extent("t")
+                    if jacobi2d.launches - before != tile.launches(t):
+                        fail(f"{name}{args}: {jacobi2d.launches - before} "
+                             f"launches on {tile}, not {tile.launches(t)}")
+                    if dtype == "float32":
+                        one = fn(*ops, tiles=runtime.SweepTile(sweeps=1))
+                        if not torch.equal(out, one):
+                            fail(f"{name}{args} float32: {tile} differs "
+                                 "from one launch a sweep")
+                        fused[args] = f"{tile.launches(t)} launch(es) of " \
+                            f"T_b = {tile.sweeps} == {t} of T_b = 1, bitwise"
                 worst[(name, dtype)] = max(worst.get((name, dtype), 0.0),
                                            err)
                 n += 1
@@ -1850,8 +1943,8 @@ def hpc_parity(torch) -> None:
               for (args, dtype), kernel in routes.items()}
     print(f"recurrences: B6/B7 parity ok in {n} cases (4 specs x bench and "
           f"ragged sizes x 4 dtypes; integers bit-exact; float32 max |err| "
-          f"{floats} within recurrences.float_bound); mttkrp kernels "
-          f"{routed}", flush=True)
+          f"{floats} within recurrences.float_bound); jacobi2d_ms float32 "
+          f"{fused}; mttkrp kernels {routed}", flush=True)
     tf32_control(torch, gen)
 
 
@@ -1905,6 +1998,18 @@ def hpc_bound_ms(name, rec, in_bytes, out_bytes, rate="float32",
     return least_ms(moved, 2 * e["s"] * sweeps * e["i"] * e["j"], rate)
 
 
+def host_call_ms(torch, fn, calls=20) -> float:
+    """Host time of one call of ``fn`` that the card finishes: ``calls``
+    calls on the host clock, each followed by a synchronisation."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e3
+
+
 def hpc_library(torch, name, ops):
     """One PyTorch call computing the same function on float32 copies, TF32
     off (yardstick only), or None: ``F.conv2d`` with the star as a
@@ -1930,6 +2035,21 @@ def hpc_library(torch, name, ops):
     return lambda: F.conv2d(grid, filt)
 
 
+def sweep_launches(call) -> int:
+    """The launches one ``call`` of ``jacobi2d_ms`` makes, read from
+    ``jacobi2d.launches`` around it; fails unless ``jacobi2d.variants``
+    counts each under "sweeps"."""
+    from repro_torch.kernels import jacobi2d
+
+    before, sweeps = jacobi2d.launches, jacobi2d.variants["sweeps"]
+    call()
+    n = jacobi2d.launches - before
+    if jacobi2d.variants["sweeps"] - sweeps != n:
+        fail(f"jacobi2d_ms: {n} launches, "
+             f"{jacobi2d.variants['sweeps'] - sweeps} counted as sweeps")
+    return n
+
+
 def hpc_timings(torch) -> dict:
     """B6 and B7 at the bench sizes (``HPC_TIMED``): kernel (CUDA events
     and ``torch.profiler`` device time), plain version, library call and
@@ -1937,7 +2057,7 @@ def hpc_timings(torch) -> dict:
     kernel's device time on the same operands, and their bound at the
     tensor-core rate (3xTF32: three TF32 products a product; int16 and
     int32: 4 and 10 int8 limb products) beside the fp32 CUDA-core one."""
-    from repro_torch.kernels import build, registry
+    from repro_torch.kernels import build, registry, runtime
 
     gen = torch.Generator(device="cuda").manual_seed(8)
     rows = {}
@@ -1951,8 +2071,15 @@ def hpc_timings(torch) -> dict:
         err = (out.double() - want.double()).abs().max().item()
         lib = hpc_library(torch, name, ops)
         kname = MTTKRP_KERNELS[mttkrp_variant(tiles.tile)] \
-            if name == "mttkrp" else "star_kernel"
-        per_call = rec.extent("t") if name == "jacobi2d_ms" else 1
+            if name == "mttkrp" else "sweeps_kernel" \
+            if name == "jacobi2d_ms" else "star_kernel"
+        per_call = 1
+        if name == "jacobi2d_ms":
+            # the launches of one call, as the wrapper's counters read them
+            per_call = sweep_launches(lambda: fn(*ops, tiles=tiles.tile))
+            if per_call != tiles.tile.launches(rec.extent("t")):
+                fail(f"jacobi2d_ms{HPC_BENCH[name]} {dtype}: {per_call} "
+                     f"launches on {tiles.tile}")
         row = dict(
             tiles=tiles, max_abs_err=err,
             ms=time_ms(torch, lambda: fn(*ops, tiles=tiles.tile), reps, 2),
@@ -1968,6 +2095,14 @@ def hpc_timings(torch) -> dict:
         rate = ", fp32 CUDA-core rate" \
             if row["bound_by"] == "operations" else ""
         extra = ""
+        if name in ("jacobi2d", "jacobi2d_9pt"):
+            # the card's own copy of the same bytes: the grid's interior,
+            # converted to the output's dtype (PyTorch's copy_)
+            pad = 2 if name == "jacobi2d_9pt" else 1
+            view = ops[0][pad:-pad, pad:-pad]
+            row["copy_device_ms"] = device_ms(torch, lambda: out.copy_(view))
+            extra = (f"; a copy_ of the same bytes "
+                     f"{fmt_ms(row['copy_device_ms'])}")
         if name == "mttkrp" and mttkrp_variant(tiles.tile) == "tensor_core":
             row["cuda_core_device_ms"] = device_ms(
                 torch, lambda: fn(*ops, tiles=build.MTTKRP_TILE),
@@ -1991,11 +2126,27 @@ def hpc_timings(torch) -> dict:
         rows[(name, dtype)] = row
         if name == "jacobi2d_ms":
             sweeps = rec.extent("t")
-            floor = sweeps * hpc_bound_ms(
+            row["launches"] = per_call
+            row["floor_ms"] = sweeps * hpc_bound_ms(
                 "jacobi2d", registry.get("jacobi2d").builder(
                     rec.extent("i"), rec.extent("j"), dtype), 4, 4)[0]
-            extra = (f"; {sweeps} launches a call, floor of {sweeps} "
-                     f"separate passes {floor:.4f} ms")
+            row["host_ms"] = host_call_ms(
+                torch, lambda: fn(*ops, tiles=tiles.tile))
+            # the device time of a call with each T_b (the launches' sum)
+            row["device_ms_by_sweeps"] = {}
+            for tb in (1, 2, 4, 8):
+                call = lambda tb=tb: fn(*ops, tiles=runtime.SweepTile(tb))
+                row["device_ms_by_sweeps"][tb] = device_ms(
+                    torch, call, kname, reps, sweep_launches(call))
+            by = ", ".join(f"{tb}: {fmt_ms(v)}" for tb, v in
+                           row["device_ms_by_sweeps"].items())
+            extra = (f"; {per_call} launch(es) a call (T_b = "
+                     f"{tiles.tile.sweeps}), host clock {row['host_ms']:.4f}"
+                     f" ms a synchronized call, device {fmt_ms(row['device_ms'])} "
+                     f"a call; the whole call's bound {row['bound_ms']:.4f} "
+                     f"ms beside the floor of {sweeps} separate passes "
+                     f"{row['floor_ms']:.4f} ms; device ms a call by T_b "
+                     f"{{{by}}}")
         library = ("none (no one call)" if lib is None else
                    f"{row['library_ms']:.4f} ms (device "
                    f"{fmt_ms(row['library_device_ms'])})")
@@ -2272,6 +2423,69 @@ def fft_sweep(torch) -> list[dict]:
     return rows
 
 
+#: ``--conv2d-sweep``'s filters at 10240^2 outputs: float32 from 3 x 3 to
+#: 32 x 32 (the generic window's filter in registers up to 8 x 8, in shared
+#: memory above; 4 x 4 and 8 x 8 also on their compiled windows), and the
+#: integers' compiled and generic cases
+CONV2D_SWEEP = tuple(("float32", f) for f in (
+    (3, 3), (4, 4), (5, 5), (7, 7), (8, 8), (12, 7), (16, 16), (32, 32))) + (
+    ("int8", (8, 8)), ("int8", (3, 3)), ("int16", (5, 4)), ("int32", (3, 3)))
+
+
+def conv2d_sweep(torch) -> list[dict]:
+    """conv2d at ``CONV2D_SWEEP``'s filters over 10240^2 outputs, each held
+    to ``ref.conv2d``: profiler device time on the launch the runtime
+    picks (``runtime.conv2d_tile``) and, where the checkout has one and it
+    differs, on the generic window, beside ``F.conv2d`` (float32 copies,
+    TF32 off) and the bound.  Uses only what every checkout of the port
+    with a conv2d kernel has, so that ``--src`` can time an earlier
+    checkout's kernel in the same run."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import build, conv2d, planned, ref, runtime
+
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    h, w = SP_BENCH["conv2d"][:2]
+    rows = []
+    for dname, (p, q) in CONV2D_SWEEP:
+        dtype = getattr(torch, dname)
+        args = (h, w, p, q)
+        a, b = sp_operands(torch, gen, "conv2d", args, dtype)
+        want = ref.conv2d(a, b)
+        plan = planned.plan_for("conv2d", args, dname)
+        launches = {"picked": runtime.conv2d_tile(plan, h, w).tile}
+        if hasattr(runtime, "conv2d_config"):
+            generic = runtime.conv2d_config(p, q, h, w,
+                                            window=build.CONV2D_GENERIC)
+            if generic != launches["picked"]:
+                launches["generic"] = generic
+        reps = 3 if p * q > 200 else 10
+        row = dict(dtype=dname, filter=(p, q), bound_ms=sp_bound_ms(
+            "conv2d", args, a.element_size(), 4, str(dtype))[0])
+        for kind, tile in launches.items():
+            err, ok = max_error(torch, conv2d.conv2d(a, b, tiles=tile), want,
+                                dtype)
+            if not ok:
+                fail(f"conv2d{args} {dname} {tile}: max |err| {err}")
+            row[kind] = str(tile)
+            row[f"{kind}_device_ms"] = device_ms(
+                torch, lambda t=tile: conv2d.conv2d(a, b, tiles=t),
+                "conv2d_kernel", reps)
+        af, bf = a.float(), b.float()
+        row["library_device_ms"] = device_ms(
+            torch, lambda: F.conv2d(af[None, None], bf[None, None]), None,
+            reps)
+        rows.append(row)
+        print(f"sweep conv2d{args} {dname}: "
+              + ", ".join(f"{k} {row[k]} {fmt_ms(row[k + '_device_ms'])}"
+                          for k in launches)
+              + f"; F.conv2d {fmt_ms(row['library_device_ms'])}; bound "
+              f"{row['bound_ms']:.4f} ms", flush=True)
+        del a, b, af, bf, want
+        torch.cuda.empty_cache()
+    return rows
+
+
 #: the prompt lengths ``--tc-sweep`` times
 TC_SWEEP_PROMPTS = (512, 127, 64)
 
@@ -2370,9 +2584,46 @@ def recurrences_phase(torch) -> tuple[dict, dict, dict, dict]:
             by_kernel[k] == 0 for k in set(cases.values())):
         fail(f"recurrences: mttkrp launches {launches['mttkrp']} by kernel "
              f"{by_kernel} do not match its cases {cases}")
+    # every star and conv2d case on the launch the runtime chose for it
+    # (one-sweep stars on star_kernel, jacobi2d_ms on sweeps_kernel in
+    # ceil(T / T_b) launches of T_b >= 2, conv2d on its compiled window),
+    # and each launch counted under that variant
+    from repro_torch.kernels import build, runtime
+    calls = 1 + recurrences.TIMED_CALLS
+    windows = {"jacobi2d": dict.fromkeys(variants["jacobi2d"], 0),
+               "conv2d": dict.fromkeys(variants["conv2d"], 0)}
+    chose = []
+    for row in rows:
+        tile = row["tiles"].tile if row["tiles"] else None
+        name, rec = row["name"], row["rec"]
+        if name in ("jacobi2d", "jacobi2d_9pt"):
+            if not isinstance(tile, runtime.StarTile):
+                fail(f"recurrences: {name} {row['dtype']} launched {tile}")
+            windows["jacobi2d"]["star9" if name == "jacobi2d_9pt"
+                                else "star5"] += calls
+        elif name == "jacobi2d_ms":
+            t = rec.extent("t")
+            if not isinstance(tile, runtime.SweepTile) or (
+                    t > 1 and tile.sweeps < 2):
+                fail(f"recurrences: jacobi2d_ms {row['dtype']} launched "
+                     f"{tile}")
+            windows["jacobi2d"]["sweeps"] += calls * tile.launches(t)
+        elif name == "conv2d":
+            want = runtime.conv2d_window(rec.extent("p"), rec.extent("q"))
+            if not isinstance(tile, runtime.Conv2dTile) \
+                    or tile.window != want or want == build.CONV2D_GENERIC:
+                fail(f"recurrences: conv2d {row['dtype']} launched {tile}")
+            windows["conv2d"]["x".join(map(str, want))] += calls
+        else:
+            continue
+        chose.append((name, row["dtype"], str(tile)))
+    if any(variants[k] != v or launches[k] != sum(v.values())
+           for k, v in windows.items()):
+        fail(f"recurrences: star / conv2d launches by variant "
+             f"{ {k: variants[k] for k in windows} }, the cases call for "
+             f"{windows}")
     # the fft2d_stage case (64 x 64) on the fused kernel, and each of its
     # launches counted there
-    from repro_torch.kernels import runtime
     ffts = [row for row in rows if row["name"] == "fft2d_stage"]
     if not ffts or any(not isinstance(row["tiles"].tile, runtime.Fft2dTile)
                        for row in ffts) \
@@ -2404,8 +2655,9 @@ def recurrences_phase(torch) -> tuple[dict, dict, dict, dict]:
           f"{len(gemms)} mm / bmm cases above 16 rows on the tensor cores, "
           f"gemm_tc_kernel in float32, gemm_tc_int_kernel in the integers "
           f"({len(ints)} cases: {ints}), no tiled launch; mttkrp cases "
-          f"{cases}; fft2d {[(r['args'], str(r['tiles'].tile)) for r in ffts]})",
-          flush=True)
+          f"{cases}; fft2d {[(r['args'], str(r['tiles'].tile)) for r in ffts]}"
+          f"; star and conv2d cases on the runtime's launch, each counted "
+          f"under its variant: {chose})", flush=True)
     torch.cuda.empty_cache()
     hpc_parity(torch)
     hpc_rows = hpc_timings(torch)
@@ -2437,8 +2689,9 @@ MANGLED_TYPES = {"f": "float32", "a": "int8", "s": "int16", "i": "int32"}
 
 def kernel_resources(log: str) -> list[str]:
     """Registers and spill stores of each instantiation of the fused fft2d
-    kernel, of the tensor-core MTTKRP kernel and of the integer
-    tensor-core GEMM and its limb pre-pass, from ``ptxas -v``'s lines in
+    kernel, of the tensor-core MTTKRP kernel, of the integer tensor-core
+    GEMM and its limb pre-pass, and of the window kernels (conv2d and the
+    one-sweep star) and the multi-sweep star, from ``ptxas -v``'s lines in
     the build log."""
     found, name = [], None
     for line in log.splitlines():
@@ -2466,6 +2719,16 @@ def kernel_resources(log: str) -> list[str]:
                      f"{gemm.group(2)}x{gemm.group(3)}>")
         elif limb := re.search(r"limb_planes_kernelI(\w)E", mangled):
             label = f"limb_planes_kernel<{MANGLED_TYPES[limb.group(1)]}>"
+        elif conv := re.search(
+                r"conv2d_kernelI(\w)\wLi(\d+)ELi(\d+)ELb(\d)E", mangled):
+            label = (f"conv2d_kernel<{MANGLED_TYPES[conv.group(1)]}, "
+                     f"{conv.group(2)}x{conv.group(3)}"
+                     f"{', generic' if conv.group(4) == '1' else ''}>")
+        elif star := re.search(r"star_kernelI(\w)\wLi(\d+)E", mangled):
+            label = (f"star_kernel<{MANGLED_TYPES[star.group(1)]}, "
+                     f"{star.group(2)} points>")
+        elif sweeps := re.search(r"sweeps_kernelI(\w)\wE", mangled):
+            label = f"sweeps_kernel<{MANGLED_TYPES[sweeps.group(1)]}>"
         else:
             continue
         out.append(f"{label} {regs} registers, {spill} B spill")
@@ -2490,9 +2753,19 @@ def main(argv=None) -> int:
     ap.add_argument("--tc-sweep", action="store_true",
                     help="only time the tensor-core GEMM with every tile, "
                          "split and ring depth at the prefill shapes")
+    ap.add_argument("--conv2d-sweep", action="store_true",
+                    help="only time conv2d at the bench size with filters "
+                         "from 3 x 3 to 32 x 32")
+    ap.add_argument("--src", help="with --conv2d-sweep: the src/ directory "
+                                  "of another checkout of the port, whose "
+                                  "kernel to time instead")
     ap.add_argument("--out", help="with a sweep: write the times here as "
                                   "JSON")
     args = ap.parse_args(argv)
+    if args.src:
+        if not args.conv2d_sweep:
+            ap.error("--src needs --conv2d-sweep")
+        sys.path.insert(0, str(Path(args.src).resolve()))
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke runs only on the card",
@@ -2513,6 +2786,7 @@ def main(argv=None) -> int:
     paths = build.build(("widesa_hpc",) if args.mttkrp_sweep
                         else ("widesa_mm",) if args.tc_sweep
                         else ("widesa_mm", "widesa_sp") if args.fft_sweep
+                        else ("widesa_sp",) if args.conv2d_sweep
                         else tuple(build.SOURCES))
     for lib in paths:
         build.library(lib)
@@ -2526,9 +2800,12 @@ def main(argv=None) -> int:
           f"{sum(int(x) for x in spills)} bytes of spill stores; "
           f"{'; '.join(kernel_resources(build.build_log))})", flush=True)
 
-    if args.mttkrp_sweep or args.tc_sweep or args.fft_sweep:
+    if args.mttkrp_sweep or args.tc_sweep or args.fft_sweep \
+            or args.conv2d_sweep:
         rows = (mttkrp_sweep(torch) if args.mttkrp_sweep
-                else tc_sweep(torch) if args.tc_sweep else fft_sweep(torch))
+                else tc_sweep(torch) if args.tc_sweep
+                else conv2d_sweep(torch) if args.conv2d_sweep
+                else fft_sweep(torch))
         if args.out:
             Path(args.out).write_text(json.dumps(rows, indent=1))
         return 0
@@ -2553,11 +2830,14 @@ def main(argv=None) -> int:
           "gemm_tc_int_kernel on wgmma above in int8, int16 and int32 after "
           "limb_planes_kernel, both counted as wgmma; gemm_kernel tiled for "
           "the rest); fir (B3, fir.py fir_kernel "
-          "-> cuda), conv2d (B5, conv2d.py conv_kernel -> cuda) in "
+          "-> cuda), conv2d (B5, conv2d.py conv_kernel -> cuda: "
+          "conv2d_kernel, compiled 4x4 / 8x8 / 5x4 windows and a generic "
+          "one) in "
           + SP_SOURCE + "; fft2d (B4, fft2d.py fft2d/_cmul_mm -> cuda, "
           "fft2d_kernel in " + SP_SOURCE + " up to 64 rows, the composition "
           "over the GEMMs above); jacobi2d (B6, jacobi2d.py jacobi_kernel -> "
-          "cuda), mttkrp (B7, mttkrp.py mttkrp_kernel -> cuda: "
+          "cuda: star_kernel for one sweep, sweeps_kernel for T_b sweeps of "
+          "jacobi2d_ms a launch), mttkrp (B7, mttkrp.py mttkrp_kernel -> cuda: "
           "mttkrp_tc_kernel on wgmma, float32 as 3xTF32, int8, int16 and "
           "int32 as int8 limbs; mttkrp_kernel on the CUDA cores for the "
           "rest) in " + HPC_SOURCE,
@@ -2595,7 +2875,8 @@ def main(argv=None) -> int:
             # launches by kernel per path, and device times: the GEMMs'
             # (the tiled kernel's beside) with the host time of a wrapper
             # call, mttkrp's (the CUDA-core kernel's beside), fft2d's (the
-            # composition's beside)
+            # composition's beside), conv2d's and the stars' (the library
+            # call's beside); conv2d's by window, the stars' by kernel
             entry["launches_by_kernel"] = {
                 "qwen": variants[kname],
                 "qwen_prefill": prefill_variants[kname],
@@ -2604,10 +2885,32 @@ def main(argv=None) -> int:
             keys = {"mttkrp": ("device_ms", "cuda_core_device_ms",
                                "library_device_ms", "cuda_core_bound_ms"),
                     "fft2d": ("device_ms", "composition_device_ms",
-                              "library_device_ms", "dft_bound_ms")}.get(
+                              "library_device_ms", "dft_bound_ms"),
+                    "conv2d": ("device_ms", "library_device_ms"),
+                    "jacobi2d": ("device_ms", "library_device_ms")}.get(
                 kname, ("device_ms", "tiled_device_ms", "library_device_ms",
                         "host_us", "facade_us"))
             entry.update({key: row[key] for key in keys})
+        if kname == "conv2d":
+            # the paper's conv2d table: each bench case
+            entry["bench"] = {
+                where.removeprefix("bench "): {
+                    key: r.get(key) for key in (
+                        "ms", "device_ms", "generic_device_ms", "plain_ms",
+                        "library_ms", "library_device_ms", "copy_device_ms",
+                        "bound_ms", "max_abs_err")}
+                for (name, where, *_), r in rows.items()
+                if name == "conv2d" and str(where).startswith("bench")}
+        if kname == "jacobi2d":
+            # the other stars and dtypes timed, and jacobi2d_ms's call
+            entry["timed"] = {
+                f"{name} {dtype}": {key: r.get(key) for key in (
+                    "ms", "device_ms", "plain_ms", "library_ms",
+                    "library_device_ms", "bound_ms", "max_abs_err",
+                    "copy_device_ms", "launches", "host_ms", "floor_ms",
+                    "device_ms_by_sweeps")}
+                for (name, dtype), r in hpc_rows.items()
+                if name.startswith("jacobi2d")}
         if kname in WGMMA_SHAPES:
             # the tensor-core kernel at its prefill shape, the tiled
             # kernel and the library call beside it; the integer one at

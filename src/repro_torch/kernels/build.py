@@ -5,13 +5,14 @@ the skinny kernel, the tensor-core ones for floats and integers, and the
 tiled one),
 ``widesa_sp.cu`` (the FIR, conv2d and fused fft2d signal-processing
 kernels) and
-``widesa_hpc.cu`` (the star stencil and the two MTTKRP kernels).  Each
+``widesa_hpc.cu`` (the star stencils and the two MTTKRP kernels); the
+window kernels of both share ``window.cuh``.  Each
 source is its own shared library; the first call on a machine compiles
 every source that is not built yet with ``nvcc`` for Hopper (``sm_90a``),
 one ``nvcc`` process per source, all started together, into
 ``build/repro_torch_kernels/`` under the repository root, and loads the
 libraries with ``ctypes``.  A library's file name carries a hash of its
-source and the flags, so an edited source builds anew and an unchanged
+source, the headers and the flags, so an edited source builds anew and an unchanged
 one loads what is there.  The kernels take plain pointers and a stream,
 and return a ``cudaError_t``: ``call`` raises on anything but success.
 
@@ -86,11 +87,23 @@ MM_TILES = frozenset(COMPILED_TILES + SWEEP_TILES)
 _TILED_ENTRIES = ("widesa_mm_launch", "widesa_bmm_launch")
 
 #: compiled FIR output tiles (``BN``, outputs a block computes: 256
-#: threads x 1 or 4 outputs) and conv2d output tiles (``BH``, ``BW``: 256
-#: threads as 4 rows x 64 columns, 1 or 4 rows a thread); kept equal to
-#: ``launch_fir``/``launch_conv2d`` in csrc/widesa_sp.cu
+#: threads x 1 or 4 outputs), kept equal to ``launch_fir`` in
+#: csrc/widesa_sp.cu
 FIR_TILES = (256, 1024)
-CONV2D_TILES = ((4, 64), (16, 64))
+
+#: the window kernels (csrc/window.cuh: conv2d and the one-sweep star
+#: stencil): warps a block, side by side, and output columns a lane owns,
+#: 32 apart
+WINDOW_WARPS = 4
+WINDOW_LANE_COLS = 4
+#: conv2d's compiled filter windows (P, Q), kept equal to ``launch_conv2d``
+#: in csrc/widesa_sp.cu; any other filter up to ``conv2d.MAX_FILTER`` runs
+#: the generic instantiation, named (0, 0): with the filter in registers
+#: for filters of at most ``CONV2D_GENERIC_SMALL``, in shared memory for
+#: larger ones
+CONV2D_WINDOWS = ((4, 4), (8, 8), (5, 4))
+CONV2D_GENERIC = (0, 0)
+CONV2D_GENERIC_SMALL = (8, 8)
 
 #: (input, output) dtype pairs of the FIR and conv2d kernels, and of the
 #: star stencil and MTTKRP kernels (the int32 grid is jacobi2d_ms's state)
@@ -101,14 +114,16 @@ SP_DTYPES = HPC_DTYPES = frozenset({
     (torch.int32, torch.int32),
 })
 
-#: the compiled star-stencil output tile (``BH``, ``BW``: 256 threads as 8
-#: rows x 32 columns, each 4 rows of 4 columns), for star radii 1 and 2,
-#: and the CUDA-core MTTKRP kernel's output tile (``BI``, ``BJ``: 256
-#: threads as 16 x 16, each 4 rows of 4 columns); kept equal to
-#: ``launch_star`` and ``launch_mttkrp`` in csrc/widesa_hpc.cu.  The
-#: tensor-core MTTKRP kernel's geometry is ``runtime.MTTKRP_TC_*``.
-STENCIL_TILE = (32, 128)
-STENCIL_RADII = (1, 2)
+#: the compiled stars of the one-sweep stencil kernel (points: 5 for
+#: JACOBI2D_OFFSETS, 9 for JACOBI2D_9PT_OFFSETS), the multi-sweep kernel's
+#: state tile (``kSweepRows``, ``kSweepCols``) and the most sweeps it fuses
+#: (``kMaxSweeps``), and the CUDA-core MTTKRP kernel's output tile (``BI``,
+#: ``BJ``: 256 threads as 16 x 16, each 4 rows of 4 columns); kept equal to
+#: csrc/widesa_hpc.cu.  The tensor-core MTTKRP kernel's geometry is
+#: ``runtime.MTTKRP_TC_*``.
+STAR_POINTS = (5, 9)
+SWEEP_TILE = (64, 128)
+SWEEP_MAX = 8
 MTTKRP_TILE = (64, 64)
 
 #: entry point -> (library, argument types): pointers, then the ints of
@@ -132,15 +147,18 @@ _ENTRIES = {
                              + [ctypes.c_int] * 11 + [ctypes.c_void_p]),
     "widesa_fir_launch": ("widesa_sp", [ctypes.c_void_p] * 3
                           + [ctypes.c_int] * 5 + [ctypes.c_void_p]),
+    # conv2d: the shape, dtypes, the compiled window and the rows a warp
     "widesa_conv2d_launch": ("widesa_sp", [ctypes.c_void_p] * 3
-                             + [ctypes.c_int] * 8 + [ctypes.c_void_p]),
+                             + [ctypes.c_int] * 9 + [ctypes.c_void_p]),
     # the fused fft2d: X's planes, F_R's, F_C's, Z's; R, C and the split
     "widesa_fft2d_launch": ("widesa_sp", [ctypes.c_void_p] * 8
                             + [ctypes.c_int] * 3 + [ctypes.c_void_p]),
-    # the star's (di, dj) pairs come as a host int array
+    # one star sweep: the shape, the star's points, dtypes, rows
     "widesa_star_launch": ("widesa_hpc", [ctypes.c_void_p] * 3
-                           + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-                           + [ctypes.c_int] * 4 + [ctypes.c_void_p]),
+                           + [ctypes.c_int] * 6 + [ctypes.c_void_p]),
+    # T_b sweeps: the padded shape, T_b, whether last, dtypes
+    "widesa_sweeps_launch": ("widesa_hpc", [ctypes.c_void_p] * 3
+                             + [ctypes.c_int] * 6 + [ctypes.c_void_p]),
     "widesa_mttkrp_launch": ("widesa_hpc", [ctypes.c_void_p] * 4
                              + [ctypes.c_int] * 8 + [ctypes.c_void_p]),
     # the tensor-core MTTKRP: shape, dtypes, split, X's copy width
@@ -174,8 +192,9 @@ def _flags(sweep: bool) -> tuple[str, ...]:
 
 
 def _target(name: str, sweep: bool) -> Path:
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha1(
-        SOURCES[name].read_bytes() + " ".join(_flags(sweep)).encode()
+        SOURCES[name].read_bytes() + headers + " ".join(_flags(sweep)).encode()
     ).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}{'-sweep' if sweep else ''}-{digest}.so"
 

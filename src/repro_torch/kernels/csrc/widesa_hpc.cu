@@ -1,6 +1,7 @@
 // Hand-written Hopper (sm_90a) kernels for the WideSA HPC recurrences: the
-// weighted star stencils (jacobi2d, jacobi2d_9pt and each sweep of
-// jacobi2d_ms) and MTTKRP, the latter as two kernels: mttkrp_tc_kernel on
+// weighted star stencils, as star_kernel (one sweep of jacobi2d or
+// jacobi2d_9pt) and sweeps_kernel (several sweeps of jacobi2d_ms a launch),
+// and MTTKRP, the latter as two kernels: mttkrp_tc_kernel on
 // the tensor cores (float32 as 3xTF32, int8) and mttkrp_kernel on the CUDA
 // cores (int16, int32, and int8 rows that allow no 4-byte copies).
 //
@@ -19,6 +20,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "window.cuh"
 
 namespace {
 
@@ -58,119 +61,388 @@ template <> struct Flush<uint32_t, int32_t> {
 constexpr int kThreads = 256;
 
 // ---------------------------------------------------------------------------
-// Star stencil: O[r, c] = sum_s w[s] * G[r + di_s, c + dj_s] for r < oh,
-// c < ow, with G of (oh + 2R) x (ow + 2R), row-major, and the star's
-// padded-grid offsets (di_s, dj_s) in [0, 2R].  O is row-major with row
-// stride out_ld, so a sweep of jacobi2d_ms writes straight into the
-// interior of the next state, inside its fixed boundary ring.
+// Star stencils: O[r, c] = sum_s w[s] * G[r + di_s, c + dj_s] over the
+// interior of a padded grid G, for the two stars of the repository, each a
+// compile-time case (Star<5>: JACOBI2D_OFFSETS, radius 1; Star<9>:
+// JACOBI2D_9PT_OFFSETS, radius 2), with the weights in registers.
 //
 // Replaces src/repro/kernels/jacobi2d.py jacobi_kernel (pallas_call at :74
 // in jacobi2d_stacked), which contracts a (S, bh, bw) block of the
 // shifted-point stack that ops._star2d writes to HBM (ops.py:122-126: S full
 // copies of the interior, padded to the tile) with the S weights, one grid
-// visit per output tile.
+// visit per output tile; and the host loop of ops.jacobi2d_ms (ops.py:
+// 175-205), which runs one such sweep per weight row and re-embeds each
+// interior into the fixed boundary ring.
 //
-// What bounds it on an H100: bytes.  2 * S operations per output (10 for
-// the 5-point star, 18 for the 9-point one) against 8 bytes moved per
-// output in float32 (G read once, O written once): at most ~2 operations
-// per byte, far below the ~20 the CUDA cores need at 3.35 TB/s.  The design
-// reads each grid element from device memory about once: a block of 256
-// threads owns a 32 x 128 output tile, stages the input tile with its
-// R-wide halo in shared memory with coalesced row loads (the star's radius
-// R = 1 or 2 is a template parameter, so the tile is a fixed array), and
-// each thread computes 4 x 4 outputs, the rows 8 apart and the columns 32
-// apart, so that a warp reads and writes 32 consecutive addresses.  The
-// star's offsets come by value in a kernel argument and its weights from
-// device memory, so one kernel serves both stars (the TPU kernel is
-// plane-count generic the same way).  Halo rows and columns are the only
-// input read twice, from L2: (32 + 2R)(128 + 2R) / (32 * 128) = 1.16 reads
-// an element at R = 2.  Ragged edges are masked; no padding copy is made.
+// What bounds them on an H100: bytes.  2 * S operations per output (10 for
+// the 5-point star, 18 for the 9-point one) against 5-8 bytes moved per
+// output (G read once, O written once): at most ~4 operations per byte, far
+// below the ~20 the CUDA cores need at 3.35 TB/s.
+//
+// Every point is summed in s order with one fused multiply-add a point in
+// float32 (star_point), in both kernels, so a multi-sweep launch gives the
+// bits of one launch a sweep.
 // ---------------------------------------------------------------------------
-constexpr int kMaxPoints = 16;
-
-struct Star {
-  int n;
-  int di[kMaxPoints];
-  int dj[kMaxPoints];
+template <int POINTS> struct Star;
+template <> struct Star<5> {  // centre, N, S, W, E
+  static constexpr int R = 1;
+  __host__ __device__ static constexpr int di(int s) { return s == 1 ? 0 : s == 2 ? 2 : 1; }
+  __host__ __device__ static constexpr int dj(int s) { return s == 3 ? 0 : s == 4 ? 2 : 1; }
+};
+template <> struct Star<9> {  // centre, N1, N2, S1, S2 (column 2), W1, W2, E1, E2 (row 2)
+  static constexpr int R = 2;
+  __host__ __device__ static constexpr int di(int s) {
+    return s == 1 ? 1 : s == 2 ? 0 : s == 3 ? 3 : s == 4 ? 4 : 2;
+  }
+  __host__ __device__ static constexpr int dj(int s) {
+    return s == 5 ? 1 : s == 6 ? 0 : s == 7 ? 3 : s == 8 ? 4 : 2;
+  }
 };
 
-constexpr int kStarCols = 128;                           // BW
-constexpr int kColThreads = 32;
-constexpr int kRowThreads = kThreads / kColThreads;      // 8
-constexpr int kColsPerThread = kStarCols / kColThreads;  // 4
-constexpr int kStarRowsPerThread = 4;
-constexpr int kStarRows = kRowThreads * kStarRowsPerThread;  // BH = 32
+// Every point off the centre column lies on the middle row: the kernels keep
+// the centre column in registers and read the middle row from shared memory.
+template <int POINTS>
+__host__ __device__ constexpr bool star_is_a_cross() {
+  for (int s = 0; s < POINTS; ++s)
+    if (Star<POINTS>::dj(s) != Star<POINTS>::R && Star<POINTS>::di(s) != Star<POINTS>::R)
+      return false;
+  return true;
+}
+static_assert(star_is_a_cross<5>() && star_is_a_cross<9>(), "a star off the cross");
 
-template <typename TIn, typename TOut, int R>
-__global__ void __launch_bounds__(kThreads)
+// One output of the star, in s order: the points of the centre column come
+// from col(di), rows 0 .. 2R of the window, the others from mid(dj), the
+// middle row at column dj of the window.
+template <int POINTS, typename Acc, typename Col, typename Mid>
+__device__ __forceinline__ Acc star_point(const Acc (&w)[POINTS], Col col, Mid mid) {
+  using S = Star<POINTS>;
+  Acc acc = Acc(0);
+#pragma unroll
+  for (int s = 0; s < POINTS; ++s)
+    acc = window::mac(acc, w[s], S::dj(s) == S::R ? col(S::di(s)) : mid(S::dj(s)));
+  return acc;
+}
+
+// -- one sweep: star_kernel ---------------------------------------------------
+//
+// jacobi2d and jacobi2d_9pt.  The row streaming of csrc/window.cuh: a block
+// of 4 warps owns 512 output columns (a warp 128, a lane 4 of them 32
+// apart) and walks a band of `rows` output rows (runtime.star_tile picks it
+// so that the grid fills the card); each input row of a warp's strip and
+// its 2R halo columns lands in the warp's ring once, by 16-byte cp.async
+// copies kept 16 rows ahead.  A lane keeps the centre column of the star's
+// 2R + 1 rows in registers, reading each row there once as it lands, and
+// reads the middle row's 2R other points from the ring.  Outputs are written as they complete, consecutive lanes to
+// consecutive addresses; ragged edges are masked and no padding copy is
+// made.  Device memory reads each grid row once a band plus the 2R rows the
+// band below reads again (2R / rows), and each column once plus the 2R halo
+// columns of a strip (1.6 % at R = 2).
+// ---------------------------------------------------------------------------
+constexpr int kStripCols = 128;                          // output columns a warp
+constexpr int kLaneCols = kStripCols / window::kLanes;   // 4, 32 apart
+constexpr int kStarBlockCols = window::kWarps * kStripCols;  // 512
+
+template <typename TIn, typename TOut, int POINTS>
+__global__ void __launch_bounds__(window::kThreads)
 star_kernel(const TIn* __restrict__ grid, const typename Elem<TIn>::Acc* __restrict__ weights,
-            TOut* __restrict__ out, int oh, int ow, int out_ld, Star star) {
+            TOut* __restrict__ out, int oh, int ow, int rows) {
   using Acc = typename Elem<TIn>::Acc;
-  constexpr int BH = kStarRows;
-  constexpr int TILE_H = BH + 2 * R;
-  constexpr int TILE_W = kStarCols + 2 * R;
-  __shared__ Acc tile[TILE_H][TILE_W];
-  __shared__ Acc ws[kMaxPoints];
+  constexpr int R = Star<POINTS>::R;
+  constexpr int H = 2 * R + 1;
+  constexpr int D = window::kPrefetchRows;
+  constexpr int NSLOT = R + D + 1;  // the middle row, the row landing, D in flight
+  constexpr int SLOT = window::slot_bytes<TIn, kStripCols + 2 * R>();
+  __shared__ __align__(16) unsigned char ring[window::kWarps][NSLOT][SLOT];
 
-  const int tx = threadIdx.x % kColThreads;
-  const int ty = threadIdx.x / kColThreads;
-  const int r0 = blockIdx.y * BH;
-  const int c0 = blockIdx.x * kStarCols;
-  const int in_h = oh + 2 * R;
+  const int warp = threadIdx.x / window::kLanes;
+  const int lane = threadIdx.x % window::kLanes;
+  const int c0 = (blockIdx.x * window::kWarps + warp) * kStripCols;
+  if (c0 >= ow) return;
   const int in_w = ow + 2 * R;
+  const int r0 = blockIdx.y * rows;
+  const int n_in = min(rows, oh - r0) + 2 * R;
+  const int seg = min(kStripCols + 2 * R, in_w - c0);
+  const window::Ring<TIn, NSLOT, SLOT> rows_in{ring[warp], grid + (size_t)r0 * in_w + c0, in_w,
+                                                seg, n_in, lane};
 
-  if ((int)threadIdx.x < star.n) ws[threadIdx.x] = weights[threadIdx.x];
-  for (int rr = ty; rr < TILE_H; rr += kRowThreads) {
-    const int gr = r0 + rr;
-    const TIn* row = grid + (size_t)gr * in_w;
-    for (int cc = tx; cc < TILE_W; cc += kColThreads) {
-      const int gc = c0 + cc;
-      tile[rr][cc] = (gr < in_h && gc < in_w) ? Elem<TIn>::load(row + gc) : Acc(0);
+  Acc w[POINTS];
+#pragma unroll
+  for (int s = 0; s < POINTS; ++s) w[s] = weights[s];
+#pragma unroll
+  for (int i = 0; i < D; ++i) rows_in.fetch(i);
+  Acc col[H][kLaneCols];
+#pragma unroll
+  for (int k = 0; k < H; ++k)
+#pragma unroll
+    for (int j = 0; j < kLaneCols; ++j) col[k][j] = Acc(0);
+
+  for (int i = 0; i < n_in; ++i) {
+    // the slot of row i + D last held row i - R - 1, read before the
+    // __syncwarp() that ended the previous row
+    rows_in.fetch(i + D);
+    rows_in.template land<D>();
+    const TIn* row = rows_in.row(i);
+#pragma unroll
+    for (int j = 0; j < kLaneCols; ++j) {
+#pragma unroll
+      for (int k = 0; k + 1 < H; ++k) col[k][j] = col[k + 1][j];
+      col[H - 1][j] = Elem<TIn>::load(row + lane + window::kLanes * j + R);
+    }
+    if (i >= 2 * R) {
+      const TIn* mid = rows_in.row(i - R);
+      TOut* o = out + (size_t)(r0 + i - 2 * R) * ow + c0;
+#pragma unroll
+      for (int j = 0; j < kLaneCols; ++j) {
+        const int c = lane + window::kLanes * j;
+        if (c0 + c < ow)
+          o[c] = Flush<Acc, TOut>::cast(star_point<POINTS>(
+              w, [&](int di) { return col[di][j]; },
+              [&](int dj) { return Elem<TIn>::load(mid + c + dj); }));
+      }
+    }
+    __syncwarp();
+  }
+}
+
+template <typename TIn, typename TOut, int POINTS>
+int star_points(const void* grid, const void* weights, void* out, int oh, int ow, int rows,
+                cudaStream_t stream) {
+  using Acc = typename Elem<TIn>::Acc;
+  const dim3 grid_dim((unsigned)((ow + kStarBlockCols - 1) / kStarBlockCols),
+                      (unsigned)((oh + rows - 1) / rows));
+  star_kernel<TIn, TOut, POINTS><<<grid_dim, window::kThreads, 0, stream>>>(
+      static_cast<const TIn*>(grid), static_cast<const Acc*>(weights), static_cast<TOut*>(out),
+      oh, ow, rows);
+  return (int)cudaGetLastError();
+}
+
+// The compiled stars: 5 and 9 points (kept equal to STAR_POINTS in
+// repro_torch/kernels/build.py).
+template <typename TIn, typename TOut>
+int launch_star(int points, const void* grid, const void* weights, void* out, int oh, int ow,
+                int rows, cudaStream_t stream) {
+  if (rows < 1 || oh < 1 || ow < 1) return (int)cudaErrorInvalidValue;
+  if (points == 5)
+    return star_points<TIn, TOut, 5>(grid, weights, out, oh, ow, rows, stream);
+  if (points == 9)
+    return star_points<TIn, TOut, 9>(grid, weights, out, oh, ow, rows, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// -- several sweeps a launch: sweeps_kernel -----------------------------------
+//
+// jacobi2d_ms: `sweeps` (T_b) weighted 5-point sweeps of an h x w state in
+// one launch, sweep k with weight row k, inside the fixed boundary ring.  A
+// block of 512 threads owns a 64 x 128 tile of the state and loads it with
+// a T_b-wide halo into shared memory (the grid's own dtype, promoted as it
+// loads; zeros past the grid), then runs the T_b sweeps there, ping-pong
+// between two buffers: sweep k computes the tile grown by T_b - k on each
+// side, which reads only what sweep k - 1 computed.  A point on the grid's
+// outer ring keeps its value in every sweep (the Dirichlet ring of
+// ops.jacobi2d_ms), so the ring is exact wherever a tile meets it, and no
+// interior point reads past the grid; a tile whose halo lies inside the
+// ring (all but the grid's edge tiles) tests no point.  After the last
+// sweep the block writes its tile, consecutive threads to consecutive
+// addresses: the interior of the state into `dst` (oh x ow) on the last
+// launch of a call, else the whole state, ring included, into a buffer of
+// the state's shape that the next launch reads.
+//
+// Device memory moves the grid in and the result out once a launch (plus
+// the halos, read again from L2) instead of once a sweep.  What bounds the
+// launch is the sweeps in shared memory: each thread owns 4 consecutive
+// columns (a quad) of a band of rows, reads a row's quad as one 16-byte
+// load and its two outer neighbours as two 4-byte ones, keeps the star's
+// centre column for three rows in registers as the band slides down, and
+// stores the quad's 4 new points as one 16-byte store: 2.5 words of shared
+// memory a point a sweep, 5 fused multiply-adds.  The halo's sweeps cost
+// (64 + T_b)(128 + T_b) / (64 x 128) - 1 more points, 17 % at T_b = 8
+// (runtime.sweep_tile picks T_b).
+// ---------------------------------------------------------------------------
+constexpr int kSweepRows = 64;     // BH
+constexpr int kSweepCols = 128;    // BW
+constexpr int kMaxSweeps = 8;      // T_b at most
+constexpr int kSweepThreads = 512;
+constexpr int kSweepQuads = (kSweepCols + 2 * kMaxSweeps) / 4;  // 36: quads of the widest row
+constexpr int kSweepBands = kSweepThreads / kSweepQuads;        // 14 bands of rows
+static_assert(kSweepCols % 4 == 0 && kSweepBands >= 1, "sweep tile");
+
+// A row of the tile in shared memory: 4 columns of padding, the tile's
+// columns rounded up to whole quads, and 4 more, so that a quad's outer
+// neighbours (columns -1 and +4) never leave the row.
+__host__ __device__ constexpr int sweep_pitch(int sweeps) {
+  return (kSweepCols + 2 * sweeps + 3) / 4 * 4 + 8;
+}
+__host__ __device__ constexpr int sweep_smem(int sweeps) {
+  return 2 * (kSweepRows + 2 * sweeps) * sweep_pitch(sweeps) * 4;
+}
+
+template <typename Acc>
+__device__ __forceinline__ void lds4(const Acc* p, Acc (&v)[4]) {
+  using Acc4 = std::conditional_t<std::is_same<Acc, float>::value, float4, uint4>;
+  const Acc4 q = *reinterpret_cast<const Acc4*>(p);
+  v[0] = q.x;
+  v[1] = q.y;
+  v[2] = q.z;
+  v[3] = q.w;
+}
+
+template <typename Acc>
+__device__ __forceinline__ void sts4(Acc* p, const Acc (&v)[4]) {
+  using Acc4 = std::conditional_t<std::is_same<Acc, float>::value, float4, uint4>;
+  *reinterpret_cast<Acc4*>(p) = Acc4{v[0], v[1], v[2], v[3]};
+}
+
+// One sweep of the quad at column c (tile coordinates) of row r, from `in`
+// into `out` (rows of `pitch`, column 0 at element 4): up, mid and down
+// hold the quad at rows r - 1, r and r + 1, and down is loaded here.
+// EDGE: the tile meets the grid's ring or edge, so each point tests
+// whether it is interior (grid row gr0 + r, column gc0 + c + e).
+template <bool EDGE, typename Acc>
+__device__ __forceinline__ void sweep_row(const Acc* __restrict__ in, Acc* __restrict__ out,
+                                          int pitch, int r, int c, const Acc (&wk)[5],
+                                          const Acc (&up)[4], const Acc (&mid)[4],
+                                          Acc (&down)[4], int gr0, int gc0, int h, int w) {
+  const Acc* row = in + r * pitch + 4 + c;
+  lds4(row + pitch, down);
+  const Acc west = row[-1], east = row[4];
+  Acc v[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    v[e] = star_point<5>(
+        wk, [&](int di) { return di == 0 ? up[e] : di == 1 ? mid[e] : down[e]; },
+        [&](int dj) {
+          const int x = e + dj - 1;  // the middle row's column in the quad
+          return x < 0 ? west : x > 3 ? east : mid[x & 3];
+        });
+    if (EDGE) {
+      const int gr = gr0 + r, gc = gc0 + c + e;
+      if (gr < 1 || gr > h - 2 || gc < 1 || gc > w - 2) v[e] = mid[e];
+    }
+  }
+  sts4(out + r * pitch + 4 + c, v);
+}
+
+// One sweep over the rows [r_lo, r_hi) of the quad at column c: the star's
+// centre column slides down through three register quads, which take
+// turns as the row above, the row and the row below.
+template <bool EDGE, typename Acc>
+__device__ __forceinline__ void sweep_band(const Acc* __restrict__ in, Acc* __restrict__ out,
+                                           int pitch, int r_lo, int r_hi, int c,
+                                           const Acc (&wk)[5], int gr0, int gc0, int h, int w) {
+  Acc q0[4], q1[4], q2[4];
+  lds4(in + (r_lo - 1) * pitch + 4 + c, q0);
+  lds4(in + r_lo * pitch + 4 + c, q1);
+  int r = r_lo;
+  for (; r + 3 <= r_hi; r += 3) {
+    sweep_row<EDGE>(in, out, pitch, r, c, wk, q0, q1, q2, gr0, gc0, h, w);
+    sweep_row<EDGE>(in, out, pitch, r + 1, c, wk, q1, q2, q0, gr0, gc0, h, w);
+    sweep_row<EDGE>(in, out, pitch, r + 2, c, wk, q2, q0, q1, gr0, gc0, h, w);
+  }
+  if (r < r_hi) sweep_row<EDGE>(in, out, pitch, r, c, wk, q0, q1, q2, gr0, gc0, h, w);
+  if (r + 1 < r_hi) sweep_row<EDGE>(in, out, pitch, r + 1, c, wk, q1, q2, q0, gr0, gc0, h, w);
+}
+
+template <typename TIn, typename TOut>
+__global__ void __launch_bounds__(kSweepThreads)
+sweeps_kernel(const TIn* __restrict__ src, const typename Elem<TIn>::Acc* __restrict__ weights,
+              TOut* __restrict__ dst, int h, int w, int sweeps, int last) {
+  using Acc = typename Elem<TIn>::Acc;
+  extern __shared__ __align__(16) unsigned char sweep_raw[];
+  const int th = kSweepRows + 2 * sweeps;  // the tile and its halo
+  const int tw = kSweepCols + 2 * sweeps;
+  const int pitch = sweep_pitch(sweeps);
+  Acc* const buf0 = reinterpret_cast<Acc*>(sweep_raw);
+  Acc* const buf1 = buf0 + th * pitch;
+  const int gr0 = blockIdx.y * kSweepRows - sweeps;  // the tile's corner on the grid
+  const int gc0 = blockIdx.x * kSweepCols - sweeps;
+  const int warp = threadIdx.x / window::kLanes;
+  const int lane = threadIdx.x % window::kLanes;
+  constexpr int kWarps = kSweepThreads / window::kLanes;
+
+  // the tile and its halo, every load of a thread in flight at once
+  constexpr int kLoadRows = (kSweepRows + 2 * kMaxSweeps + kWarps - 1) / kWarps;        // 5
+  constexpr int kLoadCols = (kSweepCols + 2 * kMaxSweeps + window::kLanes - 1) / window::kLanes;  // 5
+  Acc staged[kLoadRows][kLoadCols];
+#pragma unroll
+  for (int i = 0; i < kLoadRows; ++i) {
+    const int r = warp + kWarps * i, gr = gr0 + r;
+#pragma unroll
+    for (int j = 0; j < kLoadCols; ++j) {
+      const int c = lane + window::kLanes * j, gc = gc0 + c;
+      staged[i][j] = r < th && c < tw && gr >= 0 && gr < h && gc >= 0 && gc < w
+                         ? Elem<TIn>::load(src + (size_t)gr * w + gc)
+                         : Acc(0);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kLoadRows; ++i) {
+    const int r = warp + kWarps * i;
+#pragma unroll
+    for (int j = 0; j < kLoadCols; ++j) {
+      const int c = lane + window::kLanes * j;
+      if (r < th && c < tw) buf0[r * pitch + 4 + c] = staged[i][j];
     }
   }
   __syncthreads();
 
+  // this thread's quad (columns 4 q .. 4 q + 3 of the tile) and band
+  const int quad = threadIdx.x % kSweepQuads;
+  const int band = threadIdx.x / kSweepQuads;
+  const bool edge = gr0 < 1 || gc0 < 1 || gr0 + th > h - 1 || gc0 + tw > w - 1;
+  for (int k = 1; k <= sweeps; ++k) {
+    const Acc* in = k & 1 ? buf0 : buf1;  // sweep k reads sweep k - 1's buffer
+    Acc* next = k & 1 ? buf1 : buf0;
+    Acc wk[5];
 #pragma unroll
-  for (int i = 0; i < kStarRowsPerThread; ++i) {
-    const int r = ty + i * kRowThreads;
-    const int gr = r0 + r;
-    if (gr >= oh) break;
-#pragma unroll
-    for (int j = 0; j < kColsPerThread; ++j) {
-      const int c = tx + j * kColThreads;
-      const int gc = c0 + c;
-      if (gc < ow) {
-        Acc acc = Acc(0);
-        for (int s = 0; s < star.n; ++s) acc += tile[r + star.di[s]][c + star.dj[s]] * ws[s];
-        out[(size_t)gr * out_ld + gc] = Flush<Acc, TOut>::cast(acc);
-      }
+    for (int s = 0; s < 5; ++s) wk[s] = weights[(k - 1) * 5 + s];
+    // sweep k's region: rows [k, th - k) and the quads over columns
+    // [k, tw - k); a quad's columns outside it are computed too, from
+    // values no later sweep reads
+    const int rows = (th - 2 * k + kSweepBands - 1) / kSweepBands;
+    const int r_lo = k + band * rows;
+    const int r_hi = min(r_lo + rows, th - k);
+    const int c = 4 * quad;
+    if (band < kSweepBands && r_lo < r_hi && c + 4 > k && c < tw - k) {
+      if (edge)
+        sweep_band<true>(in, next, pitch, r_lo, r_hi, c, wk, gr0, gc0, h, w);
+      else
+        sweep_band<false>(in, next, pitch, r_lo, r_hi, c, wk, gr0, gc0, h, w);
+    }
+    __syncthreads();
+  }
+
+  // the tile, rows and columns [sweeps, sweeps + 64 / 128), to device memory
+  const Acc* fin = sweeps & 1 ? buf1 : buf0;
+  for (int r = sweeps + warp; r < sweeps + kSweepRows; r += kWarps) {
+    const int gr = gr0 + r;
+    if (gr >= h) break;
+    for (int c = sweeps + lane; c < sweeps + kSweepCols; c += window::kLanes) {
+      const int gc = gc0 + c;
+      if (gc >= w) break;
+      const TOut v = Flush<Acc, TOut>::cast(fin[r * pitch + 4 + c]);
+      if (!last)
+        dst[(size_t)gr * w + gc] = v;
+      else if (gr >= 1 && gr <= h - 2 && gc >= 1 && gc <= w - 2)
+        dst[(size_t)(gr - 1) * (w - 2) + gc - 1] = v;
     }
   }
 }
 
-template <typename TIn, typename TOut, int R>
-int star_radius(const void* grid, const void* weights, void* out, int oh, int ow, int out_ld,
-                const Star& star, cudaStream_t stream) {
-  using Acc = typename Elem<TIn>::Acc;
-  const dim3 grid_dim((unsigned)((ow + kStarCols - 1) / kStarCols),
-                      (unsigned)((oh + kStarRows - 1) / kStarRows));
-  star_kernel<TIn, TOut, R><<<grid_dim, kThreads, 0, stream>>>(
-      static_cast<const TIn*>(grid), static_cast<const Acc*>(weights), static_cast<TOut*>(out),
-      oh, ow, out_ld, star);
-  return (int)cudaGetLastError();
-}
-
-// The compiled stencil tile: (BH, BW) = (32, 128), for radius 1 and 2 (kept
-// equal to STENCIL_TILE and STENCIL_RADII in repro_torch/kernels/build.py).
 template <typename TIn, typename TOut>
-int launch_star(int radius, int bh, int bw, const void* grid, const void* weights, void* out,
-                int oh, int ow, int out_ld, const Star& star, cudaStream_t stream) {
-  if (bh != kStarRows || bw != kStarCols) return (int)cudaErrorInvalidValue;
-  if (radius == 1)
-    return star_radius<TIn, TOut, 1>(grid, weights, out, oh, ow, out_ld, star, stream);
-  if (radius == 2)
-    return star_radius<TIn, TOut, 2>(grid, weights, out, oh, ow, out_ld, star, stream);
-  return (int)cudaErrorInvalidValue;
+int launch_sweeps(const void* src, const void* weights, void* dst, int h, int w, int sweeps,
+                  int last, cudaStream_t stream) {
+  using Acc = typename Elem<TIn>::Acc;
+  if (sweeps < 1 || sweeps > kMaxSweeps || h < 3 || w < 3) return (int)cudaErrorInvalidValue;
+  const int smem = sweep_smem(sweeps);
+  const cudaError_t allowed = cudaFuncSetAttribute(
+      sweeps_kernel<TIn, TOut>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (allowed != cudaSuccess) return (int)allowed;
+  const dim3 grid_dim((unsigned)((w + kSweepCols - 1) / kSweepCols),
+                      (unsigned)((h + kSweepRows - 1) / kSweepRows));
+  sweeps_kernel<TIn, TOut><<<grid_dim, kSweepThreads, smem, stream>>>(
+      static_cast<const TIn*>(src), static_cast<const Acc*>(weights), static_cast<TOut*>(dst), h,
+      w, sweeps, last);
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -1013,31 +1285,42 @@ int launch_mttkrp_tc(int copy, const void* x, const void* b, const void* c, void
 
 extern "C" {
 
-// O[r, c] = sum_s w[s] G[r + di_s, c + dj_s] over an oh x ow output with
-// row stride out_ld; `offsets` is a host array of n_points (di, dj) pairs
-// in [0, 2 * radius], `weights` n_points device values of the accumulator
-// type (float32, or int32 for integer grids).  Returns a cudaError_t.
+// O[r, c] = sum_s w[s] G[r + di_s, c + dj_s] over an oh x ow output (rows
+// of ow), for the star of `points` points (5: JACOBI2D_OFFSETS,
+// 9: JACOBI2D_9PT_OFFSETS); `weights` are device values of the accumulator
+// type (float32, or int32 for integer grids); each warp walks `rows` output
+// rows.  Returns a cudaError_t.
 int widesa_star_launch(const void* grid, const void* weights, void* out, int oh, int ow,
-                       int out_ld, int radius, int n_points, const int* offsets, int in_dtype,
-                       int out_dtype, int bh, int bw, void* stream) {
-  if (n_points < 1 || n_points > kMaxPoints || out_ld < ow) return (int)cudaErrorInvalidValue;
-  Star star{};
-  star.n = n_points;
-  for (int s = 0; s < n_points; ++s) {
-    star.di[s] = offsets[2 * s];
-    star.dj[s] = offsets[2 * s + 1];
-    if (star.di[s] < 0 || star.di[s] > 2 * radius || star.dj[s] < 0 || star.dj[s] > 2 * radius)
-      return (int)cudaErrorInvalidValue;
-  }
+                       int points, int in_dtype, int out_dtype, int rows,
+                       void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (in_dtype == F32 && out_dtype == F32)
-    return launch_star<float, float>(radius, bh, bw, grid, weights, out, oh, ow, out_ld, star, s);
+    return launch_star<float, float>(points, grid, weights, out, oh, ow, rows, s);
   if (in_dtype == I8 && out_dtype == I32)
-    return launch_star<int8_t, int32_t>(radius, bh, bw, grid, weights, out, oh, ow, out_ld, star, s);
+    return launch_star<int8_t, int32_t>(points, grid, weights, out, oh, ow, rows, s);
   if (in_dtype == I16 && out_dtype == I32)
-    return launch_star<int16_t, int32_t>(radius, bh, bw, grid, weights, out, oh, ow, out_ld, star, s);
+    return launch_star<int16_t, int32_t>(points, grid, weights, out, oh, ow, rows, s);
   if (in_dtype == I32 && out_dtype == I32)
-    return launch_star<int32_t, int32_t>(radius, bh, bw, grid, weights, out, oh, ow, out_ld, star, s);
+    return launch_star<int32_t, int32_t>(points, grid, weights, out, oh, ow, rows, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// `sweeps` (at most 8) weighted 5-point sweeps of the h x w state `src`
+// inside its fixed boundary ring, sweep k with the weights (sweeps, 5) row
+// k (device values of the accumulator type); into `dst`: the (h - 2) x
+// (w - 2) interior when `last`, else the whole h x w state of the
+// accumulator type, ring included.  Returns a cudaError_t.
+int widesa_sweeps_launch(const void* src, const void* weights, void* dst, int h, int w,
+                         int sweeps, int last, int in_dtype, int out_dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (in_dtype == F32 && out_dtype == F32)
+    return launch_sweeps<float, float>(src, weights, dst, h, w, sweeps, last, s);
+  if (in_dtype == I8 && out_dtype == I32)
+    return launch_sweeps<int8_t, int32_t>(src, weights, dst, h, w, sweeps, last, s);
+  if (in_dtype == I16 && out_dtype == I32)
+    return launch_sweeps<int16_t, int32_t>(src, weights, dst, h, w, sweeps, last, s);
+  if (in_dtype == I32 && out_dtype == I32)
+    return launch_sweeps<int32_t, int32_t>(src, weights, dst, h, w, sweeps, last, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -20,6 +20,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "window.cuh"
+
 namespace {
 
 // dtype codes shared with repro_torch/kernels/build.py
@@ -138,94 +142,246 @@ int launch_fir(int bn, const void* x, const void* h, void* y, int n_out, int tap
 // ops.conv2d writes to HBM (ops.py:239-261) and carries the s-axis sum in a
 // VMEM accumulator from one grid step to the next.
 //
-// What bounds it on an H100: bytes.  2 * P * Q operations per output
-// (32 at 4 x 4, 40 at the frontend's 5 x 4) against 6-8 bytes moved per
-// output: at most ~6 operations per byte.  Blocks here run in parallel in no
-// order, so nothing carries over between them: each block owns a BH x BW
-// output tile (BW = 64 columns, BH = 4 or 16 rows), stages the input tile
-// with its (P - 1, Q - 1) halo and the whole filter in shared memory
-// (coalesced: consecutive threads read consecutive columns), and each thread
-// loops over p and q in registers for its column of BH / 4 outputs.  No sum
-// crosses a block.  The halo is the only input read twice:
-// (BH + P - 1)(BW + Q - 1) / (BH BW) = 1.27 reads an element at 16 x 64 and
-// 4 x 4.  Edges are masked, so the wrapper makes no padding copy.
+// What bounds it on an H100: bytes.  2 * P * Q operations per output (32 at
+// 4 x 4, 40 at the frontend's 5 x 4, 128 at int8's 8 x 8) against 5-8 bytes
+// moved per output (I read once, O written once).  The design keeps the
+// instructions under the bytes:
+//
+//   * The filter sizes the repository runs are compile-time cases: 4 x 4
+//     (the bench's float32, int16 and int32), 8 x 8 (the bench's int8) and
+//     5 x 4 (whisper's int16 frontend), with the filter in registers.  Any
+//     other size up to 32 x 32 runs the generic instantiation of the same
+//     kernel, with the extents at run time: up to 8 x 8 the filter in
+//     registers, each row's loads issued before its products and the
+//     unrolled loops ending at the filter's extents, so that a 3 x 3
+//     filter spends no product on the taps it lacks; above, the filter in
+//     shared memory, four filter rows a 16-byte load that all lanes read
+//     at once.
+//   * The row streaming of csrc/window.cuh: a block of 4 warps owns 512
+//     output columns (a warp 128, a lane 4 of them 32 apart) and walks a band
+//     of `rows` output rows (runtime.conv2d_tile picks it so that the grid
+//     fills the card); each input row of a warp's strip and its Q - 1 halo
+//     columns lands in the warp's ring once, by 16-byte cp.async copies
+//     whatever the alignment (the inputs' rows are an odd number of elements
+//     wide), kept 16 rows ahead.  No element is staged by a division.
+//   * The window slides down the rows as P accumulators a column: an input
+//     row, read from the ring once a lane, adds its Q products to each of
+//     the P outputs it touches (filter row P - 1 - k to accumulator k), and
+//     the oldest accumulator is complete and stored.  Each output so sums p
+//     then q, the plain version's order, one fused multiply-add a product
+//     in float32; integers wrap modulo 2^32.
+//   * int8 with Q a multiple of 4 takes __dp4a: four int8 products into an
+//     int32 an instruction, the window's 4 bytes cut from two aligned words
+//     by a funnel shift (8 x 8: 16 __dp4a an output).
+//
+// Device memory reads each input row once a band plus the P - 1 rows the
+// band below reads again ((P - 1) / rows), and each column once plus the
+// Q - 1 halo columns of a strip.
 // ---------------------------------------------------------------------------
-constexpr int kConvCols = 64;
-constexpr int kConvRowThreads = kThreads / kConvCols;  // 4
+constexpr int kMaxFilter = 32;
+constexpr int kLaneCols = 4;  // output columns a lane, 32 apart
 
-template <typename TIn, typename TOut, int ROWS>
-__global__ void __launch_bounds__(kThreads)
-conv2d_kernel(const TIn* __restrict__ img, const TIn* __restrict__ filt,
-              TOut* __restrict__ out, int oh, int ow, int p, int q) {
+// A window of P x Q taps (GENERIC: of at most P x Q, the extents p x q at
+// run time).
+template <typename TIn, typename TOut, int P, int Q, bool GENERIC>
+__global__ void __launch_bounds__(window::kThreads)
+conv2d_kernel(const TIn* __restrict__ img, const TIn* __restrict__ filt, TOut* __restrict__ out,
+              int oh, int ow, int p, int q, int rows) {
   using Acc = typename Elem<TIn>::Acc;
-  constexpr int BH = kConvRowThreads * ROWS;
-  constexpr int BW = kConvCols;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  Acc* fs = reinterpret_cast<Acc*>(smem_raw);
-  Acc* tile = fs + p * q;
+  struct alignas(16) Acc4 { Acc x[4]; };
+  constexpr int LC = kLaneCols;
+  constexpr int STRIP = window::kLanes * LC;  // columns a warp
+  // the generic window up to 8 x 8 keeps its filter in registers, a
+  // larger one in shared memory
+  constexpr bool kSharedFilter = GENERIC && P * Q > 64;
+  constexpr bool kDp4a = std::is_same<TIn, int8_t>::value && !GENERIC && Q % 4 == 0;
+  // the window's columns past the strip, and the 3 bytes a word read of
+  // __dp4a may take past them
+  constexpr int HALO = (GENERIC ? kMaxFilter - 1 : Q - 1) + (kDp4a ? 4 : 0);
+  constexpr int D = window::kPrefetchRows;
+  constexpr int NSLOT = D + 1;  // the row landing and D in flight
+  constexpr int SLOT = window::slot_bytes<TIn, STRIP + HALO>();
+  __shared__ __align__(16) unsigned char ring[window::kWarps][NSLOT][SLOT];
+  // fs[qq][k] = F[np - 1 - k][qq], 0 from k = np on
+  __shared__ __align__(16) Acc fs[kSharedFilter ? Q : 1][kSharedFilter ? P : 4];
 
-  const int tile_h = BH + p - 1;
-  const int tile_w = BW + q - 1;
-  const int in_h = oh + p - 1;
-  const int in_w = ow + q - 1;
-  const int r0 = blockIdx.y * BH;
-  const int c0 = blockIdx.x * BW;
-  const int tid = threadIdx.x;
-
-  for (int e = tid; e < p * q; e += kThreads) fs[e] = Elem<TIn>::load(filt + e);
-  for (int e = tid; e < tile_h * tile_w; e += kThreads) {
-    const int rr = e / tile_w, cc = e % tile_w;
-    const int gr = r0 + rr, gc = c0 + cc;
-    tile[e] = (gr < in_h && gc < in_w) ? Elem<TIn>::load(img + (size_t)gr * in_w + gc)
-                                       : Acc(0);
-  }
-  __syncthreads();
-
-  const int tx = tid % kConvCols;
-  const int ty = tid / kConvCols;
-  const int gc = c0 + tx;
-#pragma unroll
-  for (int i = 0; i < ROWS; ++i) {
-    const int r = ty + i * kConvRowThreads;
-    const int gr = r0 + r;
-    if (gr < oh && gc < ow) {
-      Acc acc = Acc(0);
-      for (int pp = 0; pp < p; ++pp) {
-        const Acc* row = tile + (r + pp) * tile_w + tx;
-        const Acc* frow = fs + pp * q;
-        for (int qq = 0; qq < q; ++qq) acc += row[qq] * frow[qq];
-      }
-      out[(size_t)gr * ow + gc] = Flush<Acc, TOut>::cast(acc);
+  const int np = GENERIC ? p : P;
+  const int nq = GENERIC ? q : Q;
+  if constexpr (kSharedFilter) {
+    for (int e = threadIdx.x; e < P * Q; e += window::kThreads) {
+      const int qq = e / P, k = e % P;
+      fs[qq][k] = k < np && qq < nq ? Elem<TIn>::load(filt + (np - 1 - k) * nq + qq) : Acc(0);
     }
+    __syncthreads();
+  }
+  const int warp = threadIdx.x / window::kLanes;
+  const int lane = threadIdx.x % window::kLanes;
+  const int c0 = (blockIdx.x * window::kWarps + warp) * STRIP;
+  if (c0 >= ow) return;
+  const int in_w = ow + nq - 1;
+  const int r0 = blockIdx.y * rows;
+  const int n_in = min(rows, oh - r0) + np - 1;
+  const int seg = min(STRIP + nq - 1, in_w - c0);
+  const window::Ring<TIn, NSLOT, SLOT> rows_in{ring[warp], img + (size_t)r0 * in_w + c0, in_w,
+                                                seg, n_in, lane};
+
+  // the filter in registers: f[pp][qq] = F[pp][qq] in a compiled window
+  // (bytes packed four to a word for __dp4a); f[k][qq] = F[np - 1 - k][qq]
+  // in the generic one, 0 past the filter
+  constexpr int FQ = kDp4a ? Q / 4 : (kSharedFilter ? 1 : Q);
+  constexpr int FP = kSharedFilter ? 1 : P;
+  Acc f[FP][FQ];
+  if constexpr (kDp4a) {
+#pragma unroll
+    for (int pp = 0; pp < P; ++pp)
+#pragma unroll
+      for (int m = 0; m < FQ; ++m) {
+        const uint8_t* b = reinterpret_cast<const uint8_t*>(filt + pp * Q + 4 * m);
+        f[pp][m] = b[0] | (b[1] << 8) | (b[2] << 16) | ((uint32_t)b[3] << 24);
+      }
+  } else if constexpr (!GENERIC) {
+#pragma unroll
+    for (int pp = 0; pp < P; ++pp)
+#pragma unroll
+      for (int qq = 0; qq < Q; ++qq) f[pp][qq] = Elem<TIn>::load(filt + pp * Q + qq);
+  } else if constexpr (!kSharedFilter) {
+#pragma unroll
+    for (int k = 0; k < P; ++k)
+#pragma unroll
+      for (int qq = 0; qq < Q; ++qq)
+        f[k][qq] = k < np && qq < nq ? Elem<TIn>::load(filt + (np - 1 - k) * nq + qq) : Acc(0);
+  }
+
+#pragma unroll
+  for (int i = 0; i < D; ++i) rows_in.fetch(i);
+  // acc[k]: the output row that input row i reaches with filter row np-1-k
+  Acc acc[P][LC];
+#pragma unroll
+  for (int k = 0; k < P; ++k)
+#pragma unroll
+    for (int j = 0; j < LC; ++j) acc[k][j] = Acc(0);
+
+  for (int i = 0; i < n_in; ++i) {
+    // the slot of row i + D last held row i - 1, read before the
+    // __syncwarp() that ended the previous row
+    rows_in.fetch(i + D);
+    rows_in.template land<D>();
+    const TIn* row = rows_in.row(i);
+    if constexpr (kDp4a) {
+      const uint32_t* words = reinterpret_cast<const uint32_t*>(rows_in.slot(i));
+      const int lead = (int)(row - reinterpret_cast<const TIn*>(words));
+#pragma unroll
+      for (int j = 0; j < LC; ++j) {
+        const int x = lead + lane + window::kLanes * j;  // the window's first byte
+        uint32_t wd[FQ + 1];
+#pragma unroll
+        for (int m = 0; m <= FQ; ++m) wd[m] = words[(x >> 2) + m];
+#pragma unroll
+        for (int m = 0; m < FQ; ++m) {
+          const int v = (int)__funnelshift_r(wd[m], wd[m + 1], 8 * (x & 3));
+#pragma unroll
+          for (int k = 0; k < P; ++k)
+            acc[k][j] = (uint32_t)__dp4a(v, (int)f[P - 1 - k][m], (int)acc[k][j]);
+        }
+      }
+    } else if constexpr (!GENERIC) {
+#pragma unroll
+      for (int j = 0; j < LC; ++j)
+#pragma unroll
+        for (int qq = 0; qq < Q; ++qq) {
+          const Acc v = Elem<TIn>::load(row + lane + window::kLanes * j + qq);
+#pragma unroll
+          for (int k = 0; k < P; ++k) acc[k][j] = window::mac(acc[k][j], f[P - 1 - k][qq], v);
+        }
+    } else if constexpr (!kSharedFilter) {
+      // every load of the row first (Q <= 8 columns past the lane's lie in
+      // the slot), then the products the filter has
+      Acc v[Q][LC];
+#pragma unroll
+      for (int qq = 0; qq < Q; ++qq)
+#pragma unroll
+        for (int j = 0; j < LC; ++j) v[qq][j] = Elem<TIn>::load(row + lane + window::kLanes * j + qq);
+#pragma unroll
+      for (int qq = 0; qq < Q; ++qq) {
+        if (qq >= nq) break;
+#pragma unroll
+        for (int k = 0; k < P; ++k) {
+          if (k >= np) break;
+#pragma unroll
+          for (int j = 0; j < LC; ++j) acc[k][j] = window::mac(acc[k][j], f[k][qq], v[qq][j]);
+        }
+      }
+    } else {
+      for (int qq = 0; qq < nq; ++qq) {
+        Acc v[LC];
+#pragma unroll
+        for (int j = 0; j < LC; ++j) v[j] = Elem<TIn>::load(row + lane + window::kLanes * j + qq);
+        // four filter rows a 16-byte load; the products past np (of the
+        // filter's 0) reach only accumulators that no output reads
+#pragma unroll
+        for (int kb = 0; kb < P; kb += 4) {
+          if (kb >= np) break;
+          const Acc4 w = *reinterpret_cast<const Acc4*>(&fs[qq][kb]);
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+#pragma unroll
+            for (int j = 0; j < LC; ++j)
+              acc[kb + u][j] = window::mac(acc[kb + u][j], w.x[u], v[j]);
+        }
+      }
+    }
+    if (i >= np - 1) {
+      TOut* o = out + (size_t)(r0 + i - (np - 1)) * ow + c0;
+#pragma unroll
+      for (int j = 0; j < LC; ++j) {
+        const int c = lane + window::kLanes * j;
+        if (c0 + c < ow) o[c] = Flush<Acc, TOut>::cast(acc[0][j]);
+      }
+    }
+    // slide: acc[np - 1] starts the next output row from 0
+#pragma unroll
+    for (int k = 0; k < P; ++k) {
+      if (k >= np) break;
+#pragma unroll
+      for (int j = 0; j < LC; ++j) acc[k][j] = k + 1 < np ? acc[k + 1][j] : Acc(0);
+    }
+    __syncwarp();
   }
 }
 
-template <typename TIn, typename TOut, int ROWS>
-int conv2d_tile(const void* img, const void* filt, void* out, int oh, int ow, int p, int q,
-                cudaStream_t stream) {
-  using Acc = typename Elem<TIn>::Acc;
-  constexpr int BH = kConvRowThreads * ROWS;
-  const size_t smem =
-      ((size_t)p * q + (size_t)(BH + p - 1) * (kConvCols + q - 1)) * sizeof(Acc);
-  const dim3 grid((unsigned)((ow + kConvCols - 1) / kConvCols), (unsigned)((oh + BH - 1) / BH));
-  conv2d_kernel<TIn, TOut, ROWS><<<grid, kThreads, smem, stream>>>(
-      static_cast<const TIn*>(img), static_cast<const TIn*>(filt), static_cast<TOut*>(out),
-      oh, ow, p, q);
+template <typename TIn, typename TOut, int P, int Q, bool GENERIC>
+int conv2d_window(const void* img, const void* filt, void* out, int oh, int ow, int p, int q,
+                  int rows, cudaStream_t stream) {
+  constexpr int block_cols = window::kWarps * window::kLanes * kLaneCols;
+  const dim3 grid((unsigned)((ow + block_cols - 1) / block_cols), (unsigned)((oh + rows - 1) / rows));
+  conv2d_kernel<TIn, TOut, P, Q, GENERIC><<<grid, window::kThreads, 0, stream>>>(
+      static_cast<const TIn*>(img), static_cast<const TIn*>(filt), static_cast<TOut*>(out), oh,
+      ow, p, q, rows);
   return (int)cudaGetLastError();
 }
 
-// The compiled conv2d tiles: (BH, BW) = (4, 64) or (16, 64) (kept equal to
-// CONV2D_TILES in repro_torch/kernels/build.py).
+// The compiled windows: 4 x 4, 8 x 8 and 5 x 4, and (0, 0), the generic
+// instantiation, with the filter in registers up to 8 x 8 and in shared
+// memory above (kept equal to CONV2D_WINDOWS and CONV2D_GENERIC_SMALL in
+// repro_torch/kernels/build.py).
 template <typename TIn, typename TOut>
-int launch_conv2d(int bh, int bw, const void* img, const void* filt, void* out, int oh,
+int launch_conv2d(int wp, int wq, int rows, const void* img, const void* filt, void* out, int oh,
                   int ow, int p, int q, cudaStream_t stream) {
-  if (bw != kConvCols) return (int)cudaErrorInvalidValue;
-  if (bh == kConvRowThreads) return conv2d_tile<TIn, TOut, 1>(img, filt, out, oh, ow, p, q, stream);
-  if (bh == 4 * kConvRowThreads)
-    return conv2d_tile<TIn, TOut, 4>(img, filt, out, oh, ow, p, q, stream);
+  if (p < 1 || q < 1 || p > kMaxFilter || q > kMaxFilter || oh < 1 || ow < 1 || rows < 1)
+    return (int)cudaErrorInvalidValue;
+  if (wp == 4 && wq == 4 && p == 4 && q == 4)
+    return conv2d_window<TIn, TOut, 4, 4, false>(img, filt, out, oh, ow, p, q, rows, stream);
+  if (wp == 8 && wq == 8 && p == 8 && q == 8)
+    return conv2d_window<TIn, TOut, 8, 8, false>(img, filt, out, oh, ow, p, q, rows, stream);
+  if (wp == 5 && wq == 4 && p == 5 && q == 4)
+    return conv2d_window<TIn, TOut, 5, 4, false>(img, filt, out, oh, ow, p, q, rows, stream);
+  if (wp == 0 && wq == 0 && p <= 8 && q <= 8)
+    return conv2d_window<TIn, TOut, 8, 8, true>(img, filt, out, oh, ow, p, q, rows, stream);
+  if (wp == 0 && wq == 0)
+    return conv2d_window<TIn, TOut, kMaxFilter, kMaxFilter, true>(img, filt, out, oh, ow, p, q,
+                                                                 rows, stream);
   return (int)cudaErrorInvalidValue;
 }
-
 
 // ---------------------------------------------------------------------------
 // fft2d: Z = F_R X F_C, the 2-D DFT of an R x C complex grid held as float32
@@ -553,18 +709,20 @@ int widesa_fir_launch(const void* x, const void* h, void* y, int n_out, int taps
 }
 
 // O[r, c] = sum_{p,q} I[r + p, c + q] F[p, q] over an oh x ow output (the
-// conv2d recurrence).  Returns a cudaError_t.
+// conv2d recurrence) on the compiled window (wp, wq), (0, 0) for the
+// generic one; each warp walks `rows` output rows.  Returns a cudaError_t.
 int widesa_conv2d_launch(const void* img, const void* filt, void* out, int oh, int ow, int p,
-                         int q, int in_dtype, int out_dtype, int bh, int bw, void* stream) {
+                         int q, int in_dtype, int out_dtype, int wp, int wq, int rows,
+                         void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (in_dtype == F32 && out_dtype == F32)
-    return launch_conv2d<float, float>(bh, bw, img, filt, out, oh, ow, p, q, s);
+    return launch_conv2d<float, float>(wp, wq, rows, img, filt, out, oh, ow, p, q, s);
   if (in_dtype == I8 && out_dtype == I32)
-    return launch_conv2d<int8_t, int32_t>(bh, bw, img, filt, out, oh, ow, p, q, s);
+    return launch_conv2d<int8_t, int32_t>(wp, wq, rows, img, filt, out, oh, ow, p, q, s);
   if (in_dtype == I16 && out_dtype == I32)
-    return launch_conv2d<int16_t, int32_t>(bh, bw, img, filt, out, oh, ow, p, q, s);
+    return launch_conv2d<int16_t, int32_t>(wp, wq, rows, img, filt, out, oh, ow, p, q, s);
   if (in_dtype == I32 && out_dtype == I32)
-    return launch_conv2d<int32_t, int32_t>(bh, bw, img, filt, out, oh, ow, p, q, s);
+    return launch_conv2d<int32_t, int32_t>(wp, wq, rows, img, filt, out, oh, ow, p, q, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -292,9 +292,10 @@ register(KernelSpec(
 register(KernelSpec(
     name="jacobi2d_ms",
     arity=2,
-    # the sweep loop t is a host loop around the stencil kernel (its flow
-    # dependence forbids both space mapping and grid parallelism); the
-    # per-sweep weights W[t, s] carry the sweep count in-operand
+    # the sweep loop t runs T_b sweeps a launch of the multi-sweep kernel,
+    # the launches in order (its flow dependence forbids both space mapping
+    # and grid parallelism); the per-sweep weights W[t, s] carry the sweep
+    # count in-operand
     grid_loops=("i", "j"),
     block_kwargs=_jacobi_blocks,
     tiles=_stencil_tiles,
@@ -313,7 +314,7 @@ register(KernelSpec(
 register(KernelSpec(
     name="jacobi2d_9pt",
     arity=2,
-    # the radius-2 star on the same stencil kernel (plane-count generic)
+    # the radius-2 star: a compile-time case of the one-sweep star kernel
     grid_loops=("i", "j"),
     block_kwargs=_jacobi_blocks,
     tiles=_stencil_tiles,

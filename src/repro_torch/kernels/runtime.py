@@ -64,23 +64,36 @@ PERF.md has the times behind these choices (``chip_smoke.py`` and its
 configuration that ran.  The batch block is not a kernel tile: each
 batch entry gets its own grid slice.
 
-fir and conv2d (``fir_tile``, ``conv2d_tile``): the plan's output block
-({n: 103} or {h: 8, w: 64} on the audio frontend) is a TPU tile; the
-kernels are compiled for a 256-thread block computing 1 or 4 outputs a
-thread.  The larger tile is taken when it still gives every one of the
-card's 132 SMs a block, the smaller one otherwise (the frontend's
-chunks are a few thousand outputs: 25 and 16 blocks with the small
-tiles, 7 and 8 with the large).  On an H100 this picks the faster tile
-at both the frontend and the bench shapes (PERF.md, from
-``chip_smoke.py``).
+fir (``fir_tile``): the plan's output block ({n: 103} on the audio
+frontend) is a TPU tile; the kernel is compiled for a 256-thread block
+computing 1 or 4 outputs a thread.  The larger tile is taken when it still
+gives every one of the card's 132 SMs a block, the smaller one otherwise
+(the frontend's chunks are a few thousand outputs: 25 blocks with the
+small tile, 7 with the large).  On an H100 this picks the faster tile at
+both the frontend and the bench shapes (PERF.md, from ``chip_smoke.py``).
 
-The star stencils (``stencil_tile``): the reference planner's
-single-chip plans are TPU tiles again ({i: 2, j: 2}, {i: 12, j: 12},
-{i: 89, j: 89} for the three stencils at their bench sizes).  The kernel
-is compiled for one tile, a 256-thread block of 4 x 4 outputs a thread
-(``build.STENCIL_TILE``), which every plan maps onto: the path runs them
-at the bench sizes only, where it was the faster of two tiles on an H100
-(PERF.md).
+conv2d and the one-sweep star stencils run the window kernels
+(``csrc/window.cuh``): blocks of 4 warps side by side, 512 output
+columns, each warp walking a band
+of output rows.  The plan's block ({h: 8, w: 64} on the frontend; {i: 2,
+j: 2} and {i: 12, j: 12} for the stencils at their bench sizes) is a TPU
+tile and sets nothing: ``window_rows`` cuts the rows into the fewest bands
+that still give each SM ``WINDOW_BLOCKS_PER_SM`` blocks (194 rows at the
+bench sizes, one row a band for the frontend's 8 output rows), since a
+band reads its rows' halo (P - 1 or 2R rows) a second time.  conv2d's
+``Conv2dTile`` names the compiled filter window its P x Q runs on
+(``conv2d_window``: 4 x 4, 8 x 8 and 5 x 4, else the generic
+instantiation); the star's ``StarTile`` only the rows, since the star
+(5 or 9 points) follows the recurrence.
+
+jacobi2d_ms (``sweep_tile``) runs the multi-sweep kernel: T_b sweeps a
+launch on 64 x 128 tiles of the state with a T_b-wide halo, so T sweeps
+take ceil(T / T_b) launches (``SweepTile.launches``).  T_b is
+min(T, ``build.SWEEP_MAX``): at 8 the two tile buffers (95 KB) still
+leave room for a second block on an SM, and on an H100 T_b = 8 was the
+fastest of 1, 2, 4 and 8 at the bench size (PERF.md, ``chip_smoke.py``);
+the plan's block ({i: 89, j: 89} at the bench size) sets nothing
+either.
 
 mttkrp runs one of two kernels of ``csrc/widesa_hpc.cu`` (``mttkrp_tile``,
 ``mttkrp_route``), chosen from the dtype and the shape, not from the plan
@@ -479,24 +492,102 @@ def fir_tile(plan: "ExecutionPlan", n_out: int) -> HopperTiles:
         plan=(registry.get("fir").block_kwargs(plan)["bn"],), tile=(bn,))
 
 
+#: blocks the window kernels' grid aims to give each SM (``window_rows``)
+WINDOW_BLOCKS_PER_SM = 8
+#: output columns a window kernel's block owns: 4 warps x 32 lanes x 4
+WINDOW_BLOCK_COLS = build.WINDOW_WARPS * 32 * build.WINDOW_LANE_COLS
+
+
+def window_rows(oh: int, ow: int, block_cols: int) -> int:
+    """Output rows each warp of a window kernel (conv2d, the one-sweep
+    star) walks for an ``oh`` x ``ow`` output, blocks ``block_cols``
+    columns wide: the fewest that still give the card
+    ``WINDOW_BLOCKS_PER_SM`` blocks an SM, or one output row a band
+    (module docstring)."""
+    across = -(-ow // block_cols)
+    bands = max(1, min(oh, -(-SMS * WINDOW_BLOCKS_PER_SM // across)))
+    return -(-oh // bands)
+
+
+@dataclasses.dataclass(frozen=True)
+class Conv2dTile:
+    """A conv2d launch (``csrc/widesa_sp.cu`` ``conv2d_kernel``): the
+    compiled filter window (P, Q), or ``build.CONV2D_GENERIC`` for the
+    generic instantiation, and the output rows each warp walks."""
+
+    window: tuple[int, int]
+    rows: int
+
+
+def conv2d_window(p: int, q: int) -> tuple[int, int]:
+    """The compiled window a P x Q filter runs on: its own where compiled
+    (``build.CONV2D_WINDOWS``), else the generic instantiation."""
+    return (p, q) if (p, q) in build.CONV2D_WINDOWS else build.CONV2D_GENERIC
+
+
+def conv2d_config(p: int, q: int, oh: int, ow: int,
+                  window: tuple[int, int] | None = None) -> Conv2dTile:
+    """The launch of an ``oh`` x ``ow`` conv2d output by a ``p`` x ``q``
+    filter: on ``window`` (by default the one ``conv2d_window`` picks;
+    ``build.CONV2D_GENERIC`` for the generic instantiation), in bands of
+    the rows ``window_rows`` gives its blocks (``WINDOW_BLOCK_COLS``)."""
+    window = conv2d_window(p, q) if window is None else tuple(window)
+    return Conv2dTile(window=window,
+                      rows=window_rows(oh, ow, WINDOW_BLOCK_COLS))
+
+
 def conv2d_tile(plan: "ExecutionPlan", oh: int, ow: int) -> HopperTiles:
-    """The compiled conv2d tile for an ``oh`` x ``ow`` output: the taller
-    one while it leaves a block for every SM (module docstring)."""
+    """A conv2d plan's block beside the launch of its ``oh`` x ``ow``
+    output (``conv2d_config``)."""
     from . import registry
 
     kw = registry.get("conv2d").block_kwargs(plan)
-    small, large = build.CONV2D_TILES
-    blocks = -(-oh // large[0]) * -(-ow // large[1])
-    return HopperTiles(plan=(kw["bh"], kw["bw"]),
-                       tile=large if blocks >= SMS else small)
+    rec = plan.recurrence
+    return HopperTiles(plan=(kw["bh"], kw["bw"]), tile=conv2d_config(
+        rec.extent("p"), rec.extent("q"), oh, ow))
+
+
+@dataclasses.dataclass(frozen=True)
+class StarTile:
+    """A one-sweep star launch (``csrc/widesa_hpc.cu`` ``star_kernel``):
+    the output rows each warp walks."""
+
+    rows: int
+
+
+def star_tile(oh: int, ow: int) -> StarTile:
+    """The one-sweep star launch of an ``oh`` x ``ow`` output."""
+    return StarTile(rows=window_rows(oh, ow, WINDOW_BLOCK_COLS))
+
+
+@dataclasses.dataclass(frozen=True)
+class SweepTile:
+    """A multi-sweep stencil call (``csrc/widesa_hpc.cu``
+    ``sweeps_kernel``): the sweeps T_b each launch fuses.  T sweeps take
+    ``launches(T)`` launches, the last one the remainder."""
+
+    sweeps: int
+
+    def launches(self, t: int) -> int:
+        return -(-t // self.sweeps)
+
+
+def sweep_tile(t: int) -> SweepTile:
+    """T_b for ``t`` sweeps (module docstring): as many as the kernel
+    fuses, ``build.SWEEP_MAX``, and at most ``t``; 1 for no sweep."""
+    return SweepTile(sweeps=max(1, min(t, build.SWEEP_MAX)))
 
 
 def stencil_tile(plan: "ExecutionPlan") -> HopperTiles:
-    """A star-stencil plan's tile beside the compiled one."""
+    """A star-stencil plan's block beside its launch: a ``SweepTile`` for
+    jacobi2d_ms, else the ``StarTile`` of its output."""
     from . import registry
 
-    kw = registry.get(plan.recurrence.name).block_kwargs(plan)
-    return HopperTiles(plan=(kw["bh"], kw["bw"]), tile=build.STENCIL_TILE)
+    rec = plan.recurrence
+    kw = registry.get(rec.name).block_kwargs(plan)
+    tile = (sweep_tile(rec.extent("t")) if rec.name == "jacobi2d_ms"
+            else star_tile(rec.extent("i"), rec.extent("j")))
+    return HopperTiles(plan=(kw["bh"], kw["bw"]), tile=tile)
 
 
 #: the tensor-core MTTKRP kernel's geometry (``kTc*`` in

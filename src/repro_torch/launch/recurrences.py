@@ -24,13 +24,17 @@ The port's counterpart of ``examples/map_paper_benchmarks.py``,
    modelled TPU, which says nothing of the card.
 
 On ``cuda`` (the default) the plans run on the hand-written kernels.  The
-stencils, mttkrp, mm and bmm run at their registry ``bench_cases``
-(``--size bench``, the default there: paper-scale 10238^2 and 10236^2
-grids, a 4094^2 grid for 8 sweeps, mttkrp at (4096, 400, 256, 256), the
-paper's MM table (float32 8192^3, int8 10240^3, int16 9600^3, int32
-8192^3) and BMM table (64 x 4096^3 in float32, int8 and int16)).  The
-three signal-processing recurrences run at their ``smoke_args``: their
-frontend and bench shapes are timed by ``chip_smoke.py``'s kernel phase.
+stencils, mttkrp, mm, bmm and conv2d run at their registry
+``bench_cases`` (``--size bench``, the default there: paper-scale 10238^2
+and 10236^2 grids, a 4094^2 grid for 8 sweeps, mttkrp at (4096, 400, 256,
+256), the paper's MM table (float32 8192^3, int8 10240^3, int16 9600^3,
+int32 8192^3), BMM table (64 x 4096^3 in float32, int8 and int16) and
+conv2d table (10240^2 outputs: float32, int16 and int32 with a 4 x 4
+filter, int8 with an 8 x 8 one)).  fir and fft2d_stage run at their
+``smoke_args``: fir's bench cases hold a complex one (``cfloat``) and
+fft2d_stage's are complex too, and the port has no complex lowering yet
+(ROADMAP A6); ``chip_smoke.py``'s kernel phase times fir at its frontend
+and float32 bench shapes.
 bmm's plain version runs one batch entry at a time (``BATCHED``): at 64
 x 4096^3 a whole one would need ~70 GB of exact-integer temporaries.
 ``--device cpu`` runs the plain versions (the wrappers' CPU path) at
@@ -64,11 +68,14 @@ import torch
 
 #: the recurrences run at their bench cases on ``--size bench``; the rest
 #: run at their smoke sizes (module docstring)
-BENCH_SPECS = ("mm", "bmm", "jacobi2d", "jacobi2d_9pt", "jacobi2d_ms",
-               "mttkrp")
+BENCH_SPECS = ("mm", "bmm", "conv2d", "jacobi2d", "jacobi2d_9pt",
+               "jacobi2d_ms", "mttkrp")
 #: the recurrences whose operands and output lead with a batch dimension:
 #: they are held to the plain version one batch entry at a time
 BATCHED = ("bmm",)
+
+#: timed calls of each case, after the one held against the plain version
+TIMED_CALLS = 3
 
 #: the unit roundoff of float32
 U32 = 2.0 ** -24
@@ -181,8 +188,8 @@ def run_case(spec, rec, target, generator, device) -> dict:
         torch.cuda.synchronize()
     tiles = runtime.last_tiles.get(spec.name)
     err, ok = held(spec, rec, ops, out)
-    ms = time_ms(lambda: fn(*ops), device)
-    row = dict(name=spec.name, dtype=rec.dtype, args=rec.extents,
+    ms = time_ms(lambda: fn(*ops), device, TIMED_CALLS)
+    row = dict(name=spec.name, dtype=rec.dtype, args=rec.extents, rec=rec,
                block=dict(plan.partition.block), feasible=plan.feasible,
                tiles=tiles, max_abs_err=err, ok=ok, ms=ms)
     compiled = ("the plain version" if tiles is None

@@ -222,7 +222,7 @@ def test_frontend_plan_blocks_on_whisper_base():
     assert runtime.fir_tile(fir_plan, 6180) == runtime.HopperTiles(
         plan=(103,), tile=(256,))
     assert runtime.conv2d_tile(conv_plan, 8, 512) == runtime.HopperTiles(
-        plan=(8, 64), tile=(4, 64))
+        plan=(8, 64), tile=runtime.Conv2dTile(window=(5, 4), rows=1))
 
 
 @pytest.mark.parametrize("n_out,tile", [(6180, 256), (1000, 256),
@@ -232,19 +232,32 @@ def test_fir_tile_keeps_every_sm_busy(n_out, tile):
     assert runtime.fir_tile(plan, n_out).tile == (tile,)
 
 
-@pytest.mark.parametrize("oh,ow,tile", [(8, 512, (4, 64)),
-                                        (10240, 10240, (16, 64))])
-def test_conv2d_tile_keeps_every_sm_busy(oh, ow, tile):
-    plan = planned.plan_for("conv2d", (oh, ow, 4, 4), "float32")
-    assert runtime.conv2d_tile(plan, oh, ow).tile == tile
+@pytest.mark.parametrize("oh,ow,p,q,tile", [
+    (8, 512, 5, 4, runtime.Conv2dTile(window=(5, 4), rows=1)),
+    (10240, 10240, 4, 4, runtime.Conv2dTile(window=(4, 4), rows=194)),
+    (10240, 10240, 8, 8, runtime.Conv2dTile(window=(8, 8), rows=194)),
+    (70, 45, 3, 5, runtime.Conv2dTile(window=(0, 0), rows=1))])
+def test_conv2d_tile_keeps_every_sm_busy(oh, ow, p, q, tile):
+    """The filter's compiled window (the generic one for other sizes),
+    and bands of rows cut until each SM has ``WINDOW_BLOCKS_PER_SM``
+    blocks of 512 columns, or one row a band."""
+    plan = planned.plan_for("conv2d", (oh, ow, p, q), "float32")
+    got = runtime.conv2d_tile(plan, oh, ow).tile
+    assert got == tile
+    blocks = -(-ow // 512) * -(-oh // got.rows)
+    assert got.rows == 1 or \
+        blocks >= runtime.SMS * runtime.WINDOW_BLOCKS_PER_SM
 
 
 def test_compiled_tiles_match_the_cuda_source():
-    """build.FIR_TILES / CONV2D_TILES list exactly what the source
-    compiles (256 threads; 1 or 4 outputs a thread)."""
+    """build.FIR_TILES / CONV2D_WINDOWS list exactly what the source
+    compiles (FIR: 256 threads, 1 or 4 outputs a thread; conv2d: the 4 x
+    4, 8 x 8 and 5 x 4 windows and the generic one, (0, 0), as two
+    instantiations: up to ``CONV2D_GENERIC_SMALL`` and up to
+    ``MAX_FILTER``), and the window kernels' geometry is the one the
+    runtime sizes grids with."""
     src = build.SP_SOURCE.read_text()
     threads = int(re.search(r"kThreads = (\d+);", src).group(1))
-    cols = int(re.search(r"kConvCols = (\d+);", src).group(1))
     fir_body = src[src.index("int launch_fir("):]
     fir_body = fir_body[:fir_body.index("\n}\n")]
     per = [int(x) for x in re.findall(r"fir_tile<TIn, TOut, (\d+)>",
@@ -252,10 +265,24 @@ def test_compiled_tiles_match_the_cuda_source():
     assert tuple(threads * p for p in per) == build.FIR_TILES
     conv_body = src[src.index("int launch_conv2d("):]
     conv_body = conv_body[:conv_body.index("\n}\n")]
-    rows = [int(x) for x in re.findall(r"conv2d_tile<TIn, TOut, (\d+)>",
-                                       conv_body)]
-    assert tuple((threads // cols * r, cols) for r in rows) == \
-        build.CONV2D_TILES
+    windows = re.findall(
+        r"if \(wp == (\d+) && wq == (\d+)[^\n]*\n *return conv2d_window"
+        r"<TIn, TOut, (\w+), (\w+), (true|false)>", conv_body)
+    assert [(int(p), int(q)) for p, q, *_ in windows] == \
+        [*build.CONV2D_WINDOWS, build.CONV2D_GENERIC, build.CONV2D_GENERIC]
+    assert [tuple(w[2:]) for w in windows] == [
+        *((str(p), str(q), "false") for p, q in build.CONV2D_WINDOWS),
+        (*map(str, build.CONV2D_GENERIC_SMALL), "true"),
+        ("kMaxFilter", "kMaxFilter", "true")]
+    small_p, small_q = build.CONV2D_GENERIC_SMALL
+    assert f"p <= {small_p} && q <= {small_q})" in conv_body
+    header = (build.CSRC / "window.cuh").read_text()
+    assert int(re.search(r"kWarps = (\d+);", header).group(1)) == \
+        build.WINDOW_WARPS
+    assert int(re.search(r"kLaneCols = (\d+);", src).group(1)) == \
+        build.WINDOW_LANE_COLS
+    assert int(re.search(r"kMaxFilter = (\d+);", src).group(1)) == \
+        conv2d.MAX_FILTER
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
-"""The port's GEMM (the skinny and tensor-core kernels), FIR, conv2d,
-fft2d, star-stencil and MTTKRP kernels against their plain versions on the
-card.
+"""The port's GEMM (the skinny and tensor-core kernels), FIR, conv2d
+(every compiled window and the generic one), fft2d, star-stencil (one
+sweep, and several a launch) and MTTKRP kernels against their plain
+versions on the card.
 
 Every test here is ``gpu``-marked and skips without a CUDA card.  The file
 imports only the port (no JAX), so it runs on a machine with a card and
@@ -10,9 +11,12 @@ the import path itself, so either start line works from the root:
     python -m pytest -q -m gpu tests/test_torch_gpu.py
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
-Integers are bit-exact (int32 wraparound); float32 within the registry's
-atol 1e-3 (FIR, conv2d, the stencils: sums of at most 20 products in
-another order; MTTKRP: sums of at most 4096 products of three N(0, 1)
+Integers are bit-exact (int32 wraparound, at full-range and extreme
+operands); float32 within the registry's atol 1e-3 (FIR, conv2d, the
+one-sweep stencils: sums of at most 1024 products in another order; the
+multi-sweep stencil within ``recurrences.float_bound``, since 9 sweeps
+grow the values ~2000-fold, and bitwise equal to one launch a sweep;
+MTTKRP: sums of at most 4096 products of three N(0, 1)
 draws, in fp32 or as 3xTF32 on the tensor cores; the GEMMs: sums of at
 most 11004 products of N(0, 1) draws, 3xTF32 on the tensor-core kernel
 at up to 1024; the rounding error of either is ~1e-4) and 1.0 (fft2d,
@@ -63,18 +67,30 @@ def _operands(name, args, dtype, gen):
             for s in shapes]
 
 
+def _launches(name, args):
+    """FIR's compiled tiles; conv2d's window the runtime picks for the
+    filter and the generic instantiation."""
+    if name == "fir":
+        return [(t,) for t in build.FIR_TILES]
+    h, w, p, q = args
+    picked = runtime.conv2d_config(p, q, h, w)
+    generic = runtime.conv2d_config(p, q, h, w, window=build.CONV2D_GENERIC)
+    return [picked] if picked == generic else [picked, generic]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", ["fir", "conv2d"])
 def test_kernels_match_plain_versions_on_the_card(name, gen):
     mod = fir if name == "fir" else conv2d
     fn = getattr(mod, name)
-    tiles = ([(t,) for t in build.FIR_TILES] if name == "fir"
-             else list(build.CONV2D_TILES))
     before = mod.launches
+    launched = 0
     for args in SHAPES[name]:
+        tiles = _launches(name, args)
         for dtype in DTYPES:
             a, b = _operands(name, args, dtype, gen)
             want = getattr(ref, name)(a, b)
+            launched += len(tiles)
             for tile in tiles:
                 got = fn(a, b, tiles=tile)
                 torch.cuda.synchronize()
@@ -82,8 +98,7 @@ def test_kernels_match_plain_versions_on_the_card(name, gen):
                     torch.testing.assert_close(got, want, rtol=0, atol=1e-3)
                 else:
                     assert torch.equal(got, want)
-    assert mod.launches - before == \
-        len(SHAPES[name]) * len(DTYPES) * len(tiles)
+    assert mod.launches - before == launched
 
 
 @pytest.mark.gpu
@@ -185,32 +200,212 @@ def _same(got, want):
         assert torch.equal(got, want)
 
 
+def _stencil_tile(name, shape, sweeps=3):
+    """The launch the runtime picks for a stencil over a grid of
+    ``shape``."""
+    if name == "jacobi2d_ms":
+        return runtime.sweep_tile(sweeps)
+    pad = 4 if name == "jacobi2d_9pt" else 2
+    return runtime.star_tile(shape[0] - pad, shape[1] - pad)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", ["jacobi2d", "jacobi2d_9pt", "jacobi2d_ms"])
 def test_star_stencils_match_plain_versions_on_the_card(name, gen):
     """Full-range integers wrap; jacobi2d_ms runs 3 sweeps on the promoted
-    int32 state, and an int32 grid takes int8 weights as a halo chain's
-    consumer does."""
+    int32 state in ceil(3 / T_b) launches, and an int32 grid takes int8
+    weights as a halo chain's consumer does."""
     fn, plain = getattr(jacobi2d, name), getattr(ref, name)
     n_points = 9 if name == "jacobi2d_9pt" else 5
     before = jacobi2d.launches
     launched = 0
     for shape in STENCIL_GRIDS:
+        tile = _stencil_tile(name, shape)
         for dtype in DTYPES:
             grid = _draw(shape, dtype, gen)
             weights = _draw((3, n_points) if name == "jacobi2d_ms"
                             else (n_points,), dtype, gen)
-            _same(fn(grid, weights, tiles=build.STENCIL_TILE),
-                  plain(grid, weights))
-            launched += 3 if name == "jacobi2d_ms" else 1
+            _same(fn(grid, weights, tiles=tile), plain(grid, weights))
+            launched += tile.launches(3) if name == "jacobi2d_ms" else 1
         grid = _draw(shape, torch.int32, gen)
         weights = _draw((n_points,), torch.int8, gen)
         if name != "jacobi2d_ms":
-            _same(fn(grid, weights, tiles=build.STENCIL_TILE),
-                  plain(grid, weights))
+            _same(fn(grid, weights, tiles=tile), plain(grid, weights))
             launched += 1
     torch.cuda.synchronize()
     assert jacobi2d.launches - before == launched
+
+
+#: one-sweep star grids: the smallest each star takes (3 x 3, 5 x 5), a
+#: single output row and column, narrower than a lane's 4 columns, ragged
+#: across warps and blocks (512 output columns)
+STAR_GRIDS = {5: ((3, 3), (3, 700), (700, 3), (9, 130), (63, 61),
+                  (200, 1030)),
+              9: ((5, 5), (5, 600), (600, 5), (12, 133), (61, 59),
+                  (200, 1030))}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("points", [5, 9])
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_every_star_and_ragged_grid_matches_the_plain_version_on_the_card(
+        points, dtype, gen):
+    """``star_kernel`` on each compiled star: the band of rows the runtime
+    picks, and bands of 1 and 7 rows (several bands a launch); each launch
+    counted under its star."""
+    fn = jacobi2d.jacobi2d if points == 5 else jacobi2d.jacobi2d_9pt
+    plain = ref.jacobi2d if points == 5 else ref.jacobi2d_9pt
+    pad = 2 if points == 5 else 4
+    before = dict(jacobi2d.variants)
+    launched = 0
+    for shape in STAR_GRIDS[points]:
+        grid, weights = _draw(shape, dtype, gen), _draw((points,), dtype, gen)
+        want = plain(grid, weights)
+        picked = runtime.star_tile(shape[0] - pad, shape[1] - pad)
+        for tile in {picked, runtime.StarTile(1), runtime.StarTile(7)}:
+            _same(fn(grid, weights, tiles=tile), want)
+            launched += 1
+    torch.cuda.synchronize()
+    assert {k: jacobi2d.variants[k] - before[k] for k in before} == {
+        "star5": launched * (points == 5), "star9": launched * (points == 9),
+        "sweeps": 0}
+
+
+def _extremes(shape, dtype, gen):
+    """Operands at a dtype's extremes: all max, all min, and the two
+    mixed at random."""
+    info = torch.iinfo(dtype)
+    yield torch.full(shape, info.max, dtype=dtype, device="cuda")
+    yield torch.full(shape, info.min, dtype=dtype, device="cuda")
+    yield torch.where(torch.rand(shape, generator=gen, device="cuda") < 0.5,
+                      info.min, info.max).to(dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES[1:], ids=str)
+def test_star_integer_extremes_wrap_as_the_plain_version_on_the_card(
+        dtype, gen):
+    """Grids and weights at the dtype's max and min, one sweep of each
+    star and 9 sweeps (two launches): int32 wraps as the plain version
+    wraps."""
+    for grid in _extremes((37, 70), dtype, gen):
+        for weights in _extremes((9, 5), dtype, gen):
+            for name, w in (("jacobi2d", weights[0]),
+                            ("jacobi2d_9pt", weights.reshape(-1)[:9]),
+                            ("jacobi2d_ms", weights)):
+                w = w.contiguous()
+                tile = _stencil_tile(name, grid.shape, sweeps=9)
+                assert torch.equal(
+                    getattr(jacobi2d, name)(grid, w, tiles=tile),
+                    getattr(ref, name)(grid, w))
+
+
+#: sweep counts around the runtime's T_b (8): one launch up to T_b, two
+#: from T_b + 1
+SWEEPS = sorted({1, 2, 3, runtime.sweep_tile(8).sweeps,
+                 runtime.sweep_tile(8).sweeps + 1, 8, 9})
+#: multi-sweep outputs: a 3 x 3 grid (one interior point), ragged ones
+#: inside one 64 x 128 state tile and across several
+SWEEP_OUTS = ((1, 1), (59, 57), (130, 300))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t", SWEEPS)
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_fused_sweeps_match_the_plain_version_on_the_card(t, dtype, gen):
+    """``jacobi2d_ms`` on ``sweeps_kernel`` with the runtime's T_b: the
+    plain version's result (integers bit-exact, full-range; float32 within
+    ``recurrences.float_bound``), in ceil(T / T_b) launches, and bitwise
+    equal to one launch a sweep (T_b = 1)."""
+    from repro_torch.launch import recurrences
+
+    spec = registry.get("jacobi2d_ms")
+    for oh, ow in SWEEP_OUTS:
+        rec = spec.builder(oh, ow, t, str(dtype).removeprefix("torch."))
+        grid, weights = (_draw(s, dtype, gen) for s in spec.operand_shapes(rec))
+        tile = runtime.sweep_tile(t)
+        before = jacobi2d.variants["sweeps"]
+        got = jacobi2d.jacobi2d_ms(grid, weights, tiles=tile)
+        torch.cuda.synchronize()
+        assert jacobi2d.variants["sweeps"] - before == tile.launches(t) \
+            == -(-t // tile.sweeps)
+        err, ok = recurrences.compare(spec, rec, (grid, weights), got,
+                                      ref.jacobi2d_ms(grid, weights))
+        assert ok, err
+        one = jacobi2d.jacobi2d_ms(grid, weights,
+                                   tiles=runtime.SweepTile(sweeps=1))
+        assert torch.equal(got, one)
+
+
+#: conv2d filters: every compiled window, and the generic instantiation's
+#: 1 x 1 and 3 x 5 (on its 8 accumulators a column), 12 x 7 and 32 x 32 (on
+#: its 32); outputs of one point, of a row narrower than a lane's 4 columns
+#: and ragged across warps and blocks
+CONV_FILTERS = ((4, 4), (8, 8), (5, 4), (1, 1), (3, 5), (12, 7), (32, 32))
+CONV_OUTS = ((1, 1), (3, 700), (37, 70), (130, 333), (5, 2))
+
+
+def _conv_launches(p, q, oh, ow):
+    picked = runtime.conv2d_config(p, q, oh, ow)
+    generic = runtime.conv2d_config(p, q, oh, ow, window=build.CONV2D_GENERIC)
+    return {picked, generic, runtime.Conv2dTile(picked.window, 5)}
+
+
+def _window_name(window):
+    return "generic" if window == build.CONV2D_GENERIC \
+        else f"{window[0]}x{window[1]}"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pq", CONV_FILTERS, ids=str)
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_conv2d_windows_match_the_plain_version_on_the_card(pq, dtype, gen):
+    """``conv2d_kernel`` on the window the runtime picks (the compiled one
+    for 4 x 4, 8 x 8 and 5 x 4, int8 on ``__dp4a``; else the generic
+    instantiation), on the generic one, and with bands of 5 rows;
+    full-range integers wrap; each launch counted under its window."""
+    p, q = pq
+    before = dict(conv2d.variants)
+    want = dict.fromkeys(before, 0)
+    for oh, ow in CONV_OUTS:
+        img = _draw((oh + p - 1, ow + q - 1), dtype, gen)
+        filt = _draw((p, q), dtype, gen)
+        plain = ref.conv2d(img, filt)
+        for tile in _conv_launches(p, q, oh, ow):
+            _same(conv2d.conv2d(img, filt, tiles=tile), plain)
+            want[_window_name(tile.window)] += 1
+    torch.cuda.synchronize()
+    assert {k: conv2d.variants[k] - before[k] for k in before} == want
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES[1:], ids=str)
+def test_conv2d_integer_extremes_wrap_as_the_plain_version_on_the_card(
+        dtype, gen):
+    """Images and filters at the dtype's max and min on every compiled
+    window and the generic one: int32 wraps as the plain version wraps."""
+    for p, q in CONV_FILTERS:
+        oh, ow = 37, 130
+        for img in _extremes((oh + p - 1, ow + q - 1), dtype, gen):
+            for filt in _extremes((p, q), dtype, gen):
+                plain = ref.conv2d(img, filt)
+                for tile in _conv_launches(p, q, oh, ow):
+                    assert torch.equal(conv2d.conv2d(img, filt, tiles=tile),
+                                       plain)
+
+
+@pytest.mark.gpu
+def test_conv2d_windows_refuse_other_filters_on_the_card(gen):
+    """A compiled window runs only its own filter size; past 32 nothing
+    runs."""
+    img = _draw((40, 40), torch.float32, gen)
+    with pytest.raises(ValueError, match="not compiled"):
+        conv2d.conv2d(img, _draw((4, 5), torch.float32, gen),
+                      tiles=runtime.Conv2dTile((4, 4), 4))
+    with pytest.raises(ValueError, match="outside the kernel's range"):
+        conv2d.conv2d(_draw((40, 40), torch.float32, gen),
+                      _draw((33, 2), torch.float32, gen),
+                      tiles=runtime.Conv2dTile(build.CONV2D_GENERIC, 4))
 
 
 @pytest.mark.gpu
@@ -355,7 +550,8 @@ def test_execute_plan_runs_the_new_kernels_on_the_card(gen):
             assert isinstance(runtime.last_tiles[name].tile,
                               runtime.MttkrpTile)
         else:
-            assert runtime.last_tiles[name].tile == build.STENCIL_TILE
+            assert runtime.last_tiles[name].tile == \
+                runtime.stencil_tile(best_plan(rec, chip)).tile
 
 
 #: the skinny GEMM at M = 1, 4, 12 and 16 over (N, K): K split over 8

@@ -1,13 +1,14 @@
 """The port's WideSA mapper -> kernel pipeline against the JAX package's,
 for the star stencils (jacobi2d, jacobi2d_9pt, jacobi2d_ms) and mttkrp,
-and the plans and registry entries of mm and bmm (the paper's MM/BMM
-table), which the pipeline also runs at their bench sizes.
+and the plans and registry entries of mm, bmm and conv2d (the paper's
+MM/BMM and conv2d tables), which the pipeline also runs at their bench
+sizes.
 
 * The builders give the reference's IR, and ``best_plan`` the reference's
   plans (schedule, block, backend, ``feasible``, description) at the
   registry's smoke and bench sizes on the single-chip target, the 16 x 16
   ``Target()`` and the VCK5000 ``AIE_TARGET``, for the stencils, mttkrp,
-  mm and bmm; ``predict_bounds`` equals the reference's for every
+  mm, bmm and conv2d; ``predict_bounds`` equals the reference's for every
   ``PAPER_BENCHMARKS`` entry.
 * On the CPU the wrappers run their plain versions (``ref.py``).  The
   port's ``execute_plan`` / ``lower_plan(plan, "pallas")`` is held
@@ -50,14 +51,14 @@ from repro.kernels.runtime import execute_plan as jax_execute  # noqa: E402
 from repro_torch.core import (AIE_TARGET, PAPER_BENCHMARKS, Target,  # noqa: E402
                               best_plan, fusion, lower_plan, plio,
                               predict_bounds)
-from repro_torch.kernels import (build, jacobi2d, mttkrp, ref,  # noqa: E402
+from repro_torch.kernels import (jacobi2d, mttkrp, ref,  # noqa: E402
                                  registry, runtime)
 from repro_torch.launch import recurrences  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 NEW = ("jacobi2d", "jacobi2d_9pt", "jacobi2d_ms", "mttkrp")
 #: the recurrences the pipeline runs at their bench cases on the card
-BENCH = ("mm", "bmm") + NEW
+BENCH = ("mm", "bmm", "conv2d") + NEW
 SINGLE_CHIP = Target(name="single_chip", mesh_shape=(1, 1))
 JAX_SINGLE_CHIP = JaxTarget(name="single_chip", mesh_shape=(1, 1))
 TARGETS = {"single_chip": (SINGLE_CHIP, JAX_SINGLE_CHIP),
@@ -101,11 +102,12 @@ def test_plans_match_reference(name, dtype, args, target):
 
 def test_single_chip_plans_are_the_tpu_tiles():
     """The tiles the reference planner picks at the bench sizes, and the
-    compiled Hopper tiles the runtime maps them onto (float32 mttkrp: the
-    tensor-core kernel, K split over clusters of 8 blocks)."""
-    want = {"jacobi2d": ((2, 2), (32, 128)),
-            "jacobi2d_9pt": ((12, 12), (32, 128)),
-            "jacobi2d_ms": ((89, 89), (32, 128)),
+    Hopper launches the runtime maps them onto (the one-sweep stars: bands
+    of 194 rows; jacobi2d_ms: its 8 sweeps in one launch; float32 mttkrp:
+    the tensor-core kernel, K split over clusters of 8 blocks)."""
+    want = {"jacobi2d": ((2, 2), runtime.StarTile(rows=194)),
+            "jacobi2d_9pt": ((12, 12), runtime.StarTile(rows=194)),
+            "jacobi2d_ms": ((89, 89), runtime.SweepTile(sweeps=8)),
             "mttkrp": ((128, 8, 64, 128),
                        runtime.MttkrpTile(split=8, copy=16))}
     for name, (plan_tile, tile) in want.items():
@@ -273,15 +275,14 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     def meta(shape, dtype=torch.float32):
         return torch.empty(shape, dtype=dtype, device="meta")
 
+    star, sweeps = runtime.StarTile(rows=8), runtime.SweepTile(sweeps=3)
     with pytest.raises(ValueError, match="CUDA"):
-        jacobi2d.jacobi2d(meta((10, 10)), meta((5,)),
-                          tiles=build.STENCIL_TILE)
+        jacobi2d.jacobi2d(meta((10, 10)), meta((5,)), tiles=star)
     with pytest.raises(ValueError, match="weights for a star"):
-        jacobi2d.jacobi2d_9pt(meta((10, 10)), meta((5,)),
-                              tiles=build.STENCIL_TILE)
+        jacobi2d.jacobi2d_9pt(meta((10, 10)), meta((5,)), tiles=star)
     with pytest.raises(TypeError, match="mix float and integer"):
         jacobi2d.jacobi2d_ms(meta((10, 10)), meta((3, 5), torch.int8),
-                             tiles=build.STENCIL_TILE)
+                             tiles=sweeps)
     with pytest.raises(ValueError, match="chain"):
         mttkrp.mttkrp(meta((4, 3, 2)), meta((3, 5)), meta((3, 5)),
                       tiles=(64, 64))
