@@ -7,6 +7,7 @@
     python3 chip_smoke.py --tc-sweep [--out sweep.json]
     python3 chip_smoke.py --fft-sweep [--out sweep.json]
     python3 chip_smoke.py --conv2d-sweep [--src OTHER/src] [--out sweep.json]
+    python3 chip_smoke.py --fir-sweep [--src OTHER/src] [--out sweep.json]
 
 Needs one CUDA card and the CUDA toolkit.  It imports only the port, never
 JAX nor the JAX package, and runs eight phases, each printing its own
@@ -29,8 +30,11 @@ line(s); any failure exits non-zero:
    rows do not allow 4-byte copies), every compiled tile of the tiled
    kernel, the bf16 -> fp32 bmm, and two runs of split-K float products
    bitwise equal; FIR and conv2d in every dtype they take, at the
-   whisper-base frontend shapes and at ragged ones, FIR with every
-   compiled tile, conv2d on the compiled window the runtime picks (4 x 4,
+   whisper-base frontend shapes and at ragged ones, FIR on the
+   instantiation of its tap count (15) and on the generic one (which
+   alone takes 1, 7, 16, 64 and 4096 taps), ``fir_complex`` at the same
+   shapes in one launch a call, and FIR of an x that starts 1-3 elements
+   into its storage, conv2d on the compiled window the runtime picks (4 x 4,
    8 x 8, 5 x 4) and on the generic instantiation (which alone takes 1 x
    1, 3 x 5, 12 x 7 and 32 x 32); the fused fft2d kernel at
    ``FFT_SHAPES`` (two runs bitwise equal) and the composition over the
@@ -40,9 +44,12 @@ line(s); any failure exits non-zero:
    (``torch.matmul``/``torch.bmm``, ``F.conv1d``, ``F.conv2d``,
    ``torch.fft.fft2``: yardsticks only) and its memory/compute bound, at
    the main-path shapes and, for FIR and conv2d, at the registry's
-   bandwidth-sized bench shapes (conv2d: all four, the paper's conv2d
-   table: 10240^2 outputs, float32, int16 and int32 by 4 x 4, int8 by 8 x
-   8).  The GEMMs (every qwen serving shape and
+   bandwidth-sized bench cases (the paper's FIR table: 1048576 outputs of
+   15 taps in float32, int8, int16 and cfloat, the last as the pipeline
+   runs it, one real launch on float32 planes, and ``fir_complex`` in
+   float32 beside one two-channel ``F.conv1d`` and the four real ones;
+   the paper's conv2d table: 10240^2 outputs, float32, int16 and int32 by
+   4 x 4, int8 by 8 x 8), each beside a ``copy_`` of the same bytes.  The GEMMs (every qwen serving shape and
    whisper-base's lm_head) get ``torch.profiler`` device time of the
    skinny kernel, of the tiled kernel at the tile the plan maps to and of
    the library call, the weight GEMMs over a rotation of distinct B operands
@@ -54,7 +61,7 @@ line(s); any failure exits non-zero:
    fft2d kernel (the composition's device time beside it, at the
    frontend tile and the pipeline's 64 x 64 grid) and their library
    calls also get their device time (the launch overhead left out), FIR
-   with every compiled tile, conv2d on its window and the generic one;
+   and conv2d on the runtime's launch and the generic instantiation;
 4. serve  — full-width qwen1.5-0.5b (bf16, 24 layers, vocab 151936,
    random weights from a ``torch.Generator`` seeded with 0) on the slot
    engine: 4 slots, max_seq 128, 8 requests of 4-16 prompt tokens and 8
@@ -95,8 +102,9 @@ line(s); any failure exits non-zero:
    and mttkrp at their paper-scale bench sizes in every parity dtype, mm
    and bmm at the paper's MM/BMM table (float32 8192^3, int8 10240^3,
    int16 9600^3, int32 8192^3; 64 x 4096^3 in float32, int8 and int16),
-   conv2d at the paper's conv2d table.  Checks that every star and conv2d
-   case ran the launch the runtime chose for it (star_kernel for one
+   conv2d at the paper's conv2d table, fir at the paper's FIR table (16
+   launches on the 15-tap instantiation).  Checks that every star and
+   conv2d case ran the launch the runtime chose for it (star_kernel for one
    sweep, sweeps_kernel in ceil(T / T_b) launches of T_b >= 2 for
    jacobi2d_ms, conv2d on its compiled window), each launch counted under
    its variant, that the star-stencil (B6) and MTTKRP (B7) kernels launched,
@@ -141,7 +149,9 @@ paper's int8 shape beside the tiled kernel's and ``torch._int_mm``'s;
 both count as ``wgmma``), for mttkrp its
 launches by kernel (tensor_core / cuda_core) beside the device times of
 both kernels, for conv2d its launches by window (4x4 / 8x8 / 5x4 /
-generic) beside the paper's conv2d table, and for the stars theirs by
+generic) beside the paper's conv2d table, for fir its launches by
+instantiation (15 / 7 / generic; real and complex alike) beside the
+paper's FIR table and ``fir_complex``, and for the stars theirs by
 kernel (star5 / star9 on star_kernel, sweeps on sweeps_kernel) beside
 the other timed stars and jacobi2d_ms's call.  The comparison and
 timing launches of phases 3 and 6 and of ``drain_parity`` do not count.
@@ -168,9 +178,13 @@ one's device time beside the composition's and ``torch.fft.fft2``'s.
 ``--conv2d-sweep`` builds the signal-processing source, then holds conv2d
 over 10240^2 outputs with filters from 3 x 3 to 32 x 32 (``CONV2D_SWEEP``)
 to ``ref.conv2d`` and prints the device time of the runtime's launch and
-of the generic window beside ``F.conv2d``'s; with ``--src`` it imports the
-port from another checkout's ``src/`` instead, to time an earlier kernel
-in the same run.
+of the generic window beside ``F.conv2d``'s; ``--fir-sweep`` holds
+float32 FIR over 2^20 to 2^26 outputs at 7, 15, 64 and 255 taps, int8 and
+int16 at the bench shape and the frontend's int16 (``FIR_SWEEP``) to
+``ref.fir`` and prints the device time of the runtime's launch beside
+``F.conv1d``'s and a ``copy_`` of the same bytes.  With ``--src`` either
+imports the port from another checkout's ``src/`` instead, to time an
+earlier kernel in the same call (run parent, change, change, parent).
 
 Tolerances: integer results are bit-exact (wrapping int32, as XLA);
 float32 results within the kernel registry's atol 1e-3 (sums of up to
@@ -317,11 +331,18 @@ WGMMA_SHAPES = {"widesa_mm": ("mm", (512, 1024, 1024), False),
 #: instantiation), and the registry's bandwidth-sized bench shapes
 #: (float32; conv2d: every bench case, the paper's conv2d table)
 SP_MAIN = {"fir": (6180, 15), "conv2d": (8, 512, 5, 4)}
-SP_RAGGED = {"fir": ((1000, 7), (70001, 15)),
+SP_RAGGED = {"fir": ((1000, 7), (70001, 15), (511, 1), (513, 16),
+                     (3001, 64), (1, 4096)),
              "conv2d": ((37, 70, 3, 5), (130, 333, 4, 4), (61, 600, 8, 8),
                         (3, 1, 5, 4), (70, 45, 1, 1), (40, 33, 32, 32),
                         (50, 100, 12, 7))}
 SP_BENCH = {"fir": (1048576, 15), "conv2d": (10240, 10240, 4, 4)}
+#: what the cfloat FIR bench case runs, as the reference's execute_plan
+PLANES_NOTE = (": the cfloat plan on float32 planes, one real launch, not "
+               "complex arithmetic")
+#: the element offsets into its storage of the FIR input views held to the
+#: plain version (x starting 4-12 bytes past a 16-byte boundary)
+FIR_OFFSETS = (1, 2, 3)
 FFT_MAIN = (12, 515)
 #: the fused fft2d kernel's parity shapes: the frontend's, a wider one, a
 #: single row, ragged ones (C no multiple of 4 or of the 32-column tile),
@@ -1213,9 +1234,14 @@ def sp_parity(torch) -> None:
                 want = plain(a, b)
                 picked = sp_kernel(name, args, dtype)[2].tile
                 if name == "fir":
-                    tiles = [(t,) for t in build.FIR_TILES]
-                    if picked not in tiles:
-                        fail(f"fir{args}: picked tile {picked} not compiled")
+                    # the tap count's instantiation (the generic one for
+                    # others), and the generic one on the same operands
+                    if picked.taps != runtime.fir_config(*args).taps:
+                        fail(f"fir{args}: picked {picked}")
+                    generic = runtime.fir_config(
+                        *args, a.element_size(), compiled=build.FIR_GENERIC)
+                    tiles = [picked] if picked == generic \
+                        else [picked, generic]
                 else:
                     # the window the runtime picks, and the generic
                     # instantiation on the same operands
@@ -1233,8 +1259,7 @@ def sp_parity(torch) -> None:
                         fail(f"{name}{args} {dtype} tile {tile}: max |err| "
                              f"{err}")
                     n += 1
-    from repro_torch.kernels import runtime
-
+    n += fir_extra_parity(torch, gen, dtypes)
     worst = 0.0
     for shape in FFT_SHAPES:
         fused, composition, tile = fft_kernel(shape)
@@ -1259,7 +1284,10 @@ def sp_parity(torch) -> None:
                     fail(f"fft2d{shape} fused {tile}: two runs differ")
             n += 1
     print(f"kernels: FIR/conv2d/fft2d parity ok in {n} cases (FIR: 4 "
-          f"dtypes x frontend and ragged shapes x every compiled tile; "
+          f"dtypes x the frontend's and ragged shapes {SP_RAGGED['fir']} on "
+          f"the tap count's instantiation (15; int8 on __dp4a) and the "
+          f"generic one, fir_complex at the same shapes in one launch each, "
+          f"x as a view {FIR_OFFSETS} elements into its storage; "
           f"conv2d: 4 dtypes x the frontend's 5 x 4 and ragged shapes on "
           f"every compiled window (4 x 4, 8 x 8, 5 x 4; int8 on __dp4a) and "
           f"the generic instantiation (1 x 1, 3 x 5, 12 x 7, 32 x 32, and beside "
@@ -1268,6 +1296,44 @@ def sp_parity(torch) -> None:
           f"at {list(FFT_SHAPES)} and the composition at {FFT_MAIN}, <= "
           f"1.0, the fused kernel's max |err| {worst:.4g}, two runs "
           f"bitwise equal)", flush=True)
+
+
+def fir_extra_parity(torch, gen, dtypes) -> int:
+    """``fir_complex`` (one launch a call) against ``ref.fir_complex`` at
+    the frontend's and ragged shapes, and the real FIR of an ``x`` that
+    starts ``FIR_OFFSETS`` elements into its storage, in every dtype; the
+    number of cases."""
+    from repro_torch.kernels import fir, ref
+
+    n = 0
+    for args in (SP_MAIN["fir"], *SP_RAGGED["fir"]):
+        for dtype in dtypes:
+            (xr, hr), (xi, hi) = (sp_operands(torch, gen, "fir", args, dtype)
+                                  for _ in range(2))
+            before = fir.launches
+            got = fir.fir_complex(xr, xi, hr, hi)
+            torch.cuda.synchronize()
+            if fir.launches != before + 1:
+                fail(f"fir_complex{args} {dtype}: "
+                     f"{fir.launches - before} launches")
+            for g, w in zip(got, ref.fir_complex(xr, xi, hr, hi)):
+                err, ok = max_error(torch, g, w, dtype)
+                if not ok:
+                    fail(f"fir_complex{args} {dtype}: max |err| {err}")
+            n += 1
+    for offset in FIR_OFFSETS:
+        for args in (SP_MAIN["fir"], SP_RAGGED["fir"][0]):
+            for dtype in dtypes:
+                size, taps = args[0] + args[1] - 1, args[1]
+                x = draw(torch, gen, (size + offset,), dtype)[offset:]
+                h = draw(torch, gen, (taps,), dtype)
+                call, plain, _ = sp_kernel("fir", args, dtype)
+                err, ok = max_error(torch, call(x, h), plain(x, h), dtype)
+                if not ok:
+                    fail(f"fir{args} {dtype}, x {offset} elements into its "
+                         f"storage: max |err| {err}")
+                n += 1
+    return n
 
 
 def sp_bound_ms(name, args, in_bytes, out_bytes, dtype):
@@ -1287,17 +1353,89 @@ def sp_bound_ms(name, args, in_bytes, out_bytes, dtype):
                     "int8" if dtype == "torch.int8" else "float32")
 
 
+def fir_complex_timing(torch, gen) -> dict:
+    """``fir_complex`` at FIR's bench shape in float32 (one launch) beside
+    ``ref.fir_complex`` (four passes and the combines), one ``F.conv1d``
+    computing the same function (two input channels, the planes, and two
+    output channels, weights (h_re, -h_im) and (h_im, h_re); TF32 off), the
+    four real ``F.conv1d`` calls and the combines, a ``copy_`` of the same
+    bytes (both planes) and the bound."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import fir, ref, runtime
+
+    n, t = SP_BENCH["fir"]
+    (xr, hr), (xi, hi) = (sp_operands(torch, gen, "fir", (n, t),
+                                      torch.float32) for _ in range(2))
+    tiles = runtime.fir_config(n, t, 4, planes=2)
+    before = fir.launches
+    got = fir.fir_complex(xr, xi, hr, hi, tiles=tiles)
+    launched = fir.launches - before
+    want = ref.fir_complex(xr, xi, hr, hi)
+    err = max(max_error(torch, g, w, torch.float32)[0]
+              for g, w in zip(got, want))
+    if launched != 1 or err > 1e-3:
+        fail(f"fir_complex{(n, t)}: {launched} launches, max |err| {err}")
+    planes = torch.stack([xr, xi])[None]
+    weight = torch.stack([torch.stack([hr, -hi]), torch.stack([hi, hr])])
+
+    def four(xr=xr, xi=xi, hr=hr, hi=hi):
+        def c(x, h):
+            return F.conv1d(x[None, None], h[None, None])[0, 0]
+        return c(xr, hr) - c(xi, hi), c(xr, hi) + c(xi, hr)
+
+    lib = F.conv1d(planes, weight)[0]
+    lib_err = max((lib[i] - want[i]).abs().max().item() for i in range(2))
+    if lib_err > 1e-3:
+        fail(f"fir_complex{(n, t)}: F.conv1d's max |err| {lib_err}")
+
+    def copy(o=got, x=(xr, xi)):
+        o[0].copy_(x[0][:n])
+        o[1].copy_(x[1][:n])
+
+    row = dict(
+        tiles=tiles, launches=launched, max_abs_err=err,
+        ms=time_ms(torch, lambda: fir.fir_complex(xr, xi, hr, hi,
+                                                  tiles=tiles), 10),
+        plain_ms=time_ms(torch, lambda: ref.fir_complex(xr, xi, hr, hi), 3,
+                         1),
+        library_ms=time_ms(torch, lambda: F.conv1d(planes, weight), 10),
+        device_ms=device_ms(torch, lambda: fir.fir_complex(
+            xr, xi, hr, hi, tiles=tiles), "fir_kernel", 50),
+        library_device_ms=device_ms(torch,
+                                    lambda: F.conv1d(planes, weight)),
+        four_conv1d_device_ms=device_ms(torch, four),
+        copy_device_ms=device_ms(torch, copy, None, 50),
+    )
+    # both planes of x and h read once, both planes of y written once; the
+    # four real products' 8 n t operations
+    row["bound_ms"], row["bound_by"] = least_ms(
+        2 * (n + 2 * t - 1) * 4 + 2 * n * 4, 8 * n * t, "float32")
+    print(f"time fir_complex{(n, t)} float32 [bench, one launch] -> "
+          f"{tiles}: kernel {row['ms']:.4f} ms, plain (four passes) "
+          f"{row['plain_ms']:.4f} ms, F.conv1d (2 -> 2 channels) "
+          f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+          f"({row['bound_by']}); device time (profiler): kernel "
+          f"{fmt_ms(row['device_ms'])}, F.conv1d "
+          f"{fmt_ms(row['library_device_ms'])}, four F.conv1d and the "
+          f"combines {fmt_ms(row['four_conv1d_device_ms'])}, a copy_ of "
+          f"the same bytes {fmt_ms(row['copy_device_ms'])}; max |err| "
+          f"{err:.4g} (F.conv1d {lib_err:.4g})", flush=True)
+    return row
+
+
 def sp_timings(torch) -> dict:
     """FIR and conv2d at the main-path shape and dtype (the whisper-base
-    frontend, int16), FIR at the registry's bench shape (float32) and
-    conv2d at each of its bench cases (the paper's conv2d table), and
-    fft2d at the frontend tile and the pipeline's smoke grid (the fused
-    kernel, with the composition's device time beside it): kernel, plain
-    version, one PyTorch call and bound.  The library call takes float32
-    copies of integer inputs (``F.conv1d``/``F.conv2d`` take no integers
-    on the card), with TF32 off.  FIR's device time is given with each
-    compiled tile, conv2d's on the window the runtime picks and on the
-    generic instantiation."""
+    frontend, int16), each at its bench cases (the paper's FIR and conv2d
+    tables; FIR's cfloat case as the pipeline runs it, one real launch on
+    float32 planes), ``fir_complex`` at FIR's bench shape, and fft2d at the
+    frontend tile and the pipeline's smoke grid (the fused kernel, with
+    the composition's device time beside it): kernel, plain version, one
+    PyTorch call and bound.  The library call takes float32 copies of
+    integer inputs (``F.conv1d``/``F.conv2d`` take no integers on the
+    card), with TF32 off.  Device time on the launch the runtime picks and
+    on the generic instantiation, and of a ``copy_`` of the same bytes at
+    the bench shapes."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import (build, conv2d, fir, ref, registry,
@@ -1309,10 +1447,12 @@ def sp_timings(torch) -> dict:
         "conv2d": lambda a, b: F.conv2d(a[None, None], b[None, None]),
     }
     cases = [("fir", "main", SP_MAIN["fir"], torch.int16, 50),
-             ("fir", "bench", SP_BENCH["fir"], torch.float32, 10),
              ("conv2d", "main", SP_MAIN["conv2d"], torch.int16, 50)]
-    cases += [("conv2d", f"bench {dtype}", args, getattr(torch, dtype), 10)
-              for dtype, args in registry.get("conv2d").bench_cases]
+    # cfloat draws float32 planes (registry.operands), one real launch
+    cases += [(name, f"bench {dtype}", args,
+               getattr(torch, "float32" if dtype == "cfloat" else dtype), 10)
+              for name in ("fir", "conv2d")
+              for dtype, args in registry.get(name).bench_cases]
     rows = {}
     for name, where, args, dtype, reps in cases:
         a, b = sp_operands(torch, gen, name, args, dtype)
@@ -1322,31 +1462,38 @@ def sp_timings(torch) -> dict:
         err, ok = max_error(torch, out, want, dtype)
         if not ok:
             fail(f"{name}{args} {dtype}: max |err| {err}")
+        # FIR's few microseconds a call: 50 calls a device time
+        dev_reps = 50 if name == "fir" else 10
         row = dict(
             tiles=tiles, max_abs_err=err,
             ms=time_ms(torch, lambda: fn(a, b), reps),
             plain_ms=time_ms(torch, lambda: plain(a, b),
                              3 if where != "main" else reps, 1),
             library_ms=time_ms(torch, lambda: library[name](af, bf), reps),
-            device_ms=device_ms(torch, lambda: fn(a, b), name + "_kernel"),
+            device_ms=device_ms(torch, lambda: fn(a, b), name + "_kernel",
+                                dev_reps),
             library_device_ms=device_ms(
-                torch, lambda: library[name](af, bf)),
+                torch, lambda: library[name](af, bf), None, dev_reps),
         )
         row["bound_ms"], row["bound_by"] = sp_bound_ms(
             name, args, a.element_size(), out.element_size(), str(dtype))
-        copy = ""
-        if name == "conv2d" and where != "main":
-            # the card's own copy of the same bytes: the output's window of
-            # the input, converted to the output's dtype (PyTorch's copy_)
-            view = a[:out.shape[0], :out.shape[1]]
-            row["copy_device_ms"] = device_ms(torch, lambda: out.copy_(view))
-            copy = (f", a copy_ of the same bytes "
-                    f"{fmt_ms(row['copy_device_ms'])}")
+        # the card's own copy of the same bytes: the output's window of the
+        # input, converted to the output's dtype (PyTorch's copy_)
+        view = a[:out.shape[0]] if name == "fir" \
+            else a[:out.shape[0], :out.shape[1]]
+        row["copy_device_ms"] = device_ms(torch, lambda: out.copy_(view),
+                                          None, dev_reps)
+        copy = f", a copy_ of the same bytes {fmt_ms(row['copy_device_ms'])}"
         if name == "fir":
-            by = "compiled tile"
-            others = {t: device_ms(torch, lambda t=t: fir.fir(a, b, tiles=t),
-                                   "fir_kernel")
-                      for t in [(t,) for t in build.FIR_TILES]}
+            by = "instantiation"
+            generic = runtime.fir_config(*args, a.element_size(),
+                                         compiled=build.FIR_GENERIC)
+            others = {tiles.tile.taps: row["device_ms"]}
+            if generic != tiles.tile:
+                row["generic_device_ms"] = device_ms(
+                    torch, lambda: fir.fir(a, b, tiles=generic), "fir_kernel",
+                    dev_reps)
+                others["generic"] = row["generic_device_ms"]
         else:
             by = "window"
             generic = runtime.conv2d_config(*args[2:], *args[:2],
@@ -1361,7 +1508,8 @@ def sp_timings(torch) -> dict:
         lib = f"F.{name if name == 'conv2d' else 'conv1d'}"
         per = ", ".join(f"{k} {fmt_ms(v)}" for k, v in others.items())
         print(f"time {name}{args} {str(dtype).removeprefix('torch.')} "
-              f"[{where}] plan block {tiles.plan} -> {tiles.tile}: kernel "
+              f"[{where}{PLANES_NOTE if 'cfloat' in where else ''}] plan "
+              f"block {tiles.plan} -> {tiles.tile}: kernel "
               f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, {lib} "
               f"{row['library_ms']:.4f} ms{' (float32 copies)' if not dtype.is_floating_point else ''}, "
               f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}); device "
@@ -1370,6 +1518,7 @@ def sp_timings(torch) -> dict:
               f"time by {by}: {per}; max |err| {err:.4g}", flush=True)
         del a, b, af, bf, out, want
         torch.cuda.empty_cache()
+    rows[("fir_complex", "bench")] = fir_complex_timing(torch, gen)
 
     def fft_lib(x_re, x_im):
         return torch.fft.fft2(torch.complex(x_re, x_im))
@@ -2486,6 +2635,63 @@ def conv2d_sweep(torch) -> list[dict]:
     return rows
 
 
+#: ``--fir-sweep``'s cases: float32 at 2^20 to 2^26 outputs of 15 taps
+#: (its compiled instantiation) and of 7, 64 and 255 (the generic one),
+#: then the bench shape in int8 and int16 and the frontend's int16
+FIR_SWEEP = tuple(("float32", 2 ** k, taps) for taps in (7, 15, 64, 255)
+                  for k in range(20, 27)) + (
+    ("int8", 2 ** 20, 15), ("int16", 2 ** 20, 15), ("int16", 6180, 15))
+
+
+def fir_sweep(torch) -> list[dict]:
+    """FIR at ``FIR_SWEEP``'s cases, each held to ``ref.fir``: profiler
+    device time of the launch the runtime picks (``runtime.fir_tile``)
+    beside ``F.conv1d`` (float32 copies, TF32 off), a ``copy_`` of the
+    same bytes and the bound; 50 calls a time up to 2^21 outputs.  Uses
+    only what every checkout of the port with a FIR kernel has, so that
+    ``--src`` can time an earlier checkout's kernel in the same call."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import fir, planned, ref, runtime
+
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    rows = []
+    for dname, n, taps in FIR_SWEEP:
+        args, dtype = (n, taps), getattr(torch, dname)
+        a, b = sp_operands(torch, gen, "fir", args, dtype)
+        af, bf = a.float(), b.float()
+        plan = planned.plan_for("fir", args, dname)
+        tile = runtime.fir_tile(plan, n).tile
+        out = fir.fir(a, b, tiles=tile)
+        err, ok = max_error(torch, out, ref.fir(a, b), dtype)
+        if not ok:
+            fail(f"fir{args} {dname} {tile}: max |err| {err}")
+        reps = 50 if n <= 2**21 else 3 if n * taps > 2**30 else 10
+        row = dict(
+            dtype=dname, n_out=n, taps=taps, tile=str(tile),
+            max_abs_err=err,
+            device_ms=device_ms(
+                torch, lambda: fir.fir(a, b, tiles=tile), "fir_kernel",
+                reps),
+            library_device_ms=device_ms(
+                torch, lambda: F.conv1d(af[None, None], bf[None, None]),
+                None, reps),
+            copy_device_ms=device_ms(torch, lambda: out.copy_(a[:n]),
+                                     None, reps),
+            bound_ms=sp_bound_ms("fir", args, a.element_size(), 4,
+                                 str(dtype))[0])
+        rows.append(row)
+        print(f"sweep fir{args} {dname} {tile}: kernel "
+              f"{fmt_ms(row['device_ms'])}, F.conv1d "
+              f"{fmt_ms(row['library_device_ms'])}, copy_ "
+              f"{fmt_ms(row['copy_device_ms'])}, bound "
+              f"{row['bound_ms']:.4f} ms; max |err| {err:.4g}",
+              flush=True)
+        del a, b, af, bf, out
+        torch.cuda.empty_cache()
+    return rows
+
+
 #: the prompt lengths ``--tc-sweep`` times
 TC_SWEEP_PROMPTS = (512, 127, 64)
 
@@ -2588,7 +2794,7 @@ def recurrences_phase(torch) -> tuple[dict, dict, dict, dict]:
     # (one-sweep stars on star_kernel, jacobi2d_ms on sweeps_kernel in
     # ceil(T / T_b) launches of T_b >= 2, conv2d on its compiled window),
     # and each launch counted under that variant
-    from repro_torch.kernels import build, runtime
+    from repro_torch.kernels import build, registry, runtime
     calls = 1 + recurrences.TIMED_CALLS
     windows = {"jacobi2d": dict.fromkeys(variants["jacobi2d"], 0),
                "conv2d": dict.fromkeys(variants["conv2d"], 0)}
@@ -2622,6 +2828,19 @@ def recurrences_phase(torch) -> tuple[dict, dict, dict, dict]:
         fail(f"recurrences: star / conv2d launches by variant "
              f"{ {k: variants[k] for k in windows} }, the cases call for "
              f"{windows}")
+    # fir's four bench cases (the cfloat one on float32 planes) on the
+    # 15-tap instantiation, one launch a call
+    firs = [row for row in rows if row["name"] == "fir"]
+    want = len(firs) * calls
+    if [r["dtype"] for r in firs] != [d for d, _ in registry.get(
+            "fir").bench_cases] \
+            or any(r["tiles"].tile.taps != 15 for r in firs) \
+            or launches["fir"] != want or want != 16 \
+            or variants["fir"] != {"15": want, "generic": 0}:
+        fail(f"recurrences: fir cases {[(r['dtype'], r['args']) for r in firs]}"
+             f" launched {launches['fir']} times (by instantiation "
+             f"{variants['fir']}), the four bench cases call for 16 on the "
+             f"15-tap one")
     # the fft2d_stage case (64 x 64) on the fused kernel, and each of its
     # launches counted there
     ffts = [row for row in rows if row["name"] == "fft2d_stage"]
@@ -2657,7 +2876,10 @@ def recurrences_phase(torch) -> tuple[dict, dict, dict, dict]:
           f"({len(ints)} cases: {ints}), no tiled launch; mttkrp cases "
           f"{cases}; fft2d {[(r['args'], str(r['tiles'].tile)) for r in ffts]}"
           f"; star and conv2d cases on the runtime's launch, each counted "
-          f"under its variant: {chose})", flush=True)
+          f"under its variant: {chose}; fir's bench cases "
+          f"{[(r['dtype'], r['args'], str(r['tiles'].tile)) for r in firs]}"
+          f", {want} launches on the 15-tap instantiation, cfloat{PLANES_NOTE}"
+          f")", flush=True)
     torch.cuda.empty_cache()
     hpc_parity(torch)
     hpc_rows = hpc_timings(torch)
@@ -2690,9 +2912,9 @@ MANGLED_TYPES = {"f": "float32", "a": "int8", "s": "int16", "i": "int32"}
 def kernel_resources(log: str) -> list[str]:
     """Registers and spill stores of each instantiation of the fused fft2d
     kernel, of the tensor-core MTTKRP kernel, of the integer tensor-core
-    GEMM and its limb pre-pass, and of the window kernels (conv2d and the
-    one-sweep star) and the multi-sweep star, from ``ptxas -v``'s lines in
-    the build log."""
+    GEMM and its limb pre-pass, of the FIR kernel (real and complex), and
+    of the window kernels (conv2d and the one-sweep star) and the
+    multi-sweep star, from ``ptxas -v``'s lines in the build log."""
     found, name = [], None
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '(\S+)'", line)
@@ -2724,6 +2946,10 @@ def kernel_resources(log: str) -> list[str]:
             label = (f"conv2d_kernel<{MANGLED_TYPES[conv.group(1)]}, "
                      f"{conv.group(2)}x{conv.group(3)}"
                      f"{', generic' if conv.group(4) == '1' else ''}>")
+        elif fir := re.search(r"fir_kernelI(\w)\wLi(\d+)ELi(\d)E", mangled):
+            taps = fir.group(2) if fir.group(2) != "0" else "generic"
+            label = (f"fir_kernel<{MANGLED_TYPES[fir.group(1)]}, {taps} taps"
+                     f"{', complex' if fir.group(3) == '2' else ''}>")
         elif star := re.search(r"star_kernelI(\w)\wLi(\d+)E", mangled):
             label = (f"star_kernel<{MANGLED_TYPES[star.group(1)]}, "
                      f"{star.group(2)} points>")
@@ -2756,15 +2982,19 @@ def main(argv=None) -> int:
     ap.add_argument("--conv2d-sweep", action="store_true",
                     help="only time conv2d at the bench size with filters "
                          "from 3 x 3 to 32 x 32")
-    ap.add_argument("--src", help="with --conv2d-sweep: the src/ directory "
-                                  "of another checkout of the port, whose "
-                                  "kernel to time instead")
+    ap.add_argument("--fir-sweep", action="store_true",
+                    help="only time FIR from 2^20 to 2^26 outputs at 7, "
+                         "15, 64 and 255 taps (float32) and at the bench and "
+                         "frontend shapes in int8 and int16")
+    ap.add_argument("--src", help="with --conv2d-sweep or --fir-sweep: the "
+                                  "src/ directory of another checkout of "
+                                  "the port, whose kernel to time instead")
     ap.add_argument("--out", help="with a sweep: write the times here as "
                                   "JSON")
     args = ap.parse_args(argv)
     if args.src:
-        if not args.conv2d_sweep:
-            ap.error("--src needs --conv2d-sweep")
+        if not (args.conv2d_sweep or args.fir_sweep):
+            ap.error("--src needs --conv2d-sweep or --fir-sweep")
         sys.path.insert(0, str(Path(args.src).resolve()))
 
     if not torch.cuda.is_available():
@@ -2786,7 +3016,8 @@ def main(argv=None) -> int:
     paths = build.build(("widesa_hpc",) if args.mttkrp_sweep
                         else ("widesa_mm",) if args.tc_sweep
                         else ("widesa_mm", "widesa_sp") if args.fft_sweep
-                        else ("widesa_sp",) if args.conv2d_sweep
+                        else ("widesa_sp",)
+                        if args.conv2d_sweep or args.fir_sweep
                         else tuple(build.SOURCES))
     for lib in paths:
         build.library(lib)
@@ -2801,10 +3032,11 @@ def main(argv=None) -> int:
           f"{'; '.join(kernel_resources(build.build_log))})", flush=True)
 
     if args.mttkrp_sweep or args.tc_sweep or args.fft_sweep \
-            or args.conv2d_sweep:
+            or args.conv2d_sweep or args.fir_sweep:
         rows = (mttkrp_sweep(torch) if args.mttkrp_sweep
                 else tc_sweep(torch) if args.tc_sweep
                 else conv2d_sweep(torch) if args.conv2d_sweep
+                else fir_sweep(torch) if args.fir_sweep
                 else fft_sweep(torch))
         if args.out:
             Path(args.out).write_text(json.dumps(rows, indent=1))
@@ -2830,7 +3062,9 @@ def main(argv=None) -> int:
           "gemm_tc_int_kernel on wgmma above in int8, int16 and int32 after "
           "limb_planes_kernel, both counted as wgmma; gemm_kernel tiled for "
           "the rest); fir (B3, fir.py fir_kernel "
-          "-> cuda), conv2d (B5, conv2d.py conv_kernel -> cuda: "
+          "-> cuda: fir_kernel, compiled 15 taps and a generic "
+          "instantiation, real and complex (fir_complex, ops.fir_complex, "
+          "one launch)), conv2d (B5, conv2d.py conv_kernel -> cuda: "
           "conv2d_kernel, compiled 4x4 / 8x8 / 5x4 windows and a generic "
           "one) in "
           + SP_SOURCE + "; fft2d (B4, fft2d.py fft2d/_cmul_mm -> cuda, "
@@ -2887,20 +3121,26 @@ def main(argv=None) -> int:
                     "fft2d": ("device_ms", "composition_device_ms",
                               "library_device_ms", "dft_bound_ms"),
                     "conv2d": ("device_ms", "library_device_ms"),
+                    "fir": ("device_ms", "generic_device_ms",
+                            "library_device_ms", "copy_device_ms"),
                     "jacobi2d": ("device_ms", "library_device_ms")}.get(
                 kname, ("device_ms", "tiled_device_ms", "library_device_ms",
                         "host_us", "facade_us"))
             entry.update({key: row[key] for key in keys})
-        if kname == "conv2d":
-            # the paper's conv2d table: each bench case
+        if kname in ("conv2d", "fir"):
+            # the paper's conv2d and FIR tables: each bench case (FIR's
+            # cfloat on float32 planes, and fir_complex in one launch)
             entry["bench"] = {
-                where.removeprefix("bench "): {
+                (where.removeprefix("bench ") if name == kname
+                 else "fir_complex float32"): {
                     key: r.get(key) for key in (
                         "ms", "device_ms", "generic_device_ms", "plain_ms",
                         "library_ms", "library_device_ms", "copy_device_ms",
-                        "bound_ms", "max_abs_err")}
+                        "four_conv1d_device_ms", "launches", "bound_ms",
+                        "max_abs_err")}
                 for (name, where, *_), r in rows.items()
-                if name == "conv2d" and str(where).startswith("bench")}
+                if name in (kname, kname + "_complex")
+                and str(where).startswith("bench")}
         if kname == "jacobi2d":
             # the other stars and dtypes timed, and jacobi2d_ms's call
             entry["timed"] = {

@@ -3,8 +3,8 @@
 The sources live in ``csrc/``: ``widesa_mm.cu`` (the mm/bmm GEMMs:
 the skinny kernel, the tensor-core ones for floats and integers, and the
 tiled one),
-``widesa_sp.cu`` (the FIR, conv2d and fused fft2d signal-processing
-kernels) and
+``widesa_sp.cu`` (the FIR, real and complex, conv2d and fused fft2d
+signal-processing kernels) and
 ``widesa_hpc.cu`` (the star stencils and the two MTTKRP kernels); the
 window kernels of both share ``window.cuh``.  Each
 source is its own shared library; the first call on a machine compiles
@@ -86,10 +86,18 @@ MM_TILES = frozenset(COMPILED_TILES + SWEEP_TILES)
 #: the tiled kernel's entry points, whose tile picks the library
 _TILED_ENTRIES = ("widesa_mm_launch", "widesa_bmm_launch")
 
-#: compiled FIR output tiles (``BN``, outputs a block computes: 256
-#: threads x 1 or 4 outputs), kept equal to ``launch_fir`` in
-#: csrc/widesa_sp.cu
-FIR_TILES = (256, 1024)
+#: the FIR kernel's compiled tap counts (any other count up to
+#: ``fir.MAX_TAPS`` runs the generic instantiation, named 0), the lanes a
+#: block may have, the consecutive outputs a lane computes, the chunk
+#: slots of a block's ring and the lanes an SM keeps resident for the
+#: real FIR (half for the complex one); kept equal to ``launch_fir`` and
+#: the ``kFir*`` constants in csrc/widesa_sp.cu
+FIR_TAPS = (15,)
+FIR_GENERIC = 0
+FIR_LANES = (128, 256)
+FIR_LANE_OUTPUTS = 4
+FIR_STAGES = 4
+FIR_SM_LANES = 1024
 
 #: the window kernels (csrc/window.cuh: conv2d and the one-sweep star
 #: stencil): warps a block, side by side, and output columns a lane owns,
@@ -145,8 +153,12 @@ _ENTRIES = {
     # then the shape, B's layout, the input dtype and the configuration
     "widesa_tc_int_launch": ("widesa_mm", [ctypes.c_void_p] * 5
                              + [ctypes.c_int] * 11 + [ctypes.c_void_p]),
+    # the FIR: x, h, y (the complex FIR: both planes of each), the shape,
+    # dtypes, then the compiled tap count, lanes a block and blocks
     "widesa_fir_launch": ("widesa_sp", [ctypes.c_void_p] * 3
-                          + [ctypes.c_int] * 5 + [ctypes.c_void_p]),
+                          + [ctypes.c_int] * 7 + [ctypes.c_void_p]),
+    "widesa_fir_complex_launch": ("widesa_sp", [ctypes.c_void_p] * 6
+                                  + [ctypes.c_int] * 7 + [ctypes.c_void_p]),
     # conv2d: the shape, dtypes, the compiled window and the rows a warp
     "widesa_conv2d_launch": ("widesa_sp", [ctypes.c_void_p] * 3
                              + [ctypes.c_int] * 9 + [ctypes.c_void_p]),

@@ -55,81 +55,488 @@ template <> struct Flush<uint32_t, int32_t> {
   __device__ static int32_t cast(uint32_t v) { return (int32_t)v; }
 };
 
-constexpr int kThreads = 256;
-
 // ---------------------------------------------------------------------------
-// FIR: y[n] = sum_t x[n + t] * h[t], n < n_out, t < taps (VALID).
+// FIR: y[n] = sum_t x[n + t] * h[t], n < n_out, t < taps (VALID); and the
+// complex FIR on real and imaginary planes, y_re = rr - ii and
+// y_im = ri + ir with rr = FIR(x_re, h_re), ii = FIR(x_im, h_im),
+// ri = FIR(x_re, h_im), ir = FIR(x_im, h_re).
 //
 // Replaces src/repro/kernels/fir.py fir_kernel (pallas_call at :59 in
 // fir_stacked), which contracts the (T, bn) block of the shifted stack that
 // ops.fir writes to HBM with the taps: T x n_out elements stored and read
-// back for every call.
+// back for every call; and ops.fir_complex (src/repro/kernels/ops.py:283),
+// four such calls and two array combines.
 //
-// What bounds it on an H100: bytes.  The work is 2 * taps operations per
-// output against 4-6 bytes moved per output (x read once, y written once):
-// at taps = 15 about 5 operations per byte, far below the ~20 the CUDA cores
-// need at 3.35 TB/s.  The design reads each x element from device memory
-// once per block: a block of 256 threads owns BN = 256 * PER_THREAD
-// consecutive outputs, stages x[n0 : n0 + BN + taps - 1] (the tile and its
-// taps - 1 halo) and the taps in shared memory with coalesced loads, then
-// each thread sums its outputs (n0 + tid + i * 256: neighbouring threads
-// write neighbouring addresses) in t order from shared memory.  Only the
-// halo, taps - 1 elements a block, is read twice.  The plan's tile
-// ({n: 103} on the TPU) is not a CUDA tile: the wrapper picks BN for the
-// card (repro_torch/kernels/runtime.py: fir_tile).
+// What bounds it on an H100: bytes at 15 taps; the CUDA cores above ~80
+// taps in float32.  The work is 2 * taps operations an output against 5-8
+// bytes moved (x read once, y written once; the complex FIR moves twice the
+// bytes for four times the work): at 15 taps 4-6 operations a byte, where
+// the CUDA cores' 67 TFLOP/s against 3.35 TB/s allow 20.  A form that
+// stages a block's inputs and taps in shared memory and sums one output a
+// thread reads two 4-byte words from it for every multiply-add (30 an
+// output at 15 taps) and is bound by shared memory, at 44 % of its byte
+// bound on an H100.  The design:
+//
+//   * A compile-time tap count for the one the repository runs: 15 (the
+//     paper's and the whisper frontend's), with the taps in registers.
+//     Any other count up to kFirMaxTaps runs the generic
+//     instantiation: the taps in shared memory, read as one 16-byte
+//     broadcast (int8: one word) for every 4 taps and all 4 of a lane's
+//     outputs.
+//   * A lane computes kFirLaneOutputs = 4 consecutive outputs from one
+//     register window of its 4 + T - 1 inputs, read from shared memory as
+//     vectors of 4 elements (16, 8 or 4 bytes: at 15 taps 5 vector loads
+//     for 4 float32 outputs, where that form makes 120 word loads), and
+//     stores them as one 16-byte vector: a warp's stores are 512
+//     contiguous bytes.
+//   * A block of 128 or 256 lanes walks chunks of lanes * 4 outputs
+//     (blockIdx, blockIdx + gridDim, ...) through a ring of kFirStages
+//     chunk slots: each chunk's inputs and their taps - 1 halo are copied
+//     into a slot by 16-byte cp.async, whatever the alignment of x (the
+//     16-byte units that hold them, as window::stage does), three chunks in
+//     flight while one is computed.  runtime.fir_config sizes the grid to
+//     the blocks the card keeps resident, so that at 1M outputs every SM
+//     has work and every chunk's copy is issued before the first chunk is
+//     computed.
+//   * Wherever x starts in its 16-byte unit, a lane's vectors start on
+//     vector boundaries and its window is realigned in registers: whole
+//     words by a compile-time case of the word offset (a uniform branch),
+//     the bytes of int8 and int16 by a funnel shift.
+//   * int8 takes __dp4a: four taps an instruction, the taps packed four to
+//     a word (zero past T), each output's shifted 4-byte windows cut from
+//     the realigned words by __byte_perm.  int16 and int32 take 32-bit
+//     integer multiply-adds.
+//   * The complex FIR is one launch: both planes of x staged, both planes
+//     of h in registers (or shared memory), four accumulators an output
+//     (rr, ri from x_re, ii, ir from x_im, each in t order as the
+//     reference's four passes) combined at the end: x_re and x_im read
+//     once, y_re and y_im written once.
+//
+// Each output sums in t order, one fused multiply-add a product in float32;
+// integers wrap modulo 2^32.  Only a chunk's halo, taps - 1 inputs, is read
+// twice (from L2).  The plan's tile ({n: 103} on the TPU) is not a CUDA
+// tile: runtime.fir_tile picks the launch for the card.
 // ---------------------------------------------------------------------------
-template <typename TIn, typename TOut, int PER_THREAD>
-__global__ void __launch_bounds__(kThreads)
-fir_kernel(const TIn* __restrict__ x, const TIn* __restrict__ h,
-           TOut* __restrict__ y, int n_out, int taps) {
-  using Acc = typename Elem<TIn>::Acc;
-  constexpr int BN = kThreads * PER_THREAD;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  Acc* hs = reinterpret_cast<Acc*>(smem_raw);
-  Acc* xs = hs + taps;
+constexpr int kFirLanes = 256;      // the most lanes a block (128 or 256 at run time)
+constexpr int kFirLaneOutputs = 4;  // consecutive outputs a lane computes a chunk
+constexpr int kFirStages = 4;       // chunk slots of a block's ring
+constexpr int kFirSmLanes = 1024;   // lanes an SM keeps resident (the complex FIR half)
+constexpr int kFirMaxTaps = 4096;
+constexpr int kFirSlack = 64;       // bytes a slot holds past its chunk's inputs
 
-  const long long n0 = (long long)blockIdx.x * BN;
-  const long long n_in = (long long)n_out + taps - 1;
-  const int span = BN + taps - 1;
-  for (int t = threadIdx.x; t < taps; t += kThreads) hs[t] = Elem<TIn>::load(h + t);
-  for (int e = threadIdx.x; e < span; e += kThreads) {
-    const long long g = n0 + e;
-    xs[e] = g < n_in ? Elem<TIn>::load(x + g) : Acc(0);
-  }
-  __syncthreads();
+__host__ __device__ constexpr int fir_tpad(int taps) { return (taps + 3) & ~3; }
 
+// Bytes of one plane's chunk slot: the chunk's lanes * 4 + taps - 1 inputs
+// from any 16-byte phase, the taps rounded up to 4, and the slack the last
+// lane's vectors read past them (kept equal to runtime.fir_smem).
+__host__ __device__ constexpr int fir_slot_bytes(int lanes, int taps, int elem) {
+  return ((lanes * kFirLaneOutputs + fir_tpad(taps)) * elem + 16 + kFirSlack + 15) & ~15;
+}
+
+// Bytes of one plane's taps in shared memory (the generic instantiation):
+// int8 packed four to a word, the rest as 32-bit accumulator values, zero
+// past the last tap.
+__host__ __device__ constexpr int fir_taps_bytes(int taps, int elem) {
+  return elem == 1 ? (fir_tpad(taps) + 15) & ~15 : 4 * fir_tpad(taps);
+}
+
+template <typename TIn, typename TOut>
+struct FirArgs {
+  const TIn* x[2];  // the input planes (the complex FIR's re, im)
+  const TIn* h[2];
+  TOut* y[2];
+  int n_out, taps;
+};
+
+template <typename Acc>
+struct alignas(16) Four {
+  Acc x[4];
+};
+
+// The taps of a compiled count T in registers: as accumulator values, or,
+// in int8, packed four to a word (zero past T) for __dp4a.
+template <typename TIn, int T>
+struct FirTaps {
+  typename Elem<TIn>::Acc v[T];
+  __device__ __forceinline__ void load(const TIn* h) {
 #pragma unroll
-  for (int i = 0; i < PER_THREAD; ++i) {
-    const int local = threadIdx.x + i * kThreads;
-    const long long n = n0 + local;
-    if (n < n_out) {
-      Acc acc = Acc(0);
-      for (int t = 0; t < taps; ++t) acc += xs[local + t] * hs[t];
-      y[n] = Flush<Acc, TOut>::cast(acc);
+    for (int t = 0; t < T; ++t) v[t] = Elem<TIn>::load(h + t);
+  }
+};
+template <int T>
+struct FirTaps<int8_t, T> {
+  uint32_t w[(T + 3) / 4];
+  __device__ __forceinline__ void load(const int8_t* h) {
+#pragma unroll
+    for (int m = 0; m < (T + 3) / 4; ++m) {
+      uint32_t word = 0;
+#pragma unroll
+      for (int b = 0; b < 4; ++b)
+        if (4 * m + b < T) word |= (uint32_t)(uint8_t)h[4 * m + b] << (8 * b);
+      w[m] = word;
+    }
+  }
+};
+
+// Copy the n > 0 elements src[0 .. n) into `slot` (16-byte aligned) as the
+// 16-byte units that hold them, the block's threads a unit each in turn:
+// src[k] lands at byte (src & 15) + k * sizeof(T) of the slot.  As in
+// window::stage, no unit reaches past the page of an element it holds.
+template <typename T>
+__device__ __forceinline__ void fir_stage(unsigned char* slot, const T* src, int n) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(src);
+  const uintptr_t a0 = a & ~uintptr_t(15);
+  const int units = (int)((a - a0 + (uintptr_t)n * sizeof(T) + 15) >> 4);
+  for (int u = threadIdx.x; u < units; u += blockDim.x)
+    window::cp16(slot + 16 * u, reinterpret_cast<const void*>(a0 + 16 * (uintptr_t)u));
+}
+
+// One vector of VW words (4, 8 or 16 bytes) from shared memory.
+template <int VW>
+__device__ __forceinline__ void fir_lds(uint32_t* w, const uint32_t* p) {
+  if constexpr (VW == 4) {
+    const uint4 v = *reinterpret_cast<const uint4*>(p);
+    w[0] = v.x;
+    w[1] = v.y;
+    w[2] = v.z;
+    w[3] = v.w;
+  } else if constexpr (VW == 2) {
+    const uint2 v = *reinterpret_cast<const uint2*>(p);
+    w[0] = v.x;
+    w[1] = v.y;
+  } else {
+    w[0] = p[0];
+  }
+}
+
+// The NU words of a lane's window, u[k] = the words w[WL + k ...] loaded
+// from the lane's first vector on, shifted down by s bytes (s > 0 only in
+// int8 and int16, which load one word more for it).
+template <int NU, int WL, int SZ>
+__device__ __forceinline__ void fir_realign(uint32_t* u, const uint32_t* w, int s) {
+#pragma unroll
+  for (int k = 0; k < NU; ++k) {
+    if constexpr (SZ < 4)
+      u[k] = __funnelshift_r(w[WL + k], w[WL + k + 1], 8 * s);
+    else
+      u[k] = w[WL + k];
+  }
+}
+
+// Element k of a realigned window, as the accumulator type.
+template <typename TIn>
+__device__ __forceinline__ typename Elem<TIn>::Acc fir_elem(const uint32_t* u, int k) {
+  if constexpr (std::is_same<TIn, float>::value)
+    return __uint_as_float(u[k]);
+  else if constexpr (sizeof(TIn) == 4)
+    return u[k];
+  else
+    return (uint32_t)(int32_t)(int16_t)(u[k >> 1] >> (16 * (k & 1)));
+}
+
+// Output j's 4-byte int8 window at tap group m: bytes j .. j + 3 of the
+// pair u[m], u[m + 1].
+__device__ __forceinline__ int fir_bytes(const uint32_t* u, int m, int j) {
+  return (int)(j == 0 ? u[m] : __byte_perm(u[m], u[m + 1], 0x3210 + 0x1111 * j));
+}
+
+// A lane's 4 outputs at a compiled tap count T from the window that starts
+// WL words and s bytes into the vector at `src`: a0 += the products with
+// h0, and with NH = 2 also a1 += those with h1, in t order.
+template <typename TIn, int T, int WL, int NH>
+__device__ __forceinline__ void fir_window(const uint32_t* src, int s, const FirTaps<TIn, T>& h0,
+                                           const FirTaps<TIn, T>& h1,
+                                           typename Elem<TIn>::Acc (&a0)[kFirLaneOutputs],
+                                           typename Elem<TIn>::Acc (&a1)[kFirLaneOutputs]) {
+  using Acc = typename Elem<TIn>::Acc;
+  constexpr int SZ = sizeof(TIn), VW = SZ, R = kFirLaneOutputs;
+  constexpr bool kDp4a = SZ == 1;
+  constexpr int E = R + (kDp4a ? fir_tpad(T) : T) - 1;  // the window's elements
+  constexpr int NU = (E * SZ + 3) / 4;                  // its words
+  constexpr int NW = WL + NU + (SZ < 4 ? 1 : 0);        // the words loaded
+  constexpr int NV = (NW + VW - 1) / VW;                // as vectors
+  uint32_t w[NV * VW];
+#pragma unroll
+  for (int v = 0; v < NV; ++v) fir_lds<VW>(w + v * VW, src + v * VW);
+  uint32_t u[NU];
+  fir_realign<NU, WL, SZ>(u, w, s);
+  if constexpr (kDp4a) {
+#pragma unroll
+    for (int j = 0; j < R; ++j)
+#pragma unroll
+      for (int m = 0; m < fir_tpad(T) / 4; ++m) {
+        const int v = fir_bytes(u, m, j);
+        a0[j] = (uint32_t)__dp4a(v, (int)h0.w[m], (int)a0[j]);
+        if constexpr (NH == 2) a1[j] = (uint32_t)__dp4a(v, (int)h1.w[m], (int)a1[j]);
+      }
+  } else {
+    Acc e[E];
+#pragma unroll
+    for (int k = 0; k < E; ++k) e[k] = fir_elem<TIn>(u, k);
+#pragma unroll
+    for (int t = 0; t < T; ++t)
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        a0[j] = window::mac(a0[j], h0.v[t], e[j + t]);
+        if constexpr (NH == 2) a1[j] = window::mac(a1[j], h1.v[t], e[j + t]);
+      }
+  }
+}
+
+// Taps 4g .. 4g + 3 of the generic instantiation (the first `valid` of
+// them; int8's taps are zero past the last) on the window words w of the
+// group: outputs j of the lane take x[4g + j + tt] * h[4g + tt].
+template <typename TIn, int WL, int NH>
+__device__ __forceinline__ void fir_group(const uint32_t* w, int s, int g, int valid,
+                                          const unsigned char* hs0, const unsigned char* hs1,
+                                          typename Elem<TIn>::Acc (&a0)[kFirLaneOutputs],
+                                          typename Elem<TIn>::Acc (&a1)[kFirLaneOutputs]) {
+  using Acc = typename Elem<TIn>::Acc;
+  constexpr int SZ = sizeof(TIn), R = kFirLaneOutputs;
+  constexpr int NU = (7 * SZ + 3) / 4;  // words of the group's 4 + 3 elements
+  uint32_t u[NU];
+  fir_realign<NU, WL, SZ>(u, w, s);
+  if constexpr (SZ == 1) {
+    const int t0 = (int)reinterpret_cast<const uint32_t*>(hs0)[g];
+    const int t1 = NH == 2 ? (int)reinterpret_cast<const uint32_t*>(hs1)[g] : 0;
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const int v = fir_bytes(u, 0, j);
+      a0[j] = (uint32_t)__dp4a(v, t0, (int)a0[j]);
+      if constexpr (NH == 2) a1[j] = (uint32_t)__dp4a(v, t1, (int)a1[j]);
+    }
+  } else {
+    const Four<Acc> t0 = reinterpret_cast<const Four<Acc>*>(hs0)[g];
+    const Four<Acc> t1 = reinterpret_cast<const Four<Acc>*>(NH == 2 ? hs1 : hs0)[g];
+    Acc e[R + 3];
+#pragma unroll
+    for (int k = 0; k < R + 3; ++k) e[k] = fir_elem<TIn>(u, k);
+#pragma unroll
+    for (int tt = 0; tt < 4; ++tt) {
+      if (tt >= valid) break;
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        a0[j] = window::mac(a0[j], t0.x[tt], e[j + tt]);
+        if constexpr (NH == 2) a1[j] = window::mac(a1[j], t1.x[tt], e[j + tt]);
+      }
     }
   }
 }
 
-template <typename TIn, typename TOut, int PER_THREAD>
-int fir_tile(const void* x, const void* h, void* y, int n_out, int taps,
-             cudaStream_t stream) {
+// The generic instantiation's lane: the window slides one vector (4
+// elements) a group of 4 taps, KV vectors of it in registers.
+template <typename TIn, int WL, int NH>
+__device__ __forceinline__ void fir_window_generic(
+    const uint32_t* src, int s, int taps, const unsigned char* hs0, const unsigned char* hs1,
+    typename Elem<TIn>::Acc (&a0)[kFirLaneOutputs], typename Elem<TIn>::Acc (&a1)[kFirLaneOutputs]) {
+  constexpr int SZ = sizeof(TIn), VW = SZ;
+  constexpr int NU = (7 * SZ + 3) / 4;
+  constexpr int KV = (WL + NU + (SZ < 4 ? 1 : 0) + VW - 1) / VW;
+  uint32_t w[KV * VW];
+#pragma unroll
+  for (int v = 0; v + 1 < KV; ++v) fir_lds<VW>(w + v * VW, src + v * VW);
+  const int groups = taps / 4;
+  for (int g = 0; g < groups; ++g) {
+    fir_lds<VW>(w + (KV - 1) * VW, src + (g + KV - 1) * VW);
+    fir_group<TIn, WL, NH>(w, s, g, 4, hs0, hs1, a0, a1);
+#pragma unroll
+    for (int k = 0; k < (KV - 1) * VW; ++k) w[k] = w[k + VW];
+  }
+  if (taps % 4) {
+    fir_lds<VW>(w + (KV - 1) * VW, src + (groups + KV - 1) * VW);
+    fir_group<TIn, WL, NH>(w, s, groups, taps % 4, hs0, hs1, a0, a1);
+  }
+}
+
+// One input plane of a lane: the compile-time case of its word offset wl
+// (in [0, sizeof(TIn)): the words between its first vector and its first
+// input), then its window at the compiled tap count T, or the generic one.
+template <typename TIn, int T, int NH, int WL = 0>
+__device__ __forceinline__ void fir_plane(int wl, const uint32_t* src, int s, int taps,
+                                          const FirTaps<TIn, (T > 0 ? T : 1)>& h0,
+                                          const FirTaps<TIn, (T > 0 ? T : 1)>& h1,
+                                          const unsigned char* hs0, const unsigned char* hs1,
+                                          typename Elem<TIn>::Acc (&a0)[kFirLaneOutputs],
+                                          typename Elem<TIn>::Acc (&a1)[kFirLaneOutputs]) {
+  if constexpr (WL + 1 < (int)sizeof(TIn)) {
+    if (wl != WL) {
+      fir_plane<TIn, T, NH, WL + 1>(wl, src, s, taps, h0, h1, hs0, hs1, a0, a1);
+      return;
+    }
+  }
+  if constexpr (T > 0)
+    fir_window<TIn, T, WL, NH>(src, s, h0, h1, a0, a1);
+  else
+    fir_window_generic<TIn, WL, NH>(src, s, taps, hs0, hs1, a0, a1);
+}
+
+// T: the compiled tap count, 0 for the generic instantiation; PLANES: 1 for
+// the real FIR, 2 for the complex one.
+template <typename TIn, typename TOut, int T, int PLANES>
+__global__ void __launch_bounds__(kFirLanes, kFirSmLanes / PLANES / kFirLanes)
+fir_kernel(const FirArgs<TIn, TOut> a) {
   using Acc = typename Elem<TIn>::Acc;
-  constexpr int BN = kThreads * PER_THREAD;
-  const size_t smem = (size_t)(BN + 2 * taps - 1) * sizeof(Acc);
-  const dim3 grid((unsigned)((n_out + BN - 1) / BN));
-  fir_kernel<TIn, TOut, PER_THREAD><<<grid, kThreads, smem, stream>>>(
-      static_cast<const TIn*>(x), static_cast<const TIn*>(h), static_cast<TOut*>(y),
-      n_out, taps);
+  constexpr int R = kFirLaneOutputs, SZ = sizeof(TIn);
+  constexpr int VB = R * SZ;  // bytes of a lane's vector
+  struct alignas(16) Out4 {
+    TOut v[R];
+  };
+  extern __shared__ __align__(16) unsigned char fir_smem[];
+
+  const int taps = T > 0 ? T : a.taps;
+  const int lanes = blockDim.x, lane = threadIdx.x;
+  const int chunk = lanes * R;
+  const int slot_bytes = fir_slot_bytes(lanes, taps, SZ);
+  const int taps_bytes = T > 0 ? 0 : fir_taps_bytes(taps, SZ);
+  unsigned char* hs = fir_smem;                          // PLANES x taps_bytes
+  unsigned char* ring = fir_smem + PLANES * taps_bytes;  // kFirStages x PLANES slots
+  const long long n_in = (long long)a.n_out + taps - 1;
+  const int nchunks = (int)(((long long)a.n_out + chunk - 1) / chunk);
+
+  FirTaps<TIn, (T > 0 ? T : 1)> h[PLANES];
+#pragma unroll
+  for (int p = 0; p < PLANES; ++p) {
+    if constexpr (T > 0) {
+      h[p].load(a.h[p]);
+    } else if constexpr (SZ == 1) {
+      uint32_t* hw = reinterpret_cast<uint32_t*>(hs + p * taps_bytes);
+      for (int m = lane; m < fir_tpad(taps) / 4; m += lanes) {
+        uint32_t word = 0;
+        for (int b = 0; b < 4; ++b)
+          if (4 * m + b < taps) word |= (uint32_t)(uint8_t)a.h[p][4 * m + b] << (8 * b);
+        hw[m] = word;
+      }
+    } else {
+      Acc* hv = reinterpret_cast<Acc*>(hs + p * taps_bytes);
+      for (int t = lane; t < fir_tpad(taps); t += lanes)
+        hv[t] = t < taps ? Elem<TIn>::load(a.h[p] + t) : Acc(0);
+    }
+  }
+  int lead[PLANES];  // where x[c0] lands in its slot (the same for every chunk)
+#pragma unroll
+  for (int p = 0; p < PLANES; ++p) lead[p] = (int)(reinterpret_cast<uintptr_t>(a.x[p]) & 15);
+
+  // chunk c's inputs and halo, every plane, into ring slot `slot` as one
+  // cp.async group (an empty one past the last chunk)
+  auto fetch = [&](int c, int slot) {
+    if (c < nchunks) {
+      const long long c0 = (long long)c * chunk;
+      const int n = (int)min((long long)chunk + taps - 1, n_in - c0);
+#pragma unroll
+      for (int p = 0; p < PLANES; ++p)
+        fir_stage(ring + (slot * PLANES + p) * slot_bytes, a.x[p] + c0, n);
+    }
+    window::commit();
+  };
+
+#pragma unroll
+  for (int i = 0; i + 1 < kFirStages; ++i) fetch(blockIdx.x + i * gridDim.x, i);
+  int i = 0;
+  for (int c = blockIdx.x; c < nchunks; c += gridDim.x, ++i) {
+    // the slot of chunk i + 3 last held chunk i - 1, read before the
+    // __syncthreads() that ended the previous chunk
+    fetch(c + (kFirStages - 1) * gridDim.x, (i + kFirStages - 1) % kFirStages);
+    window::wait<kFirStages - 1>();  // this thread's copies of chunk i have landed
+    __syncthreads();                 // and every thread's (and the taps)
+    const long long n0 = (long long)c * chunk + (long long)lane * R;
+    if (n0 < a.n_out) {
+      // real: acc[0]; complex: rr, ri (x_re), ii, ir (x_im)
+      Acc acc[2 * PLANES][R];
+#pragma unroll
+      for (int q = 0; q < 2 * PLANES; ++q)
+#pragma unroll
+        for (int j = 0; j < R; ++j) acc[q][j] = Acc(0);
+      const unsigned char* slots = ring + (i % kFirStages) * PLANES * slot_bytes;
+#pragma unroll
+      for (int p = 0; p < PLANES; ++p) {
+        const uint32_t* src = reinterpret_cast<const uint32_t*>(
+            slots + p * slot_bytes + (lane + lead[p] / VB) * VB);
+        const int r = lead[p] % VB;
+        // x_re with (h_re, h_im), x_im with (h_im, h_re)
+        fir_plane<TIn, T, PLANES>(r >> 2, src, r & 3, taps, h[p], h[PLANES - 1 - p],
+                                  hs + p * taps_bytes, hs + (PLANES - 1 - p) * taps_bytes,
+                                  acc[2 * p], acc[2 * p + 1]);
+      }
+      Out4 o[PLANES];
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        if constexpr (PLANES == 1) {
+          o[0].v[j] = Flush<Acc, TOut>::cast(acc[0][j]);
+        } else {
+          o[0].v[j] = Flush<Acc, TOut>::cast(acc[0][j] - acc[2][j]);
+          o[1].v[j] = Flush<Acc, TOut>::cast(acc[1][j] + acc[3][j]);
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < PLANES; ++q) {
+        TOut* y = a.y[q] + n0;
+        if (n0 + R <= a.n_out) {
+          *reinterpret_cast<Out4*>(y) = o[q];
+        } else {
+#pragma unroll
+          for (int j = 0; j < R; ++j)
+            if (n0 + j < a.n_out) y[j] = o[q].v[j];
+        }
+      }
+    }
+    __syncthreads();
+  }
+}
+
+template <typename TIn, typename TOut, int T, int PLANES>
+int fir_launch(const FirArgs<TIn, TOut>& a, int lanes, int blocks, cudaStream_t stream) {
+  const int smem = PLANES * ((T > 0 ? 0 : fir_taps_bytes(a.taps, sizeof(TIn))) +
+                             kFirStages * fir_slot_bytes(lanes, a.taps, sizeof(TIn)));
+  if (smem > 48 * 1024) {
+    const cudaError_t allowed = cudaFuncSetAttribute(
+        fir_kernel<TIn, TOut, T, PLANES>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (allowed != cudaSuccess) return (int)allowed;
+  }
+  fir_kernel<TIn, TOut, T, PLANES><<<blocks, lanes, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-// The compiled FIR tiles: BN = 256 or 1024 outputs a block (kept equal to
-// FIR_TILES in repro_torch/kernels/build.py).
-template <typename TIn, typename TOut>
-int launch_fir(int bn, const void* x, const void* h, void* y, int n_out, int taps,
+// The compiled tap counts: 15, and 0, the generic instantiation (kept equal
+// to FIR_TAPS and FIR_GENERIC in repro_torch/kernels/build.py).
+template <typename TIn, typename TOut, int PLANES>
+int launch_fir(int ctaps, int lanes, int blocks, const FirArgs<TIn, TOut>& a,
                cudaStream_t stream) {
-  if (bn == kThreads) return fir_tile<TIn, TOut, 1>(x, h, y, n_out, taps, stream);
-  if (bn == 4 * kThreads) return fir_tile<TIn, TOut, 4>(x, h, y, n_out, taps, stream);
+  if (a.taps < 1 || a.taps > kFirMaxTaps || a.n_out < 1 || blocks < 1 ||
+      (lanes != kFirLanes && lanes != kFirLanes / 2))
+    return (int)cudaErrorInvalidValue;
+  for (int p = 0; p < PLANES; ++p)
+    if (reinterpret_cast<uintptr_t>(a.y[p]) % 16 != 0) return (int)cudaErrorInvalidValue;
+  if (ctaps == 15 && a.taps == 15) return fir_launch<TIn, TOut, 15, PLANES>(a, lanes, blocks, stream);
+  if (ctaps == 0) return fir_launch<TIn, TOut, 0, PLANES>(a, lanes, blocks, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename TIn, typename TOut, int PLANES>
+int fir_typed(const void* const* x, const void* const* h, void* const* y, int n_out, int taps,
+              int ctaps, int lanes, int blocks, cudaStream_t stream) {
+  FirArgs<TIn, TOut> a;
+  for (int p = 0; p < 2; ++p) {
+    a.x[p] = static_cast<const TIn*>(x[p]);
+    a.h[p] = static_cast<const TIn*>(h[p]);
+    a.y[p] = static_cast<TOut*>(y[p]);
+  }
+  a.n_out = n_out;
+  a.taps = taps;
+  return launch_fir<TIn, TOut, PLANES>(ctaps, lanes, blocks, a, stream);
+}
+
+template <int PLANES>
+int fir_dtypes(int in_dtype, int out_dtype, const void* const* x, const void* const* h,
+               void* const* y, int n_out, int taps, int ctaps, int lanes, int blocks,
+               cudaStream_t s) {
+  if (in_dtype == F32 && out_dtype == F32)
+    return fir_typed<float, float, PLANES>(x, h, y, n_out, taps, ctaps, lanes, blocks, s);
+  if (in_dtype == I8 && out_dtype == I32)
+    return fir_typed<int8_t, int32_t, PLANES>(x, h, y, n_out, taps, ctaps, lanes, blocks, s);
+  if (in_dtype == I16 && out_dtype == I32)
+    return fir_typed<int16_t, int32_t, PLANES>(x, h, y, n_out, taps, ctaps, lanes, blocks, s);
+  if (in_dtype == I32 && out_dtype == I32)
+    return fir_typed<int32_t, int32_t, PLANES>(x, h, y, n_out, taps, ctaps, lanes, blocks, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -694,18 +1101,30 @@ int launch_fft2d(const float* xr, const float* xi, const float* frr, const float
 
 extern "C" {
 
-// y[n] = sum_t x[n + t] h[t] for n < n_out (the fir recurrence).  Returns a
-// cudaError_t.
+// y[n] = sum_t x[n + t] h[t] for n < n_out (the fir recurrence) on the
+// compiled tap count ctaps (0: the generic instantiation), `lanes` lanes a
+// block and `blocks` blocks.  Returns a cudaError_t.
 int widesa_fir_launch(const void* x, const void* h, void* y, int n_out, int taps,
-                      int in_dtype, int out_dtype, int bn, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (in_dtype == F32 && out_dtype == F32) return launch_fir<float, float>(bn, x, h, y, n_out, taps, s);
-  if (in_dtype == I8 && out_dtype == I32) return launch_fir<int8_t, int32_t>(bn, x, h, y, n_out, taps, s);
-  if (in_dtype == I16 && out_dtype == I32)
-    return launch_fir<int16_t, int32_t>(bn, x, h, y, n_out, taps, s);
-  if (in_dtype == I32 && out_dtype == I32)
-    return launch_fir<int32_t, int32_t>(bn, x, h, y, n_out, taps, s);
-  return (int)cudaErrorInvalidValue;
+                      int in_dtype, int out_dtype, int ctaps, int lanes, int blocks,
+                      void* stream) {
+  const void* xs[2] = {x, x};
+  const void* hs[2] = {h, h};
+  void* ys[2] = {y, y};
+  return fir_dtypes<1>(in_dtype, out_dtype, xs, hs, ys, n_out, taps, ctaps, lanes, blocks,
+                       static_cast<cudaStream_t>(stream));
+}
+
+// The complex FIR, (y_re, y_im) = (rr - ii, ri + ir), in one launch, as
+// widesa_fir_launch.  Returns a cudaError_t.
+int widesa_fir_complex_launch(const void* x_re, const void* x_im, const void* h_re,
+                              const void* h_im, void* y_re, void* y_im, int n_out, int taps,
+                              int in_dtype, int out_dtype, int ctaps, int lanes, int blocks,
+                              void* stream) {
+  const void* xs[2] = {x_re, x_im};
+  const void* hs[2] = {h_re, h_im};
+  void* ys[2] = {y_re, y_im};
+  return fir_dtypes<2>(in_dtype, out_dtype, xs, hs, ys, n_out, taps, ctaps, lanes, blocks,
+                       static_cast<cudaStream_t>(stream));
 }
 
 // O[r, c] = sum_{p,q} I[r + p, c + q] F[p, q] over an oh x ow output (the

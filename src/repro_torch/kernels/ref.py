@@ -1,6 +1,6 @@
 """Plain PyTorch versions of the port's kernels (the ground truth): mm,
-bmm, fir, conv2d, fft2d, the star stencils (jacobi2d, jacobi2d_9pt and
-the multi-sweep jacobi2d_ms) and mttkrp.
+bmm, fir and fir_complex, conv2d, fft2d, the star stencils (jacobi2d,
+jacobi2d_9pt and the multi-sweep jacobi2d_ms) and mttkrp.
 
 They follow ``repro.kernels.ref``: float inputs accumulate in fp32 and
 round once to the input dtype (or to ``out_dtype``; fir and conv2d keep
@@ -97,6 +97,22 @@ def fir(x: torch.Tensor, h: torch.Tensor, out_dtype=None) -> torch.Tensor:
     out = _shifted_sum((x[i:i + n_out] for i in range(t)),
                        (h[i] for i in range(t)), x.dtype)
     return out if out_dtype is None else out.to(out_dtype)
+
+
+def fir_complex(x_re: torch.Tensor, x_im: torch.Tensor, h_re: torch.Tensor,
+                h_im: torch.Tensor, out_dtype=None):
+    """The complex FIR of ``x_re + i x_im`` by ``h_re + i h_im`` as the
+    reference's four real passes: (``rr - ii``, ``ri + ir``), float32 for
+    float inputs, int32 (wrapped) for integers."""
+    rr, ii = fir(x_re, h_re), fir(x_im, h_im)
+    ri, ir = fir(x_re, h_im), fir(x_im, h_re)
+    if x_re.dtype.is_floating_point:
+        out = rr - ii, ri + ir
+    else:
+        out = tuple(_wrap32(a.to(torch.int64) + sign * b.to(torch.int64))
+                    .to(torch.int32) for a, b, sign in ((rr, ii, -1),
+                                                        (ri, ir, 1)))
+    return out if out_dtype is None else tuple(o.to(out_dtype) for o in out)
 
 
 def conv2d(img: torch.Tensor, filt: torch.Tensor,

@@ -231,7 +231,7 @@ register(KernelSpec(
     grid_loops=("n",),
     block_kwargs=_fir_blocks,
     tiles=lambda plan, x, h: runtime.fir_tile(
-        plan, x.shape[0] - h.shape[0] + 1),
+        plan, x.shape[0] - h.shape[0] + 1, x.element_size()),
     hopper=_fir.fir,
     ref=ref.fir,
     builder=ir.fir,

@@ -64,13 +64,18 @@ PERF.md has the times behind these choices (``chip_smoke.py`` and its
 configuration that ran.  The batch block is not a kernel tile: each
 batch entry gets its own grid slice.
 
-fir (``fir_tile``): the plan's output block ({n: 103} on the audio
-frontend) is a TPU tile; the kernel is compiled for a 256-thread block
-computing 1 or 4 outputs a thread.  The larger tile is taken when it still
-gives every one of the card's 132 SMs a block, the smaller one otherwise
-(the frontend's chunks are a few thousand outputs: 25 blocks with the
-small tile, 7 with the large).  On an H100 this picks the faster tile at
-both the frontend and the bench shapes (PERF.md, from ``chip_smoke.py``).
+fir (``fir_tile``, ``fir_config``): the plan's output block ({n: 103} on
+the audio frontend) is a TPU tile and sets nothing.  The kernel runs on
+the instantiation compiled for the filter's tap count (15, else the
+generic one) with lanes of 4 consecutive outputs; a block of 256 lanes
+walks chunks of 1024 outputs, or of 128 lanes chunks of 512 where 256
+would leave SMs without a chunk (the frontend's 6180 outputs: 13 blocks
+of 128 lanes, not 7 of 256).  The grid is as many blocks as the card
+keeps resident (``FIR_SM_LANES`` lanes an SM, half for the complex FIR,
+fewer where a block's ring of chunk slots, ``fir_smem``, fills the SM's
+shared memory), at most one a chunk: at 1M outputs 528 blocks of 256
+lanes each walk about two chunks, and every chunk's copy is issued
+before the first chunk is computed.
 
 conv2d and the one-sweep star stencils run the window kernels
 (``csrc/window.cuh``): blocks of 4 warps side by side, 512 output
@@ -481,15 +486,79 @@ def gemm_tiles(plan: "ExecutionPlan", a: torch.Tensor,
     return HopperTiles(plan=tiles.plan, tile=gemm_tile(a, b, tiles.tile))
 
 
-def fir_tile(plan: "ExecutionPlan", n_out: int) -> HopperTiles:
-    """The compiled FIR tile for ``n_out`` outputs: the larger BN while it
-    leaves a block for every SM (module docstring)."""
+@dataclasses.dataclass(frozen=True)
+class FirTile:
+    """A FIR launch (``csrc/widesa_sp.cu`` ``fir_kernel``): the compiled
+    tap count it runs on (``build.FIR_GENERIC`` for the generic
+    instantiation), the lanes a block and the blocks of the grid.  A lane
+    computes ``build.FIR_LANE_OUTPUTS`` consecutive outputs, so a block's
+    chunk is ``lanes * 4`` outputs."""
+
+    taps: int
+    lanes: int
+    blocks: int
+
+    @property
+    def chunk(self) -> int:
+        return self.lanes * build.FIR_LANE_OUTPUTS
+
+
+#: shared memory of one SM of an H100 that blocks may use, and what each
+#: block reserves of it
+SM_SMEM = 233472
+BLOCK_RESERVED_SMEM = 1024
+#: bytes a FIR chunk slot holds past its inputs (``kFirSlack``)
+FIR_SLACK = 64
+
+
+def fir_smem(tile: FirTile, taps: int, elem: int, planes: int = 1) -> int:
+    """Dynamic shared memory of a FIR block (``fir_launch``): for each
+    plane, ``build.FIR_STAGES`` chunk slots (the chunk's inputs and halo
+    from any 16-byte phase, the taps rounded up to 4, and the slack), and
+    in the generic instantiation the taps (int8 packed four to a word,
+    else 4 bytes each)."""
+    tpad = -(-taps // 4) * 4
+    slot = ((tile.chunk + tpad) * elem + 16 + FIR_SLACK + 15) // 16 * 16
+    taps_bytes = 0
+    if tile.taps == build.FIR_GENERIC:
+        taps_bytes = (tpad + 15) // 16 * 16 if elem == 1 else 4 * tpad
+    return planes * (taps_bytes + build.FIR_STAGES * slot)
+
+
+def fir_config(n_out: int, taps: int, elem: int = 4, planes: int = 1,
+               compiled: int | None = None) -> FirTile:
+    """The FIR launch of ``n_out`` outputs of a ``taps``-tap filter on
+    ``elem``-byte inputs, ``planes`` of them (2: the complex FIR), on the
+    instantiation ``compiled`` (by default the tap count's own where
+    compiled, else the generic one; module docstring)."""
+    if compiled is None:
+        compiled = taps if taps in build.FIR_TAPS else build.FIR_GENERIC
+    small, large = build.FIR_LANES
+    per_lane = build.FIR_LANE_OUTPUTS
+    lanes = large if -(-n_out // (large * per_lane)) >= SMS else small
+    chunks = -(-n_out // (lanes * per_lane))
+    probe = FirTile(taps=compiled, lanes=lanes, blocks=1)
+    resident = min(build.FIR_SM_LANES // planes // lanes,
+                   SM_SMEM // (fir_smem(probe, taps, elem, planes)
+                               + BLOCK_RESERVED_SMEM))
+    return FirTile(taps=compiled, lanes=lanes,
+                   blocks=max(1, min(chunks, SMS * resident)))
+
+
+def fir_tile(plan: "ExecutionPlan", n_out: int,
+             elem: int | None = None) -> HopperTiles:
+    """A FIR plan's block beside the launch of its ``n_out`` outputs
+    (``fir_config`` at the plan's tap count, its inputs ``elem`` bytes
+    each: by default the plan's dtype's, 4 for the float32 planes of
+    ``cfloat``)."""
     from . import registry
 
-    small, large = build.FIR_TILES
-    bn = large if -(-n_out // large) >= SMS else small
+    rec = plan.recurrence
+    if elem is None:
+        elem = {"int8": 1, "int16": 2}.get(rec.dtype, 4)
     return HopperTiles(
-        plan=(registry.get("fir").block_kwargs(plan)["bn"],), tile=(bn,))
+        plan=(registry.get("fir").block_kwargs(plan)["bn"],),
+        tile=fir_config(n_out, rec.extent("t"), elem))
 
 
 #: blocks the window kernels' grid aims to give each SM (``window_rows``)

@@ -24,17 +24,20 @@ The port's counterpart of ``examples/map_paper_benchmarks.py``,
    modelled TPU, which says nothing of the card.
 
 On ``cuda`` (the default) the plans run on the hand-written kernels.  The
-stencils, mttkrp, mm, bmm and conv2d run at their registry
+stencils, mttkrp, mm, bmm, conv2d and fir run at their registry
 ``bench_cases`` (``--size bench``, the default there: paper-scale 10238^2
 and 10236^2 grids, a 4094^2 grid for 8 sweeps, mttkrp at (4096, 400, 256,
 256), the paper's MM table (float32 8192^3, int8 10240^3, int16 9600^3,
-int32 8192^3), BMM table (64 x 4096^3 in float32, int8 and int16) and
-conv2d table (10240^2 outputs: float32, int16 and int32 with a 4 x 4
-filter, int8 with an 8 x 8 one)).  fir and fft2d_stage run at their
-``smoke_args``: fir's bench cases hold a complex one (``cfloat``) and
-fft2d_stage's are complex too, and the port has no complex lowering yet
-(ROADMAP A6); ``chip_smoke.py``'s kernel phase times fir at its frontend
-and float32 bench shapes.
+int32 8192^3), BMM table (64 x 4096^3 in float32, int8 and int16), conv2d
+table (10240^2 outputs: float32, int16 and int32 with a 4 x 4 filter,
+int8 with an 8 x 8 one) and FIR table (1048576 outputs of 15 taps in
+float32, int8, int16 and cfloat)).  The cfloat FIR case runs as the
+reference's ``execute_plan`` runs it: the cfloat plan on the float32
+planes ``registry.operands`` draws, one real FIR launch (its line says
+so); the complex arithmetic is ``fir.fir_complex``, which ``chip_smoke.py``
+times.  fft2d_stage runs at its ``smoke_args``: its bench cases are
+complex (cfloat and cint16 grids of 8192^2) and the port has no complex
+lowering of it yet (ROADMAP A6).
 bmm's plain version runs one batch entry at a time (``BATCHED``): at 64
 x 4096^3 a whole one would need ~70 GB of exact-integer temporaries.
 ``--device cpu`` runs the plain versions (the wrappers' CPU path) at
@@ -68,7 +71,7 @@ import torch
 
 #: the recurrences run at their bench cases on ``--size bench``; the rest
 #: run at their smoke sizes (module docstring)
-BENCH_SPECS = ("mm", "bmm", "conv2d", "jacobi2d", "jacobi2d_9pt",
+BENCH_SPECS = ("mm", "bmm", "conv2d", "fir", "jacobi2d", "jacobi2d_9pt",
                "jacobi2d_ms", "mttkrp")
 #: the recurrences whose operands and output lead with a batch dimension:
 #: they are held to the plain version one batch entry at a time
@@ -194,6 +197,11 @@ def run_case(spec, rec, target, generator, device) -> dict:
                tiles=tiles, max_abs_err=err, ok=ok, ms=ms)
     compiled = ("the plain version" if tiles is None
                 else f"compiled tile {tiles.tile}")
+    if rec.dtype.startswith("c"):
+        # as the reference's execute_plan: the plan on the float32 planes
+        # registry.operands draws, not complex arithmetic
+        compiled += (f" ({rec.dtype} plan on float32 planes: one real "
+                     "launch, as the reference's execute_plan)")
     print(f"{spec.name:12s} {rec.dtype:8s} {str(rec.extents):26s} plan "
           f"block {row['block']} feasible={plan.feasible} -> {compiled}: "
           f"max |err| {err:.4g} ({'ok' if ok else 'MISMATCH'}), "

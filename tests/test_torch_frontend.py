@@ -220,16 +220,23 @@ def test_frontend_plan_blocks_on_whisper_base():
     assert fir_plan.partition.block == {"n": 103, "t": 8}
     assert conv_plan.partition.block == {"h": 8, "w": 64, "p": 5, "q": 4}
     assert runtime.fir_tile(fir_plan, 6180) == runtime.HopperTiles(
-        plan=(103,), tile=(256,))
+        plan=(103,), tile=runtime.FirTile(taps=15, lanes=128, blocks=13))
     assert runtime.conv2d_tile(conv_plan, 8, 512) == runtime.HopperTiles(
         plan=(8, 64), tile=runtime.Conv2dTile(window=(5, 4), rows=1))
 
 
-@pytest.mark.parametrize("n_out,tile", [(6180, 256), (1000, 256),
-                                        (1048576, 1024)])
+@pytest.mark.parametrize("n_out,tile", [
+    (6180, runtime.FirTile(taps=15, lanes=128, blocks=13)),
+    (1000, runtime.FirTile(taps=15, lanes=128, blocks=2)),
+    (1048576, runtime.FirTile(taps=15, lanes=256, blocks=528))])
 def test_fir_tile_keeps_every_sm_busy(n_out, tile):
+    """256 lanes a block where that leaves every SM a chunk, else 128; as
+    many blocks as the card keeps resident, at most one a chunk."""
     plan = planned.plan_for("fir", (n_out, 15), "float32")
-    assert runtime.fir_tile(plan, n_out).tile == (tile,)
+    got = runtime.fir_tile(plan, n_out).tile
+    assert got == tile
+    chunks = -(-n_out // got.chunk)
+    assert got.blocks == min(chunks, runtime.SMS * 1024 // got.lanes)
 
 
 @pytest.mark.parametrize("oh,ow,p,q,tile", [
@@ -250,19 +257,12 @@ def test_conv2d_tile_keeps_every_sm_busy(oh, ow, p, q, tile):
 
 
 def test_compiled_tiles_match_the_cuda_source():
-    """build.FIR_TILES / CONV2D_WINDOWS list exactly what the source
-    compiles (FIR: 256 threads, 1 or 4 outputs a thread; conv2d: the 4 x
-    4, 8 x 8 and 5 x 4 windows and the generic one, (0, 0), as two
+    """build.CONV2D_WINDOWS lists exactly what the source compiles (the 4
+    x 4, 8 x 8 and 5 x 4 windows and the generic one, (0, 0), as two
     instantiations: up to ``CONV2D_GENERIC_SMALL`` and up to
     ``MAX_FILTER``), and the window kernels' geometry is the one the
-    runtime sizes grids with."""
+    runtime sizes grids with.  (The FIR's: ``tests/test_torch_fir.py``.)"""
     src = build.SP_SOURCE.read_text()
-    threads = int(re.search(r"kThreads = (\d+);", src).group(1))
-    fir_body = src[src.index("int launch_fir("):]
-    fir_body = fir_body[:fir_body.index("\n}\n")]
-    per = [int(x) for x in re.findall(r"fir_tile<TIn, TOut, (\d+)>",
-                                      fir_body)]
-    assert tuple(threads * p for p in per) == build.FIR_TILES
     conv_body = src[src.index("int launch_conv2d("):]
     conv_body = conv_body[:conv_body.index("\n}\n")]
     windows = re.findall(
@@ -391,7 +391,9 @@ def test_cpu_wrappers_run_the_plain_version_and_count_no_launch():
     before = (fir.launches, conv2d.launches)
     x, h = torch.randn(100), torch.randn(7)
     img, filt = torch.randn(20, 30), torch.randn(3, 4)
-    torch.testing.assert_close(fir.fir(x, h, tiles=(256,)), ref.fir(x, h))
+    torch.testing.assert_close(
+        fir.fir(x, h, tiles=runtime.FirTile(taps=0, lanes=128, blocks=1)),
+        ref.fir(x, h))
     torch.testing.assert_close(conv2d.conv2d(img, filt, tiles=(4, 64)),
                                ref.conv2d(img, filt))
     assert (fir.launches, conv2d.launches) == before
@@ -401,7 +403,7 @@ def test_wrappers_raise_off_the_cpu_instead_of_falling_back():
     x = torch.empty(100, device="meta")
     h = torch.empty(7, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
-        fir.fir(x, h, tiles=(256,))
+        fir.fir(x, h, tiles=runtime.FirTile(taps=0, lanes=128, blocks=1))
     with pytest.raises(ValueError, match="CUDA"):
         conv2d.conv2d(x.reshape(10, 10), h[:4].reshape(2, 2), tiles=(4, 64))
 

@@ -1,7 +1,8 @@
-"""The port's GEMM (the skinny and tensor-core kernels), FIR, conv2d
-(every compiled window and the generic one), fft2d, star-stencil (one
-sweep, and several a launch) and MTTKRP kernels against their plain
-versions on the card.
+"""The port's GEMM (the skinny and tensor-core kernels), FIR (every
+compiled tap count and the generic one, real and complex), conv2d (every
+compiled window and the generic one), fft2d, star-stencil (one sweep, and
+several a launch) and MTTKRP kernels against their plain versions on the
+card.
 
 Every test here is ``gpu``-marked and skips without a CUDA card.  The file
 imports only the port (no JAX), so it runs on a machine with a card and
@@ -68,10 +69,12 @@ def _operands(name, args, dtype, gen):
 
 
 def _launches(name, args):
-    """FIR's compiled tiles; conv2d's window the runtime picks for the
-    filter and the generic instantiation."""
+    """The instantiation the runtime picks for FIR's tap count or conv2d's
+    filter, and the generic one."""
     if name == "fir":
-        return [(t,) for t in build.FIR_TILES]
+        picked = runtime.fir_config(*args)
+        generic = runtime.fir_config(*args, compiled=build.FIR_GENERIC)
+        return [picked] if picked == generic else [picked, generic]
     h, w, p, q = args
     picked = runtime.conv2d_config(p, q, h, w)
     generic = runtime.conv2d_config(p, q, h, w, window=build.CONV2D_GENERIC)
@@ -111,7 +114,99 @@ def test_planned_frontend_runs_the_kernels_on_the_card(gen):
     assert torch.equal(planned.planned_fir(x, h), ref.fir(x, h))
     assert fir.launches == before + 1
     assert runtime.last_tiles["fir"] == runtime.HopperTiles(
-        plan=(103,), tile=(256,))
+        plan=(103,), tile=runtime.FirTile(taps=15, lanes=128, blocks=13))
+
+
+def _fir_check(got, want, dtype):
+    if dtype.is_floating_point:
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-3)
+    else:
+        assert torch.equal(got, want)
+
+
+#: FIR tap counts held on the card: 15 on its compiled instantiation and
+#: the generic one; 1, 7, 16, 64 and 4096 (``MAX_TAPS``) on the generic
+#: one
+FIR_TAPS = (1, 7, 15, 16, 64, 4096)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("taps", FIR_TAPS)
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_fir_instantiations_match_the_plain_version_on_the_card(taps, dtype,
+                                                                gen):
+    """Each compiled tap count and the generic instantiation, with both
+    block widths, at n_out of 1, one below and one above a chunk, and 10
+    chunks and 3 (no multiple of the 4 outputs a lane) on 1 and 3 blocks,
+    so that a block walks its ring of chunk slots round more than once."""
+    compiled = [build.FIR_GENERIC] + [t for t in build.FIR_TAPS if t == taps]
+    before = fir.launches
+    launched = 0
+    for lanes in build.FIR_LANES:
+        chunk = lanes * build.FIR_LANE_OUTPUTS
+        for n_out in (1, chunk - 1, chunk + 1, 10 * chunk + 3):
+            x, h = _operands("fir", (n_out, taps), dtype, gen)
+            want = ref.fir(x, h)
+            for ctaps in compiled:
+                for blocks in (1, 3):
+                    tile = runtime.FirTile(taps=ctaps, lanes=lanes,
+                                           blocks=blocks)
+                    _fir_check(fir.fir(x, h, tiles=tile), want, dtype)
+                    launched += 1
+    torch.cuda.synchronize()
+    assert fir.launches - before == launched
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", [1, 2, 3, 5, 13])
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_fir_of_a_view_into_its_storage_on_the_card(offset, dtype, gen):
+    """x starting ``offset`` elements past a 16-byte boundary: the window
+    realigned in registers (whole words, and int8's and int16's bytes)."""
+    for taps in (7, 15, 64):
+        n_out = 3001
+        base, h = _operands("fir", (n_out + offset, taps), dtype, gen)
+        x = base[offset:]
+        assert x.storage_offset() == offset and x.is_contiguous()
+        tile = runtime.fir_config(n_out, taps, x.element_size())
+        _fir_check(fir.fir(x, h, tiles=tile), ref.fir(x, h), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_fir_complex_matches_the_plain_version_in_one_launch_on_the_card(
+        dtype, gen):
+    """``fir_complex`` against ``ref.fir_complex`` (the reference's four
+    passes), one launch a call, on the compiled and generic
+    instantiations, planes at different alignments."""
+    for n_out, taps in ((6180, 15), (1000, 7), (1, 16), (70001, 64)):
+        (xr, hr), (xi, hi) = (_operands("fir", (n_out + 2, taps), dtype, gen)
+                              for _ in range(2))
+        xr, xi = xr[:n_out + taps - 1], xi[2:]
+        want = ref.fir_complex(xr, xi, hr, hi)
+        tiles = [None, runtime.fir_config(n_out, taps, xr.element_size(),
+                                          planes=2,
+                                          compiled=build.FIR_GENERIC)]
+        for tile in tiles:
+            before = fir.launches
+            got = fir.fir_complex(xr, xi, hr, hi, tiles=tile)
+            assert fir.launches == before + 1
+            for g, w in zip(got, want):
+                _fir_check(g, w, dtype)
+
+
+@pytest.mark.gpu
+def test_fir_launch_refused_by_the_kernel_raises_on_the_card(gen):
+    """A launch the C entry refuses (64 lanes a block) raises, as does one
+    the wrapper refuses (a tap count not compiled) before it."""
+    x, h = _operands("fir", (100, 15), torch.float32, gen)
+    out = torch.empty(100, device="cuda")
+    with pytest.raises(RuntimeError, match="widesa_fir_launch failed"):
+        build.call("widesa_fir_launch", x.data_ptr(), h.data_ptr(),
+                   out.data_ptr(), 100, 15, build.DTYPE_CODES[x.dtype],
+                   build.DTYPE_CODES[out.dtype], tiles=(15, 64, 1))
+    with pytest.raises(ValueError, match="not compiled"):
+        fir.fir(x, h, tiles=runtime.FirTile(taps=7, lanes=128, blocks=1))
 
 
 @pytest.mark.gpu

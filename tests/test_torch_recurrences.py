@@ -1,14 +1,14 @@
 """The port's WideSA mapper -> kernel pipeline against the JAX package's,
 for the star stencils (jacobi2d, jacobi2d_9pt, jacobi2d_ms) and mttkrp,
-and the plans and registry entries of mm, bmm and conv2d (the paper's
-MM/BMM and conv2d tables), which the pipeline also runs at their bench
-sizes.
+and the plans and registry entries of mm, bmm, conv2d and fir (the
+paper's MM/BMM, conv2d and FIR tables), which the pipeline also runs at
+their bench sizes.
 
 * The builders give the reference's IR, and ``best_plan`` the reference's
   plans (schedule, block, backend, ``feasible``, description) at the
   registry's smoke and bench sizes on the single-chip target, the 16 x 16
   ``Target()`` and the VCK5000 ``AIE_TARGET``, for the stencils, mttkrp,
-  mm, bmm and conv2d; ``predict_bounds`` equals the reference's for every
+  mm, bmm, conv2d and fir; ``predict_bounds`` equals the reference's for every
   ``PAPER_BENCHMARKS`` entry.
 * On the CPU the wrappers run their plain versions (``ref.py``).  The
   port's ``execute_plan`` / ``lower_plan(plan, "pallas")`` is held
@@ -58,7 +58,7 @@ from repro_torch.launch import recurrences  # noqa: E402
 ROOT = Path(__file__).resolve().parents[1]
 NEW = ("jacobi2d", "jacobi2d_9pt", "jacobi2d_ms", "mttkrp")
 #: the recurrences the pipeline runs at their bench cases on the card
-BENCH = ("mm", "bmm", "conv2d") + NEW
+BENCH = ("mm", "bmm", "conv2d", "fir") + NEW
 SINGLE_CHIP = Target(name="single_chip", mesh_shape=(1, 1))
 JAX_SINGLE_CHIP = JaxTarget(name="single_chip", mesh_shape=(1, 1))
 TARGETS = {"single_chip": (SINGLE_CHIP, JAX_SINGLE_CHIP),
