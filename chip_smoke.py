@@ -10,7 +10,7 @@
     python3 chip_smoke.py --fir-sweep [--src OTHER/src] [--out sweep.json]
 
 Needs one CUDA card and the CUDA toolkit.  It imports only the port, never
-JAX nor the JAX package, and runs eight phases, each printing its own
+JAX nor the JAX package, and runs ten phases, each printing its own
 line(s); any failure exits non-zero:
 
 1. device — the card's name and power limit, torch and CUDA versions;
@@ -75,13 +75,28 @@ line(s); any failure exits non-zero:
    plain versions.  One 4-lane decode step is then timed on the host
    clock and traced with ``torch.profiler`` for the card's busy time and
    the share of each GEMM kernel;
-5. prefill — the same model on the slot engine with max_seq 640 serving
+5. paged  — the same model, weights and requests on the block-paged
+   engine (4 lanes, max_seq 128, blocks of ``PAGED_BLOCK`` rows), its
+   decode step captured once in ``load()`` as a CUDA graph; each load is
+   a window of its own (one capture; its GEMM launches by kernel held to
+   the shapes its report gives, ``check_routes``).  First with
+   exact-length prefills (``SchedulerConfig(bucketed=False)``), whose
+   tokens must equal the slot engine's; then with bucketed prefills, the
+   main path of the paged engine, traced by ``torch.profiler`` (CUDA
+   activity): the serve phase's checks on the drain (``check_routes`` on
+   its eager launches, the bucketed prefills' logits at each prompt's
+   last token), and its launches counted as set out below.  Then the
+   captured step's host time (median of 5: stage the tables, replay,
+   read the tokens) and the card's busy time and kernel launches in one
+   replay, beside the same step run eagerly and the slot engine's eager
+   step;
+6. prefill — the same model on the slot engine with max_seq 640 serving
    4 prompts of 64, 127, 256 and 512 tokens, 8 new tokens each: the
    serve phase's checks (budgets, every site planned, ``check_routes``:
    every prefill GEMM above 16 rows on the tensor-core kernel,
    ``drain_parity``, prefill logits against the plain versions), then
    one prefill of 512 tokens timed on the host clock and traced;
-6. stream — full-width whisper-base (bf16, 6+6 layers, d 512, vocab
+7. stream — full-width whisper-base (bf16, 6+6 layers, d 512, vocab
    51865, random weights seeded with 0) on the slot engine: 4 slots,
    max_seq 128, 8 streamed int16 audio requests of 1-8 chunks and 8 new
    tokens each, every chunk through the planned frontend (FIR and conv2d
@@ -94,7 +109,15 @@ line(s); any failure exits non-zero:
    cross-attention over the 1500-row encoder cache), and that one
    request's features and stream-prefill logits match a run through the
    plain versions;
-7. recurrences — the WideSA mapper -> kernel pipeline,
+8. paged stream — the same weights and 8 audio requests on the paged
+   engine, its decode step captured in ``load()``: first with
+   exact-length prefills, whose tokens must equal the slot engine's, then
+   with bucketed ones, traced: the stream phase's checks on the drain
+   (every chunk fed, one FIR and one conv2d launch per chunk on the 5 x 4
+   window, the frontend's stamps, the features and stream-prefill logits,
+   the first token the argmax of the bucketed prefill over the first
+   chunk), and ``decode_compiles == 1``;
+9. recurrences — the WideSA mapper -> kernel pipeline,
    ``repro_torch.launch.recurrences.run`` (the entry point's function):
    the Table II compiler report, quickstart's 1024^3 MM, and every
    registered recurrence planned on one chip and run through
@@ -133,13 +156,20 @@ line(s); any failure exits non-zero:
    version and beside the tiled kernel they replace, ``torch._int_mm``
    for int8 mm, the bound at the int8 rate x 1, 4 or 10 limb products)
    and the paper's float32 MM and BMM on ``gemm_tc_kernel``;
-8. summary — a JSON line of the kernels, the ``nvidia-smi`` name and
+10. summary — a JSON line of the kernels, the ``nvidia-smi`` name and
    power limit, and the result line.
 
 Every wrapper's launch count is set to 0 just before each serving drain
 and before the recurrence pipeline, and read just after; the kernels
 line gives each path's counts apart (``"launches": {"qwen": n,
-"qwen_prefill": p, "whisper_stream": m, "recurrences": k}``), and for the
+"qwen_paged": q, "qwen_prefill": p, "whisper_stream": m,
+"whisper_paged": w, "recurrences": k}``.  A replay of a captured step
+passes no wrapper, so a paged path's drain runs under ``torch.profiler``
+and its count is what the wrappers counted (the eager prefills and chunk
+feeds) plus the GEMM launches that the trace shows in the drain's
+replays; the trace's GEMM launches outside the replays must equal the
+wrappers' counts, and those in the replays the drain's steps times the
+captured step's launches, half its load window's), and for the
 two GEMM wrappers the same launches by kernel (``"launches_by_kernel"``:
 skinny / wgmma / tiled) beside their device times and host time a call
 (and under ``"wgmma"`` the tensor-core kernel's at its 512-token prefill
@@ -154,7 +184,8 @@ instantiation (15 / 7 / generic; real and complex alike) beside the
 paper's FIR table and ``fir_complex``, and for the stars theirs by
 kernel (star5 / star9 on star_kernel, sweeps on sweeps_kernel) beside
 the other timed stars and jacobi2d_ms's call.  The comparison and
-timing launches of phases 3 and 6 and of ``drain_parity`` do not count.
+timing launches of phases 3 and 7, those of the paged phases outside
+their main drains and of ``drain_parity`` do not count.
 
 ``--tile-sweep`` runs only the device and build phases, then times the
 tiled GEMM in bf16 with each of the 24 tiles of ``build.SWEEP_TILES`` (a
@@ -1578,7 +1609,13 @@ def sp_timings(torch) -> dict:
 # serve
 # ---------------------------------------------------------------------------
 
-def serve(torch, device_name: str) -> dict:
+def serve(torch, device_name: str, slot: dict | None = None) -> tuple:
+    """Phase 4 on the slot engine, or with ``slot`` (what phase 4
+    returned) phase 5 on the paged engine: full-width qwen1.5-0.5b
+    (module docstring).  Returns the launches and launches by kernel of
+    the drain, and what the paged phase holds itself to: the weights, the
+    prompts, each request's tokens and the eager decode step's host and
+    device times."""
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -1586,80 +1623,98 @@ def serve(torch, device_name: str) -> dict:
     from repro_torch.serve import make_engine
 
     cfg = get_config(ARCH)
-    eng = make_engine(cfg, kind="slot", max_slots=SLOTS, max_seq=MAX_SEQ,
-                      device="cuda")
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    t0 = time.perf_counter()
-    params = eng.api.init(gen)
-    eng.load(params)
-    torch.cuda.synchronize()
-    print(f"serve: {ARCH} at full width ({cfg.n_layers} layers, d "
-          f"{cfg.d_model}, vocab {cfg.vocab}, {cfg.dtype}) loaded in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    label = "paged" if slot else "serve"
 
-    rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, cfg.vocab, int(rng.integers(4, 17)))
-               for _ in range(REQUESTS)]
-    for p in prompts:
-        eng.submit_text(p, max_new_tokens=MAX_NEW)
+    def submit(e):
+        for p in prompts:
+            e.submit_text(p, max_new_tokens=MAX_NEW)
+
+    if slot:
+        params, prompts = slot["params"], slot["prompts"]
+        eng, step = paged_engine(torch, cfg, params, label, submit,
+                                 slot["tokens"])
+    else:
+        eng = make_engine(cfg, kind="slot", max_slots=SLOTS,
+                          max_seq=MAX_SEQ, device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        t0 = time.perf_counter()
+        params = eng.api.init(gen)
+        eng.load(params)
+        torch.cuda.synchronize()
+        print(f"serve: {ARCH} at full width ({cfg.n_layers} layers, d "
+              f"{cfg.d_model}, vocab {cfg.vocab}, {cfg.dtype}) loaded in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(0, cfg.vocab, int(rng.integers(4, 17)))
+                   for _ in range(REQUESTS)]
+        step = None
+    submit(eng)
 
     # the main path: counts start at 0 here and are read right after
-    planned.planned_report_clear()
-    reset_counts()
-    t0 = time.perf_counter()
-    done = eng.run_until_drained()
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    launches = read_counts()
-    variants = read_variants()
-    report = planned.planned_report()
-
+    run = counted_drain(torch, eng, step)
+    done, launches, report = run["done"], run["launches"], run["report"]
     if len(done) != REQUESTS or any(len(r.output) != MAX_NEW for r in done):
-        fail(f"requests did not finish with their budget: "
+        fail(f"{label}: requests did not finish with their budget: "
              f"{[(r.rid, len(r.output)) for r in done]}")
-
     bad = {s: (st["planned"], st["fallback"], st["reasons"])
            for s, st in report.items()
            if st["planned"] == 0 or st["fallback"] != 0}
     if bad or not report:
-        fail(f"planned sites that fell back or never planned: {bad}")
+        fail(f"{label}: planned sites that fell back or never planned: {bad}")
     if min(launches["widesa_mm"], launches["bmm"]) == 0:
-        fail(f"a kernel was not launched on the main path: {launches}")
+        fail(f"{label}: a kernel was not launched on the main path: "
+             f"{launches}")
     tokens = sum(len(r.output) for r in done)
-    routes = check_routes("serve", report, variants)
-    print(f"serve: {len(done)} requests / {tokens} tokens in {dt:.3f} s = "
-          f"{tokens / dt:.1f} tok/s on {device_name}; launches {launches}; "
-          f"GEMM launches by kernel {variants} ({routes}); {len(report)} "
-          f"sites all planned: {sorted(report)}", flush=True)
-    drain_parity(torch, report, "serve")
+    routes = check_routes(label, report, run["eager_variants"])
+    print(f"{label}: {len(done)} requests / {tokens} tokens in "
+          f"{run['seconds']:.3f} s = {tokens / run['seconds']:.1f} tok/s on "
+          f"{device_name}{run['how']}; launches {launches}; GEMM launches by "
+          f"kernel {run['variants']} ({routes} among the eager ones); "
+          f"{len(report)} sites all planned: {sorted(report)}", flush=True)
+    drain_parity(torch, report, label)
 
     # prefill logits through the kernels vs an explicit plain-version run
+    # (the paged engine's at the prompt's bucket, read at its last token)
     worst = scale = 0.0
     by_rid = {r.rid: r for r in done}
     with torch.no_grad():
         for rid, p in enumerate(prompts):
-            tokens = torch.as_tensor(p[None], device="cuda")
-            logits, _ = eng.api.prefill(params, {"tokens": tokens}, MAX_SEQ)
+            rows = eng.scheduler.bucket_for(len(p)) if slot else len(p)
+            padded = np.zeros((1, rows), np.int32)
+            padded[0, :len(p)] = p
+            tok = torch.as_tensor(padded, device="cuda")
+            li = torch.tensor([len(p) - 1], dtype=torch.int32,
+                              device="cuda") if slot else None
+            cache_rows = rows if slot else MAX_SEQ
+            logits, _ = eng.api.prefill(params, {"tokens": tok}, cache_rows,
+                                        last_index=li)
             with planned.override(enabled=False):
-                want, _ = eng.api.prefill(params, {"tokens": tokens},
-                                          MAX_SEQ)
+                want, _ = eng.api.prefill(params, {"tokens": tok},
+                                          cache_rows, last_index=li)
             if logits.shape != (1, cfg.vocab) or not torch.isfinite(
                     logits).all():
-                fail(f"request {rid}: bad prefill logits {logits.shape}")
+                fail(f"{label} request {rid}: bad prefill logits "
+                     f"{logits.shape}")
             err = (logits.float() - want.float()).abs().max().item()
             worst = max(worst, err)
             scale = max(scale, want.float().abs().max().item())
             if err > LOGIT_ATOL:
-                fail(f"request {rid}: prefill logits differ by {err} > "
-                     f"{LOGIT_ATOL} from the plain versions")
+                fail(f"{label} request {rid}: prefill logits ({rows} rows) "
+                     f"differ by {err} > {LOGIT_ATOL} from the plain versions")
             if by_rid[rid].output[0] != int(torch.argmax(logits[0])):
-                fail(f"request {rid}: engine's first token is not the "
-                     "argmax of its prefill logits")
-    print(f"serve: prefill logits of {len(prompts)} prompts match the "
-          f"plain versions, max |diff| {worst:.4f} <= {LOGIT_ATOL} (max "
-          f"|logit| {scale:.3f})", flush=True)
-    profile_decode(torch, eng)
-    return launches, variants
+                fail(f"{label} request {rid}: engine's first token is not "
+                     "the argmax of its prefill logits")
+    print(f"{label}: {'bucketed ' if slot else ''}prefill logits of "
+          f"{len(prompts)} prompts match the plain versions, max |diff| "
+          f"{worst:.4f} <= {LOGIT_ATOL} (max |logit| {scale:.3f}); first "
+          f"tokens are their argmax", flush=True)
+    if slot:
+        captured_step(torch, eng, step, slot["step"], device_name)
+        return launches, run["variants"], None
+    return launches, run["variants"], {
+        "prompts": prompts, "params": params,
+        "step": profile_decode(torch, eng),
+        "tokens": {r.rid: list(r.output) for r in done}}
 
 
 #: device time of the hand GEMM kernels in one 4-lane qwen decode step
@@ -1668,10 +1723,11 @@ def serve(torch, device_name: str) -> dict:
 TILED_STEP_GEMM_MS = 22.82
 
 
-def profile_decode(torch, eng) -> None:
+def profile_decode(torch, eng) -> tuple:
     """Host time of one 4-lane decode step, and the card's busy time in it
-    by kernel (``torch.profiler``; device events only): the skinny and the
-    tiled GEMM kernels apart, and everything else."""
+    by kernel (``torch.profiler``, CUDA activity; ``device_by_kernel``):
+    the skinny and the tiled GEMM kernels apart, and everything else.
+    Returns (host ms, device busy ms or None)."""
     from torch.profiler import ProfilerActivity, profile
 
     cache = eng.api.init_cache(SLOTS, MAX_SEQ)
@@ -1689,26 +1745,26 @@ def profile_decode(torch, eng) -> None:
         step()
         walls.append((time.perf_counter() - t0) * 1e3)
     reset_counts()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         step()
     per_step = f"GEMM launches by kernel {read_variants()}"
-    ms = device_by_kernel(prof)
+    ms, kernels = device_by_kernel(prof)
     wall = sorted(walls)[len(walls) // 2]
     busy = sum(ms.values())
     if busy == 0:
         print(f"profile: decode step {wall:.2f} ms on the host clock "
               f"(median of 5), {per_step}; device busy time not measured "
               "(the profiler recorded no device events)", flush=True)
-        return
+        return wall, None
     hand = sum(ms[k] for k in GEMM_KERNELS)
     print(f"profile: decode step {wall:.2f} ms on the host clock (median "
           f"of 5), {per_step}; device busy {busy:.2f} ms in the traced "
-          f"step: hand GEMM kernels {hand:.3f} ms (skinny "
-          f"{ms['skinny']:.3f} ms, wgmma {ms['wgmma']:.3f} ms, tiled "
-          f"{ms['tiled']:.3f} ms; {TILED_STEP_GEMM_MS} ms when all ran "
-          f"tiled), other kernels {ms['other']:.2f} ms; device idle "
+          f"step ({kernels} kernel launches): hand GEMM kernels {hand:.3f} "
+          f"ms (skinny {ms['skinny']:.3f} ms, wgmma {ms['wgmma']:.3f} ms, "
+          f"tiled {ms['tiled']:.3f} ms; {TILED_STEP_GEMM_MS} ms when all "
+          f"ran tiled), other kernels {ms['other']:.2f} ms; device idle "
           f"{max(0.0, 1 - busy / wall):.0%} of the step", flush=True)
+    return wall, busy
 
 
 # ---------------------------------------------------------------------------
@@ -1720,15 +1776,24 @@ GEMM_KERNELS = {"skinny": "skinny_kernel", "wgmma": "gemm_tc_kernel",
                 "tiled": "gemm_kernel"}
 
 
-def device_by_kernel(prof) -> dict:
+def device_by_kernel(prof) -> tuple[dict, int]:
     """Device time (ms) of a ``torch.profiler`` trace by GEMM kernel, and
-    of everything else under ``other``."""
+    of everything else under ``other``, from the device's own records
+    only (with CPU activity traced, an aten op's device time repeats that
+    of the kernels it launched); and the number of kernel launches."""
+    from torch.autograd import DeviceType
+
     us = dict.fromkeys([*GEMM_KERNELS, "other"], 0.0)
+    kernels = 0
     for evt in prof.key_averages():
+        if evt.device_type == DeviceType.CPU:
+            continue
         name = next((v for v, k in GEMM_KERNELS.items() if k in evt.key),
                     "other")
-        us[name] += getattr(evt, "self_device_time_total", 0.0)
-    return {k: v / 1e3 for k, v in us.items()}
+        us[name] += evt.self_device_time_total
+        if not evt.key.startswith(("Memcpy", "Memset")):
+            kernels += evt.count
+    return {k: v / 1e3 for k, v in us.items()}, kernels
 
 
 def prefill_phase(torch, device_name: str) -> tuple[dict, dict]:
@@ -1833,18 +1898,18 @@ def profile_prefill(torch, eng, prompt) -> None:
         run()
         walls.append((time.perf_counter() - t0) * 1e3)
     reset_counts()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run()
     wall = sorted(walls)[len(walls) // 2]
-    ms = device_by_kernel(prof)
+    ms, kernels = device_by_kernel(prof)
     busy = sum(ms.values())
     gemm = ", ".join(f"{k} {ms[k]:.3f} ms" for k in GEMM_KERNELS)
     print(f"profile: prefill of {len(prompt)} tokens {wall:.2f} ms on the "
           f"host clock (median of 5), GEMM launches by kernel "
           f"{read_variants()}; device busy {busy:.3f} ms in the traced "
-          f"prefill: GEMM kernels {gemm}, other kernels {ms['other']:.3f} ms; "
-          f"device idle {max(0.0, 1 - busy / wall):.0%} of the prefill"
+          f"prefill ({kernels} kernel launches): GEMM kernels {gemm}, other "
+          f"kernels {ms['other']:.3f} ms; device idle "
+          f"{max(0.0, 1 - busy / wall):.0%} of the prefill"
           if busy else
           f"profile: prefill of {len(prompt)} tokens {wall:.2f} ms on the "
           f"host clock (median of 5); device busy time not measured (the "
@@ -1855,8 +1920,12 @@ def profile_prefill(torch, eng, prompt) -> None:
 # stream
 # ---------------------------------------------------------------------------
 
-def stream_serve(torch, device_name: str) -> dict:
-    """Phase 5: whisper-base serving streamed audio (module docstring)."""
+def stream_serve(torch, device_name: str, slot: dict | None = None) -> tuple:
+    """Phase 7 on the slot engine, or with ``slot`` (what phase 7
+    returned) phase 8 on the paged engine: full-width whisper-base serving
+    streamed audio (module docstring).  Returns the launches and launches
+    by kernel of the drain, and what the paged phase holds itself to: the
+    weights, the audio streams and each request's tokens."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import planned, runtime
     from repro_torch.models import encdec
@@ -1864,112 +1933,376 @@ def stream_serve(torch, device_name: str) -> dict:
     from repro_torch.serve import make_engine, synth_samples
 
     cfg = get_config(STREAM_ARCH)
-    eng = make_engine(cfg, kind="slot", max_slots=SLOTS, max_seq=MAX_SEQ,
-                      device="cuda")
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    t0 = time.perf_counter()
-    params = eng.api.init(gen)
-    eng.load(params)
-    torch.cuda.synchronize()
-    fc = eng.frontend.cfg
-    print(f"stream: {STREAM_ARCH} at full width ({cfg.n_enc_layers}+"
-          f"{cfg.n_layers} layers, d {cfg.d_model}, vocab {cfg.vocab}, "
-          f"{cfg.dtype}) loaded in {time.perf_counter() - t0:.1f} s; "
-          f"frontend {fc.dtype} chunks of {fc.chunk_samples} samples "
-          f"({fc.rows}x{fc.cols} tile) -> {fc.frames_per_chunk} frames",
-          flush=True)
+    label = "paged stream" if slot else "stream"
 
-    streams = [synth_samples(fc, 1 + i % 8, seed=i) for i in range(REQUESTS)]
-    for samples in streams:
-        eng.submit_audio_stream(samples, max_new_tokens=MAX_NEW)
+    def submit(e):
+        for samples in streams:
+            e.submit_audio_stream(samples, max_new_tokens=MAX_NEW)
+
+    if slot:
+        params, streams = slot["params"], slot["streams"]
+        eng, step = paged_engine(torch, cfg, params, label, submit,
+                                 slot["tokens"])
+        fc = eng.frontend.cfg
+    else:
+        eng = make_engine(cfg, kind="slot", max_slots=SLOTS,
+                          max_seq=MAX_SEQ, device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        t0 = time.perf_counter()
+        params = eng.api.init(gen)
+        eng.load(params)
+        torch.cuda.synchronize()
+        fc = eng.frontend.cfg
+        print(f"stream: {STREAM_ARCH} at full width ({cfg.n_enc_layers}+"
+              f"{cfg.n_layers} layers, d {cfg.d_model}, vocab {cfg.vocab}, "
+              f"{cfg.dtype}) loaded in {time.perf_counter() - t0:.1f} s; "
+              f"frontend {fc.dtype} chunks of {fc.chunk_samples} samples "
+              f"({fc.rows}x{fc.cols} tile) -> {fc.frames_per_chunk} frames",
+              flush=True)
+        streams = [synth_samples(fc, 1 + i % 8, seed=i)
+                   for i in range(REQUESTS)]
+        step = None
+    submit(eng)
 
     # the streaming path: counts start at 0 here and are read right after
-    planned.planned_report_clear()
-    reset_counts()
-    t0 = time.perf_counter()
-    done = eng.run_until_drained()
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    launches = read_counts()
-    variants = read_variants()
-    report = planned.planned_report()
-
+    run = counted_drain(torch, eng, step)
+    done, launches, report = run["done"], run["launches"], run["report"]
+    variants = run["variants"]
     if len(done) != REQUESTS or any(len(r.output) != MAX_NEW for r in done):
-        fail(f"stream requests did not finish with their budget: "
+        fail(f"{label} requests did not finish with their budget: "
              f"{[(r.rid, len(r.output)) for r in done]}")
-    routes = check_routes("stream", report, variants)
+    routes = check_routes(label, report, run["eager_variants"])
     if any(r.fed != len(r.chunks) for r in done):
-        fail(f"chunks left unfed: {[(r.rid, r.fed, len(r.chunks)) for r in done]}")
+        fail(f"{label}: chunks left unfed: "
+             f"{[(r.rid, r.fed, len(r.chunks)) for r in done]}")
     bad = {s: (st["planned"], st["fallback"], st["reasons"])
            for s, st in report.items()
            if st["planned"] == 0 or st["fallback"] != 0}
     if bad or not report:
-        fail(f"stream sites that fell back or never planned: {bad}")
+        fail(f"{label} sites that fell back or never planned: {bad}")
     stamps = {"frontend.fir": "pallas", "frontend.conv2d": "pallas",
               "frontend.fft2d": "xla", "mlp.pair": "xla"}
     for site, backend in stamps.items():
         if site not in report or set(report[site]["backends"]) != {backend}:
-            fail(f"{site} did not run its {backend} plan: "
+            fail(f"{label}: {site} did not run its {backend} plan: "
                  f"{report.get(site)}")
     chunks = sum(r.fed for r in done)
     if min(launches[k] for k in ("widesa_mm", "bmm", "fir", "conv2d")) == 0:
-        fail(f"a kernel was not launched on the streaming path: {launches}")
+        fail(f"a kernel was not launched on the {label} path: {launches}")
     if launches["fir"] != chunks or launches["conv2d"] != chunks:
-        fail(f"{chunks} chunks fed but fir/conv2d launched "
+        fail(f"{label}: {chunks} chunks fed but fir/conv2d launched "
              f"{launches['fir']}/{launches['conv2d']} times")
     # the frontend's 5 x 4 filter on its compiled window
     if {k: v for k, v in variants["conv2d"].items() if v} != {"5x4": chunks}:
-        fail(f"stream: conv2d launches by window {variants['conv2d']}, the "
+        fail(f"{label}: conv2d launches by window {variants['conv2d']}, the "
              f"frontend's 5 x 4 filter calls for {{'5x4': {chunks}}}")
     tokens = sum(len(r.output) for r in done)
     tiles = {k: (t.plan, t.tile) for k, t in runtime.last_tiles.items()
              if k in ("fir", "conv2d")}
-    print(f"stream: {len(done)} requests / {tokens} tokens / {chunks} audio "
-          f"chunks in {dt:.3f} s = {tokens / dt:.1f} tok/s on {device_name}; "
-          f"launches {launches} (fir and conv2d: one each per chunk), GEMM "
-          f"launches by kernel {variants} ({routes}); plan "
-          f"block -> compiled tile {tiles}; {len(report)} sites all planned: "
-          f"{sorted(report)}", flush=True)
-    drain_parity(torch, report, "stream")
+    print(f"{label}: {len(done)} requests / {tokens} tokens / {chunks} audio "
+          f"chunks (every chunk fed) in {run['seconds']:.3f} s = "
+          f"{tokens / run['seconds']:.1f} tok/s on {device_name}"
+          f"{run['how']}; launches {launches} (fir and conv2d: one each per "
+          f"chunk), GEMM launches by kernel {variants} ({routes} among the "
+          f"eager ones); plan block -> compiled tile {tiles}; {len(report)} "
+          f"sites all planned: {sorted(report)}", flush=True)
+    drain_parity(torch, report, label)
 
     # one request's features and stream-prefill logits through the
-    # kernels vs an explicit run through the plain versions
+    # kernels vs an explicit run through the plain versions; its first
+    # token the argmax of the prefill over its first chunk (the paged
+    # engine's at the decoder prompt's bucket, read at its one token)
     rid = REQUESTS - 1
     req = {r.rid: r for r in done}[rid]
     samples, c = streams[rid], fc.frames_per_chunk
     tokens = torch.zeros((1, 1), dtype=torch.int32, device="cuda")
     cache_dtype = cache_dtype_of(cfg)
 
-    def prefill(feats):
-        return encdec.prefill_streaming(params, cfg, feats[None], tokens,
-                                        MAX_SEQ, c, cache_dtype)[0]
+    def prefill(feats, bucket=None):
+        logits, cache, _ = encdec.prefill_streaming(
+            params, cfg, feats[None], tokens, MAX_SEQ, c, cache_dtype)
+        if bucket is None:
+            return logits
+        return encdec.prefill_decoder(
+            params, cfg, cache["enc_k"], cache["enc_v"], cache["enc_len"],
+            torch.zeros((1, bucket), dtype=torch.int32, device="cuda"),
+            bucket, cache_dtype,
+            last_index=torch.zeros((1,), dtype=torch.int32,
+                                   device="cuda"))[0]
 
     with torch.no_grad():
         feats = eng.frontend.offline_features(samples)
         logits = prefill(feats)
-        first = prefill(feats[:c])
+        first = prefill(feats[:c], eng.scheduler.bucket_for(1)
+                        if slot else None)
         with planned.override(enabled=False):
             want_feats = eng.frontend.offline_features(samples)
             want = prefill(want_feats)
     if not torch.equal(feats, want_feats):
-        fail(f"request {rid}: frontend features differ from the plain "
-             f"versions by {(feats - want_feats).abs().max().item()}")
+        fail(f"{label} request {rid}: frontend features differ from the "
+             f"plain versions by {(feats - want_feats).abs().max().item()}")
     if logits.shape != (1, cfg.vocab) or not torch.isfinite(logits).all():
-        fail(f"request {rid}: bad stream-prefill logits {logits.shape}")
+        fail(f"{label} request {rid}: bad stream-prefill logits "
+             f"{logits.shape}")
     err = (logits.float() - want.float()).abs().max().item()
     scale = want.float().abs().max().item()
     if err > LOGIT_ATOL:
-        fail(f"request {rid}: stream-prefill logits differ by {err} > "
-             f"{LOGIT_ATOL} from the plain versions")
+        fail(f"{label} request {rid}: stream-prefill logits differ by {err} "
+             f"> {LOGIT_ATOL} from the plain versions")
     if req.output[0] != int(torch.argmax(first[0])):
-        fail(f"request {rid}: engine's first token is not the argmax of the "
-             "stream prefill over its first chunk")
-    print(f"stream: request {rid} ({len(req.chunks)} chunks): features "
+        fail(f"{label} request {rid}: engine's first token is not the argmax "
+             "of the stream prefill over its first chunk")
+    print(f"{label}: request {rid} ({len(req.chunks)} chunks): features "
           f"{tuple(feats.shape)} equal the plain versions bitwise (int16 "
           f"frontend); stream-prefill logits max |diff| {err:.4f} <= "
           f"{LOGIT_ATOL} (max |logit| {scale:.3f}); first token matches",
           flush=True)
-    return launches, variants
+    if slot:
+        return launches, variants, None
+    return launches, variants, {
+        "params": params, "streams": streams,
+        "tokens": {r.rid: list(r.output) for r in done}}
+
+
+# ---------------------------------------------------------------------------
+# paged: the block-paged engine, its decode step captured in load()
+# ---------------------------------------------------------------------------
+
+#: rows a KV block of the paged phases
+PAGED_BLOCK = 16
+#: the wrappers of the GEMM kernels, the only ones a decode step launches
+GEMM_WRAPPERS = ("widesa_mm", "bmm")
+#: each GEMM kernel's launches by its function's name in a trace
+TRACED_GEMMS = {"skinny_kernel": "skinny", "gemm_tc_kernel": "wgmma",
+                "gemm_tc_int_kernel": "wgmma", "gemm_kernel": "tiled"}
+
+
+def paged_engine(torch, cfg, params, label, submit, want):
+    """The engines of a paged phase on the card (``SLOTS`` lanes, blocks
+    of ``PAGED_BLOCK``), each loaded in a window of its own: one decode
+    capture, and ``check_routes`` on the window's GEMM launches.  First
+    one with exact-length prefills (``SchedulerConfig(bucketed=False)``),
+    whose drain of ``submit``'s requests must give ``want``, the slot
+    engine's tokens; then one with bucketed prefills, returned with the
+    launches by kernel of its captured step: half those of its load
+    window, where the warmup and the capture each run the step once."""
+    from repro_torch.kernels import planned
+    from repro_torch.serve import SchedulerConfig, make_engine
+
+    for bucketed in (False, True):
+        eng = make_engine(cfg, kind="paged", max_lanes=SLOTS,
+                          max_seq=MAX_SEQ, block_size=PAGED_BLOCK,
+                          device="cuda",
+                          scheduler=SchedulerConfig(bucketed=bucketed))
+        planned.planned_report_clear()
+        reset_counts()
+        eng.load(params)
+        torch.cuda.synchronize()
+        launches, variants = read_counts(), read_variants()
+        if eng.stats["decode_compiles"] != 1:
+            fail(f"{label} load: stats {eng.stats}")
+        check_routes(f"{label} load", planned.planned_report(), variants)
+        if bucketed:
+            break
+        submit(eng)
+        t0 = time.perf_counter()
+        done = eng.run_until_drained()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        got = {r.rid: list(r.output) for r in done}
+        if got != want:
+            fail(f"{label} (unbucketed) tokens {got} differ from the slot "
+                 f"engine's {want}")
+        tokens = sum(len(r.output) for r in done)
+        print(f"{label}: the unbucketed drain's {len(done)} requests equal "
+              f"the slot engine's tokens ({tokens} tokens in {dt:.3f} s = "
+              f"{tokens / dt:.1f} tok/s, not traced); stats {eng.stats}",
+              flush=True)
+        del eng, done
+        torch.cuda.empty_cache()
+    if any(launches[k] for k in launches if k not in GEMM_WRAPPERS) or any(
+            v % 2 for w in GEMM_WRAPPERS for v in variants[w].values()):
+        fail(f"{label} load: launches {launches}, by kernel {variants}: not "
+             f"two runs of one decode step of GEMMs")
+    return eng, {w: {k: v // 2 for k, v in variants[w].items()}
+                 for w in GEMM_WRAPPERS}
+
+
+def gemm_counts() -> dict:
+    return {w: dict.fromkeys(("skinny", "wgmma", "tiled"), 0)
+            for w in GEMM_WRAPPERS}
+
+
+def traced_gemms(prof) -> tuple[dict, list]:
+    """The GEMM kernels' launches in a ``torch.profiler`` trace, by
+    wrapper (``bmm``'s have a batch in the grid's z, ``widesa_mm``'s
+    none) and kernel: (those outside CUDA graph replays, [those of each
+    replay, in the order of its ``cudaGraphLaunch``]).  A replayed
+    kernel's record carries the correlation id of its graph launch."""
+    path = ROOT / "build" / "paged_trace.json"
+    path.parent.mkdir(exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    path.unlink()
+    replays = {e["args"]["correlation"]: gemm_counts() for e in sorted(
+        (e for e in events if e.get("name") == "cudaGraphLaunch"),
+        key=lambda e: e["ts"])}
+    eager = gemm_counts()
+    for e in events:
+        name = re.search(r"(\w+)[<(]", e.get("name", ""))
+        kernel = name and TRACED_GEMMS.get(name.group(1))
+        if e.get("cat") != "kernel" or not kernel:
+            continue
+        wrapper = "bmm" if e["args"]["grid"][2] > 1 else "widesa_mm"
+        replays.get(e["args"]["correlation"], eager)[wrapper][kernel] += 1
+    return eager, list(replays.values())
+
+
+def missing(got: dict, want: dict) -> int:
+    """How many of ``want``'s launches a trace's records ``got`` lack;
+    fails where the trace shows more than ``want`` (a launch in the wrong
+    place, which no dropped record explains)."""
+    short = 0
+    for w in GEMM_WRAPPERS:
+        for k, n in want[w].items():
+            if got[w][k] > n:
+                fail(f"the trace shows GEMM launches {got}, more than "
+                     f"{want}")
+            short += n - got[w][k]
+    return short
+
+
+def counted_drain(torch, eng, step=None) -> dict:
+    """``eng``'s drain, every count set to 0 just before and read just
+    after: the finished requests, seconds, launches, launches by kernel,
+    the eager ones among them (``check_routes`` holds them to the plan
+    report, which a replay does not reach either) and how replays were
+    counted.  With ``step`` (a paged engine: the launches by kernel of its
+    captured step) the drain runs under ``torch.profiler`` (CUDA
+    activity), since a replay passes no wrapper.  The trace must show one
+    graph launch a decode step, and every replay the captured step's GEMM
+    launches; the profiler can drop a kernel's record (the device's
+    record buffer fills in a replay's burst of launches), so a replay
+    may show fewer, never more, and at least one must show them all.
+    The GEMM launches outside the replays must be the wrappers' counts,
+    short only of dropped records.  The replays add ``steps`` times the
+    captured step's launches to the counts."""
+    from contextlib import nullcontext
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import planned
+
+    planned.planned_report_clear()
+    reset_counts()
+    with (profile(activities=[ProfilerActivity.CUDA]) if step
+          else nullcontext()) as prof:
+        t0 = time.perf_counter()
+        done = eng.run_until_drained()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    run = {"done": done, "seconds": dt, "launches": read_counts(),
+           "variants": read_variants(), "eager_variants": read_variants(),
+           "report": planned.planned_report(), "how": ""}
+    if step is None:
+        return run
+    eager, replays = traced_gemms(prof)
+    steps = eng.stats["steps"]
+    if len(replays) != steps:
+        fail(f"the trace shows {len(replays)} graph launches in a drain of "
+             f"{steps} decode steps")
+    short = [missing(r, step) for r in replays]
+    if min(short) != 0:
+        fail(f"no replay of the {steps} traced shows the captured step's "
+             f"GEMM launches {step}: records missing {short}")
+    counted = {w: run["eager_variants"][w] for w in GEMM_WRAPPERS}
+    dropped = sum(short) + missing(eager, counted)
+    per_step = sum(sum(step[w].values()) for w in GEMM_WRAPPERS)
+    records = steps * per_step + sum(sum(c.values()) for c in counted.values())
+    run["how"] = (f" (traced: {SLOTS} lanes, blocks of {PAGED_BLOCK}, "
+                  f"bucketed prefills; stats {eng.stats}; launches = the "
+                  f"wrappers' {run['launches']} in the eager prefills and "
+                  f"chunk feeds + {steps} replays, one graph launch a step "
+                  f"in the trace, x the {per_step} GEMM launches of the "
+                  f"captured step {step}, which {short.count(0)} traced "
+                  f"replays show whole; the profiler dropped {dropped} of "
+                  f"the drain's {records} GEMM kernel records)")
+    for w in GEMM_WRAPPERS:
+        for k, v in step[w].items():
+            run["launches"][w] += steps * v
+            run["variants"][w][k] += steps * v
+    return run
+
+
+def traced_step(torch, fn, step):
+    """A ``torch.profiler`` trace (CUDA activity) of one call of ``fn``,
+    a decode step, whose GEMM records are the captured step's launches
+    ``step`` whole: the first of up to 5 traces that shows them all (the
+    profiler can drop a kernel's record), with how many traces it took."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for attempt in range(1, 6):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+        eager, replays = traced_gemms(prof)
+        got = gemm_counts()
+        for counts in (eager, *replays):
+            for w in GEMM_WRAPPERS:
+                for k, n in counts[w].items():
+                    got[w][k] += n
+        if missing(got, step) == 0:
+            return prof, attempt
+    fail(f"5 traces of a decode step each lack records of the captured "
+         f"step's GEMM launches {step}: the last shows {got}")
+
+
+def captured_step(torch, eng, step, slot_step, device_name) -> None:
+    """The captured decode step beside the same step run eagerly (the
+    engine's own closure over the same buffers, every lane inactive) and
+    the slot engine's eager step (``slot_step``): host time of each
+    (median of 5; the replay through the engine's own path: stage the
+    host tables with one copy, replay, read the greedy tokens), and in one
+    traced run of each that shows the captured step's GEMM launches
+    (``step``) whole (``traced_step``) the card's busy time by kernel and
+    the kernel launches."""
+    from repro_torch.kernels import planned
+
+    def replay():
+        eng._decode([])
+
+    def eager():
+        with torch.no_grad(), planned.override(policy=eng.policy):
+            eng._decode_fn()
+        torch.cuda.synchronize()
+
+    parts = []
+    for name, fn in (("replayed", replay), ("eager", eager)):
+        fn()
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        prof, attempts = traced_step(torch, fn, step)
+        wall = sorted(times)[len(times) // 2]
+        ms, kernels = device_by_kernel(prof)
+        busy = sum(ms.values())
+        parts.append(
+            f"{name} {wall:.2f} ms on the host clock (median of 5), device "
+            + (f"busy {busy:.4f} ms in one traced run ({kernels} kernel "
+               f"launches, the captured step's GEMMs whole in trace "
+               f"{attempts}; skinny {ms['skinny']:.3f} ms, wgmma "
+               f"{ms['wgmma']:.3f} ms, tiled {ms['tiled']:.3f} ms, other "
+               f"kernels {ms['other']:.3f} ms), device idle "
+               f"{max(0.0, 1 - busy / wall):.0%} of the step" if busy
+               else "busy time not measured (no device events)"))
+    slot_wall, slot_busy = slot_step
+    print(f"profile: paged decode step ({SLOTS} lanes, max_seq {MAX_SEQ}; "
+          f"the replay stages the tables, replays and reads the tokens): "
+          f"{'; '.join(parts)}; the slot engine's eager step "
+          f"{slot_wall:.2f} ms on the host clock, device busy "
+          f"{fmt_ms(slot_busy)}; on {device_name} [{nvidia_smi()}]",
+          flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -2760,7 +3093,7 @@ def tc_sweep(torch) -> list[dict]:
 
 
 def recurrences_phase(torch) -> tuple[dict, dict, dict, dict]:
-    """Phase 7 (module docstring): the launches of the pipeline run (all
+    """Phase 9 (module docstring): the launches of the pipeline run (all
     and the GEMMs' by kernel), the B6 / B7 time rows and the GEMM rows of
     the paper's MM/BMM table."""
     from repro_torch.launch import recurrences
@@ -3078,11 +3411,17 @@ def main(argv=None) -> int:
           flush=True)
     torch.cuda.empty_cache()
 
-    launches, variants = serve(torch, name)
+    launches, variants, slot = serve(torch, name)
+    torch.cuda.empty_cache()
+    paged_launches, paged_variants, _ = serve(torch, name, slot)
+    del slot
     torch.cuda.empty_cache()
     prefill_launches, prefill_variants = prefill_phase(torch, name)
     torch.cuda.empty_cache()
-    stream_launches, stream_variants = stream_serve(torch, name)
+    stream_launches, stream_variants, slot = stream_serve(torch, name)
+    torch.cuda.empty_cache()
+    pstream_launches, pstream_variants, _ = stream_serve(torch, name, slot)
+    del slot
     torch.cuda.empty_cache()
     rec_launches, rec_variants, hpc_rows, gemm_rows = \
         recurrences_phase(torch)
@@ -3097,8 +3436,10 @@ def main(argv=None) -> int:
             "name": kname, "route": "cuda", "source": k["source"],
             "replaces": k["replaces"],
             "launches": {"qwen": launches[kname],
+                         "qwen_paged": paged_launches[kname],
                          "qwen_prefill": prefill_launches[kname],
                          "whisper_stream": stream_launches[kname],
+                         "whisper_paged": pstream_launches[kname],
                          "recurrences": rec_launches[kname]},
             "max_abs_err": row["max_abs_err"],
             "ms": row["ms"], "plain_ms": row["plain_ms"],
@@ -3113,8 +3454,10 @@ def main(argv=None) -> int:
             # call's beside); conv2d's by window, the stars' by kernel
             entry["launches_by_kernel"] = {
                 "qwen": variants[kname],
+                "qwen_paged": paged_variants[kname],
                 "qwen_prefill": prefill_variants[kname],
                 "whisper_stream": stream_variants[kname],
+                "whisper_paged": pstream_variants[kname],
                 "recurrences": rec_variants[kname]}
             keys = {"mttkrp": ("device_ms", "cuda_core_device_ms",
                                "library_device_ms", "cuda_core_bound_ms"),

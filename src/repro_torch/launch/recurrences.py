@@ -35,9 +35,12 @@ float32, int8, int16 and cfloat)).  The cfloat FIR case runs as the
 reference's ``execute_plan`` runs it: the cfloat plan on the float32
 planes ``registry.operands`` draws, one real FIR launch (its line says
 so); the complex arithmetic is ``fir.fir_complex``, which ``chip_smoke.py``
-times.  fft2d_stage runs at its ``smoke_args``: its bench cases are
-complex (cfloat and cint16 grids of 8192^2) and the port has no complex
-lowering of it yet (ROADMAP A6).
+times.  fft2d_stage runs at its ``smoke_args`` until its bench cases are
+taken up (ROADMAP A5): those are "cfloat" and "cint16" grids of 8192^2,
+which both packages' registries draw as two float32 planes, the operands
+the port's kernel takes, so no complex lowering is missing; at 8192 rows
+they run the composition over the tensor-core GEMM, above the fused
+kernel's 64.
 bmm's plain version runs one batch entry at a time (``BATCHED``): at 64
 x 4096^3 a whole one would need ~70 GB of exact-integer temporaries.
 ``--device cpu`` runs the plain versions (the wrappers' CPU path) at

@@ -4,6 +4,8 @@
         --requests 8 --max-new 8 [--full] [--device cuda]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-base \
         --stream-audio [--full] [--device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \
+        --engine paged [--block-size 16] [--num-blocks N] [--full]
 
 ``--full`` serves the published full-width configuration instead of the
 reduced smoke one; weights are drawn from a ``torch.Generator`` seeded
@@ -11,7 +13,11 @@ with 0 on ``--device``.  ``--stream-audio`` (encdec archs) submits
 synthesized int16 audio streams of ``1 + i % (enc_frames //
 frames_per_chunk)`` chunks for request ``i`` through the planned
 frontend chunk by chunk, and checks after the drain that the frontend's
-planned stages ran.  The slot engine is the only one ported so far.
+planned stages ran.  ``--engine paged`` serves through the block-paged
+engine (``--slots`` lanes, ``--block-size`` rows a KV block,
+``--num-blocks`` blocks in the pool: by default every lane at full
+horizon) and prints its stats; its decode step is captured once in
+``load()``.
 """
 
 from __future__ import annotations
@@ -28,9 +34,15 @@ def main(argv=None):
     ap.add_argument("--arch", required=True)
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--max-new", type=int, default=8)
-    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--slots", type=int, default=4,
+                    help="lanes for either engine")
     ap.add_argument("--max-seq", type=int, default=128)
     ap.add_argument("--engine", default="slot", choices=["slot", "paged"])
+    ap.add_argument("--block-size", type=int, default=16,
+                    help="KV block granularity (paged engine)")
+    ap.add_argument("--num-blocks", type=int, default=None,
+                    help="KV blocks in the pool (paged engine; default "
+                         "every lane at full horizon)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--full", action="store_true",
                     help="full-width config instead of the smoke config")
@@ -44,8 +56,13 @@ def main(argv=None):
     from repro_torch.serve import make_engine, synth_samples
 
     cfg = (get_config if args.full else get_smoke_config)(args.arch)
-    eng = make_engine(cfg, kind=args.engine, max_slots=args.slots,
-                      max_seq=args.max_seq, device=args.device)
+    if args.engine == "paged":
+        kw = dict(max_lanes=args.slots, block_size=args.block_size,
+                  num_blocks=args.num_blocks)
+    else:
+        kw = dict(max_slots=args.slots)
+    eng = make_engine(cfg, kind=args.engine, max_seq=args.max_seq,
+                      device=args.device, **kw)
     gen = torch.Generator(device=args.device).manual_seed(0)
     eng.load(eng.api.init(gen))
 
@@ -87,6 +104,11 @@ def main(argv=None):
             raise SystemExit("audio streaming executed no planned frontend "
                              "stages")
         print(f"planned frontend stages: {front}")
+    if args.engine == "paged":
+        print(f"paged stats: {eng.stats}")
+        if eng.stats["decode_compiles"] != 1:
+            raise SystemExit("in-flight traffic re-captured the decode "
+                             "step")
     if planned.planned_enabled() and not any(
             st["planned"] for st in rows.values()):
         raise SystemExit("serving executed no planned GEMMs")

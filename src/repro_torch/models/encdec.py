@@ -20,8 +20,11 @@ tied head reads it transposed), ``pos_dec`` [max_positions, d],
 The caches are updated in place (the reference returns updated copies):
 ``encode_chunk`` writes the chunk's K/V into the encoder cache and
 advances its ``len``; ``decode_step`` writes each layer's K/V row and
-advances ``pos``.  Offline ``encode``/``prefill`` over precomputed frames,
-``loss_fn`` and the paged functions are not ported yet.
+advances ``pos``.  The block-paged engine's functions are ported
+(``paged_layout``, ``init_paged_pools``, ``decode_step_paged``: the
+decoder's self-attention K/V in block pools, the encoder K/V and
+``enc_len`` resident per lane).  Offline ``encode``/``prefill`` over
+precomputed frames and ``loss_fn`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -225,11 +228,14 @@ def _logits(p, x):
 
 
 def prefill_decoder(p, cfg, enc_k, enc_v, enc_len, tokens, max_seq,
-                    cache_dtype=torch.bfloat16):
+                    cache_dtype=torch.bfloat16, last_index=None):
     """Teacher-forced decoder prompt pass against already-built encoder
     K/V ([nl, B, F, hkv, hd], rows past ``enc_len`` masked): (last-token
     logits [B, V], a fresh cache holding the prompt's K/V and these
-    encoder K/V)."""
+    encoder K/V).  ``last_index`` ([B] int32, optional): bucketed
+    prefill — logits come from each lane's last valid token instead of
+    position -1 (tokens may be right-padded), and ``cache["pos"]`` is
+    set past it."""
     b, s = tokens.shape
     x = _embed(p, cfg, tokens) + p["pos_dec"][:s]
     positions = torch.arange(s, device=x.device).expand(b, s)
@@ -249,11 +255,12 @@ def prefill_decoder(p, cfg, enc_k, enc_v, enc_len, tokens, max_seq,
         cache["k"][i, :, :s] = k.to(cache_dtype)
         cache["v"][i, :, :s] = v.to(cache_dtype)
     x = L.apply_norm(p["ln_f"], cfg, x)
-    logits = _logits(p, x[:, -1:])[:, 0]
+    sel, pos = L.last_rows(x, last_index)
+    logits = _logits(p, sel)[:, 0]
     cache["enc_k"].copy_(enc_k)
     cache["enc_v"].copy_(enc_v)
     cache["enc_len"].copy_(enc_len)
-    cache["pos"].fill_(s)
+    cache["pos"].copy_(pos)
     return logits, cache
 
 
@@ -305,3 +312,56 @@ def decode_step(p, cfg, cache, tokens):
     logits = _logits(p, x)[:, 0]
     pos += 1
     return logits, cache
+
+
+# ---------------------------------------------------------------------------
+# block-paged serving
+# ---------------------------------------------------------------------------
+
+def paged_layout(cfg) -> dict:
+    """Paged-cache leaf kinds: the growing decoder self-attention K/V
+    pages through block tables; the cross-attention encoder K/V is a
+    fixed-size per-lane block (``lane`` leaves — written at admit and
+    grown in place by streaming chunk feeds, nothing to page); the
+    per-lane valid-frame count is a ``lane_scalar``."""
+    del cfg
+    return {"k": "paged", "v": "paged", "enc_k": "lane", "enc_v": "lane",
+            "enc_len": "lane_scalar"}
+
+
+def init_paged_pools(cfg, num_blocks, block_size, max_lanes,
+                     dtype=torch.bfloat16, device="cuda"):
+    nl, hkv, hd = cfg.n_layers, cfg.n_kv_heads, cfg.hd
+
+    def zeros(*shape):
+        return torch.zeros((nl, *shape, hkv, hd), dtype=dtype, device=device)
+
+    return {
+        "k": zeros(num_blocks, block_size),
+        "v": zeros(num_blocks, block_size),
+        "enc_k": zeros(max_lanes, cfg.enc_frames),
+        "enc_v": zeros(max_lanes, cfg.enc_frames),
+        "enc_len": torch.zeros(max_lanes, dtype=torch.int32, device=device),
+    }
+
+
+def decode_step_paged(p, cfg, pools, tokens, block_tables, pos, active):
+    """Block-paged twin of ``decode_step``: self-attention K/V through
+    per-lane block tables (written in place), cross-attention against the
+    lane's resident encoder K/V, masked past ``pools["enc_len"]`` — the
+    very tensor the engine's chunk feeds write, so a captured step reads
+    each lane's current fill.  ``pos`` is the engine's to advance."""
+    x = _embed(p, cfg, tokens) + p["pos_dec"][pos.long()][:, None].to(
+        L.compute_dtype(cfg))
+    for i, lp in enumerate(p["dec_layers"]):
+        h = L.apply_norm(lp["ln1"], cfg, x)
+        x = x + L.apply_attention_decode_paged(
+            lp["attn"], cfg, h, pools["k"][i], pools["v"][i], block_tables,
+            pos, active)
+        h = L.apply_norm(lp["ln_x"], cfg, x)
+        x = x + _cross_attend(lp["xattn"], cfg, h, pools["enc_k"][i],
+                              pools["enc_v"][i], kv_len=pools["enc_len"])
+        h = L.apply_norm(lp["ln2"], cfg, x)
+        x = x + L.apply_mlp(lp["mlp"], cfg, h)
+    x = L.apply_norm(p["ln_f"], cfg, x)
+    return _logits(p, x)[:, 0], pools

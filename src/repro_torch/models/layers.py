@@ -220,6 +220,71 @@ def apply_attention_decode(p, cfg, x, cache_k, cache_v, pos):
         sites=("attn.decode_scores", "attn.decode_values"))
 
 
+def last_rows(x, last_index):
+    """The hidden row each lane's logits come from: the last one, or with
+    ``last_index`` ([B] int32; a bucketed prefill's last real token) that
+    row -> ([B, 1, d], cache ``pos`` [B] int32)."""
+    b, s = x.shape[:2]
+    if last_index is None:
+        return x[:, -1:], torch.full((b,), s, dtype=torch.int32,
+                                     device=x.device)
+    idx = last_index.to(device=x.device, dtype=torch.long)
+    sel = x[torch.arange(b, device=x.device), idx][:, None]
+    return sel, (idx + 1).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# block-paged KV cache primitives (continuous-batching serving)
+# ---------------------------------------------------------------------------
+
+def paged_write(pool, new, block_tables, pos, active):
+    """Write one token's K/V row per lane into a block pool, in place.
+
+    pool [NB + 1, bs, ...] (its last block the sink); new [B, ...] (one
+    row per lane); block_tables [B, T] int32; pos [B] int32 (the row each
+    lane writes); active [B] bool.  Inactive lanes MUST NOT write to a
+    live block — their table rows may point at blocks since re-allocated
+    to another lane — so their row goes to the sink block, which the
+    allocator never hands out.  (The reference forces the index out of
+    range and lets its scatter drop it; a PyTorch index out of range is
+    a device-side assert, and a clamp would land on a live row.)"""
+    sink, bs = pool.shape[0] - 1, pool.shape[1]
+    slot = (pos // bs).clamp(0, block_tables.shape[1] - 1).long()
+    blk = block_tables.gather(1, slot[:, None])[:, 0].long()
+    blk = torch.where(active, blk, sink)
+    flat = pool.view(-1, *pool.shape[2:])
+    flat[blk * bs + (pos % bs).long()] = new.to(pool.dtype)
+
+
+def paged_gather(pool, block_tables):
+    """Assemble each lane's logical K/V sequence from its block table.
+
+    pool [NB + 1, bs, ...]; block_tables [B, T] -> [B, T*bs, ...].  Rows
+    past the lane's ``pos`` are garbage (freed or never-written blocks)
+    — the decode mask hides them, exactly like the zero tail of a
+    contiguous lane cache."""
+    g = pool[block_tables.long()]  # [B, T, bs, ...]
+    return g.reshape(block_tables.shape[0], -1, *pool.shape[2:])
+
+
+def apply_attention_decode_paged(p, cfg, x, pool_k, pool_v, block_tables,
+                                 pos, active):
+    """Block-paged one-token decode: the math of
+    ``apply_attention_decode``, but K/V live in a shared block pool
+    indexed through per-lane block tables (written in place), so
+    admitting or evicting a lane is a host-side table edit and the
+    captured decode step never changes shape.  The gather yields
+    ``T * bs`` = ``max_seq`` rows, the slot cache's count, so every GEMM
+    runs at the slot engine's shapes."""
+    q, k, v = _qkv(p, cfg, x, pos[:, None])
+    paged_write(pool_k, k[:, 0], block_tables, pos, active)
+    paged_write(pool_v, v[:, 0], block_tables, pos, active)
+    return _masked_decode_attention(
+        p, cfg, q, paged_gather(pool_k, block_tables),
+        paged_gather(pool_v, block_tables), pos,
+        sites=("attn.paged_scores", "attn.paged_values"))
+
+
 # ---------------------------------------------------------------------------
 # MLP
 # ---------------------------------------------------------------------------

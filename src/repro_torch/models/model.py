@@ -4,6 +4,16 @@
     params = api.init(generator)
     logits, cache = api.prefill(params, {"tokens": tokens}, max_seq)
     logits, cache = api.decode(params, cache, tokens)
+    pools = api.paged_init(num_blocks, block_size, max_lanes)
+    logits, pools = api.paged_decode(params, pools, tokens, tables, pos,
+                                     active)
+
+``prefill`` and ``stream_prefill`` take ``last_index`` ([B] int32) for a
+bucketed prompt: the logits come from each lane's last real token.
+``paged_layout()`` maps each pool leaf to ``"paged"`` (a block pool
+indexed through the block tables), ``"lane"`` (one fixed-size block a
+lane) or ``"lane_scalar"`` (one scalar a lane); ``paged_decode`` writes
+the pools in place and never moves ``pos``.
 
 The dense and encdec families are ported; the others raise.  encdec
 serves streamed audio: ``enc_init(b, f_max)`` builds the incremental
@@ -36,6 +46,10 @@ class ModelAPI:
     prefill: Callable
     decode: Callable
     init_cache: Callable
+    # block-paged serving (continuous batching)
+    paged_init: Callable | None = None
+    paged_decode: Callable | None = None
+    paged_layout: Callable | None = None
     # streaming (chunked) admission — encdec only
     enc_init: Callable | None = None
     enc_step: Callable | None = None
@@ -53,9 +67,9 @@ def build_model(cfg: ModelConfig, device="cuda") -> ModelAPI:
             f"family {cfg.family!r} is not ported; the port serves dense "
             "decoders and encdec streaming")
 
-    def prefill(p, batch, max_seq):
+    def prefill(p, batch, max_seq, last_index=None):
         return TFM.prefill(p, cfg, batch["tokens"], max_seq,
-                           cache_dtype=cache_dtype)
+                           cache_dtype=cache_dtype, last_index=last_index)
 
     return ModelAPI(
         cfg=cfg,
@@ -66,12 +80,17 @@ def build_model(cfg: ModelConfig, device="cuda") -> ModelAPI:
                                                         tokens),
         init_cache=lambda b, s: TFM.init_cache(cfg, b, s, cache_dtype,
                                                device),
+        paged_init=lambda nb, bs, lanes: TFM.init_paged_pools(
+            cfg, nb, bs, lanes, cache_dtype, device),
+        paged_decode=lambda p, pools, t, bt, pos, act:
+            TFM.decode_step_paged(p, cfg, pools, t, bt, pos, act),
+        paged_layout=lambda: TFM.paged_layout(cfg),
     )
 
 
 def _encdec_api(cfg: ModelConfig, device: torch.device,
                 cache_dtype: torch.dtype) -> ModelAPI:
-    def prefill(p, batch, max_seq):
+    def prefill(p, batch, max_seq, last_index=None):
         raise NotImplementedError(
             "offline encdec prefill over precomputed frames is not ported; "
             "submit the audio with submit_audio_stream")
@@ -85,10 +104,17 @@ def _encdec_api(cfg: ModelConfig, device: torch.device,
                                                            tokens),
         init_cache=lambda b, s: ENCDEC.init_cache(
             cfg, b, s, dtype=cache_dtype, device=device),
+        paged_init=lambda nb, bs, lanes: ENCDEC.init_paged_pools(
+            cfg, nb, bs, lanes, cache_dtype, device),
+        paged_decode=lambda p, pools, t, bt, pos, act:
+            ENCDEC.decode_step_paged(p, cfg, pools, t, bt, pos, act),
+        paged_layout=lambda: ENCDEC.paged_layout(cfg),
         enc_init=lambda b, f_max=None: ENCDEC.init_enc_cache(
             cfg, b, f_max, device),
         enc_step=lambda p, ec, fc: ENCDEC.encode_chunk(p, cfg, ec, fc),
         enc_kv=lambda p, enc: ENCDEC.enc_kv_chunk(p, cfg, enc, cache_dtype),
-        stream_prefill=lambda p, ek, ev, el, tk, ms: ENCDEC.prefill_decoder(
-            p, cfg, ek, ev, el, tk, ms, cache_dtype=cache_dtype),
+        stream_prefill=lambda p, ek, ev, el, tk, ms, last_index=None:
+            ENCDEC.prefill_decoder(p, cfg, ek, ev, el, tk, ms,
+                                   cache_dtype=cache_dtype,
+                                   last_index=last_index),
     )

@@ -8,7 +8,11 @@ untied heads, ``lm_head`` [d, V].  ``convert.params_from_jax`` turns the
 reference's tree into this form.
 
 The serving cache is ``{"k", "v": [L, B, S, Hkv, hd], "pos": [B] int32}``
-and ``decode_step`` updates it in place.
+and ``decode_step`` updates it in place.  The block-paged engine's pools
+are ``{"k", "v": [L, NB + 1, bs, Hkv, hd]}`` (``init_paged_pools``; the
+last block is the sink of inactive lanes' writes) and
+``decode_step_paged`` writes them in place through per-lane block
+tables.
 """
 
 from __future__ import annotations
@@ -145,9 +149,16 @@ def init_cache(cfg, batch, max_seq, dtype=torch.bfloat16, device="cuda"):
     }
 
 
-def prefill(p, cfg, tokens, max_seq, cache_dtype=torch.bfloat16):
+def prefill(p, cfg, tokens, max_seq, cache_dtype=torch.bfloat16,
+            last_index=None):
     """Run the whole prompt, build its cache, return last-token logits:
-    (logits [B, V], cache with ``pos`` = prompt length)."""
+    (logits [B, V], cache with ``pos`` = prompt length).
+
+    ``last_index`` ([B] int32, optional) supports *bucketed* prefill:
+    ``tokens`` may be right-padded to a bucket length and logits are then
+    taken at each lane's last valid token instead of position -1, with
+    ``cache["pos"]`` set past it.  Pad rows land in the cache but the
+    decode mask (``kpos <= pos``) hides them until overwritten."""
     _check_family(cfg)
     b, s = tokens.shape
     x = embed_tokens(p, cfg, tokens)
@@ -158,8 +169,9 @@ def prefill(p, cfg, tokens, max_seq, cache_dtype=torch.bfloat16):
         cache["k"][i, :, :s] = k.to(cache_dtype)
         cache["v"][i, :, :s] = v.to(cache_dtype)
     x = L.apply_norm(p["ln_f"], cfg, x)
-    logits = logits_fn(p, cfg, x[:, -1:])[:, 0]
-    cache["pos"].fill_(s)
+    sel, pos = L.last_rows(x, last_index)
+    logits = logits_fn(p, cfg, sel)[:, 0]
+    cache["pos"].copy_(pos)
     return logits, cache
 
 
@@ -178,3 +190,43 @@ def decode_step(p, cfg, cache, tokens):
     logits = logits_fn(p, cfg, x)[:, 0]
     pos += 1
     return logits, cache
+
+
+# ---------------------------------------------------------------------------
+# block-paged serving
+# ---------------------------------------------------------------------------
+
+def paged_layout(cfg) -> dict:
+    """Leaf kinds for the block-paged serving cache: ``paged`` leaves are
+    [L, NB, bs, ...] block pools indexed per-lane through block tables;
+    there are no per-lane leaves for this family."""
+    del cfg
+    return {"k": "paged", "v": "paged"}
+
+
+def init_paged_pools(cfg, num_blocks, block_size, max_lanes,
+                     dtype=torch.bfloat16, device="cuda"):
+    del max_lanes  # no per-lane state in this family
+    shape = (cfg.n_layers, num_blocks, block_size, cfg.n_kv_heads, cfg.hd)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def decode_step_paged(p, cfg, pools, tokens, block_tables, pos, active):
+    """Block-paged decode: tokens [B,1]; block_tables [B,T] int32; pos
+    [B] int32; active [B] bool -> (logits [B,V], pools), the pools
+    written in place (each layer's new K/V row; an inactive lane's to the
+    sink block).
+
+    ``pos``/tables/``active`` are host-owned inputs that the step never
+    changes (the engine advances pos and edits tables between steps), so
+    the step's shapes never depend on which requests are in flight."""
+    x = embed_tokens(p, cfg, tokens)
+    for i, lp in enumerate(p["layers"]):
+        h = L.apply_norm(lp["ln1"], cfg, x)
+        x = x + L.apply_attention_decode_paged(
+            lp["attn"], cfg, h, pools["k"][i], pools["v"][i], block_tables,
+            pos, active)
+        x = x + L.apply_mlp(lp["mlp"], cfg, L.apply_norm(lp["ln2"], cfg, x))
+    x = L.apply_norm(p["ln_f"], cfg, x)
+    return logits_fn(p, cfg, x)[:, 0], pools

@@ -4,8 +4,8 @@
 horizon check; ``EngineBase`` owns submission (``submit`` /
 ``submit_text`` for token prompts, ``submit_audio_stream`` for raw
 audio), the drain loop, the planning context and the chunked-streaming
-machinery; ``make_engine(cfg, kind="slot")`` is the one constructor.  The
-block-paged engine is not ported yet.
+machinery; ``make_engine(cfg, kind="slot" | "paged")`` is the one
+constructor of the slot and the block-paged engine.
 
 Streaming admission (``kind == "audio"`` requests, encdec only): the
 utterance arrives as fixed-size sample chunks (``AudioFrontend.split``).
@@ -14,9 +14,10 @@ encoder -> per-layer cross K/V, then runs the decoder-only prompt pass
 (``api.stream_prefill``) against the partially filled encoder cache, so
 decode starts before the utterance ends.  Each later ``step()`` feeds one
 more chunk per streaming lane through the same functions and writes its
-K/V into the lane in place; cross-attention masks rows past ``enc_len``.
-A text ``submit`` with ``extra`` (precomputed frames) is refused until
-the offline encdec prefill is ported.
+K/V into the lane in place (the paged engine: into the lane's encoder
+pools, which its captured decode step reads); cross-attention masks rows
+past ``enc_len``.  A text ``submit`` with ``extra`` (precomputed frames)
+is refused until the offline encdec prefill is ported.
 """
 
 from __future__ import annotations
@@ -222,12 +223,11 @@ class EngineBase:
 def make_engine(cfg, kind: str = "slot", **kwargs):
     """The serving-engine constructor; keyword arguments pass through to
     the engine class (``device`` defaults to ``"cuda"``)."""
-    from .engine import ServeEngine
+    from .engine import PagedServeEngine, ServeEngine
 
     if kind == "slot":
         return ServeEngine(cfg, **kwargs)
     if kind == "paged":
-        raise NotImplementedError(
-            "the block-paged engine is not ported yet; use kind='slot'")
+        return PagedServeEngine(cfg, **kwargs)
     raise ValueError(
         f"unknown engine kind {kind!r}: expected 'slot' or 'paged'")

@@ -2,7 +2,8 @@
 compiled tap count and the generic one, real and complex), conv2d (every
 compiled window and the generic one), fft2d, star-stencil (one sweep, and
 several a launch) and MTTKRP kernels against their plain versions on the
-card.
+card, and the block-paged serving engine's captured decode step against
+an eager one.
 
 Every test here is ``gpu``-marked and skips without a CUDA card.  The file
 imports only the port (no JAX), so it runs on a machine with a card and
@@ -1030,3 +1031,128 @@ def test_every_integer_tc_tile_matches_the_plain_version_on_the_card(
             a, b = _int_operands(61, 80, k, dtype, col_major, gen, batch=3)
             _same(bmm.bmm(a, b, tiles=tc), ref.bmm(a, b))
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# the block-paged engine: one decode capture per load()
+# ---------------------------------------------------------------------------
+
+def _paged_engine(arch="qwen1.5-0.5b", kv_dtype=None, **kw):
+    """A smoke-width paged engine on the card (its decode step captured in
+    ``load()``), weights from a seeded generator."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.serve import make_engine
+
+    cfg = get_smoke_config(arch)
+    if kv_dtype:
+        cfg = dataclasses.replace(cfg, kv_cache_dtype=kv_dtype)
+    kw = {"max_lanes": 4, "max_seq": 64, "block_size": 8, **kw}
+    eng = make_engine(cfg, kind="paged", **kw)
+    eng.load(eng.api.init(torch.Generator(device="cuda").manual_seed(0)))
+    return eng
+
+
+def _prompts(vocab, lens, seed):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, vocab, n) for n in lens]
+
+
+@pytest.mark.gpu
+def test_replayed_paged_decode_equals_an_eager_step_on_the_card(gen):
+    """One replay of the captured step and one eager ``decode_step_paged``
+    on the same pools, tables, pos and active mask (a lane inactive):
+    bitwise the same logits and the same pools afterwards."""
+    from repro_torch.models import transformer
+
+    eng = _paged_engine()
+    assert eng.stats["decode_compiles"] == 1
+    for p in _prompts(eng.cfg.vocab, (5, 9, 13), seed=0):
+        eng.submit(p, max_new_tokens=8)
+    eng.step()
+    eng.step()
+    active = [i for i, r in enumerate(eng.lanes) if r is not None]
+    assert len(active) == 3
+    before = {k: v.clone() for k, v in eng.kv.pools.items()}
+    nxt = eng._decode(active)
+    replay = eng._decode_out[0].clone()
+    replayed = {k: v.clone() for k, v in eng.kv.pools.items()}
+    for k, v in eng.kv.pools.items():
+        v.copy_(before[k])
+    tokens = torch.tensor([[eng.lanes[i].output[-1] if i in active else 0]
+                           for i in range(eng.max_lanes)],
+                          dtype=torch.int32, device="cuda")
+    with torch.no_grad(), planned.override(policy=eng.policy):
+        logits, _ = transformer.decode_step_paged(
+            eng.params, eng.cfg, eng.kv.pools, tokens,
+            torch.as_tensor(eng.kv.tables, device="cuda"),
+            torch.as_tensor(eng.kv.pos, device="cuda"),
+            torch.as_tensor(eng.kv.active, device="cuda"))
+    torch.cuda.synchronize()
+    assert torch.equal(logits, replay)
+    for k in replayed:
+        assert torch.equal(eng.kv.pools[k], replayed[k]), k
+    assert [nxt[i] for i in active] == \
+        logits.argmax(-1)[active].tolist()
+
+
+@pytest.mark.gpu
+def test_join_evict_preempt_never_recapture_on_the_card(gen):
+    """An oversubscribed pool (preemptions), late joins and evictions: one
+    capture, the same graph object throughout, every budget met."""
+    eng = _paged_engine(num_blocks=14)
+    graph = eng._graph
+    prompts = _prompts(eng.cfg.vocab, (20, 20, 20, 20, 7, 11), seed=4)
+    for p in prompts[:4]:
+        eng.submit(p, max_new_tokens=20)
+    for _ in range(3):
+        eng.step()
+    for p in prompts[4:]:
+        eng.submit(p, max_new_tokens=20)
+    done = eng.run_until_drained()
+    assert sorted(len(r.output) for r in done) == [20] * 6
+    assert eng.stats["preemptions"] > 0
+    assert eng.stats["decode_compiles"] == 1
+    assert eng._graph is graph
+
+
+@pytest.mark.gpu
+def test_paged_pools_are_never_replaced_on_the_card(gen):
+    eng = _paged_engine()
+    ptrs = {k: v.data_ptr() for k, v in eng.kv.pools.items()}
+    with pytest.raises(AttributeError, match="in place"):
+        eng.kv.pools = {k: v.clone() for k, v in eng.kv.pools.items()}
+    with pytest.raises(TypeError):
+        eng.kv.pools["k"] = eng.kv.pools["k"].clone()
+    for p in _prompts(eng.cfg.vocab, (6, 30, 9), seed=2):
+        eng.submit(p, max_new_tokens=6)
+    eng.run_until_drained()
+    assert {k: v.data_ptr() for k, v in eng.kv.pools.items()} == ptrs
+
+
+@pytest.mark.gpu
+def test_streamed_audio_through_the_captured_step_on_the_card(gen):
+    """whisper-base (smoke, float32 with a float32 cache: a bf16 cache
+    would give the float32 attention operands of two dtypes, which no
+    kernel takes) streams on the paged engine: every chunk fed while the
+    captured step decodes, the slot engine's tokens."""
+    from repro_torch.serve import SchedulerConfig, make_engine, synth_samples
+
+    eng = _paged_engine("whisper-base", kv_dtype="float32", max_lanes=2,
+                        scheduler=SchedulerConfig(bucketed=False))
+    fc = eng.frontend.cfg
+    streams = [synth_samples(fc, n, seed=i) for i, n in enumerate((4, 2, 3))]
+    slot = make_engine(eng.cfg, kind="slot", max_slots=2, max_seq=64)
+    slot.load(eng.params)
+    outs = []
+    for e in (eng, slot):
+        for s in streams:
+            e.submit_audio_stream(s, max_new_tokens=6)
+        done = e.run_until_drained()
+        assert all(r.fed == len(r.chunks) for r in done)
+        outs.append({r.rid: list(r.output) for r in done})
+    assert eng.stats["decode_compiles"] == 1
+    assert outs[0] == outs[1]

@@ -3,7 +3,8 @@
 The same 6 requests (prompts drawn with numpy) go through the JAX
 ``ServeEngine`` and the port's engine on the same parameters.  Greedy
 tokens must be identical, and identical again between 1 and 3 slots.
-The ``_write_lane`` dtype guard and the engine surface are ported too.
+The ``_write_lane`` dtype guard and the engine surface are ported too
+(the paged engine is held in ``test_torch_paged.py``).
 """
 
 import numpy as np
@@ -98,8 +99,12 @@ def test_requests_past_the_horizon_are_rejected():
 
 
 def test_unported_engine_kinds_raise():
+    """The block-paged engine is ported: ``kind="paged"`` builds it; a
+    kind neither package has still raises."""
+    from repro_torch.serve import PagedServeEngine
+
     cfg = get_smoke_config(ARCH)
-    with pytest.raises(NotImplementedError, match="paged"):
-        make_engine(cfg, kind="paged", device="cpu")
+    assert isinstance(make_engine(cfg, kind="paged", device="cpu"),
+                      PagedServeEngine)
     with pytest.raises(ValueError, match="unknown engine kind"):
         make_engine(cfg, kind="bogus", device="cpu")
