@@ -10,7 +10,7 @@
     python3 chip_smoke.py --fir-sweep [--src OTHER/src] [--out sweep.json]
 
 Needs one CUDA card and the CUDA toolkit.  It imports only the port, never
-JAX nor the JAX package, and runs ten phases, each printing its own
+JAX nor the JAX package, and runs twelve phases, each printing its own
 line(s); any failure exits non-zero:
 
 1. device — the card's name and power limit, torch and CUDA versions;
@@ -117,7 +117,31 @@ line(s); any failure exits non-zero:
    window, the frontend's stamps, the features and stream-prefill logits,
    the first token the argmax of the bucketed prefill over the first
    chunk), and ``decode_compiles == 1``;
-9. recurrences — the WideSA mapper -> kernel pipeline,
+9. long_prompt — blockwise attention forced at S = 2048 on the card
+   against ``sdpa`` on the hand kernels (fp32, causal and not, the CPU
+   test's tolerance); then full-width qwen1.5-0.5b at max_seq 8448
+   serving prompts of 2049, 4096 and 8192 tokens (attention above 2048
+   rows blockwise, over ``torch.matmul``), 8 new tokens each, on the slot
+   engine and on the paged engine (exact-length prefills, its decode step
+   captured in ``load()`` at 528 blocks a lane): every budget, every site
+   planned, ``check_routes``, the two engines' greedy tokens equal,
+   ``drain_parity``, each prompt's prefill logits against the plain
+   versions; the 8192-token prefill's host time and its device time by
+   kernel (the tensor-core GEMM, the blockwise products under
+   ``torch.matmul``, other kernels), and the captured paged step's with
+   every lane installed over blocks of its own at its last row (the
+   gather reads each lane's whole K and V);
+10. offline_audio — full-width whisper-base serving 4 text requests, each
+   with its own [1500, 512] frames (numpy draws from a seed rounded to
+   bf16, as ``launch.serve`` draws them), prefilled offline (encoder over
+   the frames, cross K/V, prompt) on the slot and the paged engine: the
+   checks of phase 9 (the MLP pair on its ``xla`` plan) and the encoder's
+   host and device time over one utterance.  Then the GEMMs these two
+   phases add (``LONG_SHAPES``: qwen's prefill GEMMs at 8192 rows, the
+   decode scores and values over 8448 keys, the encoder's scores and
+   values over 1500 frames) against their plain versions and timed beside
+   ``torch.matmul``/``torch.bmm`` and their bounds;
+11. recurrences — the WideSA mapper -> kernel pipeline,
    ``repro_torch.launch.recurrences.run`` (the entry point's function):
    the Table II compiler report, quickstart's 1024^3 MM, and every
    registered recurrence planned on one chip and run through
@@ -156,14 +180,16 @@ line(s); any failure exits non-zero:
    version and beside the tiled kernel they replace, ``torch._int_mm``
    for int8 mm, the bound at the int8 rate x 1, 4 or 10 limb products)
    and the paper's float32 MM and BMM on ``gemm_tc_kernel``;
-10. summary — a JSON line of the kernels, the ``nvidia-smi`` name and
+12. summary — a JSON line of the kernels, the ``nvidia-smi`` name and
    power limit, and the result line.
 
 Every wrapper's launch count is set to 0 just before each serving drain
 and before the recurrence pipeline, and read just after; the kernels
 line gives each path's counts apart (``"launches": {"qwen": n,
 "qwen_paged": q, "qwen_prefill": p, "whisper_stream": m,
-"whisper_paged": w, "recurrences": k}``.  A replay of a captured step
+"whisper_paged": w, "qwen_long": l, "whisper_offline": o,
+"recurrences": k}``; ``qwen_long`` and ``whisper_offline`` each sum the
+slot engine's drain and the paged engine's).  A replay of a captured step
 passes no wrapper, so a paged path's drain runs under ``torch.profiler``
 and its count is what the wrappers counted (the eager prefills and chunk
 feeds) plus the GEMM launches that the trace shows in the drain's
@@ -183,9 +209,16 @@ generic) beside the paper's conv2d table, for fir its launches by
 instantiation (15 / 7 / generic; real and complex alike) beside the
 paper's FIR table and ``fir_complex``, and for the stars theirs by
 kernel (star5 / star9 on star_kernel, sweeps on sweeps_kernel) beside
-the other timed stars and jacobi2d_ms's call.  The comparison and
-timing launches of phases 3 and 7, those of the paged phases outside
-their main drains and of ``drain_parity`` do not count.
+the other timed stars and jacobi2d_ms's call.  The GEMM wrappers' entries
+also hold, under ``"long"``, each ``LONG_SHAPES`` GEMM's device time,
+plain and library times, bound and launches on ``qwen_long`` and
+``whisper_offline``: the calls the drains' planned reports count (every
+eager call), plus the paged drain's steps times the launches that its
+first whole traced replay shows at the shape's kernel and grid
+(``launch_signature``: the grid the launcher sets for the shape's
+configuration).  The comparison and timing launches of phases 3 and
+7, those of the paged phases outside their main drains, of
+``drain_parity``, of the logit checks and the profiles do not count.
 
 ``--tile-sweep`` runs only the device and build phases, then times the
 tiled GEMM in bf16 with each of the 24 tiles of ``build.SWEEP_TILES`` (a
@@ -242,6 +275,7 @@ import re
 import subprocess
 import sys
 import time
+from collections import Counter
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -1619,7 +1653,6 @@ def serve(torch, device_name: str, slot: dict | None = None) -> tuple:
     import numpy as np
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels import planned
     from repro_torch.serve import make_engine
 
     cfg = get_config(ARCH)
@@ -1651,66 +1684,21 @@ def serve(torch, device_name: str, slot: dict | None = None) -> tuple:
     submit(eng)
 
     # the main path: counts start at 0 here and are read right after
-    run = counted_drain(torch, eng, step)
-    done, launches, report = run["done"], run["launches"], run["report"]
-    if len(done) != REQUESTS or any(len(r.output) != MAX_NEW for r in done):
-        fail(f"{label}: requests did not finish with their budget: "
-             f"{[(r.rid, len(r.output)) for r in done]}")
-    bad = {s: (st["planned"], st["fallback"], st["reasons"])
-           for s, st in report.items()
-           if st["planned"] == 0 or st["fallback"] != 0}
-    if bad or not report:
-        fail(f"{label}: planned sites that fell back or never planned: {bad}")
-    if min(launches["widesa_mm"], launches["bmm"]) == 0:
-        fail(f"{label}: a kernel was not launched on the main path: "
-             f"{launches}")
-    tokens = sum(len(r.output) for r in done)
-    routes = check_routes(label, report, run["eager_variants"])
-    print(f"{label}: {len(done)} requests / {tokens} tokens in "
-          f"{run['seconds']:.3f} s = {tokens / run['seconds']:.1f} tok/s on "
-          f"{device_name}{run['how']}; launches {launches}; GEMM launches by "
-          f"kernel {run['variants']} ({routes} among the eager ones); "
-          f"{len(report)} sites all planned: {sorted(report)}", flush=True)
-    drain_parity(torch, report, label)
+    run = checked_drain(torch, eng, label, REQUESTS, device_name, step)
+    done, launches = run["done"], run["launches"]
+    drain_parity(torch, run["report"], label)
 
     # prefill logits through the kernels vs an explicit plain-version run
     # (the paged engine's at the prompt's bucket, read at its last token)
-    worst = scale = 0.0
-    by_rid = {r.rid: r for r in done}
-    with torch.no_grad():
-        for rid, p in enumerate(prompts):
-            rows = eng.scheduler.bucket_for(len(p)) if slot else len(p)
-            padded = np.zeros((1, rows), np.int32)
-            padded[0, :len(p)] = p
-            tok = torch.as_tensor(padded, device="cuda")
-            li = torch.tensor([len(p) - 1], dtype=torch.int32,
-                              device="cuda") if slot else None
-            cache_rows = rows if slot else MAX_SEQ
-            logits, _ = eng.api.prefill(params, {"tokens": tok}, cache_rows,
-                                        last_index=li)
-            with planned.override(enabled=False):
-                want, _ = eng.api.prefill(params, {"tokens": tok},
-                                          cache_rows, last_index=li)
-            if logits.shape != (1, cfg.vocab) or not torch.isfinite(
-                    logits).all():
-                fail(f"{label} request {rid}: bad prefill logits "
-                     f"{logits.shape}")
-            err = (logits.float() - want.float()).abs().max().item()
-            worst = max(worst, err)
-            scale = max(scale, want.float().abs().max().item())
-            if err > LOGIT_ATOL:
-                fail(f"{label} request {rid}: prefill logits ({rows} rows) "
-                     f"differ by {err} > {LOGIT_ATOL} from the plain versions")
-            if by_rid[rid].output[0] != int(torch.argmax(logits[0])):
-                fail(f"{label} request {rid}: engine's first token is not "
-                     "the argmax of its prefill logits")
-    print(f"{label}: {'bucketed ' if slot else ''}prefill logits of "
-          f"{len(prompts)} prompts match the plain versions, max |diff| "
-          f"{worst:.4f} <= {LOGIT_ATOL} (max |logit| {scale:.3f}); first "
-          f"tokens are their argmax", flush=True)
     if slot:
+        batches = [token_batch(torch, p, eng.scheduler.bucket_for(len(p)))
+                   for p in prompts]
+        first_logits(torch, f"{label} (bucketed)", eng.api, params, done,
+                     batches, last_index=[len(p) - 1 for p in prompts])
         captured_step(torch, eng, step, slot["step"], device_name)
         return launches, run["variants"], None
+    first_logits(torch, label, eng.api, params, done,
+                 [token_batch(torch, p) for p in prompts], MAX_SEQ)
     return launches, run["variants"], {
         "prompts": prompts, "params": params,
         "step": profile_decode(torch, eng),
@@ -1724,47 +1712,15 @@ TILED_STEP_GEMM_MS = 22.82
 
 
 def profile_decode(torch, eng) -> tuple:
-    """Host time of one 4-lane decode step, and the card's busy time in it
-    by kernel (``torch.profiler``, CUDA activity; ``device_by_kernel``):
-    the skinny and the tiled GEMM kernels apart, and everything else.
-    Returns (host ms, device busy ms or None)."""
-    from torch.profiler import ProfilerActivity, profile
-
+    """One eager 4-lane decode step of the slot engine, profiled
+    (``profile_call``).  Returns (host ms, device busy ms or None)."""
     cache = eng.api.init_cache(SLOTS, MAX_SEQ)
     tokens = torch.zeros((SLOTS, 1), dtype=torch.int32, device="cuda")
-
-    def step():
-        with torch.no_grad():
-            eng.api.decode(eng.params, cache, tokens)
-        torch.cuda.synchronize()
-
-    step()
-    walls = []
-    for _ in range(5):
-        t0 = time.perf_counter()
-        step()
-        walls.append((time.perf_counter() - t0) * 1e3)
-    reset_counts()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        step()
-    per_step = f"GEMM launches by kernel {read_variants()}"
-    ms, kernels = device_by_kernel(prof)
-    wall = sorted(walls)[len(walls) // 2]
-    busy = sum(ms.values())
-    if busy == 0:
-        print(f"profile: decode step {wall:.2f} ms on the host clock "
-              f"(median of 5), {per_step}; device busy time not measured "
-              "(the profiler recorded no device events)", flush=True)
-        return wall, None
-    hand = sum(ms[k] for k in GEMM_KERNELS)
-    print(f"profile: decode step {wall:.2f} ms on the host clock (median "
-          f"of 5), {per_step}; device busy {busy:.2f} ms in the traced "
-          f"step ({kernels} kernel launches): hand GEMM kernels {hand:.3f} "
-          f"ms (skinny {ms['skinny']:.3f} ms, wgmma {ms['wgmma']:.3f} ms, "
-          f"tiled {ms['tiled']:.3f} ms; {TILED_STEP_GEMM_MS} ms when all "
-          f"ran tiled), other kernels {ms['other']:.2f} ms; device idle "
-          f"{max(0.0, 1 - busy / wall):.0%} of the step", flush=True)
-    return wall, busy
+    wall, ms = profile_call(
+        torch, f"decode step ({SLOTS} lanes, max_seq {MAX_SEQ}, eager; its "
+        f"hand GEMMs took {TILED_STEP_GEMM_MS} ms when all ran tiled)",
+        lambda: eng.api.decode(eng.params, cache, tokens), runs=5)
+    return wall, sum(ms.values()) or None
 
 
 # ---------------------------------------------------------------------------
@@ -1774,22 +1730,28 @@ def profile_decode(torch, eng) -> tuple:
 #: the profiler's name of each GEMM kernel (``variants`` keys)
 GEMM_KERNELS = {"skinny": "skinny_kernel", "wgmma": "gemm_tc_kernel",
                 "tiled": "gemm_kernel"}
+#: a device record of a GEMM that is none of the port's kernels: cuBLAS's
+#: (``*gemm*``, ``nvjet*``, ``*xmma*``), under ``torch.matmul``
+LIBRARY_GEMMS = re.compile(r"gemm|nvjet|xmma", re.IGNORECASE)
 
 
 def device_by_kernel(prof) -> tuple[dict, int]:
-    """Device time (ms) of a ``torch.profiler`` trace by GEMM kernel, and
-    of everything else under ``other``, from the device's own records
-    only (with CPU activity traced, an aten op's device time repeats that
-    of the kernels it launched); and the number of kernel launches."""
+    """Device time (ms) of a ``torch.profiler`` trace by GEMM kernel, of
+    the library's GEMMs under ``torch.matmul`` (blockwise attention's
+    products; the MLP pair's ``xla`` plan), and of everything else under
+    ``other``, from the device's own records only (with CPU activity
+    traced, an aten op's device time repeats that of the kernels it
+    launched); and the number of kernel launches."""
     from torch.autograd import DeviceType
 
-    us = dict.fromkeys([*GEMM_KERNELS, "other"], 0.0)
+    us = dict.fromkeys([*GEMM_KERNELS, "torch.matmul", "other"], 0.0)
     kernels = 0
     for evt in prof.key_averages():
         if evt.device_type == DeviceType.CPU:
             continue
-        name = next((v for v, k in GEMM_KERNELS.items() if k in evt.key),
-                    "other")
+        fn = re.search(r"(\w+)[<(]", evt.key)
+        name = TRACED_GEMMS.get(fn and fn.group(1)) or (
+            "torch.matmul" if LIBRARY_GEMMS.search(evt.key) else "other")
         us[name] += evt.self_device_time_total
         if not evt.key.startswith(("Memcpy", "Memset")):
             kernels += evt.count
@@ -1806,7 +1768,6 @@ def prefill_phase(torch, device_name: str) -> tuple[dict, dict]:
     import numpy as np
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels import planned
     from repro_torch.serve import make_engine
 
     cfg = get_config(ARCH)
@@ -1820,100 +1781,27 @@ def prefill_phase(torch, device_name: str) -> tuple[dict, dict]:
         eng.submit_text(p, max_new_tokens=MAX_NEW)
 
     # the prefill path: counts start at 0 here and are read right after
-    planned.planned_report_clear()
-    reset_counts()
-    t0 = time.perf_counter()
-    done = eng.run_until_drained()
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    launches = read_counts()
-    variants = read_variants()
-    report = planned.planned_report()
-
-    if len(done) != len(prompts) or any(len(r.output) != MAX_NEW
-                                        for r in done):
-        fail(f"prefill requests did not finish with their budget: "
-             f"{[(r.rid, len(r.output)) for r in done]}")
-    bad = {s: (st["planned"], st["fallback"], st["reasons"])
-           for s, st in report.items()
-           if st["planned"] == 0 or st["fallback"] != 0}
-    if bad or not report:
-        fail(f"prefill sites that fell back or never planned: {bad}")
+    run = checked_drain(torch, eng, f"prefill (prompts of {PREFILL_PROMPTS} "
+                        f"tokens, max_seq {PREFILL_MAX_SEQ})", len(prompts),
+                        device_name)
+    launches, variants = run["launches"], run["variants"]
     if min(variants["widesa_mm"]["wgmma"], variants["bmm"]["wgmma"]) == 0:
         fail(f"the tensor-core kernel was not launched on the prefill path: "
              f"{variants}")
-    routes = check_routes("prefill", report, variants)
-    tokens = sum(len(r.output) for r in done)
-    print(f"prefill: {ARCH} full width, prompts of {PREFILL_PROMPTS} tokens "
-          f"(max_seq {PREFILL_MAX_SEQ}): {len(done)} requests / {tokens} "
-          f"tokens in {dt:.3f} s on {device_name}; launches {launches}; GEMM "
-          f"launches by kernel {variants} ({routes}); {len(report)} sites all "
-          f"planned", flush=True)
-    drain_parity(torch, report, "prefill")
-
-    worst = 0.0
-    by_rid = {r.rid: r for r in done}
-    with torch.no_grad():
-        for rid, p in enumerate(prompts):
-            tok = torch.as_tensor(p[None], device="cuda")
-            logits, _ = eng.api.prefill(params, {"tokens": tok},
-                                        PREFILL_MAX_SEQ)
-            with planned.override(enabled=False):
-                want, _ = eng.api.prefill(params, {"tokens": tok},
-                                          PREFILL_MAX_SEQ)
-            if logits.shape != (1, cfg.vocab) or not torch.isfinite(
-                    logits).all():
-                fail(f"prefill request {rid}: bad logits {logits.shape}")
-            err = (logits.float() - want.float()).abs().max().item()
-            worst = max(worst, err)
-            if err > LOGIT_ATOL:
-                fail(f"prefill request {rid} ({len(p)} tokens): logits differ "
-                     f"by {err} > {LOGIT_ATOL} from the plain versions")
-            if by_rid[rid].output[0] != int(torch.argmax(logits[0])):
-                fail(f"prefill request {rid}: engine's first token is not the "
-                     "argmax of its prefill logits")
-    print(f"prefill: logits of the {len(prompts)} prompts match the plain "
-          f"versions, max |diff| {worst:.4f} <= {LOGIT_ATOL}; first tokens "
-          f"match", flush=True)
+    drain_parity(torch, run["report"], "prefill")
+    first_logits(torch, "prefill", eng.api, params, run["done"],
+                 [token_batch(torch, p) for p in prompts], PREFILL_MAX_SEQ)
     profile_prefill(torch, eng, prompts[-1])
     return launches, variants
 
 
 def profile_prefill(torch, eng, prompt) -> None:
-    """Host time of one prefill of ``prompt`` (median of 5), and the card's
-    busy time in it by GEMM kernel (``torch.profiler``)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    tok = torch.as_tensor(prompt[None], device="cuda")
-
-    def run():
-        with torch.no_grad():
-            eng.api.prefill(eng.params, {"tokens": tok}, PREFILL_MAX_SEQ)
-        torch.cuda.synchronize()
-
-    run()
-    walls = []
-    for _ in range(5):
-        t0 = time.perf_counter()
-        run()
-        walls.append((time.perf_counter() - t0) * 1e3)
-    reset_counts()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        run()
-    wall = sorted(walls)[len(walls) // 2]
-    ms, kernels = device_by_kernel(prof)
-    busy = sum(ms.values())
-    gemm = ", ".join(f"{k} {ms[k]:.3f} ms" for k in GEMM_KERNELS)
-    print(f"profile: prefill of {len(prompt)} tokens {wall:.2f} ms on the "
-          f"host clock (median of 5), GEMM launches by kernel "
-          f"{read_variants()}; device busy {busy:.3f} ms in the traced "
-          f"prefill ({kernels} kernel launches): GEMM kernels {gemm}, other "
-          f"kernels {ms['other']:.3f} ms; device idle "
-          f"{max(0.0, 1 - busy / wall):.0%} of the prefill"
-          if busy else
-          f"profile: prefill of {len(prompt)} tokens {wall:.2f} ms on the "
-          f"host clock (median of 5); device busy time not measured (the "
-          f"profiler recorded no device events)", flush=True)
+    """Host time of one prefill of ``prompt`` and the card's busy time in
+    it by kernel (``profile_call``)."""
+    batch = token_batch(torch, prompt)
+    profile_call(torch, f"prefill of {len(prompt)} tokens",
+                 lambda: eng.api.prefill(eng.params, batch, PREFILL_MAX_SEQ),
+                 runs=5)
 
 
 # ---------------------------------------------------------------------------
@@ -1965,21 +1853,12 @@ def stream_serve(torch, device_name: str, slot: dict | None = None) -> tuple:
     submit(eng)
 
     # the streaming path: counts start at 0 here and are read right after
-    run = counted_drain(torch, eng, step)
+    run = checked_drain(torch, eng, label, REQUESTS, device_name, step)
     done, launches, report = run["done"], run["launches"], run["report"]
     variants = run["variants"]
-    if len(done) != REQUESTS or any(len(r.output) != MAX_NEW for r in done):
-        fail(f"{label} requests did not finish with their budget: "
-             f"{[(r.rid, len(r.output)) for r in done]}")
-    routes = check_routes(label, report, run["eager_variants"])
     if any(r.fed != len(r.chunks) for r in done):
         fail(f"{label}: chunks left unfed: "
              f"{[(r.rid, r.fed, len(r.chunks)) for r in done]}")
-    bad = {s: (st["planned"], st["fallback"], st["reasons"])
-           for s, st in report.items()
-           if st["planned"] == 0 or st["fallback"] != 0}
-    if bad or not report:
-        fail(f"{label} sites that fell back or never planned: {bad}")
     stamps = {"frontend.fir": "pallas", "frontend.conv2d": "pallas",
               "frontend.fft2d": "xla", "mlp.pair": "xla"}
     for site, backend in stamps.items():
@@ -1987,7 +1866,7 @@ def stream_serve(torch, device_name: str, slot: dict | None = None) -> tuple:
             fail(f"{label}: {site} did not run its {backend} plan: "
                  f"{report.get(site)}")
     chunks = sum(r.fed for r in done)
-    if min(launches[k] for k in ("widesa_mm", "bmm", "fir", "conv2d")) == 0:
+    if min(launches["fir"], launches["conv2d"]) == 0:
         fail(f"a kernel was not launched on the {label} path: {launches}")
     if launches["fir"] != chunks or launches["conv2d"] != chunks:
         fail(f"{label}: {chunks} chunks fed but fir/conv2d launched "
@@ -1996,16 +1875,11 @@ def stream_serve(torch, device_name: str, slot: dict | None = None) -> tuple:
     if {k: v for k, v in variants["conv2d"].items() if v} != {"5x4": chunks}:
         fail(f"{label}: conv2d launches by window {variants['conv2d']}, the "
              f"frontend's 5 x 4 filter calls for {{'5x4': {chunks}}}")
-    tokens = sum(len(r.output) for r in done)
     tiles = {k: (t.plan, t.tile) for k, t in runtime.last_tiles.items()
              if k in ("fir", "conv2d")}
-    print(f"{label}: {len(done)} requests / {tokens} tokens / {chunks} audio "
-          f"chunks (every chunk fed) in {run['seconds']:.3f} s = "
-          f"{tokens / run['seconds']:.1f} tok/s on {device_name}"
-          f"{run['how']}; launches {launches} (fir and conv2d: one each per "
-          f"chunk), GEMM launches by kernel {variants} ({routes} among the "
-          f"eager ones); plan block -> compiled tile {tiles}; {len(report)} "
-          f"sites all planned: {sorted(report)}", flush=True)
+    print(f"{label}: {chunks} audio chunks, every one fed, fir and conv2d "
+          f"one launch each a chunk; plan block -> compiled tile {tiles}",
+          flush=True)
     drain_parity(torch, report, label)
 
     # one request's features and stream-prefill logits through the
@@ -2079,14 +1953,12 @@ TRACED_GEMMS = {"skinny_kernel": "skinny", "gemm_tc_kernel": "wgmma",
 
 def paged_engine(torch, cfg, params, label, submit, want):
     """The engines of a paged phase on the card (``SLOTS`` lanes, blocks
-    of ``PAGED_BLOCK``), each loaded in a window of its own: one decode
-    capture, and ``check_routes`` on the window's GEMM launches.  First
-    one with exact-length prefills (``SchedulerConfig(bucketed=False)``),
-    whose drain of ``submit``'s requests must give ``want``, the slot
-    engine's tokens; then one with bucketed prefills, returned with the
-    launches by kernel of its captured step: half those of its load
-    window, where the warmup and the capture each run the step once."""
-    from repro_torch.kernels import planned
+    of ``PAGED_BLOCK``), each loaded in a window of its own
+    (``load_paged``).  First one with exact-length prefills
+    (``SchedulerConfig(bucketed=False)``), whose drain of ``submit``'s
+    requests must give ``want``, the slot engine's tokens; then one with
+    bucketed prefills, returned with the launches by kernel of its
+    captured step."""
     from repro_torch.serve import SchedulerConfig, make_engine
 
     for bucketed in (False, True):
@@ -2094,14 +1966,7 @@ def paged_engine(torch, cfg, params, label, submit, want):
                           max_seq=MAX_SEQ, block_size=PAGED_BLOCK,
                           device="cuda",
                           scheduler=SchedulerConfig(bucketed=bucketed))
-        planned.planned_report_clear()
-        reset_counts()
-        eng.load(params)
-        torch.cuda.synchronize()
-        launches, variants = read_counts(), read_variants()
-        if eng.stats["decode_compiles"] != 1:
-            fail(f"{label} load: stats {eng.stats}")
-        check_routes(f"{label} load", planned.planned_report(), variants)
+        step = load_paged(torch, eng, params, label)
         if bucketed:
             break
         submit(eng)
@@ -2120,12 +1985,30 @@ def paged_engine(torch, cfg, params, label, submit, want):
               flush=True)
         del eng, done
         torch.cuda.empty_cache()
+    return eng, step
+
+
+def load_paged(torch, eng, params, label) -> dict:
+    """``eng.load(params)`` in a window of its own: one decode capture,
+    and ``check_routes`` on the window's GEMM launches.  Returns the
+    launches by kernel of the captured step: half those of the window,
+    where the warmup and the capture each run the step once."""
+    from repro_torch.kernels import planned
+
+    planned.planned_report_clear()
+    reset_counts()
+    eng.load(params)
+    torch.cuda.synchronize()
+    launches, variants = read_counts(), read_variants()
+    if eng.stats["decode_compiles"] != 1:
+        fail(f"{label} load: stats {eng.stats}")
+    check_routes(f"{label} load", planned.planned_report(), variants)
     if any(launches[k] for k in launches if k not in GEMM_WRAPPERS) or any(
             v % 2 for w in GEMM_WRAPPERS for v in variants[w].values()):
         fail(f"{label} load: launches {launches}, by kernel {variants}: not "
              f"two runs of one decode step of GEMMs")
-    return eng, {w: {k: v // 2 for k, v in variants[w].items()}
-                 for w in GEMM_WRAPPERS}
+    return {w: {k: v // 2 for k, v in variants[w].items()}
+            for w in GEMM_WRAPPERS}
 
 
 def gemm_counts() -> dict:
@@ -2133,29 +2016,49 @@ def gemm_counts() -> dict:
             for w in GEMM_WRAPPERS}
 
 
-def traced_gemms(prof) -> tuple[dict, list]:
-    """The GEMM kernels' launches in a ``torch.profiler`` trace, by
-    wrapper (``bmm``'s have a batch in the grid's z, ``widesa_mm``'s
-    none) and kernel: (those outside CUDA graph replays, [those of each
-    replay, in the order of its ``cudaGraphLaunch``]).  A replayed
-    kernel's record carries the correlation id of its graph launch."""
+def trace_events(prof) -> list:
+    """The events of a ``torch.profiler`` trace, from its Chrome export."""
     path = ROOT / "build" / "paged_trace.json"
     path.parent.mkdir(exist_ok=True)
     prof.export_chrome_trace(str(path))
     events = json.loads(path.read_text())["traceEvents"]
     path.unlink()
-    replays = {e["args"]["correlation"]: gemm_counts() for e in sorted(
-        (e for e in events if e.get("name") == "cudaGraphLaunch"),
-        key=lambda e: e["ts"])}
-    eager = gemm_counts()
+    return events
+
+
+def gemm_record(event) -> tuple | None:
+    """(kernel, wrapper, grid) of a trace event that is a GEMM kernel's
+    launch (``bmm``'s have a batch in the grid's z, ``widesa_mm``'s none),
+    else None."""
+    name = re.search(r"(\w+)[<(]", event.get("name", ""))
+    kernel = name and TRACED_GEMMS.get(name.group(1))
+    if event.get("cat") != "kernel" or not kernel:
+        return None
+    grid = tuple(event["args"]["grid"])
+    return kernel, "bmm" if grid[2] > 1 else "widesa_mm", grid
+
+
+def traced_gemms(prof) -> tuple[dict, list, list]:
+    """The GEMM kernels' launches in a ``torch.profiler`` trace, by
+    wrapper and kernel: (those outside CUDA graph replays, [those of each
+    replay, in the order of its ``cudaGraphLaunch``], [each replay's
+    launches by ``gemm_record``]).  A replayed kernel's record carries
+    the correlation id of its graph launch."""
+    events = trace_events(prof)
+    replays = {e["args"]["correlation"]: (gemm_counts(), Counter())
+               for e in sorted((e for e in events
+                                if e.get("name") == "cudaGraphLaunch"),
+                               key=lambda e: e["ts"])}
+    eager = (gemm_counts(), Counter())
     for e in events:
-        name = re.search(r"(\w+)[<(]", e.get("name", ""))
-        kernel = name and TRACED_GEMMS.get(name.group(1))
-        if e.get("cat") != "kernel" or not kernel:
+        rec = gemm_record(e)
+        if rec is None:
             continue
-        wrapper = "bmm" if e["args"]["grid"][2] > 1 else "widesa_mm"
-        replays.get(e["args"]["correlation"], eager)[wrapper][kernel] += 1
-    return eager, list(replays.values())
+        counts, grids = replays.get(e["args"]["correlation"], eager)
+        counts[rec[1]][rec[0]] += 1
+        grids[rec] += 1
+    return (eager[0], [c for c, _ in replays.values()],
+            [g for _, g in replays.values()])
 
 
 def missing(got: dict, want: dict) -> int:
@@ -2186,7 +2089,8 @@ def counted_drain(torch, eng, step=None) -> dict:
     may show fewer, never more, and at least one must show them all.
     The GEMM launches outside the replays must be the wrappers' counts,
     short only of dropped records.  The replays add ``steps`` times the
-    captured step's launches to the counts."""
+    captured step's launches to the counts; ``replay_grids`` holds the
+    launches of the first whole replay by ``gemm_record``."""
     from contextlib import nullcontext
 
     from torch.profiler import ProfilerActivity, profile
@@ -2206,7 +2110,7 @@ def counted_drain(torch, eng, step=None) -> dict:
            "report": planned.planned_report(), "how": ""}
     if step is None:
         return run
-    eager, replays = traced_gemms(prof)
+    eager, replays, grids = traced_gemms(prof)
     steps = eng.stats["steps"]
     if len(replays) != steps:
         fail(f"the trace shows {len(replays)} graph launches in a drain of "
@@ -2215,12 +2119,15 @@ def counted_drain(torch, eng, step=None) -> dict:
     if min(short) != 0:
         fail(f"no replay of the {steps} traced shows the captured step's "
              f"GEMM launches {step}: records missing {short}")
+    run["replay_grids"] = grids[short.index(0)]
     counted = {w: run["eager_variants"][w] for w in GEMM_WRAPPERS}
     dropped = sum(short) + missing(eager, counted)
     per_step = sum(sum(step[w].values()) for w in GEMM_WRAPPERS)
     records = steps * per_step + sum(sum(c.values()) for c in counted.values())
+    prefills = "bucketed" if eng.scheduler.config.bucketed else \
+        "exact-length"
     run["how"] = (f" (traced: {SLOTS} lanes, blocks of {PAGED_BLOCK}, "
-                  f"bucketed prefills; stats {eng.stats}; launches = the "
+                  f"{prefills} prefills; stats {eng.stats}; launches = the "
                   f"wrappers' {run['launches']} in the eager prefills and "
                   f"chunk feeds + {steps} replays, one graph launch a step "
                   f"in the trace, x the {per_step} GEMM launches of the "
@@ -2234,6 +2141,35 @@ def counted_drain(torch, eng, step=None) -> dict:
     return run
 
 
+def checked_drain(torch, eng, label, n, device_name, step=None) -> dict:
+    """``counted_drain`` held to what every serving drain must show: ``n``
+    requests with ``MAX_NEW`` tokens each, every planned site planned
+    with no fallback, both GEMM wrappers launched, and the eager GEMM
+    launches by kernel what ``check_routes`` calls for; printed in one
+    line.  Returns the run."""
+    run = counted_drain(torch, eng, step)
+    done, report, launches = run["done"], run["report"], run["launches"]
+    if len(done) != n or any(len(r.output) != MAX_NEW for r in done):
+        fail(f"{label}: requests did not finish with their budget: "
+             f"{[(r.rid, len(r.output)) for r in done]}")
+    bad = {s: (st["planned"], st["fallback"], st["reasons"])
+           for s, st in report.items()
+           if st["planned"] == 0 or st["fallback"] != 0}
+    if bad or not report:
+        fail(f"{label}: planned sites that fell back or never planned: {bad}")
+    if min(launches["widesa_mm"], launches["bmm"]) == 0:
+        fail(f"{label}: a GEMM kernel was not launched on the main path: "
+             f"{launches}")
+    routes = check_routes(label, report, run["eager_variants"])
+    tokens = sum(len(r.output) for r in done)
+    print(f"{label}: {len(done)} requests / {tokens} tokens in "
+          f"{run['seconds']:.3f} s = {tokens / run['seconds']:.1f} tok/s on "
+          f"{device_name}{run['how']}; launches {launches}; GEMM launches by "
+          f"kernel {run['variants']} ({routes} among the eager ones); "
+          f"{len(report)} sites all planned: {sorted(report)}", flush=True)
+    return run
+
+
 def traced_step(torch, fn, step):
     """A ``torch.profiler`` trace (CUDA activity) of one call of ``fn``,
     a decode step, whose GEMM records are the captured step's launches
@@ -2244,7 +2180,7 @@ def traced_step(torch, fn, step):
     for attempt in range(1, 6):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
-        eager, replays = traced_gemms(prof)
+        eager, replays, _ = traced_gemms(prof)
         got = gemm_counts()
         for counts in (eager, *replays):
             for w in GEMM_WRAPPERS:
@@ -2303,6 +2239,434 @@ def captured_step(torch, eng, step, slot_step, device_name) -> None:
           f"{slot_wall:.2f} ms on the host clock, device busy "
           f"{fmt_ms(slot_busy)}; on {device_name} [{nvidia_smi()}]",
           flush=True)
+
+
+# ---------------------------------------------------------------------------
+# long prompts (blockwise attention) and offline audio (precomputed frames)
+# ---------------------------------------------------------------------------
+
+#: the long_prompt phase: full-width qwen1.5-0.5b prompts past the
+#: blockwise threshold (2048), on engines of this horizon (8192 + 8 new
+#: tokens, in whole blocks of ``PAGED_BLOCK``)
+LONG_PROMPTS = (2049, 4096, 8192)
+LONG_MAX_SEQ = 8448
+#: the offline_audio phase: full-width whisper-base text requests, each
+#: with its own [enc_frames, d_model] bf16 frames
+OFFLINE_REQUESTS = 4
+#: blockwise attention against sdpa on the card (fp32 operands): the CPU
+#: test's tolerance (tests/test_torch_blockwise.py)
+BLOCKWISE_ATOL, BLOCKWISE_RTOL = 2e-4, 1e-3
+#: the GEMMs the two phases add, timed in bf16: (site, kind, shape, B
+#: column-major, A in padded rows, flushed to fp32)
+LONG_SHAPES = (
+    ("attn.q/k/v/out, 8192-token prefill", "mm", (8192, 1024, 1024),
+     False, False, False),
+    ("mlp.gate/up, 8192-token prefill", "mm", (8192, 2816, 1024),
+     False, False, False),
+    ("mlp.down, 8192-token prefill", "mm", (8192, 1024, 2816),
+     False, False, False),
+    ("attn.decode_scores, max_seq 8448", "bmm", (64, 1, 8448, 64),
+     True, False, True),
+    ("attn.decode_values, max_seq 8448", "bmm", (64, 1, 64, 8448),
+     False, False, False),
+    ("attn.scores, whisper encoder", "bmm", (8, 1500, 1500, 64),
+     True, False, True),
+    ("attn.values, whisper encoder", "bmm", (8, 1500, 64, 1500),
+     False, True, False),
+)
+
+
+def count_shapes(report: dict, shapes) -> dict:
+    """Calls of each (kind, shape) of ``shapes`` a planned report counts,
+    over every site."""
+    out = dict.fromkeys(shapes, 0)
+    for st in report.values():
+        for key, n in st["shapes"].items():
+            shape = ast.literal_eval(key)
+            kind = "mm" if len(shape) == 3 else "bmm"
+            if (kind, shape) in out:
+                out[(kind, shape)] += n
+    return out
+
+
+def launch_signature(torch, gen, kind, shape, col, pad, flush) -> tuple:
+    """The ``gemm_record`` of a bf16 launch of the GEMM wrapper at
+    ``shape`` on the configuration the serving path picks (B column-major
+    with ``col``, A in padded rows with ``pad``, an fp32 result with
+    ``flush``): its kernel, wrapper and grid as the launchers in
+    ``SOURCE`` set it (skinny: N tiles x split, 1, batch; tensor-core: M
+    tiles x split, N tiles, batch).  How a drain's trace tells this
+    shape's launches apart."""
+    from repro_torch.kernels import runtime
+
+    a, b = operands(torch, gen, kind, shape, torch.bfloat16, col)
+    if pad:
+        a = padded(torch, a)
+    _, tiles = kernel_call(kind, shape, torch.bfloat16, a, b,
+                           torch.float32 if flush else None)
+    tile = tiles.tile
+    (m, n), z = shape[-3:-1], (shape[0] if kind == "bmm" else 1)
+    if isinstance(tile, runtime.SkinnyTile):
+        kernel, grid = "skinny", (-(-n // runtime.SKINNY_BN) * tile.split,
+                                  1, z)
+    elif isinstance(tile, runtime.TcTile):
+        kernel, grid = "wgmma", (-(-m // tile.bm) * tile.split,
+                                 -(-n // tile.bn), z)
+    else:
+        fail(f"{kind}{shape} runs on the tiled kernel {tile}")
+    return kernel, "bmm" if z > 1 else "widesa_mm", grid
+
+
+def two_engines(torch, cfg, params, label, submit, max_seq,
+                device_name) -> dict:
+    """``submit``'s requests on the slot engine (``SLOTS`` slots), then on
+    the paged engine (``SLOTS`` lanes, blocks of ``PAGED_BLOCK``,
+    exact-length prefills, its decode step captured in ``load_paged``),
+    both at ``max_seq``, each drain held by ``checked_drain`` (the paged
+    one traced), and the two engines' greedy tokens equal.  Returns the
+    engines and their drains, the launches and launches by kernel summed
+    over the two drains, and the launches of each ``LONG_SHAPES`` GEMM:
+    those the drains' planned reports count (every eager call), plus, for
+    the paged drain's replays, ``steps`` times those that its first whole
+    replay shows at the shape's ``launch_signature`` (a shape there must
+    be one the load window's report planned, and no other)."""
+    from repro_torch.kernels import planned
+    from repro_torch.serve import SchedulerConfig, make_engine
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    owners = {}
+    for _, kind, shape, *layout in LONG_SHAPES:
+        sig = launch_signature(torch, gen, kind, shape, *layout)
+        owners.setdefault(sig, []).append((kind, shape))
+    shapes = [(kind, shape) for _, kind, shape, *_ in LONG_SHAPES]
+    out = {"launches": dict.fromkeys(wrappers(), 0), "variants": {},
+           "shapes": dict.fromkeys(shapes, 0), "tokens": {}}
+    for kind in ("slot", "paged"):
+        step = None
+        if kind == "slot":
+            eng = make_engine(cfg, kind="slot", max_slots=SLOTS,
+                              max_seq=max_seq, device="cuda")
+            eng.load(params)
+        else:
+            eng = make_engine(cfg, kind="paged", max_lanes=SLOTS,
+                              max_seq=max_seq, block_size=PAGED_BLOCK,
+                              device="cuda",
+                              scheduler=SchedulerConfig(bucketed=False))
+            step = load_paged(torch, eng, params, f"{label} paged")
+            in_step = count_shapes(planned.planned_report(), shapes)
+        n = submit(eng)
+        # the main path: counts start at 0 here and are read right after
+        run = checked_drain(torch, eng, f"{label} {kind}", n, device_name,
+                            step)
+        eager = count_shapes(run["report"], shapes)
+        replayed = dict.fromkeys(shapes, 0)
+        for sig, keys in owners.items():
+            seen = run.get("replay_grids", {}).get(sig, 0)
+            if seen and len(keys) > 1:
+                fail(f"{label} {kind}: the replays show {seen} launches "
+                     f"{sig}, the launch of each of {keys}")
+            if seen:
+                replayed[keys[0]] = eng.stats["steps"] * seen
+        if step and any(bool(replayed[key]) != bool(in_step[key])
+                        for key in shapes):
+            fail(f"{label} {kind}: the replay shows LONG_SHAPES launches "
+                 f"{replayed} (by kernel and grid), the captured step's "
+                 f"load window planned {in_step}")
+        for key in shapes:
+            out["shapes"][key] += eager[key] + replayed[key]
+        print(f"{label} {kind}: launches of the LONG_SHAPES GEMMs in the "
+              f"drain: " + ", ".join(
+                  f"{k}{sh} {eager[(k, sh)]} eager + {replayed[(k, sh)]} "
+                  "replayed" for k, sh in shapes), flush=True)
+        for name, v in run["launches"].items():
+            out["launches"][name] += v
+        for name, by in run["variants"].items():
+            into = out["variants"].setdefault(name, dict.fromkeys(by, 0))
+            for k, v in by.items():
+                into[k] += v
+        out["tokens"][kind] = {r.rid: list(r.output) for r in run["done"]}
+        out[kind] = (eng, run)
+    if out["tokens"]["slot"] != out["tokens"]["paged"]:
+        fail(f"{label}: the paged engine's tokens {out['tokens']['paged']} "
+             f"differ from the slot engine's {out['tokens']['slot']}")
+    return out
+
+
+def token_batch(torch, prompt, rows=None) -> dict:
+    """A prefill batch of one prompt on the card, zero-padded to ``rows``
+    tokens (a bucket) where given."""
+    import numpy as np
+
+    tokens = np.zeros((1, rows or len(prompt)), np.int32)
+    tokens[0, :len(prompt)] = prompt
+    return {"tokens": torch.as_tensor(tokens, device="cuda")}
+
+
+def first_logits(torch, label, api, params, done, batches, max_seq=None,
+                 last_index=None) -> None:
+    """Each request's prefill logits through the kernels against the same
+    prefill with the plain versions (``planned.override(enabled=False)``),
+    within ``LOGIT_ATOL``, and the engine's first token their argmax.
+    ``batches`` are the requests' prefill inputs in rid order, the cache
+    has ``max_seq`` rows (default: the prompt's), and ``last_index`` gives
+    each bucketed prompt's last token, where its logits are read."""
+    from repro_torch.kernels import planned
+
+    worst = scale = 0.0
+    by_rid = {r.rid: r for r in done}
+    with torch.no_grad():
+        for rid, batch in enumerate(batches):
+            rows = batch["tokens"].shape[1]
+            li = None if last_index is None else torch.tensor(
+                [last_index[rid]], dtype=torch.int32, device="cuda")
+            logits, _ = api.prefill(params, batch, max_seq or rows,
+                                    last_index=li)
+            with planned.override(enabled=False):
+                want, _ = api.prefill(params, batch, max_seq or rows,
+                                      last_index=li)
+            if logits.shape != (1, api.cfg.vocab) or not torch.isfinite(
+                    logits).all():
+                fail(f"{label} request {rid}: bad prefill logits "
+                     f"{logits.shape}")
+            err = (logits.float() - want.float()).abs().max().item()
+            worst = max(worst, err)
+            scale = max(scale, want.float().abs().max().item())
+            if err > LOGIT_ATOL:
+                fail(f"{label} request {rid} ({rows} rows): prefill logits "
+                     f"differ by {err} > {LOGIT_ATOL} from the plain "
+                     "versions")
+            if by_rid[rid].output[0] != int(torch.argmax(logits[0])):
+                fail(f"{label} request {rid}: engine's first token is not "
+                     "the argmax of its prefill logits")
+    print(f"{label}: prefill logits of the {len(batches)} requests match the "
+          f"plain versions, max |diff| {worst:.4f} <= {LOGIT_ATOL} (max "
+          f"|logit| {scale:.3f}); first tokens are their argmax", flush=True)
+
+
+def profile_call(torch, label, fn, runs=3) -> tuple[float, dict]:
+    """Host time of ``fn`` (synchronized; median of ``runs`` after one
+    warm run) and the card's busy time in one traced call, by kernel
+    (``device_by_kernel``), beside the GEMM wrappers' launches by kernel
+    in that call (none in a replay).  Returns (host ms, device ms by
+    kernel, all 0 where the profiler recorded no device events)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def call():
+        with torch.no_grad():
+            fn()
+        torch.cuda.synchronize()
+
+    call()
+    walls = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        call()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    reset_counts()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        call()
+    gemms = {w: read_variants()[w] for w in GEMM_WRAPPERS}
+    wall = sorted(walls)[len(walls) // 2]
+    ms, kernels = device_by_kernel(prof)
+    busy = sum(ms.values())
+    parts = ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items())
+    print(f"profile: {label} {wall:.2f} ms on the host clock (median of "
+          f"{runs}); GEMM wrapper launches by kernel {gemms}; "
+          + (f"device busy {busy:.3f} ms in one traced call ({kernels} "
+             f"kernel launches): {parts}; device idle "
+             f"{max(0.0, 1 - busy / wall):.0%}" if busy else
+             "device busy time not measured (the profiler recorded no "
+             "device events)"), flush=True)
+    return wall, ms
+
+
+def blockwise_check(torch) -> None:
+    """``blockwise_attention`` forced at S = 2048 (qwen1.5-0.5b's 16 heads
+    of 64, fp32 operands) against ``sdpa`` on the hand kernels, causal and
+    not, within the CPU test's fp32 tolerance."""
+    from repro_torch.models import layers
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v = (torch.randn((1, 2048, 16, 64), generator=gen, device="cuda")
+               for _ in range(3))
+    errs = []
+    with torch.no_grad():
+        for causal in (True, False):
+            got = layers.blockwise_attention(q, k, v, causal=causal)
+            want = layers.sdpa(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            err = (got - want).abs()
+            errs.append(err.max().item())
+            if not (err <= BLOCKWISE_ATOL
+                    + BLOCKWISE_RTOL * want.abs()).all():
+                fail(f"blockwise attention at S = 2048 (causal {causal}) "
+                     f"differs from sdpa by {errs[-1]}")
+    print(f"long: blockwise_attention forced at S = 2048 (16 heads of 64, "
+          f"fp32, chunks {layers.Q_CHUNK}/{layers.K_CHUNK}) equals sdpa on "
+          f"the hand kernels within atol {BLOCKWISE_ATOL} + rtol "
+          f"{BLOCKWISE_RTOL}, causal and not (max |diff| "
+          f"{max(errs):.3g})", flush=True)
+
+
+def long_prompt(torch, device_name: str) -> dict:
+    """Phase 9: full-width qwen1.5-0.5b at max_seq ``LONG_MAX_SEQ`` serving
+    prompts of ``LONG_PROMPTS`` tokens (blockwise attention), 8 new tokens
+    each, on the slot and the paged engine (``two_engines``); each
+    prompt's prefill logits against the plain versions, blockwise against
+    sdpa at S = 2048, the 8192-token prefill's host and device time by
+    kernel, and the captured paged step's at max_seq 8448."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = get_config(ARCH)
+    blockwise_check(torch)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = build_model(cfg, "cuda").init(gen)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab, n) for n in LONG_PROMPTS]
+
+    def submit(e):
+        for p in prompts:
+            e.submit_text(p, max_new_tokens=MAX_NEW)
+        return len(prompts)
+
+    out = two_engines(torch, cfg, params, "long", submit, LONG_MAX_SEQ,
+                      device_name)
+    slot, run = out["slot"]
+    drain_parity(torch, run["report"], "long")
+    batches = [token_batch(torch, p) for p in prompts]
+    first_logits(torch, "long", slot.api, params, run["done"], batches)
+    profile_call(torch, f"prefill of {LONG_PROMPTS[-1]} tokens (torch.matmul: "
+                 "the blockwise attention's products)",
+                 lambda: slot.api.prefill(params, batches[-1],
+                                          LONG_PROMPTS[-1]))
+    paged, _ = out["paged"]
+    del slot
+    torch.cuda.empty_cache()
+    # every lane installed over blocks of its own up to the horizon, at
+    # its last row: the gather reads each lane's whole K and V
+    kv = paged.kv
+    for lane in range(SLOTS):
+        kv.install_lane(lane, kv.allocator.alloc(kv.blocks_per_lane),
+                        LONG_MAX_SEQ - 1)
+    kv.guard_decode_write()
+    blocks = {b for lane in kv.lane_blocks for b in lane}
+    if len(blocks) != SLOTS * kv.blocks_per_lane:
+        fail(f"long: {len(blocks)} distinct blocks over {SLOTS} lanes")
+    profile_call(torch, f"captured paged decode step ({SLOTS} lanes "
+                 f"installed over {len(blocks)} distinct blocks of "
+                 f"{PAGED_BLOCK} rows, each at row {LONG_MAX_SEQ - 1} of "
+                 f"max_seq {LONG_MAX_SEQ}; the replay stages the tables, "
+                 "replays and reads the tokens)", lambda: paged._decode([]),
+                 runs=5)
+    for lane in range(SLOTS):
+        kv.release_lane(lane)
+    print(f"long: on {device_name} [{nvidia_smi()}]", flush=True)
+    return out
+
+
+def offline_audio(torch, device_name: str) -> dict:
+    """Phase 10: full-width whisper-base serving ``OFFLINE_REQUESTS`` text
+    requests, each with its own [1500, 512] frames drawn from a seed and
+    rounded to bf16 (``launch.serve.bf16_frames``), prefilled offline
+    (encoder over the frames, cross K/V, prompt), 8 new tokens each, on
+    the slot and the paged engine (``two_engines``); each request's
+    prefill logits against the plain versions, and the encoder's host
+    and device time over one utterance."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import bf16_frames
+    from repro_torch.models import build_model, encdec
+
+    cfg = get_config(STREAM_ARCH)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = build_model(cfg, "cuda").init(gen)
+    rng = np.random.default_rng(3)
+    reqs = [(rng.integers(0, cfg.vocab, int(rng.integers(4, 17))),
+             bf16_frames(rng, cfg)) for _ in range(OFFLINE_REQUESTS)]
+
+    def submit(e):
+        for prompt, frames in reqs:
+            e.submit_text(prompt, max_new_tokens=MAX_NEW,
+                          extra={"frames": frames})
+        return len(reqs)
+
+    out = two_engines(torch, cfg, params, "offline", submit, MAX_SEQ,
+                      device_name)
+    slot, run = out["slot"]
+    mlp = run["report"].get("mlp.pair", {})
+    if set(mlp.get("backends", {})) != {"xla"}:
+        fail(f"offline: mlp.pair did not run its xla plan: {mlp}")
+    drain_parity(torch, run["report"], "offline")
+    batches = [{"tokens": torch.as_tensor(p[None], device="cuda"),
+                "frames": f[None].cuda()} for p, f in reqs]
+    first_logits(torch, "offline", slot.api, params, run["done"], batches)
+    frames = batches[0]["frames"]
+    profile_call(torch, f"encode of {tuple(frames.shape[1:])} frames "
+                 "(torch.matmul: the MLP pair's xla plan)",
+                 lambda: encdec.encode(params, cfg, frames), runs=5)
+    print(f"offline: on {device_name} [{nvidia_smi()}]", flush=True)
+    return out
+
+
+def long_timings(torch) -> dict:
+    """The ``LONG_SHAPES`` GEMMs in bf16 on the runtime's configuration
+    against their plain versions, and timed: ``torch.profiler`` device
+    time of the hand kernel and of ``torch.matmul``/``torch.bmm`` (the
+    weight GEMMs over a rotation of ``COLD_BYTES`` of B), the plain
+    version by CUDA events, and the bound."""
+    from repro_torch.kernels import ref, runtime
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    rows = {}
+    for site, kind, shape, col, pad, flush in LONG_SHAPES:
+        dtype = torch.bfloat16
+        out_dtype = torch.float32 if flush else None
+        a, bs = rotation(torch, gen, kind, shape, col, dtype)
+        if pad:
+            a = padded(torch, a)
+        b = bs[0]
+        fn, tiles = kernel_call(kind, shape, dtype, a, b, out_dtype)
+        kernel = ("skinny_kernel"
+                  if isinstance(tiles.tile, runtime.SkinnyTile)
+                  else "gemm_tc_kernel"
+                  if isinstance(tiles.tile, runtime.TcTile)
+                  else "gemm_kernel")
+        lib = torch.matmul if kind == "mm" else torch.bmm
+
+        def library(x, y, lib=lib, out_dtype=out_dtype):
+            return lib(x, y) if out_dtype is None else lib(x, y, out_dtype)
+
+        plain = ref.mm if kind == "mm" else ref.bmm
+        out = fn(a, b)
+        err, ok = max_error(torch, out, plain(a, b, out_dtype), out.dtype)
+        if not ok:
+            fail(f"{site} {kind}{shape}: max |err| {err}")
+        reps = max(10, len(bs))
+        row = dict(
+            kernel=kernel, max_abs_err=err,
+            ms=device_ms(torch, cycling(fn, a, bs), kernel, reps),
+            library_ms=device_ms(torch, cycling(library, a, bs), None,
+                                 reps),
+            plain_ms=time_ms(torch, lambda: plain(a, b, out_dtype),
+                             reps=10, warmup=2))
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            kind, shape, 2, out.element_size(), "bfloat16")
+        rows[(kind, shape)] = row
+        print(f"time {kind}{shape} bf16{'->fp32' if flush else ''} [{site}] "
+              f"{describe(tiles.tile, kind, shape)}"
+              f"{', B column-major' if col else ''}"
+              f"{', A in padded rows' if pad else ''}: device (profiler; "
+              f"{len(bs)} B operand(s)) {kernel} {fmt_ms(row['ms'])}, "
+              f"torch.{lib.__name__} {fmt_ms(row['library_ms'])}, bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']}); plain "
+              f"{row['plain_ms']:.4f} ms (CUDA events); max |err| {err:.4g}",
+              flush=True)
+        del a, b, bs, out
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -3423,6 +3787,16 @@ def main(argv=None) -> int:
     pstream_launches, pstream_variants, _ = stream_serve(torch, name, slot)
     del slot
     torch.cuda.empty_cache()
+    long_paths = {}
+    for path, phase in (("qwen_long", long_prompt),
+                        ("whisper_offline", offline_audio)):
+        out = phase(torch, name)
+        long_paths[path] = {key: out[key]
+                            for key in ("launches", "variants", "shapes")}
+        del out
+        torch.cuda.empty_cache()
+    long_rows = long_timings(torch)
+    torch.cuda.empty_cache()
     rec_launches, rec_variants, hpc_rows, gemm_rows = \
         recurrences_phase(torch)
     rows.update({(kname, "main"): hpc_rows[(kname, "float32")]
@@ -3440,6 +3814,8 @@ def main(argv=None) -> int:
                          "qwen_prefill": prefill_launches[kname],
                          "whisper_stream": stream_launches[kname],
                          "whisper_paged": pstream_launches[kname],
+                         **{path: long_paths[path]["launches"][kname]
+                            for path in long_paths},
                          "recurrences": rec_launches[kname]},
             "max_abs_err": row["max_abs_err"],
             "ms": row["ms"], "plain_ms": row["plain_ms"],
@@ -3458,6 +3834,8 @@ def main(argv=None) -> int:
                 "qwen_prefill": prefill_variants[kname],
                 "whisper_stream": stream_variants[kname],
                 "whisper_paged": pstream_variants[kname],
+                **{path: long_paths[path]["variants"][kname]
+                   for path in long_paths},
                 "recurrences": rec_variants[kname]}
             keys = {"mttkrp": ("device_ms", "cuda_core_device_ms",
                                "library_device_ms", "cuda_core_bound_ms"),
@@ -3494,6 +3872,18 @@ def main(argv=None) -> int:
                     "device_ms_by_sweeps")}
                 for (name, dtype), r in hpc_rows.items()
                 if name.startswith("jacobi2d")}
+        if kname in ("widesa_mm", "bmm"):
+            # the GEMMs the long prompts and the offline encoder add, each
+            # with its launches on those two paths
+            kind = KERNELS[kname]["kind"]
+            entry["long"] = {
+                f"{kind}{shape}": {**{key: r[key] for key in (
+                    "kernel", "ms", "plain_ms", "library_ms", "bound_ms",
+                    "bound_by", "max_abs_err")},
+                    "launches": {
+                        path: long_paths[path]["shapes"][(kind, shape)]
+                        for path in long_paths}}
+                for (k, shape), r in long_rows.items() if k == kind}
         if kname in WGMMA_SHAPES:
             # the tensor-core kernel at its prefill shape, the tiled
             # kernel and the library call beside it; the integer one at

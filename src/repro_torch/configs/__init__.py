@@ -3,7 +3,8 @@
 ``get_config(arch)`` gives the published full-width configuration and
 ``get_smoke_config(arch)`` the reduced one the tests use; both are copies
 of the reference's configs.  The port registers the archs it runs
-(qwen1.5-0.5b serves text; whisper-base serves streamed audio; qwen3-32b's
+(qwen1.5-0.5b serves text; whisper-base serves
+precomputed frames and streamed audio; qwen3-32b's
 grouped KV heads are held against the reference in the tests); every
 other arch is not ported yet and raises.
 """

@@ -13,7 +13,10 @@ with 0 on ``--device``.  ``--stream-audio`` (encdec archs) submits
 synthesized int16 audio streams of ``1 + i % (enc_frames //
 frames_per_chunk)`` chunks for request ``i`` through the planned
 frontend chunk by chunk, and checks after the drain that the frontend's
-planned stages ran.  ``--engine paged`` serves through the block-paged
+planned stages ran; without it an encdec arch serves text requests
+that each carry precomputed frames ([enc_frames, d_model] drawn from
+the request stream's numpy generator and rounded to bf16), prefilled
+offline.  ``--engine paged`` serves through the block-paged
 engine (``--slots`` lanes, ``--block-size`` rows a KV block,
 ``--num-blocks`` blocks in the pool: by default every lane at full
 horizon) and prints its stats; its decode step is captured once in
@@ -27,6 +30,14 @@ import time
 
 import numpy as np
 import torch
+
+
+def bf16_frames(rng, cfg) -> torch.Tensor:
+    """One request's precomputed frames [enc_frames, d_model]: standard
+    normal float64 draws from ``rng``, rounded as the reference rounds
+    them (to float32, then to bfloat16 to nearest even)."""
+    x = rng.standard_normal((cfg.enc_frames, cfg.d_model))
+    return torch.from_numpy(x.astype(np.float32)).to(torch.bfloat16)
 
 
 def main(argv=None):
@@ -81,8 +92,11 @@ def main(argv=None):
                 max_new_tokens=args.max_new)
             continue
         plen = int(rng.integers(4, 16))
+        extra = None
+        if cfg.family == "encdec":  # audio models decode against frames
+            extra = {"frames": bf16_frames(rng, cfg)}
         eng.submit_text(rng.integers(0, cfg.vocab, plen),
-                        max_new_tokens=args.max_new)
+                        max_new_tokens=args.max_new, extra=extra)
     t0 = time.perf_counter()
     done = eng.run_until_drained()
     if eng.device.type == "cuda":

@@ -1,15 +1,18 @@
-"""Encoder-decoder transformer (whisper-base backbone) for streamed audio —
-the port of the streaming path of ``repro.models.encdec``.
+"""Encoder-decoder transformer (whisper-base backbone) — the port of
+``repro.models.encdec``'s serving paths.
 
-Frame embeddings come from the planned audio frontend
-(``serve/frontend.py``: FIR -> fused fft2d chain -> conv2d), one chunk of
-``frames_per_chunk`` frames at a time.  Encoder: non-causal
-self-attention blocks (layernorm + two-matrix gelu MLP, sinusoidal
-positions), run chunk by chunk (``encode_chunk``) with each chunk
-attending over the cached K/V of all earlier chunks plus itself.
-Decoder: causal self-attention plus cross-attention to the encoder K/V,
-masked past ``enc_len`` while an utterance is still streaming in;
-learned positions.  No rotary embedding.
+The model consumes frame embeddings [B, frames, d]: precomputed
+(``encode``/``prefill``, the offline path) or from the planned audio
+frontend (``serve/frontend.py``: FIR -> fused fft2d chain -> conv2d), one
+chunk of ``frames_per_chunk`` frames at a time (``encode_chunk``).
+Encoder: non-causal self-attention blocks (layernorm + two-matrix gelu
+MLP, sinusoidal positions); streaming runs it chunk by chunk with each
+chunk attending over the cached K/V of all earlier chunks plus itself,
+the incremental view of the block-causal ``encode(chunk=C)``.  Decoder:
+causal self-attention plus cross-attention to the encoder K/V, masked
+past ``enc_len`` while an utterance is still streaming in; learned
+positions.  No rotary embedding.  Every attention goes through
+``layers.attention_core``, as the reference's.
 
 Parameters are a plain dict: ``enc_layers`` and ``dec_layers`` lists of
 per-layer dicts (the reference stacks them along a leading axis and runs
@@ -23,8 +26,8 @@ advances its ``len``; ``decode_step`` writes each layer's K/V row and
 advances ``pos``.  The block-paged engine's functions are ported
 (``paged_layout``, ``init_paged_pools``, ``decode_step_paged``: the
 decoder's self-attention K/V in block pools, the encoder K/V and
-``enc_len`` resident per lane).  Offline ``encode``/``prefill`` over
-precomputed frames and ``loss_fn`` are not ported yet.
+``enc_len`` resident per lane).  Training (``decode_train``,
+``loss_fn``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -115,7 +118,7 @@ def _cross_attend(p, cfg, x, enc_k, enc_v, kv_len=None):
     q = planned_dense(x, p["wq"], site="xattn.q").reshape(b, sq, hq, hd)
     if cfg.qkv_bias:
         q = q + p["bq"].reshape(hq, hd)
-    out = L.sdpa(q, enc_k, enc_v, causal=False, kv_len=kv_len)
+    out = L.attention_core(q, enc_k, enc_v, causal=False, kv_len=kv_len)
     return planned_dense(out.reshape(b, sq, hq * hd), p["wo"],
                          site="xattn.out")
 
@@ -169,8 +172,28 @@ def init_enc_cache(cfg, batch, f_max=None, device="cuda"):
 
 
 # ---------------------------------------------------------------------------
-# streaming encoder
+# encoder
 # ---------------------------------------------------------------------------
+
+def encode(p, cfg, frames, chunk=None):
+    """frames [B, F, d] (precomputed embeddings) -> encoder states
+    [B, F, d].  ``chunk`` (int, optional) applies the streaming
+    block-causal mask: frame f attends only to frames of its own chunk
+    and earlier ones (``f // chunk >= f' // chunk``), the whole-utterance
+    view of the incremental ``encode_chunk`` schedule."""
+    b, f, _ = frames.shape
+    dt = L.compute_dtype(cfg)
+    x = frames.to(dt) + sinusoids(f, cfg.d_model, frames.device).to(dt)
+    positions = torch.arange(f, device=frames.device).expand(b, f)
+    for lp in p["enc_layers"]:
+        h = L.apply_norm(lp["ln1"], cfg, x)
+        attn, _, _ = L.apply_attention(lp["attn"], cfg, h, positions,
+                                       causal=False, chunk=chunk)
+        x = x + attn
+        h = L.apply_norm(lp["ln2"], cfg, x)
+        x = x + L.apply_mlp(lp["mlp"], cfg, h)
+    return L.apply_norm(p["ln_enc"], cfg, x)
+
 
 def encode_chunk(p, cfg, ec, frames_chunk):
     """One streaming encoder step: run ``frames_chunk`` [B, C, d] through
@@ -194,7 +217,7 @@ def encode_chunk(p, cfg, ec, frames_chunk):
         ck, cv = ec["k"][i], ec["v"][i]
         ck[:, start:start + c] = k.to(ck.dtype)
         cv[:, start:start + c] = v.to(cv.dtype)
-        attn = L.sdpa(q, ck, cv, causal=False, kv_len=kv_len)
+        attn = L.attention_core(q, ck, cv, causal=False, kv_len=kv_len)
         x = x + planned_dense(attn.reshape(b, c, -1), lp["attn"]["wo"],
                               site="attn.out")
         h = L.apply_norm(lp["ln2"], cfg, x)
@@ -245,7 +268,7 @@ def prefill_decoder(p, cfg, enc_k, enc_v, enc_len, tokens, max_seq,
         h = L.apply_norm(lp["ln1"], cfg, x)
         q, k, v = L._qkv(lp["attn"], cfg, h, positions)
         x = x + planned_dense(
-            L.sdpa(q, k, v, causal=True).reshape(b, s, -1),
+            L.attention_core(q, k, v, causal=True).reshape(b, s, -1),
             lp["attn"]["wo"], site="attn.out")
         h = L.apply_norm(lp["ln_x"], cfg, x)
         x = x + _cross_attend(lp["xattn"], cfg, h, enc_k[i], enc_v[i],
@@ -262,6 +285,22 @@ def prefill_decoder(p, cfg, enc_k, enc_v, enc_len, tokens, max_seq,
     cache["enc_len"].copy_(enc_len)
     cache["pos"].copy_(pos)
     return logits, cache
+
+
+def prefill(p, cfg, frames, tokens, max_seq, cache_dtype=torch.bfloat16,
+            last_index=None):
+    """The offline prefill: encode precomputed ``frames`` [B, F, d],
+    project each decoder layer's cross K/V once, and run the prompt
+    against them -> (last-token logits [B, V], cache with ``enc_len`` =
+    F).  The decoder pass is ``prefill_decoder``'s with ``enc_len`` = F:
+    a full ``kv_len`` masks nothing, so it equals the reference's
+    unmasked cross-attention.  ``last_index`` as in
+    ``prefill_decoder``."""
+    b, f = frames.shape[:2]
+    enc_k, enc_v = enc_kv_chunk(p, cfg, encode(p, cfg, frames), cache_dtype)
+    enc_len = torch.full((b,), f, dtype=torch.int32, device=frames.device)
+    return prefill_decoder(p, cfg, enc_k, enc_v, enc_len, tokens, max_seq,
+                           cache_dtype, last_index)
 
 
 def prefill_streaming(p, cfg, frames, tokens, max_seq, chunk,

@@ -3,10 +3,13 @@ attention with the streaming masks, GLU and two-matrix MLPs (the port of
 ``repro.models.layers``).
 
 Plain functions on tensors and parameter dicts.  Every projection goes
-through ``planned_dense`` and the attention score / value contractions
-through ``planned_bmm``, so each GEMM of the model runs on a mapper plan —
-on the card, the hand-written Hopper kernel; the non-GLU MLP runs as the
-planned ``mm+mm`` chain (``planned_mlp_pair``, stamped ``xla``).  Layouts follow the
+through ``planned_dense`` and the direct attention's score / value
+contractions through ``planned_bmm``, so each of those GEMMs runs on a
+mapper plan — on the card, the hand-written Hopper kernel; the non-GLU
+MLP runs as the planned ``mm+mm`` chain (``planned_mlp_pair``, stamped
+``xla``).  Self-attention over more than ``BLOCKWISE_SEQ_THRESHOLD``
+rows takes ``blockwise_attention`` instead, whose products are plain
+``torch.matmul`` as the reference's are XLA einsums.  Layouts follow the
 reference: activations [B, S, d], heads [B, S, H, hd], caches
 [B, S, Hkv, hd].
 """
@@ -21,10 +24,12 @@ import torch.nn.functional as F
 from repro_torch.kernels.planned import (planned_bmm, planned_dense,
                                         planned_mlp_pair)
 
-#: the direct attention path materializes [B, H, Sq, Skv] scores; the
-#: reference switches to blockwise (flash-style) attention above this
-#: length, which the port does not have yet
+#: the direct attention path materializes [B, H, Sq, Skv] scores; above
+#: this length ``attention_core`` switches to blockwise attention over
+#: [B, H, Q_CHUNK, K_CHUNK] logits at a time, as the reference does
 BLOCKWISE_SEQ_THRESHOLD = 2048
+Q_CHUNK = 512
+K_CHUNK = 1024
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -139,10 +144,6 @@ def sdpa(q, k, v, *, causal: bool, kv_len=None, chunk=None):
     """
     b, sq, hq, hd = q.shape
     skv, hkv = k.shape[1], k.shape[2]
-    if max(sq, skv) > BLOCKWISE_SEQ_THRESHOLD:
-        raise NotImplementedError(
-            f"sequence {max(sq, skv)} > {BLOCKWISE_SEQ_THRESHOLD} needs "
-            "blockwise attention, which the port does not have yet")
     group = hq // hkv
     qg = q.reshape(b, sq, hkv, group, hd)
     logits = _gqa_scores(qg, k, "attn.scores") / math.sqrt(hd)
@@ -176,11 +177,106 @@ def _padded_rows(x, dtype):
     return rows
 
 
-def apply_attention(p, cfg, x, positions):
-    """Causal self-attention over a whole sequence: (output, k, v)."""
+def blockwise_attention(q, k, v, *, causal: bool, scale=None,
+                        q_chunk=Q_CHUNK, k_chunk=K_CHUNK,
+                        block_skip: bool = False):
+    """Flash-style attention: a loop over q chunks, an inner loop over kv
+    chunks with an online softmax, so no more than [B, H, q_chunk,
+    k_chunk] logits exist at a time.
+
+    q: [B,Sq,H,dqk]; k: [B,Skv,H,dqk]; v: [B,Skv,H,dv] — heads already
+    GQA-expanded (``gqa_expand``).  The reference's arithmetic: q and kv
+    are zero-padded to whole chunks and the kv tail is masked; the scores
+    are fp32, from fp32 operands (the bf16 inputs widen exactly, so each
+    product is the one a bf16 product with an fp32 result gives) times
+    ``scale``; masked logits are -1e30, never -inf; ``p`` is cast to
+    ``v.dtype`` before the value product, whose result accumulates in
+    fp32; the output is ``acc / max(l, 1e-30)`` cast to ``v.dtype``.
+    ``block_skip`` (with ``causal``) visits only the kv chunks that hold
+    a position some query of the q chunk sees.  The products are
+    ``torch.matmul``: the reference's are XLA einsums, not a kernel.
+    """
+    b, sq, h, dqk = q.shape
+    skv, dv = k.shape[1], v.shape[-1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(dqk)
+    q_chunk, k_chunk = min(q_chunk, sq), min(k_chunk, skv)
+    nq, nk = -(-sq // q_chunk), -(-skv // k_chunk)
+    # [B, H, S, d], zero-padded to whole chunks; the score operands in fp32
+    qh = F.pad(q.transpose(1, 2).float(), (0, 0, 0, nq * q_chunk - sq))
+    kh = F.pad(k.transpose(1, 2).float(), (0, 0, 0, nk * k_chunk - skv))
+    vh = F.pad(v.transpose(1, 2), (0, 0, 0, nk * k_chunk - skv))
+    ar_q = torch.arange(q_chunk, device=q.device)
+    ar_k = torch.arange(k_chunk, device=q.device)
+    out = torch.empty((b, h, nq * q_chunk, dv), dtype=v.dtype,
+                      device=q.device)
+    for qi in range(nq):
+        qc = qh[:, :, qi * q_chunk:(qi + 1) * q_chunk]
+        qpos = qi * q_chunk + ar_q
+        m = torch.full((b, h, q_chunk), -1e30, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((b, h, q_chunk, dv), dtype=torch.float32,
+                          device=q.device)
+        hi = nk
+        if block_skip and causal:
+            hi = min(((qi + 1) * q_chunk + k_chunk - 1) // k_chunk, nk)
+        for ki in range(hi):
+            kc = kh[:, :, ki * k_chunk:(ki + 1) * k_chunk]
+            vc = vh[:, :, ki * k_chunk:(ki + 1) * k_chunk]
+            s = torch.matmul(qc, kc.transpose(-1, -2))
+            s.mul_(scale)
+            kpos = ki * k_chunk + ar_k
+            mask = None
+            if causal and (ki + 1) * k_chunk - 1 > qi * q_chunk:
+                mask = qpos[:, None] >= kpos[None, :]
+            if (ki + 1) * k_chunk > skv:
+                valid = (kpos < skv)[None, :]
+                mask = valid if mask is None else mask & valid
+            if mask is not None:  # an all-true mask leaves s as it is
+                s.masked_fill_(~mask, -1e30)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            s.sub_(m_new[..., None]).exp_()
+            corr = torch.exp(m - m_new)
+            l = l * corr + s.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.matmul(
+                s.to(vc.dtype), vc).float()
+            m = m_new
+        out[:, :, qi * q_chunk:(qi + 1) * q_chunk] = (
+            acc / torch.clamp(l, min=1e-30)[..., None]).to(v.dtype)
+    return out[:, :, :sq].transpose(1, 2)
+
+
+def gqa_expand(k, hq):
+    """[B,S,Hkv,hd] -> [B,S,Hq,hd] by group repetition."""
+    hkv = k.shape[2]
+    if hkv == hq:
+        return k
+    return torch.repeat_interleave(k, hq // hkv, dim=2)
+
+
+def attention_core(q, k, v, *, causal: bool, block_skip: bool = False,
+                   kv_len=None, chunk=None):
+    """Direct ``sdpa`` when a streaming mask (``kv_len``/``chunk``) is
+    given or when max(Sq, Skv) <= ``BLOCKWISE_SEQ_THRESHOLD``; above it,
+    ``blockwise_attention`` over GQA-expanded K/V, as the reference."""
+    sq, skv = q.shape[1], k.shape[1]
+    if (kv_len is not None or chunk is not None
+            or max(sq, skv) <= BLOCKWISE_SEQ_THRESHOLD):
+        return sdpa(q, k, v, causal=causal, kv_len=kv_len, chunk=chunk)
+    hq = q.shape[2]
+    return blockwise_attention(q, gqa_expand(k, hq), gqa_expand(v, hq),
+                               causal=causal,
+                               block_skip=block_skip and causal)
+
+
+def apply_attention(p, cfg, x, positions, *, causal=True, chunk=None):
+    """Self-attention over a whole sequence through ``attention_core``:
+    (output, k, v)."""
     b, s, _ = x.shape
     q, k, v = _qkv(p, cfg, x, positions)
-    out = sdpa(q, k, v, causal=True).reshape(b, s, cfg.n_heads * cfg.hd)
+    out = attention_core(q, k, v, causal=causal,
+                         block_skip=cfg.causal_block_skip, chunk=chunk)
+    out = out.reshape(b, s, cfg.n_heads * cfg.hd)
     return planned_dense(out, p["wo"], site="attn.out"), k, v
 
 

@@ -3,6 +3,8 @@
     api = build_model(cfg, device="cuda")
     params = api.init(generator)
     logits, cache = api.prefill(params, {"tokens": tokens}, max_seq)
+    logits, cache = api.prefill(params, {"tokens": tokens,
+                                         "frames": frames}, max_seq)  # encdec
     logits, cache = api.decode(params, cache, tokens)
     pools = api.paged_init(num_blocks, block_size, max_lanes)
     logits, pools = api.paged_decode(params, pools, tokens, tables, pos,
@@ -15,14 +17,15 @@ indexed through the block tables), ``"lane"`` (one fixed-size block a
 lane) or ``"lane_scalar"`` (one scalar a lane); ``paged_decode`` writes
 the pools in place and never moves ``pos``.
 
-The dense and encdec families are ported; the others raise.  encdec
-serves streamed audio: ``enc_init(b, f_max)`` builds the incremental
-encoder state, ``enc_step(p, ec, frames_chunk)`` appends one chunk and
-returns its encoder states, ``enc_kv(p, enc)`` projects them to
-per-decoder-layer cross K/V, and ``stream_prefill(p, enc_k, enc_v,
-enc_len, tokens, max_seq)`` is the decoder prompt pass against a
-partially filled encoder cache.  Its offline ``prefill`` over
-precomputed frames is not ported yet and raises.
+The dense and encdec families are ported; the others raise.  encdec's
+``prefill`` encodes the batch's precomputed ``frames`` [B, F, d] and runs
+the prompt against their cross K/V.  It also serves streamed audio:
+``enc_init(b, f_max)`` builds the incremental encoder state,
+``enc_step(p, ec, frames_chunk)`` appends one chunk and returns its
+encoder states, ``enc_kv(p, enc)`` projects them to per-decoder-layer
+cross K/V, and ``stream_prefill(p, enc_k, enc_v, enc_len, tokens,
+max_seq)`` is the decoder prompt pass against a partially filled encoder
+cache.
 """
 
 from __future__ import annotations
@@ -65,7 +68,7 @@ def build_model(cfg: ModelConfig, device="cuda") -> ModelAPI:
     if cfg.family != "dense":
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported; the port serves dense "
-            "decoders and encdec streaming")
+            "decoders and encdec")
 
     def prefill(p, batch, max_seq, last_index=None):
         return TFM.prefill(p, cfg, batch["tokens"], max_seq,
@@ -91,9 +94,9 @@ def build_model(cfg: ModelConfig, device="cuda") -> ModelAPI:
 def _encdec_api(cfg: ModelConfig, device: torch.device,
                 cache_dtype: torch.dtype) -> ModelAPI:
     def prefill(p, batch, max_seq, last_index=None):
-        raise NotImplementedError(
-            "offline encdec prefill over precomputed frames is not ported; "
-            "submit the audio with submit_audio_stream")
+        return ENCDEC.prefill(p, cfg, batch["frames"], batch["tokens"],
+                              max_seq, cache_dtype=cache_dtype,
+                              last_index=last_index)
 
     return ModelAPI(
         cfg=cfg,

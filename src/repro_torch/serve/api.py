@@ -16,8 +16,12 @@ decode starts before the utterance ends.  Each later ``step()`` feeds one
 more chunk per streaming lane through the same functions and writes its
 K/V into the lane in place (the paged engine: into the lane's encoder
 pools, which its captured decode step reads); cross-attention masks rows
-past ``enc_len``.  A text ``submit`` with ``extra`` (precomputed frames)
-is refused until the offline encdec prefill is ported.
+past ``enc_len``.
+
+A text ``submit`` may carry ``extra`` model inputs, kept on its
+``Request``: for encdec, ``{"frames": [F, d]}`` precomputed frame
+embeddings, which the admission's offline ``api.prefill`` encodes with
+the prompt (and again on re-admission after a preemption).
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ class Request:
     rid: int
     prompt: np.ndarray           # [S] int32
     max_new_tokens: int
+    extra: dict | None = None    # frames / patch embeds for audio/vlm
     output: list = dataclasses.field(default_factory=list)
     done: bool = False
     # streaming audio: kind == "audio" requests carry their utterance as
@@ -48,16 +53,18 @@ class Request:
     fed: int = 0
 
 
-def validate_request(prompt, max_new_tokens: int, max_seq: int) -> None:
+def validate_request(prompt, max_new_tokens: int, max_seq: int,
+                     extra_rows: int = 0) -> None:
     """Reject requests that would run past the sequence horizon (the
     decode write would clamp at the last cache row and overwrite it)."""
     if max_new_tokens < 1:
         raise ValueError(f"max_new_tokens must be >= 1, got "
                          f"{max_new_tokens}")
-    total = len(prompt) + max_new_tokens
+    total = extra_rows + len(prompt) + max_new_tokens
     if total > max_seq:
         raise ValueError(
-            f"request needs {total} cache rows (prompt {len(prompt)} + "
+            f"request needs {total} cache rows (prompt {len(prompt)}"
+            f"{f' + {extra_rows} extra' if extra_rows else ''} + "
             f"max_new_tokens {max_new_tokens}) > max_seq {max_seq}: "
             "the decode write would silently clamp at the horizon, "
             "overwriting the last cache row; raise max_seq or shorten "
@@ -106,18 +113,24 @@ class EngineBase:
         return planned.override(policy=self.policy)
 
     # -- submission ---------------------------------------------------------
+    def _extra_rows(self, extra: dict | None) -> int:
+        """Cache rows an ``extra`` input adds ahead of the prompt: a vlm's
+        patch embeddings (a family the port does not run), else none."""
+        if extra and self.cfg.family == "vlm" and "extra_embeds" in extra:
+            return self.cfg.vlm_patches
+        return 0
+
     def submit(self, prompt, max_new_tokens: int = 16,
                extra: dict | None = None) -> int:
-        if extra:
-            raise NotImplementedError(
-                "extra model inputs (offline encdec prefill over "
-                "precomputed frames) are not ported; submit audio with "
-                "submit_audio_stream")
+        """Queue a token prompt; ``extra`` holds the model's other inputs
+        for one request (encdec: ``{"frames": [F, d]}``, a numpy array or
+        a tensor)."""
         prompt = np.asarray(prompt, np.int32)
-        validate_request(prompt, max_new_tokens, self.max_seq)
+        validate_request(prompt, max_new_tokens, self.max_seq,
+                         self._extra_rows(extra))
         rid = self._next_rid
         self._next_rid += 1
-        self.queue.append(Request(rid, prompt, max_new_tokens))
+        self.queue.append(Request(rid, prompt, max_new_tokens, extra))
         return rid
 
     submit_text = submit
@@ -147,6 +160,21 @@ class EngineBase:
         self.queue.append(Request(rid, prompt, max_new_tokens,
                                   kind="audio", chunks=chunks))
         return rid
+
+    def _prefill_batch(self, tokens, extra: dict | None = None) -> dict:
+        """The prefill batch of one request: ``tokens`` [1, S] and each
+        ``extra`` input with a batch axis of one, on the engine's device;
+        without ``extra``, an encdec warmup gets zero bf16 frames at the
+        config's ``enc_frames`` (the reference's warmup spec)."""
+        batch = {"tokens": tokens}
+        if extra:
+            batch.update({k: torch.as_tensor(v, device=self.device)[None]
+                          for k, v in extra.items()})
+        elif self.cfg.family == "encdec":
+            batch["frames"] = torch.zeros(
+                (1, self.cfg.enc_frames, self.cfg.d_model),
+                dtype=torch.bfloat16, device=self.device)
+        return batch
 
     def step(self) -> int:  # provided by the engine subclass
         raise NotImplementedError

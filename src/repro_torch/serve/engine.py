@@ -8,7 +8,9 @@ one more audio chunk to every streaming lane, then runs one decode step
 over all lanes and appends each active lane's greedy token.  A streamed
 audio request (encdec) is admitted after its first chunk: the planned
 frontend and the incremental encoder fill a partial encoder cache and
-the decoder prompt prefills against it (``stream_prefill``).  Every GEMM
+the decoder prompt prefills against it (``stream_prefill``); a text
+request with precomputed frames (``submit(..., extra={"frames": ...})``)
+prefills offline, encoder and prompt in one ``prefill``.  Every GEMM
 and frontend stage runs through ``kernels.planned`` — on the card, the
 hand-written kernels.  Its ``load()`` warms the serving path up: one
 decode step over the fresh cache (and one prefill when ``prompt_len`` is
@@ -82,7 +84,8 @@ class ServeEngine(EngineBase):
             if self.prompt_len:
                 tokens = torch.zeros((1, self.prompt_len), dtype=torch.int32,
                                      device=self.device)
-                self.api.prefill(params, {"tokens": tokens}, self.max_seq)
+                self.api.prefill(params, self._prefill_batch(tokens),
+                                 self.max_seq)
         self.cache = self.api.init_cache(self.max_slots, self.max_seq)
         self.plan_report = planned.report_delta(
             before, planned.planned_report())
@@ -142,7 +145,8 @@ class ServeEngine(EngineBase):
                 stream = (ec, carry)
             else:
                 logits, pc = self.api.prefill(
-                    self.params, {"tokens": tokens}, self.max_seq)
+                    self.params, self._prefill_batch(tokens, req.extra),
+                    self.max_seq)
             req.output.append(int(torch.argmax(logits[0])))
             if len(req.output) >= req.max_new_tokens:
                 # the prefill token already met the budget: the request
@@ -324,7 +328,7 @@ class PagedServeEngine(EngineBase):
                              device=self.device)
         li = torch.full((1,), self.prompt_len - 1, dtype=torch.int32,
                         device=self.device)
-        self.api.prefill(self.params, {"tokens": tokens}, bucket,
+        self.api.prefill(self.params, self._prefill_batch(tokens), bucket,
                          last_index=li)
 
     # -- admission ----------------------------------------------------------
@@ -351,17 +355,24 @@ class PagedServeEngine(EngineBase):
 
     def _count_prefill(self, key) -> None:
         """Count a prefill shape the first time it runs: one per bucket
-        (the reference's jitted prefill compiles once per bucket)."""
+        and batch keys (the reference's jitted prefill compiles once per
+        ``(rows, batch keys, last_index use)``, and once per bucket for a
+        stream)."""
         if key not in self._prefill_shapes:
             self._prefill_shapes.add(key)
             self.stats["prefill_compiles"] += 1
 
     def _admit_one(self, req: Request, lane: int) -> None:
+        """Prefill ``req`` (a re-admitted one over its prompt and the
+        tokens it made, with the same frames) at its bucket and install
+        it in ``lane``; or finish it, if the prefill's token meets its
+        budget."""
         eff = self._effective_prompt(req)
         plen = len(eff)
+        extra_rows = self._extra_rows(req.extra)
         bucket = self.scheduler.bucket_for(plen)
         blocks = self.kv.allocator.alloc(
-            self.kv.blocks_for(plen))
+            self.kv.blocks_for(extra_rows + plen))
         tokens = np.zeros((1, bucket), np.int32)
         tokens[0, :plen] = eff
         tokens = torch.as_tensor(tokens, device=self.device)
@@ -375,9 +386,12 @@ class PagedServeEngine(EngineBase):
                 self.params, ck, cv, el, tokens, bucket, last_index=li)
             stream = (ec, carry)
         else:
-            self._count_prefill(bucket)
+            batch = self._prefill_batch(tokens, req.extra)
+            # the reference's bucketed families always pass last_index
+            self._count_prefill((bucket + extra_rows, tuple(sorted(batch)),
+                                 True))
             logits, pc = self.api.prefill(
-                self.params, {"tokens": tokens}, bucket, last_index=li)
+                self.params, batch, bucket + extra_rows, last_index=li)
         req.output.append(int(torch.argmax(logits[0])))
         if len(req.output) >= req.max_new_tokens:
             # admit-time done check: the prefill token satisfied the
@@ -386,7 +400,7 @@ class PagedServeEngine(EngineBase):
             self.finished.append(req)
             self.kv.allocator.release(blocks)
             return
-        self.kv.install_lane(lane, blocks, plen)
+        self.kv.install_lane(lane, blocks, extra_rows + plen)
         self.kv.write_prefill(lane, pc)
         self.lanes[lane] = req
         self._lane_seq[lane] = self._admit_seq
@@ -398,7 +412,8 @@ class PagedServeEngine(EngineBase):
         while self.queue:
             free = [i for i, r in enumerate(self.lanes) if r is None]
             n_active = self.max_lanes - len(free)
-            needs = [self.kv.blocks_for(len(self._effective_prompt(r)))
+            needs = [self.kv.blocks_for(self._extra_rows(r.extra)
+                                        + len(self._effective_prompt(r)))
                      for r in self.queue]
             n = self.scheduler.plan_admits(
                 needs, free_lanes=len(free),

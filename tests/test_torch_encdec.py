@@ -3,9 +3,11 @@ JAX package's.
 
 Both packages take the same parameters (the reference's init, converted
 with ``params_from_jax``) and the same numpy frames and tokens.  The
-streaming encoder (``encode_chunk``), the cross K/V projection
-(``enc_kv_chunk``), the whole-utterance comparator
-(``prefill_streaming``) and ``decode_step`` must agree within 1e-4: both
+offline encoder (``encode``, whole-utterance and block-causal) and
+prefill over precomputed frames (``prefill``), the streaming encoder
+(``encode_chunk``), the cross K/V projection (``enc_kv_chunk``), the
+whole-utterance comparator (``prefill_streaming``) and ``decode_step``
+must agree within 1e-4: both
 compute in float32, but in other orders (XLA's fused dots against
 PyTorch's), so a few ulps of difference pass through the layers.  The
 caches are float32 (``kv_cache_dtype``), since a bf16 cache would round a
@@ -114,6 +116,71 @@ def test_prefill_streaming_and_decode_match_the_reference(params, frames):
     _close(cache["k"], jcache["k"])
 
 
+@pytest.mark.parametrize("chunk", [None, CHUNK], ids=["full", "chunked"])
+def test_encode_matches_the_reference(params, frames, chunk):
+    """Whole-utterance and block-causal ``encode`` against the reference's;
+    the block-causal one also against the port's own incremental
+    ``encode_chunk`` schedule, at fp32 tolerance, never bitwise (C1: the
+    two run the attention over other key counts)."""
+    jparams, tparams = params
+    want = JE.encode(jparams, JCFG, jnp.asarray(frames), chunk=chunk)
+    got = E.encode(tparams, CFG, torch.from_numpy(frames), chunk=chunk)
+    assert tuple(got.shape) == want.shape == frames.shape
+    _close(got, want)
+    if chunk is None:
+        return
+    ec = E.init_enc_cache(CFG, 2, device="cpu")
+    outs = []
+    for i in range(N_CHUNKS):
+        ec, out = E.encode_chunk(
+            tparams, CFG, ec, torch.from_numpy(frames[:, i * CHUNK:
+                                                      (i + 1) * CHUNK]))
+        outs.append(out)
+    _close(torch.cat(outs, dim=1), got.numpy())
+
+
+def test_offline_prefill_and_decode_match_the_reference(params, frames):
+    """``prefill`` over precomputed frames (encode, cross K/V, prompt) and
+    three greedy decode steps from its cache, against the reference's."""
+    jparams, tparams = params
+    tokens = np.asarray([[0, 5, 9], [3, 1, 4]], np.int32)
+    jlogits, jcache = JE.prefill(jparams, JCFG, jnp.asarray(frames),
+                                 jnp.asarray(tokens), MAX_SEQ,
+                                 cache_dtype=jnp.float32)
+    logits, cache = E.prefill(tparams, CFG, torch.from_numpy(frames),
+                              torch.from_numpy(tokens), MAX_SEQ,
+                              cache_dtype=torch.float32)
+    assert tuple(logits.shape) == jlogits.shape == (2, CFG.vocab)
+    _close(logits, jlogits)
+    for leaf in ("k", "v", "enc_k", "enc_v"):
+        assert tuple(cache[leaf].shape) == jcache[leaf].shape, leaf
+        _close(cache[leaf], jcache[leaf])
+    for leaf in ("enc_len", "pos"):
+        np.testing.assert_array_equal(cache[leaf].numpy(),
+                                      np.asarray(jcache[leaf]))
+    assert cache["enc_len"].tolist() == [CHUNK * N_CHUNKS] * 2
+    nxt = np.argmax(np.asarray(jlogits), -1).astype(np.int32)[:, None]
+    for _ in range(3):
+        jlogits, jcache = JE.decode_step(jparams, JCFG, jcache,
+                                         jnp.asarray(nxt))
+        logits, cache = E.decode_step(tparams, CFG, cache,
+                                      torch.from_numpy(nxt))
+        _close(logits, jlogits)
+        nxt = np.argmax(np.asarray(jlogits), -1).astype(np.int32)[:, None]
+    # a bucketed prompt: logits at each lane's last real token
+    li = np.asarray([1, 2], np.int32)
+    jlogits, _ = JE.prefill(jparams, JCFG, jnp.asarray(frames),
+                            jnp.asarray(tokens), MAX_SEQ,
+                            cache_dtype=jnp.float32,
+                            last_index=jnp.asarray(li))
+    logits, cache = E.prefill(tparams, CFG, torch.from_numpy(frames),
+                              torch.from_numpy(tokens), MAX_SEQ,
+                              cache_dtype=torch.float32,
+                              last_index=torch.from_numpy(li))
+    _close(logits, jlogits)
+    assert cache["pos"].tolist() == [2, 3]
+
+
 def test_prefill_decoder_masks_the_unwritten_encoder_rows(params, frames):
     """Against a partially filled encoder cache (enc_len = 8 of 24 rows),
     the rows past enc_len are invisible: garbage there changes nothing."""
@@ -178,12 +245,22 @@ def test_non_glu_mlp_runs_the_planned_pair_as_the_reference():
     assert set(rep) == set(jrep) == {"mlp.pair"}
 
 
-def test_model_api_and_seeded_init():
+def test_model_api_and_seeded_init(params, frames):
     api = build_model(CFG, device="cpu")
     assert api.cfg.family == "encdec"
-    with pytest.raises(NotImplementedError, match="submit_audio_stream"):
-        api.prefill(None, {"tokens": torch.zeros((1, 2), dtype=torch.int32)},
-                    MAX_SEQ)
+    # the offline prefill over a batch's precomputed frames serves the
+    # reference API's logits and cache
+    jparams, tparams = params
+    tokens = np.asarray([[0, 2]], np.int32)
+    logits, cache = api.prefill(tparams, {
+        "tokens": torch.from_numpy(tokens),
+        "frames": torch.from_numpy(frames[:1])}, MAX_SEQ)
+    jlogits, jcache = jax_build(JCFG).prefill(jparams, {
+        "tokens": jnp.asarray(tokens), "frames": jnp.asarray(frames[:1])},
+        MAX_SEQ)
+    _close(logits, jlogits)
+    _close(cache["enc_k"], jcache["enc_k"])
+    assert cache["pos"].tolist() == [2]
     ec = api.enc_init(1, 16)
     assert tuple(ec["k"].shape) == (CFG.n_enc_layers, 1, 16,
                                     CFG.n_kv_heads, CFG.hd)

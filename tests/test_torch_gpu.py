@@ -1156,3 +1156,108 @@ def test_streamed_audio_through_the_captured_step_on_the_card(gen):
         outs.append({r.rid: list(r.output) for r in done})
     assert eng.stats["decode_compiles"] == 1
     assert outs[0] == outs[1]
+
+
+# ---------------------------------------------------------------------------
+# long prompts (blockwise attention) and offline audio
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+def test_blockwise_equals_sdpa_at_2048_on_the_card(gen):
+    """``blockwise_attention`` forced at S = 2048 (fp32, 4 heads of 64,
+    the serving chunks) against ``sdpa`` on the hand kernels, causal and
+    not, within the CPU test's fp32 tolerance (atol 2e-4, rtol 1e-3)."""
+    from repro_torch.models import layers
+
+    q, k, v = (torch.randn((1, 2048, 4, 64), generator=gen, device="cuda")
+               for _ in range(3))
+    before = bmm.variants["wgmma"]
+    for causal in (True, False):
+        torch.testing.assert_close(
+            layers.blockwise_attention(q, k, v, causal=causal),
+            layers.sdpa(q, k, v, causal=causal), atol=2e-4, rtol=1e-3)
+    assert bmm.variants["wgmma"] == before + 4  # sdpa's scores and values
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+@pytest.mark.gpu
+def test_long_smoke_prefill_on_the_card_equals_the_cpu(gen):
+    """A 4096-token prompt on the qwen smoke config (float32): the prefill
+    on the card (blockwise attention, every projection on the tensor-core
+    kernel) against the same prefill on the CPU, within the dense
+    tolerance (atol = rtol = 1e-4)."""
+    import numpy as np
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+
+    cfg = get_smoke_config("qwen1.5-0.5b")
+    params = build_model(cfg, "cpu").init(torch.Generator().manual_seed(0))
+    tokens = torch.as_tensor(np.random.default_rng(4).integers(
+        0, cfg.vocab, (1, 4096)), dtype=torch.int32)
+    with torch.no_grad():
+        want, _ = build_model(cfg, "cpu").prefill(params, {"tokens": tokens},
+                                                  4096)
+        before = widesa_mm.variants["wgmma"]
+        got, cache = build_model(cfg, "cuda").prefill(
+            _to(params, "cuda"), {"tokens": tokens.cuda()}, 4096)
+    assert widesa_mm.variants["wgmma"] - before == 7 * cfg.n_layers
+    assert cache["pos"].tolist() == [4096]
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_whisper_encoder_attention_gemms_at_1500_keys_on_the_card(gen):
+    """The whisper-base encoder's attention over 1500 frames (8 heads of
+    64, bf16): the scores bmm(8, 1500, 1500, 64) reading K column-major
+    and flushing to fp32, the values bmm reading the softmax weights in
+    rows padded to 1504, each on the tensor-core kernel against its
+    plain version."""
+    from repro_torch.models import layers
+
+    q, k = (_gemm_draw((8, 1500, 64), torch.bfloat16, gen) for _ in range(2))
+    kt = k.transpose(1, 2)
+    before = bmm.variants["wgmma"]
+    s = planned.planned_bmm(q, kt, site="attn.scores",
+                            out_dtype=torch.float32)
+    _same_gemm(s, ref.bmm(q, kt, torch.float32))
+    w = layers._padded_rows(torch.softmax(s / 8.0, dim=-1), torch.bfloat16)
+    assert runtime.a_pitch(w) == 1504
+    v = _gemm_draw((8, 1500, 64), torch.bfloat16, gen)
+    _same_gemm(planned.planned_bmm(w, v, site="attn.values"),
+               ref.bmm(w, v))
+    assert bmm.variants["wgmma"] == before + 2
+
+
+@pytest.mark.gpu
+def test_text_with_frames_through_the_captured_step_on_the_card(gen):
+    """whisper-base (smoke, float32 with a float32 cache) serves text
+    requests with precomputed frames on the paged engine, prefilled
+    offline and decoded by the captured step: the slot engine's
+    tokens."""
+    import numpy as np
+
+    from repro_torch.serve import SchedulerConfig, make_engine
+
+    eng = _paged_engine("whisper-base", kv_dtype="float32", max_lanes=2,
+                        scheduler=SchedulerConfig(bucketed=False))
+    cfg = eng.cfg
+    rng = np.random.default_rng(5)
+    reqs = [(rng.integers(0, cfg.vocab, 3 + i), rng.standard_normal(
+        (cfg.enc_frames, cfg.d_model)).astype(np.float32)) for i in range(3)]
+    slot = make_engine(cfg, kind="slot", max_slots=2, max_seq=64)
+    slot.load(eng.params)
+    outs = []
+    for e in (eng, slot):
+        for prompt, frames in reqs:
+            e.submit(prompt, max_new_tokens=5, extra={"frames": frames})
+        outs.append({r.rid: list(r.output) for r in e.run_until_drained()})
+    assert eng.stats["decode_compiles"] == 1
+    assert outs[0] == outs[1] and all(len(o) == 5 for o in outs[0].values())

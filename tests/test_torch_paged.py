@@ -11,7 +11,8 @@ bucketed and exact prefills.  The assertions of
 ``tests/test_streaming.py`` are carried over: the allocator and
 scheduler, the fp8 cache, the dtype and horizon guards, one decode
 capture through join, evict and preemption, no replanning in steady
-state, text-before-audio preemption.  The port's own contracts are held
+state, text-before-audio preemption (text lanes with precomputed frames,
+prefilled offline).  The port's own contracts are held
 too: the sink block takes an inactive lane's write and never reaches the
 allocator, and the pools are written in place and never replaced.
 
@@ -566,26 +567,49 @@ def test_streaming_decode_starts_before_utterance_end():
                                    rtol=0, atol=1e-4)
 
 
-def _text_prefill(eng):
-    """A stand-in for the offline encdec prefill the port does not have
-    yet (ROADMAP A4): the text prompt's decoder pass against an empty
-    encoder cache.  The text lanes it admits only hold blocks and decode;
-    the assertions below are about the audio lane."""
-    def prefill(p, batch, max_seq, last_index=None):
-        ck, cv = eng._zero_enc_kv()
-        el = torch.zeros((1,), dtype=torch.int32)
-        return eng.api.stream_prefill(p, ck, cv, el, batch["tokens"],
-                                      max_seq, last_index=last_index)
-    return prefill
+def _frames(seed=7):
+    """Precomputed frames [enc_frames, d] of one text request."""
+    cfg = _params(STREAM_ARCH, "float32")[0]
+    return np.random.default_rng(seed).standard_normal(
+        (cfg.enc_frames, cfg.d_model)).astype(np.float32)
+
+
+def test_text_with_frames_paged_tokens_equal_the_reference():
+    """Text requests with precomputed frames (the offline prefill) beside
+    audio streams on the paged engine: the reference paged engine's
+    greedy tokens and prefill count (one per bucket and batch keys), and
+    the port's slot engine's tokens."""
+    def submit(e):
+        rng = np.random.default_rng(3)
+        for i, (n, budget) in enumerate(STREAMS):
+            e.submit_text(rng.integers(0, 256, 3 + 2 * i), max_new_tokens=5,
+                          extra={"frames": _frames(seed=i)})
+            e.submit_audio_stream(synth_samples(e.frontend.cfg, n, seed=i),
+                                  max_new_tokens=budget)
+
+    outs = []
+    for eng in (_stream_engine(), _stream_engine(jax_side=True)):
+        submit(eng)
+        outs.append({r.rid: list(r.output)
+                     for r in eng.run_until_drained()})
+        outs.append(eng.stats["prefill_compiles"])
+    assert outs[0] == outs[2] and outs[1] == outs[3]
+    slot = make_engine(eng.cfg, kind="slot", max_slots=2, max_seq=64,
+                       device="cpu")
+    slot.load(_params(STREAM_ARCH, "float32")[2])
+    submit(slot)
+    assert {r.rid: list(r.output) for r in slot.run_until_drained()} == \
+        outs[0]
 
 
 def test_mixed_text_audio_under_preemption_prefers_text_victims():
-    """Text + audio sharing an oversubscribed block pool: preemption
-    fires, takes text lanes before the audio lane, and every request
-    still finishes with its full budget; the audio stream's tokens equal
-    an unpressured engine's, and the reference's calm stream's."""
+    """Text with precomputed frames + audio sharing an oversubscribed
+    block pool: preemption fires, takes text lanes before the audio
+    lane, a preempted text request re-prefills with its frames, and every
+    request still finishes with its full budget — with the reference
+    engine's tokens under the same pressure; the audio stream's tokens
+    equal an unpressured engine's, and the reference's calm stream's."""
     eng = _stream_engine(max_lanes=3, block_size=4, num_blocks=10)
-    eng.api = dataclasses.replace(eng.api, prefill=_text_prefill(eng))
     victims = []
     preempt = eng._preempt
 
@@ -596,9 +620,14 @@ def test_mixed_text_audio_under_preemption_prefers_text_victims():
     eng._preempt = spy
     fc = eng.frontend.cfg
     samples = synth_samples(fc, 3, seed=2)
-    rid_a = eng.submit_audio_stream(samples, max_new_tokens=10)
-    rids_t = [eng.submit_text(np.arange(4) + 1 + i, max_new_tokens=10)
-              for i in range(2)]
+
+    def submit(e):
+        rid_a = e.submit_audio_stream(samples, max_new_tokens=10)
+        return rid_a, [e.submit_text(np.arange(4) + 1 + i, max_new_tokens=10,
+                                     extra={"frames": _frames()})
+                       for i in range(2)]
+
+    rid_a, rids_t = submit(eng)
     done = {r.rid: r for r in eng.run_until_drained(max_steps=200)}
     assert eng.stats["preemptions"] > 0, "pool pressure must preempt"
     assert victims and set(victims) == {"text"}
@@ -606,6 +635,11 @@ def test_mixed_text_audio_under_preemption_prefers_text_victims():
         assert done[rid].done and len(done[rid].output) == 10
     assert done[rid_a].fed == 3
     assert eng.stats["decode_compiles"] == 1
+    jeng = _stream_engine(True, max_lanes=3, block_size=4, num_blocks=10)
+    submit(jeng)
+    jdone = {r.rid: list(r.output) for r in jeng.run_until_drained(200)}
+    assert {rid: list(r.output) for rid, r in done.items()} == jdone
+    assert jeng.stats["preemptions"] == eng.stats["preemptions"]
 
     calms = []
     for jax_side in (False, True):

@@ -194,13 +194,40 @@ def test_audio_submit_rejected_for_non_encdec_as_the_reference():
     assert str(got.value) == str(want.value)
 
 
+def _text_with_frames(eng):
+    """Text requests, each with its own precomputed frames
+    [enc_frames, d] (numpy, seeded), beside one audio stream."""
+    rng = np.random.default_rng(7)
+    rids = []
+    for i, budget in enumerate((5, 1, 7)):
+        frames = rng.standard_normal(
+            (CFG.enc_frames, CFG.d_model)).astype(np.float32)
+        rids.append(eng.submit(rng.integers(0, CFG.vocab, 3 + i),
+                               max_new_tokens=budget,
+                               extra={"frames": frames}))
+    eng.submit_audio_stream(synth_samples(eng.frontend.cfg, 2, seed=9),
+                            max_new_tokens=4)
+    return rids
+
+
 def test_text_with_frames_is_refused_until_offline_prefill_is_ported(params):
-    _, tparams = params
-    eng = _engine(tparams, 1)
-    with pytest.raises(NotImplementedError, match="submit_audio_stream"):
-        eng.submit(np.arange(3), max_new_tokens=2,
-                   extra={"frames": np.zeros((8, CFG.d_model), np.float32)})
-    assert eng.queue == []
+    """The offline prefill is ported: a text ``submit`` with
+    ``extra={"frames": ...}`` is served, with the reference slot engine's
+    greedy tokens, beside a streamed request; each request keeps its
+    frames on its ``Request``."""
+    jparams, tparams = params
+    jeng = jax_make_engine(JCFG, kind="slot", max_slots=2, max_seq=MAX_SEQ,
+                           policy=JaxPolicy(mode="modelled"))
+    jeng.load(jparams)
+    _text_with_frames(jeng)
+    want = {r.rid: list(r.output) for r in jeng.run_until_drained()}
+    eng = _engine(tparams, 2)
+    rids = _text_with_frames(eng)
+    done = {r.rid: r for r in eng.run_until_drained()}
+    assert {rid: list(r.output) for rid, r in done.items()} == want
+    assert [len(done[rid].output) for rid in rids] == [5, 1, 7]
+    assert all(done[rid].extra["frames"].shape ==
+               (CFG.enc_frames, CFG.d_model) for rid in rids)
 
 
 def test_launch_cli_streams_audio(capsys):
@@ -215,3 +242,25 @@ def test_launch_cli_streams_audio(capsys):
     with pytest.raises(SystemExit, match="encdec"):
         main(["--arch", "qwen1.5-0.5b", "--stream-audio", "--device", "cpu",
               "--requests", "1"])
+
+
+def test_launch_cli_serves_text_with_frames(capsys):
+    """Without ``--stream-audio`` whisper-base serves text requests that
+    carry precomputed frames, on both engines; the frames are the
+    reference CLI's draws, rounded to bf16 bit for bit as it rounds
+    them."""
+    from repro_torch.launch.serve import bf16_frames, main
+
+    for engine in ("slot", "paged"):
+        main(["--arch", ARCH, "--device", "cpu", "--requests", "3",
+              "--max-new", "3", "--engine", engine])
+        assert "served 3 requests / 9 tokens" in capsys.readouterr().out
+    rng, jrng = np.random.default_rng(0), np.random.default_rng(0)
+    for _ in range(2):
+        got = bf16_frames(rng, CFG)
+        want = np.asarray(jax.numpy.asarray(
+            jrng.standard_normal((CFG.enc_frames, CFG.d_model)),
+            jax.numpy.bfloat16))
+        assert got.dtype == torch.bfloat16
+        np.testing.assert_array_equal(got.view(torch.int16).numpy(),
+                                      want.view(np.int16))
