@@ -5,12 +5,13 @@
     python3 chip_smoke.py --tile-sweep [--out sweep.json]
     python3 chip_smoke.py --mttkrp-sweep [--out sweep.json]
     python3 chip_smoke.py --tc-sweep [--out sweep.json]
+    python3 chip_smoke.py --skinny-sweep [--out sweep.json]
     python3 chip_smoke.py --fft-sweep [--out sweep.json]
     python3 chip_smoke.py --conv2d-sweep [--src OTHER/src] [--out sweep.json]
     python3 chip_smoke.py --fir-sweep [--src OTHER/src] [--out sweep.json]
 
 Needs one CUDA card and the CUDA toolkit.  It imports only the port, never
-JAX nor the JAX package, and runs twelve phases, each printing its own
+JAX nor the JAX package, and runs thirteen phases, each printing its own
 line(s); any failure exits non-zero:
 
 1. device — the card's name and power limit, torch and CUDA versions;
@@ -141,7 +142,31 @@ line(s); any failure exits non-zero:
    decode scores and values over 8448 keys, the encoder's scores and
    values over 1500 frames) against their plain versions and timed beside
    ``torch.matmul``/``torch.bmm`` and their bounds;
-11. recurrences — the WideSA mapper -> kernel pipeline,
+11. olmoe — full-width olmoe-1b-7b, the MoE family (bf16, 16 layers,
+   64 experts of ff 1024, top-8, 13.8 GB of random weights seeded with 0
+   and drawn on the card), after the earlier phases' weights are freed.
+   First the block's parts alone on layer 0's weights at 4 and 512
+   tokens (``moe_parts``): the fp32 router on the skinny kernel and on
+   ``gemm_tc_kernel`` (3xTF32) against the plain version, ``route``,
+   ``dispatch_indices`` and ``dispatch`` on the card against the host's
+   on the same logits, each expert bmm (``skinny_kernel`` at C = 1,
+   ``gemm_tc_kernel`` at C = 80) against the plain version, the combine
+   bit for bit the host's, the block deterministic.  Then 4 prompts of
+   4-16 tokens and 4 of 64, 127, 256 and 512, 8 new tokens each, on the
+   slot engine and on the paged engine (exact-length prefills, its
+   decode step captured in ``load()``; ``two_engines`` without the
+   equal-tokens check: capacity couples the 4 lanes, which the engines
+   fill in other orders): every site planned with no fallback at
+   ``moe.router``/``moe.gate``/``moe.up``/``moe.down``,
+   ``check_routes``, ``drain_parity`` (the router in float32), each
+   prompt's prefill logits against the plain versions (a request past
+   ``LOGIT_ATOL`` passes only where the routing flips that caused it
+   begin with near-ties within ``ROUTER_ATOL`` and the plain versions
+   with the kernels' routing forced come within ``LOGIT_ATOL``: every
+   flip printed, ``routing_explained``), the paged engine's first tokens
+   the slot engine's; the eager decode step, the captured paged step and
+   a 512-token prefill profiled; last, 1-lane slot == paged tokens;
+12. recurrences — the WideSA mapper -> kernel pipeline,
    ``repro_torch.launch.recurrences.run`` (the entry point's function):
    the Table II compiler report, quickstart's 1024^3 MM, and every
    registered recurrence planned on one chip and run through
@@ -180,16 +205,20 @@ line(s); any failure exits non-zero:
    version and beside the tiled kernel they replace, ``torch._int_mm``
    for int8 mm, the bound at the int8 rate x 1, 4 or 10 limb products)
    and the paper's float32 MM and BMM on ``gemm_tc_kernel``;
-12. summary — a JSON line of the kernels, the ``nvidia-smi`` name and
+   The GEMMs the MoE path adds (``MOE_SHAPES``: the float32 router at 4
+   and 512 rows, the expert stack at C = 1 and 80) are timed beside
+   ``torch.matmul``/``torch.bmm`` and their bounds after phase 11;
+13. summary — a JSON line of the kernels, the ``nvidia-smi`` name and
    power limit, and the result line.
 
 Every wrapper's launch count is set to 0 just before each serving drain
 and before the recurrence pipeline, and read just after; the kernels
 line gives each path's counts apart (``"launches": {"qwen": n,
 "qwen_paged": q, "qwen_prefill": p, "whisper_stream": m,
-"whisper_paged": w, "qwen_long": l, "whisper_offline": o,
-"recurrences": k}``; ``qwen_long`` and ``whisper_offline`` each sum the
-slot engine's drain and the paged engine's).  A replay of a captured step
+"whisper_paged": w, "qwen_long": l, "whisper_offline": o, "olmoe": s,
+"olmoe_paged": g, "recurrences": k}``; ``qwen_long`` and
+``whisper_offline`` each sum the slot engine's drain and the paged
+engine's).  A replay of a captured step
 passes no wrapper, so a paged path's drain runs under ``torch.profiler``
 and its count is what the wrappers counted (the eager prefills and chunk
 feeds) plus the GEMM launches that the trace shows in the drain's
@@ -216,7 +245,8 @@ plain and library times, bound and launches on ``qwen_long`` and
 eager call), plus the paged drain's steps times the launches that its
 first whole traced replay shows at the shape's kernel and grid
 (``launch_signature``: the grid the launcher sets for the shape's
-configuration).  The comparison and timing launches of phases 3 and
+configuration); under ``"moe"`` each ``MOE_SHAPES`` GEMM's the same, with
+its launches on ``olmoe`` and ``olmoe_paged``.  The comparison and timing launches of phases 3 and
 7, those of the paged phases outside their main drains, of
 ``drain_parity``, of the logit checks and the profiles do not count.
 
@@ -451,11 +481,19 @@ def read_variants() -> dict:
             if hasattr(mod, "variants")}
 
 
-def col_major_site(site: str, shape) -> bool:
+def col_major_site(site: str, shape, tied: bool = True) -> bool:
     """Whether a serving site reads B column-major: the tied lm_head (the
-    embedding table), the attention scores (K^T as the transpose of K's
-    rows) and a single column."""
-    return site == "lm_head" or "scores" in site or shape[-2] == 1
+    embedding table; ``tied`` False for a model with a head of its own),
+    the attention scores (K^T as the transpose of K's rows) and a single
+    column."""
+    return (site == "lm_head" and tied) or "scores" in site \
+        or shape[-2] == 1
+
+
+def site_dtype(site: str) -> str:
+    """A serving site's operand dtype: float32 for the MoE router (the
+    reference's fp32 router GEMM), bf16 for every other GEMM."""
+    return "float32" if site == "moe.router" else "bfloat16"
 
 
 def padded_site(site: str) -> bool:
@@ -475,25 +513,28 @@ def padded(torch, a):
     return rows
 
 
-def serving_kernel(site: str, shape) -> str:
-    """The kernel the runtime must pick for a serving GEMM (bf16, fresh
-    16-byte aligned operands, A contiguous or, for the values, in padded
-    rows): the skinny kernel for at most 16 rows of A where B's rows allow
-    4-byte copies, the tensor-core kernel for more rows where TMA can
-    address A's and B's rows (whole 16-byte units), else the tiled
-    kernel."""
+def serving_kernel(site: str, shape, tied: bool = True) -> str:
+    """The kernel the runtime must pick for a serving GEMM (bf16, or
+    float32 at the MoE router; fresh 16-byte aligned operands, A
+    contiguous or, for the values, in padded rows): the skinny kernel for
+    at most 16 rows of A where B's rows allow 4-byte copies, the
+    tensor-core kernel for more rows where TMA can address A's and B's
+    rows (whole 16-byte units), else the tiled kernel."""
     from repro_torch.kernels import runtime
 
     m, n, k = shape[-3:]
-    inner = k if col_major_site(site, shape) else n
+    size = 4 if site_dtype(site) == "float32" else 2
+    inner = k if col_major_site(site, shape, tied) else n
     if m <= runtime.SKINNY_ROWS:
-        return "skinny" if runtime.copy_bytes(0, 2 * inner) >= 4 else "tiled"
-    whole = (padded_site(site) or runtime.copy_bytes(0, 2 * k) == 16) and \
-        runtime.copy_bytes(0, 2 * inner) == 16
+        return "skinny" if runtime.copy_bytes(0, size * inner) >= 4 \
+            else "tiled"
+    whole = (padded_site(site) or runtime.copy_bytes(0, size * k) == 16) \
+        and runtime.copy_bytes(0, size * inner) == 16
     return "wgmma" if whole else "tiled"
 
 
-def check_routes(path: str, report: dict, variants: dict) -> str:
+def check_routes(path: str, report: dict, variants: dict,
+                 tied: bool = True) -> str:
     """Hold a serving drain's GEMM launches by kernel to what the runtime
     must pick for the shapes the drain gave each site (``serving_kernel``;
     the scores read K column-major and the values their weights in padded
@@ -507,7 +548,7 @@ def check_routes(path: str, report: dict, variants: dict) -> str:
         for key, count in st["shapes"].items():
             shape = ast.literal_eval(key)
             kind = "widesa_mm" if len(shape) == 3 else "bmm"
-            kernel = serving_kernel(site, shape)
+            kernel = serving_kernel(site, shape, tied)
             want[kind][kernel] = want[kind].get(kernel, 0) + count
             if kernel == "tiled":
                 why.append(f"{site} {shape} x{count}")
@@ -928,12 +969,13 @@ def tc_timings(torch) -> dict:
 NON_GEMM_SITES = ("frontend.", "mlp.pair")
 
 
-def drain_parity(torch, report, path: str) -> None:
+def drain_parity(torch, report, path: str, tied: bool = True) -> None:
     """Every GEMM shape a serving drain gave a site (``planned_report``),
     through the hand kernel on the configuration the runtime picks against
-    the plain version, in bf16 (the serving dtype), in the drain's
-    layouts: the lm_head and the scores read B column-major, the values
-    their A in padded rows; the score sites flush to fp32.
+    the plain version, in bf16 (the serving dtype; float32 at the MoE
+    router), in the drain's layouts: the tied lm_head and the scores read
+    B column-major, the values their A in padded rows; the score sites
+    flush to fp32.
     Run after the drain's counts are read, so these launches count for
     no path."""
     from collections import Counter
@@ -948,25 +990,28 @@ def drain_parity(torch, report, path: str) -> None:
     worst, routes = 0.0, Counter()
     for site, shape in cases:
         kind = "mm" if len(shape) == 3 else "bmm"
-        col = col_major_site(site, shape)
+        col = col_major_site(site, shape, tied)
+        dtype = getattr(torch, site_dtype(site))
         out_dtype = torch.float32 if "scores" in site else None
-        a, b = operands(torch, gen, kind, shape, torch.bfloat16, col)
+        a, b = operands(torch, gen, kind, shape, dtype, col)
         if padded_site(site):
             a = padded(torch, a)
-        fn, tiles = kernel_call(kind, shape, torch.bfloat16, a, b, out_dtype)
+        fn, tiles = kernel_call(kind, shape, dtype, a, b, out_dtype)
         plain = ref.mm if kind == "mm" else ref.bmm
         out, want = fn(a, b), plain(a, b, out_dtype)
         torch.cuda.synchronize()
         err, ok = max_error(torch, out, want, out.dtype)
         if not ok:
-            fail(f"{path}: {site} {kind}{shape} bf16 {describe(tiles.tile)}: "
-                 f"max |err| {err}")
+            fail(f"{path}: {site} {kind}{shape} {dtype} "
+                 f"{describe(tiles.tile)}: max |err| {err}")
         worst = max(worst, err)
         routes[describe(tiles.tile).split()[0]] += 1
         del a, b, out, want
     print(f"{path}: the {len(cases)} GEMM (site, shape) pairs of the drain "
-          f"match the plain versions in bf16 on the runtime's configuration "
-          f"({dict(routes)}; bf16 <= 2^-7|ref| + 1e-3, fp32 scores <= 1e-3; "
+          f"match the plain versions in bf16"
+          f"{' (the MoE router in float32)' if 'moe.router' in report else ''}"
+          f" on the runtime's configuration ({dict(routes)}; bf16 <= "
+          f"2^-7|ref| + 1e-3, fp32 scores and router <= 1e-3; "
           f"max |err| {worst:.4g}): {sorted({s for s, _ in cases})}",
           flush=True)
 
@@ -987,11 +1032,11 @@ def time_ms(torch, fn, reps=50, warmup=5) -> float:
 
 def device_ms(torch, fn, kernel=None, reps=10, launches=1):
     """Device time per call of ``fn`` from ``torch.profiler`` over ``reps``
-    calls; None if two traces recorded nothing.  With ``kernel``: the
+    calls; None if four traces recorded nothing.  With ``kernel``: the
     mean time of the CUDA kernel records whose name holds ``kernel``,
     times ``launches`` (those kernels a call), since the profiler can drop
-    device records (all of a short kernel's, now and then: hence the
-    second trace) and each record it keeps is one launch's time.
+    device records (all of a kernel's in a trace, now and then: hence the
+    further traces) and each record it keeps is one launch's time.
     Without: every device event of the trace, over ``reps``.  Unlike
     ``time_ms`` this leaves out the host's launch overhead, which back-to-
     back launches of a short kernel measure instead of the kernel."""
@@ -999,7 +1044,7 @@ def device_ms(torch, fn, kernel=None, reps=10, launches=1):
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(2):
+    for _ in range(4):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
@@ -1206,16 +1251,7 @@ def tile_sweep(torch) -> list[dict]:
         picked = runtime.hopper_tiles(gemm_plan(kind, shape, torch.bfloat16),
                                       b_col_major=col).tile
         best = min(times, key=times.get)
-        m, k = a.shape[-2:]
-        bk = runtime.skinny_bk(torch.bfloat16)
-        stages = -(-k // bk)
-        splits = {}
-        for split in range(1, min(8, stages) + 1):
-            kblk = -(-stages // split) * bk
-            tile = runtime.SkinnyTile(split=-(-k // kblk), kblk=kblk)
-            if tile.split == split:
-                splits[split] = device_ms(
-                    torch, lambda t=tile: fn(a, b, tiles=t), "skinny_kernel")
+        splits = skinny_splits(torch, kind, a, b)
         chosen = runtime.gemm_tile(a, b, picked)
         rows.append(dict(site=site, kind=kind, shape=shape, picked=picked,
                          best=best, times={str(t): ms
@@ -1227,6 +1263,85 @@ def tile_sweep(torch) -> list[dict]:
               f"split {({s: round(v, 4) if v else v for s, v in splits.items()})}",
               flush=True)
         del a, b
+    return rows
+
+
+def skinny_splits(torch, kind, a, b) -> dict:
+    """Device ms (profiler) of the skinny kernel on ``a @ b`` with each
+    split of K over 1-8 blocks of a cluster that the kernel takes (no rank
+    empty, A's range within ``runtime.SKINNY_A_BYTES``)."""
+    from repro_torch.kernels import runtime
+
+    fn = gemm_fn(kind)
+    m, k = a.shape[-2:]
+    bk = runtime.skinny_bk(a.dtype)
+    stages = -(-k // bk)
+    splits = {}
+    for split in range(1, min(runtime.SKINNY_MAX_CLUSTER, stages) + 1):
+        kblk = -(-stages // split) * bk
+        tile = runtime.SkinnyTile(split=-(-k // kblk), kblk=kblk)
+        if tile.split == split \
+                and m * kblk * a.element_size() <= runtime.SKINNY_A_BYTES:
+            splits[split] = device_ms(
+                torch, lambda t=tile: fn(a, b, tiles=t), "skinny_kernel")
+    return splits
+
+
+#: the skinny sweep: the MoE router's float32 GEMM at decode and short
+#: prompts (B of 512 KB, 64 stages of K), the expert stack at decode,
+#: small-B bf16 shapes the split rule leaves whole (whisper-base's d 512
+#: projections at decode, qwen's decode values) and one it splits since
+#: ``runtime.SKINNY_DEEP_STAGES`` (whisper-base's streaming encoder
+#: values over 1024 frames: 16 stages of K, 16 blocks)
+SKINNY_SWEEP = (
+    ("moe.router, decode", "mm", (4, 64, 2048), "float32"),
+    ("moe.router, 1 row", "mm", (1, 64, 2048), "float32"),
+    ("moe.router, 16 rows", "mm", (16, 64, 2048), "float32"),
+    ("moe.gate/up, decode", "bmm", (64, 1, 1024, 2048), "bfloat16"),
+    ("moe.down, decode", "bmm", (64, 1, 2048, 1024), "bfloat16"),
+    ("attn.q/k/v/out, whisper-base decode", "mm", (4, 512, 512),
+     "bfloat16"),
+    ("attn.decode_values, qwen", "bmm", (64, 1, 64, 128), "bfloat16"),
+    ("attn.values, whisper-base encoder chunk", "bmm", (8, 8, 64, 1024),
+     "bfloat16"),
+)
+
+
+def skinny_sweep(torch) -> list[dict]:
+    """The skinny kernel at ``SKINNY_SWEEP`` with every split of K, beside
+    the runtime's pick and ``torch.matmul``/``torch.bmm`` (profiler device
+    time; the weight GEMMs of an mm over a rotation of ``COLD_BYTES`` of
+    B for the library and the runtime's pick)."""
+    from repro_torch.kernels import runtime
+
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    rows = []
+    for site, kind, shape, dname in SKINNY_SWEEP:
+        dtype = getattr(torch, dname)
+        a, bs = rotation(torch, gen, kind, shape, False, dtype)
+        b = bs[0]
+        chosen = runtime.gemm_tile(a, b, (16, 32, 32))
+        fn = gemm_fn(kind)
+        lib = torch.matmul if kind == "mm" else torch.bmm
+        reps = max(10, len(bs))
+        picked = device_ms(torch, cycling(
+            lambda x, y: fn(x, y, tiles=chosen), a, bs), "skinny_kernel",
+            reps)
+        library = device_ms(torch, cycling(lib, a, bs), None, reps)
+        splits = skinny_splits(torch, kind, a, b)
+        bound, by = bound_ms(kind, shape, dtype.itemsize, dtype.itemsize,
+                             dname)
+        rows.append(dict(site=site, kind=kind, shape=shape, dtype=dname,
+                         picked=str(chosen), picked_ms=picked,
+                         library_ms=library, bound_ms=bound, splits=splits))
+        print(f"skinny sweep {kind}{shape} {dname} [{site}]: runtime's "
+              f"{describe(chosen, kind, shape)} {fmt_ms(picked)} over "
+              f"{len(bs)} B operand(s), torch.{lib.__name__} "
+              f"{fmt_ms(library)}, bound {bound:.4f} ms ({by}); device ms "
+              f"by split (one B) "
+              f"{({s: round(v, 4) if v else v for s, v in splits.items()})}",
+              flush=True)
+        del a, b, bs
     return rows
 
 
@@ -1988,7 +2103,7 @@ def paged_engine(torch, cfg, params, label, submit, want):
     return eng, step
 
 
-def load_paged(torch, eng, params, label) -> dict:
+def load_paged(torch, eng, params, label, tied: bool = True) -> dict:
     """``eng.load(params)`` in a window of its own: one decode capture,
     and ``check_routes`` on the window's GEMM launches.  Returns the
     launches by kernel of the captured step: half those of the window,
@@ -2002,7 +2117,7 @@ def load_paged(torch, eng, params, label) -> dict:
     launches, variants = read_counts(), read_variants()
     if eng.stats["decode_compiles"] != 1:
         fail(f"{label} load: stats {eng.stats}")
-    check_routes(f"{label} load", planned.planned_report(), variants)
+    check_routes(f"{label} load", planned.planned_report(), variants, tied)
     if any(launches[k] for k in launches if k not in GEMM_WRAPPERS) or any(
             v % 2 for w in GEMM_WRAPPERS for v in variants[w].values()):
         fail(f"{label} load: launches {launches}, by kernel {variants}: not "
@@ -2086,7 +2201,8 @@ def counted_drain(torch, eng, step=None) -> dict:
     graph launch a decode step, and every replay the captured step's GEMM
     launches; the profiler can drop a kernel's record (the device's
     record buffer fills in a replay's burst of launches), so a replay
-    may show fewer, never more, and at least one must show them all.
+    may show fewer, never more, and one must show them all: one of the
+    drain's, or else one more replay of the same graph (``traced_step``).
     The GEMM launches outside the replays must be the wrappers' counts,
     short only of dropped records.  The replays add ``steps`` times the
     captured step's launches to the counts; ``replay_grids`` holds the
@@ -2116,10 +2232,19 @@ def counted_drain(torch, eng, step=None) -> dict:
         fail(f"the trace shows {len(replays)} graph launches in a drain of "
              f"{steps} decode steps")
     short = [missing(r, step) for r in replays]
-    if min(short) != 0:
-        fail(f"no replay of the {steps} traced shows the captured step's "
-             f"GEMM launches {step}: records missing {short}")
-    run["replay_grids"] = grids[short.index(0)]
+    whole = f"which {short.count(0)} traced replays show whole"
+    if 0 in short:
+        run["replay_grids"] = grids[short.index(0)]
+    else:
+        # every replay of the drain lost a record: the same graph, replayed
+        # once more with every lane inactive, traced until one trace shows
+        # the captured step's launches whole
+        _, attempts, grids = traced_step(torch, lambda: eng._decode([]),
+                                         step)
+        run["replay_grids"] = grids[0]
+        whole = (f"which no traced replay of the drain shows whole (records "
+                 f"missing {short}) and trace {attempts} of one more replay "
+                 "of the same graph does")
     counted = {w: run["eager_variants"][w] for w in GEMM_WRAPPERS}
     dropped = sum(short) + missing(eager, counted)
     per_step = sum(sum(step[w].values()) for w in GEMM_WRAPPERS)
@@ -2131,8 +2256,8 @@ def counted_drain(torch, eng, step=None) -> dict:
                   f"wrappers' {run['launches']} in the eager prefills and "
                   f"chunk feeds + {steps} replays, one graph launch a step "
                   f"in the trace, x the {per_step} GEMM launches of the "
-                  f"captured step {step}, which {short.count(0)} traced "
-                  f"replays show whole; the profiler dropped {dropped} of "
+                  f"captured step {step}, {whole}; the profiler dropped "
+                  f"{dropped} of "
                   f"the drain's {records} GEMM kernel records)")
     for w in GEMM_WRAPPERS:
         for k, v in step[w].items():
@@ -2141,7 +2266,8 @@ def counted_drain(torch, eng, step=None) -> dict:
     return run
 
 
-def checked_drain(torch, eng, label, n, device_name, step=None) -> dict:
+def checked_drain(torch, eng, label, n, device_name, step=None,
+                  tied: bool = True) -> dict:
     """``counted_drain`` held to what every serving drain must show: ``n``
     requests with ``MAX_NEW`` tokens each, every planned site planned
     with no fallback, both GEMM wrappers launched, and the eager GEMM
@@ -2160,7 +2286,7 @@ def checked_drain(torch, eng, label, n, device_name, step=None) -> dict:
     if min(launches["widesa_mm"], launches["bmm"]) == 0:
         fail(f"{label}: a GEMM kernel was not launched on the main path: "
              f"{launches}")
-    routes = check_routes(label, report, run["eager_variants"])
+    routes = check_routes(label, report, run["eager_variants"], tied)
     tokens = sum(len(r.output) for r in done)
     print(f"{label}: {len(done)} requests / {tokens} tokens in "
           f"{run['seconds']:.3f} s = {tokens / run['seconds']:.1f} tok/s on "
@@ -2174,20 +2300,21 @@ def traced_step(torch, fn, step):
     """A ``torch.profiler`` trace (CUDA activity) of one call of ``fn``,
     a decode step, whose GEMM records are the captured step's launches
     ``step`` whole: the first of up to 5 traces that shows them all (the
-    profiler can drop a kernel's record), with how many traces it took."""
+    profiler can drop a kernel's record), with how many traces it took
+    and its replays' launches by ``gemm_record`` (a trace is read once)."""
     from torch.profiler import ProfilerActivity, profile
 
     for attempt in range(1, 6):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
-        eager, replays, _ = traced_gemms(prof)
+        eager, replays, grids = traced_gemms(prof)
         got = gemm_counts()
         for counts in (eager, *replays):
             for w in GEMM_WRAPPERS:
                 for k, n in counts[w].items():
                     got[w][k] += n
         if missing(got, step) == 0:
-            return prof, attempt
+            return prof, attempt, grids
     fail(f"5 traces of a decode step each lack records of the captured "
          f"step's GEMM launches {step}: the last shows {got}")
 
@@ -2219,7 +2346,7 @@ def captured_step(torch, eng, step, slot_step, device_name) -> None:
             t0 = time.perf_counter()
             fn()
             times.append((time.perf_counter() - t0) * 1e3)
-        prof, attempts = traced_step(torch, fn, step)
+        prof, attempts, _ = traced_step(torch, fn, step)
         wall = sorted(times)[len(times) // 2]
         ms, kernels = device_by_kernel(prof)
         busy = sum(ms.values())
@@ -2256,23 +2383,23 @@ OFFLINE_REQUESTS = 4
 #: blockwise attention against sdpa on the card (fp32 operands): the CPU
 #: test's tolerance (tests/test_torch_blockwise.py)
 BLOCKWISE_ATOL, BLOCKWISE_RTOL = 2e-4, 1e-3
-#: the GEMMs the two phases add, timed in bf16: (site, kind, shape, B
-#: column-major, A in padded rows, flushed to fp32)
+#: the GEMMs the two phases add, timed: (site, kind, shape, B
+#: column-major, A in padded rows, flushed to fp32, operand dtype)
 LONG_SHAPES = (
     ("attn.q/k/v/out, 8192-token prefill", "mm", (8192, 1024, 1024),
-     False, False, False),
+     False, False, False, "bfloat16"),
     ("mlp.gate/up, 8192-token prefill", "mm", (8192, 2816, 1024),
-     False, False, False),
+     False, False, False, "bfloat16"),
     ("mlp.down, 8192-token prefill", "mm", (8192, 1024, 2816),
-     False, False, False),
+     False, False, False, "bfloat16"),
     ("attn.decode_scores, max_seq 8448", "bmm", (64, 1, 8448, 64),
-     True, False, True),
+     True, False, True, "bfloat16"),
     ("attn.decode_values, max_seq 8448", "bmm", (64, 1, 64, 8448),
-     False, False, False),
+     False, False, False, "bfloat16"),
     ("attn.scores, whisper encoder", "bmm", (8, 1500, 1500, 64),
-     True, False, True),
+     True, False, True, "bfloat16"),
     ("attn.values, whisper encoder", "bmm", (8, 1500, 64, 1500),
-     False, True, False),
+     False, True, False, "bfloat16"),
 )
 
 
@@ -2289,9 +2416,10 @@ def count_shapes(report: dict, shapes) -> dict:
     return out
 
 
-def launch_signature(torch, gen, kind, shape, col, pad, flush) -> tuple:
-    """The ``gemm_record`` of a bf16 launch of the GEMM wrapper at
-    ``shape`` on the configuration the serving path picks (B column-major
+def launch_signature(torch, gen, kind, shape, col, pad, flush,
+                     dname) -> tuple:
+    """The ``gemm_record`` of a launch of the GEMM wrapper at ``shape`` in
+    ``dname`` on the configuration the serving path picks (B column-major
     with ``col``, A in padded rows with ``pad``, an fp32 result with
     ``flush``): its kernel, wrapper and grid as the launchers in
     ``SOURCE`` set it (skinny: N tiles x split, 1, batch; tensor-core: M
@@ -2299,10 +2427,11 @@ def launch_signature(torch, gen, kind, shape, col, pad, flush) -> tuple:
     shape's launches apart."""
     from repro_torch.kernels import runtime
 
-    a, b = operands(torch, gen, kind, shape, torch.bfloat16, col)
+    dtype = getattr(torch, dname)
+    a, b = operands(torch, gen, kind, shape, dtype, col)
     if pad:
         a = padded(torch, a)
-    _, tiles = kernel_call(kind, shape, torch.bfloat16, a, b,
+    _, tiles = kernel_call(kind, shape, dtype, a, b,
                            torch.float32 if flush else None)
     tile = tiles.tile
     (m, n), z = shape[-3:-1], (shape[0] if kind == "bmm" else 1)
@@ -2317,30 +2446,33 @@ def launch_signature(torch, gen, kind, shape, col, pad, flush) -> tuple:
     return kernel, "bmm" if z > 1 else "widesa_mm", grid
 
 
-def two_engines(torch, cfg, params, label, submit, max_seq,
-                device_name) -> dict:
+def two_engines(torch, cfg, params, label, submit, max_seq, device_name,
+                timed=LONG_SHAPES, same_tokens=True, tied=True) -> dict:
     """``submit``'s requests on the slot engine (``SLOTS`` slots), then on
     the paged engine (``SLOTS`` lanes, blocks of ``PAGED_BLOCK``,
     exact-length prefills, its decode step captured in ``load_paged``),
     both at ``max_seq``, each drain held by ``checked_drain`` (the paged
-    one traced), and the two engines' greedy tokens equal.  Returns the
-    engines and their drains, the launches and launches by kernel summed
-    over the two drains, and the launches of each ``LONG_SHAPES`` GEMM:
-    those the drains' planned reports count (every eager call), plus, for
-    the paged drain's replays, ``steps`` times those that its first whole
-    replay shows at the shape's ``launch_signature`` (a shape there must
-    be one the load window's report planned, and no other)."""
+    one traced), and, with ``same_tokens``, the two engines' greedy tokens
+    equal.  Returns the engines and their drains, the launches and
+    launches by kernel summed over the two drains and each drain's own
+    (``by_engine``), and the launches of each GEMM of ``timed``
+    (``LONG_SHAPES``' layout): those the drains' planned reports count
+    (every eager call), plus, for the paged drain's replays, ``steps``
+    times those that its first whole replay shows at the shape's
+    ``launch_signature`` (a shape there must be one the load window's
+    report planned, and no other)."""
     from repro_torch.kernels import planned
     from repro_torch.serve import SchedulerConfig, make_engine
 
     gen = torch.Generator(device="cuda").manual_seed(13)
     owners = {}
-    for _, kind, shape, *layout in LONG_SHAPES:
+    for _, kind, shape, *layout in timed:
         sig = launch_signature(torch, gen, kind, shape, *layout)
         owners.setdefault(sig, []).append((kind, shape))
-    shapes = [(kind, shape) for _, kind, shape, *_ in LONG_SHAPES]
+    shapes = [(kind, shape) for _, kind, shape, *_ in timed]
     out = {"launches": dict.fromkeys(wrappers(), 0), "variants": {},
-           "shapes": dict.fromkeys(shapes, 0), "tokens": {}}
+           "shapes": dict.fromkeys(shapes, 0), "tokens": {},
+           "by_engine": {}}
     for kind in ("slot", "paged"):
         step = None
         if kind == "slot":
@@ -2352,12 +2484,12 @@ def two_engines(torch, cfg, params, label, submit, max_seq,
                               max_seq=max_seq, block_size=PAGED_BLOCK,
                               device="cuda",
                               scheduler=SchedulerConfig(bucketed=False))
-            step = load_paged(torch, eng, params, f"{label} paged")
+            step = load_paged(torch, eng, params, f"{label} paged", tied)
             in_step = count_shapes(planned.planned_report(), shapes)
         n = submit(eng)
         # the main path: counts start at 0 here and are read right after
         run = checked_drain(torch, eng, f"{label} {kind}", n, device_name,
-                            step)
+                            step, tied)
         eager = count_shapes(run["report"], shapes)
         replayed = dict.fromkeys(shapes, 0)
         for sig, keys in owners.items():
@@ -2369,12 +2501,15 @@ def two_engines(torch, cfg, params, label, submit, max_seq,
                 replayed[keys[0]] = eng.stats["steps"] * seen
         if step and any(bool(replayed[key]) != bool(in_step[key])
                         for key in shapes):
-            fail(f"{label} {kind}: the replay shows LONG_SHAPES launches "
+            fail(f"{label} {kind}: the replay shows timed GEMM launches "
                  f"{replayed} (by kernel and grid), the captured step's "
                  f"load window planned {in_step}")
         for key in shapes:
             out["shapes"][key] += eager[key] + replayed[key]
-        print(f"{label} {kind}: launches of the LONG_SHAPES GEMMs in the "
+        out["by_engine"][kind] = {
+            "launches": run["launches"], "variants": run["variants"],
+            "shapes": {key: eager[key] + replayed[key] for key in shapes}}
+        print(f"{label} {kind}: launches of the timed GEMMs in the "
               f"drain: " + ", ".join(
                   f"{k}{sh} {eager[(k, sh)]} eager + {replayed[(k, sh)]} "
                   "replayed" for k, sh in shapes), flush=True)
@@ -2386,7 +2521,7 @@ def two_engines(torch, cfg, params, label, submit, max_seq,
                 into[k] += v
         out["tokens"][kind] = {r.rid: list(r.output) for r in run["done"]}
         out[kind] = (eng, run)
-    if out["tokens"]["slot"] != out["tokens"]["paged"]:
+    if same_tokens and out["tokens"]["slot"] != out["tokens"]["paged"]:
         fail(f"{label}: the paged engine's tokens {out['tokens']['paged']} "
              f"differ from the slot engine's {out['tokens']['slot']}")
     return out
@@ -2403,16 +2538,21 @@ def token_batch(torch, prompt, rows=None) -> dict:
 
 
 def first_logits(torch, label, api, params, done, batches, max_seq=None,
-                 last_index=None) -> None:
+                 last_index=None, explain=None) -> None:
     """Each request's prefill logits through the kernels against the same
     prefill with the plain versions (``planned.override(enabled=False)``),
     within ``LOGIT_ATOL``, and the engine's first token their argmax.
     ``batches`` are the requests' prefill inputs in rid order, the cache
     has ``max_seq`` rows (default: the prompt's), and ``last_index`` gives
-    each bucketed prompt's last token, where its logits are read."""
+    each bucketed prompt's last token, where its logits are read.  With
+    ``explain`` (an MoE model: ``explain(rid, logits)`` gives (whether,
+    and why) the miss is routing near-ties, ``routing_explained``) a
+    request past ``LOGIT_ATOL`` passes only where that holds, and its
+    first token must still be their argmax."""
     from repro_torch.kernels import planned
 
     worst = scale = 0.0
+    explained = []
     by_rid = {r.rid: r for r in done}
     with torch.no_grad():
         for rid, batch in enumerate(batches):
@@ -2431,16 +2571,29 @@ def first_logits(torch, label, api, params, done, batches, max_seq=None,
             err = (logits.float() - want.float()).abs().max().item()
             worst = max(worst, err)
             scale = max(scale, want.float().abs().max().item())
-            if err > LOGIT_ATOL:
+            if explain and err > LOGIT_ATOL:
+                ok, why = explain(rid, logits)
+                print(f"{label} request {rid} ({rows} rows): prefill logits "
+                      f"differ by {err} > {LOGIT_ATOL} from the plain "
+                      f"versions; {why}", flush=True)
+                if not ok:
+                    fail(f"{label} request {rid}: the miss is not explained "
+                         "by near-tie routing flips")
+                explained.append(rid)
+            elif err > LOGIT_ATOL:
                 fail(f"{label} request {rid} ({rows} rows): prefill logits "
                      f"differ by {err} > {LOGIT_ATOL} from the plain "
                      "versions")
             if by_rid[rid].output[0] != int(torch.argmax(logits[0])):
                 fail(f"{label} request {rid}: engine's first token is not "
                      "the argmax of its prefill logits")
+    held = [rid for rid in range(len(batches)) if rid not in explained]
     print(f"{label}: prefill logits of the {len(batches)} requests match the "
-          f"plain versions, max |diff| {worst:.4f} <= {LOGIT_ATOL} (max "
-          f"|logit| {scale:.3f}); first tokens are their argmax", flush=True)
+          f"plain versions, max |diff| {worst:.4f} (max |logit| "
+          f"{scale:.3f}), within {LOGIT_ATOL} for requests {held}"
+          + (f", past it for {explained} only by near-tie routing flips"
+             if explained else "")
+          + "; first tokens are their argmax", flush=True)
 
 
 def profile_call(torch, label, fn, runs=3) -> tuple[float, dict]:
@@ -2612,18 +2765,22 @@ def offline_audio(torch, device_name: str) -> dict:
     return out
 
 
-def long_timings(torch) -> dict:
-    """The ``LONG_SHAPES`` GEMMs in bf16 on the runtime's configuration
-    against their plain versions, and timed: ``torch.profiler`` device
-    time of the hand kernel and of ``torch.matmul``/``torch.bmm`` (the
-    weight GEMMs over a rotation of ``COLD_BYTES`` of B), the plain
-    version by CUDA events, and the bound."""
+def gemm_timings(torch, timed=LONG_SHAPES, seed=12) -> dict:
+    """The GEMMs of ``timed`` (``LONG_SHAPES``' layout) on the runtime's
+    configuration against their plain versions, and timed:
+    ``torch.profiler`` device time of the hand kernel and of
+    ``torch.matmul``/``torch.bmm`` (float32 with TF32 off; the weight
+    GEMMs over a rotation of ``COLD_BYTES`` of B; the library's CUDA-event
+    time where its profiler time reads below the bound, which only lost
+    records explain), the plain version by CUDA events, and the bound
+    (float32 on the tensor cores at three TF32 products a product, on the
+    skinny kernel at the CUDA cores' rate)."""
     from repro_torch.kernels import ref, runtime
 
-    gen = torch.Generator(device="cuda").manual_seed(12)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     rows = {}
-    for site, kind, shape, col, pad, flush in LONG_SHAPES:
-        dtype = torch.bfloat16
+    for site, kind, shape, col, pad, flush, dname in timed:
+        dtype = getattr(torch, dname)
         out_dtype = torch.float32 if flush else None
         a, bs = rotation(torch, gen, kind, shape, col, dtype)
         if pad:
@@ -2649,24 +2806,367 @@ def long_timings(torch) -> dict:
         row = dict(
             kernel=kernel, max_abs_err=err,
             ms=device_ms(torch, cycling(fn, a, bs), kernel, reps),
-            library_ms=device_ms(torch, cycling(library, a, bs), None,
-                                 reps),
+            library_device_ms=device_ms(
+                torch, cycling(library, a, bs), None, reps),
+            library_event_ms=time_ms(torch, cycling(library, a, bs),
+                                     reps=max(20, len(bs)), warmup=2),
             plain_ms=time_ms(torch, lambda: plain(a, b, out_dtype),
                              reps=10, warmup=2))
-        row["bound_ms"], row["bound_by"] = bound_ms(
-            kind, shape, 2, out.element_size(), "bfloat16")
+        if dname == "float32" and kernel == "gemm_tc_kernel":
+            (m, n, k), z = shape[-3:], (shape[0] if kind == "bmm" else 1)
+            row["bound_ms"], row["bound_by"] = least_ms(
+                z * (m * k + k * n + m * n) * 4, 3 * 2 * z * m * n * k,
+                "tfloat32")
+        else:
+            row["bound_ms"], row["bound_by"] = bound_ms(
+                kind, shape, dtype.itemsize, out.element_size(), dname)
+        # the library's device time sums its records over the calls; below
+        # the bound the profiler lost records, and the CUDA events stand
+        lib_ms = row["library_device_ms"]
+        row["library_ms"] = lib_ms if lib_ms is not None \
+            and lib_ms >= row["bound_ms"] else row["library_event_ms"]
         rows[(kind, shape)] = row
-        print(f"time {kind}{shape} bf16{'->fp32' if flush else ''} [{site}] "
-              f"{describe(tiles.tile, kind, shape)}"
+        print(f"time {kind}{shape} {dname}{'->fp32' if flush else ''} "
+              f"[{site}] {describe(tiles.tile, kind, shape)}"
               f"{', B column-major' if col else ''}"
               f"{', A in padded rows' if pad else ''}: device (profiler; "
               f"{len(bs)} B operand(s)) {kernel} {fmt_ms(row['ms'])}, "
-              f"torch.{lib.__name__} {fmt_ms(row['library_ms'])}, bound "
+              f"torch.{lib.__name__} {fmt_ms(row['library_ms'])} (profiler "
+              f"{fmt_ms(lib_ms)}, CUDA events "
+              f"{row['library_event_ms']:.4f} ms), bound "
               f"{row['bound_ms']:.4f} ms ({row['bound_by']}); plain "
               f"{row['plain_ms']:.4f} ms (CUDA events); max |err| {err:.4g}",
               flush=True)
         del a, b, bs, out
     return rows
+
+
+# ---------------------------------------------------------------------------
+# the MoE family: olmoe-1b-7b on both engines
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "olmoe-1b-7b"
+#: the olmoe phase's prompts: four of 4-16 tokens and these, 8 new tokens
+#: each, on engines of this horizon (512 + 8 tokens in whole blocks of
+#: ``PAGED_BLOCK``)
+MOE_LONG_PROMPTS = (64, 127, 256, 512)
+MOE_MAX_SEQ = 528
+#: the router's fp32 logits, hand kernel against the plain version on the
+#: same input: the registry's float32 atol (sums of 2048 products, 3xTF32
+#: above 16 rows); the first routing flip between the two whole-model
+#: paths must sit within this gap of the plain path's top-k probability
+#: to count as a near-tie (``routing_explained``)
+ROUTER_ATOL = 1e-3
+#: routing on the card against the same functions on the host on the same
+#: logits: fp32 softmax weights summed in another order
+ROUTE_ATOL = 1e-6
+#: the GEMMs the MoE path adds, timed (``LONG_SHAPES``' layout): the fp32
+#: router at a 4-lane decode step and a 512-token prompt, the expert
+#: stack at decode (C = 1) and at a 512-token prompt (C = 80)
+MOE_SHAPES = (
+    ("moe.router, decode", "mm", (4, 64, 2048), False, False, False,
+     "float32"),
+    ("moe.router, 512-token prefill", "mm", (512, 64, 2048), False, False,
+     False, "float32"),
+    ("moe.gate/up, decode", "bmm", (64, 1, 1024, 2048), False, False,
+     False, "bfloat16"),
+    ("moe.down, decode", "bmm", (64, 1, 2048, 1024), False, False, False,
+     "bfloat16"),
+    ("moe.gate/up, 512-token prefill", "bmm", (64, 80, 1024, 2048), False,
+     False, False, "bfloat16"),
+    ("moe.down, 512-token prefill", "bmm", (64, 80, 2048, 1024), False,
+     False, False, "bfloat16"),
+)
+MOE_SITES = ("moe.router", "moe.gate", "moe.up", "moe.down")
+
+
+def moe_parts(torch, cfg, params) -> None:
+    """The MoE block's parts on the card, each alone, on layer 0's weights
+    at a 4-lane decode step's and a 512-token prompt's token count: the
+    router's fp32 logits against the plain version (``ROUTER_ATOL``);
+    ``route`` against the same function on the host on the same logits
+    (ids equal but where two probabilities lie within ``ROUTE_ATOL``,
+    weights within it); ``dispatch_indices`` and ``dispatch`` on the
+    card's routing against the host's, bit for bit; each expert bmm
+    against the plain version on the same operands (the bf16 bound); the
+    combine against the host's on the same expert outputs, bit for bit;
+    two runs of the whole block the same bits."""
+    from repro_torch.kernels import planned, ref
+    from repro_torch.models import layers, moe
+
+    lp = params["layers"][0]["moe"]
+    e = cfg.moe_num_experts
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    act = layers.activation(cfg)
+    parts = []
+    for t in (SLOTS, MOE_LONG_PROMPTS[-1]):
+        cap = moe.capacity_of(cfg, t)
+        x = torch.randn((t, cfg.d_model), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        with torch.no_grad():
+            logits = planned.planned_dense(x.float(), lp["router"],
+                                           site="moe.router")
+            err, ok = max_error(torch, logits, ref.mm(x.float(), lp["router"]),
+                                torch.float32)
+            if not ok or err > ROUTER_ATOL:
+                fail(f"olmoe parts T={t}: router logits differ from the "
+                     f"plain version by {err}")
+            w, ids, _ = moe.route(cfg, logits)
+            hw, hids, hprobs = moe.route(cfg, logits.cpu())
+            flips = (ids.cpu() != hids).any(-1).nonzero().flatten().tolist()
+            for row in flips:
+                p = hprobs[row]
+                gap = (p[hids[row]].min() - p[ids[row].cpu()].min()).abs()
+                if gap > ROUTE_ATOL:
+                    fail(f"olmoe parts T={t}: token {row} routes to "
+                         f"{ids[row].tolist()} on the card, "
+                         f"{hids[row].tolist()} on the host (gap {gap})")
+            werr = (w.cpu() - hw).abs().max().item() if not flips else 0.0
+            if werr > ROUTE_ATOL:
+                fail(f"olmoe parts T={t}: routing weights differ from the "
+                     f"host's by {werr}")
+            idx = moe.dispatch_indices(cfg, ids, cap)
+            hidx = moe.dispatch_indices(cfg, ids.cpu(), cap)
+            buf = moe.dispatch(x, idx[1], idx[3], e, cap)
+            hbuf = moe.dispatch(x.cpu(), hidx[1], hidx[3], e, cap)
+            if not (all(torch.equal(a.cpu(), b) for a, b in zip(idx, hidx))
+                    and torch.equal(buf.cpu(), hbuf)):
+                fail(f"olmoe parts T={t}: dispatch on the card differs from "
+                     "the host's")
+            errs = {}
+            g = planned.planned_bmm(buf, lp["wg"], site="moe.gate")
+            u = planned.planned_bmm(buf, lp["wu"], site="moe.up")
+            h = act(g) * u
+            out = planned.planned_bmm(h, lp["wd"], site="moe.down")
+            for name, got, want in (("gate", g, ref.bmm(buf, lp["wg"])),
+                                    ("up", u, ref.bmm(buf, lp["wu"])),
+                                    ("down", out, ref.bmm(h, lp["wd"]))):
+                errs[name], ok = max_error(torch, got, want, torch.bfloat16)
+                if not ok:
+                    fail(f"olmoe parts T={t}: moe.{name} bmm {tuple(buf.shape)}"
+                         f" differs from the plain version by {errs[name]}")
+            with planned.override(enabled=False):
+                chain = moe.expert_ffn(cfg, lp["wg"], lp["wu"], lp["wd"], buf)
+            chain_err = (out.float() - chain.float()).abs().max().item()
+            flat = out.reshape(e * cap, -1)
+            y = moe.combine(flat, w, idx[0], idx[1], idx[2])
+            hy = moe.combine(flat.cpu(), w.cpu(), *(i.cpu() for i in idx[:3]))
+            if not torch.equal(y.cpu(), hy):
+                fail(f"olmoe parts T={t}: the combine on the card differs "
+                     "from the host's on the same expert outputs")
+            again = [moe.moe_ffn_tokens(cfg, lp, x) for _ in range(2)]
+            if not torch.equal(*again):
+                fail(f"olmoe parts T={t}: two runs of the MoE block differ")
+        torch.cuda.synchronize()
+        kept = int(idx[2].sum())
+        parts.append(
+            f"T={t} (C={cap}, {kept} of {t * cfg.moe_top_k} assignments "
+            f"kept): router max |err| {err:.3g}, routing flips between "
+            f"card and host {len(flips)}, expert bmm max |err| "
+            + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+            + f", the chain {chain_err:.3g} against the plain chain (not "
+            "held: three bf16 roundings apart)")
+    print(f"olmoe parts: router within {ROUTER_ATOL} of the plain version, "
+          f"routing the host's on the same logits (weights within "
+          f"{ROUTE_ATOL}), dispatch and combine bit for bit the host's, "
+          f"each expert bmm within the bf16 bound, the block deterministic; "
+          + "; ".join(parts), flush=True)
+
+
+def routing_explained(torch, api, params, batch, max_seq,
+                      logits) -> tuple[bool, str]:
+    """Whether the hand kernels' prefill ``logits`` of ``batch`` miss the
+    plain versions' by routing near-ties only, and the evidence.  The
+    prefill runs twice more with each layer's routing recorded: on the
+    plain versions, and on the plain versions with the hand kernels'
+    top-k ids forced at every layer (each weight renormalised from the
+    plain path's own probabilities).  A flip is an expert the kernels'
+    path chose and the plain path did not, with the gap by which its
+    probability on the plain path misses that path's k-th.  Explained:
+    every flip of the first layer that has any is a near-tie, its gap
+    within ``ROUTER_ATOL`` (the layers after it route hidden states that
+    the flip has already moved, and capacity couples the prompt's
+    tokens, so their gaps say nothing of ties), and with the kernels'
+    routing forced the plain versions' logits are within ``LOGIT_ATOL``
+    of the kernels' (what is left once routing agrees is bf16
+    rounding)."""
+    from repro_torch.kernels import planned
+    from repro_torch.models import moe
+
+    route = moe.route
+
+    def run(enabled, forced=None):
+        seen = []
+
+        def recording(cfg, layer_logits):
+            w, ids, probs = route(cfg, layer_logits)
+            if forced is not None:
+                ids = forced[len(seen)].to(ids.device)
+                w = probs.gather(-1, ids)
+                w = w / w.sum(dim=-1, keepdim=True)
+            seen.append((ids.cpu(), probs.cpu()))
+            return w, ids, probs
+
+        moe.route = recording
+        try:
+            with torch.no_grad(), planned.override(enabled=enabled):
+                out, _ = api.prefill(params, batch, max_seq)
+        finally:
+            moe.route = route
+        return out, seen
+
+    _, kernels = run(True)
+    _, plain = run(False)
+    forced, _ = run(False, [ids for ids, _ in kernels])
+    flips = []
+    for layer, ((ids, _), (pids, probs)) in enumerate(zip(kernels, plain)):
+        kth = probs.gather(-1, pids).min(-1).values
+        for tok in range(ids.shape[0]):
+            for ex in sorted(set(ids[tok].tolist()) - set(pids[tok].tolist())):
+                flips.append((layer, tok, ex,
+                              round(float(kth[tok] - probs[tok, ex]), 7)))
+    first = [f for f in flips if f[0] == flips[0][0]] if flips else []
+    forced_err = (logits.float() - forced.float()).abs().max().item()
+    ok = bool(first) and max(f[3] for f in first) <= ROUTER_ATOL \
+        and forced_err <= LOGIT_ATOL
+    return ok, (f"{len(flips)} routing flips (layer, token, expert, "
+                f"probability gap to the plain path's k-th) {flips}; the "
+                f"first, in layer {first[0][0] if first else None}, with "
+                f"gaps within {ROUTER_ATOL}: "
+                f"{bool(first) and max(f[3] for f in first) <= ROUTER_ATOL}"
+                f"; with the kernels' routing forced, the plain versions' "
+                f"logits differ by {forced_err:.4f} (<= {LOGIT_ATOL}: "
+                f"{forced_err <= LOGIT_ATOL})")
+
+
+def moe_one_lane(torch, cfg, params, prompts, device_name) -> None:
+    """``prompts`` on a 1-slot slot engine and a 1-lane paged engine (its
+    step captured in ``load()``): the same greedy tokens, as the
+    reference's ``test_paged_matches_slot_across_families`` holds its
+    MoE at 1 lane."""
+    from repro_torch.serve import make_engine
+
+    outs = []
+    for kind, kw in (("slot", dict(max_slots=1)),
+                     ("paged", dict(max_lanes=1, block_size=PAGED_BLOCK))):
+        eng = make_engine(cfg, kind=kind, max_seq=MOE_MAX_SEQ,
+                          device="cuda", **kw)
+        eng.load(params)
+        for p in prompts:
+            eng.submit_text(p, max_new_tokens=MAX_NEW)
+        outs.append({r.rid: list(r.output) for r in eng.run_until_drained()})
+        if kind == "paged" and eng.stats["decode_compiles"] != 1:
+            fail(f"olmoe 1 lane: paged stats {eng.stats}")
+        del eng
+    if outs[0] != outs[1]:
+        fail(f"olmoe 1 lane: the paged engine's tokens {outs[1]} differ from "
+             f"the slot engine's {outs[0]}")
+    print(f"olmoe 1 lane: {len(prompts)} requests, the paged engine's "
+          f"tokens equal the slot engine's ({sum(map(len, outs[0].values()))}"
+          f" tokens) on {device_name}", flush=True)
+
+
+def moe_phase(torch, device_name: str) -> dict:
+    """Phase 11: full-width olmoe-1b-7b (bf16, 16 layers, 64 experts of ff
+    1024, top-8; random weights seeded with 0, drawn on the card) serving
+    four prompts of 4-16 tokens and ``MOE_LONG_PROMPTS``, 8 new tokens
+    each, on the slot and the paged engine (``two_engines``; the paged
+    engine prefills MoE at exact lengths and its tokens may differ from
+    the slot engine's at 4 lanes, since capacity couples the lanes), with
+    every MoE site planned and no fallback; the block's parts
+    (``moe_parts``), each prompt's prefill logits against the plain
+    versions (a miss explained only by near-tie routing flips), the paged
+    engine's first tokens the slot engine's, 1-lane slot == paged tokens,
+    and the eager decode step, the captured paged step and a 512-token
+    prefill profiled.  Returns each engine's launches, launches by kernel
+    and ``MOE_SHAPES`` launches."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = get_config(MOE_ARCH)
+    t0 = time.perf_counter()
+    params = build_model(cfg, "cuda").init(
+        torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    weights = sum(t.numel() * t.element_size() for t in iter_tensors(params))
+    print(f"olmoe: {MOE_ARCH} at full width ({cfg.n_layers} layers, d "
+          f"{cfg.d_model}, {cfg.moe_num_experts} experts of ff "
+          f"{cfg.moe_d_ff}, top-{cfg.moe_top_k}, vocab {cfg.vocab}, "
+          f"{cfg.dtype}; {weights / 1e9:.2f} GB of weights) drawn on the "
+          f"card in {time.perf_counter() - t0:.1f} s", flush=True)
+    moe_parts(torch, cfg, params)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab, int(rng.integers(4, 17)))
+               for _ in range(4)]
+    prompts += [rng.integers(0, cfg.vocab, n) for n in MOE_LONG_PROMPTS]
+
+    def submit(e):
+        for p in prompts:
+            e.submit_text(p, max_new_tokens=MAX_NEW)
+        return len(prompts)
+
+    out = two_engines(torch, cfg, params, "olmoe", submit, MOE_MAX_SEQ,
+                      device_name, timed=MOE_SHAPES, same_tokens=False,
+                      tied=False)
+    (slot, run), (paged, prun) = out["slot"], out["paged"]
+    for kind, report in (("slot", run["report"]), ("paged", prun["report"])):
+        bad = {s: report.get(s) for s in MOE_SITES
+               if not report.get(s, {}).get("planned")
+               or report[s]["fallback"]}
+        if bad:
+            fail(f"olmoe {kind}: MoE sites that did not plan: {bad}")
+    merged = {s: {"shapes": {**run["report"].get(s, {}).get("shapes", {}),
+                             **prun["report"].get(s, {}).get("shapes", {})}}
+              for s in {*run["report"], *prun["report"]}}
+    drain_parity(torch, merged, "olmoe", tied=False)
+    batches = [token_batch(torch, p) for p in prompts]
+
+    def explain(rid, logits):
+        return routing_explained(torch, slot.api, params, batches[rid],
+                                 len(prompts[rid]), logits)
+
+    first_logits(torch, "olmoe", slot.api, params, run["done"], batches,
+                 explain=explain)
+    firsts = {r.rid: r.output[0] for r in prun["done"]}
+    if firsts != {r.rid: r.output[0] for r in run["done"]}:
+        fail(f"olmoe: the paged engine's exact-length prefills gave first "
+             f"tokens {firsts}, not the slot engine's")
+    same = sum(out["tokens"]["slot"][rid] == out["tokens"]["paged"][rid]
+               for rid in firsts)
+    print(f"olmoe: the paged engine's first tokens equal the slot engine's "
+          f"(stats {paged.stats}); all {MAX_NEW} tokens equal in {same} of "
+          f"{len(prompts)} requests (capacity couples the {SLOTS} lanes, "
+          "which the two engines fill in other orders)", flush=True)
+    cache = slot.api.init_cache(SLOTS, MOE_MAX_SEQ)
+    tokens = torch.zeros((SLOTS, 1), dtype=torch.int32, device="cuda")
+    profile_call(torch, f"olmoe decode step ({SLOTS} lanes, max_seq "
+                 f"{MOE_MAX_SEQ}, eager)",
+                 lambda: slot.api.decode(params, cache, tokens), runs=5)
+    profile_call(torch, f"olmoe captured paged decode step ({SLOTS} lanes; "
+                 "the replay stages the tables, replays and reads the "
+                 "tokens)", lambda: paged._decode([]), runs=5)
+    profile_call(torch, f"olmoe prefill of {MOE_LONG_PROMPTS[-1]} tokens",
+                 lambda: slot.api.prefill(params, batches[-1],
+                                          MOE_LONG_PROMPTS[-1]), runs=5)
+    by_engine = out["by_engine"]
+    del slot, paged, cache, run, prun, out
+    torch.cuda.empty_cache()
+    moe_one_lane(torch, cfg, params, prompts[:4], device_name)
+    print(f"olmoe: on {device_name} [{nvidia_smi()}]", flush=True)
+    return {"olmoe": by_engine["slot"], "olmoe_paged": by_engine["paged"]}
+
+
+def iter_tensors(tree):
+    """Every tensor of a parameter tree (dicts and lists)."""
+    if isinstance(tree, dict):
+        tree = tree.values()
+    for node in tree:
+        if isinstance(node, (dict, list)):
+            yield from iter_tensors(node)
+        else:
+            yield node
 
 
 # ---------------------------------------------------------------------------
@@ -3087,12 +3587,18 @@ def int_gemm_timings(torch) -> dict:
         device = None if None in (gemm, pre) else gemm + pre
         tiled_ms = time_ms(torch, lambda: tiled(a, b), 1, 1) if paper else \
             device_ms(torch, lambda: tiled(a, b), "gemm_kernel", reps)
+        # at the paper's shapes the route is timed as the tiled kernel is,
+        # with CUDA events (both launches, pre-pass and GEMM), for the gate
+        # below: the profiler can drop a kernel's records in every trace
+        events = time_ms(torch, lambda: call(a, b), reps, 1) if paper \
+            else None
         ops = 2 * z * m * n * k
         moved = z * ((m * k + k * n) * dtype.itemsize + m * n * 4)
         bound, by = least_ms(moved, ops * LIMB_PRODUCTS[name], "int8")
         row = dict(tiles=tiles, device_ms=device, gemm_ms=gemm, prepass_ms=pre,
                    tops=None if device is None else ops / device / 1e9,
                    bound_ms=bound, bound_by=by, tiled_ms=tiled_ms,
+                   events_ms=events,
                    tiled_timer="events, one call" if paper else "device",
                    plain_ms=plain_ms, library_ms=None, max_abs_err=0.0)
         lib_text = "none on the card" + ("" if kind == "mm" else
@@ -3124,7 +3630,10 @@ def int_gemm_timings(torch) -> dict:
               f"device {fmt_ms(device)} (gemm_tc_int_kernel {fmt_ms(gemm)} + "
               f"limb_planes_kernel {fmt_ms(pre)}), {tops}, bound "
               f"{bound:.5f} ms ({by}; int8 tensor-core rate x "
-              f"{LIMB_PRODUCTS[name]} product(s)); tiled {tile} "
+              f"{LIMB_PRODUCTS[name]} product(s)); "
+              + ("" if events is None else
+                 f"route {fmt_ms(events)} (events, {reps} calls); ")
+              + f"tiled {tile} "
               f"{fmt_ms(tiled_ms)} ({row['tiled_timer']}); library {lib_text}; "
               f"plain {plain_ms:.1f} ms (host clock); bit-exact, both kernels",
               flush=True)
@@ -3138,12 +3647,16 @@ def int_gemm_timings(torch) -> dict:
           f"at {slower or 'none'} (at the smoke shapes the route's two "
           f"launches, pre-pass and GEMM, each take microseconds of fixed "
           f"device time, against the tiled kernel's one launch)", flush=True)
-    # the paper's table is what the route is for: it must win there
-    paper_slower = [key for key in slower if key in {
-        f"{k}{s} {d}" for k, s, d in paper_cases(floats=False)}]
+    # the paper's table is what the route is for: it must win there, on
+    # the CUDA events' clock that times both
+    paper_slower = [f"{k}{s} {d}" for k, s, d in paper_cases(floats=False)
+                    if not rows[(k, s, d)]["events_ms"]
+                    < rows[(k, s, d)]["tiled_ms"]]
     if paper_slower:
         fail(f"integer GEMMs on the tensor cores not faster than the tiled "
-             f"kernel they replace at the paper's shapes: {paper_slower}")
+             f"kernel they replace at the paper's shapes (CUDA events, both "
+             f"launches of the route against the tiled kernel's one): "
+             f"{paper_slower}")
     return rows
 
 
@@ -3673,6 +4186,9 @@ def main(argv=None) -> int:
     ap.add_argument("--fft-sweep", action="store_true",
                     help="only time the fused fft2d kernel with every split "
                          "of K at the frontend and pipeline grids")
+    ap.add_argument("--skinny-sweep", action="store_true",
+                    help="only time the skinny GEMM with every split of K "
+                         "at the MoE router's and other small-B shapes")
     ap.add_argument("--tc-sweep", action="store_true",
                     help="only time the tensor-core GEMM with every tile, "
                          "split and ring depth at the prefill shapes")
@@ -3711,7 +4227,8 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     paths = build.build(("widesa_hpc",) if args.mttkrp_sweep
-                        else ("widesa_mm",) if args.tc_sweep
+                        else ("widesa_mm",)
+                        if args.tc_sweep or args.skinny_sweep
                         else ("widesa_mm", "widesa_sp") if args.fft_sweep
                         else ("widesa_sp",)
                         if args.conv2d_sweep or args.fir_sweep
@@ -3729,9 +4246,10 @@ def main(argv=None) -> int:
           f"{'; '.join(kernel_resources(build.build_log))})", flush=True)
 
     if args.mttkrp_sweep or args.tc_sweep or args.fft_sweep \
-            or args.conv2d_sweep or args.fir_sweep:
+            or args.conv2d_sweep or args.fir_sweep or args.skinny_sweep:
         rows = (mttkrp_sweep(torch) if args.mttkrp_sweep
                 else tc_sweep(torch) if args.tc_sweep
+                else skinny_sweep(torch) if args.skinny_sweep
                 else conv2d_sweep(torch) if args.conv2d_sweep
                 else fir_sweep(torch) if args.fir_sweep
                 else fft_sweep(torch))
@@ -3795,7 +4313,10 @@ def main(argv=None) -> int:
                             for key in ("launches", "variants", "shapes")}
         del out
         torch.cuda.empty_cache()
-    long_rows = long_timings(torch)
+    moe_paths = moe_phase(torch, name)
+    torch.cuda.empty_cache()
+    long_rows = gemm_timings(torch)
+    moe_rows = gemm_timings(torch, MOE_SHAPES, seed=15)
     torch.cuda.empty_cache()
     rec_launches, rec_variants, hpc_rows, gemm_rows = \
         recurrences_phase(torch)
@@ -3816,6 +4337,8 @@ def main(argv=None) -> int:
                          "whisper_paged": pstream_launches[kname],
                          **{path: long_paths[path]["launches"][kname]
                             for path in long_paths},
+                         **{path: moe_paths[path]["launches"][kname]
+                            for path in moe_paths},
                          "recurrences": rec_launches[kname]},
             "max_abs_err": row["max_abs_err"],
             "ms": row["ms"], "plain_ms": row["plain_ms"],
@@ -3836,6 +4359,8 @@ def main(argv=None) -> int:
                 "whisper_paged": pstream_variants[kname],
                 **{path: long_paths[path]["variants"][kname]
                    for path in long_paths},
+                **{path: moe_paths[path]["variants"][kname]
+                   for path in moe_paths},
                 "recurrences": rec_variants[kname]}
             keys = {"mttkrp": ("device_ms", "cuda_core_device_ms",
                                "library_device_ms", "cuda_core_bound_ms"),
@@ -3884,6 +4409,16 @@ def main(argv=None) -> int:
                         path: long_paths[path]["shapes"][(kind, shape)]
                         for path in long_paths}}
                 for (k, shape), r in long_rows.items() if k == kind}
+            # the MoE path's router (float32) and expert stack, each with
+            # its launches on the olmoe paths
+            entry["moe"] = {
+                f"{kind}{shape} {dname}": {**{key: moe_rows[(kind, shape)][
+                    key] for key in ("kernel", "ms", "plain_ms",
+                                     "library_ms", "bound_ms", "bound_by",
+                                     "max_abs_err")},
+                    "launches": {path: moe_paths[path]["shapes"][
+                        (kind, shape)] for path in moe_paths}}
+                for _, k, shape, *_, dname in MOE_SHAPES if k == kind}
         if kname in WGMMA_SHAPES:
             # the tensor-core kernel at its prefill shape, the tiled
             # kernel and the library call beside it; the integer one at

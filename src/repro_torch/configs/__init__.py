@@ -3,10 +3,10 @@
 ``get_config(arch)`` gives the published full-width configuration and
 ``get_smoke_config(arch)`` the reduced one the tests use; both are copies
 of the reference's configs.  The port registers the archs it runs
-(qwen1.5-0.5b serves text; whisper-base serves
-precomputed frames and streamed audio; qwen3-32b's
-grouped KV heads are held against the reference in the tests); every
-other arch is not ported yet and raises.
+(qwen1.5-0.5b serves text; olmoe-1b-7b, the MoE family, serves text
+through its expert stack; whisper-base serves precomputed frames and
+streamed audio; qwen3-32b's grouped KV heads are held against the
+reference in the tests); every other arch is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ from .base import ModelConfig
 
 _ARCH_MODULES = {
     "qwen1.5-0.5b": "qwen15_05b",
+    "olmoe-1b-7b": "olmoe_1b_7b",
     "qwen3-32b": "qwen3_32b",
     "whisper-base": "whisper_base",
 }

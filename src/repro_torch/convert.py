@@ -2,15 +2,16 @@
 
 ``params_from_jax(np_tree, cfg, device)`` takes the reference model's
 parameter tree with every leaf already converted to a numpy array (the
-layers stacked along a leading L axis: ``dense_layers`` for the dense
-family, ``enc_layers``/``dec_layers`` for encdec) and returns the port's
-dict, one entry per layer in ``layers`` (dense) or in
+layers stacked along a leading L axis: ``dense_layers`` and, for the MoE
+family, ``moe_layers``; ``enc_layers``/``dec_layers`` for encdec) and
+returns the port's dict, one entry per layer in ``layers`` (dense and
+MoE: the dense layers first, as the reference runs them) or in
 ``enc_layers``/``dec_layers`` (encdec).  bfloat16 leaves (numpy's
 ``bfloat16`` extension dtype) keep their bits.
 
 ``init_params(cfg, generator, device)`` draws full-width weights on the
 device from a seeded ``torch.Generator`` (``models/transformer.py`` for
-dense, ``models/encdec.py`` for encdec).
+dense and MoE, ``models/encdec.py`` for encdec).
 """
 
 from __future__ import annotations
@@ -55,15 +56,19 @@ def params_from_jax(np_tree: dict, cfg, device="cuda") -> dict:
             **{k: _tree(np_tree[k], device)
                for k in ("embed", "pos_dec", "ln_enc", "ln_f")},
         }
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe") or cfg.use_mla:
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported; the port runs dense "
-            "decoders and encdec")
-    stacked = np_tree["dense_layers"]
+            f"family {cfg.family!r}{' with MLA' if cfg.use_mla else ''} is "
+            "not ported; the port runs dense and MoE decoders with GQA "
+            "attention, and encdec")
+    layers = []
+    for group, n in zip(("dense_layers", "moe_layers"),
+                        transformer.layer_split(cfg)):
+        layers += [_tree(np_tree[group], device, i) for i in range(n)]
     p = {
         "embed": _tensor(np_tree["embed"], device),
         "ln_f": _tree(np_tree["ln_f"], device),
-        "layers": [_tree(stacked, device, i) for i in range(cfg.n_layers)],
+        "layers": layers,
     }
     if "lm_head" in np_tree:
         p["lm_head"] = _tensor(np_tree["lm_head"], device)

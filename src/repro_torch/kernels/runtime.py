@@ -23,8 +23,11 @@ mm, bmm and the fft2d composition's products run one of four kernels of
   1 MiB, K split over the blocks of a cluster (at most 8) until the grid
   has three blocks for each of the card's 132 SMs, as far as K and the A
   each block stages in shared memory allow (``SKINNY_SPLIT_BYTES``,
-  ``SKINNY_TARGET_BLOCKS``).  B's layout and alignment decide the copy width
-  (``b_copy_bytes``): rows of B must allow copies of at least 4 bytes.
+  ``SKINNY_TARGET_BLOCKS``); for a smaller B whose column tiles leave SMs
+  idle (the MoE router's float32 [d, 64]), until no block walks more than
+  ``SKINNY_DEEP_STAGES`` ring stages of K.  B's layout and alignment
+  decide the copy width (``b_copy_bytes``): rows of B must allow copies
+  of at least 4 bytes.
 * The tensor-core kernels take A of more than 16 rows in bf16 (to bf16
   or fp32), float32 (3xTF32), int8, int16 and int32 (as int8 limbs; to
   int32) where TMA can address both operands (``tma_operand``: a 16-byte
@@ -214,6 +217,17 @@ SKINNY_A_BYTES = 96 * 1024
 #: decode: 0.0065 ms at 176 blocks, 0.0056-0.0058 ms at 352-704)
 SKINNY_SPLIT_BYTES = 2**20
 SKINNY_TARGET_BLOCKS = 3 * SMS
+#: a B of at most ``SKINNY_SPLIT_BYTES`` is split all the same where its
+#: column tiles are fewer than the SMs and a block would walk more than
+#: this many ring stages of K: then until no rank walks more (or the
+#: cluster is full).  On an H100 (``chip_smoke.py --skinny-sweep``,
+#: PERF.md): the MoE router's float32 mm(4, 64, 2048), 2 blocks of 64
+#: stages, took 0.0551 ms whole and 0.0097 ms at split 8; whisper-base's
+#: d 512 projections at decode (8 stages) 0.0050 and 0.0036 at split 4;
+#: its encoder chunk's values over 1024 frames (16 stages) 0.0086 and
+#: 0.0044 at split 8; qwen's decode values (2 stages, 128 blocks) stay
+#: whole (0.0024; split 2 0.0036)
+SKINNY_DEEP_STAGES = 2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -243,20 +257,26 @@ def skinny_tile(m: int, n: int, k: int, batch: int,
     an empty extent, or more A per block than ``SKINNY_A_BYTES`` even at
     the largest split).  The split is the smallest that keeps A's stage
     within ``SKINNY_A_BYTES`` and, for a B above ``SKINNY_SPLIT_BYTES``,
-    gives the grid ``SKINNY_TARGET_BLOCKS`` blocks (else the largest K
-    allows); every block of a cluster reduces a non-empty range of K."""
+    gives the grid ``SKINNY_TARGET_BLOCKS`` blocks, or, for a smaller B
+    whose column tiles are fewer than the SMs, keeps each rank within
+    ``SKINNY_DEEP_STAGES`` stages of K (else the largest K allows); every
+    block of a cluster reduces a non-empty range of K."""
     if not (1 <= m <= SKINNY_ROWS and n >= 1 and k >= 1):
         return None
     bk = skinny_bk(dtype)
     stages = -(-k // bk)
     spread = n * k * batch * dtype.itemsize > SKINNY_SPLIT_BYTES
+    deep = not spread and -(-n // SKINNY_BN) * batch < SMS
     best = None
     for split in range(1, min(SKINNY_MAX_CLUSTER, stages) + 1):
         kblk = -(-stages // split) * bk
         if m * kblk * dtype.itemsize > SKINNY_A_BYTES:
             continue
         best = SkinnyTile(split=-(-k // kblk), kblk=kblk)
-        if not spread or best.blocks(n, batch) >= SKINNY_TARGET_BLOCKS:
+        if spread:
+            if best.blocks(n, batch) >= SKINNY_TARGET_BLOCKS:
+                break
+        elif not deep or kblk // bk <= SKINNY_DEEP_STAGES:
             break
     return best
 

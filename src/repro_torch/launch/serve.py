@@ -6,10 +6,12 @@
         --stream-audio [--full] [--device cpu]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \
         --engine paged [--block-size 16] [--num-blocks N] [--full]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \
+        --full --max-seq 528 [--engine paged]
 
 ``--full`` serves the published full-width configuration instead of the
-reduced smoke one; weights are drawn from a ``torch.Generator`` seeded
-with 0 on ``--device``.  ``--stream-audio`` (encdec archs) submits
+reduced smoke one (olmoe-1b-7b: 13.8 GB of weights); weights are drawn
+from a ``torch.Generator`` seeded with 0 on ``--device``.  ``--stream-audio`` (encdec archs) submits
 synthesized int16 audio streams of ``1 + i % (enc_frames //
 frames_per_chunk)`` chunks for request ``i`` through the planned
 frontend chunk by chunk, and checks after the drain that the frontend's

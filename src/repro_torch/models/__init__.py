@@ -1,4 +1,4 @@
-"""Model stack of the port (dense and encdec families)."""
+"""Model stack of the port (dense, MoE and encdec families)."""
 
 from .model import ModelAPI, build_model
 

@@ -385,19 +385,23 @@ def apply_attention_decode_paged(p, cfg, x, pool_k, pool_v, block_tables,
 # MLP
 # ---------------------------------------------------------------------------
 
+def activation(cfg):
+    """The GLU's activation: silu, else gelu in the tanh form
+    (``jax.nn.gelu``'s default)."""
+    if cfg.act == "silu":
+        return F.silu
+    return lambda t: F.gelu(t, approximate="tanh")
+
+
 def apply_mlp(p, cfg, x):
-    act_name = "silu" if cfg.act == "silu" else "gelu"
     if not cfg.mlp_glu:
         # up -> bias+act -> down is the registry's mm+mm chain; the output
         # bias stays outside the chain
+        act_name = "silu" if cfg.act == "silu" else "gelu"
         out = planned_mlp_pair(x, p["wu"], p["bu"], p["wd"], act=act_name,
                                site="mlp.pair")
         return out + p["bd"]
-    if act_name == "silu":
-        act = F.silu
-    else:  # jax.nn.gelu's default is the tanh approximation
-        def act(t):
-            return F.gelu(t, approximate="tanh")
+    act = activation(cfg)
     h = act(planned_dense(x, p["wg"], site="mlp.gate")) * planned_dense(
         x, p["wu"], site="mlp.up")
     return planned_dense(h, p["wd"], site="mlp.down")

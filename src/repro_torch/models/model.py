@@ -17,7 +17,8 @@ indexed through the block tables), ``"lane"`` (one fixed-size block a
 lane) or ``"lane_scalar"`` (one scalar a lane); ``paged_decode`` writes
 the pools in place and never moves ``pos``.
 
-The dense and encdec families are ported; the others raise.  encdec's
+The dense, MoE (GQA attention; not MLA) and encdec families are
+ported; the others raise.  encdec's
 ``prefill`` encodes the batch's precomputed ``frames`` [B, F, d] and runs
 the prompt against their cross K/V.  It also serves streamed audio:
 ``enc_init(b, f_max)`` builds the incremental encoder state,
@@ -65,10 +66,11 @@ def build_model(cfg: ModelConfig, device="cuda") -> ModelAPI:
     cache_dtype = TFM.cache_dtype_of(cfg)
     if cfg.family == "encdec":
         return _encdec_api(cfg, device, cache_dtype)
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe") or cfg.use_mla:
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported; the port serves dense "
-            "decoders and encdec")
+            f"family {cfg.family!r}{' with MLA' if cfg.use_mla else ''} is "
+            "not ported; the port serves dense and MoE decoders with GQA "
+            "attention, and encdec")
 
     def prefill(p, batch, max_seq, last_index=None):
         return TFM.prefill(p, cfg, batch["tokens"], max_seq,

@@ -1,0 +1,168 @@
+"""Mixture-of-Experts block of the port (``repro.models.moe``): top-k
+routing, capacity with drop-on-overflow, shared experts, on one device.
+
+Routing is the reference's: an fp32 router GEMM (``planned_dense`` at
+``moe.router``), softmax, top-k (ties to the lower expert index, as
+``lax.top_k``), the k weights renormalised (``route``).  Dispatch is
+sort-based (``dispatch_indices``): the T·k assignments sorted stably by
+expert, each ranked within its expert by ``searchsorted``, those ranked
+at ``capacity = max(1, ceil(T·k·cf / E))`` or later dropped.  The kept
+rows fill an [E, C, d] buffer (``dispatch``), the expert stack runs as
+three planned bmm calls over [E, C, d] x [E, d, ff] (``expert_ffn``:
+``moe.gate``, ``moe.up``, ``moe.down``) and each token sums its k
+weighted expert outputs (``combine``).
+
+Two things differ from the reference's form, not from its result:
+
+* the buffer is gathered (each slot reads the row of the assignment
+  ranked there) instead of scatter-added, and the combine un-permutes
+  the contributions to [T, k] and adds each token's in ascending expert
+  order, one add at a time in the compute dtype: the order of the
+  reference's ``.at[token].add`` over the expert-sorted assignments.  No
+  atomics, so repeated drains give the same bits;
+* nothing waits on the host (no boolean-mask indexing, ``nonzero`` or
+  ``.item()``; the capacity is a Python int of T), so the paged engine's
+  decode step, which routes every lane, inactive ones too, as the
+  reference does, is captured as one CUDA graph.
+
+The reference's mesh paths (``_moe_shard_map``, ``moe_ep_alltoall``) and
+its load-balance loss (training) are not ported.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels.planned import planned_bmm, planned_dense
+
+from . import layers as L
+
+
+def init_moe(cfg, generator: torch.Generator, device="cuda") -> dict:
+    """Random weights drawn on ``device`` with the reference's scales: the
+    router [d, E] fp32 at 0.02, the experts [E, d, ff] / [E, ff, d] at
+    N(0, 1/d_in) in the compute dtype, and the shared experts' GLU when
+    ``moe_shared_experts`` > 0."""
+    d, e, ff = cfg.d_model, cfg.moe_num_experts, cfg.moe_d_ff
+    dt = L.compute_dtype(cfg)
+
+    def normal(shape, scale, dtype=dt):
+        w = torch.randn(shape, generator=generator, device=device,
+                        dtype=torch.float32)
+        return w.mul_(scale).to(dtype)
+
+    p = {"router": normal((d, e), 0.02, torch.float32),
+         "wg": normal((e, d, ff), 1.0 / math.sqrt(d)),
+         "wu": normal((e, d, ff), 1.0 / math.sqrt(d)),
+         "wd": normal((e, ff, d), 1.0 / math.sqrt(ff))}
+    if cfg.moe_shared_experts:
+        sf = cfg.moe_shared_experts * cfg.moe_d_ff
+        p["shared_wg"] = normal((d, sf), 1.0 / math.sqrt(d))
+        p["shared_wu"] = normal((d, sf), 1.0 / math.sqrt(d))
+        p["shared_wd"] = normal((sf, d), 1.0 / math.sqrt(sf))
+    return p
+
+
+def capacity_of(cfg, t: int) -> int:
+    """Slots an expert holds for a batch of ``t`` tokens."""
+    return max(1, int(math.ceil(
+        t * cfg.moe_top_k * cfg.moe_capacity_factor / cfg.moe_num_experts)))
+
+
+def route(cfg, logits):
+    """softmax -> top-k -> renormalise.  logits: [T, E] ->
+    (weights [T, k] fp32, ids [T, k] int64, probs [T, E] fp32).  A stable
+    descending sort puts equal probabilities in index order, so ties go
+    to the lower expert, as ``lax.top_k`` breaks them."""
+    probs = torch.softmax(logits.float(), dim=-1)
+    top, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
+    k = cfg.moe_top_k
+    weights, ids = top[:, :k], ids[:, :k]
+    return weights / weights.sum(dim=-1, keepdim=True), ids, probs
+
+
+def dispatch_indices(cfg, ids, capacity: int):
+    """Sort-based dispatch of the assignments ``ids`` [T, k] (assignment
+    ``a = t*k + j``), as flat [T*k] tensors in expert-sorted order:
+    ``order`` (the assignment at each sorted position), ``slot`` (expert
+    x capacity + rank, the rank clamped to the last slot), ``keep`` (rank
+    below capacity) and ``token``."""
+    del cfg
+    t, k = ids.shape
+    ids_flat = ids.reshape(-1)
+    order = torch.argsort(ids_flat, stable=True)
+    sorted_experts = ids_flat[order]
+    first = torch.searchsorted(sorted_experts, sorted_experts, side="left")
+    rank = torch.arange(t * k, device=ids.device) - first
+    keep = rank < capacity
+    slot = sorted_experts * capacity + rank.clamp(max=capacity - 1)
+    return order, slot, keep, order // k
+
+
+def dispatch(x_flat, slot, token, n_exp: int, capacity: int):
+    """The expert buffer [E, C, d]: slot c of expert e holds the row of the
+    token whose assignment ranks c-th at e (sorted position ``first[e] +
+    c``), zeros where fewer than c + 1 came.  A gather: every slot reads
+    one row, so no two writes meet."""
+    experts = slot // capacity  # each sorted assignment's expert
+    bounds = torch.arange(n_exp, device=slot.device)
+    first = torch.searchsorted(experts, bounds, side="left")
+    last = torch.searchsorted(experts, bounds, side="right")
+    pos = first[:, None] + torch.arange(capacity, device=slot.device)
+    rows = x_flat[token[pos.clamp(max=token.numel() - 1)]]
+    return rows.masked_fill_((pos >= last[:, None])[..., None], 0)
+
+
+def expert_ffn(cfg, wg, wu, wd, x):
+    """x: [E, C, d] -> [E, C, d]: the expert stack's GLU as three planned
+    bmm calls."""
+    act = L.activation(cfg)
+    h = act(planned_bmm(x, wg, site="moe.gate")) * planned_bmm(
+        x, wu, site="moe.up")
+    return planned_bmm(h, wd, site="moe.down")
+
+
+def combine(out_buf, weights, order, slot, keep):
+    """y [T, d]: each token's k expert outputs (rows of ``out_buf`` [E*C,
+    d]) times their weights, dropped ones times 0, added one at a time in
+    ascending expert order in the compute dtype."""
+    t, k = weights.shape
+    dt = out_buf.dtype
+    # each token's sorted positions, in ascending order: its experts'
+    pos = torch.argsort(order).view(t, k).sort(dim=-1).values
+    w = weights.reshape(-1)[order[pos]].to(dt)
+    rows = out_buf[slot[pos]] * w[..., None] * keep[pos].to(dt)[..., None]
+    y = rows[:, 0]
+    for j in range(1, k):
+        y = y + rows[:, j]
+    return y
+
+
+def moe_ffn_tokens(cfg, p, x_flat):
+    """Route, dispatch, expert FFN and combine for a flat token batch
+    x_flat [T, d] -> [T, d]."""
+    t, d = x_flat.shape
+    e = cfg.moe_num_experts
+    capacity = capacity_of(cfg, t)
+    logits = planned_dense(x_flat.float(), p["router"], site="moe.router")
+    weights, ids, _ = route(cfg, logits)
+    order, slot, keep, token = dispatch_indices(cfg, ids, capacity)
+    buf = dispatch(x_flat, slot, token, e, capacity)
+    out = expert_ffn(cfg, p["wg"], p["wu"], p["wd"], buf)
+    return combine(out.reshape(e * capacity, d), weights, order, slot, keep)
+
+
+def apply_moe(p, cfg, x):
+    """MoE forward on one device: x [B, S, d] -> [B, S, d], every B·S
+    token routed together, plus the shared experts' GLU
+    (``moe.shared_gate``/``up``/``down``) when the config has them."""
+    b, s, d = x.shape
+    y = moe_ffn_tokens(cfg, p, x.reshape(b * s, d)).reshape(b, s, d)
+    if cfg.moe_shared_experts:
+        act = L.activation(cfg)
+        h = act(planned_dense(x, p["shared_wg"], site="moe.shared_gate")) \
+            * planned_dense(x, p["shared_wu"], site="moe.shared_up")
+        y = y + planned_dense(h, p["shared_wd"], site="moe.shared_down")
+    return y

@@ -1,11 +1,15 @@
-"""Decoder-only LM of the dense family (the port of the dense path of
-``repro.models.transformer``).
+"""Decoder-only LM of the dense and MoE families (the port of
+``repro.models.transformer`` without MLA).
 
 Parameters are a plain dict: ``embed`` [V, d], ``ln_f``, a ``layers``
 list of per-layer dicts (the reference stacks them along a leading L axis
-and runs ``lax.scan``; a Python loop takes its place here) and, for
-untied heads, ``lm_head`` [d, V].  ``convert.params_from_jax`` turns the
-reference's tree into this form.
+in two groups, ``dense_layers`` and ``moe_layers``, and runs
+``lax.scan`` over each; a Python loop over the dense layers, then the MoE
+ones, takes its place here) and, for untied heads, ``lm_head`` [d, V].
+A dense layer holds ``mlp``, an MoE layer ``moe`` (``models/moe.py``);
+an MoE config starts with ``moe_first_dense`` dense layers
+(``layer_split``).  ``convert.params_from_jax`` turns the reference's
+tree into this form.
 
 The serving cache is ``{"k", "v": [L, B, S, Hkv, hd], "pos": [B] int32}``
 and ``decode_step`` updates it in place.  The block-paged engine's pools
@@ -24,6 +28,7 @@ import torch
 from repro_torch.kernels.planned import planned_dense
 
 from . import layers as L
+from . import moe as MOE
 
 CACHE_DTYPES = {
     "bfloat16": torch.bfloat16,
@@ -37,10 +42,19 @@ def cache_dtype_of(cfg) -> torch.dtype:
 
 
 def _check_family(cfg) -> None:
-    if cfg.family != "dense" or cfg.use_mla:
+    if cfg.family not in ("dense", "moe") or cfg.use_mla:
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported; the port runs dense "
-            "decoders")
+            f"family {cfg.family!r}{' with MLA' if cfg.use_mla else ''} is "
+            "not ported; the port runs dense and MoE decoders with GQA "
+            "attention")
+
+
+def layer_split(cfg) -> tuple[int, int]:
+    """(dense layers, MoE layers): an MoE config's ``moe_first_dense``
+    dense layers come first."""
+    if cfg.family == "moe":
+        return cfg.moe_first_dense, cfg.n_layers - cfg.moe_first_dense
+    return cfg.n_layers, 0
 
 
 # ---------------------------------------------------------------------------
@@ -50,7 +64,8 @@ def _check_family(cfg) -> None:
 def init_params(cfg, generator: torch.Generator, device="cuda"):
     """Random weights at the config's full width, drawn on ``device``
     from ``generator`` with the reference's scales: N(0, 1/d_in) dense
-    kernels, N(0, 0.02) embeddings, zero biases, unit norm gains."""
+    kernels, N(0, 0.02) embeddings, zero biases, unit norm gains; an MoE
+    layer's block from ``moe.init_moe``."""
     _check_family(cfg)
     dt = L.compute_dtype(cfg)
 
@@ -70,8 +85,9 @@ def init_params(cfg, generator: torch.Generator, device="cuda"):
 
     d, hq, hkv, hd, ff = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
                           cfg.d_ff)
+    n_dense, _ = layer_split(cfg)
     layers = []
-    for _ in range(cfg.n_layers):
+    for i in range(cfg.n_layers):
         attn = {
             "wq": dense(d, hq * hd),
             "wk": dense(d, hkv * hd),
@@ -85,10 +101,13 @@ def init_params(cfg, generator: torch.Generator, device="cuda"):
         if cfg.qk_norm:
             attn["q_norm"] = torch.ones(hd, dtype=dt, device=device)
             attn["k_norm"] = torch.ones(hd, dtype=dt, device=device)
-        mlp = {"wg": dense(d, ff), "wu": dense(d, ff),
-               "wd": dense(ff, d, 1.0 / math.sqrt(ff))}
-        layers.append({"ln1": norm(), "attn": attn, "ln2": norm(),
-                       "mlp": mlp})
+        layer = {"ln1": norm(), "attn": attn, "ln2": norm()}
+        if i < n_dense:
+            layer["mlp"] = {"wg": dense(d, ff), "wu": dense(d, ff),
+                            "wd": dense(ff, d, 1.0 / math.sqrt(ff))}
+        else:
+            layer["moe"] = MOE.init_moe(cfg, generator, device)
+        layers.append(layer)
     p = {"embed": normal((cfg.vocab, d), 0.02), "ln_f": norm(),
          "layers": layers}
     if not cfg.tie_embeddings:
@@ -105,12 +124,21 @@ def embed_tokens(p, cfg, tokens):
     return p["embed"][tokens.long()].to(L.compute_dtype(cfg))
 
 
+def _ffn(lp, cfg, x):
+    """The layer's feed-forward half on its pre-norm input: the MLP of a
+    dense layer, the expert block of an MoE one (at decode every lane
+    routes, inactive ones too, as in the reference)."""
+    if "moe" in lp:
+        return MOE.apply_moe(lp["moe"], cfg, x)
+    return L.apply_mlp(lp["mlp"], cfg, x)
+
+
 def _block(lp, cfg, x, positions):
     """One layer over a whole sequence: (x', k, v)."""
     attn, k, v = L.apply_attention(lp["attn"], cfg,
                                    L.apply_norm(lp["ln1"], cfg, x), positions)
     x = x + attn
-    x = x + L.apply_mlp(lp["mlp"], cfg, L.apply_norm(lp["ln2"], cfg, x))
+    x = x + _ffn(lp, cfg, L.apply_norm(lp["ln2"], cfg, x))
     return x, k, v
 
 
@@ -185,7 +213,7 @@ def decode_step(p, cfg, cache, tokens):
         h = L.apply_norm(lp["ln1"], cfg, x)
         x = x + L.apply_attention_decode(lp["attn"], cfg, h, cache["k"][i],
                                          cache["v"][i], pos)
-        x = x + L.apply_mlp(lp["mlp"], cfg, L.apply_norm(lp["ln2"], cfg, x))
+        x = x + _ffn(lp, cfg, L.apply_norm(lp["ln2"], cfg, x))
     x = L.apply_norm(p["ln_f"], cfg, x)
     logits = logits_fn(p, cfg, x)[:, 0]
     pos += 1
@@ -227,6 +255,6 @@ def decode_step_paged(p, cfg, pools, tokens, block_tables, pos, active):
         x = x + L.apply_attention_decode_paged(
             lp["attn"], cfg, h, pools["k"][i], pools["v"][i], block_tables,
             pos, active)
-        x = x + L.apply_mlp(lp["mlp"], cfg, L.apply_norm(lp["ln2"], cfg, x))
+        x = x + _ffn(lp, cfg, L.apply_norm(lp["ln2"], cfg, x))
     x = L.apply_norm(p["ln_f"], cfg, x)
     return logits_fn(p, cfg, x)[:, 0], pools

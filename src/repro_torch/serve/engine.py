@@ -33,7 +33,9 @@ continuous batching over a block-paged KV cache (``paged_cache``):
     bucket length so the prefill runs at one shape per bucket, and the
     scheduler packs at most a few prefills into steps where decode lanes
     sit idle instead of stalling all in-flight decodes behind a burst.
-    Prefills and chunk feeds run eagerly, outside the graph.
+    The MoE family prefills at exact lengths instead (pad tokens would
+    take expert slots from real ones), as in the reference.  Prefills
+    and chunk feeds run eagerly, outside the graph.
   * When the block pool runs dry mid-flight, the youngest active
     request is preempted: its blocks free instantly, it re-queues with
     its generated tokens folded into the prompt, and recomputes on
@@ -212,10 +214,13 @@ class PagedServeEngine(EngineBase):
         self.prompt_len = prompt_len
         if isinstance(scheduler, SchedulerConfig):
             scheduler = Scheduler(scheduler)
-        # bucket pads are invisible to masked attention, which is all the
-        # ported families (dense, encdec) have; the reference's ssm,
-        # hybrid and moe families prefill at exact lengths instead
         self.scheduler = scheduler or Scheduler()
+        # bucket pads are invisible to masked attention, but not to every
+        # family: capacity-limited MoE routing lets pads compete with real
+        # tokens for expert slots (and recurrent ssm/hybrid state, not yet
+        # ported, absorbs them), so those prefill at exact lengths, as in
+        # the reference; dense and encdec bucket
+        self._exact_prefill = cfg.family in ("ssm", "hybrid", "moe")
         self.kv: PagedKVCache | None = None
         self.lanes: list[Request | None] = [None] * max_lanes
         self._admit_seq = 0
@@ -321,13 +326,15 @@ class PagedServeEngine(EngineBase):
         return replay
 
     def _warm_prefill(self) -> None:
-        """Plan the bucketed prefill of ``prompt_len`` tokens (one run at
-        the bucket's shape; its cache is dropped)."""
-        bucket = self.scheduler.bucket_for(self.prompt_len)
+        """Plan the prefill of ``prompt_len`` tokens at its bucket (its
+        exact length for the exact-prefill families): one run at that
+        shape, its cache dropped."""
+        bucket = self.scheduler.bucket_for(self.prompt_len,
+                                           exact=self._exact_prefill)
         tokens = torch.zeros((1, bucket), dtype=torch.int32,
                              device=self.device)
-        li = torch.full((1,), self.prompt_len - 1, dtype=torch.int32,
-                        device=self.device)
+        li = None if self._exact_prefill else torch.full(
+            (1,), self.prompt_len - 1, dtype=torch.int32, device=self.device)
         self.api.prefill(self.params, self._prefill_batch(tokens), bucket,
                          last_index=li)
 
@@ -370,7 +377,7 @@ class PagedServeEngine(EngineBase):
         eff = self._effective_prompt(req)
         plen = len(eff)
         extra_rows = self._extra_rows(req.extra)
-        bucket = self.scheduler.bucket_for(plen)
+        bucket = self.scheduler.bucket_for(plen, exact=self._exact_prefill)
         blocks = self.kv.allocator.alloc(
             self.kv.blocks_for(extra_rows + plen))
         tokens = np.zeros((1, bucket), np.int32)
@@ -387,11 +394,14 @@ class PagedServeEngine(EngineBase):
             stream = (ec, carry)
         else:
             batch = self._prefill_batch(tokens, req.extra)
-            # the reference's bucketed families always pass last_index
+            # the reference passes last_index to the bucketed families'
+            # prefills only: the exact ones read the last row
+            use_li = not self._exact_prefill
             self._count_prefill((bucket + extra_rows, tuple(sorted(batch)),
-                                 True))
+                                 use_li))
             logits, pc = self.api.prefill(
-                self.params, batch, bucket + extra_rows, last_index=li)
+                self.params, batch, bucket + extra_rows,
+                last_index=li if use_li else None)
         req.output.append(int(torch.argmax(logits[0])))
         if len(req.output) >= req.max_new_tokens:
             # admit-time done check: the prefill token satisfied the

@@ -1261,3 +1261,102 @@ def test_text_with_frames_through_the_captured_step_on_the_card(gen):
         outs.append({r.rid: list(r.output) for r in e.run_until_drained()})
     assert eng.stats["decode_compiles"] == 1
     assert outs[0] == outs[1] and all(len(o) == 5 for o in outs[0].values())
+
+
+# ---------------------------------------------------------------------------
+# the MoE family (olmoe-1b-7b): the float32 router and the expert stack
+# ---------------------------------------------------------------------------
+
+#: olmoe-1b-7b's router, mm(T, 64, 2048) in float32: the skinny kernel up
+#: to 16 rows (a 4-lane decode step, short prompts), 3xTF32 on the
+#: tensor-core kernel above (a 512-token prompt)
+ROUTER_ROWS = (1, 4, 13, 16, 17, 512)
+#: its expert stack at full width, (batch, M, N, K) in bf16: gate/up and
+#: down at decode (C = 1 slot an expert) on the skinny kernel, and at a
+#: 512-token prompt (C = ceil(512 * 8 * 1.25 / 64) = 80) on the
+#: tensor-core kernel
+EXPERT_SHAPES = ((64, 1, 1024, 2048), (64, 1, 2048, 1024),
+                 (64, 80, 1024, 2048), (64, 80, 2048, 1024))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", ROUTER_ROWS)
+def test_moe_router_float32_gemm_matches_the_plain_version_on_the_card(
+        rows, gen):
+    """The router through the planned facade (site ``moe.router``): the
+    kernel its rows call for, within float32's atol."""
+    x = _gemm_draw((rows, 2048), torch.float32, gen)
+    w = _gemm_draw((2048, 64), torch.float32, gen) * 0.02
+    before = dict(widesa_mm.variants)
+    got = planned.planned_dense(x, w, site="moe.router")
+    _same(got, ref.mm(x, w))
+    torch.cuda.synchronize()
+    kernel = "skinny" if rows <= runtime.SKINNY_ROWS else "wgmma"
+    assert {v: widesa_mm.variants[v] - before[v] for v in before} == {
+        "skinny": 0, "wgmma": 0, "tiled": 0, kernel: 1}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", EXPERT_SHAPES, ids=str)
+def test_moe_expert_bmm_matches_the_plain_version_on_the_card(shape, gen):
+    """The expert stack's bmm (row-major weights [64, K, N]) through the
+    planned facade, on the kernel its rows call for, within one bf16
+    step; a second call gives the same bits."""
+    z, m, n, k = shape
+    a = _gemm_draw((z, m, k), torch.bfloat16, gen)
+    b = _gemm_draw((z, k, n), torch.bfloat16, gen)
+    before = dict(bmm.variants)
+    got = planned.planned_bmm(a, b, site="moe.gate")
+    _same_gemm(got, ref.bmm(a, b))
+    assert torch.equal(got, planned.planned_bmm(a, b, site="moe.gate"))
+    torch.cuda.synchronize()
+    kernel = "skinny" if m <= runtime.SKINNY_ROWS else "wgmma"
+    assert {v: bmm.variants[v] - before[v] for v in before} == {
+        "skinny": 0, "wgmma": 0, "tiled": 0, kernel: 2}
+
+
+@pytest.mark.gpu
+def test_moe_captured_decode_equals_an_eager_step_on_the_card(gen):
+    """olmoe (smoke, float32 with a float32 cache) on the paged engine:
+    routing, dispatch and combine capture with the step (nothing waits on
+    the host), a replay equals an eager ``decode_step_paged`` bitwise, two
+    replays of the same inputs give the same bits, and one lane serves
+    the slot engine's tokens."""
+    from repro_torch.models import transformer
+    from repro_torch.serve import make_engine
+
+    eng = _paged_engine("olmoe-1b-7b", kv_dtype="float32", max_lanes=1)
+    assert eng.stats["decode_compiles"] == 1
+    prompts = _prompts(eng.cfg.vocab, (5, 9, 13), seed=6)
+    eng.submit(prompts[0], max_new_tokens=8)
+    eng.step()
+    before = {k: v.clone() for k, v in eng.kv.pools.items()}
+    eng._decode([0])
+    replay = eng._decode_out[0].clone()
+    for k, v in eng.kv.pools.items():
+        v.copy_(before[k])
+    eng._decode([0])
+    assert torch.equal(eng._decode_out[0], replay)
+    for k, v in eng.kv.pools.items():
+        v.copy_(before[k])
+    tokens = torch.tensor([[eng.lanes[0].output[-1]]], dtype=torch.int32,
+                          device="cuda")
+    with torch.no_grad(), planned.override(policy=eng.policy):
+        logits, _ = transformer.decode_step_paged(
+            eng.params, eng.cfg, eng.kv.pools, tokens,
+            torch.as_tensor(eng.kv.tables, device="cuda"),
+            torch.as_tensor(eng.kv.pos, device="cuda"),
+            torch.as_tensor(eng.kv.active, device="cuda"))
+    torch.cuda.synchronize()
+    assert torch.equal(logits, replay)
+    for k, v in eng.kv.pools.items():
+        v.copy_(before[k])
+    for p in prompts[1:]:
+        eng.submit(p, max_new_tokens=8)
+    slot = make_engine(eng.cfg, kind="slot", max_slots=1, max_seq=64)
+    slot.load(eng.params)
+    for p in prompts:
+        slot.submit(p, max_new_tokens=8)
+    got = {r.rid: list(r.output) for r in eng.run_until_drained()}
+    assert got == {r.rid: list(r.output) for r in slot.run_until_drained()}
+    assert eng.stats["decode_compiles"] == 1
