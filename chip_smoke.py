@@ -11,7 +11,7 @@
     python3 chip_smoke.py --fir-sweep [--src OTHER/src] [--out sweep.json]
 
 Needs one CUDA card and the CUDA toolkit.  It imports only the port, never
-JAX nor the JAX package, and runs thirteen phases, each printing its own
+JAX nor the JAX package, and runs fourteen phases, each printing its own
 line(s); any failure exits non-zero:
 
 1. device — the card's name and power limit, torch and CUDA versions;
@@ -166,7 +166,25 @@ line(s); any failure exits non-zero:
    flip printed, ``routing_explained``), the paged engine's first tokens
    the slot engine's; the eager decode step, the captured paged step and
    a 512-token prefill profiled; last, 1-lane slot == paged tokens;
-12. recurrences — the WideSA mapper -> kernel pipeline,
+12. ssm — full-width mamba2-780m (48 Mamba2 layers, d 1536, state 128)
+   and zamba2-1.2b (38 Mamba2 layers, d 2048, state 64, one shared
+   attention + MLP block of 32 heads and ff 8192 applied 6 times), bf16,
+   random weights seeded with 0 and drawn on the card, one after the
+   other.  For each, one Mamba2 block over 300 tokens (``ssm_parts``):
+   its output and final state against the same block in fp32 on the
+   host, and the chunked scan's final state against 300 recurrent steps
+   on the card, each within its stated bound.  Then 4 prompts of 4-16
+   tokens and 4 of 64, 255, 300 and 512 (one SSD chunk, a padded second,
+   two whole), 8 new tokens each, on the slot engine and on the paged
+   engine (exact-length prefills; the conv and SSM states ``lane`` leaves
+   written in place by the decode step captured in ``load()``): the two
+   engines' tokens equal at 4 lanes, every site the reference plans
+   planned with no fallback and no other (``SSM_SITES``: mamba2 only
+   ``lm_head``), ``check_routes``, ``decode_compiles`` 1,
+   ``drain_parity``, each prompt's prefill logits against the plain
+   versions; the eager decode step, the captured paged step and a
+   512-token prefill profiled;
+13. recurrences — the WideSA mapper -> kernel pipeline,
    ``repro_torch.launch.recurrences.run`` (the entry point's function):
    the Table II compiler report, quickstart's 1024^3 MM, and every
    registered recurrence planned on one chip and run through
@@ -206,9 +224,11 @@ line(s); any failure exits non-zero:
    for int8 mm, the bound at the int8 rate x 1, 4 or 10 limb products)
    and the paper's float32 MM and BMM on ``gemm_tc_kernel``;
    The GEMMs the MoE path adds (``MOE_SHAPES``: the float32 router at 4
-   and 512 rows, the expert stack at C = 1 and 80) are timed beside
-   ``torch.matmul``/``torch.bmm`` and their bounds after phase 11;
-13. summary — a JSON line of the kernels, the ``nvidia-smi`` name and
+   and 512 rows, the expert stack at C = 1 and 80) and those the SSM and
+   hybrid paths add (``SSM_SHAPES``: the two lm_heads at decode, zamba2's
+   shared block at decode and its gate/up at 512 rows) are timed beside
+   ``torch.matmul``/``torch.bmm`` and their bounds after phase 12;
+14. summary — a JSON line of the kernels, the ``nvidia-smi`` name and
    power limit, and the result line.
 
 Every wrapper's launch count is set to 0 just before each serving drain
@@ -216,7 +236,8 @@ and before the recurrence pipeline, and read just after; the kernels
 line gives each path's counts apart (``"launches": {"qwen": n,
 "qwen_paged": q, "qwen_prefill": p, "whisper_stream": m,
 "whisper_paged": w, "qwen_long": l, "whisper_offline": o, "olmoe": s,
-"olmoe_paged": g, "recurrences": k}``; ``qwen_long`` and
+"olmoe_paged": g, "mamba2": a, "mamba2_paged": b, "zamba2": z,
+"zamba2_paged": y, "recurrences": k}``; ``qwen_long`` and
 ``whisper_offline`` each sum the slot engine's drain and the paged
 engine's).  A replay of a captured step
 passes no wrapper, so a paged path's drain runs under ``torch.profiler``
@@ -246,7 +267,12 @@ eager call), plus the paged drain's steps times the launches that its
 first whole traced replay shows at the shape's kernel and grid
 (``launch_signature``: the grid the launcher sets for the shape's
 configuration); under ``"moe"`` each ``MOE_SHAPES`` GEMM's the same, with
-its launches on ``olmoe`` and ``olmoe_paged``.  The comparison and timing launches of phases 3 and
+its launches on ``olmoe`` and ``olmoe_paged``; under ``"ssm"`` each
+``SSM_SHAPES`` GEMM's, with its launches on the four SSM and hybrid
+paths (shapes whose launches share a kernel and grid in a replay, as
+zamba2's q/k/v/out and mlp.down projections at decode, take their
+captured step's counts, which must sum to what the replay shows).  The
+comparison and timing launches of phases 3 and
 7, those of the paged phases outside their main drains, of
 ``drain_parity``, of the logit checks and the profiles do not count.
 
@@ -1873,6 +1899,26 @@ def device_by_kernel(prof) -> tuple[dict, int]:
     return {k: v / 1e3 for k, v in us.items()}, kernels
 
 
+def top_other(prof, n) -> list:
+    """The ``n`` kernels of ``device_by_kernel``'s ``other`` with the most
+    device time: (name without its namespaces, cut to 100 characters, ms,
+    launches)."""
+    from torch.autograd import DeviceType
+
+    rows = []
+    for evt in prof.key_averages():
+        fn = re.search(r"(\w+)[<(]", evt.key)
+        if (evt.device_type == DeviceType.CPU
+                or TRACED_GEMMS.get(fn and fn.group(1))
+                or LIBRARY_GEMMS.search(evt.key)):
+            continue
+        name = re.sub(r"void |at::native::|\(anonymous namespace\)::|"
+                      r"at::|std::", "", evt.key)
+        rows.append((name[:100], round(evt.self_device_time_total / 1e3, 3),
+                     evt.count))
+    return sorted(rows, key=lambda r: -r[1])[:n]
+
+
 def prefill_phase(torch, device_name: str) -> tuple[dict, dict]:
     """Full-width qwen1.5-0.5b on the slot engine (4 slots, max_seq
     ``PREFILL_MAX_SEQ``) serving prompts of ``PREFILL_PROMPTS`` tokens, 8
@@ -2267,12 +2313,13 @@ def counted_drain(torch, eng, step=None) -> dict:
 
 
 def checked_drain(torch, eng, label, n, device_name, step=None,
-                  tied: bool = True) -> dict:
+                  tied: bool = True, gemms=GEMM_WRAPPERS) -> dict:
     """``counted_drain`` held to what every serving drain must show: ``n``
     requests with ``MAX_NEW`` tokens each, every planned site planned
-    with no fallback, both GEMM wrappers launched, and the eager GEMM
-    launches by kernel what ``check_routes`` calls for; printed in one
-    line.  Returns the run."""
+    with no fallback, each GEMM wrapper of the path (``gemms``: both, but
+    for a model without batched products, mamba2's) launched, and the
+    eager GEMM launches by kernel what ``check_routes`` calls for;
+    printed in one line.  Returns the run."""
     run = counted_drain(torch, eng, step)
     done, report, launches = run["done"], run["report"], run["launches"]
     if len(done) != n or any(len(r.output) != MAX_NEW for r in done):
@@ -2283,9 +2330,9 @@ def checked_drain(torch, eng, label, n, device_name, step=None,
            if st["planned"] == 0 or st["fallback"] != 0}
     if bad or not report:
         fail(f"{label}: planned sites that fell back or never planned: {bad}")
-    if min(launches["widesa_mm"], launches["bmm"]) == 0:
-        fail(f"{label}: a GEMM kernel was not launched on the main path: "
-             f"{launches}")
+    if min(launches[w] for w in gemms) == 0:
+        fail(f"{label}: a GEMM kernel of the path {gemms} was not launched "
+             f"on the main path: {launches}")
     routes = check_routes(label, report, run["eager_variants"], tied)
     tokens = sum(len(r.output) for r in done)
     print(f"{label}: {len(done)} requests / {tokens} tokens in "
@@ -2447,7 +2494,8 @@ def launch_signature(torch, gen, kind, shape, col, pad, flush,
 
 
 def two_engines(torch, cfg, params, label, submit, max_seq, device_name,
-                timed=LONG_SHAPES, same_tokens=True, tied=True) -> dict:
+                timed=LONG_SHAPES, same_tokens=True, tied=True,
+                gemms=GEMM_WRAPPERS) -> dict:
     """``submit``'s requests on the slot engine (``SLOTS`` slots), then on
     the paged engine (``SLOTS`` lanes, blocks of ``PAGED_BLOCK``,
     exact-length prefills, its decode step captured in ``load_paged``),
@@ -2460,7 +2508,11 @@ def two_engines(torch, cfg, params, label, submit, max_seq, device_name,
     (every eager call), plus, for the paged drain's replays, ``steps``
     times those that its first whole replay shows at the shape's
     ``launch_signature`` (a shape there must be one the load window's
-    report planned, and no other)."""
+    report planned, and no other).  Where timed shapes share a signature
+    (the same kernel and grid), the replay's launches there must be the
+    sum of their launches in one captured step (half the load window's,
+    which runs the step twice), and each shape takes its own; ``gemms``
+    are the GEMM wrappers every drain must launch."""
     from repro_torch.kernels import planned
     from repro_torch.serve import SchedulerConfig, make_engine
 
@@ -2489,15 +2541,20 @@ def two_engines(torch, cfg, params, label, submit, max_seq, device_name,
         n = submit(eng)
         # the main path: counts start at 0 here and are read right after
         run = checked_drain(torch, eng, f"{label} {kind}", n, device_name,
-                            step, tied)
+                            step, tied, gemms)
         eager = count_shapes(run["report"], shapes)
         replayed = dict.fromkeys(shapes, 0)
         for sig, keys in owners.items():
             seen = run.get("replay_grids", {}).get(sig, 0)
             if seen and len(keys) > 1:
-                fail(f"{label} {kind}: the replays show {seen} launches "
-                     f"{sig}, the launch of each of {keys}")
-            if seen:
+                per_step = {key: in_step[key] // 2 for key in keys}
+                if sum(per_step.values()) != seen:
+                    fail(f"{label} {kind}: the replays show {seen} launches "
+                         f"{sig}, the launch of each of {keys}, whose "
+                         f"captured step launches {per_step}")
+                for key in keys:
+                    replayed[key] = eng.stats["steps"] * per_step[key]
+            elif seen:
                 replayed[keys[0]] = eng.stats["steps"] * seen
         if step and any(bool(replayed[key]) != bool(in_step[key])
                         for key in shapes):
@@ -2538,7 +2595,8 @@ def token_batch(torch, prompt, rows=None) -> dict:
 
 
 def first_logits(torch, label, api, params, done, batches, max_seq=None,
-                 last_index=None, explain=None) -> None:
+                 last_index=None, explain=None,
+                 explained_by="near-tie routing flips") -> None:
     """Each request's prefill logits through the kernels against the same
     prefill with the plain versions (``planned.override(enabled=False)``),
     within ``LOGIT_ATOL``, and the engine's first token their argmax.
@@ -2546,9 +2604,10 @@ def first_logits(torch, label, api, params, done, batches, max_seq=None,
     has ``max_seq`` rows (default: the prompt's), and ``last_index`` gives
     each bucketed prompt's last token, where its logits are read.  With
     ``explain`` (an MoE model: ``explain(rid, logits)`` gives (whether,
-    and why) the miss is routing near-ties, ``routing_explained``) a
-    request past ``LOGIT_ATOL`` passes only where that holds, and its
-    first token must still be their argmax."""
+    and why) the miss is routing near-ties, ``routing_explained``; the
+    SSM and hybrid models: bf16 rounding in the trunk, ``bf16_explained``,
+    ``explained_by`` naming it) a request past ``LOGIT_ATOL`` passes only
+    where that holds, and its first token must still be their argmax."""
     from repro_torch.kernels import planned
 
     worst = scale = 0.0
@@ -2578,7 +2637,7 @@ def first_logits(torch, label, api, params, done, batches, max_seq=None,
                       f"versions; {why}", flush=True)
                 if not ok:
                     fail(f"{label} request {rid}: the miss is not explained "
-                         "by near-tie routing flips")
+                         f"by {explained_by}")
                 explained.append(rid)
             elif err > LOGIT_ATOL:
                 fail(f"{label} request {rid} ({rows} rows): prefill logits "
@@ -2591,15 +2650,16 @@ def first_logits(torch, label, api, params, done, batches, max_seq=None,
     print(f"{label}: prefill logits of the {len(batches)} requests match the "
           f"plain versions, max |diff| {worst:.4f} (max |logit| "
           f"{scale:.3f}), within {LOGIT_ATOL} for requests {held}"
-          + (f", past it for {explained} only by near-tie routing flips"
+          + (f", past it for {explained} only by {explained_by}"
              if explained else "")
           + "; first tokens are their argmax", flush=True)
 
 
-def profile_call(torch, label, fn, runs=3) -> tuple[float, dict]:
+def profile_call(torch, label, fn, runs=3, top=0) -> tuple[float, dict]:
     """Host time of ``fn`` (synchronized; median of ``runs`` after one
     warm run) and the card's busy time in one traced call, by kernel
-    (``device_by_kernel``), beside the GEMM wrappers' launches by kernel
+    (``device_by_kernel``; with ``top``, that many of the other kernels
+    by name, ``top_other``), beside the GEMM wrappers' launches by kernel
     in that call (none in a replay).  Returns (host ms, device ms by
     kernel, all 0 where the profiler recorded no device events)."""
     from torch.profiler import ProfilerActivity, profile
@@ -2629,7 +2689,9 @@ def profile_call(torch, label, fn, runs=3) -> tuple[float, dict]:
              f"kernel launches): {parts}; device idle "
              f"{max(0.0, 1 - busy / wall):.0%}" if busy else
              "device busy time not measured (the profiler recorded no "
-             "device events)"), flush=True)
+             "device events)")
+          + (f"; the largest other kernels (name, ms, launches): "
+             f"{top_other(prof, top)}" if top and busy else ""), flush=True)
     return wall, ms
 
 
@@ -3156,6 +3218,288 @@ def moe_phase(torch, device_name: str) -> dict:
     moe_one_lane(torch, cfg, params, prompts[:4], device_name)
     print(f"olmoe: on {device_name} [{nvidia_smi()}]", flush=True)
     return {"olmoe": by_engine["slot"], "olmoe_paged": by_engine["paged"]}
+
+
+# ---------------------------------------------------------------------------
+# the SSM and hybrid families: mamba2-780m and zamba2-1.2b on both engines
+# ---------------------------------------------------------------------------
+
+#: the ssm phase's models, by path label
+SSM_ARCHS = {"mamba2": "mamba2-780m", "zamba2": "zamba2-1.2b"}
+#: the ssm phase's prompts: four of 4-16 tokens and these (255 inside one
+#: 256-row SSD chunk, 300 padding a second, 512 two whole ones), 8 new
+#: tokens each, on engines of this horizon (512 + 8 tokens in whole blocks
+#: of ``PAGED_BLOCK``)
+SSM_LONG_PROMPTS = (64, 255, 300, 512)
+SSM_MAX_SEQ = 528
+#: ``ssm_parts``' prompt and bounds.  The card's bf16 Mamba2 block against
+#: the same block run on the host in fp32: bf16 rounds the block's values
+#: at ~8 points (the projections, the conv output, y before and after the
+#: gate, the norm, the output), each by up to half a step of an 8-bit
+#: significand (2^-9), so the output's rms error sits near sqrt(8) 2^-9
+#: ~ 0.55 % of its rms: held to ``SSM_OUT_RMS`` = 2^-6 (~3x), its largest
+#: error to ``SSM_OUT_MAX`` = 2^-4 of the largest output; the final SSM
+#: state (fp32 sums of those rounded inputs) to ``SSM_STATE_HOST`` = 2^-5
+#: of its largest entry.  The chunked scan's final state against
+#: ``SSM_PARTS_PROMPT`` recurrent steps on the card, both from the same
+#: bf16 block (fp32 sums in another order, a conv output now and then
+#: rounded to the other bf16 neighbour): ``SSM_STATE_STEPS`` = 1e-3 of its
+#: largest entry.  On an H100 80GB HBM3 (700 W) the two models' blocks
+#: read 0.55-0.61 %, 1.0-2.4 %, 0.61-0.64 % and 1.3e-6 to 1.6e-6.
+SSM_PARTS_PROMPT = 300
+#: a first-logit miss past ``LOGIT_ATOL`` (``bf16_explained``): the same
+#: prompt in float32, hand kernels against the plain versions, within the
+#: registry's float32 atol
+FP32_LOGIT_ATOL = 1e-3
+SSM_OUT_RMS = 2 ** -6
+SSM_OUT_MAX = 2 ** -4
+SSM_STATE_HOST = 2 ** -5
+SSM_STATE_STEPS = 1e-3
+#: every site each model's drains plan, as the reference plans them: the
+#: slot drain (prefills and decode steps), the paged drain (its eager
+#: prefills) and the paged engine's load window (its captured step).  The
+#: Mamba2 blocks plan nothing; zamba2's shared block plans its projections
+#: and, in a prefill, its scores and values (its out projection there is a
+#: plain product, as the reference's ``@ wo``).
+_HYBRID_PREFILL = {"lm_head", "attn.q", "attn.k", "attn.v", "attn.scores",
+                   "attn.values", "mlp.gate", "mlp.up", "mlp.down"}
+_HYBRID_DECODE = {"lm_head", "attn.q", "attn.k", "attn.v", "attn.out",
+                  "mlp.gate", "mlp.up", "mlp.down"}
+SSM_SITES = {
+    "mamba2": ({"lm_head"}, {"lm_head"}, {"lm_head"}),
+    "zamba2": (_HYBRID_PREFILL | _HYBRID_DECODE
+               | {"attn.decode_scores", "attn.decode_values"},
+               _HYBRID_PREFILL,
+               _HYBRID_DECODE | {"attn.paged_scores", "attn.paged_values"}),
+}
+#: the GEMMs the two models add, timed (``LONG_SHAPES``' layout): each
+#: lm_head at a 4-lane decode step, zamba2's shared block at decode (d
+#: 2048, ff 8192; the q/k/v/out projections share the mlp.down launch's
+#: grid) and its gate/up at a 512-token prompt
+SSM_SHAPES = (
+    ("lm_head, mamba2 decode", "mm", (4, 50280, 1536), False, False, False,
+     "bfloat16"),
+    ("lm_head, zamba2 decode", "mm", (4, 32000, 2048), False, False, False,
+     "bfloat16"),
+    ("attn.q/k/v/out, zamba2 decode", "mm", (4, 2048, 2048), False, False,
+     False, "bfloat16"),
+    ("mlp.gate/up, zamba2 decode", "mm", (4, 8192, 2048), False, False,
+     False, "bfloat16"),
+    ("mlp.down, zamba2 decode", "mm", (4, 2048, 8192), False, False, False,
+     "bfloat16"),
+    ("mlp.gate/up, zamba2 512-token prefill", "mm", (512, 8192, 2048),
+     False, False, False, "bfloat16"),
+)
+
+
+def ssm_parts(torch, label, cfg, params) -> None:
+    """One full-width Mamba2 block (the trunk's first) over a
+    ``SSM_PARTS_PROMPT``-token input on the card: its output and final
+    SSM state against the same block run on the host in fp32 on the same
+    (bf16) weights and input, and the chunked scan's final state against
+    the state ``apply_mamba_step`` reaches token by token on the card;
+    the bounds at ``SSM_OUT_RMS``."""
+    from repro_torch.models import ssm
+
+    lp = params["trunk"][0]["mamba"]
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    x = torch.randn((1, SSM_PARTS_PROMPT, cfg.d_model), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        y, state = ssm.apply_mamba(lp, cfg, x, return_state=True)
+        cache = ssm.init_mamba_cache(cfg, 1, device="cuda")
+        for t in range(x.shape[1]):
+            _, cache = ssm.apply_mamba_step(lp, cfg, x[:, t:t + 1], cache)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        host = {k: v.float().cpu() for k, v in lp.items()}
+        hy, hstate = ssm.apply_mamba(host, cfg, x.float().cpu(),
+                                     return_state=True)
+    if not (torch.isfinite(y).all() and torch.isfinite(state).all()
+            and torch.isfinite(cache["ssm"]).all()):
+        fail(f"{label} parts: non-finite block output or state")
+    diff = y.float().cpu() - hy
+    out_rms = (diff.pow(2).mean().sqrt() / hy.pow(2).mean().sqrt()).item()
+    out_max = (diff.abs().max() / hy.abs().max()).item()
+    st_host = ((state.cpu() - hstate).abs().max()
+               / hstate.abs().max()).item()
+    st_steps = ((state - cache["ssm"]).abs().max()
+                / state.abs().max()).item()
+    for name, got, bound in (("output rms error", out_rms, SSM_OUT_RMS),
+                             ("output max error", out_max, SSM_OUT_MAX),
+                             ("final state against the host's", st_host,
+                              SSM_STATE_HOST),
+                             ("final state against the recurrent steps",
+                              st_steps, SSM_STATE_STEPS)):
+        if not got <= bound:
+            fail(f"{label} parts: the Mamba2 block's {name} {got:.4g} "
+                 f"(relative) exceeds {bound:.4g}")
+    print(f"{label} parts: one Mamba2 block over {SSM_PARTS_PROMPT} tokens "
+          f"({-(-SSM_PARTS_PROMPT // cfg.ssm_chunk)} chunks of "
+          f"{cfg.ssm_chunk}), bf16 on the card against fp32 on the host: "
+          f"output rms error {out_rms:.4g} of its rms (<= {SSM_OUT_RMS:.4g}"
+          f"), max {out_max:.4g} of its max (<= {SSM_OUT_MAX:.4g}), final "
+          f"SSM state {st_host:.4g} of its max (<= {SSM_STATE_HOST:.4g}); "
+          f"the chunked scan's final state against {SSM_PARTS_PROMPT} "
+          f"recurrent steps on the card {st_steps:.4g} of its max (<= "
+          f"{SSM_STATE_STEPS:.4g}); the card's block and steps "
+          f"{card_s:.2f} s", flush=True)
+
+
+def bf16_explained(torch, api, params, batch, logits) -> tuple[bool, str]:
+    """Whether the hand kernels' bf16 prefill ``logits`` of ``batch`` miss
+    the plain versions' by the bf16 trunk's rounding only, and the
+    evidence.  The Mamba2 blocks are the same torch ops on both paths; the
+    paths differ only at the planned GEMMs, by rounding, and every bf16
+    cast of the 38 or 48 blocks after the first such difference rounds
+    its (now different) input anew, so the two bf16 paths drift apart
+    layer by layer.  Explained: (1) the same
+    prompt on the same weights in float32, the hand kernels (3xTF32 and
+    float32 products) against the plain versions, within
+    ``FP32_LOGIT_ATOL``: the kernels compute the model's function; and
+    (2) the bf16 miss smaller than the bf16 plain path's own distance
+    from that float32 model: the miss is within the bf16 model's rounding
+    error."""
+    import dataclasses
+
+    from repro_torch.kernels import planned
+    from repro_torch.models import build_model
+
+    cfg32 = dataclasses.replace(api.cfg, dtype="float32")
+    api32 = build_model(cfg32, "cuda")
+    p32 = float_tree(params)
+    rows = batch["tokens"].shape[1]
+    with torch.no_grad():
+        with planned.override(enabled=False):
+            plain, _ = api.prefill(params, batch, rows)
+            plain32, _ = api32.prefill(p32, batch, rows)
+        kern32, _ = api32.prefill(p32, batch, rows)
+    del p32
+    torch.cuda.empty_cache()
+    miss = (logits.float() - plain.float()).abs().max().item()
+    f32 = (kern32 - plain32).abs().max().item()
+    own = (plain.float() - plain32).abs().max().item()
+    ok = f32 <= FP32_LOGIT_ATOL and miss < own
+    return ok, (f"in float32 the hand kernels' logits differ from the plain "
+                f"versions' by {f32:.3g} (<= {FP32_LOGIT_ATOL}: "
+                f"{f32 <= FP32_LOGIT_ATOL}); the bf16 plain versions' "
+                f"logits differ from the float32 model's by {own:.4f}, the "
+                f"miss {miss:.4f} is smaller: {miss < own}")
+
+
+def float_tree(tree):
+    """A parameter tree (dicts and lists) with every floating tensor in
+    float32."""
+    if isinstance(tree, dict):
+        return {k: float_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [float_tree(v) for v in tree]
+    return tree.float() if tree.is_floating_point() else tree
+
+
+def ssm_phase(torch, device_name: str) -> dict:
+    """Phase 12: full-width mamba2-780m (48 Mamba2 layers, d 1536, state
+    128) and zamba2-1.2b (38 Mamba2 layers, d 2048, state 64, one shared
+    attention + MLP block applied 6 times), bf16, random weights seeded
+    with 0 and drawn on the card, one after the other.  For each: the
+    Mamba2 block's parts (``ssm_parts``); four prompts of 4-16 tokens and
+    ``SSM_LONG_PROMPTS``, 8 new tokens each, on the slot and the paged
+    engine (``two_engines``: exact-length prefills, the decode step
+    captured in ``load()``, the two engines' tokens equal at 4 lanes),
+    every site the reference plans planned with no fallback
+    (``SSM_SITES``), ``decode_compiles`` 1, ``drain_parity``, each
+    prompt's prefill logits against the plain versions, and the eager
+    decode step, the captured paged step and a 512-token prefill
+    profiled.  Returns each engine's launches, launches by kernel and
+    ``SSM_SHAPES`` launches, by path."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.hybrid import n_attn_apps
+
+    paths = {}
+    for label, arch in SSM_ARCHS.items():
+        cfg = get_config(arch)
+        apps = n_attn_apps(cfg)
+        t0 = time.perf_counter()
+        params = build_model(cfg, "cuda").init(
+            torch.Generator(device="cuda").manual_seed(0))
+        torch.cuda.synchronize()
+        weights = sum(t.numel() * t.element_size()
+                      for t in iter_tensors(params))
+        print(f"{label}: {arch} at full width ({cfg.n_layers} Mamba2 layers, "
+              f"d {cfg.d_model}, d_inner {cfg.d_inner} in {cfg.ssm_heads} "
+              f"heads of {cfg.ssm_headdim}, state {cfg.ssm_state}"
+              + (f", one shared attention + MLP block ({cfg.n_heads} heads "
+                 f"of {cfg.hd}, ff {cfg.d_ff}) applied {apps} times"
+                 if apps else "")
+              + f", vocab {cfg.vocab}, {cfg.dtype}; {weights / 1e9:.2f} GB "
+              f"of weights) drawn on the card in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        ssm_parts(torch, label, cfg, params)
+        rng = np.random.default_rng(5)
+        prompts = [rng.integers(0, cfg.vocab, int(rng.integers(4, 17)))
+                   for _ in range(4)]
+        prompts += [rng.integers(0, cfg.vocab, n) for n in SSM_LONG_PROMPTS]
+
+        def submit(e, prompts=prompts):
+            for p in prompts:
+                e.submit_text(p, max_new_tokens=MAX_NEW)
+            return len(prompts)
+
+        out = two_engines(torch, cfg, params, label, submit, SSM_MAX_SEQ,
+                          device_name, timed=SSM_SHAPES, tied=False,
+                          gemms=GEMM_WRAPPERS if apps else ("widesa_mm",))
+        (slot, run), (paged, prun) = out["slot"], out["paged"]
+        load = paged.plan_report
+        got = (set(run["report"]), set(prun["report"]), set(load))
+        if got != SSM_SITES[label]:
+            fail(f"{label}: planned sites (slot drain, paged drain, paged "
+                 f"load) {got}, the reference plans {SSM_SITES[label]}")
+        bad = {s: st for s, st in load.items()
+               if not st["planned"] or st["fallback"]}
+        if bad or paged.stats["decode_compiles"] != 1:
+            fail(f"{label} paged: load window sites {bad}, stats "
+                 f"{paged.stats}")
+        merged = {s: {"shapes": {
+            **run["report"].get(s, {}).get("shapes", {}),
+            **prun["report"].get(s, {}).get("shapes", {})}}
+            for s in {*run["report"], *prun["report"]}}
+        drain_parity(torch, merged, label, tied=False)
+        batches = [token_batch(torch, p) for p in prompts]
+
+        def explain(rid, logits, api=slot.api, params=params):
+            return bf16_explained(torch, api, params, batches[rid], logits)
+
+        first_logits(torch, label, slot.api, params, run["done"], batches,
+                     explain=explain,
+                     explained_by="bf16 rounding in the trunk")
+        print(f"{label}: the paged engine's tokens equal the slot engine's "
+              f"at {SLOTS} lanes ({len(prompts)} requests of "
+              f"{sorted(map(len, prompts))} tokens; stats {paged.stats}); "
+              f"every site the reference plans planned with no fallback: "
+              f"{sorted(got[0] | got[2])}", flush=True)
+        cache = slot.api.init_cache(SLOTS, SSM_MAX_SEQ)
+        tokens = torch.zeros((SLOTS, 1), dtype=torch.int32, device="cuda")
+        profile_call(torch, f"{label} decode step ({SLOTS} lanes, max_seq "
+                     f"{SSM_MAX_SEQ}, eager)",
+                     lambda: slot.api.decode(params, cache, tokens), runs=5)
+        profile_call(torch, f"{label} captured paged decode step ({SLOTS} "
+                     "lanes; the replay stages the tables, replays and "
+                     "reads the tokens)", lambda: paged._decode([]), runs=5,
+                     top=6)
+        profile_call(torch, f"{label} prefill of {SSM_LONG_PROMPTS[-1]} "
+                     "tokens", lambda: slot.api.prefill(
+                         params, batches[-1], SSM_LONG_PROMPTS[-1]), runs=5,
+                     top=6)
+        print(f"{label}: on {device_name} [{nvidia_smi()}]", flush=True)
+        paths[label] = out["by_engine"]["slot"]
+        paths[f"{label}_paged"] = out["by_engine"]["paged"]
+        del slot, paged, cache, run, prun, out, params
+        torch.cuda.empty_cache()
+    return paths
 
 
 def iter_tensors(tree):
@@ -4315,8 +4659,11 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     moe_paths = moe_phase(torch, name)
     torch.cuda.empty_cache()
+    ssm_paths = ssm_phase(torch, name)
+    torch.cuda.empty_cache()
     long_rows = gemm_timings(torch)
     moe_rows = gemm_timings(torch, MOE_SHAPES, seed=15)
+    ssm_rows = gemm_timings(torch, SSM_SHAPES, seed=17)
     torch.cuda.empty_cache()
     rec_launches, rec_variants, hpc_rows, gemm_rows = \
         recurrences_phase(torch)
@@ -4339,6 +4686,8 @@ def main(argv=None) -> int:
                             for path in long_paths},
                          **{path: moe_paths[path]["launches"][kname]
                             for path in moe_paths},
+                         **{path: ssm_paths[path]["launches"][kname]
+                            for path in ssm_paths},
                          "recurrences": rec_launches[kname]},
             "max_abs_err": row["max_abs_err"],
             "ms": row["ms"], "plain_ms": row["plain_ms"],
@@ -4361,6 +4710,8 @@ def main(argv=None) -> int:
                    for path in long_paths},
                 **{path: moe_paths[path]["variants"][kname]
                    for path in moe_paths},
+                **{path: ssm_paths[path]["variants"][kname]
+                   for path in ssm_paths},
                 "recurrences": rec_variants[kname]}
             keys = {"mttkrp": ("device_ms", "cuda_core_device_ms",
                                "library_device_ms", "cuda_core_bound_ms"),
@@ -4419,6 +4770,19 @@ def main(argv=None) -> int:
                     "launches": {path: moe_paths[path]["shapes"][
                         (kind, shape)] for path in moe_paths}}
                 for _, k, shape, *_, dname in MOE_SHAPES if k == kind}
+            # the SSM and hybrid models' lm_heads and zamba2's shared block,
+            # each with its launches on the mamba2 and zamba2 paths
+            ssm_entry = {
+                f"{kind}{shape}": {**{key: ssm_rows[(kind, shape)][key]
+                                      for key in ("kernel", "ms", "plain_ms",
+                                                  "library_ms", "bound_ms",
+                                                  "bound_by", "max_abs_err")},
+                                   "launches": {path: ssm_paths[path][
+                                       "shapes"][(kind, shape)]
+                                       for path in ssm_paths}}
+                for _, k, shape, *_ in SSM_SHAPES if k == kind}
+            if ssm_entry:
+                entry["ssm"] = ssm_entry
         if kname in WGMMA_SHAPES:
             # the tensor-core kernel at its prefill shape, the tiled
             # kernel and the library call beside it; the integer one at

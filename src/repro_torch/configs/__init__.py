@@ -4,7 +4,8 @@
 ``get_smoke_config(arch)`` the reduced one the tests use; both are copies
 of the reference's configs.  The port registers the archs it runs
 (qwen1.5-0.5b serves text; olmoe-1b-7b, the MoE family, serves text
-through its expert stack; whisper-base serves precomputed frames and
+through its expert stack; mamba2-780m (SSM) and zamba2-1.2b (hybrid)
+serve text on a recurrent state; whisper-base serves precomputed frames and
 streamed audio; qwen3-32b's grouped KV heads are held against the
 reference in the tests); every other arch is not ported yet and raises.
 """
@@ -18,6 +19,8 @@ from .base import ModelConfig
 _ARCH_MODULES = {
     "qwen1.5-0.5b": "qwen15_05b",
     "olmoe-1b-7b": "olmoe_1b_7b",
+    "mamba2-780m": "mamba2_780m",
+    "zamba2-1.2b": "zamba2_12b",
     "qwen3-32b": "qwen3_32b",
     "whisper-base": "whisper_base",
 }

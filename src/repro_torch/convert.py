@@ -3,15 +3,17 @@
 ``params_from_jax(np_tree, cfg, device)`` takes the reference model's
 parameter tree with every leaf already converted to a numpy array (the
 layers stacked along a leading L axis: ``dense_layers`` and, for the MoE
-family, ``moe_layers``; ``enc_layers``/``dec_layers`` for encdec) and
-returns the port's dict, one entry per layer in ``layers`` (dense and
-MoE: the dense layers first, as the reference runs them) or in
-``enc_layers``/``dec_layers`` (encdec).  bfloat16 leaves (numpy's
-``bfloat16`` extension dtype) keep their bits.
+family, ``moe_layers``; ``enc_layers``/``dec_layers`` for encdec;
+``trunk`` for SSM and hybrid) and returns the port's dict, one entry per
+layer in ``layers`` (dense and MoE: the dense layers first, as the
+reference runs them), in ``enc_layers``/``dec_layers`` (encdec) or in
+``trunk`` (SSM and hybrid, beside the hybrid's one ``shared`` block).
+bfloat16 leaves (numpy's ``bfloat16`` extension dtype) keep their bits.
 
 ``init_params(cfg, generator, device)`` draws full-width weights on the
 device from a seeded ``torch.Generator`` (``models/transformer.py`` for
-dense and MoE, ``models/encdec.py`` for encdec).
+dense and MoE, ``models/encdec.py`` for encdec, ``models/hybrid.py`` for
+SSM and hybrid).
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .models import encdec, transformer
+from .models import encdec, hybrid, transformer
 
 __all__ = ["init_params", "params_from_jax"]
 
@@ -43,6 +45,8 @@ def init_params(cfg, generator, device="cuda") -> dict:
     """Seeded full-width random weights for ``cfg``'s family."""
     if cfg.family == "encdec":
         return encdec.init_params(cfg, generator, device)
+    if cfg.family in ("ssm", "hybrid"):
+        return hybrid.init_params(cfg, generator, device)
     return transformer.init_params(cfg, generator, device)
 
 
@@ -56,11 +60,17 @@ def params_from_jax(np_tree: dict, cfg, device="cuda") -> dict:
             **{k: _tree(np_tree[k], device)
                for k in ("embed", "pos_dec", "ln_enc", "ln_f")},
         }
+    if cfg.family in ("ssm", "hybrid"):
+        return {"trunk": [_tree(np_tree["trunk"], device, i)
+                          for i in range(cfg.n_layers)],
+                **{k: _tree(np_tree[k], device)
+                   for k in ("embed", "ln_f", "lm_head", "shared")
+                   if k in np_tree}}
     if cfg.family not in ("dense", "moe") or cfg.use_mla:
         raise NotImplementedError(
             f"family {cfg.family!r}{' with MLA' if cfg.use_mla else ''} is "
             "not ported; the port runs dense and MoE decoders with GQA "
-            "attention, and encdec")
+            "attention, SSM and hybrid models, and encdec")
     layers = []
     for group, n in zip(("dense_layers", "moe_layers"),
                         transformer.layer_split(cfg)):

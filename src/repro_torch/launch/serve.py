@@ -8,9 +8,15 @@
         --engine paged [--block-size 16] [--num-blocks N] [--full]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \
         --full --max-seq 528 [--engine paged]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m \
+        --full --max-seq 528 [--engine paged]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \
+        --full --max-seq 528 [--engine paged]
 
 ``--full`` serves the published full-width configuration instead of the
-reduced smoke one (olmoe-1b-7b: 13.8 GB of weights); weights are drawn
+reduced smoke one (olmoe-1b-7b: 13.8 GB of weights; mamba2-780m, the SSM
+family, and zamba2-1.2b, the hybrid one, prefill at the exact prompt
+length on either engine); weights are drawn
 from a ``torch.Generator`` seeded with 0 on ``--device``.  ``--stream-audio`` (encdec archs) submits
 synthesized int16 audio streams of ``1 + i % (enc_frames //
 frames_per_chunk)`` chunks for request ``i`` through the planned

@@ -39,6 +39,57 @@ def compute_dtype(cfg) -> torch.dtype:
 
 
 # ---------------------------------------------------------------------------
+# init helpers: random weights drawn on the device with the reference's
+# scales (N(0, 1/d_in) dense kernels, unit norm gains, zero biases)
+# ---------------------------------------------------------------------------
+
+def normal(generator, shape, scale, dtype, device):
+    """N(0, scale^2) drawn in fp32 on ``device``, cast to ``dtype``."""
+    w = torch.randn(shape, generator=generator, device=device,
+                    dtype=torch.float32)
+    return (w * scale).to(dtype)
+
+
+def dense_init(generator, d_in, d_out, dtype, device, scale=None):
+    return normal(generator, (d_in, d_out), scale or 1.0 / math.sqrt(d_in),
+                  dtype, device)
+
+
+def init_norm(cfg, device):
+    dt = compute_dtype(cfg)
+    p = {"w": torch.ones(cfg.d_model, dtype=dt, device=device)}
+    if cfg.norm == "layer":
+        p["b"] = torch.zeros(cfg.d_model, dtype=dt, device=device)
+    return p
+
+
+def init_attention(cfg, generator, device):
+    """wq, wk, wv, wo in that order (the biases and q/k norms draw
+    nothing)."""
+    d, hq, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    dt = compute_dtype(cfg)
+    p = {name: dense_init(generator, d_in, d_out, dt, device)
+         for name, d_in, d_out in (("wq", d, hq * hd), ("wk", d, hkv * hd),
+                                   ("wv", d, hkv * hd), ("wo", hq * hd, d))}
+    if cfg.qkv_bias:
+        for name, width in (("bq", hq * hd), ("bk", hkv * hd),
+                            ("bv", hkv * hd)):
+            p[name] = torch.zeros(width, dtype=dt, device=device)
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones(hd, dtype=dt, device=device)
+        p["k_norm"] = torch.ones(hd, dtype=dt, device=device)
+    return p
+
+
+def init_glu_mlp(cfg, generator, device):
+    """The GLU MLP's wg, wu, wd in that order."""
+    d, ff, dt = cfg.d_model, cfg.d_ff, compute_dtype(cfg)
+    return {"wg": dense_init(generator, d, ff, dt, device),
+            "wu": dense_init(generator, d, ff, dt, device),
+            "wd": dense_init(generator, ff, d, dt, device)}
+
+
+# ---------------------------------------------------------------------------
 # norms
 # ---------------------------------------------------------------------------
 

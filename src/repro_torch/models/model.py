@@ -17,8 +17,10 @@ indexed through the block tables), ``"lane"`` (one fixed-size block a
 lane) or ``"lane_scalar"`` (one scalar a lane); ``paged_decode`` writes
 the pools in place and never moves ``pos``.
 
-The dense, MoE (GQA attention; not MLA) and encdec families are
-ported; the others raise.  encdec's
+The dense, MoE (GQA attention; not MLA), SSM, hybrid and encdec
+families are ported; MLA and vlm raise.  The SSM and hybrid families
+prefill at the exact prompt length only: their ``prefill`` refuses a
+``last_index`` (a pad token would enter the recurrent state).  encdec's
 ``prefill`` encodes the batch's precomputed ``frames`` [B, F, d] and runs
 the prompt against their cross K/V.  It also serves streamed audio:
 ``enc_init(b, f_max)`` builds the incremental encoder state,
@@ -39,6 +41,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 
 from . import encdec as ENCDEC
+from . import hybrid as HYBRID
 from . import transformer as TFM
 
 
@@ -66,11 +69,13 @@ def build_model(cfg: ModelConfig, device="cuda") -> ModelAPI:
     cache_dtype = TFM.cache_dtype_of(cfg)
     if cfg.family == "encdec":
         return _encdec_api(cfg, device, cache_dtype)
+    if cfg.family in ("ssm", "hybrid"):
+        return _hybrid_api(cfg, device, cache_dtype)
     if cfg.family not in ("dense", "moe") or cfg.use_mla:
         raise NotImplementedError(
             f"family {cfg.family!r}{' with MLA' if cfg.use_mla else ''} is "
             "not ported; the port serves dense and MoE decoders with GQA "
-            "attention, and encdec")
+            "attention, SSM and hybrid models, and encdec")
 
     def prefill(p, batch, max_seq, last_index=None):
         return TFM.prefill(p, cfg, batch["tokens"], max_seq,
@@ -90,6 +95,34 @@ def build_model(cfg: ModelConfig, device="cuda") -> ModelAPI:
         paged_decode=lambda p, pools, t, bt, pos, act:
             TFM.decode_step_paged(p, cfg, pools, t, bt, pos, act),
         paged_layout=lambda: TFM.paged_layout(cfg),
+    )
+
+
+def _hybrid_api(cfg: ModelConfig, device: torch.device,
+                cache_dtype: torch.dtype) -> ModelAPI:
+    def prefill(p, batch, max_seq, last_index=None):
+        if last_index is not None:
+            raise ValueError(
+                "bucketed (padded) prefill is not supported for "
+                "ssm/hybrid: the recurrent SSM state would absorb "
+                "pad tokens; prefill at the exact prompt length")
+        return HYBRID.prefill(p, cfg, batch["tokens"], max_seq,
+                              cache_dtype=cache_dtype)
+
+    return ModelAPI(
+        cfg=cfg,
+        device=device,
+        init=lambda generator: HYBRID.init_params(cfg, generator, device),
+        prefill=prefill,
+        decode=lambda p, cache, tokens: HYBRID.decode_step(p, cfg, cache,
+                                                           tokens),
+        init_cache=lambda b, s: HYBRID.init_cache(cfg, b, s, cache_dtype,
+                                                  device),
+        paged_init=lambda nb, bs, lanes: HYBRID.init_paged_pools(
+            cfg, nb, bs, lanes, cache_dtype, device),
+        paged_decode=lambda p, pools, t, bt, pos, act:
+            HYBRID.decode_step_paged(p, cfg, pools, t, bt, pos, act),
+        paged_layout=lambda: HYBRID.paged_layout(cfg),
     )
 
 

@@ -21,8 +21,6 @@ tables.
 
 from __future__ import annotations
 
-import math
-
 import torch
 
 from repro_torch.kernels.planned import planned_dense
@@ -68,50 +66,23 @@ def init_params(cfg, generator: torch.Generator, device="cuda"):
     layer's block from ``moe.init_moe``."""
     _check_family(cfg)
     dt = L.compute_dtype(cfg)
-
-    def normal(shape, scale):
-        w = torch.randn(shape, generator=generator, device=device,
-                        dtype=torch.float32)
-        return (w * scale).to(dt)
-
-    def dense(d_in, d_out, scale=None):
-        return normal((d_in, d_out), scale or 1.0 / math.sqrt(d_in))
-
-    def norm():
-        p = {"w": torch.ones(cfg.d_model, dtype=dt, device=device)}
-        if cfg.norm == "layer":
-            p["b"] = torch.zeros(cfg.d_model, dtype=dt, device=device)
-        return p
-
-    d, hq, hkv, hd, ff = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
-                          cfg.d_ff)
     n_dense, _ = layer_split(cfg)
     layers = []
     for i in range(cfg.n_layers):
-        attn = {
-            "wq": dense(d, hq * hd),
-            "wk": dense(d, hkv * hd),
-            "wv": dense(d, hkv * hd),
-            "wo": dense(hq * hd, d, 1.0 / math.sqrt(hq * hd)),
-        }
-        if cfg.qkv_bias:
-            for name, width in (("bq", hq * hd), ("bk", hkv * hd),
-                                ("bv", hkv * hd)):
-                attn[name] = torch.zeros(width, dtype=dt, device=device)
-        if cfg.qk_norm:
-            attn["q_norm"] = torch.ones(hd, dtype=dt, device=device)
-            attn["k_norm"] = torch.ones(hd, dtype=dt, device=device)
-        layer = {"ln1": norm(), "attn": attn, "ln2": norm()}
+        layer = {"ln1": L.init_norm(cfg, device),
+                 "attn": L.init_attention(cfg, generator, device),
+                 "ln2": L.init_norm(cfg, device)}
         if i < n_dense:
-            layer["mlp"] = {"wg": dense(d, ff), "wu": dense(d, ff),
-                            "wd": dense(ff, d, 1.0 / math.sqrt(ff))}
+            layer["mlp"] = L.init_glu_mlp(cfg, generator, device)
         else:
             layer["moe"] = MOE.init_moe(cfg, generator, device)
         layers.append(layer)
-    p = {"embed": normal((cfg.vocab, d), 0.02), "ln_f": norm(),
-         "layers": layers}
+    p = {"embed": L.normal(generator, (cfg.vocab, cfg.d_model), 0.02, dt,
+                           device),
+         "ln_f": L.init_norm(cfg, device), "layers": layers}
     if not cfg.tie_embeddings:
-        p["lm_head"] = dense(d, cfg.vocab)
+        p["lm_head"] = L.dense_init(generator, cfg.d_model, cfg.vocab, dt,
+                                    device)
     return p
 
 

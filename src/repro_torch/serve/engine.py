@@ -33,8 +33,9 @@ continuous batching over a block-paged KV cache (``paged_cache``):
     bucket length so the prefill runs at one shape per bucket, and the
     scheduler packs at most a few prefills into steps where decode lanes
     sit idle instead of stalling all in-flight decodes behind a burst.
-    The MoE family prefills at exact lengths instead (pad tokens would
-    take expert slots from real ones), as in the reference.  Prefills
+    The MoE, SSM and hybrid families prefill at exact lengths instead
+    (pad tokens would take expert slots from real ones, or enter the
+    recurrent state), as in the reference.  Prefills
     and chunk feeds run eagerly, outside the graph.
   * When the block pool runs dry mid-flight, the youngest active
     request is preempted: its blocks free instantly, it re-queues with
@@ -217,9 +218,9 @@ class PagedServeEngine(EngineBase):
         self.scheduler = scheduler or Scheduler()
         # bucket pads are invisible to masked attention, but not to every
         # family: capacity-limited MoE routing lets pads compete with real
-        # tokens for expert slots (and recurrent ssm/hybrid state, not yet
-        # ported, absorbs them), so those prefill at exact lengths, as in
-        # the reference; dense and encdec bucket
+        # tokens for expert slots, and a recurrent ssm/hybrid state absorbs
+        # them, so those prefill at exact lengths, as in the reference;
+        # dense and encdec bucket
         self._exact_prefill = cfg.family in ("ssm", "hybrid", "moe")
         self.kv: PagedKVCache | None = None
         self.lanes: list[Request | None] = [None] * max_lanes

@@ -267,10 +267,9 @@ def test_init_params_draws_full_width_shapes_from_a_seed():
 
 
 def test_unported_families_raise():
-    for over in (dict(family="ssm"), dict(family="hybrid"),
-                 dict(family="vlm"), dict(family="moe", use_mla=True)):
+    for over in (dict(family="vlm"), dict(family="moe", use_mla=True)):
         with pytest.raises(NotImplementedError):
             build_model(dataclasses.replace(get_smoke_config(ARCH), **over),
                         "cpu")
     with pytest.raises(ValueError, match="not ported"):
-        get_smoke_config("mamba2-780m")
+        get_smoke_config("llava-next-mistral-7b")

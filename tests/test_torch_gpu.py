@@ -1360,3 +1360,140 @@ def test_moe_captured_decode_equals_an_eager_step_on_the_card(gen):
     got = {r.rid: list(r.output) for r in eng.run_until_drained()}
     assert got == {r.rid: list(r.output) for r in slot.run_until_drained()}
     assert eng.stats["decode_compiles"] == 1
+
+
+# ---------------------------------------------------------------------------
+# the SSM and hybrid families (mamba2-780m, zamba2-1.2b)
+# ---------------------------------------------------------------------------
+
+#: one full-width Mamba2 block, bf16 on the card against the same block in
+#: fp32 on the host (``chip_smoke.py`` ``SSM_OUT_RMS`` and after, where the
+#: reasons are): the output's rms error within 2^-6 of its rms, its largest
+#: within 2^-4 of the largest output, the final state within 2^-5 of its
+#: largest entry; the chunked scan's final state against the recurrent
+#: steps on the card within 1e-3 of its largest entry
+SSM_BOUNDS = {"out_rms": 2 ** -6, "out_max": 2 ** -4, "state_host": 2 ** -5,
+              "state_steps": 1e-3}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["mamba2-780m", "zamba2-1.2b"])
+def test_full_width_mamba2_block_matches_the_host_on_the_card(arch, gen):
+    """The first trunk block of each model at full width over 300 tokens
+    (two SSD chunks of 256, the second padded): output and final state
+    against the host's fp32 run, and against 300 recurrent steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm
+
+    cfg = get_config(arch)
+    p = ssm.init_mamba(cfg, gen, "cuda")
+    x = torch.randn((1, 300, cfg.d_model), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    with torch.no_grad():
+        y, state = ssm.apply_mamba(p, cfg, x, return_state=True)
+        cache = ssm.init_mamba_cache(cfg, 1, device="cuda")
+        for t in range(x.shape[1]):
+            _, cache = ssm.apply_mamba_step(p, cfg, x[:, t:t + 1], cache)
+        hy, hstate = ssm.apply_mamba({k: v.float().cpu() for k, v in
+                                      p.items()}, cfg, x.float().cpu(),
+                                     return_state=True)
+    diff = y.float().cpu() - hy
+    got = {
+        "out_rms": (diff.pow(2).mean().sqrt()
+                    / hy.pow(2).mean().sqrt()).item(),
+        "out_max": (diff.abs().max() / hy.abs().max()).item(),
+        "state_host": ((state.cpu() - hstate).abs().max()
+                       / hstate.abs().max()).item(),
+        "state_steps": ((state - cache["ssm"]).abs().max()
+                        / state.abs().max()).item(),
+    }
+    assert all(got[k] <= bound for k, bound in SSM_BOUNDS.items()), got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["mamba2-780m", "zamba2-1.2b"])
+def test_captured_ssm_step_equals_an_eager_step_on_the_card(arch, gen):
+    """The smoke model on the paged engine (its step captured in
+    ``load()``): a replay over 3 active lanes of 4 equals an eager
+    ``decode_step_paged`` on the same pools bitwise, logits and every
+    pool (the conv and SSM states written in place, inactive lanes
+    advanced too), and two replays of the same inputs give the same
+    bits; the drain's tokens equal the slot engine's at 4 lanes."""
+    from repro_torch.models import hybrid
+    from repro_torch.serve import make_engine
+
+    eng = _paged_engine(arch)
+    assert eng.stats["decode_compiles"] == 1
+    prompts = _prompts(eng.cfg.vocab, (5, 9, 13, 6, 11), seed=7)
+    for p in prompts[:3]:
+        eng.submit(p, max_new_tokens=8)
+    eng.step()
+    eng.step()
+    active = [i for i, r in enumerate(eng.lanes) if r is not None]
+    assert len(active) == 3
+    ptrs = {k: v.data_ptr() for k, v in eng.kv.pools.items()}
+    before = {k: v.clone() for k, v in eng.kv.pools.items()}
+    nxt = eng._decode(active)
+    replay = eng._decode_out[0].clone()
+    replayed = {k: v.clone() for k, v in eng.kv.pools.items()}
+    assert any(not torch.equal(replayed[k], before[k]) for k in ("conv",
+                                                                  "ssm"))
+    for k, v in eng.kv.pools.items():
+        v.copy_(before[k])
+    eng._decode(active)
+    assert torch.equal(eng._decode_out[0], replay)
+    for k, v in eng.kv.pools.items():
+        v.copy_(before[k])
+    tokens = torch.tensor([[eng.lanes[i].output[-1] if i in active else 0]
+                           for i in range(eng.max_lanes)],
+                          dtype=torch.int32, device="cuda")
+    with torch.no_grad(), planned.override(policy=eng.policy):
+        logits, _ = hybrid.decode_step_paged(
+            eng.params, eng.cfg, eng.kv.pools, tokens,
+            torch.as_tensor(eng.kv.tables, device="cuda"),
+            torch.as_tensor(eng.kv.pos, device="cuda"),
+            torch.as_tensor(eng.kv.active, device="cuda"))
+    torch.cuda.synchronize()
+    assert torch.equal(logits, replay)
+    for k in replayed:
+        assert torch.equal(eng.kv.pools[k], replayed[k]), k
+    assert [nxt[i] for i in active] == logits.argmax(-1)[active].tolist()
+    assert {k: v.data_ptr() for k, v in eng.kv.pools.items()} == ptrs
+    # a fresh engine of each kind over all five prompts: equal tokens
+    paged = _paged_engine(arch)
+    slot = make_engine(eng.cfg, kind="slot", max_slots=4, max_seq=64)
+    slot.load(paged.params)
+    outs = []
+    for other in (paged, slot):
+        for p in prompts:
+            other.submit(p, max_new_tokens=8)
+        outs.append({r.rid: list(r.output)
+                     for r in other.run_until_drained()})
+    assert outs[0] == outs[1]
+    assert paged.stats["decode_compiles"] == 1
+
+
+#: zamba2-1.2b's shared block at full width (d 2048, ff 8192, 32 heads of
+#: 64), new B1 shapes: its MLP at a 4-lane decode step and at prompts of
+#: 64, 300 and 512 tokens, its q/k/v/out projections at decode
+ZAMBA2_SHAPES = ((4, 8192, 2048), (4, 2048, 8192), (4, 2048, 2048),
+                 (64, 8192, 2048), (300, 8192, 2048), (512, 8192, 2048))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", ZAMBA2_SHAPES, ids=str)
+def test_zamba2_shared_block_gemms_match_the_plain_version_on_the_card(
+        shape, gen):
+    """Through the planned facade in bf16 on the kernel the runtime picks
+    (the skinny kernel at 4 rows, the tensor-core kernel above), within
+    one bf16 step of the plain version."""
+    m, n, k = shape
+    x = _gemm_draw((m, k), torch.bfloat16, gen)
+    w = _gemm_draw((k, n), torch.bfloat16, gen)
+    before = dict(widesa_mm.variants)
+    got = planned.planned_dense(x, w, site="mlp.gate")
+    _same_gemm(got, ref.mm(x, w))
+    torch.cuda.synchronize()
+    kernel = "skinny" if m <= runtime.SKINNY_ROWS else "wgmma"
+    assert {v: widesa_mm.variants[v] - before[v] for v in before} == {
+        "skinny": 0, "wgmma": 0, "tiled": 0, kernel: 1}
