@@ -9,9 +9,10 @@
     python3 chip_smoke.py --fft-sweep [--out sweep.json]
     python3 chip_smoke.py --conv2d-sweep [--src OTHER/src] [--out sweep.json]
     python3 chip_smoke.py --fir-sweep [--src OTHER/src] [--out sweep.json]
+    python3 chip_smoke.py --train
 
 Needs one CUDA card and the CUDA toolkit.  It imports only the port, never
-JAX nor the JAX package, and runs fourteen phases, each printing its own
+JAX nor the JAX package, and runs sixteen phases, each printing its own
 line(s); any failure exits non-zero:
 
 1. device — the card's name and power limit, torch and CUDA versions;
@@ -184,7 +185,33 @@ line(s); any failure exits non-zero:
    ``drain_parity``, each prompt's prefill logits against the plain
    versions; the eager decode step, the captured paged step and a
    512-token prefill profiled;
-13. recurrences — the WideSA mapper -> kernel pipeline,
+13. train — full-width qwen1.5-0.5b trained (bf16, 24 layers, vocab
+   151936, remat "full"; train_4k's 4096 x 256 tokens cut to 512 x 8),
+   ``train_phase``: (a) one float32 step, the same seeded weights and
+   batch, on the kernels (float32 GEMMs as 3xTF32) and under
+   ``configure(enabled=False)``, the loss and every gradient leaf within
+   ``GRAD_RTOL`` relative (L2; a leaf whose exact gradient is 0, a key
+   bias without rotary positions, within ``ZERO_GRAD_SHARE`` of the whole
+   gradient's norm on both paths); (b) ``Trainer`` over ``TRAIN_STEPS``
+   bf16 steps from seeded weights, every count set to 0 just before and
+   read just after: every forward site and each of its ``/bwd_*`` sites
+   planned with no fallback, no tiled GEMM launch; (c) every loss
+   finite, the last 5 steps' mean below the first 5's, a fresh
+   ``Trainer`` resuming at the last step with the saved parameters bit
+   for bit; (d) one step's host time (median of 5), the forward, the
+   backward (the remat recompute included) and AdamW traced apart by
+   ``torch.profiler`` (device busy and idle share, the backward's GEMMs
+   by kernel), the A operands copied to row-major, tokens a second; then
+   the backward GEMMs of ``TRAIN_SHAPES`` (the weight gradients at K =
+   4096 tokens, the tied lm_head's dx at K = 151936 and dW, the scores'
+   and values' da / db) against their plain versions (past
+   ``runtime.TC_PROMOTE_K``, one bf16 rounding plus ``sum_bound``) and
+   timed beside ``torch.matmul`` and their bounds;
+14. whisper_train — full-width whisper-base trained the same way (bf16,
+   6+6 layers, vocab 51865; 4 utterances of 1500 frames and 64 text
+   tokens, ``grad_accum`` 4 -> 1), the MLP pair's five backward sites
+   among the checked ones, its encoder scores' da / db timed;
+15. recurrences — the WideSA mapper -> kernel pipeline,
    ``repro_torch.launch.recurrences.run`` (the entry point's function):
    the Table II compiler report, quickstart's 1024^3 MM, and every
    registered recurrence planned on one chip and run through
@@ -227,8 +254,8 @@ line(s); any failure exits non-zero:
    and 512 rows, the expert stack at C = 1 and 80) and those the SSM and
    hybrid paths add (``SSM_SHAPES``: the two lm_heads at decode, zamba2's
    shared block at decode and its gate/up at 512 rows) are timed beside
-   ``torch.matmul``/``torch.bmm`` and their bounds after phase 12;
-14. summary — a JSON line of the kernels, the ``nvidia-smi`` name and
+   ``torch.matmul``/``torch.bmm`` and their bounds after phase 14;
+16. summary — a JSON line of the kernels, the ``nvidia-smi`` name and
    power limit, and the result line.
 
 Every wrapper's launch count is set to 0 just before each serving drain
@@ -237,10 +264,11 @@ line gives each path's counts apart (``"launches": {"qwen": n,
 "qwen_paged": q, "qwen_prefill": p, "whisper_stream": m,
 "whisper_paged": w, "qwen_long": l, "whisper_offline": o, "olmoe": s,
 "olmoe_paged": g, "mamba2": a, "mamba2_paged": b, "zamba2": z,
-"zamba2_paged": y, "recurrences": k}``; ``qwen_long`` and
-``whisper_offline`` each sum the slot engine's drain and the paged
-engine's).  A replay of a captured step
-passes no wrapper, so a paged path's drain runs under ``torch.profiler``
+"zamba2_paged": y, "train": t, "whisper_train": u, "recurrences":
+k}``; ``qwen_long`` and ``whisper_offline`` each sum the slot engine's
+drain and the paged engine's; ``train`` and ``whisper_train`` count the
+``Trainer``'s ``TRAIN_STEPS`` steps, set to 0 just before its
+``run``).  A replay of a captured step passes no wrapper, so a paged path's drain runs under ``torch.profiler``
 and its count is what the wrappers counted (the eager prefills and chunk
 feeds) plus the GEMM launches that the trace shows in the drain's
 replays; the trace's GEMM launches outside the replays must equal the
@@ -271,13 +299,18 @@ its launches on ``olmoe`` and ``olmoe_paged``; under ``"ssm"`` each
 ``SSM_SHAPES`` GEMM's, with its launches on the four SSM and hybrid
 paths (shapes whose launches share a kernel and grid in a replay, as
 zamba2's q/k/v/out and mlp.down projections at decode, take their
-captured step's counts, which must sum to what the replay shows).  The
+captured step's counts, which must sum to what the replay shows);
+under ``"train"`` each ``TRAIN_SHAPES`` GEMM's, with its launches in one
+train step (every site of that shape, the remat recompute's forward
+launches included).  The
 comparison and timing launches of phases 3 and
 7, those of the paged phases outside their main drains, of
-``drain_parity``, of the logit checks and the profiles do not count.
+``drain_parity``, of the logit checks, of check (a) and the profiles do
+not count.
 
-``--tile-sweep`` runs only the device and build phases, then times the
-tiled GEMM in bf16 with each of the 24 tiles of ``build.SWEEP_TILES`` (a
+``--train`` runs only the device phase, the GEMM source's build and
+phases 13 and 14.  ``--tile-sweep`` runs only the device and build
+phases, then times the tiled GEMM in bf16 with each of the 24 tiles of ``build.SWEEP_TILES`` (a
 second library holds those not compiled for the main path) and the
 skinny GEMM with every split of K, at every main-path shape, and prints,
 per shape, the tile ``runtime.hopper_tiles`` picks, the skinny
@@ -2827,9 +2860,26 @@ def offline_audio(torch, device_name: str) -> dict:
     return out
 
 
-def gemm_timings(torch, timed=LONG_SHAPES, seed=12) -> dict:
+def sum_bound(torch, kind, a, b):
+    """Per output, ``8 sqrt(K) 2^-24 sqrt(sum_k a^2 b^2)``: the fp32
+    rounding of a sum of K products taken in either order
+    (``recurrences.float_bound``'s term), which the plain version's own
+    fp32 sum carries too (at K = 151936: up to 0.03 of N(0, 1) products
+    against the float64 sum on an H100, PR 25)."""
+    from repro_torch.kernels import ref
+
+    plain = ref.mm if kind == "mm" else ref.bmm
+    k = a.shape[-1]
+    rms = plain(a.float() ** 2, b.float() ** 2, torch.float32).sqrt()
+    return 8 * math.sqrt(k) * 2.0 ** -24 * rms.double()
+
+
+def gemm_timings(torch, timed=LONG_SHAPES, seed=12,
+                 long_sums=False) -> dict:
     """The GEMMs of ``timed`` (``LONG_SHAPES``' layout) on the runtime's
-    configuration against their plain versions, and timed:
+    configuration against their plain versions, and timed (with
+    ``long_sums``, a bf16 result over a K past ``runtime.TC_PROMOTE_K``
+    within one rounding plus ``sum_bound``, since both sums round):
     ``torch.profiler`` device time of the hand kernel and of
     ``torch.matmul``/``torch.bmm`` (float32 with TF32 off; the weight
     GEMMs over a rotation of ``COLD_BYTES`` of B; the library's CUDA-event
@@ -2861,7 +2911,14 @@ def gemm_timings(torch, timed=LONG_SHAPES, seed=12) -> dict:
 
         plain = ref.mm if kind == "mm" else ref.bmm
         out = fn(a, b)
-        err, ok = max_error(torch, out, plain(a, b, out_dtype), out.dtype)
+        want = plain(a, b, out_dtype)
+        err, ok = max_error(torch, out, want, out.dtype)
+        if long_sums and out.dtype == torch.bfloat16 \
+                and shape[-1] > runtime.TC_PROMOTE_K:
+            ok = bool(((out.double() - want.double()).abs()
+                       <= 2.0 ** -7 * want.double().abs() + 1e-3
+                       + sum_bound(torch, kind, a, b)).all())
+        del want
         if not ok:
             fail(f"{site} {kind}{shape}: max |err| {err}")
         reps = max(10, len(bs))
@@ -3500,6 +3557,339 @@ def ssm_phase(torch, device_name: str) -> dict:
         del slot, paged, cache, run, prun, out, params
         torch.cuda.empty_cache()
     return paths
+
+
+# ---------------------------------------------------------------------------
+# training: qwen1.5-0.5b and whisper-base at full width
+# ---------------------------------------------------------------------------
+
+#: the train phases: (path, arch, text tokens, batch); whisper-base's
+#: frames are its published 1500 a sample
+TRAIN_PHASES = (("train", ARCH, 512, 8), ("whisper_train", STREAM_ARCH, 64, 4))
+#: the Trainer run of check (c): steps, peak rate, warmup, checkpoint
+#: interval
+TRAIN_STEPS, TRAIN_LR, TRAIN_WARMUP, TRAIN_CKPT_EVERY = 20, 1e-3, 2, 10
+#: check (a): a float32 step's gradients on the kernels (float32 as 3xTF32)
+#: against the plain versions (fp32 with TF32 off), per leaf
+#: ||g_kernels - g_plain|| / ||g_plain||, and the loss's relative error
+GRAD_RTOL = 1e-3
+#: leaves whose exact gradient is 0 (``zero_grad_leaf``) are held to an
+#: absolute bound instead: each path's gradient norm at most this share of
+#: the whole gradient's norm (their rounding noise reads ~1e-10 of it on
+#: whisper-base's SMOKE in float32 on the host; a typical leaf 1e-3)
+ZERO_GRAD_SHARE = 1e-6
+#: the backward sites each forward site of a kind adds
+BWD_SITES = {"mm": ("/bwd_dx", "/bwd_dw"), "bmm": ("/bwd_da", "/bwd_db"),
+             "pair": ("/bwd_up", "/bwd_dwd", "/bwd_dh", "/bwd_dwu",
+                      "/bwd_dx")}
+#: the backward GEMMs timed (``LONG_SHAPES``' layout: site, kind, shape, B
+#: column-major, A in padded rows, flushed to fp32, dtype), by path: qwen's
+#: weight gradients (K = the step's 4096 tokens, A = x^T copied), the tied
+#: lm_head's dx (K = 151936) and dW, the scores' and values' da / db at
+#: 512 tokens; whisper-base's encoder scores' da / db over 1500 frames
+TRAIN_SHAPES = {
+    "train": (
+        ("attn.q/k/v/out/bwd_dw", "mm", (1024, 1024, 4096), False, True,
+         False, "bfloat16"),
+        ("mlp.gate/up/bwd_dw", "mm", (1024, 2816, 4096), False, True,
+         False, "bfloat16"),
+        ("mlp.down/bwd_dw", "mm", (2816, 1024, 4096), False, True, False,
+         "bfloat16"),
+        ("lm_head/bwd_dx", "mm", (4096, 1024, 151936), False, False, False,
+         "bfloat16"),
+        ("lm_head/bwd_dw", "mm", (1024, 151936, 4096), False, True, False,
+         "bfloat16"),
+        ("attn.scores/bwd_da, attn.values/bwd_db", "bmm", (128, 512, 64, 512),
+         False, True, False, "bfloat16"),
+        ("attn.scores/bwd_db", "bmm", (128, 64, 512, 512), False, True,
+         False, "bfloat16"),
+        ("attn.values/bwd_da", "bmm", (128, 512, 512, 64), True, False,
+         False, "bfloat16"),
+    ),
+    "whisper_train": (
+        ("attn.scores/bwd_da, encoder", "bmm", (32, 1500, 64, 1500), False,
+         True, False, "bfloat16"),
+        ("attn.scores/bwd_db, encoder", "bmm", (32, 64, 1500, 1500), False,
+         True, False, "bfloat16"),
+    ),
+}
+
+
+def site_kind(site: str, st: dict) -> str:
+    """A forward site's kind: the MLP pair, mm (3 extents) or bmm."""
+    if site == "mlp.pair":
+        return "pair"
+    return "mm" if len(st["last_shape"]) == 3 else "bmm"
+
+
+def check_train_sites(label: str, report: dict) -> list:
+    """Check (b): every forward site and each of its ``/bwd_*`` sites
+    planned with no fallback; returns the sites."""
+    bad = {s: (st["planned"], st["reasons"]) for s, st in report.items()
+           if not st["planned"] or st["fallback"]}
+    if bad:
+        fail(f"{label}: sites that fell back or never planned: {bad}")
+    lost = [f"{s}{b}" for s, st in report.items() if "/" not in s
+            for b in BWD_SITES[site_kind(s, st)] if f"{s}{b}" not in report]
+    if lost:
+        fail(f"{label}: backward sites missing from the report: {lost}")
+    return sorted(report)
+
+
+def zero_grad_leaf(cfg, path: str) -> bool:
+    """A leaf whose exact gradient is 0: without rotary positions a key
+    bias adds the same ``q . b_k`` to every score of a query's row, which
+    the softmax cancels, so both paths' gradients of ``attn/bk`` and
+    ``xattn/bk`` are rounding noise and their relative error says
+    nothing (whisper-base: 1.2-2.3 on the first run, PR 25)."""
+    return not cfg.use_rope and path.endswith("attn/bk")
+
+
+def grad_parity(torch, label, cfg, shape) -> None:
+    """Check (a): one float32 step at full width, the same parameters and
+    batch, on the kernels and under ``configure(enabled=False)``: the loss
+    and every gradient leaf within ``GRAD_RTOL`` (relative L2)."""
+    import dataclasses
+
+    from repro_torch import tree
+    from repro_torch.data import SyntheticPipeline
+    from repro_torch.kernels import planned
+    from repro_torch.models import build_model
+    from repro_torch.train.loop import batch_tensors
+    from repro_torch.train.step import value_and_grad
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    api = build_model(cfg32, "cuda")
+    params = api.init(torch.Generator(device="cuda").manual_seed(0))
+    batch = batch_tensors(SyntheticPipeline(cfg32, shape).batch(0), "cuda")
+    before = planned.planned_report()
+    t0 = time.perf_counter()
+    loss_k, g_k = value_and_grad(api.loss, params, batch)
+    torch.cuda.synchronize()
+    t_k = time.perf_counter() - t0
+    sites = check_train_sites(f"{label} float32", planned.report_delta(
+        before, planned.planned_report()))
+    with planned.override(enabled=False):
+        t0 = time.perf_counter()
+        loss_p, g_p = value_and_grad(api.loss, params, batch)
+        torch.cuda.synchronize()
+        t_p = time.perf_counter() - t0
+    total = max(float(torch.stack([g.double().norm() for g in
+                                   tree.leaves(g_p)]).norm()), 1e-30)
+    errs, zeros = [], []
+    for path, a, b in zip(tree.paths(g_k), tree.leaves(g_k),
+                          tree.leaves(g_p)):
+        if zero_grad_leaf(cfg, path):
+            zeros.append((max(float(a.double().norm()),
+                              float(b.double().norm())) / total, path))
+        else:
+            errs.append((float((a.double() - b.double()).norm()
+                               / b.double().norm().clamp(min=1e-30)), path))
+    errs.sort(reverse=True)
+    zeros.sort(reverse=True)
+    loss_err = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    print(f"{label}: float32 step at full width on the kernels (float32 "
+          f"GEMMs as 3xTF32, {len(sites)} sites planned, no fallback) "
+          f"against the plain versions (fp32, TF32 off): loss "
+          f"{float(loss_k):.6f} vs {float(loss_p):.6f} (relative "
+          f"{loss_err:.3g}); gradient leaves' relative L2 error: largest "
+          f"{errs[0][0]:.3g} ({errs[0][1]}), then {errs[1][0]:.3g} "
+          f"({errs[1][1]}), median {errs[len(errs) // 2][0]:.3g} over "
+          f"{len(errs)} leaves (bound {GRAD_RTOL})"
+          + (f"; {len(zeros)} key-bias leaves whose exact gradient is 0 "
+             f"(no rotary): largest norm {zeros[0][0]:.3g} of the whole "
+             f"gradient's ({zeros[0][1]}; bound {ZERO_GRAD_SHARE})"
+             if zeros else "")
+          + f"; {t_k:.2f} s vs {t_p:.2f} s on the host clock", flush=True)
+    if zeros and zeros[0][0] > ZERO_GRAD_SHARE:
+        fail(f"{label}: key-bias gradients past {ZERO_GRAD_SHARE} of the "
+             f"whole: {zeros[:5]}")
+    if errs[0][0] > GRAD_RTOL or loss_err > GRAD_RTOL \
+            or not math.isfinite(errs[0][0]):
+        fail(f"{label}: float32 gradients on the kernels differ from the "
+             f"plain versions beyond {GRAD_RTOL}: {errs[:5]}, loss "
+             f"{loss_err}")
+
+
+def profiled(torch, fn):
+    """``fn()`` synchronized under ``torch.profiler`` (CUDA activity):
+    (its result, device ms by kernel as ``device_by_kernel``, kernel
+    launches, the 6 other kernels with the most device time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    ms, kernels = device_by_kernel(prof)
+    return out, ms, kernels, top_other(prof, 6)
+
+
+def train_timings(torch, label, trainer, params, opt, device_name) -> dict:
+    """Check (d): one step's host time (median of 5), its device busy and
+    idle share from ``torch.profiler`` with the forward, backward and
+    optimizer traced apart (the backward's GEMMs, the remat recompute of
+    each layer included, by kernel), the A operands copied to row-major
+    in one step, and the tokens a second."""
+    from repro_torch import tree
+    from repro_torch.kernels import planned
+    from repro_torch.optim import adamw_update, cosine_schedule
+    from repro_torch.train.loop import batch_tensors
+
+    tcfg = trainer.tcfg
+    batch = batch_tensors(trainer.data.batch(TRAIN_STEPS), "cuda")
+    walls = []
+    for i in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, metrics = trainer.step_fn(params, opt, batch,
+                                               TRAIN_STEPS + i)
+        float(metrics["loss"])
+        walls.append((time.perf_counter() - t0) * 1e3)
+    wall = sorted(walls[1:])[2]
+    copies = dict(planned.a_copies)
+    live = tree.tree_map(lambda p: p.detach().requires_grad_(True), params)
+    with torch.enable_grad():
+        loss, fwd, n_fwd, _ = profiled(
+            torch, lambda: trainer.api.loss(live, batch))
+        grads, bwd, n_bwd, top = profiled(
+            torch, lambda: torch.autograd.grad(loss, tree.leaves(live)))
+    _, upd, n_upd, _ = profiled(torch, lambda: adamw_update(
+        tree.unflatten(params, list(grads)), opt, params,
+        lr=cosine_schedule(TRAIN_STEPS, base_lr=tcfg.base_lr,
+                           warmup=tcfg.warmup, total=tcfg.total_steps,
+                           device="cuda"),
+        weight_decay=tcfg.weight_decay, clip_norm=tcfg.clip_norm))
+    copied = {k: planned.a_copies[k] - copies[k] for k in copies}
+    busy = {part: sum(ms.values()) for part, ms in
+            (("forward", fwd), ("backward", bwd), ("adamw", upd))}
+    total = sum(busy.values())
+    tokens = trainer.shape.seq_len * trainer.shape.global_batch
+    gemm = {k: round(v, 3) for k, v in bwd.items()
+            if k in GEMM_KERNELS or k == "torch.matmul"}
+    print(f"{label}: one step {wall:.2f} ms on the host clock (median of 5 "
+          f"after a warm step), {tokens / wall * 1e3:.0f} tokens/s; device "
+          f"busy {total:.2f} ms in one traced step (forward "
+          f"{busy['forward']:.2f} ms, {n_fwd} kernels; backward "
+          f"{busy['backward']:.2f} ms, {n_bwd} kernels, the remat "
+          f"recompute included; AdamW {busy['adamw']:.2f} ms, {n_upd} "
+          f"kernels), device idle {max(0.0, 1 - total / wall):.0%}; the "
+          f"backward's GEMMs by kernel (ms): {gemm}, other kernels "
+          f"{bwd['other']:.2f} ms, the largest (name, ms, launches): "
+          f"{top}; the forward's by kernel (ms): "
+          f"{ {k: round(v, 3) for k, v in fwd.items()} }; A operands "
+          f"copied to row-major in one step: {copied['calls']} copies, "
+          f"{copied['bytes'] / 2**20:.1f} MiB; on {device_name} "
+          f"[{nvidia_smi()}]", flush=True)
+    return {"host_ms": wall, "tokens_per_s": tokens / wall * 1e3,
+            "device_ms": busy, "backward_gemm_ms": gemm,
+            "a_copies": copied}
+
+
+def train_phase(torch, device_name: str, label: str, arch: str, seq: int,
+                batch: int) -> dict:
+    """Phases 15 and 16: ``arch`` trained at its published width, bf16,
+    ``remat="full"``, at a cut shape (printed): check (a)
+    (``grad_parity``), then the ``Trainer`` over ``TRAIN_STEPS`` steps
+    from seeded weights with every count set to 0 just before and read
+    just after (b: every forward and ``/bwd_*`` site planned, no
+    fallback; the GEMM launches by kernel; c: every loss finite, the last
+    5 steps' mean below the first 5's, a fresh ``Trainer`` resuming at
+    step ``TRAIN_STEPS`` with the saved parameters bit for bit), then
+    check (d) (``train_timings``) and the backward GEMMs of
+    ``TRAIN_SHAPES`` timed.  Returns the path's launches, launches by
+    kernel, timed rows and the launches a step of each timed shape."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from repro_torch import tree
+    from repro_torch.ckpt import latest_step
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import SHAPES, ShapeSpec
+    from repro_torch.kernels import planned
+    from repro_torch.train import TrainConfig, Trainer
+
+    base = get_config(arch)
+    cfg = dataclasses.replace(base, grad_accum=1)
+    shape = ShapeSpec("card", "train", seq, batch)
+    if cfg.remat != "full" or cfg.dtype != "bfloat16":
+        fail(f"{label}: {arch} is not bf16 with remat='full'")
+    full = SHAPES["train_4k"]
+    cuts = (f"{full.name}'s {full.seq_len} tokens x {full.global_batch} "
+            f"cut to {seq} x {batch}" if cfg.family == "dense" else
+            f"the batch cut to {batch} utterances of {cfg.enc_frames} frames "
+            f"and {seq} text tokens; grad_accum {base.grad_accum} -> 1 (the "
+            "cut batch is one microbatch)")
+    print(f"{label}: {arch} at its published width and depth "
+          f"({cfg.n_enc_layers or ''}{'+' if cfg.n_enc_layers else ''}"
+          f"{cfg.n_layers} layers, d {cfg.d_model}, {cfg.n_heads} heads of "
+          f"{cfg.hd}, ff {cfg.d_ff}, vocab {cfg.vocab}), bf16, remat full, "
+          f"random weights seeded with 0 drawn on the card; cuts: {cuts}; "
+          f"attention on the direct path (at most 2048 rows)", flush=True)
+    grad_parity(torch, label, cfg, shape)
+    torch.cuda.empty_cache()
+
+    ckpt = tempfile.mkdtemp(prefix="widesa_train_")
+    tcfg = TrainConfig(base_lr=TRAIN_LR, warmup=TRAIN_WARMUP,
+                       total_steps=TRAIN_STEPS, ckpt_every=TRAIN_CKPT_EVERY,
+                       log_every=5)
+    try:
+        trainer = Trainer(cfg, shape, ckpt_dir=ckpt, tcfg=tcfg,
+                          device="cuda")
+        before = planned.planned_report()
+        reset_counts()
+        t0 = time.perf_counter()
+        params, opt, history = trainer.run(TRAIN_STEPS, resume=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, variants = read_counts(), read_variants()
+        report = planned.report_delta(before, planned.planned_report())
+        sites = check_train_sites(label, report)
+        head, tail = history[:5], history[-5:]
+        if not all(map(math.isfinite, history)) \
+                or sum(tail) / 5 >= sum(head) / 5:
+            fail(f"{label}: losses {history}: not finite, or the last 5 "
+                 "steps' mean not below the first 5's")
+        gemms = {w: {k: n for k, n in variants[w].items() if n}
+                 for w in GEMM_WRAPPERS}
+        if cfg.family == "dense" and any(variants[w]["tiled"]
+                                         for w in GEMM_WRAPPERS):
+            fail(f"{label}: tiled GEMM launches {gemms}: every operand of "
+                 "this path is TMA-addressable")
+        if any(launches[k] for k in launches if k not in GEMM_WRAPPERS):
+            fail(f"{label}: non-GEMM kernels launched: {launches}")
+        print(f"{label}: Trainer ran {TRAIN_STEPS} steps (peak lr "
+              f"{TRAIN_LR}, warmup {TRAIN_WARMUP}, checkpoints every "
+              f"{TRAIN_CKPT_EVERY}) in {wall:.1f} s: losses "
+              f"{[round(x, 4) for x in history]}, mean of the first 5 "
+              f"{sum(head) / 5:.4f} > of the last 5 {sum(tail) / 5:.4f}; "
+              f"{len(sites)} sites planned with no fallback (every forward "
+              f"site's /bwd_* sites among them); GEMM launches by kernel "
+              f"{gemms}", flush=True)
+        resumed, _, _ = Trainer(cfg, shape, ckpt_dir=ckpt, tcfg=tcfg,
+                                device="cuda").run(0, resume=True)
+        same = latest_step(ckpt) == TRAIN_STEPS and all(
+            torch.equal(a, b) for a, b in zip(tree.leaves(resumed),
+                                               tree.leaves(params)))
+        if not same:
+            fail(f"{label}: a fresh Trainer did not resume at step "
+                 f"{TRAIN_STEPS} with the saved parameters bit for bit")
+        print(f"{label}: a fresh Trainer resumed at step {TRAIN_STEPS} with "
+              f"the saved parameters bit for bit "
+              f"({len(tree.leaves(resumed))} leaves)", flush=True)
+        del resumed
+        timing = train_timings(torch, label, trainer, params, opt,
+                               device_name)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    del trainer, params, opt
+    torch.cuda.empty_cache()
+    shapes = count_shapes(report, [(k, s) for _, k, s, *_ in
+                                   TRAIN_SHAPES[label]])
+    rows = gemm_timings(torch, TRAIN_SHAPES[label], seed=19, long_sums=True)
+    return {"launches": launches, "variants": variants, "rows": rows,
+            "per_step": {key: n / TRAIN_STEPS for key, n in shapes.items()},
+            "timing": timing}
 
 
 def iter_tensors(tree):
@@ -4543,6 +4933,9 @@ def main(argv=None) -> int:
                     help="only time FIR from 2^20 to 2^26 outputs at 7, "
                          "15, 64 and 255 taps (float32) and at the bench and "
                          "frontend shapes in int8 and int16")
+    ap.add_argument("--train", action="store_true",
+                    help="only the device, the GEMM build and the train and "
+                         "whisper_train phases")
     ap.add_argument("--src", help="with --conv2d-sweep or --fir-sweep: the "
                                   "src/ directory of another checkout of "
                                   "the port, whose kernel to time instead")
@@ -4572,7 +4965,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     paths = build.build(("widesa_hpc",) if args.mttkrp_sweep
                         else ("widesa_mm",)
-                        if args.tc_sweep or args.skinny_sweep
+                        if args.tc_sweep or args.skinny_sweep or args.train
                         else ("widesa_mm", "widesa_sp") if args.fft_sweep
                         else ("widesa_sp",)
                         if args.conv2d_sweep or args.fir_sweep
@@ -4599,6 +4992,10 @@ def main(argv=None) -> int:
                 else fft_sweep(torch))
         if args.out:
             Path(args.out).write_text(json.dumps(rows, indent=1))
+        return 0
+    if args.train:
+        for label, arch, seq, batch in TRAIN_PHASES:
+            train_phase(torch, name, label, arch, seq, batch)
         return 0
     if args.tile_sweep:
         t0 = time.perf_counter()
@@ -4661,6 +5058,9 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     ssm_paths = ssm_phase(torch, name)
     torch.cuda.empty_cache()
+    train_paths = {label: train_phase(torch, name, label, arch, seq, batch)
+                   for label, arch, seq, batch in TRAIN_PHASES}
+    torch.cuda.empty_cache()
     long_rows = gemm_timings(torch)
     moe_rows = gemm_timings(torch, MOE_SHAPES, seed=15)
     ssm_rows = gemm_timings(torch, SSM_SHAPES, seed=17)
@@ -4688,6 +5088,8 @@ def main(argv=None) -> int:
                             for path in moe_paths},
                          **{path: ssm_paths[path]["launches"][kname]
                             for path in ssm_paths},
+                         **{path: train_paths[path]["launches"][kname]
+                            for path in train_paths},
                          "recurrences": rec_launches[kname]},
             "max_abs_err": row["max_abs_err"],
             "ms": row["ms"], "plain_ms": row["plain_ms"],
@@ -4712,6 +5114,8 @@ def main(argv=None) -> int:
                    for path in moe_paths},
                 **{path: ssm_paths[path]["variants"][kname]
                    for path in ssm_paths},
+                **{path: train_paths[path]["variants"][kname]
+                   for path in train_paths},
                 "recurrences": rec_variants[kname]}
             keys = {"mttkrp": ("device_ms", "cuda_core_device_ms",
                                "library_device_ms", "cuda_core_bound_ms"),
@@ -4783,6 +5187,18 @@ def main(argv=None) -> int:
                 for _, k, shape, *_ in SSM_SHAPES if k == kind}
             if ssm_entry:
                 entry["ssm"] = ssm_entry
+            # the backward GEMMs of the train paths, each with its launches
+            # in one train step (every site of that shape, the remat
+            # recompute's forward launches included)
+            entry["train"] = {
+                f"{kind}{shape}": {**{key: r[key] for key in (
+                    "kernel", "ms", "plain_ms", "library_ms", "bound_ms",
+                    "bound_by", "max_abs_err")},
+                    "launches_per_step": {path: out["per_step"][(kind, shape)]
+                                          for path, out in train_paths.items()
+                                          if (kind, shape) in out["per_step"]}}
+                for out in train_paths.values()
+                for (k, shape), r in out["rows"].items() if k == kind}
         if kname in WGMMA_SHAPES:
             # the tensor-core kernel at its prefill shape, the tiled
             # kernel and the library call beside it; the integer one at

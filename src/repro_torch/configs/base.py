@@ -1,5 +1,6 @@
 """Config schema: ModelConfig, a field-for-field copy of
-``repro.configs.base.ModelConfig`` so configurations match the reference."""
+``repro.configs.base.ModelConfig`` so configurations match the reference,
+and the reference's workload cells (``ShapeSpec``, ``SHAPES``)."""
 
 from __future__ import annotations
 
@@ -78,3 +79,21 @@ class ModelConfig:
     @property
     def ssm_heads(self) -> int:
         return self.d_inner // self.ssm_headdim
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    """One workload cell: (kind, seq_len, global_batch)."""
+
+    name: str
+    kind: str          # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+SHAPES = {
+    "train_4k": ShapeSpec("train_4k", "train", 4096, 256),
+    "prefill_32k": ShapeSpec("prefill_32k", "prefill", 32768, 32),
+    "decode_32k": ShapeSpec("decode_32k", "decode", 32768, 128),
+    "long_500k": ShapeSpec("long_500k", "decode", 524288, 1),
+}

@@ -4,7 +4,9 @@ The port of ``repro.kernels.bmm`` (``bmm_kernel``): the same kernels as
 ``widesa_mm`` (``csrc/widesa_mm.cu``), launched with one grid slice per
 batch entry; ``tiles`` names the kernel as there.  ``out_dtype`` flushes
 the fp32 accumulator at another dtype (attention scores take fp32 from
-bf16 operands without upcasting them).  A CPU tensor runs the plain
+bf16 operands without upcasting them); a bf16 result over a K past
+``runtime.TC_PROMOTE_K`` on the tensor-core kernel is the fp32 one
+rounded.  A CPU tensor runs the plain
 version in ``ref.py``; ``launches`` counts kernel launches, ``variants``
 the same launches by kernel.
 """
@@ -13,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from . import ref
+from . import ref, runtime
 from .widesa_mm import check_operands, launch
 
 launches = 0
@@ -30,10 +32,12 @@ def bmm(a: torch.Tensor, b: torch.Tensor, *, tiles,
         return ref.bmm(a, b, out_dtype)
     out_dtype, *layout = check_operands(a, b, tiles, out_dtype,
                                         batched=True)
-    out = torch.empty((*a.shape[:2], b.shape[2]), dtype=out_dtype,
+    promote = runtime.tc_promotes(tiles, a.dtype, out_dtype, a.shape[-1])
+    out = torch.empty((*a.shape[:2], b.shape[2]),
+                      dtype=torch.float32 if promote else out_dtype,
                       device=a.device)
     if out.numel() == 0:
-        return out
+        return out.to(out_dtype)
     variants[launch(a, b, out, tiles, *layout, batched=True)] += 1
     launches += 1
-    return out
+    return out.to(out_dtype)

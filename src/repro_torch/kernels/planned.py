@@ -1,21 +1,33 @@
 """Planned-execution facade: model GEMMs and the audio frontend routed
 through the mapper.
 
-The port of ``repro.kernels.planned`` for the serving paths.
-``planned_dense(x, w)`` and ``planned_bmm(a, b)`` normalize call-site
-shapes onto the registered ``mm``/``bmm`` recurrences, resolve one
-``PlanRequest`` per shape through the copied planner, and run the plan
-(``runtime.execute_plan``: the hand-written Hopper kernel for the
-mapper's ``pallas`` stamp).  ``planned_fir``/``planned_conv2d`` do the
-same for the frontend's filter bank and feature extractor.
-``planned_fft2d`` and ``planned_mlp_pair`` resolve a two-stage chain
-(``fft2d_stage+fft2d_stage``, ``mm+mm``) to a ``FusedPlan`` whose
-backend is the reference's default ``xla``: they run the plain versions
-(``torch.fft.fft2``; ``torch.matmul`` in fp32 with the bias and gelu
-between), which is the plan's own stamp, not a fallback.  These are
-inference-only surfaces (no backward).  The target, the supported dtypes and the
-fallback rules are the reference's, so both packages make the same
-decision with the same reason at every call site:
+The port of ``repro.kernels.planned``.  ``planned_dense(x, w)`` and
+``planned_bmm(a, b)`` normalize call-site shapes onto the registered
+``mm``/``bmm`` recurrences, resolve one ``PlanRequest`` per shape through
+the copied planner, and run the plan (``runtime.execute_plan``: the
+hand-written Hopper kernel for the mapper's ``pallas`` stamp).
+``planned_fir``/``planned_conv2d`` do the same for the frontend's filter
+bank and feature extractor.  ``planned_fft2d`` and ``planned_mlp_pair``
+resolve a two-stage chain (``fft2d_stage+fft2d_stage``, ``mm+mm``) to a
+``FusedPlan`` whose backend is the reference's default ``xla``: they run
+the plain versions (``torch.fft.fft2``; ``torch.matmul`` in fp32 with the
+bias and gelu between), which is the plan's own stamp, not a fallback.
+
+A planned mm, bmm or MLP pair runs inside a ``torch.autograd.Function``
+(``_MMPlanned``, ``_BMMPlanned``, ``_MLPPairPlanned``: the reference's
+three ``jax.custom_vjp``s), on every device, whose backward plans its
+GEMMs through the same dispatch at the sites ``<site>/bwd_dx`` and
+``/bwd_dw`` (mm), ``/bwd_da`` and ``/bwd_db`` (bmm, the cotangent cast to
+the operands' dtypes first), ``/bwd_up``, ``/bwd_dwd``, ``/bwd_dh``,
+``/bwd_dwu`` and ``/bwd_dx`` (the pair, which recomputes its intermediate).
+So training runs on the hand kernels in both directions.  An A operand
+that is not row-major (``x^T`` of a weight gradient, ``a^T``) is copied
+into rows padded to whole 16-byte units, which the tensor-core kernels
+read by TMA; ``a_copies`` counts those copies.  A fallback runs the plain
+version under plain autograd.  The frontend surfaces have no backward.
+The target, the supported dtypes and the fallback rules are the
+reference's, so both packages make the same decision with the same
+reason at every call site:
 
   * planning disabled (``configure(enabled=False)``) -> ``"disabled"``;
   * mismatched or unsupported operand dtypes -> ``"dtype:AxB"``;
@@ -24,13 +36,14 @@ decision with the same reason at every call site:
 A fallback runs the plain PyTorch version in ``ref.py`` for tensors on
 the CPU.  Off the CPU only the explicit ``"disabled"`` switch runs it: a
 card tensor whose call has no plan (``dtype:…``, ``infeasible``) raises,
-so the serving path never leaves the hand kernels unseen.  The port's
-default policy is ``PlanPolicy(mode="modelled")``: the reference's
+so neither serving nor training leaves the hand kernels unseen.  The
+port's default policy is ``PlanPolicy(mode="modelled")``: the reference's
 committed crossover table holds winners timed for its own backends.
 
 ``planned_report()`` keeps per-call-site counters.  PyTorch runs eagerly,
 so a decision is counted on every call (the reference counts once per
-trace).
+trace; under ``torch.utils.checkpoint`` the forward sites count again in
+the recompute).
 """
 
 from __future__ import annotations
@@ -296,6 +309,74 @@ def _operand(t: torch.Tensor) -> torch.Tensor:
     return t.contiguous()
 
 
+#: A operands the backward passes copied to row-major (``x^T`` of a weight
+#: gradient, ``a^T`` of a bmm): calls and bytes
+a_copies = {"calls": 0, "bytes": 0}
+
+
+def padded_rows(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``t`` cast to ``dtype`` in row-major rows padded to whole 16-byte
+    units (a view of their first ``t.shape[-1]`` columns, or ``t`` itself
+    where it is contiguous, of ``dtype`` and its rows are whole units):
+    an A operand the tensor-core kernels address by TMA at any K."""
+    k = t.shape[-1]
+    unit = 16 // dtype.itemsize
+    if k % unit == 0 and t.is_contiguous():
+        return t.to(dtype)
+    rows = torch.empty((*t.shape[:-1], -(-k // unit) * unit), dtype=dtype,
+                       device=t.device)[..., :k]
+    rows.copy_(t)
+    return rows
+
+
+def _a_rows(t: torch.Tensor, dtype: torch.dtype | None = None):
+    """A backward GEMM's A operand: ``t`` itself where it is in the GEMMs'
+    layout (``runtime.a_pitch``) and dtype, else a padded-row copy (a
+    layout copy counted in ``a_copies``; a cast is a copy anyway)."""
+    dtype = dtype or t.dtype
+    if dtype == t.dtype and runtime.a_pitch(t) is not None:
+        return t
+    if runtime.a_pitch(t) is None:
+        a_copies["calls"] += 1
+        a_copies["bytes"] += t.numel() * dtype.itemsize
+    return padded_rows(t, dtype)
+
+
+class _MMPlanned(torch.autograd.Function):
+    """``x @ w`` on a plan (the reference's ``_mm_planned`` custom_vjp):
+    the backward's dx and dW are planned GEMMs themselves."""
+
+    @staticmethod
+    def forward(ctx, plan, site, x, w):
+        ctx.site = site
+        ctx.save_for_backward(x, w)
+        return execute_plan(plan, x, _operand(w))
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        dx = dw = None
+        if ctx.needs_input_grad[2]:
+            dx = _dispatch_mm(_a_rows(g), w.T, ctx.site + "/bwd_dx")
+        if ctx.needs_input_grad[3]:
+            dw = _dispatch_mm(_a_rows(x.T), g, ctx.site + "/bwd_dw")
+        return None, None, dx, dw
+
+
+def _dispatch_mm(x: torch.Tensor, w: torch.Tensor, site: str):
+    """``x[m,k] @ w[k,n]`` at one site: decide, record, then the plan under
+    ``_MMPlanned``, or the plain version (plain autograd) for a
+    fallback.  ``x`` is in a layout the GEMMs read as A."""
+    m, k = x.shape
+    n = w.shape[1]
+    plan, reason = _decide("mm", (m, n, k), x.dtype, w.dtype)
+    _record(site, (m, n, k), plan=plan, reason=reason)
+    if plan is None:
+        _fallback_allowed(x, site, (m, n, k), reason)
+        return ref.mm(x, w)
+    return _MMPlanned.apply(plan, site, x, w)
+
+
 def planned_dense(x: torch.Tensor, w: torch.Tensor, *,
                   site: str = "dense") -> torch.Tensor:
     """``x @ w`` routed through the mapper.
@@ -309,15 +390,46 @@ def planned_dense(x: torch.Tensor, w: torch.Tensor, *,
     lead = x.shape[:-1]
     k, n = x.shape[-1], w.shape[-1]
     m = int(math.prod(lead)) if lead else 1
-    x2 = x.reshape(m, k).contiguous()
-    plan, reason = _decide("mm", (m, n, k), x.dtype, w.dtype)
-    _record(site, (m, n, k), plan=plan, reason=reason)
-    if plan is None:
-        _fallback_allowed(x, site, (m, n, k), reason)
-        out = ref.mm(x2, w)
-    else:
-        out = execute_plan(plan, x2, _operand(w))
+    out = _dispatch_mm(x.reshape(m, k).contiguous(), w, site)
     return out.reshape(*lead, n)
+
+
+class _BMMPlanned(torch.autograd.Function):
+    """Batched ``a @ b`` on a plan (the reference's ``_bmm_planned``): the
+    cotangent is cast to each operand's dtype before the backward's
+    planned products, so fp32 scores' cotangent enters them in bf16."""
+
+    @staticmethod
+    def forward(ctx, plan, site, out_dtype, a, b):
+        ctx.site = site
+        ctx.save_for_backward(a, b)
+        return execute_plan(plan, a, b, out_dtype=out_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        da = db = None
+        if ctx.needs_input_grad[3]:
+            da = _dispatch_bmm(_a_rows(g, a.dtype), b.transpose(1, 2),
+                               ctx.site + "/bwd_da")
+        if ctx.needs_input_grad[4]:
+            db = _dispatch_bmm(_a_rows(a.transpose(1, 2)), g.to(b.dtype),
+                               ctx.site + "/bwd_db")
+        return None, None, None, da, db
+
+
+def _dispatch_bmm(a: torch.Tensor, b: torch.Tensor, site: str,
+                  out_dtype: torch.dtype | None = None):
+    """``a[z,m,k] @ b[z,k,n]`` at one site, as ``_dispatch_mm``."""
+    nb, m, k = a.shape
+    n = b.shape[2]
+    b = _operand(b)
+    plan, reason = _decide("bmm", (nb, m, n, k), a.dtype, b.dtype)
+    _record(site, (nb, m, n, k), plan=plan, reason=reason)
+    if plan is None:
+        _fallback_allowed(a, site, (nb, m, n, k), reason)
+        return ref.bmm(a, b, out_dtype)
+    return _BMMPlanned.apply(plan, site, out_dtype, a, b)
 
 
 def planned_bmm(a: torch.Tensor, b: torch.Tensor, *, site: str = "bmm",
@@ -339,14 +451,7 @@ def planned_bmm(a: torch.Tensor, b: torch.Tensor, *, site: str = "bmm",
     a3 = a.reshape(nb, m, k)
     if runtime.a_pitch(a3) is None:  # padded rows stay as they are
         a3 = a3.contiguous()
-    b3 = _operand(b.reshape(nb, k, n))
-    plan, reason = _decide("bmm", (nb, m, n, k), a.dtype, b.dtype)
-    _record(site, (nb, m, n, k), plan=plan, reason=reason)
-    if plan is None:
-        _fallback_allowed(a, site, (nb, m, n, k), reason)
-        out = ref.bmm(a3, b3, out_dtype)
-    else:
-        out = execute_plan(plan, a3, b3, out_dtype=out_dtype)
+    out = _dispatch_bmm(a3, b.reshape(nb, k, n), site, out_dtype)
     return out.reshape(*batch, m, n)
 
 
@@ -390,6 +495,36 @@ def _execute_pair(plan, act: str, x, wu, bu, wd):
     return fusion.lower_fused(plan)(x, wu, bu, wd)
 
 
+class _MLPPairPlanned(torch.autograd.Function):
+    """The fused pair on its plan (the reference's ``_mlp_pair_planned``).
+    The fused forward keeps no intermediate, so the backward recomputes
+    ``h`` through planned GEMMs, with the reference's casts at each step."""
+
+    @staticmethod
+    def forward(ctx, plan, site, act, x, wu, bu, wd):
+        ctx.site, ctx.act = site, act
+        ctx.save_for_backward(x, wu, bu, wd)
+        return _execute_pair(plan, act, x, wu, bu, wd)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, wu, bu, wd = ctx.saved_tensors
+        site = ctx.site
+        h_pre = _dispatch_mm(_a_rows(x), wu, site + "/bwd_up") + bu
+        with torch.enable_grad():
+            h_in = h_pre.detach().requires_grad_()
+            h = _ACT_FNS[ctx.act](h_in)
+        dwd = _dispatch_mm(_a_rows(h.detach().T, g.dtype), g,
+                           site + "/bwd_dwd")
+        dh = _dispatch_mm(_a_rows(g), wd.T.to(g.dtype), site + "/bwd_dh")
+        (dh_pre,) = torch.autograd.grad(h, h_in, dh.to(h_pre.dtype))
+        dbu = dh_pre.sum(0).to(bu.dtype)
+        dwu = _dispatch_mm(_a_rows(x.T), dh_pre.to(x.dtype),
+                           site + "/bwd_dwu")
+        dx = _dispatch_mm(_a_rows(dh_pre, x.dtype), wu.T, site + "/bwd_dx")
+        return None, None, None, dx, dwu, dbu, dwd
+
+
 def planned_mlp_pair(x: torch.Tensor, wu: torch.Tensor, bu: torch.Tensor,
                      wd: torch.Tensor, *, act: str = "gelu",
                      site: str = "mlp.pair") -> torch.Tensor:
@@ -397,10 +532,11 @@ def planned_mlp_pair(x: torch.Tensor, wu: torch.Tensor, bu: torch.Tensor,
     planned as one ``mm+mm`` chain.
 
     ``x``: [..., K]; ``wu``: [K, FF]; ``bu``: [FF]; ``wd``: [FF, N].  A
-    chain that fuses runs ``fusion.lower_fused`` at the plan's backend;
-    one that does not runs the unfused semantics through the planned
-    GEMMs: ``planned_dense(x, wu, site="mlp.up")`` + bias + activation,
-    then ``planned_dense(..., wd, site="mlp.down")``.
+    chain that fuses runs ``fusion.lower_fused`` at the plan's backend
+    under ``_MLPPairPlanned``; one that does not runs the unfused
+    semantics through the planned GEMMs: ``planned_dense(x, wu,
+    site="mlp.up")`` + bias + activation, then ``planned_dense(..., wd,
+    site="mlp.down")``.
     """
     lead = x.shape[:-1]
     k = x.shape[-1]
@@ -413,7 +549,7 @@ def planned_mlp_pair(x: torch.Tensor, wu: torch.Tensor, bu: torch.Tensor,
         act_fn = _ACT_FNS.get(act, _ACT_FNS["gelu"])
         h = act_fn(planned_dense(x, wu, site="mlp.up") + bu)
         return planned_dense(h, wd, site="mlp.down")
-    out = _execute_pair(plan, act, x.reshape(m, k), wu, bu, wd)
+    out = _MLPPairPlanned.apply(plan, site, act, x.reshape(m, k), wu, bu, wd)
     return out.reshape(*lead, n)
 
 
@@ -422,7 +558,7 @@ def planned_mlp_pair(x: torch.Tensor, wu: torch.Tensor, bu: torch.Tensor,
 # The streaming audio frontend (serve/frontend.py) runs its filter bank,
 # FFT tiles and feature extractor through these — the same
 # resolve(plan_request(...)) path as the model GEMMs, with per-site report
-# rows.  Inference-only surfaces.
+# rows.  Inference-only surfaces: no backward (the frontend never trains).
 
 def planned_fir(x: torch.Tensor, h: torch.Tensor, *,
                 site: str = "frontend.fir") -> torch.Tensor:

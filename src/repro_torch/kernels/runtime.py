@@ -372,6 +372,22 @@ TC_INT_MAX_RANK_K = {torch.int8: 131071, torch.int16: 32896,
 TC_WIDE_N = 2048
 TC_MAX_SPLIT = 4
 TC_MIN_RANK_KTILES = 4
+#: bf16 -> bf16 on the tensor-core kernel sums each output in the tensor
+#: cores' accumulator, whose additions lose more than fp32 rounding; past
+#: this K the wrappers launch the bf16 -> fp32 instantiation (each stage's
+#: products added to the sums in fp32) and round its result to bf16.  At K
+#: = 4096 the bf16 outputs stayed within one rounding of the fp32 product
+#: on an H100; at 32768 and 151936 (the tied lm_head's dx in training)
+#: 0.1 % and 0.7 % of them did not (PERF.md, PR 25)
+TC_PROMOTE_K = 4096
+
+
+def tc_promotes(tiles, dtype: torch.dtype, out_dtype: torch.dtype,
+                k: int) -> bool:
+    """Whether a launch on ``tiles`` runs bf16 -> fp32 and rounds to bf16
+    after (``TC_PROMOTE_K``)."""
+    return isinstance(tiles, TcTile) and dtype == torch.bfloat16 \
+        and out_dtype == torch.bfloat16 and k > TC_PROMOTE_K
 
 
 @dataclasses.dataclass(frozen=True)

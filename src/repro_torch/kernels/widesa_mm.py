@@ -6,8 +6,10 @@ batch = 1 launch).  ``matmul`` checks its operands, allocates the output
 and launches on the current stream the kernel its ``tiles`` name: a
 ``runtime.SkinnyTile`` runs the skinny kernel (A of at most 16 rows), a
 ``runtime.TcTile`` a tensor-core one (more rows: ``gemm_tc_kernel`` in
-bf16 and float32, ``gemm_tc_int_kernel`` in the integers, after the limb
-planes it reads are written to scratch by ``limb_planes_kernel``), a
+bf16 and float32, a bf16 result over a K past ``runtime.TC_PROMOTE_K``
+from its fp32 instantiation, rounded; ``gemm_tc_int_kernel`` in the
+integers, after the limb planes it reads are written to scratch by
+``limb_planes_kernel``), a
 ``(BM, BN, BK)`` tuple the tiled one.  A CPU tensor runs the plain version
 in ``ref.py`` instead.  ``launches`` counts kernel launches, ``variants``
 the same launches by kernel.
@@ -156,10 +158,12 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, tiles,
         return ref.mm(a, b, out_dtype)
     out_dtype, *layout = check_operands(a, b, tiles, out_dtype,
                                         batched=False)
-    out = torch.empty((a.shape[0], b.shape[1]), dtype=out_dtype,
+    promote = runtime.tc_promotes(tiles, a.dtype, out_dtype, a.shape[-1])
+    out = torch.empty((a.shape[0], b.shape[1]),
+                      dtype=torch.float32 if promote else out_dtype,
                       device=a.device)
     if out.numel() == 0:
-        return out
+        return out.to(out_dtype)
     variants[launch(a, b, out, tiles, *layout, batched=False)] += 1
     launches += 1
-    return out
+    return out.to(out_dtype)

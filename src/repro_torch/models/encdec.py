@@ -26,8 +26,13 @@ advances its ``len``; ``decode_step`` writes each layer's K/V row and
 advances ``pos``.  The block-paged engine's functions are ported
 (``paged_layout``, ``init_paged_pools``, ``decode_step_paged``: the
 decoder's self-attention K/V in block pools, the encoder K/V and
-``enc_len`` resident per lane).  Training (``decode_train``,
-``loss_fn``) is not ported yet.
+``enc_len`` resident per lane).
+
+Training: ``decode_train`` is the teacher-forced decoder pass over whole
+encoder states and ``loss_fn`` the masked cross-entropy of its tied-head
+logits; with ``cfg.remat == "full"`` and grad enabled, each encoder and
+decoder layer runs under ``torch.utils.checkpoint``
+(``transformer.run_layers``).
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ import torch
 from repro_torch.kernels.planned import planned_dense
 
 from . import layers as L
+from .transformer import run_layers, xent
 
 
 # ---------------------------------------------------------------------------
@@ -185,13 +191,16 @@ def encode(p, cfg, frames, chunk=None):
     dt = L.compute_dtype(cfg)
     x = frames.to(dt) + sinusoids(f, cfg.d_model, frames.device).to(dt)
     positions = torch.arange(f, device=frames.device).expand(b, f)
-    for lp in p["enc_layers"]:
+
+    def layer(x, lp):
         h = L.apply_norm(lp["ln1"], cfg, x)
         attn, _, _ = L.apply_attention(lp["attn"], cfg, h, positions,
                                        causal=False, chunk=chunk)
         x = x + attn
         h = L.apply_norm(lp["ln2"], cfg, x)
-        x = x + L.apply_mlp(lp["mlp"], cfg, h)
+        return x + L.apply_mlp(lp["mlp"], cfg, h)
+
+    x = run_layers(cfg, layer, x, p["enc_layers"])
     return L.apply_norm(p["ln_enc"], cfg, x)
 
 
@@ -248,6 +257,46 @@ def _embed(p, cfg, tokens):
 
 def _logits(p, x):
     return planned_dense(x, p["embed"].t().to(x.dtype), site="lm_head")
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+def decode_train(p, cfg, tokens, enc_out):
+    """Teacher-forced decoder pass over whole encoder states
+    ``enc_out`` [B, F, d] -> final-norm hidden states [B, S, d]: causal
+    self-attention, cross-attention over ``_enc_kv(enc_out)``, the MLP
+    pair."""
+    b, s = tokens.shape
+    x = _embed(p, cfg, tokens) + p["pos_dec"][:s]
+    positions = torch.arange(s, device=x.device).expand(b, s)
+
+    def layer(x, lp):
+        h = L.apply_norm(lp["ln1"], cfg, x)
+        attn, _, _ = L.apply_attention(lp["attn"], cfg, h, positions,
+                                       causal=True)
+        x = x + attn
+        h = L.apply_norm(lp["ln_x"], cfg, x)
+        ek, ev = _enc_kv(lp["xattn"], cfg, enc_out)
+        x = x + _cross_attend(lp["xattn"], cfg, h, ek, ev)
+        h = L.apply_norm(lp["ln2"], cfg, x)
+        return x + L.apply_mlp(lp["mlp"], cfg, h)
+
+    x = run_layers(cfg, layer, x, p["dec_layers"])
+    return L.apply_norm(p["ln_f"], cfg, x)
+
+
+def loss_fn(p, cfg, batch):
+    """batch: frames [B, F, d], tokens [B, S], labels [B, S] (a label < 0
+    is masked) -> the mean cross-entropy of the tied-head logits over the
+    unmasked positions."""
+    enc_out = encode(p, cfg, batch["frames"])
+    hidden = decode_train(p, cfg, batch["tokens"], enc_out)
+    labels = batch["labels"]
+    mask = (labels >= 0).float()
+    ce = xent(_logits(p, hidden), labels.clamp(min=0).long())
+    return (ce * mask).sum() / torch.clamp(mask.sum(), min=1.0)
 
 
 def prefill_decoder(p, cfg, enc_k, enc_v, enc_len, tokens, max_seq,

@@ -21,8 +21,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.planned import (planned_bmm, planned_dense,
-                                        planned_mlp_pair)
+from repro_torch.kernels.planned import (padded_rows, planned_bmm,
+                                        planned_dense, planned_mlp_pair)
 
 #: the direct attention path materializes [B, H, Sq, Skv] scores; above
 #: this length ``attention_core`` switches to blockwise attention over
@@ -208,24 +208,11 @@ def sdpa(q, k, v, *, causal: bool, kv_len=None, chunk=None):
     if kv_len is not None:
         vmask = kpos < kv_len.to(q.device)[:, None]  # [B, Skv]
         logits = torch.where(vmask[:, None, None, None], logits, -1e30)
-    w = _padded_rows(torch.softmax(logits, dim=-1), v.dtype)
+    # the values bmm reads the weights as its A: rows of whole 16-byte
+    # units, which the GEMM kernels copy by TMA at any key count
+    w = padded_rows(torch.softmax(logits, dim=-1), v.dtype)
     out = _gqa_values(w, v, "attn.values")
     return out.reshape(b, sq, hq, hd)
-
-
-def _padded_rows(x, dtype):
-    """``x`` cast to ``dtype`` in rows padded to whole 16-byte units (a
-    view of their first ``x.shape[-1]`` columns): the values bmm reads the
-    softmax weights as its A, which the GEMM kernels then copy by TMA at
-    any key count."""
-    n = x.shape[-1]
-    unit = 16 // dtype.itemsize
-    if n % unit == 0:
-        return x.to(dtype)
-    rows = torch.empty((*x.shape[:-1], -(-n // unit) * unit), dtype=dtype,
-                       device=x.device)[..., :n]
-    rows.copy_(x)
-    return rows
 
 
 def blockwise_attention(q, k, v, *, causal: bool, scale=None,

@@ -1,7 +1,11 @@
-"""Model API of the port — the contract the serving engine uses.
+"""Model API of the port — the contract the serving engine and the
+trainer use.
 
     api = build_model(cfg, device="cuda")
     params = api.init(generator)
+    loss = api.loss(params, {"tokens": tokens, "labels": labels})
+    loss = api.loss(params, {"frames": frames, "tokens": tokens,
+                             "labels": labels})                  # encdec
     logits, cache = api.prefill(params, {"tokens": tokens}, max_seq)
     logits, cache = api.prefill(params, {"tokens": tokens,
                                          "frames": frames}, max_seq)  # encdec
@@ -29,6 +33,12 @@ encoder states, ``enc_kv(p, enc)`` projects them to per-decoder-layer
 cross K/V, and ``stream_prefill(p, enc_k, enc_v, enc_len, tokens,
 max_seq)`` is the decoder prompt pass against a partially filled encoder
 cache.
+
+``loss`` is the reference's training loss (the masked mean next-token
+cross-entropy, ``transformer.loss_fn`` / ``encdec.loss_fn``) for the
+dense and encdec families, differentiable by ``torch.autograd`` through
+the planned GEMMs' backward passes (``kernels/planned.py``); the MoE,
+SSM and hybrid families' ``loss`` raises (ROADMAP A8).
 """
 
 from __future__ import annotations
@@ -53,6 +63,8 @@ class ModelAPI:
     prefill: Callable
     decode: Callable
     init_cache: Callable
+    # training loss (dense and encdec; the others raise)
+    loss: Callable | None = None
     # block-paged serving (continuous batching)
     paged_init: Callable | None = None
     paged_decode: Callable | None = None
@@ -62,6 +74,16 @@ class ModelAPI:
     enc_step: Callable | None = None
     enc_kv: Callable | None = None
     stream_prefill: Callable | None = None
+
+
+def _not_trained(cfg: ModelConfig) -> Callable:
+    def loss(p, batch):
+        raise NotImplementedError(
+            f"training of the {cfg.family!r} family is not ported (ROADMAP "
+            "A8: MoE needs load_balance_loss and its aux term, SSM and "
+            "hybrid their loss_fn); the port trains dense and encdec")
+
+    return loss
 
 
 def build_model(cfg: ModelConfig, device="cuda") -> ModelAPI:
@@ -85,6 +107,8 @@ def build_model(cfg: ModelConfig, device="cuda") -> ModelAPI:
         cfg=cfg,
         device=device,
         init=lambda generator: TFM.init_params(cfg, generator, device),
+        loss=(lambda p, batch: TFM.loss_fn(p, cfg, batch))
+        if cfg.family == "dense" else _not_trained(cfg),
         prefill=prefill,
         decode=lambda p, cache, tokens: TFM.decode_step(p, cfg, cache,
                                                         tokens),
@@ -113,6 +137,7 @@ def _hybrid_api(cfg: ModelConfig, device: torch.device,
         cfg=cfg,
         device=device,
         init=lambda generator: HYBRID.init_params(cfg, generator, device),
+        loss=_not_trained(cfg),
         prefill=prefill,
         decode=lambda p, cache, tokens: HYBRID.decode_step(p, cfg, cache,
                                                            tokens),
@@ -137,6 +162,7 @@ def _encdec_api(cfg: ModelConfig, device: torch.device,
         cfg=cfg,
         device=device,
         init=lambda generator: ENCDEC.init_params(cfg, generator, device),
+        loss=lambda p, batch: ENCDEC.loss_fn(p, cfg, batch),
         prefill=prefill,
         decode=lambda p, cache, tokens: ENCDEC.decode_step(p, cfg, cache,
                                                            tokens),

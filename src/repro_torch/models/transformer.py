@@ -17,11 +17,19 @@ are ``{"k", "v": [L, NB + 1, bs, Hkv, hd]}`` (``init_paged_pools``; the
 last block is the sink of inactive lanes' writes) and
 ``decode_step_paged`` writes them in place through per-lane block
 tables.
+
+Training: ``loss_fn`` is the reference's masked next-token cross-entropy
+(``logit_chunk`` chunks the lm_head and the loss over the sequence) for
+the dense family; with ``cfg.remat == "full"`` and grad enabled,
+``forward`` runs each layer under ``torch.utils.checkpoint``, as the
+reference's ``jax.checkpoint`` around its scanned block.  Serving runs
+under ``no_grad`` and never takes that path.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.planned import planned_dense
 
@@ -118,13 +126,36 @@ def _positions(x):
     return torch.arange(s, device=x.device).expand(b, s)
 
 
+def remat(cfg) -> bool:
+    """Whether a layer's activations are recomputed in the backward pass
+    (``cfg.remat == "full"`` while grad is enabled)."""
+    if not torch.is_grad_enabled() or cfg.remat == "none":
+        return False
+    if cfg.remat != "full":
+        raise NotImplementedError(
+            f"remat={cfg.remat!r} is not ported (ROADMAP A8); the port "
+            "recomputes whole layers (remat='full') or none")
+    return True
+
+
+def run_layers(cfg, layer, x, stack):
+    """``x`` through ``layer(x, lp)`` for each layer's parameters in
+    ``stack``, each under ``torch.utils.checkpoint`` where ``remat``
+    says."""
+    full = remat(cfg)
+    for lp in stack:
+        x = (checkpoint(layer, x, lp, use_reentrant=False) if full
+             else layer(x, lp))
+    return x
+
+
 def forward(p, cfg, tokens):
     """Full-sequence forward -> final-norm hidden states [B, S, d]."""
     _check_family(cfg)
     x = embed_tokens(p, cfg, tokens)
     positions = _positions(x)
-    for lp in p["layers"]:
-        x, _, _ = _block(lp, cfg, x, positions)
+    x = run_layers(cfg, lambda x, lp: _block(lp, cfg, x, positions)[0], x,
+                   p["layers"])
     return L.apply_norm(p["ln_f"], cfg, x)
 
 
@@ -133,6 +164,48 @@ def logits_fn(p, cfg, hidden):
     a transposed [d, V] operand; no copy is made."""
     head = p["embed"].t() if cfg.tie_embeddings else p["lm_head"]
     return planned_dense(hidden, head.to(hidden.dtype), site="lm_head")
+
+
+# ---------------------------------------------------------------------------
+# training loss
+# ---------------------------------------------------------------------------
+
+def xent(logits, labels):
+    """Per-position cross-entropy of fp32 logits against labels."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = torch.gather(logits, -1, labels[..., None])[..., 0]
+    return lse - picked
+
+
+def loss_fn(p, cfg, batch):
+    """batch: tokens [B, S], labels [B, S] (the next token; a label < 0 is
+    masked).  The mean cross-entropy over the unmasked positions, plus
+    ``1e-2 * aux`` (0 for the dense family).  With ``cfg.logit_chunk``
+    below S, the lm_head and the loss run over chunks of that many
+    positions, so the [B, S, V] logits never exist at once."""
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"training of the {cfg.family!r} family is not ported (ROADMAP "
+            "A8: the MoE family needs load_balance_loss and its aux term)")
+    tokens, labels = batch["tokens"], batch["labels"]
+    hidden = forward(p, cfg, tokens)
+    lbl = labels.clamp(min=0).long()
+    mask = (labels >= 0).float()
+    chunk = cfg.logit_chunk
+    if chunk and hidden.shape[1] > chunk:
+        b, s, d = hidden.shape
+        hs = hidden.reshape(b, s // chunk, chunk, d)
+        ls = lbl.reshape(b, s // chunk, chunk)
+        ms = mask.reshape(b, s // chunk, chunk)
+        total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+        for c in range(s // chunk):
+            lg = logits_fn(p, cfg, hs[:, c])
+            total = total + (xent(lg, ls[:, c]) * ms[:, c]).sum()
+    else:
+        total = (xent(logits_fn(p, cfg, hidden), lbl) * mask).sum()
+    aux = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    return total / torch.clamp(mask.sum(), min=1.0) + 1e-2 * aux
 
 
 # ---------------------------------------------------------------------------

@@ -2,8 +2,10 @@
 compiled tap count and the generic one, real and complex), conv2d (every
 compiled window and the generic one), fft2d, star-stencil (one sweep, and
 several a launch) and MTTKRP kernels against their plain versions on the
-card, and the block-paged serving engine's captured decode step against
-an eager one.
+card, the block-paged serving engine's captured decode step against an
+eager one, and training: the facade's backward passes on the hand
+kernels, a long-K bf16 GEMM rounded from its fp32 sum, SMOKE train
+steps' gradients against the plain versions.
 
 Every test here is ``gpu``-marked and skips without a CUDA card.  The file
 imports only the port (no JAX), so it runs on a machine with a card and
@@ -1228,7 +1230,7 @@ def test_whisper_encoder_attention_gemms_at_1500_keys_on_the_card(gen):
     s = planned.planned_bmm(q, kt, site="attn.scores",
                             out_dtype=torch.float32)
     _same_gemm(s, ref.bmm(q, kt, torch.float32))
-    w = layers._padded_rows(torch.softmax(s / 8.0, dim=-1), torch.bfloat16)
+    w = planned.padded_rows(torch.softmax(s / 8.0, dim=-1), torch.bfloat16)
     assert runtime.a_pitch(w) == 1504
     v = _gemm_draw((8, 1500, 64), torch.bfloat16, gen)
     _same_gemm(planned.planned_bmm(w, v, site="attn.values"),
@@ -1497,3 +1499,142 @@ def test_zamba2_shared_block_gemms_match_the_plain_version_on_the_card(
     kernel = "skinny" if m <= runtime.SKINNY_ROWS else "wgmma"
     assert {v: widesa_mm.variants[v] - before[v] for v in before} == {
         "skinny": 0, "wgmma": 0, "tiled": 0, kernel: 1}
+
+
+# ---------------------------------------------------------------------------
+# training: the facade's backward passes on the card
+# ---------------------------------------------------------------------------
+
+#: (kind, operand shapes, keyword arguments, dtype) of the facade
+#: Functions held on the card: an mm, the fp32-flushed scores' bmm (each
+#: in float32 and bf16), the gelu MLP pair (float32: its bf16 chain
+#: rounds four times, which no one-rounding bound holds)
+_MM = ((96, 256), (256, 320))
+_BMM = ((8, 96, 64), (8, 64, 96))
+BACKWARD_CASES = (
+    ("mm", _MM, {}, torch.float32),
+    ("mm", _MM, {}, torch.bfloat16),
+    ("bmm", _BMM, {"out_dtype": torch.float32}, torch.float32),
+    ("bmm", _BMM, {"out_dtype": torch.float32}, torch.bfloat16),
+    ("pair", ((96, 256), (256, 512), (512,), (512, 256)), {"act": "gelu"},
+     torch.float32),
+)
+
+
+def _backward(kind, args, kw, cot):
+    fn = {"mm": planned.planned_dense, "bmm": planned.planned_bmm,
+          "pair": planned.planned_mlp_pair}[kind]
+    live = [a.detach().requires_grad_() for a in args]
+    out = fn(*live, **kw)
+    return out, torch.autograd.grad((out.float() * cot).sum(), live)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,shapes,kw,dtype", BACKWARD_CASES,
+                         ids=[f"{c[0]}-{str(c[3])[6:]}"
+                              for c in BACKWARD_CASES])
+def test_planned_backward_runs_on_the_hand_kernels(kind, shapes, kw, dtype,
+                                                   gen):
+    """The backward of a planned mm, bmm and MLP pair launches the GEMM
+    kernels (every ``/bwd_*`` site planned) and its gradients match the
+    plain versions' under ``configure(enabled=False)``: float32 within
+    1e-3, bf16 one rounding of the gradient plus 1e-3."""
+    scale = [1.0] + [s[-2] ** -0.5 if len(s) > 1 else 0.1
+                     for s in shapes[1:]]
+    args = [(torch.randn(s, generator=gen, device="cuda") * c).to(dtype)
+            for s, c in zip(shapes, scale)]
+    planned.reset_configuration()
+    planned.planned_report_clear()
+    out, _ = _backward(kind, args, kw, 1.0)
+    cot = torch.randn(out.shape, generator=gen, device="cuda")
+    before = widesa_mm.launches + bmm.launches
+    out, grads = _backward(kind, args, kw, cot)
+    torch.cuda.synchronize()
+    assert widesa_mm.launches + bmm.launches - before >= 3
+    report = planned.planned_report()
+    assert any("/bwd_" in site for site in report)
+    assert all(st["planned"] and not st["fallback"]
+               for st in report.values())
+    if kind == "bmm" and dtype == torch.bfloat16:
+        # the fp32 scores' cotangent enters both products in bf16, as the
+        # reference's custom_vjp casts it; plain autograd would keep fp32
+        a, b = args
+        g = cot.to(dtype)
+        want = (ref.bmm(g, b.transpose(1, 2)),
+                ref.bmm(a.transpose(1, 2), g))
+    else:
+        with planned.override(enabled=False):
+            _, want = _backward(kind, args, kw, cot)
+    for g, w in zip(grads, want):
+        diff = (g.double() - w.double()).abs()
+        if dtype == torch.float32:
+            assert diff.max().item() <= 1e-3
+        else:
+            assert (diff <= 2.0 ** -7 * w.double().abs() + 1e-3).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [4096, 32768])
+def test_long_k_bf16_gemm_is_one_rounding_of_the_fp32_sum(k, gen):
+    """Past ``runtime.TC_PROMOTE_K`` a bf16 -> bf16 product on the
+    tensor-core kernel is its fp32 instantiation's result rounded once:
+    within one bf16 rounding of the plain version at K = 32768, where
+    the tensor cores' own accumulator strayed past it."""
+    a = torch.randn((256, k), generator=gen, device="cuda").to(torch.bfloat16)
+    b = torch.randn((k, 256), generator=gen, device="cuda").to(torch.bfloat16)
+    plan = planned.plan_for("mm", (256, 256, k), "bfloat16")
+    tiles = registry.get("mm").tiles(plan, a, b)
+    assert isinstance(tiles.tile, runtime.TcTile)
+    assert runtime.tc_promotes(tiles.tile, a.dtype, a.dtype, k) == (
+        k > runtime.TC_PROMOTE_K)
+    out = widesa_mm.matmul(a, b, tiles=tiles.tile)
+    want = ref.mm(a, b)
+    assert out.dtype == torch.bfloat16
+    diff = (out.double() - want.double()).abs()
+    assert (diff <= 2.0 ** -7 * want.double().abs() + 1e-3).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "whisper-base"])
+def test_smoke_train_step_gradients_match_the_plain_versions(arch, gen):
+    """A SMOKE-width float32 loss and its gradients on the card: on the
+    kernels (3xTF32) and under ``configure(enabled=False)`` within 1e-3
+    relative (L2) per leaf (whisper's key biases, whose exact gradient is
+    0, at most 1e-6 of the whole gradient's norm on either path); then
+    one AdamW step moves every leaf."""
+    from repro_torch import tree
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data import SyntheticPipeline
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import TrainConfig
+    from repro_torch.train.loop import batch_tensors
+    from repro_torch.train.step import make_train_step, value_and_grad
+
+    cfg = get_smoke_config(arch)
+    api = build_model(cfg, "cuda")
+    params = api.init(gen)
+    batch = batch_tensors(SyntheticPipeline(
+        cfg, ShapeSpec("t", "train", 32, 4)).batch(0), "cuda")
+    planned.reset_configuration()
+    loss, grads = value_and_grad(api.loss, params, batch)
+    with planned.override(enabled=False):
+        loss_p, grads_p = value_and_grad(api.loss, params, batch)
+    assert abs(float(loss) - float(loss_p)) <= 1e-3 * abs(float(loss_p))
+    total = torch.stack([w.norm() for w in tree.leaves(grads_p)]).norm()
+    errs = {}
+    for path, g, w in zip(tree.paths(grads), tree.leaves(grads),
+                          tree.leaves(grads_p)):
+        if not cfg.use_rope and path.endswith("attn/bk"):
+            # exactly 0 without rotary: the softmax cancels a key bias
+            assert max(g.norm(), w.norm()) <= 1e-6 * total, path
+        else:
+            errs[path] = float((g - w).norm() / w.norm().clamp(min=1e-30))
+    assert max(errs.values()) <= 1e-3, sorted(
+        errs.items(), key=lambda kv: -kv[1])[:8]
+    step = make_train_step(api, cfg, tcfg=TrainConfig(warmup=0))
+    new, _, metrics = step(params, adamw_init(params), batch, 1)
+    assert torch.isfinite(metrics["loss"])
+    assert all(not torch.equal(a, b) for a, b in zip(tree.leaves(new),
+                                                     tree.leaves(params)))
