@@ -12,7 +12,7 @@
     python3 chip_smoke.py --train
 
 Needs one CUDA card and the CUDA toolkit.  It imports only the port, never
-JAX nor the JAX package, and runs sixteen phases, each printing its own
+JAX nor the JAX package, and runs eighteen phases, each printing its own
 line(s); any failure exits non-zero:
 
 1. device — the card's name and power limit, torch and CUDA versions;
@@ -185,6 +185,19 @@ line(s); any failure exits non-zero:
    ``drain_parity``, each prompt's prefill logits against the plain
    versions; the eager decode step, the captured paged step and a
    512-token prefill profiled;
+12b. dense_configs — llava-next-mistral-7b (vlm: 576 seeded bf16 patch
+   embeddings a request through ``vlm.patch_proj``, prefills of 580-1088
+   rows), stablelm-12b (head dim 160), codeqwen1.5-7b (an fp8 e4m3 KV
+   cache) and qwen3-32b (65.5 GB of weights), each at its published
+   width and depth, bf16, random weights seeded with 0 drawn on the card
+   and freed before the next (``dense_phase``): prompts of 4, 9, 13, 16,
+   64, 127, 256 and 512 tokens, 8 new tokens each, on the slot and the
+   paged engine (the tokens equal), every site planned with no fallback,
+   ``decode_compiles`` 1, ``check_routes`` (qwen3-32b's down projection
+   of the 16-token prompt on the tiled kernel: its stage of A exceeds
+   the skinny kernel's), ``drain_parity``, the prefill logits within
+   ``LOGIT_ATOL``, the captured step and a 512-token prefill profiled, the
+   peak of allocated memory, and ``DENSE_SHAPES`` timed;
 13. train — full-width qwen1.5-0.5b trained (bf16, 24 layers, vocab
    151936, remat "full"; train_4k's 4096 x 256 tokens cut to 512 x 8),
    ``train_phase``: (a) one float32 step, the same seeded weights and
@@ -211,6 +224,14 @@ line(s); any failure exits non-zero:
    6+6 layers, vocab 51865; 4 utterances of 1500 frames and 64 text
    tokens, ``grad_accum`` 4 -> 1), the MLP pair's five backward sites
    among the checked ones, its encoder scores' da / db timed;
+14b. mamba2_train, zamba2_train, olmoe_train — mamba2-780m (its published
+   ``grad_accum`` 2: two microbatches of 4 x 512 accumulated), zamba2-1.2b
+   and olmoe-1b-7b (``grad_accum`` 2 -> 1, its load-balance term in the
+   loss, trained at the largest depth that fits, ``fit_depth``; check (a)
+   at ``MOE_PARITY_LAYERS`` layers, where a gradient miss passes only as
+   routing near-ties, ``routing_explains_grads``) trained the same way,
+   8 x 512 tokens; the resume of check (c) runs after (d), with the first
+   run's parameters on the host; each phase prints its allocated peak;
 15. recurrences — the WideSA mapper -> kernel pipeline,
    ``repro_torch.launch.recurrences.run`` (the entry point's function):
    the Table II compiler report, quickstart's 1024^3 MM, and every
@@ -264,8 +285,10 @@ line gives each path's counts apart (``"launches": {"qwen": n,
 "qwen_paged": q, "qwen_prefill": p, "whisper_stream": m,
 "whisper_paged": w, "qwen_long": l, "whisper_offline": o, "olmoe": s,
 "olmoe_paged": g, "mamba2": a, "mamba2_paged": b, "zamba2": z,
-"zamba2_paged": y, "train": t, "whisper_train": u, "recurrences":
-k}``; ``qwen_long`` and ``whisper_offline`` each sum the slot engine's
+"zamba2_paged": y, "llava": v, "llava_paged": v', "stablelm": ...,
+"codeqwen": ..., "qwen3": ..., "qwen3_paged": ..., "train": t,
+"whisper_train": u, "mamba2_train": ..., "zamba2_train": ...,
+"olmoe_train": ..., "recurrences": k}``; ``qwen_long`` and ``whisper_offline`` each sum the slot engine's
 drain and the paged engine's; ``train`` and ``whisper_train`` count the
 ``Trainer``'s ``TRAIN_STEPS`` steps, set to 0 just before its
 ``run``).  A replay of a captured step passes no wrapper, so a paged path's drain runs under ``torch.profiler``
@@ -300,8 +323,9 @@ its launches on ``olmoe`` and ``olmoe_paged``; under ``"ssm"`` each
 paths (shapes whose launches share a kernel and grid in a replay, as
 zamba2's q/k/v/out and mlp.down projections at decode, take their
 captured step's counts, which must sum to what the replay shows);
-under ``"train"`` each ``TRAIN_SHAPES`` GEMM's, with its launches in one
-train step (every site of that shape, the remat recompute's forward
+under ``"dense"`` each ``DENSE_SHAPES`` GEMM's, with its launches on its
+model's slot and paged paths; under ``"train"`` each ``TRAIN_SHAPES``
+GEMM's, with its launches in one train step (every site of that shape, the remat recompute's forward
 launches included).  The
 comparison and timing launches of phases 3 and
 7, those of the paged phases outside their main drains, of
@@ -309,7 +333,8 @@ comparison and timing launches of phases 3 and
 not count.
 
 ``--train`` runs only the device phase, the GEMM source's build and
-phases 13 and 14.  ``--tile-sweep`` runs only the device and build
+the train phases (13, 14, 14b); ``--dense`` the device phase, the GEMM
+source's build and phase 12b.  ``--tile-sweep`` runs only the device and build
 phases, then times the tiled GEMM in bf16 with each of the 24 tiles of ``build.SWEEP_TILES`` (a
 second library holds those not compiled for the main path) and the
 skinny GEMM with every split of K, at every main-path shape, and prints,
@@ -576,16 +601,24 @@ def serving_kernel(site: str, shape, tied: bool = True) -> str:
     """The kernel the runtime must pick for a serving GEMM (bf16, or
     float32 at the MoE router; fresh 16-byte aligned operands, A
     contiguous or, for the values, in padded rows): the skinny kernel for
-    at most 16 rows of A where B's rows allow 4-byte copies, the
-    tensor-core kernel for more rows where TMA can address A's and B's
-    rows (whole 16-byte units), else the tiled kernel."""
+    at most 16 rows of A where B's rows allow 4-byte copies and a block's
+    stage of A fits ``runtime.SKINNY_A_BYTES`` at some split of K
+    (``runtime.skinny_tile``: qwen3-32b's down projection of a 16-token
+    prompt, K = 25600, does not), the tensor-core kernel for more rows
+    where TMA can address A's and B's rows (whole 16-byte units), else
+    the tiled kernel."""
+    import torch
+
     from repro_torch.kernels import runtime
 
     m, n, k = shape[-3:]
     size = 4 if site_dtype(site) == "float32" else 2
     inner = k if col_major_site(site, shape, tied) else n
     if m <= runtime.SKINNY_ROWS:
-        return "skinny" if runtime.copy_bytes(0, size * inner) >= 4 \
+        fits = runtime.skinny_tile(
+            m, n, k, shape[0] if len(shape) == 4 else 1,
+            torch.float32 if size == 4 else torch.bfloat16) is not None
+        return "skinny" if fits and runtime.copy_bytes(0, size * inner) >= 4 \
             else "tiled"
     whole = (padded_site(site) or runtime.copy_bytes(0, size * k) == 16) \
         and runtime.copy_bytes(0, size * inner) == 16
@@ -1034,19 +1067,26 @@ def drain_parity(torch, report, path: str, tied: bool = True) -> None:
     the plain version, in bf16 (the serving dtype; float32 at the MoE
     router), in the drain's layouts: the tied lm_head and the scores read
     B column-major, the values their A in padded rows; the score sites
-    flush to fp32.
+    flush to fp32.  A bf16 result over a K past ``runtime.TC_PROMOTE_K``
+    that misses one rounding plus 1e-3 is held to one rounding plus
+    ``sum_bound``, as ``gemm_timings(long_sums=True)`` holds the long
+    sums of training, and each such (site, shape) is printed with its
+    outputs past the first bound: the tensor cores' accumulator sums a
+    long K with less precision than fp32 adds, which outputs near 0 show
+    past 1e-3 (qwen3-32b's down projection, K = 25600, on the skinny
+    kernel).
     Run after the drain's counts are read, so these launches count for
     no path."""
     from collections import Counter
 
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import ref, runtime
 
     gen = torch.Generator(device="cuda").manual_seed(6)
     cases = sorted({(site, ast.literal_eval(key))
                     for site, st in report.items()
                     if not site.startswith(NON_GEMM_SITES)
                     for key in st["shapes"]})
-    worst, routes = 0.0, Counter()
+    worst, routes, long_k = 0.0, Counter(), []
     for site, shape in cases:
         kind = "mm" if len(shape) == 3 else "bmm"
         col = col_major_site(site, shape, tied)
@@ -1060,6 +1100,15 @@ def drain_parity(torch, report, path: str, tied: bool = True) -> None:
         out, want = fn(a, b), plain(a, b, out_dtype)
         torch.cuda.synchronize()
         err, ok = max_error(torch, out, want, out.dtype)
+        if not ok and out.dtype == torch.bfloat16 \
+                and shape[-1] > runtime.TC_PROMOTE_K:
+            diff = (out.double() - want.double()).abs()
+            strict = 2.0 ** -7 * want.double().abs() + 1e-3
+            ok = bool((diff <= strict + sum_bound(torch, kind, a, b)).all())
+            long_k.append(f"{site} {kind}{shape} {describe(tiles.tile)}: "
+                          f"{int((diff > strict).sum())} of {diff.numel()} "
+                          f"outputs past 2^-7|ref| + 1e-3 (largest excess "
+                          f"{float((diff - strict).max()):.3g})")
         if not ok:
             fail(f"{path}: {site} {kind}{shape} {dtype} "
                  f"{describe(tiles.tile)}: max |err| {err}")
@@ -1071,7 +1120,9 @@ def drain_parity(torch, report, path: str, tied: bool = True) -> None:
           f"{' (the MoE router in float32)' if 'moe.router' in report else ''}"
           f" on the runtime's configuration ({dict(routes)}; bf16 <= "
           f"2^-7|ref| + 1e-3, fp32 scores and router <= 1e-3; "
-          f"max |err| {worst:.4g}): {sorted({s for s, _ in cases})}",
+          f"max |err| {worst:.4g}): {sorted({s for s, _ in cases})}"
+          + (f"; held to one rounding plus sum_bound past K = "
+             f"{runtime.TC_PROMOTE_K}: {long_k}" if long_k else ""),
           flush=True)
 
 
@@ -2503,7 +2554,7 @@ def launch_signature(torch, gen, kind, shape, col, pad, flush,
     with ``col``, A in padded rows with ``pad``, an fp32 result with
     ``flush``): its kernel, wrapper and grid as the launchers in
     ``SOURCE`` set it (skinny: N tiles x split, 1, batch; tensor-core: M
-    tiles x split, N tiles, batch).  How a drain's trace tells this
+    tiles x split, N tiles, batch; tiled: M tiles, N tiles, batch).  How a drain's trace tells this
     shape's launches apart."""
     from repro_torch.kernels import runtime
 
@@ -2522,7 +2573,7 @@ def launch_signature(torch, gen, kind, shape, col, pad, flush,
         kernel, grid = "wgmma", (-(-m // tile.bm) * tile.split,
                                  -(-n // tile.bn), z)
     else:
-        fail(f"{kind}{shape} runs on the tiled kernel {tile}")
+        kernel, grid = "tiled", (-(-m // tile[0]), -(-n // tile[1]), z)
     return kernel, "bmm" if z > 1 else "widesa_mm", grid
 
 
@@ -3560,12 +3611,205 @@ def ssm_phase(torch, device_name: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# training: qwen1.5-0.5b and whisper-base at full width
+# the dense configs: llava-next-mistral-7b (vlm), stablelm-12b,
+# codeqwen1.5-7b and qwen3-32b on both engines
 # ---------------------------------------------------------------------------
 
-#: the train phases: (path, arch, text tokens, batch); whisper-base's
-#: frames are its published 1500 a sample
-TRAIN_PHASES = (("train", ARCH, 512, 8), ("whisper_train", STREAM_ARCH, 64, 4))
+#: the dense_configs phase's models, by path label
+DENSE_ARCHS = {"llava": "llava-next-mistral-7b", "stablelm": "stablelm-12b",
+               "codeqwen": "codeqwen1.5-7b", "qwen3": "qwen3-32b"}
+#: its prompts, 8 new tokens each: four short (16 tokens take qwen3-32b's
+#: down projection, K = 25600, past the skinny kernel's stage of A) and
+#: four long, on engines of this horizon (512 + 8 tokens in whole blocks of
+#: ``PAGED_BLOCK``; llava's requests add their patch rows)
+DENSE_SHORT = (4, 9, 13, 16)
+DENSE_LONG = (64, 127, 256, 512)
+DENSE_MAX_SEQ = 528
+#: the GEMMs each model adds, timed (``LONG_SHAPES``' layout): llava's
+#: patch projection over 576 patches; stablelm's attention at head dim 160
+#: (a 512-token prompt's scores and values, K = 160 and N = 160, and the
+#: decode step's over 528 keys); codeqwen's lm_head at decode; qwen3-32b's
+#: decode GEMMs (the untied lm_head, B row-major; the out projection, whose
+#: launches share the down projection's kernel and grid in a replay) and
+#: the down projection of a 16-token prompt
+DENSE_SHAPES = {
+    "llava": (
+        ("vlm.patch_proj, 576 patches", "mm", (576, 4096, 4096), False,
+         False, False, "bfloat16"),),
+    "stablelm": (
+        ("attn.scores, 512-token prefill, head dim 160", "bmm",
+         (8, 2048, 512, 160), True, False, True, "bfloat16"),
+        ("attn.values, 512-token prefill, head dim 160", "bmm",
+         (8, 2048, 160, 512), False, True, False, "bfloat16"),
+        ("attn.decode_scores, head dim 160", "bmm", (32, 4, 528, 160), True,
+         False, True, "bfloat16"),
+        ("attn.decode_values, head dim 160", "bmm", (32, 4, 160, 528), False,
+         False, False, "bfloat16"),),
+    "codeqwen": (
+        ("lm_head, codeqwen decode", "mm", (4, 92416, 4096), False, False,
+         False, "bfloat16"),),
+    "qwen3": (
+        ("lm_head, qwen3-32b decode", "mm", (4, 151936, 5120), False, False,
+         False, "bfloat16"),
+        ("mlp.gate/up, qwen3-32b decode", "mm", (4, 25600, 5120), False,
+         False, False, "bfloat16"),
+        ("mlp.down, qwen3-32b decode", "mm", (4, 5120, 25600), False, False,
+         False, "bfloat16"),
+        ("attn.out, qwen3-32b decode", "mm", (4, 5120, 8192), False, False,
+         False, "bfloat16"),
+        ("mlp.down, qwen3-32b 16-token prefill", "mm", (16, 5120, 25600),
+         False, False, False, "bfloat16"),),
+}
+
+
+def gib(n: int) -> str:
+    return f"{n / 2**30:.2f} GiB"
+
+
+def dense_phase(torch, device_name: str) -> dict:
+    """Phase 12b: llava-next-mistral-7b (the vlm: mistral-7b's backbone
+    with 576 patch embeddings prepended through ``vlm.patch_proj``),
+    stablelm-12b (head dim 160), codeqwen1.5-7b (MHA, qkv bias, an fp8
+    e4m3 KV cache) and qwen3-32b (qk_norm, untied head), each at its
+    published width and depth, bf16, random weights seeded with 0 and
+    drawn on the card, one after the other (each freed before the next).
+    For each: ``DENSE_SHORT`` and ``DENSE_LONG`` prompts, 8 new tokens
+    each (llava's each with seeded [576, 4096] bf16 patch embeddings of
+    its own, so its prefills run 580-1088 rows), on the slot and the
+    paged engine (``two_engines``: exact-length prefills, the decode step
+    captured in ``load()``, the tokens equal), every site planned with no
+    fallback (llava: ``vlm.patch_proj`` among them), ``decode_compiles``
+    1, ``drain_parity``, each prompt's prefill logits within
+    ``LOGIT_ATOL`` of the plain versions, the captured step and a
+    512-token prefill profiled (the largest other kernels named: codeqwen's
+    fp8 cache casts), the peak of allocated memory, then its
+    ``DENSE_SHAPES`` timed.  Returns each engine's launches, launches by
+    kernel and timed-shape launches by path, and the timed rows."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    paths, rows = {}, {}
+    for label, arch in DENSE_ARCHS.items():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cfg = get_config(arch)
+        t0 = time.perf_counter()
+        params = build_model(cfg, "cuda").init(
+            torch.Generator(device="cuda").manual_seed(0))
+        torch.cuda.synchronize()
+        weights = sum(t.numel() * t.element_size()
+                      for t in iter_tensors(params))
+        max_seq = DENSE_MAX_SEQ + cfg.vlm_patches
+        print(f"{label}: {arch} at its published width and depth "
+              f"({cfg.n_layers} layers, d {cfg.d_model}, {cfg.n_heads} heads "
+              f"of {cfg.hd}, {cfg.n_kv_heads} KV heads, ff {cfg.d_ff}, vocab "
+              f"{cfg.vocab}"
+              + (", qkv bias" if cfg.qkv_bias else "")
+              + (", qk_norm" if cfg.qk_norm else "")
+              + (", tied head" if cfg.tie_embeddings else ", untied head")
+              + (f", {cfg.vlm_patches} patch embeddings a request through "
+                 f"vlm.patch_proj" if cfg.vlm_patches else "")
+              + f", {cfg.dtype}, KV cache {cfg.kv_cache_dtype}; "
+              f"{weights / 1e9:.2f} GB of weights) drawn on the card in "
+              f"{time.perf_counter() - t0:.1f} s; engines of max_seq "
+              f"{max_seq}; allocated peak so far "
+              f"{gib(torch.cuda.max_memory_allocated())}", flush=True)
+        rng = np.random.default_rng(7)
+        prompts = [rng.integers(0, cfg.vocab, n)
+                   for n in DENSE_SHORT + DENSE_LONG]
+        patches = [None] * len(prompts)
+        if cfg.vlm_patches:
+            gen = torch.Generator(device="cuda").manual_seed(8)
+            patches = [torch.randn((cfg.vlm_patches, cfg.d_model),
+                                   generator=gen, device="cuda").to(
+                                       torch.bfloat16) for _ in prompts]
+
+        def submit(e, prompts=prompts, patches=patches):
+            for p, pe in zip(prompts, patches):
+                e.submit_text(p, max_new_tokens=MAX_NEW,
+                              extra=None if pe is None
+                              else {"extra_embeds": pe})
+            return len(prompts)
+
+        out = two_engines(torch, cfg, params, label, submit, max_seq,
+                          device_name, timed=DENSE_SHAPES[label],
+                          tied=cfg.tie_embeddings)
+        (slot, run), (paged, prun) = out["slot"], out["paged"]
+        if cfg.vlm_patches and not all(
+                r["report"].get("vlm.patch_proj", {}).get("planned")
+                for r in (run, prun)):
+            fail(f"{label}: vlm.patch_proj did not plan in both drains")
+        merged = {s: {"shapes": {
+            **run["report"].get(s, {}).get("shapes", {}),
+            **prun["report"].get(s, {}).get("shapes", {})}}
+            for s in {*run["report"], *prun["report"]}}
+        drain_parity(torch, merged, label, tied=cfg.tie_embeddings)
+        batches = []
+        for p, pe in zip(prompts, patches):
+            batch = token_batch(torch, p)
+            if pe is not None:
+                batch["extra_embeds"] = pe[None]
+            batches.append(batch)
+        first_logits(torch, label, slot.api, params, run["done"], batches,
+                     max_seq=max_seq)
+        print(f"{label}: the paged engine's tokens equal the slot engine's "
+              f"at {SLOTS} lanes ({len(prompts)} requests of "
+              f"{sorted(map(len, prompts))} tokens"
+              + (f" after {cfg.vlm_patches} patch rows" if cfg.vlm_patches
+                 else "")
+              + f"; stats {paged.stats}, decode_compiles "
+              f"{paged.stats['decode_compiles']})", flush=True)
+        profile_call(torch, f"{label} captured paged decode step ({SLOTS} "
+                     f"lanes, max_seq {max_seq}; the replay stages the "
+                     "tables, replays and reads the tokens)",
+                     lambda: paged._decode([]), runs=5, top=6)
+        profile_call(torch, f"{label} prefill of {DENSE_LONG[-1]} tokens"
+                     + (f" after {cfg.vlm_patches} patch rows"
+                        if cfg.vlm_patches else ""),
+                     lambda: slot.api.prefill(params, batches[-1], max_seq),
+                     runs=3, top=6)
+        print(f"{label}: allocated peak {gib(torch.cuda.max_memory_allocated())}"
+              f" of the card's {gib(torch.cuda.get_device_properties(0).total_memory)}"
+              f" (weights {gib(weights)}, both engines' caches, the plain "
+              f"versions' fp32 operands in the logit checks); on "
+              f"{device_name} [{nvidia_smi()}]", flush=True)
+        paths[label] = out["by_engine"]["slot"]
+        paths[f"{label}_paged"] = out["by_engine"]["paged"]
+        del slot, paged, run, prun, out, params, batches, patches
+        torch.cuda.empty_cache()
+        rows[label] = gemm_timings(torch, DENSE_SHAPES[label], seed=21)
+        torch.cuda.empty_cache()
+    return {"paths": paths, "rows": rows}
+
+
+# ---------------------------------------------------------------------------
+# training: qwen1.5-0.5b, whisper-base, mamba2-780m, zamba2-1.2b and
+# olmoe-1b-7b at full width
+# ---------------------------------------------------------------------------
+
+#: the train phases: (path, arch, text tokens, batch, the config fields the
+#: phase cuts); whisper-base's frames are its published 1500 a sample.
+#: grad_accum goes to 1 where the cut batch is one microbatch (whisper-base
+#: 4, olmoe-1b-7b 2; mamba2-780m keeps its published 2), and olmoe-1b-7b
+#: trains at the largest depth that fits the card (``fit_depth``)
+TRAIN_PHASES = (("train", ARCH, 512, 8, {"grad_accum": 1}),
+                ("whisper_train", STREAM_ARCH, 64, 4, {"grad_accum": 1}),
+                ("mamba2_train", SSM_ARCHS["mamba2"], 512, 8, {}),
+                ("zamba2_train", SSM_ARCHS["zamba2"], 512, 8, {}),
+                ("olmoe_train", MOE_ARCH, 512, 8,
+                 {"grad_accum": 1, "n_layers": "fit"}))
+#: check (a) of the olmoe phase: two float32 copies of the full-width
+#: model's gradients at this depth
+MOE_PARITY_LAYERS = 2
+#: ``fit_depth``: bytes a parameter holds at a train step's peak (bf16
+#: parameters, their gradients and the new parameters AdamW returns, 2
+#: each; the fp32 moments, 8, updated in place), and what is kept free
+#: besides for the activations (remat full: one layer's recompute, the fp32
+#: logits and their gradient) and AdamW's per-leaf temporaries
+TRAIN_BYTES_PER_PARAM = 14
+TRAIN_RESERVE = 10 * 2**30
 #: the Trainer run of check (c): steps, peak rate, warmup, checkpoint
 #: interval
 TRAIN_STEPS, TRAIN_LR, TRAIN_WARMUP, TRAIN_CKPT_EVERY = 20, 1e-3, 2, 10
@@ -3611,6 +3855,30 @@ TRAIN_SHAPES = {
          True, False, "bfloat16"),
         ("attn.scores/bwd_db, encoder", "bmm", (32, 64, 1500, 1500), False,
          True, False, "bfloat16"),
+    ),
+    # mamba2 at grad_accum 2: a microbatch of 4 x 512 tokens
+    "mamba2_train": (
+        ("lm_head/bwd_dx, mamba2", "mm", (2048, 1536, 50280), True, False,
+         False, "bfloat16"),
+        ("lm_head/bwd_dw, mamba2", "mm", (1536, 50280, 2048), False, True,
+         False, "bfloat16"),
+    ),
+    "zamba2_train": (
+        ("lm_head/bwd_dx, zamba2", "mm", (4096, 2048, 32000), True, False,
+         False, "bfloat16"),
+        ("mlp.gate/up/bwd_dw, zamba2's shared block", "mm",
+         (2048, 8192, 4096), False, True, False, "bfloat16"),
+    ),
+    # the expert stack over 4096 tokens: C = 640 slots an expert
+    "olmoe_train": (
+        ("moe.gate/up/bwd_da", "bmm", (64, 640, 2048, 1024), True, False,
+         False, "bfloat16"),
+        ("moe.gate/up/bwd_db", "bmm", (64, 2048, 1024, 640), False, True,
+         False, "bfloat16"),
+        ("moe.down/bwd_da", "bmm", (64, 640, 1024, 2048), True, False,
+         False, "bfloat16"),
+        ("moe.down/bwd_db", "bmm", (64, 1024, 2048, 640), False, True,
+         False, "bfloat16"),
     ),
 }
 
@@ -3688,6 +3956,7 @@ def grad_parity(torch, label, cfg, shape) -> None:
     errs.sort(reverse=True)
     zeros.sort(reverse=True)
     loss_err = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    del g_k, g_p
     print(f"{label}: float32 step at full width on the kernels (float32 "
           f"GEMMs as 3xTF32, {len(sites)} sites planned, no fallback) "
           f"against the plain versions (fp32, TF32 off): loss "
@@ -3706,9 +3975,122 @@ def grad_parity(torch, label, cfg, shape) -> None:
              f"whole: {zeros[:5]}")
     if errs[0][0] > GRAD_RTOL or loss_err > GRAD_RTOL \
             or not math.isfinite(errs[0][0]):
+        if cfg.family == "moe":
+            torch.cuda.empty_cache()
+            ok, why = routing_explains_grads(torch, cfg32, params, batch)
+            print(f"{label}: the float32 gradients miss the plain versions' "
+                  f"beyond {GRAD_RTOL}; {why}", flush=True)
+            if ok:
+                return
         fail(f"{label}: float32 gradients on the kernels differ from the "
              f"plain versions beyond {GRAD_RTOL}: {errs[:5]}, loss "
              f"{loss_err}")
+
+
+def routing_explains_grads(torch, cfg32, params, batch) -> tuple[bool, str]:
+    """Whether an MoE model's float32 gradients on the kernels miss the
+    plain versions' by routing near-ties only (``routing_explained``'s
+    test, for the loss and its gradients), and the evidence.  The loss and
+    its gradients run again without remat (so each layer routes once, in
+    order) with each layer's routing recorded: on the kernels, on the
+    plain versions, and on the plain versions with the kernels' top-k ids
+    forced at every layer (each weight renormalised from the plain path's
+    own probabilities).  Explained: every flip of the first layer that
+    has any is within ``ROUTER_ATOL`` of the plain path's k-th
+    probability, and with the kernels' routing forced the loss and every
+    gradient leaf are within ``GRAD_RTOL`` of the kernels'."""
+    import dataclasses
+
+    from repro_torch import tree
+    from repro_torch.kernels import planned
+    from repro_torch.models import build_model, moe
+    from repro_torch.train.step import value_and_grad
+
+    api = build_model(dataclasses.replace(cfg32, remat="none"), "cuda")
+    route = moe.route
+
+    def run(enabled, forced=None):
+        seen = []
+
+        def recording(cfg, layer_logits):
+            w, ids, probs = route(cfg, layer_logits)
+            if forced is not None:
+                ids = forced[len(seen)]
+                w = probs.gather(-1, ids)
+                w = w / w.sum(dim=-1, keepdim=True)
+            seen.append((ids.detach(), probs.detach()))
+            return w, ids, probs
+
+        moe.route = recording
+        try:
+            with planned.override(enabled=enabled):
+                loss, grads = value_and_grad(api.loss, params, batch)
+        finally:
+            moe.route = route
+        return float(loss), grads, seen
+
+    loss_k, g_k, kernels = run(True)
+    _, g_p, plain = run(False)
+    del g_p
+    loss_f, g_f, _ = run(False, [ids for ids, _ in kernels])
+    flips = []
+    for layer, ((ids, _), (pids, probs)) in enumerate(zip(kernels, plain)):
+        kth = probs.gather(-1, pids).min(-1).values
+        differ = (ids.sort(-1).values != pids.sort(-1).values).any(-1)
+        for tok in differ.nonzero()[:, 0].tolist():
+            for ex in sorted(set(ids[tok].tolist())
+                             - set(pids[tok].tolist())):
+                flips.append((layer, tok, ex,
+                              round(float(kth[tok] - probs[tok, ex]), 9)))
+    first = [f for f in flips if f[0] == flips[0][0]] if flips else []
+    errs = sorted(((float((a.double() - b.double()).norm()
+                          / b.double().norm().clamp(min=1e-30)), path)
+                   for path, a, b in zip(tree.paths(g_k), tree.leaves(g_k),
+                                         tree.leaves(g_f))), reverse=True)
+    loss_err = abs(loss_k - loss_f) / abs(loss_f)
+    ties = bool(first) and max(f[3] for f in first) <= ROUTER_ATOL
+    ok = ties and errs[0][0] <= GRAD_RTOL and loss_err <= GRAD_RTOL
+    return ok, (f"{len(flips)} routing flips over {len(kernels)} layers "
+                f"(layer, token, expert, probability gap to the plain "
+                f"path's k-th) {flips[:12]}; the first layer's within "
+                f"{ROUTER_ATOL}: {ties}; with the kernels' routing forced "
+                f"on the plain versions, the loss within {loss_err:.3g} and "
+                f"the largest leaf's relative L2 error {errs[0][0]:.3g} "
+                f"({errs[0][1]}; bound {GRAD_RTOL})")
+
+
+def fit_depth(torch, cfg) -> tuple[int, str]:
+    """The largest depth (at most the published one) at which ``cfg``'s
+    train step fits the card's free memory: ``TRAIN_BYTES_PER_PARAM``
+    bytes a parameter and ``TRAIN_RESERVE`` besides.  A layer's and the
+    rest's parameters are counted on models of 1 and 2 layers drawn on
+    the card.  Returns (depth, the arithmetic in words)."""
+    import dataclasses
+
+    from repro_torch.models import build_model
+
+    counts = []
+    for n in (1, 2):
+        small = dataclasses.replace(cfg, n_layers=n)
+        p = build_model(small, "cuda").init(
+            torch.Generator(device="cuda").manual_seed(0))
+        counts.append(sum(t.numel() for t in iter_tensors(p)))
+        del p
+    torch.cuda.empty_cache()
+    layer = counts[1] - counts[0]
+    rest = counts[0] - layer
+    free, total = torch.cuda.mem_get_info()
+    depth = min(cfg.n_layers, int(((free - TRAIN_RESERVE)
+                                   / TRAIN_BYTES_PER_PARAM - rest) // layer))
+    return depth, (
+        f"{cfg.n_layers} layers cut to {depth}, the largest depth that fits "
+        f"the card: {layer / 1e6:.1f} M parameters a layer and "
+        f"{rest / 1e6:.1f} M besides, {TRAIN_BYTES_PER_PARAM} bytes each at "
+        f"a step's peak (bf16 parameters, gradients and AdamW's new "
+        f"parameters; fp32 moments) in {gib(free)} free of {gib(total)}, "
+        f"{gib(TRAIN_RESERVE)} kept for activations and temporaries; the "
+        f"published {cfg.n_layers} would need "
+        f"{gib(TRAIN_BYTES_PER_PARAM * (rest + cfg.n_layers * layer))}")
 
 
 def profiled(torch, fn):
@@ -3786,17 +4168,20 @@ def train_timings(torch, label, trainer, params, opt, device_name) -> dict:
 
 
 def train_phase(torch, device_name: str, label: str, arch: str, seq: int,
-                batch: int) -> dict:
-    """Phases 15 and 16: ``arch`` trained at its published width, bf16,
-    ``remat="full"``, at a cut shape (printed): check (a)
-    (``grad_parity``), then the ``Trainer`` over ``TRAIN_STEPS`` steps
-    from seeded weights with every count set to 0 just before and read
-    just after (b: every forward and ``/bwd_*`` site planned, no
-    fallback; the GEMM launches by kernel; c: every loss finite, the last
-    5 steps' mean below the first 5's, a fresh ``Trainer`` resuming at
-    step ``TRAIN_STEPS`` with the saved parameters bit for bit), then
-    check (d) (``train_timings``) and the backward GEMMs of
-    ``TRAIN_SHAPES`` timed.  Returns the path's launches, launches by
+                batch: int, cuts: dict) -> dict:
+    """Phases 13, 14 and 14b: ``arch`` trained at its published width,
+    bf16, ``remat="full"``, at a cut shape with the config fields ``cuts`` (the
+    depth ``"fit"``: ``fit_depth``) changed, each cut printed: check (a)
+    (``grad_parity``; an MoE model at ``MOE_PARITY_LAYERS`` layers), then
+    the ``Trainer`` over ``TRAIN_STEPS`` steps from seeded weights with
+    every count set to 0 just before and read just after (b: every
+    forward and ``/bwd_*`` site planned, no fallback; the GEMM launches by
+    kernel; c: every loss finite, the last 5 steps' mean below the first
+    5's), check (d) (``train_timings``), then the rest of (c): with the
+    first run's parameters copied to the host and freed, a fresh
+    ``Trainer`` resuming at step ``TRAIN_STEPS`` with the saved parameters
+    bit for bit; then the backward GEMMs of ``TRAIN_SHAPES`` timed and the
+    peak of allocated memory.  Returns the path's launches, launches by
     kernel, timed rows and the launches a step of each timed shape."""
     import dataclasses
     import shutil
@@ -3809,25 +4194,52 @@ def train_phase(torch, device_name: str, label: str, arch: str, seq: int,
     from repro_torch.kernels import planned
     from repro_torch.train import TrainConfig, Trainer
 
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     base = get_config(arch)
-    cfg = dataclasses.replace(base, grad_accum=1)
+    cfg = dataclasses.replace(base, **{k: v for k, v in cuts.items()
+                                       if k != "n_layers"})
     shape = ShapeSpec("card", "train", seq, batch)
     if cfg.remat != "full" or cfg.dtype != "bfloat16":
         fail(f"{label}: {arch} is not bf16 with remat='full'")
     full = SHAPES["train_4k"]
-    cuts = (f"{full.name}'s {full.seq_len} tokens x {full.global_batch} "
-            f"cut to {seq} x {batch}" if cfg.family == "dense" else
-            f"the batch cut to {batch} utterances of {cfg.enc_frames} frames "
-            f"and {seq} text tokens; grad_accum {base.grad_accum} -> 1 (the "
-            "cut batch is one microbatch)")
-    print(f"{label}: {arch} at its published width and depth "
+    said = [f"the batch cut to {batch} utterances of {cfg.enc_frames} "
+            f"frames and {seq} text tokens" if cfg.family == "encdec" else
+            f"{full.name}'s {full.seq_len} tokens x {full.global_batch} "
+            f"cut to {seq} x {batch}"]
+    if cfg.grad_accum != base.grad_accum:
+        said.append(f"grad_accum {base.grad_accum} -> {cfg.grad_accum} (the "
+                    "cut batch is one microbatch)")
+    else:
+        said.append(f"grad_accum {cfg.grad_accum} as published ("
+                    f"microbatches of {batch // cfg.grad_accum} x {seq})")
+    widths = (f"{cfg.n_heads} heads of {cfg.hd}, ff {cfg.d_ff}"
+              if cfg.n_heads else "")
+    if cfg.family in ("ssm", "hybrid"):
+        widths = (f"d_inner {cfg.d_inner}, state {cfg.ssm_state}"
+                  + (f", a shared block of {widths}" if widths else ""))
+    if cfg.family == "moe":
+        widths += (f", {cfg.moe_num_experts} experts of ff {cfg.moe_d_ff}, "
+                   f"top-{cfg.moe_top_k}")
+    print(f"{label}: {arch} at its published width "
           f"({cfg.n_enc_layers or ''}{'+' if cfg.n_enc_layers else ''}"
-          f"{cfg.n_layers} layers, d {cfg.d_model}, {cfg.n_heads} heads of "
-          f"{cfg.hd}, ff {cfg.d_ff}, vocab {cfg.vocab}), bf16, remat full, "
-          f"random weights seeded with 0 drawn on the card; cuts: {cuts}; "
-          f"attention on the direct path (at most 2048 rows)", flush=True)
-    grad_parity(torch, label, cfg, shape)
+          f"{cfg.n_layers} layers, d {cfg.d_model}, {widths}, vocab "
+          f"{cfg.vocab}), bf16, remat full, random weights seeded with 0 "
+          f"drawn on the card; cuts: {'; '.join(said)}"
+          + ("; attention on the direct path (at most 2048 rows)"
+             if cfg.n_heads else ""), flush=True)
+    parity_cfg = cfg
+    if cfg.family == "moe":
+        parity_cfg = dataclasses.replace(cfg, n_layers=MOE_PARITY_LAYERS)
+        print(f"{label}: check (a) at {MOE_PARITY_LAYERS} of "
+              f"{cfg.n_layers} layers (two float32 gradient trees of the "
+              "full-width model)", flush=True)
+    grad_parity(torch, label, parity_cfg, shape)
     torch.cuda.empty_cache()
+    if cuts.get("n_layers") == "fit":
+        depth, why = fit_depth(torch, cfg)
+        cfg = dataclasses.replace(cfg, n_layers=depth)
+        print(f"{label}: cut: {why}", flush=True)
 
     ckpt = tempfile.mkdtemp(prefix="widesa_train_")
     tcfg = TrainConfig(base_lr=TRAIN_LR, warmup=TRAIN_WARMUP,
@@ -3866,23 +4278,29 @@ def train_phase(torch, device_name: str, label: str, arch: str, seq: int,
               f"{len(sites)} sites planned with no fallback (every forward "
               f"site's /bwd_* sites among them); GEMM launches by kernel "
               f"{gemms}", flush=True)
+        saved = [t.cpu() for t in tree.leaves(params)]
+        timing = train_timings(torch, label, trainer, params, opt,
+                               device_name)
+        peak = torch.cuda.max_memory_allocated()
+        del trainer, params, opt
+        torch.cuda.empty_cache()
         resumed, _, _ = Trainer(cfg, shape, ckpt_dir=ckpt, tcfg=tcfg,
                                 device="cuda").run(0, resume=True)
         same = latest_step(ckpt) == TRAIN_STEPS and all(
-            torch.equal(a, b) for a, b in zip(tree.leaves(resumed),
-                                               tree.leaves(params)))
+            torch.equal(a.cpu(), b) for a, b in zip(tree.leaves(resumed),
+                                                     saved))
         if not same:
             fail(f"{label}: a fresh Trainer did not resume at step "
                  f"{TRAIN_STEPS} with the saved parameters bit for bit")
         print(f"{label}: a fresh Trainer resumed at step {TRAIN_STEPS} with "
               f"the saved parameters bit for bit "
-              f"({len(tree.leaves(resumed))} leaves)", flush=True)
-        del resumed
-        timing = train_timings(torch, label, trainer, params, opt,
-                               device_name)
+              f"({len(tree.leaves(resumed))} leaves); allocated peak of the "
+              f"training run {gib(peak)} of the card's "
+              f"{gib(torch.cuda.get_device_properties(0).total_memory)}",
+              flush=True)
+        del resumed, saved
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
-    del trainer, params, opt
     torch.cuda.empty_cache()
     shapes = count_shapes(report, [(k, s) for _, k, s, *_ in
                                    TRAIN_SHAPES[label]])
@@ -4934,8 +5352,11 @@ def main(argv=None) -> int:
                          "15, 64 and 255 taps (float32) and at the bench and "
                          "frontend shapes in int8 and int16")
     ap.add_argument("--train", action="store_true",
-                    help="only the device, the GEMM build and the train and "
-                         "whisper_train phases")
+                    help="only the device, the GEMM build and the train "
+                         "phases")
+    ap.add_argument("--dense", action="store_true",
+                    help="only the device, the GEMM build and the "
+                         "dense_configs phase")
     ap.add_argument("--src", help="with --conv2d-sweep or --fir-sweep: the "
                                   "src/ directory of another checkout of "
                                   "the port, whose kernel to time instead")
@@ -4966,6 +5387,7 @@ def main(argv=None) -> int:
     paths = build.build(("widesa_hpc",) if args.mttkrp_sweep
                         else ("widesa_mm",)
                         if args.tc_sweep or args.skinny_sweep or args.train
+                        or args.dense
                         else ("widesa_mm", "widesa_sp") if args.fft_sweep
                         else ("widesa_sp",)
                         if args.conv2d_sweep or args.fir_sweep
@@ -4994,8 +5416,11 @@ def main(argv=None) -> int:
             Path(args.out).write_text(json.dumps(rows, indent=1))
         return 0
     if args.train:
-        for label, arch, seq, batch in TRAIN_PHASES:
-            train_phase(torch, name, label, arch, seq, batch)
+        for phase in TRAIN_PHASES:
+            train_phase(torch, name, *phase)
+        return 0
+    if args.dense:
+        dense_phase(torch, name)
         return 0
     if args.tile_sweep:
         t0 = time.perf_counter()
@@ -5058,8 +5483,11 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     ssm_paths = ssm_phase(torch, name)
     torch.cuda.empty_cache()
-    train_paths = {label: train_phase(torch, name, label, arch, seq, batch)
-                   for label, arch, seq, batch in TRAIN_PHASES}
+    dense = dense_phase(torch, name)
+    dense_paths = dense["paths"]
+    torch.cuda.empty_cache()
+    train_paths = {phase[0]: train_phase(torch, name, *phase)
+                   for phase in TRAIN_PHASES}
     torch.cuda.empty_cache()
     long_rows = gemm_timings(torch)
     moe_rows = gemm_timings(torch, MOE_SHAPES, seed=15)
@@ -5088,6 +5516,8 @@ def main(argv=None) -> int:
                             for path in moe_paths},
                          **{path: ssm_paths[path]["launches"][kname]
                             for path in ssm_paths},
+                         **{path: dense_paths[path]["launches"][kname]
+                            for path in dense_paths},
                          **{path: train_paths[path]["launches"][kname]
                             for path in train_paths},
                          "recurrences": rec_launches[kname]},
@@ -5114,6 +5544,8 @@ def main(argv=None) -> int:
                    for path in moe_paths},
                 **{path: ssm_paths[path]["variants"][kname]
                    for path in ssm_paths},
+                **{path: dense_paths[path]["variants"][kname]
+                   for path in dense_paths},
                 **{path: train_paths[path]["variants"][kname]
                    for path in train_paths},
                 "recurrences": rec_variants[kname]}
@@ -5187,6 +5619,21 @@ def main(argv=None) -> int:
                 for _, k, shape, *_ in SSM_SHAPES if k == kind}
             if ssm_entry:
                 entry["ssm"] = ssm_entry
+            # the dense configs' new shapes (llava's patch projection,
+            # stablelm's head dim 160, codeqwen's and qwen3-32b's decode
+            # GEMMs, qwen3-32b's 16-row down projection), each with its
+            # launches on its model's slot and paged paths
+            dense_entry = {
+                f"{kind}{shape} [{model}]": {
+                    **{key: dense["rows"][model][(kind, shape)][key]
+                       for key in ("kernel", "ms", "plain_ms", "library_ms",
+                                   "bound_ms", "bound_by", "max_abs_err")},
+                    "launches": {path: dense_paths[path]["shapes"][
+                        (kind, shape)] for path in (model, f"{model}_paged")}}
+                for model, timed in DENSE_SHAPES.items()
+                for _, k, shape, *_ in timed if k == kind}
+            if dense_entry:
+                entry["dense"] = dense_entry
             # the backward GEMMs of the train paths, each with its launches
             # in one train step (every site of that shape, the remat
             # recompute's forward launches included)

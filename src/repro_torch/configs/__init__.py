@@ -2,12 +2,13 @@
 
 ``get_config(arch)`` gives the published full-width configuration and
 ``get_smoke_config(arch)`` the reduced one the tests use; both are copies
-of the reference's configs.  The port registers the archs it runs
-(qwen1.5-0.5b serves text; olmoe-1b-7b, the MoE family, serves text
-through its expert stack; mamba2-780m (SSM) and zamba2-1.2b (hybrid)
-serve text on a recurrent state; whisper-base serves precomputed frames and
-streamed audio; qwen3-32b's grouped KV heads are held against the
-reference in the tests); every other arch is not ported yet and raises.
+of the reference's configs.  The port registers the archs it serves and
+trains: the dense decoders qwen1.5-0.5b, qwen3-32b, stablelm-12b and
+codeqwen1.5-7b (its KV cache in fp8 e4m3); llava-next-mistral-7b (vlm:
+the dense backbone with precomputed patch embeddings prepended);
+olmoe-1b-7b (MoE); mamba2-780m (SSM) and zamba2-1.2b (hybrid) on a
+recurrent state; whisper-base (encdec: precomputed frames and streamed
+audio).  deepseek-v2-236b (MLA) is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -22,6 +23,9 @@ _ARCH_MODULES = {
     "mamba2-780m": "mamba2_780m",
     "zamba2-1.2b": "zamba2_12b",
     "qwen3-32b": "qwen3_32b",
+    "stablelm-12b": "stablelm_12b",
+    "codeqwen1.5-7b": "codeqwen15_7b",
+    "llava-next-mistral-7b": "llava_next_mistral_7b",
     "whisper-base": "whisper_base",
 }
 

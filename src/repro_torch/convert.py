@@ -6,13 +6,14 @@ layers stacked along a leading L axis: ``dense_layers`` and, for the MoE
 family, ``moe_layers``; ``enc_layers``/``dec_layers`` for encdec;
 ``trunk`` for SSM and hybrid) and returns the port's dict, one entry per
 layer in ``layers`` (dense and MoE: the dense layers first, as the
-reference runs them), in ``enc_layers``/``dec_layers`` (encdec) or in
-``trunk`` (SSM and hybrid, beside the hybrid's one ``shared`` block).
+reference runs them; a vlm's ``patch_proj`` beside them), in
+``enc_layers``/``dec_layers`` (encdec) or in ``trunk`` (SSM and hybrid,
+beside the hybrid's one ``shared`` block).
 bfloat16 leaves (numpy's ``bfloat16`` extension dtype) keep their bits.
 
 ``init_params(cfg, generator, device)`` draws full-width weights on the
 device from a seeded ``torch.Generator`` (``models/transformer.py`` for
-dense and MoE, ``models/encdec.py`` for encdec, ``models/hybrid.py`` for
+dense, vlm and MoE, ``models/encdec.py`` for encdec, ``models/hybrid.py`` for
 SSM and hybrid).
 """
 
@@ -66,10 +67,10 @@ def params_from_jax(np_tree: dict, cfg, device="cuda") -> dict:
                 **{k: _tree(np_tree[k], device)
                    for k in ("embed", "ln_f", "lm_head", "shared")
                    if k in np_tree}}
-    if cfg.family not in ("dense", "moe") or cfg.use_mla:
+    if cfg.family not in ("dense", "vlm", "moe") or cfg.use_mla:
         raise NotImplementedError(
             f"family {cfg.family!r}{' with MLA' if cfg.use_mla else ''} is "
-            "not ported; the port runs dense and MoE decoders with GQA "
+            "not ported; the port runs dense, vlm and MoE decoders with GQA "
             "attention, SSM and hybrid models, and encdec")
     layers = []
     for group, n in zip(("dense_layers", "moe_layers"),
@@ -80,6 +81,7 @@ def params_from_jax(np_tree: dict, cfg, device="cuda") -> dict:
         "ln_f": _tree(np_tree["ln_f"], device),
         "layers": layers,
     }
-    if "lm_head" in np_tree:
-        p["lm_head"] = _tensor(np_tree["lm_head"], device)
+    for key in ("lm_head", "patch_proj"):
+        if key in np_tree:
+            p[key] = _tensor(np_tree[key], device)
     return p

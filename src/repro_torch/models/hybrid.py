@@ -26,14 +26,23 @@ reference: the next admission overwrites it.
 The planned GEMMs are the reference's: ``lm_head``, and the shared
 block's ``attn.q/k/v`` and ``mlp.*`` in prefill and decode, its
 ``attn.scores``/``attn.values`` in prefill, the decode attention's
-sites and ``attn.out`` at decode.  Prefill's shared out projection is a
-plain product, as the reference's ``@ wo``; the Mamba2 blocks plan
-nothing.
+sites and ``attn.out`` at decode and in ``forward``.  Prefill's shared
+out projection is a plain product, as the reference's ``@ wo``; the
+Mamba2 blocks plan nothing.
+
+Training: ``loss_fn`` is the reference's masked next-token
+cross-entropy over the untied ``lm_head``'s fp32 logits.  With
+``cfg.remat == "full"`` and grad enabled, ``forward`` runs each trunk
+block and each application of the shared block under
+``torch.utils.checkpoint``, as the reference's ``_maybe_remat``.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.kernels.planned import planned_dense
 
 from . import layers as L
 from . import ssm as SSM
@@ -103,17 +112,51 @@ def _shared_prefill(sp, cfg, x, positions):
     return x + L.apply_mlp(sp["mlp"], cfg, h), k, v
 
 
+def _trunk_block(lp, cfg, x):
+    return x + SSM.apply_mamba(lp["mamba"], cfg,
+                               L.apply_norm(lp["ln"], cfg, x))
+
+
+def _shared_block(sp, cfg, x, positions):
+    """The shared block as the reference's ``forward`` runs it: its out
+    projection planned at ``attn.out``."""
+    h = L.apply_norm(sp["ln1"], cfg, x)
+    x = x + L.apply_attention(sp["attn"], cfg, h, positions)[0]
+    return x + L.apply_mlp(sp["mlp"], cfg, L.apply_norm(sp["ln2"], cfg, x))
+
+
 def forward(p, cfg, tokens):
-    """Full-sequence forward -> final-norm hidden states [B, S, d]."""
+    """Full-sequence forward -> final-norm hidden states [B, S, d]; each
+    trunk block and shared application under ``torch.utils.checkpoint``
+    where ``transformer.remat`` says."""
     _check_family(cfg)
     x = TFM.embed_tokens(p, cfg, tokens)
     positions = TFM._positions(x)
+    full = TFM.remat(cfg)
+
+    def run(fn, *args):
+        return checkpoint(fn, *args, use_reentrant=False) if full \
+            else fn(*args)
+
     for i, lp in enumerate(p["trunk"]):
-        h = L.apply_norm(lp["ln"], cfg, x)
-        x = x + SSM.apply_mamba(lp["mamba"], cfg, h)
+        x = run(lambda x, lp: _trunk_block(lp, cfg, x), x, lp)
         if _shared_after(cfg, i) is not None:
-            x, _, _ = _shared_prefill(p["shared"], cfg, x, positions)
+            x = run(lambda x, sp: _shared_block(sp, cfg, x, positions), x,
+                    p["shared"])
     return L.apply_norm(p["ln_f"], cfg, x)
+
+
+def loss_fn(p, cfg, batch):
+    """batch: tokens [B, S], labels [B, S] (a label < 0 is masked) -> the
+    mean cross-entropy of the ``lm_head``'s fp32 logits over the unmasked
+    positions."""
+    hidden = forward(p, cfg, batch["tokens"])
+    logits = planned_dense(hidden, p["lm_head"].to(hidden.dtype),
+                           site="lm_head")
+    labels = batch["labels"]
+    mask = (labels >= 0).float()
+    total = (TFM.xent(logits, labels.clamp(min=0).long()) * mask).sum()
+    return total / torch.clamp(mask.sum(), min=1.0)
 
 
 # ---------------------------------------------------------------------------

@@ -44,10 +44,12 @@ def compute_dtype(cfg) -> torch.dtype:
 # ---------------------------------------------------------------------------
 
 def normal(generator, shape, scale, dtype, device):
-    """N(0, scale^2) drawn in fp32 on ``device``, cast to ``dtype``."""
+    """N(0, scale^2) drawn in fp32 on ``device``, cast to ``dtype``.  The
+    draw is scaled in place, so a leaf costs one fp32 temporary (3.1 GB
+    for qwen3-32b's untied head)."""
     w = torch.randn(shape, generator=generator, device=device,
                     dtype=torch.float32)
-    return (w * scale).to(dtype)
+    return w.mul_(scale).to(dtype)
 
 
 def dense_init(generator, d_in, d_out, dtype, device, scale=None):
@@ -354,15 +356,16 @@ def apply_attention_decode(p, cfg, x, cache_k, cache_v, pos):
         sites=("attn.decode_scores", "attn.decode_values"))
 
 
-def last_rows(x, last_index):
+def last_rows(x, last_index, offset: int = 0):
     """The hidden row each lane's logits come from: the last one, or with
     ``last_index`` ([B] int32; a bucketed prefill's last real token) that
-    row -> ([B, 1, d], cache ``pos`` [B] int32)."""
+    row, ``offset`` rows in (a vlm's prepended patch rows) -> ([B, 1, d],
+    cache ``pos`` [B] int32)."""
     b, s = x.shape[:2]
     if last_index is None:
         return x[:, -1:], torch.full((b,), s, dtype=torch.int32,
                                      device=x.device)
-    idx = last_index.to(device=x.device, dtype=torch.long)
+    idx = last_index.to(device=x.device, dtype=torch.long) + offset
     sel = x[torch.arange(b, device=x.device), idx][:, None]
     return sel, (idx + 1).to(torch.int32)
 

@@ -6,9 +6,14 @@ trainer use.
     loss = api.loss(params, {"tokens": tokens, "labels": labels})
     loss = api.loss(params, {"frames": frames, "tokens": tokens,
                              "labels": labels})                  # encdec
+    loss = api.loss(params, {"tokens": tokens, "labels": labels,
+                             "extra_embeds": patches})           # vlm
     logits, cache = api.prefill(params, {"tokens": tokens}, max_seq)
     logits, cache = api.prefill(params, {"tokens": tokens,
                                          "frames": frames}, max_seq)  # encdec
+    logits, cache = api.prefill(params, {"tokens": tokens,
+                                         "extra_embeds": patches},
+                                max_seq)                          # vlm
     logits, cache = api.decode(params, cache, tokens)
     pools = api.paged_init(num_blocks, block_size, max_lanes)
     logits, pools = api.paged_decode(params, pools, tokens, tables, pos,
@@ -21,8 +26,10 @@ indexed through the block tables), ``"lane"`` (one fixed-size block a
 lane) or ``"lane_scalar"`` (one scalar a lane); ``paged_decode`` writes
 the pools in place and never moves ``pos``.
 
-The dense, MoE (GQA attention; not MLA), SSM, hybrid and encdec
-families are ported; MLA and vlm raise.  The SSM and hybrid families
+The dense, vlm, MoE (GQA attention; not MLA), SSM, hybrid and encdec
+families are ported; MLA raises.  A vlm's prefill takes the batch's
+precomputed patch embeddings ``extra_embeds`` [B, P, d], prepended to the
+prompt (its cache then holds P + S rows).  The SSM and hybrid families
 prefill at the exact prompt length only: their ``prefill`` refuses a
 ``last_index`` (a pad token would enter the recurrent state).  encdec's
 ``prefill`` encodes the batch's precomputed ``frames`` [B, F, d] and runs
@@ -34,11 +41,12 @@ cross K/V, and ``stream_prefill(p, enc_k, enc_v, enc_len, tokens,
 max_seq)`` is the decoder prompt pass against a partially filled encoder
 cache.
 
-``loss`` is the reference's training loss (the masked mean next-token
-cross-entropy, ``transformer.loss_fn`` / ``encdec.loss_fn``) for the
-dense and encdec families, differentiable by ``torch.autograd`` through
-the planned GEMMs' backward passes (``kernels/planned.py``); the MoE,
-SSM and hybrid families' ``loss`` raises (ROADMAP A8).
+``loss`` is the reference's training loss of every ported family (the
+masked mean next-token cross-entropy: ``transformer.loss_fn``, with the
+MoE family's ``1e-2`` load-balance term and a vlm's text rows only,
+``hybrid.loss_fn``, ``encdec.loss_fn``), differentiable by
+``torch.autograd`` through the planned GEMMs' backward passes
+(``kernels/planned.py``).
 """
 
 from __future__ import annotations
@@ -63,7 +71,7 @@ class ModelAPI:
     prefill: Callable
     decode: Callable
     init_cache: Callable
-    # training loss (dense and encdec; the others raise)
+    # training loss
     loss: Callable | None = None
     # block-paged serving (continuous batching)
     paged_init: Callable | None = None
@@ -76,16 +84,6 @@ class ModelAPI:
     stream_prefill: Callable | None = None
 
 
-def _not_trained(cfg: ModelConfig) -> Callable:
-    def loss(p, batch):
-        raise NotImplementedError(
-            f"training of the {cfg.family!r} family is not ported (ROADMAP "
-            "A8: MoE needs load_balance_loss and its aux term, SSM and "
-            "hybrid their loss_fn); the port trains dense and encdec")
-
-    return loss
-
-
 def build_model(cfg: ModelConfig, device="cuda") -> ModelAPI:
     device = torch.device(device)
     cache_dtype = TFM.cache_dtype_of(cfg)
@@ -93,22 +91,22 @@ def build_model(cfg: ModelConfig, device="cuda") -> ModelAPI:
         return _encdec_api(cfg, device, cache_dtype)
     if cfg.family in ("ssm", "hybrid"):
         return _hybrid_api(cfg, device, cache_dtype)
-    if cfg.family not in ("dense", "moe") or cfg.use_mla:
+    if cfg.family not in ("dense", "vlm", "moe") or cfg.use_mla:
         raise NotImplementedError(
             f"family {cfg.family!r}{' with MLA' if cfg.use_mla else ''} is "
-            "not ported; the port serves dense and MoE decoders with GQA "
-            "attention, SSM and hybrid models, and encdec")
+            "not ported; the port serves dense, vlm and MoE decoders with "
+            "GQA attention, SSM and hybrid models, and encdec")
 
     def prefill(p, batch, max_seq, last_index=None):
         return TFM.prefill(p, cfg, batch["tokens"], max_seq,
-                           cache_dtype=cache_dtype, last_index=last_index)
+                           cache_dtype=cache_dtype, last_index=last_index,
+                           extra_embeds=batch.get("extra_embeds"))
 
     return ModelAPI(
         cfg=cfg,
         device=device,
         init=lambda generator: TFM.init_params(cfg, generator, device),
-        loss=(lambda p, batch: TFM.loss_fn(p, cfg, batch))
-        if cfg.family == "dense" else _not_trained(cfg),
+        loss=lambda p, batch: TFM.loss_fn(p, cfg, batch),
         prefill=prefill,
         decode=lambda p, cache, tokens: TFM.decode_step(p, cfg, cache,
                                                         tokens),
@@ -137,7 +135,7 @@ def _hybrid_api(cfg: ModelConfig, device: torch.device,
         cfg=cfg,
         device=device,
         init=lambda generator: HYBRID.init_params(cfg, generator, device),
-        loss=_not_trained(cfg),
+        loss=lambda p, batch: HYBRID.loss_fn(p, cfg, batch),
         prefill=prefill,
         decode=lambda p, cache, tokens: HYBRID.decode_step(p, cfg, cache,
                                                            tokens),

@@ -25,8 +25,11 @@ Two things differ from the reference's form, not from its result:
   decode step, which routes every lane, inactive ones too, as the
   reference does, is captured as one CUDA graph.
 
-The reference's mesh paths (``_moe_shard_map``, ``moe_ep_alltoall``) and
-its load-balance loss (training) are not ported.
+Training adds the reference's Switch-style load-balance term
+(``load_balance_loss``: E · Σ_e f_e · P̄_e over the flattened
+assignments) where the loss asks for it (``with_aux``); serving computes
+none.  The reference's mesh paths (``_moe_shard_map``,
+``moe_ep_alltoall``) are not ported.
 """
 
 from __future__ import annotations
@@ -81,6 +84,22 @@ def route(cfg, logits):
     k = cfg.moe_top_k
     weights, ids = top[:, :k], ids[:, :k]
     return weights / weights.sum(dim=-1, keepdim=True), ids, probs
+
+
+def load_balance_loss(cfg, probs, ids):
+    """The Switch-style load-balance term E · Σ_e f_e · P̄_e: f_e the share
+    of the assignments ``ids`` [..., k] that went to expert e, P̄_e the
+    mean routing probability ``probs`` [..., E] of e (leading axes
+    flattened); its gradient flows through P̄ only.  The counts are sums
+    of ones in fp32, exact in any order."""
+    e = cfg.moe_num_experts
+    flat = ids.reshape(-1)
+    counts = torch.zeros(e, dtype=torch.float32, device=flat.device)
+    counts.index_add_(0, flat, torch.ones(flat.shape, dtype=torch.float32,
+                                           device=flat.device))
+    f = counts / counts.sum().clamp(min=1.0)
+    p_mean = probs.reshape(-1, e).mean(dim=0)
+    return e * (f * p_mean).sum()
 
 
 def dispatch_indices(cfg, ids, capacity: int):
@@ -140,29 +159,37 @@ def combine(out_buf, weights, order, slot, keep):
     return y
 
 
-def moe_ffn_tokens(cfg, p, x_flat):
+def moe_ffn_tokens(cfg, p, x_flat, with_aux: bool = False):
     """Route, dispatch, expert FFN and combine for a flat token batch
-    x_flat [T, d] -> [T, d]."""
+    x_flat [T, d] -> [T, d]; with ``with_aux``, (y, the batch's
+    load-balance term)."""
     t, d = x_flat.shape
     e = cfg.moe_num_experts
     capacity = capacity_of(cfg, t)
     logits = planned_dense(x_flat.float(), p["router"], site="moe.router")
-    weights, ids, _ = route(cfg, logits)
+    weights, ids, probs = route(cfg, logits)
     order, slot, keep, token = dispatch_indices(cfg, ids, capacity)
     buf = dispatch(x_flat, slot, token, e, capacity)
     out = expert_ffn(cfg, p["wg"], p["wu"], p["wd"], buf)
-    return combine(out.reshape(e * capacity, d), weights, order, slot, keep)
+    y = combine(out.reshape(e * capacity, d), weights, order, slot, keep)
+    if with_aux:
+        return y, load_balance_loss(cfg, probs, ids)
+    return y
 
 
-def apply_moe(p, cfg, x):
+def apply_moe(p, cfg, x, with_aux: bool = False):
     """MoE forward on one device: x [B, S, d] -> [B, S, d], every B·S
     token routed together, plus the shared experts' GLU
-    (``moe.shared_gate``/``up``/``down``) when the config has them."""
+    (``moe.shared_gate``/``up``/``down``) when the config has them; with
+    ``with_aux``, (y, the load-balance term)."""
     b, s, d = x.shape
-    y = moe_ffn_tokens(cfg, p, x.reshape(b * s, d)).reshape(b, s, d)
+    y = moe_ffn_tokens(cfg, p, x.reshape(b * s, d), with_aux)
+    if with_aux:
+        y, aux = y
+    y = y.reshape(b, s, d)
     if cfg.moe_shared_experts:
         act = L.activation(cfg)
         h = act(planned_dense(x, p["shared_wg"], site="moe.shared_gate")) \
             * planned_dense(x, p["shared_wu"], site="moe.shared_up")
         y = y + planned_dense(h, p["shared_wd"], site="moe.shared_down")
-    return y
+    return (y, aux) if with_aux else y

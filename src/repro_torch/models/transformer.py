@@ -1,4 +1,4 @@
-"""Decoder-only LM of the dense and MoE families (the port of
+"""Decoder-only LM of the dense, vlm and MoE families (the port of
 ``repro.models.transformer`` without MLA).
 
 Parameters are a plain dict: ``embed`` [V, d], ``ln_f``, a ``layers``
@@ -8,8 +8,12 @@ in two groups, ``dense_layers`` and ``moe_layers``, and runs
 ones, takes its place here) and, for untied heads, ``lm_head`` [d, V].
 A dense layer holds ``mlp``, an MoE layer ``moe`` (``models/moe.py``);
 an MoE config starts with ``moe_first_dense`` dense layers
-(``layer_split``).  ``convert.params_from_jax`` turns the reference's
-tree into this form.
+(``layer_split``).  A vlm config (``vlm_patches`` > 0) adds
+``patch_proj`` [d, d]: its precomputed patch embeddings [B, P, d] pass
+through it (``vlm.patch_proj``) and come before the text's
+(``embed_tokens``), so a prefill's hidden sequence and cache hold P + S
+rows.  ``convert.params_from_jax`` turns the reference's tree into this
+form.
 
 The serving cache is ``{"k", "v": [L, B, S, Hkv, hd], "pos": [B] int32}``
 and ``decode_step`` updates it in place.  The block-paged engine's pools
@@ -19,11 +23,13 @@ last block is the sink of inactive lanes' writes) and
 tables.
 
 Training: ``loss_fn`` is the reference's masked next-token cross-entropy
-(``logit_chunk`` chunks the lm_head and the loss over the sequence) for
-the dense family; with ``cfg.remat == "full"`` and grad enabled,
-``forward`` runs each layer under ``torch.utils.checkpoint``, as the
-reference's ``jax.checkpoint`` around its scanned block.  Serving runs
-under ``no_grad`` and never takes that path.
+(``logit_chunk`` chunks the lm_head and the loss over the sequence; a
+vlm's over its text rows only) plus ``1e-2`` times the MoE layers'
+summed load-balance terms; with ``cfg.remat == "full"`` and grad
+enabled, ``forward`` runs each layer under ``torch.utils.checkpoint``,
+as the reference's ``jax.checkpoint`` around its scanned block.  Serving
+runs under ``no_grad``, never takes that path and computes no
+load-balance term.
 """
 
 from __future__ import annotations
@@ -48,10 +54,10 @@ def cache_dtype_of(cfg) -> torch.dtype:
 
 
 def _check_family(cfg) -> None:
-    if cfg.family not in ("dense", "moe") or cfg.use_mla:
+    if cfg.family not in ("dense", "vlm", "moe") or cfg.use_mla:
         raise NotImplementedError(
             f"family {cfg.family!r}{' with MLA' if cfg.use_mla else ''} is "
-            "not ported; the port runs dense and MoE decoders with GQA "
+            "not ported; the port runs dense, vlm and MoE decoders with GQA "
             "attention")
 
 
@@ -71,7 +77,7 @@ def init_params(cfg, generator: torch.Generator, device="cuda"):
     """Random weights at the config's full width, drawn on ``device``
     from ``generator`` with the reference's scales: N(0, 1/d_in) dense
     kernels, N(0, 0.02) embeddings, zero biases, unit norm gains; an MoE
-    layer's block from ``moe.init_moe``."""
+    layer's block from ``moe.init_moe``; a vlm's ``patch_proj`` last."""
     _check_family(cfg)
     dt = L.compute_dtype(cfg)
     n_dense, _ = layer_split(cfg)
@@ -91,6 +97,9 @@ def init_params(cfg, generator: torch.Generator, device="cuda"):
     if not cfg.tie_embeddings:
         p["lm_head"] = L.dense_init(generator, cfg.d_model, cfg.vocab, dt,
                                     device)
+    if cfg.vlm_patches:
+        p["patch_proj"] = L.dense_init(generator, cfg.d_model, cfg.d_model,
+                                       dt, device)
     return p
 
 
@@ -98,9 +107,17 @@ def init_params(cfg, generator: torch.Generator, device="cuda"):
 # forward
 # ---------------------------------------------------------------------------
 
-def embed_tokens(p, cfg, tokens):
-    """tokens [B, S] -> [B, S, d]."""
-    return p["embed"][tokens.long()].to(L.compute_dtype(cfg))
+def embed_tokens(p, cfg, tokens, extra_embeds=None):
+    """tokens [B, S] -> [B, S, d]; with a vlm's patch embeddings
+    ``extra_embeds`` [B, P, d] (cast to the compute dtype, then through
+    ``patch_proj`` at ``vlm.patch_proj``) first -> [B, P + S, d]."""
+    x = p["embed"][tokens.long()].to(L.compute_dtype(cfg))
+    if extra_embeds is None:
+        return x
+    pe = extra_embeds.to(device=x.device, dtype=x.dtype)
+    if "patch_proj" in p:
+        pe = planned_dense(pe, p["patch_proj"], site="vlm.patch_proj")
+    return torch.cat([pe, x], dim=1)
 
 
 def _ffn(lp, cfg, x):
@@ -112,13 +129,20 @@ def _ffn(lp, cfg, x):
     return L.apply_mlp(lp["mlp"], cfg, x)
 
 
-def _block(lp, cfg, x, positions):
-    """One layer over a whole sequence: (x', k, v)."""
+def _block(lp, cfg, x, positions, aux=None):
+    """One layer over a whole sequence: (x', k, v).  Given ``aux``, the
+    running load-balance term of training: (x', aux'), an MoE layer
+    adding its own."""
     attn, k, v = L.apply_attention(lp["attn"], cfg,
                                    L.apply_norm(lp["ln1"], cfg, x), positions)
     x = x + attn
-    x = x + _ffn(lp, cfg, L.apply_norm(lp["ln2"], cfg, x))
-    return x, k, v
+    h = L.apply_norm(lp["ln2"], cfg, x)
+    if aux is None:
+        return x + _ffn(lp, cfg, h), k, v
+    if "moe" in lp:
+        y, term = MOE.apply_moe(lp["moe"], cfg, h, with_aux=True)
+        return x + y, aux + term
+    return x + L.apply_mlp(lp["mlp"], cfg, h), aux
 
 
 def _positions(x):
@@ -139,9 +163,9 @@ def remat(cfg) -> bool:
 
 
 def run_layers(cfg, layer, x, stack):
-    """``x`` through ``layer(x, lp)`` for each layer's parameters in
-    ``stack``, each under ``torch.utils.checkpoint`` where ``remat``
-    says."""
+    """``x`` (a tensor or a tuple of them) through ``layer(x, lp)`` for
+    each layer's parameters in ``stack``, each under
+    ``torch.utils.checkpoint`` where ``remat`` says."""
     full = remat(cfg)
     for lp in stack:
         x = (checkpoint(layer, x, lp, use_reentrant=False) if full
@@ -149,14 +173,25 @@ def run_layers(cfg, layer, x, stack):
     return x
 
 
-def forward(p, cfg, tokens):
-    """Full-sequence forward -> final-norm hidden states [B, S, d]."""
+def forward(p, cfg, tokens, extra_embeds=None, *, with_aux=False):
+    """Full-sequence forward -> final-norm hidden states [B, S, d] (a
+    vlm's [B, P + S, d], its patch rows first).  With ``with_aux``
+    (training): (hidden, aux), the MoE layers' load-balance terms summed
+    in layer order (0 for the dense and vlm families)."""
     _check_family(cfg)
-    x = embed_tokens(p, cfg, tokens)
+    x = embed_tokens(p, cfg, tokens, extra_embeds)
     positions = _positions(x)
-    x = run_layers(cfg, lambda x, lp: _block(lp, cfg, x, positions)[0], x,
-                   p["layers"])
-    return L.apply_norm(p["ln_f"], cfg, x)
+    if not with_aux:
+        x = run_layers(cfg, lambda x, lp: _block(lp, cfg, x, positions)[0],
+                       x, p["layers"])
+        return L.apply_norm(p["ln_f"], cfg, x)
+
+    def layer(carry, lp):
+        return _block(lp, cfg, carry[0], positions, carry[1])
+
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    x, aux = run_layers(cfg, layer, (x, zero), p["layers"])
+    return L.apply_norm(p["ln_f"], cfg, x), aux
 
 
 def logits_fn(p, cfg, hidden):
@@ -180,16 +215,18 @@ def xent(logits, labels):
 
 def loss_fn(p, cfg, batch):
     """batch: tokens [B, S], labels [B, S] (the next token; a label < 0 is
-    masked).  The mean cross-entropy over the unmasked positions, plus
-    ``1e-2 * aux`` (0 for the dense family).  With ``cfg.logit_chunk``
-    below S, the lm_head and the loss run over chunks of that many
-    positions, so the [B, S, V] logits never exist at once."""
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"training of the {cfg.family!r} family is not ported (ROADMAP "
-            "A8: the MoE family needs load_balance_loss and its aux term)")
+    masked) and, for a vlm, extra_embeds [B, P, d].  The mean
+    cross-entropy over the unmasked positions of the text (a vlm's patch
+    rows carry no label), plus ``1e-2 * aux`` (the MoE layers' summed
+    load-balance terms; 0 for the dense and vlm families).  With
+    ``cfg.logit_chunk`` below S, the lm_head and the loss run over chunks
+    of that many positions, so the [B, S, V] logits never exist at
+    once."""
     tokens, labels = batch["tokens"], batch["labels"]
-    hidden = forward(p, cfg, tokens)
+    hidden, aux = forward(p, cfg, tokens, batch.get("extra_embeds"),
+                          with_aux=True)
+    if cfg.vlm_patches:
+        hidden = hidden[:, -tokens.shape[1]:]
     lbl = labels.clamp(min=0).long()
     mask = (labels >= 0).float()
     chunk = cfg.logit_chunk
@@ -204,7 +241,6 @@ def loss_fn(p, cfg, batch):
             total = total + (xent(lg, ls[:, c]) * ms[:, c]).sum()
     else:
         total = (xent(logits_fn(p, cfg, hidden), lbl) * mask).sum()
-    aux = torch.zeros((), dtype=torch.float32, device=hidden.device)
     return total / torch.clamp(mask.sum(), min=1.0) + 1e-2 * aux
 
 
@@ -222,26 +258,30 @@ def init_cache(cfg, batch, max_seq, dtype=torch.bfloat16, device="cuda"):
 
 
 def prefill(p, cfg, tokens, max_seq, cache_dtype=torch.bfloat16,
-            last_index=None):
+            last_index=None, extra_embeds=None):
     """Run the whole prompt, build its cache, return last-token logits:
-    (logits [B, V], cache with ``pos`` = prompt length).
+    (logits [B, V], cache with ``pos`` = prompt length).  A vlm's patch
+    embeddings ``extra_embeds`` [B, P, d] come first: the cache then
+    holds P + S rows and ``pos`` counts them.
 
     ``last_index`` ([B] int32, optional) supports *bucketed* prefill:
     ``tokens`` may be right-padded to a bucket length and logits are then
-    taken at each lane's last valid token instead of position -1, with
-    ``cache["pos"]`` set past it.  Pad rows land in the cache but the
-    decode mask (``kpos <= pos``) hides them until overwritten."""
+    taken at each lane's last valid token instead of position -1 (offset
+    by the patch rows), with ``cache["pos"]`` set past it.  Pad rows land
+    in the cache but the decode mask (``kpos <= pos``) hides them until
+    overwritten."""
     _check_family(cfg)
     b, s = tokens.shape
-    x = embed_tokens(p, cfg, tokens)
+    x = embed_tokens(p, cfg, tokens, extra_embeds)
+    rows = x.shape[1]
     positions = _positions(x)
     cache = init_cache(cfg, b, max_seq, cache_dtype, x.device)
     for i, lp in enumerate(p["layers"]):
         x, k, v = _block(lp, cfg, x, positions)
-        cache["k"][i, :, :s] = k.to(cache_dtype)
-        cache["v"][i, :, :s] = v.to(cache_dtype)
+        cache["k"][i, :, :rows] = k.to(cache_dtype)
+        cache["v"][i, :, :rows] = v.to(cache_dtype)
     x = L.apply_norm(p["ln_f"], cfg, x)
-    sel, pos = L.last_rows(x, last_index)
+    sel, pos = L.last_rows(x, last_index, offset=rows - s)
     logits = logits_fn(p, cfg, sel)[:, 0]
     cache["pos"].copy_(pos)
     return logits, cache

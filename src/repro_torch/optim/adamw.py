@@ -5,7 +5,10 @@ Moments are fp32 tensors beside each parameter; the arithmetic is the
 reference's, in fp32 on the parameters' device: b1 0.9, b2 0.95, eps
 1e-8, the clip scale ``min(1, clip / (gnorm + 1e-9))``, bias correction,
 weight decay on every leaf, and the new parameter cast back to its own
-dtype.  Updates run under ``torch.no_grad()`` and return new trees.
+dtype.  Updates run under ``torch.no_grad()`` and return a new parameter
+tree; the moments are updated in place (the state passed in is the
+state returned, its count a new tensor), so a step holds one set of
+moments, not two: 8 bytes a parameter less at the update's peak.
 """
 
 from __future__ import annotations
@@ -57,8 +60,8 @@ def cosine_schedule(step, *, base_lr=3e-4, warmup=100, total=10000,
 @torch.no_grad()
 def adamw_update(grads, state: AdamWState, params, *, lr, b1=0.9, b2=0.95,
                  eps=1e-8, weight_decay=0.1, clip_norm=1.0):
-    """One AdamW step with global-norm clipping.  Returns (params, state,
-    metrics)."""
+    """One AdamW step with global-norm clipping, the moments of ``state``
+    updated in place.  Returns (params, state, metrics)."""
     gnorm = global_norm(grads)
     scale = torch.clamp(clip_norm / (gnorm + 1e-9), max=1.0)
     count = state.count + 1
@@ -68,8 +71,8 @@ def adamw_update(grads, state: AdamWState, params, *, lr, b1=0.9, b2=0.95,
 
     def upd(g, m, v, p):
         g = g.float() * scale
-        m = b1 * m + (1 - b1) * g
-        v = b2 * v + (1 - b2) * g * g
+        m.mul_(b1).add_((1 - b1) * g)
+        v.mul_(b2).add_((1 - b2) * g * g)
         mhat = m / bc1
         vhat = v / bc2
         step = mhat / (torch.sqrt(vhat) + eps)

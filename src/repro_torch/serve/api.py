@@ -21,7 +21,9 @@ past ``enc_len``.
 A text ``submit`` may carry ``extra`` model inputs, kept on its
 ``Request``: for encdec, ``{"frames": [F, d]}`` precomputed frame
 embeddings, which the admission's offline ``api.prefill`` encodes with
-the prompt (and again on re-admission after a preemption).
+the prompt (and again on re-admission after a preemption); for a vlm,
+``{"extra_embeds": [P, d]}`` precomputed patch embeddings, prepended to
+the prompt, whose P rows the request's cache holds besides.
 """
 
 from __future__ import annotations
@@ -115,7 +117,7 @@ class EngineBase:
     # -- submission ---------------------------------------------------------
     def _extra_rows(self, extra: dict | None) -> int:
         """Cache rows an ``extra`` input adds ahead of the prompt: a vlm's
-        patch embeddings (a family the port does not run), else none."""
+        patch embeddings, else none."""
         if extra and self.cfg.family == "vlm" and "extra_embeds" in extra:
             return self.cfg.vlm_patches
         return 0
@@ -123,8 +125,8 @@ class EngineBase:
     def submit(self, prompt, max_new_tokens: int = 16,
                extra: dict | None = None) -> int:
         """Queue a token prompt; ``extra`` holds the model's other inputs
-        for one request (encdec: ``{"frames": [F, d]}``, a numpy array or
-        a tensor)."""
+        for one request (encdec: ``{"frames": [F, d]}``; vlm:
+        ``{"extra_embeds": [P, d]}``; a numpy array or a tensor)."""
         prompt = np.asarray(prompt, np.int32)
         validate_request(prompt, max_new_tokens, self.max_seq,
                          self._extra_rows(extra))
@@ -161,11 +163,15 @@ class EngineBase:
                                   kind="audio", chunks=chunks))
         return rid
 
-    def _prefill_batch(self, tokens, extra: dict | None = None) -> dict:
+    def _prefill_batch(self, tokens, extra: dict | None = None,
+                       warmup: bool = False) -> dict:
         """The prefill batch of one request: ``tokens`` [1, S] and each
         ``extra`` input with a batch axis of one, on the engine's device;
-        without ``extra``, an encdec warmup gets zero bf16 frames at the
-        config's ``enc_frames`` (the reference's warmup spec)."""
+        without ``extra``, an encdec request gets zero bf16 frames at the
+        config's ``enc_frames``, and a vlm's ``load()`` warmup zero bf16
+        patch embeddings [1, P, d] (the reference's warmup spec: so the
+        warmup plans ``vlm.patch_proj`` and the prefill shapes of traffic
+        with images; a vlm's text-only request takes none)."""
         batch = {"tokens": tokens}
         if extra:
             batch.update({k: torch.as_tensor(v, device=self.device)[None]
@@ -173,6 +179,10 @@ class EngineBase:
         elif self.cfg.family == "encdec":
             batch["frames"] = torch.zeros(
                 (1, self.cfg.enc_frames, self.cfg.d_model),
+                dtype=torch.bfloat16, device=self.device)
+        elif self.cfg.family == "vlm" and warmup:
+            batch["extra_embeds"] = torch.zeros(
+                (1, self.cfg.vlm_patches, self.cfg.d_model),
                 dtype=torch.bfloat16, device=self.device)
         return batch
 

@@ -87,7 +87,8 @@ class ServeEngine(EngineBase):
             if self.prompt_len:
                 tokens = torch.zeros((1, self.prompt_len), dtype=torch.int32,
                                      device=self.device)
-                self.api.prefill(params, self._prefill_batch(tokens),
+                self.api.prefill(params,
+                                 self._prefill_batch(tokens, warmup=True),
                                  self.max_seq)
         self.cache = self.api.init_cache(self.max_slots, self.max_seq)
         self.plan_report = planned.report_delta(
@@ -328,16 +329,18 @@ class PagedServeEngine(EngineBase):
 
     def _warm_prefill(self) -> None:
         """Plan the prefill of ``prompt_len`` tokens at its bucket (its
-        exact length for the exact-prefill families): one run at that
-        shape, its cache dropped."""
+        exact length for the exact-prefill families; a vlm's with zero
+        patch embeddings ahead of it): one run at that shape, its cache
+        dropped."""
         bucket = self.scheduler.bucket_for(self.prompt_len,
                                            exact=self._exact_prefill)
         tokens = torch.zeros((1, bucket), dtype=torch.int32,
                              device=self.device)
         li = None if self._exact_prefill else torch.full(
             (1,), self.prompt_len - 1, dtype=torch.int32, device=self.device)
-        self.api.prefill(self.params, self._prefill_batch(tokens), bucket,
-                         last_index=li)
+        batch = self._prefill_batch(tokens, warmup=True)
+        self.api.prefill(self.params, batch,
+                         bucket + self._extra_rows(batch), last_index=li)
 
     # -- admission ----------------------------------------------------------
     def _effective_prompt(self, req: Request) -> np.ndarray:
