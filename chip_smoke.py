@@ -31,7 +31,9 @@ line(s); any failure exits non-zero:
    over a cluster, a misaligned B (routed to the tiled kernel where its
    rows do not allow 4-byte copies), every compiled tile of the tiled
    kernel, the bf16 -> fp32 bmm, and two runs of split-K float products
-   bitwise equal; FIR and conv2d in every dtype they take, at the
+   bitwise equal; the skinny kernel's long sums (``skinny_long_sums``:
+   qwen3-32b's down projection, K = 25600, against the float64 sum
+   beside the plain version's fp32 sum); FIR and conv2d in every dtype they take, at the
    whisper-base frontend shapes and at ragged ones, FIR on the
    instantiation of its tap count (15) and on the generic one (which
    alone takes 1, 7, 16, 64 and 4096 taps), ``fir_complex`` at the same
@@ -227,7 +229,7 @@ line(s); any failure exits non-zero:
 14b. mamba2_train, zamba2_train, olmoe_train — mamba2-780m (its published
    ``grad_accum`` 2: two microbatches of 4 x 512 accumulated), zamba2-1.2b
    and olmoe-1b-7b (``grad_accum`` 2 -> 1, its load-balance term in the
-   loss, trained at the largest depth that fits, ``fit_depth``; check (a)
+   loss, trained at 10 of its 16 layers, ``depth_cut``; check (a)
    at ``MOE_PARITY_LAYERS`` layers, where a gradient miss passes only as
    routing near-ties, ``routing_explains_grads``) trained the same way,
    8 x 512 tokens; the resume of check (c) runs after (d), with the first
@@ -597,27 +599,34 @@ def padded(torch, a):
     return rows
 
 
+#: the skinny kernel's limits, as its documentation states them
+#: (csrc/widesa_mm.cu, runtime.py): K is split over at most 8 blocks of a
+#: cluster (the portable size), in whole ring stages of 128 bytes of K,
+#: and a block stages at most 96 KiB of A (rows x its K range)
+SKINNY_LIMITS = {"cluster": 8, "stage_bytes": 128, "a_bytes": 96 * 1024}
+
+
 def serving_kernel(site: str, shape, tied: bool = True) -> str:
     """The kernel the runtime must pick for a serving GEMM (bf16, or
     float32 at the MoE router; fresh 16-byte aligned operands, A
     contiguous or, for the values, in padded rows): the skinny kernel for
-    at most 16 rows of A where B's rows allow 4-byte copies and a block's
-    stage of A fits ``runtime.SKINNY_A_BYTES`` at some split of K
-    (``runtime.skinny_tile``: qwen3-32b's down projection of a 16-token
-    prompt, K = 25600, does not), the tensor-core kernel for more rows
-    where TMA can address A's and B's rows (whole 16-byte units), else
-    the tiled kernel."""
-    import torch
-
+    at most 16 rows of A where B's rows allow 4-byte copies and A's stage
+    fits at the largest split (``SKINNY_LIMITS``: m x ceil(K / 8 / bk) x
+    bk elements, bk = 128 bytes of K; qwen3-32b's down projection of a
+    16-token prompt, K = 25600, stages 100 KiB and does not), the
+    tensor-core kernel for more rows where TMA can address A's and B's
+    rows (whole 16-byte units), else the tiled kernel.  The rule is
+    stated here, not asked of ``runtime.skinny_tile``, so that the check
+    holds the runtime's split search to it."""
     from repro_torch.kernels import runtime
 
     m, n, k = shape[-3:]
     size = 4 if site_dtype(site) == "float32" else 2
     inner = k if col_major_site(site, shape, tied) else n
     if m <= runtime.SKINNY_ROWS:
-        fits = runtime.skinny_tile(
-            m, n, k, shape[0] if len(shape) == 4 else 1,
-            torch.float32 if size == 4 else torch.bfloat16) is not None
+        bk = SKINNY_LIMITS["stage_bytes"] // size
+        rank_k = -(-k // (SKINNY_LIMITS["cluster"] * bk)) * bk
+        fits = m * rank_k * size <= SKINNY_LIMITS["a_bytes"]
         return "skinny" if fits and runtime.copy_bytes(0, size * inner) >= 4 \
             else "tiled"
     whole = (padded_site(site) or runtime.copy_bytes(0, size * k) == 16) \
@@ -759,6 +768,51 @@ def max_error(torch, out, want, dtype) -> tuple[float, bool]:
 
 
 GEMM_DTYPES = ("float32", "bfloat16", "int8", "int16", "int32")
+
+
+#: the skinny kernel's long sums: qwen3-32b's down projection (K = 25600,
+#: B row-major) at a decode batch and at prompts of 9 and 15 rows (K split
+#: 3, 5 and 8 ways); its fp32 sums may stray from the float64 sum at most
+#: this many times as far as the plain version's fp32 sum does (before each
+#: stage's tensor-core products were added in fp32: 12-20x, PR 26)
+SKINNY_LONG_K = ((4, 5120, 25600), (9, 5120, 25600), (15, 5120, 25600))
+SKINNY_SUM_RATIO = 4.0
+
+
+def skinny_long_sums(torch) -> None:
+    """``SKINNY_LONG_K`` on the skinny kernel in bf16, flushed to fp32 and
+    to bf16: the fp32 sums' largest distance from the float64 sum within
+    ``SKINNY_SUM_RATIO`` x the plain version's fp32 sum's, and the bf16
+    results within one rounding plus 1e-3 of the plain version's."""
+    from repro_torch.kernels import ref, runtime
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    said = []
+    for shape in SKINNY_LONG_K:
+        a, b = operands(torch, gen, "mm", shape, torch.bfloat16, False)
+        fn32, tiles = kernel_call("mm", shape, torch.bfloat16, a, b,
+                                  torch.float32)
+        if not isinstance(tiles.tile, runtime.SkinnyTile):
+            fail(f"mm{shape}: {describe(tiles.tile)} is not the skinny "
+                 "kernel")
+        fn16, _ = kernel_call("mm", shape, torch.bfloat16, a, b)
+        exact = a.double() @ b.double()
+        kerr = float((fn32(a, b).double() - exact).abs().max())
+        perr = float((ref.mm(a, b, torch.float32).double()
+                      - exact).abs().max())
+        err, ok = max_error(torch, fn16(a, b), ref.mm(a, b), torch.bfloat16)
+        said.append(f"mm{shape} {describe(tiles.tile)}: fp32 {kerr:.4g} "
+                    f"against the plain version's {perr:.4g} "
+                    f"({kerr / perr:.2f}x), bf16 max |err| {err:.4g}")
+        if kerr > SKINNY_SUM_RATIO * perr or not ok:
+            fail(f"skinny long sums: {said[-1]} (bounds {SKINNY_SUM_RATIO}x"
+                 f", bf16 2^-7|ref| + 1e-3)")
+        del a, b, exact
+    print(f"kernels: the skinny kernel's long sums (each stage's tensor-core "
+          f"products added in fp32) against the float64 sum, bf16 operands "
+          f"of N(0, 1), largest |err| (bound {SKINNY_SUM_RATIO}x the plain "
+          f"fp32 sum's; bf16 <= 2^-7|ref| + 1e-3): {'; '.join(said)}",
+          flush=True)
 
 
 def parity(torch) -> None:
@@ -1067,26 +1121,19 @@ def drain_parity(torch, report, path: str, tied: bool = True) -> None:
     the plain version, in bf16 (the serving dtype; float32 at the MoE
     router), in the drain's layouts: the tied lm_head and the scores read
     B column-major, the values their A in padded rows; the score sites
-    flush to fp32.  A bf16 result over a K past ``runtime.TC_PROMOTE_K``
-    that misses one rounding plus 1e-3 is held to one rounding plus
-    ``sum_bound``, as ``gemm_timings(long_sums=True)`` holds the long
-    sums of training, and each such (site, shape) is printed with its
-    outputs past the first bound: the tensor cores' accumulator sums a
-    long K with less precision than fp32 adds, which outputs near 0 show
-    past 1e-3 (qwen3-32b's down projection, K = 25600, on the skinny
-    kernel).
+    flush to fp32.
     Run after the drain's counts are read, so these launches count for
     no path."""
     from collections import Counter
 
-    from repro_torch.kernels import ref, runtime
+    from repro_torch.kernels import ref
 
     gen = torch.Generator(device="cuda").manual_seed(6)
     cases = sorted({(site, ast.literal_eval(key))
                     for site, st in report.items()
                     if not site.startswith(NON_GEMM_SITES)
                     for key in st["shapes"]})
-    worst, routes, long_k = 0.0, Counter(), []
+    worst, routes = 0.0, Counter()
     for site, shape in cases:
         kind = "mm" if len(shape) == 3 else "bmm"
         col = col_major_site(site, shape, tied)
@@ -1100,15 +1147,6 @@ def drain_parity(torch, report, path: str, tied: bool = True) -> None:
         out, want = fn(a, b), plain(a, b, out_dtype)
         torch.cuda.synchronize()
         err, ok = max_error(torch, out, want, out.dtype)
-        if not ok and out.dtype == torch.bfloat16 \
-                and shape[-1] > runtime.TC_PROMOTE_K:
-            diff = (out.double() - want.double()).abs()
-            strict = 2.0 ** -7 * want.double().abs() + 1e-3
-            ok = bool((diff <= strict + sum_bound(torch, kind, a, b)).all())
-            long_k.append(f"{site} {kind}{shape} {describe(tiles.tile)}: "
-                          f"{int((diff > strict).sum())} of {diff.numel()} "
-                          f"outputs past 2^-7|ref| + 1e-3 (largest excess "
-                          f"{float((diff - strict).max()):.3g})")
         if not ok:
             fail(f"{path}: {site} {kind}{shape} {dtype} "
                  f"{describe(tiles.tile)}: max |err| {err}")
@@ -1120,9 +1158,7 @@ def drain_parity(torch, report, path: str, tied: bool = True) -> None:
           f"{' (the MoE router in float32)' if 'moe.router' in report else ''}"
           f" on the runtime's configuration ({dict(routes)}; bf16 <= "
           f"2^-7|ref| + 1e-3, fp32 scores and router <= 1e-3; "
-          f"max |err| {worst:.4g}): {sorted({s for s, _ in cases})}"
-          + (f"; held to one rounding plus sum_bound past K = "
-             f"{runtime.TC_PROMOTE_K}: {long_k}" if long_k else ""),
+          f"max |err| {worst:.4g}): {sorted({s for s, _ in cases})}",
           flush=True)
 
 
@@ -3793,23 +3829,21 @@ def dense_phase(torch, device_name: str) -> dict:
 #: phase cuts); whisper-base's frames are its published 1500 a sample.
 #: grad_accum goes to 1 where the cut batch is one microbatch (whisper-base
 #: 4, olmoe-1b-7b 2; mamba2-780m keeps its published 2), and olmoe-1b-7b
-#: trains at the largest depth that fits the card (``fit_depth``)
+#: trains 10 of its 16 layers: at 14 bytes a parameter at a step's peak
+#: (bf16 parameters, gradients and AdamW's new parameters; fp32 moments)
+#: its 0.42 B a layer and 0.21 B besides need 90.2 GiB at 16 layers, 62.9
+#: at 11 and 57.4 at 10.  The activations and temporaries add ~12 GiB
+#: (a 75.18 GiB peak at 11 on an 80 GB H100), and at 11 a step ran out of
+#: memory in one of two runs, with 3.73 GiB reserved but unallocated
 TRAIN_PHASES = (("train", ARCH, 512, 8, {"grad_accum": 1}),
                 ("whisper_train", STREAM_ARCH, 64, 4, {"grad_accum": 1}),
                 ("mamba2_train", SSM_ARCHS["mamba2"], 512, 8, {}),
                 ("zamba2_train", SSM_ARCHS["zamba2"], 512, 8, {}),
                 ("olmoe_train", MOE_ARCH, 512, 8,
-                 {"grad_accum": 1, "n_layers": "fit"}))
+                 {"grad_accum": 1, "n_layers": 10}))
 #: check (a) of the olmoe phase: two float32 copies of the full-width
 #: model's gradients at this depth
 MOE_PARITY_LAYERS = 2
-#: ``fit_depth``: bytes a parameter holds at a train step's peak (bf16
-#: parameters, their gradients and the new parameters AdamW returns, 2
-#: each; the fp32 moments, 8, updated in place), and what is kept free
-#: besides for the activations (remat full: one layer's recompute, the fp32
-#: logits and their gradient) and AdamW's per-leaf temporaries
-TRAIN_BYTES_PER_PARAM = 14
-TRAIN_RESERVE = 10 * 2**30
 #: the Trainer run of check (c): steps, peak rate, warmup, checkpoint
 #: interval
 TRAIN_STEPS, TRAIN_LR, TRAIN_WARMUP, TRAIN_CKPT_EVERY = 20, 1e-3, 2, 10
@@ -3998,7 +4032,9 @@ def routing_explains_grads(torch, cfg32, params, batch) -> tuple[bool, str]:
     own probabilities).  Explained: every flip of the first layer that
     has any is within ``ROUTER_ATOL`` of the plain path's k-th
     probability, and with the kernels' routing forced the loss and every
-    gradient leaf are within ``GRAD_RTOL`` of the kernels'."""
+    gradient leaf are within ``GRAD_RTOL`` of the kernels'.  Runs on the
+    parameters' device (``tests/test_torch_routing_check.py`` plants
+    near-ties and faults on the CPU)."""
     import dataclasses
 
     from repro_torch import tree
@@ -4006,7 +4042,8 @@ def routing_explains_grads(torch, cfg32, params, batch) -> tuple[bool, str]:
     from repro_torch.models import build_model, moe
     from repro_torch.train.step import value_and_grad
 
-    api = build_model(dataclasses.replace(cfg32, remat="none"), "cuda")
+    device = tree.leaves(params)[0].device.type
+    api = build_model(dataclasses.replace(cfg32, remat="none"), device)
     route = moe.route
 
     def run(enabled, forced=None):
@@ -4059,38 +4096,22 @@ def routing_explains_grads(torch, cfg32, params, batch) -> tuple[bool, str]:
                 f"({errs[0][1]}; bound {GRAD_RTOL})")
 
 
-def fit_depth(torch, cfg) -> tuple[int, str]:
-    """The largest depth (at most the published one) at which ``cfg``'s
-    train step fits the card's free memory: ``TRAIN_BYTES_PER_PARAM``
-    bytes a parameter and ``TRAIN_RESERVE`` besides.  A layer's and the
-    rest's parameters are counted on models of 1 and 2 layers drawn on
-    the card.  Returns (depth, the arithmetic in words)."""
-    import dataclasses
-
-    from repro_torch.models import build_model
-
-    counts = []
-    for n in (1, 2):
-        small = dataclasses.replace(cfg, n_layers=n)
-        p = build_model(small, "cuda").init(
-            torch.Generator(device="cuda").manual_seed(0))
-        counts.append(sum(t.numel() for t in iter_tensors(p)))
-        del p
-    torch.cuda.empty_cache()
-    layer = counts[1] - counts[0]
-    rest = counts[0] - layer
-    free, total = torch.cuda.mem_get_info()
-    depth = min(cfg.n_layers, int(((free - TRAIN_RESERVE)
-                                   / TRAIN_BYTES_PER_PARAM - rest) // layer))
-    return depth, (
-        f"{cfg.n_layers} layers cut to {depth}, the largest depth that fits "
-        f"the card: {layer / 1e6:.1f} M parameters a layer and "
-        f"{rest / 1e6:.1f} M besides, {TRAIN_BYTES_PER_PARAM} bytes each at "
-        f"a step's peak (bf16 parameters, gradients and AdamW's new "
-        f"parameters; fp32 moments) in {gib(free)} free of {gib(total)}, "
-        f"{gib(TRAIN_RESERVE)} kept for activations and temporaries; the "
-        f"published {cfg.n_layers} would need "
-        f"{gib(TRAIN_BYTES_PER_PARAM * (rest + cfg.n_layers * layer))}")
+def depth_cut(base, cfg, params) -> str:
+    """The arithmetic of a depth cut, in words: the parameters of a layer
+    and besides, counted on the trained model, at 14 bytes a parameter at
+    a step's peak (bf16 parameters, gradients and AdamW's new parameters;
+    the fp32 moments, updated in place) for the published depth and the
+    cut one."""
+    total = sum(t.numel() for t in iter_tensors(params))
+    layer = sum(t.numel() for t in iter_tensors(params["layers"][-1]))
+    rest = total - cfg.n_layers * layer
+    return (f"{base.n_layers} layers cut to {cfg.n_layers} (TRAIN_PHASES): "
+            f"{layer / 1e6:.1f} M parameters a layer and {rest / 1e6:.1f} M "
+            f"besides, at 14 bytes a parameter at a step's peak (bf16 "
+            f"parameters, gradients and AdamW's new parameters; fp32 "
+            f"moments) {gib(14 * (rest + base.n_layers * layer))} at the "
+            f"published {base.n_layers} and {gib(14 * total)} at "
+            f"{cfg.n_layers}, before activations")
 
 
 def profiled(torch, fn):
@@ -4170,8 +4191,9 @@ def train_timings(torch, label, trainer, params, opt, device_name) -> dict:
 def train_phase(torch, device_name: str, label: str, arch: str, seq: int,
                 batch: int, cuts: dict) -> dict:
     """Phases 13, 14 and 14b: ``arch`` trained at its published width,
-    bf16, ``remat="full"``, at a cut shape with the config fields ``cuts`` (the
-    depth ``"fit"``: ``fit_depth``) changed, each cut printed: check (a)
+    bf16, ``remat="full"``, at a cut shape with the config fields ``cuts``
+    changed, each cut printed (a depth cut with ``depth_cut``, and the
+    run's allocated peak held to the card's memory): check (a)
     (``grad_parity``; an MoE model at ``MOE_PARITY_LAYERS`` layers), then
     the ``Trainer`` over ``TRAIN_STEPS`` steps from seeded weights with
     every count set to 0 just before and read just after (b: every
@@ -4236,10 +4258,8 @@ def train_phase(torch, device_name: str, label: str, arch: str, seq: int,
               "full-width model)", flush=True)
     grad_parity(torch, label, parity_cfg, shape)
     torch.cuda.empty_cache()
-    if cuts.get("n_layers") == "fit":
-        depth, why = fit_depth(torch, cfg)
-        cfg = dataclasses.replace(cfg, n_layers=depth)
-        print(f"{label}: cut: {why}", flush=True)
+    if "n_layers" in cuts:
+        cfg = dataclasses.replace(cfg, n_layers=cuts["n_layers"])
 
     ckpt = tempfile.mkdtemp(prefix="widesa_train_")
     tcfg = TrainConfig(base_lr=TRAIN_LR, warmup=TRAIN_WARMUP,
@@ -4278,10 +4298,17 @@ def train_phase(torch, device_name: str, label: str, arch: str, seq: int,
               f"{len(sites)} sites planned with no fallback (every forward "
               f"site's /bwd_* sites among them); GEMM launches by kernel "
               f"{gemms}", flush=True)
+        if cfg.n_layers != base.n_layers:
+            print(f"{label}: cut: {depth_cut(base, cfg, params)}",
+                  flush=True)
         saved = [t.cpu() for t in tree.leaves(params)]
         timing = train_timings(torch, label, trainer, params, opt,
                                device_name)
         peak = torch.cuda.max_memory_allocated()
+        card = torch.cuda.get_device_properties(0).total_memory
+        if peak > card:
+            fail(f"{label}: allocated peak {gib(peak)} past the card's "
+                 f"{gib(card)}")
         del trainer, params, opt
         torch.cuda.empty_cache()
         resumed, _, _ = Trainer(cfg, shape, ckpt_dir=ckpt, tcfg=tcfg,
@@ -4295,8 +4322,7 @@ def train_phase(torch, device_name: str, label: str, arch: str, seq: int,
         print(f"{label}: a fresh Trainer resumed at step {TRAIN_STEPS} with "
               f"the saved parameters bit for bit "
               f"({len(tree.leaves(resumed))} leaves); allocated peak of the "
-              f"training run {gib(peak)} of the card's "
-              f"{gib(torch.cuda.get_device_properties(0).total_memory)}",
+              f"training run {gib(peak)} of the card's {gib(card)}",
               flush=True)
         del resumed, saved
     finally:
@@ -5432,6 +5458,7 @@ def main(argv=None) -> int:
             Path(args.out).write_text(json.dumps(rows, indent=1))
         return 0
     parity(torch)
+    skinny_long_sums(torch)
     tc_parity(torch)
     sp_parity(torch)
     rows = timings(torch)

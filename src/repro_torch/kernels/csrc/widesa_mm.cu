@@ -49,7 +49,11 @@
 //   * Arithmetic that keeps up.  At M = 16 bf16 needs 8 FMAs per byte of B,
 //     near the CUDA cores' fp32 peak, so bf16 runs on the tensor cores:
 //     mma.sync.m16n8k16 with fp32 accumulation, A's missing rows read as
-//     zeros, B fragments by ldmatrix (.trans for a row-major B).  Shared
+//     zeros, B fragments by ldmatrix (.trans for a row-major B).  The
+//     tensor cores' accumulator adds with less precision than fp32 does,
+//     which a long K shows where an output cancels (qwen3-32b's down
+//     projection, K = 25600), so each stage's products (64 of K) start
+//     from a zero fragment and are added to the sums in fp32.  Shared
 //     memory rows carry 16 bytes of padding, so neither ldmatrix nor the A
 //     fragment loads conflict on banks.  wgmma needs 64-row tiles and would
 //     waste 75-98 % of them here.  float32 stays IEEE FMA on the CUDA cores
@@ -575,7 +579,7 @@ skinny_kernel(const TIn* __restrict__ a, const TIn* __restrict__ b, TOut* __rest
     }
   }
 
-  float d[4] = {0.f, 0.f, 0.f, 0.f};  // the tensor-core path's C fragment
+  float d[4] = {0.f, 0.f, 0.f, 0.f};  // the tensor-core path's sums (fp32 adds)
   Acc acc[kSkinnyRows];                // the CUDA-core path's column sums
 #pragma unroll
   for (int r = 0; r < kSkinnyRows; ++r) acc[r] = Acc(0);
@@ -594,6 +598,7 @@ skinny_kernel(const TIn* __restrict__ a, const TIn* __restrict__ b, TOut* __rest
       const int kn = kend - k0 - s * S::BK;  // rows of K in this stage (above BK: all)
       const int g = lane >> 2, cq = 2 * (lane & 3), l = lane & 15;
       const unsigned slot_addr = smem_addr(slot);
+      float t[4] = {0.f, 0.f, 0.f, 0.f};  // this stage's products: the C fragment
 #pragma unroll
       for (int kk = 0; kk < S::BK; kk += 16) {
         if (kk >= kn) break;
@@ -610,8 +615,10 @@ skinny_kernel(const TIn* __restrict__ a, const TIn* __restrict__ b, TOut* __rest
         else
           ldmatrix_x2_trans(b0, b1,
                             slot_addr + (kk + l) * S::kRowPitch + warp * 8 * (int)sizeof(TIn));
-        mma_bf16(d, a0, a1, a2, a3, b0, b1);
+        mma_bf16(t, a0, a1, a2, a3, b0, b1);
       }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) d[i] += t[i];
     } else {
       const int col = warp * 8 + (lane & 7);
 #pragma unroll 4

@@ -120,29 +120,29 @@ def embed_tokens(p, cfg, tokens, extra_embeds=None):
     return torch.cat([pe, x], dim=1)
 
 
-def _ffn(lp, cfg, x):
+def _ffn(lp, cfg, x, with_aux=False):
     """The layer's feed-forward half on its pre-norm input: the MLP of a
     dense layer, the expert block of an MoE one (at decode every lane
-    routes, inactive ones too, as in the reference)."""
+    routes, inactive ones too, as in the reference).  With ``with_aux``
+    (the full-sequence forward): (y, the layer's load-balance term, 0
+    for a dense layer)."""
     if "moe" in lp:
-        return MOE.apply_moe(lp["moe"], cfg, x)
-    return L.apply_mlp(lp["mlp"], cfg, x)
+        return MOE.apply_moe(lp["moe"], cfg, x, with_aux)
+    y = L.apply_mlp(lp["mlp"], cfg, x)
+    return (y, 0.0) if with_aux else y
 
 
-def _block(lp, cfg, x, positions, aux=None):
-    """One layer over a whole sequence: (x', k, v).  Given ``aux``, the
-    running load-balance term of training: (x', aux'), an MoE layer
-    adding its own."""
+def _block(lp, cfg, x, positions, with_aux=False):
+    """One layer over a whole sequence: (x', k, v, aux), ``aux`` the
+    layer's load-balance term where ``with_aux`` asks for it (the
+    forward does; prefill does not), else None."""
     attn, k, v = L.apply_attention(lp["attn"], cfg,
                                    L.apply_norm(lp["ln1"], cfg, x), positions)
     x = x + attn
     h = L.apply_norm(lp["ln2"], cfg, x)
-    if aux is None:
-        return x + _ffn(lp, cfg, h), k, v
-    if "moe" in lp:
-        y, term = MOE.apply_moe(lp["moe"], cfg, h, with_aux=True)
-        return x + y, aux + term
-    return x + L.apply_mlp(lp["mlp"], cfg, h), aux
+    y, aux = (_ffn(lp, cfg, h, True) if with_aux
+              else (_ffn(lp, cfg, h), None))
+    return x + y, k, v, aux
 
 
 def _positions(x):
@@ -173,21 +173,18 @@ def run_layers(cfg, layer, x, stack):
     return x
 
 
-def forward(p, cfg, tokens, extra_embeds=None, *, with_aux=False):
-    """Full-sequence forward -> final-norm hidden states [B, S, d] (a
-    vlm's [B, P + S, d], its patch rows first).  With ``with_aux``
-    (training): (hidden, aux), the MoE layers' load-balance terms summed
-    in layer order (0 for the dense and vlm families)."""
+def forward(p, cfg, tokens, extra_embeds=None):
+    """Full-sequence forward -> (hidden, aux): the final-norm hidden
+    states [B, S, d] (a vlm's [B, P + S, d], its patch rows first) and
+    the MoE layers' load-balance terms summed in layer order (0 for the
+    dense and vlm families)."""
     _check_family(cfg)
     x = embed_tokens(p, cfg, tokens, extra_embeds)
     positions = _positions(x)
-    if not with_aux:
-        x = run_layers(cfg, lambda x, lp: _block(lp, cfg, x, positions)[0],
-                       x, p["layers"])
-        return L.apply_norm(p["ln_f"], cfg, x)
 
     def layer(carry, lp):
-        return _block(lp, cfg, carry[0], positions, carry[1])
+        x, _, _, aux = _block(lp, cfg, carry[0], positions, with_aux=True)
+        return x, carry[1] + aux
 
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     x, aux = run_layers(cfg, layer, (x, zero), p["layers"])
@@ -223,8 +220,7 @@ def loss_fn(p, cfg, batch):
     of that many positions, so the [B, S, V] logits never exist at
     once."""
     tokens, labels = batch["tokens"], batch["labels"]
-    hidden, aux = forward(p, cfg, tokens, batch.get("extra_embeds"),
-                          with_aux=True)
+    hidden, aux = forward(p, cfg, tokens, batch.get("extra_embeds"))
     if cfg.vlm_patches:
         hidden = hidden[:, -tokens.shape[1]:]
     lbl = labels.clamp(min=0).long()
@@ -277,7 +273,7 @@ def prefill(p, cfg, tokens, max_seq, cache_dtype=torch.bfloat16,
     positions = _positions(x)
     cache = init_cache(cfg, b, max_seq, cache_dtype, x.device)
     for i, lp in enumerate(p["layers"]):
-        x, k, v = _block(lp, cfg, x, positions)
+        x, k, v, _ = _block(lp, cfg, x, positions)
         cache["k"][i, :, :rows] = k.to(cache_dtype)
         cache["v"][i, :, :rows] = v.to(cache_dtype)
     x = L.apply_norm(p["ln_f"], cfg, x)

@@ -68,7 +68,7 @@ def runs(request):
     tp.planned_report_clear()
     with torch.no_grad():
         cfg_t = get_smoke_config(arch)
-        th = TT.forward(tparams, cfg_t, torch.from_numpy(tokens))
+        th, _ = TT.forward(tparams, cfg_t, torch.from_numpy(tokens))
         tl, tc = TT.prefill(tparams, cfg_t, torch.from_numpy(tokens), 16,
                             cache_dtype=getattr(torch, cache))
         port_run = {"hidden": th.numpy(), "prefill": tl.numpy(),

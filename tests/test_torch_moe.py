@@ -290,7 +290,7 @@ def test_prefill_and_decode_logits_match_the_reference(variant):
             jdec.append(np.asarray(lg))
     tp.reset_configuration()
     with torch.no_grad():
-        th = TT.forward(params, cfg, torch.from_numpy(tokens))
+        th, _ = TT.forward(params, cfg, torch.from_numpy(tokens))
         tl, tc = TT.prefill(params, cfg, torch.from_numpy(tokens), 16,
                             cache_dtype=torch.float32)
         tdec = [TT.decode_step(params, cfg, tc, torch.from_numpy(nt))[0]

@@ -164,13 +164,10 @@ def test_forward_sums_the_moe_layers_terms_as_reference(variant):
         jh, jaux = JT.forward(jparams, jcfg, jnp.asarray(tokens))
     tp.reset_configuration()
     with torch.no_grad():
-        th, aux = TT.forward(params, cfg, torch.from_numpy(tokens),
-                             with_aux=True)
-        plain = TT.forward(params, cfg, torch.from_numpy(tokens))
+        th, aux = TT.forward(params, cfg, torch.from_numpy(tokens))
     assert float(jaux) > 0
     np.testing.assert_allclose(float(aux), float(jaux), **AUX_TOL)
     np.testing.assert_allclose(th.numpy(), np.asarray(jh), **TOL)
-    torch.testing.assert_close(plain, th, atol=0, rtol=0)
 
 
 # ---------------------------------------------------------------------------

@@ -136,7 +136,7 @@ def vlm_runs():
     tp.planned_report_clear()
     with torch.no_grad():
         pe = torch.from_numpy(patches)
-        th = TT.forward(tparams, cfg, torch.from_numpy(tokens), pe)
+        th, _ = TT.forward(tparams, cfg, torch.from_numpy(tokens), pe)
         tl, tc = TT.prefill(tparams, cfg, torch.from_numpy(tokens), rows,
                             cache_dtype=torch.float32, extra_embeds=pe)
         tb, tbc = TT.prefill(tparams, cfg, torch.from_numpy(padded), rows,
