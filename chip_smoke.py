@@ -10,9 +10,10 @@
     python3 chip_smoke.py --conv2d-sweep [--src OTHER/src] [--out sweep.json]
     python3 chip_smoke.py --fir-sweep [--src OTHER/src] [--out sweep.json]
     python3 chip_smoke.py --train
+    python3 chip_smoke.py --dense
 
 Needs one CUDA card and the CUDA toolkit.  It imports only the port, never
-JAX nor the JAX package, and runs eighteen phases, each printing its own
+JAX nor the JAX package, and runs nineteen phases, each printing its own
 line(s); any failure exits non-zero:
 
 1. device — the card's name and power limit, torch and CUDA versions;
@@ -200,6 +201,18 @@ line(s); any failure exits non-zero:
    the skinny kernel's), ``drain_parity``, the prefill logits within
    ``LOGIT_ATOL``, the captured step and a 512-token prefill profiled, the
    peak of allocated memory, and ``DENSE_SHAPES`` timed;
+12c. deepseek — deepseek-v2-236b (MLA: a 576-element latent cache a token
+   a layer, decoded in the absorbed form; 160 experts top-6 and 2 shared,
+   a dense first layer) at its published width cut to
+   ``DEEPSEEK_LAYERS`` = 8 of its 60 layers (29.19 B parameters, 54.37 GiB
+   in bf16; the whole model's 471.6 GB fit no card), seeded random
+   weights drawn on the card (``deepseek_phase``): phase 12b's prompts
+   and checks on both engines at 4 lanes (only the first tokens equal:
+   capacity couples the lanes) and at 1 lane (the tokens equal), every
+   ``DEEPSEEK_SITES`` site planned, no tiled launch, the logits within
+   ``LOGIT_ATOL`` or a miss explained by near-tie routing, the captured
+   step and a 512-token prefill profiled, the peak, ``DEEPSEEK_SHAPES``
+   timed, the phase's seconds;
 13. train — full-width qwen1.5-0.5b trained (bf16, 24 layers, vocab
    151936, remat "full"; train_4k's 4096 x 256 tokens cut to 512 x 8),
    ``train_phase``: (a) one float32 step, the same seeded weights and
@@ -243,15 +256,17 @@ line(s); any failure exits non-zero:
    and bmm at the paper's MM/BMM table (float32 8192^3, int8 10240^3,
    int16 9600^3, int32 8192^3; 64 x 4096^3 in float32, int8 and int16),
    conv2d at the paper's conv2d table, fir at the paper's FIR table (16
-   launches on the 15-tap instantiation).  Checks that every star and
+   launches on the 15-tap instantiation), fft2d_stage at its "cfloat" and
+   "cint16" 8192^2 grids (the registry's atol 1.0).  Checks that every star and
    conv2d case ran the launch the runtime chose for it (star_kernel for one
    sweep, sweeps_kernel in ceil(T / T_b) launches of T_b >= 2 for
    jacobi2d_ms, conv2d on its compiled window), each launch counted under
    its variant, that the star-stencil (B6) and MTTKRP (B7) kernels launched,
    every mttkrp case on the kernel its dtype and shape call for (every
    bench case on the tensor cores, int16 and int32 as int8 limbs) with
-   each launch counted under it, the fft2d_stage case on the fused
-   kernel, and every mm / bmm case (all above 16 rows) on the tensor-core
+   each launch counted under it, fft2d_stage's two 8192^2 bench cases on
+   the composition (six float32 8192^3 products a transform on
+   ``gemm_tc_kernel``), and every mm / bmm case (all above 16 rows) on the tensor-core
    kernels, float32 and integers, with every launch of the two GEMM
    wrappers counted under ``wgmma``.  Then holds B6 (5-point, 9-point, and the multi-sweep
    form on its int32 state) and B7 against their plain versions at the
@@ -288,7 +303,8 @@ line gives each path's counts apart (``"launches": {"qwen": n,
 "whisper_paged": w, "qwen_long": l, "whisper_offline": o, "olmoe": s,
 "olmoe_paged": g, "mamba2": a, "mamba2_paged": b, "zamba2": z,
 "zamba2_paged": y, "llava": v, "llava_paged": v', "stablelm": ...,
-"codeqwen": ..., "qwen3": ..., "qwen3_paged": ..., "train": t,
+"codeqwen": ..., "qwen3": ..., "qwen3_paged": ..., "deepseek": ...,
+"deepseek_paged": ..., "train": t,
 "whisper_train": u, "mamba2_train": ..., "zamba2_train": ...,
 "olmoe_train": ..., "recurrences": k}``; ``qwen_long`` and ``whisper_offline`` each sum the slot engine's
 drain and the paged engine's; ``train`` and ``whisper_train`` count the
@@ -326,7 +342,8 @@ paths (shapes whose launches share a kernel and grid in a replay, as
 zamba2's q/k/v/out and mlp.down projections at decode, take their
 captured step's counts, which must sum to what the replay shows);
 under ``"dense"`` each ``DENSE_SHAPES`` GEMM's, with its launches on its
-model's slot and paged paths; under ``"train"`` each ``TRAIN_SHAPES``
+model's slot and paged paths; under ``"deepseek"`` each
+``DEEPSEEK_SHAPES`` GEMM's, with its launches on the deepseek paths; under ``"train"`` each ``TRAIN_SHAPES``
 GEMM's, with its launches in one train step (every site of that shape, the remat recompute's forward
 launches included).  The
 comparison and timing launches of phases 3 and
@@ -336,7 +353,7 @@ not count.
 
 ``--train`` runs only the device phase, the GEMM source's build and
 the train phases (13, 14, 14b); ``--dense`` the device phase, the GEMM
-source's build and phase 12b.  ``--tile-sweep`` runs only the device and build
+source's build and phases 12b and 12c.  ``--tile-sweep`` runs only the device and build
 phases, then times the tiled GEMM in bf16 with each of the 24 tiles of ``build.SWEEP_TILES`` (a
 second library holds those not compiled for the main path) and the
 skinny GEMM with every split of K, at every main-path shape, and prints,
@@ -1160,6 +1177,15 @@ def drain_parity(torch, report, path: str, tied: bool = True) -> None:
           f"2^-7|ref| + 1e-3, fp32 scores and router <= 1e-3; "
           f"max |err| {worst:.4g}): {sorted({s for s, _ in cases})}",
           flush=True)
+
+
+def drains_parity(torch, run, prun, path: str, tied: bool = True) -> None:
+    """``drain_parity`` over the (site, shape) pairs of a slot drain
+    ``run`` and a paged drain ``prun`` together."""
+    merged = {s: {"shapes": {**run["report"].get(s, {}).get("shapes", {}),
+                             **prun["report"].get(s, {}).get("shapes", {})}}
+              for s in {*run["report"], *prun["report"]}}
+    drain_parity(torch, merged, path, tied)
 
 
 def time_ms(torch, fn, reps=50, warmup=5) -> float:
@@ -3245,11 +3271,41 @@ def routing_explained(torch, api, params, batch, max_seq,
                 f"{forced_err <= LOGIT_ATOL})")
 
 
-def moe_one_lane(torch, cfg, params, prompts, device_name) -> None:
+def moe_first_tokens(torch, label, out, params, prompts) -> list:
+    """The checks of an MoE model's ``two_engines`` drains (run with
+    ``same_tokens`` False): each prompt's prefill logits against the plain
+    versions, a miss explained only by near-tie routing
+    (``routing_explained``), and the paged engine's first tokens the slot
+    engine's; prints in how many requests all tokens agree.  Returns the
+    prompts' prefill batches."""
+    (slot, run), (paged, prun) = out["slot"], out["paged"]
+    batches = [token_batch(torch, p) for p in prompts]
+
+    def explain(rid, logits):
+        return routing_explained(torch, slot.api, params, batches[rid],
+                                 len(prompts[rid]), logits)
+
+    first_logits(torch, label, slot.api, params, run["done"], batches,
+                 explain=explain)
+    firsts = {r.rid: r.output[0] for r in prun["done"]}
+    if firsts != {r.rid: r.output[0] for r in run["done"]}:
+        fail(f"{label}: the paged engine's exact-length prefills gave first "
+             f"tokens {firsts}, not the slot engine's")
+    same = sum(out["tokens"]["slot"][rid] == out["tokens"]["paged"][rid]
+               for rid in firsts)
+    print(f"{label}: the paged engine's first tokens equal the slot engine's "
+          f"(stats {paged.stats}); all {MAX_NEW} tokens equal in {same} of "
+          f"{len(prompts)} requests (capacity couples the {SLOTS} lanes, "
+          "which the two engines fill in other orders)", flush=True)
+    return batches
+
+
+def moe_one_lane(torch, cfg, params, prompts, device_name,
+                 label="olmoe") -> None:
     """``prompts`` on a 1-slot slot engine and a 1-lane paged engine (its
     step captured in ``load()``): the same greedy tokens, as the
     reference's ``test_paged_matches_slot_across_families`` holds its
-    MoE at 1 lane."""
+    MoE and MLA models at 1 lane."""
     from repro_torch.serve import make_engine
 
     outs = []
@@ -3262,12 +3318,12 @@ def moe_one_lane(torch, cfg, params, prompts, device_name) -> None:
             eng.submit_text(p, max_new_tokens=MAX_NEW)
         outs.append({r.rid: list(r.output) for r in eng.run_until_drained()})
         if kind == "paged" and eng.stats["decode_compiles"] != 1:
-            fail(f"olmoe 1 lane: paged stats {eng.stats}")
+            fail(f"{label} 1 lane: paged stats {eng.stats}")
         del eng
     if outs[0] != outs[1]:
-        fail(f"olmoe 1 lane: the paged engine's tokens {outs[1]} differ from "
-             f"the slot engine's {outs[0]}")
-    print(f"olmoe 1 lane: {len(prompts)} requests, the paged engine's "
+        fail(f"{label} 1 lane: the paged engine's tokens {outs[1]} differ "
+             f"from the slot engine's {outs[0]}")
+    print(f"{label} 1 lane: {len(prompts)} requests, the paged engine's "
           f"tokens equal the slot engine's ({sum(map(len, outs[0].values()))}"
           f" tokens) on {device_name}", flush=True)
 
@@ -3323,28 +3379,8 @@ def moe_phase(torch, device_name: str) -> dict:
                or report[s]["fallback"]}
         if bad:
             fail(f"olmoe {kind}: MoE sites that did not plan: {bad}")
-    merged = {s: {"shapes": {**run["report"].get(s, {}).get("shapes", {}),
-                             **prun["report"].get(s, {}).get("shapes", {})}}
-              for s in {*run["report"], *prun["report"]}}
-    drain_parity(torch, merged, "olmoe", tied=False)
-    batches = [token_batch(torch, p) for p in prompts]
-
-    def explain(rid, logits):
-        return routing_explained(torch, slot.api, params, batches[rid],
-                                 len(prompts[rid]), logits)
-
-    first_logits(torch, "olmoe", slot.api, params, run["done"], batches,
-                 explain=explain)
-    firsts = {r.rid: r.output[0] for r in prun["done"]}
-    if firsts != {r.rid: r.output[0] for r in run["done"]}:
-        fail(f"olmoe: the paged engine's exact-length prefills gave first "
-             f"tokens {firsts}, not the slot engine's")
-    same = sum(out["tokens"]["slot"][rid] == out["tokens"]["paged"][rid]
-               for rid in firsts)
-    print(f"olmoe: the paged engine's first tokens equal the slot engine's "
-          f"(stats {paged.stats}); all {MAX_NEW} tokens equal in {same} of "
-          f"{len(prompts)} requests (capacity couples the {SLOTS} lanes, "
-          "which the two engines fill in other orders)", flush=True)
+    drains_parity(torch, run, prun, "olmoe", tied=False)
+    batches = moe_first_tokens(torch, "olmoe", out, params, prompts)
     cache = slot.api.init_cache(SLOTS, MOE_MAX_SEQ)
     tokens = torch.zeros((SLOTS, 1), dtype=torch.int32, device="cuda")
     profile_call(torch, f"olmoe decode step ({SLOTS} lanes, max_seq "
@@ -3607,11 +3643,7 @@ def ssm_phase(torch, device_name: str) -> dict:
         if bad or paged.stats["decode_compiles"] != 1:
             fail(f"{label} paged: load window sites {bad}, stats "
                  f"{paged.stats}")
-        merged = {s: {"shapes": {
-            **run["report"].get(s, {}).get("shapes", {}),
-            **prun["report"].get(s, {}).get("shapes", {})}}
-            for s in {*run["report"], *prun["report"]}}
-        drain_parity(torch, merged, label, tied=False)
+        drains_parity(torch, run, prun, label, tied=False)
         batches = [token_batch(torch, p) for p in prompts]
 
         def explain(rid, logits, api=slot.api, params=params):
@@ -3777,11 +3809,7 @@ def dense_phase(torch, device_name: str) -> dict:
                 r["report"].get("vlm.patch_proj", {}).get("planned")
                 for r in (run, prun)):
             fail(f"{label}: vlm.patch_proj did not plan in both drains")
-        merged = {s: {"shapes": {
-            **run["report"].get(s, {}).get("shapes", {}),
-            **prun["report"].get(s, {}).get("shapes", {})}}
-            for s in {*run["report"], *prun["report"]}}
-        drain_parity(torch, merged, label, tied=cfg.tie_embeddings)
+        drains_parity(torch, run, prun, label, tied=cfg.tie_embeddings)
         batches = []
         for p, pe in zip(prompts, patches):
             batch = token_batch(torch, p)
@@ -3818,6 +3846,166 @@ def dense_phase(torch, device_name: str) -> dict:
         rows[label] = gemm_timings(torch, DENSE_SHAPES[label], seed=21)
         torch.cuda.empty_cache()
     return {"paths": paths, "rows": rows}
+
+
+# ---------------------------------------------------------------------------
+# MLA: deepseek-v2-236b at its published width, depth cut
+# ---------------------------------------------------------------------------
+
+DEEPSEEK_ARCH = "deepseek-v2-236b"
+#: its layers on the card: the dense first layer and 7 of its 59 MoE
+#: layers.  The whole model holds 235.7 B parameters (471.6 GB in bf16);
+#: an MoE layer 3.97 B (7.40 GiB), so 8 layers hold 29.19 B (54.37 GiB)
+#: and leave the room qwen3-32b's 61 GiB of weights left (peak 66.64 GiB)
+DEEPSEEK_LAYERS = 8
+#: every site the reference plans on its serving path, all planned with no
+#: fallback (``moe.router`` in float32)
+DEEPSEEK_SITES = ("mla.q_down", "mla.q_up", "mla.kv_down", "mla.k_rope",
+                  "mla.k_up", "mla.v_up", "mla.out", "mlp.gate", "mlp.up",
+                  "mlp.down", "moe.router", "moe.gate", "moe.up", "moe.down",
+                  "moe.shared_gate", "moe.shared_up", "moe.shared_down",
+                  "lm_head")
+#: the GEMMs the MLA path adds, timed (``LONG_SHAPES``' layout): the 4-lane
+#: decode step's (the rope key, the query's up projection, the output
+#: projection at K = 16384, the expert stack at C = 1 over 160 experts,
+#: the untied head at vocab 102400) and the latent's expansion in a
+#: 512-token prompt.  The decode GEMMs that share a kernel and grid with
+#: these in a replay (the dense layer's MLP, the shared experts) are timed
+#: too, so that each takes its own launches
+DEEPSEEK_SHAPES = (
+    ("mla.k_rope, decode", "mm", (4, 64, 5120), False, False, False,
+     "bfloat16"),
+    ("mla.q_up, decode", "mm", (4, 24576, 1536), False, False, False,
+     "bfloat16"),
+    ("mla.out, decode", "mm", (4, 5120, 16384), False, False, False,
+     "bfloat16"),
+    ("moe.gate/up, decode (C = 1)", "bmm", (160, 1, 1536, 5120), False,
+     False, False, "bfloat16"),
+    ("moe.down, decode (C = 1)", "bmm", (160, 1, 5120, 1536), False, False,
+     False, "bfloat16"),
+    ("lm_head, decode", "mm", (4, 102400, 5120), False, False, False,
+     "bfloat16"),
+    ("mla.k_up/v_up, 512-token prefill", "mm", (512, 16384, 512), False,
+     False, False, "bfloat16"),
+    ("mlp.gate/up, decode (dense layer)", "mm", (4, 12288, 5120), False,
+     False, False, "bfloat16"),
+    ("mlp.down, decode (dense layer)", "mm", (4, 5120, 12288), False, False,
+     False, "bfloat16"),
+    ("moe.shared_gate/up, decode", "mm", (4, 3072, 5120), False, False,
+     False, "bfloat16"),
+    ("moe.shared_down, decode", "mm", (4, 5120, 3072), False, False, False,
+     "bfloat16"),
+)
+
+
+def deepseek_phase(torch, device_name: str) -> dict:
+    """Phase 12c: deepseek-v2-236b (MLA: kv_lora 512, q_lora 1536, 128
+    heads of nope 128 + rope 64, v 128; 160 experts of ff 1536, top-6,
+    2 shared; a first dense layer of ff 12288; vocab 102400) at its
+    published width, cut to ``DEEPSEEK_LAYERS`` of its 60 layers, bf16,
+    random weights seeded with 0 and drawn on the card: ``DENSE_SHORT``
+    and ``DENSE_LONG`` prompts, 8 new tokens each, on the slot and the
+    paged engine at 4 lanes (``two_engines``; exact-length prefills, the
+    absorbed decode captured in ``load()``; capacity couples the lanes,
+    so only the first tokens must agree) and at 1 lane (the tokens
+    equal), every ``DEEPSEEK_SITES`` site planned with no fallback, no
+    tiled launch (``check_routes``), ``decode_compiles`` 1,
+    ``drain_parity``, the prefill logits within ``LOGIT_ATOL`` or a miss
+    explained by near-tie routing, the captured step and a 512-token
+    prefill profiled, the allocated peak, then ``DEEPSEEK_SHAPES`` timed.
+    Returns each engine's launches, launches by kernel and timed-shape
+    launches by path, and the timed rows."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    full = get_config(DEEPSEEK_ARCH)
+    cfg = dataclasses.replace(full, n_layers=DEEPSEEK_LAYERS)
+    t0 = time.perf_counter()
+    params = build_model(cfg, "cuda").init(
+        torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    count = {name: sum(t.numel() for t in iter_tensors(part))
+             for name, part in (("dense", params["layers"][0]),
+                                ("moe", params["layers"][1]),
+                                ("all", params))}
+    weights = sum(t.numel() * t.element_size() for t in iter_tensors(params))
+    whole = (count["all"] + (full.n_layers - cfg.n_layers) * count["moe"])
+    print(f"deepseek: {DEEPSEEK_ARCH} at its published width (d "
+          f"{cfg.d_model}, {cfg.n_heads} heads, kv_lora {cfg.kv_lora_rank}, "
+          f"q_lora {cfg.q_lora_rank}, nope {cfg.nope_head_dim} + rope "
+          f"{cfg.rope_head_dim}, v {cfg.v_head_dim}; {cfg.moe_num_experts} "
+          f"experts of ff {cfg.moe_d_ff}, top-{cfg.moe_top_k}, "
+          f"{cfg.moe_shared_experts} shared; a dense first layer of ff "
+          f"{cfg.d_ff}; vocab {cfg.vocab}; {cfg.dtype}), cut to "
+          f"{cfg.n_layers} of its {full.n_layers} layers: "
+          f"{count['all'] / 1e9:.2f} B parameters, {gib(weights)} of "
+          f"weights drawn on the card in {time.perf_counter() - t0:.1f} s "
+          f"(an MoE layer {count['moe'] / 1e9:.2f} B, the dense one "
+          f"{count['dense'] / 1e9:.2f} B; the whole model "
+          f"{whole / 1e9:.1f} B, {whole * 2 / 1e9:.1f} GB in bf16, which no "
+          f"80 GB card holds); the latent cache "
+          f"{(cfg.kv_lora_rank + cfg.rope_head_dim) * 2} bytes a token a "
+          f"layer; engines of max_seq {DENSE_MAX_SEQ}; allocated peak so "
+          f"far {gib(torch.cuda.max_memory_allocated())}", flush=True)
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, cfg.vocab, n)
+               for n in DENSE_SHORT + DENSE_LONG]
+
+    def submit(e):
+        for p in prompts:
+            e.submit_text(p, max_new_tokens=MAX_NEW)
+        return len(prompts)
+
+    out = two_engines(torch, cfg, params, "deepseek", submit, DENSE_MAX_SEQ,
+                      device_name, timed=DEEPSEEK_SHAPES, same_tokens=False,
+                      tied=False)
+    (slot, run), (paged, prun) = out["slot"], out["paged"]
+    for kind, r in (("slot", run), ("paged", prun)):
+        bad = {s: r["report"].get(s) for s in DEEPSEEK_SITES
+               if not r["report"].get(s, {}).get("planned")
+               or r["report"][s]["fallback"]}
+        tiled = {w: r["variants"][w]["tiled"] for w in GEMM_WRAPPERS}
+        if bad or any(tiled.values()):
+            fail(f"deepseek {kind}: sites that did not plan {bad}; tiled "
+                 f"launches {tiled}")
+    drains_parity(torch, run, prun, "deepseek", tied=False)
+    print(f"deepseek: every site planned with no fallback "
+          f"({len(DEEPSEEK_SITES)}: {', '.join(DEEPSEEK_SITES)}; moe.router "
+          f"in float32), no tiled launch", flush=True)
+    batches = moe_first_tokens(torch, "deepseek", out, params, prompts)
+    profile_call(torch, f"deepseek captured paged decode step ({SLOTS} "
+                 f"lanes, max_seq {DENSE_MAX_SEQ}; the replay stages the "
+                 "tables, replays and reads the tokens)",
+                 lambda: paged._decode([]), runs=5, top=6)
+    profile_call(torch, f"deepseek prefill of {DENSE_LONG[-1]} tokens",
+                 lambda: slot.api.prefill(params, batches[-1],
+                                          DENSE_MAX_SEQ), runs=3, top=6)
+    by_engine = out["by_engine"]
+    del slot, paged, run, prun, out, batches
+    torch.cuda.empty_cache()
+    moe_one_lane(torch, cfg, params, prompts[:4], device_name,
+                 label="deepseek")
+    print(f"deepseek: allocated peak {gib(torch.cuda.max_memory_allocated())}"
+          f" of the card's "
+          f"{gib(torch.cuda.get_device_properties(0).total_memory)} (weights "
+          f"{gib(weights)}, the engines' latent caches, the plain versions' "
+          f"fp32 operands in the logit and drain checks); on {device_name} "
+          f"[{nvidia_smi()}]", flush=True)
+    del params
+    torch.cuda.empty_cache()
+    rows = gemm_timings(torch, DEEPSEEK_SHAPES, seed=23)
+    torch.cuda.empty_cache()
+    print(f"deepseek: phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return {"paths": {"deepseek": by_engine["slot"],
+                      "deepseek_paged": by_engine["paged"]}, "rows": rows}
 
 
 # ---------------------------------------------------------------------------
@@ -4969,6 +5157,71 @@ CONV2D_SWEEP = tuple(("float32", f) for f in (
     ("int8", (8, 8)), ("int8", (3, 3)), ("int16", (5, 4)), ("int32", (3, 3)))
 
 
+def fft_bench_timing(torch) -> dict:
+    """fft2d_stage at its bench grid (the registry's two 8192^2 cases, both
+    drawn as float32 planes) on the composition the runtime routes it to
+    (six float32 GEMMs on ``gemm_tc_kernel`` and their sums), held
+    against the plain version (``ref.fft2d``: ``torch.fft.fft2`` on
+    complex64, which is also the library call) within the registry's
+    atol, and timed: the composition's device time (profiler, every
+    kernel of a call) and CUDA-event time, the plain version's, and the
+    bounds of the FFT form (5 N log2 N operations; four planes moved) and
+    of the composition's DFT form (its six products at three TF32
+    products a product, their operands and results moved once)."""
+    from repro_torch.kernels import ref, registry, widesa_mm
+
+    spec = registry.get("fft2d_stage")
+    shape = spec.bench_cases[0][1]
+    routed, _, tile = fft_kernel(shape)
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    re_, im_ = (torch.randn(shape, generator=gen, device="cuda")
+                for _ in range(2))
+    before = dict(widesa_mm.variants)
+    got = routed(re_, im_)
+    routes = {v: widesa_mm.variants[v] - before[v] for v in before}
+    want = ref.fft2d(re_, im_)
+    err = max((g - w).abs().max().item() for g, w in zip(got, want))
+    if err > spec.atol or routes != {"skinny": 0, "wgmma": 6, "tiled": 0}:
+        fail(f"fft2d{shape} bench: max |err| {err} (atol {spec.atol}), "
+             f"GEMM launches by kernel {routes}")
+    del got, want
+    r, c = shape
+    n = r * c
+    row = dict(tiles=tile, max_abs_err=err,
+               ms=time_ms(torch, lambda: routed(re_, im_), reps=5,
+                          warmup=1),
+               device_ms=device_ms(torch, lambda: routed(re_, im_), None, 3),
+               plain_ms=time_ms(torch, lambda: ref.fft2d(re_, im_), reps=5,
+                                warmup=1),
+               launches=1)
+    row["library_ms"] = row["plain_ms"]
+    row["bound_ms"], row["bound_by"] = least_ms(
+        4 * n * 4, 5 * n * math.log2(n), "float32")
+    row["dft_bound_ms"], row["dft_bound_by"] = least_ms(
+        3 * (r * r + c * c + 4 * n) * 4, 3 * 3 * 2 * (r * r * c + r * c * c),
+        "tfloat32")
+    # the composition cannot beat its own DFT form's bound: a profiler
+    # reading below it lost records, and the CUDA events stand
+    lost = row["device_ms"] is None or row["device_ms"] < row["dft_bound_ms"]
+    row["profiler_ms"] = row["device_ms"]
+    if lost:
+        row["device_ms"] = row["ms"]
+    print(f"time fft2d{shape} float32 planes [the bench cases, the "
+          f"composition: 6 mm launches by kernel {routes}]: {row['ms']:.4f} "
+          f"ms (device {fmt_ms(row['device_ms'])}"
+          + (f"; the profiler's {fmt_ms(row['profiler_ms'])} reads below "
+             "the DFT form's bound: lost records, the CUDA events stand"
+             if lost else "") + "), plain and library "
+          f"(torch.fft.fft2) {row['plain_ms']:.4f} ms, bound "
+          f"{row['bound_ms']:.4f} ms ({row['bound_by']}, FFT form) and "
+          f"{row['dft_bound_ms']:.4f} ms ({row['dft_bound_by']}, the DFT "
+          f"form in 3xTF32); max |err| {err:.4g} (atol {spec.atol}); on "
+          f"{torch.cuda.get_device_name(0)} [{nvidia_smi()}]", flush=True)
+    del re_, im_
+    torch.cuda.empty_cache()
+    return row
+
+
 def conv2d_sweep(torch) -> list[dict]:
     """conv2d at ``CONV2D_SWEEP``'s filters over 10240^2 outputs, each held
     to ``ref.conv2d``: profiler device time on the launch the runtime
@@ -5229,16 +5482,23 @@ def recurrences_phase(torch) -> tuple[dict, dict, dict, dict]:
              f" launched {launches['fir']} times (by instantiation "
              f"{variants['fir']}), the four bench cases call for 16 on the "
              f"15-tap one")
-    # the fft2d_stage case (64 x 64) on the fused kernel, and each of its
-    # launches counted there
+    # fft2d_stage's bench cases (two 8192^2 grids, above the fused kernel's
+    # 64 rows) on the composition, each transform counted there; its six
+    # float32 8192^3 products a transform are widesa_mm launches, all of
+    # them on wgmma (held below).  The fused kernel is held by phase 3
     ffts = [row for row in rows if row["name"] == "fft2d_stage"]
-    if not ffts or any(not isinstance(row["tiles"].tile, runtime.Fft2dTile)
-                       for row in ffts) \
-            or variants["fft2d"] != {"fused": launches["fft2d"],
-                                     "composition": 0}:
-        fail(f"recurrences: fft2d off the fused kernel: "
-             f"{[(r['args'], r['tiles'].tile) for r in ffts]}, launches "
-             f"by form {variants['fft2d']}")
+    if [(r["dtype"], r["args"][:2]) for r in ffts] != list(
+            registry.get("fft2d_stage").bench_cases) \
+            or any(isinstance(row["tiles"].tile, runtime.Fft2dTile)
+                   for row in ffts) \
+            or variants["fft2d"] != {"fused": 0,
+                                     "composition": len(ffts) * calls} \
+            or launches["fft2d"] != len(ffts) * calls:
+        fail(f"recurrences: fft2d cases "
+             f"{[(r['dtype'], r['args'], r['tiles'].tile) for r in ffts]}, "
+             f"launches {launches['fft2d']} by form {variants['fft2d']}: "
+             f"the bench cases call for {len(ffts) * calls} on the "
+             "composition")
     # every mm / bmm (all above 16 rows: quickstart's, the smoke and the
     # paper's, float32 and the integers) on a tensor-core kernel, and each
     # launch of the two GEMM wrappers counted there
@@ -5262,7 +5522,10 @@ def recurrences_phase(torch) -> tuple[dict, dict, dict, dict]:
           f"{len(gemms)} mm / bmm cases above 16 rows on the tensor cores, "
           f"gemm_tc_kernel in float32, gemm_tc_int_kernel in the integers "
           f"({len(ints)} cases: {ints}), no tiled launch; mttkrp cases "
-          f"{cases}; fft2d {[(r['args'], str(r['tiles'].tile)) for r in ffts]}"
+          f"{cases}; fft2d "
+          f"{[(r['dtype'], r['args'], r['max_abs_err']) for r in ffts]} on "
+          f"the composition, each within the registry's atol "
+          f"{registry.get('fft2d_stage').atol}"
           f"; star and conv2d cases on the runtime's launch, each counted "
           f"under its variant: {chose}; fir's bench cases "
           f"{[(r['dtype'], r['args'], str(r['tiles'].tile)) for r in firs]}"
@@ -5382,7 +5645,7 @@ def main(argv=None) -> int:
                          "phases")
     ap.add_argument("--dense", action="store_true",
                     help="only the device, the GEMM build and the "
-                         "dense_configs phase")
+                         "dense_configs and deepseek phases")
     ap.add_argument("--src", help="with --conv2d-sweep or --fir-sweep: the "
                                   "src/ directory of another checkout of "
                                   "the port, whose kernel to time instead")
@@ -5447,6 +5710,7 @@ def main(argv=None) -> int:
         return 0
     if args.dense:
         dense_phase(torch, name)
+        deepseek_phase(torch, name)
         return 0
     if args.tile_sweep:
         t0 = time.perf_counter()
@@ -5513,6 +5777,9 @@ def main(argv=None) -> int:
     dense = dense_phase(torch, name)
     dense_paths = dense["paths"]
     torch.cuda.empty_cache()
+    deepseek = deepseek_phase(torch, name)
+    dense_paths.update(deepseek["paths"])
+    torch.cuda.empty_cache()
     train_paths = {phase[0]: train_phase(torch, name, *phase)
                    for phase in TRAIN_PHASES}
     torch.cuda.empty_cache()
@@ -5522,6 +5789,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     rec_launches, rec_variants, hpc_rows, gemm_rows = \
         recurrences_phase(torch)
+    rows[("fft2d", "bench")] = fft_bench_timing(torch)
     rows.update({(kname, "main"): hpc_rows[(kname, "float32")]
                  for kname in ("jacobi2d", "mttkrp")})
 
@@ -5601,6 +5869,13 @@ def main(argv=None) -> int:
                 for (name, where, *_), r in rows.items()
                 if name in (kname, kname + "_complex")
                 and str(where).startswith("bench")}
+        if kname == "fft2d":
+            # the pipeline's bench grid on the composition
+            bench = rows[("fft2d", "bench")]
+            entry["bench"] = {"fft2d(8192, 8192) float32 planes": {
+                key: bench[key] for key in (
+                    "ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
+                    "bound_by", "dft_bound_ms", "max_abs_err")}}
         if kname == "jacobi2d":
             # the other stars and dtypes timed, and jacobi2d_ms's call
             entry["timed"] = {
@@ -5661,6 +5936,19 @@ def main(argv=None) -> int:
                 for _, k, shape, *_ in timed if k == kind}
             if dense_entry:
                 entry["dense"] = dense_entry
+            # the MLA path's new shapes (deepseek-v2-236b at 8 layers), each
+            # with its launches on the deepseek slot and paged paths
+            deepseek_entry = {
+                f"{kind}{shape} {label}": {
+                    **{key: deepseek["rows"][(kind, shape)][key]
+                       for key in ("kernel", "ms", "plain_ms", "library_ms",
+                                   "bound_ms", "bound_by", "max_abs_err")},
+                    "launches": {path: dense_paths[path]["shapes"][
+                        (kind, shape)] for path in ("deepseek",
+                                                    "deepseek_paged")}}
+                for label, k, shape, *_ in DEEPSEEK_SHAPES if k == kind}
+            if deepseek_entry:
+                entry["deepseek"] = deepseek_entry
             # the backward GEMMs of the train paths, each with its launches
             # in one train step (every site of that shape, the remat
             # recompute's forward launches included)

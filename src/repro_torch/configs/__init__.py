@@ -6,9 +6,10 @@ of the reference's configs.  The port registers the archs it serves and
 trains: the dense decoders qwen1.5-0.5b, qwen3-32b, stablelm-12b and
 codeqwen1.5-7b (its KV cache in fp8 e4m3); llava-next-mistral-7b (vlm:
 the dense backbone with precomputed patch embeddings prepended);
-olmoe-1b-7b (MoE); mamba2-780m (SSM) and zamba2-1.2b (hybrid) on a
-recurrent state; whisper-base (encdec: precomputed frames and streamed
-audio).  deepseek-v2-236b (MLA) is not ported yet and raises.
+olmoe-1b-7b (MoE) and deepseek-v2-236b (MoE with MLA attention and
+shared experts; its 236 B parameters fit no one card at full depth);
+mamba2-780m (SSM) and zamba2-1.2b (hybrid) on a recurrent state;
+whisper-base (encdec: precomputed frames and streamed audio).
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from .base import ModelConfig
 _ARCH_MODULES = {
     "qwen1.5-0.5b": "qwen15_05b",
     "olmoe-1b-7b": "olmoe_1b_7b",
+    "deepseek-v2-236b": "deepseek_v2_236b",
     "mamba2-780m": "mamba2_780m",
     "zamba2-1.2b": "zamba2_12b",
     "qwen3-32b": "qwen3_32b",

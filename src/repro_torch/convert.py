@@ -6,7 +6,8 @@ layers stacked along a leading L axis: ``dense_layers`` and, for the MoE
 family, ``moe_layers``; ``enc_layers``/``dec_layers`` for encdec;
 ``trunk`` for SSM and hybrid) and returns the port's dict, one entry per
 layer in ``layers`` (dense and MoE: the dense layers first, as the
-reference runs them; a vlm's ``patch_proj`` beside them), in
+reference runs them, each layer's ``attn`` GQA's or MLA's leaves as the
+reference has them; a vlm's ``patch_proj`` beside them), in
 ``enc_layers``/``dec_layers`` (encdec) or in ``trunk`` (SSM and hybrid,
 beside the hybrid's one ``shared`` block).
 bfloat16 leaves (numpy's ``bfloat16`` extension dtype) keep their bits.
@@ -67,11 +68,10 @@ def params_from_jax(np_tree: dict, cfg, device="cuda") -> dict:
                 **{k: _tree(np_tree[k], device)
                    for k in ("embed", "ln_f", "lm_head", "shared")
                    if k in np_tree}}
-    if cfg.family not in ("dense", "vlm", "moe") or cfg.use_mla:
+    if cfg.family not in ("dense", "vlm", "moe"):
         raise NotImplementedError(
-            f"family {cfg.family!r}{' with MLA' if cfg.use_mla else ''} is "
-            "not ported; the port runs dense, vlm and MoE decoders with GQA "
-            "attention, SSM and hybrid models, and encdec")
+            f"family {cfg.family!r} is not ported; the port runs dense, vlm "
+            "and MoE decoders, SSM and hybrid models, and encdec")
     layers = []
     for group, n in zip(("dense_layers", "moe_layers"),
                         transformer.layer_split(cfg)):

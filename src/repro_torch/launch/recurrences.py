@@ -24,23 +24,23 @@ The port's counterpart of ``examples/map_paper_benchmarks.py``,
    modelled TPU, which says nothing of the card.
 
 On ``cuda`` (the default) the plans run on the hand-written kernels.  The
-stencils, mttkrp, mm, bmm, conv2d and fir run at their registry
-``bench_cases`` (``--size bench``, the default there: paper-scale 10238^2
-and 10236^2 grids, a 4094^2 grid for 8 sweeps, mttkrp at (4096, 400, 256,
-256), the paper's MM table (float32 8192^3, int8 10240^3, int16 9600^3,
-int32 8192^3), BMM table (64 x 4096^3 in float32, int8 and int16), conv2d
-table (10240^2 outputs: float32, int16 and int32 with a 4 x 4 filter,
-int8 with an 8 x 8 one) and FIR table (1048576 outputs of 15 taps in
-float32, int8, int16 and cfloat)).  The cfloat FIR case runs as the
+stencils, mttkrp, mm, bmm, conv2d, fir and fft2d_stage run at their
+registry ``bench_cases`` (``--size bench``, the default there:
+paper-scale 10238^2 and 10236^2 grids, a 4094^2 grid for 8 sweeps, mttkrp
+at (4096, 400, 256, 256), the paper's MM table (float32 8192^3, int8
+10240^3, int16 9600^3, int32 8192^3), BMM table (64 x 4096^3 in float32,
+int8 and int16), conv2d table (10240^2 outputs: float32, int16 and int32
+with a 4 x 4 filter, int8 with an 8 x 8 one), FIR table (1048576 outputs
+of 15 taps in float32, int8, int16 and cfloat) and fft2d_stage's "cfloat"
+and "cint16" grids of 8192^2).  The cfloat FIR case runs as the
 reference's ``execute_plan`` runs it: the cfloat plan on the float32
 planes ``registry.operands`` draws, one real FIR launch (its line says
-so); the complex arithmetic is ``fir.fir_complex``, which ``chip_smoke.py``
-times.  fft2d_stage runs at its ``smoke_args`` until its bench cases are
-taken up (ROADMAP A5): those are "cfloat" and "cint16" grids of 8192^2,
-which both packages' registries draw as two float32 planes, the operands
-the port's kernel takes, so no complex lowering is missing; at 8192 rows
-they run the composition over the tensor-core GEMM, above the fused
-kernel's 64.
+so); the complex arithmetic is
+``fir.fir_complex``, which ``chip_smoke.py`` times.  Both packages'
+registries draw fft2d_stage's two cases as two float32 planes, the
+operands the port's kernel takes, so no complex lowering is missing; at
+8192 rows they run the composition over the tensor-core GEMM (six
+float32 8192^3 products a transform), above the fused kernel's 64.
 bmm's plain version runs one batch entry at a time (``BATCHED``): at 64
 x 4096^3 a whole one would need ~70 GB of exact-integer temporaries.
 ``--device cpu`` runs the plain versions (the wrappers' CPU path) at
@@ -74,8 +74,8 @@ import torch
 
 #: the recurrences run at their bench cases on ``--size bench``; the rest
 #: run at their smoke sizes (module docstring)
-BENCH_SPECS = ("mm", "bmm", "conv2d", "fir", "jacobi2d", "jacobi2d_9pt",
-               "jacobi2d_ms", "mttkrp")
+BENCH_SPECS = ("mm", "bmm", "conv2d", "fir", "fft2d_stage", "jacobi2d",
+               "jacobi2d_9pt", "jacobi2d_ms", "mttkrp")
 #: the recurrences whose operands and output lead with a batch dimension:
 #: they are held to the plain version one batch entry at a time
 BATCHED = ("bmm",)
@@ -198,13 +198,21 @@ def run_case(spec, rec, target, generator, device) -> dict:
     row = dict(name=spec.name, dtype=rec.dtype, args=rec.extents, rec=rec,
                block=dict(plan.partition.block), feasible=plan.feasible,
                tiles=tiles, max_abs_err=err, ok=ok, ms=ms)
-    compiled = ("the plain version" if tiles is None
-                else f"compiled tile {tiles.tile}")
+    if tiles is None:
+        compiled = "the plain version"
+    elif spec.name == "fft2d_stage" and not isinstance(tiles.tile,
+                                                       runtime.Fft2dTile):
+        compiled = (f"the composition: six GEMMs a transform on the "
+                    f"runtime's configuration (the tiled tile {tiles.tile} "
+                    "its fallback)")
+    else:
+        compiled = f"compiled tile {tiles.tile}"
     if rec.dtype.startswith("c"):
         # as the reference's execute_plan: the plan on the float32 planes
         # registry.operands draws, not complex arithmetic
-        compiled += (f" ({rec.dtype} plan on float32 planes: one real "
-                     "launch, as the reference's execute_plan)")
+        compiled += (f" ({rec.dtype} plan on float32 planes"
+                     + (": one real launch" if spec.name == "fir" else "")
+                     + ", as the reference's execute_plan)")
     print(f"{spec.name:12s} {rec.dtype:8s} {str(rec.extents):26s} plan "
           f"block {row['block']} feasible={plan.feasible} -> {compiled}: "
           f"max |err| {err:.4g} ({'ok' if ok else 'MISMATCH'}), "

@@ -12,12 +12,18 @@
         --full --max-seq 528 [--engine paged]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \
         --full --max-seq 528 [--engine paged]
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch deepseek-v2-236b [--engine paged] [--device cpu]
 
 ``--full`` serves the published full-width configuration instead of the
 reduced smoke one (olmoe-1b-7b: 13.8 GB of weights; mamba2-780m, the SSM
 family, and zamba2-1.2b, the hybrid one, prefill at the exact prompt
 length on either engine); weights are drawn
-from a ``torch.Generator`` seeded with 0 on ``--device``.  ``--stream-audio`` (encdec archs) submits
+from a ``torch.Generator`` seeded with 0 on ``--device``.  A model whose
+weights outgrow one card (deepseek-v2-236b: 235.7 B parameters, 471.6 GB
+in bf16) is refused under ``--full`` with a line that says so; it serves
+at its smoke config (``chip_smoke.py`` serves it at full width cut to 8
+of its 60 layers).  ``--stream-audio`` (encdec archs) submits
 synthesized int16 audio streams of ``1 + i % (enc_frames //
 frames_per_chunk)`` chunks for request ``i`` through the planned
 frontend chunk by chunk, and checks after the drain that the frontend's
@@ -48,6 +54,23 @@ def bf16_frames(rng, cfg) -> torch.Tensor:
     return torch.from_numpy(x.astype(np.float32)).to(torch.bfloat16)
 
 
+#: the memory of the card the port targets (an 80 GB H100), the bound of
+#: ``--full`` where no card is visible
+CARD_BYTES = 80 * 10 ** 9
+
+
+def weight_bytes(cfg) -> tuple[int, int]:
+    """(parameters, bytes) of ``cfg``'s weights, from their shapes alone
+    (drawn on the meta device)."""
+    from repro_torch import tree
+    from repro_torch.models import build_model
+
+    params = build_model(cfg, "meta").init(torch.Generator())
+    leaves = tree.leaves(params)
+    return (sum(t.numel() for t in leaves),
+            sum(t.numel() * t.element_size() for t in leaves))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
@@ -75,6 +98,16 @@ def main(argv=None):
     from repro_torch.serve import make_engine, synth_samples
 
     cfg = (get_config if args.full else get_smoke_config)(args.arch)
+    device = torch.device(args.device)
+    if args.full:
+        card = (torch.cuda.get_device_properties(device).total_memory
+                if device.type == "cuda" else CARD_BYTES)
+        n, need = weight_bytes(cfg)
+        if need > card:
+            raise SystemExit(
+                f"{args.arch} at full width holds {n / 1e9:.1f} B parameters"
+                f", {need / 1e9:.1f} GB of {cfg.dtype} weights: more than "
+                f"the card's {card / 1e9:.1f} GB; serve it without --full")
     if args.engine == "paged":
         kw = dict(max_lanes=args.slots, block_size=args.block_size,
                   num_blocks=args.num_blocks)

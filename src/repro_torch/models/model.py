@@ -26,8 +26,9 @@ indexed through the block tables), ``"lane"`` (one fixed-size block a
 lane) or ``"lane_scalar"`` (one scalar a lane); ``paged_decode`` writes
 the pools in place and never moves ``pos``.
 
-The dense, vlm, MoE (GQA attention; not MLA), SSM, hybrid and encdec
-families are ported; MLA raises.  A vlm's prefill takes the batch's
+The dense, vlm, MoE (GQA or MLA attention: deepseek-v2 decodes in
+MLA's absorbed form over a compressed latent cache), SSM, hybrid and
+encdec families are ported.  A vlm's prefill takes the batch's
 precomputed patch embeddings ``extra_embeds`` [B, P, d], prepended to the
 prompt (its cache then holds P + S rows).  The SSM and hybrid families
 prefill at the exact prompt length only: their ``prefill`` refuses a
@@ -91,11 +92,10 @@ def build_model(cfg: ModelConfig, device="cuda") -> ModelAPI:
         return _encdec_api(cfg, device, cache_dtype)
     if cfg.family in ("ssm", "hybrid"):
         return _hybrid_api(cfg, device, cache_dtype)
-    if cfg.family not in ("dense", "vlm", "moe") or cfg.use_mla:
+    if cfg.family not in ("dense", "vlm", "moe"):
         raise NotImplementedError(
-            f"family {cfg.family!r}{' with MLA' if cfg.use_mla else ''} is "
-            "not ported; the port serves dense, vlm and MoE decoders with "
-            "GQA attention, SSM and hybrid models, and encdec")
+            f"family {cfg.family!r} is not ported; the port serves dense, "
+            "vlm and MoE decoders, SSM and hybrid models, and encdec")
 
     def prefill(p, batch, max_seq, last_index=None):
         return TFM.prefill(p, cfg, batch["tokens"], max_seq,

@@ -10,7 +10,10 @@ at ``capacity = max(1, ceil(T·k·cf / E))`` or later dropped.  The kept
 rows fill an [E, C, d] buffer (``dispatch``), the expert stack runs as
 three planned bmm calls over [E, C, d] x [E, d, ff] (``expert_ffn``:
 ``moe.gate``, ``moe.up``, ``moe.down``) and each token sums its k
-weighted expert outputs (``combine``).
+weighted expert outputs (``combine``).  Shared experts (deepseek-v2's
+2, ``moe_shared_experts``) run as one GLU over every token beside the
+routed ones, at the planned ``moe.shared_gate``/``up``/``down`` sites: on
+the card, the same hand kernels.
 
 Two things differ from the reference's form, not from its result:
 

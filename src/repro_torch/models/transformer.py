@@ -1,14 +1,16 @@
-"""Decoder-only LM of the dense, vlm and MoE families (the port of
-``repro.models.transformer`` without MLA).
+"""Decoder-only LM of the dense, vlm and MoE families, with GQA or MLA
+attention (the port of ``repro.models.transformer``).
 
 Parameters are a plain dict: ``embed`` [V, d], ``ln_f``, a ``layers``
 list of per-layer dicts (the reference stacks them along a leading L axis
 in two groups, ``dense_layers`` and ``moe_layers``, and runs
 ``lax.scan`` over each; a Python loop over the dense layers, then the MoE
 ones, takes its place here) and, for untied heads, ``lm_head`` [d, V].
-A dense layer holds ``mlp``, an MoE layer ``moe`` (``models/moe.py``);
-an MoE config starts with ``moe_first_dense`` dense layers
-(``layer_split``).  A vlm config (``vlm_patches`` > 0) adds
+A layer's ``attn`` holds GQA attention's projections
+(``layers.init_attention``) or, with ``cfg.use_mla`` (deepseek-v2), MLA's
+(``models/mla.py``).  A dense layer holds ``mlp``, an MoE layer ``moe``
+(``models/moe.py``); an MoE config starts with ``moe_first_dense`` dense
+layers (``layer_split``).  A vlm config (``vlm_patches`` > 0) adds
 ``patch_proj`` [d, d]: its precomputed patch embeddings [B, P, d] pass
 through it (``vlm.patch_proj``) and come before the text's
 (``embed_tokens``), so a prefill's hidden sequence and cache hold P + S
@@ -16,11 +18,13 @@ rows.  ``convert.params_from_jax`` turns the reference's tree into this
 form.
 
 The serving cache is ``{"k", "v": [L, B, S, Hkv, hd], "pos": [B] int32}``
-and ``decode_step`` updates it in place.  The block-paged engine's pools
-are ``{"k", "v": [L, NB + 1, bs, Hkv, hd]}`` (``init_paged_pools``; the
-last block is the sink of inactive lanes' writes) and
-``decode_step_paged`` writes them in place through per-lane block
-tables.
+(MLA: the compressed ``{"ckv": [L, B, S, kv_lora_rank], "kr": [L, B, S,
+rope_head_dim]}`` with ``pos``) and ``decode_step`` updates it in place
+(MLA decodes in the absorbed form).  The block-paged engine's pools are
+the same leaves as ``[L, NB + 1, bs, ...]`` block pools
+(``init_paged_pools``; the last block is the sink of inactive lanes'
+writes) and ``decode_step_paged`` writes them in place through per-lane
+block tables.
 
 Training: ``loss_fn`` is the reference's masked next-token cross-entropy
 (``logit_chunk`` chunks the lm_head and the loss over the sequence; a
@@ -40,6 +44,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.kernels.planned import planned_dense
 
 from . import layers as L
+from . import mla as MLA
 from . import moe as MOE
 
 CACHE_DTYPES = {
@@ -54,11 +59,18 @@ def cache_dtype_of(cfg) -> torch.dtype:
 
 
 def _check_family(cfg) -> None:
-    if cfg.family not in ("dense", "vlm", "moe") or cfg.use_mla:
+    if cfg.family not in ("dense", "vlm", "moe"):
         raise NotImplementedError(
-            f"family {cfg.family!r}{' with MLA' if cfg.use_mla else ''} is "
-            "not ported; the port runs dense, vlm and MoE decoders with GQA "
-            "attention")
+            f"family {cfg.family!r} is not a decoder-only LM; this module "
+            "runs the dense, vlm and MoE families")
+
+
+def cache_rows(cfg) -> dict:
+    """The two per-layer cache leaves, each with the shape of one token's
+    row in it: GQA's K/V, or MLA's latent and shared rope key."""
+    if cfg.use_mla:
+        return {"ckv": (cfg.kv_lora_rank,), "kr": (cfg.rope_head_dim,)}
+    return dict.fromkeys(("k", "v"), (cfg.n_kv_heads, cfg.hd))
 
 
 def layer_split(cfg) -> tuple[int, int]:
@@ -81,10 +93,11 @@ def init_params(cfg, generator: torch.Generator, device="cuda"):
     _check_family(cfg)
     dt = L.compute_dtype(cfg)
     n_dense, _ = layer_split(cfg)
+    init_attn = MLA.init_mla if cfg.use_mla else L.init_attention
     layers = []
     for i in range(cfg.n_layers):
         layer = {"ln1": L.init_norm(cfg, device),
-                 "attn": L.init_attention(cfg, generator, device),
+                 "attn": init_attn(cfg, generator, device),
                  "ln2": L.init_norm(cfg, device)}
         if i < n_dense:
             layer["mlp"] = L.init_glu_mlp(cfg, generator, device)
@@ -133,11 +146,13 @@ def _ffn(lp, cfg, x, with_aux=False):
 
 
 def _block(lp, cfg, x, positions, with_aux=False):
-    """One layer over a whole sequence: (x', k, v, aux), ``aux`` the
-    layer's load-balance term where ``with_aux`` asks for it (the
-    forward does; prefill does not), else None."""
-    attn, k, v = L.apply_attention(lp["attn"], cfg,
-                                   L.apply_norm(lp["ln1"], cfg, x), positions)
+    """One layer over a whole sequence: (x', k, v, aux), ``k``/``v`` the
+    layer's cache rows (MLA: ckv and kr), ``aux`` its load-balance term
+    where ``with_aux`` asks for it (the forward does; prefill does not),
+    else None."""
+    attend = MLA.apply_mla if cfg.use_mla else L.apply_attention
+    attn, k, v = attend(lp["attn"], cfg, L.apply_norm(lp["ln1"], cfg, x),
+                        positions)
     x = x + attn
     h = L.apply_norm(lp["ln2"], cfg, x)
     y, aux = (_ffn(lp, cfg, h, True) if with_aux
@@ -245,12 +260,11 @@ def loss_fn(p, cfg, batch):
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg, batch, max_seq, dtype=torch.bfloat16, device="cuda"):
-    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.hd)
-    return {
-        "k": torch.zeros(shape, dtype=dtype, device=device),
-        "v": torch.zeros(shape, dtype=dtype, device=device),
-        "pos": torch.zeros(batch, dtype=torch.int32, device=device),
-    }
+    cache = {name: torch.zeros((cfg.n_layers, batch, max_seq, *row),
+                               dtype=dtype, device=device)
+             for name, row in cache_rows(cfg).items()}
+    cache["pos"] = torch.zeros(batch, dtype=torch.int32, device=device)
+    return cache
 
 
 def prefill(p, cfg, tokens, max_seq, cache_dtype=torch.bfloat16,
@@ -272,10 +286,11 @@ def prefill(p, cfg, tokens, max_seq, cache_dtype=torch.bfloat16,
     rows = x.shape[1]
     positions = _positions(x)
     cache = init_cache(cfg, b, max_seq, cache_dtype, x.device)
+    kname, vname = cache_rows(cfg)
     for i, lp in enumerate(p["layers"]):
         x, k, v, _ = _block(lp, cfg, x, positions)
-        cache["k"][i, :, :rows] = k.to(cache_dtype)
-        cache["v"][i, :, :rows] = v.to(cache_dtype)
+        cache[kname][i, :, :rows] = k.to(cache_dtype)
+        cache[vname][i, :, :rows] = v.to(cache_dtype)
     x = L.apply_norm(p["ln_f"], cfg, x)
     sel, pos = L.last_rows(x, last_index, offset=rows - s)
     logits = logits_fn(p, cfg, sel)[:, 0]
@@ -288,11 +303,14 @@ def decode_step(p, cfg, cache, tokens):
     place — each layer writes its new K/V row, then ``pos`` advances —
     and returned for symmetry with the reference."""
     pos = cache["pos"]
+    kname, vname = cache_rows(cfg)
+    attend = MLA.apply_mla_decode if cfg.use_mla \
+        else L.apply_attention_decode
     x = embed_tokens(p, cfg, tokens)
     for i, lp in enumerate(p["layers"]):
         h = L.apply_norm(lp["ln1"], cfg, x)
-        x = x + L.apply_attention_decode(lp["attn"], cfg, h, cache["k"][i],
-                                         cache["v"][i], pos)
+        x = x + attend(lp["attn"], cfg, h, cache[kname][i],
+                       cache[vname][i], pos)
         x = x + _ffn(lp, cfg, L.apply_norm(lp["ln2"], cfg, x))
     x = L.apply_norm(p["ln_f"], cfg, x)
     logits = logits_fn(p, cfg, x)[:, 0]
@@ -307,17 +325,17 @@ def decode_step(p, cfg, cache, tokens):
 def paged_layout(cfg) -> dict:
     """Leaf kinds for the block-paged serving cache: ``paged`` leaves are
     [L, NB, bs, ...] block pools indexed per-lane through block tables;
-    there are no per-lane leaves for this family."""
-    del cfg
-    return {"k": "paged", "v": "paged"}
+    there are no per-lane leaves for this family (MLA: the latent and
+    the rope key)."""
+    return dict.fromkeys(cache_rows(cfg), "paged")
 
 
 def init_paged_pools(cfg, num_blocks, block_size, max_lanes,
                      dtype=torch.bfloat16, device="cuda"):
     del max_lanes  # no per-lane state in this family
-    shape = (cfg.n_layers, num_blocks, block_size, cfg.n_kv_heads, cfg.hd)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    return {name: torch.zeros((cfg.n_layers, num_blocks, block_size, *row),
+                              dtype=dtype, device=device)
+            for name, row in cache_rows(cfg).items()}
 
 
 def decode_step_paged(p, cfg, pools, tokens, block_tables, pos, active):
@@ -329,12 +347,14 @@ def decode_step_paged(p, cfg, pools, tokens, block_tables, pos, active):
     ``pos``/tables/``active`` are host-owned inputs that the step never
     changes (the engine advances pos and edits tables between steps), so
     the step's shapes never depend on which requests are in flight."""
+    kname, vname = cache_rows(cfg)
+    attend = MLA.apply_mla_decode_paged if cfg.use_mla \
+        else L.apply_attention_decode_paged
     x = embed_tokens(p, cfg, tokens)
     for i, lp in enumerate(p["layers"]):
         h = L.apply_norm(lp["ln1"], cfg, x)
-        x = x + L.apply_attention_decode_paged(
-            lp["attn"], cfg, h, pools["k"][i], pools["v"][i], block_tables,
-            pos, active)
+        x = x + attend(lp["attn"], cfg, h, pools[kname][i], pools[vname][i],
+                       block_tables, pos, active)
         x = x + _ffn(lp, cfg, L.apply_norm(lp["ln2"], cfg, x))
     x = L.apply_norm(p["ln_f"], cfg, x)
     return logits_fn(p, cfg, x)[:, 0], pools

@@ -267,12 +267,21 @@ def test_init_params_draws_full_width_shapes_from_a_seed():
 
 
 def test_unported_families_raise():
-    """MLA is the one family the port does not run: its model raises and
-    its only config, deepseek-v2-236b, is not registered.  (The vlm
-    family and llava-next-mistral-7b are held to the reference in
-    ``test_torch_vlm.py``.)"""
-    with pytest.raises(NotImplementedError, match="MLA"):
+    """Every family of the reference's registry runs: deepseek-v2-236b,
+    the MLA config, is registered (its model is held to the reference in
+    ``test_torch_mla.py``, the vlm family's in ``test_torch_vlm.py``), and
+    a family the port does not know raises, in ``build_model`` and in the
+    registry."""
+    from repro.configs import ARCHS as JAX_ARCHS
+    from repro_torch.configs import ARCHS
+
+    assert set(ARCHS) == set(JAX_ARCHS)
+    assert get_smoke_config("deepseek-v2-236b").use_mla
+    assert build_model(get_smoke_config("deepseek-v2-236b"),
+                       "cpu").paged_layout() == {"ckv": "paged",
+                                                 "kr": "paged"}
+    with pytest.raises(NotImplementedError, match="not ported"):
         build_model(dataclasses.replace(get_smoke_config(ARCH),
-                                        family="moe", use_mla=True), "cpu")
+                                        family="diffusion"), "cpu")
     with pytest.raises(ValueError, match="not ported"):
-        get_smoke_config("deepseek-v2-236b")
+        get_smoke_config("gpt-2")

@@ -3,7 +3,8 @@ compiled tap count and the generic one, real and complex), conv2d (every
 compiled window and the generic one), fft2d, star-stencil (one sweep, and
 several a launch) and MTTKRP kernels against their plain versions on the
 card, the block-paged serving engine's captured decode step against an
-eager one, and training: the facade's backward passes on the hand
+eager one (the MLA family's absorbed decode among them), deepseek-v2's
+new GEMM shapes, and training: the facade's backward passes on the hand
 kernels, a long-K bf16 GEMM rounded from its fp32 sum, SMOKE train
 steps' gradients against the plain versions.
 
@@ -1339,6 +1340,87 @@ def test_moe_captured_decode_equals_an_eager_step_on_the_card(gen):
         v.copy_(before[k])
     eng._decode([0])
     assert torch.equal(eng._decode_out[0], replay)
+    for k, v in eng.kv.pools.items():
+        v.copy_(before[k])
+    tokens = torch.tensor([[eng.lanes[0].output[-1]]], dtype=torch.int32,
+                          device="cuda")
+    with torch.no_grad(), planned.override(policy=eng.policy):
+        logits, _ = transformer.decode_step_paged(
+            eng.params, eng.cfg, eng.kv.pools, tokens,
+            torch.as_tensor(eng.kv.tables, device="cuda"),
+            torch.as_tensor(eng.kv.pos, device="cuda"),
+            torch.as_tensor(eng.kv.active, device="cuda"))
+    torch.cuda.synchronize()
+    assert torch.equal(logits, replay)
+    for k, v in eng.kv.pools.items():
+        v.copy_(before[k])
+    for p in prompts[1:]:
+        eng.submit(p, max_new_tokens=8)
+    slot = make_engine(eng.cfg, kind="slot", max_slots=1, max_seq=64)
+    slot.load(eng.params)
+    for p in prompts:
+        slot.submit(p, max_new_tokens=8)
+    got = {r.rid: list(r.output) for r in eng.run_until_drained()}
+    assert got == {r.rid: list(r.output) for r in slot.run_until_drained()}
+    assert eng.stats["decode_compiles"] == 1
+
+
+#: deepseek-v2-236b's new GEMM shapes at full width (d 5120, 128 heads,
+#: kv_lora 512, q_lora 1536, vocab 102400, 160 experts of ff 1536), bf16:
+#: (site, kind, shape) at a 4-lane decode step, a 16-token prompt (mla.out
+#: at K = 16384, the largest a skinny launch stages) and a 512-token one
+#: (mla.k_up; the expert stack at C = ceil(512 * 6 * 1.25 / 160) = 24)
+DEEPSEEK_SHAPES = (("mla.k_rope", "mm", (4, 64, 5120)),
+                   ("mla.q_up", "mm", (4, 24576, 1536)),
+                   ("mla.out", "mm", (4, 5120, 16384)),
+                   ("mla.out", "mm", (16, 5120, 16384)),
+                   ("lm_head", "mm", (4, 102400, 5120)),
+                   ("mla.k_up", "mm", (512, 16384, 512)),
+                   ("moe.gate", "bmm", (160, 1, 1536, 5120)),
+                   ("moe.down", "bmm", (160, 1, 5120, 1536)),
+                   ("moe.gate", "bmm", (160, 24, 1536, 5120)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("site,kind,shape", DEEPSEEK_SHAPES,
+                         ids=lambda v: str(v))
+def test_deepseek_gemms_match_the_plain_version_on_the_card(site, kind,
+                                                            shape, gen):
+    """Through the planned facade in bf16 on the kernel the runtime picks
+    (the skinny kernel up to 16 rows, the tensor-core kernel above; never
+    the tiled one), within one bf16 step of the plain version."""
+    *lead, m, n, k = shape
+    a = _gemm_draw((*lead, m, k), torch.bfloat16, gen)
+    b = _gemm_draw((*lead, k, n), torch.bfloat16, gen)
+    mod = widesa_mm if kind == "mm" else bmm
+    before = dict(mod.variants)
+    fn = planned.planned_dense if kind == "mm" else planned.planned_bmm
+    got = fn(a, b, site=site)
+    _same_gemm(got, (ref.mm if kind == "mm" else ref.bmm)(a, b))
+    torch.cuda.synchronize()
+    kernel = "skinny" if m <= runtime.SKINNY_ROWS else "wgmma"
+    assert {v: mod.variants[v] - before[v] for v in before} == {
+        "skinny": 0, "wgmma": 0, "tiled": 0, kernel: 1}
+
+
+@pytest.mark.gpu
+def test_mla_captured_decode_equals_an_eager_step_on_the_card(gen):
+    """deepseek-v2 (smoke, float32 with a float32 latent cache) on the
+    paged engine: the absorbed decode captures with the step, a replay
+    equals an eager ``decode_step_paged`` bitwise, and one lane serves
+    the slot engine's tokens."""
+    from repro_torch.models import transformer
+    from repro_torch.serve import make_engine
+
+    eng = _paged_engine("deepseek-v2-236b", kv_dtype="float32",
+                        max_lanes=1)
+    assert set(eng.kv.pools) == {"ckv", "kr"}
+    prompts = _prompts(eng.cfg.vocab, (5, 9, 13), seed=6)
+    eng.submit(prompts[0], max_new_tokens=8)
+    eng.step()
+    before = {k: v.clone() for k, v in eng.kv.pools.items()}
+    eng._decode([0])
+    replay = eng._decode_out[0].clone()
     for k, v in eng.kv.pools.items():
         v.copy_(before[k])
     tokens = torch.tensor([[eng.lanes[0].output[-1]]], dtype=torch.int32,

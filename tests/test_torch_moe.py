@@ -302,11 +302,16 @@ def test_prefill_and_decode_logits_match_the_reference(variant):
 
 
 def test_build_model_serves_moe_and_raises_for_mla():
+    """The MoE family's facade defaults to the card; its MLA config,
+    deepseek-v2-236b (a leading dense layer, shared experts, MLA
+    attention), builds too, on the card by default (``test_torch_mla.py``
+    holds it to the reference)."""
     cfg = get_config(ARCH)
     api = build_model(cfg)
     assert api.device.type == "cuda"  # the card is the default
-    with pytest.raises(NotImplementedError, match="MLA"):
-        build_model(dataclasses.replace(cfg, use_mla=True), "cpu")
+    mla = build_model(get_config("deepseek-v2-236b"))
+    assert mla.device.type == "cuda" and mla.cfg.use_mla
+    assert mla.cfg.family == "moe" and mla.cfg.moe_shared_experts == 2
     p = TT.init_params(dataclasses.replace(
         get_smoke_config(ARCH), moe_first_dense=1, moe_shared_experts=1),
         torch.Generator().manual_seed(0), "cpu")

@@ -58,7 +58,7 @@ from repro_torch.launch import recurrences  # noqa: E402
 ROOT = Path(__file__).resolve().parents[1]
 NEW = ("jacobi2d", "jacobi2d_9pt", "jacobi2d_ms", "mttkrp")
 #: the recurrences the pipeline runs at their bench cases on the card
-BENCH = ("mm", "bmm", "conv2d", "fir") + NEW
+BENCH = ("mm", "bmm", "conv2d", "fir", "fft2d_stage") + NEW
 SINGLE_CHIP = Target(name="single_chip", mesh_shape=(1, 1))
 JAX_SINGLE_CHIP = JaxTarget(name="single_chip", mesh_shape=(1, 1))
 TARGETS = {"single_chip": (SINGLE_CHIP, JAX_SINGLE_CHIP),
@@ -173,6 +173,41 @@ def test_registry_entries_match_the_reference():
                       "fusable_with", "n_outputs", "smoke_args",
                       "bench_cases"):
             assert getattr(port, field) == getattr(want, field), field
+
+
+@pytest.mark.parametrize(
+    "dtype,args", list(registry.get("fft2d_stage").bench_cases),
+    ids=lambda v: str(v))
+def test_fft2d_bench_cases_plan_as_the_reference_on_the_composition(dtype,
+                                                                    args):
+    """The pipeline's bench run takes fft2d_stage's two 8192^2 cases (the
+    reference's ``bench_cases``); the single-chip plan it runs equals the
+    reference's ``best_plan``, and the runtime routes the grid to the
+    composition (above the fused kernel's 64 rows), whose six float32
+    8192^3 products each take the tensor-core kernel.  Planning only: no
+    8192^2 product runs on the CPU."""
+    spec = registry.get("fft2d_stage")
+    assert (dtype, args) in [(d, a) for s, d, a in
+                             recurrences.registry_cases("bench")
+                             if s.name == "fft2d_stage"]
+    assert spec.bench_cases == jax_registry.get("fft2d_stage").bench_cases
+    plan = best_plan(spec.builder(*args, dtype), SINGLE_CHIP)
+    want = jax_best_plan(jax_registry.get("fft2d_stage").builder(*args, dtype),
+                         JAX_SINGLE_CHIP)
+    assert plan.describe() == want.describe()
+    assert plan.partition.block == want.partition.block
+    assert plan.feasible == want.feasible
+    assert plan.backend == want.backend == "pallas"
+    assert [o.dtype for o in registry.operands(
+        spec.builder(8, 8, dtype), torch.Generator().manual_seed(0))] \
+        == [torch.float32] * 2
+    plane = torch.empty(args, device="meta")
+    tiles = runtime.fft2d_tile(plan, plane, plane)
+    assert runtime.fft2d_route(*args) is None
+    assert not isinstance(tiles.tile, runtime.Fft2dTile)
+    r, c = args
+    assert runtime.tc_tile(r, c, r, torch.float32, 1) is not None
+    assert runtime.tc_tile(r, c, c, torch.float32, 1) is not None
 
 
 @pytest.mark.parametrize("name", registry.registered_names())

@@ -349,11 +349,26 @@ def test_remat_dots_and_untrained_families_raise():
         value_and_grad(api.loss, params, batch)
     with torch.no_grad():  # serving never recomputes
         api.prefill(params, {"tokens": batch["tokens"]}, 32)
-    # every registered family trains; MLA, the one family left, raises
-    # before it could
-    with pytest.raises(NotImplementedError, match="MLA"):
-        build_model(dataclasses.replace(cfg, family="moe", use_mla=True),
-                    "cpu")
+    # every registered family trains, MLA too: deepseek-v2-236b's loss and
+    # every gradient leaf through the mla.*/bwd_* sites within 1e-5 of
+    # jax.value_and_grad at SMOKE in float32 (on the card it waits for the
+    # multi-device item: 2 layers at full width need ~75 GB at 14 bytes a
+    # parameter)
     for arch in ("olmoe-1b-7b", "mamba2-780m", "zamba2-1.2b",
-                 "llava-next-mistral-7b"):
+                 "llava-next-mistral-7b", "deepseek-v2-236b"):
         assert build_model(get_smoke_config(arch), "cpu").loss is not None
+    mla = jax_smoke("deepseek-v2-236b")
+    jparams, mbatch, jloss, jgrads, jrep = _jax_loss_and_grads(mla)
+    tloss, tgrads, trep = _port_loss_and_grads(
+        mla, jax.tree.map(np.asarray, jparams), mbatch)
+    want = params_from_jax(jgrads, port_cfg(mla), "cpu")
+    np.testing.assert_allclose(tloss, jloss, atol=1e-5, rtol=1e-5)
+    assert tree.paths(tgrads) == tree.paths(want)
+    for path, g, w in zip(tree.paths(tgrads), tree.leaves(tgrads),
+                          tree.leaves(want)):
+        np.testing.assert_allclose(to_np(g), to_np(w), err_msg=path,
+                                   atol=1e-5, rtol=1e-5)
+    assert_same_decisions(*jrep, *trep)
+    assert {f"mla.{s}/bwd_{d}" for s in ("q_down", "q_up", "kv_down",
+                                         "k_rope", "k_up", "v_up", "out")
+            for d in ("dx", "dw")} <= set(trep[0])
