@@ -4092,6 +4092,27 @@ TRAIN_SHAPES = {
          (2048, 8192, 4096), False, True, False, "bfloat16"),
     ),
     # the expert stack over 4096 tokens: C = 640 slots an expert
+    # train_4k: a microbatch of 2 x 4096 tokens
+    "train_4k": (
+        ("lm_head/bwd_dx, 2 x 4096 tokens", "mm", (8192, 1024, 151936),
+         False, False, False, "bfloat16"),
+        ("lm_head/bwd_dw, 2 x 4096 tokens", "mm", (1024, 151936, 8192),
+         False, True, False, "bfloat16"),
+        ("attn.q/k/v/out/bwd_dw, 2 x 4096 tokens", "mm", (1024, 1024, 8192),
+         False, True, False, "bfloat16"),
+    ),
+    # llava: 8 x (576 patch rows + 512 text tokens) = 8704 rows, the head
+    # over the 4096 text rows
+    "llava_train": (
+        ("attn.q/out/bwd_dw, llava", "mm", (4096, 4096, 8704), False, True,
+         False, "bfloat16"),
+        ("mlp.gate/up/bwd_dw, llava", "mm", (4096, 14336, 8704), False,
+         True, False, "bfloat16"),
+        ("mlp.down/bwd_dx, llava", "mm", (8704, 14336, 4096), True, False,
+         False, "bfloat16"),
+        ("lm_head/bwd_dx, llava", "mm", (4096, 4096, 32000), True, False,
+         False, "bfloat16"),
+    ),
     "olmoe_train": (
         ("moe.gate/up/bwd_da", "bmm", (64, 640, 2048, 1024), True, False,
          False, "bfloat16"),
@@ -4103,6 +4124,12 @@ TRAIN_SHAPES = {
          False, "bfloat16"),
     ),
 }
+
+
+#: backward sites no step computes: a vlm's patch embeddings take no
+#: gradient, so ``vlm.patch_proj``'s dx is never asked for (the reference's
+#: custom_vjp computes it and drops it; ``tests/test_torch_train_families``)
+NEVER_COMPUTED = frozenset({"vlm.patch_proj/bwd_dx"})
 
 
 def site_kind(site: str, st: dict) -> str:
@@ -4120,10 +4147,26 @@ def check_train_sites(label: str, report: dict) -> list:
     if bad:
         fail(f"{label}: sites that fell back or never planned: {bad}")
     lost = [f"{s}{b}" for s, st in report.items() if "/" not in s
-            for b in BWD_SITES[site_kind(s, st)] if f"{s}{b}" not in report]
+            for b in BWD_SITES[site_kind(s, st)]
+            if f"{s}{b}" not in report and f"{s}{b}" not in NEVER_COMPUTED]
     if lost:
         fail(f"{label}: backward sites missing from the report: {lost}")
     return sorted(report)
+
+
+def train_launches(label: str, cfg, launches: dict, variants: dict) -> dict:
+    """A train run's launches: only GEMMs, and on a dense model none on
+    the tiled kernel (every operand is TMA-addressable); returns the
+    GEMM launches by kernel."""
+    gemms = {w: {k: n for k, n in variants[w].items() if n}
+             for w in GEMM_WRAPPERS}
+    if cfg.family == "dense" and any(variants[w]["tiled"]
+                                     for w in GEMM_WRAPPERS):
+        fail(f"{label}: tiled GEMM launches {gemms}: every operand of "
+             "this path is TMA-addressable")
+    if any(launches[k] for k in launches if k not in GEMM_WRAPPERS):
+        fail(f"{label}: non-GEMM kernels launched: {launches}")
+    return gemms
 
 
 def zero_grad_leaf(cfg, path: str) -> bool:
@@ -4470,14 +4513,7 @@ def train_phase(torch, device_name: str, label: str, arch: str, seq: int,
                 or sum(tail) / 5 >= sum(head) / 5:
             fail(f"{label}: losses {history}: not finite, or the last 5 "
                  "steps' mean not below the first 5's")
-        gemms = {w: {k: n for k, n in variants[w].items() if n}
-                 for w in GEMM_WRAPPERS}
-        if cfg.family == "dense" and any(variants[w]["tiled"]
-                                         for w in GEMM_WRAPPERS):
-            fail(f"{label}: tiled GEMM launches {gemms}: every operand of "
-                 "this path is TMA-addressable")
-        if any(launches[k] for k in launches if k not in GEMM_WRAPPERS):
-            fail(f"{label}: non-GEMM kernels launched: {launches}")
+        gemms = train_launches(label, cfg, launches, variants)
         print(f"{label}: Trainer ran {TRAIN_STEPS} steps (peak lr "
               f"{TRAIN_LR}, warmup {TRAIN_WARMUP}, checkpoints every "
               f"{TRAIN_CKPT_EVERY}) in {wall:.1f} s: losses "
@@ -4522,6 +4558,401 @@ def train_phase(torch, device_name: str, label: str, arch: str, seq: int,
     return {"launches": launches, "variants": variants, "rows": rows,
             "per_step": {key: n / TRAIN_STEPS for key, n in shapes.items()},
             "timing": timing}
+
+
+#: the rest of single-card training (label, arch, tokens a sequence,
+#: sequences a step, steps, config changes): qwen1.5-0.5b at train_4k's
+#: published 4096-token sequences (blockwise attention, above 2048 rows,
+#: in the forward, the recompute and the backward), 8 a step as
+#: ``grad_accum`` 4 microbatches of 2, 3 steps (~10.8 s each: the blockwise
+#: loop launches ~320 k kernels a step); llava-next-mistral-7b, 8 requests
+#: of 576 patch rows and 512 text tokens, cut to 24 of 32 layers: at 14
+#: bytes a parameter a mistral layer's 218 M take 2.85 GiB, and 32 layers
+#: plus the embeddings, head and patch projection 94.6 GiB; 24 ran twice
+#: out of two at a 75.17 GiB peak of the card's 79.18 (26 would add 5.7)
+SLICE_TRAIN = (("train_4k", ARCH, 4096, 8, 3, {"grad_accum": 4}),
+               ("llava_train", DENSE_ARCHS["llava"], 576 + 512, 8, 5,
+                {"n_layers": 24}))
+#: check (a) of the llava phase: two float32 gradient trees at this depth
+LLAVA_PARITY_LAYERS = 2
+
+
+def slice_train_phase(torch, device_name: str, label: str, arch: str,
+                      seq: int, batch: int, steps: int, cuts: dict) -> dict:
+    """``arch`` at its published width, bf16, ``remat="full"``, at the
+    cut shape and depth of ``SLICE_TRAIN``: check (a) (``grad_parity``
+    on one sequence; llava at ``LLAVA_PARITY_LAYERS``), then ``steps``
+    steps of the Trainer's step function from seeded weights with every
+    count set to 0 just before and read just after (b: every forward and
+    ``/bwd_*`` site planned but ``NEVER_COMPUTED``, no fallback, the GEMM
+    launches by kernel; c: every loss finite, the last below the first),
+    the host time of the steps after the first, one microbatch's loss
+    and gradients on the host clock and traced (device busy by kernel,
+    idle share), the allocated peak; then ``TRAIN_SHAPES[label]`` timed.
+    Returns the path's launches, launches by kernel, timed rows and
+    launches a step of each timed shape."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import SHAPES, ShapeSpec
+    from repro_torch.kernels import planned
+    from repro_torch.train import TrainConfig, Trainer
+    from repro_torch.train.loop import batch_tensors
+    from repro_torch.train.step import value_and_grad
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = get_config(arch)
+    cfg = dataclasses.replace(base, **cuts)
+    if cfg.remat != "full" or cfg.dtype != "bfloat16":
+        fail(f"{label}: {arch} is not bf16 with remat='full'")
+    full = SHAPES["train_4k"]
+    rows = seq - cfg.vlm_patches
+    micro = batch // cfg.grad_accum
+    said = (f"{full.name}'s {full.seq_len} tokens x {full.global_batch} "
+            f"cut to {seq} x {batch} a step, grad_accum {base.grad_accum} "
+            f"-> {cfg.grad_accum} (microbatches of {micro} x {seq}), "
+            f"{steps} steps; attention blockwise ({seq} > 2048 rows) in "
+            "the forward, the recompute and the backward"
+            if cfg.family == "dense" else
+            f"{batch} requests of {cfg.vlm_patches} seeded patch rows and "
+            f"{rows} text tokens a step ({batch * seq} rows), grad_accum "
+            f"{cfg.grad_accum}, {steps} steps; {base.n_layers} layers cut "
+            f"to {cfg.n_layers}; attention on the direct path (at most "
+            "2048 rows)")
+    print(f"{label}: {arch} at its published width ({cfg.n_layers} layers, "
+          f"d {cfg.d_model}, {cfg.n_heads} heads of {cfg.hd}, ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab}), bf16, remat full, random "
+          f"weights seeded with 0 drawn on the card; cuts: {said}",
+          flush=True)
+    parity_cfg = cfg
+    if cfg.family == "vlm":
+        parity_cfg = dataclasses.replace(cfg, n_layers=LLAVA_PARITY_LAYERS)
+        print(f"{label}: check (a) at {LLAVA_PARITY_LAYERS} of "
+              f"{cfg.n_layers} layers (two float32 gradient trees of the "
+              "full-width model)", flush=True)
+    grad_parity(torch, label, parity_cfg, ShapeSpec("card", "train", seq, 1))
+    torch.cuda.empty_cache()
+
+    shape = ShapeSpec("card", "train", seq, batch)
+    tcfg = TrainConfig(base_lr=TRAIN_LR, warmup=TRAIN_WARMUP,
+                       total_steps=steps)
+    ckpt = tempfile.mkdtemp(prefix="widesa_slice_")  # the steps save none
+    trainer = Trainer(cfg, shape, ckpt_dir=ckpt, tcfg=tcfg, device="cuda")
+    params, opt = trainer.init_state()
+    torch.cuda.synchronize()
+    before = planned.planned_report()
+    reset_counts()
+    history, walls = [], []
+    for step in range(steps):
+        data = batch_tensors(trainer.data.batch(step), "cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, metrics = trainer.step_fn(params, opt, data, step)
+        history.append(float(metrics["loss"]))
+        walls.append((time.perf_counter() - t0) * 1e3)
+    launches, variants = read_counts(), read_variants()
+    report = planned.report_delta(before, planned.planned_report())
+    sites = check_train_sites(label, report)
+    if not all(map(math.isfinite, history)) or history[-1] >= history[0]:
+        fail(f"{label}: losses {history}: not finite, or the last not "
+             "below the first")
+    gemms = train_launches(label, cfg, launches, variants)
+    # one microbatch's loss and gradients: on the host clock, then traced
+    part = {k: v[:micro] for k, v in data.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    value_and_grad(trainer.api.loss, params, part)
+    torch.cuda.synchronize()
+    micro_ms = (time.perf_counter() - t0) * 1e3
+    _, ms, n_kernels, top = profiled(
+        torch, lambda: value_and_grad(trainer.api.loss, params, part))
+    wall = sorted(walls[1:])[len(walls[1:]) // 2]
+    busy = sum(ms.values())
+    tokens = batch * seq
+    peak = torch.cuda.max_memory_allocated()
+    card = torch.cuda.get_device_properties(0).total_memory
+    gemm = {k: round(v, 3) for k, v in ms.items()
+            if k in GEMM_KERNELS or k == "torch.matmul"}
+    print(f"{label}: {steps} steps, losses "
+          f"{[round(x, 4) for x in history]}; {len(sites)} sites planned "
+          f"with no fallback (every forward site's /bwd_* sites among them"
+          + (", but vlm.patch_proj/bwd_dx, never computed"
+             if cfg.family == "vlm" else "")
+          + f"); GEMM launches by kernel {gemms}; a step {wall:.2f} ms on "
+          f"the host clock (median of steps 2-{steps}), "
+          f"{tokens / wall * 1e3:.0f} tokens/s; one microbatch's loss and "
+          f"gradients ({micro} x {seq}) {micro_ms:.2f} ms host, traced: "
+          f"device busy {busy:.2f} ms in {n_kernels} kernels (GEMMs by "
+          f"kernel {gemm}, other {ms['other']:.2f}; the largest (name, ms, "
+          f"launches): {top}), device idle "
+          f"{max(0.0, 1 - busy / micro_ms):.0%}; allocated peak "
+          f"{gib(peak)} of the card's {gib(card)}; on {device_name} "
+          f"[{nvidia_smi()}]", flush=True)
+    if cfg.n_layers != base.n_layers:
+        print(f"{label}: cut: {depth_cut(base, cfg, params)}", flush=True)
+    if peak > card:
+        fail(f"{label}: allocated peak {gib(peak)} past the card's "
+             f"{gib(card)}")
+    del trainer, params, opt, metrics, data, part
+    shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.empty_cache()
+    shapes = count_shapes(report, [(k, s) for _, k, s, *_ in
+                                   TRAIN_SHAPES[label]])
+    rows = gemm_timings(torch, TRAIN_SHAPES[label], seed=19, long_sums=True)
+    print(f"{label}: the phase took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return {"launches": launches, "variants": variants, "rows": rows,
+            "per_step": {key: n / steps for key, n in shapes.items()}}
+
+
+def dots_phase(torch, device_name: str) -> dict:
+    """One step (loss and gradients) of full-width qwen1.5-0.5b, bf16, 8 x
+    512 tokens, under ``remat="dots"`` beside the same step under
+    ``full`` and ``none``: each one's allocated peak above what was
+    allocated before it (the weights, the batch and, before the dots
+    step, full's gradients, held for the comparison), and the dots step's
+    gradients against ``full``'s within ``GRAD_RTOL`` relative L2 per
+    leaf.  The ops ``_dots_policy`` saves in the dots step are tallied:
+    with every product planned it saves none, as the reference's policy
+    saves nothing inside its ``custom_vjp``s, so the dots step's peak
+    must not pass full's by more than ``DOTS_PEAK_SLACK``.  The dots
+    step's launches are the ``train_dots`` path's (every count set to 0
+    just before it)."""
+    import collections
+    import dataclasses
+
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data import SyntheticPipeline
+    from repro_torch.kernels import planned
+    from repro_torch.models import build_model
+    from repro_torch.models import transformer as T
+    from repro_torch.train.loop import batch_tensors
+    from repro_torch.train.step import value_and_grad
+
+    torch.cuda.empty_cache()
+    cfg = get_config(ARCH)
+    params = build_model(cfg, "cuda").init(
+        torch.Generator(device="cuda").manual_seed(0))
+    data = batch_tensors(SyntheticPipeline(
+        cfg, ShapeSpec("card", "train", 512, 8)).batch(0), "cuda")
+    decisions = collections.Counter()
+    policy = T._dots_policy
+
+    def tallied(ctx, func, *args, **kwargs):
+        decision = policy(ctx, func, *args, **kwargs)
+        decisions[(str(func), decision == CheckpointPolicy.MUST_SAVE)] += 1
+        return decision
+
+    peaks, grads, hosts = {}, {}, {}
+    for mode in ("none", "full", "dots"):
+        api = build_model(dataclasses.replace(cfg, remat=mode), "cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        if mode == "dots":
+            before = planned.planned_report()
+            reset_counts()
+            T._dots_policy = tallied
+        t0 = time.perf_counter()
+        try:
+            loss, g = value_and_grad(api.loss, params, data)
+            torch.cuda.synchronize()
+        finally:
+            T._dots_policy = policy
+        hosts[mode] = (time.perf_counter() - t0) * 1e3
+        peaks[mode] = torch.cuda.max_memory_allocated() - base
+        if mode != "none":
+            grads[mode] = (float(loss), g)
+        del g
+    launches, variants = read_counts(), read_variants()
+    saved = {op: n for (op, save), n in decisions.items() if save}
+    recomputed = sum(n for (_, save), n in decisions.items() if not save)
+    grad_bytes = sum(t.numel() * t.element_size()
+                     for t in tree.leaves(grads["full"][1]))
+    sites = check_train_sites("train_dots", planned.report_delta(
+        before, planned.planned_report()))
+    gemms = train_launches("train_dots", cfg, launches, variants)
+    (loss_f, g_f), (loss_d, g_d) = grads["full"], grads["dots"]
+    errs = sorted(((float((a.double() - b.double()).norm()
+                          / b.double().norm().clamp(min=1e-30)), path)
+                   for path, a, b in zip(tree.paths(g_d), tree.leaves(g_d),
+                                         tree.leaves(g_f))), reverse=True)
+    print(f"train_dots: one step of {ARCH} at full width, bf16, 8 x 512 "
+          f"tokens: allocated peak above what the step found allocated "
+          f"{gib(peaks['dots'])} under dots, {gib(peaks['full'])} under "
+          f"full, {gib(peaks['none'])} under none (the dots step found "
+          f"full's gradients, {gib(grad_bytes)}, held besides); host "
+          f"{hosts['dots']:.2f} / {hosts['full']:.2f} / {hosts['none']:.2f} "
+          f"ms; _dots_policy saved {saved or 'no op'} and recomputed "
+          f"{recomputed} op calls; loss {loss_d:.6f} vs full's "
+          f"{loss_f:.6f}; gradient leaves' relative L2 error against "
+          f"full's: largest {errs[0][0]:.3g} ({errs[0][1]}) (bound "
+          f"{GRAD_RTOL}); {len(sites)} sites planned, no fallback (dots "
+          f"saves no planned product: the reference's "
+          f"dots_with_no_batch_dims_saveable sees no dot inside its "
+          f"custom_vjp either); GEMM launches by kernel {gemms}; on "
+          f"{device_name}", flush=True)
+    if errs[0][0] > GRAD_RTOL or not math.isfinite(errs[0][0]) \
+            or abs(loss_d - loss_f) > GRAD_RTOL * abs(loss_f):
+        fail(f"train_dots: gradients under dots differ from full's: "
+             f"{errs[:5]}")
+    if saved or peaks["dots"] > peaks["full"] + DOTS_PEAK_SLACK:
+        fail(f"train_dots: dots saved {saved} or peaked "
+             f"{gib(peaks['dots'])} past full's {gib(peaks['full'])} by "
+             f"more than {gib(DOTS_PEAK_SLACK)}")
+    del params, grads, data
+    torch.cuda.empty_cache()
+    return {"launches": launches, "variants": variants, "rows": {},
+            "per_step": {}}
+
+
+#: how far the dots step's allocated peak may pass full's: the
+#: allocator's rounding, well under one saved product a layer (8 x 512 x
+#: 1024 bf16 in each of 24 layers is 192 MiB)
+DOTS_PEAK_SLACK = 64 << 20
+
+#: the race of ``autotune_phase``: each spec's smoke proxy on this mesh
+RACE_MESH = (1, 8)
+
+
+def no_xla_stamp() -> None:
+    """Every (kind, shape, dtype) the planned facade planned in this run
+    (the serving and training paths) misses the port's crossover table
+    under the default ``cached`` policy: modelled, and on the hand kernel
+    (``pallas``), but for the fused ``mm+mm`` and fft2d chains, whose
+    stamp stays the reference's ``xla``."""
+    from repro_torch.kernels import planned
+
+    seen = planned.observed_requests()
+    bad = []
+    for kind, shape, dtype in seen:
+        plan = planned.plan_for(kind, shape, dtype)
+        want = "xla" if "+" in kind else "pallas"
+        if plan is not None and (plan.provenance != "modelled"
+                                 or plan.backend != want):
+            bad.append((kind, shape, dtype, plan.backend, plan.provenance))
+    if bad:
+        fail(f"paths planned off the hand kernels by the table: {bad[:8]}")
+    print(f"autotune: the {len(seen)} (kind, shape, dtype) the serving and "
+          f"training paths planned all miss the crossover table "
+          f"({planned.DEFAULT_POLICY}): modelled, pallas but for the fused "
+          f"chains' xla", flush=True)
+
+
+def autotune_phase(torch, device_name: str) -> dict:
+    """The measured race with the port's own crossover table: the
+    committed table loads, names its card, and holds every
+    ``registry.autotune_cases`` and serving-census key on meshes 1x1 and
+    1x8, each entry with both backends timed; each spec's smoke proxy is
+    raced on every dtype its cases run on (``autotune.exec_dtype``), on
+    ``RACE_MESH``, under ``measured`` into a table of its own (``pallas``
+    on the hand kernel, ``xla`` the plain version, CUDA events), its
+    winner the least of its timings, persisted, and served back under
+    ``cached`` as a hit with no new race; ``machine_factor`` of these
+    timings against the committed table.  Returns the race's
+    launches."""
+    import shutil
+    import tempfile
+
+    from repro_torch.core import Target, autotune, best_plan
+    from repro_torch.kernels import registry
+    from repro_torch.launch.gen_autotune import serving_cases
+
+    t0 = time.perf_counter()
+    table = autotune.load_table(autotune.DEFAULT_TABLE_PATH)
+    extra, chains = serving_cases()
+    cases = [(spec.name, args, dtype) for spec in registry.specs()
+             for dtype, args in registry.autotune_cases(spec)]
+    want = {autotune.request_key(autotune.PlanRequest(
+        kind, args, dtype, Target(name="t", mesh_shape=mesh)))
+        for mesh in ((1, 1), (1, 8))
+        for kind, args, dtype in (*cases, *extra, *chains)}
+    missing = sorted(want - set(table["entries"]))
+    if missing or "H100" not in table["note"]:
+        fail(f"autotune: the committed table lacks {missing[:5]} or names "
+             f"no card: {table['note']!r}")
+    untimed = sorted(key for key, entry in table["entries"].items()
+                     if set(entry["us"]) != {"pallas", "xla"})
+    if untimed:
+        fail(f"autotune: the committed table has no timing of both "
+             f"backends for {untimed}")
+    winners = {}
+    for entry in table["entries"].values():
+        winners[entry["backend"]] = winners.get(entry["backend"], 0) + 1
+    # every race the table was built from: each spec's smoke proxy on each
+    # dtype its cases run on, beside the committed entry of one such case
+    proxies = {}
+    for kind, args, dtype in cases:
+        key = autotune.autotune_key(registry.get(kind).builder(*args, dtype),
+                                    RACE_MESH)
+        proxies.setdefault((kind, autotune.exec_dtype(kind, dtype)), key)
+    target = Target(name=f"autotune_{RACE_MESH}", mesh_shape=RACE_MESH)
+    tmp = Path(tempfile.mkdtemp(prefix="widesa_autotune_"))
+    fresh, raced = {}, []
+    reset_counts()
+    try:
+        for (kind, run), table_key in proxies.items():
+            spec = registry.get(kind)
+            rec = spec.builder(*spec.smoke_args, run)
+            key = autotune.autotune_key(rec, RACE_MESH)
+            path = tmp / f"{kind}_{run}.json"  # one file each: no mtime race
+            autotune.save_table(path, autotune.new_table())
+            measured = autotune.PlanPolicy(mode="measured",
+                                           table_path=str(path), reps=5,
+                                           warmup=2)
+            c0 = autotune.counters()
+            plan = best_plan(rec, target, policy=measured)
+            entry = autotune.load_table(path)["entries"].get(key)
+            c1 = autotune.counters()
+            again = best_plan(rec, target, policy=autotune.PlanPolicy(
+                mode="cached", table_path=str(path)))
+            c2 = autotune.counters()
+            ok = (entry is not None
+                  and entry["backend"] == min(entry["us"],
+                                              key=entry["us"].get)
+                  and set(entry["us"]) == {"pallas", "xla"}
+                  and plan.backend == again.backend == entry["backend"]
+                  and plan.provenance == again.provenance == "measured"
+                  and c1["measure_calls"] == c0["measure_calls"] + 1
+                  and c2["hits"] == c1["hits"] + 1
+                  and c2["measure_calls"] == c1["measure_calls"])
+            if not ok:
+                fail(f"autotune: {key}: entry {entry}, plan "
+                     f"{plan.backend}/{plan.provenance}, served "
+                     f"{again.backend}/{again.provenance}, counters {c0} "
+                     f"{c1} {c2}")
+            committed = table["entries"][table_key]
+            if committed["measured_dtype"] != run:
+                fail(f"autotune: {table_key} was raced on "
+                     f"{committed['measured_dtype']}, not {run}")
+            fresh[table_key] = entry["us"][entry["backend"]]
+            raced.append((key, entry["backend"], entry["us"],
+                          committed["backend"], committed["us"]))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches, variants = read_counts(), read_variants()
+    factor = autotune.machine_factor(table, fresh)
+    print(f"autotune: the committed table ({len(table['entries'])} entries, "
+          f"winners {winners}; {table['note']!r}) holds every one of the "
+          f"{len(want)} registry and census keys, each with both backends "
+          f"timed; raced each spec's smoke proxy on each dtype its cases "
+          f"run on ({len(raced)} races), mesh "
+          f"{'x'.join(map(str, RACE_MESH))}, CUDA events, median of 5 after "
+          f"2 (key, winner, us, committed winner, committed us): {raced}; "
+          f"each persisted and served back as a hit with no new race; "
+          f"machine_factor of these timings against the committed table "
+          f"{factor:.3f}; the race's launches {launches}; "
+          f"{time.perf_counter() - t0:.1f} s on {device_name}", flush=True)
+    return {"launches": launches, "variants": variants, "rows": {},
+            "per_step": {}}
 
 
 def iter_tensors(tree):
@@ -5707,6 +6138,9 @@ def main(argv=None) -> int:
     if args.train:
         for phase in TRAIN_PHASES:
             train_phase(torch, name, *phase)
+        for phase in SLICE_TRAIN:
+            slice_train_phase(torch, name, *phase)
+        dots_phase(torch, name)
         return 0
     if args.dense:
         dense_phase(torch, name)
@@ -5782,6 +6216,12 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     train_paths = {phase[0]: train_phase(torch, name, *phase)
                    for phase in TRAIN_PHASES}
+    torch.cuda.empty_cache()
+    for phase in SLICE_TRAIN:
+        train_paths[phase[0]] = slice_train_phase(torch, name, *phase)
+    train_paths["train_dots"] = dots_phase(torch, name)
+    no_xla_stamp()
+    train_paths["autotune"] = autotune_phase(torch, name)
     torch.cuda.empty_cache()
     long_rows = gemm_timings(torch)
     moe_rows = gemm_timings(torch, MOE_SHAPES, seed=15)

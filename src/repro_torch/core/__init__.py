@@ -7,7 +7,8 @@
     partition.py   — array partition + latency hiding + multiple threading
     plio.py        — mapped graph, congestion model, Algorithm 1
     mapper.py      — search + cost model -> ExecutionPlan
-    autotune.py    — PlanPolicy / PlanRequest / memoized resolve
+    autotune.py    — PlanPolicy / PlanRequest / memoized resolve, the
+                     measured race and the port's crossover table
     fusion.py      — producer->consumer chains (mm+mm, fft2d stage pairs,
                      conv2d / stencil halo chains)
     codegen.py     — ExecutionPlan -> executable (xla / pallas backends)

@@ -1,7 +1,8 @@
 """ExecutionPlan -> executable (paper §IV back half) — the port's copy of
 ``repro.core.codegen`` for one card.
 
-Two backends of the reference run here:
+Two backends of the reference run here, the pair a crossover-table race
+(``core/autotune.py``) times on one device:
 
   'xla'     — the recurrence's plain PyTorch version (``kernels/ref.py``
               by way of the registry).
@@ -12,7 +13,7 @@ Two backends of the reference run here:
 
 A ``FusedPlan`` lowers through ``fusion.lower_fused``.  The chip-level
 schedules (``systolic``, ``allgather``) are the multi-device work of
-ROADMAP A12 and raise ``NotImplementedError``; so do hierarchical
+ROADMAP A9 and raise ``NotImplementedError``; so do hierarchical
 targets, already at planning (``mapper.best_plan``).  An
 unregistered recurrence raises ``registry.UnregisteredRecurrenceError``
 from either backend.
@@ -37,7 +38,7 @@ def lower_plan(plan: ExecutionPlan, backend: str = "xla") -> Callable:
     if backend in ("systolic", "allgather"):
         raise NotImplementedError(
             f"the {backend} backend is multi-device work the port has not "
-            "done yet (ROADMAP A12)")
+            "done yet (ROADMAP A9)")
     spec = registry.get(plan.recurrence.name)
     if backend == "xla":
         return spec.ref

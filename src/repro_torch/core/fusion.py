@@ -19,12 +19,12 @@ Three chain families, as in the reference: the non-GLU MLP pair
 (``conv2d -> jacobi2d``, ``jacobi2d <-> jacobi2d_9pt``), whose consumer
 reads the producer's output as its padded grid.  The reference's
 one-shard_map ``fused_systolic`` schedules are multi-device work
-(ROADMAP A12): that backend raises ``NotImplementedError``.
+(ROADMAP A9): that backend raises ``NotImplementedError``.
 
-``FusedPlan.backend`` defaults to ``"xla"``, as in the reference: the
-modelled policy never restamps it, so both serving chains run their
-plain versions (``torch.matmul`` in fp32, ``torch.fft.fft2``) — the
-plan's own stamp, not a fallback.
+``FusedPlan.backend`` defaults to ``"xla"``, as in the reference; a
+crossover-table hit (``autotune.apply_policy``) may restamp it, else both
+serving chains run their plain versions (``torch.matmul`` in fp32,
+``torch.fft.fft2``) — the plan's own stamp, not a fallback.
 """
 
 from __future__ import annotations
@@ -75,6 +75,12 @@ class RecurrenceChain:
     @property
     def dtype(self) -> str:
         return self.stages[0].dtype
+
+    def with_dtype(self, dtype: str) -> "RecurrenceChain":
+        """The chain with every stage's dtype replaced (the race's
+        ``autotune.exec_dtype`` twin; dtype is inert in the IR)."""
+        return RecurrenceChain(tuple(
+            dataclasses.replace(s, dtype=dtype) for s in self.stages))
 
 
 def chain(*stages: UniformRecurrence) -> RecurrenceChain:
@@ -402,9 +408,36 @@ def split_operands(plan: FusedPlan, operands) -> tuple[list, list]:
     return stage_ops, biases
 
 
+def chain_operands(ch: RecurrenceChain, generator: torch.Generator,
+                   interstage: tuple[str | None, ...] | None = None,
+                   device="cpu") -> tuple:
+    """Seeded operands in the chain's layout (``operand_counts``) on
+    ``device``, drawn as ``registry.operands`` draws a recurrence's."""
+    from repro_torch.kernels import registry
+
+    inter = tuple(interstage) if interstage is not None else (
+        (None,) * (len(ch.stages) - 1))
+    specs = [registry.get(s.name) for s in ch.stages]
+    ops: list = list(registry.operands(ch.stages[0], generator, device))
+    for b, (rec, spec) in enumerate(zip(ch.stages[1:], specs[1:])):
+        if interstage_has_bias(inter[b]):
+            n_cols = _io_shape(ch.stages[b])[1][-1]
+            ops.append(registry._draw(generator, (n_cols,), ch.dtype,
+                                      device))
+        ops.extend(registry.operands(rec, generator, device)
+                   [specs[b].n_outputs:])
+    return tuple(ops)
+
+
 # ---------------------------------------------------------------------------
 # lowering
 # ---------------------------------------------------------------------------
+
+def fused_available_backends(plan: FusedPlan) -> tuple[str, ...]:
+    """Fused backends the port executes: the plain and the hand-kernel
+    compositions (``fused_systolic`` is ROADMAP A9)."""
+    return ("xla", "pallas")
+
 
 def _composed(plan: FusedPlan, stage_fn: Callable[[int], Callable]
               ) -> Callable:
@@ -454,6 +487,6 @@ def lower_fused(plan: FusedPlan, backend: str | None = None) -> Callable:
     if backend in ("fused_systolic", "systolic"):
         raise NotImplementedError(
             "the one-shard_map fused_systolic schedules are multi-device "
-            "work the port has not done yet (ROADMAP A12); the port runs "
+            "work the port has not done yet (ROADMAP A9); the port runs "
             "the xla/pallas compositions")
     raise ValueError(f"unknown fused backend {backend!r}")

@@ -295,27 +295,37 @@ plan_cache_clear = _map_recurrence_cached.cache_clear
 
 def best_plan(rec: UniformRecurrence, target: Target = Target(),
               policy=None) -> ExecutionPlan:
-    """The single planning entrypoint: the modelled mapping, stamped
+    """The single planning entrypoint: the modelled mapping (stamped
     ``("pallas", "modelled")`` — the port runs a ``pallas`` stamp on its
-    hand-written Hopper kernel.
+    hand-written Hopper kernel) plus the policy's backend decision.
 
-    ``policy`` is a ``core.autotune.PlanPolicy`` (or None); its only
-    mode in the port is modelled.  ``rec`` may also be a
+    ``policy`` is a ``core.autotune.PlanPolicy`` (or None == modelled):
+    "modelled" returns the mapper's choice untouched; "cached" consults
+    the crossover table and stamps the measured winner on a hit (a miss
+    keeps the modelled choice and times nothing); "measured" races the
+    backends on a miss and persists the winner.  ``rec`` may also be a
     ``fusion.RecurrenceChain``: the chain runs the fusion legality pass
     (``fusion.fuse``, raising ``FusionError`` on an illegal chain) and
-    returns a ``FusedPlan``.  Hierarchical targets (the reference's
-    ``hierarchy`` planner) are not ported yet and raise
-    ``NotImplementedError``.
+    returns a ``FusedPlan``, the policy applied alike.  Hierarchical
+    targets (the reference's ``hierarchy`` planner) are ROADMAP A9 and
+    raise ``NotImplementedError``.
     """
     from . import fusion  # late: fusion imports this module
 
     if getattr(target, "outer_shape", None) is not None:
         raise NotImplementedError(
-            "hierarchical targets are not planned by the port yet")
+            "hierarchical targets are not planned by the port yet "
+            "(ROADMAP A9)")
     if isinstance(rec, fusion.RecurrenceChain):
-        return fusion.fuse(rec, target)
-    # top_k=1: a cache hit copies one plan, not the default five
-    plans = map_recurrence(rec, target, top_k=1)
-    if not plans:
-        raise RuntimeError(f"no feasible mapping for {rec.name}")
-    return plans[0]
+        plan = fusion.fuse(rec, target)
+    else:
+        # top_k=1: a cache hit copies one plan, not the default five
+        plans = map_recurrence(rec, target, top_k=1)
+        if not plans:
+            raise RuntimeError(f"no feasible mapping for {rec.name}")
+        plan = plans[0]
+    if policy is None or policy.mode == "modelled":
+        return plan
+    from . import autotune  # late: autotune imports this module
+
+    return autotune.apply_policy(plan, policy)

@@ -36,9 +36,17 @@ reason at every call site:
 A fallback runs the plain PyTorch version in ``ref.py`` for tensors on
 the CPU.  Off the CPU only the explicit ``"disabled"`` switch runs it: a
 card tensor whose call has no plan (``dtype:…``, ``infeasible``) raises,
-so neither serving nor training leaves the hand kernels unseen.  The
-port's default policy is ``PlanPolicy(mode="modelled")``: the reference's
-committed crossover table holds winners timed for its own backends.
+so neither serving nor training leaves the hand kernels unseen.
+
+The default policy is the reference's ``PlanPolicy(mode="cached")`` over
+the port's own crossover table (``core/default_autotune.json``, measured
+on the H100; never the reference's).  A hit stamps the measured winner:
+a plan stamped ``xla`` runs the registry's plain version with the
+kernels' ``out_dtype`` contract (``runtime.execute_plan``), the plan's
+stamp and not a fallback, counted under ``backends`` in
+``planned_report()``.  The table's keys are the registry's smoke and
+bench cases and the float32 census of the smoke configs, so a full-width
+bf16 GEMM misses, stays modelled and runs its hand kernel.
 
 ``planned_report()`` keeps per-call-site counters.  PyTorch runs eagerly,
 so a decision is counted on every call (the reference counts once per
@@ -69,7 +77,9 @@ PLANNED_TARGET = Target(name="planned_chip", mesh_shape=(1, 8))
 SUPPORTED_DTYPES = frozenset(
     {"float32", "bfloat16", "int8", "int16", "int32"})
 
-DEFAULT_POLICY = PlanPolicy(mode="modelled")
+#: Consult the port's committed crossover table, never measure at call
+#: time (a miss keeps the modelled choice).
+DEFAULT_POLICY = PlanPolicy(mode="cached")
 
 
 # ---------------------------------------------------------------------------
@@ -342,6 +352,26 @@ def _a_rows(t: torch.Tensor, dtype: torch.dtype | None = None):
     return padded_rows(t, dtype)
 
 
+#: planned executions in progress (the Functions' forwards)
+_EXECUTING = [0]
+
+
+@contextlib.contextmanager
+def _executing():
+    _EXECUTING[0] += 1
+    try:
+        yield
+    finally:
+        _EXECUTING[0] -= 1
+
+
+def planned_executing() -> bool:
+    """Whether a planned Function's forward is running: the ops it
+    dispatches are its planned product (``transformer._dots_policy``
+    treats them as the reference's policy treats a ``custom_vjp``)."""
+    return _EXECUTING[0] > 0
+
+
 class _MMPlanned(torch.autograd.Function):
     """``x @ w`` on a plan (the reference's ``_mm_planned`` custom_vjp):
     the backward's dx and dW are planned GEMMs themselves."""
@@ -350,7 +380,8 @@ class _MMPlanned(torch.autograd.Function):
     def forward(ctx, plan, site, x, w):
         ctx.site = site
         ctx.save_for_backward(x, w)
-        return execute_plan(plan, x, _operand(w))
+        with _executing():
+            return execute_plan(plan, x, _operand(w))
 
     @staticmethod
     def backward(ctx, g):
@@ -403,7 +434,8 @@ class _BMMPlanned(torch.autograd.Function):
     def forward(ctx, plan, site, out_dtype, a, b):
         ctx.site = site
         ctx.save_for_backward(a, b)
-        return execute_plan(plan, a, b, out_dtype=out_dtype)
+        with _executing():
+            return execute_plan(plan, a, b, out_dtype=out_dtype)
 
     @staticmethod
     def backward(ctx, g):
@@ -504,7 +536,8 @@ class _MLPPairPlanned(torch.autograd.Function):
     def forward(ctx, plan, site, act, x, wu, bu, wd):
         ctx.site, ctx.act = site, act
         ctx.save_for_backward(x, wu, bu, wd)
-        return _execute_pair(plan, act, x, wu, bu, wd)
+        with _executing():
+            return _execute_pair(plan, act, x, wu, bu, wd)
 
     @staticmethod
     def backward(ctx, g):

@@ -96,6 +96,14 @@ def specs() -> tuple[KernelSpec, ...]:
     return tuple(_REGISTRY[n] for n in registered_names())
 
 
+def autotune_cases(spec: KernelSpec
+                   ) -> tuple[tuple[str, tuple[int, ...]], ...]:
+    """The (dtype, builder-args) cases a crossover table must cover for
+    ``spec``, as the reference's: the smoke case plus every bench case
+    (bench sizes double as autotune keys)."""
+    return ((spec.parity_dtypes[0], spec.smoke_args), *spec.bench_cases)
+
+
 def _draw(generator: torch.Generator, shape, dtype: str, device):
     """One operand, as the reference's ``_draw``: integers in [-8, 8),
     anything else (float32, and the complex dtypes' float32 real planes)

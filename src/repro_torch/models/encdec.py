@@ -30,8 +30,8 @@ decoder's self-attention K/V in block pools, the encoder K/V and
 
 Training: ``decode_train`` is the teacher-forced decoder pass over whole
 encoder states and ``loss_fn`` the masked cross-entropy of its tied-head
-logits; with ``cfg.remat == "full"`` and grad enabled, each encoder and
-decoder layer runs under ``torch.utils.checkpoint``
+logits; with ``cfg.remat`` "full" or "dots" and grad enabled, each
+encoder and decoder layer runs under ``torch.utils.checkpoint``
 (``transformer.run_layers``).
 """
 

@@ -32,15 +32,14 @@ Mamba2 blocks plan nothing.
 
 Training: ``loss_fn`` is the reference's masked next-token
 cross-entropy over the untied ``lm_head``'s fp32 logits.  With
-``cfg.remat == "full"`` and grad enabled, ``forward`` runs each trunk
-block and each application of the shared block under
-``torch.utils.checkpoint``, as the reference's ``_maybe_remat``.
+``cfg.remat`` "full" or "dots" and grad enabled, ``forward`` runs each
+trunk block and each application of the shared block under
+``transformer.checkpointed``, as the reference's ``_maybe_remat``.
 """
 
 from __future__ import annotations
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.planned import planned_dense
 
@@ -127,22 +126,19 @@ def _shared_block(sp, cfg, x, positions):
 
 def forward(p, cfg, tokens):
     """Full-sequence forward -> final-norm hidden states [B, S, d]; each
-    trunk block and shared application under ``torch.utils.checkpoint``
-    where ``transformer.remat`` says."""
+    trunk block and shared application under ``transformer.checkpointed``
+    as ``transformer.remat`` says."""
     _check_family(cfg)
     x = TFM.embed_tokens(p, cfg, tokens)
     positions = TFM._positions(x)
-    full = TFM.remat(cfg)
-
-    def run(fn, *args):
-        return checkpoint(fn, *args, use_reentrant=False) if full \
-            else fn(*args)
-
+    mode = TFM.remat(cfg)
     for i, lp in enumerate(p["trunk"]):
-        x = run(lambda x, lp: _trunk_block(lp, cfg, x), x, lp)
+        x = TFM.checkpointed(mode, lambda x, lp: _trunk_block(lp, cfg, x),
+                             x, lp)
         if _shared_after(cfg, i) is not None:
-            x = run(lambda x, sp: _shared_block(sp, cfg, x, positions), x,
-                    p["shared"])
+            x = TFM.checkpointed(
+                mode, lambda x, sp: _shared_block(sp, cfg, x, positions), x,
+                p["shared"])
     return L.apply_norm(p["ln_f"], cfg, x)
 
 

@@ -235,6 +235,9 @@ def blockwise_attention(q, k, v, *, causal: bool, scale=None,
     ``block_skip`` (with ``causal``) visits only the kv chunks that hold
     a position some query of the q chunk sees.  The products are
     ``torch.matmul``: the reference's are XLA einsums, not a kernel.
+    Without autograd the logit block is scaled, masked and exponentiated
+    in place; when a gradient is recorded each step makes a new tensor,
+    since the block's max saves the block for its backward.
     """
     b, sq, h, dqk = q.shape
     skv, dv = k.shape[1], v.shape[-1]
@@ -249,6 +252,8 @@ def blockwise_attention(q, k, v, *, causal: bool, scale=None,
     ar_k = torch.arange(k_chunk, device=q.device)
     out = torch.empty((b, h, nq * q_chunk, dv), dtype=v.dtype,
                       device=q.device)
+    inplace = not (torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v)))
     for qi in range(nq):
         qc = qh[:, :, qi * q_chunk:(qi + 1) * q_chunk]
         qpos = qi * q_chunk + ar_q
@@ -264,7 +269,7 @@ def blockwise_attention(q, k, v, *, causal: bool, scale=None,
             kc = kh[:, :, ki * k_chunk:(ki + 1) * k_chunk]
             vc = vh[:, :, ki * k_chunk:(ki + 1) * k_chunk]
             s = torch.matmul(qc, kc.transpose(-1, -2))
-            s.mul_(scale)
+            s = s.mul_(scale) if inplace else s * scale
             kpos = ki * k_chunk + ar_k
             mask = None
             if causal and (ki + 1) * k_chunk - 1 > qi * q_chunk:
@@ -273,9 +278,11 @@ def blockwise_attention(q, k, v, *, causal: bool, scale=None,
                 valid = (kpos < skv)[None, :]
                 mask = valid if mask is None else mask & valid
             if mask is not None:  # an all-true mask leaves s as it is
-                s.masked_fill_(~mask, -1e30)
+                s = (s.masked_fill_(~mask, -1e30) if inplace
+                     else s.masked_fill(~mask, -1e30))
             m_new = torch.maximum(m, s.amax(dim=-1))
-            s.sub_(m_new[..., None]).exp_()
+            s = (s.sub_(m_new[..., None]).exp_() if inplace
+                 else torch.exp(s - m_new[..., None]))
             corr = torch.exp(m - m_new)
             l = l * corr + s.sum(dim=-1)
             acc = acc * corr[..., None] + torch.matmul(

@@ -29,9 +29,11 @@ block tables.
 Training: ``loss_fn`` is the reference's masked next-token cross-entropy
 (``logit_chunk`` chunks the lm_head and the loss over the sequence; a
 vlm's over its text rows only) plus ``1e-2`` times the MoE layers'
-summed load-balance terms; with ``cfg.remat == "full"`` and grad
-enabled, ``forward`` runs each layer under ``torch.utils.checkpoint``,
-as the reference's ``jax.checkpoint`` around its scanned block.  Serving
+summed load-balance terms; with ``cfg.remat`` "full" or "dots" and grad
+enabled, ``forward`` runs each layer under ``torch.utils.checkpoint``
+(``checkpointed``), as the reference's ``jax.checkpoint`` around its
+scanned block, "dots" with the reference's policy
+``dots_with_no_batch_dims_saveable`` (``_dots_policy``).  Serving
 runs under ``no_grad``, never takes that path and computes no
 load-balance term.
 """
@@ -39,9 +41,10 @@ load-balance term.
 from __future__ import annotations
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
-from repro_torch.kernels.planned import planned_dense
+from repro_torch.kernels.planned import planned_dense, planned_executing
 
 from . import layers as L
 from . import mla as MLA
@@ -165,26 +168,56 @@ def _positions(x):
     return torch.arange(s, device=x.device).expand(b, s)
 
 
-def remat(cfg) -> bool:
-    """Whether a layer's activations are recomputed in the backward pass
-    (``cfg.remat == "full"`` while grad is enabled)."""
+def remat(cfg) -> str | None:
+    """How a layer's activations are recomputed in the backward pass:
+    ``cfg.remat`` ("full" or "dots") while grad is enabled, else None."""
     if not torch.is_grad_enabled() or cfg.remat == "none":
-        return False
-    if cfg.remat != "full":
-        raise NotImplementedError(
-            f"remat={cfg.remat!r} is not ported (ROADMAP A8); the port "
-            "recomputes whole layers (remat='full') or none")
-    return True
+        return None
+    if cfg.remat not in ("full", "dots"):
+        raise ValueError(f"remat must be none|dots|full, got {cfg.remat!r}")
+    return cfg.remat
+
+
+#: the products without batch dimensions (``torch.matmul`` of a [.., K]
+#: activation and a [K, N] weight folds into ``aten.mm``)
+_NO_BATCH_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, func, *args, **kwargs):
+    """``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``: a
+    product without batch dimensions (``aten.mm``/``addmm``) is saved, all
+    else recomputed.  A planned product is opaque to it, as the
+    reference's ``custom_vjp`` around its kernel is to JAX's policy: the
+    ops a planned Function dispatches are recomputed with it."""
+    if func in _NO_BATCH_DOTS and not planned_executing():
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_contexts():
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
+def checkpointed(mode, fn, *args):
+    """``fn(*args)``, under ``torch.utils.checkpoint`` for ``mode`` (the
+    reference's ``_maybe_remat``): "full" recomputes everything in the
+    backward, "dots" saves the unplanned products without batch
+    dimensions (``_dots_policy``), None runs ``fn`` plainly."""
+    if mode is None:
+        return fn(*args)
+    if mode == "dots":
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=_dots_contexts)
+    return checkpoint(fn, *args, use_reentrant=False)
 
 
 def run_layers(cfg, layer, x, stack):
     """``x`` (a tensor or a tuple of them) through ``layer(x, lp)`` for
-    each layer's parameters in ``stack``, each under
-    ``torch.utils.checkpoint`` where ``remat`` says."""
-    full = remat(cfg)
+    each layer's parameters in ``stack``, each under ``checkpointed`` as
+    ``remat`` says."""
+    mode = remat(cfg)
     for lp in stack:
-        x = (checkpoint(layer, x, lp, use_reentrant=False) if full
-             else layer(x, lp))
+        x = checkpointed(mode, layer, x, lp)
     return x
 
 

@@ -6,7 +6,9 @@ card, the block-paged serving engine's captured decode step against an
 eager one (the MLA family's absorbed decode among them), deepseek-v2's
 new GEMM shapes, and training: the facade's backward passes on the hand
 kernels, a long-K bf16 GEMM rounded from its fp32 sum, SMOKE train
-steps' gradients against the plain versions.
+steps' gradients against the plain versions, the blockwise backward
+against the host's under remat full and dots; and the crossover table's
+measured race on the hand kernels.
 
 Every test here is ``gpu``-marked and skips without a CUDA card.  The file
 imports only the port (no JAX), so it runs on a machine with a card and
@@ -1720,3 +1722,72 @@ def test_smoke_train_step_gradients_match_the_plain_versions(arch, gen):
     assert torch.isfinite(metrics["loss"])
     assert all(not torch.equal(a, b) for a, b in zip(tree.leaves(new),
                                                      tree.leaves(params)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("remat", ["full", "dots"])
+def test_blockwise_backward_matches_the_host_on_the_card(remat, gen):
+    """A 2-layer SMOKE qwen over one 2112-token sequence (blockwise
+    attention, above 2048 rows) in float32: the loss and every gradient
+    leaf on the card's kernels within 1e-3 relative (L2) of the same step
+    on the host, under ``remat`` "full" and "dots"."""
+    import dataclasses
+
+    from repro_torch import tree
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data import SyntheticPipeline
+    from repro_torch.models import build_model
+    from repro_torch.train.loop import batch_tensors
+    from repro_torch.train.step import value_and_grad
+
+    cfg = dataclasses.replace(get_smoke_config("qwen1.5-0.5b"), remat=remat)
+    params = build_model(cfg, "cpu").init(torch.Generator().manual_seed(1))
+    batch = SyntheticPipeline(cfg, ShapeSpec("t", "train", 2112, 1)).batch(0)
+    planned.reset_configuration()
+    runs = {}
+    for device in ("cpu", "cuda"):
+        on = tree.tree_map(lambda t: t.to(device), params)
+        runs[device] = value_and_grad(build_model(cfg, device).loss, on,
+                                      batch_tensors(batch, device))
+    (loss, grads), (loss_c, grads_c) = runs["cpu"], runs["cuda"]
+    assert abs(float(loss_c) - float(loss)) <= 1e-3 * abs(float(loss))
+    for path, g, w in zip(tree.paths(grads_c), tree.leaves(grads_c),
+                          tree.leaves(grads)):
+        g = g.cpu().double()
+        assert torch.isfinite(g).all(), path
+        err = float((g - w.double()).norm() / w.double().norm())
+        assert err <= 1e-3, (path, err)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["mm", "fir", "jacobi2d_ms", "mttkrp"])
+def test_measured_race_times_both_backends_on_the_card(name, gen,
+                                                       tmp_path):
+    """``measured`` mode on the card: the spec's smoke proxy raced with
+    CUDA events, ``pallas`` on the hand kernel (its launches counted) and
+    ``xla`` on the plain version; the winner the least of its timings,
+    persisted, and served back under ``cached`` without a new race."""
+    from repro_torch.core import Target, autotune, best_plan
+
+    spec = registry.get(name)
+    rec = spec.builder(*spec.smoke_args, spec.parity_dtypes[0])
+    path = tmp_path / "t.json"
+    autotune.save_table(path, autotune.new_table())
+    target = Target(name="t", mesh_shape=(1, 8))
+    wrapper = {"mm": widesa_mm, "fir": fir, "jacobi2d_ms": jacobi2d,
+               "mttkrp": mttkrp}[name]
+    launches = wrapper.launches
+    plan = best_plan(rec, target, policy=autotune.PlanPolicy(
+        mode="measured", table_path=str(path), reps=3, warmup=1))
+    assert wrapper.launches > launches
+    entry = autotune.load_table(path)["entries"][
+        autotune.autotune_key(rec, (1, 8))]
+    assert set(entry["us"]) == {"pallas", "xla"}
+    assert entry["backend"] == min(entry["us"], key=entry["us"].get)
+    assert (plan.backend, plan.provenance) == (entry["backend"], "measured")
+    calls = autotune.counters()["measure_calls"]
+    again = best_plan(rec, target, policy=autotune.PlanPolicy(
+        mode="cached", table_path=str(path)))
+    assert (again.backend, again.provenance) == (plan.backend, "measured")
+    assert autotune.counters()["measure_calls"] == calls

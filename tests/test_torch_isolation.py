@@ -1,6 +1,8 @@
-"""The port and its chip smoke never load JAX or the JAX package.
+"""The port, its chip smoke and its example never load JAX or the JAX
+package.
 
-Every ``repro_torch`` module, and ``chip_smoke.py``, is imported in a
+Every ``repro_torch`` module, ``chip_smoke.py`` and
+``examples/train_tiny_lm_torch.py`` are imported in a
 fresh interpreter, which must end with neither ``jax`` nor ``repro`` in
 ``sys.modules``; every import statement in their sources (including the
 ones inside functions, which run only on the card) is checked too.
@@ -20,6 +22,7 @@ pytest.importorskip("torch")
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 SMOKE = ROOT / "chip_smoke.py"
+EXAMPLE = ROOT / "examples" / "train_tiny_lm_torch.py"
 
 _PROBE = """
 import importlib, importlib.util, json, pkgutil, sys
@@ -28,8 +31,9 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
 for name in names:
     importlib.import_module(name)
-spec = importlib.util.spec_from_file_location("chip_smoke", sys.argv[1])
-spec.loader.exec_module(importlib.util.module_from_spec(spec))
+for path in sys.argv[1:]:
+    spec = importlib.util.spec_from_file_location("probed", path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print(json.dumps({"modules": names, "leaked": leaked}))
@@ -38,7 +42,8 @@ print(json.dumps({"modules": names, "leaked": leaked}))
 
 def test_port_and_chip_smoke_import_without_jax():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    out = subprocess.run([sys.executable, "-c", _PROBE, str(SMOKE)],
+    out = subprocess.run([sys.executable, "-c", _PROBE, str(SMOKE),
+                          str(EXAMPLE)],
                          capture_output=True, text=True, env=env,
                          timeout=300, check=True)
     result = json.loads(out.stdout.strip().splitlines()[-1])
@@ -50,7 +55,8 @@ def test_port_and_chip_smoke_import_without_jax():
             "repro_torch.models.encdec", "repro_torch.serve.frontend",
             "repro_torch.configs.whisper_base", "repro_torch.core.codegen",
             "repro_torch.kernels.jacobi2d", "repro_torch.kernels.mttkrp",
-            "repro_torch.launch.recurrences"} <= set(result["modules"])
+            "repro_torch.launch.recurrences", "repro_torch.core.autotune",
+            "repro_torch.launch.gen_autotune"} <= set(result["modules"])
 
 
 def _imported_roots(path: Path) -> set[str]:
@@ -64,7 +70,7 @@ def _imported_roots(path: Path) -> set[str]:
 
 
 @pytest.mark.parametrize(
-    "path", [*sorted(PORT.rglob("*.py")), SMOKE],
+    "path", [*sorted(PORT.rglob("*.py")), SMOKE, EXAMPLE],
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_source_imports_jax_or_the_jax_package(path):
     assert not _imported_roots(path) & {"jax", "jaxlib", "repro"}

@@ -76,11 +76,13 @@ def _run_both(calls, seed=0):
 
 @pytest.fixture
 def both_facades():
-    """Both facades on the modelled policy with empty reports."""
+    """Both facades on the modelled policy with empty reports (each
+    package's default, ``cached``, reads its own crossover table)."""
     tp.reset_configuration()
     tp.planned_report_clear()
     jp.planned_report_clear()
-    with jp.override(policy=JaxPolicy(mode="modelled")):
+    with jp.override(policy=JaxPolicy(mode="modelled")), \
+            tp.override(policy=tp.PlanPolicy(mode="modelled")):
         yield
     tp.reset_configuration()
 
@@ -120,7 +122,7 @@ def test_override_restores_previous_configuration():
     tp.reset_configuration()
     default = tp.current_config()
     assert default.enabled and default.policy == tp.DEFAULT_POLICY
-    assert tp.DEFAULT_POLICY.mode == "modelled"
+    assert tp.DEFAULT_POLICY.mode == "cached"
     with tp.override(enabled=False) as cfg:
         assert not cfg.enabled and not tp.planned_enabled()
     assert tp.current_config() == default

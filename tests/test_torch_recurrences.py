@@ -298,7 +298,7 @@ def test_lower_plan_backends():
     plan = best_plan(spec.builder(*spec.smoke_args, "float32"), SINGLE_CHIP)
     assert lower_plan(plan, "xla") is spec.ref
     for backend in ("systolic", "allgather"):
-        with pytest.raises(NotImplementedError, match="A12"):
+        with pytest.raises(NotImplementedError, match="A9"):
             lower_plan(plan, backend)
     with pytest.raises(ValueError, match="unknown backend"):
         lower_plan(plan, "mosaic")
@@ -363,7 +363,7 @@ def test_conv_jacobi_halo_chain_matches_reference(dtype):
     for backend in ("xla", "pallas"):
         got = lower_plan(port, backend)(*(torch.from_numpy(o) for o in ops))
         _check(got, expect, dtype, 1e-3)
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(NotImplementedError, match="A9"):
         lower_plan(port, "fused_systolic")
 
 

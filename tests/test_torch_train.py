@@ -260,13 +260,13 @@ def _batch(cfg, seed=0, shape=SHAPE):
     return JaxPipeline(cfg, JaxShape("t", "train", s, b), seed=seed).batch(0)
 
 
-def _jax_loss_and_grads(cfg, seed=0):
+def _jax_loss_and_grads(cfg, seed=0, enabled=True):
     api = jax_build(cfg)
     params = api.init(jax.random.PRNGKey(seed))
     batch = _batch(cfg, seed)
     jp.planned_report_clear()
     jp.observed_clear()
-    with jp.override(policy=MODELLED):
+    with jp.override(enabled=enabled, policy=MODELLED):
         loss, grads = jax.value_and_grad(api.loss)(
             params, {k: jnp.asarray(v) for k, v in batch.items()})
     return (params, batch, float(loss), jax.tree.map(np.asarray, grads),
@@ -340,12 +340,14 @@ def test_remat_full_and_none_give_equal_gradients(arch):
 
 
 def test_remat_dots_and_untrained_families_raise():
+    """A remat mode the reference does not have raises (``dots`` trains
+    since the port's ``_dots_policy``); serving never recomputes."""
     cfg = port_cfg(dataclasses.replace(jax_smoke("qwen1.5-0.5b"),
-                                       remat="dots"))
+                                       remat="all"))
     api = build_model(cfg, "cpu")
     params = api.init(torch.Generator().manual_seed(0))
     batch = batch_tensors(_batch(cfg), "cpu")
-    with pytest.raises(NotImplementedError, match="A8"):
+    with pytest.raises(ValueError, match="none|dots|full"):
         value_and_grad(api.loss, params, batch)
     with torch.no_grad():  # serving never recomputes
         api.prefill(params, {"tokens": batch["tokens"]}, 32)
@@ -372,3 +374,152 @@ def test_remat_dots_and_untrained_families_raise():
     assert {f"mla.{s}/bwd_{d}" for s in ("q_down", "q_up", "kv_down",
                                          "k_rope", "k_up", "v_up", "out")
             for d in ("dx", "dw")} <= set(trep[0])
+
+
+# ---------------------------------------------------------------------------
+# remat="dots" and the blockwise backward
+# ---------------------------------------------------------------------------
+
+def _rel_l2(got, want):
+    got, want = got.double(), want.double()
+    return float((got - want).norm() / want.norm().clamp(min=1e-30))
+
+
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "whisper-base",
+                                  "zamba2-1.2b"])
+def test_remat_dots_gradients_equal_none_and_the_reference(arch):
+    """``remat="dots"``: the loss and every gradient leaf equal the port's
+    own under ``none`` (float32, 1e-6 relative L2 per leaf) and the
+    reference's under ``dots`` (``jax.value_and_grad``, atol = rtol =
+    1e-4; its planning off, so its policy saves the 2-D products), on the
+    dense, encdec and hybrid SMOKE configs."""
+    cfg = dataclasses.replace(jax_smoke(arch), remat="dots")
+    jparams, batch, jloss, jgrads, _ = _jax_loss_and_grads(cfg,
+                                                           enabled=False)
+    np_params = jax.tree.map(np.asarray, jparams)
+    tloss, tgrads, _ = _port_loss_and_grads(cfg, np_params, batch)
+    nloss, ngrads, _ = _port_loss_and_grads(
+        dataclasses.replace(cfg, remat="none"), np_params, batch)
+    assert abs(tloss - nloss) <= 1e-6 * abs(nloss)
+    for path, g, n in zip(tree.paths(tgrads), tree.leaves(tgrads),
+                          tree.leaves(ngrads)):
+        assert _rel_l2(g, n) <= 1e-6, path
+    np.testing.assert_allclose(tloss, jloss, **TOL)
+    want = params_from_jax(jgrads, port_cfg(cfg), "cpu")
+    assert tree.paths(tgrads) == tree.paths(want)
+    for path, g, w in zip(tree.paths(tgrads), tree.leaves(tgrads),
+                          tree.leaves(want)):
+        np.testing.assert_allclose(to_np(g), to_np(w), err_msg=path, **TOL)
+
+
+class _OpCounts(torch.utils._python_dispatch.TorchDispatchMode):
+    """aten calls that reach the kernels (a selective checkpoint's cached
+    outputs never do)."""
+
+    def __init__(self):
+        super().__init__()
+        self.counts = {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        name = func.overloadpacket.__name__
+        self.counts[name] = self.counts.get(name, 0) + 1
+        return func(*args, **(kwargs or {}))
+
+
+def _backward_run(cfg, params, batch, remat, enabled):
+    """(forward sites' decisions after loss and backward, aten mm / bmm
+    calls during the backward) of one step under ``remat``."""
+    api = build_model(dataclasses.replace(cfg, remat=remat), "cpu")
+    live = tree.tree_map(lambda t: t.detach().requires_grad_(True), params)
+    tp.planned_report_clear()
+    with tp.override(enabled=enabled):
+        loss = api.loss(live, batch)
+        with _OpCounts() as ops:
+            torch.autograd.grad(loss, tree.leaves(live))
+    sites = {s: st["planned"] + st["fallback"]
+             for s, st in tp.planned_report().items() if "/" not in s}
+    return sites, ops.counts.get("mm", 0), ops.counts.get("bmm", 0)
+
+
+def test_remat_dots_recomputes_what_the_reference_recomputes():
+    """What ``dots`` saves, held to the reference's
+    ``dots_with_no_batch_dims_saveable`` on one qwen SMOKE layer.
+
+    Planning enabled: the reference saves only the block's arguments (its
+    planned products are ``custom_vjp``s, which the policy cannot see
+    into), and the port recomputes every planned site, as under
+    ``full``.  Planning disabled: the reference saves products without
+    batch dimensions and only those; the port's backward reruns none of
+    the forward's ``aten.mm`` (as many as under ``none``) and every
+    batched product (as many ``aten.bmm`` as under ``full``)."""
+    from jax._src.ad_checkpoint import saved_residuals
+
+    from repro.models import transformer as jtfm
+
+    jcfg = dataclasses.replace(jax_smoke("qwen1.5-0.5b"), remat="dots",
+                               n_layers=1)
+    jparams = jax_build(jcfg).init(jax.random.PRNGKey(0))
+    lp = jax.tree.map(lambda a: a[0], jparams["dense_layers"])
+    x = jnp.asarray(_draws(5, (2, 16, jcfg.d_model))[0])
+    pos = jnp.broadcast_to(jnp.arange(16), (2, 16))
+    saved = {}
+    for enabled in (True, False):
+        # a new function each time: jax caches a trace by function
+        block = jtfm._maybe_remat(lambda x, lp: jtfm._apply_block(
+            lp, jcfg, x, pos, moe=False)[0], jcfg)
+        with jp.override(enabled=enabled, policy=MODELLED):
+            saved[enabled] = [(aval.shape, src) for aval, src in
+                              saved_residuals(block, x, lp)
+                              if src.startswith("output of")]
+    assert saved[True] == []
+    assert saved[False] and all(len(shape) == 2 and "matmul" in src
+                                for shape, src in saved[False])
+
+    cfg = port_cfg(jcfg)
+    params = build_model(cfg, "cpu").init(torch.Generator().manual_seed(0))
+    batch = batch_tensors(_batch(cfg), "cpu")
+    runs = {(remat, enabled): _backward_run(cfg, params, batch, remat,
+                                            enabled)
+            for remat in ("none", "full", "dots")
+            for enabled in (True, False)}
+    none, full, dots = (runs[(r, True)][0] for r in ("none", "full", "dots"))
+    # every layer's site again in the recompute; the head is outside them
+    assert dots == full == {s: n * (1 if s == "lm_head" else 2)
+                            for s, n in none.items()}
+    (_, mm_none, bmm_none), (_, mm_full, bmm_full), (_, mm_dots, bmm_dots) \
+        = (runs[(r, False)] for r in ("none", "full", "dots"))
+    assert mm_dots == mm_none < mm_full
+    assert bmm_dots == bmm_full > bmm_none
+
+
+def test_blockwise_backward_matches_reference_at_2112_tokens():
+    """A 2-layer narrow qwen (SMOKE) over one 2112-token sequence, above
+    ``BLOCKWISE_SEQ_THRESHOLD``: the port's blockwise attention in the
+    forward, the remat recompute and the backward; the loss and every
+    gradient leaf within 1e-4 relative L2 of the reference's
+    ``jax.value_and_grad`` (its blockwise einsums, planning disabled)."""
+    from unittest import mock
+
+    from repro_torch.models import layers
+
+    cfg = dataclasses.replace(jax_smoke("qwen1.5-0.5b"), remat="full")
+    assert cfg.n_layers == 2
+    api = jax_build(cfg)
+    jparams = api.init(jax.random.PRNGKey(1))
+    batch = _batch(cfg, seed=1, shape=(1, 2112))
+    with jp.override(enabled=False):
+        jloss, jgrads = jax.value_and_grad(api.loss)(
+            jparams, {k: jnp.asarray(v) for k, v in batch.items()})
+    tcfg = port_cfg(cfg)
+    params = params_from_jax(jax.tree.map(np.asarray, jparams), tcfg, "cpu")
+    tp.reset_configuration()
+    with mock.patch.object(layers, "blockwise_attention",
+                           wraps=layers.blockwise_attention) as blockwise:
+        tloss, tgrads = value_and_grad(build_model(tcfg, "cpu").loss,
+                                       params, batch_tensors(batch, "cpu"))
+    assert blockwise.call_count == 2 * cfg.n_layers  # forward, recompute
+    assert abs(float(tloss) - float(jloss)) <= 1e-4 * abs(float(jloss))
+    want = params_from_jax(jax.tree.map(np.asarray, jgrads), tcfg, "cpu")
+    for path, g, w in zip(tree.paths(tgrads), tree.leaves(tgrads),
+                          tree.leaves(want)):
+        assert _rel_l2(g, w) <= 1e-4, path
