@@ -11,6 +11,7 @@
     python3 chip_smoke.py --fir-sweep [--src OTHER/src] [--out sweep.json]
     python3 chip_smoke.py --train
     python3 chip_smoke.py --dense
+    python3 chip_smoke.py --hier
 
 Needs one CUDA card and the CUDA toolkit.  It imports only the port, never
 JAX nor the JAX package, and runs nineteen phases, each printing its own
@@ -146,6 +147,21 @@ line(s); any failure exits non-zero:
    decode scores and values over 8448 keys, the encoder's scores and
    values over 1500 frames) against their plain versions and timed beside
    ``torch.matmul``/``torch.bmm`` and their bounds;
+10b. hier — two-level hierarchical plans (``core/hierarchy.py``) under
+   ``SERVING_HIERARCHICAL_TARGET`` (outer 1 x 2 over the facade's inner
+   target; ``--hier`` runs this phase alone): every GEMM kernel reading a
+   group's slice of B (and a row split's slice of A) at its pitch,
+   bitwise against the same launch on contiguous copies (``PITCHED``);
+   ``lower_hierarchical(plan, "pallas")`` at ``HIER_CASES``, one
+   hand-kernel launch a group, against the flat plan and the plain
+   version with the three device times side by side; full-width
+   qwen1.5-0.5b (8 prompts of 4-512 tokens) and whisper-base's offline
+   text requests on both engines under the target: every site two-level
+   or falling back as the copied planner says (the MLP pair), the groups'
+   launches by kernel what their sub-shapes call for, slot == paged
+   tokens, ``decode_compiles`` 1, first logits within 0.25 of the flat
+   plan's, and the captured step and the longest prefill beside a flat
+   engine's;
 11. olmoe — full-width olmoe-1b-7b, the MoE family (bf16, 16 layers,
    64 experts of ff 1024, top-8, 13.8 GB of random weights seeded with 0
    and drawn on the card), after the earlier phases' weights are freed.
@@ -300,7 +316,9 @@ Every wrapper's launch count is set to 0 just before each serving drain
 and before the recurrence pipeline, and read just after; the kernels
 line gives each path's counts apart (``"launches": {"qwen": n,
 "qwen_paged": q, "qwen_prefill": p, "whisper_stream": m,
-"whisper_paged": w, "qwen_long": l, "whisper_offline": o, "olmoe": s,
+"whisper_paged": w, "qwen_long": l, "whisper_offline": o,
+"hier_recurrences": h, "qwen_hier": ..., "qwen_hier_paged": ...,
+"whisper_hier": ..., "whisper_hier_paged": ..., "olmoe": s,
 "olmoe_paged": g, "mamba2": a, "mamba2_paged": b, "zamba2": z,
 "zamba2_paged": y, "llava": v, "llava_paged": v', "stablelm": ...,
 "codeqwen": ..., "qwen3": ..., "qwen3_paged": ..., "deepseek": ...,
@@ -678,6 +696,52 @@ def check_routes(path: str, report: dict, variants: dict,
     return (f"tiled launches {sum(g.get('tiled', 0) for g in got.values())}"
             f", each for rows neither other kernel takes: {why}" if why
             else "no tiled launch")
+
+
+def route_report(report: dict, target) -> dict:
+    """``report`` as the GEMM kernels see it: unchanged without a
+    ``target``; under a hierarchical one each planned call of a site is
+    ``target.groups`` launches at its plan's sub-shape (the groups of the
+    split the copied planner picks), for ``check_routes``."""
+    if target is None:
+        return report
+    from repro_torch.kernels import planned
+
+    out = {}
+    for site, st in report.items():
+        if site.startswith(NON_GEMM_SITES):
+            continue
+        shapes = {}
+        for key, count in st["shapes"].items():
+            shape = ast.literal_eval(key)
+            kind = "mm" if len(shape) == 3 else "bmm"
+            plan = planned.plan_for(kind, shape, site_dtype(site),
+                                    target=target)
+            if plan is None:
+                continue  # a fallback: checked_drain holds its reason
+            sub = str(tuple(plan.sub_recurrence.extents))
+            shapes[sub] = shapes.get(sub, 0) + count * target.groups
+        out[site] = {"shapes": shapes}
+    return out
+
+
+def hier_fallback(site: str, st: dict, target) -> bool:
+    """Whether a site's fallbacks under a hierarchical ``target`` are the
+    copied planner's: reason ``infeasible``, and no plan for any shape the
+    site gave (the MLP pair: a chain, which never composes
+    hierarchically; its per-stage calls then plan)."""
+    from repro_torch.kernels import planned
+
+    if target is None or st["reasons"] != {"infeasible": st["fallback"]}:
+        return False
+    for key in st["shapes"]:
+        shape = ast.literal_eval(key)
+        kind = ("mm+mm" if isinstance(shape[0], tuple)
+                else "mm" if len(shape) == 3 else "bmm")
+        if planned.plan_for(kind, shape, site_dtype(site),
+                            target=target) is not None:
+            return False
+    return True
 
 
 def nvidia_smi() -> str:
@@ -2295,11 +2359,14 @@ def paged_engine(torch, cfg, params, label, submit, want):
     return eng, step
 
 
-def load_paged(torch, eng, params, label, tied: bool = True) -> dict:
+def load_paged(torch, eng, params, label, tied: bool = True,
+               target=None) -> dict:
     """``eng.load(params)`` in a window of its own: one decode capture,
-    and ``check_routes`` on the window's GEMM launches.  Returns the
-    launches by kernel of the captured step: half those of the window,
-    where the warmup and the capture each run the step once."""
+    and ``check_routes`` on the window's GEMM launches (under a
+    hierarchical ``target``, on its groups' sub-shapes: ``route_report``).
+    Returns the launches by kernel of the captured step: half those of
+    the window, where the warmup and the capture each run the step
+    once."""
     from repro_torch.kernels import planned
 
     planned.planned_report_clear()
@@ -2309,7 +2376,9 @@ def load_paged(torch, eng, params, label, tied: bool = True) -> dict:
     launches, variants = read_counts(), read_variants()
     if eng.stats["decode_compiles"] != 1:
         fail(f"{label} load: stats {eng.stats}")
-    check_routes(f"{label} load", planned.planned_report(), variants, tied)
+    check_routes(f"{label} load",
+                 route_report(planned.planned_report(), target), variants,
+                 tied)
     if any(launches[k] for k in launches if k not in GEMM_WRAPPERS) or any(
             v % 2 for w in GEMM_WRAPPERS for v in variants[w].values()):
         fail(f"{label} load: launches {launches}, by kernel {variants}: not "
@@ -2459,13 +2528,18 @@ def counted_drain(torch, eng, step=None) -> dict:
 
 
 def checked_drain(torch, eng, label, n, device_name, step=None,
-                  tied: bool = True, gemms=GEMM_WRAPPERS) -> dict:
+                  tied: bool = True, gemms=GEMM_WRAPPERS,
+                  target=None) -> dict:
     """``counted_drain`` held to what every serving drain must show: ``n``
     requests with ``MAX_NEW`` tokens each, every planned site planned
     with no fallback, each GEMM wrapper of the path (``gemms``: both, but
     for a model without batched products, mamba2's) launched, and the
     eager GEMM launches by kernel what ``check_routes`` calls for;
-    printed in one line.  Returns the run."""
+    printed in one line.  Under a hierarchical ``target`` every planned
+    site's last plan is two-level, a site may fall back only where the
+    copied planner gives no plan for any of its shapes (``hier_fallback``)
+    and the launches are held on the groups' sub-shapes
+    (``route_report``).  Returns the run."""
     run = counted_drain(torch, eng, step)
     done, report, launches = run["done"], run["report"], run["launches"]
     if len(done) != n or any(len(r.output) != MAX_NEW for r in done):
@@ -2473,13 +2547,19 @@ def checked_drain(torch, eng, label, n, device_name, step=None,
              f"{[(r.rid, len(r.output)) for r in done]}")
     bad = {s: (st["planned"], st["fallback"], st["reasons"])
            for s, st in report.items()
-           if st["planned"] == 0 or st["fallback"] != 0}
+           if (st["planned"] == 0 or st["fallback"] != 0)
+           and not hier_fallback(s, st, target)}
+    if target is not None:
+        bad.update({s: st["last_plan"] for s, st in report.items()
+                    if st["planned"]
+                    and not st["last_plan"].startswith("[hier ")})
     if bad or not report:
         fail(f"{label}: planned sites that fell back or never planned: {bad}")
     if min(launches[w] for w in gemms) == 0:
         fail(f"{label}: a GEMM kernel of the path {gemms} was not launched "
              f"on the main path: {launches}")
-    routes = check_routes(label, report, run["eager_variants"], tied)
+    routes = check_routes(label, route_report(report, target),
+                          run["eager_variants"], tied)
     tokens = sum(len(r.output) for r in done)
     print(f"{label}: {len(done)} requests / {tokens} tokens in "
           f"{run['seconds']:.3f} s = {tokens / run['seconds']:.1f} tok/s on "
@@ -2641,7 +2721,7 @@ def launch_signature(torch, gen, kind, shape, col, pad, flush,
 
 def two_engines(torch, cfg, params, label, submit, max_seq, device_name,
                 timed=LONG_SHAPES, same_tokens=True, tied=True,
-                gemms=GEMM_WRAPPERS) -> dict:
+                gemms=GEMM_WRAPPERS, target=None) -> dict:
     """``submit``'s requests on the slot engine (``SLOTS`` slots), then on
     the paged engine (``SLOTS`` lanes, blocks of ``PAGED_BLOCK``,
     exact-length prefills, its decode step captured in ``load_paged``),
@@ -2658,7 +2738,8 @@ def two_engines(torch, cfg, params, label, submit, max_seq, device_name,
     (the same kernel and grid), the replay's launches there must be the
     sum of their launches in one captured step (half the load window's,
     which runs the step twice), and each shape takes its own; ``gemms``
-    are the GEMM wrappers every drain must launch."""
+    are the GEMM wrappers every drain must launch.  Both engines take
+    ``target`` (a hierarchical target: ``checked_drain``)."""
     from repro_torch.kernels import planned
     from repro_torch.serve import SchedulerConfig, make_engine
 
@@ -2675,19 +2756,22 @@ def two_engines(torch, cfg, params, label, submit, max_seq, device_name,
         step = None
         if kind == "slot":
             eng = make_engine(cfg, kind="slot", max_slots=SLOTS,
-                              max_seq=max_seq, device="cuda")
+                              max_seq=max_seq, device="cuda", target=target)
             eng.load(params)
         else:
             eng = make_engine(cfg, kind="paged", max_lanes=SLOTS,
                               max_seq=max_seq, block_size=PAGED_BLOCK,
-                              device="cuda",
+                              device="cuda", target=target,
                               scheduler=SchedulerConfig(bucketed=False))
-            step = load_paged(torch, eng, params, f"{label} paged", tied)
+            step = load_paged(torch, eng, params, f"{label} paged", tied,
+                              target)
             in_step = count_shapes(planned.planned_report(), shapes)
+            out["step_plans"] = route_report(planned.planned_report(),
+                                             target)
         n = submit(eng)
         # the main path: counts start at 0 here and are read right after
         run = checked_drain(torch, eng, f"{label} {kind}", n, device_name,
-                            step, tied, gemms)
+                            step, tied, gemms, target)
         eager = count_shapes(run["report"], shapes)
         replayed = dict.fromkeys(shapes, 0)
         for sig, keys in owners.items():
@@ -2712,10 +2796,12 @@ def two_engines(torch, cfg, params, label, submit, max_seq, device_name,
         out["by_engine"][kind] = {
             "launches": run["launches"], "variants": run["variants"],
             "shapes": {key: eager[key] + replayed[key] for key in shapes}}
-        print(f"{label} {kind}: launches of the timed GEMMs in the "
-              f"drain: " + ", ".join(
-                  f"{k}{sh} {eager[(k, sh)]} eager + {replayed[(k, sh)]} "
-                  "replayed" for k, sh in shapes), flush=True)
+        if shapes:
+            print(f"{label} {kind}: launches of the timed GEMMs in the "
+                  f"drain: " + ", ".join(
+                      f"{k}{sh} {eager[(k, sh)]} eager + "
+                      f"{replayed[(k, sh)]} replayed" for k, sh in shapes),
+                  flush=True)
         for name, v in run["launches"].items():
             out["launches"][name] += v
         for name, by in run["variants"].items():
@@ -2723,6 +2809,7 @@ def two_engines(torch, cfg, params, label, submit, max_seq, device_name,
             for k, v in by.items():
                 into[k] += v
         out["tokens"][kind] = {r.rid: list(r.output) for r in run["done"]}
+        out["steps"] = out.get("steps", {}) | {kind: step}
         out[kind] = (eng, run)
     if same_tokens and out["tokens"]["slot"] != out["tokens"]["paged"]:
         fail(f"{label}: the paged engine's tokens {out['tokens']['paged']} "
@@ -2971,6 +3058,392 @@ def offline_audio(torch, device_name: str) -> dict:
                  lambda: encdec.encode(params, cfg, frames), runs=5)
     print(f"offline: on {device_name} [{nvidia_smi()}]", flush=True)
     return out
+
+
+# ---------------------------------------------------------------------------
+# hierarchical plans: two-level serving on one card
+# ---------------------------------------------------------------------------
+
+#: the hier phase: qwen1.5-0.5b's 8 requests of 4-512 tokens and
+#: whisper-base's offline requests, both on both engines under
+#: ``core.SERVING_HIERARCHICAL_TARGET`` (outer 1 x 2 over the facade's
+#: inner target), at this horizon
+HIER_PROMPTS = (4, 9, 13, 16, 64, 127, 256, 512)
+HIER_MAX_SEQ = 528
+#: (c): B as a group of a split hands it to the kernels, bitwise against
+#: the same launch on contiguous copies: (label, M, N, K, dtype, split,
+#: B column-major); qwen's column splits (the tied lm_head's embed.T,
+#: gate/up, down, the projections) and whisper's row-split lm_head, at
+#: decode and at a 512-token prompt; the integers and float32 at 256^3
+PITCHED = tuple(
+    (label, m, n, k, "bfloat16", split, col)
+    for m in (4, 512)
+    for label, n, k, split, col in (
+        ("lm_head", 151936, 1024, "column", True),
+        ("lm_head row-major", 151936, 1024, "column", False),
+        ("mlp.gate/up", 2816, 1024, "column", False),
+        ("mlp.down", 1024, 2816, "column", False),
+        ("attn.q/k/v/out", 1024, 1024, "column", False),
+        ("whisper lm_head", 51865, 512, "row", True))) + tuple(
+    (f"{dtype} {split}", 256, 256, 256, dtype, split, split == "row")
+    for dtype in ("int8", "int16", "int32", "float32")
+    for split in ("column", "row"))
+#: (d): lower_hierarchical(plan, "pallas") against the flat plan and the
+#: plain version: (label, kind, builder args, dtype, B column-major, A in
+#: padded rows, flushed to fp32); the reference bench's
+#: CI_HIERARCHY_CASES, integer splits, qwen's full-width serving GEMMs
+#: (decode over 528 rows, a 512-token prompt), whisper's row-split lm_head
+#: and encoder scores, and the two stars at their bench sizes
+HIER_CASES = (
+    ("CI mm", "mm", (24, 128, 64), "float32", False, False, False),
+    ("CI bmm", "bmm", (8, 12, 16, 12), "float32", False, False, False),
+    ("int8 column", "mm", (256, 256, 256), "int8", False, False, False),
+    ("int16 row", "mm", (256, 255, 256), "int16", True, False, False),
+    ("attn.q/k/v/out decode", "mm", (4, 1024, 1024), "bfloat16",
+     False, False, False),
+    ("mlp.gate/up decode", "mm", (4, 2816, 1024), "bfloat16",
+     False, False, False),
+    ("mlp.down decode", "mm", (4, 1024, 2816), "bfloat16",
+     False, False, False),
+    ("lm_head decode", "mm", (4, 151936, 1024), "bfloat16",
+     True, False, False),
+    ("attn.decode_scores", "bmm", (64, 1, 528, 64), "bfloat16",
+     True, False, True),
+    ("attn.decode_values", "bmm", (64, 1, 64, 528), "bfloat16",
+     False, False, False),
+    ("attn.q/k/v/out prefill", "mm", (512, 1024, 1024), "bfloat16",
+     False, False, False),
+    ("mlp.gate/up prefill", "mm", (512, 2816, 1024), "bfloat16",
+     False, False, False),
+    ("mlp.down prefill", "mm", (512, 1024, 2816), "bfloat16",
+     False, False, False),
+    ("attn.scores prefill", "bmm", (16, 512, 512, 64), "bfloat16",
+     True, False, True),
+    ("attn.values prefill", "bmm", (16, 512, 64, 512), "bfloat16",
+     False, True, False),
+    ("whisper lm_head decode", "mm", (4, 51865, 512), "bfloat16",
+     True, False, False),
+    ("whisper encoder scores", "bmm", (8, 1500, 1500, 64), "bfloat16",
+     True, False, True),
+    ("jacobi2d bench", "jacobi2d", (10238, 10238), "float32",
+     False, False, False),
+    ("jacobi2d_9pt bench", "jacobi2d_9pt", (10236, 10236), "float32",
+     False, False, False),
+)
+
+
+def pitched_operands(torch, gen, m, n, k, dtype, split, col):
+    """Group 1 of a tp = 2 ``split`` of [m, k] @ [k, n], as
+    ``lower_hierarchical`` slices it: a column split's B the right half of
+    B's columns (row-major: rows n apart; column-major: rows of embed
+    [n, k], whole), a row split's A the right half of A's columns (rows k
+    apart) and its B the lower half of B's rows (column-major: columns k
+    apart)."""
+    a = draw(torch, gen, (m, k), dtype)
+    b = (draw(torch, gen, (n, k), dtype).T if col
+         else draw(torch, gen, (k, n), dtype))
+    if split == "column":
+        return a, b[:, n // 2:]
+    return a[:, k // 2:], b[k // 2:]
+
+
+def pitched_parity(torch) -> dict:
+    """(c): each ``PITCHED`` group launch bitwise equal to the same kernel
+    and configuration on contiguous copies, on the configuration the
+    runtime picks (the skinny kernel at 4 rows, a tensor-core one above:
+    no tiled launch), and for the 256^3 cases on the tiled kernel too;
+    the bf16 ones timed beside the contiguous launch (profiler device
+    time of the kernel's records: the mean of those the profiler keeps,
+    so a dropped record lowers no reading).  These launches count for no
+    path."""
+    from repro_torch.kernels import runtime, widesa_mm
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    rows = {}
+    for label, m, n, k, dname, split, col in PITCHED:
+        dtype = getattr(torch, dname)
+        a, b = pitched_operands(torch, gen, m, n, k, dtype, split, col)
+        layout = runtime.b_layout(b)
+        tiled = (16, 32, 8) if layout[0] else (16, 32, 32)
+        tile = runtime.gemm_tile(a, b, tiled)
+        if not isinstance(tile, (runtime.SkinnyTile, runtime.TcTile)):
+            fail(f"pitched {label} {m}x{n}x{k}: B {layout} routes to the "
+                 f"tiled kernel ({tile})")
+        # contiguous copies in B's own orientation
+        ac = a.contiguous()
+        bc = (b.T.contiguous().T if layout[0] else b.contiguous())
+        tiles = [tile] + ([tiled] if m == k == 256 else [])
+        for t in tiles:
+            got = widesa_mm.matmul(a, b, tiles=t)
+            want = widesa_mm.matmul(ac, bc, tiles=t)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                fail(f"pitched {label} {m}x{n}x{k} {dname} {describe(t)}: "
+                     "differs from the launch on contiguous copies")
+        shape = (m, *(b.shape[-1:] + a.shape[-1:]))
+        row = {"shape": f"mm{shape}",
+               "dtype": dname, "split": split, "b_layout": list(layout),
+               "a_pitch": runtime.a_pitch(a), "kernel": describe(tile),
+               "bitwise": True}
+        if dname == "bfloat16":
+            kernel = ("skinny_kernel" if isinstance(tile, runtime.SkinnyTile)
+                      else "gemm_tc_kernel")
+            row["ms"] = device_ms(torch, lambda: widesa_mm.matmul(
+                a, b, tiles=tile), kernel)
+            row["contiguous_ms"] = device_ms(torch, lambda: widesa_mm.matmul(
+                ac, bc, tiles=tile), kernel)
+        rows[f"{label} m{m}"] = row
+        del a, b, ac, bc
+    print(f"hier: B read at its pitch (and a row split's A at its pitch) is "
+          f"bitwise equal to the same launch on contiguous copies for all "
+          f"{len(rows)} cases: " + "; ".join(
+              f"{key} {r['shape']} {r['dtype']} B{tuple(r['b_layout'])} "
+              f"{r['kernel']}" + (f" {fmt_ms(r['ms'])} (contiguous "
+                                  f"{fmt_ms(r['contiguous_ms'])})"
+                                  if "ms" in r else "")
+              for key, r in rows.items()), flush=True)
+    return rows
+
+
+def hier_recurrences(torch) -> tuple[dict, dict, dict]:
+    """(d): each ``HIER_CASES`` recurrence planned under the serving
+    target and lowered on the hand kernels (``lower_hierarchical(plan,
+    "pallas")``), every count set to 0 just before and read just after
+    (one launch a group, none tiled); then against the flat plan's hand
+    kernel and the plain version (integers exact, float32 1e-3, bf16
+    2^-7|ref| + 1e-3), with the device times of the three side by side
+    (profiler; a dropped record reads low) and the hierarchical and flat
+    calls' CUDA-event times (20 back to back: the host's launch rate
+    below ~0.05 ms).
+    Returns the launches and launches by kernel summed over the cases,
+    and each case's row."""
+    import functools
+
+    from repro_torch.core import SERVING_HIERARCHICAL_TARGET as HT
+    from repro_torch.core import best_plan, hierarchy
+    from repro_torch.kernels import ref, registry, runtime
+
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    launches = dict.fromkeys(wrappers(), 0)
+    variants = {name: dict.fromkeys(v, 0)
+                for name, v in read_variants().items()}
+    rows = {}
+    for label, kind, args, dname, col, pad, flush in HIER_CASES:
+        dtype = getattr(torch, dname)
+        spec = registry.get(kind)
+        rec = spec.builder(*args, dname)
+        plan, flat = best_plan(rec, HT), best_plan(rec, HT.inner)
+        out_dtype = torch.float32 if flush else None
+        if kind in ("mm", "bmm"):
+            ops = operands(torch, gen, kind, args, dtype, col)
+            if pad:
+                ops = (padded(torch, ops[0]), ops[1])
+            plain = functools.partial(ref.mm if kind == "mm" else ref.bmm,
+                                      out_dtype=out_dtype)
+        else:
+            ops = tuple(draw(torch, gen, shape, dtype)
+                        for shape in spec.operand_shapes(rec))
+            plain = spec.ref
+        fn = hierarchy.lower_hierarchical(plan, "pallas", out_dtype=out_dtype)
+        flat_fn = functools.partial(runtime.execute_plan, flat,
+                                    out_dtype=out_dtype)
+        reset_counts()
+        got = fn(*ops)
+        torch.cuda.synchronize()
+        counts, by_kernel = read_counts(), read_variants()
+        wrapper = {"mm": "widesa_mm", "bmm": "bmm"}.get(kind, "jacobi2d")
+        if counts[wrapper] != HT.groups or sum(counts.values()) != HT.groups \
+                or by_kernel.get(wrapper, {}).get("tiled"):
+            fail(f"hier {label}: launches {counts}, by kernel {by_kernel}: "
+                 f"not one hand-kernel launch for each of {HT.groups} "
+                 "groups")
+        for name, n in counts.items():
+            launches[name] += n
+        for name, by in by_kernel.items():
+            for key, n in by.items():
+                variants[name][key] += n
+        want, flat_out = plain(*ops), flat_fn(*ops)
+        torch.cuda.synchronize()
+        err, ok = max_error(torch, got, want, got.dtype)
+        flat_err, flat_ok = max_error(torch, got, flat_out, got.dtype)
+        if not (ok and flat_ok):
+            fail(f"hier {label} {kind}{args} {dname}: max |err| {err} "
+                 f"against the plain version, {flat_err} against the flat "
+                 "plan")
+        rows[label] = {
+            "kind": kind, "shape": list(args), "dtype": dname,
+            "split": plan.outer_split, "outer_bytes": plan.outer_bytes,
+            "sub_shape": list(plan.sub_recurrence.extents),
+            "launches": counts[wrapper],
+            "by_kernel": {k: v for k, v in by_kernel[wrapper].items() if v},
+            "max_abs_err": err, "flat_max_abs_diff": flat_err,
+            "ms": device_ms(torch, lambda: fn(*ops)),
+            "flat_ms": device_ms(torch, lambda: flat_fn(*ops)),
+            "plain_ms": device_ms(torch, lambda: plain(*ops)),
+            "events_ms": time_ms(torch, lambda: fn(*ops), reps=20),
+            "flat_events_ms": time_ms(torch, lambda: flat_fn(*ops),
+                                      reps=20)}
+        del ops, got, want, flat_out
+        torch.cuda.empty_cache()
+    print("hier: lower_hierarchical(plan, 'pallas') under the serving "
+          "target, one launch a group, against the plain version and the "
+          "flat plan (ints exact, float32 1e-3, bf16 2^-7|ref| + 1e-3): "
+          + "; ".join(
+              f"{key} {r['kind']}{tuple(r['shape'])} {r['dtype']} "
+              f"split={r['split']} -> {tuple(r['sub_shape'])} x "
+              f"{r['launches']} {r['by_kernel']}: hier {fmt_ms(r['ms'])}, "
+              f"flat {fmt_ms(r['flat_ms'])}, plain {fmt_ms(r['plain_ms'])} "
+              f"(events: hier {r['events_ms']:.4f}, flat "
+              f"{r['flat_events_ms']:.4f}), max |err| "
+              f"{r['max_abs_err']:.3g}"
+              for key, r in rows.items()), flush=True)
+    return launches, variants, rows
+
+
+def hier_logits(torch, label, api, params, done, batches, target) -> None:
+    """(e): each request's prefill logits under ``target`` (the groups on
+    the hand kernels) within ``LOGIT_ATOL`` of the flat plan's on the
+    hand kernels, and the engine's first token their argmax."""
+    from repro_torch.kernels import planned
+
+    worst = 0.0
+    by_rid = {r.rid: r for r in done}
+    with torch.no_grad():
+        for rid, batch in enumerate(batches):
+            rows = batch["tokens"].shape[1]
+            with planned.override(target=target):
+                logits, _ = api.prefill(params, batch, rows)
+            flat, _ = api.prefill(params, batch, rows)
+            if logits.shape != (1, api.cfg.vocab) or not torch.isfinite(
+                    logits).all():
+                fail(f"{label} request {rid}: bad prefill logits "
+                     f"{logits.shape}")
+            err = (logits.float() - flat.float()).abs().max().item()
+            worst = max(worst, err)
+            if err > LOGIT_ATOL:
+                fail(f"{label} request {rid} ({rows} rows): two-level "
+                     f"prefill logits differ by {err} > {LOGIT_ATOL} from "
+                     "the flat plan's")
+            if by_rid[rid].output[0] != int(torch.argmax(logits[0])):
+                fail(f"{label} request {rid}: the engine's first token is "
+                     "not the argmax of its two-level prefill logits")
+    print(f"{label}: two-level prefill logits of the {len(batches)} requests "
+          f"within {LOGIT_ATOL} of the flat plan's on the hand kernels (max "
+          f"|diff| {worst:.4f}); first tokens are their argmax", flush=True)
+
+
+def hier_serve(torch, device_name, label, arch, prompts, extras,
+               max_seq) -> dict:
+    """(a), (b), (e): ``arch`` at full width served on the slot and the
+    paged engine under the serving target (``two_engines``: tokens equal,
+    every site two-level or falling back as the copied planner says, the
+    groups' launches by kernel what their sub-shapes call for,
+    ``decode_compiles`` 1), the first logits against the flat plan's, and
+    the captured step and the longest request's prefill on the host
+    clock and the card (profiler), beside a flat paged engine's step and
+    the flat prefill.  Returns ``two_engines``' result."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import SERVING_HIERARCHICAL_TARGET as HT
+    from repro_torch.kernels import planned
+    from repro_torch.models import build_model
+    from repro_torch.serve import SchedulerConfig, make_engine
+
+    cfg = get_config(arch)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = build_model(cfg, "cuda").init(gen)
+
+    def submit(e):
+        for p, extra in zip(prompts, extras):
+            e.submit_text(p, max_new_tokens=MAX_NEW, extra=extra)
+        return len(prompts)
+
+    out = two_engines(torch, cfg, params, label, submit, max_seq,
+                      device_name, timed=(), target=HT)
+    slot, run = out["slot"]
+    batches = [{"tokens": torch.as_tensor(p[None], device="cuda"),
+                **({"frames": x["frames"][None].cuda()} if x else {})}
+               for p, x in zip(prompts, extras)]
+    hier_logits(torch, label, slot.api, params, run["done"], batches, HT)
+    paged, prun = out["paged"]
+    step = out["steps"]["paged"]
+    calls = sum(st["planned"] for site, st in prun["report"].items()
+                if not site.startswith(NON_GEMM_SITES))
+    flat = make_engine(cfg, kind="paged", max_lanes=SLOTS, max_seq=max_seq,
+                       block_size=PAGED_BLOCK, device="cuda",
+                       scheduler=SchedulerConfig(bucketed=False))
+    flat_step = load_paged(torch, flat, params, f"{label} flat paged")
+    per_step = sum(sum(v.values()) for v in step.values())
+    load_calls = sum(sum(st["shapes"].values())
+                     for st in out["step_plans"].values())
+    if per_step * 2 != load_calls:
+        fail(f"{label}: the captured step launches {step}, its load "
+             f"window's plans call for {load_calls // 2} group launches a "
+             "step")
+    for name, eng in (("two-level", paged), ("flat", flat)):
+        profile_call(
+            torch, f"{label}: captured paged decode step, {name} plans "
+            f"({SLOTS} lanes, max_seq {max_seq}; GEMM launches a step "
+            f"{step if eng is paged else flat_step})",
+            lambda: eng._decode([]), runs=5)
+    longest = max(range(len(batches)),
+                  key=lambda i: batches[i]["tokens"].shape[1])
+    batch = batches[longest]
+    rows = batch["tokens"].shape[1]
+    for name, ctx in (("two-level", lambda: planned.override(target=HT)),
+                      ("flat", planned.override)):
+        def prefill():
+            with ctx():
+                slot.api.prefill(params, batch, rows)
+
+        profile_call(torch, f"{label}: prefill of {rows} tokens, {name} "
+                     "plans", prefill)
+    print(f"{label}: {calls} planned GEMM calls in the paged drain's eager "
+          f"prefills, every one two-level; on {device_name} "
+          f"[{nvidia_smi()}]", flush=True)
+    del slot, paged, flat
+    torch.cuda.empty_cache()
+    return out
+
+
+def hier_phase(torch, device_name: str) -> dict:
+    """Phase 10b: two-level hierarchical plans on the card (module
+    docstring): (c) ``pitched_parity``, (d) ``hier_recurrences``, then
+    full-width qwen1.5-0.5b (``HIER_PROMPTS``) and whisper-base's offline
+    requests (``OFFLINE_REQUESTS`` text requests over [1500, 512] bf16
+    frames) served on both engines under the serving target
+    (``hier_serve``).  Returns each path's launches and launches by
+    kernel, and the rows of (c) and (d)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import bf16_frames
+
+    t0 = time.perf_counter()
+    pitched = pitched_parity(torch)
+    rec_launches, rec_variants, rec_rows = hier_recurrences(torch)
+    paths = {"hier_recurrences": {"launches": rec_launches,
+                                  "variants": rec_variants}}
+    rng = np.random.default_rng(23)
+    qwen = get_config(ARCH)
+    prompts = [rng.integers(0, qwen.vocab, n) for n in HIER_PROMPTS]
+    whisper = get_config(STREAM_ARCH)
+    reqs = [(rng.integers(0, whisper.vocab, int(rng.integers(4, 17))),
+             {"frames": bf16_frames(rng, whisper)})
+            for _ in range(OFFLINE_REQUESTS)]
+    for path, arch, ps, extras, max_seq in (
+            ("qwen_hier", ARCH, prompts, [None] * len(prompts),
+             HIER_MAX_SEQ),
+            ("whisper_hier", STREAM_ARCH, [p for p, _ in reqs],
+             [x for _, x in reqs], MAX_SEQ)):
+        out = hier_serve(torch, device_name, path, arch, ps, extras,
+                         max_seq)
+        for kind, suffix in (("slot", ""), ("paged", "_paged")):
+            paths[path + suffix] = out["by_engine"][kind]
+        del out
+        torch.cuda.empty_cache()
+    print(f"hier: phase done in {time.perf_counter() - t0:.1f} s on "
+          f"{device_name} [{nvidia_smi()}]", flush=True)
+    return {"paths": paths, "pitched": pitched, "recurrences": rec_rows}
 
 
 def sum_bound(torch, kind, a, b):
@@ -4851,7 +5324,8 @@ def autotune_phase(torch, device_name: str) -> dict:
     """The measured race with the port's own crossover table: the
     committed table loads, names its card, and holds every
     ``registry.autotune_cases`` and serving-census key on meshes 1x1 and
-    1x8, each entry with both backends timed; each spec's smoke proxy is
+    1x8 and the census's two-level keys under the serving hierarchical
+    target, each entry with both backends timed; each spec's smoke proxy is
     raced on every dtype its cases run on (``autotune.exec_dtype``), on
     ``RACE_MESH``, under ``measured`` into a table of its own (``pallas``
     on the hand kernel, ``xla`` the plain version, CUDA events), its
@@ -4862,7 +5336,9 @@ def autotune_phase(torch, device_name: str) -> dict:
     import shutil
     import tempfile
 
+    from repro_torch.core import SERVING_HIERARCHICAL_TARGET as HT
     from repro_torch.core import Target, autotune, best_plan
+    from repro_torch.core.hierarchy import HierarchyError, plan_hierarchy
     from repro_torch.kernels import registry
     from repro_torch.launch.gen_autotune import serving_cases
 
@@ -4875,6 +5351,13 @@ def autotune_phase(torch, device_name: str) -> dict:
         kind, args, dtype, Target(name="t", mesh_shape=mesh)))
         for mesh in ((1, 1), (1, 8))
         for kind, args, dtype in (*cases, *extra, *chains)}
+    for kind, args, dtype in extra:
+        try:
+            plan_hierarchy(registry.get(kind).builder(*args, dtype), HT)
+        except HierarchyError:
+            continue
+        want.add(autotune.request_key(autotune.PlanRequest(
+            kind, args, dtype, HT)))
     missing = sorted(want - set(table["entries"]))
     if missing or "H100" not in table["note"]:
         fail(f"autotune: the committed table lacks {missing[:5]} or names "
@@ -4942,7 +5425,8 @@ def autotune_phase(torch, device_name: str) -> dict:
     factor = autotune.machine_factor(table, fresh)
     print(f"autotune: the committed table ({len(table['entries'])} entries, "
           f"winners {winners}; {table['note']!r}) holds every one of the "
-          f"{len(want)} registry and census keys, each with both backends "
+          f"{len(want)} registry, census and two-level census keys, each "
+          f"with both backends "
           f"timed; raced each spec's smoke proxy on each dtype its cases "
           f"run on ({len(raced)} races), mesh "
           f"{'x'.join(map(str, RACE_MESH))}, CUDA events, median of 5 after "
@@ -6077,6 +6561,9 @@ def main(argv=None) -> int:
     ap.add_argument("--dense", action="store_true",
                     help="only the device, the GEMM build and the "
                          "dense_configs and deepseek phases")
+    ap.add_argument("--hier", action="store_true",
+                    help="only the device, the GEMM and stencil builds and "
+                         "the hier phase (two-level plans)")
     ap.add_argument("--src", help="with --conv2d-sweep or --fir-sweep: the "
                                   "src/ directory of another checkout of "
                                   "the port, whose kernel to time instead")
@@ -6108,6 +6595,7 @@ def main(argv=None) -> int:
                         else ("widesa_mm",)
                         if args.tc_sweep or args.skinny_sweep or args.train
                         or args.dense
+                        else ("widesa_mm", "widesa_hpc") if args.hier
                         else ("widesa_mm", "widesa_sp") if args.fft_sweep
                         else ("widesa_sp",)
                         if args.conv2d_sweep or args.fir_sweep
@@ -6145,6 +6633,9 @@ def main(argv=None) -> int:
     if args.dense:
         dense_phase(torch, name)
         deepseek_phase(torch, name)
+        return 0
+    if args.hier:
+        hier_phase(torch, name)
         return 0
     if args.tile_sweep:
         t0 = time.perf_counter()
@@ -6204,6 +6695,9 @@ def main(argv=None) -> int:
                             for key in ("launches", "variants", "shapes")}
         del out
         torch.cuda.empty_cache()
+    hier = hier_phase(torch, name)
+    hier_paths = hier["paths"]
+    torch.cuda.empty_cache()
     moe_paths = moe_phase(torch, name)
     torch.cuda.empty_cache()
     ssm_paths = ssm_phase(torch, name)
@@ -6247,6 +6741,8 @@ def main(argv=None) -> int:
                          "whisper_paged": pstream_launches[kname],
                          **{path: long_paths[path]["launches"][kname]
                             for path in long_paths},
+                         **{path: hier_paths[path]["launches"][kname]
+                            for path in hier_paths},
                          **{path: moe_paths[path]["launches"][kname]
                             for path in moe_paths},
                          **{path: ssm_paths[path]["launches"][kname]
@@ -6275,6 +6771,8 @@ def main(argv=None) -> int:
                 "whisper_paged": pstream_variants[kname],
                 **{path: long_paths[path]["variants"][kname]
                    for path in long_paths},
+                **{path: hier_paths[path]["variants"][kname]
+                   for path in hier_paths},
                 **{path: moe_paths[path]["variants"][kname]
                    for path in moe_paths},
                 **{path: ssm_paths[path]["variants"][kname]
@@ -6401,6 +6899,17 @@ def main(argv=None) -> int:
                                           if (kind, shape) in out["per_step"]}}
                 for out in train_paths.values()
                 for (k, shape), r in out["rows"].items() if k == kind}
+        if kname in ("widesa_mm", "bmm", "jacobi2d"):
+            # the hier phase's (d): each recurrence under the serving
+            # target on the hand kernels, beside the flat plan and the
+            # plain version; (c): B read at its pitch (mm)
+            kind = KERNELS[kname].get("kind", kname)
+            entry["hier"] = {
+                label: row for label, row in hier["recurrences"].items()
+                if row["kind"] == kind
+                or (kname == "jacobi2d" and row["kind"].startswith(kind))}
+            if kname == "widesa_mm":
+                entry["pitched"] = hier["pitched"]
         if kname in WGMMA_SHAPES:
             # the tensor-core kernel at its prefill shape, the tiled
             # kernel and the library call beside it; the integer one at

@@ -10,6 +10,9 @@ olmoe-1b-7b (MoE) and deepseek-v2-236b (MoE with MLA attention and
 shared experts; its 236 B parameters fit no one card at full depth);
 mamba2-780m (SSM) and zamba2-1.2b (hybrid) on a recurrent state;
 whisper-base (encdec: precomputed frames and streamed audio).
+``"widesa-paper"`` names the paper's Table II benchmark suite
+(``core.recurrence.PAPER_BENCHMARKS``), a pseudo-config that no engine
+serves, as in the reference.
 """
 
 from __future__ import annotations
@@ -29,9 +32,10 @@ _ARCH_MODULES = {
     "codeqwen1.5-7b": "codeqwen15_7b",
     "llava-next-mistral-7b": "llava_next_mistral_7b",
     "whisper-base": "whisper_base",
+    "widesa-paper": "widesa_paper",
 }
 
-ARCHS = list(_ARCH_MODULES)
+ARCHS = [a for a in _ARCH_MODULES if a != "widesa-paper"]
 
 
 def _module(arch: str):

@@ -11,6 +11,9 @@
                      measured race and the port's crossover table
     fusion.py      — producer->consumer chains (mm+mm, fft2d stage pairs,
                      conv2d / stencil halo chains)
+    hierarchy.py   — two-level plans: an outer (dp, tp) split over the
+                     inner chip target, composed on one device
+    roofline.py    — the outer link's wire time (the hierarchical cost)
     codegen.py     — ExecutionPlan -> executable (xla / pallas backends)
 
 The code is pure Python and copied rather than imported, so the port never
@@ -19,6 +22,8 @@ loads JAX; the tests hold its plans equal to the reference planner's.
 
 from .autotune import PlanPolicy, PlanRequest, resolve
 from .codegen import lower_plan
+from .hierarchy import (SERVING_HIERARCHICAL_TARGET, HierarchicalPlan,
+                        HierarchicalTarget, HierarchyError)
 from .mapper import (AIE_TARGET, ExecutionPlan, Target, best_plan,
                      map_recurrence, predict_bounds)
 from .partition import Partition, partition_schedule
@@ -41,4 +46,6 @@ __all__ = [
     "batched_matmul", "conv2d", "fft2d_stage", "fir", "jacobi2d",
     "jacobi2d_9pt", "jacobi2d_multisweep", "matmul", "mttkrp",
     "SystolicSchedule", "enumerate_schedules",
+    "HierarchicalTarget", "HierarchicalPlan", "HierarchyError",
+    "SERVING_HIERARCHICAL_TARGET",
 ]

@@ -29,12 +29,16 @@ given machine.  This module measures that, as the reference's does:
 On one card the backends are the reference's single-device pair:
 ``pallas`` is the hand-written Hopper kernel (``runtime.execute_plan``)
 and ``xla`` the registry's plain PyTorch version (``codegen.lower_plan``).
-The chip-level schedules (``systolic``, ``allgather``,
-``fused_systolic``) are multi-device work (ROADMAP A9) and never enter
-a race; a stored winner among them clamps to the fastest runnable
-backend by its stored timings.  As in the reference, bench shapes race
-at their spec's smoke proxy and ``measured_shape``/``measured_dtype``
-record the proxy.
+A hierarchical target (``core/hierarchy.py``) races the same pair as
+compositions of its groups (``hierarchy.lower_hierarchical``) at the
+recurrence's own shape, keyed with the reference's five-field
+``...|outer<DPxTP>|mesh<RxC>`` keys.  The chip-level schedules
+(``systolic``, ``allgather``, ``fused_systolic``, and a hierarchical
+plan's per-group device blocks) are multi-device work (ROADMAP A9) and
+never enter a race; a stored winner among them clamps to the fastest
+runnable backend by its stored timings.  As in the reference, bench
+shapes race at their spec's smoke proxy and
+``measured_shape``/``measured_dtype`` record the proxy.
 
 Timings are raw microseconds of the generating card; ``machine_factor``
 relates fresh timings to a table's.  A corrupt, stale or
@@ -135,15 +139,20 @@ class PlanRequest:
 def resolve(req: PlanRequest) -> ExecutionPlan | None:
     """Best *feasible* plan for a request, or None (the caller falls
     back).  Memoized per request; the None outcome of an infeasible shape
-    is cached too, so it never re-runs the mapper search.  A plan kind the
-    port has not ported (``NotImplementedError`` from ``best_plan``, e.g.
-    a hierarchical target, for chains too) raises rather than reading as
-    infeasible."""
+    is cached too, so it never re-runs the mapper search.  A hierarchical
+    target with no legal outer split (``HierarchyError``) gives None, and
+    so does a chain against a hierarchical target: chains do not compose
+    hierarchically, and the facade's unfused stages do.  A plan kind the
+    port has not ported (``NotImplementedError``) raises rather than
+    reading as infeasible."""
     if any(d <= 0 for d in _flat_dims(req.shape)):
         return None
+    from .hierarchy import HierarchyError
     from .mapper import best_plan
 
     if "+" in req.kind:  # fused chain request (core/fusion.py)
+        if getattr(req.target, "outer_shape", None) is not None:
+            return None
         from . import fusion
 
         try:
@@ -165,7 +174,9 @@ def resolve(req: PlanRequest) -> ExecutionPlan | None:
         plan = best_plan(rec, req.target, policy=req.policy)
     except NotImplementedError:
         raise
-    except RuntimeError:
+    except (RuntimeError, HierarchyError):
+        # HierarchyError: no legal outer split for this shape; the
+        # facade falls back rather than erroring, as in the reference
         return None
     return plan if plan.feasible else None
 
@@ -326,12 +337,12 @@ def counters_clear() -> None:
 
 def available_backends(target: Target) -> tuple[str, ...]:
     """Backends this process can execute for ``target``: the hand kernel
-    and the plain version.  A hierarchical target is not planned by the
-    port (ROADMAP A9)."""
+    and the plain version; a hierarchical target's are its compositions'
+    (``hierarchy.hierarchical_available_backends``, the same pair)."""
     if getattr(target, "outer_shape", None) is not None:
-        raise NotImplementedError(
-            "hierarchical targets are not planned by the port yet "
-            "(ROADMAP A9)")
+        from .hierarchy import hierarchical_available_backends
+
+        return hierarchical_available_backends(target)
     return ("pallas", "xla")
 
 
@@ -424,7 +435,9 @@ def race(rec, target: Target,
     Returns a table entry: ``{"backend": winner, "us": {backend: µs},
     "measured_shape": extents, "measured_dtype": dtype}``.  Dtypes the
     race does not execute as declared race as their ``exec_dtype``.  A
-    ``fusion.RecurrenceChain`` races its fused compositions instead."""
+    ``fusion.RecurrenceChain`` races its fused compositions instead; a
+    hierarchical ``target`` races the compositions of its modelled
+    ``HierarchicalPlan`` (``HierarchyError`` where no split is legal)."""
     if hasattr(rec, "stages"):
         return _race_chain(rec, target, policy, backends)
     from repro_torch.kernels import registry
@@ -436,7 +449,9 @@ def race(rec, target: Target,
     run_dtype = exec_dtype(rec.name, rec.dtype)
     exec_rec = (rec if run_dtype == rec.dtype
                 else dataclasses.replace(rec, dtype=run_dtype))
-    plan = best_plan(exec_rec, target)  # the modelled plan's tiles
+    # the modelled plan's tiles; for a hierarchical target its split and
+    # the groups' inner plan (no per-group mesh is built)
+    plan = best_plan(exec_rec, target)
     operands = registry.operands(exec_rec, _generator(policy.device),
                                  policy.device)
     avail = backends or available_backends(target)
@@ -502,6 +517,8 @@ def apply_policy(plan, policy: PlanPolicy):
 
         runnable = set(fusion.fused_available_backends(plan))
     else:
+        # flat and hierarchical plans alike: available_backends
+        # dispatches on the target kind
         runnable = set(available_backends(plan.target))
     if backend not in runnable:
         timed = {b: u for b, u in entry["us"].items() if b in runnable}

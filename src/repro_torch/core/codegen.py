@@ -11,12 +11,13 @@ Two backends of the reference run here, the pair a crossover-table race
               maps onto (the plain version when the operands lie on the
               CPU).
 
-A ``FusedPlan`` lowers through ``fusion.lower_fused``.  The chip-level
-schedules (``systolic``, ``allgather``) are the multi-device work of
-ROADMAP A9 and raise ``NotImplementedError``; so do hierarchical
-targets, already at planning (``mapper.best_plan``).  An
-unregistered recurrence raises ``registry.UnregisteredRecurrenceError``
-from either backend.
+A ``FusedPlan`` lowers through ``fusion.lower_fused`` and a
+``HierarchicalPlan`` through ``hierarchy.lower_hierarchical`` (the outer
+split composed on one device, each group on this module's lowering of
+the inner plan).  The chip-level schedules (``systolic``,
+``allgather``) are the multi-device work of ROADMAP A9 and raise
+``NotImplementedError``.  An unregistered recurrence raises
+``registry.UnregisteredRecurrenceError`` from either backend.
 """
 
 from __future__ import annotations
@@ -30,9 +31,11 @@ from .mapper import ExecutionPlan
 
 def lower_plan(plan: ExecutionPlan, backend: str = "xla") -> Callable:
     """The executable of ``plan`` on ``backend`` (module docstring)."""
-    from . import fusion
+    from . import fusion, hierarchy
     from repro_torch.kernels import registry, runtime
 
+    if isinstance(plan, hierarchy.HierarchicalPlan):
+        return hierarchy.lower_hierarchical(plan, backend=backend)
     if isinstance(plan, fusion.FusedPlan):
         return fusion.lower_fused(plan, backend=backend)
     if backend in ("systolic", "allgather"):

@@ -19,7 +19,11 @@ Three chain families, as in the reference: the non-GLU MLP pair
 (``conv2d -> jacobi2d``, ``jacobi2d <-> jacobi2d_9pt``), whose consumer
 reads the producer's output as its padded grid.  The reference's
 one-shard_map ``fused_systolic`` schedules are multi-device work
-(ROADMAP A9): that backend raises ``NotImplementedError``.
+(ROADMAP A9): that backend raises ``NotImplementedError``.  A chain
+never composes hierarchically: under a ``HierarchicalTarget``
+``hierarchy.plan_hierarchy`` raises ``HierarchyError`` (``unsupported``)
+and ``autotune.resolve`` gives None, so the facade runs the unfused
+stages, which do go two-level.
 
 ``FusedPlan.backend`` defaults to ``"xla"``, as in the reference; a
 crossover-table hit (``autotune.apply_policy``) may restamp it, else both

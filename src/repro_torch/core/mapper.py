@@ -306,16 +306,23 @@ def best_plan(rec: UniformRecurrence, target: Target = Target(),
     backends on a miss and persists the winner.  ``rec`` may also be a
     ``fusion.RecurrenceChain``: the chain runs the fusion legality pass
     (``fusion.fuse``, raising ``FusionError`` on an illegal chain) and
-    returns a ``FusedPlan``, the policy applied alike.  Hierarchical
-    targets (the reference's ``hierarchy`` planner) are ROADMAP A9 and
-    raise ``NotImplementedError``.
+    returns a ``FusedPlan``, the policy applied alike.  ``target`` may be
+    a ``hierarchy.HierarchicalTarget``: the call then returns a
+    ``HierarchicalPlan``, an outer split whose per-group sub-recurrence
+    re-enters this entrypoint against the inner target (raising
+    ``HierarchyError`` where no outer split is legal); the policy's
+    table lookup then keys the hierarchical plan (``autotune.apply_policy``).
     """
     from . import fusion  # late: fusion imports this module
+    from . import hierarchy  # late: hierarchy imports this module
 
-    if getattr(target, "outer_shape", None) is not None:
-        raise NotImplementedError(
-            "hierarchical targets are not planned by the port yet "
-            "(ROADMAP A9)")
+    if isinstance(target, hierarchy.HierarchicalTarget):
+        plan = hierarchy.plan_hierarchy(rec, target, policy=policy)
+        if policy is None or policy.mode == "modelled":
+            return plan
+        from . import autotune
+
+        return autotune.apply_policy(plan, policy)
     if isinstance(rec, fusion.RecurrenceChain):
         plan = fusion.fuse(rec, target)
     else:

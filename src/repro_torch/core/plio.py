@@ -218,6 +218,16 @@ def congestion(
     return west, east
 
 
+def congestion_scalar(
+    west: tuple[int, ...] | list[int], east: tuple[int, ...] | list[int]
+) -> int:
+    """Collapse per-boundary (west, east) congestion into one comparable
+    scalar, the peak per-direction column load: the tie-break between
+    hierarchical outer splits whose modelled times coincide (lower peak
+    congestion wins)."""
+    return max(max(west, default=0), max(east, default=0))
+
+
 def is_feasible(
     graph: MappedGraph,
     assignment: dict[str, int],

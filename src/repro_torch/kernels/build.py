@@ -137,22 +137,27 @@ MTTKRP_TILE = (64, 64)
 #: entry point -> (library, argument types): pointers, then the ints of
 #: the shape, dtype codes and tile, then the stream
 _ENTRIES = {
-    # the GEMMs: (batch,) shape, A's row pitch, B's layout, dtypes, then
-    # the tiled kernel's tile; the skinny kernel's split, K range per block,
-    # B's copy width and A's vector flag; the tensor-core kernel's output
-    # tile, ring stages and split of K
+    # the GEMMs: (batch,) shape, A's row pitch, B's layout, pitch and (bmm)
+    # batch stride, dtypes, then the tiled kernel's tile; the skinny
+    # kernel's split, K range per block, B's copy width and A's vector
+    # flag; the tensor-core kernel's output tile, ring stages and split of K
     "widesa_mm_launch": ("widesa_mm", [ctypes.c_void_p] * 3
-                         + [ctypes.c_int] * 10 + [ctypes.c_void_p]),
+                         + [ctypes.c_int] * 11 + [ctypes.c_void_p]),
     "widesa_bmm_launch": ("widesa_mm", [ctypes.c_void_p] * 3
-                          + [ctypes.c_int] * 11 + [ctypes.c_void_p]),
+                          + [ctypes.c_int] * 7 + [ctypes.c_longlong]
+                          + [ctypes.c_int] * 5 + [ctypes.c_void_p]),
     "widesa_skinny_launch": ("widesa_mm", [ctypes.c_void_p] * 3
-                             + [ctypes.c_int] * 12 + [ctypes.c_void_p]),
+                             + [ctypes.c_int] * 7 + [ctypes.c_longlong]
+                             + [ctypes.c_int] * 6 + [ctypes.c_void_p]),
     "widesa_tc_launch": ("widesa_mm", [ctypes.c_void_p] * 3
-                         + [ctypes.c_int] * 12 + [ctypes.c_void_p]),
+                         + [ctypes.c_int] * 7 + [ctypes.c_longlong]
+                         + [ctypes.c_int] * 6 + [ctypes.c_void_p]),
     # the integer tensor-core GEMM: A, B, C and the limb planes' scratch,
-    # then the shape, B's layout, the input dtype and the configuration
+    # then the shape, B's layout, pitch and batch stride, the input dtype
+    # and the configuration
     "widesa_tc_int_launch": ("widesa_mm", [ctypes.c_void_p] * 5
-                             + [ctypes.c_int] * 11 + [ctypes.c_void_p]),
+                             + [ctypes.c_int] * 7 + [ctypes.c_longlong]
+                             + [ctypes.c_int] * 5 + [ctypes.c_void_p]),
     # the FIR: x, h, y (the complex FIR: both planes of each), the shape,
     # dtypes, then the compiled tap count, lanes a block and blocks
     "widesa_fir_launch": ("widesa_sp", [ctypes.c_void_p] * 3

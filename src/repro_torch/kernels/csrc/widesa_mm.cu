@@ -178,7 +178,10 @@
 // 16-byte units, so that TMA addresses them at any key count); C is
 // row-major [batch, M, N]; B is row-major [batch, K, N] or, with
 // b_col_major, the transpose of a row-major [batch, N, K] (the tied lm_head
-// reads the embedding table as its B, the attention scores read K so).
+// reads the embedding table as its B, the attention scores read K so), its
+// rows (of N, or of K) ldb >= N (or K) elements apart and its batch
+// entries sb elements apart: a slice of a wider B's columns or rows (the
+// groups of a hierarchical plan's column and row splits) is read in place.
 
 #include <cooperative_groups.h>
 #include <cuda.h>
@@ -240,7 +243,8 @@ template <int BM, int BN> struct Geometry {
 template <typename TIn, typename TOut, int BM, int BN, int BK>
 __global__ void __launch_bounds__(Geometry<BM, BN>::kThreads)
 gemm_kernel(const TIn* __restrict__ a, const TIn* __restrict__ b,
-            TOut* __restrict__ c, int m, int n, int k, int lda, int b_col_major) {
+            TOut* __restrict__ c, int m, int n, int k, int lda, int b_col_major,
+            int ldb, long long sb) {
   using Acc = typename Elem<TIn>::Acc;
   using G = Geometry<BM, BN>;
   constexpr int NT = G::kThreads, TM = G::TM, TN = G::TN;
@@ -255,7 +259,7 @@ gemm_kernel(const TIn* __restrict__ a, const TIn* __restrict__ b,
   const int col0 = blockIdx.y * BN;
   const size_t z = blockIdx.z;
   a += z * (size_t)m * lda;
-  b += z * (size_t)k * n;
+  b += z * (size_t)sb;
   c += z * (size_t)m * n;
 
   Acc acc[TM][TN];
@@ -276,13 +280,13 @@ gemm_kernel(const TIn* __restrict__ a, const TIn* __restrict__ b,
       for (int e = tid; e < BK * BN; e += NT) {
         const int col = e / BK, kk = e % BK;
         const int gc = col0 + col, gk = k0 + kk;
-        Bs[kk][col] = (gc < n && gk < k) ? Elem<TIn>::load(b + (size_t)gc * k + gk) : Acc(0);
+        Bs[kk][col] = (gc < n && gk < k) ? Elem<TIn>::load(b + (size_t)gc * ldb + gk) : Acc(0);
       }
     } else {
       for (int e = tid; e < BK * BN; e += NT) {
         const int kk = e / BN, col = e % BN;
         const int gc = col0 + col, gk = k0 + kk;
-        Bs[kk][col] = (gc < n && gk < k) ? Elem<TIn>::load(b + (size_t)gk * n + gc) : Acc(0);
+        Bs[kk][col] = (gc < n && gk < k) ? Elem<TIn>::load(b + (size_t)gk * ldb + gc) : Acc(0);
       }
     }
     __syncthreads();
@@ -317,7 +321,8 @@ struct Args {
   const void* a;
   const void* b;
   void* c;
-  int batch, m, n, k, lda, b_col_major;
+  int batch, m, n, k, lda, b_col_major, ldb;
+  long long sb;
   cudaStream_t stream;
 };
 
@@ -326,7 +331,7 @@ int launch_tile(const Args& x) {
   const dim3 grid((x.m + BM - 1) / BM, (x.n + BN - 1) / BN, x.batch);
   gemm_kernel<TIn, TOut, BM, BN, BK><<<grid, Geometry<BM, BN>::kThreads, 0, x.stream>>>(
       static_cast<const TIn*>(x.a), static_cast<const TIn*>(x.b), static_cast<TOut*>(x.c),
-      x.m, x.n, x.k, x.lda, x.b_col_major);
+      x.m, x.n, x.k, x.lda, x.b_col_major, x.ldb, x.sb);
   return (int)cudaGetLastError();
 }
 
@@ -357,7 +362,8 @@ int launch_dtype(int bm, int bn, int bk, const Args& x) {
 }
 
 int launch(int in_dtype, int out_dtype, int bm, int bn, int bk, const Args& x) {
-  if (x.lda < x.k) return (int)cudaErrorInvalidValue;
+  if (x.lda < x.k || x.ldb < (x.b_col_major ? x.k : x.n) || x.sb < 0)
+    return (int)cudaErrorInvalidValue;
   if (in_dtype == F32 && out_dtype == F32) return launch_dtype<float, float>(bm, bn, bk, x);
   if (in_dtype == BF16 && out_dtype == BF16)
     return launch_dtype<__nv_bfloat16, __nv_bfloat16>(bm, bn, bk, x);
@@ -455,8 +461,9 @@ __device__ __forceinline__ void copy_run(unsigned dst, const T* row, int first, 
 // depth of one product), so those rows are not copied; the CUDA-core path
 // reads whole stages.
 template <typename TIn>
-__device__ __forceinline__ void load_stage(unsigned slot, const TIn* b, int n, int k, int col0,
-                                            int kbase, int b_col_major, int gran, int tid) {
+__device__ __forceinline__ void load_stage(unsigned slot, const TIn* b, int n, int k, int ldb,
+                                            int col0, int kbase, int b_col_major, int gran,
+                                            int tid) {
   using S = Skinny<TIn>;
   const int kread = S::kMma ? (k + 15) & ~15 : 0x7fffffff;
 #pragma unroll
@@ -466,14 +473,14 @@ __device__ __forceinline__ void load_stage(unsigned slot, const TIn* b, int n, i
       const int r = q / kRuns, run = q % kRuns;
       const int col = col0 + r, first = kbase + run * S::E;
       if (first >= kread) continue;
-      const TIn* row = b + (size_t)(col < n ? col : 0) * k;
+      const TIn* row = b + (size_t)(col < n ? col : 0) * ldb;
       copy_run(slot + r * S::kColPitch + run * 16, row, first, col < n ? k : 0, gran, b);
     } else {  // B rows: the tile's 32 columns of each of BK rows of K
       constexpr int kRuns = kSkinnyBN * (int)sizeof(TIn) / 16;
       const int r = q / kRuns, run = q % kRuns;
       const int kk = kbase + r;
       if (kk >= kread) continue;
-      const TIn* row = b + (size_t)(kk < k ? kk : 0) * n;
+      const TIn* row = b + (size_t)(kk < k ? kk : 0) * ldb;
       copy_run(slot + r * S::kRowPitch + run * 16, row, col0 + run * S::E, kk < k ? n : 0, gran,
                b);
     }
@@ -517,8 +524,8 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0, uint32_t a1
 template <typename TIn, typename TOut>
 __global__ void __launch_bounds__(kSkinnyThreads)
 skinny_kernel(const TIn* __restrict__ a, const TIn* __restrict__ b, TOut* __restrict__ c, int m,
-              int n, int k, int lda, int b_col_major, int split, int kblk, int b_gran,
-              int a_vec) {
+              int n, int k, int lda, int b_col_major, int ldb, long long sb, int split,
+              int kblk, int b_gran, int a_vec) {
   using S = Skinny<TIn>;
   using Acc = typename Elem<TIn>::Acc;
   constexpr bool kMma = S::kMma;
@@ -529,7 +536,7 @@ skinny_kernel(const TIn* __restrict__ a, const TIn* __restrict__ b, TOut* __rest
   const int col0 = (blockIdx.x / split) * kSkinnyBN;
   const size_t z = blockIdx.z;
   a += z * (size_t)m * lda;
-  b += z * (size_t)k * n;
+  b += z * (size_t)sb;
   c += z * (size_t)m * n;
   const int k0 = rank * kblk;
   const int kend = min(k, k0 + kblk);
@@ -557,8 +564,8 @@ skinny_kernel(const TIn* __restrict__ a, const TIn* __restrict__ b, TOut* __rest
 #pragma unroll
   for (int s = 0; s < kSkinnyStages - 1; ++s) {
     if (s < nstages)
-      load_stage(ring_addr + s * S::kStageBytes, b, n, k, col0, k0 + s * S::BK, b_col_major,
-                  b_gran, tid);
+      load_stage(ring_addr + s * S::kStageBytes, b, n, k, ldb, col0, k0 + s * S::BK,
+                  b_col_major, b_gran, tid);
     cp_commit();
   }
   if (!a_vec) {  // a column of A a thread: a batch of rows' loads in flight, then their stores
@@ -589,7 +596,7 @@ skinny_kernel(const TIn* __restrict__ a, const TIn* __restrict__ b, TOut* __rest
     __syncthreads();
     const int next = s + kSkinnyStages - 1;
     if (next < nstages)
-      load_stage(ring_addr + (next % kSkinnyStages) * S::kStageBytes, b, n, k, col0,
+      load_stage(ring_addr + (next % kSkinnyStages) * S::kStageBytes, b, n, k, ldb, col0,
                   k0 + next * S::BK, b_col_major, b_gran, tid);
     cp_commit();
     const unsigned char* slot = ring + (s % kSkinnyStages) * S::kStageBytes;
@@ -703,7 +710,9 @@ struct SkinnyArgs {
   const void* a;
   const void* b;
   void* c;
-  int batch, m, n, k, lda, b_col_major, split, kblk, b_gran, a_vec;
+  int batch, m, n, k, lda, b_col_major, ldb;
+  long long sb;
+  int split, kblk, b_gran, a_vec;
   cudaStream_t stream;
 };
 
@@ -713,7 +722,8 @@ int launch_skinny_typed(const SkinnyArgs& x) {
   using Acc = typename Elem<TIn>::Acc;
   auto kernel = skinny_kernel<TIn, TOut>;
   if (x.m < 1 || x.m > kSkinnyRows || x.split < 1 || x.split > kSkinnyMaxCluster ||
-      x.lda < x.k || x.kblk < S::BK || x.kblk % S::BK != 0 || (long long)x.split * x.kblk < x.k ||
+      x.lda < x.k || x.ldb < (x.b_col_major ? x.k : x.n) || x.sb < 0 || x.kblk < S::BK ||
+      x.kblk % S::BK != 0 || (long long)x.split * x.kblk < x.k ||
       (long long)(x.split - 1) * x.kblk >= x.k ||
       (x.b_gran != 16 && x.b_gran != 8 && x.b_gran != 4))
     return (int)cudaErrorInvalidValue;
@@ -744,8 +754,8 @@ int launch_skinny_typed(const SkinnyArgs& x) {
   cfg.numAttrs = x.split > 1 ? 1 : 0;
   const cudaError_t err = cudaLaunchKernelEx(
       &cfg, kernel, static_cast<const TIn*>(x.a), static_cast<const TIn*>(x.b),
-      static_cast<TOut*>(x.c), x.m, x.n, x.k, x.lda, x.b_col_major, x.split, x.kblk, x.b_gran,
-      x.a_vec);
+      static_cast<TOut*>(x.c), x.m, x.n, x.k, x.lda, x.b_col_major, x.ldb, x.sb, x.split,
+      x.kblk, x.b_gran, x.a_vec);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -1301,7 +1311,8 @@ struct LimbJob {
   const void* src;
   unsigned char* dst;
   int rows, pitch, trans;
-  int blocks;  // of the grid's y: ceil(rows / kLimbRows), 0 for no job
+  int blocks;        // of the grid's y: ceil(rows / kLimbRows), 0 for no job
+  long long stride;  // elements between the operand's batch entries
 };
 
 // A block of 256 threads moves one unit of 32 rows (4 KB): one 16-byte load
@@ -1312,7 +1323,8 @@ constexpr int kLimbPitch = kTcRowBytes + 16;  // a staged row, padded against ba
 
 template <typename T, bool TRANS>
 __device__ __forceinline__ void limb_tile(unsigned char* tile, const T* src, unsigned char* dst,
-                                          int rows, int pitch, int k, int units, int yblock) {
+                                          int rows, int pitch, long long stride, int k,
+                                          int units, int yblock) {
   constexpr int S = (int)sizeof(T), E = kTcRowBytes / S, V = 16 / S;  // V values a load
   constexpr int kPitch = kLimbPitch;
   const int u = blockIdx.x, r0 = yblock * kLimbRows, tid = threadIdx.x;
@@ -1327,8 +1339,8 @@ __device__ __forceinline__ void limb_tile(unsigned char* tile, const T* src, uns
   } in;
   in.w = make_uint4(0u, 0u, 0u, 0u);
   if (gr < rows && gk < k)
-    in.w = *reinterpret_cast<const uint4*>(TRANS ? src + (z * k + gk) * rows + gr
-                                                 : src + (z * rows + gr) * pitch + gk);
+    in.w = *reinterpret_cast<const uint4*>(TRANS ? src + z * stride + (size_t)gk * pitch + gr
+                                                 : src + z * stride + (size_t)gr * pitch + gk);
   if (TRANS) {
 #pragma unroll
     for (int i = 0; i < V; ++i) *reinterpret_cast<T*>(tile + (r + i) * kPitch + j * S) = in.x[i];
@@ -1364,13 +1376,14 @@ limb_planes_kernel(LimbJob a, LimbJob b, int k, int units) {
   __shared__ __align__(16) unsigned char tile[kLimbRows * kLimbPitch];
   const int y = blockIdx.y;
   if (y < a.blocks)  // A is K-major
-    limb_tile<T, false>(tile, static_cast<const T*>(a.src), a.dst, a.rows, a.pitch, k, units, y);
+    limb_tile<T, false>(tile, static_cast<const T*>(a.src), a.dst, a.rows, a.pitch, a.stride, k,
+                        units, y);
   else if (b.trans)
-    limb_tile<T, true>(tile, static_cast<const T*>(b.src), b.dst, b.rows, b.pitch, k, units,
-                       y - a.blocks);
+    limb_tile<T, true>(tile, static_cast<const T*>(b.src), b.dst, b.rows, b.pitch, b.stride, k,
+                       units, y - a.blocks);
   else
-    limb_tile<T, false>(tile, static_cast<const T*>(b.src), b.dst, b.rows, b.pitch, k, units,
-                        y - a.blocks);
+    limb_tile<T, false>(tile, static_cast<const T*>(b.src), b.dst, b.rows, b.pitch, b.stride, k,
+                        units, y - a.blocks);
 }
 
 // Geometry of an integer output tile: LIMBS int8 limbs a value (int8 1,
@@ -1652,12 +1665,12 @@ EncodeTiled tensor_map_encoder() {
 // rows are `pitch` elements apart (batch entries outer rows apart) as a TMA
 // map with boxes of box_inner x box_outer x 1 in the 128-byte swizzle.
 bool encode_map(CUtensorMap* map, CUtensorMapDataType type, const void* ptr, long long inner,
-                long long outer, long long batch, long long pitch, int size, int box_inner,
-                int box_outer) {
+                long long outer, long long batch, long long pitch, long long batch_pitch, int size,
+                int box_inner, int box_outer) {
   const EncodeTiled encode = tensor_map_encoder();
   if (encode == nullptr) return false;
   const cuuint64_t dims[3] = {(cuuint64_t)inner, (cuuint64_t)outer, (cuuint64_t)batch};
-  const cuuint64_t strides[2] = {(cuuint64_t)(pitch * size), (cuuint64_t)(pitch * outer * size)};
+  const cuuint64_t strides[2] = {(cuuint64_t)(pitch * size), (cuuint64_t)(batch_pitch * size)};
   const cuuint32_t box[3] = {(cuuint32_t)box_inner, (cuuint32_t)box_outer, 1};
   const cuuint32_t steps[3] = {1, 1, 1};
   return encode(map, type, 3, const_cast<void*>(ptr), dims, strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
@@ -1669,7 +1682,9 @@ struct TcArgs {
   const void* a;
   const void* b;
   void* c;
-  int batch, m, n, k, lda, b_col_major, stages, split;
+  int batch, m, n, k, lda, b_col_major, ldb;
+  long long sb;
+  int stages, split;
   cudaStream_t stream;
 };
 
@@ -1688,7 +1703,9 @@ int launch_tc_typed(const TcArgs& x) {
       x.stages > kTcMaxStages || x.split < 1 || x.split > kTcMaxCluster ||
       (long long)(x.split - 1) * ktper >= ktiles || reinterpret_cast<uintptr_t>(x.a) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(x.b) % 16 != 0 || reinterpret_cast<uintptr_t>(x.c) % 16 != 0 ||
-      x.lda < x.k || (long long)x.lda * size % 16 != 0 || b_inner * size % 16 != 0 || (x.n + BN - 1) / BN > 65535)
+      x.lda < x.k || (long long)x.lda * size % 16 != 0 || b_inner * size % 16 != 0 ||
+      x.ldb < b_inner || (long long)x.ldb * size % 16 != 0 || x.sb * size % 16 != 0 ||
+      (x.n + BN - 1) / BN > 65535)
     return (int)cudaErrorInvalidValue;
   const size_t smem = tc_smem(G::kStageBytes, x.stages, G::kPartBytes);
   const long long xblocks = (long long)((x.m + BM - 1) / BM) * x.split;
@@ -1696,9 +1713,9 @@ int launch_tc_typed(const TcArgs& x) {
   const CUtensorMapDataType type =
       G::kF32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   CUtensorMap ta, tb;
-  if (!encode_map(&ta, type, x.a, x.k, x.m, x.batch, x.lda, size, E, BM) ||
-      !(BCOL ? encode_map(&tb, type, x.b, x.k, x.n, x.batch, x.k, size, E, BN)
-             : encode_map(&tb, type, x.b, x.n, x.k, x.batch, x.n, size, E, E)))
+  if (!encode_map(&ta, type, x.a, x.k, x.m, x.batch, x.lda, (long long)x.lda * x.m, size, E, BM) ||
+      !(BCOL ? encode_map(&tb, type, x.b, x.k, x.n, x.batch, x.ldb, x.sb, size, E, BN)
+             : encode_map(&tb, type, x.b, x.n, x.k, x.batch, x.ldb, x.sb, size, E, E)))
     return (int)cudaErrorInvalidValue;
   const cudaError_t allowed =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -1757,7 +1774,9 @@ struct TcIntArgs {
   // operand itself (an int8 A; an int8 column-major B)
   void* a_planes;
   void* b_planes;
-  int batch, m, n, k, lda, b_col_major, stages, split;
+  int batch, m, n, k, lda, b_col_major, ldb;
+  long long sb;
+  int stages, split;
   cudaStream_t stream;
 };
 
@@ -1787,6 +1806,8 @@ int launch_tc_int_typed(const TcIntArgs& x) {
       reinterpret_cast<uintptr_t>(b) % 16 != 0 || reinterpret_cast<uintptr_t>(x.c) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(x.a) % 16 != 0 || reinterpret_cast<uintptr_t>(x.b) % 16 != 0 ||
       (long long)x.lda * L % 16 != 0 || (long long)(x.b_col_major ? x.k : x.n) * L % 16 != 0 ||
+      x.ldb < (x.b_col_major ? x.k : x.n) || (long long)x.ldb * L % 16 != 0 ||
+      x.sb * L % 16 != 0 ||
       (x.m + kLimbRows - 1) / kLimbRows > 65535 || (x.n + kLimbRows - 1) / kLimbRows > 65535 ||
       tiles * x.split > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
@@ -1794,9 +1815,10 @@ int launch_tc_int_typed(const TcIntArgs& x) {
   if (smem > (size_t)kTcMaxSmem) return (int)cudaErrorInvalidValue;
   CUtensorMap ta, tb;
   if (!encode_map(&ta, CU_TENSOR_MAP_DATA_TYPE_UINT8, a, a_direct ? x.k : plane, x.m, x.batch,
-                  a_direct ? x.lda : plane, 1, kTcRowBytes, BM) ||
+                  a_direct ? x.lda : plane, (a_direct ? x.lda : plane) * x.m, 1, kTcRowBytes,
+                  BM) ||
       !encode_map(&tb, CU_TENSOR_MAP_DATA_TYPE_UINT8, b, b_direct ? x.k : plane, x.n, x.batch,
-                  b_direct ? x.k : plane, 1, kTcRowBytes, BN))
+                  b_direct ? x.ldb : plane, b_direct ? x.sb : plane * x.n, 1, kTcRowBytes, BN))
     return (int)cudaErrorInvalidValue;
   const cudaError_t allowed =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -1804,10 +1826,10 @@ int launch_tc_int_typed(const TcIntArgs& x) {
 
   if (!a_direct || !b_direct) {
     const LimbJob ja{x.a, static_cast<unsigned char*>(x.a_planes), x.m, x.lda, 0,
-                     a_direct ? 0 : (x.m + kLimbRows - 1) / kLimbRows};
-    const LimbJob jb{x.b, static_cast<unsigned char*>(x.b_planes), x.n,
-                     x.b_col_major ? x.k : x.n, !x.b_col_major,
-                     b_direct ? 0 : (x.n + kLimbRows - 1) / kLimbRows};
+                     a_direct ? 0 : (x.m + kLimbRows - 1) / kLimbRows,
+                     (long long)x.lda * x.m};
+    const LimbJob jb{x.b, static_cast<unsigned char*>(x.b_planes), x.n, x.ldb, !x.b_col_major,
+                     b_direct ? 0 : (x.n + kLimbRows - 1) / kLimbRows, x.sb};
     const dim3 grid((unsigned)ktiles, (unsigned)(ja.blocks + jb.blocks), (unsigned)x.batch);
     limb_planes_kernel<T><<<grid, 256, 0, x.stream>>>(ja, jb, x.k, ktiles);
     const cudaError_t err = cudaGetLastError();
@@ -1847,19 +1869,22 @@ int launch_tc_int(int in_dtype, int bm, int bn, const TcIntArgs& x) {
 extern "C" {
 
 // C[m, n] = A[m, k] @ B[k, n] (the mm recurrence); A's rows are lda elements
-// apart in every entry point.  Returns a cudaError_t.
+// apart in every entry point, B's rows (of N, or of K with b_col_major) ldb
+// apart and, batched, its entries sb apart.  Returns a cudaError_t.
 int widesa_mm_launch(const void* a, const void* b, void* c, int m, int n, int k, int lda,
-                     int b_col_major, int in_dtype, int out_dtype, int bm, int bn, int bk,
-                     void* stream) {
-  const Args x{a, b, c, 1, m, n, k, lda, b_col_major, static_cast<cudaStream_t>(stream)};
+                     int b_col_major, int ldb, int in_dtype, int out_dtype, int bm, int bn,
+                     int bk, void* stream) {
+  const Args x{a,   b,           c,   1,  m, n, k, lda,
+               b_col_major, ldb, 0LL, static_cast<cudaStream_t>(stream)};
   return launch(in_dtype, out_dtype, bm, bn, bk, x);
 }
 
 // C[z] = A[z] @ B[z] for z < batch (the bmm recurrence).  Returns a cudaError_t.
 int widesa_bmm_launch(const void* a, const void* b, void* c, int batch, int m, int n, int k,
-                      int lda, int b_col_major, int in_dtype, int out_dtype, int bm, int bn,
-                      int bk, void* stream) {
-  const Args x{a, b, c, batch, m, n, k, lda, b_col_major, static_cast<cudaStream_t>(stream)};
+                      int lda, int b_col_major, int ldb, long long sb, int in_dtype,
+                      int out_dtype, int bm, int bn, int bk, void* stream) {
+  const Args x{a,   b,           c,   batch, m, n, k, lda,
+               b_col_major, ldb, sb, static_cast<cudaStream_t>(stream)};
   return launch(in_dtype, out_dtype, bm, bn, bk, x);
 }
 
@@ -1868,10 +1893,11 @@ int widesa_bmm_launch(const void* a, const void* b, void* c, int batch, int m, i
 // in runs of b_gran bytes (16, 8 or 4); A by cp.async when a_vec.  Returns a
 // cudaError_t.
 int widesa_skinny_launch(const void* a, const void* b, void* c, int batch, int m, int n, int k,
-                         int lda, int b_col_major, int in_dtype, int out_dtype, int split,
-                         int kblk, int b_gran, int a_vec, void* stream) {
-  const SkinnyArgs x{a,     b,    c,      batch, m,     n,
-                     k,     lda,  b_col_major, split, kblk, b_gran,
+                         int lda, int b_col_major, int ldb, long long sb, int in_dtype,
+                         int out_dtype, int split, int kblk, int b_gran, int a_vec,
+                         void* stream) {
+  const SkinnyArgs x{a,   b,           c,   batch, m,     n,    k,
+                     lda, b_col_major, ldb, sb,    split, kblk, b_gran,
                      a_vec, static_cast<cudaStream_t>(stream)};
   return launch_skinny(in_dtype, out_dtype, x);
 }
@@ -1881,10 +1907,10 @@ int widesa_skinny_launch(const void* a, const void* b, void* c, int batch, int m
 // `stages` stages, K split over `split` blocks of a cluster.  A's and B's bases must be 16-byte aligned and their rows
 // whole 16-byte units.  Returns a cudaError_t.
 int widesa_tc_launch(const void* a, const void* b, void* c, int batch, int m, int n, int k,
-                     int lda, int b_col_major, int in_dtype, int out_dtype, int bm, int bn,
-                     int stages, int split, void* stream) {
-  const TcArgs x{a,   b,           c,      batch, m, n, k,
-                 lda, b_col_major, stages, split, static_cast<cudaStream_t>(stream)};
+                     int lda, int b_col_major, int ldb, long long sb, int in_dtype,
+                     int out_dtype, int bm, int bn, int stages, int split, void* stream) {
+  const TcArgs x{a,   b,           c,   batch, m,      n,     k,
+                 lda, b_col_major, ldb, sb,    stages, split, static_cast<cudaStream_t>(stream)};
   return launch_tc(in_dtype, out_dtype, bm, bn, x);
 }
 
@@ -1896,11 +1922,12 @@ int widesa_tc_launch(const void* a, const void* b, void* c, int batch, int m, in
 // operand itself (an int8 A; an int8 column-major B).  Returns a
 // cudaError_t.
 int widesa_tc_int_launch(const void* a, const void* b, void* c, void* a_planes, void* b_planes,
-                         int batch, int m, int n, int k, int lda, int b_col_major, int in_dtype,
-                         int bm, int bn, int stages, int split, void* stream) {
-  const TcIntArgs x{a,   b,   c,           a_planes, b_planes, batch,
-                    m,   n,   k,           lda,      b_col_major, stages,
-                    split, static_cast<cudaStream_t>(stream)};
+                         int batch, int m, int n, int k, int lda, int b_col_major, int ldb,
+                         long long sb, int in_dtype, int bm, int bn, int stages, int split,
+                         void* stream) {
+  const TcIntArgs x{a,   b,           c,   a_planes, b_planes, batch,
+                    m,   n,           k,   lda,      b_col_major, ldb,
+                    sb,  stages,      split, static_cast<cudaStream_t>(stream)};
   return launch_tc_int(in_dtype, bm, bn, x);
 }
 

@@ -48,6 +48,15 @@ stamp and not a fallback, counted under ``backends`` in
 bench cases and the float32 census of the smoke configs, so a full-width
 bf16 GEMM misses, stays modelled and runs its hand kernel.
 
+``PlannedConfig.target`` may be a ``core.hierarchy.HierarchicalTarget``
+(the engines' ``target=``): every facade mm and bmm then plans two-level
+(an outer column, row or batch split over the inner chip) and runs the
+composition of its groups on the hand kernels
+(``hierarchy.lower_hierarchical``); ``last_plan`` carries the plan's
+``describe()`` (``[hier mm/...] outer 1x2 split=...``).  A chain does not
+compose hierarchically, so the MLP pair then runs its unfused per-stage
+calls, which do.
+
 ``planned_report()`` keeps per-call-site counters.  PyTorch runs eagerly,
 so a decision is counted on every call (the reference counts once per
 trace; under ``torch.utils.checkpoint`` the forward sites count again in
@@ -311,6 +320,21 @@ def _fallback_allowed(t: torch.Tensor, site: str, shape, reason: str):
             "configure(enabled=False)")
 
 
+def _execute(plan, *operands, out_dtype=None):
+    """Run a plan: a ``HierarchicalPlan`` as the composition of its groups
+    (only the single-device compositions run here: a chip-level stamp
+    clamps to ``xla``, as in the reference), any other through
+    ``runtime.execute_plan``."""
+    if hasattr(plan, "outer_split"):
+        from repro_torch.core import hierarchy
+
+        backend = plan.backend if plan.backend in ("xla", "pallas") \
+            else "xla"
+        return hierarchy.lower_hierarchical(
+            plan, backend=backend, out_dtype=out_dtype)(*operands)
+    return execute_plan(plan, *operands, out_dtype=out_dtype)
+
+
 def _operand(t: torch.Tensor) -> torch.Tensor:
     """A kernel operand: row-major, or (for B) the transpose of a
     row-major tensor; anything else is made contiguous."""
@@ -381,7 +405,7 @@ class _MMPlanned(torch.autograd.Function):
         ctx.site = site
         ctx.save_for_backward(x, w)
         with _executing():
-            return execute_plan(plan, x, _operand(w))
+            return _execute(plan, x, _operand(w))
 
     @staticmethod
     def backward(ctx, g):
@@ -435,7 +459,7 @@ class _BMMPlanned(torch.autograd.Function):
         ctx.site = site
         ctx.save_for_backward(a, b)
         with _executing():
-            return execute_plan(plan, a, b, out_dtype=out_dtype)
+            return _execute(plan, a, b, out_dtype=out_dtype)
 
     @staticmethod
     def backward(ctx, g):

@@ -33,8 +33,10 @@ mm, bmm and the fft2d composition's products run one of four kernels of
   int32) where TMA can address both operands (``tma_operand``: a 16-byte
   aligned base, rows of whole 16-byte units, so a contiguous integer A
   needs K % 16 == 0 in int8, K % 8 in int16, K % 4 in int32; A
-  contiguous or in padded rows, ``a_pitch``; B contiguous or the
-  transpose of a contiguous tensor).
+  contiguous or in padded rows, ``a_pitch``; B contiguous, the
+  transpose of a contiguous tensor, or a slice of either's columns or
+  rows read at the wider tensor's pitch, ``b_layout``, its pitch and
+  batch stride whole 16-byte units too, ``tma_b``).
   Their configuration is a ``TcTile`` (``tc_tile``) from the shape and
   the dtype: bf16 runs a 128-row tile 128 columns wide from N =
   ``TC_WIDE_N`` up, 64 below; float32 a tile 128 columns wide and 64 or
@@ -304,16 +306,53 @@ def copy_bytes(ptr: int, row_bytes: int) -> int:
     return 0
 
 
+def b_layout(b: torch.Tensor) -> tuple[int, int, int] | None:
+    """How the GEMM kernels read B, as ``(col_major, pitch, batch
+    stride)`` in elements, or None for a layout they do not read.
+
+    Row-major (0): unit stride along N, rows of K ``pitch`` >= N apart
+    (N for a contiguous B; a slice of a wider B's columns, a hierarchical
+    column split's group, keeps the wider B's N).  Column-major (1): unit
+    stride along K, columns ``pitch`` >= K apart (K for the transpose of a
+    contiguous tensor, which a single column of B also is; a slice of its
+    rows keeps the wider K).  Batch entries of a 3-D B lie ``batch
+    stride`` apart, at least one entry's extent (a 2-D B, or a batch of
+    one, takes that extent)."""
+    k, n = b.shape[-2:]
+    if b.is_contiguous() and n != 1:
+        col, pitch = 0, n
+    elif b.transpose(-1, -2).is_contiguous():
+        col, pitch = 1, k
+    elif b.is_contiguous():
+        col, pitch = 0, n
+    elif b.stride(-1) == 1 and b.stride(-2) >= n:
+        col, pitch = 0, b.stride(-2)
+    elif b.stride(-2) == 1 and b.stride(-1) >= k:
+        col, pitch = 1, b.stride(-1)
+    else:
+        return None
+    entry = (n if col else k) * pitch
+    if b.dim() == 3 and b.shape[0] > 1:
+        if b.stride(0) < entry:
+            return None
+        return col, pitch, b.stride(0)
+    return col, pitch, entry
+
+
 def b_col_major(b: torch.Tensor) -> int | None:
-    """How the GEMM kernels read B: 0 row-major (B contiguous), 1
-    column-major (the transpose of a contiguous tensor, which a single
-    column of B also is: its K elements then lie in one run), None if
-    neither."""
-    if b.is_contiguous() and b.shape[-1] != 1:
-        return 0
-    if b.transpose(-1, -2).is_contiguous():
-        return 1
-    return 0 if b.is_contiguous() else None
+    """How the GEMM kernels read B: 0 row-major, 1 column-major, None if
+    neither (``b_layout``)."""
+    layout = b_layout(b)
+    return None if layout is None else layout[0]
+
+
+def b_pitch(b: torch.Tensor) -> int | None:
+    """The pitch, in elements, at which the GEMM kernels read B's rows
+    (of N, row-major) or columns (of K, column-major), or None
+    (``b_layout``): N or K for a contiguous B or its transpose, the wider
+    tensor's for a slice of its columns or rows."""
+    layout = b_layout(b)
+    return None if layout is None else layout[1]
 
 
 def a_pitch(a: torch.Tensor) -> int | None:
@@ -333,9 +372,17 @@ def a_pitch(a: torch.Tensor) -> int | None:
 
 def b_copy_bytes(b: torch.Tensor) -> int:
     """``copy_bytes`` of B: its rows run along N when it is read
-    row-major, along K when column-major (``b_col_major``)."""
-    inner = b.shape[-2] if b_col_major(b) else b.shape[-1]
-    return copy_bytes(b.data_ptr(), inner * b.element_size())
+    row-major, along K when column-major (``b_layout``); a copy must keep
+    the row's length, its pitch and the batch stride aligned.  0 for a
+    layout the GEMMs do not read."""
+    layout = b_layout(b)
+    if layout is None:
+        return 0
+    col, pitch, stride = layout
+    size, ptr = b.element_size(), b.data_ptr()
+    inner = b.shape[-2] if col else b.shape[-1]
+    return min(copy_bytes(ptr, inner * size), copy_bytes(ptr, pitch * size),
+               copy_bytes(ptr, stride * size))
 
 
 #: the tensor-core kernel's geometry (``kTc*`` in csrc/widesa_mm.cu): its
@@ -460,16 +507,23 @@ def tma_operand(t: torch.Tensor, inner: int) -> bool:
     return copy_bytes(t.data_ptr(), inner * t.element_size()) == 16
 
 
+def tma_b(b: torch.Tensor) -> bool:
+    """Whether the tensor-core kernels' TMA can address B (``b_layout``):
+    a 16-byte aligned base, and its rows, its pitch and its batch stride
+    whole 16-byte units (``b_copy_bytes`` of 16)."""
+    return b_copy_bytes(b) == 16
+
+
 def tc_route(a: torch.Tensor, b: torch.Tensor) -> TcTile | None:
     """``tc_tile`` for ``a @ b`` where a tensor-core kernel takes the
     operands (a dtype it has, A and B in layouts the GEMMs read, both
-    addressable by TMA at A's row pitch), else None."""
-    layout, pitch = b_col_major(b), a_pitch(a)
+    addressable by TMA at their pitches), else None."""
+    pitch = a_pitch(a)
     m, k = a.shape[-2:]
     n = b.shape[-1]
-    if a.dtype not in TC_TILES or b.dtype != a.dtype or layout is None \
-            or pitch is None or not tma_operand(a, pitch) \
-            or not tma_operand(b, k if layout else n):
+    if a.dtype not in TC_TILES or b.dtype != a.dtype \
+            or b_layout(b) is None or pitch is None \
+            or not tma_operand(a, pitch) or not tma_b(b):
         return None
     return tc_tile(m, n, k, a.dtype, a.shape[0] if a.dim() == 3 else 1)
 
@@ -479,8 +533,7 @@ def check_tc(tile: TcTile, a: torch.Tensor, b: torch.Tensor) -> None:
     these operands (``check_operands`` has checked shapes, dtypes and
     layouts): a compiled tile of the dtype, a legal ring and split, an
     integer rank's K within ``TC_INT_MAX_RANK_K``."""
-    layout = b_col_major(b)
-    k, n = a.shape[-1], b.shape[-1]
+    k = a.shape[-1]
     ktiles = -(-k * a.element_size() // TC_ROW_BYTES)
     if (tile.bm, tile.bn) not in TC_TILES.get(a.dtype, ()) \
             or not 2 <= tile.stages <= TC_MAX_STAGES \
@@ -491,11 +544,10 @@ def check_tc(tile: TcTile, a: torch.Tensor, b: torch.Tensor) -> None:
             or tile.smem(a.dtype) > TC_MAX_SMEM:
         raise ValueError(f"{tile} is not a tensor-core launch for {a.dtype} "
                          f"at K={k}")
-    if not (tma_operand(a, a_pitch(a))
-            and tma_operand(b, k if layout else n)):
+    if not (tma_operand(a, a_pitch(a)) and tma_b(b)):
         raise ValueError("TMA cannot address these operands (bases must be "
-                         "16-byte aligned and rows whole 16-byte units): "
-                         "launch the tiled kernel")
+                         "16-byte aligned, rows, pitches and batch strides "
+                         "whole 16-byte units): launch the tiled kernel")
 
 
 def gemm_tile(a: torch.Tensor, b: torch.Tensor, tiled: tuple[int, ...]):

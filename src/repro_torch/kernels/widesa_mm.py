@@ -10,7 +10,9 @@ bf16 and float32, a bf16 result over a K past ``runtime.TC_PROMOTE_K``
 from its fp32 instantiation, rounded; ``gemm_tc_int_kernel`` in the
 integers, after the limb planes it reads are written to scratch by
 ``limb_planes_kernel``), a
-``(BM, BN, BK)`` tuple the tiled one.  A CPU tensor runs the plain version
+``(BM, BN, BK)`` tuple the tiled one.  Every kernel reads B in place at
+its pitch (``runtime.b_layout``), so a slice of a weight's columns or
+rows, a hierarchical plan's group, is launched without a copy.  A CPU tensor runs the plain version
 in ``ref.py`` instead.  ``launches`` counts kernel launches, ``variants``
 the same launches by kernel.
 """
@@ -32,13 +34,15 @@ variants = {"skinny": 0, "wgmma": 0, "tiled": 0}
 
 def check_operands(a, b, tiles, out_dtype, *, batched: bool):
     """Validate a CUDA launch and return ``(out_dtype, lda, b_col_major,
-    b_copy)``: A's row pitch (``runtime.a_pitch``), B's layout
-    (``runtime.b_col_major``) and the bytes a copy of its rows may take
-    (``runtime.copy_bytes``).
+    ldb, sb, b_copy)``: A's row pitch (``runtime.a_pitch``), B's layout,
+    pitch and batch stride (``runtime.b_layout``) and the bytes a copy of
+    its rows may take (``runtime.b_copy_bytes``).
 
     A is contiguous or in padded rows; B is contiguous or the transpose of a
     contiguous tensor (read column-major, as the tied lm_head reads the
-    embedding table).  ``tiles`` is a ``runtime.SkinnyTile`` that fits the
+    embedding table), or a slice of either's columns or rows, read in
+    place at the wider tensor's pitch (a hierarchical plan's groups).
+    ``tiles`` is a ``runtime.SkinnyTile`` that fits the
     shape (``runtime.check_skinny``) with B's rows aligned to 4 bytes or
     more, a ``runtime.TcTile`` a tensor-core kernel takes for these
     operands (``runtime.check_tc``), or a compiled ``(BM, BN, BK)`` of the
@@ -63,14 +67,13 @@ def check_operands(a, b, tiles, out_dtype, *, batched: bool):
     lda = runtime.a_pitch(a)
     if lda is None:
         raise ValueError("A must be contiguous or in evenly padded rows")
-    col_major = runtime.b_col_major(b)
-    if col_major is None:
-        raise ValueError("B must be contiguous or a transposed contiguous "
-                         "tensor")
+    layout = runtime.b_layout(b)
+    if layout is None:
+        raise ValueError("B must be row- or column-major at a pitch of at "
+                         "least its rows' length, its batch entries apart")
     if batched and a.shape[0] > 65535:
         raise ValueError(f"batch {a.shape[0]} exceeds the grid")
-    inner = b.shape[-2] if col_major else b.shape[-1]
-    b_copy = runtime.copy_bytes(b.data_ptr(), inner * b.element_size())
+    b_copy = runtime.b_copy_bytes(b)
     if isinstance(tiles, runtime.SkinnyTile):
         runtime.check_skinny(tiles, a.shape[-2], a.shape[-1], a.dtype)
         if b_copy < 4:
@@ -82,7 +85,7 @@ def check_operands(a, b, tiles, out_dtype, *, batched: bool):
         raise ValueError(f"tile {tiles} is not compiled")
     elif math.ceil(b.shape[-1] / tiles[1]) > 65535:
         raise ValueError(f"grid too large for N={b.shape[-1]}, tile {tiles}")
-    return out_dtype, lda, col_major, b_copy
+    return (out_dtype, lda, *layout, b_copy)
 
 
 def limb_planes(a, batch: int, m: int, n: int, k: int, col_major: int):
@@ -102,8 +105,8 @@ def limb_planes(a, batch: int, m: int, n: int, k: int, col_major: int):
             scratch(n) if wide or not col_major else None)
 
 
-def launch(a, b, out, tiles, lda: int, col_major: int, b_copy: int,
-           batched: bool) -> str:
+def launch(a, b, out, tiles, lda: int, col_major: int, ldb: int, sb: int,
+           b_copy: int, batched: bool) -> str:
     """Launch ``out = a @ b`` (operands checked by ``check_operands``) on
     the kernel ``tiles`` names, on the current stream of ``a``'s card;
     return that kernel's name (a key of ``variants``)."""
@@ -123,28 +126,28 @@ def launch(a, b, out, tiles, lda: int, col_major: int, b_copy: int,
             a_vec = ptrs[0] % 16 == 0 and lda * size % 16 == 0 \
                 and k * size % 16 == 0
             build.call("widesa_skinny_launch", *ptrs, batch, m, n, k, lda,
-                       col_major, *codes, tiles.split, tiles.kblk, b_copy,
-                       int(a_vec))
+                       col_major, ldb, sb, *codes, tiles.split, tiles.kblk,
+                       b_copy, int(a_vec))
             return "skinny"
         if isinstance(tiles, runtime.TcTile) and a.is_floating_point():
             build.call("widesa_tc_launch", *ptrs, batch, m, n, k, lda,
-                       col_major, *codes, tiles.bm, tiles.bn, tiles.stages,
-                       tiles.split)
+                       col_major, ldb, sb, *codes, tiles.bm, tiles.bn,
+                       tiles.stages, tiles.split)
             return "wgmma"
         if isinstance(tiles, runtime.TcTile):
             planes = limb_planes(a, batch, m, n, k, col_major)
             build.call("widesa_tc_int_launch", *ptrs,
                        *(p.data_ptr() if p is not None else None
                          for p in planes), batch, m, n, k, lda, col_major,
-                       codes[0], tiles.bm, tiles.bn, tiles.stages,
+                       ldb, sb, codes[0], tiles.bm, tiles.bn, tiles.stages,
                        tiles.split)
             return "wgmma"
         if batched:
             build.call("widesa_bmm_launch", *ptrs, batch, m, n, k, lda,
-                       col_major, *codes, tiles=tuple(tiles))
+                       col_major, ldb, sb, *codes, tiles=tuple(tiles))
         else:
             build.call("widesa_mm_launch", *ptrs, m, n, k, lda, col_major,
-                       *codes, tiles=tuple(tiles))
+                       ldb, *codes, tiles=tuple(tiles))
     return "tiled"
 
 

@@ -91,9 +91,14 @@ class EngineBase:
     K/V into the lane) and their own admit/step paths.
     """
 
-    def __init__(self, cfg, *, max_seq: int, policy=None, device="cuda"):
+    def __init__(self, cfg, *, max_seq: int, policy=None, target=None,
+                 device="cuda"):
         self.cfg = cfg
         self.policy = policy
+        # the serving GEMMs' execution target: a core.HierarchicalTarget
+        # splits them column/row-parallel over its outer tp axis; None
+        # keeps the ambient planned configuration's
+        self.target = target
         self.device = torch.device(device)
         self.api = build_model(cfg, self.device)
         self.max_seq = max_seq
@@ -111,7 +116,11 @@ class EngineBase:
         self._streams: dict[int, _StreamState] = {}
 
     def _plan_ctx(self):
-        """The planning override every engine call runs under."""
+        """The planning override every engine call runs under: the
+        engine's policy, and its target where one was given (an explicit
+        None would clobber a process-level ``planned.configure(target=)``)."""
+        if self.target is not None:
+            return planned.override(policy=self.policy, target=self.target)
         return planned.override(policy=self.policy)
 
     # -- submission ---------------------------------------------------------

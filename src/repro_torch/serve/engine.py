@@ -44,6 +44,12 @@ continuous batching over a block-paged KV cache (``paged_cache``):
     tokens).  Text lanes are preferred victims over streaming audio
     lanes (an audio victim must also replay its consumed chunks).
 
+Both engines take ``target=`` (e.g. ``core.SERVING_HIERARCHICAL_TARGET``):
+every call they make runs under ``planned.override(policy=..., target=...)``,
+so the serving GEMMs plan two-level and run as the compositions of their
+groups; the paged engine captures its decode step under it, with the
+two-level plans inside the graph.
+
 ``plan_report`` and ``autotune_report`` hold the deltas of each
 engine's ``load()``, as in the reference.  A replayed step makes no
 Python call, so neither they nor the kernel wrappers' launch counts see
@@ -65,8 +71,10 @@ from .scheduler import Scheduler, SchedulerConfig
 
 class ServeEngine(EngineBase):
     def __init__(self, cfg, *, max_slots: int = 4, max_seq: int = 512,
-                 prompt_len: int | None = None, policy=None, device="cuda"):
-        super().__init__(cfg, max_seq=max_seq, policy=policy, device=device)
+                 prompt_len: int | None = None, policy=None, target=None,
+                 device="cuda"):
+        super().__init__(cfg, max_seq=max_seq, policy=policy, target=target,
+                         device=device)
         self.max_slots = max_slots
         self.prompt_len = prompt_len
         self.cache = None
@@ -206,10 +214,11 @@ class PagedServeEngine(EngineBase):
 
     def __init__(self, cfg, *, max_lanes: int = 4, max_seq: int = 512,
                  block_size: int = 16, num_blocks: int | None = None,
-                 prompt_len: int | None = None, policy=None,
+                 prompt_len: int | None = None, policy=None, target=None,
                  scheduler: Scheduler | SchedulerConfig | None = None,
                  device="cuda"):
-        super().__init__(cfg, max_seq=max_seq, policy=policy, device=device)
+        super().__init__(cfg, max_seq=max_seq, policy=policy, target=target,
+                         device=device)
         self.max_lanes = max_lanes
         self.block_size = block_size
         self.num_blocks = num_blocks
@@ -276,9 +285,11 @@ class PagedServeEngine(EngineBase):
             if cuda:
                 self._decode_exec = self._capture(self._decode_fn)
             else:
-                # plan every decode shape, as the card's warmup run does
+                # plan every decode shape, as the card's warmup run does;
+                # each later step runs under the engine's planning override,
+                # as the captured graph holds the plans it was captured with
                 self._decode_fn()
-                self._decode_exec = self._decode_fn
+                self._decode_exec = self._planned_step(self._decode_fn)
             self.stats["decode_compiles"] += 1
             if self.prompt_len:
                 self._warm_prefill()
@@ -286,6 +297,15 @@ class PagedServeEngine(EngineBase):
             before, planned.planned_report())
         tune1 = autotune.counters()
         self.autotune_report = {k: tune1[k] - tune0[k] for k in tune1}
+
+    def _planned_step(self, fn):
+        """``fn`` run under the engine's planning override (the CPU's
+        decode step)."""
+        def step():
+            with self._plan_ctx():
+                return fn()
+
+        return step
 
     def _decode_closure(self):
         """The decode step over the static input buffer: (logits
@@ -502,7 +522,8 @@ class PagedServeEngine(EngineBase):
         request count after the step plus the queue backlog."""
         with self._plan_ctx():
             # bucketed prefills and the streaming chunk feeds run the
-            # planned GEMMs eagerly: the engine's policy must be ambient
+            # planned GEMMs eagerly: the engine's policy and target must
+            # be ambient
             self._admit()
             self._feed_streams()
         self._ensure_capacity()

@@ -85,9 +85,35 @@ def test_keys_equal_the_reference_for_every_case(census):
                 rec = treg.get(kind).builder(*args, dtype)
             assert tat.autotune_key(rec, mesh) == key
             keys.add(key)
+    keys |= _hier_keys(extra)
     reference = json.loads((ROOT / "src/repro/core/default_autotune.json")
                            .read_text())["entries"]
-    assert keys == {k for k in reference if "|outer" not in k}
+    assert keys == set(reference)
+    assert sum("|outer1x2|mesh1x8" in k for k in keys) == 11
+
+
+def _hier_keys(extra) -> set:
+    """The five-field keys of the single-GEMM census cases with a legal
+    split under the serving hierarchical target, each equal to the
+    reference's ``request_key``."""
+    from repro.core import SERVING_HIERARCHICAL_TARGET as JHT
+    from repro.core.hierarchy import HierarchyError as JHierarchyError
+    from repro_torch.core import SERVING_HIERARCHICAL_TARGET as HT
+    from repro_torch.core.hierarchy import HierarchyError, plan_hierarchy
+
+    keys = set()
+    for kind, args, dtype in extra:
+        rec = treg.get(kind).builder(*args, dtype)
+        try:
+            plan_hierarchy(rec, HT)
+        except HierarchyError:
+            with pytest.raises(JHierarchyError):
+                jax_best_plan(jreg.get(kind).builder(*args, dtype), JHT)
+            continue
+        key = tat.request_key(tat.PlanRequest(kind, args, dtype, HT))
+        assert key == jat.request_key(jat.PlanRequest(kind, args, dtype, JHT))
+        keys.add(key)
+    return keys
 
 
 def test_committed_table_covers_every_key_and_names_its_card(census):
@@ -97,7 +123,7 @@ def test_committed_table_covers_every_key_and_names_its_card(census):
                                             Target(name="t", mesh_shape=m)))
             for m in MESHES
             for kind, args, dtype in (*_registry_cases(), *extra, *chains)}
-    assert want == set(table["entries"])
+    assert want | _hier_keys(extra) == set(table["entries"])
     assert "H100" in table["note"] and " W" in table["note"]
     for entry in table["entries"].values():
         assert set(entry["us"]) == {"pallas", "xla"}
@@ -305,12 +331,40 @@ def test_generator_writes_no_table_without_the_hand_kernels_timing(
     assert not out.exists()
 
 
-def test_generator_refuses_hierarchy_and_planning_refuses_outer_targets():
-    with pytest.raises(NotImplementedError, match="A9"):
-        gen_autotune.main(["--hierarchy", "--device", "cpu"])
+def test_generator_refuses_hierarchy_and_planning_refuses_outer_targets(
+        tmp_path, monkeypatch):
+    """Despite the name, nothing here is refused any more:
+    ``--no-hierarchy`` writes no two-level key and the default
+    ``--hierarchy`` writes the five-field keys of the census cases with a
+    legal split (skipping those without); a hierarchical target's
+    backends are the single-device pair, and the chip-level lowering of
+    a two-level plan is what still raises (ROADMAP A9)."""
+    from repro_torch.core import SERVING_HIERARCHICAL_TARGET as HT
+    from repro_torch.core import lower_plan
 
-    class Hier(Target):
-        outer_shape = (1, 2)
-
+    cases = (("mm", (24, 128, 64), "float32"),
+             ("mm", (3, 5, 7), "float32"),           # no legal split
+             ("mm+mm", ((8, 16, 8), (8, 8, 16)), "float32"))
+    table = tat.new_table("t")
+    table["entries"]["mm|float32|256x256x256|mesh1x1"] = {
+        "backend": "pallas", "us": {"pallas": 2.0, "xla": 1.0},
+        "measured_shape": [256, 256, 256], "measured_dtype": "float32"}
+    monkeypatch.setattr(tat, "build_default_table",
+                        lambda **kw: json.loads(json.dumps(table)))
+    monkeypatch.setattr(gen_autotune, "serving_cases",
+                        lambda: (cases[:2], cases[2:]))
+    flat, hier = tmp_path / "flat.json", tmp_path / "hier.json"
+    gen_autotune.main(["--device", "cpu", "--no-serving", "--no-hierarchy",
+                       "--out", str(flat)])
+    assert set(tat.load_table(flat)["entries"]) == set(table["entries"])
+    gen_autotune.main(["--device", "cpu", "--no-serving", "--out", str(hier),
+                       "--reps", "1", "--warmup", "1"])
+    entries = tat.load_table(hier)["entries"]
+    assert set(entries) == {*table["entries"],
+                            "mm|float32|24x128x64|outer1x2|mesh1x8"}
+    assert set(entries["mm|float32|24x128x64|outer1x2|mesh1x8"]["us"]) == \
+        {"pallas", "xla"}
+    assert tat.available_backends(HT) == ("pallas", "xla")
+    plan = best_plan(treg.get("mm").builder(24, 128, 64, "float32"), HT)
     with pytest.raises(NotImplementedError, match="A9"):
-        tat.available_backends(Hier(name="h", mesh_shape=(1, 8)))
+        lower_plan(plan, "systolic")

@@ -1791,3 +1791,164 @@ def test_measured_race_times_both_backends_on_the_card(name, gen,
         mode="cached", table_path=str(path)))
     assert (again.backend, again.provenance) == (plan.backend, "measured")
     assert autotune.counters()["measure_calls"] == calls
+
+
+# -- B read at a pitch, and hierarchical plans ------------------------------
+
+#: every GEMM kernel: (rows of A that route to it, the tiled kernel's tile
+#: for a row-major and a column-major B, or None where the runtime picks)
+PITCH_KERNELS = {"skinny": (4, None), "wgmma": (64, None),
+                 "tiled": (64, ((16, 32, 32), (16, 32, 8)))}
+GEMM_DTYPES = (torch.float32, torch.bfloat16, torch.int8, torch.int16,
+               torch.int32)
+
+
+def _pitched(kind, m, split, dtype, gen):
+    """Operands of group 1 of a tp = 2 split of [m, 256] @ [256, 256] (bmm:
+    3 of them), as a hierarchical plan hands them to the kernels: a column
+    split's B the right half of a row-major B (rows 256 apart, batch
+    entries 256 x 256 apart); a row split's A the right half of A's rows
+    and its B the lower half of a column-major B (the tied lm_head's
+    ``embed.T``: columns 256 apart)."""
+    lead = (3,) if kind == "bmm" else ()
+    a = _draw((*lead, m, 256), dtype, gen).to(dtype)
+    b = _draw((*lead, 256, 256), dtype, gen).to(dtype)
+    if split == "column":
+        return a, b[..., 128:]
+    return a[..., 128:], b.transpose(-1, -2)[..., 128:, :]
+
+
+def _dense_copy(b):
+    """A contiguous copy of B in its own orientation (``runtime.b_layout``):
+    row-major, or the transpose of a contiguous tensor."""
+    if runtime.b_layout(b)[0]:
+        return b.transpose(-1, -2).contiguous().transpose(-1, -2)
+    return b.contiguous()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["mm", "bmm"])
+@pytest.mark.parametrize("split", ["column", "row"])
+@pytest.mark.parametrize("kernel", list(PITCH_KERNELS))
+@pytest.mark.parametrize("dtype", GEMM_DTYPES, ids=str)
+def test_pitched_b_equals_contiguous_copies_on_the_card(kind, split, kernel,
+                                                        dtype, gen):
+    """Each GEMM kernel reads a B slice (and a row split's A slice) in
+    place, bit for bit as the same launch over contiguous copies."""
+    m, tiled = PITCH_KERNELS[kernel]
+    a, b = _pitched(kind, m, split, dtype, gen)
+    col, pitch, _ = runtime.b_layout(b)
+    assert (col, pitch) == ((0, 256) if split == "column" else (1, 256))
+    assert not b.is_contiguous() and not b.transpose(-1, -2).is_contiguous()
+    if tiled:
+        tiles = tiled[col]
+    else:
+        tiles = runtime.gemm_tile(a, b, (16, 32, 32))
+        assert isinstance(tiles, runtime.SkinnyTile if kernel == "skinny"
+                          else runtime.TcTile), tiles
+    fn = bmm.bmm if kind == "bmm" else widesa_mm.matmul
+    wrapper = bmm if kind == "bmm" else widesa_mm
+    before = dict(wrapper.variants)
+    got = fn(a, b, tiles=tiles)
+    assert wrapper.variants[kernel] == before[kernel] + 1
+    want = fn(a.contiguous(), _dense_copy(b), tiles=tiles)
+    assert torch.equal(got, want)
+    plain = (ref.bmm if kind == "bmm" else ref.mm)(a, b)
+    if dtype == torch.bfloat16:
+        torch.testing.assert_close(got.float(), plain.float(), rtol=2**-7,
+                                   atol=1e-3)
+    else:
+        _same(got, plain)
+
+
+@pytest.mark.gpu
+def test_b_the_kernels_cannot_read_raises_on_the_card(gen):
+    """A B with neither unit stride raises before any launch: no copy is
+    made in the wrapper."""
+    a = _draw((4, 64), torch.bfloat16, gen)
+    b = _draw((64, 128), torch.bfloat16, gen)[:, ::2]
+    assert runtime.b_layout(b) is None
+    with pytest.raises(ValueError, match="B must be"):
+        widesa_mm.matmul(a, b, tiles=(4, 32, 32))
+
+
+#: (kind, builder args, dtype, outer shape, split): every split at a small
+#: size, and qwen1.5-0.5b's full-width serving GEMMs under the serving
+#: target
+HIER_CASES = (
+    ("mm", (128, 128, 128), "int16", (2, 2), "column"),
+    ("mm", (128, 127, 128), "int32", (2, 2), "row"),
+    ("mm", (24, 128, 64), "float32", (1, 2), "column"),
+    ("bmm", (8, 12, 16, 12), "float32", (1, 2), "batch"),
+    ("bmm", (2, 64, 64, 63), "int8", (2, 2), "column"),
+    ("bmm", (2, 64, 63, 64), "float32", (2, 2), "row"),
+    ("mm", (4, 151936, 1024), "bfloat16", (1, 2), "column"),
+    ("mm", (4, 2816, 1024), "bfloat16", (1, 2), "column"),
+    ("mm", (512, 1024, 2816), "bfloat16", (1, 2), "column"),
+    ("mm", (4, 51865, 512), "bfloat16", (1, 2), "row"),
+    ("bmm", (64, 1, 528, 64), "bfloat16", (1, 2), "batch"),
+    ("jacobi2d", (510, 300), "float32", (2, 1), "halo"),
+    ("jacobi2d_9pt", (508, 300), "int16", (1, 2), "halo"),
+)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", HIER_CASES,
+                         ids=[f"{c[0]}{c[1]}-{c[2]}-{c[4]}"
+                              for c in HIER_CASES])
+def test_hierarchical_plan_runs_its_groups_on_the_kernels_on_the_card(
+        case, gen):
+    """``lower_hierarchical(plan, "pallas")`` on the card: one hand-kernel
+    launch a group, the result the plain version's (integers exact, float32
+    1e-3, bf16 one rounding + 1e-3)."""
+    from repro_torch.core import HierarchicalTarget, Target, best_plan
+    from repro_torch.core import lower_plan
+
+    kind, args, dname, outer, split = case
+    dtype = getattr(torch, dname)
+    ht = HierarchicalTarget(outer_shape=outer,
+                            inner=Target(name="planned_chip",
+                                         mesh_shape=(1, 8)))
+    rec = registry.get(kind).builder(*args, dname)
+    plan = best_plan(rec, ht)
+    assert plan.outer_split == split
+    ops = [_draw(s, dtype, gen).to(dtype)
+           for s in registry.get(kind).operand_shapes(rec)]
+    if kind == "mm" and args[1] % 2:
+        # an odd N: B as the tied lm_head reads it, the transpose of the
+        # [N, K] embedding table
+        ops[1] = ops[1].T.contiguous().T
+    wrapper = {"mm": widesa_mm, "bmm": bmm}.get(kind, jacobi2d)
+    launches = wrapper.launches
+    got = lower_plan(plan, "pallas")(*ops)
+    torch.cuda.synchronize()
+    assert wrapper.launches - launches == ht.groups
+    want = registry.get(kind).ref(*ops)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if dtype == torch.bfloat16:
+        torch.testing.assert_close(got.float(), want.float(), rtol=2**-7,
+                                   atol=1e-3)
+    else:
+        _same(got, want)
+
+
+@pytest.mark.gpu
+def test_facade_under_the_serving_target_runs_two_level_on_the_card(gen):
+    """``planned_dense`` under the serving hierarchical target: a two-level
+    plan, two launches of the column split, no copy of the weight."""
+    from repro_torch.core import SERVING_HIERARCHICAL_TARGET
+
+    x = _draw((4, 1024), torch.bfloat16, gen).bfloat16()
+    w = (_draw((1024, 2816), torch.bfloat16, gen) / 32).bfloat16()
+    planned.planned_report_clear()
+    launches = widesa_mm.launches
+    with planned.override(target=SERVING_HIERARCHICAL_TARGET):
+        got = planned.planned_dense(x, w, site="hier.card")
+    torch.cuda.synchronize()
+    assert widesa_mm.launches - launches == 2
+    st = planned.planned_report()["hier.card"]
+    assert st["planned"] == 1 and st["last_plan"].startswith(
+        "[hier mm/bfloat16] outer 1x2 split=column")
+    torch.testing.assert_close(got.float(), ref.mm(x, w).float(),
+                               rtol=2**-7, atol=1e-3)
+    planned.planned_report_clear()

@@ -7,7 +7,6 @@ modelled policy: the same feasibility, the same kernel blocks and the
 same plan description.
 """
 
-import dataclasses
 
 import pytest
 
@@ -79,35 +78,41 @@ def test_targets_are_identical():
     assert PLANNED_TARGET.name == JAX_TARGET.name
 
 
-@dataclasses.dataclass(frozen=True)
-class _HierarchicalTarget(Target):
-    """A target with an outer mesh, which the port does not plan yet."""
-
-    outer_shape: tuple = (2, 2)
-
-
 def test_unported_policies_and_plan_kinds_raise():
     """The reference's three modes exist (``cached`` and ``measured``
-    since the port's crossover table); any other raises, as there; a
-    hierarchical target is still not planned."""
+    since the port's crossover table); any other raises, as there.  A
+    hierarchical target is planned (the reference's ``HierarchicalPlan``,
+    split and bytes); what the port has not ported is its chip-level
+    lowering, which raises (ROADMAP A9)."""
+    from repro.core import HierarchicalTarget as JaxHierarchicalTarget
+    from repro_torch.core import HierarchicalPlan, HierarchicalTarget
+    from repro_torch.core import lower_plan
+
     with pytest.raises(ValueError, match="modelled"):
         autotune.PlanPolicy(mode="fastest")
     for mode in ("modelled", "cached", "measured"):
         assert autotune.PlanPolicy(mode=mode).mode == mode
-    hier = _HierarchicalTarget(name="h", mesh_shape=(1, 8))
+    hier = HierarchicalTarget(name="h", outer_shape=(2, 2))
+    jhier = JaxHierarchicalTarget(name="h", outer_shape=(2, 2))
     rec = registry.get("mm").builder(8, 8, 8, "float32")
+    plan = best_plan(rec, hier)
+    want = jax_best_plan(
+        jax_registry.get("mm").builder(8, 8, 8, "float32"), jhier)
+    assert isinstance(plan, HierarchicalPlan)
+    assert (plan.outer_split, plan.sub_recurrence.extents,
+            plan.outer_bytes) == (want.outer_split,
+                                  want.sub_recurrence.extents,
+                                  want.outer_bytes)
     counts = autotune.counters()
-    with pytest.raises(NotImplementedError, match="hierarchical"):
-        best_plan(rec, hier)
-    # resolve() passes the refusal on: it is not an infeasible shape
-    with pytest.raises(NotImplementedError, match="hierarchical"):
-        autotune.resolve(autotune.PlanRequest(
-            "mm", (8, 8, 8), "float32", hier))
-    assert autotune.counters() == counts  # refused before any table
-    # fused chains keep refusing hierarchical targets too
-    with pytest.raises(NotImplementedError, match="hierarchical"):
-        autotune.resolve(autotune.PlanRequest(
-            "mm+mm", ((8, 8, 8), (8, 8, 8)), "float32", hier))
+    assert autotune.resolve(autotune.PlanRequest(
+        "mm", (8, 8, 8), "float32", hier)).outer_split == plan.outer_split
+    assert autotune.counters() == counts  # modelled: no table touched
+    # fused chains do not compose hierarchically: no plan, not an error
+    assert autotune.resolve(autotune.PlanRequest(
+        "mm+mm", ((8, 8, 8), (8, 8, 8)), "float32", hier)) is None
+    for backend in ("systolic", "allgather"):
+        with pytest.raises(NotImplementedError, match="A9"):
+            lower_plan(plan, backend)
     # a kind neither package registers reads as "no plan"
     assert autotune.resolve(autotune.PlanRequest(
         "spmv", (64, 64), "float32", PLANNED_TARGET)) is None
