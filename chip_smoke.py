@@ -12,9 +12,10 @@
     python3 chip_smoke.py --train
     python3 chip_smoke.py --dense
     python3 chip_smoke.py --hier
+    python3 chip_smoke.py --systolic
 
 Needs one CUDA card and the CUDA toolkit.  It imports only the port, never
-JAX nor the JAX package, and runs nineteen phases, each printing its own
+JAX nor the JAX package, and runs twenty phases, each printing its own
 line(s); any failure exits non-zero:
 
 1. device — the card's name and power limit, torch and CUDA versions;
@@ -161,7 +162,25 @@ line(s); any failure exits non-zero:
    launches by kernel what their sub-shapes call for, slot == paged
    tokens, ``decode_compiles`` 1, first logits within 0.25 of the flat
    plan's, and the captured step and the longest prefill beside a flat
-   engine's;
+   engine's; its rows also give the library call at a group's sub-shape
+   and the composition's bound;
+10c. systolic — the chip-level schedules (``kernels/systolic.py``) on
+   logical meshes of this card (``parallel.mesh``, 8 logical devices, all
+   this card; ``--systolic`` runs this phase alone): every registered
+   spec's ``systolic`` and ``allgather`` lowering at its bench cases on
+   1 x 1 and 2 x 2 meshes (conv2d, fir and jacobi2d_9pt on 2 x 4 too),
+   ``fused_systolic`` on 2 x 2 for the mm+mm and fft2d chains and on 2 x
+   4 for conv2d -> jacobi2d (``SYSTOLIC_FUSED``), and
+   ``lower_hierarchical`` on both backends at outer 2 x inner 2 x 2
+   (``SYSTOLIC_HIER``), each held to the flat hand-kernel path on the
+   same operands (integers bitwise, floats within
+   ``recurrences.float_bound``, fft2d within its atol), its launches by
+   wrapper equal to what its members' compute makes
+   (``schedule_launches``: every member on its hand kernel), the bytes
+   ``ppermute`` / ``all_gather`` moved equal to ``parallel/collectives.py``'s
+   model (``schedule_bytes``), and its CUDA-event time beside the flat
+   path's: the members' work one after another on one card with no
+   interconnect, not a speed figure;
 11. olmoe — full-width olmoe-1b-7b, the MoE family (bf16, 16 layers,
    64 experts of ff 1024, top-8, 13.8 GB of random weights seeded with 0
    and drawn on the card), after the earlier phases' weights are freed.
@@ -318,7 +337,9 @@ line gives each path's counts apart (``"launches": {"qwen": n,
 "qwen_paged": q, "qwen_prefill": p, "whisper_stream": m,
 "whisper_paged": w, "qwen_long": l, "whisper_offline": o,
 "hier_recurrences": h, "qwen_hier": ..., "qwen_hier_paged": ...,
-"whisper_hier": ..., "whisper_hier_paged": ..., "olmoe": s,
+"whisper_hier": ..., "whisper_hier_paged": ..., "systolic_1x1": ...,
+"systolic_2x2": ..., "systolic_2x4": ..., "systolic_fused": ...,
+"systolic_hier": ..., "olmoe": s,
 "olmoe_paged": g, "mamba2": a, "mamba2_paged": b, "zamba2": z,
 "zamba2_paged": y, "llava": v, "llava_paged": v', "stablelm": ...,
 "codeqwen": ..., "qwen3": ..., "qwen3_paged": ..., "deepseek": ...,
@@ -3192,6 +3213,8 @@ def pitched_parity(torch) -> dict:
                 a, b, tiles=tile), kernel)
             row["contiguous_ms"] = device_ms(torch, lambda: widesa_mm.matmul(
                 ac, bc, tiles=tile), kernel)
+            # the library call on the same pitched operands
+            row["library_ms"] = device_ms(torch, lambda: torch.matmul(a, b))
         rows[f"{label} m{m}"] = row
         del a, b, ac, bc
     print(f"hier: B read at its pitch (and a row split's A at its pitch) is "
@@ -3199,7 +3222,8 @@ def pitched_parity(torch) -> dict:
           f"{len(rows)} cases: " + "; ".join(
               f"{key} {r['shape']} {r['dtype']} B{tuple(r['b_layout'])} "
               f"{r['kernel']}" + (f" {fmt_ms(r['ms'])} (contiguous "
-                                  f"{fmt_ms(r['contiguous_ms'])})"
+                                  f"{fmt_ms(r['contiguous_ms'])}, library "
+                                  f"{fmt_ms(r['library_ms'])})"
                                   if "ms" in r else "")
               for key, r in rows.items()), flush=True)
     return rows
@@ -3282,7 +3306,14 @@ def hier_recurrences(torch) -> tuple[dict, dict, dict]:
             "plain_ms": device_ms(torch, lambda: plain(*ops)),
             "events_ms": time_ms(torch, lambda: fn(*ops), reps=20),
             "flat_events_ms": time_ms(torch, lambda: flat_fn(*ops),
-                                      reps=20)}
+                                      reps=20),
+            "library_ms": hier_library_ms(torch, gen, kind,
+                                          plan.sub_recurrence.extents,
+                                          dtype)}
+        if kind in ("mm", "bmm"):
+            rows[label]["bound_ms"], rows[label]["bound_by"] = gemm_bound(
+                kind, tuple(args), dname,
+                (out_dtype or runtime.out_dtype(dtype)).itemsize)
         del ops, got, want, flat_out
         torch.cuda.empty_cache()
     print("hier: lower_hierarchical(plan, 'pallas') under the serving "
@@ -3294,10 +3325,51 @@ def hier_recurrences(torch) -> tuple[dict, dict, dict]:
               f"{r['launches']} {r['by_kernel']}: hier {fmt_ms(r['ms'])}, "
               f"flat {fmt_ms(r['flat_ms'])}, plain {fmt_ms(r['plain_ms'])} "
               f"(events: hier {r['events_ms']:.4f}, flat "
-              f"{r['flat_events_ms']:.4f}), max |err| "
-              f"{r['max_abs_err']:.3g}"
+              f"{r['flat_events_ms']:.4f}), library at the group's "
+              f"sub-shape {fmt_ms(r['library_ms'])}, bound "
+              + (f"{r['bound_ms']:.3g} ms ({r['bound_by']})"
+                 if "bound_ms" in r else "not computed (a stencil)")
+              + f", max |err| {r['max_abs_err']:.3g}"
               for key, r in rows.items()), flush=True)
     return launches, variants, rows
+
+
+def gemm_bound(kind, shape, dname, out_bytes):
+    """``least_ms`` of a GEMM as the tensor cores run it: each operand
+    read once and the output written once, or its products at bf16's
+    rate, float32's three TF32 products, or the integers' 1 / 4 / 10 int8
+    limb products (``LIMB_PRODUCTS``) at int8's."""
+    z, m, n, k = (1, *shape) if kind == "mm" else shape
+    in_bytes = {"bfloat16": 2, "float32": 4, "int8": 1, "int16": 2,
+                "int32": 4}[dname]
+    moved = z * ((m * k + k * n) * in_bytes + m * n * out_bytes)
+    rate, passes = {"bfloat16": ("bfloat16", 1),
+                    "float32": ("tfloat32", 3)}.get(
+        dname, ("int8", LIMB_PRODUCTS.get(dname, 1)))
+    return least_ms(moved, passes * 2 * z * m * n * k, rate)
+
+
+def hier_library_ms(torch, gen, kind, sub, dtype):
+    """Device time of one PyTorch call of a group's function at its
+    sub-shape on fresh operands: ``torch.matmul`` / ``torch.bmm`` in bf16
+    (to bf16, also where the group flushes at fp32) and float32,
+    ``torch._int_mm`` for a 2-D int8 product; None where the card has no
+    such call (int16, int32, an integer bmm) or for the stencils."""
+    if kind not in ("mm", "bmm"):
+        return None
+    if kind == "mm":
+        m, n, k = sub
+        a, b = draw(torch, gen, (m, k), dtype), draw(torch, gen, (k, n), dtype)
+    else:
+        z, m, n, k = sub
+        a = draw(torch, gen, (z, m, k), dtype)
+        b = draw(torch, gen, (z, k, n), dtype)
+    if dtype.is_floating_point:
+        call = torch.matmul if kind == "mm" else torch.bmm
+        return device_ms(torch, lambda: call(a, b))
+    if dtype == torch.int8 and kind == "mm":
+        return device_ms(torch, lambda: torch._int_mm(a, b))
+    return None
 
 
 def hier_logits(torch, label, api, params, done, batches, target) -> None:
@@ -5320,12 +5392,24 @@ def no_xla_stamp() -> None:
           f"chains' xla", flush=True)
 
 
+def table_backends(key: str) -> set:
+    """The backends a committed table times at ``key``, the reference's:
+    the hand kernel and the plain version, and at mesh1x1, which one card
+    builds, the chip-level schedules (a fused chain's one-mesh one)."""
+    if not key.endswith("|mesh1x1"):
+        return {"pallas", "xla"}
+    chip = ({"fused_systolic"} if "+" in key.split("|")[0]
+            else {"systolic", "allgather"})
+    return {"pallas", "xla"} | chip
+
+
 def autotune_phase(torch, device_name: str) -> dict:
     """The measured race with the port's own crossover table: the
     committed table loads, names its card, and holds every
     ``registry.autotune_cases`` and serving-census key on meshes 1x1 and
     1x8 and the census's two-level keys under the serving hierarchical
-    target, each entry with both backends timed; each spec's smoke proxy is
+    target, each entry with the reference's backends timed
+    (``table_backends``); each spec's smoke proxy is
     raced on every dtype its cases run on (``autotune.exec_dtype``), on
     ``RACE_MESH``, under ``measured`` into a table of its own (``pallas``
     on the hand kernel, ``xla`` the plain version, CUDA events), its
@@ -5363,10 +5447,10 @@ def autotune_phase(torch, device_name: str) -> dict:
         fail(f"autotune: the committed table lacks {missing[:5]} or names "
              f"no card: {table['note']!r}")
     untimed = sorted(key for key, entry in table["entries"].items()
-                     if set(entry["us"]) != {"pallas", "xla"})
+                     if set(entry["us"]) != table_backends(key))
     if untimed:
-        fail(f"autotune: the committed table has no timing of both "
-             f"backends for {untimed}")
+        fail(f"autotune: the committed table does not time the "
+             f"reference's backends at {untimed}")
     winners = {}
     for entry in table["entries"].values():
         winners[entry["backend"]] = winners.get(entry["backend"], 0) + 1
@@ -5426,7 +5510,7 @@ def autotune_phase(torch, device_name: str) -> dict:
     print(f"autotune: the committed table ({len(table['entries'])} entries, "
           f"winners {winners}; {table['note']!r}) holds every one of the "
           f"{len(want)} registry, census and two-level census keys, each "
-          f"with both backends "
+          f"with the reference's backends "
           f"timed; raced each spec's smoke proxy on each dtype its cases "
           f"run on ({len(raced)} races), mesh "
           f"{'x'.join(map(str, RACE_MESH))}, CUDA events, median of 5 after "
@@ -6470,6 +6554,459 @@ def recurrences_phase(torch) -> tuple[dict, dict, dict, dict]:
 # main
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# chip-level schedules on logical meshes (kernels/systolic.py)
+# ---------------------------------------------------------------------------
+
+#: the logical device count the systolic phase sets (``parallel.mesh``):
+#: enough for its 2 x 4 meshes and the hierarchical outer 2 x inner 2 x 2
+SYSTOLIC_DEVICES = 8
+#: the meshes every spec's bench cases run on, and the specs the 2 x 4
+#: chain / halo mesh adds (the Cannon rings need a square mesh)
+SYSTOLIC_MESHES = ((1, 1), (2, 2))
+SYSTOLIC_2X4 = ("conv2d", "fir", "jacobi2d_9pt")
+#: the fused chains: (mesh, per-stage builder args, dtype, interstage)
+SYSTOLIC_FUSED = (
+    ((2, 2), (("mm", (8192, 8192, 8192)), ("mm", (8192, 8192, 8192))),
+     "float32", ("bias_gelu",)),
+    ((2, 2), (("mm", (4096, 4096, 4096)), ("mm", (4096, 4096, 4096))),
+     "int16", None),
+    ((2, 2), (("fft2d_stage", (8192, 8192)), ("fft2d_stage", (8192, 8192))),
+     "cfloat", None),
+    ((2, 4), (("conv2d", (10238, 10238, 4, 4)), ("jacobi2d", (10236, 10236))),
+     "float32", None),
+    ((2, 4), (("conv2d", (10238, 10238, 4, 4)), ("jacobi2d", (10236, 10236))),
+     "int16", None),
+)
+#: the reference's hierarchical cases (outer 2 x 1 over inner 2 x 2,
+#: int16), and mm / bmm at their float32 bench sizes
+SYSTOLIC_HIER = (("mm", (128, 128, 128), "int16"),
+                 ("bmm", (4, 128, 128, 64), "int16"),
+                 ("jacobi2d", (128, 128), "int16"),
+                 ("mm", (8192, 8192, 8192), "float32"),
+                 ("bmm", (64, 4096, 4096, 4096), "float32"))
+#: gelu's largest slope, which a difference of its input can grow by
+GELU_LIPSCHITZ = 1.13
+#: the kernel wrapper of each recurrence
+SPEC_WRAPPER = {"mm": "widesa_mm", "bmm": "bmm", "fft2d_stage": "fft2d",
+                "conv2d": "conv2d", "fir": "fir", "jacobi2d": "jacobi2d",
+                "jacobi2d_9pt": "jacobi2d", "jacobi2d_ms": "jacobi2d",
+                "mttkrp": "mttkrp"}
+
+
+def schedule_launches(name, backend, shape, rec) -> dict:
+    """The wrapper launches one call of ``name``'s ``backend`` schedule
+    makes on a ``shape`` mesh: every member's compute on its hand kernel
+    (a Cannon ring: n launches a member, four a step for fft2d's planes;
+    a halo sweep one star launch a member; a broadcast baseline the whole
+    problem on every member)."""
+    from repro_torch.kernels import runtime
+
+    members = shape[0] * shape[1]
+    n = shape[0]
+    wrapper = SPEC_WRAPPER[name]
+    if name == "fft2d_stage":
+        if backend == "systolic":
+            return {"widesa_mm": 2 * 4 * n ** 3}
+        fused = runtime.fft2d_route(rec.extent("i"), rec.extent("j"))
+        return {"fft2d": members,
+                **({} if fused else {"widesa_mm": 6 * members})}
+    if backend == "systolic" and name in ("mm", "bmm", "mttkrp"):
+        return {wrapper: n ** 3}
+    if name == "jacobi2d_ms":
+        sweeps = rec.extent("t")
+        per = (sweeps if backend == "systolic"
+               else runtime.sweep_tile(sweeps).launches(sweeps))
+        return {wrapper: members * per}
+    return {wrapper: members}
+
+
+def schedule_bytes(name, backend, shape, rec, ops) -> int:
+    """``parallel/collectives.py``'s model of the bytes ``name``'s
+    ``backend`` schedule moves between members (``parallel.mesh.moved``):
+    the Cannon rings' skews and rotations (both planes of fft2d's two
+    stages, C and X of mttkrp), the halo strips of every sweep in the
+    accumulator dtype, the chains' window tails, the all-gathers' shards;
+    the broadcast baselines' operands are replicated by their specs and
+    move nothing here."""
+    from repro_torch.parallel import collectives as col
+
+    n0, n1 = shape
+    members = n0 * n1
+    elem = ops[0].element_size()
+    if backend == "allgather":
+        if name in ("mm", "bmm"):
+            a, b = ops
+            a_blk = a.numel() * elem // members
+            b_blk = b.numel() * elem // members
+            return (n1 * col.ring_allgather_bytes(b_blk, n0)
+                    + n0 * col.ring_allgather_bytes(a_blk, n1))
+        if name == "mttkrp":
+            x, _, c = ops
+            return (n0 * col.ring_allgather_bytes(
+                x.numel() * elem // members, n1)
+                + n1 * col.ring_allgather_bytes(c.numel() * elem // members,
+                                                n0))
+        return 0
+    if name in ("mm", "bmm"):
+        a, b = ops
+        return col.cannon_bytes(a.numel() * elem // members,
+                                b.numel() * elem // members, n0)
+    if name == "mttkrp":
+        x, _, c = ops
+        return col.cannon_bytes(x.numel() * elem // members,
+                                c.numel() * elem // members, n0)
+    if name == "fft2d_stage":
+        plane = ops[0].numel() * 4 // members  # every plane is float32
+        return 2 * col.cannon_bytes(2 * plane, 2 * plane, n0)
+    if name == "conv2d":
+        p = rec.extent("p")
+        return col.chain_bytes((p - 1) * ops[0].shape[1] * elem, members)
+    if name == "fir":
+        return col.chain_bytes((rec.extent("t") - 1) * elem, members)
+    # the stars: four radius-wide strips a sweep in the accumulator dtype
+    r = 2 if name == "jacobi2d_9pt" else 1
+    hl, wl = rec.extent("i") // n0, rec.extent("j") // n1
+    sweeps = rec.extent("t") if name == "jacobi2d_ms" else 1
+    return sweeps * (col.halo_exchange_bytes(r * wl * 4, (n0 - 1) * n1)
+                     + col.halo_exchange_bytes(hl * r * 4, n0 * (n1 - 1)))
+
+
+def systolic_operands(torch, gen, spec, rec):
+    """A case's operands on the card: integers spanning their dtype's
+    range (every product wraps), floats standard normal; the complex
+    cases on their float32 planes, as the pipeline runs them."""
+    dtype = getattr(torch, "float32" if rec.dtype.startswith("c")
+                    else rec.dtype)
+    return tuple(draw(torch, gen, shape, dtype)
+                 for shape in spec.operand_shapes(rec))
+
+
+def held_to(torch, got, want, bound) -> tuple[float, bool]:
+    """(max |got - want|, within ``bound``: 0 for integers, a scalar or a
+    per-output tensor for floats)."""
+    gots = got if isinstance(got, tuple) else (got,)
+    wants = want if isinstance(want, tuple) else (want,)
+    err, ok = 0.0, True
+    for g, w in zip(gots, wants):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            return float("inf"), False
+        if not g.dtype.is_floating_point:
+            e = int((g != w).sum().item())
+            err, ok = max(err, float(e)), ok and e == 0
+            continue
+        diff = (g.double() - w.double()).abs()
+        err = max(err, diff.max().item())
+        ok = ok and bool((diff <= bound).all())
+    return err, ok
+
+
+class SystolicPaths:
+    """Launches and launches by kernel, summed by path over the checked
+    call of every schedule (each count set to 0 just before its call)."""
+
+    def __init__(self):
+        self.paths: dict[str, dict] = {}
+
+    def add(self, path, counts, by_kernel):
+        entry = self.paths.setdefault(path, {
+            "launches": dict.fromkeys(wrappers(), 0),
+            "variants": {name: dict.fromkeys(v, 0)
+                         for name, v in read_variants().items()}})
+        for name, n in counts.items():
+            entry["launches"][name] += n
+        for name, by in by_kernel.items():
+            for key, n in by.items():
+                entry["variants"][name][key] += n
+
+
+def run_schedule(torch, label, fn, ops, want, bound, launches, model,
+                 paths, path):
+    """One schedule's checked call: counts and moved bytes set to 0 just
+    before, read just after; launches and bytes against their models,
+    the result against the flat hand-kernel path; then its CUDA-event
+    time (members one after another on one card)."""
+    from repro_torch.parallel import mesh as pm
+
+    reset_counts()
+    pm.moved_clear()
+    got = fn(*ops)
+    torch.cuda.synchronize()
+    counts, by_kernel = read_counts(), read_variants()
+    moved = sum(pm.moved.values())
+    paths.add(path, counts, by_kernel)
+    ran = {k: v for k, v in counts.items() if v}
+    if ran != launches:
+        fail(f"systolic {label}: launches {ran}, by kernel {by_kernel}, "
+             f"the schedule makes {launches}")
+    if moved != model:
+        fail(f"systolic {label}: the collectives moved {moved} bytes "
+             f"({dict(pm.moved)}), parallel/collectives.py models {model}")
+    err, ok = held_to(torch, got, want, bound)
+    if not ok:
+        fail(f"systolic {label}: max |err| {err} against the flat hand-"
+             "kernel path")
+    del got
+    ms = time_ms(torch, lambda: fn(*ops), reps=2, warmup=1)
+    return {"launches": ran, "bytes": moved, "model_bytes": model,
+            "max_abs_err": err, "ms": ms}
+
+
+def systolic_flat(torch, spec, rec, ops):
+    """The flat plan's hand kernel on one card (``lower_plan(plan,
+    "pallas")``) and its CUDA-event time."""
+    from repro_torch.core import Target, best_plan, lower_plan
+
+    fn = lower_plan(best_plan(rec, Target(name="single_chip",
+                                          mesh_shape=(1, 1))), "pallas")
+    want = fn(*ops)
+    torch.cuda.synchronize()
+    return want, time_ms(torch, lambda: fn(*ops), reps=2, warmup=1)
+
+
+def systolic_cases(torch, paths, gen) -> dict:
+    """(a) every spec's ``systolic`` and ``allgather`` lowering at its
+    bench cases on 1 x 1 and 2 x 2 (conv2d, fir and jacobi2d_9pt on 2 x 4
+    too), each against the flat hand-kernel path on the same operands."""
+    from repro_torch.core import Target, best_plan, lower_plan
+    from repro_torch.kernels import registry
+    from repro_torch.launch.recurrences import float_bound
+    from repro_torch.parallel import mesh as pm
+
+    rows = {}
+    for spec in registry.specs():
+        meshes = SYSTOLIC_MESHES + (((2, 4),) if spec.name in SYSTOLIC_2X4
+                                    else ())
+        for dname, args in spec.bench_cases:
+            rec = spec.builder(*args, dname)
+            ops = systolic_operands(torch, gen, spec, rec)
+            want, flat_ms = systolic_flat(torch, spec, rec, ops)
+            bound = (0.0 if dname.startswith("int")
+                     else float_bound(spec, rec, ops))
+            case = f"{spec.name}{tuple(args)} {dname}"
+            row = {"flat_ms": flat_ms}
+            for shape in meshes:
+                target = Target(name="chip", mesh_shape=shape)
+                plan = best_plan(rec, target)
+                mesh = pm.make_mesh(shape, target.mesh_axes)
+                tag = f"{shape[0]}x{shape[1]}"
+                for backend in ("systolic", "allgather"):
+                    fn = lower_plan(plan, backend, mesh=mesh)
+                    row[f"{backend} {tag}"] = run_schedule(
+                        torch, f"{case} {backend} {tag}", fn, ops, want,
+                        bound, schedule_launches(spec.name, backend, shape,
+                                                 rec),
+                        schedule_bytes(spec.name, backend, shape, rec, ops),
+                        paths, f"systolic_{tag}")
+            rows[case] = row
+            del ops, want, bound
+            torch.cuda.empty_cache()
+    return rows
+
+
+def fused_models(plan, shape, ops) -> tuple[dict, int]:
+    """The launches and the modelled bytes of one call of a fused chain's
+    schedule on a ``shape`` mesh: each mm ring's skew and rotations (its
+    left operand the last stage's output at the accumulator's output
+    dtype), both planes of both fft rings, the deep halo's east and south
+    strips; every member runs each stage on its hand kernel."""
+    from repro_torch.core import fusion
+    from repro_torch.parallel import collectives as col
+
+    n = shape[0]
+    members = shape[0] * shape[1]
+    stages = plan.chain.stages
+    elem = ops[0].element_size()
+    if plan.family == "cannon":
+        stage_ops, _ = fusion.split_operands(plan, ops)
+        rows, a_elem, model = stage_ops[0][0].shape[0], elem, 0
+        k = stage_ops[0][0].shape[1]
+        for i, sops in enumerate(stage_ops):
+            w = sops[1] if i == 0 else sops[0]
+            model += col.cannon_bytes(rows * k * a_elem // members,
+                                      w.numel() * elem // members, n)
+            k, a_elem = w.shape[1], 4 if not ops[0].is_floating_point() \
+                else elem
+        return {"widesa_mm": len(stages) * n ** 3}, model
+    if plan.family == "fft":
+        plane = ops[0].numel() * 4 // members
+        return ({"widesa_mm": 2 * 4 * n ** 3},
+                2 * col.cannon_bytes(2 * plane, 2 * plane, n))
+    s_h, s_w = fusion.halo_shrink(plan.chain)
+    bh = (ops[0].shape[0] - s_h) // shape[0]
+    bw = (ops[0].shape[1] - s_w) // shape[1]
+    model = ((shape[1] - 1) * shape[0] * bh * s_w
+             + (shape[0] - 1) * shape[1] * s_h * (bw + s_w)) * elem
+    return ({k: members * v for k, v in Counter(
+        SPEC_WRAPPER[s.name] for s in stages).items()}, model)
+
+
+def systolic_fused(torch, paths, gen) -> dict:
+    """(b) ``lower_fused(plan, "fused_systolic")`` of each
+    ``SYSTOLIC_FUSED`` chain against the flat ``pallas`` composition: ints
+    bitwise, fft2d within its atol, the other float chains within the last
+    stage's ``float_bound`` on the composition's intermediate plus the
+    first stage's largest bound carried through the last stage's weights
+    (times gelu's largest slope)."""
+    from repro_torch.core import Target, fusion
+    from repro_torch.kernels import registry
+    from repro_torch.launch.recurrences import float_bound
+    from repro_torch.parallel import mesh as pm
+
+    rows = {}
+    for shape, stages, dname, inter in SYSTOLIC_FUSED:
+        chain = fusion.chain(*(registry.get(n).builder(*a, dname)
+                               for n, a in stages))
+        target = Target(name="chip", mesh_shape=shape)
+        plan = fusion.fuse(chain, target, interstage=inter)
+        mesh = pm.make_mesh(shape, target.mesh_axes)
+        run_chain = (chain if not dname.startswith("c")
+                     else chain.with_dtype("float32"))
+        ops = fusion.chain_operands(run_chain, gen, interstage=inter,
+                                    device=gen.device)
+        if dname.startswith("int"):
+            ops = tuple(draw(torch, gen, o.shape, o.dtype) for o in ops)
+        reset_counts()
+        pallas = fusion.lower_fused(plan, "pallas")
+        want = pallas(*ops)
+        torch.cuda.synchronize()
+        flat_ms = time_ms(torch, lambda: pallas(*ops), reps=2, warmup=1)
+        last = registry.get(chain.stages[-1].name)
+        if dname.startswith("int"):
+            bound = 0.0
+        elif last.n_outputs > 1:
+            bound = last.atol
+        else:
+            first = registry.get(chain.stages[0].name)
+            stage_ops, biases = fusion.split_operands(plan, ops)
+            mid = registry.get(chain.stages[0].name).ref(*stage_ops[0])
+            b1 = float_bound(first, chain.stages[0], stage_ops[0])
+            mid = fusion.interstage_apply(inter[0] if inter else None, mid,
+                                          biases[0])
+            weights = stage_ops[1][0].abs().double()
+            carry = (weights.sum(dim=0) if last.name == "mm"
+                     else weights.sum())
+            slope = GELU_LIPSCHITZ if inter and "gelu" in inter[0] else 1.0
+            bound = (float_bound(last, chain.stages[-1], (mid,
+                                                          *stage_ops[1]))
+                     + float(b1.max()) * slope * carry.float())
+            del mid, weights, carry, b1
+        fn = fusion.lower_fused(plan, "fused_systolic", mesh=mesh)
+        launches, model = fused_models(plan, shape, ops)
+        label = f"{chain.name}{tuple(a for _, a in stages)} {dname}" + (
+            f" {inter[0]}" if inter else "")
+        row = run_schedule(torch, label, fn, ops, want, bound, launches,
+                           model, paths, "systolic_fused")
+        row["flat_ms"] = flat_ms
+        row["mesh"] = f"{shape[0]}x{shape[1]}"
+        rows[label] = row
+        del ops, want, bound
+        torch.cuda.empty_cache()
+    return rows
+
+
+def systolic_hier(torch, paths, gen) -> dict:
+    """(c) ``lower_hierarchical(plan, backend)`` of each
+    ``SYSTOLIC_HIER`` case at outer 2 x 1 over inner 2 x 2 (each group
+    a 2 x 2 mesh of its own four logical devices), against the flat
+    hand-kernel path: ints bitwise, floats within ``float_bound``."""
+    from repro_torch.core import HierarchicalTarget, Target, best_plan
+    from repro_torch.core import hierarchy
+    from repro_torch.kernels import registry
+    from repro_torch.launch.recurrences import float_bound
+
+    inner = Target(name="hier_inner", mesh_shape=(2, 2),
+                   mesh_axes=("row", "col"))
+    ht = HierarchicalTarget(name="hier", outer_shape=(2, 1), inner=inner)
+    rows = {}
+    for name, args, dname in SYSTOLIC_HIER:
+        spec = registry.get(name)
+        rec = spec.builder(*args, dname)
+        plan = best_plan(rec, ht)
+        if not isinstance(plan, hierarchy.HierarchicalPlan):
+            fail(f"systolic hier {name}{args}: no two-level plan ({plan})")
+        ops = systolic_operands(torch, gen, spec, rec)
+        want, flat_ms = systolic_flat(torch, spec, rec, ops)
+        bound = (0.0 if dname.startswith("int")
+                 else float_bound(spec, rec, ops))
+        sub = plan.sub_recurrence
+        meta = tuple(torch.empty(s, dtype=ops[0].dtype, device="meta")
+                     for s in spec.operand_shapes(sub))
+        g = ht.groups
+        label = f"{name}{tuple(args)} {dname} split={plan.outer_split}"
+        row = {"flat_ms": flat_ms, "split": plan.outer_split,
+               "sub_shape": list(sub.extents)}
+        for backend in ("systolic", "allgather"):
+            fn = hierarchy.lower_hierarchical(plan, backend)
+            launches = {k: g * v for k, v in schedule_launches(
+                name, backend, (2, 2), sub).items()}
+            model = g * schedule_bytes(name, backend, (2, 2), sub, meta)
+            row[backend] = run_schedule(
+                torch, f"{label} {backend}", fn, ops, want, bound,
+                launches, model, paths, "systolic_hier")
+        rows[label] = row
+        del ops, want, bound
+        torch.cuda.empty_cache()
+    return rows
+
+
+def systolic_phase(torch, device_name: str) -> dict:
+    """Phase 10c: the chip-level schedules (``kernels/systolic.py``) on
+    logical meshes of one card (``parallel.mesh``, ``SYSTOLIC_DEVICES``
+    logical devices, all this card): (a) ``systolic_cases``, (b)
+    ``systolic_fused``, (c) ``systolic_hier``.  Every member computes on
+    its hand kernel, one after another, so each time is the members'
+    work serialized on one card with no interconnect, not a speed
+    figure.  Returns each path's launches and launches by kernel and
+    every row."""
+    from repro_torch.kernels import fft2d
+    from repro_torch.parallel import mesh as pm
+
+    t0 = time.perf_counter()
+    paths = SystolicPaths()
+    gen = torch.Generator(device="cuda").manual_seed(30)
+    with pm.logical_devices(SYSTOLIC_DEVICES):
+        if pm.devices() != [torch.device("cuda", i % torch.cuda.device_count())
+                            for i in range(SYSTOLIC_DEVICES)]:
+            fail(f"systolic: logical devices {pm.devices()}")
+        rows = systolic_cases(torch, paths, gen)
+        fused = systolic_fused(torch, paths, gen)
+        hier = systolic_hier(torch, paths, gen)
+    # the 8192-point DFT planes the fft2d rings staged (512 MiB) would
+    # stay cached through the later phases, whose peaks need that room
+    fft2d._dft_planes.cache_clear()
+
+    def show(label, r):
+        return (f"{label}: {r['launches']} launches, {r['bytes']} bytes "
+                f"(model {r['model_bytes']}), {r['ms']:.4f} ms, max |err| "
+                f"{r['max_abs_err']:.3g}")
+
+    for case, row in rows.items():
+        print(f"systolic {case}: flat {row['flat_ms']:.4f} ms; " + "; ".join(
+            show(key, r) for key, r in row.items() if key != "flat_ms"),
+            flush=True)
+    for label, r in fused.items():
+        print(f"systolic fused {label} on {r['mesh']}: flat pallas "
+              f"composition {r['flat_ms']:.4f} ms; {show('fused_systolic', r)}",
+              flush=True)
+    for label, row in hier.items():
+        print(f"systolic hier {label} -> {tuple(row['sub_shape'])} a group "
+              f"(outer 2 x inner 2x2): flat {row['flat_ms']:.4f} ms; "
+              + "; ".join(show(b, row[b]) for b in ("systolic", "allgather")),
+              flush=True)
+    print(f"systolic: {len(rows)} bench cases x (1x1, 2x2; 2x4 for "
+          f"{', '.join(SYSTOLIC_2X4)}) x (systolic, allgather), "
+          f"{len(fused)} fused chains, {len(hier)} two-level cases: every "
+          "result equal to the flat hand-kernel path (ints bitwise, floats "
+          "within float_bound), every member on its hand kernel, bytes "
+          "equal to parallel/collectives.py's models; times are CUDA "
+          "events of the members serialized on one card with no "
+          f"interconnect; phase done in {time.perf_counter() - t0:.1f} s "
+          f"on {device_name} [{nvidia_smi()}]", flush=True)
+    return {"paths": paths.paths, "rows": rows, "fused": fused,
+            "hier": hier}
+
+
 #: element types of the mangled template arguments of the kernels the
 #: build line lists one by one
 MANGLED_TYPES = {"f": "float32", "a": "int8", "s": "int16", "i": "int32"}
@@ -6564,6 +7101,10 @@ def main(argv=None) -> int:
     ap.add_argument("--hier", action="store_true",
                     help="only the device, the GEMM and stencil builds and "
                          "the hier phase (two-level plans)")
+    ap.add_argument("--systolic", action="store_true",
+                    help="only the device, the build and the systolic "
+                         "phase (the chip-level schedules on logical "
+                         "meshes)")
     ap.add_argument("--src", help="with --conv2d-sweep or --fir-sweep: the "
                                   "src/ directory of another checkout of "
                                   "the port, whose kernel to time instead")
@@ -6637,6 +7178,9 @@ def main(argv=None) -> int:
     if args.hier:
         hier_phase(torch, name)
         return 0
+    if args.systolic:
+        systolic_phase(torch, name)
+        return 0
     if args.tile_sweep:
         t0 = time.perf_counter()
         build.library("widesa_mm", sweep=True)
@@ -6697,6 +7241,9 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     hier = hier_phase(torch, name)
     hier_paths = hier["paths"]
+    torch.cuda.empty_cache()
+    systolic = systolic_phase(torch, name)
+    hier_paths.update(systolic["paths"])
     torch.cuda.empty_cache()
     moe_paths = moe_phase(torch, name)
     torch.cuda.empty_cache()

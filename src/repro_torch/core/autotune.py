@@ -26,17 +26,20 @@ given machine.  This module measures that, as the reference's does:
     ``measured`` races a miss and persists the winner when the policy
     names a ``table_path``.
 
-On one card the backends are the reference's single-device pair:
-``pallas`` is the hand-written Hopper kernel (``runtime.execute_plan``)
-and ``xla`` the registry's plain PyTorch version (``codegen.lower_plan``).
-A hierarchical target (``core/hierarchy.py``) races the same pair as
-compositions of its groups (``hierarchy.lower_hierarchical``) at the
-recurrence's own shape, keyed with the reference's five-field
-``...|outer<DPxTP>|mesh<RxC>`` keys.  The chip-level schedules
-(``systolic``, ``allgather``, ``fused_systolic``, and a hierarchical
-plan's per-group device blocks) are multi-device work (ROADMAP A9) and
-never enter a race; a stored winner among them clamps to the fastest
-runnable backend by its stored timings.  As in the reference, bench
+The backends are the reference's: ``pallas`` is the hand-written Hopper
+kernel (``runtime.execute_plan``), ``xla`` the registry's plain PyTorch
+version (``codegen.lower_plan``), and, where ``parallel.mesh`` counts
+enough logical devices for the target's mesh (one for a 1 x 1 mesh, so
+always on one card), the chip-level schedules ``systolic`` and
+``allgather`` (``kernels/systolic.py``) and, for a ring-legal fused
+chain, ``fused_systolic``, each on a mesh of the target's shape and axes
+built from ``policy.device``'s logical devices.  A hierarchical target
+(``core/hierarchy.py``) races the compositions of its groups
+(``hierarchy.lower_hierarchical``) at the recurrence's own shape, and
+its chip backends where ``dp * tp`` inner meshes exist, keyed with the
+reference's five-field ``...|outer<DPxTP>|mesh<RxC>`` keys.  A stored
+winner this process cannot run clamps to the fastest runnable backend
+by its stored timings, as in the reference.  As in the reference, bench
 shapes race at their spec's smoke proxy and
 ``measured_shape``/``measured_dtype`` record the proxy.
 
@@ -68,7 +71,7 @@ TABLE_SCHEMA = 1
 DEFAULT_TABLE_PATH = Path(__file__).with_name("default_autotune.json")
 
 #: Backend lowerings a table may name, in dispatch order (the
-#: reference's; only ``pallas`` and ``xla`` run in the port).
+#: reference's).
 BACKENDS = ("pallas", "xla", "systolic", "allgather", "fused_systolic")
 
 #: Declared dtypes a race executes as another: int32 races as int16,
@@ -336,14 +339,36 @@ def counters_clear() -> None:
 # ---------------------------------------------------------------------------
 
 def available_backends(target: Target) -> tuple[str, ...]:
-    """Backends this process can execute for ``target``: the hand kernel
-    and the plain version; a hierarchical target's are its compositions'
-    (``hierarchy.hierarchical_available_backends``, the same pair)."""
+    """Backends this process can execute for ``target``: pallas/xla
+    always; the chip-level schedules only when ``parallel.mesh`` counts
+    enough logical devices to build the target mesh.  A hierarchical
+    target needs ``dp * tp`` disjoint inner meshes for its chip backends
+    (delegated to ``hierarchy.hierarchical_available_backends``)."""
+    import math
+
+    from repro_torch.parallel import mesh
+
     if getattr(target, "outer_shape", None) is not None:
         from .hierarchy import hierarchical_available_backends
 
         return hierarchical_available_backends(target)
-    return ("pallas", "xla")
+    avail = ["pallas", "xla"]
+    if mesh.local_device_count() >= math.prod(target.mesh_shape) \
+            and len(target.mesh_shape) >= 2:
+        avail += ["systolic", "allgather"]
+    return tuple(avail)
+
+
+def _mesh(target: Target, device: str):
+    """The target's (R, C) mesh over ``device``'s logical devices, for the
+    chip-level backends of a race."""
+    import torch
+
+    from repro_torch.parallel import mesh
+
+    return mesh.make_mesh(tuple(target.mesh_shape[:2]),
+                          tuple(target.mesh_axes[:2]),
+                          mesh.devices(torch.device(device).type))
 
 
 def _time_backend(fn, operands, *, warmup: int, reps: int,
@@ -404,8 +429,9 @@ def _timed(fns: dict, operands, policy: PlanPolicy, name: str) -> dict:
 
 def _race_chain(chain, target: Target, policy: PlanPolicy,
                 backends: tuple[str, ...] | None) -> dict:
-    """Chain variant of ``race``: times the fused compositions on seeded
-    chain operands at the chain's real shapes."""
+    """Chain variant of ``race``: times the fused backends (the one-mesh
+    schedule where the mesh and devices permit it, and the xla / pallas
+    compositions) on seeded chain operands at the chain's real shapes."""
     from . import fusion
 
     _COUNTERS["measure_calls"] += 1
@@ -416,7 +442,10 @@ def _race_chain(chain, target: Target, policy: PlanPolicy,
     operands = fusion.chain_operands(exec_chain, _generator(policy.device),
                                      device=policy.device)
     avail = backends or fusion.fused_available_backends(plan)
-    us = _timed({b: functools.partial(fusion.lower_fused, plan, b)
+    mesh = (_mesh(target, policy.device) if "fused_systolic" in avail
+            else None)
+    us = _timed({b: functools.partial(fusion.lower_fused, plan, b,
+                                      mesh=mesh)
                  for b in avail}, operands, policy, f"chain {chain.name}")
     return {
         "backend": min(us, key=us.get),
@@ -435,8 +464,8 @@ def race(rec, target: Target,
     Returns a table entry: ``{"backend": winner, "us": {backend: µs},
     "measured_shape": extents, "measured_dtype": dtype}``.  Dtypes the
     race does not execute as declared race as their ``exec_dtype``.  A
-    ``fusion.RecurrenceChain`` races its fused compositions instead; a
-    hierarchical ``target`` races the compositions of its modelled
+    ``fusion.RecurrenceChain`` races its fused backends instead; a
+    hierarchical ``target`` races the backends of its modelled
     ``HierarchicalPlan`` (``HierarchyError`` where no split is legal)."""
     if hasattr(rec, "stages"):
         return _race_chain(rec, target, policy, backends)
@@ -450,13 +479,19 @@ def race(rec, target: Target,
     exec_rec = (rec if run_dtype == rec.dtype
                 else dataclasses.replace(rec, dtype=run_dtype))
     # the modelled plan's tiles; for a hierarchical target its split and
-    # the groups' inner plan (no per-group mesh is built)
+    # the groups' inner plan
     plan = best_plan(exec_rec, target)
     operands = registry.operands(exec_rec, _generator(policy.device),
                                  policy.device)
     avail = backends or available_backends(target)
-    us = _timed({b: functools.partial(lower_plan, plan, b) for b in avail},
-                operands, policy, rec.name)
+    mesh = None
+    if (any(b in ("systolic", "allgather") for b in avail)
+            and getattr(target, "outer_shape", None) is None):
+        # hierarchical plans build their own per-group inner meshes in
+        # lower_hierarchical; only flat chip schedules need one here
+        mesh = _mesh(target, policy.device)
+    us = _timed({b: functools.partial(lower_plan, plan, b, mesh=mesh)
+                 for b in avail}, operands, policy, rec.name)
     return {
         "backend": min(us, key=us.get),
         "us": us,

@@ -8,18 +8,18 @@ one card.
     flow dependence, ``fusable_with``, one dtype, shape agreement, one
     family, mesh) that returns a ``FusedPlan`` or raises ``FusionError``
     with a typed ``reason``; ``try_fuse`` returns None instead.
-  * ``lower_fused(plan, backend)`` — the ``xla`` composition (each stage's
-    plain version, ``reference_chain``) and the ``pallas`` composition
-    (each stage's plan through ``runtime.execute_plan``, i.e. the hand
-    kernels on the card).
+  * ``lower_fused(plan, backend, mesh)`` — the ``xla`` composition (each
+    stage's plain version, ``reference_chain``), the ``pallas``
+    composition (each stage's plan through ``runtime.execute_plan``, i.e.
+    the hand kernels on the card) and the ``fused_systolic`` schedule on
+    a mesh (``kernels/systolic.py``: the stages back to back on the
+    members, the intermediate never joined).
 
 Three chain families, as in the reference: the non-GLU MLP pair
 ``mm+mm`` (``cannon``), the 2-D FFT ``fft2d_stage+fft2d_stage``
 (``fft``), and ``halo`` chains of conv2d and the single-sweep stencils
 (``conv2d -> jacobi2d``, ``jacobi2d <-> jacobi2d_9pt``), whose consumer
-reads the producer's output as its padded grid.  The reference's
-one-shard_map ``fused_systolic`` schedules are multi-device work
-(ROADMAP A9): that backend raises ``NotImplementedError``.  A chain
+reads the producer's output as its padded grid.  A chain
 never composes hierarchically: under a ``HierarchicalTarget``
 ``hierarchy.plan_hierarchy`` raises ``HierarchyError`` (``unsupported``)
 and ``autotune.resolve`` gives None, so the facade runs the unfused
@@ -43,7 +43,7 @@ import torch.nn.functional as F
 
 from .mapper import ExecutionPlan, Target, best_plan as _stage_best_plan
 from .partition import DTYPE_BYTES
-from .recurrence import UniformRecurrence, halo_radius
+from .recurrence import UniformRecurrence, halo_radius, stencil_star
 
 #: Interstage elementwise ops a boundary may apply to the intermediate (the
 #: MLP pair needs ``bias_silu``/``bias_gelu``).  A ``bias``-prefixed op
@@ -162,19 +162,36 @@ def chain_family(ch: RecurrenceChain) -> str:
         f"{sorted(_HALO_NAMES)}; cannon: mm; fft: fft2d_stage)")
 
 
-def halo_shrink(ch: RecurrenceChain) -> tuple[int, int]:
-    """Total (rows, cols) a halo chain consumes beyond its final output:
-    each conv2d stage its (p - 1, q - 1), each stencil stage twice its
-    star's radius (``halo_radius``, from the IR accesses)."""
-    s_h = s_w = 0
+def halo_stage_descs(ch: RecurrenceChain) -> tuple[tuple, ...]:
+    """Per-stage window descriptors for the deep-halo schedule:
+    ``("conv", (p, q))`` or ``("star", padded_offsets, (kh, kw))`` — the
+    star geometry recovered from the IR access functions
+    (``stencil_star``), re-padded into the one-sided window frame."""
+    descs = []
     for rec in ch.stages:
         if rec.name == "conv2d":
-            s_h += rec.extent("p") - 1
-            s_w += rec.extent("q") - 1
+            descs.append(("conv", (rec.extent("p"), rec.extent("q"))))
         else:
             r = halo_radius(rec, ("i", "j"))
-            s_h += 2 * r
-            s_w += 2 * r
+            star = stencil_star(rec)
+            if star is None:  # pragma: no cover - stencil specs carry one
+                raise FusionError(
+                    "family", f"{rec.name}: no star in the IR accesses")
+            padded = tuple(
+                (off[0] + r, (off[1] if len(off) > 1 else 0) + r)
+                for off in star)
+            descs.append(("star", padded, (2 * r + 1, 2 * r + 1)))
+    return tuple(descs)
+
+
+def halo_shrink(ch: RecurrenceChain) -> tuple[int, int]:
+    """Total (rows, cols) a halo chain consumes beyond its final output —
+    the deep-halo width one exchange must import."""
+    s_h = s_w = 0
+    for desc in halo_stage_descs(ch):
+        kh, kw = desc[1] if desc[0] == "conv" else desc[2]
+        s_h += kh - 1
+        s_w += kw - 1
     return s_h, s_w
 
 
@@ -438,9 +455,18 @@ def chain_operands(ch: RecurrenceChain, generator: torch.Generator,
 # ---------------------------------------------------------------------------
 
 def fused_available_backends(plan: FusedPlan) -> tuple[str, ...]:
-    """Fused backends the port executes: the plain and the hand-kernel
-    compositions (``fused_systolic`` is ROADMAP A9)."""
-    return ("xla", "pallas")
+    """Fused backends this process can execute for the plan's target:
+    the compositions always; the one-mesh ``fused_systolic`` schedule
+    when the mesh is ring-legal *and* ``parallel.mesh`` counts enough
+    logical devices for it."""
+    avail = ["xla", "pallas"]
+    if plan.systolic_ok:
+        from repro_torch.parallel import mesh
+
+        if (mesh.local_device_count() >= math.prod(plan.target.mesh_shape)
+                and len(plan.target.mesh_shape) >= 2):
+            avail.insert(0, "fused_systolic")
+    return tuple(avail)
 
 
 def _composed(plan: FusedPlan, stage_fn: Callable[[int], Callable]
@@ -476,21 +502,49 @@ def reference_chain(plan: FusedPlan) -> Callable:
     return _composed(plan, lambda i: specs[i].ref)
 
 
-def lower_fused(plan: FusedPlan, backend: str | None = None) -> Callable:
+def lower_fused(plan: FusedPlan, backend: str | None = None,
+                mesh=None) -> Callable:
     """Executable for a fused plan: ``xla`` composes the plain versions,
     ``pallas`` composes ``execute_plan`` over the stage plans (the hand
-    kernels on the card).  ``fused_systolic`` is not ported."""
+    kernels on the card), ``fused_systolic`` runs the *consumer* spec's
+    ``fused_systolic_lowering`` hook on ``mesh`` (every stage back to back
+    on the members, ``kernels/systolic.py``)."""
+    from repro_torch.kernels import registry
+
     backend = backend or plan.backend
+    if backend == "systolic":  # codegen's chip-backend name maps through
+        backend = "fused_systolic"
     if backend == "xla":
         return reference_chain(plan)
     if backend == "pallas":
         from repro_torch.kernels import runtime
 
-        return _composed(plan, lambda i: functools.partial(
-            runtime.execute_plan, plan.stage_plans[i]))
-    if backend in ("fused_systolic", "systolic"):
-        raise NotImplementedError(
-            "the one-shard_map fused_systolic schedules are multi-device "
-            "work the port has not done yet (ROADMAP A9); the port runs "
-            "the xla/pallas compositions")
+        def stage(i: int) -> Callable:
+            def run(*ops):
+                # an integer chain's later stage reads the int32
+                # intermediate: its own operands widen to it (exact), as
+                # the kernels take one integer dtype
+                if i and not ops[0].is_floating_point():
+                    ops = (ops[0], *(o.to(ops[0].dtype) for o in ops[1:]))
+                return runtime.execute_plan(plan.stage_plans[i], *ops)
+
+            return run
+
+        return _composed(plan, stage)
+    if backend == "fused_systolic":
+        if mesh is None:
+            raise ValueError(
+                "fused_systolic needs a concrete mesh (pass mesh=)")
+        if not plan.systolic_ok:
+            raise FusionError(
+                "mesh-mismatch",
+                f"plan for {plan.chain.name} was fused for the "
+                "composition backends only (no ring on this mesh)")
+        spec = registry.get(plan.chain.stages[-1].name)
+        hook = spec.fused_systolic_lowering
+        if hook is None:
+            raise NotImplementedError(
+                f"fused_systolic: consumer spec {spec.name!r} registers "
+                "no fused_systolic_lowering hook")
+        return hook(plan, mesh)
     raise ValueError(f"unknown fused backend {backend!r}")

@@ -42,8 +42,11 @@ are K apart (``runtime.b_pitch``, ``runtime.a_pitch``).  Row-parallel
 partials are taken at the accumulator dtype and summed before the output
 cast, so an integer row split is bit-exact against the flat plan.  This is
 how the serving GEMMs run two-level inside the paged engine's captured
-decode step.  The chip-level backends (``systolic``, ``allgather``: a
-device block per group) are multi-device work, ROADMAP A9, and raise.
+decode step.  The chip-level backends (``systolic``, ``allgather``) give
+each group a disjoint block of ``R * C`` logical devices
+(``parallel/mesh.py``) as an (R, C) inner mesh and run the inner plan's
+chip schedule there (``kernels/systolic.py``), as the reference's
+``_group_fns`` do; on one card every block is that card.
 """
 
 from __future__ import annotations
@@ -383,24 +386,53 @@ def plan_hierarchy(rec: UniformRecurrence, ht: HierarchicalTarget,
 def hierarchical_available_backends(ht: HierarchicalTarget
                                     ) -> tuple[str, ...]:
     """Backends this process can execute for a hierarchical target: the
-    compositions of the hand kernel and of the plain version.  The
-    reference adds the per-group chip schedules where the host exposes
-    ``dp*tp`` disjoint inner meshes; the port has no chip-level schedule
-    (ROADMAP A9), so on one device both packages return this pair."""
-    return ("pallas", "xla")
+    compositions of the hand kernel and of the plain version always; the
+    per-group chip schedules only where ``parallel.mesh`` counts
+    ``dp * tp`` disjoint inner meshes of logical devices."""
+    from repro_torch.parallel import mesh
+
+    avail = ["pallas", "xla"]
+    if mesh.local_device_count() >= ht.n_devices \
+            and len(ht.inner.mesh_shape) >= 2:
+        avail += ["systolic", "allgather"]
+    return tuple(avail)
 
 
-def _group_fn(plan: HierarchicalPlan, backend: str) -> Callable:
-    """The inner lowering every group runs (``fn(*operands, out_dtype)``).
-    The chip-level backends would give each group a device block of its
-    own: multi-device work the port has not done (ROADMAP A9)."""
-    if backend in ("systolic", "allgather"):
-        raise NotImplementedError(
-            f"the hierarchical {backend} backend is multi-device work the "
-            "port has not done yet (ROADMAP A9)")
+def _group_fns(plan: HierarchicalPlan, backend: str) -> list[Callable]:
+    """The inner lowering of each outer group (``fn(*operands,
+    out_dtype)``).  ``pallas`` / ``xla`` share one function; ``systolic``
+    / ``allgather`` give group ``i`` the disjoint block of logical devices
+    ``[i * R * C, (i + 1) * R * C)`` as an (R, C) inner mesh the spec's
+    hooks run on, its output cast to ``out_dtype`` where one is asked
+    for."""
     from .codegen import lower_plan
 
-    return lower_plan(plan.inner_plan, backend=backend)
+    g = plan.target.groups
+    if backend not in ("systolic", "allgather"):
+        return [lower_plan(plan.inner_plan, backend=backend)] * g
+    from repro_torch.parallel import mesh as pm
+
+    inner_t = plan.inner_plan.target
+    rr, cc = inner_t.mesh_shape[:2]
+    need = g * rr * cc
+    devs = pm.devices()
+    if len(devs) < need:
+        raise RuntimeError(
+            f"hierarchical {backend}: {need} devices needed for {g} groups "
+            f"of {rr}x{cc} chips, host has {len(devs)}")
+
+    def on_block(i: int) -> Callable:
+        block = devs[i * rr * cc:(i + 1) * rr * cc]
+        fn = lower_plan(plan.inner_plan, backend=backend, mesh=pm.make_mesh(
+            (rr, cc), inner_t.mesh_axes[:2], block))
+
+        def run(*operands, out_dtype=None):
+            out = fn(*operands)
+            return out if out_dtype is None else out.to(out_dtype)
+
+        return run
+
+    return [on_block(i) for i in range(g)]
 
 
 def lower_hierarchical(plan: HierarchicalPlan, backend: str | None = None,
@@ -415,14 +447,16 @@ def lower_hierarchical(plan: HierarchicalPlan, backend: str | None = None,
     accumulator dtype (``runtime.acc_dtype``), sums them, and casts the
     sum to ``out_dtype`` (default ``runtime.out_dtype``).  Column, batch
     and halo groups flush at ``out_dtype`` themselves, as the flat plan's
-    kernel does.
+    kernel does.  On the chip backends each group's schedule runs on its
+    own inner mesh (``_group_fns``) and flushes at ``runtime.out_dtype``
+    before the cast to ``out_dtype``.
     """
     import torch
 
     from repro_torch.kernels import runtime
 
     backend = backend or plan.backend
-    fn = _group_fn(plan, backend)
+    fns = _group_fns(plan, backend)
     dp, tp = plan.target.outer_shape
     name = plan.recurrence.name
 
@@ -443,7 +477,8 @@ def lower_hierarchical(plan: HierarchicalPlan, backend: str | None = None,
             n_loc = n // tp
 
             def run(x, w):
-                return cat([cat([fn(x[d * m_loc:(d + 1) * m_loc],
+                return cat([cat([fns[d * tp + t](
+                                    x[d * m_loc:(d + 1) * m_loc],
                                     w[:, t * n_loc:(t + 1) * n_loc],
                                     out_dtype=out_dtype)
                                  for t in range(tp)], 1)
@@ -457,7 +492,7 @@ def lower_hierarchical(plan: HierarchicalPlan, backend: str | None = None,
                 for d in range(dp):
                     x_d = x[d * m_loc:(d + 1) * m_loc]
                     rows.append(summed(
-                        [fn(x_d[:, t * k_loc:(t + 1) * k_loc],
+                        [fns[d * tp + t](x_d[:, t * k_loc:(t + 1) * k_loc],
                             w[t * k_loc:(t + 1) * k_loc], out_dtype=acc)
                          for t in range(tp)], x.dtype))
                 return cat(rows, 0)
@@ -470,7 +505,7 @@ def lower_hierarchical(plan: HierarchicalPlan, backend: str | None = None,
             b_sub = b_loc // tp
 
             def run(a, bb):
-                return cat([fn(a[i * b_sub:(i + 1) * b_sub],
+                return cat([fns[i](a[i * b_sub:(i + 1) * b_sub],
                                bb[i * b_sub:(i + 1) * b_sub],
                                out_dtype=out_dtype)
                             for i in range(dp * tp)], 0)
@@ -482,7 +517,7 @@ def lower_hierarchical(plan: HierarchicalPlan, backend: str | None = None,
                 for d in range(dp):
                     a_d = a[d * b_loc:(d + 1) * b_loc]
                     b_d = bb[d * b_loc:(d + 1) * b_loc]
-                    rows.append(cat([fn(a_d,
+                    rows.append(cat([fns[d * tp + t](a_d,
                                         b_d[:, :, t * n_loc:(t + 1) * n_loc],
                                         out_dtype=out_dtype)
                                      for t in range(tp)], 2))
@@ -497,7 +532,7 @@ def lower_hierarchical(plan: HierarchicalPlan, backend: str | None = None,
                     a_d = a[d * b_loc:(d + 1) * b_loc]
                     b_d = bb[d * b_loc:(d + 1) * b_loc]
                     rows.append(summed(
-                        [fn(a_d[:, :, t * k_loc:(t + 1) * k_loc],
+                        [fns[d * tp + t](a_d[:, :, t * k_loc:(t + 1) * k_loc],
                             b_d[:, t * k_loc:(t + 1) * k_loc],
                             out_dtype=acc)
                          for t in range(tp)], a.dtype))
@@ -510,7 +545,7 @@ def lower_hierarchical(plan: HierarchicalPlan, backend: str | None = None,
     r = _stencil_radius(plan.recurrence)
 
     def run(grid, weights):
-        return cat([fn(grid[i * h_loc:i * h_loc + h_loc + 2 * r],
+        return cat([fns[i](grid[i * h_loc:i * h_loc + h_loc + 2 * r],
                        weights, out_dtype=out_dtype)
                     for i in range(g)], 0)
 

@@ -548,7 +548,9 @@ def _execute_pair(plan, act: str, x, wu, bu, wd):
     # the resolver fuses the bare chain; the boundary op is a call-site
     # property, stamped here (operand layout follows: x, wu, bias, wd)
     plan = dataclasses.replace(plan, interstage=("bias_" + act,))
-    return fusion.lower_fused(plan)(x, wu, bu, wd)
+    # a measured chip-level winner clamps to xla, as in the reference
+    backend = plan.backend if plan.backend in ("xla", "pallas") else "xla"
+    return fusion.lower_fused(plan, backend=backend)(x, wu, bu, wd)
 
 
 class _MLPPairPlanned(torch.autograd.Function):

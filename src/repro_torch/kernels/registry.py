@@ -9,9 +9,11 @@ loops of the reference kernel, how a plan's partition becomes tile
 kwargs, how those map onto a compiled Hopper tile (``tiles``), two
 lowerings — ``hopper`` (the hand-written CUDA kernel; for
 ``fft2d_stage`` the fused kernel, or above 64 rows a composition over
-the mm kernel) and ``ref`` (the plain PyTorch version) — and the chain
-metadata the fusion pass reads
-(``fusable_with``, ``n_outputs``).  ``parity_dtypes``, ``atol`` and the
+the mm kernel) and ``ref`` (the plain PyTorch version) — the
+reference's chip-level hooks (``systolic_lowering``,
+``allgather_lowering``, ``fused_systolic_lowering``: the schedules of
+``kernels/systolic.py``; ``supports_systolic``) and the chain metadata
+the fusion pass reads (``fusable_with``, ``n_outputs``).  ``parity_dtypes``, ``atol`` and the
 smoke / bench sizes are the reference's, so one table drives both
 packages' tests.  ``operands`` draws a recurrence's operands from a
 seeded ``torch.Generator``, as the reference's ``_draw`` does from numpy.
@@ -34,6 +36,7 @@ from . import fir as _fir
 from . import jacobi2d as _jacobi2d
 from . import mttkrp as _mttkrp
 from . import ref, runtime
+from . import systolic as chip
 from . import widesa_mm as _mm
 
 if TYPE_CHECKING:  # pragma: no cover - typing only
@@ -63,12 +66,24 @@ class KernelSpec:
     builder: Callable[..., "UniformRecurrence"]
     #: the operands' shapes for a recurrence's extents
     operand_shapes: Callable[["UniformRecurrence"], tuple]
+    #: the chip-level schedule hooks, ``(plan, mesh) -> Callable`` (the
+    #: ``systolic`` / ``allgather`` backends, ``kernels/systolic.py``)
+    systolic_lowering: Callable[..., Callable] | None = None
+    allgather_lowering: Callable[..., Callable] | None = None
     fusable_with: tuple[str, ...] = ()
+    #: the fused chain's one-mesh schedule, ``(fused_plan, mesh) ->
+    #: Callable``, looked up on the chain's last (consumer) spec
+    fused_systolic_lowering: Callable[..., Callable] | None = None
     n_outputs: int = 1
     parity_dtypes: tuple[str, ...] = ("float32", "int8", "int16")
     atol: float = 1e-3
     smoke_args: tuple[int, ...] = ()
     bench_cases: tuple[tuple[str, tuple[int, ...]], ...] = ()
+
+    @property
+    def supports_systolic(self) -> bool:
+        """Whether a chip-level neighbour-stream schedule is registered."""
+        return self.systolic_lowering is not None
 
 
 _REGISTRY: dict[str, KernelSpec] = {}
@@ -143,6 +158,9 @@ register(KernelSpec(
     builder=ir.matmul,
     operand_shapes=lambda r: ((r.extent("i"), r.extent("k")),
                               (r.extent("k"), r.extent("j"))),
+    systolic_lowering=chip.cannon_mm,
+    allgather_lowering=chip.allgather_mm,
+    fused_systolic_lowering=chip.fused_cannon_mm,
     fusable_with=("mm",),
     smoke_args=(256, 256, 256),
     bench_cases=(
@@ -164,6 +182,8 @@ register(KernelSpec(
     builder=ir.batched_matmul,
     operand_shapes=lambda r: ((r.extent("b"), r.extent("i"), r.extent("k")),
                               (r.extent("b"), r.extent("k"), r.extent("j"))),
+    systolic_lowering=chip.cannon_bmm,
+    allgather_lowering=chip.allgather_bmm,
     smoke_args=(4, 128, 128, 64),
     bench_cases=(
         ("float32", (64, 4096, 4096, 4096)),
@@ -185,6 +205,9 @@ register(KernelSpec(
     ref=ref.fft2d,
     builder=ir.fft2d_stage,
     operand_shapes=lambda r: ((r.extent("i"), r.extent("j")),) * 2,
+    systolic_lowering=chip.cannon_fft2d,
+    allgather_lowering=chip.allgather_fft2d,
+    fused_systolic_lowering=chip.fused_cannon_fft2d,
     fusable_with=("fft2d_stage",),
     n_outputs=2,
     # complex data rides as two float32 real planes; int DFT matrices do
@@ -218,6 +241,9 @@ register(KernelSpec(
     operand_shapes=lambda r: (
         (r.extent("h") + r.extent("p") - 1, r.extent("w") + r.extent("q") - 1),
         (r.extent("p"), r.extent("q"))),
+    systolic_lowering=chip.chain_conv2d,
+    allgather_lowering=chip.allgather_conv2d,
+    fused_systolic_lowering=chip.fused_halo_chain,
     fusable_with=("conv2d",),
     smoke_args=(64, 61, 4, 4),
     bench_cases=(
@@ -245,6 +271,8 @@ register(KernelSpec(
     builder=ir.fir,
     operand_shapes=lambda r: ((r.extent("n") + r.extent("t") - 1,),
                               (r.extent("t"),)),
+    systolic_lowering=chip.chain_fir,
+    allgather_lowering=chip.allgather_fir,
     smoke_args=(1024, 15),
     bench_cases=(
         ("float32", (1048576, 15)),
@@ -288,6 +316,9 @@ register(KernelSpec(
     ref=ref.jacobi2d,
     builder=ir.jacobi2d,
     operand_shapes=_star_shapes(ir.JACOBI2D_OFFSETS, 1, sweeps=False),
+    systolic_lowering=chip.halo_stencil,
+    allgather_lowering=chip.allgather_stencil,
+    fused_systolic_lowering=chip.fused_halo_chain,
     fusable_with=("conv2d", "jacobi2d", "jacobi2d_9pt"),
     smoke_args=(126, 126),
     bench_cases=(
@@ -311,6 +342,8 @@ register(KernelSpec(
     ref=ref.jacobi2d_ms,
     builder=ir.jacobi2d_multisweep,
     operand_shapes=_star_shapes(ir.JACOBI2D_OFFSETS, 1, sweeps=True),
+    systolic_lowering=chip.halo_stencil,
+    allgather_lowering=chip.allgather_stencil,
     smoke_args=(62, 62, 3),
     bench_cases=(
         ("float32", (4094, 4094, 8)),
@@ -330,6 +363,9 @@ register(KernelSpec(
     ref=ref.jacobi2d_9pt,
     builder=ir.jacobi2d_9pt,
     operand_shapes=_star_shapes(ir.JACOBI2D_9PT_OFFSETS, 2, sweeps=False),
+    systolic_lowering=chip.halo_stencil,
+    allgather_lowering=chip.allgather_stencil,
+    fused_systolic_lowering=chip.fused_halo_chain,
     fusable_with=("conv2d", "jacobi2d", "jacobi2d_9pt"),
     smoke_args=(64, 64),
     bench_cases=(
@@ -363,6 +399,8 @@ register(KernelSpec(
         (r.extent("i"), r.extent("k"), r.extent("l")),
         (r.extent("k"), r.extent("j")),
         (r.extent("l"), r.extent("j"))),
+    systolic_lowering=chip.ring_mttkrp,
+    allgather_lowering=chip.allgather_mttkrp,
     smoke_args=(128, 64, 16, 8),
     bench_cases=(
         ("float32", (4096, 400, 256, 256)),

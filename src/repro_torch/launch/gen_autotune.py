@@ -1,7 +1,11 @@
 """Generate the port's crossover table on the card (the port of the
 reference's ``tools/gen_autotune.py``).
 
-Races the hand kernel (``pallas``) against the plain version (``xla``)
+Races the hand kernel (``pallas``) against the plain version (``xla``),
+and, where the card's logical devices build the key's mesh (1 x 1 on one
+card: one member), the chip-level schedules (``systolic``,
+``allgather``; ``fused_systolic`` for the fused chains), as the
+reference's race does on its host's devices,
 for every registered spec's smoke and bench cases at the spec's smoke
 proxy shape, for the serving census of the smoke configs (every
 ``(kind, shape, dtype)`` the planned facade plans in a forward of
@@ -115,9 +119,11 @@ def card_note(device: str) -> str:
     """The table's note: what generated it, on which card at which power
     limit, or the CPU."""
     return ("the port's crossover table: pallas (the hand kernel) against "
-            "xla (the plain PyTorch version), each spec's cases raced at "
-            "its smoke proxy shape, median of reps after warmup, measured "
-            f"on {where(device)}; regenerate with python -m "
+            "xla (the plain PyTorch version) and, at mesh1x1, the "
+            "chip-level schedules (systolic, allgather, fused_systolic) on "
+            "a 1x1 mesh, whose timings are one member's, each spec's cases "
+            "raced at its smoke proxy shape, median of reps after warmup, "
+            f"measured on {where(device)}; regenerate with python -m "
             "repro_torch.launch.gen_autotune")
 
 

@@ -8,12 +8,14 @@
   malformed tables with the same ``TableError``; ``machine_factor``
   gives the same value on the same dicts.
 * ``cached`` policy on one synthetic table: every plan's backend and
-  provenance equal the reference's (a ``systolic`` winner clamped by its
-  stored timings, a fused chain, a miss), and so do the hit and miss
-  counters; ``measured`` mode persists an entry with the reference's
-  fields and serves it back.
-* The committed table covers every key, times both backends in each
-  entry, names its card, and each race ran on a dtype its kernel takes.
+  provenance equal the reference's (chip-level winners served at 1 x 1,
+  one clamped by its stored timings at 1 x 8, a fused chain, a miss),
+  and so do the hit and miss counters; ``measured`` mode persists an
+  entry with the reference's fields and serves it back; a race's
+  candidates are the reference's (the chip-level schedules at 1 x 1);
+  the facade clamps a chip-level winner to ``xla``.
+* The committed table covers every key, times the reference's backends
+  at each, names its card, and each race ran on a dtype its kernel takes.
 * A race the hand kernel cannot enter raises; the generator writes no
   table that lacks its timing.
 """
@@ -125,8 +127,13 @@ def test_committed_table_covers_every_key_and_names_its_card(census):
             for kind, args, dtype in (*_registry_cases(), *extra, *chains)}
     assert want | _hier_keys(extra) == set(table["entries"])
     assert "H100" in table["note"] and " W" in table["note"]
-    for entry in table["entries"].values():
-        assert set(entry["us"]) == {"pallas", "xla"}
+    reference = jat.load_table(jat.DEFAULT_TABLE_PATH)["entries"]
+    for key, entry in table["entries"].items():
+        # the reference's backends at every key it has: the chip-level
+        # ones at mesh1x1, where one device builds the mesh
+        want = (set(reference[key]["us"]) if key in reference
+                else {"pallas", "xla"})
+        assert set(entry["us"]) == want, key
         assert entry["backend"] == min(entry["us"], key=entry["us"].get)
         assert set(entry) == {"backend", "us", "measured_shape",
                               "measured_dtype"}
@@ -186,17 +193,18 @@ POLICY_CASES = [
         "xla": 2.0, "pallas": 3.0})),
     ("bmm", (4, 128, 128, 64), "int8", (1, 8), _entry("pallas", {
         "xla": 2.5, "pallas": 1.0})),
-    ("conv2d", (64, 61, 4, 4), "float32", (1, 8), _entry("systolic", {
+    # mesh 1x1: one device builds it, so both packages serve the stored
+    # chip-level winners there
+    ("conv2d", (64, 61, 4, 4), "float32", (1, 1), _entry("systolic", {
         "systolic": 1.0, "xla": 7.0, "pallas": 3.0})),
-    # mesh 1x8: on one device the reference runs its chip schedules on a
-    # 1x1 mesh, which the port does not have (ROADMAP A9)
-    ("fir", (1024, 15), "float32", (1, 8), _entry("allgather", {
+    ("fir", (1024, 15), "float32", (1, 1), _entry("allgather", {
         "allgather": 1.0, "xla": 2.0, "pallas": 3.0})),
+    # mesh 1x8 needs eight: a chip-level winner clamps by its timings
     ("jacobi2d", (126, 126), "float32", (1, 8), _entry("systolic", {
         "systolic": 1.0})),
     ("mm+mm", ((24, 128, 64), (24, 64, 128)), "float32", (1, 8), _entry(
         "pallas", {"xla": 2.0, "pallas": 1.0})),
-    ("mm+mm", ((16, 128, 64), (16, 64, 128)), "float32", (1, 8), _entry(
+    ("mm+mm", ((16, 128, 64), (16, 64, 128)), "float32", (1, 1), _entry(
         "fused_systolic", {"fused_systolic": 1.0, "xla": 2.0, "pallas": 3.0})),
     ("mttkrp", (128, 64, 16, 8), "float32", (1, 8), None),
 ]
@@ -233,8 +241,10 @@ def test_cached_policy_stamps_and_counts_as_the_reference(tmp_path):
         after = pkg.counters()
         stamps[pkg].append({k: after[k] - before[k] for k in after})
     assert stamps[tat] == stamps[jat]
-    assert stamps[tat][2] == ("pallas", "measured")  # systolic clamped
+    assert stamps[tat][2] == ("systolic", "measured")  # served at 1x1
+    assert stamps[tat][3] == ("allgather", "measured")
     assert stamps[tat][4] == ("pallas", "measured")  # nothing runnable timed
+    assert stamps[tat][6] == ("fused_systolic", "measured")
     assert stamps[tat][-2] == ("pallas", "modelled")  # a miss
     assert stamps[tat][-1] == {"hits": 7, "misses": 1, "measure_calls": 0,
                                "table_errors": 0}
@@ -291,16 +301,18 @@ def test_every_case_races_on_a_dtype_its_kernel_takes():
         assert entry["measured_dtype"] in treg.get(kind).parity_dtypes, key
 
 
-@pytest.mark.parametrize("broken", ["pallas", "xla"])
+@pytest.mark.parametrize("broken", ["pallas", "xla", "systolic"])
 def test_only_the_plain_version_may_leave_the_race(monkeypatch, broken):
+    """The hand kernel cannot leave the race; the plain version and the
+    chip-level schedules can, with a warning, as in the reference."""
     from repro_torch.core import codegen
 
     lower = codegen.lower_plan
 
-    def lower_plan(plan, backend):
+    def lower_plan(plan, backend, mesh=None):
         if backend == broken:
             raise ValueError("no lowering")
-        return lower(plan, backend)
+        return lower(plan, backend, mesh=mesh)
 
     monkeypatch.setattr(codegen, "lower_plan", lower_plan)
     policy = tat.PlanPolicy(mode="measured", reps=1, warmup=1,
@@ -312,9 +324,85 @@ def test_only_the_plain_version_may_leave_the_race(monkeypatch, broken):
         with pytest.raises(RuntimeError, match="hand kernel failed"):
             tat.race(rec, target, policy)
     else:
-        with pytest.warns(UserWarning, match="xla failed"):
+        with pytest.warns(UserWarning, match=f"{broken} failed"):
             entry = tat.race(rec, target, policy)
-        assert entry["backend"] == "pallas" and set(entry["us"]) == {"pallas"}
+        assert set(entry["us"]) == {"pallas", "xla", "systolic",
+                                    "allgather"} - {broken}
+        assert entry["backend"] == min(entry["us"], key=entry["us"].get)
+
+
+@pytest.mark.parametrize("mesh", [(1, 1), (1, 8)])
+def test_race_candidates_equal_the_references(mesh):
+    """On one device both packages race the chip-level schedules at a
+    1 x 1 mesh (a fused chain's one-mesh schedule too) and not at 1 x 8."""
+    spec, jspec = treg.get("conv2d"), jreg.get("conv2d")
+    kinds = {}
+    for pkg, target, rec, chain in (
+            (tat, Target(name="t", mesh_shape=mesh),
+             spec.builder(*spec.smoke_args, "int16"),
+             fusion.chain_from_request(
+                 "mm+mm", ((16, 128, 64), (16, 64, 128)), "float32")),
+            (jat, JaxTarget(name="t", mesh_shape=mesh),
+             jspec.builder(*jspec.smoke_args, "int16"),
+             jfusion.chain_from_request(
+                 "mm+mm", ((16, 128, 64), (16, 64, 128)), "float32"))):
+        policy = pkg.PlanPolicy(mode="measured", reps=1, warmup=1,
+                                **({"device": "cpu"} if pkg is tat else {}))
+        kinds[pkg] = (sorted(pkg.race(rec, target, policy)["us"]),
+                      sorted(pkg.race(chain, target, policy)["us"]))
+    assert kinds[tat] == kinds[jat]
+    chip = mesh == (1, 1)
+    assert ("systolic" in kinds[tat][0]) == chip
+    assert ("fused_systolic" in kinds[tat][1]) == chip
+
+
+def test_facade_clamps_a_chip_level_winner_to_xla():
+    """A hierarchical plan or a fused pair stamped with a chip-level
+    winner runs the plain composition in the facade, as the reference's
+    ``_execute`` / ``_execute_pair`` do."""
+    import dataclasses
+
+    import jax.numpy as jnp
+    import numpy as np
+
+    from repro.core import HierarchicalTarget as JHT
+    from repro.kernels import planned as jplanned
+    from repro_torch.core import HierarchicalTarget
+    from repro_torch.kernels import planned
+
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((16, 64)).astype(np.float32)
+    w = rng.standard_normal((64, 128)).astype(np.float32)
+    w2 = rng.standard_normal((128, 64)).astype(np.float32)
+    bias = rng.standard_normal((128,)).astype(np.float32)
+    inner = (1, 8)
+    plans = {}
+    for pkg, ht, reg in ((planned, HierarchicalTarget(
+            name="h", outer_shape=(1, 2), inner=Target(
+                name="c", mesh_shape=inner)), treg),
+            (jplanned, JHT(name="h", outer_shape=(1, 2), inner=JaxTarget(
+                name="c", mesh_shape=inner)), jreg)):
+        bp = best_plan if pkg is planned else jax_best_plan
+        plans[pkg] = dataclasses.replace(
+            bp(reg.get("mm").builder(16, 128, 64, "float32"), ht),
+            backend="systolic")
+    got = planned._execute(plans[planned], torch.from_numpy(x),
+                           torch.from_numpy(w))
+    want = jplanned._execute(plans[jplanned], jnp.asarray(x), jnp.asarray(w))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
+    pair = dataclasses.replace(fusion.fuse(
+        fusion.chain_from_request("mm+mm", ((16, 128, 64), (16, 64, 128)),
+                                  "float32"), Target(mesh_shape=(1, 1))),
+        backend="fused_systolic")
+    jpair = dataclasses.replace(jfusion.fuse(
+        jfusion.chain_from_request("mm+mm", ((16, 128, 64), (16, 64, 128)),
+                                   "float32"), JaxTarget(mesh_shape=(1, 1))),
+        backend="fused_systolic")
+    got = planned._execute_pair(pair, "gelu", *(torch.from_numpy(a) for a in
+                                                (x, w, bias, w2)))
+    want = jplanned._execute_pair(jpair, "gelu", *(jnp.asarray(a) for a in
+                                                   (x, w, bias, w2)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-3)
 
 
 def test_generator_writes_no_table_without_the_hand_kernels_timing(
@@ -337,8 +425,9 @@ def test_generator_refuses_hierarchy_and_planning_refuses_outer_targets(
     ``--no-hierarchy`` writes no two-level key and the default
     ``--hierarchy`` writes the five-field keys of the census cases with a
     legal split (skipping those without); a hierarchical target's
-    backends are the single-device pair, and the chip-level lowering of
-    a two-level plan is what still raises (ROADMAP A9)."""
+    backends on one device are the single-device pair, and the
+    chip-level lowering of a two-level plan raises for want of its 16
+    devices."""
     from repro_torch.core import SERVING_HIERARCHICAL_TARGET as HT
     from repro_torch.core import lower_plan
 
@@ -366,5 +455,5 @@ def test_generator_refuses_hierarchy_and_planning_refuses_outer_targets(
         {"pallas", "xla"}
     assert tat.available_backends(HT) == ("pallas", "xla")
     plan = best_plan(treg.get("mm").builder(24, 128, 64, "float32"), HT)
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(RuntimeError, match="16 devices needed"):
         lower_plan(plan, "systolic")

@@ -1952,3 +1952,62 @@ def test_facade_under_the_serving_target_runs_two_level_on_the_card(gen):
     torch.testing.assert_close(got.float(), ref.mm(x, w).float(),
                                rtol=2**-7, atol=1e-3)
     planned.planned_report_clear()
+
+
+#: one schedule of each family at small sizes: (spec, builder args, dtype,
+#: backend), each on a logical 2 x 2 mesh of this card
+SYSTOLIC_CASES = (
+    ("mm", (256, 256, 256), "float32", "systolic"),          # Cannon
+    ("bmm", (4, 128, 128, 64), "int16", "systolic"),
+    ("fft2d_stage", (64, 64), "float32", "systolic"),        # two planes
+    ("jacobi2d_ms", (62, 62, 3), "int16", "systolic"),       # halo
+    ("jacobi2d_9pt", (64, 64), "float32", "systolic"),
+    ("conv2d", (64, 61, 4, 4), "int8", "systolic"),          # chains
+    ("fir", (1024, 15), "int16", "systolic"),
+    ("mttkrp", (128, 64, 16, 8), "int8", "systolic"),        # ring
+    ("mm", (256, 256, 256), "int8", "allgather"),            # baselines
+    ("jacobi2d", (126, 126), "float32", "allgather"),
+    ("fft2d_stage", (64, 64), "float32", "allgather"),
+)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", SYSTOLIC_CASES,
+                         ids=[f"{c[0]}-{c[2]}-{c[3]}" for c in SYSTOLIC_CASES])
+def test_chip_level_schedule_on_a_logical_mesh_on_the_card(case, gen):
+    """The spec's chip-level schedule on a logical 2 x 2 mesh whose four
+    members are this card: every member's compute a launch of the hand
+    kernel, the result the flat hand kernel's (integers exact, floats
+    within the registry's atol)."""
+    from repro_torch.core import Target, best_plan, lower_plan
+    from repro_torch.parallel import mesh as pm
+
+    kind, args, dname, backend = case
+    spec = registry.get(kind)
+    rec = spec.builder(*args, dname)
+    dtype = getattr(torch, dname)
+    ops = [_draw(s, dtype, gen).to(dtype) for s in spec.operand_shapes(rec)]
+    flat = lower_plan(best_plan(rec, Target(mesh_shape=(1, 1))),
+                      "pallas")(*ops)
+    wrapper = {"mm": widesa_mm, "bmm": bmm, "fft2d_stage": widesa_mm,
+               "conv2d": conv2d, "fir": fir, "mttkrp": mttkrp}.get(
+                   kind, jacobi2d)
+    if kind == "fft2d_stage" and backend == "allgather":
+        wrapper = fft2d
+    with pm.logical_devices(4):
+        mesh = pm.make_mesh((2, 2), Target().mesh_axes)
+        assert {str(d) for d in mesh.devices.flat} == {
+            str(torch.device("cuda", 0))}
+        plan = best_plan(rec, Target(mesh_shape=(2, 2)))
+        launches = wrapper.launches
+        got = lower_plan(plan, backend, mesh=mesh)(*ops)
+        torch.cuda.synchronize()
+    assert wrapper.launches - launches >= 4
+    flats = flat if isinstance(flat, tuple) else (flat,)
+    gots = got if isinstance(got, tuple) else (got,)
+    for g, w in zip(gots, flats):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        if dtype.is_floating_point:
+            torch.testing.assert_close(g, w, rtol=0, atol=spec.atol)
+        else:
+            assert torch.equal(g, w)

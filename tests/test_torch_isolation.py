@@ -5,7 +5,9 @@ Every ``repro_torch`` module, ``chip_smoke.py`` and
 ``examples/train_tiny_lm_torch.py`` are imported in a
 fresh interpreter, which must end with neither ``jax`` nor ``repro`` in
 ``sys.modules``; every import statement in their sources (including the
-ones inside functions, which run only on the card) is checked too.
+ones inside functions, which run only on the card) is checked too;
+``parallel/mesh.py`` imports nothing but torch, numpy and the standard
+library.
 """
 
 import ast
@@ -56,7 +58,16 @@ def test_port_and_chip_smoke_import_without_jax():
             "repro_torch.configs.whisper_base", "repro_torch.core.codegen",
             "repro_torch.kernels.jacobi2d", "repro_torch.kernels.mttkrp",
             "repro_torch.launch.recurrences", "repro_torch.core.autotune",
-            "repro_torch.launch.gen_autotune"} <= set(result["modules"])
+            "repro_torch.launch.gen_autotune", "repro_torch.parallel.mesh",
+            "repro_torch.kernels.systolic",
+            "repro_torch.core.hierarchy"} <= set(result["modules"])
+
+
+def test_the_mesh_imports_torch_and_no_package():
+    """``parallel/mesh.py`` stands on torch (and numpy's object arrays)
+    alone: nothing of either package, not even ``repro_torch``."""
+    assert _imported_roots(PORT / "parallel" / "mesh.py") <= {
+        "__future__", "contextlib", "math", "typing", "numpy", "torch"}
 
 
 def _imported_roots(path: Path) -> set[str]:

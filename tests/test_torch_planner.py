@@ -82,8 +82,9 @@ def test_unported_policies_and_plan_kinds_raise():
     """The reference's three modes exist (``cached`` and ``measured``
     since the port's crossover table); any other raises, as there.  A
     hierarchical target is planned (the reference's ``HierarchicalPlan``,
-    split and bytes); what the port has not ported is its chip-level
-    lowering, which raises (ROADMAP A9)."""
+    split and bytes); its chip-level lowering raises, as the reference's
+    does, where the host has fewer devices than its 2 x 2 groups of 1 x 8
+    inner meshes."""
     from repro.core import HierarchicalTarget as JaxHierarchicalTarget
     from repro_torch.core import HierarchicalPlan, HierarchicalTarget
     from repro_torch.core import lower_plan
@@ -111,7 +112,7 @@ def test_unported_policies_and_plan_kinds_raise():
     assert autotune.resolve(autotune.PlanRequest(
         "mm+mm", ((8, 8, 8), (8, 8, 8)), "float32", hier)) is None
     for backend in ("systolic", "allgather"):
-        with pytest.raises(NotImplementedError, match="A9"):
+        with pytest.raises(RuntimeError, match="32 devices needed"):
             lower_plan(plan, backend)
     # a kind neither package registers reads as "no plan"
     assert autotune.resolve(autotune.PlanRequest(

@@ -294,12 +294,22 @@ def test_execute_plan_matches_jax_kernel(name, args, dtype):
 
 
 def test_lower_plan_backends():
+    """xla is the plain version; the chip-level backends need a mesh and,
+    on a 1 x 1 one, give the plain version's result (on the CPU every
+    member's compute is the plain version)."""
+    from repro_torch.parallel import mesh as pm
+
     spec = registry.get("jacobi2d")
-    plan = best_plan(spec.builder(*spec.smoke_args, "float32"), SINGLE_CHIP)
+    rec = spec.builder(*spec.smoke_args, "float32")
+    plan = best_plan(rec, SINGLE_CHIP)
     assert lower_plan(plan, "xla") is spec.ref
+    ops = registry.operands(rec, torch.Generator().manual_seed(1))
+    mesh = pm.make_mesh((1, 1), SINGLE_CHIP.mesh_axes)
     for backend in ("systolic", "allgather"):
-        with pytest.raises(NotImplementedError, match="A9"):
+        with pytest.raises(ValueError, match="needs a mesh"):
             lower_plan(plan, backend)
+        got = lower_plan(plan, backend, mesh=mesh)(*ops)
+        assert torch.equal(got, spec.ref(*ops))
     with pytest.raises(ValueError, match="unknown backend"):
         lower_plan(plan, "mosaic")
 
@@ -340,8 +350,11 @@ def _chains(pkg_registry, pkg_fusion, dtype):
 @pytest.mark.parametrize("dtype", ["int16", "float32"])
 def test_conv_jacobi_halo_chain_matches_reference(dtype):
     """conv2d (64, 61, 4, 4) -> jacobi2d (62, 59): the same fused plan, and
-    the port's xla and pallas compositions equal the reference's pallas
-    composition (interpret mode) on the same operands."""
+    the port's xla and pallas compositions and its fused_systolic schedule
+    on a 1 x 1 mesh equal the reference's pallas composition (interpret
+    mode) on the same operands."""
+    from repro_torch.parallel import mesh as pm
+
     stages = (("conv2d", (64, 61, 4, 4)), ("jacobi2d", (62, 59)))
     port = fusion.fuse(_chains(registry, fusion, dtype)(*stages), SINGLE_CHIP)
     want = jax_fusion.fuse(_chains(jax_registry, jax_fusion, dtype)(*stages),
@@ -363,8 +376,11 @@ def test_conv_jacobi_halo_chain_matches_reference(dtype):
     for backend in ("xla", "pallas"):
         got = lower_plan(port, backend)(*(torch.from_numpy(o) for o in ops))
         _check(got, expect, dtype, 1e-3)
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(ValueError, match="concrete mesh"):
         lower_plan(port, "fused_systolic")
+    got = lower_plan(port, "fused_systolic", mesh=pm.make_mesh(
+        (1, 1), SINGLE_CHIP.mesh_axes))(*(torch.from_numpy(o) for o in ops))
+    _check(got, expect, dtype, 1e-3)
 
 
 def test_stencil_chain_matches_reference():
