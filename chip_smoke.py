@@ -13,9 +13,10 @@
     python3 chip_smoke.py --dense
     python3 chip_smoke.py --hier
     python3 chip_smoke.py --systolic
+    python3 chip_smoke.py --mesh
 
 Needs one CUDA card and the CUDA toolkit.  It imports only the port, never
-JAX nor the JAX package, and runs twenty phases, each printing its own
+JAX nor the JAX package, and runs twenty-one phases, each printing its own
 line(s); any failure exits non-zero:
 
 1. device — the card's name and power limit, torch and CUDA versions;
@@ -248,6 +249,24 @@ line(s); any failure exits non-zero:
    ``LOGIT_ATOL`` or a miss explained by near-tie routing, the captured
    step and a 512-token prefill profiled, the peak, ``DEEPSEEK_SHAPES``
    timed, the phase's seconds;
+12d. mesh — the MoE mesh paths, training and the collectives on 8
+   logical devices of the card (``mesh_phase``): ``mesh_moe_ep``
+   (deepseek-v2-236b at its published width cut to ``MESH_EP_LAYERS`` =
+   4 of 60 layers, its config's ``moe_ep``: an EP prefill of 4 x 512
+   tokens on a (1, 4) mesh, held at the config's capacity factor to the
+   same mesh path on the plain versions and, nothing dropping, to one
+   device's prefill), ``mesh_moe_tp`` (olmoe-1b-7b uncut on (2, 2),
+   nothing dropping: a TP prefill of 4 x 512 and 16 decode steps fed one
+   device's greedy tokens, against one device's; a miss past
+   ``LOGIT_ATOL`` only through near-tie routing), ``mesh_train``
+   (qwen1.5-0.5b's elastic run, 3 steps on 4 x 2 and 2 resumed on 2 x 2,
+   bit for bit one device's; olmoe's float32 expert gradients under (2,
+   2) with the mesh's routing forced on one device, and 2 bf16 steps at
+   10 layers), ``mesh_collectives`` (the ring at mm(8192, 8192, 1024)
+   bf16 / float32 and int8 at k = 10240, ``quantized_psum``, GPipe of
+   qwen's 24 layers over 4 stages), each path's launches, bytes moved and
+   host time beside one device's; then ``MESH_SHAPES`` and the int8 ring
+   partial timed;
 13. train — full-width qwen1.5-0.5b trained (bf16, 24 layers, vocab
    151936, remat "full"; train_4k's 4096 x 256 tokens cut to 512 x 8),
    ``train_phase``: (a) one float32 step, the same seeded weights and
@@ -343,7 +362,8 @@ line gives each path's counts apart (``"launches": {"qwen": n,
 "olmoe_paged": g, "mamba2": a, "mamba2_paged": b, "zamba2": z,
 "zamba2_paged": y, "llava": v, "llava_paged": v', "stablelm": ...,
 "codeqwen": ..., "qwen3": ..., "qwen3_paged": ..., "deepseek": ...,
-"deepseek_paged": ..., "train": t,
+"deepseek_paged": ..., "mesh_moe_ep": ..., "mesh_moe_tp": ...,
+"mesh_train": ..., "mesh_collectives": ..., "train": t,
 "whisper_train": u, "mamba2_train": ..., "zamba2_train": ...,
 "olmoe_train": ..., "recurrences": k}``; ``qwen_long`` and ``whisper_offline`` each sum the slot engine's
 drain and the paged engine's; ``train`` and ``whisper_train`` count the
@@ -382,7 +402,9 @@ zamba2's q/k/v/out and mlp.down projections at decode, take their
 captured step's counts, which must sum to what the replay shows);
 under ``"dense"`` each ``DENSE_SHAPES`` GEMM's, with its launches on its
 model's slot and paged paths; under ``"deepseek"`` each
-``DEEPSEEK_SHAPES`` GEMM's, with its launches on the deepseek paths; under ``"train"`` each ``TRAIN_SHAPES``
+``DEEPSEEK_SHAPES`` GEMM's, with its launches on the deepseek paths; under
+``"mesh"`` each ``MESH_SHAPES`` GEMM's (and the int8 ring partial's), with
+its launches on the mesh paths; under ``"train"`` each ``TRAIN_SHAPES``
 GEMM's, with its launches in one train step (every site of that shape, the remat recompute's forward
 launches included).  The
 comparison and timing launches of phases 3 and
@@ -392,7 +414,9 @@ not count.
 
 ``--train`` runs only the device phase, the GEMM source's build and
 the train phases (13, 14, 14b); ``--dense`` the device phase, the GEMM
-source's build and phases 12b and 12c.  ``--tile-sweep`` runs only the device and build
+source's build and phases 12b and 12c; ``--mesh`` the device phase, the
+GEMM source's build and phase 12d.  ``--tile-sweep`` runs only the device
+and build
 phases, then times the tiled GEMM in bf16 with each of the 24 tiles of ``build.SWEEP_TILES`` (a
 second library holds those not compiled for the main path) and the
 skinny GEMM with every split of K, at every main-path shape, and prints,
@@ -440,6 +464,7 @@ sums 65536 products of magnitude ~1 and |M| reaches the hundreds.
 from __future__ import annotations
 
 import ast
+import contextlib
 import itertools
 import json
 import math
@@ -3562,7 +3587,8 @@ def gemm_timings(torch, timed=LONG_SHAPES, seed=12,
                   else "gemm_tc_kernel"
                   if isinstance(tiles.tile, runtime.TcTile)
                   else "gemm_kernel")
-        lib = torch.matmul if kind == "mm" else torch.bmm
+        lib = torch.bmm if kind == "bmm" else torch.mm if flush \
+            else torch.matmul
 
         def library(x, y, lib=lib, out_dtype=out_dtype):
             return lib(x, y) if out_dtype is None else lib(x, y, out_dtype)
@@ -3768,29 +3794,12 @@ def routing_explained(torch, api, params, batch, max_seq,
     of the kernels' (what is left once routing agrees is bf16
     rounding)."""
     from repro_torch.kernels import planned
-    from repro_torch.models import moe
-
-    route = moe.route
 
     def run(enabled, forced=None):
-        seen = []
-
-        def recording(cfg, layer_logits):
-            w, ids, probs = route(cfg, layer_logits)
-            if forced is not None:
-                ids = forced[len(seen)].to(ids.device)
-                w = probs.gather(-1, ids)
-                w = w / w.sum(dim=-1, keepdim=True)
-            seen.append((ids.cpu(), probs.cpu()))
-            return w, ids, probs
-
-        moe.route = recording
-        try:
-            with torch.no_grad(), planned.override(enabled=enabled):
-                out, _ = api.prefill(params, batch, max_seq)
-        finally:
-            moe.route = route
-        return out, seen
+        with RouteLog(forced) as log, torch.no_grad(), \
+                planned.override(enabled=enabled):
+            out, _ = api.prefill(params, batch, max_seq)
+        return out, log.calls
 
     _, kernels = run(True)
     _, plain = run(False)
@@ -6175,6 +6184,16 @@ def fft_bench_timing(torch) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(24)
     re_, im_ = (torch.randn(shape, generator=gen, device="cuda")
                 for _ in range(2))
+    # the transform's DFT planes (512 MiB at 8192 points) are built for the
+    # call and freed with it, not cached (fft2d.DFT_CACHE_MAX_N)
+    held = torch.cuda.memory_allocated()
+    routed(re_, im_)
+    torch.cuda.synchronize()
+    left = torch.cuda.memory_allocated() - held
+    if left:
+        fail(f"fft2d{shape}: {left} bytes still allocated after the call")
+    print(f"fft2d{shape}: the card's allocation returns to its level before "
+          f"the call ({held} bytes): no DFT planes kept", flush=True)
     before = dict(widesa_mm.variants)
     got = routed(re_, im_)
     routes = {v: widesa_mm.variants[v] - before[v] for v in before}
@@ -6959,7 +6978,6 @@ def systolic_phase(torch, device_name: str) -> dict:
     work serialized on one card with no interconnect, not a speed
     figure.  Returns each path's launches and launches by kernel and
     every row."""
-    from repro_torch.kernels import fft2d
     from repro_torch.parallel import mesh as pm
 
     t0 = time.perf_counter()
@@ -6972,9 +6990,6 @@ def systolic_phase(torch, device_name: str) -> dict:
         rows = systolic_cases(torch, paths, gen)
         fused = systolic_fused(torch, paths, gen)
         hier = systolic_hier(torch, paths, gen)
-    # the 8192-point DFT planes the fft2d rings staged (512 MiB) would
-    # stay cached through the later phases, whose peaks need that room
-    fft2d._dft_planes.cache_clear()
 
     def show(label, r):
         return (f"{label}: {r['launches']} launches, {r['bytes']} bytes "
@@ -7005,6 +7020,883 @@ def systolic_phase(torch, device_name: str) -> dict:
           f"on {device_name} [{nvidia_smi()}]", flush=True)
     return {"paths": paths.paths, "rows": rows, "fused": fused,
             "hier": hier}
+
+
+# ---------------------------------------------------------------------------
+# the mesh paths: MoE on EP and TP meshes, training on logical meshes, and
+# the collectives, on logical meshes of one card
+# ---------------------------------------------------------------------------
+
+#: logical devices of the mesh phase (all this card)
+MESH_DEVICES = 8
+#: mesh_moe_ep: deepseek-v2-236b's layers on the card, its dense first
+#: layer and 3 MoE layers, each of the shapes of the other 56 (``mesh_moe_ep``
+#: prints the bytes); the prefill cell the reference's dry run lowers
+MESH_EP_LAYERS = 4
+MESH_EP_MESH = (1, 4)
+#: both MoE paths' prompts: 4 x 512 tokens; mesh_moe_tp then 16 greedy steps
+MESH_PROMPTS, MESH_PROMPT_LEN, MESH_DECODE_STEPS = 4, 512, 16
+MESH_TP_MESH = (2, 2)
+#: mesh_train: qwen's 8 x 512 a step on the 4 x 2 mesh of 8 logical
+#: devices for 3 steps, then 2 on the 2 x 2 survivor mesh of 4
+MESH_TRAIN_SHAPE = (512, 8)
+MESH_TRAIN_STEPS = (3, 2)
+#: olmoe under (2, 2): the float32 gradient parity at check (a)'s depth,
+#: then 2 bf16 steps at the 10 layers olmoe_train runs, 4 x 512 a step
+MESH_OLMOE_LAYERS, MESH_OLMOE_SHAPE, MESH_OLMOE_STEPS = 10, (512, 4), 2
+#: the bf16 steps' losses on the mesh against one device's: the two runs
+#: add the members' partial outputs in another order, each add one bf16
+#: rounding, over 10 layers
+MESH_LOSS_RTOL = 1e-2
+#: mesh_collectives: the ring over 8 members at mm(8192, 8192, 1024) in
+#: bf16 and float32, int8 at k = 10240 with operands in [120, 128) (every
+#: output < 2^31, so a float64 product on the card is exact: the int64
+#: oracle), quantized_psum of 8 x 2^20 floats, GPipe of qwen's 24 layers
+RING_SHAPE, RING_INT8_SHAPE, RING_MEMBERS = (8192, 8192, 1024), \
+    (2048, 2048, 10240), 8
+QPSUM_ELEMS = 2 ** 20
+PIPE_STAGES, PIPE_MICRO, PIPE_BATCH = 4, 4, 8
+#: the GEMMs the mesh paths add, timed (``LONG_SHAPES``' layout): each
+#: member's expert bmm under EP (deepseek at the config's capacity factor:
+#: 40 local experts, C = 4 members x 24 rows) and under TP (olmoe with
+#: nothing dropping: 32 local experts, C = 1024), and the ring's partial
+#: (k = 1024 over 8 members, flushed to fp32)
+MESH_SHAPES = (
+    ("moe.gate/up, EP member (deepseek, 4 x 512 prefill)", "bmm",
+     (40, 96, 1536, 5120), False, False, False, "bfloat16"),
+    ("moe.down, EP member (deepseek, 4 x 512 prefill)", "bmm",
+     (40, 96, 5120, 1536), False, False, False, "bfloat16"),
+    ("moe.gate/up, TP member (olmoe, 4 x 512 prefill, nothing drops)",
+     "bmm", (32, 1024, 1024, 2048), False, False, False, "bfloat16"),
+    ("moe.down, TP member (olmoe, 4 x 512 prefill, nothing drops)", "bmm",
+     (32, 1024, 2048, 1024), False, False, False, "bfloat16"),
+    ("ring partial, bf16", "mm", (8192, 8192, 128), False, False, True,
+     "bfloat16"),
+    ("ring partial, float32", "mm", (8192, 8192, 128), False, False, False,
+     "float32"),
+)
+
+
+def mesh_shape_launches(report) -> dict:
+    """Each ``MESH_SHAPES`` GEMM's calls in a planned report, keyed (kind,
+    shape, dtype)."""
+    counts = count_shapes(report, [(k, shape) for _, k, shape, *_ in
+                                   MESH_SHAPES])
+    return {(k, shape, dname): counts[(k, shape)]
+            for _, k, shape, *_, dname in MESH_SHAPES}
+
+
+def counted_run(torch, fn):
+    """``fn()`` with every wrapper's count set to 0 just before and read
+    just after: (its result, launches, launches by kernel, the planned
+    report's delta)."""
+    from repro_torch.kernels import planned
+
+    before = planned.planned_report()
+    reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, read_counts(), read_variants(), planned.report_delta(
+        before, planned.planned_report())
+
+
+def moe_sites_planned(label, report, sites=("moe.gate", "moe.up",
+                                            "moe.down")) -> None:
+    bad = {s: report.get(s) for s in sites
+           if not report.get(s, {}).get("planned")
+           or report[s]["fallback"]}
+    if bad:
+        fail(f"{label}: member expert sites that did not plan: {bad}")
+
+
+class RouteLog:
+    """Every ``moe.route`` call's top-k ids and probabilities, copied to
+    the host, while the block is active; with ``forced`` (ids a call, in
+    call order) those ids replace the call's own, each weight
+    renormalised from its own probabilities (``routing_explained``'s
+    forcing)."""
+
+    def __init__(self, forced=None):
+        self.calls, self.forced = [], forced
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self._route = route = moe.route
+
+        def recording(cfg, logits):
+            w, ids, probs = route(cfg, logits)
+            if self.forced is not None:
+                ids = self.forced[len(self.calls)].to(ids.device)
+                w = probs.gather(-1, ids)
+                w = w / w.sum(dim=-1, keepdim=True)
+            self.calls.append((ids.cpu(), probs.cpu()))
+            return w, ids, probs
+
+        moe.route = recording
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+
+        moe.route = self._route
+
+
+def mesh_rows(torch, shape, path, b, s) -> list:
+    """For each member of a (data, model) mesh in row-major order, the
+    global rows (``b * s`` flattened) its route call holds: TP, its batch
+    block (None for a replica past the first on the model axis); EP, its
+    batch block's slice of the sequence."""
+    d_n, m_n = shape
+    bl, sl = b // d_n, s // m_n
+    rows = []
+    for d in range(d_n):
+        for m in range(m_n):
+            if path == "tp":
+                rows.append(None if m else torch.arange(d * bl * s,
+                                                        (d + 1) * bl * s))
+            else:
+                lanes = torch.arange(d * bl, (d + 1) * bl)[:, None] * s
+                rows.append((lanes + m * sl + torch.arange(sl)).reshape(-1))
+    return rows
+
+
+def global_routes(torch, calls, rows, b, s) -> list:
+    """The mesh path's route calls (a layer's members in turn) as one
+    [b * s, k] id tensor a layer, in the single-device path's row
+    order."""
+    per = len(rows)
+    out = []
+    for i in range(0, len(calls), per):
+        ids = torch.empty((b * s, calls[i][0].shape[1]), dtype=torch.int64)
+        for (got, _), r in zip(calls[i:i + per], rows):
+            if r is not None:
+                ids[r] = got
+        out.append(ids)
+    return out
+
+
+def route_flips(mesh_ids, single_calls) -> list:
+    """(layer, row, expert, gap) of every expert the mesh path chose and
+    the single-device path did not, with the gap by which its probability
+    on the single path misses that path's k-th."""
+    flips = []
+    for layer, (ids, (pids, probs)) in enumerate(zip(mesh_ids,
+                                                     single_calls)):
+        kth = probs.gather(-1, pids).min(-1).values
+        differ = (ids.sort(-1).values != pids.sort(-1).values).any(-1)
+        for row in differ.nonzero().flatten().tolist():
+            for ex in sorted(set(ids[row].tolist()) - set(pids[row].tolist())):
+                flips.append((layer, row, ex,
+                              round(float(kth[row] - probs[row, ex]), 7)))
+    return flips
+
+
+def first_flips_near_ties(flips) -> bool:
+    first = [f for f in flips if f[0] == flips[0][0]] if flips else []
+    return bool(first) and max(f[3] for f in first) <= ROUTER_ATOL
+
+
+def mesh_explained(torch, label, single_fn, mesh_calls, single_calls, rows,
+                   b, s, mesh_logits) -> None:
+    """A mesh path's prefill logits past ``LOGIT_ATOL`` from one device's
+    pass only where routing explains the miss, as ``routing_explained``
+    has it: the first layer with a flip flips near-ties only (gaps within
+    ``ROUTER_ATOL``), and one device with the mesh path's routing forced
+    gives the mesh path's logits within ``LOGIT_ATOL``."""
+    mesh_ids = global_routes(torch, mesh_calls, rows, b, s)
+    flips = route_flips(mesh_ids, single_calls)
+    with RouteLog(forced=mesh_ids):
+        forced = single_fn()
+    err = (forced.float() - mesh_logits.float()).abs().max().item()
+    ok = first_flips_near_ties(flips) and err <= LOGIT_ATOL
+    print(f"{label}: {len(flips)} routing flips against one device (layer, "
+          f"row, expert, gap) {flips[:12]}{' ...' if len(flips) > 12 else ''}"
+          f"; the first layer's near-ties within {ROUTER_ATOL}: "
+          f"{first_flips_near_ties(flips)}; one device with the mesh's "
+          f"routing forced is {err:.4f} from the mesh's logits", flush=True)
+    if not ok:
+        fail(f"{label}: the logits' miss is not explained by near-tie "
+             "routing flips")
+
+
+def mesh_moe_ep(torch, device_name: str) -> dict:
+    """``mesh_moe_ep``: deepseek-v2-236b at its published width cut to
+    ``MESH_EP_LAYERS`` layers, under ``mesh_context`` of a (1, 4) mesh
+    with its config's ``moe_ep``: ``api.prefill`` of 4 x 512 tokens
+    through ``moe_ep_alltoall`` (the counted path), every member's expert
+    stack on the hand kernels; held at the config's capacity factor to
+    the same mesh path on the plain versions, and with nothing dropping
+    (capacity factor E / k) to one device's prefill of the same weights
+    on the kernels, each within ``LOGIT_ATOL`` or explained by near-tie
+    routing."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import planned
+    from repro_torch.models import build_model
+    from repro_torch.parallel import mesh as pm
+    from repro_torch.parallel.collectives import ring_allreduce_bytes
+    from repro_torch.parallel.sharding import mesh_context
+
+    t_phase = time.perf_counter()
+    full = get_config(DEEPSEEK_ARCH)
+    cfg = dataclasses.replace(full, n_layers=MESH_EP_LAYERS)
+    if not cfg.moe_ep:
+        fail(f"mesh_moe_ep: {DEEPSEEK_ARCH}'s config has moe_ep off")
+    api = build_model(cfg, "cuda")
+    params = api.init(torch.Generator(device="cuda").manual_seed(0))
+    weights = sum(t.numel() * t.element_size() for t in iter_tensors(params))
+    experts = sum(params["layers"][1]["moe"][k].numel() * 2
+                  for k in ("wg", "wu", "wd"))
+    mesh = pm.make_mesh(MESH_EP_MESH, ("data", "model"))
+    b, s = MESH_PROMPTS, MESH_PROMPT_LEN
+    tokens = np.random.default_rng(31).integers(0, cfg.vocab, (b, s))
+    batch = {"tokens": torch.as_tensor(tokens, dtype=torch.int32,
+                                       device="cuda")}
+    print(f"mesh_moe_ep: {DEEPSEEK_ARCH} at its published width cut to "
+          f"{cfg.n_layers} of {full.n_layers} layers (the dense first "
+          f"layer and {cfg.n_layers - 1} MoE layers of the other 56's "
+          f"shapes): {gib(weights)} of weights; each prefill shards every "
+          f"MoE layer's experts onto the members, {experts / 1e9:.2f} GB of "
+          f"copies a layer ({cfg.moe_num_experts // MESH_EP_MESH[1]} "
+          f"experts a member), freed after the layer; mesh "
+          f"{MESH_EP_MESH} ('data', 'model'), moe_ep {cfg.moe_ep}, "
+          f"capacity factor {cfg.moe_capacity_factor}", flush=True)
+
+    def prefill(api_, mesh_=None):
+        ctx = mesh_context(mesh_) if mesh_ is not None \
+            else contextlib.nullcontext()
+        with torch.no_grad(), ctx:
+            return api_.prefill(params, batch, s)[0]
+
+    pm.moved_clear()
+    t0 = time.perf_counter()
+    logits, launches, variants, report = counted_run(
+        torch, lambda: prefill(api, mesh))
+    t_mesh = time.perf_counter() - t0
+    moved = dict(pm.moved)
+    moe_sites_planned("mesh_moe_ep", report)
+    shapes = mesh_shape_launches(report)
+    if not launches["bmm"] or not launches["widesa_mm"] \
+            or not torch.isfinite(logits).all() \
+            or logits.shape != (b, cfg.vocab):
+        fail(f"mesh_moe_ep: launches {launches}, variants {variants}, "
+             f"logits {tuple(logits.shape)}")
+    with planned.override(enabled=False):
+        plain = prefill(api, mesh)
+    err = (logits.float() - plain.float()).abs().max().item()
+    print(f"mesh_moe_ep: EP prefill of {b} x {s} tokens on the kernels "
+          f"({launches['bmm']} bmm and {launches['widesa_mm']} mm launches, "
+          f"{variants['bmm']}; moe.gate/up/down planned on every member) "
+          f"against the same mesh path on the plain versions: max |diff| "
+          f"{err:.4f} (bound {LOGIT_ATOL})", flush=True)
+    if err > LOGIT_ATOL:
+        with mesh_context(mesh):
+            ok, why = routing_explained(torch, api, params, batch, s, logits)
+        print(f"mesh_moe_ep: {why}", flush=True)
+        if not ok:
+            fail("mesh_moe_ep: the kernels' miss of the plain versions is "
+                 "not explained by near-tie routing")
+    del plain
+    cfg_nd = dataclasses.replace(
+        cfg, moe_capacity_factor=cfg.moe_num_experts / cfg.moe_top_k)
+    api_nd = build_model(cfg_nd, "cuda")
+    t0 = time.perf_counter()
+    with RouteLog() as one_log:
+        single = prefill(api_nd)
+    torch.cuda.synchronize()
+    t_single = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with RouteLog() as mesh_log:
+        mesh_nd = prefill(api_nd, mesh)
+    torch.cuda.synchronize()
+    t_mesh_nd = time.perf_counter() - t0
+    err = (single.float() - mesh_nd.float()).abs().max().item()
+    print(f"mesh_moe_ep: nothing dropping (capacity factor "
+          f"{cfg_nd.moe_capacity_factor:.3f}), the EP prefill against one "
+          f"device's prefill of the same weights on the kernels: max |diff| "
+          f"{err:.4f} (bound {LOGIT_ATOL})", flush=True)
+    if err > LOGIT_ATOL:
+        mesh_explained(torch, "mesh_moe_ep", lambda: prefill(api_nd),
+                       mesh_log.calls, one_log.calls,
+                       mesh_rows(torch, MESH_EP_MESH, "ep", b, s), b, s,
+                       mesh_nd)
+    del single, mesh_nd, one_log, mesh_log
+    payload = b * s * cfg.d_model * 2
+    print(f"mesh_moe_ep: on the host clock the counted EP prefill took "
+          f"{t_mesh:.2f} s; nothing dropping, the EP prefill {t_mesh_nd:.2f} "
+          f"s against one device's {t_single:.2f} s (route logging on in "
+          f"both): the members' work serialized on one card plus their "
+          f"device-to-device copies, not a speed; moved {moved} "
+          f"(all_to_all: dispatched rows out and back; a ring all-reduce "
+          f"of one layer's activations would move "
+          f"{ring_allreduce_bytes(payload, MESH_EP_MESH[1])}); phase "
+          f"{time.perf_counter() - t_phase:.1f} s on {device_name} "
+          f"[{nvidia_smi()}]", flush=True)
+    del params
+    torch.cuda.empty_cache()
+    return {"launches": launches, "variants": variants, "moved": moved,
+            "shapes": shapes, "seconds": t_mesh, "nd_seconds": t_mesh_nd,
+            "single_seconds": t_single}
+
+
+def mesh_moe_tp(torch, device_name: str) -> dict:
+    """``mesh_moe_tp``: olmoe-1b-7b at full width and depth with nothing
+    dropping (capacity factor E / k) under a (2, 2) mesh through
+    ``_moe_shard_map`` (the counted path): ``api.prefill`` of 4 x 512
+    tokens and ``MESH_DECODE_STEPS`` ``api.decode`` steps fed one
+    device's greedy tokens, against one device's prefill and greedy
+    steps: every step's logits within ``LOGIT_ATOL`` (the prefill's miss
+    explained by near-tie routing where past it; a step's by a near-tie
+    flip in it or before it) and its argmax the single path's token where
+    that token's lead is wider than the step's difference."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.parallel import mesh as pm
+    from repro_torch.parallel.collectives import ring_allreduce_bytes
+    from repro_torch.parallel.sharding import mesh_context
+
+    t_phase = time.perf_counter()
+    base = get_config(MOE_ARCH)
+    cfg = dataclasses.replace(
+        base, moe_capacity_factor=base.moe_num_experts / base.moe_top_k)
+    api = build_model(cfg, "cuda")
+    params = api.init(torch.Generator(device="cuda").manual_seed(0))
+    mesh = pm.make_mesh(MESH_TP_MESH, ("data", "model"))
+    b, s, n = MESH_PROMPTS, MESH_PROMPT_LEN, MESH_DECODE_STEPS
+    max_seq = s + n
+    tokens = np.random.default_rng(32).integers(0, cfg.vocab, (b, s))
+    batch = {"tokens": torch.as_tensor(tokens, dtype=torch.int32,
+                                       device="cuda")}
+
+    def drive(feed=None, mesh_=None):
+        """Prefill and ``n`` decode steps: greedy, or fed ``feed``'s
+        tokens; (prefill logits, step logits, step tokens, route logs:
+        the prefill's and each step's)."""
+        ctx = mesh_context(mesh_) if mesh_ is not None \
+            else contextlib.nullcontext()
+        logs, steps, fed = [RouteLog()], [], []
+        with torch.no_grad(), ctx:
+            with logs[0]:
+                first, cache = api.prefill(params, batch, max_seq)
+            nxt = first.argmax(-1).to(torch.int32)
+            for i in range(n):
+                tok = nxt if feed is None else feed[i]
+                fed.append(tok)
+                logs.append(RouteLog())
+                with logs[-1]:
+                    out, cache = api.decode(params, cache, tok[:, None])
+                steps.append(out.reshape(b, -1))
+                nxt = steps[-1].argmax(-1).to(torch.int32)
+        return first, steps, fed, logs
+
+    t0 = time.perf_counter()
+    first_1, steps_1, fed_1, logs_1 = drive()
+    torch.cuda.synchronize()
+    t_single = time.perf_counter() - t0
+    pm.moved_clear()
+    t0 = time.perf_counter()
+    (first_m, steps_m, _, logs_m), launches, variants, report = counted_run(
+        torch, lambda: drive(fed_1, mesh))
+    t_mesh = time.perf_counter() - t0
+    moved = dict(pm.moved)
+    moe_sites_planned("mesh_moe_tp", report)
+    shapes = mesh_shape_launches(report)
+    if not launches["bmm"] or not launches["widesa_mm"]:
+        fail(f"mesh_moe_tp: launches {launches}, variants {variants}")
+    err = (first_1.float() - first_m.float()).abs().max().item()
+    print(f"mesh_moe_tp: {MOE_ARCH} at full width ({cfg.n_layers} layers, "
+          f"{cfg.moe_num_experts} experts, top-{cfg.moe_top_k}) on a "
+          f"{MESH_TP_MESH} mesh through the TP path, nothing dropping "
+          f"(capacity factor {cfg.moe_capacity_factor}): prefill of {b} x "
+          f"{s} tokens against one device's, max |diff| {err:.4f} (bound "
+          f"{LOGIT_ATOL})", flush=True)
+    if err > LOGIT_ATOL:
+        mesh_explained(torch, "mesh_moe_tp", lambda: api.prefill(
+            params, batch, max_seq)[0], logs_m[0].calls, logs_1[0].calls,
+            mesh_rows(torch, MESH_TP_MESH, "tp", b, s), b, s, first_m)
+    flipped, worst, agree, ties = False, 0.0, 0, []
+    rows = mesh_rows(torch, MESH_TP_MESH, "tp", b, 1)
+    for i in range(n):
+        flips = route_flips(global_routes(torch, logs_m[i + 1].calls, rows,
+                                          b, 1), logs_1[i + 1].calls)
+        flipped = flipped or first_flips_near_ties(flips)
+        diff = (steps_1[i].float() - steps_m[i].float()).abs().max().item()
+        worst = max(worst, diff)
+        if diff > LOGIT_ATOL and not flipped:
+            fail(f"mesh_moe_tp: decode step {i} logits differ by {diff} > "
+                 f"{LOGIT_ATOL} with no near-tie routing flip before")
+        want = fed_1[i + 1] if i + 1 < n else steps_1[i].argmax(-1)
+        got = steps_m[i].argmax(-1)
+        top2 = steps_1[i].float().topk(2, dim=-1).values
+        for lane in range(b):
+            if int(got[lane]) == int(want[lane]):
+                agree += 1
+            elif float(top2[lane, 0] - top2[lane, 1]) <= diff or flipped:
+                ties.append((i, lane))
+            else:
+                fail(f"mesh_moe_tp: step {i} lane {lane}: the mesh's token "
+                     f"{int(got[lane])} is not one device's "
+                     f"{int(want[lane])} and no near-tie explains it")
+    payload = b * s * cfg.d_model * 2
+    print(f"mesh_moe_tp: {n} decode steps fed one device's greedy tokens: "
+          f"logits max |diff| {worst:.4f}, {agree} of {b * n} tokens equal"
+          + (f", {ties} near-ties" if ties else "") + f"; {launches['bmm']} "
+          f"bmm and {launches['widesa_mm']} mm launches ({variants['bmm']}, "
+          f"{variants['widesa_mm']}), every member's moe.gate/up/down "
+          f"planned; {t_mesh:.2f} s on the host clock against one device's "
+          f"{t_single:.2f} s (the members' work serialized, every layer's "
+          f"expert blocks copied onto its members, not a speed); moved "
+          f"{moved} (psum: each layer's partial outputs; a ring all-reduce "
+          f"of one prefill layer's {payload} bytes over the 2-wide expert "
+          f"axis would move {ring_allreduce_bytes(payload, 2)}); phase "
+          f"{time.perf_counter() - t_phase:.1f} s on {device_name} "
+          f"[{nvidia_smi()}]", flush=True)
+    del params
+    torch.cuda.empty_cache()
+    return {"launches": launches, "variants": variants, "moved": moved,
+            "shapes": shapes, "seconds": t_mesh, "single_seconds": t_single}
+
+
+def mesh_train(torch, device_name: str) -> dict:
+    """``mesh_train``: (1) qwen1.5-0.5b at full width, ``MESH_TRAIN_SHAPE``
+    tokens a step: ``Trainer(mesh=make_mesh_from_devices(devices()[:8],
+    model_parallel=2))`` takes 3 steps and checkpoints, a ``Trainer`` on
+    the 2 x 2 survivor mesh of 4 resumes and takes 2 (the counted path);
+    the same on one device gives the same losses bit for bit (no MoE
+    block, so the mesh changes nothing qwen computes).  (2) olmoe-1b-7b
+    under (2, 2) with nothing dropping: the float32 gradients at check
+    (a)'s depth of the loss without its load-balance term (a mesh's is
+    each shard's own, as the reference's), every expert weight's within
+    ``GRAD_RTOL`` (relative L2) of one device's with the mesh's routing
+    forced there (without, a miss
+    passes only through near-tie routing flips: the members' router
+    products sum in another order), then ``MESH_OLMOE_STEPS`` bf16 train
+    steps at
+    ``MESH_OLMOE_LAYERS`` layers, each loss within ``MESH_LOSS_RTOL`` of
+    one device's."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data import SyntheticPipeline
+    from repro_torch.launch.mesh import make_mesh_from_devices
+    from repro_torch.models import build_model
+    from repro_torch.models import transformer as TFM
+    from repro_torch.parallel import mesh as pm
+    from repro_torch.parallel.sharding import mesh_context
+    from repro_torch.train import TrainConfig, Trainer
+    from repro_torch.train.loop import batch_tensors
+    from repro_torch.train.step import value_and_grad
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config(ARCH), grad_accum=1)
+    shape = ShapeSpec("mesh_train", "train", *MESH_TRAIN_SHAPE)
+    tc = TrainConfig(total_steps=sum(MESH_TRAIN_STEPS), ckpt_every=100,
+                     log_every=100)
+    devs = pm.devices()
+    meshes = (make_mesh_from_devices(devs[:8], model_parallel=2),
+              make_mesh_from_devices(devs[:4], model_parallel=2))
+
+    def elastic(ckpt, mesh_pair):
+        hist = []
+        for mesh, steps, resume in zip(mesh_pair, MESH_TRAIN_STEPS,
+                                       (False, True)):
+            t = Trainer(cfg, shape, ckpt_dir=ckpt, tcfg=tc, mesh=mesh)
+            hist += t.run(steps, resume=resume)[2]
+            del t
+        return hist
+
+    with tempfile.TemporaryDirectory() as d1, \
+            tempfile.TemporaryDirectory() as d2:
+        t0 = time.perf_counter()
+        hist, launches, variants, _ = counted_run(
+            torch, lambda: elastic(d1, meshes))
+        t_mesh = time.perf_counter() - t0
+        single = elastic(d2, (None, None))
+    if hist != single or not all(math.isfinite(x) for x in hist):
+        fail(f"mesh_train: the elastic run's losses {hist} are not one "
+             f"device's {single}")
+    if not launches["widesa_mm"] or not launches["bmm"]:
+        fail(f"mesh_train: launches {launches}, variants {variants}")
+    print(f"mesh_train: {ARCH} at full width, {shape.global_batch} x "
+          f"{shape.seq_len} a step: {MESH_TRAIN_STEPS[0]} steps on "
+          f"{meshes[0].shape}, a checkpoint, {MESH_TRAIN_STEPS[1]} resumed "
+          f"on the survivors' {meshes[1].shape}: losses {hist}, bit for bit "
+          f"one device's; {launches['widesa_mm']} mm and {launches['bmm']} "
+          f"bmm launches ({variants['widesa_mm']}); {t_mesh:.2f} s on the "
+          f"host clock", flush=True)
+    torch.cuda.empty_cache()
+    # (2) olmoe: float32 gradients at check (a)'s depth, nothing dropping
+    base = get_config(MOE_ARCH)
+    nd = base.moe_num_experts / base.moe_top_k
+    cfg32 = dataclasses.replace(base, dtype="float32", grad_accum=1,
+                                n_layers=MOE_PARITY_LAYERS, remat="none",
+                                moe_capacity_factor=nd)
+    api = build_model(cfg32, "cuda")
+    params = api.init(torch.Generator(device="cuda").manual_seed(0))
+    oshape = ShapeSpec("mesh_olmoe", "train", *MESH_OLMOE_SHAPE)
+    batch = batch_tensors(SyntheticPipeline(cfg32, oshape).batch(0), "cuda")
+    mesh = pm.make_mesh(MESH_TP_MESH, ("data", "model"))
+    b, s = batch["tokens"].shape
+
+    def xent_loss(p, batch):
+        """The training loss without its load-balance term: on a mesh that
+        term is each shard's own, averaged (the reference's semantics),
+        and its gradient reaches the experts of the layers below."""
+        hidden, _ = TFM.forward(p, cfg32, batch["tokens"])
+        labels = batch["labels"]
+        mask = (labels >= 0).float()
+        nll = TFM.xent(TFM.logits_fn(p, cfg32, hidden),
+                       labels.clamp(min=0).long())
+        return (nll * mask).sum() / mask.sum().clamp(min=1.0)
+
+    with RouteLog() as one_log:
+        _, g_one = value_and_grad(xent_loss, params, batch)
+    with mesh_context(mesh), RouteLog() as mesh_log:
+        _, g_mesh = value_and_grad(xent_loss, params, batch)
+    mesh_ids = global_routes(torch, mesh_log.calls, mesh_rows(
+        torch, MESH_TP_MESH, "tp", b, s), b, s)
+    flips = route_flips(mesh_ids, one_log.calls)
+    # one device with the mesh's routing forced: the members' router
+    # products (1024 rows each) sum in another order than one device's
+    # (2048), so a near-tie may route a token elsewhere, and each flip
+    # moves a token's share of two experts' gradients
+    with RouteLog(forced=mesh_ids):
+        _, g_forced = value_and_grad(xent_loss, params, batch)
+
+    def expert_errs(g):
+        return sorted(
+            (float((a.double() - b.double()).norm()
+                   / b.double().norm().clamp(min=1e-30)), path)
+            for path, a, b in zip(tree.paths(g_mesh), tree.leaves(g_mesh),
+                                  tree.leaves(g))
+            if path.rsplit("/", 1)[-1] in ("wg", "wu", "wd")
+            and "/moe/" in path)
+
+    errs, free = expert_errs(g_forced), expert_errs(g_one)
+    del params, g_one, g_mesh, g_forced, api
+    torch.cuda.empty_cache()
+    if errs[-1][0] > GRAD_RTOL or (free[-1][0] > GRAD_RTOL and not (
+            first_flips_near_ties(flips))):
+        fail(f"mesh_train: olmoe's expert gradients on the mesh miss one "
+             f"device's beyond {GRAD_RTOL}: {errs[-3:]} with the mesh's "
+             f"routing forced, {free[-3:]} without; flips {flips[:12]}")
+    # the bf16 steps at the depth olmoe_train runs
+    cfg16 = dataclasses.replace(base, grad_accum=1,
+                                n_layers=MESH_OLMOE_LAYERS,
+                                moe_capacity_factor=nd)
+    losses = {}
+    for label, mesh_ in (("mesh", mesh), ("one device", None)):
+        with tempfile.TemporaryDirectory() as d:
+            t = Trainer(cfg16, oshape, ckpt_dir=d, tcfg=tc, mesh=mesh_)
+            p, opt = t.init_state()
+            run = []
+            reset_counts()
+            for step in range(MESH_OLMOE_STEPS):
+                b16 = batch_tensors(t.data.batch(step), "cuda")
+                ctx = mesh_context(mesh_) if mesh_ is not None \
+                    else contextlib.nullcontext()
+                with ctx:
+                    p, opt, metrics = t.step_fn(p, opt, b16, step)
+                run.append(float(metrics["loss"]))
+            torch.cuda.synchronize()
+            if mesh_ is not None:
+                o_launches, o_variants = read_counts(), read_variants()
+            losses[label] = run
+            del t, p, opt
+            torch.cuda.empty_cache()
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["mesh"],
+                                                  losses["one device"]))
+    if rel > MESH_LOSS_RTOL or not all(map(math.isfinite, losses["mesh"])):
+        fail(f"mesh_train: olmoe's bf16 losses on the mesh {losses}")
+    print(f"mesh_train: {MOE_ARCH} under {MESH_TP_MESH}, nothing dropping "
+          f"(capacity factor {nd}): float32 gradients of the loss without "
+          f"its load-balance term at {MOE_PARITY_LAYERS} layers, "
+          f"{oshape.global_batch} x "
+          f"{oshape.seq_len} tokens, every expert weight's within "
+          f"{errs[-1][0]:.3g} of one device's with the mesh's routing "
+          f"forced there (relative L2; largest {errs[-1][1]}, bound "
+          f"{GRAD_RTOL}; unforced {free[-1][0]:.3g}: {len(flips)} routing "
+          f"flips, the first layer's near-ties within {ROUTER_ATOL}: "
+          f"{first_flips_near_ties(flips)}, {flips[:6]}); "
+          f"{MESH_OLMOE_STEPS} bf16 steps "
+          f"at {MESH_OLMOE_LAYERS} layers: losses {losses['mesh']} against "
+          f"one device's {losses['one device']} (relative {rel:.3g}, bound "
+          f"{MESH_LOSS_RTOL}), {o_launches['bmm']} bmm launches "
+          f"({o_variants['bmm']}); peak "
+          f"{gib(torch.cuda.max_memory_allocated())}"
+          f"; phase {time.perf_counter() - t_phase:.1f} s on {device_name} "
+          f"[{nvidia_smi()}]", flush=True)
+    return {"launches": launches, "variants": variants, "seconds": t_mesh,
+            "olmoe_launches": o_launches, "shapes": {}}
+
+
+def mesh_collectives(torch, device_name: str) -> dict:
+    """``mesh_collectives``: ``ring_reduce_scatter_matmul`` over
+    ``RING_MEMBERS`` members at ``RING_SHAPE`` in bf16 and float32 against
+    the flat hand kernel (fp32 out; within the registry's atol 1e-3), in
+    int8 at ``RING_INT8_SHAPE`` bitwise against the int64 oracle, its
+    bytes moved equal to ``ring_reduce_scatter_bytes``;
+    ``quantized_psum`` of 8 x ``QPSUM_ELEMS`` floats within 8
+    quantization steps of the sum; ``pipeline_apply`` of qwen's 24
+    decoder layers over ``PIPE_STAGES`` stages and ``PIPE_MICRO``
+    microbatches bitwise equal to the fold of the same microbatches.
+    Returns the launches of all of them (the counted path), each case's
+    time and bytes."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import runtime, widesa_mm
+    from repro_torch.models import build_model
+    from repro_torch.models import transformer as TFM
+    from repro_torch.parallel import collectives as C
+    from repro_torch.parallel import mesh as pm
+    from repro_torch.parallel.mesh import P
+    from repro_torch.parallel.pipeline import pipeline_apply
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(33)
+    ring = pm.make_mesh((RING_MEMBERS,), ("tp",))
+    rows, total_launches = {}, None
+    total_variants = None
+
+    def tally(launches, variants):
+        nonlocal total_launches, total_variants
+        if total_launches is None:
+            total_launches = dict(launches)
+            total_variants = {k: dict(v) for k, v in variants.items()}
+            return
+        for k in launches:
+            total_launches[k] += launches[k]
+        for k, v in variants.items():
+            for kk in v:
+                total_variants[k][kk] += v[kk]
+
+    def run_ring(label, x, w):
+        pm.moved_clear()
+        xs = pm.shard(ring, x, P(None, "tp"))
+        ws = pm.shard(ring, w, P("tp", None))
+
+        def call():
+            return C.ring_reduce_scatter_matmul(ring, xs, ws, "tp")
+
+        out, launches, variants, _ = counted_run(torch, call)
+        tally(launches, variants)
+        got = pm.unshard(ring, out, P("tp", None), x.device)
+        chunk = got.shape[0] // RING_MEMBERS * got.shape[1] \
+            * got.element_size()
+        model = C.ring_reduce_scatter_bytes(chunk, RING_MEMBERS)
+        if pm.moved["ppermute"] != model or launches["widesa_mm"] \
+                != RING_MEMBERS:
+            fail(f"ring {label}: moved {pm.moved}, model {model}, launches "
+                 f"{launches}")
+        rows[label] = {"ms": time_ms(torch, call, reps=3, warmup=1),
+                       "bytes": model, "launches": launches,
+                       "variants": variants["widesa_mm"]}
+        return got
+
+    m, n, k = RING_SHAPE
+    for dname in ("bfloat16", "float32"):
+        dtype = getattr(torch, dname)
+        x = torch.randn(m, k, generator=gen, device="cuda").to(dtype)
+        w = torch.randn(k, n, generator=gen, device="cuda").to(dtype)
+        got = run_ring(dname, x, w)
+        tiles = runtime.gemm_tiles(gemm_plan("mm", (m, n, k), dtype), x,
+                                   w).tile
+
+        def flat_call():
+            return widesa_mm.matmul(x, w, tiles=tiles,
+                                    out_dtype=torch.float32)
+
+        flat = flat_call()
+        err = (got - flat).abs().max().item()
+        if got.dtype != torch.float32 or err > 1e-3:
+            fail(f"ring {dname}: {got.dtype}, max |err| {err} against the "
+                 "flat hand kernel")
+        rows[dname]["max_abs_err"] = err
+        rows[dname]["flat_ms"] = time_ms(torch, flat_call, reps=3, warmup=1)
+        del x, w, got, flat
+    m, n, k = RING_INT8_SHAPE
+    x = torch.randint(120, 128, (m, k), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    w = torch.randint(120, 128, (k, n), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    got = run_ring("int8", x, w)
+    oracle = (x.double() @ w.double()).to(torch.int64)
+    if got.dtype != torch.int32 or not torch.equal(got.to(torch.int64),
+                                                   oracle):
+        fail(f"ring int8: {got.dtype}, not the int64 oracle's")
+    rows["int8"]["max_abs_err"] = 0.0
+    del x, w, got, oracle
+    qmesh = pm.make_mesh((RING_MEMBERS,), ("dp",))
+    g = torch.randn(RING_MEMBERS, QPSUM_ELEMS, generator=gen,
+                    device="cuda") * 3
+    pm.moved_clear()
+    t0 = time.perf_counter()
+    out = C.quantized_psum(qmesh, pm.shard(qmesh, g, P("dp", None)), "dp",
+                           torch.Generator(device="cuda").manual_seed(1))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    got = pm.unshard(qmesh, out, P("dp", None), g.device)
+    scale = g.abs().max().item() / 127.0
+    err = (got - g.sum(0)).abs().max().item()
+    if err >= 8 * scale or not (got == got[0]).all():
+        fail(f"quantized_psum: max |err| {err} >= 8 x scale {scale}")
+    rows["quantized_psum"] = {"ms": ms, "max_abs_err": err,
+                              "steps": err / scale, "moved": dict(pm.moved)}
+    del g, out, got
+    cfg = get_config(ARCH)
+    params = build_model(cfg, "cuda").init(
+        torch.Generator(device="cuda").manual_seed(0))
+    x = torch.randn(PIPE_BATCH, MESH_PROMPT_LEN, cfg.d_model, generator=gen,
+                    device="cuda").to(getattr(torch, cfg.dtype))
+
+    def block(lp, h):
+        return TFM._block(lp, cfg, h, TFM._positions(h))[0]
+
+    pipe = pm.make_mesh((PIPE_STAGES,), ("pipe",))
+    pm.moved_clear()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        out, launches, variants, _ = counted_run(
+            torch, lambda: pipeline_apply(block, params["layers"], x,
+                                          mesh=pipe,
+                                          microbatches=PIPE_MICRO))
+    ms = (time.perf_counter() - t0) * 1e3
+    tally(launches, variants)
+    moved = dict(pm.moved)
+    with torch.no_grad():
+        folds = []
+        for mb in x.chunk(PIPE_MICRO):
+            for lp in params["layers"]:
+                mb = block(lp, mb)
+            folds.append(mb)
+        want = torch.cat(folds)
+    if not torch.equal(out, want):
+        fail(f"pipeline_apply: max |diff| "
+             f"{(out.float() - want.float()).abs().max().item()} from the "
+             "fold of the same microbatches")
+    ticks = PIPE_MICRO + PIPE_STAGES - 1
+    rows["pipeline"] = {"ms": ms, "moved": moved, "launches": launches,
+                        "ticks": ticks}
+    del params, x, out, want, folds
+    torch.cuda.empty_cache()
+    for label in ("bfloat16", "float32", "int8"):
+        r = rows[label]
+        print(f"mesh_collectives: ring_reduce_scatter_matmul "
+              f"{RING_SHAPE if label != 'int8' else RING_INT8_SHAPE} {label}"
+              f" over {RING_MEMBERS} members: {r['launches']['widesa_mm']} "
+              f"partials on B1 ({r['variants']}), max |err| "
+              f"{r['max_abs_err']:.3g} against the "
+              f"{'flat hand kernel' if label != 'int8' else 'int64 oracle'}, "
+              f"{r['bytes']} bytes moved (the ring's hops x chunk: "
+              f"ring_reduce_scatter_bytes), {r['ms']:.3f} ms (CUDA events"
+              + (f"; the flat kernel {r['flat_ms']:.3f} ms" if "flat_ms" in r
+                 else "") + ")", flush=True)
+    q = rows["quantized_psum"]
+    print(f"mesh_collectives: quantized_psum of {RING_MEMBERS} x "
+          f"{QPSUM_ELEMS} floats: max |err| {q['max_abs_err']:.4f} = "
+          f"{q['steps']:.2f} quantization steps (bound 8), moved "
+          f"{q['moved']} (a ring all-reduce of the int32 payload would move "
+          f"{C.ring_allreduce_bytes(QPSUM_ELEMS * 4, RING_MEMBERS)}), "
+          f"{q['ms']:.2f} ms", flush=True)
+    pr = rows["pipeline"]
+    print(f"mesh_collectives: pipeline_apply of {ARCH}'s {cfg.n_layers} "
+          f"layers over {PIPE_STAGES} stages, {PIPE_MICRO} microbatches of "
+          f"{PIPE_BATCH // PIPE_MICRO} x {MESH_PROMPT_LEN}: bitwise the fold "
+          f"of the same microbatches; {ticks} ticks of {PIPE_STAGES} stages "
+          f"x {cfg.n_layers // PIPE_STAGES} layers ({ticks * PIPE_STAGES} "
+          f"stage runs for {PIPE_MICRO * PIPE_STAGES} of work: the GPipe "
+          f"bubble), {pr['launches']['widesa_mm']} mm and "
+          f"{pr['launches']['bmm']} bmm launches, moved {pr['moved']}, "
+          f"{pr['ms']:.1f} ms; phase {time.perf_counter() - t_phase:.1f} s "
+          f"on {device_name} [{nvidia_smi()}]", flush=True)
+    partial = ("mm", (RING_SHAPE[0], RING_SHAPE[1],
+                      RING_SHAPE[2] // RING_MEMBERS))
+    return {"launches": total_launches, "variants": total_variants,
+            "rows": rows, "shapes": {partial + (d,): RING_MEMBERS
+                                     for d in ("bfloat16", "float32")}}
+
+
+def ring_int8_timing(torch) -> dict:
+    """The int8 ring partial (``RING_INT8_SHAPE`` over its members) on B1
+    against the plain version and ``torch._int_mm``."""
+    from repro_torch.kernels import ref
+
+    m, n, k = RING_INT8_SHAPE
+    k //= RING_MEMBERS
+    gen = torch.Generator(device="cuda").manual_seed(34)
+    a = torch.randint(-128, 128, (m, k), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    b = torch.randint(-128, 128, (k, n), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    fn, tiles = kernel_call("mm", (m, n, k), torch.int8, a, b)
+    kernel = ("gemm_tc_int_kernel" if tiles.tile.__class__.__name__
+              == "TcTile" else "gemm_kernel")
+    err, ok = max_error(torch, fn(a, b), ref.mm(a, b), torch.int32)
+    if not ok:
+        fail(f"ring int8 partial: max |err| {err}")
+    try:
+        lib = device_ms(torch, lambda: torch._int_mm(a, b))
+    except RuntimeError:
+        lib = None
+    bound, by = bound_ms("mm", (m, n, k), 1, 4, "int8")
+    # a profiler reading below the bound lost records: CUDA events stand
+    ms = device_ms(torch, lambda: fn(a, b))
+    if ms is None or ms < bound:
+        ms = time_ms(torch, lambda: fn(a, b))
+    row = {"kernel": kernel, "max_abs_err": err, "ms": ms,
+           "plain_ms": time_ms(torch, lambda: ref.mm(a, b), reps=5,
+                               warmup=1),
+           "library_ms": lib, "bound_ms": bound, "bound_by": by}
+    print(f"time mm{(m, n, k)} int8->int32 [ring partial, int8] {kernel}: "
+          f"device {fmt_ms(row['ms'])}, torch._int_mm {fmt_ms(lib)}, bound "
+          f"{bound:.4f} ms ({by}); plain {row['plain_ms']:.4f} ms",
+          flush=True)
+    return row
+
+
+def mesh_phase(torch, device_name: str) -> dict:
+    """Phase 12d: the mesh paths on ``MESH_DEVICES`` logical devices of
+    this card (``parallel.mesh.logical_devices``): ``mesh_moe_ep``,
+    ``mesh_moe_tp``, ``mesh_train`` and ``mesh_collectives``, each a path
+    of the kernels line; then ``MESH_SHAPES`` and the int8 ring partial
+    timed.  Every member computes on its hand kernels, one after another:
+    each time is the members' work serialized on one card plus their
+    copies, not a speed."""
+    from repro_torch.parallel import mesh as pm
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    paths = {}
+    with pm.logical_devices(MESH_DEVICES):
+        if pm.devices() != [torch.device("cuda", i % torch.cuda.device_count())
+                            for i in range(MESH_DEVICES)]:
+            fail(f"mesh: logical devices {pm.devices()}")
+        for label, fn in (("mesh_moe_ep", mesh_moe_ep),
+                          ("mesh_moe_tp", mesh_moe_tp),
+                          ("mesh_train", mesh_train),
+                          ("mesh_collectives", mesh_collectives)):
+            paths[label] = fn(torch, device_name)
+            torch.cuda.empty_cache()
+    rows = {}
+    for i, entry in enumerate(MESH_SHAPES):
+        (key, row), = gemm_timings(torch, (entry,), seed=35 + i).items()
+        rows[key + (entry[-1],)] = row
+    rows[("mm", "ring int8")] = ring_int8_timing(torch)
+    torch.cuda.empty_cache()
+    print(f"mesh: phase done in {time.perf_counter() - t0:.1f} s, allocated "
+          f"peak {gib(torch.cuda.max_memory_allocated())}, on {device_name} "
+          f"[{nvidia_smi()}]", flush=True)
+    return {"paths": paths, "rows": rows}
 
 
 #: element types of the mangled template arguments of the kernels the
@@ -7105,6 +7997,10 @@ def main(argv=None) -> int:
                     help="only the device, the build and the systolic "
                          "phase (the chip-level schedules on logical "
                          "meshes)")
+    ap.add_argument("--mesh", action="store_true",
+                    help="only the device, the GEMM build and the mesh "
+                         "phase (the MoE mesh paths, training and the "
+                         "collectives on logical meshes)")
     ap.add_argument("--src", help="with --conv2d-sweep or --fir-sweep: the "
                                   "src/ directory of another checkout of "
                                   "the port, whose kernel to time instead")
@@ -7135,7 +8031,7 @@ def main(argv=None) -> int:
     paths = build.build(("widesa_hpc",) if args.mttkrp_sweep
                         else ("widesa_mm",)
                         if args.tc_sweep or args.skinny_sweep or args.train
-                        or args.dense
+                        or args.dense or args.mesh
                         else ("widesa_mm", "widesa_hpc") if args.hier
                         else ("widesa_mm", "widesa_sp") if args.fft_sweep
                         else ("widesa_sp",)
@@ -7180,6 +8076,9 @@ def main(argv=None) -> int:
         return 0
     if args.systolic:
         systolic_phase(torch, name)
+        return 0
+    if args.mesh:
+        mesh_phase(torch, name)
         return 0
     if args.tile_sweep:
         t0 = time.perf_counter()
@@ -7255,6 +8154,9 @@ def main(argv=None) -> int:
     deepseek = deepseek_phase(torch, name)
     dense_paths.update(deepseek["paths"])
     torch.cuda.empty_cache()
+    mesh = mesh_phase(torch, name)
+    mesh_paths = mesh["paths"]
+    torch.cuda.empty_cache()
     train_paths = {phase[0]: train_phase(torch, name, *phase)
                    for phase in TRAIN_PHASES}
     torch.cuda.empty_cache()
@@ -7298,6 +8200,8 @@ def main(argv=None) -> int:
                             for path in dense_paths},
                          **{path: train_paths[path]["launches"][kname]
                             for path in train_paths},
+                         **{path: mesh_paths[path]["launches"][kname]
+                            for path in mesh_paths},
                          "recurrences": rec_launches[kname]},
             "max_abs_err": row["max_abs_err"],
             "ms": row["ms"], "plain_ms": row["plain_ms"],
@@ -7328,6 +8232,8 @@ def main(argv=None) -> int:
                    for path in dense_paths},
                 **{path: train_paths[path]["variants"][kname]
                    for path in train_paths},
+                **{path: mesh_paths[path]["variants"][kname]
+                   for path in mesh_paths},
                 "recurrences": rec_variants[kname]}
             keys = {"mttkrp": ("device_ms", "cuda_core_device_ms",
                                "library_device_ms", "cuda_core_bound_ms"),
@@ -7434,6 +8340,24 @@ def main(argv=None) -> int:
                 for label, k, shape, *_ in DEEPSEEK_SHAPES if k == kind}
             if deepseek_entry:
                 entry["deepseek"] = deepseek_entry
+            # the mesh paths' member GEMMs: each member's expert bmm under
+            # EP and TP, the ring's partials (its launches on the counted
+            # paths: every member's expert stack, each ring member's one)
+            mesh_entry = {
+                f"{k}{shape} {dname} [{label}]": {
+                    **{key: mesh["rows"][(k, shape, dname)][key] for key in (
+                        "kernel", "ms", "plain_ms", "library_ms",
+                        "bound_ms", "bound_by", "max_abs_err")},
+                    "launches": {path: mesh_paths[path]["shapes"].get(
+                        (k, shape, dname), 0) for path in mesh_paths}}
+                for label, k, shape, *_, dname in MESH_SHAPES if k == kind}
+            if kname == "widesa_mm":
+                m8, n8, k8 = RING_INT8_SHAPE
+                mesh_entry[f"mm{(m8, n8, k8 // RING_MEMBERS)} int8 [ring "
+                           "partial, int8]"] = {
+                    **mesh["rows"][("mm", "ring int8")],
+                    "launches": {"mesh_collectives": RING_MEMBERS}}
+            entry["mesh"] = mesh_entry
             # the backward GEMMs of the train paths, each with its launches
             # in one train step (every site of that shape, the remat
             # recompute's forward launches included)

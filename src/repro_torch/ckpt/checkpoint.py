@@ -12,7 +12,12 @@ written into ``step_<N>.tmp`` and the directory is renamed last, so a
 checkpoint exists completely or not at all; ``latest_step`` ignores
 ``.tmp`` directories.  ``restore_checkpoint`` rejects a leaf whose shape
 or dtype differs from the caller's and places each leaf on the caller's
-leaf's device.
+leaf's device, or with ``shardings`` (a tree of
+``parallel.sharding.NamedSharding`` of the same structure) on its
+sharding's mesh: the spec clamped to the leaf's shape by ``guard_spec``
+(so a checkpoint written under one mesh restores onto a smaller one),
+the whole tensor on the mesh's first device, where the single
+controller holds it.
 """
 
 from __future__ import annotations
@@ -90,18 +95,39 @@ def latest_step(directory: str) -> int | None:
     return steps[-1] if steps else None
 
 
-def restore_checkpoint(directory: str, step: int, like_tree):
+def _mesh_device(sharding, shape) -> torch.device:
+    """The device a leaf of ``shape`` restores to under ``sharding``
+    (module docstring); a spec naming an axis the mesh lacks raises."""
+    from repro_torch.parallel.sharding import guard_spec
+
+    mesh = sharding.mesh
+    try:
+        guard_spec(mesh, sharding.spec, shape)
+    except KeyError as e:
+        raise ValueError(f"spec {tuple(sharding.spec)} names an axis the "
+                         f"mesh {mesh} lacks: {e}") from None
+    return mesh.devices.flat[0]
+
+
+def restore_checkpoint(directory: str, step: int, like_tree,
+                       shardings=None):
     """Restore into the structure of ``like_tree``: every leaf's shape
-    and dtype must match, and it lands on that leaf's device."""
+    and dtype must match, and it lands on that leaf's device, or on its
+    sharding's mesh (module docstring)."""
     path = os.path.join(directory, f"step_{step:08d}")
     like = leaves(like_tree)
+    targets = (leaves(shardings) if shardings is not None
+               else [None] * len(like))
+    if len(targets) != len(like):
+        raise ValueError(f"{len(targets)} shardings for {len(like)} leaves")
     with open(os.path.join(path, "manifest.json")) as f:
         meta = json.load(f)
     if len(meta["leaves"]) != len(like):
         raise ValueError(f"checkpoint has {len(meta['leaves'])} leaves, "
                          f"expected {len(like)}")
     out = []
-    for i, (ref, info) in enumerate(zip(like, meta["leaves"])):
+    for i, (ref, info, sh) in enumerate(zip(like, meta["leaves"],
+                                            targets)):
         shape, dtype = tuple(info["shape"]), info["dtype"]
         if shape != tuple(ref.shape):
             raise ValueError(
@@ -113,7 +139,8 @@ def restore_checkpoint(directory: str, step: int, like_tree):
         t = torch.from_numpy(arr)
         if t.dtype != ref.dtype:  # raw bytes of a non-numpy dtype
             t = t.view(ref.dtype).reshape(shape)
-        out.append(t.to(ref.device))
+        out.append(t.to(ref.device if sh is None
+                        else _mesh_device(sh, shape)))
     return unflatten(like_tree, out)
 
 

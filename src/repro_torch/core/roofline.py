@@ -7,8 +7,8 @@ the copied planner's cost model, kept as the reference has them so that
 the two packages rank outer splits alike; they are not a rate of any
 card.  The reference module's roofline analysis of compiled XLA
 artifacts (``collective_bytes``, ``Roofline``, ``analyze``,
-``format_table`` and their peak constants) goes with the dry run, ROADMAP
-A9.
+``format_table`` and their peak constants) goes with the dry run's HLO
+analysis, ROADMAP A9.3.
 """
 
 from __future__ import annotations

@@ -27,6 +27,7 @@ same by form (``fused`` / ``composition``).
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
@@ -38,26 +39,58 @@ launches = 0
 variants = {"fused": 0, "composition": 0}
 
 
-@functools.lru_cache(maxsize=16)
-def dft_matrix(n: int, dtype=np.float32) -> tuple[np.ndarray, np.ndarray]:
-    """Real/imag planes of the n-point DFT matrix."""
+#: the largest transform whose DFT planes stay cached, on the host and on
+#: each device (a pair of 1024-point planes is 8 MiB, so the 16 entries
+#: of either cache hold at most 128 MiB); a larger transform's planes are
+#: built on its device for the call and freed after it, as the reference
+#: builds every transform's (an 8192-point pair is 512 MiB)
+DFT_CACHE_MAX_N = 1024
+
+
+def _dft_matrix(n: int, dtype=np.float32) -> tuple[np.ndarray, np.ndarray]:
     k = np.arange(n)
     ang = -2.0 * np.pi * np.outer(k, k) / n
     return np.cos(ang).astype(dtype), np.sin(ang).astype(dtype)
 
 
-@functools.lru_cache(maxsize=16)
-def _dft_planes(n: int, device: torch.device, padded: bool = False):
-    """``dft_matrix(n)`` on ``device``, copied there once: contiguous, or
-    with ``padded`` in rows of whole 16-byte units (zeros past n), as the
-    fused kernel's 16-byte copies read them."""
+_dft_matrix_cached = functools.lru_cache(maxsize=16)(_dft_matrix)
+
+
+def dft_matrix(n: int, dtype=np.float32) -> tuple[np.ndarray, np.ndarray]:
+    """Real/imag planes of the n-point DFT matrix (cached up to
+    ``DFT_CACHE_MAX_N`` points)."""
+    build_fn = _dft_matrix_cached if n <= DFT_CACHE_MAX_N else _dft_matrix
+    return build_fn(n, dtype)
+
+
+def _make_planes(n: int, device: torch.device, padded: bool = False):
     pitch = -(-n // 4) * 4 if padded else n
+    if n <= DFT_CACHE_MAX_N:
+        mats = [torch.from_numpy(m) for m in dft_matrix(n)]
+    else:
+        # ``dft_matrix``'s float64 arithmetic, on the device: the host's
+        # cos/sin of n^2 angles take seconds at 8192 points
+        k = torch.arange(n, dtype=torch.float64, device=device)
+        ang = (-2.0 * math.pi) * torch.outer(k, k) / n
+        mats = [torch.cos(ang), torch.sin(ang)]
     planes = []
-    for m in dft_matrix(n):
+    for m in mats:
         plane = torch.zeros((n, pitch), dtype=torch.float32, device=device)
-        plane[:, :n] = torch.from_numpy(m)
+        plane[:, :n] = m
         planes.append(plane)
     return tuple(planes)
+
+
+_planes_cached = functools.lru_cache(maxsize=16)(_make_planes)
+
+
+def _dft_planes(n: int, device: torch.device, padded: bool = False):
+    """``dft_matrix(n)`` on ``device`` (copied there once up to
+    ``DFT_CACHE_MAX_N`` points, per call above): contiguous, or with
+    ``padded`` in rows of whole 16-byte units (zeros past n), as the
+    fused kernel's 16-byte copies read them."""
+    build_fn = _planes_cached if n <= DFT_CACHE_MAX_N else _make_planes
+    return build_fn(n, device, padded)
 
 
 def _cmul_mm(ar, ai, br, bi, *, tiles):

@@ -6,9 +6,12 @@
 The reference's flags (``repro.launch.train``) plus ``--device`` (default
 ``cuda``).  ``--smoke`` takes the reduced config and a 64 x 4 shape, so
 the whole driver (checkpoints, resume, the straggler watchdog) runs on
-the CPU.  The dense and encdec families train; ``--mesh`` other than
-``none`` raises (meshes are ROADMAP A9).  The checkpoint directory
-defaults to ``widesa_ckpt`` under the temporary directory.
+the CPU.  Every ported family trains; ``--mesh single|multi`` trains
+under ``make_production_mesh`` (16x16 or 2x16x16 logical devices: run it
+under ``parallel.mesh.logical_devices(256)`` or ``(512)``, else the mesh
+raises for want of devices, as the reference's does on fewer).  The
+checkpoint directory defaults to ``widesa_ckpt`` under the temporary
+directory.
 """
 
 from __future__ import annotations
@@ -36,20 +39,21 @@ def main(argv=None):
     from repro_torch.configs.base import SHAPES, ShapeSpec
     from repro_torch.train import TrainConfig, Trainer
 
-    if args.mesh != "none":
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: the port trains on one device (meshes are "
-            "ROADMAP A9)")
     if args.smoke:
         cfg = get_smoke_config(args.arch)
         shape = ShapeSpec("smoke", "train", 64, 4)
     else:
         cfg = get_config(args.arch)
         shape = SHAPES[args.shape]
+    mesh = None
+    multi_pod = args.mesh == "multi"
+    if args.mesh != "none":
+        from repro_torch.launch.mesh import make_production_mesh
+        mesh = make_production_mesh(multi_pod=multi_pod)
     tcfg = TrainConfig(base_lr=args.lr, total_steps=max(args.steps, 1),
                        ckpt_every=max(args.steps // 4, 1))
     trainer = Trainer(cfg, shape, ckpt_dir=args.ckpt_dir, tcfg=tcfg,
-                      device=args.device)
+                      mesh=mesh, multi_pod=multi_pod, device=args.device)
     trainer.install_signal_handlers()
     trainer.run(args.steps, resume=True)
     print("done")

@@ -112,6 +112,33 @@ def init_params(cfg, generator: torch.Generator, device="cuda"):
     }
 
 
+def param_specs(cfg) -> dict:
+    """``init_params``' tree of logical axes (``enc_layers`` and
+    ``dec_layers`` one entry a layer)."""
+    def attn_block(cross: bool) -> dict:
+        s = {"ln1": L.norm_specs(cfg), "attn": L.attention_specs(cfg),
+             "ln2": L.norm_specs(cfg), "mlp": L.mlp_specs(cfg)}
+        if cross:
+            s |= {"ln_x": L.norm_specs(cfg), "xattn": L.attention_specs(cfg)}
+        return s
+
+    return {
+        "enc_layers": [attn_block(False) for _ in range(cfg.n_enc_layers)],
+        "dec_layers": [attn_block(True) for _ in range(cfg.n_layers)],
+        "embed": ("vocab", "d_model"),
+        "pos_dec": (None, "d_model"),
+        "ln_enc": L.norm_specs(cfg),
+        "ln_f": L.norm_specs(cfg),
+    }
+
+
+def cache_specs(cfg) -> dict:
+    """``init_cache``'s tree of logical axes."""
+    kv = ("layers", "batch", None, "kv_heads", None)
+    return {"k": kv, "v": kv, "enc_k": kv, "enc_v": kv,
+            "enc_len": ("batch",), "pos": ("batch",)}
+
+
 # ---------------------------------------------------------------------------
 # cross-attention
 # ---------------------------------------------------------------------------

@@ -98,6 +98,39 @@ def init_params(cfg, generator: torch.Generator, device="cuda") -> dict:
     return p
 
 
+def param_specs(cfg) -> dict:
+    """``init_params``' tree of logical axes (``trunk`` one entry a
+    layer)."""
+    s = {
+        "embed": ("vocab", "d_model"),
+        "trunk": [{"ln": L.norm_specs(cfg), "mamba": SSM.mamba_specs(cfg)}
+                  for _ in range(cfg.n_layers)],
+        "ln_f": L.norm_specs(cfg),
+        "lm_head": ("d_model", "vocab"),
+    }
+    if n_attn_apps(cfg):
+        s["shared"] = {
+            "ln1": L.norm_specs(cfg),
+            "attn": L.attention_specs(cfg),
+            "ln2": L.norm_specs(cfg),
+            "mlp": L.mlp_specs(cfg),
+        }
+    return s
+
+
+def cache_specs(cfg) -> dict:
+    """``init_cache``'s tree of logical axes."""
+    s = {
+        "conv": ("layers", "batch", None, "ssm_heads"),
+        "ssm": ("layers", "batch", "ssm_heads", None, None),
+        "pos": ("batch",),
+    }
+    if n_attn_apps(cfg):
+        s["k"] = ("layers", "batch", None, "kv_heads", None)
+        s["v"] = ("layers", "batch", None, "kv_heads", None)
+    return s
+
+
 def _shared_prefill(sp, cfg, x, positions):
     """The shared block over a whole sequence: (x', k, v).  Its
     projections and attention plan as the reference's; the out

@@ -91,6 +91,40 @@ def init_glu_mlp(cfg, generator, device):
             "wd": dense_init(generator, ff, d, dt, device)}
 
 
+def attention_specs(cfg) -> dict:
+    """GQA attention's logical axes (``init_attention``'s tree)."""
+    s = {
+        "wq": ("d_model", "heads"),
+        "wk": ("d_model", "kv_heads"),
+        "wv": ("d_model", "kv_heads"),
+        "wo": ("heads", "d_model"),
+    }
+    if cfg.qkv_bias:
+        s |= {"bq": ("heads",), "bk": ("kv_heads",), "bv": ("kv_heads",)}
+    if cfg.qk_norm:
+        s |= {"q_norm": (None,), "k_norm": (None,)}
+    return s
+
+
+def mlp_specs(cfg) -> dict:
+    """The MLP's logical axes: the GLU's, or the biased pair's."""
+    s = {
+        "wu": ("d_model", "ff"),
+        "wd": ("ff", "d_model"),
+    }
+    if cfg.mlp_glu:
+        s["wg"] = ("d_model", "ff")
+    else:
+        s |= {"bu": ("ff",), "bd": (None,)}
+    return s
+
+
+def norm_specs(cfg) -> dict:
+    if cfg.norm == "layer":
+        return {"w": (None,), "b": (None,)}
+    return {"w": (None,)}
+
+
 # ---------------------------------------------------------------------------
 # norms
 # ---------------------------------------------------------------------------

@@ -56,6 +56,24 @@ def init_mla(cfg, generator: torch.Generator, device="cuda") -> dict:
     return p
 
 
+def mla_specs(cfg) -> dict:
+    """MLA's logical axes (``init_mla``'s tree)."""
+    s = {
+        "wdkv": ("d_model", None),
+        "kv_norm": (None,),
+        "wkr": ("d_model", None),
+        "wuk": (None, "heads"),
+        "wuv": (None, "heads"),
+        "wo": ("heads", "d_model"),
+    }
+    if cfg.q_lora_rank:
+        s |= {"wdq": ("d_model", None), "q_norm": (None,),
+              "wuq": (None, "heads")}
+    else:
+        s |= {"wq": ("d_model", "heads")}
+    return s
+
+
 def _queries(p, cfg, x, positions):
     """x [B, S, d] -> (qn [B, S, H, nope], qr [B, S, H, rope] roped)."""
     b, s, _ = x.shape

@@ -42,6 +42,12 @@ cross K/V, and ``stream_prefill(p, enc_k, enc_v, enc_len, tokens,
 max_seq)`` is the decoder prompt pass against a partially filled encoder
 cache.
 
+``param_logical()``, ``cache_logical()`` and ``batch_logical()`` are the
+logical axes of ``init``'s parameters, ``init_cache``'s cache and a
+training batch, trees of the same structure with tuples of axis names
+at the leaves (``parallel/sharding.py`` resolves them against a mesh's
+rules); the parameters' follow the port's per-layer lists.
+
 ``loss`` is the reference's training loss of every ported family (the
 masked mean next-token cross-entropy: ``transformer.loss_fn``, with the
 MoE family's ``1e-2`` load-balance term and a vlm's text rows only,
@@ -74,6 +80,10 @@ class ModelAPI:
     init_cache: Callable
     # training loss
     loss: Callable | None = None
+    # logical axes of the parameters, the cache and a training batch
+    param_logical: Callable | None = None
+    cache_logical: Callable | None = None
+    batch_logical: Callable | None = None
     # block-paged serving (continuous batching)
     paged_init: Callable | None = None
     paged_decode: Callable | None = None
@@ -83,6 +93,15 @@ class ModelAPI:
     enc_step: Callable | None = None
     enc_kv: Callable | None = None
     stream_prefill: Callable | None = None
+
+
+def _token_batch_logical(cfg) -> dict:
+    base = {"tokens": ("batch", None), "labels": ("batch", None)}
+    if cfg.family == "vlm":
+        base["extra_embeds"] = ("batch", None, None)
+    if cfg.family == "encdec":
+        base["frames"] = ("batch", None, None)
+    return base
 
 
 def build_model(cfg: ModelConfig, device="cuda") -> ModelAPI:
@@ -107,6 +126,9 @@ def build_model(cfg: ModelConfig, device="cuda") -> ModelAPI:
         device=device,
         init=lambda generator: TFM.init_params(cfg, generator, device),
         loss=lambda p, batch: TFM.loss_fn(p, cfg, batch),
+        param_logical=lambda: TFM.param_specs(cfg),
+        cache_logical=lambda: TFM.cache_specs(cfg),
+        batch_logical=lambda: _token_batch_logical(cfg),
         prefill=prefill,
         decode=lambda p, cache, tokens: TFM.decode_step(p, cfg, cache,
                                                         tokens),
@@ -136,6 +158,9 @@ def _hybrid_api(cfg: ModelConfig, device: torch.device,
         device=device,
         init=lambda generator: HYBRID.init_params(cfg, generator, device),
         loss=lambda p, batch: HYBRID.loss_fn(p, cfg, batch),
+        param_logical=lambda: HYBRID.param_specs(cfg),
+        cache_logical=lambda: HYBRID.cache_specs(cfg),
+        batch_logical=lambda: _token_batch_logical(cfg),
         prefill=prefill,
         decode=lambda p, cache, tokens: HYBRID.decode_step(p, cfg, cache,
                                                            tokens),
@@ -161,6 +186,9 @@ def _encdec_api(cfg: ModelConfig, device: torch.device,
         device=device,
         init=lambda generator: ENCDEC.init_params(cfg, generator, device),
         loss=lambda p, batch: ENCDEC.loss_fn(p, cfg, batch),
+        param_logical=lambda: ENCDEC.param_specs(cfg),
+        cache_logical=lambda: ENCDEC.cache_specs(cfg),
+        batch_logical=lambda: _token_batch_logical(cfg),
         prefill=prefill,
         decode=lambda p, cache, tokens: ENCDEC.decode_step(p, cfg, cache,
                                                            tokens),

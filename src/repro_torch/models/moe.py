@@ -30,9 +30,28 @@ Two things differ from the reference's form, not from its result:
 
 Training adds the reference's Switch-style load-balance term
 (``load_balance_loss``: E · Σ_e f_e · P̄_e over the flattened
-assignments) where the loss asks for it (``with_aux``); serving computes
-none.  The reference's mesh paths (``_moe_shard_map``,
-``moe_ep_alltoall``) are not ported.
+assignments) where the loss asks for it (``with_aux``); serving on one
+device computes none.
+
+Under a mesh context (``parallel/sharding.py``) ``apply_moe`` takes the
+reference's mesh paths, on the single-controller mesh of
+``parallel/mesh.py`` (every member's work issued in turn):
+
+* TP-MoE (``_moe_shard_map``): tokens split over ``batch``, experts over
+  ``experts``; each member routes its tokens over all experts and keeps
+  the assignments to its own (``moe_ffn_tokens(local_experts=(start,
+  count))``: the others dropped, the slots re-based), a ``psum`` of y
+  over the expert axis and a ``pmean`` of the load-balance term;
+* EP all-to-all (``parallel.collectives.moe_ep_alltoall``, where the
+  config sets ``moe_ep``): tokens split over ``batch`` and their
+  sequence over ``experts``, two ``all_to_all`` of the dispatched rows.
+
+Each member's load-balance term is its own tokens' and the members
+take its mean: the reference's value, which is not the global batch's
+term (``parallel/mesh.py``'s ``unshard`` gives its gradient as the
+reference's transpose does).  Capacity is each member's, so the mesh
+paths drop other assignments than one device does unless nothing
+drops.
 """
 
 from __future__ import annotations
@@ -42,6 +61,9 @@ import math
 import torch
 
 from repro_torch.kernels.planned import planned_bmm, planned_dense
+from repro_torch.parallel import mesh as pm
+from repro_torch.parallel.mesh import P
+from repro_torch.parallel.sharding import current_mesh
 
 from . import layers as L
 
@@ -69,6 +91,23 @@ def init_moe(cfg, generator: torch.Generator, device="cuda") -> dict:
         p["shared_wu"] = normal((d, sf), 1.0 / math.sqrt(d))
         p["shared_wd"] = normal((sf, d), 1.0 / math.sqrt(sf))
     return p
+
+
+def moe_specs(cfg) -> dict:
+    """The block's logical axes (``init_moe``'s tree)."""
+    s = {
+        "router": ("d_model", None),
+        "wg": ("experts", "d_model", None),
+        "wu": ("experts", "d_model", None),
+        "wd": ("experts", None, "d_model"),
+    }
+    if cfg.moe_shared_experts:
+        s |= {
+            "shared_wg": ("d_model", "ff"),
+            "shared_wu": ("d_model", "ff"),
+            "shared_wd": ("ff", "d_model"),
+        }
+    return s
 
 
 def capacity_of(cfg, t: int) -> int:
@@ -123,13 +162,14 @@ def dispatch_indices(cfg, ids, capacity: int):
     return order, slot, keep, order // k
 
 
-def dispatch(x_flat, slot, token, n_exp: int, capacity: int):
-    """The expert buffer [E, C, d]: slot c of expert e holds the row of the
-    token whose assignment ranks c-th at e (sorted position ``first[e] +
-    c``), zeros where fewer than c + 1 came.  A gather: every slot reads
-    one row, so no two writes meet."""
+def dispatch(x_flat, slot, token, n_exp: int, capacity: int,
+             start: int = 0):
+    """The buffer [E, C, d] of experts ``start`` to ``start + E``: slot c
+    of expert e holds the row of the token whose assignment ranks c-th at
+    e (sorted position ``first[e] + c``), zeros where fewer than c + 1
+    came.  A gather: every slot reads one row, so no two writes meet."""
     experts = slot // capacity  # each sorted assignment's expert
-    bounds = torch.arange(n_exp, device=slot.device)
+    bounds = torch.arange(start, start + n_exp, device=slot.device)
     first = torch.searchsorted(experts, bounds, side="left")
     last = torch.searchsorted(experts, bounds, side="right")
     pos = first[:, None] + torch.arange(capacity, device=slot.device)
@@ -162,34 +202,84 @@ def combine(out_buf, weights, order, slot, keep):
     return y
 
 
-def moe_ffn_tokens(cfg, p, x_flat, with_aux: bool = False):
+def moe_ffn_tokens(cfg, p, x_flat, with_aux: bool = False, *,
+                   local_experts: tuple[int, int] | None = None):
     """Route, dispatch, expert FFN and combine for a flat token batch
     x_flat [T, d] -> [T, d]; with ``with_aux``, (y, the batch's
-    load-balance term)."""
+    load-balance term).  ``local_experts`` (start, count): ``p``'s expert
+    weights are those experts' only, the assignments to any other are
+    dropped and the slots re-based, so y holds the shard's contribution
+    (the TP-MoE path sums the shards')."""
     t, d = x_flat.shape
-    e = cfg.moe_num_experts
     capacity = capacity_of(cfg, t)
     logits = planned_dense(x_flat.float(), p["router"], site="moe.router")
     weights, ids, probs = route(cfg, logits)
     order, slot, keep, token = dispatch_indices(cfg, ids, capacity)
-    buf = dispatch(x_flat, slot, token, e, capacity)
+    start, n_exp = local_experts or (0, cfg.moe_num_experts)
+    buf = dispatch(x_flat, slot, token, n_exp, capacity, start)
+    if local_experts is not None:
+        expert = slot // capacity
+        keep = keep & (expert >= start) & (expert < start + n_exp)
+        slot = (slot - start * capacity).clamp(0, n_exp * capacity - 1)
     out = expert_ffn(cfg, p["wg"], p["wu"], p["wd"], buf)
-    y = combine(out.reshape(e * capacity, d), weights, order, slot, keep)
+    y = combine(out.reshape(n_exp * capacity, d), weights, order, slot, keep)
     if with_aux:
         return y, load_balance_loss(cfg, probs, ids)
     return y
 
 
+def _moe_shard_map(p, cfg, x, ctx):
+    """TP-MoE on the context's mesh: tokens split over the batch axis and
+    replicated over the expert axis, each member's experts' contribution
+    from ``moe_ffn_tokens(local_experts=...)``, a ``psum`` of y and a
+    ``pmean`` of the load-balance term over the expert axis.  Returns
+    (y [B, S, d], aux)."""
+    mesh = ctx.mesh
+    exp_axis = ctx.rules.get("experts", "model")
+    batch_axis = ctx.rules.get("batch", "data")
+    n_exp_shards = mesh.shape[exp_axis] if exp_axis in mesh.shape else 1
+    e_loc = cfg.moe_num_experts // n_exp_shards
+    xs = pm.shard(mesh, x, P(batch_axis, None, None))
+    router = pm.shard(mesh, p["router"], P(None, None))
+    wg, wu, wd = (pm.shard(mesh, p[k], P(exp_axis, None, None))
+                  for k in ("wg", "wu", "wd"))
+
+    def local(member, x_loc, r, g, u, dn):
+        b_loc, s, d = x_loc.shape
+        shard = pm.axis_index(mesh, member, exp_axis)
+        y, aux = moe_ffn_tokens(
+            cfg, {"router": r, "wg": g, "wu": u, "wd": dn},
+            x_loc.reshape(b_loc * s, d), True,
+            local_experts=(shard * e_loc, e_loc))
+        return y.reshape(b_loc, s, d), aux
+
+    y, aux = pm.map_members(mesh, local, xs, router, wg, wu, wd)
+    y = pm.psum(mesh, y, exp_axis)
+    aux = pm.pmean(mesh, aux, exp_axis)
+    return (pm.unshard(mesh, y, P(batch_axis, None, None), x.device),
+            pm.unshard(mesh, aux, P(), x.device))
+
+
 def apply_moe(p, cfg, x, with_aux: bool = False):
-    """MoE forward on one device: x [B, S, d] -> [B, S, d], every B·S
-    token routed together, plus the shared experts' GLU
-    (``moe.shared_gate``/``up``/``down``) when the config has them; with
-    ``with_aux``, (y, the load-balance term)."""
+    """MoE forward: x [B, S, d] -> [B, S, d], plus the shared experts' GLU
+    (``moe.shared_gate``/``up``/``down``) over every token when the
+    config has them; with ``with_aux``, (y, the load-balance term).
+    Under a mesh context the EP all-to-all path runs where the config
+    sets ``moe_ep``, else the TP-MoE path; on one device every B·S token
+    is routed together (module docstring)."""
     b, s, d = x.shape
-    y = moe_ffn_tokens(cfg, p, x.reshape(b * s, d), with_aux)
-    if with_aux:
-        y, aux = y
-    y = y.reshape(b, s, d)
+    ctx = current_mesh()
+    if ctx is not None and ctx.mesh is not None:
+        if cfg.moe_ep:
+            from repro_torch.parallel.collectives import moe_ep_alltoall
+            y, aux = moe_ep_alltoall(cfg, p, x, ctx)
+        else:
+            y, aux = _moe_shard_map(p, cfg, x, ctx)
+    else:
+        y = moe_ffn_tokens(cfg, p, x.reshape(b * s, d), with_aux)
+        if with_aux:
+            y, aux = y
+        y = y.reshape(b, s, d)
     if cfg.moe_shared_experts:
         act = L.activation(cfg)
         h = act(planned_dense(x, p["shared_wg"], site="moe.shared_gate")) \

@@ -60,6 +60,27 @@ def init_mamba(cfg, generator: torch.Generator, device="cuda") -> dict:
     return p
 
 
+def mamba_specs(cfg) -> dict:
+    """The Mamba2 block's logical axes (``init_mamba``'s tree)."""
+    del cfg
+    return {
+        "z_proj": ("d_model", "ssm_heads"),
+        "x_proj": ("d_model", "ssm_heads"),
+        "b_proj": ("d_model", None),
+        "c_proj": ("d_model", None),
+        "dt_proj": ("d_model", "ssm_heads"),
+        "conv_x": (None, "ssm_heads"),
+        "conv_bx": ("ssm_heads",),
+        "conv_bc": (None, None),
+        "conv_bc_bias": (None,),
+        "A_log": ("ssm_heads",),
+        "D": ("ssm_heads",),
+        "dt_bias": ("ssm_heads",),
+        "norm": ("ssm_heads",),
+        "out_proj": ("ssm_heads", "d_model"),
+    }
+
+
 def softplus(x):
     """``jax.nn.softplus``: log(1 + e^x) as ``logaddexp(x, 0)``, with no
     threshold (``F.softplus`` returns x itself above 20)."""

@@ -45,6 +45,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.kernels.planned import planned_dense, planned_executing
+from repro_torch.parallel.sharding import carry_context
 
 from . import layers as L
 from . import mla as MLA
@@ -117,6 +118,50 @@ def init_params(cfg, generator: torch.Generator, device="cuda"):
         p["patch_proj"] = L.dense_init(generator, cfg.d_model, cfg.d_model,
                                        dt, device)
     return p
+
+
+def layer_specs(cfg, *, moe: bool) -> dict:
+    """One layer's logical axes: its attention's (GQA or MLA), its norms'
+    and its MLP's or MoE block's."""
+    return {
+        "ln1": L.norm_specs(cfg),
+        "attn": MLA.mla_specs(cfg) if cfg.use_mla else L.attention_specs(cfg),
+        "ln2": L.norm_specs(cfg),
+        **({"moe": MOE.moe_specs(cfg)} if moe else {"mlp": L.mlp_specs(cfg)}),
+    }
+
+
+def param_specs(cfg) -> dict:
+    """``init_params``' tree of logical axes: ``layers`` one entry a
+    layer (the reference's stacked groups carry a leading ``layers``
+    axis instead)."""
+    n_dense, _ = layer_split(cfg)
+    s = {
+        "embed": ("vocab", "d_model"),
+        "ln_f": L.norm_specs(cfg),
+        "layers": [layer_specs(cfg, moe=i >= n_dense)
+                   for i in range(cfg.n_layers)],
+    }
+    if not cfg.tie_embeddings:
+        s["lm_head"] = ("d_model", "vocab")
+    if cfg.vlm_patches:
+        s["patch_proj"] = ("d_model", None)
+    return s
+
+
+def cache_specs(cfg) -> dict:
+    """``init_cache``'s tree of logical axes."""
+    if cfg.use_mla:
+        return {
+            "ckv": ("layers", "batch", None, None),
+            "kr": ("layers", "batch", None, None),
+            "pos": ("batch",),
+        }
+    return {
+        "k": ("layers", "batch", None, "kv_heads", None),
+        "v": ("layers", "batch", None, "kv_heads", None),
+        "pos": ("batch",),
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -202,9 +247,12 @@ def checkpointed(mode, fn, *args):
     """``fn(*args)``, under ``torch.utils.checkpoint`` for ``mode`` (the
     reference's ``_maybe_remat``): "full" recomputes everything in the
     backward, "dots" saves the unplanned products without batch
-    dimensions (``_dots_policy``), None runs ``fn`` plainly."""
+    dimensions (``_dots_policy``), None runs ``fn`` plainly.  The
+    recomputation runs under the forward's mesh context
+    (``sharding.carry_context``)."""
     if mode is None:
         return fn(*args)
+    fn = carry_context(fn)
     if mode == "dots":
         return checkpoint(fn, *args, use_reentrant=False,
                           context_fn=_dots_contexts)

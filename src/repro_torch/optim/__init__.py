@@ -4,9 +4,10 @@ from .adamw import (
     adamw_update,
     cosine_schedule,
     global_norm,
+    opt_state_logical,
 )
 
 __all__ = [
     "AdamWState", "adamw_init", "adamw_update", "cosine_schedule",
-    "global_norm",
+    "global_norm", "opt_state_logical",
 ]

@@ -39,6 +39,12 @@ def adamw_init(params) -> AdamWState:
                                         device=device))
 
 
+def opt_state_logical(param_logical) -> AdamWState:
+    """The moments' logical axes, their parameters' (``count`` a
+    scalar)."""
+    return AdamWState(m=param_logical, v=param_logical, count=())
+
+
 @torch.no_grad()
 def global_norm(tree) -> torch.Tensor:
     sums = [torch.sum(torch.square(x.float())) for x in leaves(tree)]

@@ -25,6 +25,15 @@ JAX's single controller does:
   * ``all_gather(mesh, blocks, axis, dim, tiled=True)`` gives every
     member the blocks of its ``axis`` group joined along ``dim``
     (stacked on a new ``dim`` with ``tiled=False``).
+  * ``psum`` / ``pmax`` / ``pmean(mesh, blocks, axes)`` give every member
+    its ``axes`` group's sum (added in axis order), elementwise maximum or
+    mean; ``all_to_all(mesh, blocks, axis, split_axis, concat_axis,
+    tiled=True)`` splits each member's block into one chunk per member of
+    its ``axis`` group along ``split_axis`` and gives member j every
+    member's j-th chunk, joined along ``concat_axis`` in axis order
+    (``tiled=False``: the split dimension, of the group's width, is
+    removed and the chunks stacked on a new ``concat_axis``), as
+    ``jax.lax`` has them.
   * ``map_members(mesh, fn, *blocks)`` runs ``fn(member, *its blocks)``
     member after member; ``axis_index(mesh, member, axis)`` is
     ``jax.lax.axis_index``.
@@ -36,8 +45,20 @@ collective midway, so every collective here takes all members' blocks
 at once.
 
 ``moved`` counts the bytes the collectives carried between two members
-(a member's copy to itself moves nothing), by collective; the chip smoke
-holds them to ``parallel/collectives.py``'s byte models.
+(a member's copy to itself moves nothing), by collective (``pmean`` under
+``psum``); the chip smoke holds them to ``parallel/collectives.py``'s
+byte models.
+
+Everything here is plain tensor operations (slices, copies, adds,
+concatenations), so autograd runs through a mesh program: ``shard``'s
+blocks pass their gradients back into the global tensor (a replicated
+axis's copies summed), and a collective's into the blocks it read.
+``unshard`` returns a replicated axis's first member's block, and its
+gradient goes to every member of that axis in equal shares, as the
+transpose of ``shard_map`` with unchecked ``out_specs`` divides an
+unmentioned axis's cotangent: a value the members disagree on (a MoE
+block's per-shard load-balance term) then gets the gradient of their
+mean.
 
 The logical device count is the counterpart of XLA's forced host device
 count: the number of devices ``devices()`` and ``local_device_count()``
@@ -62,7 +83,8 @@ import torch
 _LOGICAL: int | None = None
 
 #: bytes carried between two members, by collective (module docstring)
-moved = {"ppermute": 0, "all_gather": 0}
+moved = {"ppermute": 0, "all_gather": 0, "psum": 0, "pmax": 0,
+         "all_to_all": 0}
 
 
 def moved_clear() -> None:
@@ -239,6 +261,31 @@ def shard(mesh: Mesh, x: torch.Tensor, spec) -> np.ndarray:
     return out
 
 
+def _replicas(mesh: Mesh, member, named: set) -> list:
+    """The members that differ from ``member`` on unnamed axes only."""
+    free = [pos for pos, name in enumerate(mesh.axis_names)
+            if name not in named]
+    out = []
+    for idx in np.ndindex(*(mesh.devices.shape[pos] for pos in free)):
+        other = list(member)
+        for pos, i in zip(free, idx):
+            other[pos] = i
+        out.append(tuple(other))
+    return out
+
+
+def _first_of(blocks: list, device: torch.device) -> torch.Tensor:
+    """The first of replicated ``blocks``: its value, and with autograd
+    recording, the gradient split evenly over all of them (module
+    docstring)."""
+    first = blocks[0]
+    if len(blocks) == 1 or not torch.is_grad_enabled() or not any(
+            b.requires_grad for b in blocks):
+        return first
+    mean = sum(_copy_to(b, device) for b in blocks) / len(blocks)
+    return _copy_to(first.detach(), device) + (mean - mean.detach())
+
+
 def unshard(mesh: Mesh, blocks: np.ndarray, spec,
             device: torch.device) -> torch.Tensor:
     """The global tensor of ``blocks`` under ``spec`` on ``device``."""
@@ -252,7 +299,9 @@ def unshard(mesh: Mesh, blocks: np.ndarray, spec,
         if any(member[pos] for pos, name in enumerate(mesh.axis_names)
                if name not in named):
             continue  # a replicated axis: its first member's block
-        out[_slices(mesh, member, spec, shape)].copy_(blocks[member])
+        block = _first_of([blocks[m] for m in _replicas(mesh, member, named)],
+                          device)
+        out[_slices(mesh, member, spec, shape)].copy_(block)
     return out
 
 
@@ -321,4 +370,80 @@ def all_gather(mesh: Mesh, blocks: np.ndarray, axis: str, dim: int,
             parts.append(part)
         out[member] = (torch.cat(parts, dim=dim) if tiled
                        else torch.stack(parts, dim=dim))
+    return out
+
+
+def _group(mesh: Mesh, blocks: np.ndarray, member, axes, key: str) -> list:
+    """``member``'s ``axes`` group's blocks in axis order, each on the
+    member's device (those of other members copied, counted under
+    ``key``)."""
+    dev = mesh.device(member)
+    parts = []
+    for i in range(_width(mesh, axes)):
+        sender = _with_index(mesh, member, axes, i)
+        part = blocks[sender]
+        if sender != member:
+            part = _copy_to(part, dev)
+            moved[key] += part.numel() * part.element_size()
+        parts.append(part)
+    return parts
+
+
+def _reduce(mesh: Mesh, blocks: np.ndarray, axes, key: str,
+            combine: Callable) -> np.ndarray:
+    out = blocks_like(mesh)
+    for member in mesh.members():
+        parts = _group(mesh, blocks, member, axes, key)
+        acc = parts[0]
+        for part in parts[1:]:
+            acc = combine(acc, part)
+        out[member] = acc
+    return out
+
+
+def psum(mesh: Mesh, blocks: np.ndarray, axes) -> np.ndarray:
+    """``jax.lax.psum`` over ``axes``: the group's blocks added in axis
+    order."""
+    return _reduce(mesh, blocks, axes, "psum", torch.add)
+
+
+def pmax(mesh: Mesh, blocks: np.ndarray, axes) -> np.ndarray:
+    """``jax.lax.pmax`` over ``axes``."""
+    return _reduce(mesh, blocks, axes, "pmax", torch.maximum)
+
+
+def pmean(mesh: Mesh, blocks: np.ndarray, axes) -> np.ndarray:
+    """``jax.lax.pmean`` over ``axes``: ``psum`` over the group's width."""
+    width = _width(mesh, axes)
+    out = psum(mesh, blocks, axes)
+    for member in mesh.members():
+        out[member] = out[member] / width
+    return out
+
+
+def all_to_all(mesh: Mesh, blocks: np.ndarray, axis, split_axis: int,
+               concat_axis: int, tiled: bool = True) -> np.ndarray:
+    """``jax.lax.all_to_all(x, axis, split_axis, concat_axis, tiled)``
+    (module docstring)."""
+    width = _width(mesh, axis)
+    for member in mesh.members():
+        extent = blocks[member].shape[split_axis]
+        if (extent % width) if tiled else (extent != width):
+            raise ValueError(f"all_to_all: split dimension {split_axis} of "
+                             f"extent {extent} over {width} members of "
+                             f"{_axes(axis)}")
+    out = blocks_like(mesh)
+    for member in mesh.members():
+        dev = mesh.device(member)
+        j = axis_index(mesh, member, axis)
+        parts = []
+        for i in range(width):
+            sender = _with_index(mesh, member, axis, i)
+            chunk = blocks[sender].chunk(width, dim=split_axis)[j]
+            if sender != member:
+                chunk = _copy_to(chunk, dev)
+                moved["all_to_all"] += chunk.numel() * chunk.element_size()
+            parts.append(chunk if tiled else chunk.squeeze(split_axis))
+        out[member] = (torch.cat(parts, dim=concat_axis) if tiled
+                       else torch.stack(parts, dim=concat_axis))
     return out

@@ -203,3 +203,24 @@ def test_cpu_fft2d_runs_the_composition_whatever_the_tile():
         for g, w in zip(got, want):
             torch.testing.assert_close(g, w, rtol=0, atol=1e-3)
     assert (fft2d.launches, dict(fft2d.variants)) == before
+
+
+def test_large_transforms_leave_no_planes_cached():
+    """Past ``DFT_CACHE_MAX_N`` points a transform's DFT planes are built
+    for the call, on the host and on the device, and not kept (an
+    8192-point pair is 512 MiB); the small side's planes stay cached."""
+    n = fft2d.DFT_CACHE_MAX_N + 16
+    fft2d._planes_cached.cache_clear()
+    fft2d._dft_matrix_cached.cache_clear()
+    gen = torch.Generator().manual_seed(4)
+    re_, im_ = (torch.randn(4, n, generator=gen) for _ in range(2))
+    got_re, got_im = fft2d.fft2d(re_, im_, tiles=build.COMPILED_TILES[0])
+    want = torch.fft.fft2(torch.complex(re_.double(), im_.double()))
+    torch.testing.assert_close(got_re.double(), want.real, rtol=0, atol=0.05)
+    torch.testing.assert_close(got_im.double(), want.imag, rtol=0, atol=0.05)
+    # only the 4-point planes (host matrix and device planes) were kept
+    assert fft2d._planes_cached.cache_info().currsize == 1
+    assert fft2d._dft_matrix_cached.cache_info().currsize == 1
+    assert fft2d._planes_cached.cache_info().misses == 1
+    assert len(fft2d._dft_planes(n, torch.device("cpu"))[0]) == n
+    assert fft2d._planes_cached.cache_info().currsize == 1

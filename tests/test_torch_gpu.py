@@ -2011,3 +2011,220 @@ def test_chip_level_schedule_on_a_logical_mesh_on_the_card(case, gen):
             torch.testing.assert_close(g, w, rtol=0, atol=spec.atol)
         else:
             assert torch.equal(g, w)
+
+
+# ---------------------------------------------------------------------------
+# the DFT planes are not kept (a transform past fft2d.DFT_CACHE_MAX_N)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+def test_fft2d_at_8192_points_leaves_no_allocation_on_the_card(gen):
+    """An 8192^2 fft2d_stage (the bench grid, on the composition) builds
+    its 512 MiB of DFT planes for the call: afterwards the card's
+    allocation is back at its level before the call."""
+    spec = registry.get("fft2d_stage")
+    shape = spec.bench_cases[0][1]
+    re_, im_ = (torch.randn(shape, generator=gen, device="cuda")
+                for _ in range(2))
+    tiles = runtime.fft2d_route(*shape)
+    held = torch.cuda.memory_allocated()
+    fft2d.fft2d(re_, im_, tiles=tiles)
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() == held
+    assert shape[0] > fft2d.DFT_CACHE_MAX_N
+
+
+# ---------------------------------------------------------------------------
+# the mesh paths on logical meshes of the card (chip_smoke's mesh phase at a
+# small size)
+# ---------------------------------------------------------------------------
+
+def _moe_smoke(arch, ep):
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+
+    cfg = get_smoke_config(arch)
+    return dataclasses.replace(
+        cfg, moe_ep=ep,
+        moe_capacity_factor=cfg.moe_num_experts / cfg.moe_top_k)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "deepseek-v2-236b"])
+@pytest.mark.parametrize("ep", [False, True], ids=["tp", "ep"])
+def test_moe_mesh_path_runs_every_member_on_the_kernels(arch, ep, gen):
+    """SMOKE float32 MoE block on a logical (2, 4) mesh of the card,
+    nothing dropping: every member's expert stack three bmm launches, y
+    within 1e-4 of one device's block on the kernels, and the gradients
+    of sum(y * c) through the mesh path's copies and collectives within
+    1e-4 of one device's (the router's aside: the per-shard aux)."""
+    from repro_torch.models import moe
+    from repro_torch.parallel import mesh as pm
+    from repro_torch.parallel.sharding import mesh_context
+
+    cfg = _moe_smoke(arch, ep)
+    p = moe.init_moe(cfg, gen, "cuda")
+    x = torch.randn(8, 4, cfg.d_model, generator=gen, device="cuda")
+    c = torch.randn(8, 4, cfg.d_model, generator=gen, device="cuda")
+
+    def grads(mesh):
+        live = {k: v.clone().requires_grad_() for k, v in p.items()}
+        ctx = mesh_context(mesh) if mesh is not None else None
+        if ctx is not None:
+            with ctx:
+                y = moe.apply_moe(live, cfg, x)
+        else:
+            y = moe.apply_moe(live, cfg, x)
+        (y * c).sum().backward()
+        return y.detach(), {k: v.grad for k, v in live.items()}
+
+    y1, g1 = grads(None)
+    with pm.logical_devices(8):
+        mesh = pm.make_mesh((2, 4), ("data", "model"))
+        before = bmm.launches
+        ym, gm = grads(mesh)
+        torch.cuda.synchronize()
+    # forward 3 a member, backward 6 (two products each) a member
+    assert bmm.launches - before >= 8 * 3
+    torch.testing.assert_close(ym, y1, rtol=0, atol=1e-4)
+    for k in ("wg", "wu", "wd"):
+        torch.testing.assert_close(gm[k], g1[k], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_ep_decode_of_one_token_raises_on_the_card(gen):
+    from repro_torch.models import moe
+    from repro_torch.parallel import mesh as pm
+    from repro_torch.parallel.sharding import mesh_context
+
+    cfg = _moe_smoke("deepseek-v2-236b", True)
+    p = moe.init_moe(cfg, gen, "cuda")
+    x = torch.randn(4, 1, cfg.d_model, generator=gen, device="cuda")
+    with pm.logical_devices(4), mesh_context(
+            pm.make_mesh((1, 4), ("data", "model"))):
+        with pytest.raises(ValueError, match="does not divide"):
+            moe.apply_moe(p, cfg, x)
+
+
+@pytest.mark.gpu
+def test_elastic_training_on_a_logical_mesh_of_the_card(gen, tmp_path):
+    """qwen's SMOKE config: 3 steps on the 4 x 2 mesh of 8 logical
+    devices, a resume on the 2 x 2 survivors for 2 more, bit for bit the
+    losses of the same run on the card alone."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.mesh import make_mesh_from_devices
+    from repro_torch.parallel import mesh as pm
+    from repro_torch.train import TrainConfig, Trainer
+
+    cfg = get_smoke_config("qwen1.5-0.5b")
+    shape = ShapeSpec("t", "train", 32, 8)
+    tc = TrainConfig(ckpt_every=100, log_every=100, total_steps=5)
+
+    def run(d, meshes):
+        hist = []
+        for mesh, steps, resume in zip(meshes, (3, 2), (False, True)):
+            hist += Trainer(cfg, shape, ckpt_dir=str(d), tcfg=tc,
+                            mesh=mesh).run(steps, resume=resume)[2]
+        return hist
+
+    with pm.logical_devices(8):
+        devs = pm.devices()
+        before = widesa_mm.launches
+        on_mesh = run(tmp_path / "mesh", (
+            make_mesh_from_devices(devs, model_parallel=2),
+            make_mesh_from_devices(devs[:4], model_parallel=2)))
+        assert widesa_mm.launches > before
+    assert on_mesh == run(tmp_path / "one", (None, None))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dname", ["bfloat16", "float32", "int8"])
+def test_ring_reduce_scatter_matmul_on_the_card(dname, gen):
+    """Over 8 members: each member's partial one B1 launch in the
+    accumulator dtype; floats within 1e-3 of the flat hand kernel's fp32
+    product, int8 (operands in [120, 128), k = 2048) bitwise the int64
+    product; the bytes moved the ring's model."""
+    from repro_torch.parallel import collectives as C
+    from repro_torch.parallel import mesh as pm
+    from repro_torch.parallel.mesh import P
+
+    m, n, k = 256, 128, 2048
+    dtype = getattr(torch, dname)
+    if dtype.is_floating_point:
+        x = torch.randn(m, k, generator=gen, device="cuda").to(dtype)
+        w = torch.randn(k, n, generator=gen, device="cuda").to(dtype)
+        want = ref.mm(x, w, torch.float32)
+    else:
+        x, w = (torch.randint(120, 128, s, generator=gen, device="cuda",
+                              dtype=torch.int8) for s in ((m, k), (k, n)))
+        want = (x.double() @ w.double()).to(torch.int32)
+    with pm.logical_devices(8):
+        mesh = pm.make_mesh((8,), ("tp",))
+        pm.moved_clear()
+        before = widesa_mm.launches
+        out = C.ring_reduce_scatter_matmul(
+            mesh, pm.shard(mesh, x, P(None, "tp")),
+            pm.shard(mesh, w, P("tp", None)), "tp")
+        got = pm.unshard(mesh, out, P("tp", None), x.device)
+        torch.cuda.synchronize()
+        assert widesa_mm.launches - before == 8
+        assert pm.moved["ppermute"] == C.ring_reduce_scatter_bytes(
+            m // 8 * n * 4, 8)
+    if dtype.is_floating_point:
+        assert got.dtype == torch.float32
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-3)
+    else:
+        assert got.dtype == torch.int32 and torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_quantized_psum_on_the_card(gen):
+    from repro_torch.parallel import collectives as C
+    from repro_torch.parallel import mesh as pm
+    from repro_torch.parallel.mesh import P
+
+    g = torch.randn(8, 4096, generator=gen, device="cuda") * 3
+    with pm.logical_devices(8):
+        mesh = pm.make_mesh((8,), ("dp",))
+        out = C.quantized_psum(mesh, pm.shard(mesh, g, P("dp", None)), "dp",
+                               torch.Generator(device="cuda").manual_seed(1))
+        got = pm.unshard(mesh, out, P("dp", None), g.device)
+    scale = g.abs().max().item() / 127.0
+    assert (got - g.sum(0)).abs().max().item() < 8 * scale
+    assert (got == got[0]).all()
+
+
+@pytest.mark.gpu
+def test_pipeline_apply_of_decoder_layers_on_the_card(gen):
+    """qwen's SMOKE decoder layers (a 4-layer variant) over 2 stages and 2
+    microbatches of the card: bitwise the fold of the same microbatches,
+    every stage's GEMMs on the hand kernels."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import transformer as TT
+    from repro_torch.parallel import mesh as pm
+    from repro_torch.parallel.pipeline import pipeline_apply
+
+    cfg = dataclasses.replace(get_smoke_config("qwen1.5-0.5b"), n_layers=4)
+    p = TT.init_params(cfg, gen, "cuda")
+    x = torch.randn(4, 16, cfg.d_model, generator=gen, device="cuda")
+
+    def block(lp, h):
+        return TT._block(lp, cfg, h, TT._positions(h))[0]
+
+    with torch.no_grad():
+        want = []
+        for mb in x.chunk(2):
+            for lp in p["layers"]:
+                mb = block(lp, mb)
+            want.append(mb)
+        with pm.logical_devices(2):
+            before = widesa_mm.launches
+            got = pipeline_apply(block, p["layers"], x,
+                                 mesh=pm.make_mesh((2,), ("pipe",)),
+                                 microbatches=2)
+            assert widesa_mm.launches > before
+    assert torch.equal(got, torch.cat(want))

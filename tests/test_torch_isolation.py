@@ -60,7 +60,10 @@ def test_port_and_chip_smoke_import_without_jax():
             "repro_torch.launch.recurrences", "repro_torch.core.autotune",
             "repro_torch.launch.gen_autotune", "repro_torch.parallel.mesh",
             "repro_torch.kernels.systolic",
-            "repro_torch.core.hierarchy"} <= set(result["modules"])
+            "repro_torch.core.hierarchy", "repro_torch.parallel.sharding",
+            "repro_torch.parallel.collectives",
+            "repro_torch.parallel.pipeline", "repro_torch.launch.mesh",
+            "repro_torch.launch.train"} <= set(result["modules"])
 
 
 def test_the_mesh_imports_torch_and_no_package():

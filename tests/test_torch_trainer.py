@@ -15,6 +15,7 @@ are the reference's bytes; the launcher trains SMOKE on the CPU.
 
 import dataclasses
 import os
+import shutil
 import subprocess
 import sys
 
@@ -42,6 +43,7 @@ from repro_torch.kernels import planned as tp  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.optim import (adamw_init, adamw_update,  # noqa: E402
                                cosine_schedule, global_norm)
+from repro_torch.parallel import mesh as pm  # noqa: E402
 from repro_torch.train import TrainConfig, Trainer  # noqa: E402
 from repro_torch.train.loop import batch_tensors  # noqa: E402
 from repro_torch.train.step import make_train_step  # noqa: E402
@@ -277,11 +279,22 @@ def test_trainer_checkpoint_resume_exact(tmp_path):
     for a, b in zip(tree.leaves(saved), tree.leaves(p1)):
         assert torch.equal(a, b)
     # a fresh trainer resumes from step 8 and sees the same data
+    d_mesh = str(tmp_path / "mesh")
+    shutil.copytree(d, d_mesh)
     t2 = Trainer(cfg, shape, ckpt_dir=d, tcfg=tc, device="cpu")
     p2, _, h2 = t2.run(2, resume=True)
     assert latest_step(d) == 10 and len(h2) == 2
-    with pytest.raises(NotImplementedError, match="A9"):
-        Trainer(cfg, shape, ckpt_dir=d, tcfg=tc, mesh=object(), device="cpu")
+    # the same resume on a logical (2, 2) CPU mesh: the parameters restored
+    # onto it, the same losses and parameters bit for bit (qwen has no MoE
+    # block, the one block a mesh computes differently)
+    with pm.logical_devices(4):
+        t3 = Trainer(cfg, shape, ckpt_dir=d_mesh, tcfg=tc,
+                     mesh=pm.make_mesh((2, 2), ("data", "model")),
+                     device="cpu")
+        p3, _, h3 = t3.run(2, resume=True)
+    assert latest_step(d_mesh) == 10 and h3 == h2
+    for a, b in zip(tree.leaves(p3), tree.leaves(p2)):
+        assert torch.equal(a, b)
 
 
 # ---------------------------------------------------------------------------
