@@ -14,9 +14,10 @@
     python3 chip_smoke.py --hier
     python3 chip_smoke.py --systolic
     python3 chip_smoke.py --mesh
+    python3 chip_smoke.py --dryrun [--out DIR]
 
 Needs one CUDA card and the CUDA toolkit.  It imports only the port, never
-JAX nor the JAX package, and runs twenty-one phases, each printing its own
+JAX nor the JAX package, and runs twenty-two phases, each printing its own
 line(s); any failure exits non-zero:
 
 1. device — the card's name and power limit, torch and CUDA versions;
@@ -267,6 +268,16 @@ line(s); any failure exits non-zero:
    qwen's 24 layers over 4 stages), each path's launches, bytes moved and
    host time beside one device's; then ``MESH_SHAPES`` and the int8 ring
    partial timed;
+12e. dryrun — the dry run (``launch/dryrun.py``, ``dryrun_phase``):
+   qwen1.5-0.5b's 4-lane decode step over a 512-row cache and a
+   512-token prefill counted on fake tensors on a 1 x 1 mesh, then run
+   for real: the fake GEMM launches by kernel and variant equal the
+   wrappers' real ones, the parameters' argument bytes equal the
+   allocated delta of building them within the allocator's rounding
+   (``alloc_slack``), and the
+   predicted activation peak is printed against the real step's
+   ``max_memory_allocated`` above its arguments (``--dryrun`` runs this
+   phase, then every cell of the grid on both production meshes);
 13. train — full-width qwen1.5-0.5b trained (bf16, 24 layers, vocab
    151936, remat "full"; train_4k's 4096 x 256 tokens cut to 512 x 8),
    ``train_phase``: (a) one float32 step, the same seeded weights and
@@ -363,7 +374,7 @@ line gives each path's counts apart (``"launches": {"qwen": n,
 "zamba2_paged": y, "llava": v, "llava_paged": v', "stablelm": ...,
 "codeqwen": ..., "qwen3": ..., "qwen3_paged": ..., "deepseek": ...,
 "deepseek_paged": ..., "mesh_moe_ep": ..., "mesh_moe_tp": ...,
-"mesh_train": ..., "mesh_collectives": ..., "train": t,
+"mesh_train": ..., "mesh_collectives": ..., "dryrun": ..., "train": t,
 "whisper_train": u, "mamba2_train": ..., "zamba2_train": ...,
 "olmoe_train": ..., "recurrences": k}``; ``qwen_long`` and ``whisper_offline`` each sum the slot engine's
 drain and the paged engine's; ``train`` and ``whisper_train`` count the
@@ -7899,6 +7910,168 @@ def mesh_phase(torch, device_name: str) -> dict:
     return {"paths": paths, "rows": rows}
 
 
+#: the dry-run phase's steps of qwen1.5-0.5b: its 4-lane decode step over a
+#: cache of DRYRUN_SEQ rows and one 512-token prefill
+DRYRUN_SEQ = 512
+DRYRUN_LANES = 4
+#: the dry run's bytes against the allocator's: the caching allocator
+#: rounds a block under 1 MiB up to whole 512-byte units, and leaves a
+#: larger block up to 1 MiB of its segment that it does not split off
+ALLOC_UNIT = 512
+ALLOC_LARGE = 2**20
+#: ``--dryrun``'s grid: a cell a core of the card's host, and a cell past
+#: 45 minutes fails (deepseek-v2's EP train cells run 256-512 members a
+#: layer through 8 microbatches)
+DRYRUN_JOBS = 8
+DRYRUN_CELL_SECONDS = 2700
+
+
+def alloc_slack(nbytes: int) -> int:
+    """The most the caching allocator's block for ``nbytes`` exceeds it."""
+    return ALLOC_UNIT if nbytes < ALLOC_LARGE else ALLOC_LARGE + ALLOC_UNIT
+
+
+def dryrun_step(torch, api, shape, params):
+    """One real step of ``launch/dryrun.py``'s cell ``shape`` on
+    ``params``: the decode step on a fresh cache or the prefill."""
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    with torch.no_grad():
+        if shape.kind == "decode":
+            cache = api.init_cache(shape.global_batch, shape.seq_len)
+            tokens = torch.randint(0, api.cfg.vocab, (shape.global_batch, 1),
+                                   generator=gen, device="cuda",
+                                   dtype=torch.int32)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            out = api.decode(params, cache, tokens)
+        else:
+            tokens = torch.randint(0, api.cfg.vocab,
+                                   (shape.global_batch, shape.seq_len),
+                                   generator=gen, device="cuda",
+                                   dtype=torch.int32)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            out = api.prefill(params, {"tokens": tokens}, shape.seq_len)
+        torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - base
+
+
+def dryrun_phase(torch, device_name: str) -> dict:
+    """Phase 12e: the dry run (``launch/dryrun.py``) against the card.
+    qwen1.5-0.5b's 4-lane decode step and a 512-token prefill are counted
+    on fake tensors on a 1 x 1 mesh, the whole step (``"counted"``), then
+    run for real on the same weights' shapes.  Fails unless the fake
+    launches, by kernel and variant, equal the wrappers' real
+    ``launches``/``variants``, and the argument bytes of the parameters
+    equal the real leaves' storage bytes and the
+    ``torch.cuda.memory_allocated`` delta of building them within the
+    allocator's rounding (``alloc_slack``); prints the predicted
+    activation peak
+    against the real step's ``max_memory_allocated`` above its
+    arguments."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch.fakecuda import fake_cuda
+    from repro_torch.models.model import build_model
+    from repro_torch.parallel import mesh as pm
+    from repro_torch.tree import leaves
+
+    t0 = time.perf_counter()
+    cfg = get_config("qwen1.5-0.5b")
+    shapes = (ShapeSpec("decode_4x512", "decode", DRYRUN_SEQ, DRYRUN_LANES),
+              ShapeSpec("prefill_512", "prefill", DRYRUN_SEQ, 1))
+    fake = {}
+    with fake_cuda():
+        mesh = pm.make_mesh((1, 1), ("data", "model"), DR.fake_devices(1))
+        for shape in shapes:
+            fake[shape.name] = DR.count_cell(cfg, shape, mesh,
+                                             mesh_name="1x1",
+                                             accounting="counted")
+    t_fake = time.perf_counter() - t0
+    api = build_model(cfg, device="cuda")
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    params = api.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    built = torch.cuda.memory_allocated() - before
+    sizes = [t.untyped_storage().nbytes() for t in leaves(params)]
+    slack = sum(alloc_slack(n) for n in sizes)
+    launches = dict.fromkeys(wrappers(), 0)
+    variants = {k: dict(v) for k, v in read_variants().items()}
+    for v in variants.values():
+        for key in v:
+            v[key] = 0
+    for shape in shapes:
+        res = fake[shape.name]
+        (_, peak), counts, by_kernel, _ = counted_run(
+            torch, lambda: dryrun_step(torch, api, shape, params))
+        real = {f"{w}/{k}": n for w, kv in by_kernel.items()
+                if w in ("widesa_mm", "bmm") for k, n in kv.items() if n}
+        faked = {k.replace("mm/", "widesa_mm/", 1)
+                 if k.startswith("mm/") else k: n
+                 for k, n in res.kernels.items()}
+        if real != faked:
+            fail(f"dryrun {shape.name}: fake launches {faked} != real "
+                 f"{real}")
+        param_b = res.memory["parameter_bytes"]
+        if param_b != sum(sizes) or not 0 <= built - param_b <= slack:
+            fail(f"dryrun {shape.name}: parameter bytes {param_b} against "
+                 f"{sum(sizes)} in {len(sizes)} leaves, an allocated delta "
+                 f"of {built} (rounding at most {slack})")
+        ratio = res.memory["temp_bytes"] / peak if peak else float("nan")
+        print(f"dryrun {shape.name}: fake launches == real {real}; "
+              f"argument bytes {res.memory['argument_bytes']} (parameters "
+              f"{param_b} == the {len(sizes)} leaves' storage, allocated "
+              f"delta {built}, rounding at most {slack}); "
+              f"flops_global {res.flops_global:.6e}, bytes_global "
+              f"{res.bytes_global:.6e}; predicted activation peak "
+              f"{res.memory['temp_bytes']} B against max_memory_allocated "
+              f"{peak} B above the arguments: ratio {ratio:.4f}",
+              flush=True)
+        for w, n in counts.items():
+            launches[w] += n
+        for w, kv in by_kernel.items():
+            for k, n in kv.items():
+                variants[w][k] += n
+    del params
+    torch.cuda.empty_cache()
+    print(f"dryrun: phase done in {time.perf_counter() - t0:.1f} s "
+          f"({t_fake:.1f} s on fake tensors), on {device_name} "
+          f"[{nvidia_smi()}]", flush=True)
+    return {"paths": {"dryrun": {"launches": launches, "variants": variants,
+                                 "shapes": {}}}}
+
+
+def dryrun_grid(torch, out: Path) -> None:
+    """``--dryrun``: every arch x ``cells_for`` x both production meshes
+    through ``launch/dryrun.py`` (``DRYRUN_JOBS`` processes, each cell cut
+    at ``DRYRUN_CELL_SECONDS``), one line a cell and the roofline table;
+    every cell succeeds or names its error; one JSON a cell in ``out``.
+    Every cell is counted afresh: no earlier JSON in ``out`` is read."""
+    from repro_torch.configs import ARCHS, SHAPES
+    from repro_torch.core import roofline as RL
+    from repro_torch.launch import dryrun as DR
+
+    t0 = time.perf_counter()
+    results = DR.run_cells(ARCHS, list(SHAPES), [False, True], str(out),
+                           jobs=DRYRUN_JOBS, cell_timeout=DRYRUN_CELL_SECONDS,
+                           reuse=False)
+    rows = [DR.roofline_of(r) for r in results if r["ok"]]
+    print(RL.format_table(rows))
+    bad = [r for r in results if not r["ok"]]
+    for r in bad:
+        if not r["error"].strip():
+            fail(f"dryrun {r['arch']} x {r['shape']} x {r['mesh']}: failed "
+                 "without an error")
+        print(f"dryrun FAILED: {DR.cell_line(r)}")
+    print(f"dryrun grid: {len(results) - len(bad)}/{len(results)} cells OK "
+          f"in {time.perf_counter() - t0:.1f} s ({DRYRUN_JOBS} processes), "
+          f"results in {out}", flush=True)
+
+
 #: element types of the mangled template arguments of the kernels the
 #: build line lists one by one
 MANGLED_TYPES = {"f": "float32", "a": "int8", "s": "int16", "i": "int32"}
@@ -8001,11 +8174,16 @@ def main(argv=None) -> int:
                     help="only the device, the GEMM build and the mesh "
                          "phase (the MoE mesh paths, training and the "
                          "collectives on logical meshes)")
+    ap.add_argument("--dryrun", action="store_true",
+                    help="only the device, the GEMM build, the dryrun "
+                         "phase and the dry run of every cell "
+                         "(launch/dryrun.py) on both production meshes")
     ap.add_argument("--src", help="with --conv2d-sweep or --fir-sweep: the "
                                   "src/ directory of another checkout of "
                                   "the port, whose kernel to time instead")
     ap.add_argument("--out", help="with a sweep: write the times here as "
-                                  "JSON")
+                                  "JSON; with --dryrun: the cells' "
+                                  "directory (default results/dryrun_torch)")
     args = ap.parse_args(argv)
     if args.src:
         if not (args.conv2d_sweep or args.fir_sweep):
@@ -8031,7 +8209,7 @@ def main(argv=None) -> int:
     paths = build.build(("widesa_hpc",) if args.mttkrp_sweep
                         else ("widesa_mm",)
                         if args.tc_sweep or args.skinny_sweep or args.train
-                        or args.dense or args.mesh
+                        or args.dense or args.mesh or args.dryrun
                         else ("widesa_mm", "widesa_hpc") if args.hier
                         else ("widesa_mm", "widesa_sp") if args.fft_sweep
                         else ("widesa_sp",)
@@ -8079,6 +8257,15 @@ def main(argv=None) -> int:
         return 0
     if args.mesh:
         mesh_phase(torch, name)
+        return 0
+    if args.dryrun:
+        dryrun_phase(torch, name)
+        dryrun_grid(torch, Path(args.out) if args.out
+                    else ROOT / "results" / "dryrun_torch")
+        print(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name,
+            "count": torch.cuda.device_count()}}))
         return 0
     if args.tile_sweep:
         t0 = time.perf_counter()
@@ -8156,6 +8343,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     mesh = mesh_phase(torch, name)
     mesh_paths = mesh["paths"]
+    torch.cuda.empty_cache()
+    mesh_paths.update(dryrun_phase(torch, name)["paths"])
     torch.cuda.empty_cache()
     train_paths = {phase[0]: train_phase(torch, name, *phase)
                    for phase in TRAIN_PHASES}

@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import importlib
 
-from .base import ModelConfig
+from .base import LONG_CONTEXT_ARCHS, SHAPES, ModelConfig, ShapeSpec, cells_for
 
 _ARCH_MODULES = {
     "qwen1.5-0.5b": "qwen15_05b",
@@ -55,4 +55,7 @@ def get_smoke_config(arch: str) -> ModelConfig:
     return _module(arch).SMOKE
 
 
-__all__ = ["ARCHS", "ModelConfig", "get_config", "get_smoke_config"]
+__all__ = [
+    "ARCHS", "SHAPES", "LONG_CONTEXT_ARCHS", "ModelConfig", "ShapeSpec",
+    "cells_for", "get_config", "get_smoke_config",
+]

@@ -1,6 +1,8 @@
 """Config schema: ModelConfig, a field-for-field copy of
-``repro.configs.base.ModelConfig`` so configurations match the reference,
-and the reference's workload cells (``ShapeSpec``, ``SHAPES``)."""
+``repro.configs.base.ModelConfig`` so configurations match the reference
+(with its analytic ``param_count`` / ``active_param_count``), and the
+reference's workload cells (``ShapeSpec``, ``SHAPES``, ``cells_for``:
+``long_500k`` only for the sub-quadratic ``LONG_CONTEXT_ARCHS``)."""
 
 from __future__ import annotations
 
@@ -80,6 +82,78 @@ class ModelConfig:
     def ssm_heads(self) -> int:
         return self.d_inner // self.ssm_headdim
 
+    def param_count(self) -> int:
+        """Analytic parameter count (for 6ND roofline accounting)."""
+        d, v, L = self.d_model, self.vocab, self.n_layers
+        total = v * d  # embed
+        if not self.tie_embeddings:
+            total += v * d
+        def attn_params() -> int:
+            if self.use_mla:
+                qh = self.n_heads * (self.nope_head_dim + self.rope_head_dim)
+                p = 0
+                if self.q_lora_rank:
+                    p += d * self.q_lora_rank + self.q_lora_rank * qh
+                else:
+                    p += d * qh
+                p += d * (self.kv_lora_rank + self.rope_head_dim)
+                p += self.kv_lora_rank * self.n_heads * (
+                    self.nope_head_dim + self.v_head_dim)
+                p += self.n_heads * self.v_head_dim * d
+                return p
+            hq = self.n_heads * self.hd
+            hkv = self.n_kv_heads * self.hd
+            return d * hq + 2 * d * hkv + hq * d
+
+        def mlp_params(ff: int) -> int:
+            return (3 if self.mlp_glu else 2) * d * ff
+
+        def ssm_params() -> int:
+            di, ns, nh = self.d_inner, self.ssm_state, self.ssm_heads
+            in_proj = d * (2 * di + 2 * ns + nh)
+            conv = self.ssm_conv * (di + 2 * ns)
+            out = di * d
+            return in_proj + conv + out + 3 * nh + di
+
+        if self.family in ("dense", "vlm"):
+            total += L * (attn_params() + mlp_params(self.d_ff) + 2 * d)
+        elif self.family == "moe":
+            n_moe = L - self.moe_first_dense
+            total += L * (attn_params() + 2 * d)
+            total += self.moe_first_dense * mlp_params(self.d_ff)
+            per_moe = (
+                self.moe_num_experts * mlp_params(self.moe_d_ff)
+                + self.moe_shared_experts * mlp_params(self.moe_d_ff)
+                + d * self.moe_num_experts  # router
+            )
+            total += n_moe * per_moe
+        elif self.family == "ssm":
+            total += L * (ssm_params() + d)
+        elif self.family == "hybrid":
+            total += L * (ssm_params() + d)
+            # one shared attention+FFN block
+            total += attn_params() + mlp_params(self.d_ff) + 2 * d
+        elif self.family == "encdec":
+            enc = self.n_enc_layers * (
+                attn_params() + mlp_params(self.d_ff) + 2 * d)
+            dec = L * (
+                2 * attn_params() + mlp_params(self.d_ff) + 3 * d)
+            total += enc + dec
+        return total
+
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: top-k + shared only)."""
+        if self.family != "moe":
+            return self.param_count()
+        d, L = self.d_model, self.n_layers
+        n_moe = L - self.moe_first_dense
+        full = self.param_count()
+        inactive = n_moe * (
+            (self.moe_num_experts - self.moe_top_k) * 3 * d * self.moe_d_ff
+        )
+        return full - inactive
+
+
 
 @dataclasses.dataclass(frozen=True)
 class ShapeSpec:
@@ -97,3 +171,16 @@ SHAPES = {
     "decode_32k": ShapeSpec("decode_32k", "decode", 32768, 128),
     "long_500k": ShapeSpec("long_500k", "decode", 524288, 1),
 }
+
+# archs allowed to run long_500k (sub-quadratic sequence mixing);
+# all pure full-attention archs skip it, as in the reference
+LONG_CONTEXT_ARCHS = {"mamba2-780m", "zamba2-1.2b"}
+
+
+def cells_for(arch: str) -> list[str]:
+    out = []
+    for name in SHAPES:
+        if name == "long_500k" and arch not in LONG_CONTEXT_ARCHS:
+            continue
+        out.append(name)
+    return out

@@ -13,7 +13,9 @@
                      conv2d / stencil halo chains)
     hierarchy.py   — two-level plans: an outer (dp, tp) split over the
                      inner chip target, composed on one device
-    roofline.py    — the outer link's wire time (the hierarchical cost)
+    roofline.py    — the dry run's three-term roofline on the H100's
+                     peaks, and the outer link's wire time (the
+                     hierarchical cost)
     codegen.py     — ExecutionPlan -> executable (xla / pallas backends)
 
 The code is pure Python and copied rather than imported, so the port never

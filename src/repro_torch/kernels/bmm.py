@@ -38,6 +38,8 @@ def bmm(a: torch.Tensor, b: torch.Tensor, *, tiles,
                       device=a.device)
     if out.numel() == 0:
         return out.to(out_dtype)
-    variants[launch(a, b, out, tiles, *layout, batched=True)] += 1
-    launches += 1
+    name = launch(a, b, out, tiles, *layout, batched=True)
+    if name is not None:
+        variants[name] += 1
+        launches += 1
     return out.to(out_dtype)

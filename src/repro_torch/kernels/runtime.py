@@ -143,6 +143,14 @@ cluster, as far as the grid stays within ``FFT2D_MAX_BLOCKS`` blocks
 ``acc_dtype``/``out_dtype`` are the reference's accumulator ladder:
 integer inputs accumulate and land in int32, floats accumulate in fp32
 and land in the input dtype.
+
+Two route decisions read an operand's address: B's copy width
+(``b_copy_bytes``) and TMA's alignment (``tma_operand``).  They take it
+from ``address``: a tensor's ``data_ptr()``, or for a fake tensor (the
+dry run's, ``launch/fakecuda.py``), which has no storage, its storage
+offset in bytes over a base aligned to ``FAKE_BASE_ALIGN`` bytes, which
+is what the caching allocator gives every block it hands out.  So a fake
+operand takes the route the same operand would take on the card.
 """
 
 from __future__ import annotations
@@ -152,6 +160,7 @@ import functools
 from typing import TYPE_CHECKING
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 from . import build
 
@@ -297,6 +306,26 @@ def check_skinny(tile: SkinnyTile, m: int, k: int,
                          f"{dtype}")
 
 
+#: the alignment of the base of a block of the CUDA caching allocator,
+#: taken as a fake tensor's base address (module docstring)
+FAKE_BASE_ALIGN = 512
+
+
+def is_fake(t: torch.Tensor) -> bool:
+    """Whether ``t`` is a fake tensor: shapes and dtypes on a device, no
+    storage behind them (``torch._subclasses.FakeTensor``)."""
+    return isinstance(t, FakeTensor)
+
+
+def address(t: torch.Tensor) -> int:
+    """The address a kernel would read ``t`` at: ``data_ptr()``, or for a
+    fake tensor its storage offset in bytes over a ``FAKE_BASE_ALIGN``
+    aligned base (module docstring)."""
+    if is_fake(t):
+        return FAKE_BASE_ALIGN + t.storage_offset() * t.element_size()
+    return t.data_ptr()
+
+
 def copy_bytes(ptr: int, row_bytes: int) -> int:
     """The widest copy (16, 8 or 4 bytes) that keeps every row of an
     operand at ``ptr`` with rows of ``row_bytes`` aligned; 0 if none."""
@@ -379,7 +408,7 @@ def b_copy_bytes(b: torch.Tensor) -> int:
     if layout is None:
         return 0
     col, pitch, stride = layout
-    size, ptr = b.element_size(), b.data_ptr()
+    size, ptr = b.element_size(), address(b)
     inner = b.shape[-2] if col else b.shape[-1]
     return min(copy_bytes(ptr, inner * size), copy_bytes(ptr, pitch * size),
                copy_bytes(ptr, stride * size))
@@ -501,10 +530,10 @@ def tc_tile(m: int, n: int, k: int, dtype: torch.dtype,
 
 
 def tma_operand(t: torch.Tensor, inner: int) -> bool:
-    """Whether TMA can address an operand at ``t.data_ptr()`` whose rows
+    """Whether TMA can address an operand at ``address(t)`` whose rows
     hold ``inner`` elements: a 16-byte aligned base and rows of whole
     16-byte units."""
-    return copy_bytes(t.data_ptr(), inner * t.element_size()) == 16
+    return copy_bytes(address(t), inner * t.element_size()) == 16
 
 
 def tma_b(b: torch.Tensor) -> bool:

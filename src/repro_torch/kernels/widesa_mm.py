@@ -15,6 +15,16 @@ its pitch (``runtime.b_layout``), so a slice of a weight's columns or
 rows, a hierarchical plan's group, is launched without a copy.  A CPU tensor runs the plain version
 in ``ref.py`` instead.  ``launches`` counts kernel launches, ``variants``
 the same launches by kernel.
+
+Fake operands (the dry run's, ``launch/fakecuda.py``: a ``cuda``
+device, no storage) pass everything before the launch as on the card,
+the route included (``runtime.address``), and ``launch`` then runs no
+kernel: it loads no library, reads no address, and hands a record of
+the launch (kernel, variant, tiles, shape, the product's FLOPs and the
+bytes of reading each operand once and writing the result once) to each
+callable in ``fake_sinks``.  No kernel ran, so ``launches`` and
+``variants`` do not count it: the sinks' records are the dry run's only
+tally.  A real operand never takes that branch.
 """
 
 from __future__ import annotations
@@ -30,6 +40,9 @@ launches = 0
 #: launches by kernel: ``skinny`` (M <= 16), ``wgmma`` (the tensor-core
 #: kernels, floats and integers) and ``tiled``
 variants = {"skinny": 0, "wgmma": 0, "tiled": 0}
+#: callables handed a record of each launch on fake operands (module
+#: docstring); the dry run's ``accounting.StepCounter`` adds itself
+fake_sinks: list = []
 
 
 def check_operands(a, b, tiles, out_dtype, *, batched: bool):
@@ -109,7 +122,13 @@ def launch(a, b, out, tiles, lda: int, col_major: int, ldb: int, sb: int,
            b_copy: int, batched: bool) -> str:
     """Launch ``out = a @ b`` (operands checked by ``check_operands``) on
     the kernel ``tiles`` names, on the current stream of ``a``'s card;
-    return that kernel's name (a key of ``variants``)."""
+    return that kernel's name (a key of ``variants``), or None where the
+    operands are fake and no kernel ran (``fake_launch``).  ``out`` is
+    allocated under the same mode as ``a`` and ``b``, so it alone says
+    whether they are fake."""
+    if runtime.is_fake(out):
+        fake_launch(a, b, out, tiles, batched)
+        return None
     m, k = a.shape[-2:]
     n = b.shape[-1]
     batch = a.shape[0] if batched else 1
@@ -151,6 +170,33 @@ def launch(a, b, out, tiles, lda: int, col_major: int, ldb: int, sb: int,
     return "tiled"
 
 
+def variant_of(tiles) -> str:
+    """The kernel ``tiles`` names, as a key of ``variants``."""
+    if isinstance(tiles, runtime.SkinnyTile):
+        return "skinny"
+    return "wgmma" if isinstance(tiles, runtime.TcTile) else "tiled"
+
+
+def fake_launch(a, b, out, tiles, batched: bool) -> None:
+    """``launch`` on fake operands: no kernel, a record to each of
+    ``fake_sinks`` (module docstring)."""
+    m, k = a.shape[-2:]
+    n = b.shape[-1]
+    batch = a.shape[0] if batched else 1
+    variant = variant_of(tiles)
+    record = {
+        "kernel": "bmm" if batched else "mm", "variant": variant,
+        "tiles": repr(tiles), "batch": batch, "m": m, "n": n, "k": k,
+        "dtype": str(a.dtype).removeprefix("torch."),
+        "flops": 2 * batch * m * n * k,
+        "bytes": batch * (m * k * a.element_size()
+                          + k * n * b.element_size()
+                          + m * n * out.element_size()),
+    }
+    for sink in fake_sinks:
+        sink(record)
+
+
 def matmul(a: torch.Tensor, b: torch.Tensor, *, tiles,
            out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """``a[m,k] @ b[k,n]`` on the kernel ``tiles`` names (from
@@ -167,6 +213,8 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, tiles,
                       device=a.device)
     if out.numel() == 0:
         return out.to(out_dtype)
-    variants[launch(a, b, out, tiles, *layout, batched=False)] += 1
-    launches += 1
+    name = launch(a, b, out, tiles, *layout, batched=False)
+    if name is not None:
+        variants[name] += 1
+        launches += 1
     return out.to(out_dtype)

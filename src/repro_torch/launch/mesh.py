@@ -14,11 +14,13 @@ import numpy as np
 from repro_torch.parallel import mesh as pm
 
 
-def make_production_mesh(*, multi_pod: bool = False) -> pm.Mesh:
-    """16x16 single-pod (256 devices) or 2x16x16 multi-pod (512)."""
+def make_production_mesh(*, multi_pod: bool = False,
+                         devices_list=None) -> pm.Mesh:
+    """16x16 single-pod (256 devices) or 2x16x16 multi-pod (512), over
+    ``devices_list`` (default the logical devices)."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return pm.make_mesh(shape, axes)
+    return pm.make_mesh(shape, axes, devices_list)
 
 
 def make_mesh_from_devices(devices, *, model_parallel: int = 16) -> pm.Mesh:

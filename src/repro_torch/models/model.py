@@ -48,6 +48,14 @@ training batch, trees of the same structure with tuples of axis names
 at the leaves (``parallel/sharding.py`` resolves them against a mesh's
 rules); the parameters' follow the port's per-layer lists.
 
+``batch_specs(shape)`` gives, for a ``configs.ShapeSpec``, the shape and
+dtype of every input of a step at that cell as a ``TensorSpec`` (the
+port's counterpart of ``jax.ShapeDtypeStruct``: a frozen shape and
+dtype, no tensor), keyed as ``batch_logical()``: ``tokens`` and
+``labels`` [B, S] int32, a vlm's text ``S - vlm_patches`` long beside
+its ``extra_embeds`` [B, P, d] bf16, encdec's ``frames`` [B, F, d] bf16.
+The dry run (``launch/dryrun.py``) makes fake tensors of them.
+
 ``loss`` is the reference's training loss of every ported family (the
 masked mean next-token cross-entropy: ``transformer.loss_fn``, with the
 MoE family's ``1e-2`` load-balance term and a vlm's text rows only,
@@ -70,6 +78,21 @@ from . import hybrid as HYBRID
 from . import transformer as TFM
 
 
+@dataclasses.dataclass(frozen=True)
+class TensorSpec:
+    """The shape and dtype of a model input (``jax.ShapeDtypeStruct``)."""
+
+    shape: tuple[int, ...]
+    dtype: torch.dtype
+
+    @property
+    def nbytes(self) -> int:
+        n = self.dtype.itemsize
+        for extent in self.shape:
+            n *= extent
+        return n
+
+
 @dataclasses.dataclass
 class ModelAPI:
     cfg: ModelConfig
@@ -84,6 +107,8 @@ class ModelAPI:
     param_logical: Callable | None = None
     cache_logical: Callable | None = None
     batch_logical: Callable | None = None
+    # the inputs' shapes and dtypes at a ShapeSpec
+    batch_specs: Callable | None = None
     # block-paged serving (continuous batching)
     paged_init: Callable | None = None
     paged_decode: Callable | None = None
@@ -93,6 +118,27 @@ class ModelAPI:
     enc_step: Callable | None = None
     enc_kv: Callable | None = None
     stream_prefill: Callable | None = None
+
+
+def _token_batch_specs(cfg, shape) -> dict:
+    b, s = shape.global_batch, shape.seq_len
+    if cfg.family == "vlm":
+        s_text = s - cfg.vlm_patches
+        return {
+            "tokens": TensorSpec((b, s_text), torch.int32),
+            "labels": TensorSpec((b, s_text), torch.int32),
+            "extra_embeds": TensorSpec((b, cfg.vlm_patches, cfg.d_model),
+                                       torch.bfloat16),
+        }
+    if cfg.family == "encdec":
+        return {
+            "frames": TensorSpec((b, cfg.enc_frames, cfg.d_model),
+                                 torch.bfloat16),
+            "tokens": TensorSpec((b, s), torch.int32),
+            "labels": TensorSpec((b, s), torch.int32),
+        }
+    return {"tokens": TensorSpec((b, s), torch.int32),
+            "labels": TensorSpec((b, s), torch.int32)}
 
 
 def _token_batch_logical(cfg) -> dict:
@@ -129,6 +175,7 @@ def build_model(cfg: ModelConfig, device="cuda") -> ModelAPI:
         param_logical=lambda: TFM.param_specs(cfg),
         cache_logical=lambda: TFM.cache_specs(cfg),
         batch_logical=lambda: _token_batch_logical(cfg),
+        batch_specs=lambda shape: _token_batch_specs(cfg, shape),
         prefill=prefill,
         decode=lambda p, cache, tokens: TFM.decode_step(p, cfg, cache,
                                                         tokens),
@@ -161,6 +208,7 @@ def _hybrid_api(cfg: ModelConfig, device: torch.device,
         param_logical=lambda: HYBRID.param_specs(cfg),
         cache_logical=lambda: HYBRID.cache_specs(cfg),
         batch_logical=lambda: _token_batch_logical(cfg),
+        batch_specs=lambda shape: _token_batch_specs(cfg, shape),
         prefill=prefill,
         decode=lambda p, cache, tokens: HYBRID.decode_step(p, cfg, cache,
                                                            tokens),
@@ -189,6 +237,7 @@ def _encdec_api(cfg: ModelConfig, device: torch.device,
         param_logical=lambda: ENCDEC.param_specs(cfg),
         cache_logical=lambda: ENCDEC.cache_specs(cfg),
         batch_logical=lambda: _token_batch_logical(cfg),
+        batch_specs=lambda shape: _token_batch_specs(cfg, shape),
         prefill=prefill,
         decode=lambda p, cache, tokens: ENCDEC.decode_step(p, cfg, cache,
                                                            tokens),

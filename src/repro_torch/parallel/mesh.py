@@ -46,8 +46,10 @@ at once.
 
 ``moved`` counts the bytes the collectives carried between two members
 (a member's copy to itself moves nothing), by collective (``pmean`` under
-``psum``); the chip smoke holds them to ``parallel/collectives.py``'s
-byte models.
+``psum``), and ``calls`` the collectives called, one a call whatever the
+mesh's size; ``moved_clear`` zeroes both.  The chip smoke holds the bytes
+to ``parallel/collectives.py``'s byte models, and the dry run reads both
+(``core.roofline.collective_bytes``).
 
 Everything here is plain tensor operations (slices, copies, adds,
 concatenations), so autograd runs through a mesh program: ``shard``'s
@@ -64,10 +66,12 @@ The logical device count is the counterpart of XLA's forced host device
 count: the number of devices ``devices()`` and ``local_device_count()``
 report.  By default it is the number of physical devices of the
 caller's type, ``torch.cuda.device_count()`` on the card and 1 on the
-CPU; ``logical_devices(n)`` sets it, and only tests and the chip smoke
-do.  Logical device ``i`` is physical card ``i % cards``: on one card
-all of them are ``cuda:0``, and a 2 x 2 mesh's members all compute on
-it, one after another.
+CPU; ``logical_devices(n)`` sets it, and only tests, the chip smoke and
+the dry run do.  Logical device ``i`` is physical card ``i % cards``: on
+one card all of them are ``cuda:0``, and a 2 x 2 mesh's members all
+compute on it, one after another.  A mesh of other devices (the dry
+run's fake ``cuda`` ones, with or without a card) is built from an
+explicit list (``make_mesh``'s ``devices_list``).
 """
 
 from __future__ import annotations
@@ -85,11 +89,14 @@ _LOGICAL: int | None = None
 #: bytes carried between two members, by collective (module docstring)
 moved = {"ppermute": 0, "all_gather": 0, "psum": 0, "pmax": 0,
          "all_to_all": 0}
+#: collectives called, by collective (module docstring)
+calls = dict.fromkeys(moved, 0)
 
 
 def moved_clear() -> None:
     for key in moved:
         moved[key] = 0
+        calls[key] = 0
 
 
 def default_kind() -> str:
@@ -225,6 +232,8 @@ def blocks_like(mesh: Mesh) -> np.ndarray:
 
 def _copy_to(t: torch.Tensor, device: torch.device) -> torch.Tensor:
     """A contiguous copy of ``t`` on ``device``."""
+    if t.device == device:
+        return t.clone(memory_format=torch.contiguous_format)
     out = torch.empty(t.shape, dtype=t.dtype, device=device)
     out.copy_(t)
     return out
@@ -337,6 +346,7 @@ def ppermute(mesh: Mesh, blocks: np.ndarray, axes, perm) -> np.ndarray:
         src_of[dst] = src
     if len(set(src_of.values())) != len(src_of):
         raise ValueError("ppermute: a member sends twice")
+    calls["ppermute"] += 1
     out = blocks_like(mesh)
     for member in mesh.members():
         dev = mesh.device(member)
@@ -357,6 +367,7 @@ def all_gather(mesh: Mesh, blocks: np.ndarray, axis: str, dim: int,
     """``jax.lax.all_gather(x, axis, axis=dim, tiled=tiled)``: every
     member receives its ``axis`` group's blocks in axis order."""
     width = mesh.shape[axis]
+    calls["all_gather"] += 1
     out = blocks_like(mesh)
     for member in mesh.members():
         dev = mesh.device(member)
@@ -391,6 +402,7 @@ def _group(mesh: Mesh, blocks: np.ndarray, member, axes, key: str) -> list:
 
 def _reduce(mesh: Mesh, blocks: np.ndarray, axes, key: str,
             combine: Callable) -> np.ndarray:
+    calls[key] += 1
     out = blocks_like(mesh)
     for member in mesh.members():
         parts = _group(mesh, blocks, member, axes, key)
@@ -432,6 +444,7 @@ def all_to_all(mesh: Mesh, blocks: np.ndarray, axis, split_axis: int,
             raise ValueError(f"all_to_all: split dimension {split_axis} of "
                              f"extent {extent} over {width} members of "
                              f"{_axes(axis)}")
+    calls["all_to_all"] += 1
     out = blocks_like(mesh)
     for member in mesh.members():
         dev = mesh.device(member)
@@ -439,7 +452,8 @@ def all_to_all(mesh: Mesh, blocks: np.ndarray, axis, split_axis: int,
         parts = []
         for i in range(width):
             sender = _with_index(mesh, member, axis, i)
-            chunk = blocks[sender].chunk(width, dim=split_axis)[j]
+            size = blocks[sender].shape[split_axis] // width
+            chunk = blocks[sender].narrow(split_axis, j * size, size)
             if sender != member:
                 chunk = _copy_to(chunk, dev)
                 moved["all_to_all"] += chunk.numel() * chunk.element_size()

@@ -63,7 +63,9 @@ def test_port_and_chip_smoke_import_without_jax():
             "repro_torch.core.hierarchy", "repro_torch.parallel.sharding",
             "repro_torch.parallel.collectives",
             "repro_torch.parallel.pipeline", "repro_torch.launch.mesh",
-            "repro_torch.launch.train"} <= set(result["modules"])
+            "repro_torch.launch.train", "repro_torch.launch.dryrun",
+            "repro_torch.launch.accounting",
+            "repro_torch.launch.fakecuda"} <= set(result["modules"])
 
 
 def test_the_mesh_imports_torch_and_no_package():
