@@ -26,8 +26,9 @@ line(s); any failure exits non-zero:
 3. kernels — every hand-written kernel against its plain PyTorch version
    on the card: the mm/bmm GEMMs in all five dtypes at every serving
    shape and at ragged ones on the kernel the runtime picks (the skinny
-   kernel for A of at most 16 rows, the tensor-core ones above, the tiled
-   one for operands TMA cannot address), the tensor-core kernels at every
+   kernel for A of at most 16 rows, the tensor-core ones above, fed by
+   TMA or, for a float operand TMA cannot address, by cp.async, the tiled
+   one for rows that allow no 4-byte copy), the tensor-core kernels at every
    qwen prefill GEMM of 17, 64, 127 and 512 tokens, quickstart's 1024^3
    and ragged shapes in bf16 -> bf16, bf16 -> fp32, float32 and int8,
    int16 and int32 -> int32 with both B layouts (and a one-TF32 control
@@ -233,9 +234,10 @@ line(s); any failure exits non-zero:
    and freed before the next (``dense_phase``): prompts of 4, 9, 13, 16,
    64, 127, 256 and 512 tokens, 8 new tokens each, on the slot and the
    paged engine (the tokens equal), every site planned with no fallback,
-   ``decode_compiles`` 1, ``check_routes`` (qwen3-32b's down projection
-   of the 16-token prompt on the tiled kernel: its stage of A exceeds
-   the skinny kernel's), ``drain_parity``, the prefill logits within
+   ``decode_compiles`` 1, ``check_routes`` (no tiled launch: qwen3-32b's
+   down projection of the 16-token prompt, K = 25600, on the skinny
+   kernel, A streamed through its ring), ``drain_parity``, the prefill
+   logits within
    ``LOGIT_ATOL``, the captured step and a 512-token prefill profiled, the
    peak of allocated memory, and ``DENSE_SHAPES`` timed;
 12c. deepseek — deepseek-v2-236b (MLA: a 576-element latent cache a token
@@ -303,7 +305,10 @@ line(s); any failure exits non-zero:
 14. whisper_train — full-width whisper-base trained the same way (bf16,
    6+6 layers, vocab 51865; 4 utterances of 1500 frames and 64 text
    tokens, ``grad_accum`` 4 -> 1), the MLP pair's five backward sites
-   among the checked ones, its encoder scores' da / db timed;
+   among the checked ones, its encoder scores' da / db timed (dB with
+   its B, the cotangent, in the padded rows the backward casts it into,
+   beside B in its own rows on the cp.async producer and beside the
+   tiled kernel it left);
 14b. mamba2_train, zamba2_train, olmoe_train — mamba2-780m (its published
    ``grad_accum`` 2: two microbatches of 4 x 512 accumulated), zamba2-1.2b
    and olmoe-1b-7b (``grad_accum`` 2 -> 1, its load-balance term in the
@@ -556,7 +561,8 @@ PREFILL_MAX_SEQ = 640
 #: quickstart's float32 MM, and ragged shapes (M and N no multiple of any
 #: tile, K rows whole 16-byte units) for the tensor-core kernel
 QUICKSTART = ("mm", (1024, 1024, 1024))
-TC_RAGGED = (("mm", (100, 200, 136)), ("bmm", (3, 61, 72, 64)))
+TC_RAGGED = (("mm", (100, 200, 136)), ("bmm", (3, 61, 72, 64)),
+             ("mm", (100, 202, 1002)))
 RAGGED_SHAPES = (("mm", (61, 126, 37)), ("mm", (1, 300, 77)),
                  ("bmm", (3, 61, 126, 37)), ("bmm", (5, 7, 33, 130)))
 #: the skinny kernel at every row count up to 16: N, and a K that no split
@@ -645,6 +651,8 @@ def reset_counts() -> None:
         mod.launches = 0
         for variant in getattr(mod, "variants", {}):
             mod.variants[variant] = 0
+        if hasattr(mod, "tiled_why"):
+            mod.tiled_why.clear()
 
 
 def read_counts() -> dict:
@@ -691,39 +699,39 @@ def padded(torch, a):
     return rows
 
 
-#: the skinny kernel's limits, as its documentation states them
-#: (csrc/widesa_mm.cu, runtime.py): K is split over at most 8 blocks of a
-#: cluster (the portable size), in whole ring stages of 128 bytes of K,
-#: and a block stages at most 96 KiB of A (rows x its K range)
-SKINNY_LIMITS = {"cluster": 8, "stage_bytes": 128, "a_bytes": 96 * 1024}
+def tc_kernel(a_copy: int, b_copy: int) -> str:
+    """The kernel the runtime must pick for more than 16 rows of a float A
+    from the widest copy (16, 8, 4 or 0 bytes) that A's and B's rows
+    allow, on fresh 16-byte aligned operands whose pitch is their rows'
+    length (or padded rows, 16): the tensor-core kernel fed by TMA where
+    both allow 16 bytes, by cp.async copies (``wgmma_cp``) where the
+    narrower allows 8 or 4, else the tiled kernel."""
+    if min(a_copy, b_copy) == 16:
+        return "wgmma"
+    return "wgmma_cp" if min(a_copy, b_copy) >= 4 else "tiled"
 
 
 def serving_kernel(site: str, shape, tied: bool = True) -> str:
     """The kernel the runtime must pick for a serving GEMM (bf16, or
     float32 at the MoE router; fresh 16-byte aligned operands, A
     contiguous or, for the values, in padded rows): the skinny kernel for
-    at most 16 rows of A where B's rows allow 4-byte copies and A's stage
-    fits at the largest split (``SKINNY_LIMITS``: m x ceil(K / 8 / bk) x
-    bk elements, bk = 128 bytes of K; qwen3-32b's down projection of a
-    16-token prompt, K = 25600, stages 100 KiB and does not), the
-    tensor-core kernel for more rows where TMA can address A's and B's
-    rows (whole 16-byte units), else the tiled kernel.  The rule is
-    stated here, not asked of ``runtime.skinny_tile``, so that the check
-    holds the runtime's split search to it."""
+    at most 16 rows of A, at any K (A streams through its ring beside B:
+    qwen3-32b's down projection of a 16-token prompt, K = 25600,
+    included), where B's rows allow 4-byte copies; for more rows
+    ``tc_kernel``; else the tiled kernel.  The rule is stated here, not
+    asked of ``runtime.gemm_tile``, so that the check holds the runtime to
+    it."""
     from repro_torch.kernels import runtime
 
     m, n, k = shape[-3:]
     size = 4 if site_dtype(site) == "float32" else 2
     inner = k if col_major_site(site, shape, tied) else n
     if m <= runtime.SKINNY_ROWS:
-        bk = SKINNY_LIMITS["stage_bytes"] // size
-        rank_k = -(-k // (SKINNY_LIMITS["cluster"] * bk)) * bk
-        fits = m * rank_k * size <= SKINNY_LIMITS["a_bytes"]
-        return "skinny" if fits and runtime.copy_bytes(0, size * inner) >= 4 \
+        return "skinny" if runtime.copy_bytes(0, size * inner) >= 4 \
             else "tiled"
-    whole = (padded_site(site) or runtime.copy_bytes(0, size * k) == 16) \
-        and runtime.copy_bytes(0, size * inner) == 16
-    return "wgmma" if whole else "tiled"
+    return tc_kernel(16 if padded_site(site)
+                     else runtime.copy_bytes(0, size * k),
+                     runtime.copy_bytes(0, size * inner))
 
 
 def check_routes(path: str, report: dict, variants: dict,
@@ -751,7 +759,7 @@ def check_routes(path: str, report: dict, variants: dict,
         fail(f"{path}: GEMM launches by kernel {got}, the shapes call for "
              f"{want} (tiled: {why})")
     return (f"tiled launches {sum(g.get('tiled', 0) for g in got.values())}"
-            f", each for rows neither other kernel takes: {why}" if why
+            f", each for rows allowing no 4-byte copy: {why}" if why
             else "no tiled launch")
 
 
@@ -876,7 +884,8 @@ def describe(tile, kind=None, shape=None) -> str:
     from repro_torch.kernels import runtime
 
     if isinstance(tile, runtime.TcTile):
-        text = (f"wgmma {tile.bm}x{tile.bn} split {tile.split} stages "
+        name = "wgmma_cp" if tile.producer == "cp" else "wgmma"
+        text = (f"{name} {tile.bm}x{tile.bn} split {tile.split} stages "
                 f"{tile.stages}")
         if shape is not None:
             (m, n), z = shape[-3:-1], (shape[0] if kind == "bmm" else 1)
@@ -1086,10 +1095,12 @@ def tc_parity(torch) -> None:
     """The tensor-core kernels against their plain version (``tc_cases``)
     in bf16 -> bf16, bf16 -> fp32, float32 and the three integer dtypes,
     each B layout, on the configuration the runtime picks: ``wgmma``
-    wherever TMA can address the operands (else the tiled kernel), every
-    launch counted there; two runs of split-K products bitwise equal; a
-    one-TF32 control (the plain version with TF32 GEMMs) must fail
-    float32's atol at quickstart's 1024^3."""
+    wherever TMA can address the operands or they are integers,
+    ``wgmma_cp`` where a float operand TMA cannot address allows 8- or
+    4-byte copies (else the tiled kernel), every launch counted there;
+    two runs of split-K products bitwise equal; a one-TF32 control (the
+    plain version with TF32 GEMMs) must fail float32's atol at
+    quickstart's 1024^3."""
     from collections import Counter
 
     from repro_torch.kernels import bmm, ref, runtime, widesa_mm
@@ -1105,9 +1116,14 @@ def tc_parity(torch) -> None:
                 if pad:
                     a = padded(torch, a)
                 fn, tiles = kernel_call(kind, shape, dtype, a, b, out_dtype)
-                tma = runtime.tma_operand(a, runtime.a_pitch(a)) and \
-                    runtime.tma_operand(b, shape[-1] if col else shape[-2])
-                want_kernel = "wgmma" if tma else "tiled"
+                # floats by the rows' alignment (``tc_kernel``: fresh
+                # operands, A's rows padded or K long, B's K or N); the
+                # integers' limb pre-pass reads any
+                size = dtype.itemsize
+                want_kernel = tc_kernel(
+                    16 if pad else runtime.copy_bytes(0, size * shape[-1]),
+                    runtime.copy_bytes(0, size * shape[-1 if col else -2])) \
+                    if dtype.is_floating_point else "wgmma"
                 mod = widesa_mm if kind == "mm" else bmm
                 before = dict(mod.variants)
                 out = fn(a, b)
@@ -1162,8 +1178,8 @@ def tc_parity(torch) -> None:
           f"GEMMs at P = {TC_PROMPTS} with the values' A in padded rows, "
           f"quickstart's {QUICKSTART[1]}, ragged {TC_RAGGED}; x "
           f"{len(TC_DTYPES)} dtype pairs x 2 B layouts): "
-          f"launches by kernel {dict(routes)} (tiled: rows TMA cannot "
-          f"address); max |err| by dtype {({k: f'{v:.4g}' for k, v in worst.items()})} "
+          f"launches by kernel {dict(routes)} (wgmma_cp: rows TMA cannot "
+          f"address, by cp.async copies); max |err| by dtype {({k: f'{v:.4g}' for k, v in worst.items()})} "
           f"(fp32 <= 1e-3, bf16 <= 2^-7|ref| + 1e-3, integers exact); "
           f"bitwise equal on two "
           f"runs: {same}; one-TF32 control max |err| {err:.4g} > 1e-3 "
@@ -1562,19 +1578,18 @@ def tile_sweep(torch) -> list[dict]:
 def skinny_splits(torch, kind, a, b) -> dict:
     """Device ms (profiler) of the skinny kernel on ``a @ b`` with each
     split of K over 1-8 blocks of a cluster that the kernel takes (no rank
-    empty, A's range within ``runtime.SKINNY_A_BYTES``)."""
+    empty)."""
     from repro_torch.kernels import runtime
 
     fn = gemm_fn(kind)
-    m, k = a.shape[-2:]
+    k = a.shape[-1]
     bk = runtime.skinny_bk(a.dtype)
     stages = -(-k // bk)
     splits = {}
     for split in range(1, min(runtime.SKINNY_MAX_CLUSTER, stages) + 1):
         kblk = -(-stages // split) * bk
         tile = runtime.SkinnyTile(split=-(-k // kblk), kblk=kblk)
-        if tile.split == split \
-                and m * kblk * a.element_size() <= runtime.SKINNY_A_BYTES:
+        if tile.split == split:
             splits[split] = device_ms(
                 torch, lambda t=tile: fn(a, b, tiles=t), "skinny_kernel")
     return splits
@@ -2445,7 +2460,7 @@ def load_paged(torch, eng, params, label, tied: bool = True,
 
 
 def gemm_counts() -> dict:
-    return {w: dict.fromkeys(("skinny", "wgmma", "tiled"), 0)
+    return {w: dict.fromkeys(("skinny", "wgmma", "wgmma_cp", "tiled"), 0)
             for w in GEMM_WRAPPERS}
 
 
@@ -2500,7 +2515,11 @@ def missing(got: dict, want: dict) -> int:
     place, which no dropped record explains)."""
     short = 0
     for w in GEMM_WRAPPERS:
-        for k, n in want[w].items():
+        # a trace names gemm_tc_kernel alone, whichever producer filled
+        # its ring: its cp.async launches count as wgmma there
+        want_w = dict(want[w])
+        want_w["wgmma"] = want_w.get("wgmma", 0) + want_w.pop("wgmma_cp", 0)
+        for k, n in want_w.items():
             if got[w][k] > n:
                 fail(f"the trace shows GEMM launches {got}, more than "
                      f"{want}")
@@ -3568,6 +3587,18 @@ def sum_bound(torch, kind, a, b):
     return 8 * math.sqrt(k) * 2.0 ** -24 * rms.double()
 
 
+#: shapes that ran on the tiled kernel until its work moved to the skinny
+#: kernel (A streamed through the ring) and to gemm_tc_kernel (whisper's
+#: scores dB: its B, the cotangent, in the padded rows dA's A is cast
+#: into, by TMA): ``gemm_timings`` times the tiled kernel beside them, and
+#: the new route must not be the slower (else the shape goes back to the
+#: tiled kernel); a row with ``PAD_BOTH`` also times B in its own rows,
+#: which gemm_tc_kernel's cp.async producer reads
+MOVED_OFF_TILED = (("mm", (16, 5120, 25600)), ("bmm", (32, 64, 1500, 1500)))
+#: a timed row's "A in padded rows" field where B's rows are padded too
+PAD_BOTH = "A and B"
+
+
 def gemm_timings(torch, timed=LONG_SHAPES, seed=12,
                  long_sums=False) -> dict:
     """The GEMMs of ``timed`` (``LONG_SHAPES``' layout) on the runtime's
@@ -3591,6 +3622,9 @@ def gemm_timings(torch, timed=LONG_SHAPES, seed=12,
         a, bs = rotation(torch, gen, kind, shape, col, dtype)
         if pad:
             a = padded(torch, a)
+        own_rows = bs[0]
+        if pad == PAD_BOTH:
+            bs = [padded(torch, x) for x in bs]
         b = bs[0]
         fn, tiles = kernel_call(kind, shape, dtype, a, b, out_dtype)
         kernel = ("skinny_kernel"
@@ -3613,6 +3647,16 @@ def gemm_timings(torch, timed=LONG_SHAPES, seed=12,
             ok = bool(((out.double() - want.double()).abs()
                        <= 2.0 ** -7 * want.double().abs() + 1e-3
                        + sum_bound(torch, kind, a, b)).all())
+        if pad == PAD_BOTH:
+            # B in its own rows: the route a caller without the padded
+            # cast takes, held to the same plain result
+            own, own_tiles = kernel_call(kind, shape, dtype, a, own_rows,
+                                         out_dtype)
+            own_err, own_ok = max_error(torch, own(a, own_rows), want,
+                                        out.dtype)
+            if not own_ok:
+                fail(f"{site} {kind}{shape}, B in its own rows: max |err| "
+                     f"{own_err}")
         del want
         if not ok:
             fail(f"{site} {kind}{shape}: max |err| {err}")
@@ -3639,19 +3683,41 @@ def gemm_timings(torch, timed=LONG_SHAPES, seed=12,
         lib_ms = row["library_device_ms"]
         row["library_ms"] = lib_ms if lib_ms is not None \
             and lib_ms >= row["bound_ms"] else row["library_event_ms"]
+        moved = ""
+        if (kind, shape) in MOVED_OFF_TILED:
+            # CUDA events: milliseconds a call, far above the host's
+            # launch rate
+            tiled, tile = tiled_call(kind, shape, dtype, col, out_dtype)
+            row["tiled_ms"] = time_ms(torch, cycling(tiled, a, bs), reps=5,
+                                      warmup=1)
+            moved = (f"; the tiled kernel {tuple(tile)} it left "
+                     f"{fmt_ms(row['tiled_ms'])} (CUDA events)")
+            if pad == PAD_BOTH:
+                row["own_rows_ms"] = device_ms(
+                    torch, lambda: own(a, own_rows), kernel, reps)
+                moved += (f"; B in its own rows on "
+                          f"{describe(own_tiles.tile, kind, shape)} "
+                          f"{fmt_ms(row['own_rows_ms'])} (profiler; max "
+                          f"|err| {own_err:.4g})")
+            if row["ms"] is not None and row["tiled_ms"] is not None \
+                    and row["ms"] > row["tiled_ms"]:
+                fail(f"{site} {kind}{shape}: {kernel} {row['ms']} ms is "
+                     f"slower than the tiled kernel's {row['tiled_ms']} ms")
         rows[(kind, shape)] = row
         print(f"time {kind}{shape} {dname}{'->fp32' if flush else ''} "
               f"[{site}] {describe(tiles.tile, kind, shape)}"
               f"{', B column-major' if col else ''}"
-              f"{', A in padded rows' if pad else ''}: device (profiler; "
+              f"{', A in padded rows' if pad is True else ''}"
+              f"{', A and B in padded rows' if pad == PAD_BOTH else ''}"
+              f": device (profiler; "
               f"{len(bs)} B operand(s)) {kernel} {fmt_ms(row['ms'])}, "
               f"torch.{lib.__name__} {fmt_ms(row['library_ms'])} (profiler "
               f"{fmt_ms(lib_ms)}, CUDA events "
               f"{row['library_event_ms']:.4f} ms), bound "
               f"{row['bound_ms']:.4f} ms ({row['bound_by']}); plain "
-              f"{row['plain_ms']:.4f} ms (CUDA events); max |err| {err:.4g}",
-              flush=True)
-        del a, b, bs, out
+              f"{row['plain_ms']:.4f} ms (CUDA events); max |err| {err:.4g}"
+              f"{moved}", flush=True)
+        del a, b, bs, out, own_rows
     return rows
 
 
@@ -4252,7 +4318,7 @@ def ssm_phase(torch, device_name: str) -> dict:
 DENSE_ARCHS = {"llava": "llava-next-mistral-7b", "stablelm": "stablelm-12b",
                "codeqwen": "codeqwen1.5-7b", "qwen3": "qwen3-32b"}
 #: its prompts, 8 new tokens each: four short (16 tokens take qwen3-32b's
-#: down projection, K = 25600, past the skinny kernel's stage of A) and
+#: down projection, K = 25600, onto the skinny kernel at its longest K) and
 #: four long, on engines of this horizon (512 + 8 tokens in whole blocks of
 #: ``PAGED_BLOCK``; llava's requests add their patch rows)
 DENSE_SHORT = (4, 9, 13, 16)
@@ -4614,7 +4680,8 @@ BWD_SITES = {"mm": ("/bwd_dx", "/bwd_dw"), "bmm": ("/bwd_da", "/bwd_db"),
              "pair": ("/bwd_up", "/bwd_dwd", "/bwd_dh", "/bwd_dwu",
                       "/bwd_dx")}
 #: the backward GEMMs timed (``LONG_SHAPES``' layout: site, kind, shape, B
-#: column-major, A in padded rows, flushed to fp32, dtype), by path: qwen's
+#: column-major, A (or, ``PAD_BOTH``, A and B) in padded rows, flushed to
+#: fp32, dtype), by path: qwen's
 #: weight gradients (K = the step's 4096 tokens, A = x^T copied), the tied
 #: lm_head's dx (K = 151936) and dW, the scores' and values' da / db at
 #: 512 tokens; whisper-base's encoder scores' da / db over 1500 frames
@@ -4641,7 +4708,7 @@ TRAIN_SHAPES = {
         ("attn.scores/bwd_da, encoder", "bmm", (32, 1500, 64, 1500), False,
          True, False, "bfloat16"),
         ("attn.scores/bwd_db, encoder", "bmm", (32, 64, 1500, 1500), False,
-         True, False, "bfloat16"),
+         PAD_BOTH, False, "bfloat16"),
     ),
     # mamba2 at grad_accum 2: a microbatch of 4 x 512 tokens
     "mamba2_train": (
@@ -4720,15 +4787,22 @@ def check_train_sites(label: str, report: dict) -> list:
 
 
 def train_launches(label: str, cfg, launches: dict, variants: dict) -> dict:
-    """A train run's launches: only GEMMs, and on a dense model none on
-    the tiled kernel (every operand is TMA-addressable); returns the
-    GEMM launches by kernel."""
+    """A train run's launches: only GEMMs, and, in every family, none on
+    the tiled kernel but for an operand it keeps (a B whose rows allow no
+    4-byte copy, an integer K past 8 ranks' reach: the wrappers'
+    ``widesa_mm.tiled_why``, both wrappers', since the counts were set
+    to 0; a training path's A
+    whose rows allow none comes padded by the facade); returns the GEMM
+    launches by kernel."""
+    from repro_torch.kernels import runtime
+
     gemms = {w: {k: n for k, n in variants[w].items() if n}
              for w in GEMM_WRAPPERS}
-    if cfg.family == "dense" and any(variants[w]["tiled"]
-                                     for w in GEMM_WRAPPERS):
-        fail(f"{label}: tiled GEMM launches {gemms}: every operand of "
-             "this path is TMA-addressable")
+    kept = {runtime.TILED_B_ROWS, runtime.TILED_INT_K}
+    why = dict(wrappers()["widesa_mm"].tiled_why)
+    if set(why) - kept:
+        fail(f"{label}: tiled GEMM launches {gemms} for {why}: only an "
+             f"operand of {sorted(kept)} may take the tiled kernel")
     if any(launches[k] for k in launches if k not in GEMM_WRAPPERS):
         fail(f"{label}: non-GEMM kernels launched: {launches}")
     return gemms
@@ -6210,7 +6284,8 @@ def fft_bench_timing(torch) -> dict:
     routes = {v: widesa_mm.variants[v] - before[v] for v in before}
     want = ref.fft2d(re_, im_)
     err = max((g - w).abs().max().item() for g, w in zip(got, want))
-    if err > spec.atol or routes != {"skinny": 0, "wgmma": 6, "tiled": 0}:
+    if err > spec.atol or routes != {"skinny": 0, "wgmma": 6, "wgmma_cp": 0,
+                                     "tiled": 0}:
         fail(f"fft2d{shape} bench: max |err| {err} (atol {spec.atol}), "
              f"GEMM launches by kernel {routes}")
     del got, want
@@ -8285,10 +8360,13 @@ def main(argv=None) -> int:
     rows.update(sp_timings(torch))
     print("kernels: widesa_mm (B1, widesa_mm.py mm_kernel -> cuda), bmm "
           "(B2, bmm.py bmm_kernel -> cuda) in " + SOURCE + " (skinny_kernel "
-          "for M <= 16, gemm_tc_kernel on wgmma above in bf16 and float32, "
+          "for M <= 16 at any K, gemm_tc_kernel on wgmma above in bf16 and "
+          "float32, its ring filled by TMA (wgmma) or, for an operand TMA "
+          "cannot address, by cp.async copies (wgmma_cp), "
           "gemm_tc_int_kernel on wgmma above in int8, int16 and int32 after "
-          "limb_planes_kernel, both counted as wgmma; gemm_kernel tiled for "
-          "the rest); fir (B3, fir.py fir_kernel "
+          "limb_planes_kernel (counted as wgmma); gemm_kernel tiled for B "
+          "rows that allow no 4-byte copy and integer K past 8 ranks); "
+          "fir (B3, fir.py fir_kernel "
           "-> cuda: fir_kernel, compiled 15 taps and a generic "
           "instantiation, real and complex (fir_complex, ops.fir_complex, "
           "one launch)), conv2d (B5, conv2d.py conv_kernel -> cuda: "

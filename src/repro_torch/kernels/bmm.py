@@ -19,9 +19,9 @@ from . import ref, runtime
 from .widesa_mm import check_operands, launch
 
 launches = 0
-#: launches by kernel: ``skinny`` (M <= 16), ``wgmma`` (the tensor-core
-#: kernels, floats and integers) and ``tiled``
-variants = {"skinny": 0, "wgmma": 0, "tiled": 0}
+#: launches by kernel, as ``widesa_mm.variants``: ``skinny``, ``wgmma``,
+#: ``wgmma_cp`` and ``tiled``
+variants = {"skinny": 0, "wgmma": 0, "wgmma_cp": 0, "tiled": 0}
 
 
 def bmm(a: torch.Tensor, b: torch.Tensor, *, tiles,

@@ -139,8 +139,9 @@ MTTKRP_TILE = (64, 64)
 _ENTRIES = {
     # the GEMMs: (batch,) shape, A's row pitch, B's layout, pitch and (bmm)
     # batch stride, dtypes, then the tiled kernel's tile; the skinny
-    # kernel's split, K range per block, B's copy width and A's vector
-    # flag; the tensor-core kernel's output tile, ring stages and split of K
+    # kernel's split, K range per block, B's and A's copy widths; the
+    # tensor-core kernel's output tile, ring stages, split of K and A's and
+    # B's producer (0: TMA, else the cp.async copy width)
     "widesa_mm_launch": ("widesa_mm", [ctypes.c_void_p] * 3
                          + [ctypes.c_int] * 11 + [ctypes.c_void_p]),
     "widesa_bmm_launch": ("widesa_mm", [ctypes.c_void_p] * 3
@@ -151,7 +152,7 @@ _ENTRIES = {
                              + [ctypes.c_int] * 6 + [ctypes.c_void_p]),
     "widesa_tc_launch": ("widesa_mm", [ctypes.c_void_p] * 3
                          + [ctypes.c_int] * 7 + [ctypes.c_longlong]
-                         + [ctypes.c_int] * 6 + [ctypes.c_void_p]),
+                         + [ctypes.c_int] * 8 + [ctypes.c_void_p]),
     # the integer tensor-core GEMM: A, B, C and the limb planes' scratch,
     # then the shape, B's layout, pitch and batch stride, the input dtype
     # and the configuration

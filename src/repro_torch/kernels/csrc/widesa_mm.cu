@@ -4,14 +4,17 @@
 //   * src/repro/kernels/widesa_mm.py:92  mm_kernel   (C[m,n] = A[m,k] @ B[k,n])
 //   * src/repro/kernels/bmm.py:74        bmm_kernel  (C[b]   = A[b]   @ B[b])
 // Both become one family with a batch grid dimension; mm is the batch = 1
-// launch.  Four kernels serve it: skinny_kernel for A of at most 16 rows
-// (every decode GEMM, short prompts), gemm_tc_kernel for A of more rows in
-// bf16 and float32 (prefill of real prompt lengths, the recurrence path's
-// float GEMMs), gemm_tc_int_kernel for A of more rows in int8, int16 and
-// int32 (the recurrence path's integer GEMMs, the paper's MM/BMM table), and
-// gemm_kernel (tiled) for operands the others cannot take (rows of B not
-// 4-byte aligned for the skinny kernel; bases or rows that TMA cannot address
-// for the tensor-core kernels; a K longer than the integer sets admit).
+// launch.  Four kernels serve it: skinny_kernel for A of at most 16 rows at
+// any K (every decode GEMM, short prompts, products over long contexts),
+// gemm_tc_kernel for A of more rows in bf16 and float32 (prefill of real
+// prompt lengths, the backward passes, the recurrence path's float GEMMs),
+// its ring filled by TMA or, for an operand TMA cannot address, by cp.async,
+// gemm_tc_int_kernel for A of more rows in int8, int16 and int32 (the
+// recurrence path's integer GEMMs, the paper's MM/BMM table), and
+// gemm_kernel (tiled) for the two cases the others cannot take: rows of B
+// (or, above 16 rows, of A) that allow no 4-byte copy (an odd row of 2-byte
+// elements, a storage offset of one element), and an integer K longer than
+// 8 ranks' accumulator sets admit.
 //
 // Translation.  On the TPU the grid (b, i, j, k) runs in order on one core
 // and the k dimension ("arbitrary") carries an fp32/int32 accumulator in VMEM
@@ -42,10 +45,15 @@
 //     or 4 otherwise); a stage is 4 KB, 128 bytes of each of 32 rows, and
 //     neighbouring threads copy neighbouring 16-byte runs in both layouts
 //     (along N for a row-major B, along K for the column-major lm_head).
-//     Three stages are in flight per block while the oldest is consumed, and
-//     small blocks let several share an SM.  A (at most 16 x the block's K
-//     range) is staged once per block, by cp.async where its rows are 16-byte
-//     aligned and by plain loads otherwise, in the same first group.
+//     Three stages are in flight per block while the oldest is consumed;
+//     four blocks share an SM where B is row-major and the grid takes more
+//     than one wave (kSkinnySmemFloor), as many as fit (seven in bf16)
+//     otherwise.  A streams through the same ring: a stage carries A's m
+//     rows of the same 128 bytes of K (at most 2 KB) beside B's 4 KB, by
+//     cp.async at the width A's rows allow (16, 8 or 4 bytes) and by plain
+//     loads where they allow none, so no K is too long (qwen3-32b's down
+//     projection of a 16-token prompt, K = 25600; decode products over half
+//     a million keys).
 //   * Arithmetic that keeps up.  At M = 16 bf16 needs 8 FMAs per byte of B,
 //     near the CUDA cores' fp32 peak, so bf16 runs on the tensor cores:
 //     mma.sync.m16n8k16 with fp32 accumulation, A's missing rows read as
@@ -79,7 +87,7 @@
 //     tensor (the tied lm_head, the attention scores' keys) and MN-major
 //     (the "transposed" descriptor, which 16-bit types allow) when it is
 //     row-major (weights, the attention values).
-//   * TMA.  One producer warp keeps a ring of up to 4 stages filled with
+//   * TMA.  A producer thread keeps a ring of up to 4 stages filled with
 //     cp.async.bulk.tensor copies, each stage one 128-byte row of K (64 bf16)
 //     for every row of A's and B's tiles, completing on an mbarrier; the
 //     consumers release a stage through a second mbarrier once the products
@@ -89,7 +97,14 @@
 //     need no padding copies.  The maps are encoded on the host at each
 //     launch (cuTensorMapEncodeTiled, looked up at run time through the
 //     runtime's entry-point query, so the library links the CUDA runtime
-//     alone).
+//     alone).  TMA needs a 16-byte aligned base, pitch and batch stride; an
+//     operand without (the bf16 cotangent of whisper's encoder scores,
+//     rows of 1500 keys: 3000 bytes) the two producer warps' 64 threads
+//     copy instead by cp.async, 8 or 4 bytes a copy as its rows allow, each
+//     copy written where TMA's swizzle would put it and zero-filled past M,
+//     N and K, completing on the same mbarrier (cp.async.mbarrier.arrive
+//     .noinc); the consumers then order those generic-proxy writes before
+//     wgmma's reads with a proxy fence.  The other operand keeps TMA.
 //   * The grid.  runtime.tc_tile takes BN = 64 but for wide N (gate/up) and
 //     splits K over the blocks of a cluster (at most 4) while the grid stays
 //     within one block an SM: more blocks, each with fewer bytes to pull.
@@ -148,7 +163,7 @@
 //     operands to TMA and wgmma from shared memory, and costs a few percent
 //     of the products' time at the paper's shapes (its launch costs more
 //     than that at the pipeline's smoke shapes; PERF.md).
-//   * The rest is gemm_tc_kernel's: a producer warp keeps a 4-stage TMA ring
+//   * The rest is gemm_tc_kernel's: a producer thread keeps a 4-stage TMA ring
 //     full (k-tiles of 128 bytes, 128-byte swizzle, zero fill past M, N and
 //     K), two consumer warpgroups of 64 rows, K split over a cluster whose
 //     partial tiles meet in shared memory; unsplit, the consumers store C
@@ -158,12 +173,15 @@
 //     grid walks its tiles in groups of 16 row tiles, down a group's rows
 //     before its next column, so that a wave of blocks reuses A through the
 //     L2 (10240^2 int8 is twice the L2).
-// Operands TMA cannot address (a base not 16-byte aligned, rows that are not
-// whole 16-byte units) stay on gemm_kernel.
+// An operand TMA cannot address (a base, pitch or batch stride not 16-byte
+// aligned: int8 rows of 72 bytes) goes through the pre-pass too, which
+// reads it a value at a time and writes planes TMA addresses.
 //
 // gemm_kernel is the first, simple tiled kernel: scalar loads staged through
-// shared memory, no tensor cores.  It stays for operands no other kernel
-// takes and as the tile sweep's subject.
+// shared memory, no tensor cores.  It keeps two cases: a B (or, above 16
+// rows, an A a caller did not pad) whose rows allow no 4-byte copy, and an
+// integer K past 8 ranks of kTc*MaxRankK; and it stays as the tile sweep's
+// subject.
 //
 // Arithmetic.  Float inputs accumulate in fp32 (full IEEE FMA on the CUDA
 // cores; fp32 accumulation on the tensor cores for bf16); bf16 operands widen
@@ -382,25 +400,43 @@ int launch(int in_dtype, int out_dtype, int bm, int bn, int bk, const Args& x) {
 constexpr int kSkinnyRows = 16;       // rows of A at most: one m16n8k16 tile
 constexpr int kSkinnyBN = 32;         // columns a block computes: 4 warps x 8
 constexpr int kSkinnyThreads = 128;
-constexpr int kSkinnyStages = 4;      // depth of the B ring
+constexpr int kSkinnyStages = 4;      // depth of the ring (A and B)
 constexpr int kSkinnyRunBytes = 128;  // bytes of K a stage holds (BK * sizeof)
 constexpr int kSkinnyMaxCluster = 8;  // the portable cluster size
 constexpr int kSkinnyPad = 16;        // bytes padding each shared-memory row
 constexpr int kSkinnyMaxSmem = 232448;
+// The least shared memory a block takes where B is row-major and the grid
+// is more than one wave at the block's own size: the SM's 233472 bytes
+// over four blocks, less the 1 KB each reserves, so that at most four
+// blocks share an SM.  A block needs ~30 KB (its ring and partial tile),
+// and seven would fit; on an H100 seven blocks an SM ran a row-major B,
+// read 64 bytes a row, slower than four where the grid takes waves anyway
+// (the untied heads, 4748 blocks, and the expert stack at decode).  A grid
+// that one wave of seven holds keeps it (deepseek's q_up, 768 blocks, would
+// take a second wave at four); so does a column-major B, read 128 bytes a
+// column of K (the tied lm_head), which ran faster at seven.
+constexpr int kSkinnySmemFloor = 233472 / 4 - 1024;
 
 template <typename TIn> struct Skinny {
   static constexpr int BK = kSkinnyRunBytes / (int)sizeof(TIn);
   static constexpr int E = 16 / (int)sizeof(TIn);  // elements of a 16-byte run
-  // a stage of a row-major B: BK rows of BN columns; of a column-major B: BN
-  // rows (columns of B) of BK; every row padded by kSkinnyPad bytes
+  // a stage: A's rows, then B's tile.  A: kSkinnyRows rows of BK (one
+  // 128-byte run of K each); B row-major: BK rows of BN columns; B
+  // column-major: BN rows (columns of B) of BK; every row padded by
+  // kSkinnyPad bytes
   static constexpr int kRowPitch = kSkinnyBN * (int)sizeof(TIn) + kSkinnyPad;
   static constexpr int kColPitch = kSkinnyRunBytes + kSkinnyPad;
-  static constexpr int kStageBytes =
+  static constexpr int kAPitch = kColPitch / (int)sizeof(TIn);  // elements between A's rows
+  static constexpr int kABytes = kSkinnyRows * kColPitch;
+  static constexpr int kBBytes =
       BK * kRowPitch > kSkinnyBN * kColPitch ? BK * kRowPitch : kSkinnyBN * kColPitch;
-  static constexpr int kChunks = kSkinnyBN * kSkinnyRunBytes / 16;  // 16-byte runs a stage
+  static constexpr int kStageBytes = kABytes + kBBytes;
+  static constexpr int kChunks = kSkinnyBN * kSkinnyRunBytes / 16;  // 16-byte runs of B a stage
   static_assert(kChunks % kSkinnyThreads == 0, "a stage does not split over the block");
+  // A's values a thread loads a stage where its rows allow no 4-byte copy
+  static constexpr int kAPlain = kSkinnyRows * BK / kSkinnyThreads;
   static constexpr bool kMma = std::is_same<TIn, __nv_bfloat16>::value;  // tensor cores
-  static_assert(kStageBytes % 16 == 0, "stages must stay 16-byte aligned");
+  static_assert(kABytes % 16 == 0 && kStageBytes % 16 == 0, "stages must stay 16-byte aligned");
 };
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -456,16 +492,17 @@ __device__ __forceinline__ void copy_run(unsigned dst, const T* row, int first, 
 }
 
 // Load stage `kbase` (the K offset of its first row) of the block's column
-// tile into the ring slot at shared address `slot`; rows of K at or past K
-// land as zeros.  The tensor cores read no row past K rounded up to 16 (the
-// depth of one product), so those rows are not copied; the CUDA-core path
-// reads whole stages.
+// tile of B into the ring slot at shared address `slot` (B's part of it);
+// rows of K at or past K land as zeros.  The tensor cores read no row past
+// K rounded up to 16 (the depth of one product), so those rows are not
+// copied; the CUDA-core path reads whole stages.
 template <typename TIn>
 __device__ __forceinline__ void load_stage(unsigned slot, const TIn* b, int n, int k, int ldb,
                                             int col0, int kbase, int b_col_major, int gran,
                                             int tid) {
   using S = Skinny<TIn>;
   const int kread = S::kMma ? (k + 15) & ~15 : 0x7fffffff;
+  slot += S::kABytes;
 #pragma unroll
   for (int q = tid; q < S::kChunks; q += kSkinnyThreads) {
     if (b_col_major) {  // B^T rows: 8 runs of K for each of the 32 columns
@@ -491,6 +528,40 @@ template <typename T> __device__ __forceinline__ T zero_of() { return T(0); }
 template <> __device__ __forceinline__ __nv_bfloat16 zero_of<__nv_bfloat16>() {
   return __float2bfloat16_rn(0.f);
 }
+
+// Load A's m rows of stage `kbase` into the slot at `slot` (A's part of it,
+// rows kAPitch elements apart): by cp.async in runs of a_gran bytes (16, 8
+// or 4) where A's rows allow it, else (a_gran 0) by plain loads, all of a
+// thread's issued before any is stored.  Columns at or past K land as
+// zeros; as for B, the tensor cores read none past K rounded up to 16.
+template <typename TIn>
+__device__ __forceinline__ void load_a_stage(unsigned slot, TIn* as, const TIn* a, int m, int k,
+                                              int lda, int kbase, int a_gran, int tid) {
+  using S = Skinny<TIn>;
+  const int kread = S::kMma ? (k + 15) & ~15 : 0x7fffffff;
+  if (a_gran) {
+    constexpr int kRuns = kSkinnyRunBytes / 16;  // 16-byte runs of a row a stage
+    for (int q = tid; q < m * kRuns; q += kSkinnyThreads) {
+      const int r = q / kRuns, first = kbase + q % kRuns * S::E;
+      if (first >= kread) continue;
+      copy_run(slot + r * S::kColPitch + q % kRuns * 16, a + (size_t)r * lda, first, k, a_gran,
+               a);
+    }
+    return;
+  }
+  TIn v[S::kAPlain];
+#pragma unroll
+  for (int u = 0; u < S::kAPlain; ++u) {
+    const int e = tid + u * kSkinnyThreads, r = e / S::BK, kk = kbase + e % S::BK;
+    v[u] = r < m && kk < k ? a[(size_t)r * lda + kk] : zero_of<TIn>();
+  }
+#pragma unroll
+  for (int u = 0; u < S::kAPlain; ++u) {
+    const int e = tid + u * kSkinnyThreads;
+    if (e / S::BK < m) as[e / S::BK * S::kAPitch + e % S::BK] = v[u];
+  }
+}
+
 
 __device__ __forceinline__ uint32_t lds32(const void* p) {
   return *static_cast<const uint32_t*>(p);
@@ -519,13 +590,13 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0, uint32_t a1
 
 // Grid: (column tiles x split, 1, batch), clusters of `split` blocks along x.
 // Block x reduces K range [rank * kblk, (rank + 1) * kblk) of column tile
-// x / split; a_vec says A's rows are 16-byte aligned; b_gran is the copy
-// width B's rows allow.
+// x / split; a_gran and b_gran are the copy widths A's and B's rows allow
+// (a_gran 0: plain loads of A).
 template <typename TIn, typename TOut>
 __global__ void __launch_bounds__(kSkinnyThreads)
 skinny_kernel(const TIn* __restrict__ a, const TIn* __restrict__ b, TOut* __restrict__ c, int m,
               int n, int k, int lda, int b_col_major, int ldb, long long sb, int split,
-              int kblk, int b_gran, int a_vec) {
+              int kblk, int b_gran, int a_gran) {
   using S = Skinny<TIn>;
   using Acc = typename Elem<TIn>::Acc;
   constexpr bool kMma = S::kMma;
@@ -542,48 +613,22 @@ skinny_kernel(const TIn* __restrict__ a, const TIn* __restrict__ b, TOut* __rest
   const int kend = min(k, k0 + kblk);
   const int nstages = (kend - k0 + S::BK - 1) / S::BK;
 
-  // shared memory: A [m][pitch_a], the ring, the partial tile [m][BN]
-  const int pitch_a = kblk + S::E;
-  TIn* as = reinterpret_cast<TIn*>(smem);
-  const int a_bytes = (m * pitch_a * (int)sizeof(TIn) + 15) / 16 * 16;
-  unsigned char* ring = smem + a_bytes;
+  // shared memory: the ring (each stage A's rows, then B's tile), the
+  // partial tile [m][BN]
+  unsigned char* ring = smem;
   Acc* part = reinterpret_cast<Acc*>(ring + kSkinnyStages * S::kStageBytes);
   const unsigned ring_addr = smem_addr(ring);
+  auto load = [&](int s) {  // stage s of this block's K range into its slot
+    const int slot = (s % kSkinnyStages) * S::kStageBytes;
+    load_stage(ring_addr + slot, b, n, k, ldb, col0, k0 + s * S::BK, b_col_major, b_gran, tid);
+    load_a_stage(ring_addr + slot, reinterpret_cast<TIn*>(ring + slot), a, m, k, lda,
+                 k0 + s * S::BK, a_gran, tid);
+  };
 
-  // A's copies join the first group; plain loads of A run while B's first
-  // stages are in flight.  Columns past K are zeros; the tensor cores read
-  // none past the block's K range rounded up to 16.
-  const int ka = kMma ? min(kblk, (kend - k0 + 15) & ~15) : kblk;
-  if (a_vec) {
-    for (int j = tid * S::E; j < ka; j += kSkinnyThreads * S::E) {
-      const bool ok = k0 + j < k;
-      for (int r = 0; r < m; ++r)
-        cp_async<16>(smem_addr(as + r * pitch_a + j), ok ? a + (size_t)r * lda + k0 + j : a, ok);
-    }
-  }
 #pragma unroll
   for (int s = 0; s < kSkinnyStages - 1; ++s) {
-    if (s < nstages)
-      load_stage(ring_addr + s * S::kStageBytes, b, n, k, ldb, col0, k0 + s * S::BK,
-                  b_col_major, b_gran, tid);
+    if (s < nstages) load(s);
     cp_commit();
-  }
-  if (!a_vec) {  // a column of A a thread: a batch of rows' loads in flight, then their stores
-    // (all 16 rows of bf16 at once, which a decode or prompt step needs; 8 of
-    // 4-byte values, which keeps the CUDA-core path's registers from spilling)
-    constexpr int kBatch = kMma ? kSkinnyRows : 8;
-    for (int j = tid; j < ka; j += kSkinnyThreads) {
-      const bool ok = k0 + j < k;
-      for (int r0 = 0; r0 < m; r0 += kBatch) {
-        TIn v[kBatch];
-#pragma unroll
-        for (int u = 0; u < kBatch; ++u)
-          v[u] = ok && r0 + u < m ? a[(size_t)(r0 + u) * lda + k0 + j] : zero_of<TIn>();
-#pragma unroll
-        for (int u = 0; u < kBatch; ++u)
-          if (r0 + u < m) as[(r0 + u) * pitch_a + j] = v[u];
-      }
-    }
   }
 
   float d[4] = {0.f, 0.f, 0.f, 0.f};  // the tensor-core path's sums (fp32 adds)
@@ -595,12 +640,11 @@ skinny_kernel(const TIn* __restrict__ a, const TIn* __restrict__ b, TOut* __rest
     cp_wait<kSkinnyStages - 2>();
     __syncthreads();
     const int next = s + kSkinnyStages - 1;
-    if (next < nstages)
-      load_stage(ring_addr + (next % kSkinnyStages) * S::kStageBytes, b, n, k, ldb, col0,
-                  k0 + next * S::BK, b_col_major, b_gran, tid);
+    if (next < nstages) load(next);
     cp_commit();
     const unsigned char* slot = ring + (s % kSkinnyStages) * S::kStageBytes;
-    const TIn* a_s = as + s * S::BK;
+    const TIn* a_s = reinterpret_cast<const TIn*>(slot);
+    slot += S::kABytes;  // B's tile
     if constexpr (kMma) {
       const int kn = kend - k0 - s * S::BK;  // rows of K in this stage (above BK: all)
       const int g = lane >> 2, cq = 2 * (lane & 3), l = lane & 15;
@@ -609,8 +653,8 @@ skinny_kernel(const TIn* __restrict__ a, const TIn* __restrict__ b, TOut* __rest
 #pragma unroll
       for (int kk = 0; kk < S::BK; kk += 16) {
         if (kk >= kn) break;
-        const TIn* lo = a_s + g * pitch_a + kk + cq;
-        const TIn* hi = lo + 8 * pitch_a;
+        const TIn* lo = a_s + g * S::kAPitch + kk + cq;
+        const TIn* hi = lo + 8 * S::kAPitch;
         const uint32_t a0 = g < m ? lds32(lo) : 0u;
         const uint32_t a1 = g + 8 < m ? lds32(hi) : 0u;
         const uint32_t a2 = g < m ? lds32(lo + 8) : 0u;
@@ -636,7 +680,7 @@ skinny_kernel(const TIn* __restrict__ a, const TIn* __restrict__ b, TOut* __rest
         const Acc bv = Elem<TIn>::load(bp);
 #pragma unroll
         for (int r = 0; r < kSkinnyRows; ++r)
-          if (r < m) acc[r] += Elem<TIn>::load(a_s + r * pitch_a + kk) * bv;
+          if (r < m) acc[r] += Elem<TIn>::load(a_s + r * S::kAPitch + kk) * bv;
       }
     }
   }
@@ -712,7 +756,7 @@ struct SkinnyArgs {
   void* c;
   int batch, m, n, k, lda, b_col_major, ldb;
   long long sb;
-  int split, kblk, b_gran, a_vec;
+  int split, kblk, b_gran, a_gran;
   cudaStream_t stream;
 };
 
@@ -725,20 +769,38 @@ int launch_skinny_typed(const SkinnyArgs& x) {
       x.lda < x.k || x.ldb < (x.b_col_major ? x.k : x.n) || x.sb < 0 || x.kblk < S::BK ||
       x.kblk % S::BK != 0 || (long long)x.split * x.kblk < x.k ||
       (long long)(x.split - 1) * x.kblk >= x.k ||
-      (x.b_gran != 16 && x.b_gran != 8 && x.b_gran != 4))
+      (x.b_gran != 16 && x.b_gran != 8 && x.b_gran != 4) ||
+      (x.a_gran != 16 && x.a_gran != 8 && x.a_gran != 4 && x.a_gran != 0) ||
+      (x.a_gran && (reinterpret_cast<uintptr_t>(x.a) % x.a_gran != 0 ||
+                    (long long)x.lda * (int)sizeof(TIn) % x.a_gran != 0 ||
+                    (long long)x.k * (int)sizeof(TIn) % x.a_gran != 0)))
     return (int)cudaErrorInvalidValue;
-  const int pitch_a = x.kblk + S::E;
-  const size_t smem = (size_t)(x.m * pitch_a * (int)sizeof(TIn) + 15) / 16 * 16 +
-                      (size_t)kSkinnyStages * S::kStageBytes +
+  const size_t need = (size_t)kSkinnyStages * S::kStageBytes +
                       (size_t)kSkinnyRows * kSkinnyBN * sizeof(Acc);
   const long long tiles = (x.n + kSkinnyBN - 1) / kSkinnyBN;
-  if (smem > (size_t)kSkinnyMaxSmem || tiles * x.split > 0x7fffffffLL || x.batch > 65535)
+  if (need > (size_t)kSkinnyMaxSmem || tiles * x.split > 0x7fffffffLL || x.batch > 65535)
     return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {  // dynamic shared memory above 48 KB is opt-in, per device
-    const cudaError_t allowed =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (allowed != cudaSuccess) return (int)allowed;
+  // dynamic shared memory above 48 KB is opt-in; then the blocks one wave
+  // holds at `need` bytes a block: both once a device
+  static long long wave[64] = {};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return (int)err;
+  long long fit = device < 64 ? wave[device] : 0;
+  if (!fit) {
+    int sms = 0, per_sm = 0;
+    if ((err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    kSkinnyMaxSmem)) != cudaSuccess ||
+        (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) !=
+            cudaSuccess ||
+        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kSkinnyThreads,
+                                                             need)) != cudaSuccess)
+      return (int)err;
+    fit = (long long)sms * per_sm;
+    if (device < 64) wave[device] = fit;
   }
+  const bool waves = !x.b_col_major && tiles * x.split * x.batch > fit;
+  const size_t smem = waves && need < (size_t)kSkinnySmemFloor ? (size_t)kSkinnySmemFloor : need;
 
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)(tiles * x.split), 1, (unsigned)x.batch);
@@ -752,10 +814,10 @@ int launch_skinny_typed(const SkinnyArgs& x) {
   cluster[0].val.clusterDim.z = 1;
   cfg.attrs = cluster;
   cfg.numAttrs = x.split > 1 ? 1 : 0;
-  const cudaError_t err = cudaLaunchKernelEx(
+  err = cudaLaunchKernelEx(
       &cfg, kernel, static_cast<const TIn*>(x.a), static_cast<const TIn*>(x.b),
       static_cast<TOut*>(x.c), x.m, x.n, x.k, x.lda, x.b_col_major, x.ldb, x.sb, x.split,
-      x.kblk, x.b_gran, x.a_vec);
+      x.kblk, x.b_gran, x.a_gran);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -779,7 +841,8 @@ int launch_skinny(int in_dtype, int out_dtype, const SkinnyArgs& x) {
 
 // kept equal to the TC_* constants of repro_torch/kernels/runtime.py
 constexpr int kTcConsumers = 256;                    // two consumer warpgroups
-constexpr int kTcThreads = kTcConsumers + 32;        // and one producer warp
+constexpr int kTcProducers = 64;  // two producer warps (gemm_tc_kernel's note says why)
+constexpr int kTcThreads = kTcConsumers + kTcProducers;
 constexpr int kTcRowBytes = 128;                     // bytes of K a stage holds: one swizzle row
 constexpr int kTcMaxStages = 4;                      // depth of the ring at most
 constexpr int kTcMaxCluster = 8;                     // the portable cluster size
@@ -799,7 +862,6 @@ template <typename TIn, int BM, int BN> struct Tc {
   static constexpr int kBBytes = BN * kTcRowBytes;
   // a stage: A's tile, B's tile and (float32) the low parts of A's tile
   static constexpr int kStageBytes = kABytes + kBBytes + (kF32 ? kABytes : 0);
-  static constexpr int kTxBytes = kABytes + kBBytes;  // what TMA brings a stage
   static constexpr int kAcc = (kF32 ? BM : BN) / 2;   // accumulators a thread
   static constexpr int kPartBytes = BM * (BN + 4) * 4;  // the fp32 partial tile, padded rows
   static_assert(kF32 ? BN == 128 && (BM == 64 || BM == 128) : BM == 128 && (BN == 64 || BN == 128),
@@ -891,6 +953,42 @@ __device__ __forceinline__ void tma_load(unsigned dst, const CUtensorMap* map, u
       "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(x), "r"(y), "r"(z)
       : "memory");
+}
+
+// The arrival of this thread on the barrier `bar` once every cp.async it
+// has issued is complete; the barrier's count includes it (noinc).
+__device__ __forceinline__ void cp_arrive_noinc(unsigned bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
+}
+
+// One stage of an operand TMA cannot address, copied by the producer
+// threads (pt of kTcProducers) in cp.async copies of W bytes (8 or 4) into
+// the 128-byte swizzled layout TMA would write at shared address `dst` (1
+// KB aligned): `rows` rows of 128 bytes, row r's 16-byte chunk c at chunk
+// c ^ (r & 7).  K-major (!MN: A, or B^T): row r holds 128 bytes of K from
+// column i0 of the operand's row o0 + r.  MN-major (MN: a row-major B):
+// boxes of E columns x E rows of K, row r holding columns i0 + r / E x E..
+// of K's row o0 + r % E.  Rows at or past `olim` and columns at or past
+// `ilim` land as zeros (src-size 0); a copy never straddles `ilim` (the
+// wrapper's copy width keeps the row's length, its pitch and its base
+// aligned).  A thread keeps one copy's place in a row and walks the rows
+// kTcProducers / P apart.
+template <int W, bool MN, typename T>
+__device__ __forceinline__ void cp_stage(unsigned dst, const T* src, int rows, long long ld,
+                                         int olim, int ilim, int o0, int i0, int pt) {
+  constexpr int P = kTcRowBytes / W;     // copies a row
+  constexpr int V = W / (int)sizeof(T);  // elements a copy
+  constexpr int E = kTcRowBytes / (int)sizeof(T);
+  static_assert(kTcProducers % P == 0, "a copy's place in a row must stay a thread's");
+  const int p = pt % P, chunk = p * W >> 4, low = p * W & 15;
+#pragma unroll 4
+  for (int r = pt / P; r < rows; r += kTcProducers / P) {
+    const int o = MN ? o0 + r % E : o0 + r;
+    const int i = (MN ? i0 + r / E * E : i0) + p * V;
+    const bool ok = o < olim && i < ilim;
+    cp_async<W>(dst + r * kTcRowBytes + ((chunk ^ (r & 7)) << 4 | low),
+                ok ? src + o * ld + i : src, ok);
+  }
 }
 
 // D (64 x 64 fp32, 32 values a thread) += A (64 x 16 bf16 at desc a) * B (16 x 64 bf16
@@ -1082,14 +1180,28 @@ __device__ __forceinline__ void tc_store(const TPart* part_tile, TOut* c, int m,
 // Grid: (row tiles x split, column tiles, batch), clusters of `split`
 // blocks along x: block x reduces k-tiles [rank * ktper, (rank + 1) * ktper)
 // of row tile x / split (a k-tile is one 128-byte row of K).  Warps 0-7 are
-// the two consumer warpgroups, warp 8 the producer: its first lane keeps
-// the ring of `stages` stages filled by TMA, each stage one k-tile of every
-// row of A's tile and of B's tile.  BCOL: B is the transpose of a row-major
-// [N, K] tensor (K-major), else row-major [K, N] (MN-major).
+// the two consumer warpgroups, warps 8 and 9 the producer: they keep the
+// ring of `stages` stages filled, each stage one k-tile of every row of A's
+// tile and of B's tile.  The first producer thread brings an operand TMA
+// can address (a_cp, b_cp 0) by TMA; an operand it cannot address (a_cp,
+// b_cp: the copy width, 8 or 4 bytes, its rows allow) all producer threads
+// copy by cp.async from `a` (rows lda apart, batch entries m lda apart) or
+// `b` (rows ldb apart, entries sb apart) into the same swizzled layout.
+// Issuing the copies bounds that route, not the bytes: a stage of B alone
+// is 1024-4096 copies, each a few instructions of addressing, and one warp
+// issued them slower than whisper's cotangent arrives.  Two warps issue
+// them in half the time and keep a 128 x 64 bf16 tile at two blocks an SM
+// (96 registers x 320 threads x 2 fit the SM's 65536); four would not, and
+// the tile then runs one block an SM.  On an H100 whisper's scores dB with
+// B by 8-byte copies ran 0.147 ms with one warp, 0.108 with two and 0.139
+// with four; TMA launches ran within 1.5 % of one warp with two.  BCOL: B is the transpose of a row-major [N, K] tensor
+// (K-major), else row-major [K, N] (MN-major).
 template <typename TIn, typename TOut, int BM, int BN, int BCOL>
 __global__ void __launch_bounds__(kTcThreads, 1)
 gemm_tc_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
-               TOut* __restrict__ c, int m, int n, int k, int stages, int split, int ktper) {
+               TOut* __restrict__ c, int m, int n, int k, int stages, int split, int ktper,
+               const TIn* __restrict__ a, const TIn* __restrict__ b, int lda, int ldb,
+               long long sb, int a_cp, int b_cp) {
   using G = Tc<TIn, BM, BN>;
   constexpr int E = G::kElems;
   extern __shared__ unsigned char smem_raw[];
@@ -1106,9 +1218,12 @@ gemm_tc_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ C
   const int kt0 = rank * ktper;
   const int nkt = max(0, min((k + E - 1) / E, kt0 + ktper) - kt0);  // this rank's k-tiles
 
+  const bool copies = a_cp || b_cp;  // the cp.async producer
   if (tid == 0) {
     for (int s = 0; s < stages; ++s) {
-      mbar_init(full + 8 * s, 1);                   // the producer's arrival, and TMA's bytes
+      // the first producer thread's arrival with TMA's bytes, and with
+      // copies each producer thread's once its copies are done
+      mbar_init(full + 8 * s, copies ? 1 + kTcProducers : 1);
       mbar_init(empty + 8 * s, kTcConsumers / 32);  // one arrival a consumer warp
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -1119,22 +1234,36 @@ gemm_tc_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ C
   float* part_tile = reinterpret_cast<float*>(smem);
   constexpr int kPitch = BN + 4;
 
-  if (warp == kTcConsumers / 32) {  // the producer
-    if (lane == 0) {
+  if (tid >= kTcConsumers) {  // the producer warps
+    const int pt = tid - kTcConsumers;  // this producer thread
+    if (copies || pt == 0) {
+      if (a_cp) a += (size_t)z * m * lda;
+      if (b_cp) b += (size_t)z * sb;
       for (int i = 0; i < nkt; ++i) {
         const int s = i % stages, kx = (kt0 + i) * E;
         if (i >= stages) mbar_wait(empty + 8 * s, (i / stages - 1) & 1);
         const unsigned a_s = base + s * G::kStageBytes, b_s = a_s + G::kABytes;
-        mbar_expect_tx(full + 8 * s, G::kTxBytes);
-        tma_load(a_s, &ta, full + 8 * s, kx, m0, z);
-        if (BCOL) {
-          tma_load(b_s, &tb, full + 8 * s, kx, n0, z);
-        } else {  // boxes of E columns x E rows of K, one after another
+        if (pt == 0) {
+          mbar_expect_tx(full + 8 * s, (a_cp ? 0 : G::kABytes) + (b_cp ? 0 : G::kBBytes));
+          if (!a_cp) tma_load(a_s, &ta, full + 8 * s, kx, m0, z);
+          if (!b_cp && BCOL) {
+            tma_load(b_s, &tb, full + 8 * s, kx, n0, z);
+          } else if (!b_cp) {  // boxes of E columns x E rows of K, one after another
 #pragma unroll
-          for (int j = 0; j < BN / E; ++j)
-            tma_load(b_s + j * E * kTcRowBytes, &tb, full + 8 * s, n0 + j * E, kx, z);
+            for (int j = 0; j < BN / E; ++j)
+              tma_load(b_s + j * E * kTcRowBytes, &tb, full + 8 * s, n0 + j * E, kx, z);
+          }
         }
+        if (!copies) continue;
+        if (a_cp == 8) cp_stage<8, false>(a_s, a, BM, lda, m, k, m0, kx, pt);
+        if (a_cp == 4) cp_stage<4, false>(a_s, a, BM, lda, m, k, m0, kx, pt);
+        if (b_cp == 8) cp_stage<8, !BCOL>(b_s, b, BN, ldb, BCOL ? n : k, BCOL ? k : n,
+                                          BCOL ? n0 : kx, BCOL ? kx : n0, pt);
+        if (b_cp == 4) cp_stage<4, !BCOL>(b_s, b, BN, ldb, BCOL ? n : k, BCOL ? k : n,
+                                          BCOL ? n0 : kx, BCOL ? kx : n0, pt);
+        cp_arrive_noinc(full + 8 * s);
       }
+      if (copies) cp_wait<0>();
     }
     __syncwarp();
   } else {
@@ -1151,6 +1280,9 @@ gemm_tc_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ C
       for (int i = 0; i < nkt; ++i) {
         const int s = i % stages;
         mbar_wait(full + 8 * s, (i / stages) & 1);
+        // what cp.async wrote (the generic proxy) is read by wgmma (the
+        // async proxy)
+        if (copies) asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
         const unsigned a_s = base + s * G::kStageBytes + wg * 64 * kTcRowBytes;
         const unsigned b_s = base + s * G::kStageBytes + G::kABytes;
         wgmma_fence();
@@ -1185,6 +1317,7 @@ gemm_tc_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ C
       for (int i = 0; i < nkt; ++i) {
         const int s = i % stages;
         mbar_wait(full + 8 * s, (i / stages) & 1);
+        if (copies) asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
         unsigned char* st = smem + s * G::kStageBytes;
         const unsigned a_s = base + s * G::kStageBytes;
         const unsigned lo_s = a_s + G::kABytes + G::kBBytes;
@@ -1303,16 +1436,17 @@ constexpr int kLimbRows = 32;    // rows of a plane a limb_planes_kernel block w
 // of K from kE u to kE u + kE - 1 (kE = 128 / sizeof(T)) as one plane of kE
 // bytes a limb: byte p of value j (the limb of weight 2^(8p), unsigned but
 // for the top one, read as signed) at p kE + j; values past K are zeros.
-// The source is K-major (element (z, r, kk) at src[(z rows + r) pitch +
+// The source is K-major (element (z, r, kk) at src[z stride + r pitch +
 // kk]: A, or a column-major B) or, when trans, row-major [K, rows] (a
-// row-major B), 16-byte aligned with rows of whole 16-byte units (the
-// launcher checks).
+// row-major B); where its base, pitch and stride are 16-byte aligned (vec)
+// it is read 16 bytes at a time, else a value at a time.
 struct LimbJob {
   const void* src;
   unsigned char* dst;
   int rows, pitch, trans;
   int blocks;        // of the grid's y: ceil(rows / kLimbRows), 0 for no job
   long long stride;  // elements between the operand's batch entries
+  int vec;
 };
 
 // A block of 256 threads moves one unit of 32 rows (4 KB): one 16-byte load
@@ -1323,7 +1457,7 @@ constexpr int kLimbPitch = kTcRowBytes + 16;  // a staged row, padded against ba
 
 template <typename T, bool TRANS>
 __device__ __forceinline__ void limb_tile(unsigned char* tile, const T* src, unsigned char* dst,
-                                          int rows, int pitch, long long stride, int k,
+                                          int rows, int pitch, long long stride, int vec, int k,
                                           int units, int yblock) {
   constexpr int S = (int)sizeof(T), E = kTcRowBytes / S, V = 16 / S;  // V values a load
   constexpr int kPitch = kLimbPitch;
@@ -1338,9 +1472,15 @@ __device__ __forceinline__ void limb_tile(unsigned char* tile, const T* src, uns
     T x[V];
   } in;
   in.w = make_uint4(0u, 0u, 0u, 0u);
-  if (gr < rows && gk < k)
-    in.w = *reinterpret_cast<const uint4*>(TRANS ? src + z * stride + (size_t)gk * pitch + gr
-                                                 : src + z * stride + (size_t)gr * pitch + gk);
+  const T* at = TRANS ? src + z * stride + (size_t)gk * pitch + gr
+                      : src + z * stride + (size_t)gr * pitch + gk;
+  if (vec && gr < rows && gk < k) {
+    in.w = *reinterpret_cast<const uint4*>(at);
+  } else if (!vec) {  // a value at a time, none past the rows or K
+#pragma unroll
+    for (int i = 0; i < V; ++i)
+      if (TRANS ? gr + i < rows && gk < k : gr < rows && gk + i < k) in.x[i] = at[i];
+  }
   if (TRANS) {
 #pragma unroll
     for (int i = 0; i < V; ++i) *reinterpret_cast<T*>(tile + (r + i) * kPitch + j * S) = in.x[i];
@@ -1376,14 +1516,14 @@ limb_planes_kernel(LimbJob a, LimbJob b, int k, int units) {
   __shared__ __align__(16) unsigned char tile[kLimbRows * kLimbPitch];
   const int y = blockIdx.y;
   if (y < a.blocks)  // A is K-major
-    limb_tile<T, false>(tile, static_cast<const T*>(a.src), a.dst, a.rows, a.pitch, a.stride, k,
-                        units, y);
+    limb_tile<T, false>(tile, static_cast<const T*>(a.src), a.dst, a.rows, a.pitch, a.stride,
+                        a.vec, k, units, y);
   else if (b.trans)
-    limb_tile<T, true>(tile, static_cast<const T*>(b.src), b.dst, b.rows, b.pitch, b.stride, k,
-                       units, y - a.blocks);
+    limb_tile<T, true>(tile, static_cast<const T*>(b.src), b.dst, b.rows, b.pitch, b.stride,
+                       b.vec, k, units, y - a.blocks);
   else
-    limb_tile<T, false>(tile, static_cast<const T*>(b.src), b.dst, b.rows, b.pitch, b.stride, k,
-                        units, y - a.blocks);
+    limb_tile<T, false>(tile, static_cast<const T*>(b.src), b.dst, b.rows, b.pitch, b.stride,
+                        b.vec, k, units, y - a.blocks);
 }
 
 // Geometry of an integer output tile: LIMBS int8 limbs a value (int8 1,
@@ -1526,9 +1666,10 @@ __device__ __forceinline__ void limb_products(uint32_t (&acc)[S][N], uint64_t a,
 // of a group before its next column, so that a wave of 132 blocks reads a
 // band of A and a few columns of B, which stay in the L2, instead of all of A
 // (10240^2 int8 is twice the L2) once a column tile.  Warps 0-7 are the two
-// consumer warpgroups, warp 8 the producer: its first lane keeps the ring of
-// `stages` stages filled by TMA, each stage one k-tile of the 128 rows of A's
-// tile and the BN rows of B^T's, both K-major byte rows.
+// consumer warpgroups, warps 8-9 the producer: its first thread keeps the
+// ring of `stages` stages filled by TMA (the other threads idle: the planes
+// are always TMA's), each stage one k-tile of the 128 rows of A's tile and
+// the BN rows of B^T's, both K-major byte rows.
 template <int LIMBS, int BM, int BN>
 __global__ void __launch_bounds__(kTcThreads, 1)
 gemm_tc_int_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
@@ -1568,8 +1709,8 @@ gemm_tc_int_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant
   uint32_t* part_tile = reinterpret_cast<uint32_t*>(smem);
   constexpr int kPitch = BN + 4;
 
-  if (warp == kTcConsumers / 32) {  // the producer
-    if (lane == 0) {
+  if (tid >= kTcConsumers) {  // the producer: its first thread
+    if (tid == kTcConsumers) {
       for (int i = 0; i < nkt; ++i) {
         const int s = i % stages, kx = (kt0 + i) * kTcRowBytes;
         if (i >= stages) mbar_wait(empty + 8 * s, (i / stages - 1) & 1);
@@ -1685,8 +1826,23 @@ struct TcArgs {
   int batch, m, n, k, lda, b_col_major, ldb;
   long long sb;
   int stages, split;
+  int a_cp, b_cp;  // 0: the operand by TMA; 8 or 4: by cp.async copies of that many bytes
   cudaStream_t stream;
 };
+
+// Whether an operand at `ptr` whose rows hold `inner` elements of `size`
+// bytes, `pitch` elements apart and batch entries `stride` apart, can be
+// read as `cp` says: TMA (0) needs a 16-byte aligned base, pitch and
+// stride (the rows' length is free: TMA zero-fills past it); cp.async
+// copies of cp bytes need the base, the pitch, the stride and the rows'
+// length aligned to cp, so that no copy straddles the row's end.
+bool operand_ok(const void* ptr, long long inner, long long pitch, long long stride, int size,
+                int cp) {
+  const int align = cp ? cp : 16;
+  if (cp != 0 && cp != 4 && cp != 8) return false;
+  return reinterpret_cast<uintptr_t>(ptr) % align == 0 && pitch * size % align == 0 &&
+         stride * size % align == 0 && (cp == 0 || inner * size % align == 0);
+}
 
 template <typename TIn, typename TOut, int BM, int BN, int BCOL>
 int launch_tc_typed(const TcArgs& x) {
@@ -1694,17 +1850,16 @@ int launch_tc_typed(const TcArgs& x) {
   constexpr int E = G::kElems;
   constexpr int size = (int)sizeof(TIn);
   auto kernel = gemm_tc_kernel<TIn, TOut, BM, BN, BCOL>;
-  // TMA: 16-byte aligned bases and rows of whole 16-byte units; every rank
-  // of a split reduces at least one k-tile
+  // each operand by TMA or by copies it allows (operand_ok); every rank of
+  // a split reduces at least one k-tile
   const long long b_inner = BCOL ? x.k : x.n;
   const int ktiles = (x.k + E - 1) / E;
   const int ktper = (ktiles + x.split - 1) / max(x.split, 1);
   if (x.batch < 1 || x.batch > 65535 || x.m < 1 || x.n < 1 || x.k < 1 || x.stages < 2 ||
       x.stages > kTcMaxStages || x.split < 1 || x.split > kTcMaxCluster ||
-      (long long)(x.split - 1) * ktper >= ktiles || reinterpret_cast<uintptr_t>(x.a) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(x.b) % 16 != 0 || reinterpret_cast<uintptr_t>(x.c) % 16 != 0 ||
-      x.lda < x.k || (long long)x.lda * size % 16 != 0 || b_inner * size % 16 != 0 ||
-      x.ldb < b_inner || (long long)x.ldb * size % 16 != 0 || x.sb * size % 16 != 0 ||
+      (long long)(x.split - 1) * ktper >= ktiles || reinterpret_cast<uintptr_t>(x.c) % 16 != 0 ||
+      x.lda < x.k || !operand_ok(x.a, x.k, x.lda, (long long)x.lda * x.m, size, x.a_cp) ||
+      x.ldb < b_inner || !operand_ok(x.b, b_inner, x.ldb, x.sb, size, x.b_cp) ||
       (x.n + BN - 1) / BN > 65535)
     return (int)cudaErrorInvalidValue;
   const size_t smem = tc_smem(G::kStageBytes, x.stages, G::kPartBytes);
@@ -1712,10 +1867,11 @@ int launch_tc_typed(const TcArgs& x) {
   if (smem > (size_t)kTcMaxSmem || xblocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const CUtensorMapDataType type =
       G::kF32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-  CUtensorMap ta, tb;
-  if (!encode_map(&ta, type, x.a, x.k, x.m, x.batch, x.lda, (long long)x.lda * x.m, size, E, BM) ||
-      !(BCOL ? encode_map(&tb, type, x.b, x.k, x.n, x.batch, x.ldb, x.sb, size, E, BN)
-             : encode_map(&tb, type, x.b, x.n, x.k, x.batch, x.ldb, x.sb, size, E, E)))
+  CUtensorMap ta = {}, tb = {};  // an operand copied by cp.async has no map
+  if ((!x.a_cp && !encode_map(&ta, type, x.a, x.k, x.m, x.batch, x.lda,
+                              (long long)x.lda * x.m, size, E, BM)) ||
+      (!x.b_cp && !(BCOL ? encode_map(&tb, type, x.b, x.k, x.n, x.batch, x.ldb, x.sb, size, E, BN)
+                         : encode_map(&tb, type, x.b, x.n, x.k, x.batch, x.ldb, x.sb, size, E, E))))
     return (int)cudaErrorInvalidValue;
   const cudaError_t allowed =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -1733,8 +1889,10 @@ int launch_tc_typed(const TcArgs& x) {
   cluster[0].val.clusterDim.z = 1;
   cfg.attrs = cluster;
   cfg.numAttrs = x.split > 1 ? 1 : 0;
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, ta, tb, static_cast<TOut*>(x.c), x.m,
-                                             x.n, x.k, x.stages, x.split, ktper);
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, kernel, ta, tb, static_cast<TOut*>(x.c), x.m, x.n, x.k, x.stages, x.split, ktper,
+      static_cast<const TIn*>(x.a), static_cast<const TIn*>(x.b), x.lda, x.ldb, x.sb, x.a_cp,
+      x.b_cp);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -1792,22 +1950,23 @@ int launch_tc_int_typed(const TcIntArgs& x) {
   const int ktiles = (x.k + E - 1) / E;
   const int ktper = (ktiles + x.split - 1) / max(x.split, 1);
   auto kernel = gemm_tc_int_kernel<L, BM, BN>;
-  const bool a_direct = L == 1, b_direct = L == 1 && x.b_col_major;
+  // an operand without planes is read as it is: an int8 K-major one that
+  // TMA can address
+  const bool a_direct = x.a_planes == nullptr, b_direct = x.b_planes == nullptr;
   const void* a = a_direct ? x.a : x.a_planes;
   const void* b = b_direct ? x.b : x.b_planes;
   const long long tiles = (long long)((x.m + BM - 1) / BM) * ((x.n + BN - 1) / BN);
   const long long plane = (long long)ktiles * kTcRowBytes;  // bytes a row of a plane
-  // TMA: 16-byte aligned bases and rows of whole 16-byte units; every rank
-  // of a split reduces at least one k-tile and at most kMaxRankK of K
+  const long long b_inner = x.b_col_major ? x.k : x.n;
+  // TMA: 16-byte aligned bases and pitches (operand_ok); every rank of a
+  // split reduces at least one k-tile and at most kMaxRankK of K
   if (x.batch < 1 || x.batch > 65535 || x.m < 1 || x.n < 1 || x.k < 1 || x.stages < 2 ||
       x.stages > kTcMaxStages || x.split < 1 || x.split > kTcMaxCluster ||
       (long long)(x.split - 1) * ktper >= ktiles || (long long)ktper * E > kMaxRankK ||
-      x.lda < x.k || a == nullptr || b == nullptr || reinterpret_cast<uintptr_t>(a) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(b) % 16 != 0 || reinterpret_cast<uintptr_t>(x.c) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(x.a) % 16 != 0 || reinterpret_cast<uintptr_t>(x.b) % 16 != 0 ||
-      (long long)x.lda * L % 16 != 0 || (long long)(x.b_col_major ? x.k : x.n) * L % 16 != 0 ||
-      x.ldb < (x.b_col_major ? x.k : x.n) || (long long)x.ldb * L % 16 != 0 ||
-      x.sb * L % 16 != 0 ||
+      x.lda < x.k || x.ldb < b_inner || reinterpret_cast<uintptr_t>(x.c) % 16 != 0 ||
+      (a_direct && !(L == 1 && operand_ok(x.a, x.k, x.lda, (long long)x.lda * x.m, 1, 0))) ||
+      (b_direct && !(L == 1 && x.b_col_major && operand_ok(x.b, x.k, x.ldb, x.sb, 1, 0))) ||
+      reinterpret_cast<uintptr_t>(a) % 16 != 0 || reinterpret_cast<uintptr_t>(b) % 16 != 0 ||
       (x.m + kLimbRows - 1) / kLimbRows > 65535 || (x.n + kLimbRows - 1) / kLimbRows > 65535 ||
       tiles * x.split > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
@@ -1827,9 +1986,11 @@ int launch_tc_int_typed(const TcIntArgs& x) {
   if (!a_direct || !b_direct) {
     const LimbJob ja{x.a, static_cast<unsigned char*>(x.a_planes), x.m, x.lda, 0,
                      a_direct ? 0 : (x.m + kLimbRows - 1) / kLimbRows,
-                     (long long)x.lda * x.m};
+                     (long long)x.lda * x.m,
+                     operand_ok(x.a, x.k, x.lda, (long long)x.lda * x.m, L, 0)};
     const LimbJob jb{x.b, static_cast<unsigned char*>(x.b_planes), x.n, x.ldb, !x.b_col_major,
-                     b_direct ? 0 : (x.n + kLimbRows - 1) / kLimbRows, x.sb};
+                     b_direct ? 0 : (x.n + kLimbRows - 1) / kLimbRows, x.sb,
+                     operand_ok(x.b, b_inner, x.ldb, x.sb, L, 0)};
     const dim3 grid((unsigned)ktiles, (unsigned)(ja.blocks + jb.blocks), (unsigned)x.batch);
     limb_planes_kernel<T><<<grid, 256, 0, x.stream>>>(ja, jb, x.k, ktiles);
     const cudaError_t err = cudaGetLastError();
@@ -1890,27 +2051,30 @@ int widesa_bmm_launch(const void* a, const void* b, void* c, int batch, int m, i
 
 // C[z] = A[z] @ B[z] for z < batch and M <= 16 on skinny_kernel (mm is
 // batch = 1): K split over `split` blocks of a cluster, `kblk` each; B copied
-// in runs of b_gran bytes (16, 8 or 4); A by cp.async when a_vec.  Returns a
-// cudaError_t.
+// in runs of b_gran bytes (16, 8 or 4), A in runs of a_gran bytes (16, 8 or
+// 4; 0: by plain loads).  Returns a cudaError_t.
 int widesa_skinny_launch(const void* a, const void* b, void* c, int batch, int m, int n, int k,
                          int lda, int b_col_major, int ldb, long long sb, int in_dtype,
-                         int out_dtype, int split, int kblk, int b_gran, int a_vec,
+                         int out_dtype, int split, int kblk, int b_gran, int a_gran,
                          void* stream) {
   const SkinnyArgs x{a,   b,           c,   batch, m,     n,    k,
                      lda, b_col_major, ldb, sb,    split, kblk, b_gran,
-                     a_vec, static_cast<cudaStream_t>(stream)};
+                     a_gran, static_cast<cudaStream_t>(stream)};
   return launch_skinny(in_dtype, out_dtype, x);
 }
 
 // C[z] = A[z] @ B[z] for z < batch on gemm_tc_kernel (bf16 -> bf16 or fp32,
 // float32 as 3xTF32; mm is batch = 1): a bm x bn output tile, a ring of
-// `stages` stages, K split over `split` blocks of a cluster.  A's and B's bases must be 16-byte aligned and their rows
-// whole 16-byte units.  Returns a cudaError_t.
+// `stages` stages, K split over `split` blocks of a cluster.  a_cp and b_cp
+// name each operand's producer: 0, TMA (a 16-byte aligned base, pitch and
+// batch stride); 8 or 4, cp.async copies of that many bytes (base, pitch,
+// stride and the rows' length aligned to them).  Returns a cudaError_t.
 int widesa_tc_launch(const void* a, const void* b, void* c, int batch, int m, int n, int k,
                      int lda, int b_col_major, int ldb, long long sb, int in_dtype,
-                     int out_dtype, int bm, int bn, int stages, int split, void* stream) {
-  const TcArgs x{a,   b,           c,   batch, m,      n,     k,
-                 lda, b_col_major, ldb, sb,    stages, split, static_cast<cudaStream_t>(stream)};
+                     int out_dtype, int bm, int bn, int stages, int split, int a_cp, int b_cp,
+                     void* stream) {
+  const TcArgs x{a,      b,     c,    batch, m,    n,  k,   lda, b_col_major, ldb, sb,
+                 stages, split, a_cp, b_cp,  static_cast<cudaStream_t>(stream)};
   return launch_tc(in_dtype, out_dtype, bm, bn, x);
 }
 

@@ -336,15 +336,22 @@ def _execute(plan, *operands, out_dtype=None):
 
 
 def _operand(t: torch.Tensor) -> torch.Tensor:
-    """A kernel operand: row-major, or (for B) the transpose of a
-    row-major tensor; anything else is made contiguous."""
+    """A kernel operand: row-major, (for B) the transpose of a row-major
+    tensor, or rows padded to whole 16-byte units (``padded_rows``: the
+    backward's cotangent over an odd N); anything else is made
+    contiguous."""
     if t.is_contiguous() or t.transpose(-1, -2).is_contiguous():
+        return t
+    pitch = runtime.a_pitch(t)
+    if pitch is not None and pitch * t.element_size() % 16 == 0:
         return t
     return t.contiguous()
 
 
-#: A operands the backward passes copied to row-major (``x^T`` of a weight
-#: gradient, ``a^T`` of a bmm): calls and bytes
+#: A operands the backward passes copied into padded rows (``x^T`` of a
+#: weight gradient, ``a^T`` of a bmm: not row-major; a cotangent whose rows
+#: allow no 4-byte copy, the head's over 51865 bf16 logits): calls and
+#: bytes
 a_copies = {"calls": 0, "bytes": 0}
 
 
@@ -365,12 +372,18 @@ def padded_rows(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 def _a_rows(t: torch.Tensor, dtype: torch.dtype | None = None):
     """A backward GEMM's A operand: ``t`` itself where it is in the GEMMs'
-    layout (``runtime.a_pitch``) and dtype, else a padded-row copy (a
-    layout copy counted in ``a_copies``; a cast is a copy anyway)."""
+    layout (``runtime.a_pitch``) and dtype, and TMA addresses its rows or
+    they allow 4-byte copies (``runtime.tma_operand``,
+    ``runtime.a_copy_bytes``); else a padded-row copy, which TMA
+    addresses (a layout or alignment copy counted in ``a_copies``; a cast
+    is a copy anyway)."""
     dtype = dtype or t.dtype
-    if dtype == t.dtype and runtime.a_pitch(t) is not None:
+    pitch = runtime.a_pitch(t)
+    readable = pitch is not None and (runtime.tma_operand(t, pitch)
+                                      or runtime.a_copy_bytes(t) >= 4)
+    if dtype == t.dtype and readable:
         return t
-    if runtime.a_pitch(t) is None:
+    if not readable:
         a_copies["calls"] += 1
         a_copies["bytes"] += t.numel() * dtype.itemsize
     return padded_rows(t, dtype)
@@ -411,8 +424,11 @@ class _MMPlanned(torch.autograd.Function):
     def backward(ctx, g):
         x, w = ctx.saved_tensors
         dx = dw = None
+        # dx's A and dW's B: padded rows where g's allow no 4-byte copy
+        # (the head's cotangent over an odd vocabulary), one copy for both
+        g = _a_rows(g)
         if ctx.needs_input_grad[2]:
-            dx = _dispatch_mm(_a_rows(g), w.T, ctx.site + "/bwd_dx")
+            dx = _dispatch_mm(g, w.T, ctx.site + "/bwd_dx")
         if ctx.needs_input_grad[3]:
             dw = _dispatch_mm(_a_rows(x.T), g, ctx.site + "/bwd_dw")
         return None, None, dx, dw
@@ -465,11 +481,14 @@ class _BMMPlanned(torch.autograd.Function):
     def backward(ctx, g):
         a, b = ctx.saved_tensors
         da = db = None
+        # dA's A and dB's B: one cast (into padded rows, which TMA
+        # addresses, where g's own rows would not do) for both
+        ga = _a_rows(g, a.dtype)
         if ctx.needs_input_grad[3]:
-            da = _dispatch_bmm(_a_rows(g, a.dtype), b.transpose(1, 2),
-                               ctx.site + "/bwd_da")
+            da = _dispatch_bmm(ga, b.transpose(1, 2), ctx.site + "/bwd_da")
         if ctx.needs_input_grad[4]:
-            db = _dispatch_bmm(_a_rows(a.transpose(1, 2)), g.to(b.dtype),
+            gb = ga if b.dtype == a.dtype else g.to(b.dtype)
+            db = _dispatch_bmm(_a_rows(a.transpose(1, 2)), gb,
                                ctx.site + "/bwd_db")
         return None, None, None, da, db
 

@@ -15,28 +15,34 @@ mm, bmm and the fft2d composition's products run one of four kernels of
 ``csrc/widesa_mm.cu`` (``gemm_tiles``, ``gemm_tile``):
 
 * The skinny kernel takes every product whose A has at most 16 rows
-  (``SKINNY_ROWS``): all serving GEMMs (decode batches, prompts of at most
-  16 tokens, 8-frame audio chunks, GQA rows) and the fft2d stages.  Bytes
-  of B bound them, so its configuration (``skinny_tile``, a
-  ``SkinnyTile``) is computed from the shape alone (M, N, K, the batch and
-  the dtype), not from the plan: blocks of 32 columns, and, for a B above
-  1 MiB, K split over the blocks of a cluster (at most 8) until the grid
-  has three blocks for each of the card's 132 SMs, as far as K and the A
-  each block stages in shared memory allow (``SKINNY_SPLIT_BYTES``,
+  (``SKINNY_ROWS``), at any K: all serving GEMMs (decode batches, prompts
+  of at most 16 tokens, 8-frame audio chunks, GQA rows, products over
+  long contexts) and the fft2d stages.  Bytes of B bound them, so its
+  configuration (``skinny_tile``, a ``SkinnyTile``) is computed from the
+  shape alone (M, N, K, the batch and the dtype), not from the plan:
+  blocks of 32 columns, and, for a B above 1 MiB, K split over the
+  blocks of a cluster (at most 8) until the grid has three blocks for
+  each of the card's 132 SMs, as far as K allows (``SKINNY_SPLIT_BYTES``,
   ``SKINNY_TARGET_BLOCKS``); for a smaller B whose column tiles leave SMs
   idle (the MoE router's float32 [d, 64]), until no block walks more than
-  ``SKINNY_DEEP_STAGES`` ring stages of K.  B's layout and alignment
+  ``SKINNY_DEEP_STAGES`` ring stages of K.  A streams through the ring
+  beside B, so nothing of it is staged whole.  B's layout and alignment
   decide the copy width (``b_copy_bytes``): rows of B must allow copies
-  of at least 4 bytes.
+  of at least 4 bytes; A's rows any (``a_copy_bytes``, plain loads where
+  they allow no copy).
 * The tensor-core kernels take A of more than 16 rows in bf16 (to bf16
   or fp32), float32 (3xTF32), int8, int16 and int32 (as int8 limbs; to
-  int32) where TMA can address both operands (``tma_operand``: a 16-byte
-  aligned base, rows of whole 16-byte units, so a contiguous integer A
-  needs K % 16 == 0 in int8, K % 8 in int16, K % 4 in int32; A
-  contiguous or in padded rows, ``a_pitch``; B contiguous, the
-  transpose of a contiguous tensor, or a slice of either's columns or
-  rows read at the wider tensor's pitch, ``b_layout``, its pitch and
-  batch stride whole 16-byte units too, ``tma_b``).
+  int32) in any layout the GEMMs read (A contiguous or in padded rows,
+  ``a_pitch``; B contiguous, the transpose of a contiguous tensor, or a
+  slice of either's columns or rows read at the wider tensor's pitch,
+  ``b_layout``).  ``gemm_tc_kernel`` (the floats) fills its ring by TMA
+  where TMA can address an operand (``tma_operand``, ``tma_b``: a 16-byte
+  aligned base, pitch and batch stride; the rows' own length is free),
+  and otherwise by cp.async copies of the 8 or 4 bytes its rows allow
+  (``tc_copies``, carried in ``TcTile.copies``), per operand; the integer
+  kernel reads planes a pre-pass writes (``widesa_mm.limb_planes``) from
+  any layout, but for an int8 K-major operand TMA can address, read as it
+  is.
   Their configuration is a ``TcTile`` (``tc_tile``) from the shape and
   the dtype: bf16 runs a 128-row tile 128 columns wide from N =
   ``TC_WIDE_N`` up, 64 below; float32 a tile 128 columns wide and 64 or
@@ -49,14 +55,13 @@ mm, bmm and the fft2d composition's products run one of four kernels of
   ``TC_INT_MAX_RANK_K`` of K, where the split grows to the portable
   cluster's 8 if it must (no s32 accumulator set can then leave int32).
   A ring of ``TC_MAX_STAGES`` stages where a rank has that many k-tiles,
-  else as many as it has (2 at the least).  An integer launch reads its
-  operands by TMA as int8 limb planes that a pre-pass writes to scratch
-  (``widesa_mm.limb_planes``), but for an int8 K-major operand, read as it
-  is.
+  else as many as it has (2 at the least).
 * The tiled kernel (``hopper_tiles``, tiles ``build.COMPILED_TILES``)
-  takes the rest: operands TMA cannot address, an integer K past 8 ranks'
-  ``TC_INT_MAX_RANK_K``, and B rows the skinny kernel cannot copy (not
-  4-byte aligned: a storage offset, or an odd row of 2-byte elements).
+  keeps two cases (``tiled_reason``): a B whose rows allow no 4-byte copy
+  (an odd row of 2-byte elements, a storage offset of one element), and
+  an integer K past 8 ranks' ``TC_INT_MAX_RANK_K``; above 16 rows also an
+  A whose rows allow none, which the planned facade's backward pads first
+  (``planned._a_rows``), so no planned path sends one.
   BM is the smallest compiled row count that covers the plan's row tile
   (the largest where none does; the kernel masks ragged edges, so any
   compiled tile is a legal launch).  BN is not the plan's column tile: each BM is compiled
@@ -144,8 +149,9 @@ cluster, as far as the grid stays within ``FFT2D_MAX_BLOCKS`` blocks
 integer inputs accumulate and land in int32, floats accumulate in fp32
 and land in the input dtype.
 
-Two route decisions read an operand's address: B's copy width
-(``b_copy_bytes``) and TMA's alignment (``tma_operand``).  They take it
+The route decisions that read an operand's address, the copy widths
+(``copy_bytes``: ``a_copy_bytes``, ``b_copy_bytes``) and TMA's alignment
+(``tma_operand``, ``tma_b``), take it
 from ``address``: a tensor's ``data_ptr()``, or for a fake tensor (the
 dry run's, ``launch/fakecuda.py``), which has no storage, its storage
 offset in bytes over a base aligned to ``FAKE_BASE_ALIGN`` bytes, which
@@ -218,9 +224,6 @@ SKINNY_ROWS = 16
 SKINNY_BN = 32
 SKINNY_RUN_BYTES = 128
 SKINNY_MAX_CLUSTER = 8
-#: bytes of A (rows x its K range) a skinny block stages at most; a deeper
-#: range splits further, or takes the tiled kernel past 8 blocks
-SKINNY_A_BYTES = 96 * 1024
 #: K is split only for a B of more bytes than this (below, the cluster's
 #: reduction costs more than idle SMs: 1 MiB of decode values read in
 #: 0.0022 ms unsplit, 0.0036 ms split in two, on an H100), and then until
@@ -264,14 +267,13 @@ def skinny_bk(dtype: torch.dtype) -> int:
 def skinny_tile(m: int, n: int, k: int, batch: int,
                 dtype: torch.dtype) -> SkinnyTile | None:
     """The skinny kernel's configuration for ``batch`` products of
-    [m, k] @ [k, n], or None where it does not apply (more than 16 rows,
-    an empty extent, or more A per block than ``SKINNY_A_BYTES`` even at
-    the largest split).  The split is the smallest that keeps A's stage
-    within ``SKINNY_A_BYTES`` and, for a B above ``SKINNY_SPLIT_BYTES``,
-    gives the grid ``SKINNY_TARGET_BLOCKS`` blocks, or, for a smaller B
-    whose column tiles are fewer than the SMs, keeps each rank within
-    ``SKINNY_DEEP_STAGES`` stages of K (else the largest K allows); every
-    block of a cluster reduces a non-empty range of K."""
+    [m, k] @ [k, n], at any K, or None where it does not apply (more than
+    16 rows, an empty extent).  The split is the smallest that, for a B
+    above ``SKINNY_SPLIT_BYTES``, gives the grid ``SKINNY_TARGET_BLOCKS``
+    blocks, or, for a smaller B whose column tiles are fewer than the SMs,
+    keeps each rank within ``SKINNY_DEEP_STAGES`` stages of K (else the
+    largest K allows); every block of a cluster reduces a non-empty range
+    of K."""
     if not (1 <= m <= SKINNY_ROWS and n >= 1 and k >= 1):
         return None
     bk = skinny_bk(dtype)
@@ -281,8 +283,6 @@ def skinny_tile(m: int, n: int, k: int, batch: int,
     best = None
     for split in range(1, min(SKINNY_MAX_CLUSTER, stages) + 1):
         kblk = -(-stages // split) * bk
-        if m * kblk * dtype.itemsize > SKINNY_A_BYTES:
-            continue
         best = SkinnyTile(split=-(-k // kblk), kblk=kblk)
         if spread:
             if best.blocks(n, batch) >= SKINNY_TARGET_BLOCKS:
@@ -300,8 +300,7 @@ def check_skinny(tile: SkinnyTile, m: int, k: int,
     if not (1 <= m <= SKINNY_ROWS
             and 1 <= tile.split <= SKINNY_MAX_CLUSTER
             and tile.kblk >= bk and tile.kblk % bk == 0
-            and (tile.split - 1) * tile.kblk < k <= tile.split * tile.kblk
-            and m * tile.kblk * dtype.itemsize <= SKINNY_A_BYTES):
+            and (tile.split - 1) * tile.kblk < k <= tile.split * tile.kblk):
         raise ValueError(f"{tile} is not a skinny launch for M={m}, K={k}, "
                          f"{dtype}")
 
@@ -415,12 +414,12 @@ def b_copy_bytes(b: torch.Tensor) -> int:
 
 
 #: the tensor-core kernel's geometry (``kTc*`` in csrc/widesa_mm.cu): its
-#: threads (two consumer warpgroups and a producer warp), the bytes of K a
+#: threads (two consumer warpgroups and two producer warps), the bytes of K a
 #: ring stage holds (one 128-byte swizzle row: 64 bf16, 32 float32), the
 #: deepest ring (4 stages, which ran well ahead of 2 at the prefill
 #: shapes on an H100: ``chip_smoke.py --tc-sweep``, PERF.md), the largest
 #: cluster and the shared memory a block may use
-TC_THREADS = 288
+TC_THREADS = 320
 TC_ROW_BYTES = 128
 TC_MAX_STAGES = 4
 TC_MAX_CLUSTER = 8
@@ -470,12 +469,23 @@ def tc_promotes(tiles, dtype: torch.dtype, out_dtype: torch.dtype,
 class TcTile:
     """A tensor-core GEMM launch: a ``bm`` x ``bn`` output tile, a ring of
     ``stages`` stages of one k-tile (128 bytes of K), K split over
-    ``split`` blocks of a cluster."""
+    ``split`` blocks of a cluster, A's and B's parts of each stage filled
+    as ``copies`` says (``tc_copies``: 0 by TMA, else by cp.async copies
+    of that many bytes; copies only in bf16 and float32: the integer
+    kernel reads planes its pre-pass writes, which TMA always
+    addresses)."""
 
     bm: int
     bn: int
     stages: int
     split: int = 1
+    copies: tuple[int, int] = (0, 0)
+
+    @property
+    def producer(self) -> str:
+        """What fills the ring: "tma", or "cp" where an operand comes by
+        cp.async copies."""
+        return "cp" if any(self.copies) else "tma"
 
     def blocks(self, m: int, n: int, batch: int = 1) -> int:
         """Blocks of the grid for an M x N output and ``batch`` products."""
@@ -529,32 +539,85 @@ def tc_tile(m: int, n: int, k: int, dtype: torch.dtype,
     return TcTile(bm=bm, bn=bn, stages=stages, split=split)
 
 
-def tma_operand(t: torch.Tensor, inner: int) -> bool:
-    """Whether TMA can address an operand at ``address(t)`` whose rows
-    hold ``inner`` elements: a 16-byte aligned base and rows of whole
-    16-byte units."""
-    return copy_bytes(address(t), inner * t.element_size()) == 16
+def tma_operand(t: torch.Tensor, pitch: int) -> bool:
+    """Whether TMA can address an operand at ``address(t)`` whose rows lie
+    ``pitch`` elements apart: a 16-byte aligned base and pitch (the rows'
+    own length is free: TMA zero-fills past it)."""
+    return copy_bytes(address(t), pitch * t.element_size()) == 16
 
 
 def tma_b(b: torch.Tensor) -> bool:
     """Whether the tensor-core kernels' TMA can address B (``b_layout``):
-    a 16-byte aligned base, and its rows, its pitch and its batch stride
-    whole 16-byte units (``b_copy_bytes`` of 16)."""
-    return b_copy_bytes(b) == 16
+    a 16-byte aligned base, pitch and batch stride (its rows' own length
+    is free, as A's)."""
+    layout = b_layout(b)
+    return layout is not None and min(
+        copy_bytes(address(b), layout[1] * b.element_size()),
+        copy_bytes(address(b), layout[2] * b.element_size())) == 16
+
+
+def a_copy_bytes(a: torch.Tensor) -> int:
+    """The widest copy (16, 8 or 4 bytes) of A's rows that keeps its base,
+    its pitch and its rows' length aligned, so that no copy straddles a
+    row's end (a padded row's tail is not zeros); 0 if none or A is in no
+    layout the GEMMs read."""
+    pitch = a_pitch(a)
+    if pitch is None:
+        return 0
+    size, ptr = a.element_size(), address(a)
+    return min(copy_bytes(ptr, pitch * size),
+               copy_bytes(ptr, a.shape[-1] * size))
+
+
+def tc_copies(a: torch.Tensor, b: torch.Tensor) -> tuple[int, int] | None:
+    """How ``gemm_tc_kernel``'s producer fills A's and B's parts of a
+    stage: 0 by TMA (``tma_operand``, ``tma_b``: 16-byte aligned base,
+    pitch and batch stride), else by cp.async copies of the width the
+    rows allow (8 or 4 bytes, as ``a_copy_bytes`` and ``b_copy_bytes``);
+    None where an operand allows neither (rows of an odd number of 2-byte
+    elements, a storage offset of one element) or is in no layout the
+    GEMMs read.  Each layout is read once: this runs at every launch."""
+    pitch, layout = a_pitch(a), b_layout(b)
+    if pitch is None or layout is None:
+        return None
+    widths = []
+    for t, pitches, inner in (
+            (a, (pitch,), a.shape[-1]),
+            (b, layout[1:], b.shape[-2] if layout[0] else b.shape[-1])):
+        ptr, size = address(t), t.element_size()
+        tma = min(copy_bytes(ptr, p * size) for p in pitches)
+        if tma == 16:
+            widths.append(0)
+            continue
+        width = min(tma, copy_bytes(ptr, inner * size))
+        if width < 4:
+            return None
+        widths.append(width)
+    return widths[0], widths[1]
 
 
 def tc_route(a: torch.Tensor, b: torch.Tensor) -> TcTile | None:
     """``tc_tile`` for ``a @ b`` where a tensor-core kernel takes the
-    operands (a dtype it has, A and B in layouts the GEMMs read, both
-    addressable by TMA at their pitches), else None."""
-    pitch = a_pitch(a)
+    operands, else None.  Floats: both operands by TMA (producer "tma"),
+    or an operand TMA cannot address by cp.async copies (producer "cp",
+    ``tc_copies``); rows that allow neither have no route.  Integers: any
+    layout the GEMMs read, since the limb pre-pass reads any and writes
+    planes TMA addresses (an int8 K-major operand TMA can address is read
+    as it is)."""
     m, k = a.shape[-2:]
     n = b.shape[-1]
-    if a.dtype not in TC_TILES or b.dtype != a.dtype \
-            or b_layout(b) is None or pitch is None \
-            or not tma_operand(a, pitch) or not tma_b(b):
+    if a.dtype not in TC_TILES or b.dtype != a.dtype:
         return None
-    return tc_tile(m, n, k, a.dtype, a.shape[0] if a.dim() == 3 else 1)
+    if a.is_floating_point():
+        copies = tc_copies(a, b)
+    else:
+        copies = None if b_layout(b) is None or a_pitch(a) is None \
+            else (0, 0)
+    if copies is None:
+        return None
+    tile = tc_tile(m, n, k, a.dtype, a.shape[0] if a.dim() == 3 else 1)
+    return tile if tile is None or copies == (0, 0) \
+        else dataclasses.replace(tile, copies=copies)
 
 
 def check_tc(tile: TcTile, a: torch.Tensor, b: torch.Tensor) -> None:
@@ -570,13 +633,47 @@ def check_tc(tile: TcTile, a: torch.Tensor, b: torch.Tensor) -> None:
             or (tile.split - 1) * -(-ktiles // tile.split) >= ktiles \
             or (a.dtype in TC_INT_MAX_RANK_K and tc_rank_k(
                 k, a.dtype, tile.split) > TC_INT_MAX_RANK_K[a.dtype]) \
-            or tile.smem(a.dtype) > TC_MAX_SMEM:
+            or tile.smem(a.dtype) > TC_MAX_SMEM \
+            or not all(c in (0, 4, 8) for c in tile.copies) \
+            or (tile.producer == "cp" and not a.is_floating_point()):
         raise ValueError(f"{tile} is not a tensor-core launch for {a.dtype} "
                          f"at K={k}")
-    if not (tma_operand(a, a_pitch(a)) and tma_b(b)):
-        raise ValueError("TMA cannot address these operands (bases must be "
-                         "16-byte aligned, rows, pitches and batch strides "
-                         "whole 16-byte units): launch the tiled kernel")
+    if not a.is_floating_point():
+        return
+    copies = tc_copies(a, b)
+    if copies != tile.copies:
+        raise ValueError(f"{tile} fills its ring with copies {tile.copies}, "
+                         f"these operands need {copies} (0: TMA, which "
+                         "needs 16-byte aligned bases, pitches and batch "
+                         "strides; else cp.async copies of that width; "
+                         "None: launch the tiled kernel)")
+
+
+#: why ``gemm_tile`` leaves a product on the tiled kernel
+#: (``tiled_reason``); the first two are the kernel's own cases
+TILED_B_ROWS = "B's rows allow no 4-byte copy"
+TILED_INT_K = "an integer K past 8 ranks' TC_INT_MAX_RANK_K"
+TILED_A_ROWS = "A's rows allow no 4-byte copy (unpadded)"
+
+
+def _route(a: torch.Tensor, b: torch.Tensor, tiled):
+    """``gemm_tile``'s configuration of ``a @ b`` beside why it is the
+    tiled kernel's ``tiled`` (``TILED_*``; None where another kernel
+    takes the product, or for an empty extent)."""
+    m, k = a.shape[-2:]
+    if m <= SKINNY_ROWS:
+        if b_copy_bytes(b) < 4:
+            return tiled, TILED_B_ROWS
+        batch = a.shape[0] if a.dim() == 3 else 1
+        return skinny_tile(m, b.shape[-1], k, batch, a.dtype) or tiled, None
+    tile = tc_route(a, b)
+    if tile is not None:
+        return tile, None
+    if not a.is_floating_point() and a.dtype in TC_TILES:
+        return tiled, TILED_INT_K
+    if not tma_b(b) and b_copy_bytes(b) < 4:
+        return tiled, TILED_B_ROWS
+    return tiled, TILED_A_ROWS
 
 
 def gemm_tile(a: torch.Tensor, b: torch.Tensor, tiled: tuple[int, ...]):
@@ -585,13 +682,13 @@ def gemm_tile(a: torch.Tensor, b: torch.Tensor, tiled: tuple[int, ...]):
     allow copies of 4 bytes or more; for more rows, the tensor-core
     kernels' ``TcTile`` where they take the operands (``tc_route``); else
     the tiled kernel's tile ``tiled``."""
-    m, k = a.shape[-2:]
-    if m > SKINNY_ROWS:
-        return tc_route(a, b) or tiled
-    if b_copy_bytes(b) < 4:
-        return tiled
-    batch = a.shape[0] if a.dim() == 3 else 1
-    return skinny_tile(m, b.shape[-1], k, batch, a.dtype) or tiled
+    return _route(a, b, tiled)[0]
+
+
+def tiled_reason(a: torch.Tensor, b: torch.Tensor) -> str | None:
+    """Why ``gemm_tile`` sends ``a @ b`` to the tiled kernel
+    (``TILED_*``), or None where another kernel takes it."""
+    return _route(a, b, None)[1]
 
 
 def gemm_tiles(plan: "ExecutionPlan", a: torch.Tensor,

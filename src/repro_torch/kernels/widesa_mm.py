@@ -6,10 +6,11 @@ batch = 1 launch).  ``matmul`` checks its operands, allocates the output
 and launches on the current stream the kernel its ``tiles`` name: a
 ``runtime.SkinnyTile`` runs the skinny kernel (A of at most 16 rows), a
 ``runtime.TcTile`` a tensor-core one (more rows: ``gemm_tc_kernel`` in
-bf16 and float32, a bf16 result over a K past ``runtime.TC_PROMOTE_K``
-from its fp32 instantiation, rounded; ``gemm_tc_int_kernel`` in the
-integers, after the limb planes it reads are written to scratch by
-``limb_planes_kernel``), a
+bf16 and float32, its ring filled by TMA or, for an operand TMA cannot
+address, by cp.async copies (``TcTile.copies``), a bf16 result
+over a K past ``runtime.TC_PROMOTE_K`` from its fp32 instantiation,
+rounded; ``gemm_tc_int_kernel`` in the integers, after the limb planes
+it reads are written to scratch by ``limb_planes_kernel``), a
 ``(BM, BN, BK)`` tuple the tiled one.  Every kernel reads B in place at
 its pitch (``runtime.b_layout``), so a slice of a weight's columns or
 rows, a hierarchical plan's group, is launched without a copy.  A CPU tensor runs the plain version
@@ -31,6 +32,7 @@ from __future__ import annotations
 
 import contextlib
 import math
+from collections import Counter
 
 import torch
 
@@ -38,8 +40,13 @@ from . import build, ref, runtime
 
 launches = 0
 #: launches by kernel: ``skinny`` (M <= 16), ``wgmma`` (the tensor-core
-#: kernels, floats and integers) and ``tiled``
-variants = {"skinny": 0, "wgmma": 0, "tiled": 0}
+#: kernels, floats and integers, fed by TMA), ``wgmma_cp`` (the float one
+#: fed by cp.async copies for an operand TMA cannot address) and ``tiled``
+variants = {"skinny": 0, "wgmma": 0, "wgmma_cp": 0, "tiled": 0}
+#: the tiled launches of both wrappers, this one's and ``bmm``'s, by
+#: ``runtime.tiled_reason`` (None: a tiled tile asked for operands
+#: another kernel takes, as the timing rows do)
+tiled_why: Counter = Counter()
 #: callables handed a record of each launch on fake operands (module
 #: docstring); the dry run's ``accounting.StepCounter`` adds itself
 fake_sinks: list = []
@@ -58,7 +65,8 @@ def check_operands(a, b, tiles, out_dtype, *, batched: bool):
     ``tiles`` is a ``runtime.SkinnyTile`` that fits the
     shape (``runtime.check_skinny``) with B's rows aligned to 4 bytes or
     more, a ``runtime.TcTile`` a tensor-core kernel takes for these
-    operands (``runtime.check_tc``), or a compiled ``(BM, BN, BK)`` of the
+    operands with its producer (``runtime.check_tc``), or a compiled
+    ``(BM, BN, BK)`` of the
     tiled kernel (or one of the tiles its sweep times,
     ``build.SWEEP_TILES``).
     """
@@ -101,21 +109,24 @@ def check_operands(a, b, tiles, out_dtype, *, batched: bool):
     return (out_dtype, lda, *layout, b_copy)
 
 
-def limb_planes(a, batch: int, m: int, n: int, k: int, col_major: int):
+def limb_planes(a, b, batch: int, m: int, n: int, k: int, col_major: int,
+                lda: int):
     """Scratch for the integer tensor-core GEMM's K-major byte planes of A
     and of B (``limb_planes_kernel``): [batch, rows, k-tiles x 128] bytes
-    each, or None where the kernel reads the operand itself (an int8 A; an
-    int8 B that is column-major)."""
+    each, or None where the kernel reads the operand itself (an int8 A, or
+    an int8 B that is column-major, that TMA can address)."""
     row = -(-k * a.element_size() // runtime.TC_ROW_BYTES) \
         * runtime.TC_ROW_BYTES
-    wide = a.element_size() > 1
+    byte = a.element_size() == 1
 
     def scratch(rows):
         return torch.empty((batch, rows, row), dtype=torch.uint8,
                            device=a.device)
 
-    return (scratch(m) if wide else None,
-            scratch(n) if wide or not col_major else None)
+    a_direct = byte and runtime.tma_operand(a, lda)
+    b_direct = byte and col_major and runtime.tma_b(b)
+    return (None if a_direct else scratch(m),
+            None if b_direct else scratch(n))
 
 
 def launch(a, b, out, tiles, lda: int, col_major: int, ldb: int, sb: int,
@@ -139,22 +150,19 @@ def launch(a, b, out, tiles, lda: int, col_major: int, ldb: int, sb: int,
              else torch.cuda.device(a.device))
     with guard:
         if isinstance(tiles, runtime.SkinnyTile):
-            # 16-byte copies of A only where no run straddles K (a padded
-            # row's tail is not zeros)
-            size = a.element_size()
-            a_vec = ptrs[0] % 16 == 0 and lda * size % 16 == 0 \
-                and k * size % 16 == 0
+            # A's copies as wide as its rows allow with no copy straddling
+            # K (a padded row's tail is not zeros); 0: plain loads
             build.call("widesa_skinny_launch", *ptrs, batch, m, n, k, lda,
                        col_major, ldb, sb, *codes, tiles.split, tiles.kblk,
-                       b_copy, int(a_vec))
+                       b_copy, runtime.a_copy_bytes(a))
             return "skinny"
         if isinstance(tiles, runtime.TcTile) and a.is_floating_point():
             build.call("widesa_tc_launch", *ptrs, batch, m, n, k, lda,
                        col_major, ldb, sb, *codes, tiles.bm, tiles.bn,
-                       tiles.stages, tiles.split)
-            return "wgmma"
+                       tiles.stages, tiles.split, *tiles.copies)
+            return variant_of(tiles)
         if isinstance(tiles, runtime.TcTile):
-            planes = limb_planes(a, batch, m, n, k, col_major)
+            planes = limb_planes(a, b, batch, m, n, k, col_major, lda)
             build.call("widesa_tc_int_launch", *ptrs,
                        *(p.data_ptr() if p is not None else None
                          for p in planes), batch, m, n, k, lda, col_major,
@@ -167,6 +175,7 @@ def launch(a, b, out, tiles, lda: int, col_major: int, ldb: int, sb: int,
         else:
             build.call("widesa_mm_launch", *ptrs, m, n, k, lda, col_major,
                        ldb, *codes, tiles=tuple(tiles))
+    tiled_why[runtime.tiled_reason(a, b)] += 1
     return "tiled"
 
 
@@ -174,7 +183,9 @@ def variant_of(tiles) -> str:
     """The kernel ``tiles`` names, as a key of ``variants``."""
     if isinstance(tiles, runtime.SkinnyTile):
         return "skinny"
-    return "wgmma" if isinstance(tiles, runtime.TcTile) else "tiled"
+    if isinstance(tiles, runtime.TcTile):
+        return "wgmma_cp" if tiles.producer == "cp" else "wgmma"
+    return "tiled"
 
 
 def fake_launch(a, b, out, tiles, batched: bool) -> None:

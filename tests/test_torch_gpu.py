@@ -32,6 +32,7 @@ magnitude ~100); bf16 results within one bf16 rounding step of the
 output, ``2^-7 |ref|``, plus 1e-3.
 """
 
+import dataclasses
 import sys
 from pathlib import Path
 
@@ -743,9 +744,13 @@ def test_skinny_split_k_is_bitwise_deterministic_on_the_card(dtype, gen):
 
 @pytest.mark.gpu
 def test_misaligned_operands_run_the_tiled_kernel_on_the_card(gen):
-    """A B one element off its 16-byte boundary (2-byte aligned rows) is
-    not a skinny operand: the runtime gives the tiled tile, and the launch
-    counts as tiled."""
+    """At most 16 rows: a B one element off its 16-byte boundary (2-byte
+    aligned rows) is not a skinny operand: the runtime gives the tiled
+    tile, and the launch counts as tiled.  An A the skinny kernel streams
+    through its ring beside B, whatever its rows allow: 8-byte copies
+    (whisper's 1500 keys), 4-byte ones (a base 4 bytes off), plain loads
+    (rows of 63 bf16, a base one element off), against the plain
+    version."""
     a = _gemm_draw((4, 64), torch.bfloat16, gen)
     b = _gemm_draw((64 * 130 + 1,), torch.bfloat16, gen)[1:].view(64, 130)
     assert b.dtype == torch.bfloat16 and b.data_ptr() % 4 == 2
@@ -759,6 +764,59 @@ def test_misaligned_operands_run_the_tiled_kernel_on_the_card(gen):
     with pytest.raises(ValueError, match="4-byte"):
         widesa_mm.matmul(a, b, tiles=runtime.skinny_tile(
             4, 130, 64, 1, torch.bfloat16))
+    flat = _gemm_draw((16 * 1500 + 8,), torch.bfloat16, gen)
+    for a, width in ((_gemm_draw((16, 1500), torch.bfloat16, gen), 8),
+                     (flat[2:2 + 12 * 64].view(12, 64), 4),
+                     (_gemm_draw((16, 63), torch.bfloat16, gen), 0),
+                     (flat[1:1 + 5 * 64].view(5, 64), 0)):
+        assert runtime.a_copy_bytes(a) == width
+        for col_major in (False, True) if a.shape[1] % 2 == 0 else (False,):
+            b = _mm_operands(1, 96, a.shape[1], torch.bfloat16, col_major,
+                             gen)[1]
+            tile = runtime.gemm_tile(a, b, (16, 32, 32))
+            assert isinstance(tile, runtime.SkinnyTile)
+            before = widesa_mm.variants["skinny"]
+            _same_gemm(widesa_mm.matmul(a, b, tiles=tile), ref.mm(a, b))
+            assert widesa_mm.variants["skinny"] == before + 1
+    torch.cuda.synchronize()
+
+
+#: skinny GEMMs whose K the staging of A whole in shared memory once kept
+#: off the skinny kernel: qwen3-32b's down projection of a 16-token prompt
+#: (K = 25600) and K past 100k (a decode product over long context), in
+#: bf16, int8 (bitwise) and, at 25600, float32; B drawn as weights, N(0,
+#: 1 / K), so that a sum stays O(1) and the bounds are the registry's
+#: (fp32 sums of 10^5 unit terms wander past float32's atol 1e-3 in any
+#: order)
+SKINNY_LONG_K = ((16, 5120, 25600), (16, 64, 131075), (4, 96, 200000))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", (torch.bfloat16, torch.int8,
+                                   torch.float32), ids=str)
+def test_skinny_kernel_at_long_k_matches_plain_versions_on_the_card(
+        dtype, gen):
+    """The skinny kernel at ``SKINNY_LONG_K`` (A streamed through the ring
+    by cp.async where its rows allow, else by plain loads: K = 131075 in
+    bf16), K split over at most 8 blocks of a cluster: against the plain
+    version, every launch counted as skinny, two runs the same bits."""
+    before = widesa_mm.variants["skinny"]
+    cases = 0
+    for m, n, k in SKINNY_LONG_K:
+        if dtype == torch.float32 and k > 25600:
+            continue
+        a, b = _mm_operands(m, n, k, dtype, False, gen)
+        if dtype.is_floating_point:
+            b = (b.float() * k ** -0.5).to(dtype)
+        tile = runtime.gemm_tile(a, b, (16, 32, 32))
+        assert isinstance(tile, runtime.SkinnyTile), (m, n, k)
+        assert 1 <= tile.split <= runtime.SKINNY_MAX_CLUSTER
+        got = widesa_mm.matmul(a, b, tiles=tile)
+        _same_gemm(got, ref.mm(a, b))
+        assert torch.equal(got, widesa_mm.matmul(a, b, tiles=tile))
+        cases += 2
+    torch.cuda.synchronize()
+    assert widesa_mm.variants["skinny"] - before == cases
 
 
 #: the tensor-core GEMM at M = 17, 64, 127 and 512 (more than 16 rows):
@@ -802,7 +860,8 @@ def test_tc_kernel_matches_plain_versions_on_the_card(dtype, out_dtype, gen):
     torch.cuda.synchronize()
     for kind, mod in (("mm", widesa_mm), ("bmm", bmm)):
         moved = {v: mod.variants[v] - before[kind][v] for v in mod.variants}
-        assert moved == {"skinny": 0, "wgmma": want[kind], "tiled": 0}
+        assert moved == {"skinny": 0, "wgmma": want[kind], "wgmma_cp": 0,
+                         "tiled": 0}
 
 
 #: every compiled tensor-core tile of the float dtypes (the integer ones:
@@ -837,29 +896,142 @@ def test_every_tc_tile_matches_the_plain_version_on_the_card(dtype, tile,
 
 @pytest.mark.gpu
 def test_operands_tma_cannot_address_run_the_tiled_kernel_on_the_card(gen):
-    """Above 16 rows: a B one element off its 16-byte boundary, rows of an
-    odd number of bf16 elements and int8 rows of 72 bytes take the tiled
-    tile, and a tensor-core launch on the misaligned B raises."""
+    """Above 16 rows: a B one element off its 16-byte boundary and rows of
+    an odd number of bf16 elements (A of 63) allow no 4-byte copy and take
+    the tiled tile, and a tensor-core launch on the misaligned B raises;
+    int8 rows of 72 bytes, which TMA cannot address, take the tensor
+    cores through the limb pre-pass (``wgmma``), bit for bit; each
+    against the plain version."""
     cases = []
     a = _gemm_draw((64, 64), torch.bfloat16, gen)
     cases.append((a, _gemm_draw((64 * 130 + 1,), torch.bfloat16,
-                                gen)[1:].view(64, 130)))
+                                gen)[1:].view(64, 130), "tiled"))
     cases.append((_gemm_draw((64, 63), torch.bfloat16, gen),
-                  _gemm_draw((63, 128), torch.bfloat16, gen)))
+                  _gemm_draw((63, 128), torch.bfloat16, gen), "tiled"))
     cases.append((_gemm_draw((64, 72), torch.int8, gen),
-                  _gemm_draw((72, 128), torch.int8, gen)))
-    for a, b in cases:
+                  _gemm_draw((72, 128), torch.int8, gen), "wgmma"))
+    for a, b, kernel in cases:
         tile = runtime.gemm_tile(a, b, (64, 32, 32))
-        assert tile == (64, 32, 32)
+        assert (tile == (64, 32, 32)) == (kernel == "tiled")
         before = dict(widesa_mm.variants)
         _same_gemm(widesa_mm.matmul(a, b, tiles=tile), ref.mm(a, b))
         torch.cuda.synchronize()
-        assert widesa_mm.variants["tiled"] == before["tiled"] + 1
-        assert widesa_mm.variants["wgmma"] == before["wgmma"]
-    a, b = cases[0]
+        assert {v: widesa_mm.variants[v] - before[v] for v in before} == {
+            "skinny": 0, "wgmma": 0, "wgmma_cp": 0, "tiled": 0, kernel: 1}
+    a, b, _ = cases[0]
     with pytest.raises(ValueError, match="TMA"):
         widesa_mm.matmul(a, b, tiles=runtime.tc_tile(64, 130, 64,
                                                      torch.bfloat16))
+
+
+#: gemm_tc_kernel's cp.async producer: (kind, M, N, K, batch, B
+#: column-major, A in padded rows, dtype, out dtype, the copy widths of A
+#: and B): whisper-base's encoder scores' dB over 1500 frames (A, keys^T,
+#: in padded rows by TMA; B the bf16 cotangent, rows of 3000 bytes, by
+#: 8-byte copies), a float32 A of 1001 columns and a float32 B of 201 (4
+#: bytes), a bf16 B of 130 columns (4) flushed to fp32 too, a column-major
+#: B over K = 1500 (8) and both operands copied at once
+TC_CP_CASES = (
+    ("bmm", 64, 1500, 1500, 32, False, True, torch.bfloat16, None, (0, 8)),
+    ("mm", 100, 200, 1001, None, False, False, torch.float32, None, (4, 0)),
+    ("mm", 100, 201, 1000, None, False, False, torch.float32, None, (0, 4)),
+    ("mm", 300, 130, 1000, None, False, False, torch.bfloat16, None, (0, 4)),
+    ("mm", 300, 130, 1000, None, False, False, torch.bfloat16,
+     torch.float32, (0, 4)),
+    ("mm", 200, 256, 1500, None, True, False, torch.bfloat16, None, (8, 8)),
+    ("bmm", 61, 72, 1002, 3, True, False, torch.float32, None, (8, 8)),
+)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", TC_CP_CASES,
+                         ids=[f"{c[0]}{c[1:5]}-{c[7]}" for c in TC_CP_CASES])
+def test_tc_cp_producer_matches_plain_versions_on_the_card(case, gen):
+    """The runtime's pick for an operand TMA cannot address whose rows
+    allow 8- or 4-byte copies is ``gemm_tc_kernel`` with the cp.async
+    producer (``TcTile.copies``, counted under ``wgmma_cp``), at
+    ``TC_CP_CASES``: against the plain version (bf16 2^-7|ref| + 1e-3 on
+    the fp32 stage sums, float32 atol 1e-3), a second run the same
+    bits."""
+    kind, m, n, k, batch, col_major, pad, dtype, out_dtype, copies = case
+    a, b = _mm_operands(m, n, k, dtype, col_major, gen, batch)
+    if pad:
+        unit = 16 // dtype.itemsize
+        rows = torch.empty((*a.shape[:-1], -(-k // unit) * unit),
+                           dtype=dtype, device="cuda")
+        rows[..., k:] = float("nan")
+        a = rows[..., :k]
+        a.copy_(_gemm_draw(a.shape, dtype, gen))
+    assert runtime.tc_copies(a, b) == copies
+    tile = runtime.gemm_tile(a, b, (64, 32, 32))
+    assert isinstance(tile, runtime.TcTile) and tile.producer == "cp"
+    assert tile.copies == copies
+    fn, plain = ((widesa_mm.matmul, ref.mm) if kind == "mm"
+                 else (bmm.bmm, ref.bmm))
+    mod = widesa_mm if kind == "mm" else bmm
+    before = dict(mod.variants)
+    got = fn(a, b, tiles=tile, out_dtype=out_dtype)
+    _same_gemm(got, plain(a, b, out_dtype))
+    assert torch.equal(got, fn(a, b, tiles=tile, out_dtype=out_dtype))
+    torch.cuda.synchronize()
+    assert {v: mod.variants[v] - before[v] for v in before} == {
+        "skinny": 0, "wgmma": 0, "wgmma_cp": 2, "tiled": 0}
+    with pytest.raises(ValueError, match="TMA"):
+        fn(a, b, tiles=dataclasses.replace(tile, copies=(0, 0)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("col_major", [False, True], ids=["row", "col"])
+def test_padded_b_rows_take_tma_on_the_card(col_major, gen):
+    """A B in rows padded to whole 16-byte units over an odd extent (the
+    head's bf16 cotangent over an odd vocabulary, as the backward pads it
+    for dW; its rows alone allow no 4-byte copy), row- or column-major,
+    with A in padded rows over the odd K: TMA reads both at their pitch
+    and zero-fills past the rows' end (the padding holds NaN), on
+    ``gemm_tc_kernel``'s TMA producer, against the plain version."""
+    k, n = 201, 1001
+
+    def padded(outer, inner, pitch):
+        rows = torch.full((outer, pitch), float("nan"), dtype=torch.bfloat16,
+                          device="cuda")
+        rows[:, :inner] = _gemm_draw((outer, inner), torch.bfloat16, gen)
+        return rows[:, :inner]
+
+    b = padded(n, k, 1008).t() if col_major else padded(k, n, 1008)
+    a = padded(100, k, 208)
+    assert runtime.b_copy_bytes(b) < 4 and runtime.a_copy_bytes(a) < 4
+    tile = runtime.gemm_tile(a, b, (64, 32, 32))
+    assert isinstance(tile, runtime.TcTile) and tile.producer == "tma"
+    before = widesa_mm.variants["wgmma"]
+    _same_gemm(widesa_mm.matmul(a, b, tiles=tile), ref.mm(a, b))
+    torch.cuda.synchronize()
+    assert widesa_mm.variants["wgmma"] == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tile", TC_COMPILED,
+                         ids=[f"{d}-{t}" for d, t in TC_COMPILED])
+def test_every_tc_tile_with_the_cp_producer_matches_on_the_card(dtype, tile,
+                                                                gen):
+    """Each compiled float tile with the cp.async producer, 2 and 4 ring
+    stages, K whole or split over clusters of 2, 3 and 8, both B layouts,
+    on operands whose rows allow only 8-byte copies (K = 998 and N = 198
+    in float32, 996 and 204 in bf16: A and B both copied), an mm and a
+    bmm; a split repeats its bits."""
+    k, n = (998, 198) if dtype == torch.float32 else (996, 204)
+    for stages in (2, runtime.TC_MAX_STAGES):
+        for split in (1, 2, 3, 8):
+            tc = runtime.TcTile(bm=tile[0], bn=tile[1], stages=stages,
+                                split=split, copies=(8, 8))
+            for col_major in (False, True):
+                a, b = _mm_operands(100, n, k, dtype, col_major, gen)
+                got = widesa_mm.matmul(a, b, tiles=tc)
+                _same_gemm(got, ref.mm(a, b))
+                assert torch.equal(got, widesa_mm.matmul(a, b, tiles=tc))
+                a, b = _mm_operands(61, n, k, dtype, col_major, gen,
+                                    batch=3)
+                _same_gemm(bmm.bmm(a, b, tiles=tc), ref.bmm(a, b))
+    torch.cuda.synchronize()
 
 
 @pytest.mark.gpu
@@ -949,7 +1121,8 @@ def test_integer_tc_gemm_matches_plain_versions_on_the_card(dtype, gen):
     torch.cuda.synchronize()
     for kind, mod in (("mm", widesa_mm), ("bmm", bmm)):
         moved = {v: mod.variants[v] - before[kind][v] for v in mod.variants}
-        assert moved == {"skinny": 0, "wgmma": launched[kind], "tiled": 0}
+        assert moved == {"skinny": 0, "wgmma": launched[kind],
+                         "wgmma_cp": 0, "tiled": 0}
 
 
 @pytest.mark.gpu
@@ -1298,7 +1471,7 @@ def test_moe_router_float32_gemm_matches_the_plain_version_on_the_card(
     torch.cuda.synchronize()
     kernel = "skinny" if rows <= runtime.SKINNY_ROWS else "wgmma"
     assert {v: widesa_mm.variants[v] - before[v] for v in before} == {
-        "skinny": 0, "wgmma": 0, "tiled": 0, kernel: 1}
+        "skinny": 0, "wgmma": 0, "wgmma_cp": 0, "tiled": 0, kernel: 1}
 
 
 @pytest.mark.gpu
@@ -1317,7 +1490,7 @@ def test_moe_expert_bmm_matches_the_plain_version_on_the_card(shape, gen):
     torch.cuda.synchronize()
     kernel = "skinny" if m <= runtime.SKINNY_ROWS else "wgmma"
     assert {v: bmm.variants[v] - before[v] for v in before} == {
-        "skinny": 0, "wgmma": 0, "tiled": 0, kernel: 2}
+        "skinny": 0, "wgmma": 0, "wgmma_cp": 0, "tiled": 0, kernel: 2}
 
 
 @pytest.mark.gpu
@@ -1402,7 +1575,7 @@ def test_deepseek_gemms_match_the_plain_version_on_the_card(site, kind,
     torch.cuda.synchronize()
     kernel = "skinny" if m <= runtime.SKINNY_ROWS else "wgmma"
     assert {v: mod.variants[v] - before[v] for v in before} == {
-        "skinny": 0, "wgmma": 0, "tiled": 0, kernel: 1}
+        "skinny": 0, "wgmma": 0, "wgmma_cp": 0, "tiled": 0, kernel: 1}
 
 
 @pytest.mark.gpu
@@ -1582,7 +1755,7 @@ def test_zamba2_shared_block_gemms_match_the_plain_version_on_the_card(
     torch.cuda.synchronize()
     kernel = "skinny" if m <= runtime.SKINNY_ROWS else "wgmma"
     assert {v: widesa_mm.variants[v] - before[v] for v in before} == {
-        "skinny": 0, "wgmma": 0, "tiled": 0, kernel: 1}
+        "skinny": 0, "wgmma": 0, "wgmma_cp": 0, "tiled": 0, kernel: 1}
 
 
 # ---------------------------------------------------------------------------

@@ -123,28 +123,41 @@ def test_paper_integer_gemms_take_the_tensor_cores(kind, dtype, shape):
 def test_integer_operands_tma_cannot_address_take_the_tiled_kernel(dtype):
     """A contiguous A whose rows are no whole 16-byte units (int8 K % 16,
     int16 K % 8, int32 K % 4), a row-major B whose N leaves the same, a B
-    one element off its 16-byte boundary: the tiled tile.  A in padded
-    rows (the attention values' layout) at the same K and a column-major B
-    take the tensor cores."""
+    one element off its 16-byte boundary: the tensor cores all the same,
+    through the limb pre-pass, which reads any layout the GEMMs read and
+    writes planes TMA addresses (never the cp.async producer, which is
+    the floats'), as do A in padded rows (the attention values' layout)
+    at the same K and a column-major B.  Only an integer K past 8 ranks'
+    ``TC_INT_MAX_RANK_K`` stays on the tiled tile
+    (``test_largest_admitted_k_cannot_overflow_an_s32_set``)."""
     unit = 16 // dtype.itemsize
-    for k, whole in ((8 * unit, True), (8 * unit + unit // 2, False)):
+    plain = runtime.TcTile
+    for k in (8 * unit, 8 * unit + unit // 2):
         a = torch.zeros((40, k), dtype=dtype)
         for b in (torch.zeros((k, 8 * unit), dtype=dtype),
                   torch.zeros((8 * unit, k), dtype=dtype).t()):
             got = runtime.gemm_tile(a, b, TILED)
-            assert isinstance(got, runtime.TcTile) == whole, (k, b.stride())
+            assert isinstance(got, plain) and got.producer == "tma", \
+                (k, b.stride())
+            runtime.check_tc(got, a, b)
         padded = torch.zeros((40, 9 * unit), dtype=dtype)[:, :k]
         assert runtime.a_pitch(padded) == 9 * unit
         assert isinstance(runtime.gemm_tile(
             padded, torch.zeros((k, 8 * unit), dtype=dtype), TILED),
             runtime.TcTile)
     a = torch.zeros((40, 8 * unit), dtype=dtype)
-    assert runtime.gemm_tile(
-        a, torch.zeros((8 * unit, 8 * unit + unit // 2), dtype=dtype),
-        TILED) == TILED
+    odd_n = torch.zeros((8 * unit, 8 * unit + unit // 2), dtype=dtype)
+    assert runtime.gemm_tile(a, odd_n, TILED).producer == "tma"
     flat = torch.zeros(8 * unit * 8 * unit + 1, dtype=dtype)
-    assert runtime.gemm_tile(a, flat[1:].view(8 * unit, 8 * unit),
-                             TILED) == TILED
+    offset = flat[1:].view(8 * unit, 8 * unit)
+    assert runtime.gemm_tile(a, offset, TILED).producer == "tma"
+    runtime.check_tc(runtime.gemm_tile(a, offset, TILED), a, offset)
+    # K past 8 ranks of the largest admitted K: the tiled tile
+    long_k = 8 * runtime.TC_INT_MAX_RANK_K[dtype] + 128
+    assert runtime.gemm_tile(
+        torch.empty((40, long_k), dtype=dtype, device="meta"),
+        torch.empty((long_k, 64), dtype=dtype, device="meta"),
+        TILED) == TILED
     # 16 rows stay on the skinny kernel
     assert isinstance(runtime.gemm_tile(torch.zeros((16, 8 * unit),
                                                     dtype=dtype),
@@ -227,18 +240,26 @@ def test_limb_planes_scratch_holds_each_operand_the_kernel_cannot_read(
         dtype, col_major):
     """The wrapper's scratch for the pre-pass: [batch, rows, k-tiles x
     128] bytes for every operand but an int8 K-major one (A; a
-    column-major B), which TMA reads as it is."""
+    column-major B) that TMA can address (K = 320), which TMA reads as it
+    is; at K = 300 (int8 rows of 300 bytes) the pre-pass writes planes of
+    that one too."""
     from repro_torch.kernels import widesa_mm
 
-    batch, m, n, k = 3, 40, 24, 300
-    a = torch.empty((batch, m, k), dtype=dtype, device="meta")
-    planes = widesa_mm.limb_planes(a, batch, m, n, k, col_major)
-    row = -(-k * dtype.itemsize // 128) * 128
-    wide = dtype.itemsize > 1
-    want = ((batch, m, row) if wide else None,
-            (batch, n, row) if wide or not col_major else None)
-    assert tuple(None if p is None else tuple(p.shape) for p in planes) == want
-    assert all(p is None or p.dtype == torch.uint8 for p in planes)
+    batch, m, n = 3, 40, 24
+    for k in (320, 300):
+        a = torch.empty((batch, m, k), dtype=dtype, device="meta")
+        b = torch.empty((batch, n, k) if col_major else (batch, k, n),
+                        dtype=dtype, device="meta")
+        if col_major:
+            b = b.transpose(1, 2)
+        planes = widesa_mm.limb_planes(a, b, batch, m, n, k, col_major, k)
+        row = -(-k * dtype.itemsize // 128) * 128
+        plane = dtype.itemsize > 1 or k % 16 != 0
+        want = ((batch, m, row) if plane else None,
+                (batch, n, row) if plane or not col_major else None)
+        assert tuple(None if p is None else tuple(p.shape)
+                     for p in planes) == want
+        assert all(p is None or p.dtype == torch.uint8 for p in planes)
 
 
 # ---------------------------------------------------------------------------

@@ -210,14 +210,15 @@ def test_compiled_tiles_match_the_cuda_source():
         for name in ("Rows", "BN", "RunBytes", "MaxCluster")}
     tc = {name: int(v) for name, v in
           re.findall(r"constexpr int kTc(\w+) = (\d+);", src)}
-    assert {"Consumers": runtime.TC_THREADS - 32,
+    assert {"Consumers": 256,
             "RowBytes": runtime.TC_ROW_BYTES,
             "MaxStages": runtime.TC_MAX_STAGES,
             "MaxCluster": runtime.TC_MAX_CLUSTER,
             "MaxSmem": runtime.TC_MAX_SMEM} == {
         name: tc[name] for name in ("Consumers", "RowBytes", "MaxStages",
                                     "MaxCluster", "MaxSmem")}
-    assert "kTcThreads = kTcConsumers + 32;" in src
+    assert "kTcThreads = kTcConsumers + kTcProducers;" in src
+    assert runtime.TC_THREADS == tc["Consumers"] + tc["Producers"]
     for fn, dtype in (("int launch_tc_bf16", torch.bfloat16),
                       ("int launch_tc_f32", torch.float32),
                       ("int launch_tc_int(", torch.int8),
@@ -309,18 +310,19 @@ def test_decode_shapes_above_one_mib_fill_the_card(kind, shape, col_major):
                                    torch.int8, torch.int16, torch.int32],
                          ids=str)
 def test_skinny_splits_stay_in_one_portable_cluster(dtype):
-    """Over M = 1..16 and a spread of N and K: the split is 1..8 (the
-    portable cluster size the source launches), every block of a cluster
-    gets a non-empty K range of whole stages, and A's stage fits."""
+    """Over M = 1..16 and a spread of N and K up to 500000 (qwen3-32b's
+    down projection of a 16-token prompt at K = 25600, a decode product
+    over half a million keys): a tile at every K, since A streams through
+    the ring beside B; the split is 1..8 (the portable cluster size the
+    source launches), and every block of a cluster gets a non-empty K
+    range of whole stages."""
     bk = runtime.skinny_bk(dtype)
     for m in range(1, 17):
-        for n in (1, 31, 96, 1024, 151936):
-            for k in (1, 7, 64, 77, 1000, 1004, 2816, 20000):
+        for n in (1, 31, 96, 1024, 5120, 151936):
+            for k in (1, 7, 64, 77, 1000, 1004, 2816, 20000, 25600, 100003,
+                      500000):
                 tile = runtime.skinny_tile(m, n, k, 1, dtype)
-                if tile is None:
-                    assert m * -(-k // 8) * dtype.itemsize > \
-                        runtime.SKINNY_A_BYTES
-                    continue
+                assert tile is not None, (m, n, k)
                 assert 1 <= tile.split <= runtime.SKINNY_MAX_CLUSTER
                 assert tile.kblk % bk == 0
                 assert (tile.split - 1) * tile.kblk < k <= \
@@ -335,9 +337,13 @@ def test_misaligned_or_odd_operands_take_the_tiled_kernel():
     take the tiled tile; rows aligned to 8 bytes (whisper's 1500-key score
     rows) and a single column stay on the skinny kernel.  A of more than
     16 rows takes the tensor-core kernel in bf16 and int8 where TMA can
-    address both operands, the tiled tile where it cannot (B one element
-    off its 16-byte boundary, rows of 63 or 130 bf16 elements, int8 rows
-    of 72 bytes)."""
+    address both operands; in bf16 an operand TMA cannot address whose
+    rows allow 8- or 4-byte copies (rows of 130 bf16 elements, whisper's
+    scores' cotangent over 1500 keys, a base 4 bytes off) takes its
+    cp.async producer; B rows one element off their 16-byte boundary, an
+    odd row of bf16 (B of 131 columns, A of 63) stay on the tiled tile;
+    int8 rows of 72 bytes take the limb pre-pass, which writes planes TMA
+    addresses."""
     tiled = (4, 32, 32)
     a = torch.zeros((4, 64), dtype=torch.bfloat16)
     flat = torch.zeros(64 * 130 + 8, dtype=torch.bfloat16)
@@ -358,17 +364,48 @@ def test_misaligned_or_odd_operands_take_the_tiled_kernel():
         torch.zeros((64, 128), dtype=torch.bfloat16), tiled) == \
         runtime.TcTile(bm=128, bn=64, stages=2, split=1)
     rows17 = torch.zeros((17, 64), dtype=torch.bfloat16)
-    for b in (offset, torch.zeros((64, 130), dtype=torch.bfloat16)):
-        assert runtime.gemm_tile(rows17, b, tiled) == tiled
+    tma = runtime.TcTile(bm=128, bn=64, stages=2, split=1)
+    assert runtime.gemm_tile(rows17, offset, tiled) == tiled
+    assert runtime.gemm_tile(
+        rows17, torch.zeros((64, 130), dtype=torch.bfloat16), tiled) == \
+        dataclasses.replace(tma, copies=(0, 4))
+    assert runtime.tc_copies(
+        rows17, torch.zeros((64, 130), dtype=torch.bfloat16)) == (0, 4)
+    assert runtime.gemm_tile(
+        rows17, torch.zeros((64, 131), dtype=torch.bfloat16), tiled) == tiled
     assert runtime.gemm_tile(torch.zeros((17, 63), dtype=torch.bfloat16),
                              odd_k, tiled) == tiled
+    # K = 63 in rows padded to 64: both operands by TMA at their pitch
+    assert runtime.gemm_tile(
+        torch.zeros((17, 64), dtype=torch.bfloat16)[:, :63],
+        torch.zeros((96, 64), dtype=torch.bfloat16)[:, :63].t(), tiled) == \
+        runtime.TcTile(bm=128, bn=64, stages=2, split=1)
+    # A 4 bytes off its 16-byte boundary: A by copies, B by TMA
+    flat = torch.zeros(17 * 64 + 2, dtype=torch.bfloat16)
+    shifted = flat[2:].view(17, 64)
+    assert runtime.tc_copies(
+        shifted, torch.zeros((64, 128), dtype=torch.bfloat16)) == (4, 0)
+    assert runtime.gemm_tile(
+        shifted, torch.zeros((64, 128), dtype=torch.bfloat16), tiled) == \
+        dataclasses.replace(tma, copies=(4, 0))
     assert runtime.gemm_tile(
         torch.zeros((17, 64), dtype=torch.int8),
         torch.zeros((64, 128), dtype=torch.int8), tiled) == \
         runtime.TcTile(bm=128, bn=64, stages=2, split=1)
     assert runtime.gemm_tile(
         torch.zeros((17, 72), dtype=torch.int8),
-        torch.zeros((72, 128), dtype=torch.int8), tiled) == tiled
+        torch.zeros((72, 128), dtype=torch.int8), tiled) == \
+        runtime.TcTile(bm=128, bn=64, stages=2, split=1)
+    # whisper's encoder scores' dB over 1500 frames: A (keys^T) in padded
+    # rows by TMA, B (the bf16 cotangent, rows of 3000 bytes) by 8-byte
+    # copies; in the padded rows the backward casts it into, by TMA
+    keys_t = torch.zeros((32, 64, 1504), dtype=torch.bfloat16)[..., :1500]
+    cot = torch.zeros((32, 1500, 1500), dtype=torch.bfloat16)
+    assert runtime.tc_copies(keys_t, cot) == (0, 8)
+    assert runtime.gemm_tile(keys_t, cot, tiled).producer == "cp"
+    cot_rows = torch.zeros((32, 1500, 1504), dtype=torch.bfloat16)[..., :1500]
+    assert runtime.tc_copies(keys_t, cot_rows) == (0, 0)
+    assert runtime.gemm_tile(keys_t, cot_rows, tiled).producer == "tma"
     scores = torch.zeros((64, 1500), dtype=torch.bfloat16)
     assert runtime.b_copy_bytes(scores) == 8
     assert isinstance(runtime.gemm_tile(a, scores, tiled),
@@ -380,6 +417,31 @@ def test_misaligned_or_odd_operands_take_the_tiled_kernel():
     assert runtime.b_copy_bytes(column) == 16
     assert isinstance(runtime.gemm_tile(a, column, tiled),
                       runtime.SkinnyTile)
+
+
+def test_odd_vocabulary_cotangent_takes_the_tensor_cores_once_padded():
+    """The head's cotangent over whisper-base's 51865 logits (bf16 rows of
+    103730 bytes, 2-byte aligned) allows no copy TMA or cp.async can make:
+    as it is, it sends dx (as A) and dW (as B) to the tiled kernel; in the
+    rows ``planned._a_rows`` pads it into, TMA addresses it in both
+    roles."""
+    from repro_torch.kernels import planned
+
+    tokens, vocab, d = 256, 51865, 512
+    meta = dict(dtype=torch.bfloat16, device="meta")
+    g = torch.empty((tokens, vocab), **meta)
+    embed = torch.empty((vocab, d), **meta)
+    xt = torch.empty((d, tokens), **meta)
+    tiled = (64, 32, 32)
+    assert runtime.gemm_tile(g, embed, tiled) == tiled
+    assert runtime.gemm_tile(xt, g, tiled) == tiled
+    rows = planned.padded_rows(g, torch.bfloat16)
+    assert runtime.a_pitch(rows) == 51872
+    assert runtime.b_layout(rows) == (0, 51872, tokens * 51872)
+    for a, b in ((rows, embed), (xt, rows)):
+        tile = runtime.gemm_tile(a, b, tiled)
+        assert isinstance(tile, runtime.TcTile) and tile.producer == "tma"
+        runtime.check_tc(tile, a, b)
 
 
 def _route(kind, shape, col_major, dtype, padded=False):
@@ -525,29 +587,44 @@ def test_tc_split_fills_the_card_within_one_wave():
 
 
 def test_tc_operands_need_aligned_bases_and_16_byte_rows():
-    """TMA addresses an operand whose base is 16-byte aligned and whose
-    rows are whole 16-byte units: float32 rows of a multiple of 4
-    elements, bf16 of 8; a base one element off, or A not contiguous,
-    takes the tiled tile; a launch the kernel cannot take raises."""
+    """TMA addresses an operand whose base and pitch are 16-byte aligned:
+    contiguous float32 rows of a multiple of 4 elements, bf16 of 8 (the
+    producer "tma").  Rows of half a unit (8-byte aligned) take the
+    cp.async producer ("cp") for the operand TMA cannot address, in
+    either layout of B; a base one float32 element off takes it too (4-byte
+    copies), one bf16 element off allows no copy and, as A not contiguous
+    does, takes the tiled tile; a launch the kernel cannot take raises."""
     tiled = (64, 32, 32)
     for dtype, unit in ((torch.float32, 4), (torch.bfloat16, 8)):
         for k in (unit * 9, unit * 9 + unit // 2):
             a = torch.zeros((40, k), dtype=dtype)
             b = torch.zeros((k, 24), dtype=dtype)
             whole = k % unit == 0
-            assert isinstance(runtime.gemm_tile(a, b, tiled),
-                              runtime.TcTile) == whole
-            assert isinstance(runtime.gemm_tile(a, b.t().contiguous().t(),
-                                                tiled), runtime.TcTile) == \
-                whole
+            want = "tma" if whole else "cp"
+            assert runtime.gemm_tile(a, b, tiled).producer == want
+            assert runtime.tc_copies(a, b) == ((0, 0) if whole else (8, 0))
+            col = b.t().contiguous().t()
+            assert runtime.gemm_tile(a, col, tiled).producer == want
+            assert runtime.tc_copies(a, col) == ((0, 0) if whole
+                                                 else (8, 8))
         flat = torch.zeros(40 * 64 + 1, dtype=dtype)
         a = flat[1:].view(40, 64)
         b = torch.zeros((64, 32), dtype=dtype)
-        assert runtime.gemm_tile(a, b, tiled) == tiled
+        if dtype == torch.float32:
+            assert runtime.tc_copies(a, b) == (4, 0)
+            assert runtime.gemm_tile(a, b, tiled).producer == "cp"
+        else:
+            assert runtime.tc_copies(a, b) is None
+            assert runtime.gemm_tile(a, b, tiled) == tiled
         assert runtime.gemm_tile(torch.zeros((64, 40), dtype=dtype).t(), b,
                                  tiled) == tiled
         with pytest.raises(ValueError, match="TMA"):
             runtime.check_tc(runtime.tc_tile(40, 32, 64, dtype), a, b)
+        # a cp.async launch needs an operand TMA cannot address
+        with pytest.raises(ValueError, match="cp.async"):
+            runtime.check_tc(dataclasses.replace(
+                runtime.tc_tile(40, 32, 64, dtype), copies=(8, 0)),
+                torch.zeros((40, 64), dtype=dtype), b)
     good = torch.zeros((40, 64)), torch.zeros((64, 32))
     for tile in (runtime.TcTile(128, 64, 4),      # a bf16 tile in float32
                  runtime.TcTile(64, 128, 1),      # one stage

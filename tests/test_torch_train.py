@@ -39,6 +39,7 @@ from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.configs.base import ModelConfig  # noqa: E402
 from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.kernels import planned as tp  # noqa: E402
+from repro_torch.kernels import runtime  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.train.loop import batch_tensors  # noqa: E402
 from repro_torch.train.step import value_and_grad  # noqa: E402
@@ -249,6 +250,54 @@ def test_transposed_a_operands_are_counted_copies():
     (tp.planned_dense(xt, wt) * torch.from_numpy(cot)).sum().backward()
     assert tp.a_copies["calls"] - before["calls"] == 1
     assert tp.a_copies["bytes"] - before["bytes"] == 40 * 24 * 4
+
+
+@pytest.mark.parametrize("n", [57, 1001])
+def test_odd_cotangent_rows_are_padded_once(n):
+    """A bf16 cotangent over an odd N (the head's over whisper's 51865
+    logits) has rows that allow no 4-byte copy: the backward copies it
+    once into rows padded to 16-byte units (``_a_rows``, counted in
+    ``a_copies`` beside dW's ``x^T``), which dx reads as its A and dW as
+    its B, and both gradients equal ``jax.grad`` through the reference's
+    custom_vjp within one bf16 rounding."""
+    x, w, cot = _draws(5, (24, 40), (40, n), (24, n))
+    before = dict(tp.a_copies)
+    want, got, jrep, trep = _facade_grads("dense", [x, w], cot, "bfloat16")
+    assert tp.a_copies["calls"] - before["calls"] == 2
+    assert tp.a_copies["bytes"] - before["bytes"] == (40 * 24 + 24 * n) * 2
+    for g, ref in zip(got, want):
+        within_bf16(g, ref)
+    assert_same_decisions(*jrep, *trep)
+
+
+@pytest.mark.parametrize("n", [75, 100])
+def test_bmm_cotangent_is_cast_once_for_both_gradients(n, monkeypatch):
+    """The fp32 cotangent of bf16 scores (whisper's encoder's over 1500
+    frames: bf16 rows of 3000 bytes, which TMA cannot address; here rows
+    of 150 and 200 bytes) is cast once, into rows padded to 16-byte units
+    (``_a_rows``), which dA reads as its A and dB as its B, so that both
+    products take the tensor cores' TMA producer; both gradients equal
+    ``jax.grad`` through the reference's custom_vjp within one bf16
+    rounding."""
+    seen = {}
+    dispatch = tp._dispatch_bmm
+
+    def spy(a, b, site, out_dtype=None):
+        seen[site.rsplit("/", 1)[-1]] = (a, b)
+        return dispatch(a, b, site, out_dtype)
+
+    monkeypatch.setattr(tp, "_dispatch_bmm", spy)
+    *args, cot = _draws(7, (2, n, 8), (2, 8, n), (2, n, n))
+    want, got, jrep, trep = _facade_grads("bmm", args, cot, "bfloat16",
+                                          out_dtype=jnp.float32)
+    rows = seen["bwd_da"][0]
+    assert rows is seen["bwd_db"][1]
+    assert rows.dtype == torch.bfloat16 and rows.shape == (2, n, n)
+    assert runtime.a_pitch(rows) == -(-n // 8) * 8
+    assert runtime.tc_copies(seen["bwd_db"][0], rows) == (0, 0)
+    for g, ref in zip(got, want):
+        within_bf16(g, ref)
+    assert_same_decisions(*jrep, *trep)
 
 
 # ---------------------------------------------------------------------------
