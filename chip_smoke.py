@@ -21,7 +21,7 @@ JAX nor the JAX package, and runs twenty-two phases, each printing its own
 line(s); any failure exits non-zero:
 
 1. device — the card's name and power limit, torch and CUDA versions;
-2. build  — compiles the port's three CUDA sources from ``src/`` (one
+2. build  — compiles the port's four CUDA sources from ``src/`` (one
    ``nvcc`` each, started together; set-up time);
 3. kernels — every hand-written kernel against its plain PyTorch version
    on the card: the mm/bmm GEMMs in all five dtypes at every serving
@@ -48,7 +48,11 @@ line(s); any failure exits non-zero:
    8 x 8, 5 x 4) and on the generic instantiation (which alone takes 1 x
    1, 3 x 5, 12 x 7 and 32 x 32); the fused fft2d kernel at
    ``FFT_SHAPES`` (two runs bitwise equal) and the composition over the
-   GEMMs at the frontend tile against ``torch.fft.fft2``.  Then each is
+   GEMMs at the frontend tile against ``torch.fft.fft2``; the FFT kernel
+   (``fft_pass_kernel``, the grids above 64 rows) at ``FFT_KERNEL_SHAPES``
+   on the runtime's tile and at 8192^2 on the portable cluster of 8, against its
+   plain version (``fft2d.fft_plain``, bitwise) and ``torch.fft.fft2``
+   (``fft_parity``).  Then each is
    timed beside its plain
    version, one PyTorch call computing the same function
    (``torch.matmul``/``torch.bmm``, ``F.conv1d``, ``F.conv2d``,
@@ -327,7 +331,7 @@ line(s); any failure exits non-zero:
    int16 9600^3, int32 8192^3; 64 x 4096^3 in float32, int8 and int16),
    conv2d at the paper's conv2d table, fir at the paper's FIR table (16
    launches on the 15-tap instantiation), fft2d_stage at its "cfloat" and
-   "cint16" 8192^2 grids (the registry's atol 1.0).  Checks that every star and
+   "cint16" 8192^2 grids on the FFT kernel (the registry's atol 1.0).  Checks that every star and
    conv2d case ran the launch the runtime chose for it (star_kernel for one
    sweep, sweeps_kernel in ceil(T / T_b) launches of T_b >= 2 for
    jacobi2d_ms, conv2d on its compiled window), each launch counted under
@@ -335,8 +339,8 @@ line(s); any failure exits non-zero:
    every mttkrp case on the kernel its dtype and shape call for (every
    bench case on the tensor cores, int16 and int32 as int8 limbs) with
    each launch counted under it, fft2d_stage's two 8192^2 bench cases on
-   the composition (six float32 8192^3 products a transform on
-   ``gemm_tc_kernel``), and every mm / bmm case (all above 16 rows) on the tensor-core
+   the FFT kernel (two passes a transform, counted under ``fft``), and
+   every mm / bmm case (all above 16 rows) on the tensor-core
    kernels, float32 and integers, with every launch of the two GEMM
    wrappers counted under ``wgmma``.  Then holds B6 (5-point, 9-point, and the multi-sweep
    form on its int32 state) and B7 against their plain versions at the
@@ -447,10 +451,13 @@ holds the tensor-core GEMM at the qwen prefill shapes of 512, 127 and 64
 tokens (bf16) and at quickstart's float32 1024^3 to the plain version with
 every compiled tile, split of K (1-4) and ring of 2 or 4 stages, and prints
 each one's device time beside the runtime's pick and ``torch.matmul`` /
-``torch.bmm``'s.  ``--fft-sweep`` builds the GEMM and signal-processing
-sources, then holds the fused fft2d kernel at 12 x 515, 16 x 1024 and
-64 x 64 with every split of K it takes to ``ref.fft2d`` and prints each
-one's device time beside the composition's and ``torch.fft.fft2``'s.
+``torch.bmm``'s.  ``--fft-sweep`` builds the GEMM, signal-processing
+and FFT sources, then holds the fused fft2d kernel at 12 x 515, 16 x 1024
+and 64 x 64 with every split of K it takes to ``ref.fft2d`` and prints
+each one's device time beside the composition's and ``torch.fft.fft2``'s,
+and the FFT kernel at 8192^2 and 4096 x 256 with its configurations (rows
+a row-pass block, columns a column-pass block, blocks a cluster: 1-16),
+each held to its plain version, beside ``torch.fft.fft2``.
 ``--conv2d-sweep`` builds the signal-processing source, then holds conv2d
 over 10240^2 outputs with filters from 3 x 3 to 32 x 32 (``CONV2D_SWEEP``)
 to ``ref.conv2d`` and prints the device time of the runtime's launch and
@@ -466,7 +473,8 @@ Tolerances: integer results are bit-exact (wrapping int32, as XLA);
 float32 results within the kernel registry's atol 1e-3 (sums of up to
 2816 products, 3xTF32 on the tensor-core GEMM; 1.0 for the
 fft2d, the registry's fft2d_stage atol: fp32 sums of 515
-terms of magnitude ~100); bf16 results within ``2^-7 * |ref| + 1e-3``,
+terms of magnitude ~100, and the FFT kernel's outputs of up to ~3e4 at
+8192^2); bf16 results within ``2^-7 * |ref| + 1e-3``,
 one bf16 rounding step of the output (8-bit significand) on top of fp32
 sums taken in another order.  The logits of the whole bf16 models are
 held to ``LOGIT_ATOL`` (see there); the int16 frontend features are
@@ -578,6 +586,7 @@ COLD_BYTES = 80 * 2**20
 SOURCE = "src/repro_torch/kernels/csrc/widesa_mm.cu"
 SP_SOURCE = "src/repro_torch/kernels/csrc/widesa_sp.cu"
 HPC_SOURCE = "src/repro_torch/kernels/csrc/widesa_hpc.cu"
+FFT_SOURCE = "src/repro_torch/kernels/csrc/widesa_fft.cu"
 KERNELS = {
     "widesa_mm": dict(kind="mm", shape=(4, 151936, 1024), col_major=True,
                       replaces="src/repro/kernels/widesa_mm.py:31",
@@ -587,10 +596,14 @@ KERNELS = {
     "fir": dict(replaces="src/repro/kernels/fir.py:25", source=SP_SOURCE),
     "conv2d": dict(replaces="src/repro/kernels/conv2d.py:32",
                    source=SP_SOURCE),
-    # the fused kernel (the composition over the GEMMs above for taller
-    # grids)
+    # the fused kernel up to 64 rows (fft2d_kernel); the taller grids whose
+    # sides are powers of two run the FFT kernel, fft_pass_kernel (the
+    # next entry, its launches those of this wrapper's ``fft`` form), the
+    # rest the composition over the GEMMs above
     "fft2d": dict(replaces="src/repro/kernels/fft2d.py:34",
                   source=SP_SOURCE),
+    "fft2d_fft": dict(replaces="src/repro/kernels/fft2d.py:34",
+                      source=FFT_SOURCE),
     # star_kernel for jacobi2d and jacobi2d_9pt, sweeps_kernel for
     # jacobi2d_ms
     "jacobi2d": dict(replaces="src/repro/kernels/jacobi2d.py:31",
@@ -629,6 +642,10 @@ FFT_MAIN = (12, 515)
 #: kernel's largest), the two timed
 FFT_PIPELINE = (64, 64)
 FFT_SHAPES = (FFT_MAIN, (16, 1024), (1, 7), (12, 67), (7, 130), FFT_PIPELINE)
+#: the FFT kernel's parity shapes: a square, a tall grid over a cluster of
+#: 8, long rows, one column pair, the pipeline's bench grid (timed)
+FFT_KERNEL_SHAPES = ((128, 128), (4096, 256), (512, 8192), (8192, 2),
+                     (8192, 8192))
 
 
 def fail(msg: str) -> None:
@@ -1687,9 +1704,10 @@ def sp_kernel(name, args, dtype):
 
 def fft_kernel(shape=FFT_MAIN):
     """The fft2d wrapper on the form the runtime routes an fft2d_stage
-    plan of ``shape`` to (the fused kernel up to 64 rows), and the
-    composition over the GEMMs on the plan's tiled tile: (fused call,
-    composition call, the routed tile)."""
+    plan of ``shape`` to (the fused kernel up to 64 rows, the FFT kernel
+    above where both sides are powers of two), and the composition over
+    the GEMMs on the plan's tiled tile: (routed call, composition call,
+    the routed tile)."""
     import torch
 
     from repro_torch.kernels import fft2d, planned, registry, runtime
@@ -1784,6 +1802,97 @@ def sp_parity(torch) -> None:
           f"at {list(FFT_SHAPES)} and the composition at {FFT_MAIN}, <= "
           f"1.0, the fused kernel's max |err| {worst:.4g}, two runs "
           f"bitwise equal)", flush=True)
+
+
+#: the misaligned-B check's shape: A [4, 64], B [64, 130] one element off
+#: its 16-byte boundary (bf16 rows allow no 4-byte copy: the tiled kernel)
+MISALIGNED_MM = (4, 130, 64)
+
+
+def tiled_timing(torch) -> dict:
+    """The tiled ``gemm_kernel`` at ``MISALIGNED_MM`` in bf16, one of the
+    two cases it keeps (``runtime.tiled_reason``): profiler device time
+    beside its bound, the plain version and ``torch.matmul`` on the same
+    operands."""
+    from repro_torch.kernels import ref, runtime, widesa_mm
+
+    gen = torch.Generator(device="cuda").manual_seed(33)
+    m, n, k = MISALIGNED_MM
+    a = draw(torch, gen, (m, k), torch.bfloat16)
+    b = draw(torch, gen, (k * n + 1,), torch.bfloat16)[1:].view(k, n)
+    tile = runtime.gemm_tile(a, b, (4, 32, 32))
+    before = widesa_mm.variants["tiled"]
+    out = widesa_mm.matmul(a, b, tiles=tile)
+    err, ok = max_error(torch, out, ref.mm(a, b), torch.bfloat16)
+    if widesa_mm.variants["tiled"] != before + 1 or not ok:
+        fail(f"misaligned mm{MISALIGNED_MM} bf16 {describe(tile)}: "
+             f"max |err| {err}, tiled launches "
+             f"{widesa_mm.variants['tiled'] - before}")
+    row = dict(tile=str(tile), max_abs_err=err,
+               ms=time_ms(torch, lambda: widesa_mm.matmul(a, b, tiles=tile)),
+               device_ms=device_ms(torch, lambda: widesa_mm.matmul(
+                   a, b, tiles=tile), "gemm_kernel", 20),
+               plain_ms=time_ms(torch, lambda: ref.mm(a, b)),
+               library_ms=time_ms(torch, lambda: torch.matmul(a, b)),
+               library_device_ms=device_ms(
+                   torch, lambda: torch.matmul(a, b), None, 20))
+    row["bound_ms"], row["bound_by"] = bound_ms("mm", MISALIGNED_MM, 2, 2,
+                                                "bfloat16")
+    print(f"time mm{MISALIGNED_MM} bf16, B one element off its 16-byte "
+          f"boundary [tiled gemm_kernel {describe(tile)}]: {row['ms']:.4f} "
+          f"ms (device {fmt_ms(row['device_ms'])}), bound "
+          f"{row['bound_ms']:.7f} ms ({row['bound_by']}), plain "
+          f"{row['plain_ms']:.4f} ms, torch.matmul {row['library_ms']:.4f} "
+          f"ms (device {fmt_ms(row['library_device_ms'])}); max |err| "
+          f"{err:.4g}", flush=True)
+    return row
+
+
+def fft_parity(torch) -> None:
+    """The FFT kernel (both passes) at ``FFT_KERNEL_SHAPES`` on the tile
+    the runtime routes each to, and at 8192^2 also on 8-column strips
+    over the portable cluster of 8: within the registry's atol of
+    ``ref.fft2d``,
+    two runs bitwise equal, and held to its plain version
+    (``fft2d.fft_plain``, which rounds each product and sum as the kernel
+    does: equal to the last bit, the count of shapes where it is not
+    printed)."""
+    from repro_torch.kernels import fft2d, ref, runtime
+
+    gen = torch.Generator(device="cuda").manual_seed(34)
+    cases = [(shape, fft_kernel(shape)[2]) for shape in FFT_KERNEL_SHAPES]
+    cases.append(((8192, 8192), runtime.fft_config(8192, 8192, strip=8)))
+    worst, plain_worst, unequal = 0.0, 0.0, []
+    for shape, tile in cases:
+        if not isinstance(tile, runtime.FftTile) \
+                or not runtime.fft_allows(*shape, tile):
+            fail(f"fft2d{shape}: routed to {tile}, not the FFT kernel")
+        re_, im_ = (torch.randn(shape, generator=gen, device="cuda")
+                    for _ in range(2))
+        got = fft2d.fft2d(re_, im_, tiles=tile)
+        again = fft2d.fft2d(re_, im_, tiles=tile)
+        torch.cuda.synchronize()
+        if not all(torch.equal(g, a) for g, a in zip(got, again)):
+            fail(f"fft2d{shape} {tile}: two runs differ")
+        del again
+        err = max((g - w).abs().max().item()
+                  for g, w in zip(got, ref.fft2d(re_, im_)))
+        plain = fft2d.fft_plain(re_, im_, tile)
+        perr = max((g - w).abs().max().item() for g, w in zip(got, plain))
+        if not all(torch.equal(g, w) for g, w in zip(got, plain)):
+            unequal.append(shape)
+        if err > 1.0 or perr > 1.0:
+            fail(f"fft2d{shape} {tile}: max |err| {err} against "
+                 f"torch.fft.fft2, {perr} against the plain version")
+        worst, plain_worst = max(worst, err), max(plain_worst, perr)
+        del re_, im_, got, plain
+        torch.cuda.empty_cache()
+    print(f"kernels: fft2d's FFT kernel (fft_pass_kernel, row and column "
+          f"passes) ok in {len(cases)} cases {[c[0] for c in cases]} "
+          f"(8192^2 also on 8-column strips over a cluster of 8): max "
+          f"|err| {worst:.4g} against torch.fft.fft2 (atol 1.0), "
+          f"{plain_worst:.4g} against its plain version, bitwise unequal "
+          f"at {unequal or 'no shape'}; two runs bitwise equal", flush=True)
 
 
 def fir_extra_parity(torch, gen, dtypes) -> int:
@@ -6207,7 +6316,8 @@ def fft_sweep(torch) -> list[dict]:
     """The fused fft2d kernel at ``FFT_SHAPES``' frontend, wide and
     pipeline grids with every split of K it takes (1-8), each held to
     ``ref.fft2d``, beside the composition and ``torch.fft.fft2`` (profiler
-    device time)."""
+    device time); then the FFT kernel at ``FFT_SWEEP``'s grids with every
+    configuration of ``fft_configs`` (``fft_kernel_sweep``)."""
     from repro_torch.kernels import fft2d, ref, runtime
 
     gen = torch.Generator(device="cuda").manual_seed(14)
@@ -6238,6 +6348,79 @@ def fft_sweep(torch) -> list[dict]:
               f"{ {k: round(v, 4) if v else v for k, v in splits.items()} }; "
               f"composition {fmt_ms(comp)}; torch.fft.fft2 {fmt_ms(library)}",
               flush=True)
+    return rows + fft_kernel_sweep(torch)
+
+
+#: ``--fft-sweep``'s grids for the FFT kernel: the pipeline's bench grid
+#: and a tall one whose columns take a cluster
+FFT_SWEEP = ((8192, 8192), (4096, 256))
+
+
+def fft_configs(shape) -> list:
+    """The FFT kernel's configurations of a grid that it takes: rows a
+    row-pass block (1 to 8192 points' worth), columns a column-pass block
+    (4 to 32) and blocks a cluster (the least that holds the strip, up to
+    16).  The column pass has one design here, the cluster's
+    distributed-shared-memory stage; a four-step split over two passes
+    is not built."""
+    from repro_torch.kernels import runtime
+
+    r, c = shape
+    out = []
+    for rows in sorted({runtime.fft_config(r, c).rows,
+                        max(1, runtime.FFT_ROW_POINTS // 2 // c),
+                        max(1, runtime.FFT_BLOCK_POINTS // c)}):
+        for strip in (4, 8, 16, 32):
+            for cluster in (1, 2, 4, 8, 16):
+                tile = runtime.fft_config(r, c, rows=rows, strip=strip,
+                                          cluster=cluster)
+                least = cluster == 1 \
+                    or r // cluster * strip * 2 > runtime.FFT_BLOCK_POINTS
+                if runtime.fft_allows(r, c, tile) and least:
+                    out.append(tile)
+    return out
+
+
+def fft_kernel_sweep(torch) -> list[dict]:
+    """The FFT kernel at ``FFT_SWEEP``'s grids on each of
+    ``fft_configs``, each held to its plain version within the registry's
+    atol, with its device time (profiler, both passes) beside the
+    runtime's pick and ``torch.fft.fft2``'s."""
+    from repro_torch.kernels import fft2d, runtime
+
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    rows = []
+    for shape in FFT_SWEEP:
+        picked = runtime.fft2d_route(*shape)
+        re_, im_ = (torch.randn(shape, generator=gen, device="cuda")
+                    for _ in range(2))
+        times = {}
+        for tile in fft_configs(shape):
+            got = fft2d.fft2d(re_, im_, tiles=tile)
+            err = max((g - w).abs().max().item() for g, w in zip(
+                got, fft2d.fft_plain(re_, im_, tile)))
+            if err > 1.0:
+                fail(f"fft2d{shape} {tile}: max |err| {err}")
+            del got
+            times[tile] = device_ms(
+                torch, lambda t=tile: fft2d.fft2d(re_, im_, tiles=t),
+                "fft_pass_kernel", 10, launches=2)
+        library = device_ms(
+            torch, lambda: torch.fft.fft2(torch.complex(re_, im_)), None, 10)
+        best = min((t for t in times if times[t]), key=times.get)
+        rows.append(dict(shape=shape, picked=str(picked), best=str(best),
+                         times={str(t): ms for t, ms in times.items()},
+                         library=library))
+        by = "; ".join(f"rows {t.rows} strip {t.strip} cluster {t.cluster}: "
+                       f"{fmt_ms(ms)}" for t, ms in times.items())
+        print(f"sweep fft2d{shape} FFT kernel: picked rows {picked.rows} "
+              f"strip {picked.strip} cluster {picked.cluster} "
+              f"{fmt_ms(times.get(picked))}, fastest rows {best.rows} strip "
+              f"{best.strip} cluster {best.cluster} {fmt_ms(times[best])}; "
+              f"torch.fft.fft2 {fmt_ms(library)}; device ms by "
+              f"configuration: {by}", flush=True)
+        del re_, im_
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -6252,53 +6435,69 @@ CONV2D_SWEEP = tuple(("float32", f) for f in (
 
 def fft_bench_timing(torch) -> dict:
     """fft2d_stage at its bench grid (the registry's two 8192^2 cases, both
-    drawn as float32 planes) on the composition the runtime routes it to
-    (six float32 GEMMs on ``gemm_tc_kernel`` and their sums), held
-    against the plain version (``ref.fft2d``: ``torch.fft.fft2`` on
-    complex64, which is also the library call) within the registry's
-    atol, and timed: the composition's device time (profiler, every
-    kernel of a call) and CUDA-event time, the plain version's, and the
-    bounds of the FFT form (5 N log2 N operations; four planes moved) and
-    of the composition's DFT form (its six products at three TF32
-    products a product, their operands and results moved once)."""
-    from repro_torch.kernels import ref, registry, widesa_mm
+    drawn as float32 planes) on the FFT kernel the runtime routes it to
+    (``fft_pass_kernel``: a row pass and a column pass), held against the
+    plain version (``fft2d.fft_plain`` on the card, bitwise) and the
+    library call (``torch.fft.fft2`` on complex64, ``ref.fft2d``) within
+    the registry's atol, and timed: the kernel's device time (profiler,
+    both passes) and CUDA-event time, the plain version's, the library
+    call's, the composition's (six float32 GEMMs on ``gemm_tc_kernel`` and
+    their sums, the form before it: device time and CUDA events), and the
+    bounds of the FFT form (four planes moved once; 5 N log2 N operations)
+    and of the composition's DFT form (its six products at three TF32
+    products a product, their operands and results moved once).  No DFT
+    plane is built: past the twiddle tables of the first call, the card's
+    allocation returns to its level."""
+    from repro_torch.kernels import fft2d, ref, registry
 
     spec = registry.get("fft2d_stage")
     shape = spec.bench_cases[0][1]
-    routed, _, tile = fft_kernel(shape)
+    routed, composition, tile = fft_kernel(shape)
     gen = torch.Generator(device="cuda").manual_seed(24)
     re_, im_ = (torch.randn(shape, generator=gen, device="cuda")
                 for _ in range(2))
-    # the transform's DFT planes (512 MiB at 8192 points) are built for the
-    # call and freed with it, not cached (fft2d.DFT_CACHE_MAX_N)
-    held = torch.cuda.memory_allocated()
     routed(re_, im_)
     torch.cuda.synchronize()
-    left = torch.cuda.memory_allocated() - held
-    if left:
-        fail(f"fft2d{shape}: {left} bytes still allocated after the call")
-    print(f"fft2d{shape}: the card's allocation returns to its level before "
-          f"the call ({held} bytes): no DFT planes kept", flush=True)
-    before = dict(widesa_mm.variants)
+    held = torch.cuda.memory_allocated()
+    before = dict(fft2d.variants)
     got = routed(re_, im_)
-    routes = {v: widesa_mm.variants[v] - before[v] for v in before}
-    want = ref.fft2d(re_, im_)
-    err = max((g - w).abs().max().item() for g, w in zip(got, want))
-    if err > spec.atol or routes != {"skinny": 0, "wgmma": 6, "wgmma_cp": 0,
-                                     "tiled": 0}:
-        fail(f"fft2d{shape} bench: max |err| {err} (atol {spec.atol}), "
-             f"GEMM launches by kernel {routes}")
-    del got, want
+    torch.cuda.synchronize()
+    forms = {v: fft2d.variants[v] - before[v] for v in before}
+    left = torch.cuda.memory_allocated() - held - sum(
+        g.nbytes for g in got)
+    if left:
+        fail(f"fft2d{shape}: {left} bytes left allocated by the call")
+    plain = fft2d.fft_plain(re_, im_, tile)
+    bitwise = all(torch.equal(g, w) for g, w in zip(got, plain))
+    perr = max((g - w).abs().max().item() for g, w in zip(got, plain))
+    del plain
+    err = max((g - w).abs().max().item()
+              for g, w in zip(got, ref.fft2d(re_, im_)))
+    if err > spec.atol or perr > spec.atol \
+            or forms != {"fused": 0, "fft": 1, "composition": 0}:
+        fail(f"fft2d{shape} bench: max |err| {err} against torch.fft.fft2, "
+             f"{perr} against the plain version (atol {spec.atol}), "
+             f"transforms by form {forms}")
+    del got
+    torch.cuda.empty_cache()
     r, c = shape
     n = r * c
-    row = dict(tiles=tile, max_abs_err=err,
-               ms=time_ms(torch, lambda: routed(re_, im_), reps=5,
-                          warmup=1),
-               device_ms=device_ms(torch, lambda: routed(re_, im_), None, 3),
-               plain_ms=time_ms(torch, lambda: ref.fft2d(re_, im_), reps=5,
-                                warmup=1),
+    row = dict(tiles=tile, max_abs_err=err, plain_max_abs_err=perr,
+               bitwise=bitwise,
+               ms=time_ms(torch, lambda: routed(re_, im_), reps=20),
+               device_ms=device_ms(torch, lambda: routed(re_, im_),
+                                   "fft_pass_kernel", 10, launches=2),
+               plain_ms=time_ms(torch, lambda: fft2d.fft_plain(
+                   re_, im_, tile), reps=3, warmup=1),
+               library_ms=time_ms(torch, lambda: torch.fft.fft2(
+                   torch.complex(re_, im_)), reps=20),
+               library_device_ms=device_ms(torch, lambda: torch.fft.fft2(
+                   torch.complex(re_, im_)), None, 10),
+               composition_ms=time_ms(torch, lambda: composition(re_, im_),
+                                      reps=3, warmup=1),
+               composition_device_ms=device_ms(
+                   torch, lambda: composition(re_, im_), None, 3),
                launches=1)
-    row["library_ms"] = row["plain_ms"]
     row["bound_ms"], row["bound_by"] = least_ms(
         4 * n * 4, 5 * n * math.log2(n), "float32")
     row["dft_bound_ms"], row["dft_bound_by"] = least_ms(
@@ -6306,20 +6505,22 @@ def fft_bench_timing(torch) -> dict:
         "tfloat32")
     # the composition cannot beat its own DFT form's bound: a profiler
     # reading below it lost records, and the CUDA events stand
-    lost = row["device_ms"] is None or row["device_ms"] < row["dft_bound_ms"]
-    row["profiler_ms"] = row["device_ms"]
-    if lost:
-        row["device_ms"] = row["ms"]
-    print(f"time fft2d{shape} float32 planes [the bench cases, the "
-          f"composition: 6 mm launches by kernel {routes}]: {row['ms']:.4f} "
-          f"ms (device {fmt_ms(row['device_ms'])}"
-          + (f"; the profiler's {fmt_ms(row['profiler_ms'])} reads below "
-             "the DFT form's bound: lost records, the CUDA events stand"
-             if lost else "") + "), plain and library "
-          f"(torch.fft.fft2) {row['plain_ms']:.4f} ms, bound "
+    if row["composition_device_ms"] is None \
+            or row["composition_device_ms"] < row["dft_bound_ms"]:
+        row["composition_device_ms"] = row["composition_ms"]
+    print(f"time fft2d{shape} float32 planes [the bench cases, the FFT "
+          f"kernel on {tile}, two passes]: {row['ms']:.4f} ms (device "
+          f"{fmt_ms(row['device_ms'])}), library (torch.fft.fft2) "
+          f"{row['library_ms']:.4f} ms (device "
+          f"{fmt_ms(row['library_device_ms'])}), plain (fft2d.fft_plain) "
+          f"{row['plain_ms']:.4f} ms, the composition (six 3xTF32 GEMMs) "
+          f"{row['composition_ms']:.4f} ms (device "
+          f"{fmt_ms(row['composition_device_ms'])}); bound "
           f"{row['bound_ms']:.4f} ms ({row['bound_by']}, FFT form) and "
           f"{row['dft_bound_ms']:.4f} ms ({row['dft_bound_by']}, the DFT "
-          f"form in 3xTF32); max |err| {err:.4g} (atol {spec.atol}); on "
+          f"form in 3xTF32); max |err| {err:.4g} against torch.fft.fft2 "
+          f"(atol {spec.atol}), {perr:.4g} against the plain version "
+          f"(bitwise equal: {bitwise}); on "
           f"{torch.cuda.get_device_name(0)} [{nvidia_smi()}]", flush=True)
     del re_, im_
     torch.cuda.empty_cache()
@@ -6587,22 +6788,21 @@ def recurrences_phase(torch) -> tuple[dict, dict, dict, dict]:
              f"{variants['fir']}), the four bench cases call for 16 on the "
              f"15-tap one")
     # fft2d_stage's bench cases (two 8192^2 grids, above the fused kernel's
-    # 64 rows) on the composition, each transform counted there; its six
-    # float32 8192^3 products a transform are widesa_mm launches, all of
-    # them on wgmma (held below).  The fused kernel is held by phase 3
+    # 64 rows) on the FFT kernel, each transform (two passes) counted
+    # there, none on the composition.  The fused kernel is held by phase 3
     ffts = [row for row in rows if row["name"] == "fft2d_stage"]
     if [(r["dtype"], r["args"][:2]) for r in ffts] != list(
             registry.get("fft2d_stage").bench_cases) \
-            or any(isinstance(row["tiles"].tile, runtime.Fft2dTile)
-                   for row in ffts) \
-            or variants["fft2d"] != {"fused": 0,
-                                     "composition": len(ffts) * calls} \
+            or not all(isinstance(row["tiles"].tile, runtime.FftTile)
+                       for row in ffts) \
+            or variants["fft2d"] != {"fused": 0, "fft": len(ffts) * calls,
+                                     "composition": 0} \
             or launches["fft2d"] != len(ffts) * calls:
         fail(f"recurrences: fft2d cases "
              f"{[(r['dtype'], r['args'], r['tiles'].tile) for r in ffts]}, "
              f"launches {launches['fft2d']} by form {variants['fft2d']}: "
-             f"the bench cases call for {len(ffts) * calls} on the "
-             "composition")
+             f"the bench cases call for {len(ffts) * calls} on the FFT "
+             "kernel")
     # every mm / bmm (all above 16 rows: quickstart's, the smoke and the
     # paper's, float32 and the integers) on a tensor-core kernel, and each
     # launch of the two GEMM wrappers counted there
@@ -6628,7 +6828,7 @@ def recurrences_phase(torch) -> tuple[dict, dict, dict, dict]:
           f"({len(ints)} cases: {ints}), no tiled launch; mttkrp cases "
           f"{cases}; fft2d "
           f"{[(r['dtype'], r['args'], r['max_abs_err']) for r in ffts]} on "
-          f"the composition, each within the registry's atol "
+          f"the FFT kernel, each within the registry's atol "
           f"{registry.get('fft2d_stage').atol}"
           f"; star and conv2d cases on the runtime's launch, each counted "
           f"under its variant: {chose}; fir's bench cases "
@@ -6713,9 +6913,10 @@ def schedule_launches(name, backend, shape, rec) -> dict:
     if name == "fft2d_stage":
         if backend == "systolic":
             return {"widesa_mm": 2 * 4 * n ** 3}
-        fused = runtime.fft2d_route(rec.extent("i"), rec.extent("j"))
+        # the fused or the FFT kernel launch no GEMM; the composition six
+        routed = runtime.fft2d_route(rec.extent("i"), rec.extent("j"))
         return {"fft2d": members,
-                **({} if fused else {"widesa_mm": 6 * members})}
+                **({} if routed else {"widesa_mm": 6 * members})}
     if backend == "systolic" and name in ("mm", "bmm", "mttkrp"):
         return {wrapper: n ** 3}
     if name == "jacobi2d_ms":
@@ -8154,7 +8355,8 @@ MANGLED_TYPES = {"f": "float32", "a": "int8", "s": "int16", "i": "int32"}
 
 def kernel_resources(log: str) -> list[str]:
     """Registers and spill stores of each instantiation of the fused fft2d
-    kernel, of the tensor-core MTTKRP kernel, of the integer tensor-core
+    kernel and of the FFT kernel's two passes, of the tensor-core MTTKRP
+    kernel, of the integer tensor-core
     GEMM and its limb pre-pass, of the FIR kernel (real and complex), and
     of the window kernels (conv2d and the one-sweep star) and the
     multi-sweep star, from ``ptxas -v``'s lines in the build log."""
@@ -8178,6 +8380,9 @@ def kernel_resources(log: str) -> list[str]:
                      f"{tc.group(2)}>")
         elif "fft2d_kernel" in mangled:
             label = "fft2d_kernel"
+        elif fftp := re.search(r"fft_pass_kernelILb(\d)E", mangled):
+            label = ("fft_pass_kernel<columns>" if fftp.group(1) == "1"
+                     else "fft_pass_kernel<rows>")
         elif gemm := re.search(r"gemm_tc_int_kernelILi(\d)ELi(\d+)ELi(\d+)E",
                                mangled):
             label = (f"gemm_tc_int_kernel<{gemm.group(1)} limb(s), "
@@ -8204,6 +8409,27 @@ def kernel_resources(log: str) -> list[str]:
     return out
 
 
+def fft_entry(fft2d_entry: dict, k: dict, row: dict) -> dict:
+    """The kernels line's entry of the FFT kernel (``fft_pass_kernel``):
+    its launches on every path are those the fft2d wrapper counted under
+    its ``fft`` form (``fft2d_entry``, the entry before it); its times
+    are the pipeline's bench grid's (``fft_bench_timing``), the
+    composition's beside them."""
+    return {
+        "name": "fft2d_fft", "route": "cuda", "source": k["source"],
+        "replaces": k["replaces"],
+        "launches": {path: forms["fft"] for path, forms in
+                     fft2d_entry["launches_by_kernel"].items()},
+        "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+        "shape": "fft2d(8192, 8192) float32 planes", "tile": str(row["tiles"]),
+        **{key: row[key] for key in (
+            "device_ms", "library_device_ms", "composition_ms",
+            "composition_device_ms", "dft_bound_ms", "plain_max_abs_err",
+            "bitwise")}}
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -8218,7 +8444,9 @@ def main(argv=None) -> int:
                          "of K at the bench size")
     ap.add_argument("--fft-sweep", action="store_true",
                     help="only time the fused fft2d kernel with every split "
-                         "of K at the frontend and pipeline grids")
+                         "of K at the frontend and pipeline grids, and the "
+                         "FFT kernel with its configurations at 8192^2 and "
+                         "4096 x 256")
     ap.add_argument("--skinny-sweep", action="store_true",
                     help="only time the skinny GEMM with every split of K "
                          "at the MoE router's and other small-B shapes")
@@ -8286,7 +8514,8 @@ def main(argv=None) -> int:
                         if args.tc_sweep or args.skinny_sweep or args.train
                         or args.dense or args.mesh or args.dryrun
                         else ("widesa_mm", "widesa_hpc") if args.hier
-                        else ("widesa_mm", "widesa_sp") if args.fft_sweep
+                        else ("widesa_mm", "widesa_sp", "widesa_fft")
+                        if args.fft_sweep
                         else ("widesa_sp",)
                         if args.conv2d_sweep or args.fir_sweep
                         else tuple(build.SOURCES))
@@ -8355,9 +8584,11 @@ def main(argv=None) -> int:
     skinny_long_sums(torch)
     tc_parity(torch)
     sp_parity(torch)
+    fft_parity(torch)
     rows = timings(torch)
     tc_rows = tc_timings(torch)
     rows.update(sp_timings(torch))
+    tiled_timing(torch)
     print("kernels: widesa_mm (B1, widesa_mm.py mm_kernel -> cuda), bmm "
           "(B2, bmm.py bmm_kernel -> cuda) in " + SOURCE + " (skinny_kernel "
           "for M <= 16 at any K, gemm_tc_kernel on wgmma above in bf16 and "
@@ -8373,8 +8604,10 @@ def main(argv=None) -> int:
           "conv2d_kernel, compiled 4x4 / 8x8 / 5x4 windows and a generic "
           "one) in "
           + SP_SOURCE + "; fft2d (B4, fft2d.py fft2d/_cmul_mm -> cuda, "
-          "fft2d_kernel in " + SP_SOURCE + " up to 64 rows, the composition "
-          "over the GEMMs above); jacobi2d (B6, jacobi2d.py jacobi_kernel -> "
+          "fft2d_kernel in " + SP_SOURCE + " up to 64 rows, fft_pass_kernel "
+          "(fft2d_fft: row and column passes of Stockham FFTs) in "
+          + FFT_SOURCE + " above for power-of-two sides up to 8192, the "
+          "composition over the GEMMs above for the rest); jacobi2d (B6, jacobi2d.py jacobi_kernel -> "
           "cuda: star_kernel for one sweep, sweeps_kernel for T_b sweeps of "
           "jacobi2d_ms a launch), mttkrp (B7, mttkrp.py mttkrp_kernel -> cuda: "
           "mttkrp_tc_kernel on wgmma, float32 as 3xTF32, int8, int16 and "
@@ -8439,7 +8672,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     rec_launches, rec_variants, hpc_rows, gemm_rows = \
         recurrences_phase(torch)
-    rows[("fft2d", "bench")] = fft_bench_timing(torch)
+    rows[("fft2d_fft", "main")] = fft_bench_timing(torch)
     rows.update({(kname, "main"): hpc_rows[(kname, "float32")]
                  for kname in ("jacobi2d", "mttkrp")})
 
@@ -8447,6 +8680,9 @@ def main(argv=None) -> int:
     for kname, k in KERNELS.items():
         row = rows[(k["kind"], k["shape"], k["col_major"])] if "kind" in k \
             else rows[(kname, "main")]
+        if kname == "fft2d_fft":
+            summary.append(fft_entry(summary[-1], k, row))
+            continue
         entry = {
             "name": kname, "route": "cuda", "source": k["source"],
             "replaces": k["replaces"],
@@ -8527,13 +8763,6 @@ def main(argv=None) -> int:
                 for (name, where, *_), r in rows.items()
                 if name in (kname, kname + "_complex")
                 and str(where).startswith("bench")}
-        if kname == "fft2d":
-            # the pipeline's bench grid on the composition
-            bench = rows[("fft2d", "bench")]
-            entry["bench"] = {"fft2d(8192, 8192) float32 planes": {
-                key: bench[key] for key in (
-                    "ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
-                    "bound_by", "dft_bound_ms", "max_abs_err")}}
         if kname == "jacobi2d":
             # the other stars and dtypes timed, and jacobi2d_ms's call
             entry["timed"] = {

@@ -4,9 +4,10 @@ The sources live in ``csrc/``: ``widesa_mm.cu`` (the mm/bmm GEMMs:
 the skinny kernel, the tensor-core ones for floats and integers, and the
 tiled one),
 ``widesa_sp.cu`` (the FIR, real and complex, conv2d and fused fft2d
-signal-processing kernels) and
-``widesa_hpc.cu`` (the star stencils and the two MTTKRP kernels); the
-window kernels of both share ``window.cuh``.  Each
+signal-processing kernels),
+``widesa_hpc.cu`` (the star stencils and the two MTTKRP kernels) and
+``widesa_fft.cu`` (the 2-D FFT's row and column passes); the
+window kernels of the second and third share ``window.cuh``.  Each
 source is its own shared library; the first call on a machine compiles
 every source that is not built yet with ``nvcc`` for Hopper (``sm_90a``),
 one ``nvcc`` process per source, all started together, into
@@ -34,14 +35,16 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).with_name("csrc")
-#: the GEMM source (mm/bmm), the signal-processing source (fir/conv2d/fft2d) and
-#: the HPC source (the star stencils and mttkrp)
+#: the GEMM source (mm/bmm), the signal-processing source (fir/conv2d/fft2d
+#: up to 64 rows), the HPC source (the star stencils and mttkrp) and the
+#: FFT source (fft2d above)
 SOURCE = CSRC / "widesa_mm.cu"
 SP_SOURCE = CSRC / "widesa_sp.cu"
 HPC_SOURCE = CSRC / "widesa_hpc.cu"
 #: library name -> source
+FFT_SOURCE = CSRC / "widesa_fft.cu"
 SOURCES = {"widesa_mm": SOURCE, "widesa_sp": SP_SOURCE,
-           "widesa_hpc": HPC_SOURCE}
+           "widesa_hpc": HPC_SOURCE, "widesa_fft": FFT_SOURCE}
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -171,6 +174,11 @@ _ENTRIES = {
     # the fused fft2d: X's planes, F_R's, F_C's, Z's; R, C and the split
     "widesa_fft2d_launch": ("widesa_sp", [ctypes.c_void_p] * 8
                             + [ctypes.c_int] * 3 + [ctypes.c_void_p]),
+    # the FFT: X's planes, the row and column twiddle tables, Z's planes;
+    # R, C, each pass's radix plan (log2 radices, 4 bits a stage) and
+    # stages, rows a row-pass block, columns a column-pass block, cluster
+    "widesa_fft_launch": ("widesa_fft", [ctypes.c_void_p] * 6
+                          + [ctypes.c_int] * 9 + [ctypes.c_void_p]),
     # one star sweep: the shape, the star's points, dtypes, rows
     "widesa_star_launch": ("widesa_hpc", [ctypes.c_void_p] * 3
                            + [ctypes.c_int] * 6 + [ctypes.c_void_p]),

@@ -8,8 +8,9 @@ star stencils ``jacobi2d``, ``jacobi2d_9pt`` and ``jacobi2d_ms``, and
 loops of the reference kernel, how a plan's partition becomes tile
 kwargs, how those map onto a compiled Hopper tile (``tiles``), two
 lowerings — ``hopper`` (the hand-written CUDA kernel; for
-``fft2d_stage`` the fused kernel, or above 64 rows a composition over
-the mm kernel) and ``ref`` (the plain PyTorch version) — the
+``fft2d_stage`` the fused kernel up to 64 rows, above it the FFT kernel
+where both sides are powers of two, else a composition over the mm
+kernel) and ``ref`` (the plain PyTorch version) — the
 reference's chip-level hooks (``systolic_lowering``,
 ``allgather_lowering``, ``fused_systolic_lowering``: the schedules of
 ``kernels/systolic.py``; ``supports_systolic``) and the chain metadata
@@ -197,9 +198,9 @@ register(KernelSpec(
     arity=2,
     grid_loops=("i", "j", "k"),
     block_kwargs=_mm_blocks,
-    # the fused kernel where the runtime routes the grid to it, else the
-    # composition over the mm kernels with the plan's tiled tile as the
-    # fallback of its products
+    # the fused kernel or the FFT kernel where the runtime routes the grid
+    # to one, else the composition over the mm kernels with the plan's
+    # tiled tile as the fallback of its products
     tiles=runtime.fft2d_tile,
     hopper=_fft2d.fft2d,
     ref=ref.fft2d,

@@ -133,17 +133,21 @@ mttkrp runs one of two kernels of ``csrc/widesa_hpc.cu`` (``mttkrp_tile``,
 * The CUDA-core kernel (``build.MTTKRP_TILE``) takes what the
   tensor-core kernel refuses.
 
-fft2d (``fft2d_tile``, ``fft2d_route``) runs one of two forms, chosen from
-the shape: the fused kernel of ``csrc/widesa_sp.cu`` (one launch, both DFT
-stages, an ``Fft2dTile``) for grids of at most ``FFT2D_MAX_ROWS`` rows
-whose passes fit in shared memory, else the composition of six GEMMs
-(``gemm_tile`` for each product, the plan's tiled tile where neither the
-skinny nor the tensor-core kernel applies).  At the largest grid it takes,
-the recurrence pipeline's 64 x 64, the fused kernel ran in 0.0059 ms on
-an H100 against the composition's 0.0385 (``chip_smoke.py --fft-sweep``;
-PERF.md).  It splits K (the columns of the grid) over the blocks of a
-cluster, as far as the grid stays within ``FFT2D_MAX_BLOCKS`` blocks
-(``fft2d_split``).
+fft2d (``fft2d_tile``, ``fft2d_route``) runs one of three forms, chosen
+from the shape: the fused kernel of ``csrc/widesa_sp.cu`` (one launch, both
+DFT stages, an ``Fft2dTile``) for grids of at most ``FFT2D_MAX_ROWS`` rows
+whose passes fit in shared memory; else, where both sides are powers of two
+up to ``FFT_MAX_SIDE``, the FFT kernel of ``csrc/widesa_fft.cu`` (a row
+pass and a column pass of Stockham FFTs, an ``FftTile``: ``fft_config``);
+else the composition of six GEMMs (``gemm_tile`` for each product, the
+plan's tiled tile where neither the skinny nor the tensor-core kernel
+applies).  At the largest grid the fused kernel takes, the recurrence
+pipeline's 64 x 64, it ran in 0.0059 ms on an H100 against the
+composition's 0.0385 (``chip_smoke.py --fft-sweep``; PERF.md).  It splits K
+(the columns of the grid) over the blocks of a cluster, as far as the grid
+stays within ``FFT2D_MAX_BLOCKS`` blocks (``fft2d_split``).  At the
+pipeline's 8192^2 bench grids the FFT kernel replaces the composition's six
+8192^3 products (PERF.md, PR 34).
 
 ``acc_dtype``/``out_dtype`` are the reference's accumulator ladder:
 integer inputs accumulate and land in int32, floats accumulate in fp32
@@ -163,6 +167,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 from typing import TYPE_CHECKING
 
 import torch
@@ -1024,19 +1029,122 @@ def fft2d_allows(nr: int, nc: int, split: int) -> bool:
     return (split - 1) * kblk < nc and fft2d_smem(nr, kc) <= FFT2D_MAX_SMEM
 
 
-def fft2d_route(nr: int, nc: int) -> Fft2dTile | None:
-    """The fused kernel's configuration for an ``nr`` x ``nc`` grid, or
-    None where the composition runs (module docstring)."""
+#: the FFT kernel's geometry (``kStock*`` in csrc/widesa_fft.cu): complex
+#: points a thread holds through a stage, the largest radix, the points a
+#: block holds (both planes in shared memory, a pad word every 32), the
+#: largest cluster and side
+FFT_POINTS = 16
+FFT_MAX_RADIX = 16
+FFT_BLOCK_POINTS = 8192
+FFT_MAX_CLUSTER = 16
+FFT_MAX_SIDE = 8192
+#: the row pass's points a block where rows are short (rows grouped), and
+#: the column pass's columns a block (64 bytes a plane a row): at 8192^2
+#: 16 columns over a cluster of 16 ran fastest of the strips 4-16, each on
+#: the least cluster that holds it (``chip_smoke.py --fft-sweep``; PERF.md)
+FFT_ROW_POINTS = 4096
+FFT_STRIP = 16
+
+
+@dataclasses.dataclass(frozen=True)
+class FftTile:
+    """An FFT launch (csrc/widesa_fft.cu): the row pass's radices and rows
+    a block; the column pass's radices within a block, columns a block
+    (``strip``) and blocks a column (``cluster``: a last radix-``cluster``
+    stage across the cluster's shared memory when above 1)."""
+
+    row_radices: tuple[int, ...]
+    col_radices: tuple[int, ...]
+    rows: int
+    strip: int
+    cluster: int
+
+
+def _pow2(n: int) -> bool:
+    return n > 0 and n & (n - 1) == 0
+
+
+def fft_radices(n: int) -> tuple[int, ...]:
+    """The radix plan of an n-point FFT (n a power of two): as few stages
+    as radix ``FFT_MAX_RADIX`` allows, log2 n spread evenly over them, the
+    larger radices first."""
+    bits = n.bit_length() - 1
+    stages = max(1, -(-bits // 4))
+    base, extra = divmod(bits, stages)
+    return tuple([2 ** (base + 1)] * extra + [2 ** base] * (stages - extra))
+
+
+def fft_config(nr: int, nc: int, rows: int | None = None,
+               strip: int | None = None,
+               cluster: int | None = None) -> FftTile:
+    """The FFT launch of an ``nr`` x ``nc`` grid: ``FFT_ROW_POINTS`` points
+    a row-pass block (whole rows, at least one), ``FFT_STRIP`` columns a
+    column-pass block, and the smallest cluster whose blocks hold their
+    share of a column; each may be given instead (``chip_smoke.py
+    --fft-sweep``)."""
+    if rows is None:
+        rows = min(nr, max(1, FFT_ROW_POINTS // nc))
+    if strip is None:
+        strip = min(nc, FFT_STRIP)
+    if cluster is None:
+        cluster = 1
+        while cluster < FFT_MAX_CLUSTER \
+                and nr // cluster * strip > FFT_BLOCK_POINTS:
+            cluster *= 2
+    return FftTile(row_radices=fft_radices(nc),
+                   col_radices=fft_radices(max(1, nr // cluster)),
+                   rows=rows, strip=strip, cluster=cluster)
+
+
+def fft_allows(nr: int, nc: int, tile: FftTile) -> bool:
+    """Whether the FFT kernel takes an ``nr`` x ``nc`` grid on ``tile``
+    (``launch_fft`` in csrc/widesa_fft.cu checks the same): both sides
+    powers of two from 2 to ``FFT_MAX_SIDE``, blocks of whole rows and
+    strips within ``FFT_BLOCK_POINTS`` points and at least a thread's,
+    radix plans of radices 2 to ``FFT_MAX_RADIX`` over each side."""
+    if not (_pow2(nr) and _pow2(nc) and 2 <= nr <= FFT_MAX_SIDE
+            and 2 <= nc <= FFT_MAX_SIDE):
+        return False
+    rows, strip, cluster = tile.rows, tile.strip, tile.cluster
+    if not (_pow2(rows) and rows <= nr and _pow2(strip) and strip <= nc
+            and _pow2(cluster) and cluster <= FFT_MAX_CLUSTER
+            and cluster < nr):
+        return False
+    col_n = nr // cluster
+    if not all(FFT_POINTS <= pts <= FFT_BLOCK_POINTS
+               for pts in (rows * nc, col_n * strip)):
+        return False
+
+    def covers(radices, n):
+        return 1 <= len(radices) <= 8 and math.prod(radices) == n and all(
+            _pow2(r) and 2 <= r <= FFT_MAX_RADIX for r in radices)
+
+    return covers(tile.row_radices, nc) and covers(tile.col_radices, col_n)
+
+
+def radix_logs(radices) -> int:
+    """A radix plan as the kernel takes it: log2 of each radix, 4 bits a
+    stage, the first stage lowest."""
+    return sum((r.bit_length() - 1) << (4 * s) for s, r in enumerate(radices))
+
+
+def fft2d_route(nr: int, nc: int) -> Fft2dTile | FftTile | None:
+    """The form that runs an ``nr`` x ``nc`` grid (module docstring): the
+    fused kernel's configuration, else the FFT kernel's, else None where
+    the composition runs."""
     split = fft2d_split(nr, nc)
-    return Fft2dTile(split=split) if fft2d_allows(nr, nc, split) else None
+    if fft2d_allows(nr, nc, split):
+        return Fft2dTile(split=split)
+    tile = fft_config(nr, nc)
+    return tile if fft_allows(nr, nc, tile) else None
 
 
 def fft2d_tile(plan: "ExecutionPlan", x_re: torch.Tensor,
                x_im: torch.Tensor) -> HopperTiles:
     """An fft2d_stage plan's tiles beside the form that runs the grid
-    ``x_re + i x_im``: the fused kernel's ``Fft2dTile`` (``fft2d_route``),
-    else the tiled tile the composition falls back to
-    (``hopper_tiles``)."""
+    ``x_re + i x_im``: the fused kernel's ``Fft2dTile`` or the FFT
+    kernel's ``FftTile`` (``fft2d_route``), else the tiled tile the
+    composition falls back to (``hopper_tiles``)."""
     tiles = hopper_tiles(plan)
     return HopperTiles(plan=tiles.plan,
                        tile=fft2d_route(*x_re.shape) or tiles.tile)

@@ -289,7 +289,9 @@ def _cring(plan, mesh, ax0, ax1, steps, ar, ai, br, bi):
 def cannon_fft2d(plan: "ExecutionPlan", mesh) -> Callable:
     """Complex two-plane Cannon for the 2-D FFT's DFT stages: both stages
     of ``Z = F_R @ X @ F_C`` ride the same ring, one call each, the DFT
-    planes staged on the caller's device."""
+    planes staged on the caller's device.  It stays in the DFT form at
+    every size: a Cannon ring is a distributed product of ``F_R``, ``X``
+    and ``F_C`` by construction, so the FFT kernel has no place in it."""
     ax0, ax1, steps = _require_square(plan, mesh, "complex cannon (fft2d)")
 
     def local(ar, ai, br, bi):
@@ -725,7 +727,9 @@ def fused_cannon_mm(fused_plan, mesh) -> Callable:
 def fused_cannon_fft2d(fused_plan, mesh) -> Callable:
     """Both DFT stages of the 2-D FFT on ONE complex two-plane ring:
     after ring 1 the Y block sits unskewed at (i, j), the left-operand
-    sharding ring 2 re-skews from, so Y never leaves the members."""
+    sharding ring 2 re-skews from, so Y never leaves the members.  Like
+    ``cannon_fft2d`` it stays in the DFT form: the ring distributes the
+    products of ``F_R``, ``X`` and ``F_C``."""
     plan = fused_plan.stage_plans[0]
     ax0, ax1, steps = _require_square(
         plan, mesh, "fused complex cannon (fft2d)")
@@ -889,7 +893,8 @@ def allgather_mttkrp(plan: "ExecutionPlan", mesh) -> Callable:
 
 def allgather_fft2d(plan: "ExecutionPlan", mesh) -> Callable:
     """Broadcast baseline for fft2d: both planes on every member, the
-    hand fft2d (the fused kernel or the composition over B1) over the
+    hand fft2d (the fused kernel, the FFT kernel, or the composition over
+    B1, as ``runtime.fft2d_route`` picks for the whole grid) over the
     whole grid, each keeping its own (row, col) block of each plane."""
     ax0, ax1 = _space_axes(plan)
     n0, n1 = mesh.shape[ax0], mesh.shape[ax1]

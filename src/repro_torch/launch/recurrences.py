@@ -39,8 +39,8 @@ so); the complex arithmetic is
 ``fir.fir_complex``, which ``chip_smoke.py`` times.  Both packages'
 registries draw fft2d_stage's two cases as two float32 planes, the
 operands the port's kernel takes, so no complex lowering is missing; at
-8192 rows they run the composition over the tensor-core GEMM (six
-float32 8192^3 products a transform), above the fused kernel's 64.
+8192 rows, above the fused kernel's 64, they run the FFT kernel
+(``csrc/widesa_fft.cu``: a row pass and a column pass of Stockham FFTs).
 bmm's plain version runs one batch entry at a time (``BATCHED``): at 64
 x 4096^3 a whole one would need ~70 GB of exact-integer temporaries.
 ``--device cpu`` runs the plain versions (the wrappers' CPU path) at
@@ -200,6 +200,9 @@ def run_case(spec, rec, target, generator, device) -> dict:
                tiles=tiles, max_abs_err=err, ok=ok, ms=ms)
     if tiles is None:
         compiled = "the plain version"
+    elif spec.name == "fft2d_stage" and isinstance(tiles.tile,
+                                                   runtime.FftTile):
+        compiled = f"the FFT kernel's row and column passes on {tiles.tile}"
     elif spec.name == "fft2d_stage" and not isinstance(tiles.tile,
                                                        runtime.Fft2dTile):
         compiled = (f"the composition: six GEMMs a transform on the "

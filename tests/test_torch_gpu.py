@@ -28,7 +28,9 @@ draws, in fp32 or as 3xTF32 on the tensor cores; the GEMMs: sums of at
 most 11004 products of N(0, 1) draws, 3xTF32 on the tensor-core kernel
 at up to 1024; the rounding error of either is ~1e-4) and 1.0 (fft2d,
 the fused kernel and the composition: sums of up to 1024 terms of
-magnitude ~100); bf16 results within one bf16 rounding step of the
+magnitude ~100; the FFT kernel, up to 8192^2 points whose outputs reach
+~3e4, and bitwise equal to its plain version, which rounds each product
+and sum as it does); bf16 results within one bf16 rounding step of the
 output, ``2^-7 |ref|``, plus 1e-3.
 """
 
@@ -256,13 +258,15 @@ def test_fused_fft2d_matches_plain_version_on_the_card(shape, gen):
 @pytest.mark.gpu
 def test_fft2d_route_by_rows_on_the_card(gen):
     """The registry's tiles: the fused kernel at the pipeline's 64 x 64
-    grid, the composition at 96 rows; each launch counted under its form,
-    and a fused launch the kernel does not take raises."""
+    grid, the composition at 96 rows, the FFT kernel at 128; each launch
+    counted under its form, and a fused launch the kernel does not take
+    raises."""
     from repro_torch.core import Target, best_plan, lower_plan
 
     chip = Target(name="single_chip", mesh_shape=(1, 1))
     spec = registry.get("fft2d_stage")
-    for shape, form in (((64, 64), "fused"), ((96, 64), "composition")):
+    for shape, form in (((64, 64), "fused"), ((96, 64), "composition"),
+                        ((128, 64), "fft")):
         rec = spec.builder(*shape, "float32")
         ops = registry.operands(rec, gen, "cuda")
         before = dict(fft2d.variants)
@@ -271,14 +275,68 @@ def test_fft2d_route_by_rows_on_the_card(gen):
             torch.testing.assert_close(g, w, rtol=0, atol=1.0)
         torch.cuda.synchronize()
         assert {k: fft2d.variants[k] - before[k] for k in before} == {
-            "fused": form == "fused", "composition": form == "composition"}
+            "fused": form == "fused", "fft": form == "fft",
+            "composition": form == "composition"}
         assert isinstance(runtime.last_tiles["fft2d_stage"].tile,
                           runtime.Fft2dTile) == (form == "fused")
+        assert isinstance(runtime.last_tiles["fft2d_stage"].tile,
+                          runtime.FftTile) == (form == "fft")
     re_, im_ = (torch.randn((12, 515), generator=gen, device="cuda")
                 for _ in range(2))
     for split in (0, 9):  # no cluster, and past the portable 8
         with pytest.raises(ValueError, match="not a fused fft2d launch"):
             fft2d.fft2d(re_, im_, tiles=runtime.Fft2dTile(split=split))
+
+
+#: the FFT kernel's shapes: a square, a tall grid over a cluster of 8,
+#: long rows, and the pipeline's bench grid
+FFT_KERNEL_SHAPES = ((128, 128), (4096, 256), (512, 8192), (8192, 8192))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", FFT_KERNEL_SHAPES, ids=str)
+def test_fft_kernel_matches_plain_version_on_the_card(shape, gen):
+    """The FFT kernel's two passes on the runtime's tile, counted under
+    ``fft``: bitwise equal to ``fft2d.fft_plain`` on the card (each product
+    and sum rounded alone in both), and within the registry's atol of
+    ``torch.fft.fft2`` (``ref.fft2d``) as a check."""
+    re_, im_ = (torch.randn(shape, generator=gen, device="cuda")
+                for _ in range(2))
+    tile = runtime.fft2d_route(*shape)
+    assert isinstance(tile, runtime.FftTile)
+    before = dict(fft2d.variants)
+    got = fft2d.fft2d(re_, im_, tiles=tile)
+    torch.cuda.synchronize()
+    assert {k: fft2d.variants[k] - before[k] for k in before} == {
+        "fused": 0, "fft": 1, "composition": 0}
+    for g, w in zip(got, fft2d.fft_plain(re_, im_, tile)):
+        assert torch.equal(g, w)
+    for g, w in zip(got, ref.fft2d(re_, im_)):
+        torch.testing.assert_close(g, w, rtol=0, atol=1.0)
+
+
+@pytest.mark.gpu
+def test_fft_kernel_bad_launch_raises(gen):
+    """A configuration the kernel refuses: the wrapper's check raises
+    before the launch, and the entry point itself returns an error (a
+    strip wider than the grid) that ``build.call`` raises."""
+    shape = (128, 64)
+    re_, im_ = (torch.randn(shape, generator=gen, device="cuda")
+                for _ in range(2))
+    tile = dataclasses.replace(runtime.fft2d_route(*shape), strip=128)
+    with pytest.raises(ValueError, match="not an fft launch"):
+        fft2d.fft2d(re_, im_, tiles=tile)
+    tw = fft2d.twiddles(64, re_.device), fft2d.twiddles(128, re_.device)
+    z = torch.empty_like(re_)
+    with pytest.raises(RuntimeError, match="widesa_fft_launch failed"):
+        build.call("widesa_fft_launch", re_.data_ptr(), im_.data_ptr(),
+                   tw[0].data_ptr(), tw[1].data_ptr(), z.data_ptr(),
+                   z.data_ptr(), 128, 64,
+                   runtime.radix_logs(tile.row_radices),
+                   len(tile.row_radices),
+                   runtime.radix_logs(tile.col_radices),
+                   len(tile.col_radices), tile.rows, tile.strip,
+                   tile.cluster)
 
 
 #: ragged stencil grids (outputs not multiples of the tiles) per star, and
@@ -2192,14 +2250,17 @@ def test_chip_level_schedule_on_a_logical_mesh_on_the_card(case, gen):
 
 @pytest.mark.gpu
 def test_fft2d_at_8192_points_leaves_no_allocation_on_the_card(gen):
-    """An 8192^2 fft2d_stage (the bench grid, on the composition) builds
-    its 512 MiB of DFT planes for the call: afterwards the card's
-    allocation is back at its level before the call."""
+    """An 8192^2 fft2d_stage (the bench grid, on the FFT kernel) builds no
+    DFT plane: past its twiddle tables (64 KB a side, cached at the first
+    call), the card's allocation is back at its level before the call."""
     spec = registry.get("fft2d_stage")
     shape = spec.bench_cases[0][1]
     re_, im_ = (torch.randn(shape, generator=gen, device="cuda")
                 for _ in range(2))
     tiles = runtime.fft2d_route(*shape)
+    assert isinstance(tiles, runtime.FftTile)
+    fft2d.fft2d(re_, im_, tiles=tiles)
+    torch.cuda.synchronize()
     held = torch.cuda.memory_allocated()
     fft2d.fft2d(re_, im_, tiles=tiles)
     torch.cuda.synchronize()

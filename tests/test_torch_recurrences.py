@@ -182,10 +182,10 @@ def test_fft2d_bench_cases_plan_as_the_reference_on_the_composition(dtype,
                                                                     args):
     """The pipeline's bench run takes fft2d_stage's two 8192^2 cases (the
     reference's ``bench_cases``); the single-chip plan it runs equals the
-    reference's ``best_plan``, and the runtime routes the grid to the
-    composition (above the fused kernel's 64 rows), whose six float32
-    8192^3 products each take the tensor-core kernel.  Planning only: no
-    8192^2 product runs on the CPU."""
+    reference's ``best_plan``, and the runtime routes the grid to the FFT
+    kernel (above the fused kernel's 64 rows, both sides powers of two),
+    not to the composition's six float32 8192^3 products.  Planning only:
+    no 8192^2 transform runs on the CPU."""
     spec = registry.get("fft2d_stage")
     assert (dtype, args) in [(d, a) for s, d, a in
                              recurrences.registry_cases("bench")
@@ -203,11 +203,9 @@ def test_fft2d_bench_cases_plan_as_the_reference_on_the_composition(dtype,
         == [torch.float32] * 2
     plane = torch.empty(args, device="meta")
     tiles = runtime.fft2d_tile(plan, plane, plane)
-    assert runtime.fft2d_route(*args) is None
-    assert not isinstance(tiles.tile, runtime.Fft2dTile)
-    r, c = args
-    assert runtime.tc_tile(r, c, r, torch.float32, 1) is not None
-    assert runtime.tc_tile(r, c, c, torch.float32, 1) is not None
+    assert runtime.fft2d_route(*args) == runtime.fft_config(*args)
+    assert tiles.tile == runtime.fft_config(*args)
+    assert runtime.fft_allows(*args, tiles.tile)
 
 
 @pytest.mark.parametrize("name", registry.registered_names())
